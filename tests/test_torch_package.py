@@ -1,0 +1,103 @@
+"""Boundaries of the PyTorch/CUDA port: it imports neither JAX nor the JAX
+package (and ``triton`` only inside functions), its entry points refuse to
+drop to the CPU on their own, and JAX bf16 weights cross bit-exactly."""
+
+import ast
+from pathlib import Path
+
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+
+from triton_distributed_tpu_torch.models.config import tiny_config
+from triton_distributed_tpu_torch.models.convert import (
+    array_to_tensor, params_from_numpy,
+)
+from triton_distributed_tpu_torch.models.dense import init_dense_llm
+from triton_distributed_tpu_torch.models.engine import Engine
+from triton_distributed_tpu_torch.runtime import build
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((ROOT / "triton_distributed_tpu_torch").rglob("*.py")) \
+    + [ROOT / "chip_smoke.py"]
+
+
+def _violations(path: Path) -> list[str]:
+    tree = ast.parse(path.read_text(), filename=str(path))
+    module_level = {id(n) for n in tree.body}
+    for node in tree.body:          # imports under module-level if/try too
+        if isinstance(node, (ast.If, ast.Try)):
+            module_level |= {id(n) for n in ast.walk(node)}
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots = [a.name.split(".")[0] for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots = [node.module.split(".")[0]]
+        else:
+            continue
+        for root in roots:
+            if root in ("jax", "jaxlib", "triton_distributed_tpu"):
+                bad.append(f"{path.name}:{node.lineno} imports {root}")
+            if root == "triton" and id(node) in module_level:
+                bad.append(f"{path.name}:{node.lineno} imports triton at "
+                           "module level")
+    return bad
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_port_imports_no_jax(path):
+    assert path.exists(), path
+    assert _violations(path) == []
+
+
+def test_import_guard_catches_a_violation(tmp_path):
+    f = tmp_path / "bad.py"
+    f.write_text("import jax.numpy as jnp\nimport triton\n"
+                 "from triton_distributed_tpu.models import config\n"
+                 "def k():\n    import triton\n")
+    assert len(_violations(f)) == 3
+
+
+def test_entry_points_default_to_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = tiny_config(num_layers=1)
+    params = init_dense_llm(cfg, generator=torch.Generator().manual_seed(0),
+                            device="cpu")
+    with pytest.raises(RuntimeError, match="is_available"):
+        Engine(cfg, params, device=None, max_seq=16, page_size=4)
+    with pytest.raises(RuntimeError, match="is_available"):
+        init_dense_llm(cfg, generator=torch.Generator(), device=None)
+    with pytest.raises(RuntimeError, match="is_available"):
+        params_from_numpy({"w": np.zeros(2, np.float32)}, cfg)
+
+
+def test_params_from_numpy_bf16_bit_exact():
+    rng = np.random.default_rng(0)
+    a = (rng.standard_normal((33, 7)) * 100).astype(ml_dtypes.bfloat16)
+    a[0, :4] = [np.inf, -np.inf, 0.0, -0.0]
+    t = array_to_tensor(a)
+    assert t.dtype == torch.bfloat16 and t.shape == a.shape
+    np.testing.assert_array_equal(t.view(torch.int16).numpy().view(np.uint16),
+                                  a.view(np.uint16))
+    tree = {"layers": [{"w": a}], "n": np.ones(3, np.float32)}
+    out = params_from_numpy(tree, tiny_config(dtype="bfloat16"),
+                            device="cpu")
+    assert torch.equal(out["layers"][0]["w"], t)
+    assert out["n"].dtype == torch.bfloat16
+
+
+def test_kernel_build_is_lazy_and_keyed_by_source():
+    """Importing the ops builds nothing; the library name hashes the
+    source, so each kernel gets its own file in the git-ignored build
+    directory."""
+    srcs = build.sources()
+    assert [s.name for s in srcs] == ["flash_attention.cu",
+                                      "paged_attention.cu"]
+    paths = {build.library_path(s) for s in srcs}
+    assert len(paths) == 2
+    assert all(p.parent == build.BUILD_DIR for p in paths)
+    gitignore = (ROOT / ".gitignore").read_text().split()
+    assert "triton_distributed_tpu_torch/_build/" in gitignore

@@ -1,0 +1,1 @@
+"""layers of the PyTorch/CUDA port (see the package docstring)."""

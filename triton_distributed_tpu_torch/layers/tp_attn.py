@@ -1,0 +1,125 @@
+"""Attention layer at tensor-parallel degree 1 — counterpart of the JAX
+package's ``layers/tp_attn.py`` (its replicated/single-rank branches).
+
+Projections are ``torch.matmul`` on weights kept in the JAX ``(in, out)``
+layout; attention goes through the port's kernels: K1 (flash prefill,
+whole prompt or one chunk at a host-int offset) and K2 (paged decode).
+Multi-rank modes (AG+GEMM, GEMM+RS, fused AllReduce) come with the
+multi-GPU slices.
+
+Caches are updated IN PLACE (the port's stand-in for JAX's donated
+functional updates): the functions write the new K/V into the cache
+tensors they are given and return the same cache objects.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from triton_distributed_tpu_torch.layers.common import (
+    KVSlice, apply_rope, rms_norm, rope_cos_sin,
+)
+from triton_distributed_tpu_torch.models.config import ModelConfig
+from triton_distributed_tpu_torch.ops.flash_attention import (
+    flash_attention_partial, shard_attention,
+)
+from triton_distributed_tpu_torch.ops.paged_attention import (
+    PagedKVCache, paged_append, paged_decode_attention,
+)
+
+
+def init_tp_attn(cfg: ModelConfig, dtype, *, generator: torch.Generator,
+                 device) -> dict:
+    """Random weights with the JAX package's scales, (in, out) layout."""
+    def normal(shape, scale):
+        return torch.randn(shape, generator=generator, dtype=dtype,
+                           device=device) * scale
+
+    h, qs, kvs = cfg.hidden_size, cfg.q_size, cfg.kv_size
+    params = {
+        "wq": normal((h, qs), h ** -0.5),
+        "wk": normal((h, kvs), h ** -0.5),
+        "wv": normal((h, kvs), h ** -0.5),
+        "wo": normal((qs, h), qs ** -0.5),
+    }
+    if cfg.qk_norm:
+        params["q_norm"] = torch.ones((cfg.head_dim,), dtype=dtype,
+                                      device=device)
+        params["k_norm"] = torch.ones((cfg.head_dim,), dtype=dtype,
+                                      device=device)
+    return params
+
+
+def _project_qkv(params: dict, cfg: ModelConfig, x: torch.Tensor,
+                 batch: int, seq: int):
+    """x (B·S, h) → q (B,S,hq,d), k/v (B,S,hkv,d) with Qwen3 qk-norm."""
+    d = cfg.head_dim
+    q = (x @ params["wq"]).reshape(batch, seq, -1, d)
+    k = (x @ params["wk"]).reshape(batch, seq, -1, d)
+    v = (x @ params["wv"]).reshape(batch, seq, -1, d)
+    if cfg.qk_norm:
+        q = rms_norm(q, params["q_norm"], cfg.rms_norm_eps)
+        k = rms_norm(k, params["k_norm"], cfg.rms_norm_eps)
+    return q, k, v
+
+
+def _out_proj(attn: torch.Tensor, params: dict) -> torch.Tensor:
+    return attn @ params["wo"]
+
+
+def tp_attn_prefill(params: dict, cfg: ModelConfig, x: torch.Tensor,
+                    batch: int, seq: int, kv_slice: KVSlice | None = None):
+    """Causal prefill of whole prompts. x: (B·S, h). Writes the prompt's
+    K/V into ``kv_slice`` at [0, S) in place; returns (out (B·S, h), the
+    slice — or a fresh KVSlice of the prompt's K/V when none is given)."""
+    q, k, v = _project_qkv(params, cfg, x, batch, seq)
+    cos, sin = rope_cos_sin(torch.arange(seq, device=x.device),
+                            cfg.head_dim, cfg.rope_theta)
+    q = apply_rope(q, cos[None], sin[None])
+    k = apply_rope(k, cos[None], sin[None])
+    if kv_slice is not None:
+        kv_slice.k[:, :seq] = k.to(kv_slice.k.dtype)
+        kv_slice.v[:, :seq] = v.to(kv_slice.v.dtype)
+        new_kv = kv_slice
+    else:
+        new_kv = KVSlice(k=k, v=v)
+    attn = shard_attention(q, k, v, causal=True)          # K1, normalized
+    return _out_proj(attn.reshape(batch * seq, -1), params), new_kv
+
+
+def tp_attn_prefill_chunk(params: dict, cfg: ModelConfig, x: torch.Tensor,
+                          kv_slice: KVSlice, start: int, chunk_len: int):
+    """Chunked-prefill attention: the chunk's queries (positions
+    [start, start+chunk_len)) attend the cached prefix. ``start`` is a
+    host int. Attention runs over the whole capacity of ``kv_slice``;
+    positions past the written prefix are hidden by causality and K1 never
+    loads their tiles. Writes the chunk's K/V into ``kv_slice`` in place;
+    returns (out (B·C, h), kv_slice)."""
+    batch = x.shape[0] // chunk_len
+    q, k, v = _project_qkv(params, cfg, x, batch, chunk_len)
+    pos = start + torch.arange(chunk_len, device=x.device)
+    cos, sin = rope_cos_sin(pos, cfg.head_dim, cfg.rope_theta)
+    q = apply_rope(q, cos[None], sin[None])
+    k = apply_rope(k, cos[None], sin[None])
+    kv_slice.k[:, start:start + chunk_len] = k.to(kv_slice.k.dtype)
+    kv_slice.v[:, start:start + chunk_len] = v.to(kv_slice.v.dtype)
+    acc, _, l = flash_attention_partial(
+        q, kv_slice.k.to(q.dtype), kv_slice.v.to(q.dtype),
+        q_offset=start, k_offset=0, causal=True)           # K1, partial
+    attn = (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
+    return _out_proj(attn.reshape(batch * chunk_len, -1), params), kv_slice
+
+
+def tp_attn_decode_paged(params: dict, cfg: ModelConfig, x: torch.Tensor,
+                         cache: PagedKVCache):
+    """One-token decode over a paged cache at per-sequence positions
+    (``cache.kv_lens``). Appends this token's K/V to the pools in place;
+    returns (out (B, h), cache with kv_lens advanced)."""
+    batch = x.shape[0]
+    q, k, v = _project_qkv(params, cfg, x, batch, 1)
+    cos, sin = rope_cos_sin(cache.kv_lens, cfg.head_dim, cfg.rope_theta)
+    q = apply_rope(q, cos[:, None], sin[:, None])
+    k = apply_rope(k, cos[:, None], sin[:, None])
+    cache = paged_append(cache, k[:, 0], v[:, 0])
+    attn = paged_decode_attention(q[:, 0], cache)          # K2
+    return _out_proj(attn.reshape(batch, -1).to(x.dtype), params), cache

@@ -1,0 +1,30 @@
+"""SwiGLU MLP at tensor-parallel degree 1 — counterpart of the JAX
+package's ``layers/tp_mlp.py`` (its single-rank branch). The matmuls stay
+``torch.matmul``, as the JAX package leaves them to XLA; the overlapped
+multi-rank modes come with the multi-GPU slices."""
+
+from __future__ import annotations
+
+import torch
+
+from triton_distributed_tpu_torch.layers.common import swiglu
+
+
+def init_tp_mlp(hidden: int, ffn: int, dtype, *,
+                generator: torch.Generator, device) -> dict:
+    """Random weights with the JAX package's scales, (in, out) layout."""
+    def normal(shape, scale):
+        return torch.randn(shape, generator=generator, dtype=dtype,
+                           device=device) * scale
+
+    return {
+        "w_gate": normal((hidden, ffn), hidden ** -0.5),
+        "w_up": normal((hidden, ffn), hidden ** -0.5),
+        "w_down": normal((ffn, hidden), ffn ** -0.5),
+    }
+
+
+def tp_mlp_fwd(params: dict, x: torch.Tensor) -> torch.Tensor:
+    """x (m, h) → (m, h)."""
+    act = swiglu(x @ params["w_gate"], x @ params["w_up"])
+    return act @ params["w_down"]

@@ -1,0 +1,132 @@
+"""Dense decoder-only LLM (Qwen3-style) at tensor-parallel degree 1 —
+counterpart of the JAX package's ``models/dense.py``.
+
+Parameters are a plain dict with the JAX package's structure and (in, out)
+weight layout (``models/convert.py`` turns a JAX tree into one). Caches
+are updated in place; each function returns the cache it was given, with
+its host-side bookkeeping (``offset``, ``kv_lens``) advanced.
+
+Per block (pre-norm):  x ─ rms_norm ─ attention ─(+)─ rms_norm ─ MLP ─(+)─ …
+"""
+
+from __future__ import annotations
+
+import torch
+
+from triton_distributed_tpu_torch.layers.common import rms_norm
+from triton_distributed_tpu_torch.layers.tp_attn import (
+    init_tp_attn, tp_attn_decode_paged, tp_attn_prefill,
+    tp_attn_prefill_chunk,
+)
+from triton_distributed_tpu_torch.layers.tp_mlp import init_tp_mlp, tp_mlp_fwd
+from triton_distributed_tpu_torch.models.config import ModelConfig
+from triton_distributed_tpu_torch.models.kv_cache import (
+    KVCache, PagedModelCache,
+)
+from triton_distributed_tpu_torch.runtime.device import (
+    resolve_device, torch_dtype,
+)
+
+
+def init_dense_llm(cfg: ModelConfig, *, generator: torch.Generator,
+                   device=None) -> dict:
+    """Random parameters with the JAX package's scales, drawn from
+    ``generator`` (which must live on ``device``; ``None`` = the card).
+    The values differ from the JAX initialiser's — to compare the two,
+    convert the JAX tree with ``models/convert.params_from_numpy``."""
+    if cfg.is_moe:
+        raise NotImplementedError("the port serves dense models; MoE layers "
+                                  "come with a later slice")
+    dev = resolve_device(device)
+    dt = torch_dtype(cfg.dtype)
+    h, v = cfg.hidden_size, cfg.vocab_size
+    params: dict = {
+        "embed": torch.randn((v, h), generator=generator, dtype=dt,
+                             device=dev) * 0.02,
+        "final_norm": torch.ones((h,), dtype=dt, device=dev),
+        "layers": [],
+    }
+    for _ in range(cfg.num_layers):
+        params["layers"].append({
+            "attn_norm": torch.ones((h,), dtype=dt, device=dev),
+            "mlp_norm": torch.ones((h,), dtype=dt, device=dev),
+            "attn": init_tp_attn(cfg, dt, generator=generator, device=dev),
+            "mlp": init_tp_mlp(h, cfg.intermediate_size, dt,
+                               generator=generator, device=dev),
+        })
+    if not cfg.tie_word_embeddings:
+        params["lm_head"] = torch.randn((h, v), generator=generator,
+                                        dtype=dt, device=dev) * 0.02
+    return params
+
+
+def _logits(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+    head = params.get("lm_head")
+    if head is None:
+        head = params["embed"].T          # tied embeddings
+    return x @ head
+
+
+def dense_prefill(params: dict, cfg: ModelConfig, input_ids: torch.Tensor,
+                  cache: KVCache):
+    """Causal prefill of whole prompts. input_ids: (B, S). Returns
+    (last-token logits (B, vocab), cache filled for [0, S))."""
+    batch, seq = input_ids.shape
+    x = params["embed"][input_ids.reshape(-1).long()]       # (B·S, h)
+    for i, layer in enumerate(params["layers"]):
+        h = rms_norm(x, layer["attn_norm"], cfg.rms_norm_eps)
+        attn_out, _ = tp_attn_prefill(layer["attn"], cfg, h, batch, seq,
+                                      cache.layer(i))
+        x = x + attn_out
+        h = rms_norm(x, layer["mlp_norm"], cfg.rms_norm_eps)
+        x = x + tp_mlp_fwd(layer["mlp"], h)
+    last = x.reshape(batch, seq, -1)[:, -1]
+    return _logits(params, cfg, last), cache._replace(offset=seq)
+
+
+def dense_prefill_slice(params: dict, cfg: ModelConfig,
+                        input_ids: torch.Tensor, cache: KVCache, start: int):
+    """ONE chunk of causal prefill at host offset ``start`` — the serving
+    loop's per-iteration slice. input_ids: (B, C). Returns (x (B·C, h)
+    final-layer activations — feed the last REAL row to
+    :func:`dense_last_logits` —, cache with K/V written at
+    [start, start+C))."""
+    batch, chunk = input_ids.shape
+    x = params["embed"][input_ids.reshape(-1).long()]       # (B·C, h)
+    for i, layer in enumerate(params["layers"]):
+        h = rms_norm(x, layer["attn_norm"], cfg.rms_norm_eps)
+        attn_out, _ = tp_attn_prefill_chunk(layer["attn"], cfg, h,
+                                            cache.layer(i), start, chunk)
+        x = x + attn_out
+        h = rms_norm(x, layer["mlp_norm"], cfg.rms_norm_eps)
+        x = x + tp_mlp_fwd(layer["mlp"], h)
+    return x, cache
+
+
+def dense_last_logits(params: dict, cfg: ModelConfig,
+                      x_last: torch.Tensor) -> torch.Tensor:
+    """Final norm + lm-head for last-token activations (B, h)."""
+    return _logits(params, cfg, x_last)
+
+
+def dense_decode_step_paged(params: dict, cfg: ModelConfig,
+                            tokens: torch.Tensor, cache: PagedModelCache):
+    """One-token decode over a :class:`PagedModelCache` at per-sequence
+    positions. tokens: (B,). Returns (logits (B, vocab), cache with
+    ``kv_lens`` advanced by one — clamped at capacity, because a
+    saturated sequence's append was dropped)."""
+    start_lens = cache.kv_lens
+    x = params["embed"][tokens.long()]                      # (B, h)
+    for i, layer in enumerate(params["layers"]):
+        h = rms_norm(x, layer["attn_norm"], cfg.rms_norm_eps)
+        # Every layer appends at the same positions: each starts from the
+        # step's start lengths; the lengths advance once, below.
+        out, _ = tp_attn_decode_paged(layer["attn"], cfg, h,
+                                      cache.layer(i))
+        x = x + out
+        h = rms_norm(x, layer["mlp_norm"], cfg.rms_norm_eps)
+        x = x + tp_mlp_fwd(layer["mlp"], h)
+    logits = _logits(params, cfg, x)
+    new_lens = torch.clamp(start_lens + 1, max=cache.capacity)
+    return logits, cache._replace(kv_lens=new_lens)

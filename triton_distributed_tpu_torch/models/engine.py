@@ -1,0 +1,120 @@
+"""Inference engine on one device — counterpart of the JAX package's
+``models/engine.py`` at tensor-parallel degree 1.
+
+Eager PyTorch: prefill writes a linear cache, :meth:`Engine.to_paged`
+mirrors it into the paged layout, and each decode step runs
+``dense_decode_step_paged`` (K2) followed by the greedy token, all on the
+device — the host syncs once, when :meth:`Engine.serve` returns. Not in
+this slice: the backend ladder and demotion, ``repartition``, observability
+spans, and a CUDA graph for the decode step.
+"""
+
+from __future__ import annotations
+
+import warnings
+
+import numpy as np
+import torch
+
+from triton_distributed_tpu_torch.models import sampling
+from triton_distributed_tpu_torch.models.config import ModelConfig
+from triton_distributed_tpu_torch.models.dense import (
+    dense_decode_step_paged, dense_prefill,
+)
+from triton_distributed_tpu_torch.models.kv_cache import (
+    KVCache, PagedModelCache, init_kv_cache,
+)
+from triton_distributed_tpu_torch.runtime.device import resolve_device
+
+
+def _to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_to_device(v, device) for v in tree]
+    return tree.to(device)
+
+
+class Engine:
+    """Serve a dense LLM on one device with a paged decode cache.
+
+    ``device=None`` means the card and raises without CUDA; pass
+    ``device="cpu"`` for the CPU (the kernels' plain versions run there).
+    ``params`` (from ``init_dense_llm`` or ``params_from_numpy``) are
+    moved to ``device`` if they live elsewhere."""
+
+    def __init__(self, cfg: ModelConfig, params: dict, *, device=None,
+                 max_seq: int = 256, page_size: int):
+        if page_size < 1:
+            raise ValueError(f"page_size = {page_size} invalid: a page holds "
+                             "at least one position — argument page_size")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.max_seq = max_seq
+        self.page_size = page_size
+        self.max_pages = -(-max_seq // page_size)
+        self.params = _to_device(params, self.device)
+
+    def new_cache(self, batch: int) -> KVCache:
+        return init_kv_cache(self.cfg, batch, self.max_seq,
+                             device=self.device)
+
+    def to_paged(self, cache: KVCache) -> PagedModelCache:
+        """Mirror a linear cache into the paged layout: sequence b owns
+        pages ``[b*max_pages, (b+1)*max_pages)``, lengths = ``offset``. A
+        view of the same storage when ``max_seq`` is a page multiple."""
+        L, batch = cache.k.shape[0], cache.k.shape[1]
+        P, mp = self.page_size, self.max_pages
+        pad = mp * P - cache.max_seq
+
+        def to_pools(x):   # (L, B, S, hkv, d) -> (L, B*mp, P, hkv, d)
+            if pad:
+                x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad))
+            return x.reshape(L, batch * mp, P, *x.shape[3:])
+
+        return PagedModelCache(
+            k_pools=to_pools(cache.k), v_pools=to_pools(cache.v),
+            page_table=torch.arange(batch * mp, dtype=torch.int32,
+                                    device=self.device).reshape(batch, mp),
+            kv_lens=torch.full((batch,), cache.offset, dtype=torch.int32,
+                               device=self.device))
+
+    def prefill(self, input_ids: torch.Tensor, cache: KVCache | None = None):
+        """input_ids: (B, S). Returns (last-token logits (B, vocab), cache)."""
+        batch, seq = input_ids.shape
+        if seq > self.max_seq:
+            raise ValueError(f"prompt {seq} exceeds max_seq {self.max_seq}")
+        cache = cache if cache is not None else self.new_cache(batch)
+        return dense_prefill(self.params, self.cfg,
+                             input_ids.to(self.device), cache)
+
+    def decode(self, tokens: torch.Tensor, cache):
+        """tokens: (B,). ``cache``: a PagedModelCache, or the linear cache
+        from :meth:`prefill` (converted on first use). Returns
+        (next_tokens (B,) int32, cache)."""
+        if isinstance(cache, KVCache):
+            cache = self.to_paged(cache)
+        logits, cache = dense_decode_step_paged(
+            self.params, self.cfg, tokens.to(self.device), cache)
+        return sampling.greedy(logits), cache
+
+    def serve(self, input_ids, gen_len: int) -> torch.Tensor:
+        """Greedy generation: (B, S) prompt ids → (B, gen_len) int32 token
+        ids on the device. The first token comes from the prefill logits."""
+        if not isinstance(input_ids, torch.Tensor):
+            input_ids = torch.as_tensor(np.asarray(input_ids))
+        logits, cache = self.prefill(input_ids.to(self.device))
+        tok = sampling.greedy(logits)
+        cache = self.to_paged(cache)
+        outs = [tok]
+        for _ in range(gen_len - 1):
+            tok, cache = self.decode(tok, cache)
+            outs.append(tok)
+        saturated = cache.saturated.cpu().numpy()
+        if saturated.any():
+            warnings.warn(
+                "paged KV pool saturated for sequence(s) "
+                f"{np.flatnonzero(saturated).tolist()} — their final tokens "
+                "attended a truncated cache; raise max_seq",
+                RuntimeWarning, stacklevel=2)
+        return torch.stack(outs, dim=1)
