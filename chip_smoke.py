@@ -37,16 +37,41 @@ import subprocess
 import sys
 import time
 
-DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12                                   # H100 SXM
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}         # dense; fp32 = FMA
-TOL = {"bfloat16": dict(atol=2e-2, rtol=2e-2),
-       "float32": dict(atol=1e-4, rtol=1e-4)}
+
+# Elementwise tolerance |kernel - plain| <= atol + rtol * |plain|, per
+# kernel and arithmetic, set from the errors measured on the card with a
+# margin; every case reports the largest share of it that one element used.
+# One bf16 unit in the last place is at most 2^-7 (7.8e-3) of a value.
+TOL = {
+    # K1 in bf16: p is rounded to bf16 (2^-8 relative) at each 32-key
+    # tile's running max in the kernel and at the row max in the plain
+    # version, then the output rounds to bf16. Two units, plus an atol of
+    # twice the largest error seen where |plain| is small (1.95e-3 on an
+    # H100 at 700 W: the cases' ``max_abs_err_where_atol_rules``).
+    "flash_attention": dict(atol=4e-3, rtol=1.6e-2),
+    # K2 in bf16 computes in fp32 from the stored values, as its plain
+    # version does, and rounds only the output: a flip of one unit, under
+    # a tolerance of two (so it uses at most half).
+    "paged_attention": dict(atol=1e-5, rtol=1.6e-2),
+    # fp32 arithmetic throughout (both kernels' fp32 cases, and K2's
+    # partials from bf16 pools): summation order only.
+    "fp32": dict(atol=1e-5, rtol=1e-5),
+}
+# Partials: |m - m_plain| <= 1e-4 and |l - l_plain| <= 1e-4 * l_plain
+# (fp32 sums of up to 2048 terms; m = -1e30, l = 0 on dead rows).
+M_ATOL, L_RTOL = 1e-4, 1e-4
 TOL_REASON = (
-    "bf16: K1 rounds p to bf16 at each key tile's running max, the plain "
-    "version at the row max, and both round the output to bf16 (one unit "
-    "in the last place is 2^-8 relative); K2 rounds its output to bf16. "
-    "fp32: summation order only.")
+    "K1 bf16: p rounded to bf16 at the key tile's running max (kernel) or "
+    "the row max (plain), output rounded to bf16; K2 bf16: only the output "
+    "rounds; fp32 (and K2 partials): summation order only. Each bf16 case "
+    "also reports the plain bf16 version's and the kernel's max error "
+    "against the plain version run in fp32.")
+# The case whose shape the main path gives each kernel (engine prefill of
+# 2 x 1024 prompts; a decode batch of 4 in the serving phase).
+MAIN_CASE = {"flash_attention": "prefill_2x1024",
+             "paged_attention": "decode_4"}
 
 
 def emit(obj) -> None:
@@ -109,39 +134,78 @@ def _dtype_name(dt) -> str:
 # Phase 2: kernels against their plain versions.
 # ---------------------------------------------------------------------------
 
+def _max_err(a, b) -> float:
+    return (a.float() - b.float()).abs().max().item()
+
+
+def compare(torch, kernel, dtype, normalize, got, want, want32) -> dict:
+    """Hold one kernel output against its plain version.
+
+    ``got``, ``want`` and ``want32`` are (out, m, l) from the kernel, the
+    plain version, and the plain version on fp32 copies of the inputs
+    (None for an fp32 case). Partials are compared as acc / l, and m and l
+    on their own. Returns the record's error fields; ``ok`` is False on
+    any disagreement or non-finite output."""
+    fp32_math = dtype == torch.float32 or (kernel == "paged_attention"
+                                           and not normalize)
+    tol = TOL["fp32" if fp32_math else kernel]
+    out, m, l = got
+    ref, rm, rl = want
+
+    def normalized(t, lsum):
+        return t / torch.clamp(lsum, min=1e-30)[..., None]
+
+    rec, ok = {}, True
+    if not normalize:
+        m_err = _max_err(m, rm)
+        l_rel = ((l - rl).abs() / torch.clamp(rl, min=1e-30)).max().item()
+        rec.update(m_max_abs_err=m_err, l_max_rel_err=l_rel)
+        ok = m_err <= M_ATOL and l_rel <= L_RTOL
+        out, ref = normalized(out, l), normalized(ref, rl)
+        if want32 is not None:
+            want32 = (normalized(want32[0], want32[2]),)
+    diff = (out.float() - ref.float()).abs()
+    mag = ref.float().abs()
+    share = (diff / (tol["atol"] + tol["rtol"] * mag)).max()
+    atol_rules = mag * tol["rtol"] < tol["atol"]
+    rec.update(max_abs_err=diff.max().item(),
+               max_abs_err_where_atol_rules=(
+                   diff[atol_rules].max().item() if atol_rules.any() else 0.0),
+               tol=tol, tol_share=share.item())
+    if want32 is not None:
+        rec["plain_err_vs_fp32"] = _max_err(ref, want32[0])
+        rec["kernel_err_vs_fp32"] = _max_err(out, want32[0])
+    rec["ok"] = bool(ok and torch.isfinite(out).all().item()
+                     and rec["tol_share"] <= 1.0)
+    return rec
+
+
 def flash_case(torch, fa, timer, *, name, dtype, B, Sq, Sk, hq, hkv, d,
                q_off, normalize, time_it, seed):
     """One K1 case. Keys past the causal frontier are NaN in the kernel's
     input: K1 must never load them (the plain version gets zeros there)."""
-    dev = DEVICE
-    g = torch.Generator(device=dev).manual_seed(seed)
-    q = torch.randn((B, Sq, hq, d), generator=g, device=dev).to(dtype)
-    k = torch.randn((B, Sk, hkv, d), generator=g, device=dev).to(dtype)
-    v = torch.randn((B, Sk, hkv, d), generator=g, device=dev).to(dtype)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((B, Sq, hq, d), generator=g, device="cuda").to(dtype)
+    k = torch.randn((B, Sk, hkv, d), generator=g, device="cuda").to(dtype)
+    v = torch.randn((B, Sk, hkv, d), generator=g, device="cuda").to(dtype)
     frontier = min(Sk, q_off + Sq)              # keys any query can see
     k_nan, v_nan = k.clone(), v.clone()
     k_nan[:, frontier:] = float("nan")
     v_nan[:, frontier:] = float("nan")
-    out, m, l = fa._flash_cuda(q, k_nan, v_nan, q_off, 0, causal=True,
-                               normalize=normalize)
-    ref, rm, rl = fa._flash_plain(q, k, v, q_off, 0, causal=True,
-                                  normalize=normalize)
+    got = fa._flash_cuda(q, k_nan, v_nan, q_off, 0, causal=True,
+                         normalize=normalize)
+    want = fa._flash_plain(q, k, v, q_off, 0, causal=True,
+                           normalize=normalize)
+    want32 = None if dtype == torch.float32 else fa._flash_plain(
+        q.float(), k.float(), v.float(), q_off, 0, causal=True,
+        normalize=normalize)
     torch.cuda.synchronize()
-    if not normalize:                # compare the normalized partials
-        check(torch.allclose(m, rm, atol=1e-3, rtol=0)
-              and torch.allclose(l, rl, rtol=1e-3, atol=0),
-              f"K1 {name}: (m, l) disagree with the plain version")
-        out = out / torch.clamp(l, min=1e-30)[..., None]
-        ref = ref / torch.clamp(rl, min=1e-30)[..., None]
-    err = (out.float() - ref.float()).abs().max().item()
-    tol = TOL[_dtype_name(dtype)]
-    check(torch.isfinite(out).all().item(), f"K1 {name}: non-finite output")
-    check(torch.allclose(out.float(), ref.float(), **tol),
-          f"K1 {name}: max |kernel - plain| = {err} over tolerance {tol}")
     rec = {"case": name, "dtype": _dtype_name(dtype), "shape": {
         "B": B, "Sq": Sq, "Sk": Sk, "hq": hq, "hkv": hkv, "d": d,
         "q_offset": q_off, "normalize": normalize},
-        "max_abs_err": err, "tol": tol}
+        **compare(torch, "flash_attention", dtype, normalize, got, want,
+                  want32)}
+    out = got[0]
     if time_it:
         item = q.element_size()
         pairs = sum(max(0, min(Sk, q_off + i + 1)) for i in range(Sq))
@@ -168,41 +232,38 @@ def paged_case(torch, pa, timer, *, name, dtype, lens, page, hq, hkv, d,
                normalize, time_it, seed):
     """One K2 case: shuffled pages, stale random data everywhere in the
     pool, -1 in the table past each sequence's valid pages."""
-    dev = DEVICE
-    g = torch.Generator(device=dev).manual_seed(seed)
+    g = torch.Generator(device="cuda").manual_seed(seed)
     B = len(lens)
     max_pages = -(-max(max(lens), 1) // page)
     num_pages = B * max_pages + 1
     kp = torch.randn((num_pages, page, hkv, d), generator=g,
-                     device=dev).to(dtype)
+                     device="cuda").to(dtype)
     vp = torch.randn((num_pages, page, hkv, d), generator=g,
-                     device=dev).to(dtype)
-    perm = torch.randperm(num_pages, generator=g, device=dev)
+                     device="cuda").to(dtype)
+    perm = torch.randperm(num_pages, generator=g, device="cuda")
     table = perm[:B * max_pages].reshape(B, max_pages).to(torch.int32)
     for i, n in enumerate(lens):
         table[i, -(-n // page):] = -1
-    lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+    lens_t = torch.tensor(lens, dtype=torch.int32, device="cuda")
     cache = pa.PagedKVCache(kp, vp, table, lens_t)
-    q = torch.randn((B, hq, d), generator=g, device=dev).to(dtype)
-    out, m, l = pa._paged_decode_cuda(q, cache, normalize=normalize)
-    ref, rm, rl = pa._paged_decode_plain(q, cache, normalize=normalize)
+    q = torch.randn((B, hq, d), generator=g, device="cuda").to(dtype)
+    got = pa._paged_decode_cuda(q, cache, normalize=normalize)
+    want = pa._paged_decode_plain(q, cache, normalize=normalize)
+    want32 = None if dtype == torch.float32 else pa._paged_decode_plain(
+        q.float(), cache._replace(k_pool=kp.float(), v_pool=vp.float()),
+        normalize=normalize)
     torch.cuda.synchronize()
-    if not normalize:
-        check(torch.allclose(m, rm, atol=1e-3, rtol=0)
-              and torch.allclose(l, rl, rtol=1e-3, atol=0),
-              f"K2 {name}: (m, l) disagree with the plain version")
-        out = out / torch.clamp(l, min=1e-30)[..., None]
-        ref = ref / torch.clamp(rl, min=1e-30)[..., None]
-    err = (out.float() - ref.float()).abs().max().item()
-    tol = TOL[_dtype_name(dtype)]
-    check(torch.isfinite(out).all().item(), f"K2 {name}: non-finite output")
-    check(all((out[i] == 0).all().item() for i, n in enumerate(lens)
-              if n == 0), f"K2 {name}: kv_len 0 must give zeros")
-    check(torch.allclose(out.float(), ref.float(), **tol),
-          f"K2 {name}: max |kernel - plain| = {err} over tolerance {tol}")
+    out = got[0]
     rec = {"case": name, "dtype": _dtype_name(dtype), "shape": {
         "B": B, "kv_lens": lens, "page": page, "hq": hq, "hkv": hkv, "d": d,
-        "normalize": normalize}, "max_abs_err": err, "tol": tol}
+        "normalize": normalize},
+        **compare(torch, "paged_attention", dtype, normalize, got, want,
+                  want32)}
+    empty_zero = all((out[i] == 0).all().item()
+                     for i, n in enumerate(lens) if n == 0)
+    rec["ok"] = rec["ok"] and empty_zero
+    if not empty_zero:
+        rec["fault"] = "kv_len 0 did not give zeros"
     if time_it:
         item = q.element_size()
         n_tok = sum(lens)
@@ -227,6 +288,9 @@ def phase_kernels(torch, fa, pa, timer) -> dict:
         flash_case(torch, fa, timer, name="prefill_1024", dtype=bf16, B=1,
                    Sq=1024, Sk=1024, q_off=0, normalize=True, time_it=True,
                    seed=0, **qwen),
+        flash_case(torch, fa, timer, name="prefill_2x1024", dtype=bf16, B=2,
+                   Sq=1024, Sk=1024, q_off=0, normalize=True, time_it=True,
+                   seed=8, **qwen),
         flash_case(torch, fa, timer, name="slice_256_at_768_of_2048",
                    dtype=bf16, B=1, Sq=256, Sk=2048, q_off=768,
                    normalize=False, time_it=True, seed=1, **qwen),
@@ -443,12 +507,11 @@ def _first_divergence(torch, eng, prompt, got, want):
 def phase_parity(torch, QWEN3_8B, init_dense_llm, Engine, ServingEngine):
     cfg = dataclasses.replace(QWEN3_8B, num_layers=2, dtype="float32")
     params = init_dense_llm(
-        cfg, generator=torch.Generator(device=DEVICE).manual_seed(1),
-        device=DEVICE)
-    eng = Engine(cfg, params, device=DEVICE, max_seq=256, page_size=16)
+        cfg, generator=torch.Generator(device="cuda").manual_seed(1))
+    eng = Engine(cfg, params, max_seq=256, page_size=16)
     # torch.argmax on the card must return the FIRST maximum (jnp.argmax's
     # rule), or greedy token identity could not be relied on.
-    x = torch.zeros((3, cfg.vocab_size), device=DEVICE)
+    x = torch.zeros((3, cfg.vocab_size), device="cuda")
     x[:, [5, cfg.vocab_size // 2, cfg.vocab_size - 1]] = 1.0
     check(torch.argmax(x, dim=-1).tolist() == [5, 5, 5],
           "parity: torch.argmax does not return the first maximum")
@@ -530,6 +593,8 @@ def main() -> int:
                                 "paged_attention": f"{L} per decode step "
                                 "(one per layer)"},
           "cases": cases})
+    bad = [c["case"] for cs in cases.values() for c in cs if not c["ok"]]
+    check(not bad, f"kernels disagree with their plain versions: {bad}")
 
     params = init_dense_llm(
         QWEN3_8B, generator=torch.Generator(device="cuda").manual_seed(0))
@@ -553,7 +618,8 @@ def main() -> int:
                                    "paged_attention.py:160"}
     summary = []
     for kernel, name in zip(kernels, ("flash_attention", "paged_attention")):
-        main_case = cases[name][0]
+        main_case = next(c for c in cases[name]
+                         if c["case"] == MAIN_CASE[name])
         summary.append({
             "name": name, "route": "cuda",
             "source": str(kernel.source_path.relative_to(

@@ -29,32 +29,19 @@
 // row ends with m = -1e30, l = 0 and a normalized output of 0.
 // Making it fast (wgmma + TMA, bf16 operands in shared memory) is later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace {
+
+using tdt::from_f;
+using tdt::NEG;
+using tdt::to_f;
 
 constexpr int BQ = 64;   // query rows per block
 constexpr int BK = 32;   // keys per shared-memory tile
 constexpr int NT = 256;  // threads per block, as 16 (rows) x 16 (columns)
-constexpr float NEG = -1e30f;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as XLA's convert
-}
 
 __device__ __forceinline__ float row_max16(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 8));
@@ -236,10 +223,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    float* m, float* l, int B, int Sq, int Sk, int hq, int hkv,
                    int q_off, int k_off, int causal, int normalize,
                    cudaStream_t stream) {
+  static tdt::SmemCap cap;
   const size_t smem = sizeof(float) * smem_floats<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  const cudaError_t err = tdt::ensure_smem(flash_fwd_kernel<T, D>, smem, cap);
   if (err != cudaSuccess) return err;
   const dim3 grid((Sq + BQ - 1) / BQ, hq, B);
   flash_fwd_kernel<T, D><<<grid, NT, smem, stream>>>(
@@ -250,10 +236,6 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 }
 
 }  // namespace
-
-extern "C" const char* tdt_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}
 
 // dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t.
 extern "C" int flash_attention_fwd(const void* q, const void* k,

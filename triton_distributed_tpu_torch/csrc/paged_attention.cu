@@ -32,32 +32,19 @@
 // Arithmetic matches the TPU kernel: fp32 scores scaled after the dot,
 // masked rows at -1e30, fp32 statistics, fp32 PV (p is not rounded here).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace {
+
+using tdt::from_f;
+using tdt::NEG;
+using tdt::to_f;
 
 constexpr int PT = 128;        // threads per block (4 warps)
 constexpr int TILE_TOK = 64;   // tokens staged per iteration (whole pages)
 constexpr int NB = 8;          // 16-byte loads a thread keeps in flight
-constexpr float NEG = -1e30f;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // Unpack one 16-byte chunk into E = 16 / sizeof(T) floats.
 template <typename T>
@@ -238,10 +225,10 @@ cudaError_t launch(const void* q, const void* kp, const void* vp,
                    const int* table, const int* lens, void* out, float* m,
                    float* l, int B, int hq, int hkv, int page, int max_pages,
                    int normalize, cudaStream_t stream) {
+  static tdt::SmemCap cap;
   const size_t smem = smem_bytes(hq / hkv, D, page);
-  cudaError_t err = cudaFuncSetAttribute(
-      paged_decode_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  const cudaError_t err =
+      tdt::ensure_smem(paged_decode_kernel<T, D>, smem, cap);
   if (err != cudaSuccess) return err;
   const dim3 grid(hkv, B);
   paged_decode_kernel<T, D><<<grid, PT, smem, stream>>>(
@@ -252,10 +239,6 @@ cudaError_t launch(const void* q, const void* kp, const void* vp,
 }
 
 }  // namespace
-
-extern "C" const char* tdt_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}
 
 // dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t.
 extern "C" int paged_decode_fwd(const void* q, const void* k_pool,
