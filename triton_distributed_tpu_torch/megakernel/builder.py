@@ -1,0 +1,539 @@
+"""MegaKernel model builder — record ops as tasks, compile once, replay.
+
+The port's counterpart of the JAX package's ``megakernel/builder.py``,
+with the ops the paged serving program emits (``rms_norm``,
+``gemm_mat``, ``prefetch_mat``, ``norm_rope_qkv``, ``attn_decode_paged``,
+``append_kv``). Tensor allocation, hazard bookkeeping, the schedule and
+the packed queue follow the JAX builder step for step, so both emit the
+same queue word for word (the CPU tests hold them equal).
+
+:class:`CompiledMegaKernel` carries the queue and the workspace geometry;
+its workspaces are torch tensors updated IN PLACE (the JAX package
+threads donated arrays through jits instead).
+
+Reference: ``mega_triton_kernel/models/model_builder.py:83-406``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from triton_distributed_tpu_torch.megakernel.kernel import run_queue
+from triton_distributed_tpu_torch.megakernel.scheduler import topo_schedule
+from triton_distributed_tpu_torch.megakernel.tasks import (
+    MAT_COLS, TILE, WORDS, MatHandle, MatSpec, Task, TaskType, TensorHandle,
+    mat_chunk_rows,
+)
+from triton_distributed_tpu_torch.runtime.device import torch_dtype
+
+
+class MegaKernelBuilder:
+    """Records tensors + tasks; tracks read/write hazards for the scheduler
+    (the role of the reference's TaskDependency records,
+    core/task_base.py:112-218)."""
+
+    # Hazard-id offset for 2D matrix-workspace rows (GEMM_MAT B operands):
+    # their ids live in a separate space, so dependency bookkeeping must
+    # not collide them with main-workspace tile ids (the JAX builder's
+    # value, so the exported hazard sets match).
+    _WM_HAZARD = 1 << 29
+
+    def __init__(self):
+        # NORM_ROPE_QKV sub-tile span, set by the program assembly
+        # (build_decode_step(head_dim=)); compile() inherits it.
+        self.head_dim = TILE
+        self._num_tiles = 0
+        self._num_mrows = 0
+        self._max_row = 1
+        self._mat_specs: list[MatSpec] = []
+        self._tasks: list[Task] = []
+        self._edges: list[tuple[int, int]] = []
+        self._last_writer: dict[int, int] = {}
+        self._readers_since_write: dict[int, list[int]] = {}
+        self._reads: list[tuple[int, ...]] = []
+        self._writes: list[tuple[int, ...]] = []
+        # task id -> flat int list; packed as extra queue rows at compile
+        # (page tables for ATTN_DECODE_PAGED — data rows, never dispatched).
+        self._task_tables: dict[int, list[int]] = {}
+        # Matrix-chunk warm hand-off (PREFETCH_MAT): the pseudo resource
+        # serializing the reserved slot, and (task id, wsm base) of the
+        # outstanding warm awaiting its consuming GEMM_MAT.
+        self._pfm_res: TensorHandle | None = None
+        self._pending_pf_mat: tuple[int, int] | None = None
+
+    # -- tensors ------------------------------------------------------------
+    def tensor(self, rows: int, cols: int) -> TensorHandle:
+        if rows % TILE or cols % TILE:
+            raise ValueError(f"dims must be multiples of {TILE}, got "
+                             f"({rows}, {cols})")
+        h = TensorHandle(self._num_tiles, rows, cols)
+        self._num_tiles += h.rt * h.ct
+        return h
+
+    def tensor_mat(self, k: int, n: int, pair: bool = False) -> MatHandle:
+        """A (k, n) weight matrix in the 2D MATRIX workspace (GEMM_MAT B
+        operand; ``pair=True`` = interleaved gate|up layout, n per half —
+        see tasks.py MatHandle)."""
+        if k % TILE or n % TILE:
+            raise ValueError(f"dims must be multiples of {TILE}, got "
+                             f"({k}, {n})")
+        mat_chunk_rows(k)   # raises early on an unchunkable K
+        h = MatHandle(self._num_mrows, k, n, pair=pair)
+        self._num_mrows += h.rows
+        return h
+
+    # -- dependency bookkeeping --------------------------------------------
+    def _emit(self, task: Task, reads: list[int], writes: list[int]) -> int:
+        tid = len(self._tasks)
+        for t in reads:
+            w = self._last_writer.get(t)
+            if w is not None:
+                self._edges.append((w, tid))          # RAW
+            self._readers_since_write.setdefault(t, []).append(tid)
+        for t in writes:
+            w = self._last_writer.get(t)
+            if w is not None:
+                self._edges.append((w, tid))          # WAW
+            for r in self._readers_since_write.get(t, []):
+                if r != tid:
+                    self._edges.append((r, tid))      # WAR
+            self._last_writer[t] = tid
+            self._readers_since_write[t] = []
+        self._tasks.append(task)
+        self._reads.append(tuple(reads))
+        self._writes.append(tuple(writes))
+        return tid
+
+    # -- ops ----------------------------------------------------------------
+    def prefetch_mat(self, w: MatHandle) -> int:
+        """Start warming ``w``'s first weight chunk into the reserved
+        matrix slot; the next ``gemm_mat(..., w, prefetch_first=True)``
+        consumes it. One outstanding warm at a time. Returns the task id."""
+        if self._pending_pf_mat is not None:
+            raise ValueError(
+                f"matrix prefetch of wsm base {self._pending_pf_mat[1]} "
+                "not yet consumed — one reserved slot, one outstanding "
+                "warm (emit the matching gemm_mat(prefetch_first=True))")
+        if not isinstance(w, MatHandle):
+            raise TypeError("prefetch_mat warms matrix-workspace weights "
+                            "(tensor_mat handles)")
+        if self._pfm_res is None:
+            self._pfm_res = self.tensor(TILE, TILE)   # hazard token only
+        tid = self._emit(Task(TaskType.PREFETCH_MAT, out=0, a0=w.base),
+                         [self._WM_HAZARD + w.base],
+                         [self._pfm_res.tile(0, 0)])
+        self._pending_pf_mat = (tid, w.base)
+        return tid
+
+    def gemm_mat(self, out: TensorHandle, a: TensorHandle, w: MatHandle,
+                 residual: TensorHandle | None = None,
+                 norm_w: TensorHandle | None = None,
+                 norm_out: TensorHandle | None = None,
+                 eps: float = 1e-6, prefetch_first: bool = False):
+        """out (TILE, N) = a (TILE, K) @ w — ONE GEMM_MAT task over the 2D
+        matrix workspace. ``w.pair``: stores silu(gate half) * up half.
+        ``residual``: ``+= residual``. ``norm_w``/``norm_out`` (needs
+        ``residual``): also store ``norm_out = rms_norm(out) * norm_w``."""
+        if not isinstance(w, MatHandle):
+            raise TypeError("gemm_mat weight must be a tensor_mat handle")
+        if a.rt != 1 or out.rt != 1:
+            raise ValueError("gemm_mat operates on single activation rows")
+        if a.cols != w.k or out.cols != w.n:
+            raise ValueError(
+                f"gemm_mat shape mismatch: a ({a.rows},{a.cols}) @ w "
+                f"({w.k},{w.n}{' pair' if w.pair else ''}) -> out "
+                f"({out.rows},{out.cols})")
+        if w.pair and residual is not None:
+            raise ValueError("pair (silu) and residual epilogues are "
+                             "mutually exclusive")
+        if residual is not None and (residual.rt != 1
+                                     or residual.cols != out.cols):
+            raise ValueError(
+                f"residual ({residual.rows},{residual.cols}) must match "
+                f"out ({out.rows},{out.cols})")
+        if (norm_w is None) != (norm_out is None):
+            raise ValueError("epilogue 3 needs BOTH norm_w and norm_out")
+        if norm_w is not None:
+            if residual is None:
+                raise ValueError("norm epilogue requires residual (it "
+                                 "fuses the residual-chain add + norm)")
+            if norm_out.rt != 1 or norm_out.cols != out.cols:
+                raise ValueError(
+                    f"norm_out ({norm_out.rows},{norm_out.cols}) must "
+                    f"match out ({out.rows},{out.cols})")
+            if norm_w.rt != 1 or norm_w.ct != out.ct:
+                raise ValueError("norm_w must be the broadcast (TILE, N) "
+                                 "norm-weight tensor matching out's width")
+        if prefetch_first and (self._pending_pf_mat is None
+                               or self._pending_pf_mat[1] != w.base):
+            raise ValueError(
+                f"prefetch_first: pending matrix warm "
+                f"{self._pending_pf_mat} does not match this gemm_mat's "
+                f"weight base {w.base}")
+        epi = 1 if w.pair else (3 if norm_w is not None
+                                else 2 if residual is not None else 0)
+        spec = MatSpec(kt=a.ct, ns=w.n_strips, nt_out=out.ct,
+                       kch=mat_chunk_rows(w.k), epi=epi,
+                       warm=1 if prefetch_first else 0)
+        try:
+            si = self._mat_specs.index(spec)
+        except ValueError:
+            si = len(self._mat_specs)
+            self._mat_specs.append(spec)
+        reads = [a.tile(0, q) for q in range(a.ct)]
+        reads.append(self._WM_HAZARD + w.base)
+        if prefetch_first:
+            # The warm task was emitted before its spec existed: patch its
+            # spec-index word now, and order this task after it through
+            # the reserved-slot pseudo resource.
+            pf_tid, _ = self._pending_pf_mat
+            self._tasks[pf_tid] = dataclasses.replace(
+                self._tasks[pf_tid], a_stride=si)
+            reads.append(self._pfm_res.tile(0, 0))
+            self._pending_pf_mat = None
+        if residual is not None:
+            reads += [residual.tile(0, q) for q in range(out.ct)]
+        writes = [out.tile(0, j) for j in range(out.ct)]
+        arg = epi
+        b_stride = d0 = 0
+        if epi == 3:
+            reads += [norm_w.tile(0, q) for q in range(out.ct)]
+            writes += [norm_out.tile(0, j) for j in range(out.ct)]
+            arg = epi | (int(round(eps * 1e9)) << 8)
+            b_stride, d0 = norm_w.tile(0, 0), norm_out.tile(0, 0)
+        self._emit(
+            Task(TaskType.GEMM_MAT, out.tile(0, 0), a0=a.tile(0, 0),
+                 b0=w.base, k_tiles=a.ct, a_stride=si, b_stride=b_stride,
+                 arg=arg,
+                 c0=residual.tile(0, 0) if residual is not None else 0,
+                 d0=d0),
+            reads, writes)
+        self._max_row = max(self._max_row, a.ct, out.ct)
+
+    def append_kv(self, kT: TensorHandle, v: TensorHandle, pos: int,
+                  k_new: TensorHandle, v_new: TensorHandle):
+        """In-kernel KV cache append at position ``pos``: k_new's row 0
+        becomes column pos of the kT cache, v_new's row 0 becomes row pos
+        of the v cache. a_stride/b_stride carry the cache base tiles, so
+        a host retarget moves the row per step without recompiling."""
+        if not 0 <= pos < kT.ct * TILE:
+            raise ValueError(f"append pos {pos} outside cache capacity")
+        if kT.rt != 1 or v.ct != 1:
+            raise ValueError("kT must be (d, S), v (S, d)")
+        for t in (k_new, v_new):
+            if t.rt != 1 or t.ct != 1:
+                raise ValueError("k_new/v_new must be single head tiles")
+        ti, col = pos // TILE, pos % TILE
+        kt_tile, v_tile = kT.tile(0, ti), v.tile(ti, 0)
+        return self._emit(
+            Task(TaskType.APPEND_KV, kt_tile, a0=k_new.tile(0, 0),
+                 b0=v_tile, a_stride=kT.tile(0, 0), b_stride=v.tile(0, 0),
+                 c0=col, d0=v_new.tile(0, 0)),
+            [k_new.tile(0, 0), v_new.tile(0, 0), kt_tile, v_tile],
+            [kt_tile, v_tile])
+
+    def norm_rope_qkv(self, q: TensorHandle, hq: int, k: TensorHandle,
+                      hkv: int, q_norm: TensorHandle, k_norm: TensorHandle,
+                      cos: TensorHandle, sin: TensorHandle,
+                      eps: float = 1e-6):
+        """Per-head qk-norm + RoPE over ALL hq q-heads and hkv k-heads in
+        ONE task. Requires the fused qkv layout — k's head tiles
+        contiguous after q's."""
+        if q.rt != 1 or k.rt != 1:
+            raise ValueError("q/k must be single-row-tile activations")
+        if q.ct < hq or k.ct < hkv:
+            raise ValueError(f"head counts ({hq}, {hkv}) exceed tensor "
+                             f"widths ({q.ct}, {k.ct})")
+        if k.base != q.base + hq:
+            raise ValueError(
+                "norm_rope_qkv needs k's head tiles contiguous after q's "
+                f"(q base {q.base} + hq {hq} != k base {k.base}) — the "
+                "fused qkv_out layout")
+        for t in (q_norm, k_norm, cos, sin):
+            if t.rt != 1 or t.ct != 1:
+                raise ValueError("norm weights / rope tables must be "
+                                 "single (TILE, TILE) tiles")
+        head_tiles = [q.tile(0, j) for j in range(hq)] \
+            + [k.tile(0, j) for j in range(hkv)]
+        reads = head_tiles + [q_norm.tile(0, 0), k_norm.tile(0, 0),
+                              cos.tile(0, 0), sin.tile(0, 0)]
+        self._emit(
+            Task(TaskType.NORM_ROPE_QKV, q.tile(0, 0), a0=q.tile(0, 0),
+                 b0=q_norm.tile(0, 0), k_tiles=hq,
+                 a_stride=k_norm.tile(0, 0), b_stride=hkv,
+                 arg=int(round(eps * 1e9)), c0=cos.tile(0, 0),
+                 d0=sin.tile(0, 0)),
+            reads, head_tiles)
+
+    def rms_norm(self, out: TensorHandle, a: TensorHandle, w: TensorHandle,
+                 eps: float = 1e-6):
+        """Row-wise RMSNorm over the full width; ``w`` is the norm weight
+        stored broadcast as a (TILE, cols) tensor (models.broadcast_rows);
+        one task per row block."""
+        if (out.rt, out.ct) != (a.rt, a.ct) or w.ct != a.ct:
+            raise ValueError("rms_norm shape mismatch")
+        for i in range(out.rt):
+            reads = [a.tile(i, j) for j in range(a.ct)]
+            reads += [w.tile(0, j) for j in range(a.ct)]
+            self._emit(
+                Task(TaskType.RMS_NORM, out.tile(i, 0), a0=a.tile(i, 0),
+                     b0=w.tile(0, 0), k_tiles=a.ct,
+                     arg=int(round(eps * 1e9))),
+                reads, [out.tile(i, j) for j in range(out.ct)])
+            self._max_row = max(self._max_row, a.ct)
+
+    def attn_decode_paged(self, out: TensorHandle, q: TensorHandle,
+                          pages: list[tuple[int, int]], valid_len: int,
+                          scale: float, k_new: TensorHandle | None = None,
+                          v_new: TensorHandle | None = None):
+        """Page-table flash-attention decode for ONE head: the j-th cache
+        tile pair (kT tile id, V tile id) comes from ``pages``, packed as
+        queue DATA rows at compile. ``pages[j]`` covers logical positions
+        [j·TILE, (j+1)·TILE); kT tiles are (d, TILE) key columns, v tiles
+        (TILE, d) value rows. ``k_new``/``v_new`` (the current token)
+        join the softmax row by row."""
+        if q.rt != 1 or q.ct != 1 or out.rt != 1 or out.ct != 1:
+            raise ValueError("q/out must be a single (TILE, TILE) tile")
+        if (k_new is None) != (v_new is None):
+            raise ValueError("pass both k_new and v_new or neither")
+        if k_new is None and valid_len < 1:
+            raise ValueError("cache-only attention needs valid_len >= 1")
+        if valid_len > len(pages) * TILE:
+            raise ValueError(
+                f"valid_len {valid_len} exceeds table coverage "
+                f"{len(pages) * TILE}")
+        # valid_len == 0 (empty cache, current token only): visit no pages.
+        k_tiles = min(len(pages), -(-valid_len // TILE))
+        reads = [q.tile(0, 0)]
+        flat: list[int] = []
+        for kt_t, v_t in pages:
+            flat += [int(kt_t), int(v_t)]
+        reads += [t for pair in pages[:k_tiles] for t in pair]
+        c0 = d0 = -1
+        if k_new is not None:
+            c0, d0 = k_new.tile(0, 0), v_new.tile(0, 0)
+            reads += [c0, d0]
+        tid = self._emit(
+            Task(TaskType.ATTN_DECODE_PAGED, out.tile(0, 0),
+                 a0=q.tile(0, 0), b0=-1,   # b0 patched to table row at compile
+                 k_tiles=k_tiles, a_stride=0,
+                 b_stride=int(valid_len), arg=int(round(scale * 1e6)),
+                 c0=c0, d0=d0),
+            reads, [out.tile(0, 0)])
+        self._task_tables[tid] = flat
+        return tid
+
+    # -- compile -------------------------------------------------------------
+    def compile(self, dtype=torch.float32,
+                head_dim: int | None = None) -> "CompiledMegaKernel":
+        if head_dim is None:
+            head_dim = self.head_dim
+        elif head_dim != self.head_dim:
+            raise ValueError(
+                f"compile(head_dim={head_dim}) mismatches the program's "
+                f"build-time head_dim {self.head_dim} — the norm/rope "
+                "sub-tile span is part of the assembly, not a free "
+                "compile knob")
+        if self._pending_pf_mat is not None:
+            raise ValueError(
+                f"matrix prefetch of wsm base {self._pending_pf_mat[1]} "
+                "never consumed — emit the matching "
+                "gemm_mat(prefetch_first=True)")
+        order = topo_schedule(len(self._tasks), self._edges,
+                              task_types=[t.type for t in self._tasks])
+        # Emission-order task id -> queue row (paged-serving hosts retarget
+        # per-slot attention/append rows without re-deriving the schedule).
+        task_rows = [0] * len(order)
+        for pos, t in enumerate(order):
+            task_rows[t] = pos
+        rows = [self._tasks[t].encode() for t in order]
+        n_exec = len(rows)
+        # Page tables pack as DATA rows after the executable tasks; each
+        # owning task's b0 becomes its table's absolute starting row.
+        for pos, t in enumerate(order):
+            flat = self._task_tables.get(t)
+            if flat is None:
+                continue
+            rows[pos][3] = len(rows)
+            padded = list(flat) + [0] * (-len(flat) % WORDS)
+            for off in range(0, len(padded), WORDS):
+                rows.append(padded[off:off + WORDS])
+        queue = np.asarray(rows, np.int32).reshape(-1, WORDS)
+        used_types = tuple(sorted({int(t.type) for t in self._tasks}))
+        return CompiledMegaKernel(
+            queue=queue, num_tiles=self._num_tiles,
+            dtype=torch_dtype(dtype), num_exec=n_exec,
+            max_row=self._max_row, num_mrows=self._num_mrows,
+            mat_specs=tuple(self._mat_specs), used_types=used_types,
+            head_dim=int(head_dim), task_rows=tuple(task_rows),
+            hazard_edges=tuple(self._edges),
+            task_reads=tuple(self._reads),
+            task_writes=tuple(self._writes),
+            sync_before=barrier_rows(order, self._edges,
+                                     [t.type for t in self._tasks]))
+
+
+def barrier_rows(order: list[int], edges, types) -> np.ndarray:
+    """Per queue row, 1 where the CUDA interpreter must hold a grid-wide
+    barrier before the task starts, else 0.
+
+    The TPU runs one task at a time, so its queue order alone keeps every
+    dependency. The GPU kernel runs a task's work across all blocks and
+    lets consecutive tasks with no hazard between them share one barrier
+    interval: a task waits only when one of its hazard predecessors
+    (RAW, WAR or WAW over workspace tiles, ``hazard_edges``) ran in the
+    current interval. Every GEMM_MAT starts after a barrier, because its
+    partial-sum scratch is shared, and ends its own interval (it holds
+    barriers inside). The build-time edges cover the runtime ones: at
+    build time every slot's page table and append target is the one
+    scratch page, so every attention read and append write of a layer
+    is ordered against every other's; at run time each slot's pages are
+    its own."""
+    preds: list[set[int]] = [set() for _ in types]
+    for s, d in edges:
+        preds[d].add(s)
+    sync = np.zeros((len(order),), np.int32)
+    open_tasks: set[int] = set()
+    for pos, t in enumerate(order):
+        gemm = types[t] == TaskType.GEMM_MAT
+        if pos and (gemm or preds[t] & open_tasks):
+            sync[pos] = 1
+            open_tasks = set()
+        open_tasks.add(t)
+    return sync
+
+
+@dataclasses.dataclass
+class CompiledMegaKernel:
+    """Packed queue + workspace geometry; :meth:`step` is the single
+    launch."""
+
+    queue: np.ndarray             # (rows, WORDS) int32: tasks, then data
+    num_tiles: int
+    dtype: torch.dtype = torch.float32   # workspace dtype; compute is fp32
+    num_exec: int | None = None   # dispatched rows (rest = page-table data)
+    max_row: int = 1              # widest resident row (tiles)
+    num_mrows: int = 0            # 2D matrix-workspace rows (0 = unused)
+    mat_specs: tuple = ()         # static GEMM_MAT shapes (spec index)
+    used_types: tuple = ()        # task types in the queue
+    head_dim: int = TILE          # NORM_ROPE_QKV sub-tile span
+    task_rows: tuple | None = None    # emission task id -> queue row
+    hazard_edges: tuple | None = None  # (src, dst) emission-id edges
+    task_reads: tuple | None = None   # per-task read tile-id sets
+    task_writes: tuple | None = None  # per-task write tile-id sets
+    sync_before: np.ndarray | None = None  # per exec row: barrier first
+
+    # Strip pad of the JAX package's workspace (its static-size fetches
+    # may overrun the last real tile); kept so the two workspaces have
+    # the same shape, tile for tile.
+    _STRIP_PAD = 7
+
+    def scatter_input(self, ws: torch.Tensor, h: TensorHandle,
+                      value) -> torch.Tensor:
+        """Write (rows, cols) ``value`` into the tiled workspace, in
+        place; returns ``ws``."""
+        v = torch.as_tensor(value).to(device=ws.device, dtype=ws.dtype)
+        if tuple(v.shape) != (h.rows, h.cols):
+            raise ValueError(f"value {tuple(v.shape)} does not match handle "
+                             f"({h.rows}, {h.cols})")
+        tiles = v.reshape(h.rt, TILE, h.ct, TILE).permute(0, 2, 1, 3)
+        ws[h.base:h.base + h.rt * h.ct] = tiles.reshape(-1, TILE, TILE)
+        return ws
+
+    def gather_output(self, ws: torch.Tensor, h: TensorHandle
+                      ) -> torch.Tensor:
+        tiles = ws[h.base:h.base + h.rt * h.ct]
+        return tiles.reshape(h.rt, h.ct, TILE, TILE).permute(
+            0, 2, 1, 3).reshape(h.rows, h.cols)
+
+    def make_workspace(self, inputs: dict, device=None) -> torch.Tensor:
+        """Build the tiled MAIN workspace once (weights + caches +
+        activations); matrix handles go to :meth:`make_workspace_mat`."""
+        ws = torch.zeros((max(self.num_tiles, 1) + self._STRIP_PAD,
+                          TILE, TILE), dtype=self.dtype, device=device)
+        for h, v in inputs.items():
+            if isinstance(h, MatHandle):
+                raise ValueError("matrix handle in main workspace feeds — "
+                                 "pass it to make_workspace_mat (or use "
+                                 "split_feeds)")
+            self.scatter_input(ws, h, v)
+        return ws
+
+    @staticmethod
+    def split_feeds(feeds: dict) -> tuple[dict, dict]:
+        """Split a mixed feeds dict into (main, matrix) workspace feeds."""
+        main = {h: v for h, v in feeds.items()
+                if not isinstance(h, MatHandle)}
+        wm = {h: v for h, v in feeds.items() if isinstance(h, MatHandle)}
+        return main, wm
+
+    def scatter_mat(self, wsm: torch.Tensor, h: MatHandle,
+                    value) -> torch.Tensor:
+        """Write a weight matrix into the 2D matrix workspace, in place.
+        ``value``: (k, n), or for ``h.pair`` a (gate, up) pair of (k, n)
+        tensors interleaved per strip."""
+        half = MAT_COLS // 2
+        ns = h.n_strips
+
+        def prep(x, width):
+            x = torch.as_tensor(x).to(device=wsm.device, dtype=wsm.dtype)
+            if tuple(x.shape) != (h.k, h.n):
+                raise ValueError(f"value must be ({h.k}, {h.n}), got "
+                                 f"{tuple(x.shape)}")
+            x = torch.nn.functional.pad(x, (0, ns * width - h.n))
+            return x.reshape(h.k, ns, width)
+
+        if h.pair:
+            g, u = value
+            strips = torch.cat([prep(g, half), prep(u, half)], dim=2)
+        else:
+            strips = prep(value, MAT_COLS)
+        wsm[h.base:h.base + h.rows] = strips.permute(1, 0, 2).reshape(
+            h.rows, MAT_COLS)
+        return wsm
+
+    def make_workspace_mat(self, inputs: dict, device=None) -> torch.Tensor:
+        """Build the 2D matrix weight workspace (read-only input of every
+        step; pair handles take (gate, up) value tuples)."""
+        wsm = torch.zeros((max(self.num_mrows, 1), MAT_COLS),
+                          dtype=self.dtype, device=device)
+        for h, v in inputs.items():
+            if not isinstance(h, MatHandle):
+                raise ValueError("non-matrix handle in matrix workspace "
+                                 "feeds")
+            self.scatter_mat(wsm, h, v)
+        return wsm
+
+    def step(self, ws: torch.Tensor, queue=None,
+             wsm: torch.Tensor | None = None, *,
+             live_rows: int = TILE) -> torch.Tensor:
+        """One queue execution over the workspace, in place; returns
+        ``ws``. ``queue``: a host-retargeted copy of :attr:`queue`
+        (default: the compiled one). ``live_rows``: the rows of every
+        128-row block that carry data — the CUDA kernel computes only
+        those (every handler is row-independent); the plain version
+        computes all rows."""
+        if self.num_mrows and wsm is None:
+            raise ValueError(
+                f"program uses {self.num_mrows} matrix-workspace rows but "
+                "no wsm was passed — build it with make_workspace_mat")
+        if wsm is not None and (wsm.dim() != 2 or wsm.shape[1] != MAT_COLS
+                                or wsm.shape[0] < max(self.num_mrows, 1)
+                                or wsm.dtype != self.dtype):
+            raise ValueError(
+                f"wsm {tuple(wsm.shape)} {wsm.dtype} does not fit this "
+                f"program: need (>= {max(self.num_mrows, 1)}, {MAT_COLS}) "
+                f"{self.dtype} — was it built by make_workspace_mat of a "
+                "different program?")
+        if ws.dtype != self.dtype or ws.dim() != 3 \
+                or ws.shape[0] < self.num_tiles:
+            raise ValueError(f"ws {tuple(ws.shape)} {ws.dtype} does not fit "
+                             f"this program ({self.num_tiles} tiles of "
+                             f"{self.dtype})")
+        return run_queue(self.queue if queue is None else queue, ws, wsm,
+                         num_exec=self.num_exec, mat_specs=self.mat_specs,
+                         used_types=self.used_types, head_dim=self.head_dim,
+                         sync_before=self.sync_before, live_rows=live_rows)

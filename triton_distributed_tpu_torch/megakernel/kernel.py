@@ -1,0 +1,341 @@
+"""The persistent megakernel — one launch runs the whole task queue.
+
+Counterpart of the JAX package's ``megakernel/kernel.py``. The TPU kernel
+there (``_mega_kernel``: the Pallas grid IS the queue loop, one task per
+grid step, a ``lax.switch`` over ~26 handlers) becomes the hand-written
+CUDA interpreter ``csrc/megakernel.cu``: one cooperative launch whose
+blocks all walk the queue, each task's work spread over the blocks, grid
+barriers where the builder's hazard edges need them (see that file's
+header). It handles the task types of the paged serving program,
+:data:`PORTED_TYPES`; :func:`run_queue` refuses any other before launch.
+
+:func:`run_queue_plain` is the same interpreter in plain PyTorch: it walks
+the queue rows in order with one handler per type on full 128-row tiles,
+rounding where the TPU kernel stores. CPU tensors take it; on the card
+``chip_smoke.py`` holds the CUDA kernel against it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from triton_distributed_tpu_torch.megakernel.tasks import (
+    MAT_COLS, TILE, WORDS, TaskType,
+)
+from triton_distributed_tpu_torch.runtime.build import (
+    CudaKernel, current_stream, ptr,
+)
+
+PORTED_TYPES = frozenset({
+    TaskType.RMS_NORM, TaskType.ATTN_DECODE_PAGED, TaskType.APPEND_KV,
+    TaskType.GEMM_MAT, TaskType.NORM_ROPE_QKV, TaskType.PREFETCH_MAT,
+})
+MAX_LIVE_ROWS = 4        # rows per 128-row block the CUDA kernel computes
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_NEG = -1e30
+
+MEGA_KERNEL = CudaKernel(
+    "megakernel.cu", "megakernel_run",
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+
+
+class MegakernelUnsupportedError(ValueError):
+    """The program, queue or configuration needs a part of the megakernel
+    the port has not ported yet (a task type, the speculative window, a
+    page shape). Raised by name: the port has no backend ladder, and a
+    silent demotion would hide the kernel."""
+
+
+def _type_name(t: int) -> str:
+    try:
+        return TaskType(int(t)).name
+    except ValueError:
+        return str(int(t))
+
+
+def check_queue(queue: np.ndarray, num_exec: int,
+                used_types=None) -> None:
+    """Refuse a program or queue the interpreters cannot run: a task type
+    outside :data:`PORTED_TYPES`, a speculative window on an attention
+    row (word 5), or a windowed append (word 4)."""
+    if used_types is not None:
+        bad = sorted(int(t) for t in used_types if t not in PORTED_TYPES)
+        if bad:
+            raise MegakernelUnsupportedError(
+                "megakernel program uses task types the port has not "
+                f"ported: {[_type_name(t) for t in bad]} (ported: "
+                f"{sorted(t.name for t in PORTED_TYPES)})")
+    rows = queue[:num_exec]
+    types = rows[:, 0]
+    bad_rows = ~np.isin(types, [int(t) for t in PORTED_TYPES])
+    if bad_rows.any():
+        raise MegakernelUnsupportedError(
+            f"queue row {int(np.flatnonzero(bad_rows)[0])} has task type "
+            f"{_type_name(types[bad_rows][0])}, which the port has not "
+            "ported")
+    if np.any(rows[types == int(TaskType.ATTN_DECODE_PAGED), 5] != 0):
+        raise MegakernelUnsupportedError(
+            "ATTN_DECODE_PAGED with a speculative window (word 5 > 0) is "
+            "not ported — spec_window must be 1")
+    if np.any(rows[types == int(TaskType.APPEND_KV), 4] != 0):
+        raise MegakernelUnsupportedError(
+            "windowed APPEND_KV (word 4 > 0) is not ported — spec_window "
+            "must be 1")
+
+
+def gemm_chunk_rows(k: int) -> int:
+    """Contraction rows per GEMM_MAT item of the CUDA kernel (its
+    ``gemm_kch``): the partial-sum scratch holds one slab per chunk."""
+    return 256 if k % 256 == 0 else 128
+
+
+def run_queue(queue, ws: torch.Tensor, wsm: torch.Tensor | None, *,
+              num_exec: int, mat_specs: tuple, used_types=None,
+              head_dim: int = TILE, sync_before=None,
+              live_rows: int = TILE) -> torch.Tensor:
+    """Execute the packed task queue over the workspace, in place; returns
+    ``ws``. The CUDA interpreter on a CUDA workspace (one launch; rows
+    ``[0, live_rows)`` of every 128-row block), the plain version on a CPU
+    one (every row). ``sync_before``: the builder's per-row barrier flags
+    (``builder.barrier_rows``), needed on the card."""
+    q = np.ascontiguousarray(queue, np.int32)
+    check_queue(q, num_exec, used_types)
+    if ws.device.type == "cuda":
+        return _run_queue_cuda(q, ws, wsm, num_exec=num_exec,
+                               mat_specs=mat_specs, head_dim=head_dim,
+                               sync_before=sync_before, live_rows=live_rows)
+    if ws.device.type == "cpu":
+        return run_queue_plain(q, ws, wsm, num_exec=num_exec,
+                               mat_specs=mat_specs, head_dim=head_dim)
+    raise ValueError(f"megakernel: no kernel for device {ws.device}")
+
+
+# ---------------------------------------------------------------------------
+# CUDA launch.
+# ---------------------------------------------------------------------------
+
+def _specs_array(mat_specs) -> np.ndarray:
+    rows = [(sp.kt, sp.ns, sp.nt_out, sp.epi) for sp in mat_specs]
+    return np.asarray(rows or [(0, 0, 0, 0)], np.int32).reshape(-1, 4)
+
+
+def _partial_floats(mat_specs, live_rows: int) -> int:
+    n = 1
+    for sp in mat_specs:
+        k = sp.kt * TILE
+        n = max(n, (k // gemm_chunk_rows(k)) * live_rows * sp.ns * MAT_COLS)
+    return n
+
+
+def cuda_launcher(q: np.ndarray, ws, wsm, *, num_exec, mat_specs,
+                  head_dim, sync_before, live_rows):
+    """Check the operands, upload the queue (with the barrier flags and
+    the GEMM_MAT spec table) and the partial-sum scratch, and return a
+    zero-argument function that launches the kernel on them — so a timing
+    loop can launch without re-uploading."""
+    if ws.dtype not in _DTYPE_CODE:
+        raise ValueError(f"megakernel: workspace dtype {ws.dtype} "
+                         "unsupported (float32 or bfloat16)")
+    if not ws.is_contiguous() or ws.dim() != 3 \
+            or tuple(ws.shape[1:]) != (TILE, TILE):
+        raise ValueError(f"megakernel: ws {tuple(ws.shape)} must be a "
+                         f"contiguous (tiles, {TILE}, {TILE}) tensor")
+    if wsm is None:
+        wsm = torch.zeros((1, MAT_COLS), dtype=ws.dtype, device=ws.device)
+    if wsm.device != ws.device or wsm.dtype != ws.dtype \
+            or not wsm.is_contiguous():
+        raise ValueError("megakernel: wsm must be a contiguous tensor of "
+                         "the workspace's device and dtype")
+    if not 1 <= live_rows <= MAX_LIVE_ROWS:
+        raise ValueError(f"megakernel: live_rows {live_rows} outside [1, "
+                         f"{MAX_LIVE_ROWS}] — the CUDA kernel computes at "
+                         "most that many rows per block")
+    if head_dim not in (TILE // 2, TILE):
+        raise ValueError(f"megakernel: head_dim {head_dim} unsupported")
+    if sync_before is None or len(sync_before) < num_exec:
+        raise ValueError("megakernel: the CUDA kernel needs the program's "
+                         "per-row barrier flags (compile() records them)")
+    n_q = q.size
+    host = np.concatenate([q.reshape(-1),
+                           np.asarray(sync_before[:num_exec], np.int32),
+                           _specs_array(mat_specs).reshape(-1)])
+    dev = torch.from_numpy(host).to(ws.device)
+    partial = torch.empty((_partial_floats(mat_specs, live_rows),),
+                          dtype=torch.float32, device=ws.device)
+    base = dev.data_ptr()
+    args = (ctypes.c_void_p(base), ctypes.c_void_p(base + 4 * n_q),
+            ctypes.c_void_p(base + 4 * (n_q + num_exec)),
+            ptr(ws), ptr(wsm), ptr(partial),
+            int(num_exec), int(live_rows), int(head_dim),
+            _DTYPE_CODE[ws.dtype])
+
+    def launch():
+        MEGA_KERNEL.launch(*args, current_stream(ws.device))
+
+    launch.buffers = (dev, partial, wsm)   # alive as long as the pointers
+    return launch
+
+
+def grid_blocks(dtype: torch.dtype) -> int:
+    """Blocks of the cooperative grid the kernel launches for this
+    workspace dtype (0 before the first launch)."""
+    MEGA_KERNEL._load()
+    fn = MEGA_KERNEL._lib.megakernel_grid
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    return int(fn(_DTYPE_CODE[dtype]))
+
+
+def _run_queue_cuda(q: np.ndarray, ws, wsm, **kw):
+    cuda_launcher(q, ws, wsm, **kw)()
+    return ws
+
+
+# ---------------------------------------------------------------------------
+# Plain version: the same queue walk in PyTorch.
+# ---------------------------------------------------------------------------
+
+def _fixed(word: int, unit: float) -> torch.Tensor:
+    """A fixed-point queue word as the TPU kernel decodes it: the int
+    cast to fp32, times the fp32 unit."""
+    return (torch.tensor(float(word), dtype=torch.float32)
+            * torch.tensor(unit, dtype=torch.float32))
+
+
+def _row(ws, base: int, nt: int) -> torch.Tensor:
+    """Tiles [base, base+nt) as one fp32 (TILE, nt*TILE) row block."""
+    return ws[base:base + nt].permute(1, 0, 2).reshape(TILE, nt * TILE).float()
+
+
+def _put_row(ws, base: int, x: torch.Tensor) -> None:
+    nt = x.shape[1] // TILE
+    ws[base:base + nt] = x.reshape(TILE, nt, TILE).permute(1, 0, 2).to(ws.dtype)
+
+
+def _rms(x: torch.Tensor, w: torch.Tensor, cols: int, eps) -> torch.Tensor:
+    ss = torch.sum(x * x, dim=-1, keepdim=True)
+    return x * torch.rsqrt(ss / float(cols) + eps.to(x.device)) * w
+
+
+def _p_rms_norm(ws, w):
+    out, a0, b0, kt, arg = w[1], w[2], w[3], w[4], w[7]
+    x = _row(ws, a0, kt)
+    _put_row(ws, out, _rms(x, _row(ws, b0, kt), kt * TILE, _fixed(arg, 1e-9)))
+
+
+def _p_norm_rope_qkv(ws, w, head_dim):
+    a0, qn, hq, kn, hkv, arg, c0, d0 = (w[2], w[3], w[4], w[5], w[6], w[7],
+                                        w[8], w[9])
+    heads = ws[a0:a0 + hq + hkv].float()                  # (h, TILE, TILE)
+    gain = torch.stack([ws[qn].float()] * hq + [ws[kn].float()] * hkv)
+    xn = _rms(heads, gain, head_dim, _fixed(arg, 1e-9))
+    half = head_dim // 2
+    rot = torch.cat([-xn[..., half:head_dim], xn[..., :half],
+                     xn[..., head_dim:]], dim=-1)
+    y = xn * ws[c0].float() + rot * ws[d0].float()
+    ws[a0:a0 + hq + hkv] = y.to(ws.dtype)
+
+
+def _p_attn_paged(ws, flat, w):
+    out, a0, b0, kt, win, valid, arg, c0, d0 = (w[1], w[2], w[3], w[4], w[5],
+                                                w[6], w[7], w[8], w[9])
+    if win:
+        raise MegakernelUnsupportedError("speculative window fold")
+    scale = _fixed(arg, 1e-6).to(ws.device)
+    q = ws[a0].float()                                     # (rows, d)
+    rows = q.shape[0]
+    if kt > 0:
+        ent = flat[b0 * WORDS:b0 * WORDS + 2 * kt].astype(np.int64)
+        ent = torch.from_numpy(ent.reshape(kt, 2)).to(ws.device)
+        k_ids, v_ids = ent[:, 0], ent[:, 1]
+        keys = ws[k_ids].float().permute(1, 0, 2).reshape(TILE, kt * TILE)
+        vals = ws[v_ids].float().reshape(kt * TILE, TILE)
+        s = (q @ keys) * scale
+        col = torch.arange(kt * TILE, device=ws.device)
+        s = torch.where(col[None, :] < valid, s, _NEG)
+        m = torch.amax(s, dim=-1, keepdim=True)
+        p = torch.exp(s - m)
+        l = torch.sum(p, dim=-1, keepdim=True)
+        # The PV product takes p rounded to the workspace type; l sums it
+        # unrounded (the TPU kernel's p.astype(vv.dtype)).
+        acc = p.to(ws.dtype).float() @ vals
+    else:
+        m = torch.full((rows, 1), _NEG, device=ws.device)
+        l = torch.zeros((rows, 1), device=ws.device)
+        acc = torch.zeros((rows, TILE), device=ws.device)
+    if c0 >= 0:
+        s_cur = torch.sum(q * ws[c0].float(), dim=-1, keepdim=True) * scale
+        m_new = torch.maximum(m, s_cur)
+        p_cur = torch.exp(s_cur - m_new)
+        corr = torch.exp(m - m_new)
+        acc = acc * corr + p_cur * ws[d0].float()
+        l = l * corr + p_cur
+    ws[out] = (acc / torch.clamp(l, min=1e-30)).to(ws.dtype)
+
+
+def _p_append_kv(ws, w):
+    out, a0, b0, cnt, c0, d0 = w[1], w[2], w[3], w[4], w[8], w[9]
+    if cnt:
+        raise MegakernelUnsupportedError("windowed APPEND_KV")
+    if c0 < 0:
+        return
+    ws[out][:, c0] = ws[a0][0]
+    ws[b0][c0, :] = ws[d0][0]
+
+
+def _p_gemm_mat(ws, wsm, w, mat_specs):
+    out, a0, b0, kt, si, nb, arg, c0, d0 = (w[1], w[2], w[3], w[4], w[5],
+                                            w[6], w[7], w[8], w[9])
+    sp = mat_specs[si]
+    epi = arg & 0xFF
+    k = kt * TILE
+    a = _row(ws, a0, kt)                                   # (TILE, K)
+    wts = wsm[b0:b0 + sp.ns * k].reshape(sp.ns, k, MAT_COLS).float()
+    acc = torch.matmul(a, wts)                             # (ns, TILE, 1024)
+    if epi == 1:
+        half = MAT_COLS // 2
+        act = torch.nn.functional.silu(acc[..., :half]) * acc[..., half:]
+        y = act.permute(1, 0, 2).reshape(TILE, sp.ns * half)
+    else:
+        y = acc.permute(1, 0, 2).reshape(TILE, sp.ns * MAT_COLS)
+    y = y[:, :sp.nt_out * TILE]
+    if epi in (2, 3):
+        y = y + _row(ws, c0, sp.nt_out)
+    _put_row(ws, out, y)
+    if epi == 3:
+        x2 = _row(ws, out, sp.nt_out)                      # the stored row
+        _put_row(ws, d0, _rms(x2, _row(ws, nb, sp.nt_out),
+                              sp.nt_out * TILE, _fixed(arg >> 8, 1e-9)))
+
+
+def run_queue_plain(queue, ws: torch.Tensor, wsm: torch.Tensor | None, *,
+                    num_exec: int, mat_specs: tuple,
+                    head_dim: int = TILE) -> torch.Tensor:
+    """The megakernel's function in plain PyTorch: the queue rows in
+    order, one handler per type, every row of every tile, fp32 compute
+    and stores in the workspace dtype. Updates ``ws`` in place and
+    returns it."""
+    MEGA_KERNEL.plain_calls += 1
+    q = np.ascontiguousarray(queue, np.int32)
+    check_queue(q, num_exec)
+    flat = q.reshape(-1)
+    for row in q[:num_exec].tolist():
+        t = row[0]
+        if t == TaskType.RMS_NORM:
+            _p_rms_norm(ws, row)
+        elif t == TaskType.NORM_ROPE_QKV:
+            _p_norm_rope_qkv(ws, row, head_dim)
+        elif t == TaskType.ATTN_DECODE_PAGED:
+            _p_attn_paged(ws, flat, row)
+        elif t == TaskType.APPEND_KV:
+            _p_append_kv(ws, row)
+        elif t == TaskType.GEMM_MAT:
+            _p_gemm_mat(ws, wsm, row, mat_specs)
+        elif t == TaskType.PREFETCH_MAT:
+            pass    # a DMA warm on the TPU: no arithmetic effect
+        else:
+            raise MegakernelUnsupportedError(
+                f"task type {_type_name(t)} is not ported")
+    return ws

@@ -4,9 +4,16 @@
 Eager PyTorch: prefill writes a linear cache, :meth:`Engine.to_paged`
 mirrors it into the paged layout, and each decode step runs
 ``dense_decode_step_paged`` (K2) followed by the greedy token, all on the
-device — the host syncs once, when :meth:`Engine.serve` returns. Not in
-this slice: the backend ladder and demotion, ``repartition``, observability
-spans, and a CUDA graph for the decode step.
+device — the host syncs once, when :meth:`Engine.serve` returns.
+
+``backend`` picks the decode path: ``"xla"`` (the default; the name the
+JAX package gives its plain path) is the eager step above;
+``"megakernel"`` marks the engine for the serving tier's persistent-kernel
+lane (``ServingEngine`` decodes through ``megakernel/serving.py``), and
+:meth:`Engine.decode` / :meth:`Engine.serve` then refuse by name instead of
+decoding eagerly — there is no demotion ladder. Not in this slice: the
+ladder, ``repartition``, observability spans, ``Engine.serve`` on the
+megakernel, and a CUDA graph for the decode step.
 """
 
 from __future__ import annotations
@@ -16,6 +23,9 @@ import warnings
 import numpy as np
 import torch
 
+from triton_distributed_tpu_torch.megakernel.kernel import (
+    MegakernelUnsupportedError,
+)
 from triton_distributed_tpu_torch.models import sampling
 from triton_distributed_tpu_torch.models.config import ModelConfig
 from triton_distributed_tpu_torch.models.dense import (
@@ -41,13 +51,20 @@ class Engine:
     ``device=None`` means the card and raises without CUDA; pass
     ``device="cpu"`` for the CPU (the kernels' plain versions run there).
     ``params`` (from ``init_dense_llm`` or ``params_from_numpy``) are
-    moved to ``device`` if they live elsewhere."""
+    moved to ``device`` if they live elsewhere. ``backend``: ``"xla"`` or
+    ``"megakernel"`` (see the module docstring)."""
+
+    BACKENDS = ("xla", "megakernel")
 
     def __init__(self, cfg: ModelConfig, params: dict, *, device=None,
-                 max_seq: int = 256, page_size: int):
+                 max_seq: int = 256, page_size: int, backend: str = "xla"):
         if page_size < 1:
             raise ValueError(f"page_size = {page_size} invalid: a page holds "
                              "at least one position — argument page_size")
+        if backend not in self.BACKENDS:
+            raise ValueError(f"backend = {backend!r} unknown: expected one "
+                             f"of {self.BACKENDS} — argument backend")
+        self.backend = backend
         self.cfg = cfg
         self.device = resolve_device(device)
         self.max_seq = max_seq
@@ -88,10 +105,19 @@ class Engine:
         return dense_prefill(self.params, self.cfg,
                              input_ids.to(self.device), cache)
 
+    def _check_eager(self) -> None:
+        if self.backend == "megakernel":
+            raise MegakernelUnsupportedError(
+                "Engine(backend='megakernel') decodes through "
+                "ServingEngine's megakernel lane; Engine.decode / "
+                "Engine.serve on the megakernel are not ported — use "
+                "backend='xla' for the eager step")
+
     def decode(self, tokens: torch.Tensor, cache):
         """tokens: (B,). ``cache``: a PagedModelCache, or the linear cache
         from :meth:`prefill` (converted on first use). Returns
         (next_tokens (B,) int32, cache)."""
+        self._check_eager()
         if isinstance(cache, KVCache):
             cache = self.to_paged(cache)
         logits, cache = dense_decode_step_paged(
@@ -101,6 +127,7 @@ class Engine:
     def serve(self, input_ids, gen_len: int) -> torch.Tensor:
         """Greedy generation: (B, S) prompt ids → (B, gen_len) int32 token
         ids on the device. The first token comes from the prefill logits."""
+        self._check_eager()
         if not isinstance(input_ids, torch.Tensor):
             input_ids = torch.as_tensor(np.asarray(input_ids))
         logits, cache = self.prefill(input_ids.to(self.device))

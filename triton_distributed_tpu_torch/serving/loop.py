@@ -20,10 +20,19 @@ iteration runs one mixed step:
    page, so their discarded lane reads nothing and their appends land
    on that one page.
 
+With ``Engine(backend="megakernel")`` step 4 is the persistent-kernel
+lane instead: ONE launch of the megakernel decodes every slot
+(``megakernel/serving.PagedMegakernelDecoder``), whose workspace holds
+the KV pools — a finished prefill's pages scatter there, and the pool's
+scratch page is the allocator's reserved page. The lane needs
+``page_size == 128`` and a geometry it can tile; anything else raises
+:class:`MegakernelUnsupportedError` at construction (the JAX package
+demotes down its backend ladder there; the port has no ladder).
+
 Greedy decoding end to end, so each request's tokens are identical to a
 sequential ``Engine.serve`` of its prompt. Not in this slice: prefix cache,
-speculative decode, KV host tier, the async loop, the megakernel lane,
-disaggregation, fleet, flight recorder and observability hooks.
+speculative decode, KV host tier, the async loop, disaggregation, fleet,
+flight recorder and observability hooks.
 """
 
 from __future__ import annotations
@@ -33,6 +42,11 @@ import time
 import numpy as np
 import torch
 
+from triton_distributed_tpu_torch.megakernel.serving import (
+    MegakernelUnsupportedError, PagedMegakernelDecoder,
+    validate_megakernel_cfg,
+)
+from triton_distributed_tpu_torch.megakernel.tasks import TILE
 from triton_distributed_tpu_torch.models import sampling
 from triton_distributed_tpu_torch.models.dense import (
     dense_last_logits, dense_prefill_slice,
@@ -100,18 +114,52 @@ class ServingEngine:
                 "at least one page — argument num_pages")
         self.num_pages = pool_pages
         self.scratch_page = pool_pages        # last pool row, never owned
-        self._cache = init_paged_model_cache(
-            self.cfg, max_batch, page_size=page, max_pages=self.max_pages,
-            num_pages=pool_pages + 1, device=engine.device)
         self._pf_cache = init_kv_cache(self.cfg, 1, self.s_buf,
                                        device=engine.device)
+        # The megakernel lane's workspace holds the KV pools, with the
+        # scratch page as a reserved pool row (the budget math sees it);
+        # the eager lane keeps a PagedModelCache.
+        self._mk = None
+        self._mk_ws = None
+        self._cache = None
+        if engine.backend == "megakernel":
+            self._mk = self._build_megakernel_lane(pool_pages)
+            self._mk_ws = self._mk.start()
+            allocator = PageAllocator(pool_pages + 1, self.max_pages,
+                                      reserved=(self.scratch_page,))
+        else:
+            self._cache = init_paged_model_cache(
+                self.cfg, max_batch, page_size=page,
+                max_pages=self.max_pages, num_pages=pool_pages + 1,
+                device=engine.device)
+            allocator = PageAllocator(pool_pages, self.max_pages)
         self.sched = Scheduler(
-            num_slots=max_batch,
-            allocator=PageAllocator(pool_pages, self.max_pages),
+            num_slots=max_batch, allocator=allocator,
             page_size=page, capacity_tokens=capacity,
             max_waiting=max_waiting)
         self._iter = 0
         self._finished: list[Request] = []
+
+    def _build_megakernel_lane(self, pool_pages: int
+                               ) -> PagedMegakernelDecoder:
+        """The paged persistent-kernel decoder, or a named
+        MegakernelUnsupportedError saying which dimension the lane cannot
+        serve (page shape, model geometry)."""
+        if self.page != TILE:
+            raise MegakernelUnsupportedError(
+                f"megakernel paged workspace needs page_size == TILE "
+                f"({TILE}); engine has page_size={self.page} — pool pages "
+                "must line up one-to-one with workspace KV tiles")
+        try:
+            validate_megakernel_cfg(self.cfg, self.max_pages * TILE)
+        except ValueError as exc:
+            raise MegakernelUnsupportedError(
+                f"megakernel cannot serve this model: {exc}") from exc
+        eng = self.engine
+        return PagedMegakernelDecoder(
+            self.cfg, eng.params, num_slots=self.max_batch,
+            num_pages=pool_pages, max_pages=self.max_pages,
+            device=eng.device)
 
     # -- submission ----------------------------------------------------------
     def submit(self, prompt, max_new_tokens: int, *, priority: int = 0,
@@ -190,15 +238,19 @@ class ServingEngine:
         pool pages (in place) and move it to the decode batch."""
         L, page = self.cfg.num_layers, self.page
         n_pages = -(-req.kv_len // page)
-        pages = torch.as_tensor(
-            self.sched.allocator.pages(req.req_id)[:n_pages],
-            dtype=torch.long, device=self.engine.device)
+        owned = self.sched.allocator.pages(req.req_id)[:n_pages]
         pf = self._pf_cache
-        for pool, lin in ((self._cache.k_pools, pf.k),
-                          (self._cache.v_pools, pf.v)):
-            src = lin[:, 0].reshape(L, self.s_buf // page, page,
-                                    *lin.shape[3:])[:, :n_pages]
-            pool[:, pages] = src.to(pool.dtype)
+        if self._mk is not None:
+            self._mk_ws = self._mk.load_prefill(self._mk_ws, pf.k, pf.v,
+                                                owned)
+        else:
+            pages = torch.as_tensor(owned, dtype=torch.long,
+                                    device=self.engine.device)
+            for pool, lin in ((self._cache.k_pools, pf.k),
+                              (self._cache.v_pools, pf.v)):
+                src = lin[:, 0].reshape(L, self.s_buf // page, page,
+                                        *lin.shape[3:])[:, :n_pages]
+                pool[:, pages] = src.to(pool.dtype)
         req.advance(RequestState.RUNNING)
         if req.done:
             self._finish(req)
@@ -207,18 +259,32 @@ class ServingEngine:
         self.sched.finish(req, self.clock())
         self._finished.append(req)
 
-    def _decode(self, ready: list[Request]) -> None:
-        eng = self.engine
+    def _slot_state(self, ready: list[Request], unmapped: int):
+        """The decode batch per slot: (tokens, kv_lens, page table), the
+        table's entries past a slot's pages set to ``unmapped``."""
         alloc = self.sched.allocator
         toks = np.zeros((self.max_batch,), np.int32)
         lens = np.zeros((self.max_batch,), np.int32)
-        table = np.full((self.max_batch, self.max_pages), self.scratch_page,
-                        np.int32)
+        table = np.full((self.max_batch, self.max_pages), unmapped, np.int32)
         for req in ready:
             toks[req.slot] = req.tokens[-1]
             lens[req.slot] = req.kv_len
             pages = alloc.pages(req.req_id)
             table[req.slot, :len(pages)] = pages
+        return toks, lens, table
+
+    def _decode(self, ready: list[Request]) -> None:
+        if self._mk is not None:
+            # The persistent-kernel lane: the host rewrites queue words
+            # from the allocator's page ids and ONE launch decodes every
+            # slot, its appends advancing the pool pages. Unmapped entries
+            # are -1, so the decoder's page-coverage checks see them.
+            toks, lens, table = self._slot_state(ready, -1)
+            self._mk_ws, tok = self._mk.step(self._mk_ws, toks, lens, table)
+            self._decode_tail(ready, tok.cpu().numpy())    # host sync
+            return
+        eng = self.engine
+        toks, lens, table = self._slot_state(ready, self.scratch_page)
         cache = self._cache._replace(
             page_table=torch.from_numpy(table).to(eng.device),
             kv_lens=torch.from_numpy(lens).to(eng.device))
