@@ -12,9 +12,12 @@ printing one JSON line:
    (max-abs error within the stated tolerance), and its time beside its
    plain version's, a one-call PyTorch yardstick where one exists, and the
    least time the card could take (bytes over 3.35 TB/s or flops over the
-   peak rate of the input type, whichever is larger); the megakernel's
-   cases run one decode step at Qwen3-8B widths cut to 2 layers, 4 slots
-   of page 128 at kv_lens [0, 1, 127, 1999], in bf16 and in fp32;
+   peak rate of the input type, whichever is larger). K2 runs over bf16,
+   fp32 and e4m3 pools; the megakernel's cases run one decode step at
+   Qwen3-8B widths cut to 2 layers, 4 slots of page 128: at kv_lens [0, 1,
+   127, 1999] in bf16 and fp32 over workspace-dtype and e4m3 pools, and
+   with a speculative window of 4 rows at kv_lens [0, 1, 126, 1999] (slot
+   2's window spills into its next page) in both types over both pools;
 3. ``engine``  — Qwen3-8B at full width and depth, random bf16 weights from a
    seeded generator, ``Engine.serve`` of 2 x 1024-token prompts for 64 new
    tokens; K1/K2 launch counts must match the layer count, plain versions
@@ -22,15 +25,21 @@ printing one JSON line:
 4. ``serving`` — the same model through ``ServingEngine`` (6 requests, prompts
    100-1500 tokens, 32 new tokens each); all finish, counts match; then a
    decode-only window of 4 running slots times the eager step;
-5. ``megakernel_serving`` — the same model and requests through
+5. ``fp8_serving`` / ``spec_serving`` — the same on e4m3 KV pools sized by a
+   byte budget (K2's e4m3 lane on every step), and with speculative decode
+   (``spec_k=3``, prompts of repeated phrases so drafts are proposed);
+6. ``megakernel_serving`` — the same model and requests through
    ``ServingEngine`` on ``Engine(backend="megakernel", page_size=128)``:
    every decode step is one megakernel launch (K2 never, K1 once per layer
    and prefill slice, no plain version); the same decode-only window, and
    the kernel's time at this shape against its bound and its plain time;
-6. ``parity``  — float32 Qwen3-8B widths at 2 layers: ``ServingEngine``
+   then ``fp8_megakernel_serving`` (e4m3 pools: types 24/25 on every
+   launch) and ``spec_megakernel_serving`` (the 4-row window program);
+7. ``parity``  — float32 Qwen3-8B widths at 2 layers: ``ServingEngine``
    tokens identical to sequential ``Engine.serve`` on both lanes, each with
-   a run whose small pool forces preemption; ``torch.argmax`` ties go to
-   the first max.
+   a run whose small pool forces preemption — with workspace-dtype pools,
+   e4m3 pools, speculative decode, and (megakernel lane) both at once;
+   ``torch.argmax`` ties go to the first max.
 
 Then the kernel summary line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failed phase raises: exit code 1
@@ -74,6 +83,22 @@ TOL = {
     # every later task: the error compounds through the layers.
     "megakernel_bf16": dict(atol=4e-2, rtol=6.4e-2),
     "megakernel_fp32": dict(atol=1e-4, rtol=1e-4),
+    # A whole 2-layer step over e4m3 pools, activations and pool tiles: a
+    # k/v value next to an e4m3 rounding boundary (it differs in summation
+    # order, or by a flipped bf16 unit) rounds one e4m3 step away — up to
+    # 2^-3 of the value — and that step moves layer 2's inputs, whose
+    # appends then round to other e4m3 values. Set from the spread
+    # measured on an H100 (700 W) with a margin; the per-task replay
+    # below holds each task to the arithmetic tolerances.
+    "megakernel_e4m3_bf16": dict(atol=0.4, rtol=0.32),
+    "megakernel_e4m3_fp32": dict(atol=0.125, rtol=0.125),
+    # Per-task replay: every attention task rerun by the plain version on
+    # the inputs the kernel left (its q, current k/v and the step's
+    # starting pools), output against the kernel's. bf16: p rounds to
+    # bf16 at each warp's page tile max in the kernel and at the row max
+    # in the plain version (e4m3 pools: p unrounded), then the output
+    # rounds. fp32 replays use "fp32". Appends replay bit for bit.
+    "megakernel_attn_bf16": dict(atol=4e-3, rtol=1.6e-2),
 }
 # Partials: |m - m_plain| <= 1e-4 and |l - l_plain| <= 1e-4 * l_plain
 # (fp32 sums of up to 2048 terms; m = -1e30, l = 0 on dead rows).
@@ -83,19 +108,29 @@ TOL_REASON = (
     "the row max (plain), output rounded to bf16; K2 bf16: only the output "
     "rounds; fp32 (and K2 partials): summation order only; megakernel: "
     "summation order per task, compounded through a 2-layer step by each "
-    "task's rounded stores. Each bf16 case also reports the plain bf16 "
-    "version's and the kernel's max error against the plain version run "
-    "in fp32.")
+    "task's rounded stores; the megakernel's e4m3 pool tiles: one e4m3 "
+    "step for an appended value next to a rounding boundary. Each bf16 "
+    "case also reports the plain bf16 version's and the kernel's max "
+    "error against the plain version run in fp32.")
 # The case whose shape the main path gives each kernel (engine prefill of
 # 2 x 1024 prompts; a decode batch of 4 in the serving phase).
 MAIN_CASE = {"flash_attention": "prefill_2x1024",
-             "paged_attention": "decode_4"}
+             "paged_attention": "decode_4",
+             "paged_attention_e4m3": "decode_4_e4m3"}
 # The megakernel cases' slots: idle (scratch page), one token, an append
 # at a page's last column, and a long context over 16 shuffled pages.
 MK_LENS = [0, 1, 127, 1999]
 MK_MAX_PAGES = 16
-# The serving phases' prompt lengths (32 new tokens each).
+# The window cases: 4 candidate rows per slot; slot 2's window (positions
+# 126-129) spills into its next page.
+MK_WIN_LENS = [0, 1, 126, 1999]
+MK_WINDOW = 4
+# The serving phases' prompt lengths (32 new tokens each), the draft depth
+# of the spec phases (the megakernel computes at most 4 rows per slot
+# block), and the KV byte budget of the fp8 phases.
 SERVING_LENGTHS = [100, 1500, 640, 333, 1024, 877]
+SPEC_K = 3
+KV_BUDGET = 1 << 30
 
 
 def emit(obj) -> None:
@@ -253,17 +288,25 @@ def flash_case(torch, fa, timer, *, name, dtype, B, Sq, Sk, hq, hkv, d,
 
 
 def paged_case(torch, pa, timer, *, name, dtype, lens, page, hq, hkv, d,
-               normalize, time_it, seed):
+               normalize, time_it, seed, kv_dtype=None):
     """One K2 case: shuffled pages, stale random data everywhere in the
-    pool, -1 in the table past each sequence's valid pages."""
+    pool, -1 in the table past each sequence's valid pages. ``kv_dtype``
+    e4m3: the pools are the saturating cast of the random data, a few V
+    values past +-448 included."""
+    from triton_distributed_tpu_torch.models.fp8 import saturate_cast
+
     g = torch.Generator(device="cuda").manual_seed(seed)
     B = len(lens)
     max_pages = -(-max(max(lens), 1) // page)
     num_pages = B * max_pages + 1
+    pool_dt = kv_dtype or dtype
     kp = torch.randn((num_pages, page, hkv, d), generator=g,
-                     device="cuda").to(dtype)
+                     device="cuda")
     vp = torch.randn((num_pages, page, hkv, d), generator=g,
-                     device="cuda").to(dtype)
+                     device="cuda")
+    if kv_dtype is not None:
+        vp[:, 0, 0, :4] = torch.tensor([900.0, -900.0, 464.0, -1000.0])
+    kp, vp = saturate_cast(kp, pool_dt), saturate_cast(vp, pool_dt)
     perm = torch.randperm(num_pages, generator=g, device="cuda")
     table = perm[:B * max_pages].reshape(B, max_pages).to(torch.int32)
     for i, n in enumerate(lens):
@@ -278,7 +321,8 @@ def paged_case(torch, pa, timer, *, name, dtype, lens, page, hq, hkv, d,
         normalize=normalize)
     torch.cuda.synchronize()
     out = got[0]
-    rec = {"case": name, "dtype": _dtype_name(dtype), "shape": {
+    rec = {"case": name, "dtype": _dtype_name(dtype),
+           "pool_dtype": _dtype_name(pool_dt), "shape": {
         "B": B, "kv_lens": lens, "page": page, "hq": hq, "hkv": hkv, "d": d,
         "normalize": normalize},
         **compare(torch, "paged_attention", dtype, normalize, got, want,
@@ -292,8 +336,8 @@ def paged_case(torch, pa, timer, *, name, dtype, lens, page, hq, hkv, d,
         item = q.element_size()
         n_tok = sum(lens)
         n_pages_read = sum(-(-n // page) for n in lens)
-        nbytes = (item * (2 * B * hq * d + 2 * n_tok * hkv * d)
-                  + 4 * (n_pages_read + B))
+        nbytes = (item * 2 * B * hq * d + kp.element_size() * 2 * n_tok * hkv
+                  * d + 4 * (n_pages_read + B))
         flops = 4.0 * hq * d * n_tok
         rec["bound_ms"], rec["bound_by"] = _bound_ms(nbytes, flops,
                                                      _dtype_name(dtype))
@@ -339,150 +383,297 @@ def phase_kernels(torch, fa, pa, timer) -> dict:
                    lens=[3, 0, 9], page=4, normalize=False, time_it=False,
                    seed=7, hq=16, hkv=4, d=64),
     ]
-    return {"flash_attention": k1, "paged_attention": k2}
+    # K2's e4m3 lane: the main shape (the fp8 serving phase's decode batch
+    # of 4, page 16), its partials, fp32 queries, and head_dim 64.
+    e4m3 = torch.float8_e4m3fn
+    k2_8 = [
+        paged_case(torch, pa, timer, name="decode_4_e4m3", dtype=bf16,
+                   lens=[0, 1, 17, 1999], page=16, normalize=True,
+                   time_it=True, seed=4, kv_dtype=e4m3, **qwen),
+        paged_case(torch, pa, timer, name="decode_4_e4m3_partial", dtype=bf16,
+                   lens=[0, 1, 17, 1999], page=16, normalize=False,
+                   time_it=False, seed=5, kv_dtype=e4m3, **qwen),
+        paged_case(torch, pa, timer, name="decode_fp32_e4m3", dtype=f32,
+                   lens=[5, 0, 64, 333], page=16, normalize=True,
+                   time_it=False, seed=6, kv_dtype=e4m3, **qwen),
+        paged_case(torch, pa, timer, name="d64_page4_e4m3", dtype=bf16,
+                   lens=[3, 0, 9], page=4, normalize=False, time_it=False,
+                   seed=7, kv_dtype=e4m3, hq=16, hkv=4, d=64),
+    ]
+    bf16_ms = next(c["ms"] for c in k2 if c["case"] == "decode_4")
+    k2_8[0]["bf16_pools_ms"] = bf16_ms
+    return {"flash_attention": k1, "paged_attention": k2,
+            "paged_attention_e4m3": k2_8}
 
 
-def _mk_bound(cfg, lens, item: int, rows: int):
+def _mk_bound(cfg, lens, item: int, rows: int, kv_item: int | None = None):
     """Least time of one decode step: every weight read once, each valid
-    KV position's k and v read once (bytes), against the GEMM and
-    attention flops of ``rows`` tokens — whichever is larger."""
+    KV position's k and v read once (``kv_item`` bytes each: the
+    workspace type, or 1 for e4m3 pools), against the GEMM and attention
+    flops of ``rows`` tokens — whichever is larger."""
     d, L = cfg.head_dim, cfg.num_layers
     h, f = cfg.hidden_size, cfg.intermediate_size
     per_layer = (h * (cfg.num_heads + 2 * cfg.num_kv_heads) * d
                  + cfg.num_heads * d * h + 3 * h * f)
     kv = 2 * sum(lens) * cfg.num_kv_heads * d
-    nbytes = item * L * (per_layer + kv)
+    nbytes = L * (item * per_layer + (kv_item or item) * kv)
     flops = L * (2.0 * rows * per_layer + 4.0 * cfg.num_heads * d * sum(lens))
     return nbytes, flops
 
 
-def mk_state(torch, mkserv, cfg, dtype, seed):
+def mk_pages(lens, window: int, max_pages: int):
+    """Per-slot page counts covering each slot's append window (idle
+    slots: none) and tables over a shuffled pool of that many pages."""
+    import random
+
+    need = [(n + window - 1) // 128 + 1 if n else 0 for n in lens]
+    perm = list(range(sum(need)))
+    random.Random(sum(lens)).shuffle(perm)
+    tables, i = [], 0
+    for k in need:
+        tables.append(perm[i:i + k] + [-1] * (max_pages - k))
+        i += k
+    return need, tables
+
+
+def mk_state(torch, mkserv, cfg, dtype, seed, *, lens=MK_LENS,
+             kv_dtype=None, window=1):
     """A PagedMegakernelDecoder over ``cfg`` with seeded random weights,
-    every pool tile filled with random KV, and one slot per entry of
-    MK_LENS on shuffled pages (each slot maps the pages its append
-    needs). Returns (decoder, workspace, staged queue, tables)."""
-    lens = MK_LENS
+    every pool tile filled with random KV (e4m3 through the saturating
+    cast), and one slot per entry of ``lens`` on shuffled pages (each slot
+    maps the pages its append window needs; ``window`` rows per busy slot,
+    1 on the idle one). Returns (decoder, workspace, staged queue, wins)."""
     from triton_distributed_tpu_torch.models.dense import init_dense_llm
+    from triton_distributed_tpu_torch.models.fp8 import saturate_cast
 
     cfg = dataclasses.replace(cfg, dtype=_dtype_name(dtype))
     params = init_dense_llm(
         cfg, generator=torch.Generator(device="cuda").manual_seed(seed))
-    need = [n // 128 + 1 if n else 0 for n in lens]
+    need, tables = mk_pages(lens, window, MK_MAX_PAGES)
     dec = mkserv.PagedMegakernelDecoder(
         cfg, params, num_slots=len(lens), num_pages=sum(need),
-        max_pages=MK_MAX_PAGES, dtype=dtype)
+        max_pages=MK_MAX_PAGES, dtype=dtype, kv_dtype=kv_dtype,
+        spec_window=window)
     ws = dec.start()
+    pool = dec._split(ws)[1]
     g = torch.Generator(device="cuda").manual_seed(seed + 1)
-    pools = torch.tensor([t for h in dec.prog.layers for pool in h.kT + h.v
-                          for t in pool.tiles()], device="cuda")
-    ws[pools] = torch.randn((len(pools), 128, 128), generator=g,
-                            device="cuda").to(dtype)
+    tiles = torch.tensor([t for h in dec.prog.layers for p in h.kT + h.v
+                          for t in p.tiles()], device="cuda")
+    pool[tiles] = saturate_cast(torch.randn((len(tiles), 128, 128),
+                                            generator=g, device="cuda"),
+                                pool.dtype)
     gh = torch.Generator().manual_seed(seed)
-    perm = torch.randperm(sum(need), generator=gh).tolist()
-    tables, i = [], 0
-    for k in need:
-        tables.append(perm[i:i + k] + [-1] * (MK_MAX_PAGES - k))
-        i += k
-    toks = torch.randint(0, cfg.vocab_size, (len(lens),), generator=gh)
-    queue = dec.stage(ws, toks.tolist(), lens, tables)
-    return dec, ws, queue, tables
+    toks = torch.randint(0, cfg.vocab_size, (len(lens), window), generator=gh)
+    wins = [window if n else 1 for n in lens]
+    queue = dec.stage(ws, toks.numpy(), lens, tables,
+                      wins if window > 1 else None)
+    return dec, ws, queue, wins
+
+
+def _mk_clone(dec, ws):
+    return (ws[0].clone(), ws[1].clone()) if dec.kv_fp8 else ws.clone()
 
 
 def megakernel_case(torch, mk, mkserv, timer, *, name, dtype, cfg, seed,
-                    time_it):
+                    time_it, kv_dtype=None, window=1, lens=MK_LENS):
     """One megakernel step against run_queue_plain on the same staged
-    workspace: every tile's live row (row 0 of each slot block) and every
-    KV pool tile in full, elementwise under TOL; the errors also by the
-    task type that wrote each tile."""
-    dec, ws0, queue, _ = mk_state(torch, mkserv, cfg, dtype, seed)
-    comp = dec.comp
+    workspaces: every tile's live rows (rows 0..window-1 of each slot
+    block) and every KV pool tile in full (e4m3 pools to one e4m3 step),
+    elementwise under TOL; the errors also by the task type that wrote
+    each tile."""
+    dec, ws0, queue, wins = mk_state(torch, mkserv, cfg, dtype, seed,
+                                     lens=lens, kv_dtype=kv_dtype,
+                                     window=window)
+    comp, kv8, W = dec.comp, dec.kv_fp8, dec.spec_w
     kw = dict(num_exec=comp.num_exec, mat_specs=comp.mat_specs,
               head_dim=comp.head_dim)
-    ws_k = ws0.clone()
-    launch = mk.cuda_launcher(queue, ws_k, dec._wsm, live_rows=1,
-                              sync_before=comp.sync_before, **kw)
+    ws_k = _mk_clone(dec, ws0)
+    main_k, pool_k = dec._split(ws_k)
+    launch = mk.cuda_launcher(queue, main_k, dec._wsm, live_rows=W,
+                              sync_before=comp.sync_before,
+                              wkv8=pool_k if kv8 else None, **kw)
     launch()
-    ws_p = mk.run_queue_plain(queue, ws0.clone(), dec._wsm, **kw)
+    ws_p = _mk_clone(dec, ws0)
+    main_p, pool_p = dec._split(ws_p)
+    mk.run_queue_plain(queue, main_p, dec._wsm,
+                       wkv8=pool_p if kv8 else None, **kw)
     ws_32 = None
     if dtype != torch.float32:
-        ws_32 = mk.run_queue_plain(queue, ws0.float(), dec._wsm.float(), **kw)
+        main0, pool0 = dec._split(ws0)
+        ws_32 = (main0.float(), pool0.clone()) if kv8 else main0.float()
+        m32, p32 = (ws_32 if kv8 else (ws_32, ws_32))
+        mk.run_queue_plain(queue, m32, dec._wsm.float(),
+                           wkv8=p32 if kv8 else None, **kw)
     torch.cuda.synchronize()
     pools = sorted(t for h in dec.prog.layers for pool in h.kT + h.v
                    for t in pool.tiles())
-    pool_set = set(pools)
+    pool_set = set() if kv8 else set(pools)
     rest = [t for t in range(comp.num_tiles) if t not in pool_set]
     pools_t = torch.tensor(pools, device="cuda")
     rest_t = torch.tensor(rest, device="cuda")
 
-    def view(ws):
-        return torch.cat([ws[pools_t].flatten(), ws[rest_t, 0].flatten()])
+    def views(ws):
+        main, pool = (ws if kv8 else (ws, ws))
+        return (pool[pools_t].flatten().float(),
+                main[rest_t, :W].flatten().float())
 
-    got, want = view(ws_k).float(), view(ws_p).float()
-    tol = TOL["megakernel_fp32" if dtype == torch.float32
-              else "megakernel_bf16"]
-    diff = (got - want).abs()
-    mag = want.abs()
-    share = (diff / (tol["atol"] + tol["rtol"] * mag)).max().item()
-    atol_rules = mag * tol["rtol"] < tol["atol"]
-    changed = (view(ws0).float() != want).sum().item()
+    (gp, ga), (wp, wa) = views(ws_k), views(ws_p)
+    fp32 = dtype == torch.float32
+    tol = TOL[("megakernel_e4m3_" if kv8 else "megakernel_")
+              + ("fp32" if fp32 else "bf16")]
+
+    def errs(got, want, t):
+        diff = (got - want).abs()
+        mag = want.abs()
+        atol_rules = mag * t["rtol"] < t["atol"]
+        return diff, {
+            "max_abs_err": diff.max().item(),
+            "max_abs_err_where_atol_rules": (
+                diff[atol_rules].max().item() if atol_rules.any() else 0.0),
+            "max_rel_err_where_rtol_rules": (
+                (diff[~atol_rules] / mag[~atol_rules]).max().item()
+                if (~atol_rules).any() else 0.0),
+            "tol": t,
+            "tol_share": (diff / (t["atol"] + t["rtol"] * mag)).max().item()}
+
+    da, act = errs(ga, wa, tol)
+    dp, pool_rec = errs(gp, wp, tol)
+    replay = mk_replay(torch, mk, dec, ws0, ws_k, queue,
+                       TOL["fp32" if fp32 else "megakernel_attn_bf16"])
+    share = max(act["tol_share"], pool_rec["tol_share"],
+                replay["attn_tol_share"])
+    g0p, g0a = views(ws0)
+    changed = ((g0p != wp).sum() + (g0a != wa).sum()).item()
     by_type = {}
     rows = comp.task_rows
+    main_k0, main_p0 = dec._split(ws_k)[0], dec._split(ws_p)[0]
     for tid, writes in enumerate(comp.task_writes):
         ty = mk.TaskType(int(comp.queue[rows[tid], 0])).name
         tiles = [t for t in writes if t < comp.num_tiles]
         if not tiles:
             continue
         idx = torch.tensor(tiles, device="cuda")
-        err = (ws_k[idx, 0].float() - ws_p[idx, 0].float()).abs().max()
+        err = (main_k0[idx, :W].float() - main_p0[idx, :W].float()).abs().max()
         by_type[ty] = max(by_type.get(ty, 0.0), err.item())
-    rec = {"case": name, "dtype": _dtype_name(dtype), "shape": {
-        "layers": cfg.num_layers, "hidden": cfg.hidden_size,
-        "head_dim": cfg.head_dim, "kv_lens": MK_LENS, "page": 128, "tasks": comp.num_exec,
-        "barriers": int(comp.sync_before.sum())},
-        "max_abs_err": diff.max().item(),
-        "max_abs_err_where_atol_rules": (diff[atol_rules].max().item()
-                                         if atol_rules.any() else 0.0),
-        "max_rel_err_where_rtol_rules": (
-            (diff[~atol_rules] / mag[~atol_rules]).max().item()
-            if (~atol_rules).any() else 0.0),
-        "max_abs_err_by_writer": by_type, "tol": tol, "tol_share": share,
-        "elements": got.numel(), "elements_changed_by_step": changed}
+    rec = {"case": name, "dtype": _dtype_name(dtype),
+           "pool_dtype": "float8_e4m3fn" if kv8 else _dtype_name(dtype),
+           "shape": {"layers": cfg.num_layers, "hidden": cfg.hidden_size,
+                     "head_dim": cfg.head_dim, "kv_lens": lens, "wins": wins,
+                     "page": 128, "tasks": comp.num_exec,
+                     "barriers": int(comp.sync_before.sum())},
+           "max_abs_err": max(act["max_abs_err"], pool_rec["max_abs_err"]),
+           "activations": act, "pools": pool_rec,
+           "pool_elements_differing": int((dp > 0).sum().item()),
+           "replay": replay,
+           "max_abs_err_by_writer": by_type, "tol_share": share,
+           "elements": ga.numel() + gp.numel(),
+           "elements_changed_by_step": changed}
     if ws_32 is not None:
-        ref = view(ws_32)
-        rec["plain_err_vs_fp32"] = (want - ref).abs().max().item()
-        rec["kernel_err_vs_fp32"] = (got - ref).abs().max().item()
-    rec["ok"] = bool(torch.isfinite(got).all().item() and share <= 1.0
-                     and changed > 0)
+        rp, ra = views(ws_32)
+        rec["plain_err_vs_fp32"] = max((wa - ra).abs().max().item(),
+                                       (wp - rp).abs().max().item())
+        rec["kernel_err_vs_fp32"] = max((ga - ra).abs().max().item(),
+                                        (gp - rp).abs().max().item())
+    rec["ok"] = bool(torch.isfinite(ga).all().item()
+                     and torch.isfinite(gp).all().item() and share <= 1.0
+                     and changed > 0
+                     and replay["append_elements_differing"] == 0)
     if time_it:
-        nbytes, flops = _mk_bound(cfg, MK_LENS, ws0.element_size(),
-                                  len(MK_LENS))
+        nbytes, flops = _mk_bound(cfg, lens, main_k.element_size(),
+                                  len(lens) * W, 1 if kv8 else None)
         rec["bound_ms"], rec["bound_by"] = _bound_ms(nbytes, flops,
                                                      _dtype_name(dtype))
         rec["ms"] = timer.ms(launch)
         rec["plain_ms"] = timer.ms(lambda: mk.run_queue_plain(
-            queue, ws_p, dec._wsm, **kw), iters=2, warmup=1)
+            queue, main_p, dec._wsm, wkv8=pool_p if kv8 else None, **kw),
+            iters=2, warmup=1)
         rec["library_ms"] = None     # no single PyTorch call runs a step
         rec["grid_blocks"] = mk.grid_blocks(dtype)
     return rec
 
 
-def phase_megakernel_cases(torch, mk, mkserv, timer, QWEN3_8B) -> list:
+def mk_replay(torch, mk, dec, ws0, ws_k, queue, attn_tol) -> dict:
+    """The attention and append tasks of one step rerun one by one by the
+    plain version on the inputs the kernel saw: its stored q and current
+    k/v (final in ``ws_k``: nothing rewrites them after the task) and the
+    step's starting pools (``ws0``: appends only write positions the
+    attention masks). Attention outputs are held to ``attn_tol``; the
+    appends, replayed onto the starting pools from the kernel's k/v, must
+    give the kernel's pools bit for bit, every other element untouched."""
+    import numpy as np
+
+    comp, W = dec.comp, dec.spec_w
+    main_k, pool_k = dec._split(ws_k)
+    main0, pool0 = dec._split(ws0)
+    q = np.ascontiguousarray(queue, np.int32)
+    flat = q.reshape(-1)
+    rows = q[:comp.num_exec].tolist()
+    attn = {int(mk.TaskType.ATTN_DECODE_PAGED),
+            int(mk.TaskType.ATTN_DECODE_PAGED_F8)}
+    app = {int(mk.TaskType.APPEND_KV), int(mk.TaskType.APPEND_KV_F8)}
+    main_r = main_k.clone()
+    outs = []
+    for row in rows:
+        if row[0] in attn:
+            mk._p_attn_paged(main_r, flat, row, pool0)
+            outs.append(row[1])
+    idx = torch.tensor(outs, device=main_k.device)
+    got, want = main_k[idx, :W].float(), main_r[idx, :W].float()
+    diff = (got - want).abs()
+    share = (diff / (attn_tol["atol"] + attn_tol["rtol"] * want.abs())).max()
+    pool_r = pool0.clone()
+    n_app = 0
+    for row in rows:
+        if row[0] in app:
+            mk._p_append_kv(main_k, row, pool_r)
+            n_app += 1
+    tiles = torch.tensor(sorted(t for h in dec.prog.layers
+                                for pool in h.kT + h.v for t in pool.tiles()),
+                         device=main_k.device)
+    differ = (pool_r[tiles].view(torch.uint8)
+              != pool_k[tiles].view(torch.uint8)).sum().item()
+    return {"attn_tasks": len(outs), "attn_max_abs_err": diff.max().item(),
+            "attn_tol": attn_tol, "attn_tol_share": share.item(),
+            "append_tasks": n_app, "append_elements_differing": int(differ)}
+
+
+def phase_megakernel_cases(torch, mk, mkserv, timer, QWEN3_8B) -> dict:
+    """The megakernel's cases by lane: ``megakernel`` (workspace-dtype
+    pools, one row), ``megakernel_kv8`` (e4m3 pools: types 24/25) and
+    ``megakernel_window`` (the 4-row speculative window over both pool
+    types)."""
     cfg = dataclasses.replace(QWEN3_8B, num_layers=2)
-    cases = [
-        megakernel_case(torch, mk, mkserv, timer, name="step_2l_bf16",
-                        dtype=torch.bfloat16, cfg=cfg, seed=20,
-                        time_it=True),
-        megakernel_case(torch, mk, mkserv, timer, name="step_2l_fp32",
-                        dtype=torch.float32, cfg=cfg, seed=21,
-                        time_it=False),
-        # The padded-head layout (head_dim 64 in 128-wide tiles), off the
-        # Qwen3-8B path: the norm/rope sub-tile span of NORM_ROPE_QKV.
-        megakernel_case(torch, mk, mkserv, timer, name="step_d64_fp32",
-                        dtype=torch.float32, seed=22, time_it=False,
-                        cfg=dataclasses.replace(
-                            cfg, hidden_size=1024, intermediate_size=3072,
-                            num_heads=16, num_kv_heads=8, head_dim=64)),
-    ]
+    bf16, f32, e4m3 = torch.bfloat16, torch.float32, torch.float8_e4m3fn
+
+    def case(name, dtype, seed, **kw):
+        return megakernel_case(torch, mk, mkserv, timer, name=name,
+                               dtype=dtype, cfg=kw.pop("cfg", cfg),
+                               seed=seed, time_it=kw.pop("time_it", False),
+                               **kw)
+
+    win = dict(window=MK_WINDOW, lens=MK_WIN_LENS)
+    cases = {
+        "megakernel": [
+            case("step_2l_bf16", bf16, 20, time_it=True),
+            case("step_2l_fp32", f32, 21),
+            # The padded-head layout (head_dim 64 in 128-wide tiles), off
+            # the Qwen3-8B path: the norm/rope sub-tile span of
+            # NORM_ROPE_QKV.
+            case("step_d64_fp32", f32, 22, cfg=dataclasses.replace(
+                cfg, hidden_size=1024, intermediate_size=3072, num_heads=16,
+                num_kv_heads=8, head_dim=64)),
+        ],
+        "megakernel_kv8": [
+            case("step_2l_bf16_e4m3", bf16, 23, kv_dtype=e4m3, time_it=True),
+            case("step_2l_fp32_e4m3", f32, 24, kv_dtype=e4m3),
+        ],
+        "megakernel_window": [
+            case("window4_2l_bf16", bf16, 25, time_it=True, **win),
+            case("window4_2l_fp32", f32, 26, **win),
+            case("window4_2l_bf16_e4m3", bf16, 27, kv_dtype=e4m3, **win),
+            case("window4_2l_fp32_e4m3", f32, 28, kv_dtype=e4m3, **win),
+        ],
+    }
     torch.cuda.empty_cache()
     return cases
 
@@ -495,6 +686,24 @@ def reset_counts(kernels) -> None:
     for k in kernels:
         k.launches = 0
         k.plain_calls = 0
+        k.variant_launches = {}
+
+
+def random_prompts(torch, vocab: int, lengths, seed: int) -> list:
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randint(0, vocab, (n,), generator=g).tolist()
+            for n in lengths]
+
+
+def phrase_prompts(torch, vocab: int, lengths, seed: int) -> list:
+    """Prompts that repeat a random 7-token phrase — the traffic n-gram
+    drafting feeds on (each its own phrase)."""
+    g = torch.Generator().manual_seed(seed)
+    out = []
+    for n in lengths:
+        phrase = torch.randint(0, vocab, (7,), generator=g).tolist()
+        out.append((phrase * (n // 7 + 1))[:n])
+    return out
 
 
 def phase_engine(torch, eng, kernels, *, batch=2, prompt=1024, gen=64,
@@ -628,19 +837,21 @@ def _drive(se, prompts, gens):
     return reqs, decode_steps, slices, time.perf_counter() - t0
 
 
-def decode_window(torch, se, target, name: str, steps: int = 8) -> dict:
+def decode_window(torch, se, target, name: str, steps: int = 8,
+                  prompts=None) -> dict:
     """Decode-only steps of 4 running slots (prompts 100-1500 tokens,
     prefilled first), outside the counted run: each step's wall time
     (host sync included, the GPU idle at its start) and the host time of
-    the lane's call that enqueues the step (``Engine.decode`` or
-    ``PagedMegakernelDecoder.step``); equal numbers mean the device
-    waits on the host. Then ``torch.profiler`` over 4 more steps for the
-    device's busy share. ``target.name`` is the lane's call, wrapped for
-    the window."""
+    the lane's call that enqueues the step (``Engine.decode``,
+    ``dense_verify_step_paged`` or ``PagedMegakernelDecoder.step``); equal
+    numbers mean the device waits on the host. Then ``torch.profiler``
+    over 4 more steps for the device's busy share. ``target.name`` is the
+    lane's call, wrapped for the window."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     inner = getattr(target, name)
+    own = name in vars(target)
     enqueue: list = []
 
     def timed(*a, **k):
@@ -650,10 +861,11 @@ def decode_window(torch, se, target, name: str, steps: int = 8) -> dict:
         return out
 
     setattr(target, name, timed)
-    g = torch.Generator().manual_seed(14)
-    for n in (100, 1500, 640, 333):
-        se.submit(torch.randint(0, se.cfg.vocab_size, (n,),
-                                generator=g).tolist(), steps + 32)
+    if prompts is None:
+        prompts = random_prompts(torch, se.cfg.vocab_size,
+                                 (100, 1500, 640, 333), 14)
+    for p in prompts:
+        se.submit(p, steps + 32)
     while se.sched.waiting or se.sched.prefill_head() is not None:
         se.step()
     enqueue.clear()
@@ -665,6 +877,7 @@ def decode_window(torch, se, target, name: str, steps: int = 8) -> dict:
         walls.append(time.perf_counter() - t0)
         check(s["decoded"] == 4, "decode window: a slot stopped decoding")
     torch.cuda.synchronize()
+    calls = len(enqueue)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -672,141 +885,187 @@ def decode_window(torch, se, target, name: str, steps: int = 8) -> dict:
             se.step()
         torch.cuda.synchronize()
         prof_wall = time.perf_counter() - t0
-    setattr(target, name, inner)
+    if own:
+        setattr(target, name, inner)
+    else:
+        delattr(target, name)
     busy = sum((getattr(e, "self_device_time_total", None)
                 or getattr(e, "self_cuda_time_total", 0))
                for e in prof.key_averages()
                if getattr(e, "device_type", None) == DeviceType.CUDA)
     med = sorted(walls)[len(walls) // 2]
-    enq = sorted(enqueue[:steps])[steps // 2]
+    enq = sorted(enqueue[:calls])
     return {"slots": 4, "steps": steps, "step_ms_runs": [w * 1e3 for w in walls],
-            "step_ms": med * 1e3, "enqueue_ms": enq * 1e3,
+            "step_ms": med * 1e3,
+            "enqueue_ms": enq[len(enq) // 2] * 1e3 if enq else "not measured",
+            "enqueue_calls": calls,
             "profiled_busy_share": (busy / 1e6 / prof_wall if busy
                                     else "not measured")}
 
 
-def phase_serving(torch, eng, kernels, ServingEngine, RequestState):
-    lengths = SERVING_LENGTHS
-    gen = 32
-    g = torch.Generator().manual_seed(12)
-    prompts = [torch.randint(0, eng.cfg.vocab_size, (n,),
-                             generator=g).tolist() for n in lengths]
-    se = ServingEngine(eng, max_batch=4, prefill_chunk=256)
-    torch.cuda.synchronize()
-    reset_counts(kernels)
-    reqs, steps, slices, wall = _drive(se, prompts, [gen] * len(lengths))
-    torch.cuda.synchronize()
-    flash, paged = kernels
-    L = eng.cfg.num_layers
-    check(all(r.state is RequestState.FINISHED and len(r.tokens) == gen
-              for r in reqs), "serving: not every request finished")
-    check(flash.launches == L * slices,
-          f"serving: K1 launched {flash.launches}, expected {L * slices}")
-    check(paged.launches == L * steps,
-          f"serving: K2 launched {paged.launches}, expected {L * steps}")
-    check(flash.plain_calls == 0 and paged.plain_calls == 0,
-          "serving: a plain version ran on the main path")
-    ttft = sorted(r.ttft_s * 1e3 for r in reqs)
-
-    def pct(p):
-        return ttft[min(len(ttft) - 1, int(round(p / 100 * (len(ttft) - 1))))]
-
-    return {"phase": "serving", "requests": len(reqs), "prompt_lens": lengths,
-            "gen": gen, "max_batch": 4, "prefill_chunk": 256,
-            "prefill_slices": slices, "decode_steps": steps, "wall_s": wall,
-            "tokens_per_s": sum(len(r.tokens) for r in reqs) / wall,
-            "ttft_ms_p50": pct(50), "ttft_ms_p99": pct(99),
-            "preemptions": sum(r.preemptions for r in reqs),
-            "launches": {"flash_attention": flash.launches,
-                         "paged_attention": paged.launches},
-            "decode_window": decode_window(torch, se, eng, "decode")}
+def _pct(values, p):
+    v = sorted(values)
+    return v[min(len(v) - 1, int(round(p / 100 * (len(v) - 1))))]
 
 
-def phase_megakernel_serving(torch, mk, mkserv, kernels, Engine,
-                             ServingEngine, RequestState, QWEN3_8B,
-                             init_dense_llm):
-    """Full Qwen3-8B (36 layers, bf16, the serving phase's seeded weights
-    and requests) on the megakernel lane: every request finishes, one
-    megakernel launch per decode step, K1 once per layer and prefill
-    slice, K2 never, no plain version. Then the decode-only window, and
-    the kernel alone at this shape (4 slots at MK_LENS, one step, CUDA
-    events) against its bound and its plain version."""
-    params = init_dense_llm(
-        QWEN3_8B, generator=torch.Generator(device="cuda").manual_seed(0))
-    torch.cuda.reset_peak_memory_stats()
-    eng = Engine(QWEN3_8B, params, max_seq=2048, page_size=128,
-                 backend="megakernel")
-    t0 = time.perf_counter()
-    se = ServingEngine(eng, max_batch=4, prefill_chunk=256)
-    torch.cuda.synchronize()
-    build_lane_s = time.perf_counter() - t0
-    gen = 32
-    g = torch.Generator().manual_seed(12)
-    prompts = [torch.randint(0, QWEN3_8B.vocab_size, (n,),
-                             generator=g).tolist() for n in SERVING_LENGTHS]
-    torch.cuda.synchronize()
-    reset_counts(kernels)
-    reqs, steps, slices, wall = _drive(se, prompts,
-                                       [gen] * len(SERVING_LENGTHS))
-    torch.cuda.synchronize()
+def run_serving(torch, se, kernels, prompts, gen, *, lane: str,
+                variants: dict) -> dict:
+    """Drive ``se`` over ``prompts`` (``gen`` new tokens each) with every
+    count set to 0 just before and read just after; fail unless every
+    request finished, K1 ran once per layer and prefill slice, each
+    decode step was L K2 launches (``lane="eager"``) or one megakernel
+    launch (``"megakernel"``), each named lane of ``variants`` (kernel
+    name → variant) ran on every decode step, and no plain version ran.
+    Returns the run's record."""
+    from triton_distributed_tpu_torch.serving import RequestState
+
     flash, paged, mega = kernels
-    L = QWEN3_8B.num_layers
+    L = se.cfg.num_layers
+    torch.cuda.synchronize()
+    reset_counts(kernels)
+    reqs, steps, slices, wall = _drive(se, prompts, [gen] * len(prompts))
+    torch.cuda.synchronize()
     check(all(r.state is RequestState.FINISHED and len(r.tokens) == gen
-              for r in reqs), "megakernel serving: not every request "
-          "finished")
-    check(mega.launches == steps, f"megakernel serving: {mega.launches} "
-          f"megakernel launches for {steps} decode steps")
-    check(paged.launches == 0, f"megakernel serving: K2 launched "
-          f"{paged.launches} times")
-    check(flash.launches == L * slices, f"megakernel serving: K1 launched "
-          f"{flash.launches}, expected {L * slices}")
+              for r in reqs), f"{lane}: not every request finished")
+    check(flash.launches == L * slices,
+          f"{lane}: K1 launched {flash.launches}, expected {L * slices}")
+    if lane == "eager":
+        check(paged.launches == L * steps and mega.launches == 0,
+              f"{lane}: K2 launched {paged.launches}, expected {L * steps}")
+    else:
+        check(mega.launches == steps and paged.launches == 0,
+              f"{lane}: {mega.launches} megakernel and {paged.launches} K2 "
+              f"launches for {steps} decode steps")
+    per_step = {"paged_attention": L, "megakernel": 1}
+    for kname, variant in variants.items():
+        k = paged if kname == "paged_attention" else mega
+        n = k.variant_launches.get(variant, 0)
+        check(n == per_step[kname] * steps,
+              f"{lane}: {kname} lane {variant!r} launched {n} times in "
+              f"{steps} decode steps")
     check(all(k.plain_calls == 0 for k in kernels),
-          "megakernel serving: a plain version ran on the main path")
-    launches = {"flash_attention": flash.launches,
-                "paged_attention": paged.launches,
-                "megakernel": mega.launches}
-    peak = torch.cuda.max_memory_allocated() / 1e9
-    ttft = sorted(r.ttft_s * 1e3 for r in reqs)
-    window = decode_window(torch, se, se._mk, "step")
+          f"{lane}: a plain version ran on the main path")
+    ttft = [r.ttft_s * 1e3 for r in reqs]
+    pre = sum(r.preemptions for r in reqs)
+    rec = {"requests": len(reqs), "prompt_lens": [len(p) for p in prompts],
+           "gen": gen, "max_batch": se.max_batch, "prefill_chunk": se.chunk,
+           "page_size": se.page, "pool_pages": se.num_pages,
+           "kv_dtype": _dtype_name(se.kv_dtype) if se.kv_dtype else None,
+           "spec_k": se.spec_k, "prefill_slices": slices,
+           "decode_steps": steps, "wall_s": wall,
+           "tokens_per_s": sum(len(r.tokens) for r in reqs) / wall,
+           "ttft_ms_p50": _pct(ttft, 50), "ttft_ms_p99": _pct(ttft, 99),
+           "preemptions": pre,
+           "launches": {"flash_attention": flash.launches,
+                        "paged_attention": paged.launches,
+                        "megakernel": mega.launches,
+                        "variants": {"paged_attention":
+                                     dict(paged.variant_launches),
+                                     "megakernel":
+                                     dict(mega.variant_launches)}}}
+    if se.spec_k:
+        drafted = sum(r.drafted_tokens for r in reqs)
+        accepted = sum(r.accepted_draft_tokens for r in reqs)
+        rec.update(drafted_tokens=drafted, accepted_draft_tokens=accepted,
+                   accept_rate=accepted / drafted if drafted else None,
+                   decode_tokens_per_step=(
+                       (sum(len(r.tokens) for r in reqs) - len(reqs)) / steps
+                       if not pre else "not measured: preemptions"))
+    return rec
 
-    # The kernel alone at the main path's shape: the lane's own program
-    # and weights, slots at MK_LENS on free pool pages.
+
+def phase_serving(torch, eng, kernels, ServingEngine, *, name="serving",
+                  prompts, **kw) -> dict:
+    """The eager lane on ``eng`` (page 16): ``ServingEngine(max_batch=4,
+    prefill_chunk=256, **kw)`` over ``prompts`` (32 new tokens each), then
+    the decode-only window."""
+    from triton_distributed_tpu_torch.serving import loop
+
+    torch.cuda.reset_peak_memory_stats()
+    se = ServingEngine(eng, max_batch=4, prefill_chunk=256, **kw)
+    variants = ({"paged_attention": "e4m3"} if eng.kv_dtype is not None
+                else {})
+    rec = {"phase": name, **run_serving(torch, se, kernels, prompts, 32,
+                                        lane="eager", variants=variants)}
+    rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    if se.spec_k:
+        rec["decode_window"] = decode_window(
+            torch, se, loop, "dense_verify_step_paged",
+            prompts=phrase_prompts(torch, eng.cfg.vocab_size,
+                                   (100, 1500, 640, 333), 16))
+    else:
+        rec["decode_window"] = decode_window(torch, se, eng, "decode")
+    return rec
+
+
+def time_step_kernel(torch, mk, se, timer) -> dict:
+    """The lane's kernel alone at the main path's shape: its own program
+    and weights, 4 slots at MK_LENS on free pool pages (a window of
+    ``spec_w`` rows on each busy slot), one step timed with CUDA events
+    against its bound and its plain version."""
     dec, ws = se._mk, se._mk_ws
-    need = [n // 128 + 1 if n else 0 for n in MK_LENS]
-    pages = list(range(sum(need)))
-    tables, i = [], 0
-    for k in need:
-        tables.append(pages[i:i + k] + [-1] * (dec.max_pages - k))
-        i += k
-    queue = dec.stage(ws, [1, 2, 3, 4], MK_LENS, tables)
+    W = dec.spec_w
+    _, tables = mk_pages(MK_LENS, W, dec.max_pages)
+    wins = [W if n else 1 for n in MK_LENS]
+    toks = [[1 + i] * W for i in range(len(MK_LENS))]
+    queue = dec.stage(ws, toks, MK_LENS, tables, wins if W > 1 else None)
     comp = dec.comp
+    main, pool = dec._split(ws)
+    wkv8 = pool if dec.kv_fp8 else None
     kw = dict(num_exec=comp.num_exec, mat_specs=comp.mat_specs,
               head_dim=comp.head_dim)
-    launch = mk.cuda_launcher(queue, ws, dec._wsm, live_rows=1,
-                              sync_before=comp.sync_before, **kw)
-    timer = Timer(torch, "cuda")
+    launch = mk.cuda_launcher(queue, main, dec._wsm, live_rows=W,
+                              sync_before=comp.sync_before, wkv8=wkv8, **kw)
     ms = timer.ms(launch, iters=5)
     plain_ms = timer.ms(lambda: mk.run_queue_plain(
-        queue, ws.clone(), dec._wsm, **kw), iters=1, warmup=1)
-    nbytes, flops = _mk_bound(QWEN3_8B, MK_LENS, ws.element_size(),
-                              len(MK_LENS))
-    bound, bound_by = _bound_ms(nbytes, flops, "bfloat16")
-    return {"phase": "megakernel_serving", "requests": len(reqs),
-            "prompt_lens": SERVING_LENGTHS, "gen": gen, "max_batch": 4,
-            "prefill_chunk": 256, "page_size": 128,
-            "build_lane_s": build_lane_s, "prefill_slices": slices,
-            "decode_steps": steps, "wall_s": wall,
-            "tokens_per_s": sum(len(r.tokens) for r in reqs) / wall,
-            "ttft_ms_p50": ttft[len(ttft) // 2], "ttft_ms_p99": ttft[-1],
-            "preemptions": sum(r.preemptions for r in reqs),
-            "launches": launches, "peak_mem_gb": peak,
-            "decode_window": window,
-            "step_kernel": {"kv_lens": MK_LENS, "tasks": comp.num_exec,
-                            "barriers": int(comp.sync_before.sum()),
-                            "ms": ms, "plain_ms": plain_ms,
-                            "bound_ms": bound, "bound_by": bound_by,
-                            "grid_blocks": mk.grid_blocks(torch.bfloat16),
-                            "library_ms": None}}
+        queue, main.clone(), dec._wsm,
+        wkv8=None if wkv8 is None else wkv8.clone(), **kw),
+        iters=1, warmup=1)
+    nbytes, flops = _mk_bound(se.cfg, MK_LENS, main.element_size(),
+                              len(MK_LENS) * W, 1 if dec.kv_fp8 else None)
+    bound, bound_by = _bound_ms(nbytes, flops, _dtype_name(main.dtype))
+    return {"kv_lens": MK_LENS, "wins": wins, "tasks": comp.num_exec,
+            "barriers": int(comp.sync_before.sum()), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+            "grid_blocks": mk.grid_blocks(main.dtype), "library_ms": None}
+
+
+def phase_megakernel_serving(torch, mk, kernels, Engine, ServingEngine,
+                             params, cfg, *, name="megakernel_serving",
+                             prompts, kv_dtype=None, **kw) -> dict:
+    """Full Qwen3-8B (36 layers, bf16, the serving phases' seeded weights)
+    on the megakernel lane (``Engine(backend="megakernel",
+    page_size=128, kv_dtype=)``): every request finishes, one megakernel
+    launch per decode step (of the kv8 lane over e4m3 pools, of the
+    window program under ``spec_k``), K1 once per layer and prefill slice,
+    K2 never, no plain version. Then the decode-only window, and the
+    kernel alone at this shape against its bound and its plain version.
+    The lane's workspaces are freed when the phase returns."""
+    torch.cuda.reset_peak_memory_stats()
+    eng = Engine(cfg, params, max_seq=2048, page_size=128,
+                 backend="megakernel", kv_dtype=kv_dtype)
+    t0 = time.perf_counter()
+    se = ServingEngine(eng, max_batch=4, prefill_chunk=256, **kw)
+    torch.cuda.synchronize()
+    build_lane_s = time.perf_counter() - t0
+    variants = {}
+    if kv_dtype is not None:
+        variants["megakernel"] = "kv8"
+    rec = {"phase": name, "build_lane_s": build_lane_s,
+           **run_serving(torch, se, kernels, prompts, 32, lane="megakernel",
+                         variants=variants)}
+    if se.spec_k:
+        n = kernels[2].variant_launches.get("window", 0)
+        check(n == rec["decode_steps"], f"{name}: the window program ran "
+              f"{n} times in {rec['decode_steps']} decode steps")
+    rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    win_prompts = (phrase_prompts(torch, cfg.vocab_size,
+                                  (100, 1500, 640, 333), 16)
+                   if se.spec_k else None)
+    rec["decode_window"] = decode_window(torch, se, se._mk, "step",
+                                         prompts=win_prompts)
+    rec["step_kernel"] = time_step_kernel(torch, mk, se, Timer(torch, "cuda"))
+    return rec
 
 
 def _first_divergence(torch, eng, prompt, got, want):
@@ -819,13 +1078,17 @@ def _first_divergence(torch, eng, prompt, got, want):
 
 
 def phase_parity(torch, QWEN3_8B, init_dense_llm, Engine, ServingEngine,
-                 mega):
+                 kernels):
     cfg = dataclasses.replace(QWEN3_8B, num_layers=2, dtype="float32")
     params = init_dense_llm(
         cfg, generator=torch.Generator(device="cuda").manual_seed(1))
+    e4m3 = torch.float8_e4m3fn
     eng = Engine(cfg, params, max_seq=256, page_size=16)
+    eng8 = Engine(cfg, params, max_seq=256, page_size=16, kv_dtype=e4m3)
     mk_eng = Engine(cfg, params, max_seq=256, page_size=128,
                     backend="megakernel")
+    mk_eng8 = Engine(cfg, params, max_seq=256, page_size=128,
+                     backend="megakernel", kv_dtype=e4m3)
     # torch.argmax on the card must return the FIRST maximum (jnp.argmax's
     # rule), or greedy token identity could not be relied on.
     x = torch.zeros((3, cfg.vocab_size), device="cuda")
@@ -833,52 +1096,150 @@ def phase_parity(torch, QWEN3_8B, init_dense_llm, Engine, ServingEngine,
     check(torch.argmax(x, dim=-1).tolist() == [5, 5, 5],
           "parity: torch.argmax does not return the first maximum")
     g = torch.Generator().manual_seed(13)
+    two = ([37, 100, 64, 150], [12, 8, 16, 10])
+    pre = ([90, 60, 75, 100], [40, 40, 40, 40])
+    small = dict(max_batch=3, num_pages=20, prefill_chunk=64)
+    small_mk = dict(max_batch=3, num_pages=3, prefill_chunk=128)
+    spec = dict(spec_k=SPEC_K)
+    # name: (serving engine, ServingEngine kw, shape, golden engine,
+    # phrase prompts?). Each golden is the sequential Engine.serve of the
+    # eager lane (one-token decode) with the same pool dtype. Over e4m3
+    # pools a preempted request's golden is taken per segment (see
+    # segment_golden).
     runs = {
         # 4 requests through 2 slots, slices interleaving with decode.
-        "two_slots": (eng, dict(max_batch=2, prefill_chunk=64),
-                      [37, 100, 64, 150], [12, 8, 16, 10]),
+        "two_slots": (eng, dict(max_batch=2, prefill_chunk=64), two, eng,
+                      False),
         # An undersized pool: page growth preempts, resume recomputes.
-        "preempt": (eng, dict(max_batch=3, num_pages=20, prefill_chunk=64),
-                    [90, 60, 75, 100], [40, 40, 40, 40]),
+        "preempt": (eng, small, pre, eng, False),
         # The same two shapes on the megakernel lane (page 128): slot
         # reuse, and a 3-page pool that preempts a request mid-decode
         # and recomputes it into its pool pages on resume.
         "megakernel_two_slots": (mk_eng, dict(max_batch=2,
-                                              prefill_chunk=128),
-                                 [37, 100, 64, 150], [12, 8, 16, 10]),
-        "megakernel_preempt": (mk_eng, dict(max_batch=3, num_pages=3,
-                                            prefill_chunk=128),
-                               [90, 60, 75, 100], [40, 40, 40, 40]),
+                                              prefill_chunk=128), two, eng,
+                                 False),
+        "megakernel_preempt": (mk_eng, small_mk, pre, eng, False),
+        # e4m3 pools on both lanes, against the sequential e4m3 serve.
+        "fp8_preempt": (eng8, small, pre, eng8, False),
+        "megakernel_fp8_preempt": (mk_eng8, small_mk, pre, eng8, False),
+        # Speculative decode (spec_k = 3, phrase prompts so drafts are
+        # proposed) against one-token decode, on both lanes; then spec
+        # and e4m3 pools together on the megakernel lane.
+        "spec_preempt": (eng, dict(small, **spec), pre, eng, True),
+        "megakernel_spec_preempt": (mk_eng, dict(small_mk, **spec), pre,
+                                    eng, True),
+        "megakernel_spec_fp8_preempt": (mk_eng8, dict(small_mk, **spec), pre,
+                                        eng8, True),
     }
+    flash, paged, mega = kernels
     result = {"phase": "parity", "layers": cfg.num_layers, "dtype": "float32"}
-    for name, (engine, kw, lengths, gens) in runs.items():
-        prompts = [torch.randint(0, cfg.vocab_size, (n,),
-                                 generator=g).tolist() for n in lengths]
-        golden = [eng.serve([p], n)[0].tolist()
+    for name, (engine, kw, (lengths, gens), gold_eng, phrases) in runs.items():
+        if phrases:
+            prompts = phrase_prompts(torch, cfg.vocab_size, lengths,
+                                     int(torch.randint(0, 1 << 30, (1,),
+                                                       generator=g)))
+        else:
+            prompts = [torch.randint(0, cfg.vocab_size, (n,),
+                                     generator=g).tolist() for n in lengths]
+        golden = [gold_eng.serve([p], n)[0].tolist()
                   for p, n in zip(prompts, gens)]
-        mega.launches = 0
-        reqs, steps, _, _ = _drive(ServingEngine(engine, **kw), prompts,
-                                   gens)
+        reset_counts(kernels)
+        se = ServingEngine(engine, **kw)
+        cuts = record_preemptions(se)
+        reqs, steps, _, _ = _drive(se, prompts, gens)
+        mega_launches = mega.launches
+        lanes = {"e4m3": paged.variant_launches.get("e4m3", 0),
+                 "kv8": mega.variant_launches.get("kv8", 0),
+                 "window": mega.variant_launches.get("window", 0)}
+        uninterrupted = [r.tokens == want for r, want in zip(reqs, golden)]
+        if engine.kv_dtype is not None:
+            golden = [segment_golden(gold_eng, p, n, want,
+                                     cuts.get(r.req_id, ()))
+                      for r, p, n, want in zip(reqs, prompts, gens, golden)]
         for r, p, want in zip(reqs, prompts, golden):
             if r.tokens != want:
-                step, gap = _first_divergence(torch, eng, p, r.tokens, want)
+                step, gap = _first_divergence(torch, gold_eng, p, r.tokens,
+                                              want)
                 emit({"phase": "parity", "run": name, "req": r.req_id,
                       "diverged_at_step": step, "top2_logit_gap": gap})
                 raise RuntimeError(f"chip_smoke: parity {name}: {r.req_id} "
                                    f"diverged at step {step}")
-        pre = sum(r.preemptions for r in reqs)
+        n_pre = sum(r.preemptions for r in reqs)
         if name.endswith("preempt"):
-            check(pre >= 1, f"parity {name}: the small pool forced no "
+            check(n_pre >= 1, f"parity {name}: the small pool forced no "
                   "preemption")
-        if engine is mk_eng:
-            check(mega.launches == steps, f"parity {name}: "
-                  f"{mega.launches} megakernel launches for {steps} steps")
-        result[name] = {"requests": len(reqs), "tokens": sum(gens),
-                        "preemptions": pre, "identical": True}
+        mk_lane = engine.backend == "megakernel"
+        check(mega_launches == (steps if mk_lane else 0),
+              f"parity {name}: {mega_launches} megakernel launches for "
+              f"{steps} steps")
+        want_lanes = {
+            "e4m3": engine.kv_dtype is not None and not mk_lane,
+            "kv8": engine.kv_dtype is not None and mk_lane,
+            "window": bool(kw.get("spec_k")) and mk_lane}
+        for v, on in want_lanes.items():
+            check((lanes[v] > 0) == on, f"parity {name}: lane {v!r} "
+                  f"launched {lanes[v]} times")
+        rec = {"requests": len(reqs), "tokens": sum(gens),
+               "preemptions": n_pre, "identical": True,
+               "identical_to_uninterrupted_serve": all(uninterrupted),
+               "preempted_at_tokens": {k: v for k, v in cuts.items()}}
+        if kw.get("spec_k"):
+            rec["drafted_tokens"] = sum(r.drafted_tokens for r in reqs)
+            rec["accepted_draft_tokens"] = sum(r.accepted_draft_tokens
+                                               for r in reqs)
+            check(rec["drafted_tokens"] > 0, f"parity {name}: nothing "
+                  "was drafted")
+        result[name] = rec
+        del se
     return result
 
 
+def record_preemptions(se) -> dict:
+    """{req_id: [tokens held at each preemption]}, filled as ``se``'s
+    scheduler preempts."""
+    cuts: dict = {}
+    preempt = se.sched._preempt
+
+    def recording(req):
+        cuts.setdefault(req.req_id, []).append(len(req.tokens))
+        preempt(req)
+
+    se.sched._preempt = recording
+    return cuts
+
+
+def segment_golden(eng, prompt, n, uninterrupted, cuts) -> list:
+    """The golden of a request preempted after ``cuts`` tokens, over e4m3
+    pools. Recompute-on-resume prefills ``prompt + tokens`` from the
+    full-width linear buffer and quantizes only at the hand-off, while
+    uninterrupted decode computed those tokens' k/v from the quantized
+    context: the stored pages differ within one e4m3 step, so a near-tie
+    may resolve otherwise (the JAX package shares this). Each resumed
+    segment's golden is the sequential serve of its own text, as the
+    serving loop recomputes it."""
+    toks = list(uninterrupted)
+    for k in cuts:
+        if k:
+            toks = toks[:k] + eng.serve([list(prompt) + toks[:k]],
+                                        n - k)[0].tolist()
+    return toks
+
+
+def _summary_entry(kernel, name, replaces, cases, main_case, launches,
+                   root) -> dict:
+    return {"name": name, "route": "cuda",
+            "source": str(kernel.source_path.relative_to(root)),
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max(c["max_abs_err"] for c in cases),
+            "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
+            "bound_ms": main_case["bound_ms"],
+            "bound_by": main_case["bound_by"],
+            "library_ms": main_case["library_ms"]}
+
+
 def main() -> int:
+    import gc
+
     import torch
 
     if not torch.cuda.is_available():
@@ -899,18 +1260,25 @@ def main() -> int:
     from triton_distributed_tpu_torch.models.config import QWEN3_8B
     from triton_distributed_tpu_torch.models.dense import init_dense_llm
     from triton_distributed_tpu_torch.models.engine import Engine
-    from triton_distributed_tpu_torch.runtime import build
-    from triton_distributed_tpu_torch.serving import (
-        RequestState, ServingEngine,
+    from triton_distributed_tpu_torch.models.kv_cache import (
+        kv_pool_pages_for_budget,
     )
+    from triton_distributed_tpu_torch.runtime import build
+    from triton_distributed_tpu_torch.serving import ServingEngine
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    kernels = (fa.FLASH_KERNEL, pa.PAGED_KERNEL)
-    all_kernels = kernels + (mk.MEGA_KERNEL,)
-    names = ("flash_attention", "paged_attention", "megakernel")
+    kernels = (fa.FLASH_KERNEL, pa.PAGED_KERNEL, mk.MEGA_KERNEL)
+    e4m3 = torch.float8_e4m3fn
     kind = torch.cuda.get_device_name(0)
     smi = nvidia_smi()
+    t_start = time.perf_counter()
+
+    def emit_phase(rec):
+        rec["nvidia_smi"] = smi
+        rec["elapsed_s"] = time.perf_counter() - t_start
+        emit(rec)
+        return rec
 
     build_s = build.build_all()
     ptxas = {}
@@ -924,70 +1292,127 @@ def main() -> int:
 
     timer = Timer(torch, "cuda")
     cases = phase_kernels(torch, fa, pa, timer)
-    cases["megakernel"] = phase_megakernel_cases(torch, mk, mkserv, timer,
-                                                 QWEN3_8B)
+    cases.update(phase_megakernel_cases(torch, mk, mkserv, timer, QWEN3_8B))
     L = QWEN3_8B.num_layers
-    emit({"phase": "kernels", "nvidia_smi": smi, "tol_reason": TOL_REASON,
-          "launches_per_step": {"flash_attention": f"{L} per prefill or "
-                                "prefill slice (one per layer)",
-                                "paged_attention": f"{L} per decode step "
-                                "(one per layer) on the eager lane",
-                                "megakernel": "1 per decode step on the "
-                                "megakernel lane"},
-          "cases": cases})
+    emit_phase({"phase": "kernels", "tol_reason": TOL_REASON,
+                "launches_per_step": {
+                    "flash_attention": f"{L} per prefill or prefill slice "
+                                       "(one per layer)",
+                    "paged_attention": f"{L} per decode or verify step (one "
+                                       "per layer) on the eager lane",
+                    "paged_attention_e4m3": "the same, over e4m3 pools",
+                    "megakernel": "1 per decode step on the megakernel lane",
+                    "megakernel_kv8": "the same, over e4m3 pools",
+                    "megakernel_window": "the same, under speculative "
+                                         "decode"},
+                "cases": cases})
     bad = [c["case"] for cs in cases.values() for c in cs if not c["ok"]]
     check(not bad, f"kernels disagree with their plain versions: {bad}")
 
+    # One set of seeded Qwen3-8B weights serves every full-size phase.
     params = init_dense_llm(
         QWEN3_8B, generator=torch.Generator(device="cuda").manual_seed(0))
     eng = Engine(QWEN3_8B, params, max_seq=2048, page_size=16)
-    engine_rec = phase_engine(torch, eng, kernels)
-    engine_rec["nvidia_smi"] = smi
-    emit(engine_rec)
-    serving_rec = phase_serving(torch, eng, kernels, ServingEngine,
-                                RequestState)
-    serving_rec["nvidia_smi"] = smi
-    emit(serving_rec)
-    del eng, params
+    emit_phase(phase_engine(torch, eng, kernels[:2]))
+    vocab = QWEN3_8B.vocab_size
+    prompts = random_prompts(torch, vocab, SERVING_LENGTHS, 12)
+    phrases = phrase_prompts(torch, vocab, SERVING_LENGTHS, 15)
+    serving_rec = emit_phase(phase_serving(torch, eng, kernels,
+                                           ServingEngine, prompts=prompts))
+    budget_pages = {f"page_{pg}": {
+        dt: kv_pool_pages_for_budget(QWEN3_8B, page_size=pg,
+                                     hbm_bytes=KV_BUDGET, kv_dtype=kv)
+        for dt, kv in (("bfloat16", None), ("float8_e4m3fn", e4m3))}
+        for pg in (16, 128)}
+    eng8 = Engine(QWEN3_8B, params, max_seq=2048, page_size=16,
+                  kv_dtype=e4m3)
+    fp8_rec = phase_serving(torch, eng8, kernels, ServingEngine,
+                            name="fp8_serving", prompts=prompts,
+                            kv_hbm_budget=KV_BUDGET)
+    fp8_rec["kv_hbm_budget"] = KV_BUDGET
+    fp8_rec["pool_pages_at_budget"] = budget_pages
+    check(fp8_rec["pool_pages"] == budget_pages["page_16"]["float8_e4m3fn"],
+          "fp8 serving: the pool is not what the budget buys")
+    emit_phase(fp8_rec)
+    spec_rec = emit_phase(phase_serving(torch, eng, kernels, ServingEngine,
+                                        name="spec_serving", prompts=phrases,
+                                        spec_k=SPEC_K))
+    del eng, eng8
+    gc.collect()
     torch.cuda.empty_cache()
 
-    mk_rec = phase_megakernel_serving(torch, mk, mkserv, all_kernels, Engine,
-                                      ServingEngine, RequestState, QWEN3_8B,
-                                      init_dense_llm)
-    mk_rec["nvidia_smi"] = smi
+    mk_args = (torch, mk, kernels, Engine, ServingEngine, params, QWEN3_8B)
+    mk_rec = phase_megakernel_serving(*mk_args, prompts=prompts)
     mk_rec["eager_lane"] = {k: serving_rec[k] for k in (
         "tokens_per_s", "ttft_ms_p50", "decode_window")}
-    emit(mk_rec)
+    emit_phase(mk_rec)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mk8_rec = phase_megakernel_serving(*mk_args, name="fp8_megakernel_serving",
+                                       prompts=prompts, kv_dtype=e4m3,
+                                       kv_hbm_budget=KV_BUDGET)
+    mk8_rec["kv_hbm_budget"] = KV_BUDGET
+    mk8_rec["pool_pages_at_budget"] = budget_pages
+    emit_phase(mk8_rec)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mks_rec = emit_phase(phase_megakernel_serving(
+        *mk_args, name="spec_megakernel_serving", prompts=phrases,
+        spec_k=SPEC_K))
+    del params, mk_args
+    gc.collect()
     torch.cuda.empty_cache()
 
-    emit(phase_parity(torch, QWEN3_8B, init_dense_llm, Engine,
-                      ServingEngine, mk.MEGA_KERNEL))
+    emit_phase(phase_parity(torch, QWEN3_8B, init_dense_llm, Engine,
+                            ServingEngine, kernels))
 
-    replaces = {"flash_attention": "triton_distributed_tpu/ops/"
-                                   "flash_attention.py:157",
-                "paged_attention": "triton_distributed_tpu/ops/"
-                                   "paged_attention.py:160",
-                "megakernel": "triton_distributed_tpu/megakernel/"
-                              "kernel.py:39"}
-    summary = []
-    for kernel, name in zip(all_kernels, names):
-        if name == "megakernel":   # the main path's shape: 36 layers
-            main_case = mk_rec["step_kernel"]
-            launches = mk_rec["launches"][name]
-        else:
-            main_case = next(c for c in cases[name]
-                             if c["case"] == MAIN_CASE[name])
-            launches = serving_rec["launches"][name]
-        summary.append({
-            "name": name, "route": "cuda",
-            "source": str(kernel.source_path.relative_to(
-                build.PKG_DIR.parent)),
-            "replaces": replaces[name], "launches": launches,
-            "max_abs_err": max(c["max_abs_err"] for c in cases[name]),
-            "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
-            "bound_ms": main_case["bound_ms"],
-            "bound_by": main_case["bound_by"],
-            "library_ms": main_case["library_ms"]})
+    tpu = "triton_distributed_tpu/"
+    root = build.PKG_DIR.parent
+
+    def kernel_case(name):
+        return next(c for c in cases[name] if c["case"] == MAIN_CASE[name])
+
+    summary = [
+        _summary_entry(fa.FLASH_KERNEL, "flash_attention",
+                       tpu + "ops/flash_attention.py:157",
+                       cases["flash_attention"],
+                       kernel_case("flash_attention"),
+                       serving_rec["launches"]["flash_attention"], root),
+        _summary_entry(pa.PAGED_KERNEL, "paged_attention",
+                       tpu + "ops/paged_attention.py:160",
+                       cases["paged_attention"],
+                       kernel_case("paged_attention"),
+                       serving_rec["launches"]["paged_attention"], root),
+        # K2's e4m3 pool lane (the TPU kernel widens e4m3 pages at
+        # :192-193): launches from the fp8 serving run.
+        _summary_entry(pa.PAGED_KERNEL, "paged_attention_e4m3",
+                       tpu + "ops/paged_attention.py:192",
+                       cases["paged_attention_e4m3"],
+                       kernel_case("paged_attention_e4m3"),
+                       fp8_rec["launches"]["variants"]["paged_attention"]
+                       .get("e4m3", 0), root),
+        # The megakernel's lanes, each timed at the main path's shape (36
+        # layers, 4 slots at MK_LENS) with the serving lane's own program.
+        _summary_entry(mk.MEGA_KERNEL, "megakernel",
+                       tpu + "megakernel/kernel.py:39",
+                       cases["megakernel"], mk_rec["step_kernel"],
+                       mk_rec["launches"]["megakernel"], root),
+        _summary_entry(mk.MEGA_KERNEL, "megakernel_kv8",
+                       tpu + "megakernel/kernel.py:870",
+                       cases["megakernel_kv8"], mk8_rec["step_kernel"],
+                       mk8_rec["launches"]["variants"]["megakernel"]
+                       .get("kv8", 0), root),
+        _summary_entry(mk.MEGA_KERNEL, "megakernel_window",
+                       tpu + "megakernel/kernel.py:813",
+                       cases["megakernel_window"], mks_rec["step_kernel"],
+                       mks_rec["launches"]["variants"]["megakernel"]
+                       .get("window", 0), root),
+    ]
+    check(all(e["launches"] > 0 for e in summary),
+          f"a kernel of the path was never launched: "
+          f"{[e['name'] for e in summary if not e['launches']]}")
+    check(spec_rec["launches"]["paged_attention"] > 0,
+          "spec serving: K2 never ran on the verify path")
     emit({"kernels": summary})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

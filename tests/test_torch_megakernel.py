@@ -35,8 +35,8 @@ from triton_distributed_tpu_torch.megakernel.builder import (
     MegaKernelBuilder,
 )
 from triton_distributed_tpu_torch.megakernel.kernel import (
-    MEGA_KERNEL, PORTED_TYPES, MegakernelUnsupportedError, run_queue,
-    run_queue_plain,
+    MAX_LIVE_ROWS, MEGA_KERNEL, PORTED_TYPES, MegakernelUnsupportedError,
+    run_queue, run_queue_plain,
 )
 from triton_distributed_tpu_torch.megakernel.models import build_decode_step
 from triton_distributed_tpu_torch.megakernel.serving import (
@@ -75,23 +75,38 @@ QWEN3_8B_2L = dict(hidden_size=4096, intermediate_size=12288, num_layers=2,
                    num_heads=32, num_kv_heads=8, head_dim=128)
 
 
+FORMS = {"bf16_pools": {}, "fp8_pools_spec4": dict(kv_fp8=True,
+                                                   spec_window=4)}
+POOL_TYPES = {"bf16_pools": {TaskType.ATTN_DECODE_PAGED, TaskType.APPEND_KV},
+              "fp8_pools_spec4": {TaskType.ATTN_DECODE_PAGED_F8,
+                                  TaskType.APPEND_KV_F8}}
+
+
+@pytest.mark.parametrize("form", sorted(FORMS))
 @pytest.mark.parametrize("shape", [
     (TINY, 2, 4, 2),
     (QWEN3_8B_2L, 4, 64, 16),
 ], ids=["tiny", "qwen3_8b_2layers_4slots"])
-def test_compiled_queue_word_for_word(shape):
+def test_compiled_queue_word_for_word(shape, form):
     """(a) The port's builder emits the JAX builder's queue: every word,
     the emission-to-row map, the type set, the GEMM_MAT specs and the
-    hazard edges."""
+    hazard edges — with pools in the workspace dtype, and with e4m3 pools
+    and a 4-row speculative window (the kv8 hazard ids, the spill
+    appends)."""
     cfg, slots, num_pages, max_pages = shape
-    kw = _program_kw(cfg, slots, num_pages, max_pages)
+    kw = dict(_program_kw(cfg, slots, num_pages, max_pages), **FORMS[form])
     jc = _jax_program(kw).mb.compile(head_dim=kw["head_dim"])
     tc = build_decode_step(**kw).mb.compile(head_dim=kw["head_dim"])
     np.testing.assert_array_equal(tc.queue, np.asarray(jc.queue))
     assert tc.num_exec == jc.num_exec
     assert tc.task_rows == jc.task_rows
     assert tc.used_types == jc.used_types
-    assert set(tc.used_types) == {int(t) for t in PORTED_TYPES}
+    assert tc.num_tiles == jc.num_tiles
+    assert tc.num_tiles_kv8 == jc.num_tiles_kv8
+    common = {TaskType.RMS_NORM, TaskType.GEMM_MAT, TaskType.NORM_ROPE_QKV,
+              TaskType.PREFETCH_MAT}
+    assert set(tc.used_types) == {int(t) for t in common | POOL_TYPES[form]}
+    assert set(tc.used_types) <= {int(t) for t in PORTED_TYPES}
     assert [dataclasses.astuple(s) for s in tc.mat_specs] == \
         [(s.kt, s.ns, s.nt_out, s.kch, s.epi, s.warm) for s in jc.mat_specs]
     assert tc.hazard_edges == jc.hazard_edges
@@ -99,25 +114,38 @@ def test_compiled_queue_word_for_word(shape):
     assert tc.task_writes == jc.task_writes
 
 
+@pytest.mark.parametrize("form", sorted(FORMS))
 @pytest.mark.parametrize("shape", [(TINY, 2, 4, 2),
                                    (QWEN3_8B_2L, 4, 64, 16)],
                          ids=["tiny", "qwen3_8b_2layers_4slots"])
-def test_barrier_rows_cover_every_hazard_edge(shape):
+def test_barrier_rows_cover_every_hazard_edge(shape, form):
     """The CUDA interpreter's barrier flags: every hazard edge u -> t has a
-    barrier between u's row and t's row, and every GEMM_MAT row is
-    preceded by one (its partial-sum scratch is shared)."""
+    barrier between u's row and t's row (the kv8 pool edges included:
+    an e4m3 append waits for the attention reads of its tile), and every
+    GEMM_MAT row is preceded by one (its partial-sum scratch is
+    shared)."""
     cfg, slots, num_pages, max_pages = shape
-    tc = build_decode_step(**_program_kw(cfg, slots, num_pages,
-                                         max_pages)).mb.compile()
+    tc = build_decode_step(**_program_kw(cfg, slots, num_pages, max_pages),
+                           **FORMS[form]).mb.compile()
+    if FORMS[form].get("kv_fp8"):
+        k8 = MegaKernelBuilder._K8_HAZARD
+        assert any(t >= k8 and t < MegaKernelBuilder._WM_HAZARD
+                   for ws in tc.task_writes for t in ws)
     sync = tc.sync_before
     assert len(sync) == tc.num_exec and sync[0] == 0
     rows = tc.task_rows
     for u, t in tc.hazard_edges:
         assert rows[u] < rows[t]
         assert sync[rows[u] + 1:rows[t] + 1].any(), (u, t)
-    gemm = tc.queue[:tc.num_exec, 0] == int(TaskType.GEMM_MAT)
+    types = tc.queue[:tc.num_exec, 0]
+    gemm = types == int(TaskType.GEMM_MAT)
     assert sync[1:][gemm[1:]].all()
-    if cfg is QWEN3_8B_2L:      # a slot's 32 attention rows share one
+    # A slot-layer's attention rows (32 at Qwen3-8B widths) share one
+    # barrier interval: no barrier between consecutive attention rows.
+    attn = np.isin(types, [int(TaskType.ATTN_DECODE_PAGED),
+                           int(TaskType.ATTN_DECODE_PAGED_F8)])
+    assert not sync[1:][attn[1:] & attn[:-1]].any()
+    if cfg is QWEN3_8B_2L and not FORMS[form]:
         assert sync.sum() < tc.num_exec // 4
 
 
@@ -256,8 +284,9 @@ def test_paged_decoder_tokens_vs_jax(decoders):
 
 
 def test_run_queue_refuses_unported_types():
-    """(f) A program naming a type outside the ported six is refused
-    before any launch, by name; so are the speculative-window words."""
+    """(f) A program naming a type outside the ported eight is refused
+    before any launch, by name; so is a speculative window wider than the
+    rows the CUDA kernel computes per slot block."""
     mb = MegaKernelBuilder()
     a, out = mb.tensor(TILE, TILE), mb.tensor(TILE, TILE)
     from triton_distributed_tpu_torch.megakernel.tasks import Task
@@ -279,10 +308,11 @@ def test_run_queue_refuses_unported_types():
     tc = prog.mb.compile()
     q = tc.queue.copy()
     attn = q[:tc.num_exec, 0] == int(TaskType.ATTN_DECODE_PAGED)
-    q[np.flatnonzero(attn)[0], 5] = 2
+    q[np.flatnonzero(attn)[0], 5] = MAX_LIVE_ROWS + 1
     ws = tc.make_workspace({}, device="cpu")
     with pytest.raises(MegakernelUnsupportedError, match="window"):
         tc.step(ws, q, tc.make_workspace_mat({}, device="cpu"))
+    assert MEGA_KERNEL.plain_calls == calls
 
 
 def test_cuda_wrapper_rejects_without_fallback():

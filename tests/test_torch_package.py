@@ -74,6 +74,43 @@ def test_entry_points_default_to_cuda(monkeypatch):
         params_from_numpy({"w": np.zeros(2, np.float32)}, cfg)
 
 
+def test_cache_and_workspace_constructors_default_to_cuda(monkeypatch):
+    """The caches' and the megakernel workspaces' constructors allocate on
+    the card unless given a device: with ``device=None`` they used to
+    allocate on the CPU, where ``paged_decode_attention`` then ran the
+    plain version without a word. Without CUDA they now raise."""
+    from triton_distributed_tpu_torch.megakernel.models import (
+        build_decode_step,
+    )
+    from triton_distributed_tpu_torch.models.kv_cache import (
+        identity_page_table, init_kv_cache, init_paged_model_cache,
+    )
+    from triton_distributed_tpu_torch.ops.paged_attention import (
+        init_paged_kv_cache,
+    )
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = tiny_config(num_layers=1)
+    comp = build_decode_step(hidden=128, hq_local=1, hkv_local=1,
+                             ffn_local=128, num_layers=1, max_seq=128,
+                             pos=127, kv_pool_pages=2, table_pages=1,
+                             batch=128, kv_fp8=True).mb.compile()
+    for make in (
+            lambda: init_paged_kv_cache(1, num_pages=2, page_size=4,
+                                        num_kv_heads=1, head_dim=16,
+                                        max_pages=2),
+            lambda: init_kv_cache(cfg, 1, 8),
+            lambda: init_paged_model_cache(cfg, 1, page_size=4,
+                                           max_pages=2),
+            lambda: identity_page_table(1, 2, 2),
+            lambda: comp.make_workspace({}),
+            lambda: comp.make_workspace_mat({}),
+            lambda: comp.make_workspace_kv8()):
+        with pytest.raises(RuntimeError, match="is_available"):
+            make()
+    assert init_kv_cache(cfg, 1, 8, device="cpu").k.device.type == "cpu"
+
+
 def test_params_from_numpy_bf16_bit_exact():
     rng = np.random.default_rng(0)
     a = (rng.standard_normal((33, 7)) * 100).astype(ml_dtypes.bfloat16)

@@ -7,12 +7,13 @@ This package imports torch and numpy only — never jax, and nothing of the
 JAX package.
 
 Entry points (:class:`~.models.engine.Engine`,
-:class:`~.serving.loop.ServingEngine`, :func:`~.models.dense.init_dense_llm`)
-run on the card by default (``device=None`` means ``"cuda"``) and raise
-when CUDA is absent; the CPU runs only when the caller passes
-``device="cpu"``. The two attention kernels (``csrc/*.cu``) are built with
-``nvcc`` at first use (``runtime/build.py``); on CPU tensors their wrappers
-take the plain PyTorch version of the same function.
+:class:`~.serving.loop.ServingEngine`, :func:`~.models.dense.init_dense_llm`,
+the caches' and the megakernel workspaces' constructors) run on the card
+by default (``device=None`` means ``"cuda"``) and raise when CUDA is
+absent; the CPU runs only when the caller passes ``device="cpu"``. The
+kernels (``csrc/*.cu``: flash prefill, paged decode, the megakernel) are
+built with ``nvcc`` at first use (``runtime/build.py``); on CPU tensors
+their wrappers take the plain PyTorch version of the same function.
 """
 
 __version__ = "0.1.0"

@@ -5,6 +5,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 
 #include <atomic>
@@ -17,6 +18,17 @@ constexpr float NEG = -1e30f;  // masked logit and empty-row max, as on TPU
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_f(__nv_fp8_e4m3 x) {
+  return static_cast<float>(x);   // exact: every e4m3 value is an fp32
+}
+
+// The saturating e4m3 store of the fp8 KV pools: round to nearest even,
+// clamp to +-448 (never NaN for a finite input) — models/fp8.to_e4m3.
+__device__ __forceinline__ __nv_fp8_e4m3 to_e4m3(float x) {
+  __nv_fp8_e4m3 r;
+  r.__x = __nv_cvt_float_to_fp8(x, __NV_SATFINITE, __NV_E4M3);
+  return r;
 }
 
 template <typename T>

@@ -2,11 +2,14 @@
 // whole decode step's task queue.
 //
 // Replaces the JAX package's Pallas kernel
-// triton_distributed_tpu/megakernel/kernel.py:39 (_mega_kernel), for the six
+// triton_distributed_tpu/megakernel/kernel.py:39 (_mega_kernel), for the
 // task types the paged Qwen3 serving program emits: RMS_NORM (6),
-// ATTN_DECODE_PAGED (9), APPEND_KV (14), GEMM_MAT (19), NORM_ROPE_QKV (21)
-// and PREFETCH_MAT (23). Any other type traps: a row must never silently do
-// nothing (megakernel/kernel.py checks the program's types before launch and
+// ATTN_DECODE_PAGED (9), APPEND_KV (14), GEMM_MAT (19), NORM_ROPE_QKV (21),
+// PREFETCH_MAT (23), and over e4m3 KV pools ATTN_DECODE_PAGED_F8 (24) and
+// APPEND_KV_F8 (25) — each attention type with the speculative causal
+// window fold (word 5) and each append type with its windowed form (word
+// 4). Any other type traps: a row must never silently do nothing
+// (megakernel/kernel.py checks the program's types before launch and
 // raises, so the trap marks a queue that bypassed that check).
 //
 // Design. A TPU grid step runs one task at a time, so the queue order keeps
@@ -15,27 +18,35 @@
 // attention (row, head) pairs, norm rows) that go round-robin to the blocks.
 // A grid-wide barrier (cooperative_groups grid sync) separates a task from
 // the tasks it depends on: the host marks those rows (sync_before, from the
-// builder's hazard edges), so tasks with no hazard between them share one
-// barrier interval. GEMM_MAT holds barriers inside: its contraction chunks
-// write fp32 partial sums to a scratch buffer, a barrier, then the
-// epilogue sums them in a fixed order (deterministic); epilogue 3's norm
-// needs the whole stored row, so it runs after one more barrier.
+// builder's hazard edges — the e4m3 pool tiles have their own hazard ids,
+// so an append waits for the attention reads of its tile there too), so
+// tasks with no hazard between them share one barrier interval. GEMM_MAT
+// holds barriers inside: its contraction chunks write fp32 partial sums to
+// a scratch buffer, a barrier, then the epilogue sums them in a fixed order
+// (deterministic); epilogue 3's norm needs the whole stored row, so it runs
+// after one more barrier.
 //
-// Rows. Every handler is row-independent, and at speculative window 1 only
-// row 0 of each 128-row slot block carries a token, so the kernel computes
-// rows [0, live_rows) of each block and leaves the rest untouched.
+// Rows. Every handler is row-independent. One-token decode carries a token
+// in row 0 of each 128-row slot block; speculative decode carries the
+// W = spec_k + 1 candidates in rows 0..W-1. The kernel computes rows
+// [0, live_rows) of each block (live_rows = W <= MAX_LIVE) and leaves the
+// rest untouched.
 //
 // Rounding follows the TPU kernel: fp32 compute from the stored workspace
 // values, each task rounds only its stored outputs to the workspace type
-// (bf16 or fp32); attention rounds its probabilities to the workspace type
-// before the PV product and sums the unrounded ones; epilogue 3 and the
-// ATTN fold read the stored (rounded) values.
+// (bf16 or fp32); attention rounds its probabilities to the type V is read
+// in before the PV product (the workspace type, or fp32 for widened e4m3
+// pages) and sums the unrounded ones; epilogue 3 and the ATTN fold read the
+// stored (rounded) values. e4m3 pool stores saturate to +-448; the F8
+// attention fold reads the current tokens' k/v through the same saturating
+// round trip, so it folds what the append stores.
 //
 // What bounds it: the step streams every weight of the matrix workspace
 // (wsm) once per slot block, and the KV pages of each live sequence — both
-// byte-bound (0.5 to 4 flops per byte). Weight loads are 16-byte vectors,
-// one 128-column x 256-row slab per item, 256 threads in flight per block;
-// no wgmma or TMA yet, and no per-SM queues (both later work).
+// byte-bound (0.5 to 4 flops per byte; e4m3 pages halve the KV bytes).
+// Weight loads are 16-byte vectors, one 128-column x 256-row slab per item,
+// 256 threads in flight per block; no wgmma or TMA yet, and no per-SM
+// queues (both later work).
 
 #include <cooperative_groups.h>
 
@@ -61,6 +72,8 @@ enum TaskType : int {
   GEMM_MAT = 19,
   NORM_ROPE_QKV = 21,
   PREFETCH_MAT = 23,
+  ATTN_DECODE_PAGED_F8 = 24,
+  APPEND_KV_F8 = 25,
 };
 
 // Shared memory, in floats: the largest handler footprint (GEMM phase A:
@@ -73,6 +86,7 @@ struct Args {
   const int* specs;        // (n_specs, 4): kt, ns, nt_out, epi per spec
   void* ws;                // (tiles, TILE, TILE) workspace, updated in place
   const void* wsm;         // (rows, MAT_COLS) matrix weight workspace
+  __nv_fp8_e4m3* wkv8;     // (tiles, TILE, TILE) e4m3 KV pools (or null)
   float* partial;          // GEMM_MAT partial sums (fp32 scratch)
   int num_exec;
   int live_rows;
@@ -97,6 +111,12 @@ __device__ __forceinline__ void ldw4(const __nv_bfloat16* p, float v[4]) {
   const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
   v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
 }
+__device__ __forceinline__ void ldw4(const __nv_fp8_e4m3* p, float v[4]) {
+  const unsigned u = __ldcg(reinterpret_cast<const unsigned*>(p));
+  const __nv_fp8_e4m3* e = reinterpret_cast<const __nv_fp8_e4m3*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) v[i] = tdt::to_f(e[i]);
+}
 
 __device__ __forceinline__ void ldm8(const float* p, float v[8]) {
   const float4 a = __ldg(reinterpret_cast<const float4*>(p));
@@ -115,11 +135,6 @@ __device__ __forceinline__ void ldm8(const __nv_bfloat16* p, float v[8]) {
   }
 }
 
-__device__ __forceinline__ float ldraw(const float* p) { return __ldcg(p); }
-__device__ __forceinline__ __nv_bfloat16 ldraw(const __nv_bfloat16* p) {
-  return __ldcg(p);
-}
-
 template <typename T>
 __device__ __forceinline__ T* tile_at(T* ws, int tile, int row, int col) {
   return ws + (size_t)tile * TILE_ELEMS + row * TILE + col;
@@ -128,6 +143,28 @@ __device__ __forceinline__ T* tile_at(T* ws, int tile, int row, int col) {
 template <typename T>
 __device__ __forceinline__ float round_to(float x) {
   return tdt::to_f(tdt::from_f<T>(x));
+}
+
+// A store into a KV pool of type P: the workspace type, or saturating e4m3.
+template <typename P>
+__device__ __forceinline__ P to_pool(float x) {
+  return tdt::from_f<P>(x);
+}
+template <>
+__device__ __forceinline__ __nv_fp8_e4m3 to_pool<__nv_fp8_e4m3>(float x) {
+  return tdt::to_e4m3(x);
+}
+
+template <typename P>
+__host__ __device__ constexpr bool is_e4m3() {
+  return sizeof(P) == 1;
+}
+
+// The current tokens' k/v as the fold reads them: as stored in the
+// workspace, or through the saturating e4m3 round trip over e4m3 pools.
+template <typename P>
+__device__ __forceinline__ float cur_kv(float x) {
+  return is_e4m3<P>() ? tdt::to_f(tdt::to_e4m3(x)) : x;
 }
 
 __device__ __forceinline__ float inv_sqrt(float x) { return 1.0f / sqrtf(x); }
@@ -222,33 +259,41 @@ __device__ void t_norm_rope_qkv(T* ws, const int* w, int& seg, int live,
   seg += n;
 }
 
-// -- APPEND_KV (single-row form, word 4 == 0): k_new row 0 -> column c0 of
-// the kT tile `out`, v_new row 0 -> row c0 of the V tile b0. c0 < 0 skips.
-template <typename T>
-__device__ void t_append_kv(T* ws, const int* w, int& seg) {
+// -- APPEND_KV / APPEND_KV_F8 into pool tiles of type P (the workspace, or
+// the e4m3 kv8 workspace): k_new rows src..src+n-1 (a0) -> columns
+// c0..c0+n-1 of the kT tile `out`, v_new rows (d0) -> rows c0.. of the V
+// tile b0. Word 4 = n (0: the single-row form, row 0), word 7 = src, word
+// 8 = c0 (< 0 skips the row: a parked spill). One item.
+template <typename T, typename P>
+__device__ void t_append_kv(const T* ws, P* pool, const int* w, int& seg) {
   const int out = w[1], a0 = w[2], b0 = w[3], col = w[8], d0 = w[9];
-  if (w[4] != 0) __trap();     // windowed (speculative) append: not ported
+  const int src = w[4] == 0 ? 0 : w[7];
+  const int n = min(w[4] == 0 ? 1 : w[4], TILE - col);
   if (col < 0) return;
-  if (first_item(seg) == 0 && threadIdx.x < TILE) {
-    const int d = threadIdx.x;
-    *tile_at(ws, out, d, col) = ldraw(tile_at(ws, a0, 0, d));
-    *tile_at(ws, b0, col, d) = ldraw(tile_at(ws, d0, 0, d));
+  if (first_item(seg) == 0) {
+    for (int i = threadIdx.x; i < n * TILE; i += THREADS) {
+      const int j = i / TILE, d = i % TILE;
+      *tile_at(pool, out, d, col + j) = to_pool<P>(ldw(tile_at(ws, a0, src + j, d)));
+      *tile_at(pool, b0, col + j, d) = to_pool<P>(ldw(tile_at(ws, d0, src + j, d)));
+    }
   }
   seg += 1;
 }
 
-// -- ATTN_DECODE_PAGED: online softmax of one q head over the page tiles
-// named in the queue's data rows (from row b0), masked to `valid` = word 6,
-// then the current token's own k/v (c0/d0) folded in, then / l. One item
-// per live row; the block's 8 warps split the pages and merge at the end.
-template <typename T>
-__device__ void t_attn_paged(T* ws, const int* queue, const int* w, int& seg,
-                             int live, float* smem) {
-  const int out = w[1], a0 = w[2], k_tiles = w[4], valid = w[6];
+// -- ATTN_DECODE_PAGED / _F8: online softmax of one q head over the page
+// tiles (in pool type P: the workspace, or the e4m3 kv8 workspace) named
+// in the queue's data rows (from row b0), masked to `valid` = word 6, then
+// the current tokens folded in, then / l. Word 5 = 0: each row its own
+// k/v (c0/d0 row r); word 5 = win > 0: the causal window — row r folds the
+// block's fresh rows j <= r, j < win. One item per live row; the block's 8
+// warps split the pages and merge at the end.
+template <typename T, typename P>
+__device__ void t_attn_paged(T* ws, const P* pool, const int* queue,
+                             const int* w, int& seg, int live, float* smem) {
+  const int out = w[1], a0 = w[2], k_tiles = w[4], win = w[5], valid = w[6];
   const int c0 = w[8], d0 = w[9];
   const int* table = queue + (size_t)w[3] * WORDS;
   const float scale = (float)w[7] * 1e-6f;
-  if (w[5] != 0) __trap();     // speculative window fold: not ported
   float* qs = smem;                           // TILE
   float* pw = qs + TILE;                      // WARPS x TILE probabilities
   float* accs = pw + WARPS * TILE;            // WARPS x TILE partial PV
@@ -261,8 +306,8 @@ __device__ void t_attn_paged(T* ws, const int* queue, const int* w, int& seg,
     float m = tdt::NEG, l = 0.0f, acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
     float* pwarp = pw + warp * TILE;
     for (int j = warp; j < k_tiles; j += WARPS) {
-      const T* kt = ws + (size_t)__ldg(table + 2 * j) * TILE_ELEMS;
-      const T* vt = ws + (size_t)__ldg(table + 2 * j + 1) * TILE_ELEMS;
+      const P* kt = pool + (size_t)__ldg(table + 2 * j) * TILE_ELEMS;
+      const P* vt = pool + (size_t)__ldg(table + 2 * j + 1) * TILE_ELEMS;
       float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll 8
       for (int d = 0; d < TILE; ++d) {   // kT tile: row d, columns = keys
@@ -285,7 +330,7 @@ __device__ void t_attn_paged(T* ws, const int* queue, const int* w, int& seg,
       for (int i = 0; i < 4; ++i) {
         const float p = expf(s[i] - m_new);
         psum += p;
-        pwarp[lane * 4 + i] = round_to<T>(p);
+        pwarp[lane * 4 + i] = is_e4m3<P>() ? p : round_to<T>(p);
       }
       const float corr = expf(m - m_new);
       l = l * corr + warp_sum(psum);
@@ -320,15 +365,28 @@ __device__ void t_attn_paged(T* ws, const int* queue, const int* w, int& seg,
         lsum += ls[q] * f;
         a += accs[q * TILE + d] * f;
       }
-      if (c0 >= 0) {           // the current token: each row its own k/v
-        float s_cur = 0.0f;
-        for (int e = 0; e < TILE; ++e) s_cur += qs[e] * ldw(tile_at(ws, c0, r, e));
-        s_cur *= scale;
-        const float m_new = fmaxf(mx, s_cur);
-        const float p_cur = expf(s_cur - m_new);
+      if (c0 >= 0) {
+        // Fresh rows: row r itself (win == 0), or rows 0..min(r, win-1).
+        const int j0 = win == 0 ? r : 0;
+        const int j1 = win == 0 ? r : min(r, win - 1);
+        float s_w[MAX_LIVE];
+        float m_new = mx;
+        for (int j = j0; j <= j1; ++j) {
+          float sj = 0.0f;
+          for (int e = 0; e < TILE; ++e)
+            sj += qs[e] * cur_kv<P>(ldw(tile_at(ws, c0, j, e)));
+          s_w[j - j0] = sj * scale;
+          m_new = fmaxf(m_new, s_w[j - j0]);
+        }
         const float corr = expf(mx - m_new);
-        a = a * corr + p_cur * ldw(tile_at(ws, d0, r, d));
-        lsum = lsum * corr + p_cur;
+        float pv = 0.0f, psum = 0.0f;
+        for (int j = j0; j <= j1; ++j) {
+          const float pj = expf(s_w[j - j0] - m_new);
+          pv += pj * cur_kv<P>(ldw(tile_at(ws, d0, j, d)));
+          psum += pj;
+        }
+        a = a * corr + pv;
+        lsum = lsum * corr + psum;
       }
       *tile_at(ws, out, r, d) = tdt::from_f<T>(a / fmaxf(lsum, 1e-30f));
     }
@@ -490,10 +548,18 @@ __global__ void __launch_bounds__(THREADS) mega_kernel(Args args) {
         t_rms_norm(ws, w, seg, live, smem);
         break;
       case ATTN_DECODE_PAGED:
-        t_attn_paged(ws, args.queue, w, seg, live, smem);
+        t_attn_paged(ws, static_cast<const T*>(ws), args.queue, w, seg, live,
+                     smem);
+        break;
+      case ATTN_DECODE_PAGED_F8:
+        t_attn_paged(ws, static_cast<const __nv_fp8_e4m3*>(args.wkv8),
+                     args.queue, w, seg, live, smem);
         break;
       case APPEND_KV:
-        t_append_kv(ws, w, seg);
+        t_append_kv(ws, ws, w, seg);
+        break;
+      case APPEND_KV_F8:
+        t_append_kv(ws, args.wkv8, w, seg);
         break;
       case GEMM_MAT:
         t_gemm_mat(ws, wsm, args.partial, args.specs, w, seg, live, smem, grid);
@@ -552,10 +618,12 @@ cudaError_t launch(const Args& args, cudaStream_t stream) {
 
 extern "C" int megakernel_run(const int* queue, const int* sync_before,
                               const int* specs, void* ws, const void* wsm,
-                              float* partial, int num_exec, int live_rows,
-                              int head_dim, int dtype, void* stream) {
+                              void* wkv8, float* partial, int num_exec,
+                              int live_rows, int head_dim, int dtype,
+                              void* stream) {
   if (live_rows < 1 || live_rows > MAX_LIVE) return cudaErrorInvalidValue;
-  Args args{queue, sync_before, specs, ws, wsm, partial, num_exec, live_rows,
+  Args args{queue,   sync_before, specs,     ws,       wsm,
+            static_cast<__nv_fp8_e4m3*>(wkv8), partial, num_exec, live_rows,
             head_dim};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err = dtype == 1 ? launch<__nv_bfloat16>(args, s)

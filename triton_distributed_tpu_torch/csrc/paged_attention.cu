@@ -4,6 +4,10 @@
 // (_paged_decode_kernel): one-token GQA decode through a page table, only
 // the pages holding valid tokens are read, online softmax across pages,
 // and either a normalized output or the split-KV partial (acc, m, l).
+// Pools are float32 or bfloat16 (q's type), or e4m3 (the fp8 KV lane: a
+// page is read at half the bf16 bytes and widened to fp32 in shared
+// memory, where the TPU kernel widens it in VMEM; q and the output stay
+// in the model type).
 //
 // What bounds it on this card: bytes. One decode step reads every valid
 // K/V row of every sequence once (2 * kv_len * hkv * d * itemsize per
@@ -46,7 +50,7 @@ constexpr int PT = 128;        // threads per block (4 warps)
 constexpr int TILE_TOK = 64;   // tokens staged per iteration (whole pages)
 constexpr int NB = 8;          // 16-byte loads a thread keeps in flight
 
-// Unpack one 16-byte chunk into E = 16 / sizeof(T) floats.
+// Unpack one 16-byte chunk into E = 16 / sizeof(T) floats (16 for e4m3).
 template <typename T>
 __device__ __forceinline__ void unpack(const uint4& u, float* dst) {
   const T* e = reinterpret_cast<const T*>(&u);
@@ -78,18 +82,19 @@ inline size_t smem_bytes(int g, int d, int page) {
                           (size_t)g * tile + 3 * (size_t)g);
 }
 
-// q: (B, hq, D); k_pool, v_pool: (P, page, hkv, D); table: (B, max_pages)
-// int32; lens: (B,) int32. out: (B, hq, D) in T when normalize, else fp32
-// acc; m, l: (B, hq). Pools must be 16-byte aligned (the wrapper checks).
-template <typename T, int D>
+// q: (B, hq, D) in T; k_pool, v_pool: (P, page, hkv, D) in TK (T or e4m3);
+// table: (B, max_pages) int32; lens: (B,) int32. out: (B, hq, D) in T when
+// normalize, else fp32 acc; m, l: (B, hq). Pools must be 16-byte aligned
+// (the wrapper checks).
+template <typename T, typename TK, int D>
 __global__ void __launch_bounds__(PT)
-paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
-                    const T* __restrict__ vp, const int* __restrict__ table,
+paged_decode_kernel(const T* __restrict__ q, const TK* __restrict__ kp,
+                    const TK* __restrict__ vp, const int* __restrict__ table,
                     const int* __restrict__ lens, void* __restrict__ out,
                     float* __restrict__ m_out, float* __restrict__ l_out,
                     int hq, int hkv, int page, int max_pages, int normalize,
                     float scale) {
-  constexpr int E = 16 / sizeof(T);   // elements per 16-byte chunk
+  constexpr int E = 16 / sizeof(TK);  // pool elements per 16-byte chunk
   constexpr int CH = D / E;           // chunks per K/V row
   extern __shared__ float smem[];
   const int g = hq / hkv;
@@ -149,8 +154,8 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
         if (idx < valid * CH) {
           const int r = idx / CH;
           const int c = idx - r * CH;
-          unpack<T>(kb[i], Ks + r * (D + 1) + c * E);
-          unpack<T>(vb[i], Vs + r * D + c * E);
+          unpack<TK>(kb[i], Ks + r * (D + 1) + c * E);
+          unpack<TK>(vb[i], Vs + r * D + c * E);
         }
       }
     }
@@ -220,7 +225,7 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   }
 }
 
-template <typename T, int D>
+template <typename T, typename TK, int D>
 cudaError_t launch(const void* q, const void* kp, const void* vp,
                    const int* table, const int* lens, void* out, float* m,
                    float* l, int B, int hq, int hkv, int page, int max_pages,
@@ -228,42 +233,62 @@ cudaError_t launch(const void* q, const void* kp, const void* vp,
   static tdt::SmemCap cap;
   const size_t smem = smem_bytes(hq / hkv, D, page);
   const cudaError_t err =
-      tdt::ensure_smem(paged_decode_kernel<T, D>, smem, cap);
+      tdt::ensure_smem(paged_decode_kernel<T, TK, D>, smem, cap);
   if (err != cudaSuccess) return err;
   const dim3 grid(hkv, B);
-  paged_decode_kernel<T, D><<<grid, PT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kp),
-      static_cast<const T*>(vp), table, lens, out, m, l, hq, hkv, page,
+  paged_decode_kernel<T, TK, D><<<grid, PT, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const TK*>(kp),
+      static_cast<const TK*>(vp), table, lens, out, m, l, hq, hkv, page,
       max_pages, normalize, (float)(1.0 / sqrt((double)D)));
   return cudaGetLastError();
 }
 
+// Pools of q's type (TK = T) or e4m3, at head_dim 64 or 128.
+template <typename T>
+cudaError_t dispatch_pool(int kv_dtype, int d, const void* q, const void* kp,
+                          const void* vp, const int* table, const int* lens,
+                          void* out, float* m, float* l, int B, int hq,
+                          int hkv, int page, int max_pages, int normalize,
+                          cudaStream_t s) {
+  const bool e4m3 = kv_dtype == 2;
+  if (e4m3 && d == 64)
+    return launch<T, __nv_fp8_e4m3, 64>(q, kp, vp, table, lens, out, m, l, B,
+                                        hq, hkv, page, max_pages, normalize, s);
+  if (e4m3 && d == 128)
+    return launch<T, __nv_fp8_e4m3, 128>(q, kp, vp, table, lens, out, m, l,
+                                         B, hq, hkv, page, max_pages,
+                                         normalize, s);
+  if (d == 64)
+    return launch<T, T, 64>(q, kp, vp, table, lens, out, m, l, B, hq, hkv,
+                            page, max_pages, normalize, s);
+  if (d == 128)
+    return launch<T, T, 128>(q, kp, vp, table, lens, out, m, l, B, hq, hkv,
+                             page, max_pages, normalize, s);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t.
+// dtype (q and out): 0 = float32, 1 = bfloat16. kv_dtype (the pools):
+// the same code as dtype, or 2 = e4m3. Returns a cudaError_t.
 extern "C" int paged_decode_fwd(const void* q, const void* k_pool,
                                 const void* v_pool, const int* table,
                                 const int* lens, void* out, float* m,
                                 float* l, int B, int hq, int hkv, int d,
                                 int page, int max_pages, int normalize,
-                                int dtype, void* stream) {
+                                int dtype, int kv_dtype, void* stream) {
   if (B < 1 || hkv < 1 || hq % hkv != 0 || page < 1 || max_pages < 1 ||
-      (!normalize && (m == nullptr || l == nullptr)))
+      (!normalize && (m == nullptr || l == nullptr)) ||
+      (kv_dtype != dtype && kv_dtype != 2))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && d == 64)
-    return launch<float, 64>(q, k_pool, v_pool, table, lens, out, m, l, B,
-                             hq, hkv, page, max_pages, normalize, s);
-  if (dtype == 0 && d == 128)
-    return launch<float, 128>(q, k_pool, v_pool, table, lens, out, m, l, B,
-                              hq, hkv, page, max_pages, normalize, s);
-  if (dtype == 1 && d == 64)
-    return launch<__nv_bfloat16, 64>(q, k_pool, v_pool, table, lens, out, m,
-                                     l, B, hq, hkv, page, max_pages,
-                                     normalize, s);
-  if (dtype == 1 && d == 128)
-    return launch<__nv_bfloat16, 128>(q, k_pool, v_pool, table, lens, out,
-                                      m, l, B, hq, hkv, page, max_pages,
-                                      normalize, s);
+  if (dtype == 0)
+    return dispatch_pool<float>(kv_dtype, d, q, k_pool, v_pool, table, lens,
+                                out, m, l, B, hq, hkv, page, max_pages,
+                                normalize, s);
+  if (dtype == 1)
+    return dispatch_pool<__nv_bfloat16>(kv_dtype, d, q, k_pool, v_pool, table,
+                                        lens, out, m, l, B, hq, hkv, page,
+                                        max_pages, normalize, s);
   return cudaErrorInvalidValue;
 }

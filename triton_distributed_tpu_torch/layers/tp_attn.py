@@ -24,7 +24,7 @@ from triton_distributed_tpu_torch.ops.flash_attention import (
     flash_attention_partial, shard_attention,
 )
 from triton_distributed_tpu_torch.ops.paged_attention import (
-    PagedKVCache, paged_append, paged_decode_attention,
+    PagedKVCache, paged_append, paged_append_window, paged_decode_attention,
 )
 
 
@@ -113,8 +113,10 @@ def tp_attn_prefill_chunk(params: dict, cfg: ModelConfig, x: torch.Tensor,
 def tp_attn_decode_paged(params: dict, cfg: ModelConfig, x: torch.Tensor,
                          cache: PagedKVCache):
     """One-token decode over a paged cache at per-sequence positions
-    (``cache.kv_lens``). Appends this token's K/V to the pools in place;
-    returns (out (B, h), cache with kv_lens advanced)."""
+    (``cache.kv_lens``). Appends this token's K/V to the pools in place
+    (through the saturating cast for e4m3 pools), then attends — so the
+    current token is read back as stored; returns (out (B, h), cache
+    with kv_lens advanced)."""
     batch = x.shape[0]
     q, k, v = _project_qkv(params, cfg, x, batch, 1)
     cos, sin = rope_cos_sin(cache.kv_lens, cfg.head_dim, cfg.rope_theta)
@@ -123,3 +125,33 @@ def tp_attn_decode_paged(params: dict, cfg: ModelConfig, x: torch.Tensor,
     cache = paged_append(cache, k[:, 0], v[:, 0])
     attn = paged_decode_attention(q[:, 0], cache)          # K2
     return _out_proj(attn.reshape(batch, -1).to(x.dtype), params), cache
+
+
+def tp_attn_verify_paged(params: dict, cfg: ModelConfig, x: torch.Tensor,
+                         cache: PagedKVCache, window: int):
+    """Speculative VERIFY attention: ``window`` candidate positions per
+    sequence in one call. x: (B·window, h), row ``b·window + i`` is
+    sequence b's candidate i. All the window's k/v append at
+    ``[kv_lens, kv_lens + window)`` first, then each candidate row attends
+    as its own virtual sequence — the page table repeated ``window``
+    times, lengths ``kv_lens + i + 1`` — so K2 runs over B·window rows
+    whose tables repeat, and row i's math is the one-token step's at that
+    position. Returns (out (B·window, h), cache advanced by ``window``)."""
+    rows = x.shape[0]
+    batch = rows // window
+    pos = (cache.kv_lens.long()[:, None]
+           + torch.arange(window, device=x.device)[None, :]).reshape(-1)
+    q, k, v = _project_qkv(params, cfg, x, rows, 1)
+    cos, sin = rope_cos_sin(pos, cfg.head_dim, cfg.rope_theta)
+    q = apply_rope(q, cos[:, None], sin[:, None])
+    k = apply_rope(k, cos[:, None], sin[:, None])
+    hkv, d = k.shape[2], k.shape[3]
+    cache = paged_append_window(cache, k[:, 0].reshape(batch, window, hkv, d),
+                                v[:, 0].reshape(batch, window, hkv, d))
+    capacity = cache.page_table.shape[1] * cache.page_size
+    virtual = PagedKVCache(
+        cache.k_pool, cache.v_pool,
+        torch.repeat_interleave(cache.page_table, window, dim=0),
+        torch.clamp(pos + 1, max=capacity).to(torch.int32))
+    attn = paged_decode_attention(q[:, 0], virtual)          # K2
+    return _out_proj(attn.reshape(rows, -1).to(x.dtype), params), cache

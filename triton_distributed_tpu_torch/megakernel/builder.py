@@ -3,13 +3,17 @@
 The port's counterpart of the JAX package's ``megakernel/builder.py``,
 with the ops the paged serving program emits (``rms_norm``,
 ``gemm_mat``, ``prefetch_mat``, ``norm_rope_qkv``, ``attn_decode_paged``,
-``append_kv``). Tensor allocation, hazard bookkeeping, the schedule and
-the packed queue follow the JAX builder step for step, so both emit the
-same queue word for word (the CPU tests hold them equal).
+``append_kv``, each pool op also over e4m3 pools). Tensor allocation,
+hazard bookkeeping, the schedule and the packed queue follow the JAX
+builder step for step, so both emit the same queue word for word (the CPU
+tests hold them equal).
 
 :class:`CompiledMegaKernel` carries the queue and the workspace geometry;
 its workspaces are torch tensors updated IN PLACE (the JAX package
-threads donated arrays through jits instead).
+threads donated arrays through jits instead): the main workspace, the
+matrix weight workspace and, for programs with e4m3 pools, the kv8
+workspace (``tensor(kv8=True)`` tiles, read by ATTN_DECODE_PAGED_F8 and
+written by APPEND_KV_F8).
 
 Reference: ``mega_triton_kernel/models/model_builder.py:83-406``.
 """
@@ -27,7 +31,10 @@ from triton_distributed_tpu_torch.megakernel.tasks import (
     MAT_COLS, TILE, WORDS, MatHandle, MatSpec, Task, TaskType, TensorHandle,
     mat_chunk_rows,
 )
-from triton_distributed_tpu_torch.runtime.device import torch_dtype
+from triton_distributed_tpu_torch.models.fp8 import E4M3, saturate_cast
+from triton_distributed_tpu_torch.runtime.device import (
+    resolve_device, torch_dtype,
+)
 
 
 class MegaKernelBuilder:
@@ -40,12 +47,16 @@ class MegaKernelBuilder:
     # not collide them with main-workspace tile ids (the JAX builder's
     # value, so the exported hazard sets match).
     _WM_HAZARD = 1 << 29
+    # And for the e4m3 KV-pool tiles (the kv8 workspace, read-write):
+    # appends stay ordered after the attention reads of the same tile.
+    _K8_HAZARD = 1 << 28
 
     def __init__(self):
         # NORM_ROPE_QKV sub-tile span, set by the program assembly
         # (build_decode_step(head_dim=)); compile() inherits it.
         self.head_dim = TILE
         self._num_tiles = 0
+        self._num_tiles_kv8 = 0
         self._num_mrows = 0
         self._max_row = 1
         self._mat_specs: list[MatSpec] = []
@@ -65,13 +76,30 @@ class MegaKernelBuilder:
         self._pending_pf_mat: tuple[int, int] | None = None
 
     # -- tensors ------------------------------------------------------------
-    def tensor(self, rows: int, cols: int) -> TensorHandle:
+    def tensor(self, rows: int, cols: int, kv8: bool = False) -> TensorHandle:
+        """``kv8=True``: allocate in the e4m3 KV-pool workspace (its own
+        tile-id space from 0) — paged pools at half the bf16 bytes."""
         if rows % TILE or cols % TILE:
             raise ValueError(f"dims must be multiples of {TILE}, got "
                              f"({rows}, {cols})")
+        if kv8:
+            h = TensorHandle(self._num_tiles_kv8, rows, cols, kv8=True)
+            self._num_tiles_kv8 += h.rt * h.ct
+            return h
         h = TensorHandle(self._num_tiles, rows, cols)
         self._num_tiles += h.rt * h.ct
         return h
+
+    @staticmethod
+    def _no_kv8(*handles):
+        """kv8 tile ids start at 0 in their own space: any op other than
+        the paged pools' would alias main-workspace tiles."""
+        for h in handles:
+            if h is not None and getattr(h, "kv8", False):
+                raise ValueError(
+                    "kv8 pool-workspace tensors can only be paged KV "
+                    "pools (ATTN_DECODE_PAGED_F8 / APPEND_KV_F8) — other "
+                    "tasks address the main workspace")
 
     def tensor_mat(self, k: int, n: int, pair: bool = False) -> MatHandle:
         """A (k, n) weight matrix in the 2D MATRIX workspace (GEMM_MAT B
@@ -218,7 +246,15 @@ class MegaKernelBuilder:
         """In-kernel KV cache append at position ``pos``: k_new's row 0
         becomes column pos of the kT cache, v_new's row 0 becomes row pos
         of the v cache. a_stride/b_stride carry the cache base tiles, so
-        a host retarget moves the row per step without recompiling."""
+        a host retarget moves the row per step without recompiling. kv8
+        pools (kT and v both) emit APPEND_KV_F8, which stores through the
+        saturating e4m3 cast."""
+        self._no_kv8(k_new, v_new)
+        if kT.kv8 != v.kv8:
+            raise ValueError(
+                "append_kv pools must live in ONE space: kT and v are "
+                f"kv8={kT.kv8}/{v.kv8} — a mixed-dtype page pool would "
+                "read one space and write the other")
         if not 0 <= pos < kT.ct * TILE:
             raise ValueError(f"append pos {pos} outside cache capacity")
         if kT.rt != 1 or v.ct != 1:
@@ -228,12 +264,14 @@ class MegaKernelBuilder:
                 raise ValueError("k_new/v_new must be single head tiles")
         ti, col = pos // TILE, pos % TILE
         kt_tile, v_tile = kT.tile(0, ti), v.tile(ti, 0)
+        hz = self._K8_HAZARD if kT.kv8 else 0
+        tt = TaskType.APPEND_KV_F8 if kT.kv8 else TaskType.APPEND_KV
         return self._emit(
-            Task(TaskType.APPEND_KV, kt_tile, a0=k_new.tile(0, 0),
+            Task(tt, kt_tile, a0=k_new.tile(0, 0),
                  b0=v_tile, a_stride=kT.tile(0, 0), b_stride=v.tile(0, 0),
                  c0=col, d0=v_new.tile(0, 0)),
-            [k_new.tile(0, 0), v_new.tile(0, 0), kt_tile, v_tile],
-            [kt_tile, v_tile])
+            [k_new.tile(0, 0), v_new.tile(0, 0), kt_tile + hz, v_tile + hz],
+            [kt_tile + hz, v_tile + hz])
 
     def norm_rope_qkv(self, q: TensorHandle, hq: int, k: TensorHandle,
                       hkv: int, q_norm: TensorHandle, k_norm: TensorHandle,
@@ -288,13 +326,16 @@ class MegaKernelBuilder:
     def attn_decode_paged(self, out: TensorHandle, q: TensorHandle,
                           pages: list[tuple[int, int]], valid_len: int,
                           scale: float, k_new: TensorHandle | None = None,
-                          v_new: TensorHandle | None = None):
+                          v_new: TensorHandle | None = None,
+                          kv8: bool = False):
         """Page-table flash-attention decode for ONE head: the j-th cache
         tile pair (kT tile id, V tile id) comes from ``pages``, packed as
         queue DATA rows at compile. ``pages[j]`` covers logical positions
         [j·TILE, (j+1)·TILE); kT tiles are (d, TILE) key columns, v tiles
         (TILE, d) value rows. ``k_new``/``v_new`` (the current token)
-        join the softmax row by row."""
+        join the softmax row by row. ``kv8=True``: the page tile ids
+        address the e4m3 kv8 workspace (ATTN_DECODE_PAGED_F8)."""
+        self._no_kv8(out, q, k_new, v_new)
         if q.rt != 1 or q.ct != 1 or out.rt != 1 or out.ct != 1:
             raise ValueError("q/out must be a single (TILE, TILE) tile")
         if (k_new is None) != (v_new is None):
@@ -307,17 +348,20 @@ class MegaKernelBuilder:
                 f"{len(pages) * TILE}")
         # valid_len == 0 (empty cache, current token only): visit no pages.
         k_tiles = min(len(pages), -(-valid_len // TILE))
+        hz = self._K8_HAZARD if kv8 else 0
         reads = [q.tile(0, 0)]
         flat: list[int] = []
         for kt_t, v_t in pages:
             flat += [int(kt_t), int(v_t)]
-        reads += [t for pair in pages[:k_tiles] for t in pair]
+        reads += [t + hz for pair in pages[:k_tiles] for t in pair]
         c0 = d0 = -1
         if k_new is not None:
             c0, d0 = k_new.tile(0, 0), v_new.tile(0, 0)
             reads += [c0, d0]
+        tt = (TaskType.ATTN_DECODE_PAGED_F8 if kv8
+              else TaskType.ATTN_DECODE_PAGED)
         tid = self._emit(
-            Task(TaskType.ATTN_DECODE_PAGED, out.tile(0, 0),
+            Task(tt, out.tile(0, 0),
                  a0=q.tile(0, 0), b0=-1,   # b0 patched to table row at compile
                  k_tiles=k_tiles, a_stride=0,
                  b_stride=int(valid_len), arg=int(round(scale * 1e6)),
@@ -365,6 +409,7 @@ class MegaKernelBuilder:
         used_types = tuple(sorted({int(t.type) for t in self._tasks}))
         return CompiledMegaKernel(
             queue=queue, num_tiles=self._num_tiles,
+            num_tiles_kv8=self._num_tiles_kv8,
             dtype=torch_dtype(dtype), num_exec=n_exec,
             max_row=self._max_row, num_mrows=self._num_mrows,
             mat_specs=tuple(self._mat_specs), used_types=used_types,
@@ -384,8 +429,8 @@ def barrier_rows(order: list[int], edges, types) -> np.ndarray:
     dependency. The GPU kernel runs a task's work across all blocks and
     lets consecutive tasks with no hazard between them share one barrier
     interval: a task waits only when one of its hazard predecessors
-    (RAW, WAR or WAW over workspace tiles, ``hazard_edges``) ran in the
-    current interval. Every GEMM_MAT starts after a barrier, because its
+    (RAW, WAR or WAW over workspace tiles — main, matrix and kv8 spaces
+    alike, ``hazard_edges``) ran in the current interval. Every GEMM_MAT starts after a barrier, because its
     partial-sum scratch is shared, and ends its own interval (it holds
     barriers inside). The build-time edges cover the runtime ones: at
     build time every slot's page table and append target is the one
@@ -413,6 +458,7 @@ class CompiledMegaKernel:
 
     queue: np.ndarray             # (rows, WORDS) int32: tasks, then data
     num_tiles: int
+    num_tiles_kv8: int = 0        # e4m3 KV-pool workspace tiles (0 = none)
     dtype: torch.dtype = torch.float32   # workspace dtype; compute is fp32
     num_exec: int | None = None   # dispatched rows (rest = page-table data)
     max_row: int = 1              # widest resident row (tiles)
@@ -433,9 +479,13 @@ class CompiledMegaKernel:
 
     def scatter_input(self, ws: torch.Tensor, h: TensorHandle,
                       value) -> torch.Tensor:
-        """Write (rows, cols) ``value`` into the tiled workspace, in
-        place; returns ``ws``."""
-        v = torch.as_tensor(value).to(device=ws.device, dtype=ws.dtype)
+        """Write (rows, cols) ``value`` into the tiled workspace (main, or
+        kv8 for a kv8 handle), in place; returns ``ws``. An e4m3 target
+        takes the saturating cast, as the in-kernel append does."""
+        if h.kv8 != (ws.dtype == E4M3):
+            raise ValueError(f"handle kv8={h.kv8} does not match a "
+                             f"{ws.dtype} workspace")
+        v = saturate_cast(torch.as_tensor(value).to(ws.device), ws.dtype)
         if tuple(v.shape) != (h.rows, h.cols):
             raise ValueError(f"value {tuple(v.shape)} does not match handle "
                              f"({h.rows}, {h.cols})")
@@ -445,13 +495,17 @@ class CompiledMegaKernel:
 
     def gather_output(self, ws: torch.Tensor, h: TensorHandle
                       ) -> torch.Tensor:
+        """(rows, cols) of ``h`` from its workspace (kv8 handles from the
+        kv8 workspace, as stored)."""
         tiles = ws[h.base:h.base + h.rt * h.ct]
         return tiles.reshape(h.rt, h.ct, TILE, TILE).permute(
             0, 2, 1, 3).reshape(h.rows, h.cols)
 
     def make_workspace(self, inputs: dict, device=None) -> torch.Tensor:
         """Build the tiled MAIN workspace once (weights + caches +
-        activations); matrix handles go to :meth:`make_workspace_mat`."""
+        activations) on ``device`` (None: the card); matrix handles go to
+        :meth:`make_workspace_mat`."""
+        device = resolve_device(device)
         ws = torch.zeros((max(self.num_tiles, 1) + self._STRIP_PAD,
                           TILE, TILE), dtype=self.dtype, device=device)
         for h, v in inputs.items():
@@ -459,12 +513,36 @@ class CompiledMegaKernel:
                 raise ValueError("matrix handle in main workspace feeds — "
                                  "pass it to make_workspace_mat (or use "
                                  "split_feeds)")
+            if h.kv8:
+                raise ValueError("kv8 pool handle in main workspace feeds "
+                                 "— pass it to make_workspace_kv8")
             self.scatter_input(ws, h, v)
         return ws
 
+    def make_workspace_kv8(self, inputs: dict | None = None,
+                           device=None) -> torch.Tensor:
+        """The e4m3 KV-pool workspace: zeroed pools (updated in place by
+        every step), ``inputs`` (kv8 handles → values) scattered through
+        the saturating cast. ``device`` None: the card."""
+        device = resolve_device(device)
+        wkv8 = torch.zeros((max(self.num_tiles_kv8, 1), TILE, TILE),
+                           dtype=E4M3, device=device)
+        for h, v in (inputs or {}).items():
+            if not getattr(h, "kv8", False):
+                raise ValueError("non-kv8 handle in kv8 workspace feeds")
+            self.scatter_input(wkv8, h, v)
+        return wkv8
+
     @staticmethod
     def split_feeds(feeds: dict) -> tuple[dict, dict]:
-        """Split a mixed feeds dict into (main, matrix) workspace feeds."""
+        """Split a mixed feeds dict into (main, matrix) workspace feeds.
+        kv8 pool handles are refused: pools start zeroed
+        (:meth:`make_workspace_kv8`)."""
+        for h in feeds:
+            if not isinstance(h, MatHandle) and h.kv8:
+                raise ValueError(
+                    "kv8 pool handle in feeds — scatter_input it into "
+                    "the kv8 workspace (make_workspace_kv8) instead")
         main = {h: v for h, v in feeds.items()
                 if not isinstance(h, MatHandle)}
         wm = {h: v for h, v in feeds.items() if isinstance(h, MatHandle)}
@@ -497,7 +575,9 @@ class CompiledMegaKernel:
 
     def make_workspace_mat(self, inputs: dict, device=None) -> torch.Tensor:
         """Build the 2D matrix weight workspace (read-only input of every
-        step; pair handles take (gate, up) value tuples)."""
+        step; pair handles take (gate, up) value tuples) on ``device``
+        (None: the card)."""
+        device = resolve_device(device)
         wsm = torch.zeros((max(self.num_mrows, 1), MAT_COLS),
                           dtype=self.dtype, device=device)
         for h, v in inputs.items():
@@ -509,13 +589,26 @@ class CompiledMegaKernel:
 
     def step(self, ws: torch.Tensor, queue=None,
              wsm: torch.Tensor | None = None, *,
+             wkv8: torch.Tensor | None = None,
              live_rows: int = TILE) -> torch.Tensor:
         """One queue execution over the workspace, in place; returns
         ``ws``. ``queue``: a host-retargeted copy of :attr:`queue`
-        (default: the compiled one). ``live_rows``: the rows of every
-        128-row block that carry data — the CUDA kernel computes only
-        those (every handler is row-independent); the plain version
-        computes all rows."""
+        (default: the compiled one). ``wkv8``: the kv8 workspace, which a
+        program with e4m3 pools needs (updated in place too).
+        ``live_rows``: the rows of every 128-row block that carry data —
+        the CUDA kernel computes only those (every handler is
+        row-independent); the plain version computes all rows."""
+        if self.num_tiles_kv8 and wkv8 is None:
+            raise ValueError(
+                f"program uses {self.num_tiles_kv8} e4m3 KV-pool tiles "
+                "but no wkv8 was passed — build it with "
+                "make_workspace_kv8 and carry it through every step")
+        if wkv8 is not None and (not self.num_tiles_kv8
+                                 or wkv8.dtype != E4M3
+                                 or wkv8.shape[0] < self.num_tiles_kv8):
+            raise ValueError(
+                f"wkv8 {tuple(wkv8.shape)} {wkv8.dtype} does not fit this "
+                f"program ({self.num_tiles_kv8} e4m3 KV-pool tiles)")
         if self.num_mrows and wsm is None:
             raise ValueError(
                 f"program uses {self.num_mrows} matrix-workspace rows but "
@@ -534,6 +627,7 @@ class CompiledMegaKernel:
                              f"this program ({self.num_tiles} tiles of "
                              f"{self.dtype})")
         return run_queue(self.queue if queue is None else queue, ws, wsm,
+                         wkv8=wkv8,
                          num_exec=self.num_exec, mat_specs=self.mat_specs,
                          used_types=self.used_types, head_dim=self.head_dim,
                          sync_before=self.sync_before, live_rows=live_rows)

@@ -7,7 +7,10 @@ CUDA interpreter ``csrc/megakernel.cu``: one cooperative launch whose
 blocks all walk the queue, each task's work spread over the blocks, grid
 barriers where the builder's hazard edges need them (see that file's
 header). It handles the task types of the paged serving program,
-:data:`PORTED_TYPES`; :func:`run_queue` refuses any other before launch.
+:data:`PORTED_TYPES` — with e4m3 pools (types 24/25 over the kv8
+workspace) and the speculative window (the causal fold of types 9/24,
+the windowed append of 14/25) —; :func:`run_queue` refuses any other
+type before launch, and a window wider than :data:`MAX_LIVE_ROWS`.
 
 :func:`run_queue_plain` is the same interpreter in plain PyTorch: it walks
 the queue rows in order with one handler per type on full 128-row tiles,
@@ -25,6 +28,7 @@ import torch
 from triton_distributed_tpu_torch.megakernel.tasks import (
     MAT_COLS, TILE, WORDS, TaskType,
 )
+from triton_distributed_tpu_torch.models.fp8 import E4M3, to_e4m3
 from triton_distributed_tpu_torch.runtime.build import (
     CudaKernel, current_stream, ptr,
 )
@@ -32,21 +36,26 @@ from triton_distributed_tpu_torch.runtime.build import (
 PORTED_TYPES = frozenset({
     TaskType.RMS_NORM, TaskType.ATTN_DECODE_PAGED, TaskType.APPEND_KV,
     TaskType.GEMM_MAT, TaskType.NORM_ROPE_QKV, TaskType.PREFETCH_MAT,
+    TaskType.ATTN_DECODE_PAGED_F8, TaskType.APPEND_KV_F8,
 })
+_ATTN = (int(TaskType.ATTN_DECODE_PAGED), int(TaskType.ATTN_DECODE_PAGED_F8))
+_APPEND = (int(TaskType.APPEND_KV), int(TaskType.APPEND_KV_F8))
+_KV8 = (int(TaskType.ATTN_DECODE_PAGED_F8), int(TaskType.APPEND_KV_F8))
 MAX_LIVE_ROWS = 4        # rows per 128-row block the CUDA kernel computes
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _NEG = -1e30
 
 MEGA_KERNEL = CudaKernel(
     "megakernel.cu", "megakernel_run",
-    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 
 
 class MegakernelUnsupportedError(ValueError):
     """The program, queue or configuration needs a part of the megakernel
-    the port has not ported yet (a task type, the speculative window, a
-    page shape). Raised by name: the port has no backend ladder, and a
-    silent demotion would hide the kernel."""
+    the port has not ported yet (a task type, a speculative window wider
+    than the kernel's live rows, a page shape). Raised by name: the port
+    has no backend ladder, and a silent demotion would hide the
+    kernel."""
 
 
 def _type_name(t: int) -> str:
@@ -59,8 +68,11 @@ def _type_name(t: int) -> str:
 def check_queue(queue: np.ndarray, num_exec: int,
                 used_types=None) -> None:
     """Refuse a program or queue the interpreters cannot run: a task type
-    outside :data:`PORTED_TYPES`, a speculative window on an attention
-    row (word 5), or a windowed append (word 4)."""
+    outside :data:`PORTED_TYPES`, or a speculative window past the
+    :data:`MAX_LIVE_ROWS` rows the CUDA kernel computes per slot block —
+    an attention row's window (word 5), or a windowed append reading
+    source rows ``[word 7, word 7 + word 4)``. Both interpreters refuse
+    alike, so a CPU run never accepts what the card would not."""
     if used_types is not None:
         bad = sorted(int(t) for t in used_types if t not in PORTED_TYPES)
         if bad:
@@ -76,14 +88,20 @@ def check_queue(queue: np.ndarray, num_exec: int,
             f"queue row {int(np.flatnonzero(bad_rows)[0])} has task type "
             f"{_type_name(types[bad_rows][0])}, which the port has not "
             "ported")
-    if np.any(rows[types == int(TaskType.ATTN_DECODE_PAGED), 5] != 0):
+    attn = rows[np.isin(types, _ATTN)]
+    if np.any(attn[:, 5] > MAX_LIVE_ROWS):
         raise MegakernelUnsupportedError(
-            "ATTN_DECODE_PAGED with a speculative window (word 5 > 0) is "
-            "not ported — spec_window must be 1")
-    if np.any(rows[types == int(TaskType.APPEND_KV), 4] != 0):
+            f"attention row with a speculative window of "
+            f"{int(attn[:, 5].max())} rows: the megakernel computes at most "
+            f"{MAX_LIVE_ROWS} per slot block — spec_window <= "
+            f"{MAX_LIVE_ROWS}")
+    app = rows[np.isin(types, _APPEND)]
+    live = app[:, 8] >= 0
+    if np.any(live & (app[:, 4] > 0) & (app[:, 7] + app[:, 4] > MAX_LIVE_ROWS)):
         raise MegakernelUnsupportedError(
-            "windowed APPEND_KV (word 4 > 0) is not ported — spec_window "
-            "must be 1")
+            "windowed append reading source rows past the "
+            f"{MAX_LIVE_ROWS} live rows of a slot block — spec_window <= "
+            f"{MAX_LIVE_ROWS}")
 
 
 def gemm_chunk_rows(k: int) -> int:
@@ -95,21 +113,25 @@ def gemm_chunk_rows(k: int) -> int:
 def run_queue(queue, ws: torch.Tensor, wsm: torch.Tensor | None, *,
               num_exec: int, mat_specs: tuple, used_types=None,
               head_dim: int = TILE, sync_before=None,
-              live_rows: int = TILE) -> torch.Tensor:
+              live_rows: int = TILE,
+              wkv8: torch.Tensor | None = None) -> torch.Tensor:
     """Execute the packed task queue over the workspace, in place; returns
     ``ws``. The CUDA interpreter on a CUDA workspace (one launch; rows
     ``[0, live_rows)`` of every 128-row block), the plain version on a CPU
     one (every row). ``sync_before``: the builder's per-row barrier flags
-    (``builder.barrier_rows``), needed on the card."""
+    (``builder.barrier_rows``), needed on the card. ``wkv8``: the e4m3
+    KV-pool workspace of a program with types 24/25 (updated in place)."""
     q = np.ascontiguousarray(queue, np.int32)
     check_queue(q, num_exec, used_types)
     if ws.device.type == "cuda":
         return _run_queue_cuda(q, ws, wsm, num_exec=num_exec,
                                mat_specs=mat_specs, head_dim=head_dim,
-                               sync_before=sync_before, live_rows=live_rows)
+                               sync_before=sync_before, live_rows=live_rows,
+                               wkv8=wkv8)
     if ws.device.type == "cpu":
         return run_queue_plain(q, ws, wsm, num_exec=num_exec,
-                               mat_specs=mat_specs, head_dim=head_dim)
+                               mat_specs=mat_specs, head_dim=head_dim,
+                               wkv8=wkv8)
     raise ValueError(f"megakernel: no kernel for device {ws.device}")
 
 
@@ -130,8 +152,22 @@ def _partial_floats(mat_specs, live_rows: int) -> int:
     return n
 
 
+def _check_wkv8(q: np.ndarray, num_exec: int, ws, wkv8) -> None:
+    if wkv8 is None:
+        if np.isin(q[:num_exec, 0], _KV8).any():
+            raise ValueError("megakernel: the queue has e4m3-pool tasks "
+                             "(types 24/25) but no wkv8 workspace was passed")
+        return
+    if wkv8.dtype != E4M3 or wkv8.device != ws.device \
+            or not wkv8.is_contiguous() or wkv8.dim() != 3 \
+            or tuple(wkv8.shape[1:]) != (TILE, TILE):
+        raise ValueError(f"megakernel: wkv8 {tuple(wkv8.shape)} {wkv8.dtype} "
+                         f"must be a contiguous (tiles, {TILE}, {TILE}) "
+                         "float8_e4m3fn tensor on the workspace's device")
+
+
 def cuda_launcher(q: np.ndarray, ws, wsm, *, num_exec, mat_specs,
-                  head_dim, sync_before, live_rows):
+                  head_dim, sync_before, live_rows, wkv8=None):
     """Check the operands, upload the queue (with the barrier flags and
     the GEMM_MAT spec table) and the partial-sum scratch, and return a
     zero-argument function that launches the kernel on them — so a timing
@@ -158,6 +194,7 @@ def cuda_launcher(q: np.ndarray, ws, wsm, *, num_exec, mat_specs,
     if sync_before is None or len(sync_before) < num_exec:
         raise ValueError("megakernel: the CUDA kernel needs the program's "
                          "per-row barrier flags (compile() records them)")
+    _check_wkv8(q, num_exec, ws, wkv8)
     n_q = q.size
     host = np.concatenate([q.reshape(-1),
                            np.asarray(sync_before[:num_exec], np.int32),
@@ -168,14 +205,21 @@ def cuda_launcher(q: np.ndarray, ws, wsm, *, num_exec, mat_specs,
     base = dev.data_ptr()
     args = (ctypes.c_void_p(base), ctypes.c_void_p(base + 4 * n_q),
             ctypes.c_void_p(base + 4 * (n_q + num_exec)),
-            ptr(ws), ptr(wsm), ptr(partial),
+            ptr(ws), ptr(wsm), ptr(wkv8), ptr(partial),
             int(num_exec), int(live_rows), int(head_dim),
             _DTYPE_CODE[ws.dtype])
 
-    def launch():
-        MEGA_KERNEL.launch(*args, current_stream(ws.device))
+    rows = q[:num_exec]
+    variants = tuple(name for name, on in (
+        ("kv8", wkv8 is not None),
+        ("window", bool((rows[np.isin(rows[:, 0], _ATTN), 5] > 0).any())))
+        if on)
 
-    launch.buffers = (dev, partial, wsm)   # alive as long as the pointers
+    def launch():
+        MEGA_KERNEL.launch(*args, current_stream(ws.device),
+                           variants=variants)
+
+    launch.buffers = (dev, partial, wsm, wkv8)   # alive with the pointers
     return launch
 
 
@@ -238,11 +282,14 @@ def _p_norm_rope_qkv(ws, w, head_dim):
     ws[a0:a0 + hq + hkv] = y.to(ws.dtype)
 
 
-def _p_attn_paged(ws, flat, w):
+def _p_attn_paged(ws, flat, w, pool):
+    """ATTN_DECODE_PAGED (``pool`` is ``ws``) or _F8 (``pool`` is the kv8
+    workspace): the page walk, then the current tokens' fold — each row
+    its own k/v (word 5 = 0), or the causal window of the block's fresh
+    rows j <= i, j < win (word 5 = win)."""
     out, a0, b0, kt, win, valid, arg, c0, d0 = (w[1], w[2], w[3], w[4], w[5],
                                                 w[6], w[7], w[8], w[9])
-    if win:
-        raise MegakernelUnsupportedError("speculative window fold")
+    kv8 = pool.dtype == E4M3
     scale = _fixed(arg, 1e-6).to(ws.device)
     q = ws[a0].float()                                     # (rows, d)
     rows = q.shape[0]
@@ -250,39 +297,70 @@ def _p_attn_paged(ws, flat, w):
         ent = flat[b0 * WORDS:b0 * WORDS + 2 * kt].astype(np.int64)
         ent = torch.from_numpy(ent.reshape(kt, 2)).to(ws.device)
         k_ids, v_ids = ent[:, 0], ent[:, 1]
-        keys = ws[k_ids].float().permute(1, 0, 2).reshape(TILE, kt * TILE)
-        vals = ws[v_ids].float().reshape(kt * TILE, TILE)
+        keys = pool[k_ids].float().permute(1, 0, 2).reshape(TILE, kt * TILE)
+        vals = pool[v_ids].float().reshape(kt * TILE, TILE)
         s = (q @ keys) * scale
         col = torch.arange(kt * TILE, device=ws.device)
         s = torch.where(col[None, :] < valid, s, _NEG)
         m = torch.amax(s, dim=-1, keepdim=True)
         p = torch.exp(s - m)
         l = torch.sum(p, dim=-1, keepdim=True)
-        # The PV product takes p rounded to the workspace type; l sums it
+        # The PV product takes p rounded to the type V is read in — the
+        # workspace type, or fp32 for widened e4m3 pages; l sums it
         # unrounded (the TPU kernel's p.astype(vv.dtype)).
-        acc = p.to(ws.dtype).float() @ vals
+        acc = (p if kv8 else p.to(ws.dtype).float()) @ vals
     else:
         m = torch.full((rows, 1), _NEG, device=ws.device)
         l = torch.zeros((rows, 1), device=ws.device)
         acc = torch.zeros((rows, TILE), device=ws.device)
-    if c0 >= 0:
-        s_cur = torch.sum(q * ws[c0].float(), dim=-1, keepdim=True) * scale
+
+    def cur_kv(tile):
+        # The current tokens' k/v from the main workspace; over e4m3
+        # pools they round-trip through the saturating cast, so the fold
+        # reads what the append stores (the eager lane appends, then
+        # attends the stored value).
+        x = ws[tile].float()
+        return to_e4m3(x).float() if kv8 else x
+
+    if c0 >= 0 and win == 0:
+        s_cur = torch.sum(q * cur_kv(c0), dim=-1, keepdim=True) * scale
         m_new = torch.maximum(m, s_cur)
         p_cur = torch.exp(s_cur - m_new)
         corr = torch.exp(m - m_new)
-        acc = acc * corr + p_cur * ws[d0].float()
+        acc = acc * corr + p_cur * cur_kv(d0)
         l = l * corr + p_cur
+    elif c0 >= 0:
+        s_w = (q @ cur_kv(c0).T) * scale
+        io = torch.arange(TILE, device=ws.device)
+        causal = (io[None, :] <= io[:, None]) & (io[None, :] < win)
+        s_w = torch.where(causal, s_w, _NEG)
+        m_new = torch.maximum(m, torch.amax(s_w, dim=-1, keepdim=True))
+        p_w = torch.exp(s_w - m_new)
+        corr = torch.exp(m - m_new)
+        acc = acc * corr + p_w @ cur_kv(d0)
+        l = l * corr + torch.sum(p_w, dim=-1, keepdim=True)
     ws[out] = (acc / torch.clamp(l, min=1e-30)).to(ws.dtype)
 
 
-def _p_append_kv(ws, w):
-    out, a0, b0, cnt, c0, d0 = w[1], w[2], w[3], w[4], w[8], w[9]
-    if cnt:
-        raise MegakernelUnsupportedError("windowed APPEND_KV")
+def _p_append_kv(ws, w, pool):
+    """APPEND_KV (``pool`` is ``ws``) or _F8 (the kv8 workspace, through
+    the saturating cast): k_new row 0 → column c0 of the kT tile, v_new
+    row 0 → row c0 of the V tile; the window form (word 4 = n > 0) moves
+    rows s..s+n-1 (word 7 = s) to columns/rows c0..c0+n-1. c0 < 0
+    skips."""
+    out, a0, b0, cnt, src, c0, d0 = (w[1], w[2], w[3], w[4], w[7], w[8],
+                                     w[9])
     if c0 < 0:
         return
-    ws[out][:, c0] = ws[a0][0]
-    ws[b0][c0, :] = ws[d0][0]
+    if cnt == 0:
+        src, cnt = 0, 1
+    n = min(cnt, TILE - c0)
+
+    def store(x):
+        return to_e4m3(x) if pool.dtype == E4M3 else x.to(pool.dtype)
+
+    pool[out][:, c0:c0 + n] = store(ws[a0][src:src + n].float().T)
+    pool[b0][c0:c0 + n, :] = store(ws[d0][src:src + n].float())
 
 
 def _p_gemm_mat(ws, wsm, w, mat_specs):
@@ -312,14 +390,17 @@ def _p_gemm_mat(ws, wsm, w, mat_specs):
 
 def run_queue_plain(queue, ws: torch.Tensor, wsm: torch.Tensor | None, *,
                     num_exec: int, mat_specs: tuple,
-                    head_dim: int = TILE) -> torch.Tensor:
+                    head_dim: int = TILE,
+                    wkv8: torch.Tensor | None = None) -> torch.Tensor:
     """The megakernel's function in plain PyTorch: the queue rows in
     order, one handler per type, every row of every tile, fp32 compute
-    and stores in the workspace dtype. Updates ``ws`` in place and
-    returns it."""
+    and stores in the workspace dtype (e4m3 through the saturating cast
+    in ``wkv8``). Updates ``ws`` (and ``wkv8``) in place and returns
+    ``ws``."""
     MEGA_KERNEL.plain_calls += 1
     q = np.ascontiguousarray(queue, np.int32)
     check_queue(q, num_exec)
+    _check_wkv8(q, num_exec, ws, wkv8)
     flat = q.reshape(-1)
     for row in q[:num_exec].tolist():
         t = row[0]
@@ -328,9 +409,13 @@ def run_queue_plain(queue, ws: torch.Tensor, wsm: torch.Tensor | None, *,
         elif t == TaskType.NORM_ROPE_QKV:
             _p_norm_rope_qkv(ws, row, head_dim)
         elif t == TaskType.ATTN_DECODE_PAGED:
-            _p_attn_paged(ws, flat, row)
+            _p_attn_paged(ws, flat, row, ws)
+        elif t == TaskType.ATTN_DECODE_PAGED_F8:
+            _p_attn_paged(ws, flat, row, wkv8)
         elif t == TaskType.APPEND_KV:
-            _p_append_kv(ws, row)
+            _p_append_kv(ws, row, ws)
+        elif t == TaskType.APPEND_KV_F8:
+            _p_append_kv(ws, row, wkv8)
         elif t == TaskType.GEMM_MAT:
             _p_gemm_mat(ws, wsm, row, mat_specs)
         elif t == TaskType.PREFETCH_MAT:

@@ -2,12 +2,16 @@
 
 The port's counterpart of the JAX package's ``megakernel/models.py``, for
 the form the paged serving lane compiles: matrix-layout weights, paged KV
-pools (``kv_pool_pages``), in-kernel appends, one rank, speculative window
-1, no fp8, no MoE. Per layer and slot block:
+pools (``kv_pool_pages``) in the workspace dtype or e4m3 (``kv_fp8``: the
+kv8 workspace), in-kernel appends, one rank, a speculative window of
+``spec_window`` candidate rows per slot, no fp8 weights, no MoE. Per layer
+and slot block:
 
     x ── rms_norm (layer 0 only; later layers get it fused) ── qkv proj ──
       qk-norm + RoPE (all heads, one task) ── paged attention per q head
-      (cached pages + the current token) ── append k/v ──
+      (cached pages + the current token, or the causal window of fresh
+      rows) ── append k/v (a second, spill row per kv head when the
+      window may cross a page) ──
       o-proj + residual + mlp norm ── gate|up + silu ── down + residual
       (+ the next layer's attn norm)
 
@@ -153,14 +157,17 @@ def build_decode_layer(mb: MegaKernelBuilder, x: TensorHandle,
                        xn: TensorHandle | None,
                        out_norm: tuple[TensorHandle, TensorHandle] | None,
                        paged_tables: list[list[tuple[int, int]]],
-                       append_pos: int, meta_out: dict):
+                       append_pos: int, meta_out: dict,
+                       spec_append: bool = False):
     """Emit one transformer layer's decode tasks for ONE row block (one
     serving slot). ``xn``: the already-normalised input row from the
     previous layer's fused tail (None: emit the rms_norm). ``out_norm``:
     (norm_w, norm_out) of the next consumer, fused into this layer's
     down-projection. The o-proj's first weight chunk is warmed
     (PREFETCH_MAT) ahead of the attention tasks, as in the JAX serving
-    lane. Returns ``(x2, x2n)``."""
+    lane. ``spec_append``: each kv head gets a second append row for a
+    candidate window's spill into the next page (parked on the scratch
+    page at build time, like the primary). Returns ``(x2, x2n)``."""
     hidden = x.cols
     d = TILE
     groups = hq_local // hkv_local
@@ -179,14 +186,16 @@ def build_decode_layer(mb: MegaKernelBuilder, x: TensorHandle,
         tid = mb.attn_decode_paged(_col(attn, j), _col(q, j),
                                    paged_tables[kv], valid_len=pos,
                                    scale=scale, k_new=_col(h.k_new, kv),
-                                   v_new=_col(h.v_new, kv))
+                                   v_new=_col(h.v_new, kv),
+                                   kv8=h.kT[kv].kv8)
         meta_out.setdefault("attn", []).append(
             (tid, h.kT[kv].tile(0, 0), h.v[kv].tile(0, 0)))
     for kv in range(hkv_local):
-        tid = mb.append_kv(h.kT[kv], h.v[kv], append_pos,
-                           _col(h.k_new, kv), _col(h.v_new, kv))
-        meta_out.setdefault("append", []).append(
-            (tid, h.kT[kv].tile(0, 0), h.v[kv].tile(0, 0)))
+        for _ in range(2 if spec_append else 1):
+            tid = mb.append_kv(h.kT[kv], h.v[kv], append_pos,
+                               _col(h.k_new, kv), _col(h.v_new, kv))
+            meta_out.setdefault("append", []).append(
+                (tid, h.kT[kv].tile(0, 0), h.v[kv].tile(0, 0)))
     x1 = mb.tensor(TILE, hidden)
     x1n = mb.tensor(TILE, hidden)
     # o-proj + residual + this layer's mlp norm (epilogue 3).
@@ -205,8 +214,8 @@ def build_decode_layer(mb: MegaKernelBuilder, x: TensorHandle,
 
 
 def _check_decode_step_config(*, hidden, hq_local, hkv_local, ffn_local,
-                              num_layers, max_seq, pos, batch,
-                              head_dim) -> None:
+                              num_layers, max_seq, pos, batch, head_dim,
+                              spec_window: int = 1) -> None:
     """Named build-time validation: every TILE/geometry constraint raises
     here, naming the dimension and the ModelConfig field it comes from."""
     if head_dim not in (TILE // 2, TILE):
@@ -232,6 +241,11 @@ def _check_decode_step_config(*, hidden, hq_local, hkv_local, ffn_local,
         raise ValueError(
             f"batch = {batch} invalid: a decode step needs at least one "
             "token row — batch serving argument")
+    if not 1 <= spec_window <= TILE:
+        raise ValueError(
+            f"spec_window = {spec_window} out of range [1, {TILE}]: "
+            "the candidate window rides the rows of one slot's TILE "
+            "block — spec_k serving argument")
     if num_layers < 1:
         raise ValueError(f"num_layers = {num_layers} must be >= 1 — "
                          "config field num_layers")
@@ -253,21 +267,29 @@ def build_decode_step(*, hidden: int, hq_local: int, hkv_local: int,
                       ffn_local: int, num_layers: int, max_seq: int,
                       pos: int, kv_pool_pages: int, table_pages: int,
                       eps: float = 1e-6, batch: int = 1,
-                      head_dim: int = TILE) -> DecodeStepProgram:
+                      head_dim: int = TILE, kv_fp8: bool = False,
+                      spec_window: int = 1) -> DecodeStepProgram:
     """Assemble a full decode step in the paged SERVING form (the JAX
     ``build_decode_step(paged=True, inkernel_append=True,
-    mat_prefetch=True, kv_pool_pages=...)``): every TILE-row block of
-    ``batch`` is one
+    mat_prefetch=True, kv_pool_pages=..., kv_fp8=..., spec_window=...)``):
+    every TILE-row block of ``batch`` is one
     sequence slot with its own ``table_pages``-entry page table over
     shared per-(layer, kv-head) pools of ``kv_pool_pages`` tiles (the
     last one the scratch page); tables start all-scratch and the host
     rewrites them, the valid lengths and the append targets per step
     (``prog.paged_meta``). Embedding, final norm and lm_head stay
-    outside."""
+    outside.
+
+    ``kv_fp8``: the pools live in the e4m3 kv8 workspace
+    (ATTN_DECODE_PAGED_F8 / APPEND_KV_F8). ``spec_window`` W > 1: the
+    draft-and-verify shape — candidate rows 0..W-1 of each slot block,
+    the attention rows fold the fresh window causally (queue word 5) and
+    each kv head gets a second append row for a page-crossing spill; W is
+    the only compile-time commitment, the live window rides the queue."""
     _check_decode_step_config(
         hidden=hidden, hq_local=hq_local, hkv_local=hkv_local,
         ffn_local=ffn_local, num_layers=num_layers, max_seq=max_seq,
-        pos=pos, batch=batch, head_dim=head_dim)
+        pos=pos, batch=batch, head_dim=head_dim, spec_window=spec_window)
     bt = -(-batch // TILE)
     mb = MegaKernelBuilder()
     mb.head_dim = head_dim
@@ -282,8 +304,10 @@ def build_decode_step(*, hidden: int, hq_local: int, hkv_local: int,
         qkv_out = mb.tensor(bt * TILE, (hq_local + 2 * hkv_local) * d)
         w_gateup = mb.tensor_mat(hidden, ffn_local, pair=True)
         w_down = mb.tensor_mat(ffn_local, hidden)
-        kT = [mb.tensor(d, kv_pool_pages * TILE) for _ in range(hkv_local)]
-        v = [mb.tensor(kv_pool_pages * TILE, d) for _ in range(hkv_local)]
+        kT = [mb.tensor(d, kv_pool_pages * TILE, kv8=kv_fp8)
+              for _ in range(hkv_local)]
+        v = [mb.tensor(kv_pool_pages * TILE, d, kv8=kv_fp8)
+             for _ in range(hkv_local)]
         layers.append(DecodeLayerHandles(
             attn_norm=mb.tensor(TILE, hidden),
             mlp_norm=mb.tensor(TILE, hidden),
@@ -321,9 +345,9 @@ def build_decode_step(*, hidden: int, hq_local: int, hkv_local: int,
                 out_norm=(nw, row_block(nout, b)) if nw is not None
                 else None,
                 paged_tables=tables, append_pos=scratch * TILE,
-                meta_out=block_meta[b])
+                meta_out=block_meta[b], spec_append=spec_window > 1)
     meta = {"blocks": block_meta, "table_pages": table_pages,
-            "pool_pages": kv_pool_pages}
+            "pool_pages": kv_pool_pages, "kv_fp8": kv_fp8}
     return DecodeStepProgram(mb=mb, x=x, layers=layers, cos=cos, sin=sin,
                              x_out=cur[0], x_out_blocks=cur, blocks=bt,
                              paged_meta=meta)

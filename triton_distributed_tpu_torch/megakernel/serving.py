@@ -5,9 +5,10 @@ tier's lane (:class:`PagedMegakernelDecoder`): prefill runs elsewhere (the
 engine's chunked prefill through K1), a finished prompt's KV pages scatter
 into the workspace pools, and every decode step is ONE launch of the
 megakernel over every slot, plus the final RMSNorm, lm_head and greedy
-argmax outside the kernel. Not in this slice: the linear
-``MegakernelDecoder``, ``copy_page`` (prefix copy-on-write), the
-speculative window and fp8 KV pools.
+argmax outside the kernel. The lane serves e4m3 KV pools (``kv_dtype``:
+the kv8 workspace beside the main one) and the speculative window
+(``spec_window`` W <= 4 candidate rows per slot). Not in this slice: the
+linear ``MegakernelDecoder`` and ``copy_page`` (prefix copy-on-write).
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import torch
 
 from triton_distributed_tpu_torch.layers.common import rms_norm
 from triton_distributed_tpu_torch.megakernel.kernel import (
-    MegakernelUnsupportedError,
+    MAX_LIVE_ROWS, MegakernelUnsupportedError,
 )
 from triton_distributed_tpu_torch.megakernel.models import (
     DecodeStepProgram, broadcast_rows, build_decode_step,
@@ -25,6 +26,7 @@ from triton_distributed_tpu_torch.megakernel.models import (
 )
 from triton_distributed_tpu_torch.megakernel.tasks import TILE, WORDS
 from triton_distributed_tpu_torch.models.config import ModelConfig
+from triton_distributed_tpu_torch.models.fp8 import E4M3, saturate_cast
 from triton_distributed_tpu_torch.runtime.device import (
     resolve_device, torch_dtype,
 )
@@ -95,14 +97,30 @@ class PagedMegakernelDecoder:
 
     ``device=None`` means the card; the CPU runs the kernel's plain
     version and only when asked for (``device="cpu"``). ``dtype``: the
-    workspace type (default: the config's)."""
+    workspace type (default: the config's).
+
+    ``kv_dtype`` ``float8_e4m3fn``: the pools live in the e4m3 kv8
+    workspace (ATTN_DECODE_PAGED_F8 / APPEND_KV_F8); the workspace is then
+    the ``(main, kv8)`` pair :meth:`start` returns, carried through
+    :meth:`load_prefill` and :meth:`step`. ``spec_window`` W > 1: the
+    draft-and-verify program — :meth:`step` takes (B, W) candidate tokens
+    and per-slot windows and returns (B, W) verifier tokens. The kernel
+    computes W rows per slot block, so W is at most
+    ``kernel.MAX_LIVE_ROWS`` (4)."""
 
     def __init__(self, cfg: ModelConfig, params: dict, *, num_slots: int,
-                 num_pages: int, max_pages: int, device=None, dtype=None):
+                 num_pages: int, max_pages: int, device=None, dtype=None,
+                 kv_dtype=None, spec_window: int = 1):
         capacity = max_pages * TILE
         validate_megakernel_cfg(cfg, capacity)
         if num_slots < 1:
             raise ValueError(f"num_slots = {num_slots} must be >= 1")
+        self.spec_w = int(spec_window)
+        if self.spec_w > MAX_LIVE_ROWS:
+            raise MegakernelUnsupportedError(
+                f"spec_window = {self.spec_w}: the megakernel computes at "
+                f"most {MAX_LIVE_ROWS} rows per slot block — serve "
+                f"spec_k <= {MAX_LIVE_ROWS - 1} on this lane")
         if num_pages < 1:
             raise ValueError(f"num_pages = {num_pages} must be >= 1")
         if max_pages < 1:
@@ -110,6 +128,13 @@ class PagedMegakernelDecoder:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = torch_dtype(dtype or cfg.dtype)
+        kv_dt = None if kv_dtype is None else torch_dtype(kv_dtype)
+        self.kv_fp8 = kv_dt == E4M3
+        if kv_dt not in (None, E4M3, self.dtype):
+            raise ValueError(
+                f"megakernel paged lane serves kv_dtype float8_e4m3fn "
+                f"(the fp8 pool workspace) or the workspace dtype "
+                f"({self.dtype}); got {kv_dt} — kv_dtype engine argument")
         self.num_slots = num_slots
         self.num_pages = num_pages          # usable pages (excl. scratch)
         self.max_pages = max_pages
@@ -121,7 +146,8 @@ class PagedMegakernelDecoder:
             num_layers=cfg.num_layers, max_seq=capacity,
             pos=capacity - 1, eps=cfg.rms_norm_eps,
             batch=num_slots * TILE, head_dim=cfg.head_dim,
-            kv_pool_pages=num_pages + 1, table_pages=max_pages)
+            kv_pool_pages=num_pages + 1, table_pages=max_pages,
+            kv_fp8=self.kv_fp8, spec_window=self.spec_w)
         self.comp = self.prog.mb.compile(dtype=self.dtype,
                                          head_dim=cfg.head_dim)
         self.params = params
@@ -164,22 +190,31 @@ class PagedMegakernelDecoder:
         self.last_retarget: dict | None = None
 
     # -- workspace ----------------------------------------------------------
-    def start(self) -> torch.Tensor:
-        """Weights loaded, pools zeroed. Returns the main workspace (carry
-        it through every step; the steps update it in place)."""
+    def start(self):
+        """Weights loaded, pools zeroed. Returns the workspace to carry
+        through every step (the steps update it in place): the main
+        workspace, or the ``(main, kv8)`` pair with e4m3 pools."""
         main, wm = self.comp.split_feeds(
             weight_feeds(self.prog, self.cfg, self.params))
         self._wsm = self.comp.make_workspace_mat(wm, device=self.device)
         del wm
-        return self.comp.make_workspace(main, device=self.device)
+        ws = self.comp.make_workspace(main, device=self.device)
+        if self.kv_fp8:
+            return ws, self.comp.make_workspace_kv8(device=self.device)
+        return ws
 
-    def load_prefill(self, ws: torch.Tensor, k_lin: torch.Tensor,
-                     v_lin: torch.Tensor, pages: list[int], *,
-                     first_page: int = 0) -> torch.Tensor:
+    def _split(self, ws):
+        """(main workspace, the one holding the pools)."""
+        return ws if self.kv_fp8 else (ws, ws)
+
+    def load_prefill(self, ws, k_lin: torch.Tensor, v_lin: torch.Tensor,
+                     pages: list[int], *, first_page: int = 0):
         """Scatter a finished prefill's KV into the slot's pool pages, in
-        place. ``k_lin``/``v_lin``: the linear prefill buffer (L, 1,
-        S_buf, hkv, head_dim); page ``pages[i]`` receives positions
-        [(first_page+i)*TILE, (first_page+i+1)*TILE)."""
+        place, through the saturating cast the in-kernel append uses (e4m3
+        pools quantize here). ``k_lin``/``v_lin``: the linear prefill
+        buffer (L, 1, S_buf, hkv, head_dim); page ``pages[i]`` receives
+        positions [(first_page+i)*TILE, (first_page+i+1)*TILE). Returns
+        ``ws``."""
         for p in pages:
             if not 0 <= int(p) < self.num_pages:
                 raise ValueError(
@@ -193,6 +228,7 @@ class PagedMegakernelDecoder:
         n = len(pages)
         if n == 0:
             return ws
+        pool = self._split(ws)[1]
         L, _, _, hkv, hd = k_lin.shape
         lo, hi = first_page * TILE, (first_page + n) * TILE
         pad = TILE - hd
@@ -203,24 +239,36 @@ class PagedMegakernelDecoder:
         kt = torch.nn.functional.pad(k.permute(0, 3, 1, 4, 2),
                                      (0, 0, 0, pad))
         vt = torch.nn.functional.pad(v.permute(0, 3, 1, 2, 4), (0, pad))
-        pg = torch.as_tensor(pages, dtype=torch.long, device=ws.device)
-        ws[(self._kt0[..., None] + pg).reshape(-1)] = \
-            kt.reshape(-1, TILE, TILE).to(ws.dtype)
-        ws[(self._v0[..., None] + pg).reshape(-1)] = \
-            vt.reshape(-1, TILE, TILE).to(ws.dtype)
+        pg = torch.as_tensor(pages, dtype=torch.long, device=pool.device)
+        pool[(self._kt0[..., None] + pg).reshape(-1)] = saturate_cast(
+            kt.reshape(-1, TILE, TILE).float(), pool.dtype)
+        pool[(self._v0[..., None] + pg).reshape(-1)] = saturate_cast(
+            vt.reshape(-1, TILE, TILE).float(), pool.dtype)
         return ws
 
     # -- per-step host retarget ---------------------------------------------
-    def _retarget(self, kv_lens, tables) -> np.ndarray:
+    def _retarget(self, kv_lens, tables, wins=None) -> np.ndarray:
         """Rewrite the compiled queue for this step's slot states: kv_lens
         (B,) ints; tables (B, <=max_pages) pool page ids per slot
-        (missing/negative entries ride the scratch page)."""
+        (missing/negative entries ride the scratch page); ``wins`` (spec
+        programs): per-slot windows in [1, spec_window] — the step
+        appends ``win`` positions and the attention rows fold the fresh
+        window causally (word 5)."""
+        spec = self.spec_w > 1
+        if wins is None:
+            wins = [1] * self.num_slots
         q = self._base_queue.copy()
         for b in range(self.num_slots):
             kvl = int(kv_lens[b])
-            if kvl + 1 > self.capacity:
+            win = int(wins[b])
+            if not 1 <= win <= self.spec_w:
                 raise ValueError(
-                    f"slot {b} kv_len {kvl} (+ window 1) at capacity "
+                    f"slot {b} window {win} outside [1, {self.spec_w}] — "
+                    "the program was compiled for spec_window = "
+                    f"{self.spec_w}")
+            if kvl + win > self.capacity:
+                raise ValueError(
+                    f"slot {b} kv_len {kvl} (+ window {win}) at capacity "
                     f"{self.capacity}: the step appends these positions "
                     "— evict or stop the sequence (serving scheduler "
                     "contract)")
@@ -236,6 +284,8 @@ class PagedMegakernelDecoder:
             rows, kt0, v0, trow = self._attn[b]
             q[rows, 4] = ktiles
             q[rows, 6] = kvl
+            if spec:
+                q[rows, 5] = win          # causal window fold
             ent = np.stack([kt0[:, None] + flat[None, :],
                             v0[:, None] + flat[None, :]], axis=-1)
             ent = ent.reshape(len(rows), -1)
@@ -243,27 +293,56 @@ class PagedMegakernelDecoder:
                                         - ent.shape[1])))
             q[trow[:, None] + np.arange(self._table_rows)[None, :]] = \
                 ent.reshape(len(rows), self._table_rows, WORDS)
-            # Append target: the page holding position kv_len. An ACTIVE
-            # slot whose append page is unmapped fails loudly — the write
-            # would land on the shared scratch page and the token's KV
-            # would be lost (idle slots park on scratch by design).
+            # Append targets: the page(s) holding positions [kv_len,
+            # kv_len + win). An ACTIVE slot whose append page is unmapped
+            # fails loudly — the write would land on the shared scratch
+            # page and the token's KV would be lost (idle slots park on
+            # scratch by design).
             ti, col = kvl // TILE, kvl % TILE
-            if (kvl > 0 or pages) and ti >= len(pages):
+            last_ti = (kvl + win - 1) // TILE
+            if (kvl > 0 or pages) and last_ti >= len(pages):
                 raise ValueError(
-                    f"slot {b} appends at positions [{kvl}, {kvl + 1}) "
-                    f"(page index {ti}) but the table maps "
+                    f"slot {b} appends at positions [{kvl}, {kvl + win}) "
+                    f"(page index {last_ti}) but the table maps "
                     f"{len(pages)} page(s) — the scheduler's page growth "
                     "must run before decode")
             ap = int(flat[ti]) if ti < self.max_pages else self.scratch
             rows, kt0, v0 = self._append[b]
-            q[rows, 1] = kt0 + ap
-            q[rows, 3] = v0 + ap
-            q[rows, 8] = col
+            if not spec:
+                q[rows, 1] = kt0 + ap
+                q[rows, 3] = v0 + ap
+                q[rows, 8] = col
+                continue
+            # Spec programs emit (primary, spill) append rows per (layer,
+            # kv head): the primary takes the window's first n1 rows at
+            # columns col.., the spill the rest at columns 0.. of the next
+            # page (parked with c0 = -1 when the window fits one page).
+            n1 = min(win, TILE - col)
+            rest = win - n1
+            ap2 = (int(flat[ti + 1]) if ti + 1 < self.max_pages
+                   else self.scratch)
+            prim, spill = rows[0::2], rows[1::2]
+            q[prim, 1] = kt0[0::2] + ap
+            q[prim, 3] = v0[0::2] + ap
+            q[prim, 8] = col
+            q[prim, 4] = n1
+            q[prim, 7] = 0
+            if rest > 0:
+                q[spill, 1] = kt0[1::2] + ap2
+                q[spill, 3] = v0[1::2] + ap2
+                q[spill, 8] = 0
+                q[spill, 4] = rest
+                q[spill, 7] = n1
+            else:
+                q[spill, 8] = -1
+                q[spill, 4] = 0
+                q[spill, 7] = 0
         self.last_retarget = {
             "queue": q,
             "kv_lens": [int(kv_lens[b]) for b in range(self.num_slots)],
             "tables": [[int(p) for p in tables[b]]
                        for b in range(self.num_slots)],
+            "wins": [int(w) for w in wins],
         }
         return q
 
@@ -277,45 +356,65 @@ class PagedMegakernelDecoder:
         return t
 
     # -- one step over every slot --------------------------------------------
-    def stage(self, ws: torch.Tensor, tokens, kv_lens, tables) -> np.ndarray:
+    def stage(self, ws, tokens, kv_lens, tables, wins=None) -> np.ndarray:
         """Everything of a step before the launch: the queue rewrite
-        (returned) and the step's inputs in the workspace — row 0 of slot
-        b's block is its token's embedding (the other rows stay zero), and
-        slot b's rope tables sit at its position ``kv_lens[b]``."""
+        (returned) and the step's inputs in the main workspace — rows
+        0..W-1 of slot b's block are its candidate tokens' embeddings (row
+        0 alone at W = 1; the other rows stay zero), and row i of its rope
+        tables sits at position ``kv_lens[b] + min(i, win - 1)``."""
         if self._wsm is None:
             raise ValueError("start() first: the weights are not loaded")
-        queue = self._retarget(kv_lens, tables)
-        B, prog, dev = self.num_slots, self.prog, ws.device
-        tabs = [self._rope(int(kv_lens[b])) for b in range(B)]
-        tok = torch.as_tensor(np.asarray(tokens, np.int64)).to(dev)
-        xt = ws[prog.x.base:prog.x.base + B * prog.x.ct]
-        xt.view(B, prog.x.ct, TILE, TILE)[:, :, 0, :] = (
-            self.embed[tok].to(ws.dtype).view(B, prog.x.ct, TILE))
-        for i, h in enumerate((prog.cos, prog.sin)):
-            rows = torch.from_numpy(np.stack([t[i] for t in tabs]))
-            rows = rows.to(dev).to(ws.dtype)
-            ws[h.base:h.base + B] = rows[:, None, :].expand(B, TILE, TILE)
+        queue = self._retarget(kv_lens, tables, wins)
+        ws = self._split(ws)[0]
+        B, W, prog, dev = self.num_slots, self.spec_w, self.prog, ws.device
+        ct = prog.x.ct
+        tok = torch.as_tensor(np.asarray(tokens, np.int64).reshape(B, W))
+        xt = ws[prog.x.base:prog.x.base + B * ct].view(B, ct, TILE, TILE)
+        emb = self.embed[tok.to(dev)].to(ws.dtype)           # (B, W, hidden)
+        xt[:, :, :W, :] = emb.view(B, W, ct, TILE).permute(0, 2, 1, 3)
+        cos = np.empty((B, TILE, TILE), np.float32)
+        sin = np.empty((B, TILE, TILE), np.float32)
+        for b in range(B):
+            kvl = int(kv_lens[b])
+            win = 1 if wins is None else int(wins[b])
+            for i in range(win):
+                cos[b, i], sin[b, i] = self._rope(kvl + i)
+            cos[b, win:], sin[b, win:] = cos[b, win - 1], sin[b, win - 1]
+        for h, t in ((prog.cos, cos), (prog.sin, sin)):
+            ws[h.base:h.base + B] = torch.from_numpy(t).to(dev).to(ws.dtype)
         return queue
 
-    def launch(self, ws: torch.Tensor, queue: np.ndarray) -> torch.Tensor:
-        """The step's one megakernel launch (rows 0 of the slot blocks)."""
-        return self.comp.step(ws, queue, self._wsm, live_rows=1)
+    def launch(self, ws, queue: np.ndarray):
+        """The step's one megakernel launch (rows 0..W-1 of the slot
+        blocks)."""
+        main, pool = self._split(ws)
+        self.comp.step(main, queue, self._wsm,
+                       wkv8=pool if self.kv_fp8 else None,
+                       live_rows=self.spec_w)
+        return ws
 
-    def next_tokens(self, ws: torch.Tensor) -> torch.Tensor:
+    def next_tokens(self, ws) -> torch.Tensor:
         """Final RMSNorm, lm_head and greedy argmax over the slots' output
-        rows, outside the kernel, in fp32 (the JAX lane's math)."""
-        x_out = torch.stack([self.comp.gather_output(ws, h)[0]
-                             for h in self.prog.x_out_blocks])
+        rows, outside the kernel, in fp32 (the JAX lane's math): (B,)
+        int32, or (B, W) at W > 1 — column j the greedy token after the
+        window prefix 0..j."""
+        main = self._split(ws)[0]
+        W = self.spec_w
+        x_out = torch.cat([self.comp.gather_output(main, h)[:W]
+                           for h in self.prog.x_out_blocks])
         xn = rms_norm(x_out.float(), self.final_norm.float(),
                       self.cfg.rms_norm_eps)
-        return torch.argmax(xn @ self.head32, dim=-1).to(torch.int32)
+        tok = torch.argmax(xn @ self.head32, dim=-1).to(torch.int32)
+        return tok.reshape(self.num_slots, W) if W > 1 else tok
 
-    def step(self, ws: torch.Tensor, tokens, kv_lens, tables):
-        """One decode step over every slot. tokens: (B,) ints (idle
-        slots: any id — their lane is discarded); kv_lens: (B,) host ints
-        (0 = idle); tables: (B, <=max_pages) pool page ids (-1 =
-        unmapped). Returns (workspace, next_tokens (B,) int32 on the
-        workspace's device); the workspace is updated in place."""
-        queue = self.stage(ws, tokens, kv_lens, tables)
+    def step(self, ws, tokens, kv_lens, tables, wins=None):
+        """One decode step over every slot. tokens: (B,) ints, or (B, W)
+        at W > 1 (the last accepted token, then the drafts; idle slots:
+        any ids — their lanes are discarded); kv_lens: (B,) host ints (0 =
+        idle); tables: (B, <=max_pages) pool page ids (-1 = unmapped);
+        wins: (B,) live windows (spec programs). Returns (workspace, next
+        tokens on the workspace's device); the workspace is updated in
+        place."""
+        queue = self.stage(ws, tokens, kv_lens, tables, wins)
         self.launch(ws, queue)
         return ws, self.next_tokens(ws)

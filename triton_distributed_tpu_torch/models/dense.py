@@ -16,7 +16,7 @@ import torch
 from triton_distributed_tpu_torch.layers.common import rms_norm
 from triton_distributed_tpu_torch.layers.tp_attn import (
     init_tp_attn, tp_attn_decode_paged, tp_attn_prefill,
-    tp_attn_prefill_chunk,
+    tp_attn_prefill_chunk, tp_attn_verify_paged,
 )
 from triton_distributed_tpu_torch.layers.tp_mlp import init_tp_mlp, tp_mlp_fwd
 from triton_distributed_tpu_torch.models.config import ModelConfig
@@ -130,3 +130,30 @@ def dense_decode_step_paged(params: dict, cfg: ModelConfig,
     logits = _logits(params, cfg, x)
     new_lens = torch.clamp(start_lens + 1, max=cache.capacity)
     return logits, cache._replace(kv_lens=new_lens)
+
+
+def dense_verify_step_paged(params: dict, cfg: ModelConfig,
+                            tokens: torch.Tensor, cache: PagedModelCache):
+    """Speculative VERIFY decode: score W = k+1 candidate positions per
+    sequence in one step. tokens: (B, W) — column 0 each sequence's last
+    accepted token, columns 1..k its drafts. Every projection and MLP
+    product runs over all B·W rows; attention runs each candidate as its
+    own virtual sequence (:func:`tp_attn_verify_paged`), so row i's math
+    is the one-token step's at position ``kv_lens + i``. Returns (logits
+    (B, W, vocab), cache with all W positions appended and ``kv_lens``
+    advanced by W, clamped at capacity); the caller truncates ``kv_lens``
+    to the accepted prefix."""
+    batch, window = tokens.shape
+    start_lens = cache.kv_lens
+    x = params["embed"][tokens.reshape(-1).long()]           # (B·W, h)
+    for i, layer in enumerate(params["layers"]):
+        h = rms_norm(x, layer["attn_norm"], cfg.rms_norm_eps)
+        out, _ = tp_attn_verify_paged(layer["attn"], cfg, h,
+                                      cache.layer(i), window)
+        x = x + out
+        h = rms_norm(x, layer["mlp_norm"], cfg.rms_norm_eps)
+        x = x + tp_mlp_fwd(layer["mlp"], h)
+    logits = _logits(params, cfg, x)
+    new_lens = torch.clamp(start_lens + window, max=cache.capacity)
+    return (logits.reshape(batch, window, -1),
+            cache._replace(kv_lens=new_lens.to(torch.int32)))

@@ -6,6 +6,13 @@ mirrors it into the paged layout, and each decode step runs
 ``dense_decode_step_paged`` (K2) followed by the greedy token, all on the
 device — the host syncs once, when :meth:`Engine.serve` returns.
 
+``kv_dtype`` sets the paged pools' storage type: ``torch.float8_e4m3fn``
+(or ``"float8_e4m3fn"``) halves the KV page, K2 reads it through its
+e4m3 lane, and the linear prefill cache stays in the model dtype — the
+linear→paged hand-off (:meth:`Engine.to_paged`, and the serving loop's
+prefill scatter) is the quantization point, through the saturating
+``models/fp8.saturate_cast``.
+
 ``backend`` picks the decode path: ``"xla"`` (the default; the name the
 JAX package gives its plain path) is the eager step above;
 ``"megakernel"`` marks the engine for the serving tier's persistent-kernel
@@ -31,10 +38,13 @@ from triton_distributed_tpu_torch.models.config import ModelConfig
 from triton_distributed_tpu_torch.models.dense import (
     dense_decode_step_paged, dense_prefill,
 )
+from triton_distributed_tpu_torch.models.fp8 import E4M3, saturate_cast
 from triton_distributed_tpu_torch.models.kv_cache import (
     KVCache, PagedModelCache, init_kv_cache,
 )
-from triton_distributed_tpu_torch.runtime.device import resolve_device
+from triton_distributed_tpu_torch.runtime.device import (
+    resolve_device, torch_dtype,
+)
 
 
 def _to_device(tree, device):
@@ -52,18 +62,34 @@ class Engine:
     ``device="cpu"`` for the CPU (the kernels' plain versions run there).
     ``params`` (from ``init_dense_llm`` or ``params_from_numpy``) are
     moved to ``device`` if they live elsewhere. ``backend``: ``"xla"`` or
-    ``"megakernel"`` (see the module docstring)."""
+    ``"megakernel"``; ``kv_dtype``: the paged pools' type (see the module
+    docstring). The port decodes through the paged cache only, so
+    ``page_size`` is required."""
 
     BACKENDS = ("xla", "megakernel")
 
     def __init__(self, cfg: ModelConfig, params: dict, *, device=None,
-                 max_seq: int = 256, page_size: int, backend: str = "xla"):
+                 max_seq: int = 256, page_size: int | None = None,
+                 backend: str = "xla", kv_dtype=None):
+        if page_size is None:
+            if kv_dtype is not None:
+                raise ValueError(
+                    "kv_dtype without page_size: the KV storage dtype is a "
+                    "property of the PAGED pool (decode serving); linear "
+                    "caches stay in the model dtype — pass page_size too")
+            raise ValueError("page_size missing: the port decodes through "
+                             "the paged cache only — argument page_size")
         if page_size < 1:
             raise ValueError(f"page_size = {page_size} invalid: a page holds "
                              "at least one position — argument page_size")
         if backend not in self.BACKENDS:
             raise ValueError(f"backend = {backend!r} unknown: expected one "
                              f"of {self.BACKENDS} — argument backend")
+        self.kv_dtype = None if kv_dtype is None else torch_dtype(kv_dtype)
+        if self.kv_dtype not in (None, E4M3, torch_dtype(cfg.dtype)):
+            raise ValueError(f"kv_dtype = {kv_dtype} unsupported: the pools "
+                             "hold the model dtype or float8_e4m3fn — "
+                             "argument kv_dtype")
         self.backend = backend
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -79,7 +105,9 @@ class Engine:
     def to_paged(self, cache: KVCache) -> PagedModelCache:
         """Mirror a linear cache into the paged layout: sequence b owns
         pages ``[b*max_pages, (b+1)*max_pages)``, lengths = ``offset``. A
-        view of the same storage when ``max_seq`` is a page multiple."""
+        view of the same storage when ``max_seq`` is a page multiple and
+        the pools keep the model dtype; with ``kv_dtype`` e4m3 the pools
+        are a saturating-cast copy (the quantization point)."""
         L, batch = cache.k.shape[0], cache.k.shape[1]
         P, mp = self.page_size, self.max_pages
         pad = mp * P - cache.max_seq
@@ -87,7 +115,10 @@ class Engine:
         def to_pools(x):   # (L, B, S, hkv, d) -> (L, B*mp, P, hkv, d)
             if pad:
                 x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad))
-            return x.reshape(L, batch * mp, P, *x.shape[3:])
+            x = x.reshape(L, batch * mp, P, *x.shape[3:])
+            if self.kv_dtype is not None:
+                x = saturate_cast(x, self.kv_dtype)
+            return x
 
         return PagedModelCache(
             k_pools=to_pools(cache.k), v_pools=to_pools(cache.v),

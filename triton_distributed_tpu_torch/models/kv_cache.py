@@ -19,7 +19,9 @@ import torch
 from triton_distributed_tpu_torch.layers.common import KVSlice
 from triton_distributed_tpu_torch.models.config import ModelConfig
 from triton_distributed_tpu_torch.ops.paged_attention import PagedKVCache
-from triton_distributed_tpu_torch.runtime.device import torch_dtype
+from triton_distributed_tpu_torch.runtime.device import (
+    resolve_device, torch_dtype,
+)
 
 
 class KVCache(NamedTuple):
@@ -41,6 +43,8 @@ class KVCache(NamedTuple):
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
                   device=None) -> KVCache:
+    """A zeroed linear cache on ``device`` (None: the card)."""
+    device = resolve_device(device)
     shape = (cfg.num_layers, batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
     dt = torch_dtype(dtype or cfg.dtype)
     return KVCache(k=torch.zeros(shape, dtype=dt, device=device),
@@ -108,20 +112,26 @@ def _check_paged_pool_config(*, page_size: int, max_pages: int,
 def identity_page_table(batch: int, max_pages: int, num_pages: int,
                         device=None) -> torch.Tensor:
     """Sequence b owns pages ``[b*max_pages, (b+1)*max_pages) % num_pages``
-    — the layout of the non-serving paths."""
-    return (torch.arange(batch * max_pages, dtype=torch.int32,
-                         device=device).reshape(batch, max_pages)
-            % num_pages)
+    — the layout of the non-serving paths (on ``device``; None: the
+    card)."""
+    ids = torch.arange(batch * max_pages, dtype=torch.int32,
+                       device=resolve_device(device))
+    return ids.reshape(batch, max_pages) % num_pages
 
 
 def init_paged_model_cache(cfg: ModelConfig, batch: int, *, page_size: int,
                            max_pages: int, num_pages: int | None = None,
-                           dtype=None, device=None) -> PagedModelCache:
-    """Zeroed pools + identity page tables, sizing validated up front."""
+                           dtype=None, kv_dtype=None,
+                           device=None) -> PagedModelCache:
+    """Zeroed pools + identity page tables on ``device`` (None: the
+    card), sizing validated up front. ``kv_dtype`` overrides the pools'
+    storage type (``float8_e4m3fn``: half the bf16 page bytes); writers
+    cast through ``models/fp8.saturate_cast``."""
+    device = resolve_device(device)
     num_pages = num_pages or batch * max_pages
     _check_paged_pool_config(page_size=page_size, max_pages=max_pages,
                              num_pages=num_pages, batch=batch)
-    dt = torch_dtype(dtype or cfg.dtype)
+    dt = torch_dtype(kv_dtype or dtype or cfg.dtype)
     shape = (cfg.num_layers, num_pages, page_size, cfg.num_kv_heads,
              cfg.head_dim)
     return PagedModelCache(
@@ -129,6 +139,31 @@ def init_paged_model_cache(cfg: ModelConfig, batch: int, *, page_size: int,
         torch.zeros(shape, dtype=dt, device=device),
         identity_page_table(batch, max_pages, num_pages, device),
         torch.zeros((batch,), dtype=torch.int32, device=device))
+
+
+def kv_page_bytes(cfg: ModelConfig, *, page_size: int, kv_dtype=None) -> int:
+    """Device bytes one pool page costs across all layers (k + v) — the
+    unit of the serving tier's fixed-budget pool sizing."""
+    item = torch.empty((), dtype=torch_dtype(kv_dtype or cfg.dtype)
+                       ).element_size()
+    return (2 * cfg.num_layers * page_size * cfg.num_kv_heads
+            * cfg.head_dim * item)
+
+
+def kv_pool_pages_for_budget(cfg: ModelConfig, *, page_size: int,
+                             hbm_bytes: int, kv_dtype=None) -> int:
+    """Pages a fixed device-memory budget buys (``hbm_bytes //
+    kv_page_bytes``): e4m3 pages cost half the bf16 bytes, so the same
+    budget holds twice the pages. Raises :class:`PagePoolConfigError`
+    when the budget buys no page."""
+    per_page = kv_page_bytes(cfg, page_size=page_size, kv_dtype=kv_dtype)
+    pages = int(hbm_bytes) // per_page
+    if pages < 1:
+        raise PagePoolConfigError(
+            f"kv_hbm_budget = {hbm_bytes} bytes buys zero pages (one "
+            f"page costs {per_page} bytes across {cfg.num_layers} "
+            "layers) — field kv_hbm_budget")
+    return pages
 
 
 class PageAllocator:

@@ -1,8 +1,10 @@
-"""Token sampling — counterpart of the JAX package's
-``models/sampling.py`` (greedy only in this slice)."""
+"""Token sampling and speculative acceptance — counterpart of the JAX
+package's ``models/sampling.py`` (greedy and ``accept_longest_prefix``;
+temperature sampling is not ported)."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -11,3 +13,24 @@ def greedy(logits: torch.Tensor) -> torch.Tensor:
     ``jnp.argmax`` does (``torch.argmax`` documents the same rule;
     ``chip_smoke.py`` checks it on the card)."""
     return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+def accept_longest_prefix(draft, verified) -> np.ndarray:
+    """Greedy speculative acceptance, the one rule both decode lanes
+    share. ``draft``: the k proposed tokens (k >= 0); ``verified``: the
+    verifier's greedy token at each of the k+1 candidate positions.
+    With m the longest prefix where ``draft[j] == verified[j]``, the
+    accepted new tokens are ``verified[:m+1]`` — the m confirmed drafts
+    plus the token the verify step computed after them. Host-side, int32
+    in and out; k = 0 is one-token decode."""
+    d = np.asarray(draft, dtype=np.int32).ravel()
+    v = np.asarray(verified, dtype=np.int32).ravel()
+    if v.size != d.size + 1:
+        raise ValueError(
+            f"verified has {v.size} entries for {d.size} draft tokens — "
+            "the verify step scores k+1 positions (last accepted token "
+            "plus each draft)")
+    m = 0
+    while m < d.size and d[m] == v[m]:
+        m += 1
+    return v[:m + 1].astype(np.int32, copy=False)

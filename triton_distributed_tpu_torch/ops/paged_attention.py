@@ -11,13 +11,18 @@ page once; the block reads its own page-table row and walks only pages
 loop's scratch page) are never read.
 
 ``kv_len = 0`` (an empty decode slot) gives zeros with ``m = -1e30`` and
-``l = 0``, never NaN. The e4m3 pool lane of the TPU kernel waits for the
-fp8 slice: K2 takes float32 or bfloat16 pools.
+``l = 0``, never NaN. Pools are float32, bfloat16 (the dtype of q) or
+e4m3 (``init_paged_kv_cache(kv_dtype=torch.float8_e4m3fn)``): K2 reads an
+e4m3 page at half the bytes and widens it to fp32 inside the softmax, as
+the TPU kernel does, so the kernel and the plain version read the same
+stored values (quantize-then-attend).
 
-:func:`paged_append` stays plain tensor code (an XLA scatter in the JAX
-package). It updates the pools IN PLACE — the port's stand-in for JAX's
-donated functional update — and returns the cache with ``kv_lens``
-advanced. Writes past a sequence's capacity are dropped, never clamped.
+:func:`paged_append` and :func:`paged_append_window` stay plain tensor
+code (XLA scatters in the JAX package). They update the pools IN PLACE —
+the port's stand-in for JAX's donated functional update —, cast through
+the saturating ``models/fp8.saturate_cast``, and return the cache with
+``kv_lens`` advanced. Writes past a sequence's capacity are dropped,
+never clamped.
 """
 
 from __future__ import annotations
@@ -28,17 +33,20 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from triton_distributed_tpu_torch.models.fp8 import E4M3, saturate_cast
 from triton_distributed_tpu_torch.runtime.build import (
     CudaKernel, current_stream, ptr,
 )
+from triton_distributed_tpu_torch.runtime.device import resolve_device
 
 _NEG = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_POOL_CODE = {torch.float32: 0, torch.bfloat16: 1, E4M3: 2}
 _HEAD_DIMS = (64, 128)
 
 PAGED_KERNEL = CudaKernel(
     "paged_attention.cu", "paged_decode_fwd",
-    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
 
 
 class PagedKVCache(NamedTuple):
@@ -60,9 +68,16 @@ class PagedKVCache(NamedTuple):
 
 def init_paged_kv_cache(batch: int, *, num_pages: int, page_size: int,
                         num_kv_heads: int, head_dim: int, max_pages: int,
-                        dtype=torch.float32, device=None) -> PagedKVCache:
+                        dtype=torch.float32, kv_dtype=None,
+                        device=None) -> PagedKVCache:
     """Zeroed pool + identity page tables (sequence b owns pages
-    ``[b*max_pages, (b+1)*max_pages) % num_pages``)."""
+    ``[b*max_pages, (b+1)*max_pages) % num_pages``) on ``device`` (None:
+    the card). ``kv_dtype`` overrides the pools' storage type
+    (``torch.float8_e4m3fn``: half the page bytes of bf16); tables and
+    lengths stay int32."""
+    device = resolve_device(device)
+    if kv_dtype is not None:
+        dtype = kv_dtype
     shape = (num_pages, page_size, num_kv_heads, head_dim)
     table = (torch.arange(batch * max_pages, dtype=torch.int32,
                           device=device).reshape(batch, max_pages)
@@ -98,11 +113,39 @@ def paged_append(cache: PagedKVCache, k_new: torch.Tensor,
     def scatter(pool, new):
         cur = pool[page_idx, row]
         pool[page_idx, row] = torch.where(ok[:, None, None],
-                                          new.to(pool.dtype), cur)
+                                          saturate_cast(new, pool.dtype), cur)
 
     scatter(cache.k_pool, k_new)
     scatter(cache.v_pool, v_new)
     return cache._replace(kv_lens=cache.kv_lens + ok.to(torch.int32))
+
+
+def paged_append_window(cache: PagedKVCache, k_new: torch.Tensor,
+                        v_new: torch.Tensor) -> PagedKVCache:
+    """Write a window of W tokens' k/v per sequence (k_new/v_new: (B, W,
+    hkv, d)) at positions ``[kv_lens, kv_lens + W)``, in place — the
+    speculative verify step's append; returns the cache with ``kv_lens``
+    advanced by the rows written.
+
+    A row past capacity is DROPPED: it is masked out of the scatter. A
+    clamped index would alias the last in-capacity position of the same
+    scatter and could overwrite a real candidate's k/v (torch's
+    ``index_put`` has no ``mode="drop"``). Stored values equal W
+    sequential :func:`paged_append` calls."""
+    P = cache.page_size
+    b, w = k_new.shape[0], k_new.shape[1]
+    capacity = cache.page_table.shape[1] * P
+    pos = (cache.kv_lens.long()[:, None]
+           + torch.arange(w, device=k_new.device)[None, :])      # (B, W)
+    ok = pos < capacity
+    rows_b = torch.arange(b, device=pos.device)[:, None].expand(b, w)[ok]
+    pos_ok = pos[ok]
+    page_idx = cache.page_table[rows_b, pos_ok // P].long()
+    row = pos_ok % P
+    cache.k_pool[page_idx, row] = saturate_cast(k_new[ok], cache.k_pool.dtype)
+    cache.v_pool[page_idx, row] = saturate_cast(v_new[ok], cache.v_pool.dtype)
+    return cache._replace(
+        kv_lens=cache.kv_lens + ok.sum(dim=1).to(torch.int32))
 
 
 # ---------------------------------------------------------------------------
@@ -111,8 +154,9 @@ def paged_append(cache: PagedKVCache, k_new: torch.Tensor,
 
 def _paged_decode_plain(q: torch.Tensor, cache: PagedKVCache, *,
                         normalize: bool):
-    """K2's function in plain tensor code: gather each sequence's pages,
-    mask positions ``>= kv_len`` to -1e30, fp32 softmax statistics and PV.
+    """K2's function in plain tensor code: gather each sequence's pages
+    (widened to fp32 as stored, e4m3 included), mask positions
+    ``>= kv_len`` to -1e30, fp32 softmax statistics and PV.
     Returns (out, m, l); ``out`` is ``q.dtype`` when ``normalize`` else
     fp32 (B, hq, d)."""
     PAGED_KERNEL.plain_calls += 1
@@ -165,11 +209,11 @@ def _check_cuda_inputs(q, cache: PagedKVCache) -> None:
             raise ValueError(f"paged decode: {name} must be contiguous")
     if q.dtype not in _DTYPE_CODE:
         raise ValueError(f"paged decode: dtype {q.dtype} unsupported (K2 "
-                         "takes float32 or bfloat16)")
-    if kp.dtype != q.dtype or vp.dtype != q.dtype:
+                         "takes float32 or bfloat16 queries)")
+    if vp.dtype != kp.dtype or kp.dtype not in (q.dtype, E4M3):
         raise ValueError(f"paged decode: pools are {kp.dtype}/{vp.dtype}, q "
-                         f"is {q.dtype} — K2 takes one dtype (the e4m3 pool "
-                         "lane waits for the fp8 slice)")
+                         f"is {q.dtype} — K2 takes pools of q's dtype or "
+                         "both float8_e4m3fn")
     if kp.data_ptr() % 16 or vp.data_ptr() % 16:
         raise ValueError("paged decode: pools must be 16-byte aligned (K2 "
                          "reads them in 16-byte chunks)")
@@ -206,7 +250,9 @@ def _paged_decode_cuda(q: torch.Tensor, cache: PagedKVCache, *,
         ptr(q), ptr(cache.k_pool), ptr(cache.v_pool), ptr(cache.page_table),
         ptr(cache.kv_lens), ptr(out), ptr(m), ptr(l),
         b, hq, hkv, d, page, cache.page_table.shape[1], int(normalize),
-        _DTYPE_CODE[q.dtype], current_stream(q.device))
+        _DTYPE_CODE[q.dtype], _POOL_CODE[cache.k_pool.dtype],
+        current_stream(q.device),
+        variants=("e4m3",) if cache.k_pool.dtype == E4M3 else ())
     return out, m, l
 
 

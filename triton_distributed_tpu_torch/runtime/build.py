@@ -112,7 +112,11 @@ class CudaKernel:
     caller resetting it to 0 — so a run can show that its main path went
     through the kernel. ``plain_calls`` counts calls of the kernel's plain
     PyTorch version (the module holding both increments it), so a run on
-    the card can also show the plain version never stood in."""
+    the card can also show the plain version never stood in.
+    ``variant_launches`` counts the launches of each named lane of the
+    kernel (K2's ``"e4m3"`` pools; the megakernel's ``"kv8"`` pools and
+    speculative ``"window"``), so a run can show which lanes its path
+    took."""
 
     def __init__(self, source: str, symbol: str, argtypes: list):
         self.source = source
@@ -120,6 +124,7 @@ class CudaKernel:
         self.argtypes = list(argtypes)
         self.launches = 0
         self.plain_calls = 0
+        self.variant_launches: dict[str, int] = {}
         self._lib = None
         self._fn = None
 
@@ -140,12 +145,16 @@ class CudaKernel:
             self._lib, self._fn = lib, fn
         return self._fn
 
-    def launch(self, *args) -> None:
+    def launch(self, *args, variants: tuple = ()) -> None:
+        """Call the C entry point (``args``: its arguments, the stream
+        last); count the launch, and under each of ``variants``."""
         err = self._load()(*args)
         if err != 0:
             msg = self._lib.tdt_error_string(err).decode()
             raise CudaKernelError(f"{self.symbol}: CUDA error {err} ({msg})")
         self.launches += 1
+        for v in variants:
+            self.variant_launches[v] = self.variant_launches.get(v, 0) + 1
 
 
 def ptr(t) -> ctypes.c_void_p:

@@ -9,6 +9,7 @@ import torch
 _DTYPES = {
     "bfloat16": torch.bfloat16,
     "float32": torch.float32,
+    "float8_e4m3fn": torch.float8_e4m3fn,     # KV pools only
 }
 
 

@@ -9,3 +9,6 @@ from triton_distributed_tpu_torch.serving.request import (  # noqa: F401
 from triton_distributed_tpu_torch.serving.scheduler import (  # noqa: F401
     AdmitResult, RequestTooLargeError, Scheduler,
 )
+from triton_distributed_tpu_torch.serving.spec import (  # noqa: F401
+    NGramProposer, SpecConfigError,
+)

@@ -29,9 +29,28 @@ scratch page is the allocator's reserved page. The lane needs
 :class:`MegakernelUnsupportedError` at construction (the JAX package
 demotes down its backend ladder there; the port has no ladder).
 
+Two decode features ride both lanes:
+
+- **fp8 KV** (``Engine(kv_dtype=torch.float8_e4m3fn)``): the pools hold
+  e4m3 pages — K2's e4m3 lane on the eager lane, the megakernel's
+  ATTN_DECODE_PAGED_F8 / APPEND_KV_F8 over its kv8 workspace on the
+  persistent one. The prefill scatter quantizes through the saturating
+  cast. ``kv_hbm_budget`` sizes the pool in bytes instead of pages, so
+  e4m3 buys twice the bf16 pages.
+- **speculative decode** (``spec_k``): each running slot drafts up to
+  ``spec_k`` tokens from its own history (``serving/spec.NGramProposer``)
+  and one step scores the window of ``spec_k + 1`` candidates
+  (``dense_verify_step_paged`` eagerly, the megakernel's windowed program
+  with ``spec_window = spec_k + 1`` on the persistent lane); the longest
+  accepted prefix is kept and the rejected positions are rolled back
+  (``kv_len`` truncation and ``PageAllocator.free_tail``). The megakernel
+  lane serves ``spec_k <= 3`` (its kernel computes at most 4 rows per
+  slot block) and raises :class:`MegakernelUnsupportedError` above.
+
 Greedy decoding end to end, so each request's tokens are identical to a
-sequential ``Engine.serve`` of its prompt. Not in this slice: prefix cache,
-speculative decode, KV host tier, the async loop, disaggregation, fleet,
+sequential ``Engine.serve`` of its prompt, with or without drafts. Not in
+this slice: prefix cache, the spec lane's transient-fault fallback
+(``_spec_disable``), KV host tier, the async loop, disaggregation, fleet,
 flight recorder and observability hooks.
 """
 
@@ -42,6 +61,7 @@ import time
 import numpy as np
 import torch
 
+from triton_distributed_tpu_torch.megakernel.kernel import MAX_LIVE_ROWS
 from triton_distributed_tpu_torch.megakernel.serving import (
     MegakernelUnsupportedError, PagedMegakernelDecoder,
     validate_megakernel_cfg,
@@ -49,16 +69,19 @@ from triton_distributed_tpu_torch.megakernel.serving import (
 from triton_distributed_tpu_torch.megakernel.tasks import TILE
 from triton_distributed_tpu_torch.models import sampling
 from triton_distributed_tpu_torch.models.dense import (
-    dense_last_logits, dense_prefill_slice,
+    dense_last_logits, dense_prefill_slice, dense_verify_step_paged,
 )
 from triton_distributed_tpu_torch.models.engine import Engine
+from triton_distributed_tpu_torch.models.fp8 import saturate_cast
 from triton_distributed_tpu_torch.models.kv_cache import (
     PageAllocator, init_kv_cache, init_paged_model_cache,
+    kv_pool_pages_for_budget,
 )
 from triton_distributed_tpu_torch.serving.request import Request, RequestState
 from triton_distributed_tpu_torch.serving.scheduler import (
     AdmitResult, Scheduler,
 )
+from triton_distributed_tpu_torch.serving.spec import NGramProposer
 
 
 class ServingConfigError(ValueError):
@@ -75,16 +98,21 @@ class ServingEngine:
       num_pages: shared pool size in pages (default: every slot can hold
         its full ``max_pages`` allotment; smaller oversubscribes). One
         scratch page is always added for empty slots' discarded writes.
+      kv_hbm_budget: the pool size in device BYTES instead: ``num_pages``
+        becomes what the budget buys at the engine's ``kv_dtype``
+        (``kv_pool_pages_for_budget``). Exclusive with ``num_pages``.
       prefill_chunk: tokens per prefill slice (a positive multiple of
         ``engine.page_size``; default one page).
       max_waiting: waiting-queue bound (admission backpressure beyond).
       clock: the time source stamped into requests.
+      spec_k: speculative draft depth (0 = one-token decode).
     """
 
     def __init__(self, engine: Engine, *, max_batch: int = 4,
                  num_pages: int | None = None,
+                 kv_hbm_budget: int | None = None,
                  prefill_chunk: int | None = None, max_waiting: int = 64,
-                 clock=time.perf_counter):
+                 clock=time.perf_counter, spec_k: int = 0):
         page = engine.page_size
         chunk = prefill_chunk if prefill_chunk is not None else page
         if chunk < 1 or chunk % page:
@@ -106,6 +134,16 @@ class ServingEngine:
         # Prefill buffer: whole chunks covering max_seq (page-aligned).
         self.s_buf = -(-engine.max_seq // chunk) * chunk
         capacity = min(self.max_pages * page, self.s_buf, engine.max_seq)
+        self.kv_dtype = engine.kv_dtype
+        if kv_hbm_budget is not None:
+            if num_pages is not None:
+                raise ServingConfigError(
+                    "pass num_pages OR kv_hbm_budget, not both — two "
+                    "pool sizes cannot both hold (arguments num_pages / "
+                    "kv_hbm_budget)")
+            num_pages = kv_pool_pages_for_budget(
+                self.cfg, page_size=page, hbm_bytes=kv_hbm_budget,
+                kv_dtype=self.kv_dtype)
         pool_pages = (num_pages if num_pages is not None
                       else max_batch * self.max_pages)
         if pool_pages < 1:
@@ -114,6 +152,14 @@ class ServingEngine:
                 "at least one page — argument num_pages")
         self.num_pages = pool_pages
         self.scratch_page = pool_pages        # last pool row, never owned
+        if spec_k < 0 or int(spec_k) != spec_k:
+            raise ServingConfigError(
+                f"spec_k = {spec_k} invalid: the draft depth is a "
+                "non-negative integer (0 disables speculative decode) — "
+                "argument spec_k")
+        self.spec_k = int(spec_k)
+        self._proposer = NGramProposer(self.spec_k) if self.spec_k else None
+        self._drafts: dict[str, list[int]] = {}
         self._pf_cache = init_kv_cache(self.cfg, 1, self.s_buf,
                                        device=engine.device)
         # The megakernel lane's workspace holds the KV pools, with the
@@ -131,7 +177,7 @@ class ServingEngine:
             self._cache = init_paged_model_cache(
                 self.cfg, max_batch, page_size=page,
                 max_pages=self.max_pages, num_pages=pool_pages + 1,
-                device=engine.device)
+                kv_dtype=self.kv_dtype, device=engine.device)
             allocator = PageAllocator(pool_pages, self.max_pages)
         self.sched = Scheduler(
             num_slots=max_batch, allocator=allocator,
@@ -144,7 +190,13 @@ class ServingEngine:
                                ) -> PagedMegakernelDecoder:
         """The paged persistent-kernel decoder, or a named
         MegakernelUnsupportedError saying which dimension the lane cannot
-        serve (page shape, model geometry)."""
+        serve (page shape, model geometry, draft depth)."""
+        if self.spec_k + 1 > MAX_LIVE_ROWS:
+            raise MegakernelUnsupportedError(
+                f"spec_k = {self.spec_k} needs a candidate window of "
+                f"{self.spec_k + 1} rows per slot; the megakernel computes "
+                f"at most {MAX_LIVE_ROWS} — serve spec_k <= "
+                f"{MAX_LIVE_ROWS - 1} on this lane")
         if self.page != TILE:
             raise MegakernelUnsupportedError(
                 f"megakernel paged workspace needs page_size == TILE "
@@ -159,7 +211,8 @@ class ServingEngine:
         return PagedMegakernelDecoder(
             self.cfg, eng.params, num_slots=self.max_batch,
             num_pages=pool_pages, max_pages=self.max_pages,
-            device=eng.device)
+            device=eng.device, kv_dtype=self.kv_dtype,
+            spec_window=self.spec_k + 1)
 
     # -- submission ----------------------------------------------------------
     def submit(self, prompt, max_new_tokens: int, *, priority: int = 0,
@@ -180,7 +233,10 @@ class ServingEngine:
         admitted = self.sched.schedule_admissions()
         head = self.sched.prefill_head()
         prefilled = self._prefill_slice(head) if head is not None else None
-        ready, preempted = self.sched.ensure_decode_pages()
+        # Drafts come before page growth, so the whole candidate window's
+        # reservation rides the same growth pass.
+        extra = self._plan_drafts() if self.spec_k else None
+        ready, preempted = self.sched.ensure_decode_pages(extra=extra)
         if ready:
             self._decode(ready)
         self._iter += 1
@@ -250,7 +306,7 @@ class ServingEngine:
                               (self._cache.v_pools, pf.v)):
                 src = lin[:, 0].reshape(L, self.s_buf // page, page,
                                         *lin.shape[3:])[:, :n_pages]
-                pool[:, pages] = src.to(pool.dtype)
+                pool[:, pages] = saturate_cast(src, pool.dtype)
         req.advance(RequestState.RUNNING)
         if req.done:
             self._finish(req)
@@ -273,7 +329,35 @@ class ServingEngine:
             table[req.slot, :len(pages)] = pages
         return toks, lens, table
 
+    def _plan_drafts(self) -> dict[str, int]:
+        """Draft up to ``spec_k`` candidates per RUNNING slot from its own
+        history; returns the per-request token reservation (1 + draft
+        length) this iteration's page growth covers. Drafts are clamped
+        to the request's remaining budget minus one, so the window never
+        outgrows its admitted page budget."""
+        extra: dict[str, int] = {}
+        self._drafts.clear()
+        w = self._proposer.window_tokens
+        for req in self.sched.running():
+            k_max = min(self.spec_k, req.max_new_tokens - len(req.tokens) - 1)
+            draft = []
+            if k_max > 0:
+                tail = req.tokens[-w:]
+                if len(tail) < w:
+                    tail = req.prompt[-(w - len(tail)):] + tail
+                draft = self._proposer.propose(tail, k_max)
+            self._drafts[req.req_id] = draft
+            extra[req.req_id] = 1 + len(draft)
+        return extra
+
     def _decode(self, ready: list[Request]) -> None:
+        if self.spec_k and (self._mk is not None or any(
+                self._drafts.get(r.req_id) for r in ready)):
+            # The eager lane with every draft empty takes the one-token
+            # step: a window of 1 computes the same token. The megakernel
+            # lane always runs its compiled window.
+            self._decode_spec(ready)
+            return
         if self._mk is not None:
             # The persistent-kernel lane: the host rewrites queue words
             # from the allocator's page ids and ONE launch decodes every
@@ -281,21 +365,79 @@ class ServingEngine:
             # are -1, so the decoder's page-coverage checks see them.
             toks, lens, table = self._slot_state(ready, -1)
             self._mk_ws, tok = self._mk.step(self._mk_ws, toks, lens, table)
-            self._decode_tail(ready, tok.cpu().numpy())    # host sync
-            return
-        eng = self.engine
-        toks, lens, table = self._slot_state(ready, self.scratch_page)
-        cache = self._cache._replace(
-            page_table=torch.from_numpy(table).to(eng.device),
-            kv_lens=torch.from_numpy(lens).to(eng.device))
-        tok, self._cache = eng.decode(torch.from_numpy(toks), cache)
-        self._decode_tail(ready, tok.cpu().numpy())    # host sync
+            tok_np = tok.cpu().numpy()                  # host sync
+        else:
+            eng = self.engine
+            toks, lens, table = self._slot_state(ready, self.scratch_page)
+            cache = self._cache._replace(
+                page_table=torch.from_numpy(table).to(eng.device),
+                kv_lens=torch.from_numpy(lens).to(eng.device))
+            tok, self._cache = eng.decode(torch.from_numpy(toks), cache)
+            tok_np = tok.cpu().numpy()                  # host sync
+        self._decode_tail(ready, {r.req_id: [int(tok_np[r.slot])]
+                                  for r in ready})
 
-    def _decode_tail(self, ready: list[Request], tok_np: np.ndarray) -> None:
-        """Per-step bookkeeping: append each slot's token, advance its
-        KV length, finish the requests that are done."""
+    def _decode_spec(self, ready: list[Request]) -> None:
+        """Draft-and-verify: every running slot's window [last token,
+        drafts...] scores in one step; :meth:`_spec_tail` keeps the
+        longest accepted prefix and rolls the rest back."""
+        W = self.spec_k + 1
+        unmapped = -1 if self._mk is not None else self.scratch_page
+        _, lens, table = self._slot_state(ready, unmapped)
+        toks = np.zeros((self.max_batch, W), np.int32)
+        wins = np.ones((self.max_batch,), np.int32)
+        drafts: dict[str, list[int]] = {}
         for req in ready:
-            req.tokens.append(int(tok_np[req.slot]))
-            req.kv_len += 1
+            d = self._drafts.get(req.req_id, [])
+            drafts[req.req_id] = d
+            toks[req.slot, 0] = req.tokens[-1]
+            toks[req.slot, 1:1 + len(d)] = d
+            wins[req.slot] = 1 + len(d)
+        if self._mk is not None:
+            self._mk_ws, ver = self._mk.step(self._mk_ws, toks, lens, table,
+                                             wins)
+        else:
+            eng = self.engine
+            cache = self._cache._replace(
+                page_table=torch.from_numpy(table).to(eng.device),
+                kv_lens=torch.from_numpy(lens).to(eng.device))
+            logits, self._cache = dense_verify_step_paged(
+                eng.params, self.cfg, torch.from_numpy(toks).to(eng.device),
+                cache)
+            b, w, v = logits.shape
+            ver = sampling.greedy(logits.reshape(b * w, v)).reshape(b, w)
+        self._spec_tail(ready, drafts, ver.cpu().numpy())    # host sync
+
+    def _spec_tail(self, ready: list[Request], drafts: dict,
+                   ver_np: np.ndarray) -> None:
+        """Acceptance and rollback: each slot keeps its longest accepted
+        prefix (``sampling.accept_longest_prefix``); ``kv_len`` advances
+        by the accepted count only, so the rejected positions are dead
+        data the next append overwrites, and the pages past
+        ``ceil(kv_len / page)`` go back to the pool."""
+        accepted: dict[str, list[int]] = {}
+        for req in ready:
+            d = drafts.get(req.req_id, [])
+            acc = sampling.accept_longest_prefix(
+                d, ver_np[req.slot][:len(d) + 1])
+            accepted[req.req_id] = [int(t) for t in acc]
+            req.drafted_tokens += len(d)
+            req.accepted_draft_tokens += len(acc) - 1
+        self._decode_tail(ready, accepted)
+        for req in ready:
+            # Finished requests freed everything (free_tail of an unknown
+            # owner is a no-op); running ones shrink to ceil(kv_len/page).
+            self.sched.allocator.free_tail(req.req_id,
+                                           -(-req.kv_len // self.page))
+
+    def _decode_tail(self, ready: list[Request], new_tokens: dict) -> None:
+        """Per-step bookkeeping: append each slot's new tokens (one on the
+        one-token paths, 1..spec_k+1 accepted ones on the spec lane),
+        advance its KV length by as many, finish the requests that are
+        done."""
+        for req in ready:
+            ts = new_tokens[req.req_id]
+            req.tokens.extend(ts)
+            req.kv_len += len(ts)
             if req.done:
                 self._finish(req)

@@ -11,8 +11,7 @@ it owns. ``tokens`` holds every generated token (the first from the
 prefill logits); ``text`` is ``prompt + tokens`` — what a (re)compute
 prefills, so a preempted request resumes by prefilling ``text`` and its
 final slice yields the NEXT token. The disaggregated tier's MIGRATING
-state and the prefix / speculative / KV-tier bookkeeping come with their
-slices.
+state and the prefix / KV-tier bookkeeping come with their slices.
 """
 
 from __future__ import annotations
@@ -63,6 +62,8 @@ class Request:
     prefill_pos: int = 0             # tokens of ``text`` prefilled
     preemptions: int = 0
     arrival_seq: int = -1            # admission order stamp (scheduler)
+    drafted_tokens: int = 0          # spec lane: draft candidates proposed
+    accepted_draft_tokens: int = 0   # spec lane: drafts the verifier kept
 
     t_arrival: float | None = None
     t_first_token: float | None = None
@@ -106,7 +107,9 @@ class Request:
         return -(-self.final_kv_len // page_size)
 
     def pages_needed(self, page_size: int, extra: int = 0) -> int:
-        """Pages required to hold ``kv_len + extra`` positions."""
+        """Pages required to hold ``kv_len + extra`` positions — the
+        decode loop asks with ``extra=1`` (the next write), the spec lane
+        with its whole candidate window."""
         return -(-(self.kv_len + extra) // page_size)
 
     @property

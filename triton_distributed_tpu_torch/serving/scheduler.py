@@ -153,18 +153,23 @@ class Scheduler:
             return None
         return min(self.active, key=lambda r: (r.priority, -r.arrival_seq))
 
-    def ensure_decode_pages(self) -> tuple[list[Request], list[Request]]:
+    def ensure_decode_pages(self, extra: dict | None = None
+                            ) -> tuple[list[Request], list[Request]]:
         """Grow each running sequence's pages to cover its next KV write,
         preempting under page pressure. Returns (ready-to-decode requests
-        in slot order, preempted victims)."""
+        in slot order, preempted victims). ``extra`` maps req_id → tokens
+        this step appends (default 1): the spec lane reserves its whole
+        candidate window and releases the unused tail after acceptance
+        (``PageAllocator.free_tail``)."""
         preempted: list[Request] = []
         ready: list[Request] = []
         for req in sorted(self.running(), key=lambda r: r.slot):
             if req.state is not RequestState.RUNNING:
                 continue             # preempted by an earlier slot's growth
             ok = True
+            need = 1 if extra is None else max(1, extra.get(req.req_id, 1))
             while len(self.allocator.pages(req.req_id)) \
-                    < req.pages_needed(self.page_size, extra=1):
+                    < req.pages_needed(self.page_size, extra=need):
                 if self.allocator.alloc_pages(req.req_id, 1) is not None:
                     continue
                 victim = self._victim()
