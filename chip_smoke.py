@@ -18,6 +18,12 @@ printing one JSON line:
    127, 1999] in bf16 and fp32 over workspace-dtype and e4m3 pools, and
    with a speculative window of 4 rows at kv_lens [0, 1, 126, 1999] (slot
    2's window spills into its next page) in both types over both pools;
+   the linear decoder (``MegakernelDecoder``, batch 1, max_seq 2048) at
+   the same widths and depth, stepped at positions 0, 1, 127 and 1999 in
+   bf16 and fp32, in the matrix layout and over e4m3 weight tiles, plus
+   head_dim 64 (with the in-kernel final norm), each with a per-task
+   replay of its attention and append tasks; and a hand-built program of
+   the task types no decoder emits, on 4 rows and on 1;
 3. ``engine``  — Qwen3-8B at full width and depth, random bf16 weights from a
    seeded generator, ``Engine.serve`` of 2 x 1024-token prompts for 64 new
    tokens; K1/K2 launch counts must match the layer count, plain versions
@@ -35,11 +41,22 @@ printing one JSON line:
    the kernel's time at this shape against its bound and its plain time;
    then ``fp8_megakernel_serving`` (e4m3 pools: types 24/25 on every
    launch) and ``spec_megakernel_serving`` (the 4-row window program);
-7. ``parity``  — float32 Qwen3-8B widths at 2 layers: ``ServingEngine``
+7. ``megakernel_engine`` — the same model through
+   ``Engine(backend="megakernel", max_seq=2048).serve``: one 1024-token
+   prompt, 64 tokens, the linear decoder as the engine builds it (float32
+   workspace): one megakernel launch per decoded token, K2 never; then the
+   decoder alone over a bfloat16 workspace and over e4m3 weight tiles
+   (step wall and enqueue time, the kernel's time with L2 flushed against
+   its byte bound, tokens/s, peak memory), and the eager ``Engine.serve``
+   at batch 1 in the same call;
+8. ``parity``  — float32 Qwen3-8B widths at 2 layers: ``ServingEngine``
    tokens identical to sequential ``Engine.serve`` on both lanes, each with
    a run whose small pool forces preemption — with workspace-dtype pools,
    e4m3 pools, speculative decode, and (megakernel lane) both at once;
-   ``torch.argmax`` ties go to the first max.
+   ``torch.argmax`` ties go to the first max. ``linear_parity``:
+   ``Engine.serve`` on the megakernel token-identical to the eager serve,
+   and the fp8-weight decoder to the eager engine on e4m3 pre-quantized
+   weights.
 
 Then the kernel summary line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failed phase raises: exit code 1
@@ -474,6 +491,24 @@ def _mk_clone(dec, ws):
     return (ws[0].clone(), ws[1].clone()) if dec.kv_fp8 else ws.clone()
 
 
+def _errs(got, want, t):
+    """(|got - want|, the error record of one comparison under tolerance
+    ``t``: the largest errors where atol and where rtol rules, and the
+    largest share of the tolerance one element used)."""
+    diff = (got - want).abs()
+    mag = want.abs()
+    atol_rules = mag * t["rtol"] < t["atol"]
+    return diff, {
+        "max_abs_err": diff.max().item(),
+        "max_abs_err_where_atol_rules": (
+            diff[atol_rules].max().item() if atol_rules.any() else 0.0),
+        "max_rel_err_where_rtol_rules": (
+            (diff[~atol_rules] / mag[~atol_rules]).max().item()
+            if (~atol_rules).any() else 0.0),
+        "tol": t,
+        "tol_share": (diff / (t["atol"] + t["rtol"] * mag)).max().item()}
+
+
 def megakernel_case(torch, mk, mkserv, timer, *, name, dtype, cfg, seed,
                     time_it, kv_dtype=None, window=1, lens=MK_LENS):
     """One megakernel step against run_queue_plain on the same staged
@@ -522,24 +557,11 @@ def megakernel_case(torch, mk, mkserv, timer, *, name, dtype, cfg, seed,
     tol = TOL[("megakernel_e4m3_" if kv8 else "megakernel_")
               + ("fp32" if fp32 else "bf16")]
 
-    def errs(got, want, t):
-        diff = (got - want).abs()
-        mag = want.abs()
-        atol_rules = mag * t["rtol"] < t["atol"]
-        return diff, {
-            "max_abs_err": diff.max().item(),
-            "max_abs_err_where_atol_rules": (
-                diff[atol_rules].max().item() if atol_rules.any() else 0.0),
-            "max_rel_err_where_rtol_rules": (
-                (diff[~atol_rules] / mag[~atol_rules]).max().item()
-                if (~atol_rules).any() else 0.0),
-            "tol": t,
-            "tol_share": (diff / (t["atol"] + t["rtol"] * mag)).max().item()}
-
-    da, act = errs(ga, wa, tol)
-    dp, pool_rec = errs(gp, wp, tol)
+    da, act = _errs(ga, wa, tol)
+    dp, pool_rec = _errs(gp, wp, tol)
     replay = mk_replay(torch, mk, dec, ws0, ws_k, queue,
-                       TOL["fp32" if fp32 else "megakernel_attn_bf16"])
+                       TOL["fp32" if fp32 else "megakernel_attn_bf16"],
+                       rows_live=W, split=dec._split)
     share = max(act["tol_share"], pool_rec["tol_share"],
                 replay["attn_tol_share"])
     g0p, g0a = views(ws0)
@@ -592,31 +614,41 @@ def megakernel_case(torch, mk, mkserv, timer, *, name, dtype, cfg, seed,
     return rec
 
 
-def mk_replay(torch, mk, dec, ws0, ws_k, queue, attn_tol) -> dict:
+def mk_replay(torch, mk, dec, ws0, ws_k, queue, attn_tol, *, rows_live=1,
+              split=lambda ws: (ws, ws)) -> dict:
     """The attention and append tasks of one step rerun one by one by the
     plain version on the inputs the kernel saw: its stored q and current
     k/v (final in ``ws_k``: nothing rewrites them after the task) and the
-    step's starting pools (``ws0``: appends only write positions the
-    attention masks). Attention outputs are held to ``attn_tol``; the
-    appends, replayed onto the starting pools from the kernel's k/v, must
-    give the kernel's pools bit for bit, every other element untouched."""
+    step's starting pools or linear caches (``ws0``: appends only write
+    positions the attention masks). Attention outputs are held to
+    ``attn_tol``; the appends, replayed onto the starting pools from the
+    kernel's k/v, must give the kernel's pools bit for bit, every other
+    element untouched. ``split`` maps a workspace to (main, the one
+    holding the KV): the paged decoder's ``_split``, or the identity pair
+    of a linear decoder, whose caches live in the main workspace."""
     import numpy as np
 
-    comp, W = dec.comp, dec.spec_w
-    main_k, pool_k = dec._split(ws_k)
-    main0, pool0 = dec._split(ws0)
+    T = mk.TaskType
+    comp, W = dec.comp, rows_live
+    main_k, pool_k = split(ws_k)
+    _, pool0 = split(ws0)
     q = np.ascontiguousarray(queue, np.int32)
     flat = q.reshape(-1)
     rows = q[:comp.num_exec].tolist()
-    attn = {int(mk.TaskType.ATTN_DECODE_PAGED),
-            int(mk.TaskType.ATTN_DECODE_PAGED_F8)}
-    app = {int(mk.TaskType.APPEND_KV), int(mk.TaskType.APPEND_KV_F8)}
+    paged = {int(T.ATTN_DECODE_PAGED), int(T.ATTN_DECODE_PAGED_F8)}
+    app = {int(T.APPEND_KV), int(T.APPEND_KV_F8)}
     main_r = main_k.clone()
     outs = []
     for row in rows:
-        if row[0] in attn:
+        if row[0] in paged:
             mk._p_attn_paged(main_r, flat, row, pool0)
             outs.append(row[1])
+        elif row[0] == int(T.ATTN_DECODE):
+            mk._p_attn_linear(main_r, row, pool0)
+            outs.append(row[1])
+        elif row[0] == int(T.ATTN_DECODE_GQA):
+            mk._p_attn_linear(main_r, row, pool0)
+            outs += [row[1] + h for h in range(row[7] >> 24)]
     idx = torch.tensor(outs, device=main_k.device)
     got, want = main_k[idx, :W].float(), main_r[idx, :W].float()
     diff = (got - want).abs()
@@ -637,11 +669,201 @@ def mk_replay(torch, mk, dec, ws0, ws_k, queue, attn_tol) -> dict:
             "append_tasks": n_app, "append_elements_differing": int(differ)}
 
 
-def phase_megakernel_cases(torch, mk, mkserv, timer, QWEN3_8B) -> dict:
+# The linear decoder's cases: one step of MegakernelDecoder at each of these
+# cache lengths (empty cache; one token; an append at a tile's last column;
+# a long context whose last tile is partly valid), over a cache whose every
+# position holds random data.
+LIN_POSITIONS = [0, 1, 127, 1999]
+LIN_MAX_SEQ = 2048
+
+
+def linear_case(torch, mk, mkserv, timer, *, name, dtype, cfg, seed,
+                fp8_weights=False, final_norm=False, time_it=False):
+    """One linear decoder (``MegakernelDecoder``: matrix layout, or the
+    e4m3 weight tiles of ``fp8_weights``) stepped once at each of
+    LIN_POSITIONS by the CUDA kernel and by run_queue_plain from the same
+    staged workspace: the live row (row 0) of every tile and every cache
+    tile in full, elementwise under TOL, the errors also by the task type
+    that wrote each tile; and the per-task replay of the attention and
+    append tasks (appends bit for bit)."""
+    from triton_distributed_tpu_torch.models.dense import init_dense_llm
+    from triton_distributed_tpu_torch.models.kv_cache import KVCache
+
+    cfg = dataclasses.replace(cfg, dtype=_dtype_name(dtype))
+    params = init_dense_llm(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(seed))
+    dec = mkserv.MegakernelDecoder(cfg, params, max_seq=LIN_MAX_SEQ,
+                                   dtype=dtype, fp8_weights=fp8_weights,
+                                   final_norm=final_norm)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    shape = (cfg.num_layers, 1, LIN_MAX_SEQ, cfg.num_kv_heads, cfg.head_dim)
+    cache = KVCache(
+        k=torch.randn(shape, generator=g, device="cuda").to(dtype),
+        v=torch.randn(shape, generator=g, device="cuda").to(dtype), offset=0)
+    ws0 = dec.start(cache)
+    comp = dec.comp
+    kw = dict(num_exec=comp.num_exec, mat_specs=comp.mat_specs,
+              head_dim=comp.head_dim)
+    caches = sorted(t for h in dec.prog.layers for c in h.kT + h.v
+                    for t in c.tiles())
+    cache_set = set(caches)
+    caches_t = torch.tensor(caches, device="cuda")
+    rest_t = torch.tensor([t for t in range(comp.num_tiles)
+                           if t not in cache_set], device="cuda")
+
+    def views(ws):
+        return ws[caches_t].flatten().float(), ws[rest_t, 0].flatten().float()
+
+    fp32 = dtype == torch.float32
+    tol = TOL["megakernel_fp32" if fp32 else "megakernel_bf16"]
+    attn_tol = TOL["fp32" if fp32 else "megakernel_attn_bf16"]
+    per_pos, by_type, share, ok = [], {}, 0.0, True
+    launch = None
+    for pos in LIN_POSITIONS:
+        ws_s = ws0.clone()
+        queue = dec.stage(ws_s, [17 + pos], pos)
+        ws_k, ws_p = ws_s.clone(), ws_s.clone()
+        launch = mk.cuda_launcher(queue, ws_k, dec._wsm, ws8=dec._ws8,
+                                  live_rows=1, sync_before=comp.sync_before,
+                                  **kw)
+        launch()
+        mk.run_queue_plain(queue, ws_p, dec._wsm, ws8=dec._ws8, **kw)
+        torch.cuda.synchronize()
+        (gc_, ga), (wc, wa) = views(ws_k), views(ws_p)
+        _, act = _errs(ga, wa, tol)
+        dc, cache_rec = _errs(gc_, wc, tol)
+        replay = mk_replay(torch, mk, dec, ws_s, ws_k, queue, attn_tol)
+        s0c, s0a = views(ws_s)
+        changed = ((s0c != wc).sum() + (s0a != wa).sum()).item()
+        for tid, writes in enumerate(comp.task_writes):
+            ty = mk.TaskType(int(comp.queue[comp.task_rows[tid], 0])).name
+            idx = torch.tensor([t for t in writes if t < comp.num_tiles],
+                               device="cuda")
+            err = (ws_k[idx, 0].float() - ws_p[idx, 0].float()).abs().max()
+            by_type[ty] = max(by_type.get(ty, 0.0), err.item())
+        pos_share = max(act["tol_share"], cache_rec["tol_share"],
+                        replay["attn_tol_share"])
+        pos_ok = bool(torch.isfinite(ga).all().item()
+                      and torch.isfinite(gc_).all().item()
+                      and pos_share <= 1.0 and changed > 0
+                      and replay["append_elements_differing"] == 0)
+        per_pos.append({"pos": pos, "activations": act, "caches": cache_rec,
+                        "cache_elements_differing": int((dc > 0).sum().item()),
+                        "replay": replay, "tol_share": pos_share,
+                        "elements_changed_by_step": changed, "ok": pos_ok})
+        share, ok = max(share, pos_share), ok and pos_ok
+    rec = {"case": name, "dtype": _dtype_name(dtype),
+           "weights": "float8_e4m3fn tiles" if fp8_weights
+           else _dtype_name(dtype) + " matrix",
+           "shape": {"layers": cfg.num_layers, "hidden": cfg.hidden_size,
+                     "head_dim": cfg.head_dim, "max_seq": LIN_MAX_SEQ,
+                     "positions": LIN_POSITIONS, "final_norm": final_norm,
+                     "tasks": comp.num_exec,
+                     "barriers": int(comp.sync_before.sum())},
+           "max_abs_err": max(max(p["activations"]["max_abs_err"],
+                                  p["caches"]["max_abs_err"])
+                              for p in per_pos),
+           "tol": tol, "tol_share": share, "positions": per_pos,
+           "max_abs_err_by_writer": by_type, "ok": ok}
+    if time_it:
+        nbytes, flops = _mk_bound(cfg, [LIN_POSITIONS[-1]],
+                                  1 if fp8_weights else ws0.element_size(), 1,
+                                  ws0.element_size())
+        rec["bound_ms"], rec["bound_by"] = _bound_ms(nbytes, flops,
+                                                     _dtype_name(dtype))
+        rec["ms"] = timer.ms(launch)
+        rec["plain_ms"] = timer.ms(lambda: mk.run_queue_plain(
+            queue, ws_p, dec._wsm, ws8=dec._ws8, **kw), iters=2, warmup=1)
+        rec["library_ms"] = None     # no single PyTorch call runs a step
+    return rec
+
+
+def builder_ops_case(torch, mk, builder, *, name, dtype, live_rows, seed):
+    """The task types no decoder program emits, plus the rest of the
+    linear handlers at another row count: one hand-built program — COPY,
+    ADD, SCALE, SILU_MUL over a 32-tile row; GEMM_WIDE from main-workspace
+    weights as one full-width task (the super-strip flag) and as 3-wide
+    strips, GEMM_WIDE_W8 from e4m3 tiles; ATTN_DECODE with and without
+    the current token; NORM_ROPE into a second tile; ADD_NORM — run by the
+    CUDA kernel on ``live_rows`` rows and by run_queue_plain, rows
+    [0, live_rows) of every tile compared per writer task type."""
+    TILE = head_dim = 128
+    mb = builder.MegaKernelBuilder()
+    hid, n = 32 * TILE, 8 * TILE
+    a, b, nw = (mb.tensor(TILE, hid) for _ in range(3))
+    w = mb.tensor(hid, n)
+    w8 = mb.tensor(hid, n, fp8=True)
+    q, kn, vn, hw, cos, sin = (mb.tensor(TILE, TILE) for _ in range(6))
+    kT, v = mb.tensor(TILE, 3 * TILE), mb.tensor(3 * TILE, TILE)
+    outs = {k: mb.tensor(TILE, hid) for k in
+            ("copy", "add", "scale", "silu_mul", "x2", "xn")}
+    outs.update({k: mb.tensor(TILE, n) for k in ("full", "strips", "w8")})
+    outs.update({k: mb.tensor(TILE, TILE) for k in
+                 ("attn", "attn_cache_only", "rope")})
+    mb.copy(outs["copy"], a)
+    mb.add(outs["add"], a, b)
+    mb.scale(outs["scale"], a, 0.3337)
+    mb.silu_mul(outs["silu_mul"], a, b)
+    mb.gemm(outs["full"], a, w)
+    mb.gemm(outs["strips"], a, w, width=3)
+    mb.gemm(outs["w8"], a, w8)
+    mb.attn_decode(outs["attn"], q, kT, v, valid_len=300,
+                   scale=head_dim ** -0.5, k_new=kn, v_new=vn)
+    mb.attn_decode(outs["attn_cache_only"], q, kT, v, valid_len=300,
+                   scale=head_dim ** -0.5)
+    mb.norm_rope(outs["rope"], q, hw, cos, sin)
+    mb.add_norm(outs["x2"], a, b, nw, outs["xn"])
+    comp = mb.compile(dtype=dtype)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(h, scale=1.0):
+        return torch.randn((h.rows, h.cols), generator=g, device="cuda") * scale
+
+    feeds = {h: rnd(h) for h in (a, b, q, kn, vn, kT, v)}
+    feeds.update({nw: rnd(nw, 0.1) + 1, hw: rnd(hw, 0.1) + 1, cos: rnd(cos),
+                  sin: rnd(sin), w: rnd(w, 0.05), w8: rnd(w8, 0.05)})
+    main, f8, _ = comp.split_feeds(feeds)
+    ws0 = comp.make_workspace(main)
+    ws8 = comp.make_workspace8(f8)
+    kw = dict(num_exec=comp.num_exec, mat_specs=comp.mat_specs,
+              head_dim=comp.head_dim)
+    ws_k, ws_p = ws0.clone(), ws0.clone()
+    launch = mk.cuda_launcher(comp.queue, ws_k, None, ws8=ws8,
+                              live_rows=live_rows,
+                              sync_before=comp.sync_before, **kw)
+    launch()
+    mk.run_queue_plain(comp.queue, ws_p, None, ws8=ws8, **kw)
+    torch.cuda.synchronize()
+    fp32 = dtype == torch.float32
+    tol = TOL["megakernel_fp32" if fp32 else "megakernel_attn_bf16"]
+    by_type, share, finite = {}, 0.0, True
+    for tid, writes in enumerate(comp.task_writes):
+        ty = mk.TaskType(int(comp.queue[comp.task_rows[tid], 0])).name
+        idx = torch.tensor(list(writes), device="cuda")
+        got = ws_k[idx, :live_rows].float()
+        _, e = _errs(got, ws_p[idx, :live_rows].float(), tol)
+        finite = finite and bool(torch.isfinite(got).all().item())
+        by_type[ty] = max(by_type.get(ty, 0.0), e["max_abs_err"])
+        share = max(share, e["tol_share"])
+    untouched = bool((ws_k[:, live_rows:] == ws0[:, live_rows:]).all().item())
+    return {"case": name, "dtype": _dtype_name(dtype),
+            "shape": {"live_rows": live_rows, "k_tiles": 32, "n_tiles": 8,
+                      "tasks": comp.num_exec,
+                      "barriers": int(comp.sync_before.sum())},
+            "max_abs_err": max(by_type.values()),
+            "max_abs_err_by_writer": by_type, "tol": tol, "tol_share": share,
+            "rows_past_live_untouched": untouched,
+            "ok": bool(finite and share <= 1.0 and untouched)}
+
+
+def phase_megakernel_cases(torch, mk, mkserv, builder, timer,
+                           QWEN3_8B) -> dict:
     """The megakernel's cases by lane: ``megakernel`` (workspace-dtype
-    pools, one row), ``megakernel_kv8`` (e4m3 pools: types 24/25) and
+    pools, one row), ``megakernel_kv8`` (e4m3 pools: types 24/25),
     ``megakernel_window`` (the 4-row speculative window over both pool
-    types)."""
+    types), ``megakernel_linear`` (the batch-1 linear decoder in the
+    matrix layout, plus the hand-built program of the types no decoder
+    emits) and ``megakernel_linear_w8`` (its fp8-weight tile layout)."""
     cfg = dataclasses.replace(QWEN3_8B, num_layers=2)
     bf16, f32, e4m3 = torch.bfloat16, torch.float32, torch.float8_e4m3fn
 
@@ -651,17 +873,37 @@ def phase_megakernel_cases(torch, mk, mkserv, timer, QWEN3_8B) -> dict:
                                seed=seed, time_it=kw.pop("time_it", False),
                                **kw)
 
+    def lin(name, dtype, seed, **kw):
+        return linear_case(torch, mk, mkserv, timer, name=name, dtype=dtype,
+                           cfg=kw.pop("cfg", cfg), seed=seed, **kw)
+
+    d64 = dataclasses.replace(cfg, hidden_size=1024, intermediate_size=3072,
+                              num_heads=16, num_kv_heads=8, head_dim=64)
     win = dict(window=MK_WINDOW, lens=MK_WIN_LENS)
     cases = {
+        "megakernel_linear": [
+            lin("linear_2l_bf16", bf16, 30, time_it=True),
+            lin("linear_2l_fp32", f32, 31, time_it=True),
+            lin("linear_d64_fp32_final_norm", f32, 32, cfg=d64,
+                final_norm=True),
+            builder_ops_case(torch, mk, builder, name="ops_4rows_fp32",
+                             dtype=f32, live_rows=4, seed=33),
+            builder_ops_case(torch, mk, builder, name="ops_1row_bf16",
+                             dtype=bf16, live_rows=1, seed=34),
+        ],
+        "megakernel_linear_w8": [
+            lin("linear_w8_2l_bf16", bf16, 35, fp8_weights=True,
+                time_it=True),
+            lin("linear_w8_2l_fp32", f32, 36, fp8_weights=True),
+            lin("linear_w8_d64_fp32", f32, 37, cfg=d64, fp8_weights=True),
+        ],
         "megakernel": [
             case("step_2l_bf16", bf16, 20, time_it=True),
             case("step_2l_fp32", f32, 21),
             # The padded-head layout (head_dim 64 in 128-wide tiles), off
             # the Qwen3-8B path: the norm/rope sub-tile span of
             # NORM_ROPE_QKV.
-            case("step_d64_fp32", f32, 22, cfg=dataclasses.replace(
-                cfg, hidden_size=1024, intermediate_size=3072, num_heads=16,
-                num_kv_heads=8, head_dim=64)),
+            case("step_d64_fp32", f32, 22, cfg=d64),
         ],
         "megakernel_kv8": [
             case("step_2l_bf16_e4m3", bf16, 23, kv_dtype=e4m3, time_it=True),
@@ -1068,6 +1310,228 @@ def phase_megakernel_serving(torch, mk, kernels, Engine, ServingEngine,
     return rec
 
 
+def linear_decode_run(torch, mk, dec, cache, tok, gen, mega, timer, cfg,
+                      *, weight_item: int) -> dict:
+    """``gen - 1`` steps of a linear decoder from a prefilled cache, with
+    the megakernel's count set to 0 just before and read just after: the
+    run's wall time and tokens/s, each step's wall (synced) and enqueue
+    (host) time, then the kernel alone at the last position, L2 flushed,
+    against its byte bound and its plain version."""
+    ws = dec.start(cache)
+    pos = int(cache.offset)
+    torch.cuda.synchronize()
+    mega.launches, mega.plain_calls = 0, 0
+    walls, enq, toks = [], [], [int(tok[0])]
+    t_run = time.perf_counter()
+    for _ in range(gen - 1):
+        t0 = time.perf_counter()
+        ws, tok = dec.step(ws, tok, pos)
+        enq.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        toks.append(int(tok[0]))
+        pos += 1
+    run_s = time.perf_counter() - t_run
+    launches = mega.launches
+    check(launches == gen - 1 and mega.plain_calls == 0,
+          f"linear decoder: {launches} megakernel launches and "
+          f"{mega.plain_calls} plain runs for {gen - 1} decoded tokens")
+    check(all(0 <= t < cfg.vocab_size for t in toks),
+          "linear decoder: token ids out of range")
+    comp = dec.comp
+    kw = dict(num_exec=comp.num_exec, mat_specs=comp.mat_specs,
+              head_dim=comp.head_dim)
+    queue = dec.stage(ws, tok, pos - 1)
+    launch = mk.cuda_launcher(queue, ws, dec._wsm, ws8=dec._ws8, live_rows=1,
+                              sync_before=comp.sync_before, **kw)
+    ms = timer.ms(launch, iters=5)
+    plain_ms = timer.ms(lambda: mk.run_queue_plain(
+        queue, ws.clone(), dec._wsm, ws8=dec._ws8, **kw), iters=1, warmup=1)
+    nbytes, flops = _mk_bound(cfg, [pos - 1], weight_item, 1,
+                              ws.element_size())
+    bound, bound_by = _bound_ms(nbytes, flops, _dtype_name(ws.dtype))
+    return {"workspace_dtype": _dtype_name(ws.dtype),
+            "weights": ("float8_e4m3fn tiles" if dec.fp8_weights
+                        else _dtype_name(ws.dtype) + " matrix"),
+            "tasks": comp.num_exec, "barriers": int(comp.sync_before.sum()),
+            "decoded_tokens": gen - 1, "launches": launches,
+            "first_step_ms": walls[0] * 1e3,
+            "step_ms": _pct(walls[1:], 50) * 1e3,
+            "enqueue_ms": _pct(enq[1:], 50) * 1e3,
+            "decode_tokens_per_s": (gen - 2) / sum(walls[1:]),
+            "run_s": run_s, "kernel_pos": pos - 1, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+            "bound_bytes": nbytes, "library_ms": None,
+            "grid_blocks": mk.grid_blocks(ws.dtype, full=True),
+            "tokens_head": toks[:8]}
+
+
+def phase_megakernel_engine(torch, mk, mkserv, kernels, Engine, params, cfg,
+                            timer, *, prompt=1024, gen=64) -> dict:
+    """Full Qwen3-8B (36 layers, the serving phases' bf16 weights) through
+    ``Engine(backend="megakernel", max_seq=2048).serve``: one 1024-token
+    prompt, 64 tokens, the decoder as the engine builds it (float32 linear
+    workspace, matrix layout). K1 once per layer for the prefill, one
+    megakernel launch per decoded token (the first token comes from the
+    prefill logits), K2 never, no plain version. Then the decoder alone
+    from the same prefill with a bfloat16 workspace and with e4m3 weight
+    tiles (bfloat16 activations and caches), and the eager
+    ``Engine.serve`` at batch 1 in the same call for comparison. Each
+    decoder is freed before the next is built."""
+    import gc
+
+    flash, paged, mega = kernels
+    L = cfg.num_layers
+    g = torch.Generator(device="cuda").manual_seed(17)
+    ids = torch.randint(0, cfg.vocab_size, (1, prompt), generator=g,
+                        device="cuda", dtype=torch.int32)
+    rec = {"phase": "megakernel_engine", "prompt": prompt, "gen": gen,
+           "layers": L, "max_seq": 2048}
+
+    def timed_serve(eng, reps):
+        runs, out = [], None
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            reset_counts(kernels)
+            t0 = time.perf_counter()
+            got = eng.serve(ids, gen)
+            torch.cuda.synchronize()
+            runs.append(time.perf_counter() - t0)
+            check(out is None or torch.equal(out, got),
+                  "megakernel_engine: a repeated serve gave other tokens")
+            out = got
+        return runs, out
+
+    eager = Engine(cfg, params, max_seq=2048, page_size=16)
+    eager.serve(ids[:, :128], 4)
+    runs, _ = timed_serve(eager, 2)
+    check(paged.launches == L * (gen - 1) and mega.launches == 0,
+          "megakernel_engine: the eager serve's launch counts are off")
+    rec["eager_batch1"] = {"serve_s_runs": runs, "serve_s": min(runs),
+                           "tokens_per_s": gen / min(runs)}
+    del eager
+
+    torch.cuda.reset_peak_memory_stats()
+    eng = Engine(cfg, params, max_seq=2048, backend="megakernel")
+    t0 = time.perf_counter()
+    eng.serve(ids[:, :128], 4)          # builds the decoder and its weights
+    torch.cuda.synchronize()
+    rec["first_serve_s"] = time.perf_counter() - t0
+    runs, out = timed_serve(eng, 2)
+    check(mega.launches == gen - 1,
+          f"megakernel_engine: {mega.launches} megakernel launches for "
+          f"{gen - 1} decoded tokens")
+    check(paged.launches == 0, "megakernel_engine: K2 ran on the "
+          "megakernel serve")
+    check(flash.launches == L,
+          f"megakernel_engine: K1 launched {flash.launches}, expected {L}")
+    check(all(k.plain_calls == 0 for k in kernels),
+          "megakernel_engine: a plain version ran on the main path")
+    check(tuple(out.shape) == (1, gen) and out.dtype == torch.int32
+          and bool(((out >= 0) & (out < cfg.vocab_size)).all()),
+          "megakernel_engine: bad output")
+    rec["serve"] = {"serve_s_runs": runs, "serve_s": min(runs),
+                    "tokens_per_s": gen / min(runs),
+                    "launches": {"flash_attention": flash.launches,
+                                 "paged_attention": paged.launches,
+                                 "megakernel": mega.launches}}
+    logits, cache = eng.prefill(ids)
+    check(bool(torch.isfinite(logits).all()),
+          "megakernel_engine: non-finite prefill logits")
+    tok = logits.argmax(-1).to(torch.int32)
+    forms = {"fp32": linear_decode_run(torch, mk, eng._mk, cache, tok, gen,
+                                       mega, timer, cfg, weight_item=4)}
+    forms["fp32"]["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    eng._mk = None
+    for name, kw, item in (("bf16", {}, 2),
+                           ("fp8_weights", {"fp8_weights": True}, 1)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        dec = mkserv.MegakernelDecoder(cfg, params, max_seq=2048,
+                                       dtype=torch.bfloat16, **kw)
+        forms[name] = linear_decode_run(torch, mk, dec, cache, tok, gen,
+                                        mega, timer, cfg, weight_item=item)
+        forms[name]["build_and_run_s"] = time.perf_counter() - t0
+        forms[name]["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        del dec
+    rec["forms"] = forms
+    return rec
+
+
+def phase_linear_parity(torch, mkserv, QWEN3_8B, init_dense_llm, Engine,
+                        kernels) -> dict:
+    """float32, Qwen3-8B widths cut to 2 layers: ``Engine.serve`` on the
+    megakernel (the linear decoder) token-identical to the eager serve,
+    and the fp8-weight decoder token-identical to the eager engine on
+    e4m3 pre-quantized weights (prefill on the quantized weights too)."""
+    from triton_distributed_tpu_torch.models.fp8 import to_e4m3
+
+    flash, paged, mega = kernels
+    cfg = dataclasses.replace(QWEN3_8B, num_layers=2, dtype="float32")
+    params = init_dense_llm(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(2))
+    g = torch.Generator().manual_seed(19)
+    result = {"phase": "linear_parity", "layers": 2, "dtype": "float32"}
+    eager = Engine(cfg, params, max_seq=256, page_size=16)
+    mk_eng = Engine(cfg, params, max_seq=256, backend="megakernel")
+    runs = []
+    for n, gen in ((37, 24), (150, 40), (128, 16)):
+        prompt = [torch.randint(0, cfg.vocab_size, (n,), generator=g).tolist()]
+        want = eager.serve(prompt, gen)[0].tolist()
+        reset_counts(kernels)
+        got = mk_eng.serve(prompt, gen)[0].tolist()
+        check(mega.launches == gen - 1 and paged.launches == 0
+              and mega.plain_calls == 0,
+              f"linear parity: {mega.launches} megakernel launches for "
+              f"{gen - 1} decoded tokens")
+        if got != want:
+            step, gap = _first_divergence(torch, eager, prompt[0], got, want)
+            emit({"phase": "linear_parity", "prompt": n,
+                  "diverged_at_step": step, "top2_logit_gap": gap})
+            raise RuntimeError("chip_smoke: linear parity: Engine.serve on "
+                               f"the megakernel diverged at step {step}")
+        runs.append({"prompt": n, "gen": gen, "identical": True})
+    result["engine_serve"] = runs
+    names = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+
+    def quant(tree):
+        if isinstance(tree, dict):
+            return {k: (to_e4m3(v).to(v.dtype) if k in names else quant(v))
+                    for k, v in tree.items()}
+        return [quant(v) for v in tree] if isinstance(tree, list) else tree
+
+    params_q = quant(params)
+    eager_q = Engine(cfg, params_q, max_seq=256, page_size=16)
+    dec = mkserv.MegakernelDecoder(cfg, params, max_seq=256, fp8_weights=True)
+    runs = []
+    for n, gen in ((37, 24), (128, 16)):
+        prompt = torch.randint(0, cfg.vocab_size, (1, n), generator=g)
+        want = eager_q.serve(prompt, gen)[0].tolist()
+        logits, cache = eager_q.prefill(prompt)
+        tok = logits.argmax(-1).to(torch.int32)
+        ws, pos, got = dec.start(cache), n, [int(tok[0])]
+        reset_counts(kernels)
+        for _ in range(gen - 1):
+            ws, tok = dec.step(ws, tok, pos)
+            got.append(int(tok[0]))
+            pos += 1
+        check(mega.launches == gen - 1 and mega.plain_calls == 0,
+              "linear parity: the fp8-weight decoder's launch count is off")
+        if got != want:
+            step, gap = _first_divergence(torch, eager_q, prompt[0].tolist(),
+                                          got, want)
+            emit({"phase": "linear_parity", "form": "fp8_weights",
+                  "prompt": n, "diverged_at_step": step,
+                  "top2_logit_gap": gap})
+            raise RuntimeError("chip_smoke: linear parity: the fp8-weight "
+                               f"decoder diverged at step {step}")
+        runs.append({"prompt": n, "gen": gen, "identical": True})
+    result["fp8_weight_decoder"] = runs
+    return result
+
+
 def _first_divergence(torch, eng, prompt, got, want):
     """Step and top-2 logit gap where ``got`` left ``want``."""
     step = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
@@ -1257,6 +1721,8 @@ def main() -> int:
         "triton_distributed_tpu_torch.megakernel.kernel")
     mkserv = importlib.import_module(
         "triton_distributed_tpu_torch.megakernel.serving")
+    mkbuilder = importlib.import_module(
+        "triton_distributed_tpu_torch.megakernel.builder")
     from triton_distributed_tpu_torch.models.config import QWEN3_8B
     from triton_distributed_tpu_torch.models.dense import init_dense_llm
     from triton_distributed_tpu_torch.models.engine import Engine
@@ -1292,7 +1758,8 @@ def main() -> int:
 
     timer = Timer(torch, "cuda")
     cases = phase_kernels(torch, fa, pa, timer)
-    cases.update(phase_megakernel_cases(torch, mk, mkserv, timer, QWEN3_8B))
+    cases.update(phase_megakernel_cases(torch, mk, mkserv, mkbuilder, timer,
+                                        QWEN3_8B))
     L = QWEN3_8B.num_layers
     emit_phase({"phase": "kernels", "tol_reason": TOL_REASON,
                 "launches_per_step": {
@@ -1304,7 +1771,11 @@ def main() -> int:
                     "megakernel": "1 per decode step on the megakernel lane",
                     "megakernel_kv8": "the same, over e4m3 pools",
                     "megakernel_window": "the same, under speculative "
-                                         "decode"},
+                                         "decode",
+                    "megakernel_linear": "1 per decoded token of "
+                                         "Engine.serve(backend='megakernel')",
+                    "megakernel_linear_w8": "the same, on the fp8-weight "
+                                            "decoder"},
                 "cases": cases})
     bad = [c["case"] for cs in cases.values() for c in cs if not c["ok"]]
     check(not bad, f"kernels disagree with their plain versions: {bad}")
@@ -1359,12 +1830,19 @@ def main() -> int:
     mks_rec = emit_phase(phase_megakernel_serving(
         *mk_args, name="spec_megakernel_serving", prompts=phrases,
         spec_k=SPEC_K))
-    del params, mk_args
+    del mk_args
+    gc.collect()
+    torch.cuda.empty_cache()
+    lin_rec = emit_phase(phase_megakernel_engine(
+        torch, mk, mkserv, kernels, Engine, params, QWEN3_8B, timer))
+    del params
     gc.collect()
     torch.cuda.empty_cache()
 
     emit_phase(phase_parity(torch, QWEN3_8B, init_dense_llm, Engine,
                             ServingEngine, kernels))
+    emit_phase(phase_linear_parity(torch, mkserv, QWEN3_8B, init_dense_llm,
+                                   Engine, kernels))
 
     tpu = "triton_distributed_tpu/"
     root = build.PKG_DIR.parent
@@ -1407,6 +1885,24 @@ def main() -> int:
                        cases["megakernel_window"], mks_rec["step_kernel"],
                        mks_rec["launches"]["variants"]["megakernel"]
                        .get("window", 0), root),
+        # The linear decoder behind Engine.serve(backend="megakernel"), at
+        # 36 layers and the serve's last position: as the engine builds
+        # it (fp32 matrix workspace; launches of the counted serve), then
+        # the decoder alone over a bf16 workspace and over e4m3 weight
+        # tiles (launches of their own counted runs).
+        _summary_entry(mk.MEGA_KERNEL, "megakernel_linear",
+                       tpu + "megakernel/kernel.py:889",
+                       cases["megakernel_linear"], lin_rec["forms"]["fp32"],
+                       lin_rec["serve"]["launches"]["megakernel"], root),
+        _summary_entry(mk.MEGA_KERNEL, "megakernel_linear_bf16",
+                       tpu + "megakernel/kernel.py:889",
+                       cases["megakernel_linear"], lin_rec["forms"]["bf16"],
+                       lin_rec["forms"]["bf16"]["launches"], root),
+        _summary_entry(mk.MEGA_KERNEL, "megakernel_linear_w8",
+                       tpu + "megakernel/kernel.py:257",
+                       cases["megakernel_linear_w8"],
+                       lin_rec["forms"]["fp8_weights"],
+                       lin_rec["forms"]["fp8_weights"]["launches"], root),
     ]
     check(all(e["launches"] > 0 for e in summary),
           f"a kernel of the path was never launched: "

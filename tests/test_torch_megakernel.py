@@ -170,7 +170,7 @@ def test_workspaces_equal_jax(tiny):
     jmain, _, jwm = jc.split_feeds(jweight_feeds(jprog, jcfg, jparams))
     prog = build_decode_step(**kw)
     tc = prog.mb.compile()
-    main, wm = tc.split_feeds(weight_feeds(prog, cfg, tparams))
+    main, _, wm = tc.split_feeds(weight_feeds(prog, cfg, tparams))
     ws = tc.make_workspace(main, device="cpu")
     wsm = tc.make_workspace_mat(wm, device="cpu")
     np.testing.assert_array_equal(ws.numpy(),
@@ -284,21 +284,22 @@ def test_paged_decoder_tokens_vs_jax(decoders):
 
 
 def test_run_queue_refuses_unported_types():
-    """(f) A program naming a type outside the ported eight is refused
-    before any launch, by name; so is a speculative window wider than the
-    rows the CUDA kernel computes per slot block."""
+    """(f) A program naming a type outside the ported set (here the
+    in-kernel AllReduce) is refused before any launch, by name; so is a
+    speculative window wider than the rows the CUDA kernel computes per
+    slot block."""
     mb = MegaKernelBuilder()
     a, out = mb.tensor(TILE, TILE), mb.tensor(TILE, TILE)
     from triton_distributed_tpu_torch.megakernel.tasks import Task
-    mb._emit(Task(TaskType.ADD, out.tile(0, 0), a0=a.tile(0, 0),
+    mb._emit(Task(TaskType.ALLREDUCE_ROW, out.tile(0, 0), a0=a.tile(0, 0),
                   b0=a.tile(0, 0), k_tiles=1), [a.tile(0, 0)],
              [out.tile(0, 0)])
     comp = mb.compile()
     ws = comp.make_workspace({}, device="cpu")
     calls = MEGA_KERNEL.plain_calls
-    with pytest.raises(MegakernelUnsupportedError, match="ADD"):
+    with pytest.raises(MegakernelUnsupportedError, match="ALLREDUCE_ROW"):
         comp.step(ws)
-    with pytest.raises(MegakernelUnsupportedError, match="ADD"):
+    with pytest.raises(MegakernelUnsupportedError, match="ALLREDUCE_ROW"):
         run_queue(comp.queue, ws, None, num_exec=comp.num_exec,
                   mat_specs=())
     assert MEGA_KERNEL.plain_calls == calls        # nothing ran

@@ -8,7 +8,8 @@ JAX package.
 
 Entry points (:class:`~.models.engine.Engine`,
 :class:`~.serving.loop.ServingEngine`, :func:`~.models.dense.init_dense_llm`,
-the caches' and the megakernel workspaces' constructors) run on the card
+the caches', the megakernel decoders' and their workspaces' constructors)
+run on the card
 by default (``device=None`` means ``"cuda"``) and raise when CUDA is
 absent; the CPU runs only when the caller passes ``device="cpu"``. The
 kernels (``csrc/*.cu``: flash prefill, paged decode, the megakernel) are

@@ -3,14 +3,25 @@
 //
 // Replaces the JAX package's Pallas kernel
 // triton_distributed_tpu/megakernel/kernel.py:39 (_mega_kernel), for the
-// task types the paged Qwen3 serving program emits: RMS_NORM (6),
-// ATTN_DECODE_PAGED (9), APPEND_KV (14), GEMM_MAT (19), NORM_ROPE_QKV (21),
-// PREFETCH_MAT (23), and over e4m3 KV pools ATTN_DECODE_PAGED_F8 (24) and
-// APPEND_KV_F8 (25) — each attention type with the speculative causal
-// window fold (word 5) and each append type with its windowed form (word
-// 4). Any other type traps: a row must never silently do nothing
-// (megakernel/kernel.py checks the program's types before launch and
-// raises, so the trap marks a queue that bypassed that check).
+// task types the Qwen3 decode programs emit. The paged serving program:
+// RMS_NORM (6), ATTN_DECODE_PAGED (9), APPEND_KV (14), GEMM_MAT (19),
+// NORM_ROPE_QKV (21), PREFETCH_MAT (23), and over e4m3 KV pools
+// ATTN_DECODE_PAGED_F8 (24) and APPEND_KV_F8 (25) — each attention type
+// with the speculative causal window fold (word 5) and each append type
+// with its windowed form (word 4). The linear (batch-1) programs add
+// ATTN_DECODE_GQA (11) and ATTN_DECODE (8) over a linear cache and, in the
+// tile weight layout, GEMM_WIDE (12) / GEMM_WIDE_W8 (15: B tiles in the
+// e4m3 weight workspace), NORM_ROPE (13), ADD_NORM (20) and the row-wise
+// COPY, ADD, SILU_MUL, SCALE (0, 1, 2, 5). Any other type traps: a row
+// must never silently do nothing (megakernel/kernel.py checks the
+// program's types before launch and raises, so the trap marks a queue that
+// bypassed that check).
+//
+// GEMM_WIDE's item loop is a separate function (__noinline__): it gets its
+// own register allocation, so its pressure cannot spill the other handlers'
+// loops, which compile inline as one body (see mega_kernel for the two
+// instantiations: the linear programs' types live in the full one, which
+// runs one block per SM).
 //
 // Design. A TPU grid step runs one task at a time, so the queue order keeps
 // every dependency. Here every block walks the same queue; each task's work
@@ -41,12 +52,22 @@
 // attention fold reads the current tokens' k/v through the same saturating
 // round trip, so it folds what the append stores.
 //
-// What bounds it: the step streams every weight of the matrix workspace
-// (wsm) once per slot block, and the KV pages of each live sequence — both
-// byte-bound (0.5 to 4 flops per byte; e4m3 pages halve the KV bytes).
-// Weight loads are 16-byte vectors, one 128-column x 256-row slab per item,
-// 256 threads in flight per block; no wgmma or TMA yet, and no per-SM
-// queues (both later work).
+// What bounds it: the step streams every weight (the matrix workspace wsm
+// once per slot block; the weight tiles of GEMM_WIDE once) and the KV of
+// each live sequence — byte-bound (0.5 to 4 flops per byte; e4m3 pages
+// halve the KV bytes, e4m3 weight tiles halve the weight bytes of bf16).
+// Weight loads are 16-byte vectors, 256 threads in flight per block; no
+// wgmma or TMA yet, and no per-SM queues (both later work).
+//
+// GEMM_WIDE items. The TPU task stages the A row once and fetches B as
+// strips of up to 16 column tiles (4 k-rows at a time with the d0 = 4
+// super-strip flag): fetch shapes, not arithmetic. Here a task of `width`
+// column tiles is cut into width x 4 items of 32 output columns; one block
+// reduces the whole contraction for its 32 columns (threads split the
+// rows, warp shuffles and one shared-memory pass sum them in a fixed
+// order), so there is no partial-sum scratch and no barrier inside, and the
+// strips of one projection group (q, k, v; gate, up) share one barrier
+// interval: 128 to 768 items over the full body's one block per SM (132).
 
 #include <cooperative_groups.h>
 
@@ -66,19 +87,37 @@ constexpr int MAX_LIVE = 4;      // live rows per block the kernel computes
 constexpr int KLANES = 16;       // contraction lanes of a GEMM item
 
 enum TaskType : int {
+  COPY = 0,
+  ADD = 1,
+  SILU_MUL = 2,
+  SCALE = 5,
   RMS_NORM = 6,
+  ATTN_DECODE = 8,
   ATTN_DECODE_PAGED = 9,
+  ATTN_DECODE_GQA = 11,
+  GEMM_WIDE = 12,
+  NORM_ROPE = 13,
   APPEND_KV = 14,
+  GEMM_WIDE_W8 = 15,
   GEMM_MAT = 19,
+  ADD_NORM = 20,
   NORM_ROPE_QKV = 21,
   PREFETCH_MAT = 23,
   ATTN_DECODE_PAGED_F8 = 24,
   APPEND_KV_F8 = 25,
 };
 
-// Shared memory, in floats: the largest handler footprint (GEMM phase A:
-// KLANES x MAX_LIVE x TILE reduction slab + MAX_LIVE x 256 A chunk).
-constexpr int SMEM_FLOATS = KLANES * MAX_LIVE * TILE + MAX_LIVE * 256 + 64;
+constexpr int QCHUNK = 64;       // queue rows per shared-memory fetch (full body)
+constexpr int GW_COLS = 32;      // output columns of a GEMM_WIDE item
+constexpr int GW_A_FLOATS = 8192;  // staged A values (all live rows)
+
+// Shared memory, in floats: the largest handler footprint (GEMM_MAT phase
+// A: KLANES x MAX_LIVE x TILE reduction slab + MAX_LIVE x 256 A chunk;
+// GEMM_WIDE: the staged A chunk + WARPS x MAX_LIVE x GW_COLS sums).
+constexpr int GEMM_MAT_FLOATS = KLANES * MAX_LIVE * TILE + MAX_LIVE * 256 + 64;
+constexpr int GEMM_WIDE_FLOATS = GW_A_FLOATS + WARPS * MAX_LIVE * GW_COLS;
+constexpr int SMEM_FLOATS = GEMM_MAT_FLOATS > GEMM_WIDE_FLOATS
+                                ? GEMM_MAT_FLOATS : GEMM_WIDE_FLOATS;
 
 struct Args {
   const int* queue;        // (rows, WORDS): tasks, then page-table data
@@ -86,6 +125,7 @@ struct Args {
   const int* specs;        // (n_specs, 4): kt, ns, nt_out, epi per spec
   void* ws;                // (tiles, TILE, TILE) workspace, updated in place
   const void* wsm;         // (rows, MAT_COLS) matrix weight workspace
+  const __nv_fp8_e4m3* ws8;  // (tiles, TILE, TILE) e4m3 weight tiles (or null)
   __nv_fp8_e4m3* wkv8;     // (tiles, TILE, TILE) e4m3 KV pools (or null)
   float* partial;          // GEMM_MAT partial sums (fp32 scratch)
   int num_exec;
@@ -224,39 +264,115 @@ __device__ void t_rms_norm(T* ws, const int* w, int& seg, int live,
   seg += live;
 }
 
-// -- NORM_ROPE_QKV: qk-norm + rotate-half RoPE over the hq q-head tiles and
-// the hkv k-head tiles that follow them; one item per (live row, head).
+// -- One head tile of qk-norm + rotate-half RoPE: row r of tile `in` ->
+// row r of tile `out` (they may be the same tile), norm weight row from
+// tile `wt`, over the head's hd columns (pad lanes pass through the norm's
+// zero weight).
+template <typename T>
+__device__ void norm_rope_head(T* ws, int in, int out, int wt, int cos_t,
+                               int sin_t, int r, int hd, float eps,
+                               float* smem) {
+  float* xs = smem;            // TILE normalised values
+  float* red = smem + TILE;    // WARPS partial sums
+  const int c = threadIdx.x;
+  const float x = c < TILE ? ldw(tile_at(ws, in, r, c)) : 0.0f;
+  const float scale = inv_sqrt(block_sum(x * x, red) / (float)hd + eps);
+  float xn = 0.0f;
+  if (c < TILE) {
+    xn = x * scale * ldw(tile_at(ws, wt, r, c));
+    xs[c] = xn;
+  }
+  __syncthreads();
+  if (c < TILE) {
+    const int half = hd / 2;
+    const float rot = c < half ? -xs[c + half]
+                      : c < hd ? xs[c - half] : xs[c];
+    const float y = xn * ldw(tile_at(ws, cos_t, r, c))
+                    + rot * ldw(tile_at(ws, sin_t, r, c));
+    *tile_at(ws, out, r, c) = tdt::from_f<T>(y);
+  }
+  __syncthreads();
+}
+
+// -- NORM_ROPE_QKV: norm_rope_head over the hq q-head tiles and the hkv
+// k-head tiles that follow them, in place; one item per (live row, head).
 template <typename T>
 __device__ void t_norm_rope_qkv(T* ws, const int* w, int& seg, int live,
                                 int hd, float* smem) {
   const int a0 = w[2], qn = w[3], hq = w[4], kn = w[5], nh = hq + w[6];
-  const int cos_t = w[8], sin_t = w[9];
   const float eps = (float)w[7] * 1e-9f;
-  float* xs = smem;            // TILE normalised values
-  float* red = smem + TILE;    // WARPS partial sums
-  const int c = threadIdx.x;
   const int n = live * nh;
   for (int i = first_item(seg); i < n; i += gridDim.x) {
     const int r = i / nh, h = i % nh;
-    const float x = c < TILE ? ldw(tile_at(ws, a0 + h, r, c)) : 0.0f;
-    const float scale = inv_sqrt(block_sum(x * x, red) / (float)hd + eps);
-    float xn = 0.0f;
-    if (c < TILE) {
-      xn = x * scale * ldw(tile_at(ws, h < hq ? qn : kn, r, c));
-      xs[c] = xn;
-    }
-    __syncthreads();
-    if (c < TILE) {
-      const int half = hd / 2;
-      const float rot = c < half ? -xs[c + half]
-                        : c < hd ? xs[c - half] : xs[c];
-      const float y = xn * ldw(tile_at(ws, cos_t, r, c))
-                      + rot * ldw(tile_at(ws, sin_t, r, c));
-      *tile_at(ws, a0 + h, r, c) = tdt::from_f<T>(y);
-    }
-    __syncthreads();
+    norm_rope_head(ws, a0 + h, a0 + h, h < hq ? qn : kn, w[8], w[9], r, hd,
+                   eps, smem);
   }
   seg += n;
+}
+
+// -- NORM_ROPE: one head tile a0 -> out (norm weight b0, cos c0, sin d0);
+// one item per live row.
+template <typename T>
+__device__ void t_norm_rope(T* ws, const int* w, int& seg, int live, int hd,
+                            float* smem) {
+  const float eps = (float)w[7] * 1e-9f;
+  for (int r = first_item(seg); r < live; r += gridDim.x)
+    norm_rope_head(ws, w[2], w[1], w[3], w[8], w[9], r, hd, eps, smem);
+  seg += live;
+}
+
+// -- COPY / ADD / SILU_MUL / SCALE over a row of k_tiles tiles: fp32
+// inside, stored in the workspace type; one item per (live row, tile).
+// SCALE's factor is word 7 in fixed point 1e-6.
+template <typename T>
+__device__ void t_ew(T* ws, const int* w, int& seg, int live) {
+  const int type = w[0], out = w[1], a0 = w[2], b0 = w[3], kt = w[4];
+  const float factor = (float)w[7] * 1e-6f;
+  const int n = live * kt, c = threadIdx.x;
+  for (int i = first_item(seg); i < n; i += gridDim.x) {
+    const int r = i / kt, t = i % kt;
+    if (c < TILE) {
+      const float a = ldw(tile_at(ws, a0 + t, r, c));
+      float y = a;
+      if (type == ADD) {
+        y = a + ldw(tile_at(ws, b0 + t, r, c));
+      } else if (type == SILU_MUL) {
+        y = a / (1.0f + expf(-a)) * ldw(tile_at(ws, b0 + t, r, c));
+      } else if (type == SCALE) {
+        y = a * factor;
+      }
+      *tile_at(ws, out + t, r, c) = tdt::from_f<T>(y);
+    }
+  }
+  seg += n;
+}
+
+// -- ADD_NORM: x2 = a + b stored (tiles from `out`), then the RMSNorm of
+// the STORED, rounded x2 times the weight row (tiles from word 6) into the
+// tiles from d0 — bit-equal to the ADD + RMS_NORM pair. One item per live
+// row; each thread re-reads only the x2 elements it stored itself.
+template <typename T>
+__device__ void t_add_norm(T* ws, const int* w, int& seg, int live,
+                           float* smem) {
+  const int out = w[1], a0 = w[2], b0 = w[3], cols = w[4] * TILE;
+  const int nw = w[6], xn_out = w[9];
+  const float eps = (float)w[7] * 1e-9f;
+  for (int r = first_item(seg); r < live; r += gridDim.x) {
+    float ss = 0.0f;
+    for (int k = threadIdx.x; k < cols; k += THREADS) {
+      const float v = round_to<T>(ldw(tile_at(ws, a0 + k / TILE, r, k % TILE))
+                                  + ldw(tile_at(ws, b0 + k / TILE, r, k % TILE)));
+      *tile_at(ws, out + k / TILE, r, k % TILE) = tdt::from_f<T>(v);
+      ss += v * v;
+    }
+    const float scale = inv_sqrt(block_sum(ss, smem) / (float)cols + eps);
+    for (int k = threadIdx.x; k < cols; k += THREADS) {
+      const float v = ldw(tile_at(ws, out + k / TILE, r, k % TILE));
+      const float g = ldw(tile_at(ws, nw + k / TILE, r, k % TILE));
+      *tile_at(ws, xn_out + k / TILE, r, k % TILE) = tdt::from_f<T>(v * scale * g);
+    }
+  }
+  seg += live;
 }
 
 // -- APPEND_KV / APPEND_KV_F8 into pool tiles of type P (the workspace, or
@@ -280,119 +396,330 @@ __device__ void t_append_kv(const T* ws, P* pool, const int* w, int& seg) {
   seg += 1;
 }
 
-// -- ATTN_DECODE_PAGED / _F8: online softmax of one q head over the page
-// tiles (in pool type P: the workspace, or the e4m3 kv8 workspace) named
-// in the queue's data rows (from row b0), masked to `valid` = word 6, then
-// the current tokens folded in, then / l. Word 5 = 0: each row its own
-// k/v (c0/d0 row r); word 5 = win > 0: the causal window — row r folds the
-// block's fresh rows j <= r, j < win. One item per live row; the block's 8
-// warps split the pages and merge at the end.
-template <typename T, typename P>
-__device__ void t_attn_paged(T* ws, const P* pool, const int* queue,
-                             const int* w, int& seg, int live, float* smem) {
-  const int out = w[1], a0 = w[2], k_tiles = w[4], win = w[5], valid = w[6];
-  const int c0 = w[8], d0 = w[9];
-  const int* table = queue + (size_t)w[3] * WORDS;
-  const float scale = (float)w[7] * 1e-6f;
+// Where the j-th (kT, V) cache tile pair of an attention task lives: in a
+// page table (queue data rows: entry pair j at flat offsets 2j, 2j+1), or
+// at consecutive tiles of a linear cache (kT from kt0, V from vt0).
+struct PagedTiles {
+  const int* table;
+  __device__ __forceinline__ int k(int j) const { return __ldg(table + 2 * j); }
+  __device__ __forceinline__ int v(int j) const {
+    return __ldg(table + 2 * j + 1);
+  }
+};
+struct LinearTiles {
+  int kt0, vt0;
+  __device__ __forceinline__ int k(int j) const { return kt0 + j; }
+  __device__ __forceinline__ int v(int j) const { return vt0 + j; }
+};
+
+// -- One attention row: online softmax of row r of q tile `qt` over the
+// k_tiles cache tile pairs `kv` names (in pool type P: the workspace, or
+// the e4m3 kv8 workspace), masked to `valid`, then the current tokens
+// folded in, then / l, into row r of tile `out`. win = 0: the row's own
+// k/v (c0/d0 row r); win > 0: the causal window — row r folds the block's
+// fresh rows j <= r, j < win. The block's 8 warps split the tiles and
+// merge at the end.
+template <typename T, typename P, typename KV>
+__device__ __forceinline__ void attn_row(T* ws, const P* pool, const KV kv, int qt,
+                         int out, int k_tiles, int win, int valid, int c0,
+                         int d0, float scale, int r, float* smem) {
   float* qs = smem;                           // TILE
   float* pw = qs + TILE;                      // WARPS x TILE probabilities
   float* accs = pw + WARPS * TILE;            // WARPS x TILE partial PV
   float* ms = accs + WARPS * TILE;            // WARPS running maxima
   float* ls = ms + WARPS;                     // WARPS running sums
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int r = first_item(seg); r < live; r += gridDim.x) {
-    if (threadIdx.x < TILE) qs[threadIdx.x] = ldw(tile_at(ws, a0, r, threadIdx.x));
-    __syncthreads();
-    float m = tdt::NEG, l = 0.0f, acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    float* pwarp = pw + warp * TILE;
-    for (int j = warp; j < k_tiles; j += WARPS) {
-      const P* kt = pool + (size_t)__ldg(table + 2 * j) * TILE_ELEMS;
-      const P* vt = pool + (size_t)__ldg(table + 2 * j + 1) * TILE_ELEMS;
-      float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  if (threadIdx.x < TILE) qs[threadIdx.x] = ldw(tile_at(ws, qt, r, threadIdx.x));
+  __syncthreads();
+  float m = tdt::NEG, l = 0.0f, acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  float* pwarp = pw + warp * TILE;
+  for (int j = warp; j < k_tiles; j += WARPS) {
+    const P* kt = pool + (size_t)kv.k(j) * TILE_ELEMS;
+    const P* vt = pool + (size_t)kv.v(j) * TILE_ELEMS;
+    float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll 8
-      for (int d = 0; d < TILE; ++d) {   // kT tile: row d, columns = keys
-        float kv[4];
-        ldw4(kt + d * TILE + lane * 4, kv);
-        const float qd = qs[d];
+    for (int d = 0; d < TILE; ++d) {   // kT tile: row d, columns = keys
+      float kvv[4];
+      ldw4(kt + d * TILE + lane * 4, kvv);
+      const float qd = qs[d];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) s[i] += qd * kv[i];
-      }
-      float mt = tdt::NEG;
+      for (int i = 0; i < 4; ++i) s[i] += qd * kvv[i];
+    }
+    float mt = tdt::NEG;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        s[i] *= scale;
-        if (j * TILE + lane * 4 + i >= valid) s[i] = tdt::NEG;
-        mt = fmaxf(mt, s[i]);
-      }
-      const float m_new = fmaxf(m, warp_max(mt));
-      float psum = 0.0f;
+    for (int i = 0; i < 4; ++i) {
+      s[i] *= scale;
+      if (j * TILE + lane * 4 + i >= valid) s[i] = tdt::NEG;
+      mt = fmaxf(mt, s[i]);
+    }
+    const float m_new = fmaxf(m, warp_max(mt));
+    float psum = 0.0f;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float p = expf(s[i] - m_new);
-        psum += p;
-        pwarp[lane * 4 + i] = is_e4m3<P>() ? p : round_to<T>(p);
-      }
-      const float corr = expf(m - m_new);
-      l = l * corr + warp_sum(psum);
-      m = m_new;
-      __syncwarp();
+    for (int i = 0; i < 4; ++i) {
+      const float p = expf(s[i] - m_new);
+      psum += p;
+      pwarp[lane * 4 + i] = is_e4m3<P>() ? p : round_to<T>(p);
+    }
+    const float corr = expf(m - m_new);
+    l = l * corr + warp_sum(psum);
+    m = m_new;
+    __syncwarp();
 #pragma unroll
-      for (int i = 0; i < 4; ++i) acc[i] *= corr;
+    for (int i = 0; i < 4; ++i) acc[i] *= corr;
 #pragma unroll 8
-      for (int k = 0; k < TILE; ++k) {   // V tile: row = key, columns = d
-        float vv[4];
-        ldw4(vt + k * TILE + lane * 4, vv);
-        const float p = pwarp[k];
+    for (int k = 0; k < TILE; ++k) {   // V tile: row = key, columns = d
+      float vv[4];
+      ldw4(vt + k * TILE + lane * 4, vv);
+      const float p = pwarp[k];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i] += p * vv[i];
-      }
-      __syncwarp();
+      for (int i = 0; i < 4; ++i) acc[i] += p * vv[i];
     }
-    if (lane == 0) {
-      ms[warp] = m;
-      ls[warp] = l;
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) accs[warp * TILE + lane * 4 + i] = acc[i];
-    __syncthreads();
-    if (threadIdx.x < TILE) {
-      const int d = threadIdx.x;
-      float mx = tdt::NEG;
-      for (int q = 0; q < WARPS; ++q) mx = fmaxf(mx, ms[q]);
-      float lsum = 0.0f, a = 0.0f;
-      for (int q = 0; q < WARPS; ++q) {
-        const float f = expf(ms[q] - mx);
-        lsum += ls[q] * f;
-        a += accs[q * TILE + d] * f;
-      }
-      if (c0 >= 0) {
-        // Fresh rows: row r itself (win == 0), or rows 0..min(r, win-1).
-        const int j0 = win == 0 ? r : 0;
-        const int j1 = win == 0 ? r : min(r, win - 1);
-        float s_w[MAX_LIVE];
-        float m_new = mx;
-        for (int j = j0; j <= j1; ++j) {
-          float sj = 0.0f;
-          for (int e = 0; e < TILE; ++e)
-            sj += qs[e] * cur_kv<P>(ldw(tile_at(ws, c0, j, e)));
-          s_w[j - j0] = sj * scale;
-          m_new = fmaxf(m_new, s_w[j - j0]);
-        }
-        const float corr = expf(mx - m_new);
-        float pv = 0.0f, psum = 0.0f;
-        for (int j = j0; j <= j1; ++j) {
-          const float pj = expf(s_w[j - j0] - m_new);
-          pv += pj * cur_kv<P>(ldw(tile_at(ws, d0, j, d)));
-          psum += pj;
-        }
-        a = a * corr + pv;
-        lsum = lsum * corr + psum;
-      }
-      *tile_at(ws, out, r, d) = tdt::from_f<T>(a / fmaxf(lsum, 1e-30f));
-    }
-    __syncthreads();
+    __syncwarp();
   }
+  if (lane == 0) {
+    ms[warp] = m;
+    ls[warp] = l;
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) accs[warp * TILE + lane * 4 + i] = acc[i];
+  __syncthreads();
+  if (threadIdx.x < TILE) {
+    const int d = threadIdx.x;
+    float mx = tdt::NEG;
+    for (int q = 0; q < WARPS; ++q) mx = fmaxf(mx, ms[q]);
+    float lsum = 0.0f, a = 0.0f;
+    for (int q = 0; q < WARPS; ++q) {
+      const float f = expf(ms[q] - mx);
+      lsum += ls[q] * f;
+      a += accs[q * TILE + d] * f;
+    }
+    if (c0 >= 0) {
+      // Fresh rows: row r itself (win == 0), or rows 0..min(r, win-1).
+      const int j0 = win == 0 ? r : 0;
+      const int j1 = win == 0 ? r : min(r, win - 1);
+      float s_w[MAX_LIVE];
+      float m_new = mx;
+      for (int j = j0; j <= j1; ++j) {
+        float sj = 0.0f;
+        for (int e = 0; e < TILE; ++e)
+          sj += qs[e] * cur_kv<P>(ldw(tile_at(ws, c0, j, e)));
+        s_w[j - j0] = sj * scale;
+        m_new = fmaxf(m_new, s_w[j - j0]);
+      }
+      const float corr = expf(mx - m_new);
+      float pv = 0.0f, psum = 0.0f;
+      for (int j = j0; j <= j1; ++j) {
+        const float pj = expf(s_w[j - j0] - m_new);
+        pv += pj * cur_kv<P>(ldw(tile_at(ws, d0, j, d)));
+        psum += pj;
+      }
+      a = a * corr + pv;
+      lsum = lsum * corr + psum;
+    }
+    *tile_at(ws, out, r, d) = tdt::from_f<T>(a / fmaxf(lsum, 1e-30f));
+  }
+  __syncthreads();
+}
+
+// -- ATTN_DECODE_PAGED / _F8: one q head over the page tiles named in the
+// queue's data rows (from row b0); word 5 = the speculative window, word
+// 6 = valid. One item per live row.
+template <typename T, typename P>
+__device__ void t_attn_paged(T* ws, const P* pool, const int* queue,
+                             const int* w, int& seg, int live, float* smem) {
+  const PagedTiles kv{queue + (size_t)w[3] * WORDS};
+  const float scale = (float)w[7] * 1e-6f;
+  for (int r = first_item(seg); r < live; r += gridDim.x)
+    attn_row(ws, pool, kv, w[2], w[1], w[4], w[5], w[6], w[8], w[9], scale, r,
+             smem);
   seg += live;
+}
+
+// -- ATTN_DECODE / ATTN_DECODE_GQA over a linear cache in the workspace: kT
+// tiles from b0, V tiles from word 5, valid = word 6, each row folding its
+// own current k/v (c0/d0). GQA: the g = arg >> 24 q heads at tiles a0..
+// (outputs at out..) share the kv head, the scale is the low 24 bits of
+// arg (fixed point 1e-6); ATTN_DECODE is its g = 1 case with the whole
+// word as the scale. One item per (live row, q head): each block re-reads
+// the head's cache, which the group's other blocks hold in L2.
+template <typename T>
+__device__ void t_attn_linear(T* ws, const int* w, int& seg, int live,
+                              float* smem) {
+  const bool gqa = w[0] == ATTN_DECODE_GQA;
+  const int g = gqa ? w[7] >> 24 : 1;
+  const float scale = (float)(gqa ? w[7] & 0xFFFFFF : w[7]) * 1e-6f;
+  const LinearTiles kv{w[3], w[5]};
+  const int n = live * g;
+  for (int i = first_item(seg); i < n; i += gridDim.x) {
+    const int r = i / g, h = i % g;
+    attn_row(ws, static_cast<const T*>(ws), kv, w[2] + h, w[1] + h, w[4], 0,
+             w[6], w[8], w[9], scale, r, smem);
+  }
+  seg += n;
+}
+
+// -- GEMM_WIDE / GEMM_WIDE_W8: `width` = word 7 output column tiles from
+// `out` = A row (k_tiles tiles from a0) @ B, B tile (j, c) at b0 + j *
+// b_stride + c in the workspace (B = T) or the e4m3 weight workspace,
+// widened to fp32 (exact), fp32 sums, one rounding at the store. Item =
+// (column tile, 32-column slice): the block's threads split each B tile's
+// 128 rows (16-byte loads: 2, 4 or 8 threads per 32-column row slice), the
+// A row is staged in shared memory in the workspace type (32 KiB: all of K
+// for one bf16 row up to 16384 wide, else in chunks) and kept across the
+// items and consecutive GEMM_WIDE tasks that read the same row (`staged`:
+// q, k, v share one row, gate and up another), and the sums over the
+// threads' rows go through warp shuffles, then over the 8 warps in index
+// order. Word 9 (the TPU's super-strip fetch flag) is not arithmetic and
+// is ignored.
+template <typename B>
+__device__ __forceinline__ uint4 ld_b16(const B* p) {
+  return __ldcg(reinterpret_cast<const uint4*>(p));   // may be task-written
+}
+template <>
+__device__ __forceinline__ uint4 ld_b16<__nv_fp8_e4m3>(const __nv_fp8_e4m3* p) {
+  return __ldg(reinterpret_cast<const uint4*>(p));    // weights: read-only
+}
+
+__device__ __forceinline__ void unpack16(const uint4& u, const float*, float v[4]) {
+  v[0] = __uint_as_float(u.x); v[1] = __uint_as_float(u.y);
+  v[2] = __uint_as_float(u.z); v[3] = __uint_as_float(u.w);
+}
+__device__ __forceinline__ void unpack16(const uint4& u, const __nv_bfloat16*,
+                                         float v[8]) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    v[2 * i] = f.x;
+    v[2 * i + 1] = f.y;
+  }
+}
+__device__ __forceinline__ void unpack16(const uint4& u, const __nv_fp8_e4m3*,
+                                         float v[16]) {
+  const __nv_fp8x2_storage_t* e =
+      reinterpret_cast<const __nv_fp8x2_storage_t*>(&u);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {      // two e4m3 values per conversion, exact
+    const float2 f = __half22float2(__half2(__nv_cvt_fp8x2_to_halfraw2(e[i], __NV_E4M3)));
+    v[2 * i] = f.x;
+    v[2 * i + 1] = f.y;
+  }
+}
+
+// ML: the live rows one pass holds sums for (1: one-token decode; 2
+// otherwise, so rows 0-1 then rows 2-3 — the sums stay in registers).
+template <typename T, typename B, int ML>
+__device__ __noinline__ void gemm_wide_items(T* ws, const B* bws, const int* w,
+                                             int& seg, int live, float* smem,
+                                             int& staged) {
+  constexpr int EPL = 16 / (int)sizeof(B);      // elements per 16-byte load
+  constexpr int TPR = GW_COLS / EPL;            // threads per row slice
+  constexpr int RPP = THREADS / TPR;            // B rows per pass
+  constexpr int PASSES = TILE / RPP;            // passes per B tile
+  constexpr int UNROLL = ML == 1 ? 6 : 4;       // loads in flight per thread
+  constexpr int A_ELEMS = GW_A_FLOATS * (int)sizeof(float) / (int)sizeof(T);
+  const int out = w[1], a0 = w[2], b0 = w[3], kt = w[4], b_stride = w[6];
+  const int width = w[7];
+  T* as = reinterpret_cast<T*>(smem);           // live x (kc_tiles * TILE)
+  float* red = smem + GW_A_FLOATS;              // WARPS x ML x GW_COLS
+  const int kc_tiles = A_ELEMS / TILE / live;   // A tiles per chunk
+  const int kc = kc_tiles * TILE;
+  const bool whole = kt <= kc_tiles;            // the row fits: keep it
+  const int key = (a0 << 8) | kt;               // which row, how much of it
+  const int cg = threadIdx.x % TPR, rl = threadIdx.x / TPR;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int n = width * (TILE / GW_COLS);
+  for (int it = first_item(seg); it < n; it += gridDim.x) {
+    const int wc = it / (TILE / GW_COLS), cs = it % (TILE / GW_COLS);
+    for (int r0 = 0; r0 < live; r0 += ML) {
+      const int nr = min(ML, live - r0);
+      float acc[ML][EPL];
+#pragma unroll
+      for (int r = 0; r < ML; ++r)
+#pragma unroll
+        for (int i = 0; i < EPL; ++i) acc[r][i] = 0.0f;
+      for (int j0 = 0; j0 < kt; j0 += kc_tiles) {
+        const int nt = min(kc_tiles, kt - j0);
+        if (!(whole && staged == key)) {
+          __syncthreads();              // the last readers of `as` are done
+          for (int i = threadIdx.x; i < live * nt * TILE; i += THREADS) {
+            const int r = i / (nt * TILE), k = i % (nt * TILE);
+            as[r * kc + k] = __ldcg(static_cast<const T*>(
+                tile_at(ws, a0 + j0 + k / TILE, r, k % TILE)));
+          }
+          __syncthreads();
+          staged = whole ? key : -1;
+        }
+        // Steps of this chunk: (tile j, pass p) flattened; UNROLL loads
+        // in flight per thread before their products.
+        const int steps = nt * PASSES;
+        for (int s0 = 0; s0 < steps; s0 += UNROLL) {
+          uint4 raw[UNROLL];
+#pragma unroll
+          for (int u = 0; u < UNROLL; ++u) {
+            const int s1 = s0 + u;
+            if (s1 < steps) {
+              const int j = s1 / PASSES, row = (s1 % PASSES) * RPP + rl;
+              const B* bt = bws + ((size_t)b0 + (size_t)(j0 + j) * b_stride
+                                   + wc) * TILE_ELEMS;
+              raw[u] = ld_b16(bt + row * TILE + cs * GW_COLS + cg * EPL);
+            }
+          }
+#pragma unroll
+          for (int u = 0; u < UNROLL; ++u) {
+            const int s1 = s0 + u;
+            if (s1 < steps) {
+              float bv[EPL];
+              unpack16(raw[u], static_cast<const B*>(nullptr), bv);
+              const int k = (s1 / PASSES) * TILE + (s1 % PASSES) * RPP + rl;
+#pragma unroll
+              for (int r = 0; r < ML; ++r) {
+                if (r < nr) {
+                  const float a = tdt::to_f(as[(r0 + r) * kc + k]);
+#pragma unroll
+                  for (int i = 0; i < EPL; ++i) acc[r][i] += a * bv[i];
+                }
+              }
+            }
+          }
+        }
+      }
+      // Sum over the threads' rows: lanes of one warp that share a column
+      // group differ in lane / TPR; then the 8 warps in index order.
+#pragma unroll
+      for (int r = 0; r < ML; ++r) {
+        if (r < nr) {
+#pragma unroll
+          for (int i = 0; i < EPL; ++i) {
+            float v = acc[r][i];
+#pragma unroll
+            for (int o = 16; o >= TPR; o >>= 1)
+              v += __shfl_xor_sync(0xffffffffu, v, o);
+            if (lane < TPR) red[(warp * ML + r) * GW_COLS + cg * EPL + i] = v;
+          }
+        }
+      }
+      __syncthreads();
+      for (int i = threadIdx.x; i < nr * GW_COLS; i += THREADS) {
+        const int r = i / GW_COLS, c = i % GW_COLS;
+        float v = 0.0f;
+#pragma unroll
+        for (int q = 0; q < WARPS; ++q) v += red[(q * ML + r) * GW_COLS + c];
+        *tile_at(ws, out + wc, r0 + r, cs * GW_COLS + c) = tdt::from_f<T>(v);
+      }
+      __syncthreads();
+    }
+  }
+  seg += n;
+}
+
+template <typename T, typename B>
+__device__ void t_gemm_wide(T* ws, const B* bws, const int* w, int& seg,
+                            int live, float* smem, int& staged) {
+  if (live == 1)
+    gemm_wide_items<T, B, 1>(ws, bws, w, seg, live, smem, staged);
+  else
+    gemm_wide_items<T, B, 2>(ws, bws, w, seg, live, smem, staged);
 }
 
 // -- GEMM_MAT: out (row) = A row @ W, W stored as 1024-column strips of the
@@ -402,7 +729,9 @@ __device__ void t_attn_paged(T* ws, const P* pool, const int* queue,
 // from b_stride) into the tiles from d0 (eps in arg >> 8).
 __device__ __forceinline__ int gemm_kch(int K) { return K % 256 == 0 ? 256 : 128; }
 
-template <typename T>
+// ML: the live rows the instantiation holds sums for (MAX_LIVE, or 1 where
+// the caller knows the step has one live row).
+template <typename T, int ML>
 __device__ void t_gemm_mat(T* ws, const T* wsm, float* partial,
                            const int* specs, const int* w, int& seg, int live,
                            float* smem, cg::grid_group& grid) {
@@ -428,9 +757,9 @@ __device__ void t_gemm_mat(T* ws, const T* wsm, float* partial,
       as[i] = ldw(tile_at(ws, a0 + k / TILE, r, k % TILE));
     }
     __syncthreads();
-    float acc[MAX_LIVE][8];
+    float acc[ML][8];
 #pragma unroll
-    for (int r = 0; r < MAX_LIVE; ++r)
+    for (int r = 0; r < ML; ++r)
 #pragma unroll
       for (int i = 0; i < 8; ++i) acc[r][i] = 0.0f;
     const T* wp = wsm + ((size_t)b0 + (size_t)s * K + (size_t)ks * kch) * MAT_COLS
@@ -440,7 +769,7 @@ __device__ void t_gemm_mat(T* ws, const T* wsm, float* partial,
       float wv[8];
       ldm8(wp + (size_t)k * MAT_COLS, wv);
 #pragma unroll
-      for (int r = 0; r < MAX_LIVE; ++r) {
+      for (int r = 0; r < ML; ++r) {
         if (r < live) {
           const float a = as[r * kch + k];
 #pragma unroll
@@ -449,7 +778,7 @@ __device__ void t_gemm_mat(T* ws, const T* wsm, float* partial,
       }
     }
 #pragma unroll
-    for (int r = 0; r < MAX_LIVE; ++r)
+    for (int r = 0; r < ML; ++r)
       if (r < live)
 #pragma unroll
         for (int i = 0; i < 8; ++i)
@@ -516,33 +845,102 @@ __device__ void t_gemm_mat(T* ws, const T* wsm, float* partial,
   seg += n_b;
 }
 
+// The task types beyond the paged serving program's: false where `type` is
+// none of them. Only the FULL kernel instantiates this.
 template <typename T>
-__global__ void __launch_bounds__(THREADS) mega_kernel(Args args) {
+__device__ __forceinline__ bool run_linear_task(const Args& args, T* ws,
+                                                const int* w, int& seg,
+                                                int live, float* smem,
+                                                int& staged) {
+  switch (w[0]) {
+    case COPY:
+    case ADD:
+    case SILU_MUL:
+    case SCALE:
+      t_ew(ws, w, seg, live);
+      return true;
+    case ATTN_DECODE:
+    case ATTN_DECODE_GQA:
+      t_attn_linear(ws, w, seg, live, smem);
+      return true;
+    case GEMM_WIDE:
+      t_gemm_wide(ws, static_cast<const T*>(ws), w, seg, live, smem, staged);
+      return true;
+    case GEMM_WIDE_W8:
+      t_gemm_wide(ws, args.ws8, w, seg, live, smem, staged);
+      return true;
+    case NORM_ROPE:
+      t_norm_rope(ws, w, seg, live, args.head_dim, smem);
+      return true;
+    case ADD_NORM:
+      t_add_norm(ws, w, seg, live, smem);
+      return true;
+    default:
+      return false;
+  }
+}
+
+// Two instantiations per workspace type, as the TPU kernel compiles only
+// the switch branches a program uses: FULL = false interprets the paged
+// serving program's types and nothing else (128 registers, two blocks per
+// SM: more inlined handlers would share its register allocation and spill
+// its GEMM loop); FULL = true interprets every ported type with one block
+// per SM and no register cap, with GEMM_MAT specialised for one live row.
+// The host picks by the queue's types.
+template <typename T, bool FULL>
+__global__ void __launch_bounds__(THREADS, FULL ? 1 : 2) mega_kernel(Args args) {
   cg::grid_group grid = cg::this_grid();
   __shared__ float smem[SMEM_FLOATS];
   T* ws = static_cast<T*>(args.ws);
   const T* wsm = static_cast<const T*>(args.wsm);
   const int live = args.live_rows;
   int seg = 0;
-  // The next row's words load while the current task runs.
+  // The A row (tile and width) GEMM_WIDE holds staged in shared memory (-1:
+  // none); any other task may use the shared memory or rewrite the row.
+  int staged = -1;
+  // Queue rows reach the handlers from registers (lean body: the next
+  // row's words load while the current task runs) or from shared memory
+  // (full body: QCHUNK rows per fetch — the tile-layout program has many
+  // one-item tasks, and a per-row fetch would put an L2 round trip on
+  // every one of them for every block).
+  __shared__ int qrows[FULL ? QCHUNK : 1][WORDS + 1];
   int nxt[WORDS + 1];
+  if (!FULL) {
 #pragma unroll
-  for (int i = 0; i < WORDS; ++i) nxt[i] = __ldg(args.queue + i);
-  nxt[WORDS] = 0;
+    for (int i = 0; i < WORDS; ++i) nxt[i] = __ldg(args.queue + i);
+    nxt[WORDS] = 0;
+  }
   for (int p = 0; p < args.num_exec; ++p) {
-    int w[WORDS + 1];
+    int wreg[WORDS + 1];
+    const int* w = wreg;
+    if (FULL) {
+      if (p % QCHUNK == 0) {
+        __syncthreads();
+        const int rows = min(QCHUNK, args.num_exec - p);
+        for (int i = threadIdx.x; i < rows * (WORDS + 1); i += THREADS) {
+          const int r = i / (WORDS + 1), c = i % (WORDS + 1);
+          qrows[r][c] = c < WORDS
+                            ? __ldg(args.queue + (size_t)(p + r) * WORDS + c)
+                            : (p + r ? __ldg(args.sync_before + p + r) : 0);
+        }
+        __syncthreads();
+      }
+      w = qrows[p % QCHUNK];
+    } else {
 #pragma unroll
-    for (int i = 0; i <= WORDS; ++i) w[i] = nxt[i];
-    if (p + 1 < args.num_exec) {
+      for (int i = 0; i <= WORDS; ++i) wreg[i] = nxt[i];
+      if (p + 1 < args.num_exec) {
 #pragma unroll
-      for (int i = 0; i < WORDS; ++i)
-        nxt[i] = __ldg(args.queue + (size_t)(p + 1) * WORDS + i);
-      nxt[WORDS] = __ldg(args.sync_before + p + 1);
+        for (int i = 0; i < WORDS; ++i)
+          nxt[i] = __ldg(args.queue + (size_t)(p + 1) * WORDS + i);
+        nxt[WORDS] = __ldg(args.sync_before + p + 1);
+      }
     }
     if (w[WORDS]) {
       grid.sync();
       seg = 0;
     }
+    if (FULL && w[0] != GEMM_WIDE && w[0] != GEMM_WIDE_W8) staged = -1;
     switch (w[0]) {
       case RMS_NORM:
         t_rms_norm(ws, w, seg, live, smem);
@@ -562,7 +960,12 @@ __global__ void __launch_bounds__(THREADS) mega_kernel(Args args) {
         t_append_kv(ws, args.wkv8, w, seg);
         break;
       case GEMM_MAT:
-        t_gemm_mat(ws, wsm, args.partial, args.specs, w, seg, live, smem, grid);
+        if (FULL && live == 1)
+          t_gemm_mat<T, 1>(ws, wsm, args.partial, args.specs, w, seg, live,
+                           smem, grid);
+        else
+          t_gemm_mat<T, MAX_LIVE>(ws, wsm, args.partial, args.specs, w, seg,
+                                  live, smem, grid);
         break;
       case NORM_ROPE_QKV:
         t_norm_rope_qkv(ws, w, seg, live, args.head_dim, smem);
@@ -574,22 +977,26 @@ __global__ void __launch_bounds__(THREADS) mega_kernel(Args args) {
         // chunk, so the warm has no work and no effect on the result.
         break;
       default:
-        __trap();
+        if constexpr (FULL) {
+          if (!run_linear_task(args, ws, w, seg, live, smem, staged)) __trap();
+        } else {
+          __trap();
+        }
     }
   }
 }
 
 // Blocks of the cooperative grid, found once per instantiation (the port
 // drives one card per process): every SM, up to 2 blocks each.
-template <typename T>
+template <typename T, bool FULL>
 int& grid_blocks() {
   static int blocks = 0;
   return blocks;
 }
 
-template <typename T>
+template <typename T, bool FULL>
 cudaError_t launch(const Args& args, cudaStream_t stream) {
-  int& blocks = grid_blocks<T>();
+  int& blocks = grid_blocks<T, FULL>();
   if (blocks == 0) {
     int dev = 0, sms = 0, coop = 0, per_sm = 0;
     cudaError_t err = cudaGetDevice(&dev);
@@ -599,8 +1006,8 @@ cudaError_t launch(const Args& args, cudaStream_t stream) {
       err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
     if (err != cudaSuccess) return err;
     if (!coop) return cudaErrorNotSupported;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, mega_kernel<T>,
-                                                        THREADS, 0);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, mega_kernel<T, FULL>, THREADS, 0);
     if (err != cudaSuccess) return err;
     if (per_sm < 1) return cudaErrorLaunchOutOfResources;
     blocks = sms * (per_sm < 2 ? per_sm : 2);
@@ -608,7 +1015,7 @@ cudaError_t launch(const Args& args, cudaStream_t stream) {
   Args a = args;
   void* params[] = {&a};
   const cudaError_t err = cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(mega_kernel<T>), dim3(blocks),
+      reinterpret_cast<const void*>(mega_kernel<T, FULL>), dim3(blocks),
       dim3(THREADS), params, 0, stream);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
@@ -616,22 +1023,32 @@ cudaError_t launch(const Args& args, cudaStream_t stream) {
 
 }  // namespace
 
+// `full`: 1 where the queue holds a task type beyond the paged serving
+// program's (the FULL instantiation), else 0.
 extern "C" int megakernel_run(const int* queue, const int* sync_before,
                               const int* specs, void* ws, const void* wsm,
-                              void* wkv8, float* partial, int num_exec,
-                              int live_rows, int head_dim, int dtype,
-                              void* stream) {
+                              const void* ws8, void* wkv8, float* partial,
+                              int num_exec, int live_rows, int head_dim,
+                              int dtype, int full, void* stream) {
   if (live_rows < 1 || live_rows > MAX_LIVE) return cudaErrorInvalidValue;
   Args args{queue,   sync_before, specs,     ws,       wsm,
+            static_cast<const __nv_fp8_e4m3*>(ws8),
             static_cast<__nv_fp8_e4m3*>(wkv8), partial, num_exec, live_rows,
             head_dim};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = dtype == 1 ? launch<__nv_bfloat16>(args, s)
-                                     : launch<float>(args, s);
+  cudaError_t err;
+  if (dtype == 1)
+    err = full ? launch<__nv_bfloat16, true>(args, s)
+               : launch<__nv_bfloat16, false>(args, s);
+  else
+    err = full ? launch<float, true>(args, s) : launch<float, false>(args, s);
   return static_cast<int>(err);
 }
 
-extern "C" int megakernel_grid(int dtype) {
-  // Blocks of the launches of that dtype (0 before the first).
-  return dtype == 1 ? grid_blocks<__nv_bfloat16>() : grid_blocks<float>();
+extern "C" int megakernel_grid(int dtype, int full) {
+  // Blocks of the launches of that instantiation (0 before the first).
+  if (dtype == 1)
+    return full ? grid_blocks<__nv_bfloat16, true>()
+                : grid_blocks<__nv_bfloat16, false>();
+  return full ? grid_blocks<float, true>() : grid_blocks<float, false>();
 }

@@ -1,19 +1,25 @@
 """MegaKernel model builder — record ops as tasks, compile once, replay.
 
 The port's counterpart of the JAX package's ``megakernel/builder.py``,
-with the ops the paged serving program emits (``rms_norm``,
-``gemm_mat``, ``prefetch_mat``, ``norm_rope_qkv``, ``attn_decode_paged``,
-``append_kv``, each pool op also over e4m3 pools). Tensor allocation,
-hazard bookkeeping, the schedule and the packed queue follow the JAX
-builder step for step, so both emit the same queue word for word (the CPU
-tests hold them equal).
+with the ops the decode programs emit: the paged serving program's
+(``rms_norm``, ``gemm_mat``, ``prefetch_mat``, ``norm_rope_qkv``,
+``attn_decode_paged``, ``append_kv``, each pool op also over e4m3 pools)
+and the linear programs' (``attn_decode_gqa``, ``attn_decode``, the
+linear ``append_kv``, and for the tile weight layout ``gemm`` — GEMM_WIDE,
+or GEMM_WIDE_W8 over e4m3 weight tiles —, ``norm_rope``, ``add_norm``,
+``copy`` / ``add`` / ``silu_mul`` / ``scale``). ``prefetch`` (PREFETCH /
+PREFETCH_W8) is refused by name: no decode program emits it. Tensor
+allocation, hazard bookkeeping, the schedule and the packed queue follow
+the JAX builder step for step, so both emit the same queue word for word
+(the CPU tests hold them equal).
 
 :class:`CompiledMegaKernel` carries the queue and the workspace geometry;
 its workspaces are torch tensors updated IN PLACE (the JAX package
 threads donated arrays through jits instead): the main workspace, the
-matrix weight workspace and, for programs with e4m3 pools, the kv8
-workspace (``tensor(kv8=True)`` tiles, read by ATTN_DECODE_PAGED_F8 and
-written by APPEND_KV_F8).
+matrix weight workspace, the e4m3 weight-tile workspace
+(``tensor(fp8=True)`` tiles, GEMM_WIDE_W8's B operands, read-only) and,
+for programs with e4m3 pools, the kv8 workspace (``tensor(kv8=True)``
+tiles, read by ATTN_DECODE_PAGED_F8 and written by APPEND_KV_F8).
 
 Reference: ``mega_triton_kernel/models/model_builder.py:83-406``.
 """
@@ -25,7 +31,9 @@ import dataclasses
 import numpy as np
 import torch
 
-from triton_distributed_tpu_torch.megakernel.kernel import run_queue
+from triton_distributed_tpu_torch.megakernel.kernel import (
+    MegakernelUnsupportedError, run_queue,
+)
 from triton_distributed_tpu_torch.megakernel.scheduler import topo_schedule
 from triton_distributed_tpu_torch.megakernel.tasks import (
     MAT_COLS, TILE, WORDS, MatHandle, MatSpec, Task, TaskType, TensorHandle,
@@ -42,10 +50,12 @@ class MegaKernelBuilder:
     (the role of the reference's TaskDependency records,
     core/task_base.py:112-218)."""
 
-    # Hazard-id offset for 2D matrix-workspace rows (GEMM_MAT B operands):
-    # their ids live in a separate space, so dependency bookkeeping must
-    # not collide them with main-workspace tile ids (the JAX builder's
-    # value, so the exported hazard sets match).
+    # Hazard-id offset for e4m3 weight-workspace tiles (GEMM_WIDE_W8 B
+    # operands): their tile ids live in a separate space, so dependency
+    # bookkeeping must not collide them with main-workspace ids (the JAX
+    # builder's values, so the exported hazard sets match).
+    _W8_HAZARD = 1 << 30
+    # Same for 2D matrix-workspace rows (GEMM_MAT B operands).
     _WM_HAZARD = 1 << 29
     # And for the e4m3 KV-pool tiles (the kv8 workspace, read-write):
     # appends stay ordered after the attention reads of the same tile.
@@ -56,9 +66,13 @@ class MegaKernelBuilder:
         # (build_decode_step(head_dim=)); compile() inherits it.
         self.head_dim = TILE
         self._num_tiles = 0
+        self._num_tiles8 = 0
         self._num_tiles_kv8 = 0
         self._num_mrows = 0
         self._max_row = 1
+        self._max_gqa = 1
+        self._max_gemm_width = 1
+        self._max_strip = 1
         self._mat_specs: list[MatSpec] = []
         self._tasks: list[Task] = []
         self._edges: list[tuple[int, int]] = []
@@ -76,12 +90,23 @@ class MegaKernelBuilder:
         self._pending_pf_mat: tuple[int, int] | None = None
 
     # -- tensors ------------------------------------------------------------
-    def tensor(self, rows: int, cols: int, kv8: bool = False) -> TensorHandle:
-        """``kv8=True``: allocate in the e4m3 KV-pool workspace (its own
-        tile-id space from 0) — paged pools at half the bf16 bytes."""
+    def tensor(self, rows: int, cols: int, fp8: bool = False,
+               kv8: bool = False) -> TensorHandle:
+        """``fp8=True``: allocate in the e4m3 WEIGHT workspace (a separate
+        read-only input with its own tile-id space from 0 — GEMM B
+        operands only, half the weight bytes of bf16). ``kv8=True``:
+        allocate in the e4m3 KV-pool workspace (its own tile-id space
+        from 0) — paged pools at half the bf16 bytes."""
         if rows % TILE or cols % TILE:
             raise ValueError(f"dims must be multiples of {TILE}, got "
                              f"({rows}, {cols})")
+        if fp8 and kv8:
+            raise ValueError("fp8 (weight) and kv8 (KV pool) are distinct "
+                             "workspaces — pick one")
+        if fp8:
+            h = TensorHandle(self._num_tiles8, rows, cols, fp8=True)
+            self._num_tiles8 += h.rt * h.ct
+            return h
         if kv8:
             h = TensorHandle(self._num_tiles_kv8, rows, cols, kv8=True)
             self._num_tiles_kv8 += h.rt * h.ct
@@ -91,10 +116,17 @@ class MegaKernelBuilder:
         return h
 
     @staticmethod
-    def _no_kv8(*handles):
-        """kv8 tile ids start at 0 in their own space: any op other than
-        the paged pools' would alias main-workspace tiles."""
+    def _no_fp8(*handles):
+        """fp8-space handles are GEMM B operands only, and kv8 pool handles
+        paged-attention/append operands only: their tile ids start at 0 in
+        their own spaces, so any other op encoding them would alias
+        main-workspace tiles (data and hazards)."""
         for h in handles:
+            if h is not None and getattr(h, "fp8", False):
+                raise ValueError(
+                    "fp8 weight-workspace tensors can only be GEMM B "
+                    "operands (GEMM_WIDE_W8) — other tasks address the "
+                    "main workspace")
             if h is not None and getattr(h, "kv8", False):
                 raise ValueError(
                     "kv8 pool-workspace tensors can only be paged KV "
@@ -136,6 +168,92 @@ class MegaKernelBuilder:
         return tid
 
     # -- ops ----------------------------------------------------------------
+    def copy(self, out: TensorHandle, a: TensorHandle):
+        self._ew(TaskType.COPY, out, a)
+
+    def add(self, out: TensorHandle, a: TensorHandle, b: TensorHandle):
+        self._ew(TaskType.ADD, out, a, b)
+
+    def silu_mul(self, out: TensorHandle, gate: TensorHandle,
+                 up: TensorHandle):
+        self._ew(TaskType.SILU_MUL, out, gate, up)
+
+    def scale(self, out: TensorHandle, a: TensorHandle, factor: float):
+        self._ew(TaskType.SCALE, out, a, arg=int(round(factor * 1e6)))
+
+    def _ew(self, tt: TaskType, out, a, b=None, arg: int = 0):
+        """One task per ROW of tiles (k_tiles = ct), so a wide elementwise
+        op costs one dispatch instead of ct."""
+        self._no_fp8(out, a, b)
+        if (out.rt, out.ct) != (a.rt, a.ct) or (b and (b.rt, b.ct) != (a.rt, a.ct)):
+            raise ValueError("elementwise shape mismatch")
+        for i in range(out.rt):
+            reads = [a.tile(i, j) for j in range(a.ct)]
+            if b:
+                reads += [b.tile(i, j) for j in range(a.ct)]
+            self._emit(Task(tt, out.tile(i, 0), a0=a.tile(i, 0),
+                            b0=b.tile(i, 0) if b else a.tile(i, 0),
+                            k_tiles=a.ct, arg=arg),
+                       reads, [out.tile(i, j) for j in range(out.ct)])
+            self._max_row = max(self._max_row, a.ct)
+
+    def prefetch(self, weight_tile: int, fp8: bool = False):
+        """The JAX builder's single-tile weight warm (PREFETCH /
+        PREFETCH_W8). Not ported: no decode program emits it (the strip
+        fetch made the one-tile warm useless there), so the port refuses
+        it by name rather than carry a task type nothing runs."""
+        raise MegakernelUnsupportedError(
+            f"prefetch (task type "
+            f"{'PREFETCH_W8' if fp8 else 'PREFETCH'}) is not ported: no "
+            "decode program emits the single-tile weight warm")
+
+    def gemm(self, out: TensorHandle, a: TensorHandle, b: TensorHandle,
+             prefetch_first: bool = False, width: int = 16):
+        """out (M,N) = a (M,K) @ b (K,N) as GEMM_WIDE strips of up to
+        ``width`` output column tiles per task (GEMM_WIDE_W8 when ``b``
+        lives in the e4m3 weight workspace). A task that spans B's full
+        width with k % 4 == 0 carries the super-strip flag (d0 = 4): on
+        the TPU a fetch shape, four k-rows per DMA; the CUDA kernel reads
+        the same tiles either way, the word is kept so the queue equals
+        the JAX builder's. ``prefetch_first`` needs :meth:`prefetch`,
+        which the port refuses."""
+        if isinstance(b, MatHandle):
+            raise TypeError("matrix-workspace weights go through gemm_mat, "
+                            "not gemm")
+        if a.cols != b.rows or out.rows != a.rows or out.cols != b.cols:
+            raise ValueError("gemm shape mismatch")
+        if not 1 <= width <= 16:
+            raise ValueError(f"gemm width {width} out of range")
+        if a.fp8 or out.fp8:
+            raise ValueError("fp8 space holds weights (GEMM B operands) "
+                             "only — activations/outputs stay in the main "
+                             "workspace")
+        if prefetch_first:
+            raise MegakernelUnsupportedError(
+                "gemm(prefetch_first=True) consumes a PREFETCH warm, which "
+                "is not ported")
+        kt = a.ct
+        tt = TaskType.GEMM_WIDE_W8 if b.fp8 else TaskType.GEMM_WIDE
+        b_off = self._W8_HAZARD if b.fp8 else 0
+        for i in range(out.rt):
+            j = 0
+            while j < out.ct:
+                wd = min(width, out.ct - j)
+                su = 4 if (wd == b.ct and kt % 4 == 0 and kt >= 4) else 0
+                reads = [a.tile(i, q) for q in range(kt)]
+                reads += [b.tile(q, j + w) + b_off for q in range(kt)
+                          for w in range(wd)]
+                self._emit(
+                    Task(tt, out.tile(i, j),
+                         a0=a.tile(i, 0), b0=b.tile(0, j),
+                         k_tiles=kt, a_stride=1, b_stride=b.ct,
+                         arg=wd, c0=0, d0=su),
+                    reads, [out.tile(i, j + w) for w in range(wd)])
+                self._max_gemm_width = max(self._max_gemm_width, wd)
+                self._max_strip = max(self._max_strip, (su or 1) * wd)
+                self._max_row = max(self._max_row, kt)
+                j += wd
+
     def prefetch_mat(self, w: MatHandle) -> int:
         """Start warming ``w``'s first weight chunk into the reserved
         matrix slot; the next ``gemm_mat(..., w, prefetch_first=True)``
@@ -165,6 +283,7 @@ class MegaKernelBuilder:
         matrix workspace. ``w.pair``: stores silu(gate half) * up half.
         ``residual``: ``+= residual``. ``norm_w``/``norm_out`` (needs
         ``residual``): also store ``norm_out = rms_norm(out) * norm_w``."""
+        self._no_fp8(out, a, residual, norm_w, norm_out)
         if not isinstance(w, MatHandle):
             raise TypeError("gemm_mat weight must be a tensor_mat handle")
         if a.rt != 1 or out.rt != 1:
@@ -241,20 +360,47 @@ class MegaKernelBuilder:
             reads, writes)
         self._max_row = max(self._max_row, a.ct, out.ct)
 
+    def norm_rope(self, out: TensorHandle, a: TensorHandle,
+                  w: TensorHandle, cos: TensorHandle, sin: TensorHandle,
+                  eps: float = 1e-6):
+        """Fused per-head qk-norm + RoPE over ONE (TILE, TILE) head tile
+        (the norm reduces over the head's ``head_dim`` columns of it)."""
+        self._no_fp8(out, a, w, cos, sin)
+        for t in (out, a):
+            if t.rt != 1 or t.ct != 1:
+                raise ValueError("norm_rope operates on single head tiles")
+        for t in (w, cos, sin):
+            if t.rt != 1 or t.ct < 1:
+                raise ValueError("norm weight / rope tables must be single-"
+                                 "row-tile tensors")
+        if cos.ct != 1 or sin.ct != 1 or w.ct != 1:
+            raise ValueError("norm_rope reads one (TILE, TILE) tile of "
+                             "w/cos/sin — wider tables would be silently "
+                             "truncated")
+        self._emit(
+            Task(TaskType.NORM_ROPE, out.tile(0, 0), a0=a.tile(0, 0),
+                 b0=w.tile(0, 0), arg=int(round(eps * 1e9)),
+                 c0=cos.tile(0, 0), d0=sin.tile(0, 0)),
+            [a.tile(0, 0), w.tile(0, 0), cos.tile(0, 0), sin.tile(0, 0)],
+            [out.tile(0, 0)])
+
     def append_kv(self, kT: TensorHandle, v: TensorHandle, pos: int,
                   k_new: TensorHandle, v_new: TensorHandle):
         """In-kernel KV cache append at position ``pos``: k_new's row 0
         becomes column pos of the kT cache, v_new's row 0 becomes row pos
         of the v cache. a_stride/b_stride carry the cache base tiles, so
-        a host retarget moves the row per step without recompiling. kv8
-        pools (kT and v both) emit APPEND_KV_F8, which stores through the
-        saturating e4m3 cast."""
-        self._no_kv8(k_new, v_new)
+        a host retarget (``models.advance_queue_pos`` on the linear cache,
+        the paged decoder's on pools) moves the row per step without
+        recompiling. kv8 pools (kT and v both) emit APPEND_KV_F8, which
+        stores through the saturating e4m3 cast."""
+        self._no_fp8(k_new, v_new)
         if kT.kv8 != v.kv8:
             raise ValueError(
                 "append_kv pools must live in ONE space: kT and v are "
                 f"kv8={kT.kv8}/{v.kv8} — a mixed-dtype page pool would "
                 "read one space and write the other")
+        if not kT.kv8:
+            self._no_fp8(kT, v)
         if not 0 <= pos < kT.ct * TILE:
             raise ValueError(f"append pos {pos} outside cache capacity")
         if kT.rt != 1 or v.ct != 1:
@@ -273,6 +419,32 @@ class MegaKernelBuilder:
             [k_new.tile(0, 0), v_new.tile(0, 0), kt_tile + hz, v_tile + hz],
             [kt_tile + hz, v_tile + hz])
 
+    def add_norm(self, out_x2: TensorHandle, a: TensorHandle,
+                 b: TensorHandle, w: TensorHandle,
+                 out_xn: TensorHandle, eps: float = 1e-6):
+        """Fused ``out_x2 = a + b`` and ``out_xn = rms_norm(out_x2) * w``
+        in ONE task (ADD_NORM; the norm reads the STORED out_x2, so the
+        pair equals the add + rms_norm tasks bit for bit). ``w`` is the
+        broadcast (TILE, cols) norm-weight tensor."""
+        self._no_fp8(out_x2, a, b, w, out_xn)
+        for t in (out_x2, a, b, out_xn):
+            if t.rt != 1 or (t.ct != a.ct):
+                raise ValueError("add_norm operates on single-row-tile "
+                                 "tensors of equal width")
+        if w.ct != a.ct:
+            raise ValueError("norm weight width must match the row")
+        reads = ([a.tile(0, j) for j in range(a.ct)]
+                 + [b.tile(0, j) for j in range(a.ct)]
+                 + [w.tile(0, j) for j in range(a.ct)])
+        writes = ([out_x2.tile(0, j) for j in range(a.ct)]
+                  + [out_xn.tile(0, j) for j in range(a.ct)])
+        self._emit(
+            Task(TaskType.ADD_NORM, out_x2.tile(0, 0), a0=a.tile(0, 0),
+                 b0=b.tile(0, 0), k_tiles=a.ct, b_stride=w.tile(0, 0),
+                 arg=int(round(eps * 1e9)), d0=out_xn.tile(0, 0)),
+            reads, writes)
+        self._max_row = max(self._max_row, a.ct)
+
     def norm_rope_qkv(self, q: TensorHandle, hq: int, k: TensorHandle,
                       hkv: int, q_norm: TensorHandle, k_norm: TensorHandle,
                       cos: TensorHandle, sin: TensorHandle,
@@ -280,6 +452,7 @@ class MegaKernelBuilder:
         """Per-head qk-norm + RoPE over ALL hq q-heads and hkv k-heads in
         ONE task. Requires the fused qkv layout — k's head tiles
         contiguous after q's."""
+        self._no_fp8(q, k, q_norm, k_norm, cos, sin)
         if q.rt != 1 or k.rt != 1:
             raise ValueError("q/k must be single-row-tile activations")
         if q.ct < hq or k.ct < hkv:
@@ -311,6 +484,7 @@ class MegaKernelBuilder:
         """Row-wise RMSNorm over the full width; ``w`` is the norm weight
         stored broadcast as a (TILE, cols) tensor (models.broadcast_rows);
         one task per row block."""
+        self._no_fp8(out, a, w)
         if (out.rt, out.ct) != (a.rt, a.ct) or w.ct != a.ct:
             raise ValueError("rms_norm shape mismatch")
         for i in range(out.rt):
@@ -322,6 +496,101 @@ class MegaKernelBuilder:
                      arg=int(round(eps * 1e9))),
                 reads, [out.tile(i, j) for j in range(out.ct)])
             self._max_row = max(self._max_row, a.ct)
+
+    def attn_decode(self, out: TensorHandle, q: TensorHandle,
+                    kT: TensorHandle, v: TensorHandle, valid_len: int,
+                    scale: float, k_new: TensorHandle | None = None,
+                    v_new: TensorHandle | None = None):
+        """One-token flash-attention decode for ONE head over a linear
+        cache. q/out: (TILE, TILE) — rows = padded batch, cols = head_dim
+        = TILE; kT: (TILE, S) the head's cached keys transposed; v: (S,
+        TILE). ``valid_len`` masks cache columns >= valid (a runtime queue
+        word). ``k_new``/``v_new`` (one (TILE, TILE) tile each, row b =
+        the token batch row b just projected) join the softmax as the
+        current position."""
+        self._no_fp8(out, q, kT, v, k_new, v_new)
+        if q.rt != 1 or q.ct != 1 or out.rt != 1 or out.ct != 1:
+            raise ValueError("q/out must be a single (TILE, TILE) tile")
+        if kT.rt != 1 or v.ct != 1 or kT.ct != v.rt:
+            raise ValueError("kT must be (TILE, S), v (S, TILE)")
+        if (k_new is None) != (v_new is None):
+            raise ValueError("pass both k_new and v_new or neither")
+        if k_new is None and valid_len < 1:
+            raise ValueError("cache-only attention needs valid_len >= 1 "
+                             "(all-masked softmax)")
+        if valid_len > kT.ct * TILE:
+            raise ValueError(
+                f"valid_len {valid_len} exceeds cache capacity "
+                f"{kT.ct * TILE} — the mask would admit garbage positions")
+        if k_new is not None and (k_new.rt != 1 or k_new.ct != 1
+                                  or v_new.rt != 1 or v_new.ct != 1):
+            raise ValueError("k_new/v_new must be single (TILE, TILE) tiles "
+                             "(one head's current k/v — use a _col view)")
+        # Fully-masked cache tiles contribute nothing: don't visit them.
+        k_tiles = min(kT.ct, -(-valid_len // TILE))
+        reads = ([q.tile(0, 0)] + [kT.tile(0, j) for j in range(k_tiles)]
+                 + [v.tile(j, 0) for j in range(k_tiles)])
+        c0 = d0 = -1
+        if k_new is not None:
+            c0, d0 = k_new.tile(0, 0), v_new.tile(0, 0)
+            reads += [c0, d0]
+        self._emit(
+            Task(TaskType.ATTN_DECODE, out.tile(0, 0), a0=q.tile(0, 0),
+                 b0=kT.tile(0, 0), k_tiles=k_tiles, a_stride=v.tile(0, 0),
+                 b_stride=int(valid_len), arg=int(round(scale * 1e6)),
+                 c0=c0, d0=d0),
+            reads, [out.tile(0, 0)])
+
+    def attn_decode_gqa(self, out: TensorHandle, out_j: int,
+                        q: TensorHandle, q_j: int, g: int,
+                        kT: TensorHandle, v: TensorHandle, valid_len: int,
+                        scale: float, k_new: TensorHandle | None = None,
+                        v_new: TensorHandle | None = None):
+        """One-token decode for a WHOLE GQA group: the ``g`` q-heads at
+        column tiles ``q_j..q_j+g-1`` of ``q`` (outputs at
+        ``out_j..out_j+g-1`` of ``out``) attend the shared kv head's
+        kT/v. The task lists every visited cache tile in its reads, so
+        the same layer's append of that head waits for it."""
+        self._no_fp8(out, q, kT, v, k_new, v_new)
+        if not 1 <= g <= 127:
+            raise ValueError(f"group size {g} out of range")
+        if q_j + g > q.ct or out_j + g > out.ct:
+            raise ValueError(
+                f"group [{q_j}, {q_j + g}) exceeds q.ct={q.ct} or "
+                f"out.ct={out.ct} — the tiles would alias the next tensor")
+        if q.rt != 1 or out.rt != 1:
+            raise ValueError("q/out must be single-row-tile activations")
+        if not 0 < scale < 16:
+            raise ValueError(f"scale {scale} out of the 24-bit arg field")
+        if kT.rt != 1 or v.ct != 1 or kT.ct != v.rt:
+            raise ValueError("kT must be (TILE, S), v (S, TILE)")
+        if (k_new is None) != (v_new is None):
+            raise ValueError("pass both k_new and v_new or neither")
+        if k_new is None and valid_len < 1:
+            raise ValueError("cache-only attention needs valid_len >= 1")
+        if valid_len > kT.ct * TILE:
+            raise ValueError(f"valid_len {valid_len} exceeds cache "
+                             f"capacity {kT.ct * TILE}")
+        k_tiles = min(kT.ct, -(-valid_len // TILE))
+        q_tiles = [q.tile(0, q_j + h) for h in range(g)]
+        out_tiles = [out.tile(0, out_j + h) for h in range(g)]
+        reads = (q_tiles + [kT.tile(0, j) for j in range(k_tiles)]
+                 + [v.tile(j, 0) for j in range(k_tiles)])
+        c0 = d0 = -1
+        if k_new is not None:
+            if (k_new.rt != 1 or k_new.ct != 1 or v_new.rt != 1
+                    or v_new.ct != 1):
+                raise ValueError("k_new/v_new must be single (TILE, TILE) "
+                                 "tiles (one kv head's current k/v)")
+            c0, d0 = k_new.tile(0, 0), v_new.tile(0, 0)
+            reads += [c0, d0]
+        self._max_gqa = max(self._max_gqa, g)
+        self._emit(
+            Task(TaskType.ATTN_DECODE_GQA, out_tiles[0], a0=q_tiles[0],
+                 b0=kT.tile(0, 0), k_tiles=k_tiles, a_stride=v.tile(0, 0),
+                 b_stride=int(valid_len),
+                 arg=int(round(scale * 1e6)) | (g << 24), c0=c0, d0=d0),
+            reads, out_tiles)
 
     def attn_decode_paged(self, out: TensorHandle, q: TensorHandle,
                           pages: list[tuple[int, int]], valid_len: int,
@@ -335,7 +604,7 @@ class MegaKernelBuilder:
         (TILE, d) value rows. ``k_new``/``v_new`` (the current token)
         join the softmax row by row. ``kv8=True``: the page tile ids
         address the e4m3 kv8 workspace (ATTN_DECODE_PAGED_F8)."""
-        self._no_kv8(out, q, k_new, v_new)
+        self._no_fp8(out, q, k_new, v_new)
         if q.rt != 1 or q.ct != 1 or out.rt != 1 or out.ct != 1:
             raise ValueError("q/out must be a single (TILE, TILE) tile")
         if (k_new is None) != (v_new is None):
@@ -409,9 +678,12 @@ class MegaKernelBuilder:
         used_types = tuple(sorted({int(t.type) for t in self._tasks}))
         return CompiledMegaKernel(
             queue=queue, num_tiles=self._num_tiles,
+            num_tiles8=self._num_tiles8,
             num_tiles_kv8=self._num_tiles_kv8,
             dtype=torch_dtype(dtype), num_exec=n_exec,
-            max_row=self._max_row, num_mrows=self._num_mrows,
+            max_gqa=self._max_gqa, max_gemm_width=self._max_gemm_width,
+            max_row=self._max_row, max_strip=self._max_strip,
+            num_mrows=self._num_mrows,
             mat_specs=tuple(self._mat_specs), used_types=used_types,
             head_dim=int(head_dim), task_rows=tuple(task_rows),
             hazard_edges=tuple(self._edges),
@@ -430,13 +702,17 @@ def barrier_rows(order: list[int], edges, types) -> np.ndarray:
     lets consecutive tasks with no hazard between them share one barrier
     interval: a task waits only when one of its hazard predecessors
     (RAW, WAR or WAW over workspace tiles — main, matrix and kv8 spaces
-    alike, ``hazard_edges``) ran in the current interval. Every GEMM_MAT starts after a barrier, because its
-    partial-sum scratch is shared, and ends its own interval (it holds
-    barriers inside). The build-time edges cover the runtime ones: at
-    build time every slot's page table and append target is the one
-    scratch page, so every attention read and append write of a layer
-    is ordered against every other's; at run time each slot's pages are
-    its own."""
+    alike, ``hazard_edges``) ran in the current interval. Every GEMM_MAT
+    starts after a barrier, because its partial-sum scratch is shared, and
+    ends its own interval (it holds barriers inside); GEMM_WIDE keeps its
+    sums inside one block and needs neither. The build-time edges cover
+    the runtime ones. Paged programs: at build time every slot's page
+    table and append target is the one scratch page, so every attention
+    read and append write of a layer is ordered against every other's; at
+    run time each slot's pages are its own. Linear programs: built at
+    ``pos = max_seq - 1``, each attention task reads every tile of its
+    head's cache, so the append of that head waits for it wherever
+    ``advance_queue_pos`` moves the append to."""
     preds: list[set[int]] = [set() for _ in types]
     for s, d in edges:
         preds[d].add(s)
@@ -458,10 +734,14 @@ class CompiledMegaKernel:
 
     queue: np.ndarray             # (rows, WORDS) int32: tasks, then data
     num_tiles: int
+    num_tiles8: int = 0           # e4m3 weight-workspace tiles (0 = unused)
     num_tiles_kv8: int = 0        # e4m3 KV-pool workspace tiles (0 = none)
     dtype: torch.dtype = torch.float32   # workspace dtype; compute is fp32
     num_exec: int | None = None   # dispatched rows (rest = page-table data)
+    max_gqa: int = 1              # largest GQA group
+    max_gemm_width: int = 1       # widest GEMM_WIDE strip (column tiles)
     max_row: int = 1              # widest resident row (tiles)
+    max_strip: int = 1            # widest strip fetch of the TPU kernel
     num_mrows: int = 0            # 2D matrix-workspace rows (0 = unused)
     mat_specs: tuple = ()         # static GEMM_MAT shapes (spec index)
     used_types: tuple = ()        # task types in the queue
@@ -472,19 +752,24 @@ class CompiledMegaKernel:
     task_writes: tuple | None = None  # per-task write tile-id sets
     sync_before: np.ndarray | None = None  # per exec row: barrier first
 
-    # Strip pad of the JAX package's workspace (its static-size fetches
-    # may overrun the last real tile); kept so the two workspaces have
-    # the same shape, tile for tile.
-    _STRIP_PAD = 7
+    @property
+    def _strip_pad(self) -> int:
+        """Tail tiles of the JAX package's main and e4m3 weight
+        workspaces: its static-size strip fetches may overrun the last
+        real tile. The CUDA kernel addresses exactly the tiles a task
+        names and never reads the pad; it is kept so the two packages'
+        workspaces have the same shape, tile for tile."""
+        return max(self.max_strip, self.max_gemm_width, 8) - 1
 
     def scatter_input(self, ws: torch.Tensor, h: TensorHandle,
                       value) -> torch.Tensor:
-        """Write (rows, cols) ``value`` into the tiled workspace (main, or
-        kv8 for a kv8 handle), in place; returns ``ws``. An e4m3 target
-        takes the saturating cast, as the in-kernel append does."""
-        if h.kv8 != (ws.dtype == E4M3):
-            raise ValueError(f"handle kv8={h.kv8} does not match a "
-                             f"{ws.dtype} workspace")
+        """Write (rows, cols) ``value`` into the tiled workspace (main,
+        the e4m3 weight workspace for an fp8 handle, or kv8 for a kv8
+        handle), in place; returns ``ws``. An e4m3 target takes the
+        saturating cast (+-448 clamp), as the in-kernel append does."""
+        if (h.kv8 or h.fp8) != (ws.dtype == E4M3):
+            raise ValueError(f"handle fp8={h.fp8} kv8={h.kv8} does not "
+                             f"match a {ws.dtype} workspace")
         v = saturate_cast(torch.as_tensor(value).to(ws.device), ws.dtype)
         if tuple(v.shape) != (h.rows, h.cols):
             raise ValueError(f"value {tuple(v.shape)} does not match handle "
@@ -496,7 +781,11 @@ class CompiledMegaKernel:
     def gather_output(self, ws: torch.Tensor, h: TensorHandle
                       ) -> torch.Tensor:
         """(rows, cols) of ``h`` from its workspace (kv8 handles from the
-        kv8 workspace, as stored)."""
+        kv8 workspace, as stored; fp8 weight handles are inputs only)."""
+        if h.fp8:
+            raise ValueError("fp8 weight-workspace tensors are read-only "
+                             "inputs; gather_output reads the main "
+                             "workspace")
         tiles = ws[h.base:h.base + h.rt * h.ct]
         return tiles.reshape(h.rt, h.ct, TILE, TILE).permute(
             0, 2, 1, 3).reshape(h.rows, h.cols)
@@ -506,18 +795,34 @@ class CompiledMegaKernel:
         activations) on ``device`` (None: the card); matrix handles go to
         :meth:`make_workspace_mat`."""
         device = resolve_device(device)
-        ws = torch.zeros((max(self.num_tiles, 1) + self._STRIP_PAD,
+        ws = torch.zeros((max(self.num_tiles, 1) + self._strip_pad,
                           TILE, TILE), dtype=self.dtype, device=device)
         for h, v in inputs.items():
             if isinstance(h, MatHandle):
                 raise ValueError("matrix handle in main workspace feeds — "
                                  "pass it to make_workspace_mat (or use "
                                  "split_feeds)")
+            if h.fp8:
+                raise ValueError("fp8 handle in main workspace feeds — "
+                                 "pass it to make_workspace8")
             if h.kv8:
                 raise ValueError("kv8 pool handle in main workspace feeds "
                                  "— pass it to make_workspace_kv8")
             self.scatter_input(ws, h, v)
         return ws
+
+    def make_workspace8(self, inputs: dict, device=None) -> torch.Tensor:
+        """The e4m3 weight workspace (read-only input of every step):
+        ``inputs`` (fp8 handles → (rows, cols) values) quantize through
+        the saturating cast on scatter. ``device`` None: the card."""
+        device = resolve_device(device)
+        ws8 = torch.zeros((max(self.num_tiles8, 1) + self._strip_pad,
+                           TILE, TILE), dtype=E4M3, device=device)
+        for h, v in inputs.items():
+            if not h.fp8:
+                raise ValueError("non-fp8 handle in fp8 workspace feeds")
+            self.scatter_input(ws8, h, v)
+        return ws8
 
     def make_workspace_kv8(self, inputs: dict | None = None,
                            device=None) -> torch.Tensor:
@@ -534,9 +839,9 @@ class CompiledMegaKernel:
         return wkv8
 
     @staticmethod
-    def split_feeds(feeds: dict) -> tuple[dict, dict]:
-        """Split a mixed feeds dict into (main, matrix) workspace feeds.
-        kv8 pool handles are refused: pools start zeroed
+    def split_feeds(feeds: dict) -> tuple[dict, dict, dict]:
+        """Split a mixed feeds dict into (main, fp8 weight, matrix)
+        workspace feeds. kv8 pool handles are refused: pools start zeroed
         (:meth:`make_workspace_kv8`)."""
         for h in feeds:
             if not isinstance(h, MatHandle) and h.kv8:
@@ -544,9 +849,11 @@ class CompiledMegaKernel:
                     "kv8 pool handle in feeds — scatter_input it into "
                     "the kv8 workspace (make_workspace_kv8) instead")
         main = {h: v for h, v in feeds.items()
-                if not isinstance(h, MatHandle)}
+                if not isinstance(h, MatHandle) and not h.fp8}
+        w8 = {h: v for h, v in feeds.items()
+              if not isinstance(h, MatHandle) and h.fp8}
         wm = {h: v for h, v in feeds.items() if isinstance(h, MatHandle)}
-        return main, wm
+        return main, w8, wm
 
     def scatter_mat(self, wsm: torch.Tensor, h: MatHandle,
                     value) -> torch.Tensor:
@@ -589,12 +896,15 @@ class CompiledMegaKernel:
 
     def step(self, ws: torch.Tensor, queue=None,
              wsm: torch.Tensor | None = None, *,
+             ws8: torch.Tensor | None = None,
              wkv8: torch.Tensor | None = None,
              live_rows: int = TILE) -> torch.Tensor:
         """One queue execution over the workspace, in place; returns
         ``ws``. ``queue``: a host-retargeted copy of :attr:`queue`
-        (default: the compiled one). ``wkv8``: the kv8 workspace, which a
-        program with e4m3 pools needs (updated in place too).
+        (default: the compiled one). ``ws8``: the e4m3 weight workspace
+        of a program with GEMM_WIDE_W8 tasks; ``wkv8``: the kv8
+        workspace, which a program with e4m3 pools needs (updated in
+        place too).
         ``live_rows``: the rows of every 128-row block that carry data —
         the CUDA kernel computes only those (every handler is
         row-independent); the plain version computes all rows."""
@@ -609,6 +919,15 @@ class CompiledMegaKernel:
             raise ValueError(
                 f"wkv8 {tuple(wkv8.shape)} {wkv8.dtype} does not fit this "
                 f"program ({self.num_tiles_kv8} e4m3 KV-pool tiles)")
+        if self.num_tiles8 and ws8 is None:
+            raise ValueError(
+                f"program uses {self.num_tiles8} fp8 weight tiles but no "
+                "ws8 was passed — build it with make_workspace8")
+        if ws8 is not None and (ws8.dtype != E4M3 or ws8.dim() != 3
+                                or ws8.shape[0] < self.num_tiles8):
+            raise ValueError(
+                f"ws8 {tuple(ws8.shape)} {ws8.dtype} does not fit this "
+                f"program ({self.num_tiles8} e4m3 weight tiles)")
         if self.num_mrows and wsm is None:
             raise ValueError(
                 f"program uses {self.num_mrows} matrix-workspace rows but "
@@ -627,7 +946,7 @@ class CompiledMegaKernel:
                              f"this program ({self.num_tiles} tiles of "
                              f"{self.dtype})")
         return run_queue(self.queue if queue is None else queue, ws, wsm,
-                         wkv8=wkv8,
+                         ws8=ws8, wkv8=wkv8,
                          num_exec=self.num_exec, mat_specs=self.mat_specs,
                          used_types=self.used_types, head_dim=self.head_dim,
                          sync_before=self.sync_before, live_rows=live_rows)

@@ -6,11 +6,14 @@ grid step, a ``lax.switch`` over ~26 handlers) becomes the hand-written
 CUDA interpreter ``csrc/megakernel.cu``: one cooperative launch whose
 blocks all walk the queue, each task's work spread over the blocks, grid
 barriers where the builder's hazard edges need them (see that file's
-header). It handles the task types of the paged serving program,
-:data:`PORTED_TYPES` — with e4m3 pools (types 24/25 over the kv8
-workspace) and the speculative window (the causal fold of types 9/24,
-the windowed append of 14/25) —; :func:`run_queue` refuses any other
-type before launch, and a window wider than :data:`MAX_LIVE_ROWS`.
+header). It handles :data:`PORTED_TYPES`: the task types of the paged
+serving program — with e4m3 pools (types 24/25 over the kv8 workspace)
+and the speculative window (the causal fold of types 9/24, the windowed
+append of 14/25) — and of the linear decode programs in both weight
+layouts (GQA / single-head attention over a linear cache, GEMM_WIDE and
+GEMM_WIDE_W8 over weight tiles, per-head NORM_ROPE, ADD_NORM and the
+row-wise elementwise types). :func:`run_queue` refuses any other type
+before launch, and a window wider than :data:`MAX_LIVE_ROWS`.
 
 :func:`run_queue_plain` is the same interpreter in plain PyTorch: it walks
 the queue rows in order with one handler per type on full 128-row tiles,
@@ -34,20 +37,35 @@ from triton_distributed_tpu_torch.runtime.build import (
 )
 
 PORTED_TYPES = frozenset({
-    TaskType.RMS_NORM, TaskType.ATTN_DECODE_PAGED, TaskType.APPEND_KV,
-    TaskType.GEMM_MAT, TaskType.NORM_ROPE_QKV, TaskType.PREFETCH_MAT,
+    TaskType.COPY, TaskType.ADD, TaskType.SILU_MUL, TaskType.SCALE,
+    TaskType.RMS_NORM, TaskType.ATTN_DECODE, TaskType.ATTN_DECODE_PAGED,
+    TaskType.ATTN_DECODE_GQA, TaskType.GEMM_WIDE, TaskType.NORM_ROPE,
+    TaskType.APPEND_KV, TaskType.GEMM_WIDE_W8, TaskType.GEMM_MAT,
+    TaskType.ADD_NORM, TaskType.NORM_ROPE_QKV, TaskType.PREFETCH_MAT,
     TaskType.ATTN_DECODE_PAGED_F8, TaskType.APPEND_KV_F8,
 })
 _ATTN = (int(TaskType.ATTN_DECODE_PAGED), int(TaskType.ATTN_DECODE_PAGED_F8))
+_ATTN_LINEAR = (int(TaskType.ATTN_DECODE), int(TaskType.ATTN_DECODE_GQA))
 _APPEND = (int(TaskType.APPEND_KV), int(TaskType.APPEND_KV_F8))
 _KV8 = (int(TaskType.ATTN_DECODE_PAGED_F8), int(TaskType.APPEND_KV_F8))
+# The paged serving program's types: a queue of these alone launches the
+# kernel's lean instantiation, any other ported type the full one.
+_PAGED_PROGRAM = tuple(int(t) for t in (
+    TaskType.RMS_NORM, TaskType.ATTN_DECODE_PAGED, TaskType.APPEND_KV,
+    TaskType.GEMM_MAT, TaskType.NORM_ROPE_QKV, TaskType.PREFETCH_MAT,
+    TaskType.ATTN_DECODE_PAGED_F8, TaskType.APPEND_KV_F8))
+_GEMM_WIDE = (int(TaskType.GEMM_WIDE), int(TaskType.GEMM_WIDE_W8))
+_EW = {int(TaskType.COPY): lambda a, b, f: a,
+       int(TaskType.ADD): lambda a, b, f: a + b,
+       int(TaskType.SILU_MUL): lambda a, b, f: torch.nn.functional.silu(a) * b,
+       int(TaskType.SCALE): lambda a, b, f: a * f}
 MAX_LIVE_ROWS = 4        # rows per 128-row block the CUDA kernel computes
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _NEG = -1e30
 
 MEGA_KERNEL = CudaKernel(
     "megakernel.cu", "megakernel_run",
-    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
 
 
 class MegakernelUnsupportedError(ValueError):
@@ -71,8 +89,10 @@ def check_queue(queue: np.ndarray, num_exec: int,
     outside :data:`PORTED_TYPES`, or a speculative window past the
     :data:`MAX_LIVE_ROWS` rows the CUDA kernel computes per slot block —
     an attention row's window (word 5), or a windowed append reading
-    source rows ``[word 7, word 7 + word 4)``. Both interpreters refuse
-    alike, so a CPU run never accepts what the card would not."""
+    source rows ``[word 7, word 7 + word 4)``; also a GEMM_WIDE consuming
+    a PREFETCH warm (word 8 = 1; the warm is not ported). Both
+    interpreters refuse alike, so a CPU run never accepts what the card
+    would not."""
     if used_types is not None:
         bad = sorted(int(t) for t in used_types if t not in PORTED_TYPES)
         if bad:
@@ -95,6 +115,11 @@ def check_queue(queue: np.ndarray, num_exec: int,
             f"{int(attn[:, 5].max())} rows: the megakernel computes at most "
             f"{MAX_LIVE_ROWS} per slot block — spec_window <= "
             f"{MAX_LIVE_ROWS}")
+    wide = rows[np.isin(types, _GEMM_WIDE)]
+    if np.any(wide[:, 8] == 1):
+        raise MegakernelUnsupportedError(
+            "GEMM_WIDE row consuming a PREFETCH warm (word 8 = 1): the "
+            "single-tile weight warm is not ported")
     app = rows[np.isin(types, _APPEND)]
     live = app[:, 8] >= 0
     if np.any(live & (app[:, 4] > 0) & (app[:, 7] + app[:, 4] > MAX_LIVE_ROWS)):
@@ -114,24 +139,27 @@ def run_queue(queue, ws: torch.Tensor, wsm: torch.Tensor | None, *,
               num_exec: int, mat_specs: tuple, used_types=None,
               head_dim: int = TILE, sync_before=None,
               live_rows: int = TILE,
+              ws8: torch.Tensor | None = None,
               wkv8: torch.Tensor | None = None) -> torch.Tensor:
     """Execute the packed task queue over the workspace, in place; returns
     ``ws``. The CUDA interpreter on a CUDA workspace (one launch; rows
     ``[0, live_rows)`` of every 128-row block), the plain version on a CPU
     one (every row). ``sync_before``: the builder's per-row barrier flags
-    (``builder.barrier_rows``), needed on the card. ``wkv8``: the e4m3
-    KV-pool workspace of a program with types 24/25 (updated in place)."""
+    (``builder.barrier_rows``), needed on the card. ``ws8``: the e4m3
+    weight workspace of a program with GEMM_WIDE_W8 tasks (read-only);
+    ``wkv8``: the e4m3 KV-pool workspace of a program with types 24/25
+    (updated in place)."""
     q = np.ascontiguousarray(queue, np.int32)
     check_queue(q, num_exec, used_types)
     if ws.device.type == "cuda":
         return _run_queue_cuda(q, ws, wsm, num_exec=num_exec,
                                mat_specs=mat_specs, head_dim=head_dim,
                                sync_before=sync_before, live_rows=live_rows,
-                               wkv8=wkv8)
+                               ws8=ws8, wkv8=wkv8)
     if ws.device.type == "cpu":
         return run_queue_plain(q, ws, wsm, num_exec=num_exec,
                                mat_specs=mat_specs, head_dim=head_dim,
-                               wkv8=wkv8)
+                               ws8=ws8, wkv8=wkv8)
     raise ValueError(f"megakernel: no kernel for device {ws.device}")
 
 
@@ -152,22 +180,34 @@ def _partial_floats(mat_specs, live_rows: int) -> int:
     return n
 
 
-def _check_wkv8(q: np.ndarray, num_exec: int, ws, wkv8) -> None:
-    if wkv8 is None:
-        if np.isin(q[:num_exec, 0], _KV8).any():
-            raise ValueError("megakernel: the queue has e4m3-pool tasks "
-                             "(types 24/25) but no wkv8 workspace was passed")
+def _check_e4m3_ws(q: np.ndarray, num_exec: int, ws, w8, name: str,
+                   types: tuple, what: str) -> None:
+    """An e4m3 side workspace (``ws8`` weights or ``wkv8`` pools): present
+    when the queue has the task ``types`` that read it, and shaped like
+    the main one."""
+    if w8 is None:
+        if np.isin(q[:num_exec, 0], types).any():
+            raise ValueError(f"megakernel: the queue has {what} but no "
+                             f"{name} workspace was passed")
         return
-    if wkv8.dtype != E4M3 or wkv8.device != ws.device \
-            or not wkv8.is_contiguous() or wkv8.dim() != 3 \
-            or tuple(wkv8.shape[1:]) != (TILE, TILE):
-        raise ValueError(f"megakernel: wkv8 {tuple(wkv8.shape)} {wkv8.dtype} "
+    if w8.dtype != E4M3 or w8.device != ws.device \
+            or not w8.is_contiguous() or w8.dim() != 3 \
+            or tuple(w8.shape[1:]) != (TILE, TILE):
+        raise ValueError(f"megakernel: {name} {tuple(w8.shape)} {w8.dtype} "
                          f"must be a contiguous (tiles, {TILE}, {TILE}) "
                          "float8_e4m3fn tensor on the workspace's device")
 
 
+def _check_side_workspaces(q, num_exec, ws, ws8, wkv8) -> None:
+    _check_e4m3_ws(q, num_exec, ws, ws8, "ws8",
+                   (int(TaskType.GEMM_WIDE_W8),),
+                   "e4m3-weight tasks (type 15)")
+    _check_e4m3_ws(q, num_exec, ws, wkv8, "wkv8", _KV8,
+                   "e4m3-pool tasks (types 24/25)")
+
+
 def cuda_launcher(q: np.ndarray, ws, wsm, *, num_exec, mat_specs,
-                  head_dim, sync_before, live_rows, wkv8=None):
+                  head_dim, sync_before, live_rows, ws8=None, wkv8=None):
     """Check the operands, upload the queue (with the barrier flags and
     the GEMM_MAT spec table) and the partial-sum scratch, and return a
     zero-argument function that launches the kernel on them — so a timing
@@ -194,7 +234,7 @@ def cuda_launcher(q: np.ndarray, ws, wsm, *, num_exec, mat_specs,
     if sync_before is None or len(sync_before) < num_exec:
         raise ValueError("megakernel: the CUDA kernel needs the program's "
                          "per-row barrier flags (compile() records them)")
-    _check_wkv8(q, num_exec, ws, wkv8)
+    _check_side_workspaces(q, num_exec, ws, ws8, wkv8)
     n_q = q.size
     host = np.concatenate([q.reshape(-1),
                            np.asarray(sync_before[:num_exec], np.int32),
@@ -205,12 +245,13 @@ def cuda_launcher(q: np.ndarray, ws, wsm, *, num_exec, mat_specs,
     base = dev.data_ptr()
     args = (ctypes.c_void_p(base), ctypes.c_void_p(base + 4 * n_q),
             ctypes.c_void_p(base + 4 * (n_q + num_exec)),
-            ptr(ws), ptr(wsm), ptr(wkv8), ptr(partial),
+            ptr(ws), ptr(wsm), ptr(ws8), ptr(wkv8), ptr(partial),
             int(num_exec), int(live_rows), int(head_dim),
-            _DTYPE_CODE[ws.dtype])
+            _DTYPE_CODE[ws.dtype], int(_full_kernel(q, num_exec)))
 
     rows = q[:num_exec]
     variants = tuple(name for name, on in (
+        ("full", bool(args[-1])),
         ("kv8", wkv8 is not None),
         ("window", bool((rows[np.isin(rows[:, 0], _ATTN), 5] > 0).any())))
         if on)
@@ -219,17 +260,25 @@ def cuda_launcher(q: np.ndarray, ws, wsm, *, num_exec, mat_specs,
         MEGA_KERNEL.launch(*args, current_stream(ws.device),
                            variants=variants)
 
-    launch.buffers = (dev, partial, wsm, wkv8)   # alive with the pointers
+    launch.buffers = (dev, partial, wsm, ws8, wkv8)   # alive with the pointers
     return launch
 
 
-def grid_blocks(dtype: torch.dtype) -> int:
+def _full_kernel(q: np.ndarray, num_exec: int) -> bool:
+    """Whether the queue needs the kernel's full instantiation: a task
+    type beyond the paged serving program's (as the TPU kernel compiles
+    only the branches a program uses, the CUDA kernel has a lean body for
+    that program and a full one for every ported type)."""
+    return bool((~np.isin(q[:num_exec, 0], _PAGED_PROGRAM)).any())
+
+
+def grid_blocks(dtype: torch.dtype, full: bool = False) -> int:
     """Blocks of the cooperative grid the kernel launches for this
-    workspace dtype (0 before the first launch)."""
+    workspace dtype and instantiation (0 before the first launch)."""
     MEGA_KERNEL._load()
     fn = MEGA_KERNEL._lib.megakernel_grid
-    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
-    return int(fn(_DTYPE_CODE[dtype]))
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    return int(fn(_DTYPE_CODE[dtype], int(full)))
 
 
 def _run_queue_cuda(q: np.ndarray, ws, wsm, **kw):
@@ -287,16 +336,41 @@ def _p_attn_paged(ws, flat, w, pool):
     workspace): the page walk, then the current tokens' fold — each row
     its own k/v (word 5 = 0), or the causal window of the block's fresh
     rows j <= i, j < win (word 5 = win)."""
-    out, a0, b0, kt, win, valid, arg, c0, d0 = (w[1], w[2], w[3], w[4], w[5],
-                                                w[6], w[7], w[8], w[9])
+    b0, kt = w[3], w[4]
+    ent = flat[b0 * WORDS:b0 * WORDS + 2 * kt].astype(np.int64)
+    ent = torch.from_numpy(ent.reshape(kt, 2)).to(ws.device)
+    _attn_head(ws, pool, ent[:, 0], ent[:, 1], out=w[1], a0=w[2], win=w[5],
+               valid=w[6], scale=_fixed(w[7], 1e-6), c0=w[8], d0=w[9])
+
+
+def _p_attn_linear(ws, w, pool):
+    """ATTN_DECODE (one head) or ATTN_DECODE_GQA (``arg >> 24`` q heads at
+    tiles a0.., outputs at out..; scale in the low 24 bits) over a linear
+    cache: kT tiles b0.., V tiles from word 5, each row folding its own
+    current k/v. ``pool`` holds the cache tiles (``ws`` itself; a replay
+    may pass the workspace the step started from)."""
+    out, a0, b0, kt, v0, valid, arg, c0, d0 = (w[1], w[2], w[3], w[4], w[5],
+                                               w[6], w[7], w[8], w[9])
+    g = 1
+    if w[0] == TaskType.ATTN_DECODE_GQA:
+        g, arg = arg >> 24, arg & 0xFFFFFF
+    ids = torch.arange(kt, device=ws.device)
+    for h in range(g):
+        _attn_head(ws, pool, b0 + ids, v0 + ids, out=out + h, a0=a0 + h,
+                   win=0, valid=valid, scale=_fixed(arg, 1e-6), c0=c0, d0=d0)
+
+
+def _attn_head(ws, pool, k_ids, v_ids, *, out, a0, win, valid, scale, c0,
+               d0):
+    """One q-head tile against the cache tiles ``k_ids`` / ``v_ids`` of
+    ``pool``, masked to ``valid``, then the current tokens' fold, then
+    / max(l, 1e-30); stored rounded to the workspace type."""
+    kt = len(k_ids)
     kv8 = pool.dtype == E4M3
-    scale = _fixed(arg, 1e-6).to(ws.device)
+    scale = scale.to(ws.device)
     q = ws[a0].float()                                     # (rows, d)
     rows = q.shape[0]
     if kt > 0:
-        ent = flat[b0 * WORDS:b0 * WORDS + 2 * kt].astype(np.int64)
-        ent = torch.from_numpy(ent.reshape(kt, 2)).to(ws.device)
-        k_ids, v_ids = ent[:, 0], ent[:, 1]
         keys = pool[k_ids].float().permute(1, 0, 2).reshape(TILE, kt * TILE)
         vals = pool[v_ids].float().reshape(kt * TILE, TILE)
         s = (q @ keys) * scale
@@ -388,9 +462,57 @@ def _p_gemm_mat(ws, wsm, w, mat_specs):
                               sp.nt_out * TILE, _fixed(arg >> 8, 1e-9)))
 
 
+def _p_ew(ws, w):
+    """COPY / ADD / SILU_MUL / SCALE over a row of k_tiles tiles: fp32
+    inside, stored in the workspace type. SCALE's factor is word 7 in
+    fixed point 1e-6."""
+    out, a0, b0, kt, arg = w[1], w[2], w[3], w[4], w[7]
+    a = _row(ws, a0, kt)
+    b = _row(ws, b0, kt)
+    _put_row(ws, out, _EW[w[0]](a, b, _fixed(arg, 1e-6).to(ws.device)))
+
+
+def _p_norm_rope(ws, w, head_dim):
+    """NORM_ROPE: out <- rope(rms_norm(a) * w) on one head tile (the norm
+    over the head's ``head_dim`` columns, the rotation inside them)."""
+    out, a0, b0, arg, c0, d0 = w[1], w[2], w[3], w[7], w[8], w[9]
+    xn = _rms(ws[a0].float(), ws[b0].float(), head_dim, _fixed(arg, 1e-9))
+    half = head_dim // 2
+    rot = torch.cat([-xn[..., half:head_dim], xn[..., :half],
+                     xn[..., head_dim:]], dim=-1)
+    ws[out] = (xn * ws[c0].float() + rot * ws[d0].float()).to(ws.dtype)
+
+
+def _p_add_norm(ws, w):
+    """ADD_NORM: x2 = a + b stored, then rms_norm of the STORED (rounded)
+    x2 times the weight row (tiles from word 6) into the row at word 9 —
+    bit-equal to the ADD + RMS_NORM task pair."""
+    out, a0, b0, kt, nw, arg, d0 = w[1], w[2], w[3], w[4], w[6], w[7], w[9]
+    _put_row(ws, out, _row(ws, a0, kt) + _row(ws, b0, kt))
+    x2 = _row(ws, out, kt)
+    _put_row(ws, d0, _rms(x2, _row(ws, nw, kt), kt * TILE,
+                          _fixed(arg, 1e-9)))
+
+
+def _p_gemm_wide(ws, b_ws, w):
+    """GEMM_WIDE (``b_ws`` is ``ws``) or GEMM_WIDE_W8 (the e4m3 weight
+    workspace): ``width`` = word 7 output column tiles from ``out``; A =
+    the row of k_tiles tiles at a0; B tile (j, c) at ``b0 + j * b_stride +
+    c``, widened to fp32 (exact from e4m3 or bf16); fp32 sums, one
+    rounding at the store."""
+    out, a0, b0, kt, b_stride, width = w[1], w[2], w[3], w[4], w[6], w[7]
+    a = _row(ws, a0, kt)                                   # (TILE, K)
+    idx = (b0 + torch.arange(kt, device=ws.device)[:, None] * b_stride
+           + torch.arange(width, device=ws.device)[None, :])
+    b = b_ws[idx.reshape(-1)].float().reshape(kt, width, TILE, TILE)
+    b = b.permute(0, 2, 1, 3).reshape(kt * TILE, width * TILE)
+    _put_row(ws, out, a @ b)
+
+
 def run_queue_plain(queue, ws: torch.Tensor, wsm: torch.Tensor | None, *,
                     num_exec: int, mat_specs: tuple,
                     head_dim: int = TILE,
+                    ws8: torch.Tensor | None = None,
                     wkv8: torch.Tensor | None = None) -> torch.Tensor:
     """The megakernel's function in plain PyTorch: the queue rows in
     order, one handler per type, every row of every tile, fp32 compute
@@ -400,12 +522,24 @@ def run_queue_plain(queue, ws: torch.Tensor, wsm: torch.Tensor | None, *,
     MEGA_KERNEL.plain_calls += 1
     q = np.ascontiguousarray(queue, np.int32)
     check_queue(q, num_exec)
-    _check_wkv8(q, num_exec, ws, wkv8)
+    _check_side_workspaces(q, num_exec, ws, ws8, wkv8)
     flat = q.reshape(-1)
     for row in q[:num_exec].tolist():
         t = row[0]
         if t == TaskType.RMS_NORM:
             _p_rms_norm(ws, row)
+        elif t in _EW:
+            _p_ew(ws, row)
+        elif t == TaskType.GEMM_WIDE:
+            _p_gemm_wide(ws, ws, row)
+        elif t == TaskType.GEMM_WIDE_W8:
+            _p_gemm_wide(ws, ws8, row)
+        elif t == TaskType.NORM_ROPE:
+            _p_norm_rope(ws, row, head_dim)
+        elif t == TaskType.ADD_NORM:
+            _p_add_norm(ws, row)
+        elif t in _ATTN_LINEAR:
+            _p_attn_linear(ws, row, ws)
         elif t == TaskType.NORM_ROPE_QKV:
             _p_norm_rope_qkv(ws, row, head_dim)
         elif t == TaskType.ATTN_DECODE_PAGED:

@@ -1,14 +1,26 @@
-"""Megakernel serving — dense model params in, a paged decode lane out.
+"""Megakernel serving — dense model params in, a decode backend out.
 
-Counterpart of the JAX package's ``megakernel/serving.py`` for the serving
-tier's lane (:class:`PagedMegakernelDecoder`): prefill runs elsewhere (the
-engine's chunked prefill through K1), a finished prompt's KV pages scatter
-into the workspace pools, and every decode step is ONE launch of the
-megakernel over every slot, plus the final RMSNorm, lm_head and greedy
-argmax outside the kernel. The lane serves e4m3 KV pools (``kv_dtype``:
-the kv8 workspace beside the main one) and the speculative window
-(``spec_window`` W <= 4 candidate rows per slot). Not in this slice: the
-linear ``MegakernelDecoder`` and ``copy_page`` (prefix copy-on-write).
+Counterpart of the JAX package's ``megakernel/serving.py`` on one rank.
+Two decoders share the weight feeds:
+
+* :class:`MegakernelDecoder` — the sequential batch-1 decode loop behind
+  ``Engine.serve(backend="megakernel")``: the engine prefills into a
+  linear cache, :meth:`MegakernelDecoder.start` transposes it into the
+  per-head kT/v regions of a linear workspace, and every further token is
+  ONE launch of the megakernel (the k/v append runs in the kernel;
+  ``advance_queue_pos`` retargets the queue per position), plus the
+  embedding row in and the final RMSNorm, lm_head and greedy argmax out.
+  Matrix weight layout in the workspace dtype, or ``fp8_weights``: the
+  tile layout over an e4m3 weight workspace.
+* :class:`PagedMegakernelDecoder` — the serving tier's lane: prefill runs
+  elsewhere (the engine's chunked prefill through K1), a finished prompt's
+  KV pages scatter into the workspace pools, and every decode step is ONE
+  launch over every slot. It serves e4m3 KV pools (``kv_dtype``: the kv8
+  workspace beside the main one) and the speculative window
+  (``spec_window`` W <= 4 candidate rows per slot).
+
+Not ported: ``num_ranks > 1`` (the in-kernel AllReduce tasks), the
+per-task profile dump, and ``copy_page`` (prefix copy-on-write).
 """
 
 from __future__ import annotations
@@ -21,7 +33,7 @@ from triton_distributed_tpu_torch.megakernel.kernel import (
     MAX_LIVE_ROWS, MegakernelUnsupportedError,
 )
 from triton_distributed_tpu_torch.megakernel.models import (
-    DecodeStepProgram, broadcast_rows, build_decode_step,
+    DecodeStepProgram, advance_queue_pos, broadcast_rows, build_decode_step,
     feed_layer_weights, pad_head_vec, rope_tables,
 )
 from triton_distributed_tpu_torch.megakernel.tasks import TILE, WORDS
@@ -31,7 +43,8 @@ from triton_distributed_tpu_torch.runtime.device import (
     resolve_device, torch_dtype,
 )
 
-__all__ = ["MegakernelUnsupportedError", "PagedMegakernelDecoder",
+__all__ = ["MegakernelDecoder", "MegakernelUnsupportedError",
+           "PagedMegakernelDecoder", "cache_feeds",
            "validate_megakernel_cfg", "weight_feeds"]
 
 
@@ -53,10 +66,12 @@ def _vec(t) -> np.ndarray:
 
 
 def weight_feeds(prog: DecodeStepProgram, cfg: ModelConfig,
-                 params: dict) -> dict:
+                 params: dict, *, projections: bool = True) -> dict:
     """Map a dense param tree (``init_dense_llm`` / ``params_from_numpy``
     layout) onto the program's workspace handles. Norm weights become
-    broadcast rows; projection weights stay tensors on their device."""
+    broadcast rows; projection weights stay tensors on their device
+    (``projections=False`` leaves them out: the norm rows alone, for a
+    caller whose weight workspace is already built)."""
     d = cfg.head_dim
     feeds: dict = {}
     for h, layer in zip(prog.layers, params["layers"]):
@@ -69,11 +84,192 @@ def weight_feeds(prog: DecodeStepProgram, cfg: ModelConfig,
               else np.ones(d, np.float32))
         feeds[h.q_norm] = broadcast_rows(pad_head_vec(qn, d))
         feeds[h.k_norm] = broadcast_rows(pad_head_vec(kn, d))
+        if not projections:
+            continue
         feed_layer_weights(
             feeds, h, wq=attn["wq"], wk=attn["wk"], wv=attn["wv"],
             wo=attn["wo"], w_gate=mlp["w_gate"], w_up=mlp["w_up"],
             w_down=mlp["w_down"], head_dim=d)
     return feeds
+
+
+def cache_feeds(prog: DecodeStepProgram, cache) -> dict:
+    """A linear KV cache (``models/kv_cache.KVCache``, batch 1) → the
+    program's per-head kT (d, S) / v (S, d) feeds; head_dim < TILE pads
+    into the tile rows/cols (the padded-head layout)."""
+    feeds: dict = {}
+    k, v = cache.k, cache.v    # (L, 1, S, hkv, hd)
+    pad = TILE - k.shape[-1]
+    for li, h in enumerate(prog.layers):
+        for kv in range(len(h.kT)):
+            kT = k[li, 0, :, kv, :].T                     # (hd, S)
+            vv = v[li, 0, :, kv, :]                       # (S, hd)
+            if pad:
+                kT = torch.nn.functional.pad(kT, (0, 0, 0, pad))
+                vv = torch.nn.functional.pad(vv, (0, pad))
+            feeds[h.kT[kv]] = kT
+            feeds[h.v[kv]] = vv
+    return feeds
+
+
+def _head32(params: dict) -> torch.Tensor:
+    """The lm_head as one fp32 matrix (the tied embedding transposed when
+    the model has none): the logits are an fp32 product, as the JAX
+    decoders' ``xn @ head.astype(f32)``."""
+    head = params.get("lm_head")
+    return (head if head is not None else params["embed"].T).float()
+
+
+class MegakernelDecoder:
+    """Sequential batch-1 decode over the compiled megakernel's LINEAR
+    workspace, on one rank.
+
+    Build once per (cfg, max_seq); :meth:`start` loads a prefilled KV
+    cache into the workspace; :meth:`step` runs one token — the compiled
+    queue is retargeted per position without recompiling
+    (``models.advance_queue_pos``) and launched once. The workspace is
+    updated in place.
+
+    ``dtype``: the workspace type (default float32, as the JAX package's
+    Engine builds it). ``fp8_weights``: projection/MLP weights stream
+    from the e4m3 weight workspace in the tile layout (half the bf16
+    weight bytes; outputs carry the e4m3 quantization). ``final_norm``:
+    the model's final RMSNorm runs in the kernel, fused into the last
+    layer's tail. ``device=None`` means the card; the CPU runs the
+    kernel's plain version and only when asked for (``device="cpu"``).
+    ``num_ranks > 1`` and ``profile=True`` need the AllReduce tasks and
+    the profile stamp, which the port's kernel does not have: both raise
+    :class:`MegakernelUnsupportedError`."""
+
+    def __init__(self, cfg: ModelConfig, params: dict, *, max_seq: int,
+                 dtype=torch.float32, device=None, num_ranks: int = 1,
+                 fp8_weights: bool = False, profile: bool = False,
+                 final_norm: bool = False):
+        validate_megakernel_cfg(cfg, max_seq)
+        if num_ranks != 1:
+            raise MegakernelUnsupportedError(
+                f"num_ranks = {num_ranks}: tensor-parallel megakernel "
+                "decode needs the in-kernel AllReduce tasks (ALLREDUCE, "
+                "ALLREDUCE_ROW), which are not ported — one rank only")
+        if profile:
+            raise MegakernelUnsupportedError(
+                "profile=True needs the kernel's per-task profile stamp, "
+                "which is not ported")
+        self.cfg = cfg
+        self.max_seq = max_seq
+        self.device = resolve_device(device)
+        self.dtype = torch_dtype(dtype)
+        self.fp8_weights = fp8_weights
+        # The first step() of a fresh decoder pays the kernel's build and
+        # load; ``last_step_cold`` lets a recorder keep that sample out
+        # of its step-latency percentiles.
+        self.warm = False
+        self.last_step_cold = True
+        self.final_norm_inkernel = final_norm
+        self.prog = build_decode_step(
+            hidden=cfg.hidden_size, hq_local=cfg.num_heads,
+            hkv_local=cfg.num_kv_heads, ffn_local=cfg.intermediate_size,
+            num_layers=cfg.num_layers, max_seq=max_seq, pos=max_seq - 1,
+            eps=cfg.rms_norm_eps, fp8_weights=fp8_weights,
+            final_norm=final_norm, head_dim=cfg.head_dim)
+        self.comp = self.prog.mb.compile(dtype=self.dtype,
+                                         head_dim=cfg.head_dim)
+        self.params = params
+        self.embed = params["embed"]
+        self.final_norm = params["final_norm"]
+        self.head32 = _head32(params)
+        self._rope_cache: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
+        # Weight workspaces, built by the first start() and kept: the
+        # steps only read them.
+        self._wsm = None
+        self._ws8 = None
+
+    # -- workspace ----------------------------------------------------------
+    def start(self, cache) -> torch.Tensor:
+        """The main workspace with the norm weights and the prefilled KV
+        cache loaded, to carry through every step. The first call also
+        builds the weight workspace of the layout (matrix, or e4m3
+        tiles); later calls reuse it."""
+        if cache.k.shape[1] != 1:
+            raise ValueError("megakernel decode is batch-1 "
+                             f"(cache batch {cache.k.shape[1]})")
+        if cache.max_seq != self.max_seq:
+            raise ValueError(f"cache max_seq {cache.max_seq} != decoder "
+                             f"max_seq {self.max_seq}")
+        built = self._ws8 is not None or self._wsm is not None
+        feeds = weight_feeds(self.prog, self.cfg, self.params,
+                             projections=not built)
+        if self.final_norm_inkernel:
+            feeds[self.prog.fnorm] = broadcast_rows(_vec(self.final_norm))
+        feeds.update(cache_feeds(self.prog, cache))
+        main, w8, wm = self.comp.split_feeds(feeds)
+        del feeds
+        if not built and self.fp8_weights:
+            self._ws8 = self.comp.make_workspace8(w8, device=self.device)
+        if not built and self.comp.num_mrows:
+            self._wsm = self.comp.make_workspace_mat(wm, device=self.device)
+        del w8, wm
+        return self.comp.make_workspace(main, device=self.device)
+
+    def _rope(self, pos: int) -> tuple[torch.Tensor, torch.Tensor]:
+        t = self._rope_cache.get(pos)
+        if t is None:
+            cos_t, sin_t = rope_tables(pos, self.cfg.head_dim,
+                                       self.cfg.rope_theta)
+            t = tuple(torch.from_numpy(x).to(self.device).to(self.dtype)
+                      for x in (cos_t, sin_t))
+            self._rope_cache[pos] = t
+        return t
+
+    # -- one token ----------------------------------------------------------
+    def stage(self, ws: torch.Tensor, token, pos: int) -> np.ndarray:
+        """Everything of a step before the launch: the queue retargeted
+        to ``pos`` (returned) and the step's inputs in the workspace —
+        the token's embedding in row 0 of ``x`` (the other rows stay
+        zero) and the rope tables at ``pos``."""
+        if pos >= self.max_seq:
+            raise ValueError(
+                f"pos {pos} >= max_seq {self.max_seq}: the step appends "
+                "this position's k/v — past capacity it would write into "
+                "the adjacent workspace region")
+        queue = advance_queue_pos(self.comp.queue, pos,
+                                  num_exec=self.comp.num_exec)
+        prog = self.prog
+        tok = torch.as_tensor(token).reshape(-1)[:1].to(ws.device)
+        xt = ws[prog.x.base:prog.x.base + prog.x.ct]
+        xt[:, 0, :] = self.embed[tok.long()].float().to(ws.dtype).view(
+            prog.x.ct, TILE)
+        cos, sin = self._rope(pos)
+        ws[prog.cos.base], ws[prog.sin.base] = cos, sin
+        return queue
+
+    def launch(self, ws: torch.Tensor, queue: np.ndarray) -> torch.Tensor:
+        """The step's one megakernel launch (row 0 of every tile)."""
+        return self.comp.step(ws, queue, self._wsm, ws8=self._ws8,
+                              live_rows=1)
+
+    def next_token(self, ws: torch.Tensor) -> torch.Tensor:
+        """Final RMSNorm (unless it ran in the kernel), lm_head and
+        greedy argmax of the output row, in fp32: (1,) int32."""
+        x_out = self.comp.gather_output(ws, self.prog.x_out)[0:1].float()
+        if not self.final_norm_inkernel:
+            x_out = rms_norm(x_out, self.final_norm.float(),
+                             self.cfg.rms_norm_eps)
+        return torch.argmax(x_out @ self.head32, dim=-1).to(torch.int32)
+
+    def step(self, ws: torch.Tensor, token, pos: int):
+        """token: (1,) ints; pos: host int (current cache length). Returns
+        (workspace, next token (1,) int32 on the workspace's device)."""
+        if self._wsm is None and self._ws8 is None:
+            raise ValueError("start() first: the weights are not loaded")
+        queue = self.stage(ws, token, pos)
+        self.last_step_cold = not self.warm
+        self.launch(ws, queue)
+        tok = self.next_token(ws)
+        # Warm only after a successful step: if the first call raises,
+        # the retry still counts as cold.
+        self.warm = True
+        return ws, tok
 
 
 class PagedMegakernelDecoder:
@@ -153,11 +349,7 @@ class PagedMegakernelDecoder:
         self.params = params
         self.embed = params["embed"]
         self.final_norm = params["final_norm"]
-        head = params.get("lm_head")
-        head = head if head is not None else self.embed.T
-        # The logits are an fp32 product (the JAX lane's
-        # ``xn @ head.astype(f32)``): one fp32 copy of the head, made once.
-        self.head32 = head.float()
+        self.head32 = _head32(params)
         # Host retarget map, per slot: queue rows of the attention tasks
         # (with their pool bases and table DATA start row) and of the
         # appends (with their pool bases).
@@ -194,7 +386,7 @@ class PagedMegakernelDecoder:
         """Weights loaded, pools zeroed. Returns the workspace to carry
         through every step (the steps update it in place): the main
         workspace, or the ``(main, kv8)`` pair with e4m3 pools."""
-        main, wm = self.comp.split_feeds(
+        main, _, wm = self.comp.split_feeds(
             weight_feeds(self.prog, self.cfg, self.params))
         self._wsm = self.comp.make_workspace_mat(wm, device=self.device)
         del wm

@@ -14,13 +14,17 @@ prefill scatter) is the quantization point, through the saturating
 ``models/fp8.saturate_cast``.
 
 ``backend`` picks the decode path: ``"xla"`` (the default; the name the
-JAX package gives its plain path) is the eager step above;
-``"megakernel"`` marks the engine for the serving tier's persistent-kernel
-lane (``ServingEngine`` decodes through ``megakernel/serving.py``), and
-:meth:`Engine.decode` / :meth:`Engine.serve` then refuse by name instead of
-decoding eagerly — there is no demotion ladder. Not in this slice: the
-ladder, ``repartition``, observability spans, ``Engine.serve`` on the
-megakernel, and a CUDA graph for the decode step.
+JAX package gives its plain path) is the eager step above.
+``"megakernel"`` decodes through the persistent kernel: with a
+``page_size`` the engine serves the serving tier's paged lane
+(``ServingEngine`` decodes through ``megakernel/serving.py``); without
+one, :meth:`Engine.serve` runs the sequential batch-1 loop over the
+linear-workspace ``MegakernelDecoder`` — prefill as above, then one
+megakernel launch per generated token. :meth:`Engine.decode` on the
+megakernel, and :meth:`Engine.serve` on a megakernel engine that has a
+``page_size``, refuse by name instead of decoding eagerly — there is no
+demotion ladder. Not ported: the ladder, ``repartition``, observability
+spans, and a CUDA graph for the decode step.
 """
 
 from __future__ import annotations
@@ -63,28 +67,34 @@ class Engine:
     ``params`` (from ``init_dense_llm`` or ``params_from_numpy``) are
     moved to ``device`` if they live elsewhere. ``backend``: ``"xla"`` or
     ``"megakernel"``; ``kv_dtype``: the paged pools' type (see the module
-    docstring). The port decodes through the paged cache only, so
-    ``page_size`` is required."""
+    docstring). The eager path decodes through the paged cache only, so
+    ``page_size`` is required there; ``backend="megakernel"`` takes
+    ``page_size=None`` for the sequential serve on the linear
+    workspace."""
 
     BACKENDS = ("xla", "megakernel")
 
     def __init__(self, cfg: ModelConfig, params: dict, *, device=None,
                  max_seq: int = 256, page_size: int | None = None,
                  backend: str = "xla", kv_dtype=None):
+        if backend not in self.BACKENDS:
+            raise ValueError(f"backend = {backend!r} unknown: expected one "
+                             f"of {self.BACKENDS} — argument backend")
         if page_size is None:
             if kv_dtype is not None:
                 raise ValueError(
                     "kv_dtype without page_size: the KV storage dtype is a "
                     "property of the PAGED pool (decode serving); linear "
                     "caches stay in the model dtype — pass page_size too")
-            raise ValueError("page_size missing: the port decodes through "
-                             "the paged cache only — argument page_size")
-        if page_size < 1:
+            if backend != "megakernel":
+                raise ValueError(
+                    "page_size missing: the eager path decodes through "
+                    "the paged cache only (backend='megakernel' serves "
+                    "sequentially on its linear workspace without one) — "
+                    "argument page_size")
+        elif page_size < 1:
             raise ValueError(f"page_size = {page_size} invalid: a page holds "
                              "at least one position — argument page_size")
-        if backend not in self.BACKENDS:
-            raise ValueError(f"backend = {backend!r} unknown: expected one "
-                             f"of {self.BACKENDS} — argument backend")
         self.kv_dtype = None if kv_dtype is None else torch_dtype(kv_dtype)
         if self.kv_dtype not in (None, E4M3, torch_dtype(cfg.dtype)):
             raise ValueError(f"kv_dtype = {kv_dtype} unsupported: the pools "
@@ -95,8 +105,10 @@ class Engine:
         self.device = resolve_device(device)
         self.max_seq = max_seq
         self.page_size = page_size
-        self.max_pages = -(-max_seq // page_size)
+        self.max_pages = (None if page_size is None
+                          else -(-max_seq // page_size))
         self.params = _to_device(params, self.device)
+        self._mk = None       # the sequential serve's cached decoder
 
     def new_cache(self, batch: int) -> KVCache:
         return init_kv_cache(self.cfg, batch, self.max_seq,
@@ -139,15 +151,16 @@ class Engine:
     def _check_eager(self) -> None:
         if self.backend == "megakernel":
             raise MegakernelUnsupportedError(
-                "Engine(backend='megakernel') decodes through "
-                "ServingEngine's megakernel lane; Engine.decode / "
-                "Engine.serve on the megakernel are not ported — use "
+                "Engine.decode on backend='megakernel' is not ported: the "
+                "megakernel decodes through Engine.serve (sequential, "
+                "page_size=None) or ServingEngine's paged lane — use "
                 "backend='xla' for the eager step")
 
     def decode(self, tokens: torch.Tensor, cache):
         """tokens: (B,). ``cache``: a PagedModelCache, or the linear cache
         from :meth:`prefill` (converted on first use). Returns
-        (next_tokens (B,) int32, cache)."""
+        (next_tokens (B,) int32, cache). The eager step only: refused by
+        name on ``backend="megakernel"``."""
         self._check_eager()
         if isinstance(cache, KVCache):
             cache = self.to_paged(cache)
@@ -157,12 +170,25 @@ class Engine:
 
     def serve(self, input_ids, gen_len: int) -> torch.Tensor:
         """Greedy generation: (B, S) prompt ids → (B, gen_len) int32 token
-        ids on the device. The first token comes from the prefill logits."""
-        self._check_eager()
+        ids on the device. The first token comes from the prefill logits;
+        the rest from the eager paged step, or (``backend="megakernel"``,
+        batch 1) from one megakernel launch each."""
         if not isinstance(input_ids, torch.Tensor):
             input_ids = torch.as_tensor(np.asarray(input_ids))
+        if self.backend == "megakernel" and self.page_size is not None:
+            # The JAX package demotes down its backend ladder here; the
+            # port has none.
+            raise MegakernelUnsupportedError(
+                "megakernel sequential serve uses its own linear "
+                "workspace cache, not the paged pool (page_size="
+                f"{self.page_size}) — build the engine with "
+                "page_size=None for Engine.serve, or use "
+                "ServingEngine(backend='megakernel') for the paged "
+                "persistent-kernel lane")
         logits, cache = self.prefill(input_ids.to(self.device))
         tok = sampling.greedy(logits)
+        if self.backend == "megakernel":
+            return self._serve_megakernel(tok, cache, gen_len)
         cache = self.to_paged(cache)
         outs = [tok]
         for _ in range(gen_len - 1):
@@ -175,4 +201,33 @@ class Engine:
                 f"{np.flatnonzero(saturated).tolist()} — their final tokens "
                 "attended a truncated cache; raise max_seq",
                 RuntimeWarning, stacklevel=2)
+        return torch.stack(outs, dim=1)
+
+    def _serve_megakernel(self, tok: torch.Tensor, cache: KVCache,
+                          gen_len: int) -> torch.Tensor:
+        """Decode loop through the persistent megakernel: one launch per
+        token, the queue retargeted per position without recompiling. The
+        decoder (float32 linear workspace, as the JAX package's Engine
+        builds it) is cached on the engine; every serve reloads the
+        prefilled cache into a fresh main workspace."""
+        from triton_distributed_tpu_torch.megakernel.serving import (
+            MegakernelDecoder,
+        )
+
+        if self._mk is None:
+            self._mk = MegakernelDecoder(self.cfg, self.params,
+                                         max_seq=self.max_seq,
+                                         device=self.device)
+        pos = int(cache.offset)
+        if pos + gen_len - 1 > self.max_seq:
+            raise ValueError(
+                f"prompt ({pos}) + gen_len ({gen_len}) exceeds max_seq "
+                f"{self.max_seq} — reject up front rather than dying "
+                "mid-generation")
+        ws = self._mk.start(cache)
+        outs = [tok]
+        for _ in range(gen_len - 1):
+            ws, tok = self._mk.step(ws, tok, pos)
+            pos += 1
+            outs.append(tok)
         return torch.stack(outs, dim=1)

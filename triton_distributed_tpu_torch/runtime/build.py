@@ -114,9 +114,9 @@ class CudaKernel:
     PyTorch version (the module holding both increments it), so a run on
     the card can also show the plain version never stood in.
     ``variant_launches`` counts the launches of each named lane of the
-    kernel (K2's ``"e4m3"`` pools; the megakernel's ``"kv8"`` pools and
-    speculative ``"window"``), so a run can show which lanes its path
-    took."""
+    kernel (K2's ``"e4m3"`` pools; the megakernel's ``"kv8"`` pools,
+    speculative ``"window"`` and ``"full"`` instantiation), so a run can
+    show which lanes its path took."""
 
     def __init__(self, source: str, symbol: str, argtypes: list):
         self.source = source

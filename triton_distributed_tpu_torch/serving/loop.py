@@ -113,6 +113,11 @@ class ServingEngine:
                  kv_hbm_budget: int | None = None,
                  prefill_chunk: int | None = None, max_waiting: int = 64,
                  clock=time.perf_counter, spec_k: int = 0):
+        if engine.page_size is None:
+            raise ServingConfigError(
+                "engine has no paged cache: construct Engine(page_size=...) "
+                "— the serving tier schedules against the paged pool "
+                "(argument engine)")
         page = engine.page_size
         chunk = prefill_chunk if prefill_chunk is not None else page
         if chunk < 1 or chunk % page:
