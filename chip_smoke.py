@@ -133,7 +133,9 @@ TOL_REASON = (
 # 2 x 1024 prompts; a decode batch of 4 in the serving phase).
 MAIN_CASE = {"flash_attention": "prefill_2x1024",
              "paged_attention": "decode_4",
-             "paged_attention_e4m3": "decode_4_e4m3"}
+             "paged_attention_e4m3": "decode_4_e4m3",
+             "flash_attention_g8": "prefill_2x1024_g8",
+             "paged_attention_g8": "decode_4_g8"}
 # The megakernel cases' slots: idle (scratch page), one token, an append
 # at a page's last column, and a long context over 16 shuffled pages.
 MK_LENS = [0, 1, 127, 1999]
@@ -419,8 +421,34 @@ def phase_kernels(torch, fa, pa, timer) -> dict:
     ]
     bf16_ms = next(c["ms"] for c in k2 if c["case"] == "decode_4")
     k2_8[0]["bf16_pools_ms"] = bf16_ms
+    # GQA group 8 (Qwen3-30B-A3B: 32 q heads over 4 kv heads), the MoE
+    # engine's prefill and decode shapes.
+    g8 = dict(hq=32, hkv=4, d=128)
+    k1_g8 = [
+        flash_case(torch, fa, timer, name="prefill_2x1024_g8", dtype=bf16,
+                   B=2, Sq=1024, Sk=1024, q_off=0, normalize=True,
+                   time_it=True, seed=9, **g8),
+        flash_case(torch, fa, timer, name="slice_256_at_768_g8", dtype=bf16,
+                   B=1, Sq=256, Sk=2048, q_off=768, normalize=False,
+                   time_it=False, seed=10, **g8),
+        flash_case(torch, fa, timer, name="fp32_ragged_300_g8", dtype=f32,
+                   B=2, Sq=300, Sk=300, q_off=0, normalize=True,
+                   time_it=False, seed=11, **g8),
+    ]
+    k2_g8 = [
+        paged_case(torch, pa, timer, name="decode_4_g8", dtype=bf16,
+                   lens=[0, 1, 17, 1999], page=16, normalize=True,
+                   time_it=True, seed=12, **g8),
+        paged_case(torch, pa, timer, name="decode_4_g8_partial", dtype=bf16,
+                   lens=[0, 1, 17, 1999], page=16, normalize=False,
+                   time_it=False, seed=13, **g8),
+        paged_case(torch, pa, timer, name="decode_fp32_g8", dtype=f32,
+                   lens=[5, 0, 64, 333], page=16, normalize=True,
+                   time_it=False, seed=14, **g8),
+    ]
     return {"flash_attention": k1, "paged_attention": k2,
-            "paged_attention_e4m3": k2_8}
+            "paged_attention_e4m3": k2_8, "flash_attention_g8": k1_g8,
+            "paged_attention_g8": k2_g8}
 
 
 def _mk_bound(cfg, lens, item: int, rows: int, kv_item: int | None = None):
@@ -918,6 +946,460 @@ def phase_megakernel_cases(torch, mk, mkserv, builder, timer,
     }
     torch.cuda.empty_cache()
     return cases
+
+
+# ---------------------------------------------------------------------------
+# The MoE decode program (Qwen3-30B-A3B): MOE_TOPK and MOE_FFN.
+# ---------------------------------------------------------------------------
+
+# Each MoE program is built at pos = MOE_MAX_SEQ - 1 and retargeted per
+# position; batch 1 is the in-kernel-append form (as the linear decoder),
+# batch 4 the host-fed form of the JAX package's MoE tests (the rows share
+# the caches). The cases step it at these positions from caches whose every
+# position holds data.
+MOE_POSITIONS = [0, 1, 127, 1999]
+MOE_MAX_SEQ = 2048
+
+
+def moe_build(torch, mkmodels, cfg, *, batch: int, dtype):
+    """The MoE decode program of every layer of ``cfg`` at ``batch`` rows,
+    compiled for a ``dtype`` workspace: (program, compiled)."""
+    prog = mkmodels.build_decode_step(
+        hidden=cfg.hidden_size, hq_local=cfg.num_heads,
+        hkv_local=cfg.num_kv_heads, ffn_local=cfg.moe_intermediate_size,
+        num_layers=cfg.num_layers, max_seq=MOE_MAX_SEQ,
+        pos=MOE_MAX_SEQ - 1, batch=batch, eps=cfg.rms_norm_eps,
+        head_dim=cfg.head_dim, moe_experts=cfg.num_experts,
+        moe_topk=cfg.num_experts_per_tok, inkernel_append=batch == 1,
+        mat_prefetch=batch == 1)
+    return prog, prog.mb.compile(dtype=dtype, head_dim=cfg.head_dim)
+
+
+def moe_cache_tiles(prog) -> list:
+    return sorted(t for h in prog.layers for c in h.kT + h.v
+                  for t in c.tiles())
+
+
+def moe_stage(torch, mkmodels, prog, comp, ws, cfg, x, pos: int):
+    """Write one step's inputs — the rows ``x`` (B, hidden) and the rope
+    tables at ``pos`` — and return the queue retargeted to ``pos``."""
+    rows = torch.zeros((128, cfg.hidden_size), device=ws.device)
+    rows[:x.shape[0]] = x.float()
+    comp.scatter_input(ws, prog.x, rows)
+    cos, sin = mkmodels.rope_tables(pos, cfg.head_dim, cfg.rope_theta)
+    comp.scatter_input(ws, prog.cos, torch.from_numpy(cos))
+    comp.scatter_input(ws, prog.sin, torch.from_numpy(sin))
+    return mkmodels.advance_queue_pos(comp, pos)
+
+
+def moe_active(mk, comp, queue, ws, batch: int) -> list:
+    """Per layer (queue order), the experts a MOE_TOPK weight tile in
+    ``ws`` gives weight to — those MOE_FFN streams."""
+    out = []
+    for row in queue[:comp.num_exec]:
+        if row[0] == int(mk.TaskType.MOE_TOPK):
+            wt = ws[int(row[1])][:int(row[6]), :batch].float()
+            out.append(int((wt.sum(dim=1) > 0).sum().item()))
+    return out
+
+
+def _moe_bound(cfg, lens, batch: int, active: list, item: int):
+    """Least time of one MoE step: each layer's attention weights, router
+    and ACTIVE experts' weights read once, the valid KV once (``lens``: the
+    positions each row attends), against the flops these rows need (each
+    row's top-k experts only)."""
+    d, h, f = cfg.head_dim, cfg.hidden_size, cfg.moe_intermediate_size
+    attn = h * (cfg.num_heads + 2 * cfg.num_kv_heads) * d \
+        + cfg.num_heads * d * h
+    router = h * cfg.num_experts
+    kv = 2 * max(lens) * cfg.num_kv_heads * d
+    nbytes = sum(item * (attn + router + n * 3 * h * f + kv) for n in active)
+    flops = len(active) * (2.0 * batch * (attn + router)
+                           + 6.0 * h * f * batch * cfg.num_experts_per_tok
+                           + 4.0 * cfg.num_heads * d * sum(lens))
+    return nbytes, flops
+
+
+def moe_replay(torch, mk, comp, ws_k, queue, tol, rows_live: int) -> dict:
+    """The MoE tasks of one step rerun by the plain handlers on the inputs
+    the kernel left: each MOE_TOPK on the kernel's logits tile (the same
+    experts selected, every element; the weights within ``tol``), each
+    MOE_FFN on the kernel's own weight tile and xn row (its output within
+    ``tol``). A bf16 router selects from bf16 logits, so the whole step
+    cannot hold the selection of the plain step; the replay holds each
+    task."""
+    T = mk.TaskType
+    rows = queue[:comp.num_exec].tolist()
+    ws_t, ws_f = ws_k.clone(), ws_k.clone()
+    wts, outs, n_ffn = [], [], 0
+    for row in rows:
+        if row[0] == int(T.MOE_TOPK):
+            mk._p_moe_topk(ws_t, row)
+            wts.append(row[1])
+        elif row[0] == int(T.MOE_FFN):
+            mk._p_moe_ffn(ws_f, row)
+            outs += [row[1] + j for j in range(row[4])]
+            n_ffn += 1
+    wt_idx = torch.tensor(wts, device=ws_k.device)
+    sel_differ = ((ws_t[wt_idx] > 0) != (ws_k[wt_idx] > 0)).sum().item()
+    _, wt_rec = _errs(ws_k[wt_idx].float(), ws_t[wt_idx].float(), tol)
+    o_idx = torch.tensor(outs, device=ws_k.device)
+    _, ffn_rec = _errs(ws_k[o_idx, :rows_live].float(),
+                       ws_f[o_idx, :rows_live].float(), tol)
+    return {"moe_topk_tasks": len(wts), "selection_elements_differing":
+            int(sel_differ), "moe_topk": wt_rec,
+            "moe_ffn_tasks": n_ffn, "moe_ffn": ffn_rec,
+            "tol_share": max(wt_rec["tol_share"], ffn_rec["tol_share"])}
+
+
+def moe_case(torch, mk, mkmodels, mkserv, timer, *, name, dtype, cfg, batch,
+             seed, time_it=False) -> dict:
+    """The MoE program of ``cfg`` (seeded random weights) at ``batch``
+    rows, stepped at each of MOE_POSITIONS by the CUDA kernel and by
+    run_queue_plain from the same staged workspace. fp32: the live rows of
+    every tile and every cache tile under TOL. bf16: the per-task replays
+    (attention and appends as ``mk_replay``; MOE_TOPK / MOE_FFN as
+    ``moe_replay``), the whole-step error reported."""
+    import types
+
+    from triton_distributed_tpu_torch.models.dense import init_dense_llm
+
+    cfg = dataclasses.replace(cfg, dtype=_dtype_name(dtype))
+    params = init_dense_llm(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(seed))
+    prog, comp = moe_build(torch, mkmodels, cfg, batch=batch, dtype=dtype)
+    main, _, wm = comp.split_feeds(mkserv.weight_feeds(prog, cfg, params))
+    ws0, wsm = comp.make_workspace(main), comp.make_workspace_mat(wm)
+    caches = moe_cache_tiles(prog)
+    caches_t = torch.tensor(caches, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    ws0[caches_t] = torch.randn((len(caches), 128, 128), generator=g,
+                                device="cuda").to(dtype)
+    cache_set = set(caches)
+    rest_t = torch.tensor([t for t in range(comp.num_tiles)
+                           if t not in cache_set], device="cuda")
+    kw = dict(num_exec=comp.num_exec, mat_specs=comp.mat_specs,
+              head_dim=comp.head_dim)
+    fp32 = dtype == torch.float32
+    tol = TOL["megakernel_fp32" if fp32 else "megakernel_bf16"]
+    task_tol = TOL["fp32" if fp32 else "megakernel_attn_bf16"]
+    dec = types.SimpleNamespace(comp=comp, prog=prog)
+
+    def views(ws):
+        return ws[caches_t].flatten().float(), \
+            ws[rest_t, :batch].flatten().float()
+
+    per_pos, share, ok, launch = [], 0.0, True, None
+    for i, pos in enumerate(MOE_POSITIONS):
+        ws_s = ws0.clone()
+        toks = torch.randint(0, cfg.vocab_size, (batch,), generator=g,
+                             device="cuda")
+        queue = moe_stage(torch, mkmodels, prog, comp, ws_s, cfg,
+                          params["embed"][toks], pos)
+        ws_k, ws_p = ws_s.clone(), ws_s.clone()
+        launch = mk.cuda_launcher(queue, ws_k, wsm, live_rows=batch,
+                                  sync_before=comp.sync_before, **kw)
+        launch()
+        mk.run_queue_plain(queue, ws_p, wsm, **kw)
+        torch.cuda.synchronize()
+        (gc_, ga), (wc, wa) = views(ws_k), views(ws_p)
+        _, act = _errs(ga, wa, tol)
+        _, cache_rec = _errs(gc_, wc, tol)
+        replay = mk_replay(torch, mk, dec, ws_s, ws_k, queue, task_tol,
+                           rows_live=batch)
+        mreplay = moe_replay(torch, mk, comp, ws_k, queue, task_tol, batch)
+        s0c, s0a = views(ws_s)
+        changed = ((s0c != wc).sum() + (s0a != wa).sum()).item()
+        step_share = max(act["tol_share"], cache_rec["tol_share"])
+        pos_share = max(replay["attn_tol_share"], mreplay["tol_share"],
+                        step_share if fp32 else 0.0)
+        pos_ok = bool(torch.isfinite(ga).all().item()
+                      and torch.isfinite(gc_).all().item()
+                      and pos_share <= 1.0 and changed > 0
+                      and replay["append_elements_differing"] == 0
+                      and mreplay["selection_elements_differing"] == 0)
+        per_pos.append({"pos": pos, "activations": act, "caches": cache_rec,
+                        "step_tol_share": step_share,
+                        "step_held": fp32, "replay": replay,
+                        "moe_replay": mreplay,
+                        "active_experts": moe_active(mk, comp, queue, ws_k,
+                                                     batch),
+                        "tol_share": pos_share,
+                        "elements_changed_by_step": changed, "ok": pos_ok})
+        share, ok = max(share, pos_share), ok and pos_ok
+        if i + 1 < len(MOE_POSITIONS):
+            del ws_s, ws_k, ws_p
+    rec = {"case": name, "dtype": _dtype_name(dtype),
+           "shape": {"layers": cfg.num_layers, "hidden": cfg.hidden_size,
+                     "experts": cfg.num_experts,
+                     "topk": cfg.num_experts_per_tok,
+                     "expert_ffn": cfg.moe_intermediate_size,
+                     "heads": [cfg.num_heads, cfg.num_kv_heads],
+                     "batch": batch, "max_seq": MOE_MAX_SEQ,
+                     "positions": MOE_POSITIONS,
+                     "form": ("in-kernel append" if batch == 1
+                              else "host-fed caches"),
+                     "tasks": comp.num_exec,
+                     "barriers": int(comp.sync_before.sum())},
+           "max_abs_err": max(max(p["moe_replay"]["moe_ffn"]["max_abs_err"],
+                                  p["replay"]["attn_max_abs_err"],
+                                  p["activations"]["max_abs_err"] if fp32
+                                  else 0.0) for p in per_pos),
+           "tol": tol, "task_tol": task_tol, "tol_share": share,
+           "positions": per_pos, "ok": ok}
+    if time_it:
+        pos = MOE_POSITIONS[-1]
+        active = per_pos[-1]["active_experts"]
+        nbytes, flops = _moe_bound(cfg, [pos], batch, active,
+                                   ws0.element_size())
+        rec["bound_ms"], rec["bound_by"] = _bound_ms(nbytes, flops,
+                                                     _dtype_name(dtype))
+        rec["ms"] = timer.ms(launch)
+        rec["plain_ms"] = timer.ms(lambda: mk.run_queue_plain(
+            queue, ws_p, wsm, **kw), iters=2, warmup=1)
+        rec["library_ms"] = None     # no single PyTorch call runs a step
+    return rec
+
+
+def moe_eager_case(torch, mk, mkmodels, mkserv, *, cfg, seed, batch=4,
+                   pos=1999) -> dict:
+    """fp32, one layer: the MoE program's output rows against the port's
+    eager layer (rms_norm, attention over cache[:pos] plus each row's own
+    k/v, o-proj, residual, rms_norm, ``ops/moe.moe_tp_fwd_local``,
+    residual) on the same weights, caches and rows; the kernel's expert
+    selection against the eager router's top-k."""
+    from triton_distributed_tpu_torch.layers.common import (
+        apply_rope, rms_norm, rope_cos_sin,
+    )
+    from triton_distributed_tpu_torch.models.dense import init_dense_llm
+    from triton_distributed_tpu_torch.ops.moe import (
+        moe_tp_fwd_local, route_and_sort,
+    )
+
+    cfg = dataclasses.replace(cfg, num_layers=1, dtype="float32")
+    params = init_dense_llm(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(seed))
+    prog, comp = moe_build(torch, mkmodels, cfg, batch=batch,
+                           dtype=torch.float32)
+    main, _, wm = comp.split_feeds(mkserv.weight_feeds(prog, cfg, params))
+    ws, wsm = comp.make_workspace(main), comp.make_workspace_mat(wm)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    hkv, d, hq = cfg.num_kv_heads, cfg.head_dim, cfg.num_heads
+    k_cache = torch.randn((MOE_MAX_SEQ, hkv, d), generator=g, device="cuda")
+    v_cache = torch.randn((MOE_MAX_SEQ, hkv, d), generator=g, device="cuda")
+    h = prog.layers[0]
+    for kv in range(hkv):
+        comp.scatter_input(ws, h.kT[kv], k_cache[:, kv].T)
+        comp.scatter_input(ws, h.v[kv], v_cache[:, kv])
+    toks = torch.randint(0, cfg.vocab_size, (batch,), generator=g,
+                         device="cuda")
+    x = params["embed"][toks]
+    queue = moe_stage(torch, mkmodels, prog, comp, ws, cfg, x, pos)
+    mk.cuda_launcher(queue, ws, wsm, live_rows=batch,
+                     sync_before=comp.sync_before, num_exec=comp.num_exec,
+                     mat_specs=comp.mat_specs, head_dim=comp.head_dim)()
+    got = comp.gather_output(ws, prog.x_out)[:batch]
+
+    lay, eps = params["layers"][0], cfg.rms_norm_eps
+    a = lay["attn"]
+    hn = rms_norm(x, lay["attn_norm"], eps)
+    q = rms_norm((hn @ a["wq"]).reshape(batch, hq, d), a["q_norm"], eps)
+    k = rms_norm((hn @ a["wk"]).reshape(batch, hkv, d), a["k_norm"], eps)
+    v = (hn @ a["wv"]).reshape(batch, hkv, d)
+    cos, sin = rope_cos_sin(torch.full((batch, 1), pos, device="cuda"), d,
+                            cfg.rope_theta)
+    q = apply_rope(q[:, None], cos, sin)[:, 0]
+    k = apply_rope(k[:, None], cos, sin)[:, 0]
+    outs = []
+    for b in range(batch):
+        keys = torch.cat([k_cache[:pos], k[b][None]])           # (pos+1, hkv, d)
+        vals = torch.cat([v_cache[:pos], v[b][None]])
+        kh = keys.repeat_interleave(hq // hkv, dim=1)           # (pos+1, hq, d)
+        vh = vals.repeat_interleave(hq // hkv, dim=1)
+        s = torch.einsum("hd,shd->hs", q[b], kh) * d ** -0.5
+        outs.append(torch.einsum("hs,shd->hd", torch.softmax(s, -1), vh))
+    x1 = x + torch.stack(outs).reshape(batch, hq * d) @ a["wo"]
+    x1n = rms_norm(x1, lay["mlp_norm"], eps)
+    m = lay["moe"]
+    want = x1 + moe_tp_fwd_local(x1n, m["router"], m["w_gate"], m["w_up"],
+                                 m["w_down"], cfg.num_experts_per_tok)
+    _, _, gs, _, _ = route_and_sort(x1n, m["router"], cfg.num_experts_per_tok)
+    eager_experts = sorted(torch.nonzero(gs).flatten().tolist())
+    topk_row = next(r for r in queue[:comp.num_exec]
+                    if r[0] == int(mk.TaskType.MOE_TOPK))
+    wt = ws[int(topk_row[1])][:cfg.num_experts, :batch]
+    kernel_experts = sorted(torch.nonzero(wt.sum(dim=1) > 0).flatten()
+                            .tolist())
+    torch.cuda.synchronize()
+    tol = TOL["megakernel_fp32"]
+    _, rec = _errs(got.float(), want.float(), tol)
+    return {"case": "moe_1l_fp32_vs_eager_layer", "dtype": "float32",
+            "shape": {"layers": 1, "batch": batch, "pos": pos,
+                      "hidden": cfg.hidden_size, "experts": cfg.num_experts},
+            **rec, "same_experts": kernel_experts == eager_experts,
+            "active_experts": len(kernel_experts),
+            "ok": bool(torch.isfinite(got).all().item()
+                       and rec["tol_share"] <= 1.0
+                       and kernel_experts == eager_experts)}
+
+
+def phase_moe_cases(torch, mk, mkmodels, mkserv, timer, QWEN3_30B_A3B):
+    """The MoE program at Qwen3-30B-A3B widths cut to 2 layers: bf16 and
+    fp32, batch 1 (in-kernel appends) and 4 (host-fed caches), each at
+    MOE_POSITIONS; and the fp32 1-layer program against the eager layer."""
+    cfg = dataclasses.replace(QWEN3_30B_A3B, num_layers=2)
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = []
+    for name, dtype, batch, seed, time_it in (
+            ("moe_2l_bf16_b1", bf16, 1, 40, True),
+            ("moe_2l_bf16_b4", bf16, 4, 41, True),
+            ("moe_2l_fp32_b1", f32, 1, 42, False),
+            ("moe_2l_fp32_b4", f32, 4, 43, False)):
+        cases.append(moe_case(torch, mk, mkmodels, mkserv, timer, name=name,
+                              dtype=dtype, cfg=cfg, batch=batch, seed=seed,
+                              time_it=time_it))
+        torch.cuda.empty_cache()
+    cases.append(moe_eager_case(torch, mk, mkmodels, mkserv, cfg=cfg,
+                                seed=44))
+    torch.cuda.empty_cache()
+    return {"megakernel_moe": cases}
+
+
+def moe_fill(torch, comp, prog, cfg, seed):
+    """The full-depth MoE workspaces with seeded random weights written
+    straight into their tiles, layer by layer (no parameter tree beside
+    them: the bf16 experts alone are ~58 GB): experts and router at the
+    JAX initialiser's scales, norms 1, caches random. Returns (ws, wsm)."""
+    dt = comp.dtype
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    ws = torch.zeros((comp.num_tiles + comp._strip_pad, 128, 128), dtype=dt,
+                     device="cuda")
+    wsm = torch.zeros((comp.num_mrows, 1024), dtype=dt, device="cuda")
+    h_, f_ = cfg.hidden_size, cfg.moe_intermediate_size
+
+    def fill(t, scale):
+        ws[t.base:t.base + t.rt * t.ct].normal_(generator=g).mul_(scale)
+
+    for h in prog.layers:
+        for t, scale in ((h.moe_w_gate, h_ ** -0.5), (h.moe_w_up, h_ ** -0.5),
+                         (h.moe_w_down, f_ ** -0.5),
+                         (h.moe_router, h_ ** -0.5)):
+            fill(t, scale)
+        for t in h.kT + h.v:
+            fill(t, 1.0)
+        for t in (h.attn_norm, h.mlp_norm, h.q_norm, h.k_norm):
+            ws[t.base:t.base + t.rt * t.ct] = 1.0
+        for m, k in ((h.wqkv, h_), (h.wo, cfg.num_heads * cfg.head_dim)):
+            wsm[m.base:m.base + m.rows].normal_(generator=g).mul_(k ** -0.5)
+    return ws, wsm
+
+
+def moe_step_run(torch, mk, mkmodels, cfg, timer, *, batch, steps=8,
+                 seed=50) -> dict:
+    """The full-width MoE program at ``cfg``'s depth, bf16, ``batch``
+    rows: ``steps`` launches at positions up to 1999 (fresh random rows
+    each step, the in-kernel appends advancing the caches at batch 1) with
+    the megakernel's count set to 0 just before and read just after; then
+    the kernel alone at the last position, L2 flushed, against the byte
+    bound of the experts it streamed; then MOE_TOPK and MOE_FFN alone as
+    one-task programs on that step's layer-0 inputs."""
+    bf16 = torch.bfloat16
+    t0 = time.perf_counter()
+    prog, comp = moe_build(torch, mkmodels, cfg, batch=batch, dtype=bf16)
+    ws, wsm = moe_fill(torch, comp, prog, cfg, seed)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    kw = dict(num_exec=comp.num_exec, mat_specs=comp.mat_specs,
+              head_dim=comp.head_dim)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    mega = mk.MEGA_KERNEL
+    mega.launches, mega.plain_calls, mega.variant_launches = 0, 0, {}
+    walls = []
+    first = MOE_POSITIONS[-1] - steps + 1
+    for pos in range(first, first + steps):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        x = torch.randn((batch, cfg.hidden_size), generator=g,
+                        device="cuda") * 0.02
+        queue = moe_stage(torch, mkmodels, prog, comp, ws, cfg, x, pos)
+        launch = mk.cuda_launcher(queue, ws, wsm, live_rows=batch,
+                                  sync_before=comp.sync_before, **kw)
+        launch()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t1)
+    launches = mega.launches
+    moe_launches = mega.variant_launches.get("moe", 0)
+    check(launches == steps and moe_launches == steps
+          and mega.plain_calls == 0,
+          f"moe_step: {launches} launches ({moe_launches} of the MoE "
+          f"program) for {steps} steps")
+    out = ws[prog.x_out.base:prog.x_out.base + prog.x_out.ct, :batch]
+    check(bool(torch.isfinite(out.float()).all()),
+          "moe_step: non-finite output rows")
+    active = moe_active(mk, comp, queue, ws, batch)
+    pos = first + steps - 1
+    nbytes, flops = _moe_bound(cfg, [pos], batch, active, 2)
+    bound, bound_by = _bound_ms(nbytes, flops, "bfloat16")
+    all_bytes, _ = _moe_bound(cfg, [pos], batch, [cfg.num_experts]
+                              * cfg.num_layers, 2)
+    ms = timer.ms(launch, iters=5)
+    rec = {"batch": batch, "layers": cfg.num_layers,
+           "form": "in-kernel append" if batch == 1 else "host-fed caches",
+           "tasks": comp.num_exec, "barriers": int(comp.sync_before.sum()),
+           "workspace_gb": (ws.numel() + wsm.numel()) * 2 / 1e9,
+           "build_and_fill_s": build_s, "steps": steps,
+           "launches": launches, "moe_launches": moe_launches,
+           "step_ms_runs": [w * 1e3 for w in walls],
+           "step_ms": _pct(walls[1:], 50) * 1e3, "kernel_pos": pos,
+           "ms": ms, "bound_ms": bound, "bound_by": bound_by,
+           "bound_bytes": nbytes, "all_experts_bytes": all_bytes,
+           "active_experts_per_layer": active,
+           "active_experts_mean": sum(active) / len(active),
+           "grid_blocks": mk.grid_blocks(bf16, moe=True),
+           "library_ms": None}     # no single PyTorch call runs a step
+    rec["plain_ms"] = timer.ms(lambda: mk.run_queue_plain(
+        queue, ws, wsm, **kw), iters=1, warmup=1)
+    rec["tasks_alone"] = moe_tasks_alone(torch, mk, comp, prog, ws, queue,
+                                         cfg, batch, timer)
+    return rec
+
+
+def moe_tasks_alone(torch, mk, comp, prog, ws, queue, cfg, batch, timer):
+    """MOE_TOPK and MOE_FFN of layer 0 as one-task programs (the
+    megakernel launched on a queue of that one row) on the tiles the step
+    left: kernel time (L2 flushed), plain time, and the bound (MOE_FFN:
+    the active experts' weights plus its rows; MOE_TOPK: two tiles)."""
+    import numpy as np
+
+    rows = [r for r in queue[:comp.num_exec].tolist()
+            if r[0] in (int(mk.TaskType.MOE_TOPK), int(mk.TaskType.MOE_FFN))]
+    out = {}
+    h, f, E = cfg.hidden_size, cfg.moe_intermediate_size, cfg.num_experts
+    for row in rows[:2]:
+        q = np.asarray([row], np.int32)
+        kw = dict(num_exec=1, mat_specs=(), head_dim=comp.head_dim)
+        launch = mk.cuda_launcher(q, ws, None, live_rows=batch,
+                                  sync_before=[0], **kw)
+        name = mk.TaskType(row[0]).name
+        if name == "MOE_TOPK":
+            nbytes, flops = 2 * 128 * 128 * 2, 4.0 * 128 * batch * \
+                cfg.num_experts_per_tok
+            n_act = None
+        else:
+            wt = ws[row[3]][:E, :batch].float()
+            n_act = int((wt.sum(dim=1) > 0).sum().item())
+            nbytes = 2 * (n_act * 3 * h * f + 2 * batch * h + 128 * batch)
+            flops = 6.0 * h * f * batch * cfg.num_experts_per_tok
+        bound, bound_by = _bound_ms(nbytes, flops, "bfloat16")
+        # The plain run rewrites the task's output from the same inputs
+        # (MOE_TOPK: the same selection, the weights within a rounding).
+        out[name] = {"ms": timer.ms(launch, iters=10),
+                     "plain_ms": timer.ms(lambda: mk.run_queue_plain(
+                         q, ws, None, **kw), iters=2, warmup=1),
+                     "bound_ms": bound, "bound_by": bound_by,
+                     "bound_bytes": nbytes, "active_experts": n_act,
+                     "library_ms": None}
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1460,6 +1942,104 @@ def phase_megakernel_engine(torch, mk, mkserv, kernels, Engine, params, cfg,
     return rec
 
 
+def phase_moe_engine(torch, kernels, Engine, ServingEngine, cfg, prompts):
+    """Qwen3-30B-A3B at full width and depth (48 layers, bf16, seeded
+    random weights): ``Engine.serve`` of 2 x 1024-token prompts for 32 new
+    tokens (K1 once per layer, K2 once per layer and decode step, no plain
+    version; prefill ms, decode ms/step, tokens/s, peak memory, the decode
+    profile), then ``ServingEngine`` (page 16) over the serving phases'
+    six prompts and its decode-only window. Returns the two records."""
+    from triton_distributed_tpu_torch.models.dense import init_dense_llm
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_dense_llm(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    eng = Engine(cfg, params, max_seq=2048, page_size=16)
+    rec = phase_engine(torch, eng, kernels[:2], gen=32)
+    rec.update(phase="moe_engine", model="Qwen3-30B-A3B", init_s=init_s,
+               params_gb=sum(t.numel() * t.element_size() for t in
+                             _leaves(params)) / 1e9)
+    serving = phase_serving(torch, eng, kernels, ServingEngine,
+                            name="moe_serving", prompts=prompts)
+    serving["model"] = "Qwen3-30B-A3B"
+    return rec, serving
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _leaves(v)]
+    return [tree]
+
+
+def phase_moe_step(torch, mk, mkmodels, cfg, timer) -> dict:
+    """The full-width MoE decode program at all 48 layers, bf16, at batch
+    1 (in-kernel appends) and batch 4 (host-fed caches): launches of a
+    counted 8-step run, the kernel's time against the byte bound of the
+    experts it streamed, the active experts per layer, and MOE_TOPK and
+    MOE_FFN alone."""
+    import gc
+
+    rec = {"phase": "moe_step", "model": "Qwen3-30B-A3B",
+           "dtype": "bfloat16"}
+    for batch in (1, 4):
+        rec[f"batch_{batch}"] = moe_step_run(torch, mk, mkmodels, cfg, timer,
+                                             batch=batch)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rec
+
+
+def phase_moe_parity(torch, QWEN3_30B_A3B, init_dense_llm, Engine,
+                     ServingEngine, kernels) -> dict:
+    """float32, Qwen3-30B-A3B widths cut to 2 layers, eager lane (page
+    16): ``ServingEngine`` token-identical to the sequential
+    ``Engine.serve`` — 4 requests through 2 slots, and through 3 slots
+    over a pool small enough to preempt."""
+    cfg = dataclasses.replace(QWEN3_30B_A3B, num_layers=2, dtype="float32")
+    params = init_dense_llm(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(3))
+    eng = Engine(cfg, params, max_seq=256, page_size=16)
+    g = torch.Generator().manual_seed(23)
+    runs = {"moe_two_slots": (dict(max_batch=2, prefill_chunk=64),
+                              ([37, 100, 64, 150], [12, 8, 16, 10])),
+            "moe_preempt": (dict(max_batch=3, num_pages=20, prefill_chunk=64),
+                            ([90, 60, 75, 100], [40, 40, 40, 40]))}
+    flash, paged, mega = kernels
+    result = {"phase": "moe_parity", "layers": 2, "dtype": "float32"}
+    for name, (kw, (lengths, gens)) in runs.items():
+        prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=g).tolist()
+                   for n in lengths]
+        golden = [eng.serve([p], n)[0].tolist() for p, n in zip(prompts, gens)]
+        reset_counts(kernels)
+        se = ServingEngine(eng, **kw)
+        cuts = record_preemptions(se)
+        reqs, steps, _, _ = _drive(se, prompts, gens)
+        for r, p, want in zip(reqs, prompts, golden):
+            if r.tokens != want:
+                step, gap = _first_divergence(torch, eng, p, r.tokens, want)
+                emit({"phase": "moe_parity", "run": name, "req": r.req_id,
+                      "diverged_at_step": step, "top2_logit_gap": gap})
+                raise RuntimeError(f"chip_smoke: moe parity {name}: "
+                                   f"{r.req_id} diverged at step {step}")
+        n_pre = sum(r.preemptions for r in reqs)
+        if name.endswith("preempt"):
+            check(n_pre >= 1, f"moe parity {name}: no preemption")
+        check(paged.launches == cfg.num_layers * steps and mega.launches == 0
+              and all(k.plain_calls == 0 for k in kernels),
+              f"moe parity {name}: K2 launched {paged.launches} for {steps} "
+              "steps (or a plain version ran)")
+        result[name] = {"requests": len(reqs), "tokens": sum(gens),
+                        "decode_steps": steps, "preemptions": n_pre,
+                        "preempted_at_tokens": cuts, "identical": True}
+        del se
+    return result
+
+
 def phase_linear_parity(torch, mkserv, QWEN3_8B, init_dense_llm, Engine,
                         kernels) -> dict:
     """float32, Qwen3-8B widths cut to 2 layers: ``Engine.serve`` on the
@@ -1723,7 +2303,11 @@ def main() -> int:
         "triton_distributed_tpu_torch.megakernel.serving")
     mkbuilder = importlib.import_module(
         "triton_distributed_tpu_torch.megakernel.builder")
-    from triton_distributed_tpu_torch.models.config import QWEN3_8B
+    mkmodels = importlib.import_module(
+        "triton_distributed_tpu_torch.megakernel.models")
+    from triton_distributed_tpu_torch.models.config import (
+        QWEN3_8B, QWEN3_30B_A3B,
+    )
     from triton_distributed_tpu_torch.models.dense import init_dense_llm
     from triton_distributed_tpu_torch.models.engine import Engine
     from triton_distributed_tpu_torch.models.kv_cache import (
@@ -1760,6 +2344,8 @@ def main() -> int:
     cases = phase_kernels(torch, fa, pa, timer)
     cases.update(phase_megakernel_cases(torch, mk, mkserv, mkbuilder, timer,
                                         QWEN3_8B))
+    cases.update(phase_moe_cases(torch, mk, mkmodels, mkserv, timer,
+                                 QWEN3_30B_A3B))
     L = QWEN3_8B.num_layers
     emit_phase({"phase": "kernels", "tol_reason": TOL_REASON,
                 "launches_per_step": {
@@ -1775,7 +2361,14 @@ def main() -> int:
                     "megakernel_linear": "1 per decoded token of "
                                          "Engine.serve(backend='megakernel')",
                     "megakernel_linear_w8": "the same, on the fp8-weight "
-                                            "decoder"},
+                                            "decoder",
+                    "flash_attention_g8": "48 per prefill or slice of "
+                                          "Qwen3-30B-A3B",
+                    "paged_attention_g8": "48 per decode step of "
+                                          "Qwen3-30B-A3B on the eager lane",
+                    "megakernel_moe": "1 per step of the MoE decode "
+                                      "program (MOE_TOPK and MOE_FFN once "
+                                      "per layer)"},
                 "cases": cases})
     bad = [c["case"] for cs in cases.values() for c in cs if not c["ok"]]
     check(not bad, f"kernels disagree with their plain versions: {bad}")
@@ -1843,6 +2436,23 @@ def main() -> int:
                             ServingEngine, kernels))
     emit_phase(phase_linear_parity(torch, mkserv, QWEN3_8B, init_dense_llm,
                                    Engine, kernels))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Qwen3-MoE: the eager lane at full size, the MoE decode program at
+    # full depth, then fp32 token parity.
+    moe_rec, moe_serving_rec = phase_moe_engine(
+        torch, kernels, Engine, ServingEngine, QWEN3_30B_A3B, prompts)
+    emit_phase(moe_rec)
+    emit_phase(moe_serving_rec)
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_step_rec = emit_phase(phase_moe_step(torch, mk, mkmodels,
+                                             QWEN3_30B_A3B, timer))
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit_phase(phase_moe_parity(torch, QWEN3_30B_A3B, init_dense_llm, Engine,
+                                ServingEngine, kernels))
 
     tpu = "triton_distributed_tpu/"
     root = build.PKG_DIR.parent
@@ -1903,6 +2513,41 @@ def main() -> int:
                        cases["megakernel_linear_w8"],
                        lin_rec["forms"]["fp8_weights"],
                        lin_rec["forms"]["fp8_weights"]["launches"], root),
+    ]
+    b1 = moe_step_rec["batch_1"]
+    moe_cases = cases["megakernel_moe"]
+    summary += [
+        # Qwen3-30B-A3B's GQA group 8, launches of the MoE serving run.
+        _summary_entry(fa.FLASH_KERNEL, "flash_attention_g8",
+                       tpu + "ops/flash_attention.py:157",
+                       cases["flash_attention_g8"],
+                       kernel_case("flash_attention_g8"),
+                       moe_serving_rec["launches"]["flash_attention"], root),
+        _summary_entry(pa.PAGED_KERNEL, "paged_attention_g8",
+                       tpu + "ops/paged_attention.py:160",
+                       cases["paged_attention_g8"],
+                       kernel_case("paged_attention_g8"),
+                       moe_serving_rec["launches"]["paged_attention"], root),
+        # The MoE decode program (48 layers, bf16, batch 1) and its two
+        # handlers alone (one-task programs on that step's layer-0
+        # tiles); launches of the counted moe_step run at batch 1.
+        _summary_entry(mk.MEGA_KERNEL, "megakernel_moe",
+                       tpu + "megakernel/kernel.py:39", moe_cases, b1,
+                       b1["moe_launches"], root),
+        dict(_summary_entry(mk.MEGA_KERNEL, "megakernel_moe_topk",
+                            tpu + "megakernel/kernel.py:964", moe_cases,
+                            b1["tasks_alone"]["MOE_TOPK"],
+                            b1["moe_launches"], root),
+             max_abs_err=max(p["moe_replay"]["moe_topk"]["max_abs_err"]
+                             for c in moe_cases for p in c.get("positions",
+                                                               []))),
+        dict(_summary_entry(mk.MEGA_KERNEL, "megakernel_moe_ffn",
+                            tpu + "megakernel/kernel.py:1004", moe_cases,
+                            b1["tasks_alone"]["MOE_FFN"],
+                            b1["moe_launches"], root),
+             max_abs_err=max(p["moe_replay"]["moe_ffn"]["max_abs_err"]
+                             for c in moe_cases for p in c.get("positions",
+                                                               []))),
     ]
     check(all(e["launches"] > 0 for e in summary),
           f"a kernel of the path was never launched: "

@@ -761,7 +761,7 @@ def test_builder_refusals():
     with pytest.raises(ValueError, match="distinct"):
         mb.tensor(TILE, TILE, fp8=True, kv8=True)
     for tt in (TaskType.PREFETCH, TaskType.PREFETCH_W8, TaskType.ALLREDUCE,
-               TaskType.ALLREDUCE_ROW, TaskType.MOE_TOPK, TaskType.MOE_FFN):
+               TaskType.ALLREDUCE_ROW):
         mb2 = MegaKernelBuilder()
         t = mb2.tensor(TILE, TILE)
         mb2._emit(Task(tt, t.tile(0, 0), a0=t.tile(0, 0)), [], [])
@@ -772,10 +772,13 @@ def test_builder_refusals():
 
 def test_kernel_instantiation_follows_the_queue_types():
     """The CUDA kernel has a lean body for the paged serving program's
-    task types and a full one for every ported type (as the JAX kernel
-    compiles only the branches a program uses): the launcher picks by the
-    queue's executable rows, never by its page-table data rows."""
-    from triton_distributed_tpu_torch.megakernel.kernel import _full_kernel
+    task types and full ones for every ported type (as the JAX kernel
+    compiles only the branches a program uses; the MoE types in a body of
+    their own): the launcher picks by the queue's executable rows, never
+    by its page-table data rows."""
+    from triton_distributed_tpu_torch.megakernel.kernel import (
+        _full_kernel, _kernel_body,
+    )
 
     paged = build_decode_step(**dict(_program_kw(TINY, MAX_SEQ), batch=TILE,
                                      kv_pool_pages=3, table_pages=2,
@@ -783,14 +786,17 @@ def test_kernel_instantiation_follows_the_queue_types():
                               ).mb.compile()
     assert len(paged.queue) > paged.num_exec
     assert not _full_kernel(paged.queue, paged.num_exec)
+    assert _kernel_body(paged.queue, paged.num_exec) == 0
     for fp8 in (False, True):
         _, tc = _both(TINY, MAX_SEQ, fp8, False)
         assert _full_kernel(tc.queue, tc.num_exec)
+        assert _kernel_body(tc.queue, tc.num_exec) == 1
     mb = MegaKernelBuilder()
     a, o = mb.tensor(TILE, TILE), mb.tensor(TILE, TILE)
     mb.copy(o, a)
     comp = mb.compile()
     assert _full_kernel(comp.queue, comp.num_exec)
+    assert _kernel_body(comp.queue, comp.num_exec) == 1
 
 
 def test_linear_decoder_defaults_to_cuda(tiny, monkeypatch):

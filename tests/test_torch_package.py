@@ -74,6 +74,33 @@ def test_entry_points_default_to_cuda(monkeypatch):
         params_from_numpy({"w": np.zeros(2, np.float32)}, cfg)
 
 
+def test_moe_and_layer_initialisers_default_to_cuda(monkeypatch):
+    """The MoE slice's entry points (``init_dense_llm`` and ``Engine`` on a
+    MoE config, ``init_ep_moe``) and the layer initialisers under them
+    resolve ``device=None`` to the card and raise without CUDA. The layer
+    initialisers (``init_tp_attn``, ``init_tp_mlp``) used to hand None to
+    ``torch.randn``, i.e. allocate on the CPU."""
+    from triton_distributed_tpu_torch.layers.ep_moe import init_ep_moe
+    from triton_distributed_tpu_torch.layers.tp_attn import init_tp_attn
+    from triton_distributed_tpu_torch.layers.tp_mlp import init_tp_mlp
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = tiny_config(num_layers=1, num_experts=4, num_experts_per_tok=2,
+                      moe_intermediate_size=32)
+    gen = torch.Generator()
+    params = init_dense_llm(cfg, generator=gen, device="cpu")
+    assert params["layers"][0]["moe"]["w_gate"].device.type == "cpu"
+    for make in (
+            lambda: init_dense_llm(cfg, generator=gen, device=None),
+            lambda: Engine(cfg, params, device=None, max_seq=16,
+                           page_size=4),
+            lambda: init_ep_moe(128, 32, 4, torch.float32, generator=gen),
+            lambda: init_tp_attn(cfg, torch.float32, generator=gen),
+            lambda: init_tp_mlp(128, 256, torch.float32, generator=gen)):
+        with pytest.raises(RuntimeError, match="is_available"):
+            make()
+
+
 def test_cache_and_workspace_constructors_default_to_cuda(monkeypatch):
     """The caches' and the megakernel workspaces' constructors allocate on
     the card unless given a device: with ``device=None`` they used to

@@ -12,16 +12,17 @@
 // ATTN_DECODE_GQA (11) and ATTN_DECODE (8) over a linear cache and, in the
 // tile weight layout, GEMM_WIDE (12) / GEMM_WIDE_W8 (15: B tiles in the
 // e4m3 weight workspace), NORM_ROPE (13), ADD_NORM (20) and the row-wise
-// COPY, ADD, SILU_MUL, SCALE (0, 1, 2, 5). Any other type traps: a row
+// COPY, ADD, SILU_MUL, SCALE (0, 1, 2, 5). The Qwen3-MoE decode programs
+// add MOE_TOPK (17) and MOE_FFN (18). Any other type traps: a row
 // must never silently do nothing (megakernel/kernel.py checks the
 // program's types before launch and raises, so the trap marks a queue that
 // bypassed that check).
 //
 // GEMM_WIDE's item loop is a separate function (__noinline__): it gets its
 // own register allocation, so its pressure cannot spill the other handlers'
-// loops, which compile inline as one body (see mega_kernel for the two
-// instantiations: the linear programs' types live in the full one, which
-// runs one block per SM).
+// loops, which compile inline as one body (see mega_kernel for the three
+// instantiations: the linear programs' types live in the full ones, which
+// run one block per SM, and the MoE types in the third alone).
 //
 // Design. A TPU grid step runs one task at a time, so the queue order keeps
 // every dependency. Here every block walks the same queue; each task's work
@@ -68,6 +69,21 @@
 // order), so there is no partial-sum scratch and no barrier inside, and the
 // strips of one projection group (q, k, v; gate, up) share one barrier
 // interval: 128 to 768 items over the full body's one block per SM (132).
+//
+// MOE_TOPK (kernel.py:964 t_moe_topk) is one item: a warp per live row
+// selects the row's top-k logits by iterative argmax (ties to the leftmost
+// column) and stores the dense (E, B) weight tile. MOE_FFN (kernel.py:1004
+// t_moe_ffn) is one grid step per layer on the TPU: one core streams every
+// active expert's weights. Carried over as-is one block would stream them
+// while the others wait, so here the task is cut across the grid: every
+// block reads the weight tile and lists the active experts (a row that
+// sums to zero is skipped before any of its weights is read), then gate/up
+// items of (active expert, 32-column ffn strip) write act = silu(g) * u *
+// w_tok, rounded to the workspace type, to the fp32 scratch; a grid
+// barrier; then down items of 32 hidden columns each sum every active
+// expert, in list order, into their columns and store once. Bound: bytes —
+// the active experts' 3 x hidden x ffn weights, ~2 flops per weight byte
+// in bf16 at batch 1.
 
 #include <cooperative_groups.h>
 
@@ -102,6 +118,8 @@ enum TaskType : int {
   GEMM_MAT = 19,
   ADD_NORM = 20,
   NORM_ROPE_QKV = 21,
+  MOE_TOPK = 17,
+  MOE_FFN = 18,
   PREFETCH_MAT = 23,
   ATTN_DECODE_PAGED_F8 = 24,
   APPEND_KV_F8 = 25,
@@ -116,8 +134,14 @@ constexpr int GW_A_FLOATS = 8192;  // staged A values (all live rows)
 // GEMM_WIDE: the staged A chunk + WARPS x MAX_LIVE x GW_COLS sums).
 constexpr int GEMM_MAT_FLOATS = KLANES * MAX_LIVE * TILE + MAX_LIVE * 256 + 64;
 constexpr int GEMM_WIDE_FLOATS = GW_A_FLOATS + WARPS * MAX_LIVE * GW_COLS;
-constexpr int SMEM_FLOATS = GEMM_MAT_FLOATS > GEMM_WIDE_FLOATS
-                                ? GEMM_MAT_FLOATS : GEMM_WIDE_FLOATS;
+// MOE_FFN: the staged A chunk (as GEMM_WIDE), the per-warp sums of two
+// products, the active-expert list and its ballot words.
+constexpr int MOE_COLS = 32;     // output columns of a MOE_FFN item
+constexpr int MOE_LIST_OFF = GW_A_FLOATS + WARPS * 2 * MAX_LIVE * MOE_COLS;
+constexpr int MOE_FLOATS = MOE_LIST_OFF + TILE + TILE / 32;
+constexpr int cmax(int a, int b) { return a > b ? a : b; }
+constexpr int SMEM_FLOATS = cmax(GEMM_MAT_FLOATS, GEMM_WIDE_FLOATS);
+constexpr int SMEM_MOE_FLOATS = cmax(SMEM_FLOATS, MOE_FLOATS);
 
 struct Args {
   const int* queue;        // (rows, WORDS): tasks, then page-table data
@@ -127,7 +151,7 @@ struct Args {
   const void* wsm;         // (rows, MAT_COLS) matrix weight workspace
   const __nv_fp8_e4m3* ws8;  // (tiles, TILE, TILE) e4m3 weight tiles (or null)
   __nv_fp8_e4m3* wkv8;     // (tiles, TILE, TILE) e4m3 KV pools (or null)
-  float* partial;          // GEMM_MAT partial sums (fp32 scratch)
+  float* partial;          // GEMM_MAT partial sums / MOE_FFN act (fp32)
   int num_exec;
   int live_rows;
   int head_dim;
@@ -218,6 +242,12 @@ __device__ __forceinline__ float warp_sum(float v) {
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ int warp_min(int v) {
+#pragma unroll
+  for (int o = 16; o; o >>= 1) v = min(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
 }
 
@@ -845,13 +875,313 @@ __device__ void t_gemm_mat(T* ws, const T* wsm, float* partial,
   seg += n_b;
 }
 
-// The task types beyond the paged serving program's: false where `type` is
-// none of them. Only the FULL kernel instantiates this.
+// -- MOE_TOPK: the logits tile a0 masked to columns < E (word 6) and rows
+// < batch (word 9); arg experts per row by iterative argmax, ties to the
+// leftmost column; weights exp(l - row max) over the selected, / max(sum,
+// 1e-30); stored TRANSPOSED (E, B) at `out`, zeros elsewhere. One item:
+// warp r computes row r (its lanes hold 4 columns each); the host checks
+// batch <= live, so the columns past the live rows are zeros.
 template <typename T>
+__device__ void t_moe_topk(T* ws, const int* w, int& seg, int live) {
+  const int out = w[1], a0 = w[2], num_e = w[6], k = w[7], batch = w[9];
+  if (first_item(seg) == 0) {
+    for (int i = threadIdx.x; i < TILE_ELEMS; i += THREADS)
+      if (i % TILE >= live) ws[(size_t)out * TILE_ELEMS + i] = tdt::from_f<T>(0.0f);
+    const int r = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    if (r < live) {
+      float lg[4], work[4];
+      bool sel[4];
+      float mx = tdt::NEG;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int c = lane * 4 + i;
+        lg[i] = c < num_e && r < batch ? ldw(tile_at(ws, a0, r, c)) : tdt::NEG;
+        work[i] = lg[i];
+        sel[i] = false;
+        mx = fmaxf(mx, lg[i]);
+      }
+      const float m0 = warp_max(mx);
+      for (int t = 0; t < k; ++t) {
+        const float m = warp_max(fmaxf(fmaxf(work[0], work[1]),
+                                       fmaxf(work[2], work[3])));
+        int idx = TILE;
+#pragma unroll
+        for (int i = 3; i >= 0; --i)
+          if (work[i] == m && work[i] > tdt::NEG * 0.5f) idx = lane * 4 + i;
+        idx = warp_min(idx);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          if (lane * 4 + i == idx) {
+            work[i] = tdt::NEG;
+            sel[i] = true;
+          }
+        }
+      }
+      float wg[4], z = 0.0f;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        wg[i] = sel[i] ? expf(lg[i] - m0) : 0.0f;
+        z += wg[i];
+      }
+      z = fmaxf(warp_sum(z), 1e-30f);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        *tile_at(ws, out, lane * 4 + i, r) = tdt::from_f<T>(wg[i] / z);
+    }
+  }
+  seg += 1;
+}
+
+// One MOE_FFN item's products: acc[b][r][i] += A[r][k] * B_b[k][col0 +
+// cg * EPL + i] over the k rows of the staged A chunk (`as`: live rows of
+// kc values in the workspace type, nt k-tiles), B_b's k-tile j the
+// workspace tile tile(b, j). The threads split the k rows, TPR threads per
+// 32-column row slice of 16-byte loads; UNROLL loads in flight per thread
+// and product before the multiplies. Rows past the live ones multiply
+// whatever `as` holds there (sized for ML rows) and are never stored.
+template <typename T, int ML, int NB, typename TileOf>
+__device__ __forceinline__ void moe_mac(const T* ws, const T* as, int kc,
+                                        int nt, int col0, TileOf tile,
+                                        float (&acc)[NB][ML][16 / sizeof(T)]) {
+  constexpr int EPL = 16 / (int)sizeof(T);
+  constexpr int TPR = MOE_COLS / EPL;
+  constexpr int RPP = THREADS / TPR;
+  constexpr int PASSES = TILE / RPP;
+  constexpr int UNROLL = NB == 1 ? 8 : 4;
+  const int cg = threadIdx.x % TPR, rl = threadIdx.x / TPR;
+  const int steps = nt * PASSES;
+  for (int s0 = 0; s0 < steps; s0 += UNROLL) {
+    uint4 raw[NB][UNROLL];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const int s1 = s0 + u;
+      if (s1 < steps) {
+        const int j = s1 / PASSES, row = (s1 % PASSES) * RPP + rl;
+#pragma unroll
+        for (int b = 0; b < NB; ++b)
+          raw[b][u] = __ldcg(reinterpret_cast<const uint4*>(
+              ws + tile(b, j) * TILE_ELEMS + row * TILE + col0 + cg * EPL));
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const int s1 = s0 + u;
+      if (s1 < steps) {
+        const int k = (s1 / PASSES) * TILE + (s1 % PASSES) * RPP + rl;
+        float a[ML];
+#pragma unroll
+        for (int r = 0; r < ML; ++r) a[r] = tdt::to_f(as[r * kc + k]);
+#pragma unroll
+        for (int b = 0; b < NB; ++b) {
+          float bv[EPL];
+          unpack16(raw[b][u], static_cast<const T*>(nullptr), bv);
+#pragma unroll
+          for (int r = 0; r < ML; ++r)
+#pragma unroll
+            for (int i = 0; i < EPL; ++i) acc[b][r][i] += a[r] * bv[i];
+        }
+      }
+    }
+  }
+}
+
+// The per-warp sums of an item's NB products (lanes sharing a column slice
+// differ in lane / TPR) into red[((warp * NB + b) * ML + r) * MOE_COLS + c];
+// the caller sums the 8 warps in index order after a __syncthreads.
+template <typename T, int ML, int NB>
+__device__ __forceinline__ void moe_warp_sums(
+    const float (&acc)[NB][ML][16 / sizeof(T)], float* red) {
+  constexpr int EPL = 16 / (int)sizeof(T);
+  constexpr int TPR = MOE_COLS / EPL;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int cg = threadIdx.x % TPR;
+#pragma unroll
+  for (int b = 0; b < NB; ++b)
+#pragma unroll
+    for (int r = 0; r < ML; ++r)
+#pragma unroll
+      for (int i = 0; i < EPL; ++i) {
+        float v = acc[b][r][i];
+#pragma unroll
+        for (int o = 16; o >= TPR; o >>= 1)
+          v += __shfl_xor_sync(0xffffffffu, v, o);
+        if (lane < TPR) red[((warp * NB + b) * ML + r) * MOE_COLS + cg * EPL + i] = v;
+      }
+}
+
+// Stage `live` rows x (nt * TILE) values into `as` (row stride kc): from
+// the workspace row tiles a0.. (src == nullptr) or from fp32 scratch rows
+// of `stride` values (already rounded to the workspace type: exact).
+template <typename T>
+__device__ __forceinline__ void moe_stage(T* as, int kc, int nt, int live,
+                                          const T* ws, int a0,
+                                          const float* src, size_t stride) {
+  __syncthreads();                 // the last readers of `as` are done
+  for (int i = threadIdx.x; i < live * nt * TILE; i += THREADS) {
+    const int r = i / (nt * TILE), k = i % (nt * TILE);
+    as[r * kc + k] = src ? tdt::from_f<T>(__ldcg(src + r * stride + k))
+                         : __ldcg(tile_at(ws, a0 + k / TILE, r, k % TILE));
+  }
+  __syncthreads();
+}
+
+// MOE_FFN phase 1: item = (active expert a, 32-column strip of the ffn).
+// The xn row (ht tiles from a0) is staged once per block when it fits.
+// act[(a * live + r) * F + col] = round(silu(g) * u * w_tok[r]).
+template <typename T, int ML>
+__device__ __noinline__ void moe_gate_up_items(const T* ws, const int* w,
+                                               int& seg, int live,
+                                               float* smem, const int* list,
+                                               int n_act, float* act) {
+  constexpr int EPL = 16 / (int)sizeof(T);
+  constexpr int SPT = TILE / MOE_COLS;          // item strips per tile
+  constexpr int A_ELEMS = GW_A_FLOATS * (int)sizeof(float) / (int)sizeof(T);
+  const int a0 = w[2], wt = w[3], ht = w[4], wg = w[5], wu = w[6];
+  const int ft = w[7] >> 16, F = ft * TILE;
+  T* as = reinterpret_cast<T*>(smem);
+  float* red = smem + GW_A_FLOATS;
+  const int kc_tiles = min(ht, A_ELEMS / TILE / ML);
+  const int kc = kc_tiles * TILE;
+  const int n = n_act * ft * SPT;
+  bool staged = false;
+  for (int it = first_item(seg); it < n; it += gridDim.x) {
+    const int a = it / (ft * SPT), f = (it / SPT) % ft;
+    const int col0 = (it % SPT) * MOE_COLS;
+    const size_t e = list[a];
+    float acc[2][ML][EPL] = {};
+    for (int j0 = 0; j0 < ht; j0 += kc_tiles) {
+      const int nt = min(kc_tiles, ht - j0);
+      if (!(staged && kc_tiles == ht)) {
+        moe_stage(as, kc, nt, live, ws, a0 + j0, nullptr, 0);
+        staged = true;
+      }
+      moe_mac<T, ML, 2>(ws, as, kc, nt, col0,
+                        [&](int b, int j) {
+                          return (size_t)(b ? wu : wg) + (e * ht + j0 + j) * ft + f;
+                        },
+                        acc);
+    }
+    moe_warp_sums<T, ML, 2>(acc, red);
+    __syncthreads();
+    for (int i = threadIdx.x; i < live * MOE_COLS; i += THREADS) {
+      const int r = i / MOE_COLS, c = i % MOE_COLS;
+      float g = 0.0f, u = 0.0f;
+#pragma unroll
+      for (int q = 0; q < WARPS; ++q) {
+        g += red[((q * 2) * ML + r) * MOE_COLS + c];
+        u += red[((q * 2 + 1) * ML + r) * MOE_COLS + c];
+      }
+      const float wtok = ldw(tile_at(ws, wt, (int)e, r));
+      act[((size_t)a * live + r) * F + f * TILE + col0 + c] =
+          round_to<T>(g / (1.0f + expf(-g)) * u * wtok);
+    }
+    __syncthreads();
+  }
+  seg += n;
+}
+
+// MOE_FFN phase 2: item = 32 hidden columns of the output row: the active
+// experts' act rows (staged per expert) @ their down weights, summed in
+// list order, stored once in the workspace type.
+template <typename T, int ML>
+__device__ __noinline__ void moe_down_items(T* ws, const int* w, int& seg,
+                                            int live, float* smem,
+                                            const int* list, int n_act,
+                                            const float* act) {
+  constexpr int EPL = 16 / (int)sizeof(T);
+  constexpr int SPT = TILE / MOE_COLS;
+  constexpr int A_ELEMS = GW_A_FLOATS * (int)sizeof(float) / (int)sizeof(T);
+  const int out = w[1], ht = w[4], wd = w[8];
+  const int ft = w[7] >> 16, F = ft * TILE;
+  T* as = reinterpret_cast<T*>(smem);
+  float* red = smem + GW_A_FLOATS;
+  const int kc_tiles = min(ft, A_ELEMS / TILE / ML);
+  const int kc = kc_tiles * TILE;
+  const int n = ht * SPT;
+  for (int it = first_item(seg); it < n; it += gridDim.x) {
+    const int j = it / SPT, col0 = (it % SPT) * MOE_COLS;
+    float acc[1][ML][EPL] = {};
+    for (int a = 0; a < n_act; ++a) {
+      const size_t e = list[a];
+      for (int f0 = 0; f0 < ft; f0 += kc_tiles) {
+        const int nt = min(kc_tiles, ft - f0);
+        moe_stage(as, kc, nt, live, ws, 0,
+                  act + (size_t)a * live * F + f0 * TILE, (size_t)F);
+        moe_mac<T, ML, 1>(ws, as, kc, nt, col0,
+                          [&](int, int f) {
+                            return (size_t)wd + (e * ft + f0 + f) * ht + j;
+                          },
+                          acc);
+      }
+    }
+    moe_warp_sums<T, ML, 1>(acc, red);
+    __syncthreads();
+    for (int i = threadIdx.x; i < live * MOE_COLS; i += THREADS) {
+      const int r = i / MOE_COLS, c = i % MOE_COLS;
+      float v = 0.0f;
+#pragma unroll
+      for (int q = 0; q < WARPS; ++q) v += red[(q * ML + r) * MOE_COLS + c];
+      *tile_at(ws, out + j, r, col0 + c) = tdt::from_f<T>(v);
+    }
+    __syncthreads();
+  }
+  seg += n;
+}
+
+// -- MOE_FFN (word layout: tasks.py MOE_FFN): every block lists the active
+// experts — those whose row of the (E, B) weight tile b0 sums above zero
+// over the live columns — in expert order; phase 1, a grid barrier, phase
+// 2. The activations go through `act` (the launch's fp32 scratch).
+template <typename T, int ML>
+__device__ void t_moe_ffn(T* ws, float* act, const int* w, int& seg,
+                          int live, float* smem, cg::grid_group& grid) {
+  int* list = reinterpret_cast<int*>(smem + MOE_LIST_OFF);
+  unsigned* masks = reinterpret_cast<unsigned*>(smem + MOE_LIST_OFF + TILE);
+  const int e = threadIdx.x, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float sum = 0.0f;
+  if (e < (w[7] & 0xFFFF))
+    for (int r = 0; r < live; ++r) sum += ldw(tile_at(ws, w[3], e, r));
+  const bool on = sum > 0.0f;
+  const unsigned bal = __ballot_sync(0xffffffffu, on);
+  __syncthreads();                 // earlier readers of the list are done
+  if (lane == 0 && warp < TILE / 32) masks[warp] = bal;
+  __syncthreads();
+  int before = 0, n_act = 0;
+  for (int q = 0; q < TILE / 32; ++q) {
+    const int c = __popc(masks[q]);
+    before += q < warp ? c : 0;
+    n_act += c;
+  }
+  if (on) list[before + __popc(bal & ((1u << lane) - 1u))] = e;
+  __syncthreads();
+  moe_gate_up_items<T, ML>(ws, w, seg, live, smem, list, n_act, act);
+  grid.sync();
+  seg = 0;
+  moe_down_items<T, ML>(ws, w, seg, live, smem, list, n_act, act);
+}
+
+// The task types beyond the paged serving program's (with MOE, the MoE
+// types too): false where `type` is none of them. Only the full kernels
+// instantiate this.
+template <typename T, bool MOE>
 __device__ __forceinline__ bool run_linear_task(const Args& args, T* ws,
                                                 const int* w, int& seg,
                                                 int live, float* smem,
-                                                int& staged) {
+                                                int& staged,
+                                                cg::grid_group& grid) {
+  if constexpr (MOE) {
+    if (w[0] == MOE_TOPK) {
+      t_moe_topk(ws, w, seg, live);
+      return true;
+    }
+    if (w[0] == MOE_FFN) {
+      if (live == 1)
+        t_moe_ffn<T, 1>(ws, args.partial, w, seg, live, smem, grid);
+      else
+        t_moe_ffn<T, MAX_LIVE>(ws, args.partial, w, seg, live, smem, grid);
+      return true;
+    }
+  }
   switch (w[0]) {
     case COPY:
     case ADD:
@@ -880,17 +1210,24 @@ __device__ __forceinline__ bool run_linear_task(const Args& args, T* ws,
   }
 }
 
-// Two instantiations per workspace type, as the TPU kernel compiles only
-// the switch branches a program uses: FULL = false interprets the paged
+// Three instantiations per workspace type, as the TPU kernel compiles only
+// the switch branches a program uses: BODY_LEAN interprets the paged
 // serving program's types and nothing else (128 registers, two blocks per
 // SM: more inlined handlers would share its register allocation and spill
-// its GEMM loop); FULL = true interprets every ported type with one block
-// per SM and no register cap, with GEMM_MAT specialised for one live row.
-// The host picks by the queue's types.
-template <typename T, bool FULL>
-__global__ void __launch_bounds__(THREADS, FULL ? 1 : 2) mega_kernel(Args args) {
+// its GEMM loop); BODY_LINEAR every ported type but the MoE ones, with one
+// block per SM and no register cap, GEMM_MAT specialised for one live row;
+// BODY_MOE adds MOE_TOPK and MOE_FFN (whose 4-row loops took the register
+// file to its cap and spilled the linear programs' GEMMs when they shared
+// BODY_LINEAR: the bf16 linear step ran 1.9x slower). The host picks by
+// the queue's types.
+enum Body : int { BODY_LEAN = 0, BODY_LINEAR = 1, BODY_MOE = 2 };
+
+template <typename T, int BODY>
+__global__ void __launch_bounds__(THREADS, BODY == BODY_LEAN ? 2 : 1)
+    mega_kernel(Args args) {
+  constexpr bool FULL = BODY != BODY_LEAN;
   cg::grid_group grid = cg::this_grid();
-  __shared__ float smem[SMEM_FLOATS];
+  __shared__ float smem[BODY == BODY_MOE ? SMEM_MOE_FLOATS : SMEM_FLOATS];
   T* ws = static_cast<T*>(args.ws);
   const T* wsm = static_cast<const T*>(args.wsm);
   const int live = args.live_rows;
@@ -978,7 +1315,9 @@ __global__ void __launch_bounds__(THREADS, FULL ? 1 : 2) mega_kernel(Args args) 
         break;
       default:
         if constexpr (FULL) {
-          if (!run_linear_task(args, ws, w, seg, live, smem, staged)) __trap();
+          if (!run_linear_task<T, BODY == BODY_MOE>(args, ws, w, seg, live,
+                                                    smem, staged, grid))
+            __trap();
         } else {
           __trap();
         }
@@ -988,15 +1327,15 @@ __global__ void __launch_bounds__(THREADS, FULL ? 1 : 2) mega_kernel(Args args) 
 
 // Blocks of the cooperative grid, found once per instantiation (the port
 // drives one card per process): every SM, up to 2 blocks each.
-template <typename T, bool FULL>
+template <typename T, int BODY>
 int& grid_blocks() {
   static int blocks = 0;
   return blocks;
 }
 
-template <typename T, bool FULL>
+template <typename T, int BODY>
 cudaError_t launch(const Args& args, cudaStream_t stream) {
-  int& blocks = grid_blocks<T, FULL>();
+  int& blocks = grid_blocks<T, BODY>();
   if (blocks == 0) {
     int dev = 0, sms = 0, coop = 0, per_sm = 0;
     cudaError_t err = cudaGetDevice(&dev);
@@ -1007,7 +1346,7 @@ cudaError_t launch(const Args& args, cudaStream_t stream) {
     if (err != cudaSuccess) return err;
     if (!coop) return cudaErrorNotSupported;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, mega_kernel<T, FULL>, THREADS, 0);
+        &per_sm, mega_kernel<T, BODY>, THREADS, 0);
     if (err != cudaSuccess) return err;
     if (per_sm < 1) return cudaErrorLaunchOutOfResources;
     blocks = sms * (per_sm < 2 ? per_sm : 2);
@@ -1015,40 +1354,55 @@ cudaError_t launch(const Args& args, cudaStream_t stream) {
   Args a = args;
   void* params[] = {&a};
   const cudaError_t err = cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(mega_kernel<T, FULL>), dim3(blocks),
+      reinterpret_cast<const void*>(mega_kernel<T, BODY>), dim3(blocks),
       dim3(THREADS), params, 0, stream);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
+template <typename T>
+cudaError_t launch_body(const Args& args, int body, cudaStream_t stream) {
+  switch (body) {
+    case BODY_LEAN: return launch<T, BODY_LEAN>(args, stream);
+    case BODY_LINEAR: return launch<T, BODY_LINEAR>(args, stream);
+    case BODY_MOE: return launch<T, BODY_MOE>(args, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+int body_blocks(int body) {
+  switch (body) {
+    case BODY_LEAN: return grid_blocks<T, BODY_LEAN>();
+    case BODY_LINEAR: return grid_blocks<T, BODY_LINEAR>();
+    case BODY_MOE: return grid_blocks<T, BODY_MOE>();
+    default: return 0;
+  }
+}
+
 }  // namespace
 
-// `full`: 1 where the queue holds a task type beyond the paged serving
-// program's (the FULL instantiation), else 0.
+// `body`: the instantiation (kernel.py `_kernel_body`): 0 the paged serving
+// program's types alone, 1 any other non-MoE type, 2 a MoE program.
 extern "C" int megakernel_run(const int* queue, const int* sync_before,
                               const int* specs, void* ws, const void* wsm,
                               const void* ws8, void* wkv8, float* partial,
                               int num_exec, int live_rows, int head_dim,
-                              int dtype, int full, void* stream) {
+                              int dtype, int body, void* stream) {
   if (live_rows < 1 || live_rows > MAX_LIVE) return cudaErrorInvalidValue;
   Args args{queue,   sync_before, specs,     ws,       wsm,
             static_cast<const __nv_fp8_e4m3*>(ws8),
             static_cast<__nv_fp8_e4m3*>(wkv8), partial, num_exec, live_rows,
             head_dim};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == 1)
-    err = full ? launch<__nv_bfloat16, true>(args, s)
-               : launch<__nv_bfloat16, false>(args, s);
-  else
-    err = full ? launch<float, true>(args, s) : launch<float, false>(args, s);
+  const cudaError_t err = dtype == 1
+                              ? launch_body<__nv_bfloat16>(args, body, s)
+                              : launch_body<float>(args, body, s);
   return static_cast<int>(err);
 }
 
-extern "C" int megakernel_grid(int dtype, int full) {
+extern "C" int megakernel_grid(int dtype, int body) {
   // Blocks of the launches of that instantiation (0 before the first).
-  if (dtype == 1)
-    return full ? grid_blocks<__nv_bfloat16, true>()
-                : grid_blocks<__nv_bfloat16, false>();
-  return full ? grid_blocks<float, true>() : grid_blocks<float, false>();
+  return dtype == 1 ? body_blocks<__nv_bfloat16>(body)
+                    : body_blocks<float>(body);
 }

@@ -26,11 +26,15 @@ from triton_distributed_tpu_torch.ops.flash_attention import (
 from triton_distributed_tpu_torch.ops.paged_attention import (
     PagedKVCache, paged_append, paged_append_window, paged_decode_attention,
 )
+from triton_distributed_tpu_torch.runtime.device import resolve_device
 
 
 def init_tp_attn(cfg: ModelConfig, dtype, *, generator: torch.Generator,
-                 device) -> dict:
-    """Random weights with the JAX package's scales, (in, out) layout."""
+                 device=None) -> dict:
+    """Random weights with the JAX package's scales, (in, out) layout, on
+    ``device`` (None: the card)."""
+    device = resolve_device(device)
+
     def normal(shape, scale):
         return torch.randn(shape, generator=generator, dtype=dtype,
                            device=device) * scale

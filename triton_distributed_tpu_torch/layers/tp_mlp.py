@@ -8,11 +8,15 @@ from __future__ import annotations
 import torch
 
 from triton_distributed_tpu_torch.layers.common import swiglu
+from triton_distributed_tpu_torch.runtime.device import resolve_device
 
 
 def init_tp_mlp(hidden: int, ffn: int, dtype, *,
-                generator: torch.Generator, device) -> dict:
-    """Random weights with the JAX package's scales, (in, out) layout."""
+                generator: torch.Generator, device=None) -> dict:
+    """Random weights with the JAX package's scales, (in, out) layout, on
+    ``device`` (None: the card)."""
+    device = resolve_device(device)
+
     def normal(shape, scale):
         return torch.randn(shape, generator=generator, dtype=dtype,
                            device=device) * scale

@@ -7,7 +7,8 @@ with the ops the decode programs emit: the paged serving program's
 and the linear programs' (``attn_decode_gqa``, ``attn_decode``, the
 linear ``append_kv``, and for the tile weight layout ``gemm`` — GEMM_WIDE,
 or GEMM_WIDE_W8 over e4m3 weight tiles —, ``norm_rope``, ``add_norm``,
-``copy`` / ``add`` / ``silu_mul`` / ``scale``). ``prefetch`` (PREFETCH /
+``copy`` / ``add`` / ``silu_mul`` / ``scale``) and the Qwen3-MoE FFN's
+``moe_topk`` / ``moe_ffn``. ``prefetch`` (PREFETCH /
 PREFETCH_W8) is refused by name: no decode program emits it. Tensor
 allocation, hazard bookkeeping, the schedule and the packed queue follow
 the JAX builder step for step, so both emit the same queue word for word
@@ -73,6 +74,8 @@ class MegaKernelBuilder:
         self._max_gqa = 1
         self._max_gemm_width = 1
         self._max_strip = 1
+        self._max_moe_h = 0
+        self._max_moe_f = 0
         self._mat_specs: list[MatSpec] = []
         self._tasks: list[Task] = []
         self._edges: list[tuple[int, int]] = []
@@ -639,6 +642,77 @@ class MegaKernelBuilder:
         self._task_tables[tid] = flat
         return tid
 
+    def moe_topk(self, out_wt: TensorHandle, logits: TensorHandle,
+                 topk: int, num_experts: int, batch: int):
+        """Router top-k + softmax over the selected logits into the dense
+        (E, B) TRANSPOSED weight tile ``out_wt`` (E = num_experts <=
+        TILE). Rows >= ``batch`` and columns >= ``num_experts`` of the
+        logits tile are masked: a zero-logit pad row would elect experts
+        and defeat MOE_FFN's skip."""
+        self._no_fp8(out_wt, logits)
+        if not 1 <= topk <= num_experts <= TILE:
+            raise ValueError(
+                f"need 1 <= topk ({topk}) <= E ({num_experts}) <= {TILE}")
+        if not 1 <= batch <= TILE:
+            raise ValueError(f"batch {batch} out of range")
+        if logits.rt != 1 or logits.ct != 1 or out_wt.rt != 1 \
+                or out_wt.ct != 1:
+            raise ValueError("logits/out_wt must be single (TILE, TILE) "
+                             "tiles (E <= 128 experts)")
+        self._emit(
+            Task(TaskType.MOE_TOPK, out_wt.tile(0, 0),
+                 a0=logits.tile(0, 0), b_stride=num_experts, arg=topk,
+                 d0=batch),
+            [logits.tile(0, 0)], [out_wt.tile(0, 0)])
+
+    def moe_ffn(self, out: TensorHandle, xn: TensorHandle,
+                wt: TensorHandle, w_gate: TensorHandle, w_up: TensorHandle,
+                w_down: TensorHandle, num_experts: int):
+        """One task = one layer's whole expert MLP (tasks.py MOE_FFN).
+        xn/out: (TILE, hidden); wt: the (E, B) weight tile of
+        :meth:`moe_topk`; w_gate/w_up: (E·hidden, ffn) stacked expert
+        weights; w_down: (E·ffn, hidden). Experts no token selected are
+        skipped before their weights are read. The expert weights are
+        never written by a task, so their read set records each stack's
+        base tile only (the full list would be E·HT·FT tiles per layer
+        and add no edge)."""
+        self._no_fp8(out, xn, wt, w_gate, w_up, w_down)
+        if out.rt != 1 or xn.rt != 1 or out.ct != xn.ct:
+            raise ValueError("xn/out must be (TILE, hidden) rows of equal "
+                             "width")
+        if wt.rt != 1 or wt.ct != 1:
+            raise ValueError("wt must be the single MOE_TOPK output tile")
+        ht = xn.ct
+        if w_gate.rt % num_experts or w_gate.rt // num_experts != ht:
+            raise ValueError(
+                f"w_gate rows {w_gate.rows} != E*hidden "
+                f"({num_experts}*{xn.cols})")
+        ft = w_gate.ct
+        if w_up.rt != w_gate.rt or w_up.ct != ft:
+            raise ValueError("w_up shape mismatch with w_gate")
+        if w_down.rt != num_experts * ft or w_down.ct != ht:
+            raise ValueError(
+                f"w_down must be (E*ffn_local, hidden), got "
+                f"({w_down.rows}, {w_down.cols})")
+        if num_experts > TILE:
+            raise ValueError(f"E {num_experts} > {TILE} needs multi-tile "
+                             "router output (unsupported)")
+        reads = ([xn.tile(0, j) for j in range(ht)]
+                 + [wt.tile(0, 0), w_gate.tile(0, 0), w_up.tile(0, 0),
+                    w_down.tile(0, 0)])
+        self._emit(
+            Task(TaskType.MOE_FFN, out.tile(0, 0), a0=xn.tile(0, 0),
+                 b0=wt.tile(0, 0), k_tiles=ht, a_stride=w_gate.tile(0, 0),
+                 b_stride=w_up.tile(0, 0),
+                 arg=num_experts | (ft << 16), c0=w_down.tile(0, 0)),
+            reads, [out.tile(0, j) for j in range(ht)])
+        self._max_moe_h = max(self._max_moe_h, ht)
+        self._max_moe_f = max(self._max_moe_f, ft)
+        self._max_row = max(self._max_row, ht)
+        # The TPU kernel double-buffers two gate/up (ft) and two down (ht)
+        # strips in its strip buffer; kept for the workspace geometry.
+        self._max_strip = max(self._max_strip, 2 * ft, 2 * ht)
+
     # -- compile -------------------------------------------------------------
     def compile(self, dtype=torch.float32,
                 head_dim: int | None = None) -> "CompiledMegaKernel":
@@ -683,6 +757,7 @@ class MegaKernelBuilder:
             dtype=torch_dtype(dtype), num_exec=n_exec,
             max_gqa=self._max_gqa, max_gemm_width=self._max_gemm_width,
             max_row=self._max_row, max_strip=self._max_strip,
+            max_moe_h=self._max_moe_h, max_moe_f=self._max_moe_f,
             num_mrows=self._num_mrows,
             mat_specs=tuple(self._mat_specs), used_types=used_types,
             head_dim=int(head_dim), task_rows=tuple(task_rows),
@@ -703,9 +778,10 @@ def barrier_rows(order: list[int], edges, types) -> np.ndarray:
     interval: a task waits only when one of its hazard predecessors
     (RAW, WAR or WAW over workspace tiles — main, matrix and kv8 spaces
     alike, ``hazard_edges``) ran in the current interval. Every GEMM_MAT
-    starts after a barrier, because its partial-sum scratch is shared, and
-    ends its own interval (it holds barriers inside); GEMM_WIDE keeps its
-    sums inside one block and needs neither. The build-time edges cover
+    and MOE_FFN starts after a barrier, because the scratch they stage
+    partial sums or expert activations in is shared, and ends its own
+    interval (each holds a barrier inside); GEMM_WIDE keeps its sums
+    inside one block and needs neither. The build-time edges cover
     the runtime ones. Paged programs: at build time every slot's page
     table and append target is the one scratch page, so every attention
     read and append write of a layer is ordered against every other's; at
@@ -719,8 +795,8 @@ def barrier_rows(order: list[int], edges, types) -> np.ndarray:
     sync = np.zeros((len(order),), np.int32)
     open_tasks: set[int] = set()
     for pos, t in enumerate(order):
-        gemm = types[t] == TaskType.GEMM_MAT
-        if pos and (gemm or preds[t] & open_tasks):
+        scratch = types[t] in (TaskType.GEMM_MAT, TaskType.MOE_FFN)
+        if pos and (scratch or preds[t] & open_tasks):
             sync[pos] = 1
             open_tasks = set()
         open_tasks.add(t)
@@ -742,6 +818,8 @@ class CompiledMegaKernel:
     max_gemm_width: int = 1       # widest GEMM_WIDE strip (column tiles)
     max_row: int = 1              # widest resident row (tiles)
     max_strip: int = 1            # widest strip fetch of the TPU kernel
+    max_moe_h: int = 0            # MoE hidden tiles (0 = no MoE tasks)
+    max_moe_f: int = 0            # MoE ffn tiles
     num_mrows: int = 0            # 2D matrix-workspace rows (0 = unused)
     mat_specs: tuple = ()         # static GEMM_MAT shapes (spec index)
     used_types: tuple = ()        # task types in the queue
@@ -759,7 +837,8 @@ class CompiledMegaKernel:
         real tile. The CUDA kernel addresses exactly the tiles a task
         names and never reads the pad; it is kept so the two packages'
         workspaces have the same shape, tile for tile."""
-        return max(self.max_strip, self.max_gemm_width, 8) - 1
+        return max(self.max_strip, self.max_gemm_width, self.max_moe_h,
+                   self.max_moe_f, 8) - 1
 
     def scatter_input(self, ws: torch.Tensor, h: TensorHandle,
                       value) -> torch.Tensor:

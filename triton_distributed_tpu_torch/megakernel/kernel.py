@@ -12,8 +12,9 @@ and the speculative window (the causal fold of types 9/24, the windowed
 append of 14/25) — and of the linear decode programs in both weight
 layouts (GQA / single-head attention over a linear cache, GEMM_WIDE and
 GEMM_WIDE_W8 over weight tiles, per-head NORM_ROPE, ADD_NORM and the
-row-wise elementwise types). :func:`run_queue` refuses any other type
-before launch, and a window wider than :data:`MAX_LIVE_ROWS`.
+row-wise elementwise types), and the Qwen3-MoE FFN's MOE_TOPK and MOE_FFN.
+:func:`run_queue` refuses any other type before launch, a window wider
+than :data:`MAX_LIVE_ROWS`, and a MoE batch wider than the live rows.
 
 :func:`run_queue_plain` is the same interpreter in plain PyTorch: it walks
 the queue rows in order with one handler per type on full 128-row tiles,
@@ -43,18 +44,21 @@ PORTED_TYPES = frozenset({
     TaskType.APPEND_KV, TaskType.GEMM_WIDE_W8, TaskType.GEMM_MAT,
     TaskType.ADD_NORM, TaskType.NORM_ROPE_QKV, TaskType.PREFETCH_MAT,
     TaskType.ATTN_DECODE_PAGED_F8, TaskType.APPEND_KV_F8,
+    TaskType.MOE_TOPK, TaskType.MOE_FFN,
 })
 _ATTN = (int(TaskType.ATTN_DECODE_PAGED), int(TaskType.ATTN_DECODE_PAGED_F8))
 _ATTN_LINEAR = (int(TaskType.ATTN_DECODE), int(TaskType.ATTN_DECODE_GQA))
 _APPEND = (int(TaskType.APPEND_KV), int(TaskType.APPEND_KV_F8))
 _KV8 = (int(TaskType.ATTN_DECODE_PAGED_F8), int(TaskType.APPEND_KV_F8))
 # The paged serving program's types: a queue of these alone launches the
-# kernel's lean instantiation, any other ported type the full one.
+# kernel's lean instantiation, any other ported type a full one (the MoE
+# types their own).
 _PAGED_PROGRAM = tuple(int(t) for t in (
     TaskType.RMS_NORM, TaskType.ATTN_DECODE_PAGED, TaskType.APPEND_KV,
     TaskType.GEMM_MAT, TaskType.NORM_ROPE_QKV, TaskType.PREFETCH_MAT,
     TaskType.ATTN_DECODE_PAGED_F8, TaskType.APPEND_KV_F8))
 _GEMM_WIDE = (int(TaskType.GEMM_WIDE), int(TaskType.GEMM_WIDE_W8))
+_MOE = (int(TaskType.MOE_TOPK), int(TaskType.MOE_FFN))
 _EW = {int(TaskType.COPY): lambda a, b, f: a,
        int(TaskType.ADD): lambda a, b, f: a + b,
        int(TaskType.SILU_MUL): lambda a, b, f: torch.nn.functional.silu(a) * b,
@@ -89,10 +93,10 @@ def check_queue(queue: np.ndarray, num_exec: int,
     outside :data:`PORTED_TYPES`, or a speculative window past the
     :data:`MAX_LIVE_ROWS` rows the CUDA kernel computes per slot block —
     an attention row's window (word 5), or a windowed append reading
-    source rows ``[word 7, word 7 + word 4)``; also a GEMM_WIDE consuming
-    a PREFETCH warm (word 8 = 1; the warm is not ported). Both
-    interpreters refuse alike, so a CPU run never accepts what the card
-    would not."""
+    source rows ``[word 7, word 7 + word 4)`` —, or a MOE_TOPK routing
+    more rows than that (word 9); also a GEMM_WIDE consuming a PREFETCH
+    warm (word 8 = 1; the warm is not ported). Both interpreters refuse
+    alike, so a CPU run never accepts what the card would not."""
     if used_types is not None:
         bad = sorted(int(t) for t in used_types if t not in PORTED_TYPES)
         if bad:
@@ -127,6 +131,12 @@ def check_queue(queue: np.ndarray, num_exec: int,
             "windowed append reading source rows past the "
             f"{MAX_LIVE_ROWS} live rows of a slot block — spec_window <= "
             f"{MAX_LIVE_ROWS}")
+    topk = rows[types == int(TaskType.MOE_TOPK)]
+    if np.any(topk[:, 9] > MAX_LIVE_ROWS):
+        raise MegakernelUnsupportedError(
+            f"MOE_TOPK over a batch of {int(topk[:, 9].max())} rows: the "
+            f"megakernel computes at most {MAX_LIVE_ROWS} rows per block — "
+            f"MoE batch <= {MAX_LIVE_ROWS}")
 
 
 def gemm_chunk_rows(k: int) -> int:
@@ -172,11 +182,18 @@ def _specs_array(mat_specs) -> np.ndarray:
     return np.asarray(rows or [(0, 0, 0, 0)], np.int32).reshape(-1, 4)
 
 
-def _partial_floats(mat_specs, live_rows: int) -> int:
+def _scratch_floats(q: np.ndarray, num_exec: int, mat_specs,
+                    live_rows: int) -> int:
+    """The fp32 scratch one launch shares between GEMM_MAT's partial sums
+    (a slab per contraction chunk) and MOE_FFN's expert activations (E x
+    live rows x ffn)."""
     n = 1
     for sp in mat_specs:
         k = sp.kt * TILE
         n = max(n, (k // gemm_chunk_rows(k)) * live_rows * sp.ns * MAT_COLS)
+    ffn = q[:num_exec][q[:num_exec, 0] == int(TaskType.MOE_FFN), 7]
+    for arg in ffn.tolist():
+        n = max(n, (arg & 0xFFFF) * live_rows * (arg >> 16) * TILE)
     return n
 
 
@@ -235,23 +252,31 @@ def cuda_launcher(q: np.ndarray, ws, wsm, *, num_exec, mat_specs,
         raise ValueError("megakernel: the CUDA kernel needs the program's "
                          "per-row barrier flags (compile() records them)")
     _check_side_workspaces(q, num_exec, ws, ws8, wkv8)
+    rows = q[:num_exec]
+    batch = rows[rows[:, 0] == int(TaskType.MOE_TOPK), 9]
+    if np.any(batch > live_rows):
+        raise MegakernelUnsupportedError(
+            f"MOE_TOPK routes {int(batch.max())} rows but the launch "
+            f"computes {live_rows}: rows past the live ones would elect "
+            "experts the kernel never runs — live_rows >= the MoE batch")
     n_q = q.size
     host = np.concatenate([q.reshape(-1),
                            np.asarray(sync_before[:num_exec], np.int32),
                            _specs_array(mat_specs).reshape(-1)])
     dev = torch.from_numpy(host).to(ws.device)
-    partial = torch.empty((_partial_floats(mat_specs, live_rows),),
-                          dtype=torch.float32, device=ws.device)
+    partial = torch.empty(
+        (_scratch_floats(q, num_exec, mat_specs, live_rows),),
+        dtype=torch.float32, device=ws.device)
     base = dev.data_ptr()
     args = (ctypes.c_void_p(base), ctypes.c_void_p(base + 4 * n_q),
             ctypes.c_void_p(base + 4 * (n_q + num_exec)),
             ptr(ws), ptr(wsm), ptr(ws8), ptr(wkv8), ptr(partial),
             int(num_exec), int(live_rows), int(head_dim),
-            _DTYPE_CODE[ws.dtype], int(_full_kernel(q, num_exec)))
+            _DTYPE_CODE[ws.dtype], _kernel_body(q, num_exec))
 
-    rows = q[:num_exec]
     variants = tuple(name for name, on in (
-        ("full", bool(args[-1])),
+        ("full", args[-1] > 0),
+        ("moe", args[-1] == 2),
         ("kv8", wkv8 is not None),
         ("window", bool((rows[np.isin(rows[:, 0], _ATTN), 5] > 0).any())))
         if on)
@@ -265,20 +290,31 @@ def cuda_launcher(q: np.ndarray, ws, wsm, *, num_exec, mat_specs,
 
 
 def _full_kernel(q: np.ndarray, num_exec: int) -> bool:
-    """Whether the queue needs the kernel's full instantiation: a task
-    type beyond the paged serving program's (as the TPU kernel compiles
-    only the branches a program uses, the CUDA kernel has a lean body for
-    that program and a full one for every ported type)."""
+    """Whether the queue needs one of the kernel's full instantiations: a
+    task type beyond the paged serving program's (as the TPU kernel
+    compiles only the branches a program uses, the CUDA kernel has a lean
+    body for that program and full ones for every ported type)."""
     return bool((~np.isin(q[:num_exec, 0], _PAGED_PROGRAM)).any())
 
 
-def grid_blocks(dtype: torch.dtype, full: bool = False) -> int:
+def _kernel_body(q: np.ndarray, num_exec: int) -> int:
+    """The instantiation the queue launches: 0 the lean body, 1 the full
+    body of the non-MoE types, 2 the full body with MOE_TOPK / MOE_FFN
+    (their 4-row loops would take the register file from the linear
+    programs' GEMMs if the two shared a body)."""
+    if not _full_kernel(q, num_exec):
+        return 0
+    return 2 if np.isin(q[:num_exec, 0], _MOE).any() else 1
+
+
+def grid_blocks(dtype: torch.dtype, full: bool = False,
+                moe: bool = False) -> int:
     """Blocks of the cooperative grid the kernel launches for this
     workspace dtype and instantiation (0 before the first launch)."""
     MEGA_KERNEL._load()
     fn = MEGA_KERNEL._lib.megakernel_grid
     fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
-    return int(fn(_DTYPE_CODE[dtype], int(full)))
+    return int(fn(_DTYPE_CODE[dtype], 2 if moe else int(full)))
 
 
 def _run_queue_cuda(q: np.ndarray, ws, wsm, **kw):
@@ -509,6 +545,62 @@ def _p_gemm_wide(ws, b_ws, w):
     _put_row(ws, out, a @ b)
 
 
+def _p_moe_topk(ws, w):
+    """MOE_TOPK: the logits tile (a0) masked to columns < E (word 6) and
+    rows < batch (word 9), ``arg`` experts per row by iterative argmax
+    (ties to the leftmost column), weights exp(l - row max) over the
+    selected normalised by max(sum, 1e-30); stored transposed, (E, B),
+    zeros for the rest."""
+    out, a0, num_e, k, batch = w[1], w[2], w[6], w[7], w[9]
+    io = torch.arange(TILE, device=ws.device)
+    lg = ws[a0].float()
+    lg = torch.where((io[None, :] < num_e) & (io[:, None] < batch), lg, _NEG)
+    m0 = torch.amax(lg, dim=1, keepdim=True)
+    work, sel = lg.clone(), torch.zeros_like(lg, dtype=torch.bool)
+    for _ in range(k):
+        m = torch.amax(work, dim=1, keepdim=True)
+        is_m = (work == m) & (work > _NEG * 0.5)
+        idx = torch.amin(torch.where(is_m, io[None, :], TILE), dim=1,
+                         keepdim=True)
+        pick = io[None, :] == idx
+        work = torch.where(pick, _NEG, work)
+        sel |= pick
+    wgt = torch.where(sel, torch.exp(lg - m0), 0.0)
+    z = torch.sum(wgt, dim=1, keepdim=True)
+    ws[out] = (wgt / torch.clamp(z, min=1e-30)).T.to(ws.dtype)
+
+
+def _expert(ws, base: int, e: int, rt: int, ct: int) -> torch.Tensor:
+    """Expert ``e``'s (rt·TILE, ct·TILE) matrix of a stacked weight whose
+    tiles start at ``base`` (row tile e·rt + i, column tile j)."""
+    t = ws[base + e * rt * ct:base + (e + 1) * rt * ct].float()
+    return t.reshape(rt, ct, TILE, TILE).permute(0, 2, 1, 3).reshape(
+        rt * TILE, ct * TILE)
+
+
+def _p_moe_ffn(ws, w):
+    """MOE_FFN: for each expert e < E whose row of the (E, B) weight tile
+    (b0) sums above zero — the rest skipped before their weights are
+    read —, act = silu(xn @ Wg_e) * (xn @ Wu_e) * w_e (per token), rounded
+    to the workspace type, then act @ Wd_e, summed over the experts in
+    fp32 and stored once at ``out``. Word layout: tasks.py MOE_FFN."""
+    out, a0, b0, ht, wg, wu, arg, wd = (w[1], w[2], w[3], w[4], w[5], w[6],
+                                        w[7], w[8])
+    num_e, ft = arg & 0xFFFF, arg >> 16
+    x = _row(ws, a0, ht)                                   # (TILE, hidden)
+    wt = ws[b0].float()                                    # (E, B)
+    acc = torch.zeros_like(x)
+    for e in range(num_e):
+        w_tok = wt[e]
+        if not bool(torch.sum(w_tok) > 0):
+            continue
+        g = x @ _expert(ws, wg, e, ht, ft)
+        u = x @ _expert(ws, wu, e, ht, ft)
+        act = torch.nn.functional.silu(g) * u * w_tok[:, None]
+        acc += act.to(ws.dtype).float() @ _expert(ws, wd, e, ft, ht)
+    _put_row(ws, out, acc)
+
+
 def run_queue_plain(queue, ws: torch.Tensor, wsm: torch.Tensor | None, *,
                     num_exec: int, mat_specs: tuple,
                     head_dim: int = TILE,
@@ -554,6 +646,10 @@ def run_queue_plain(queue, ws: torch.Tensor, wsm: torch.Tensor | None, *,
             _p_gemm_mat(ws, wsm, row, mat_specs)
         elif t == TaskType.PREFETCH_MAT:
             pass    # a DMA warm on the TPU: no arithmetic effect
+        elif t == TaskType.MOE_TOPK:
+            _p_moe_topk(ws, row)
+        elif t == TaskType.MOE_FFN:
+            _p_moe_ffn(ws, row)
         else:
             raise MegakernelUnsupportedError(
                 f"task type {_type_name(t)} is not ported")

@@ -29,6 +29,15 @@ appends:
       (ADD_NORM) ── gate, up proj ── silu·mul ── down proj ── add (+ the
       next norm: ADD_NORM)
 
+  Both layouts take the Qwen3-MoE FFN (``moe_experts``): after the
+  o-proj + residual + mlp norm, the router GEMM (GEMM_WIDE into one
+  (TILE, TILE) logits tile; router columns padded to TILE), MOE_TOPK, and
+  one expert-skipping MOE_FFN task, then the residual add (+ the next
+  norm). The MoE programs also build without in-kernel appends
+  (``inkernel_append=False``: the host feeds the caches, the batch rows
+  share them) — the form of the JAX package's MoE tests, at a batch of up
+  to :data:`~.kernel.MAX_LIVE_ROWS` rows.
+
 Allocation and emission follow the JAX assembly step for step, so the
 compiled queues are equal word for word.
 """
@@ -42,6 +51,9 @@ import torch
 
 from triton_distributed_tpu_torch.layers.common import rope_cos_sin
 from triton_distributed_tpu_torch.megakernel.builder import MegaKernelBuilder
+from triton_distributed_tpu_torch.megakernel.kernel import (
+    MegakernelUnsupportedError,
+)
 from triton_distributed_tpu_torch.megakernel.tasks import (
     TILE, MatHandle, TaskType, TensorHandle,
 )
@@ -132,26 +144,55 @@ class DecodeLayerHandles:
     wqkv: MatHandle | None = None       # matrix layout: fused q|k|v
     w_gateup: MatHandle | None = None   # (hidden, ffn) pair
     qkv_out: TensorHandle | None = None  # (blocks·TILE, (hq+2*hkv)*d)
+    # MoE FFN (None = dense MLP). Router columns padded to TILE (zero
+    # weights give zero logits, masked by MOE_TOPK's E bound).
+    moe_router: TensorHandle | None = None   # (hidden, TILE)
+    moe_w_gate: TensorHandle | None = None   # (E·hidden, ffn)
+    moe_w_up: TensorHandle | None = None
+    moe_w_down: TensorHandle | None = None   # (E·ffn, hidden)
 
 
 def feed_layer_weights(feeds: dict, h: DecodeLayerHandles, *, wq, wk, wv,
-                       wo, w_gate, w_up, w_down,
+                       wo, w_gate=None, w_up=None, w_down=None,
                        head_dim: int = TILE) -> dict:
     """Insert one layer's projection/MLP weights into ``feeds`` in the
     layout the program was built with — matrix (fused qkv, (gate, up)
     pair) or tile (one fp8 handle per matrix); head_dim < TILE pads q/k/v
-    columns and o-proj rows per head."""
+    columns and o-proj rows per head. A MoE layer takes its expert FFN
+    through :func:`feed_moe_weights`; dense FFN values are ignored."""
     wq = pad_head_cols(wq, head_dim)
     wk = pad_head_cols(wk, head_dim)
     wv = pad_head_cols(wv, head_dim)
     feeds[h.wo] = pad_head_rows(wo, head_dim)
-    feeds[h.w_down] = w_down
     if h.wqkv is not None:
         feeds[h.wqkv] = torch.cat([wq, wk, wv], dim=1)
-        feeds[h.w_gateup] = (w_gate, w_up)
     else:
         feeds[h.wq], feeds[h.wk], feeds[h.wv] = wq, wk, wv
+    if h.moe_w_gate is not None:
+        return feeds
+    if w_gate is None or w_up is None or w_down is None:
+        raise ValueError("feed_layer_weights needs w_gate, w_up and w_down "
+                         "for a dense layer")
+    feeds[h.w_down] = w_down
+    if h.wqkv is not None:
+        feeds[h.w_gateup] = (w_gate, w_up)
+    else:
         feeds[h.w_gate], feeds[h.w_up] = w_gate, w_up
+    return feeds
+
+
+def feed_moe_weights(feeds: dict, h: DecodeLayerHandles, *, router,
+                     w_gate, w_up, w_down) -> dict:
+    """Insert one MoE layer's router (hidden, E) — padded to TILE columns
+    — and expert stacks w_gate/w_up (E, hidden, ffn), w_down (E, ffn,
+    hidden) — stacked to (E·hidden, ffn) / (E·ffn, hidden) — into
+    ``feeds``."""
+    num_experts, hidden, ffn = w_gate.shape
+    feeds[h.moe_router] = torch.nn.functional.pad(
+        torch.as_tensor(router), (0, TILE - num_experts))
+    feeds[h.moe_w_gate] = w_gate.reshape(num_experts * hidden, ffn)
+    feeds[h.moe_w_up] = w_up.reshape(num_experts * hidden, ffn)
+    feeds[h.moe_w_down] = w_down.reshape(num_experts * ffn, hidden)
     return feeds
 
 
@@ -247,7 +288,11 @@ def build_decode_layer(mb: MegaKernelBuilder, x: TensorHandle,
                        paged_tables: list[list[tuple[int, int]]] | None = None,
                        append_pos: int | None = None,
                        meta_out: dict | None = None,
-                       spec_append: bool = False):
+                       spec_append: bool = False,
+                       inkernel_append: bool = True,
+                       mat_prefetch: bool = True,
+                       moe_experts: int = 0, moe_topk: int = 0,
+                       batch: int = 1):
     """Emit one transformer layer's decode tasks for ONE row block.
     ``xn``: the already-normalised input row from the previous layer's
     fused tail (None: emit the rms_norm). ``out_norm``: (norm_w, norm_out)
@@ -259,12 +304,15 @@ def build_decode_layer(mb: MegaKernelBuilder, x: TensorHandle,
     ``meta_out``; ``spec_append``: a second append row per kv head for a
     candidate window's spill into the next page. Without it (the linear
     form): one ATTN_DECODE_GQA task per kv head over the head's linear
-    cache, and appends at ``pos``.
+    cache, and appends at ``pos`` (none with ``inkernel_append=False``:
+    the host feeds the caches).
 
     Matrix layout (``h.wqkv``): the o-proj's first weight chunk is warmed
-    (PREFETCH_MAT) ahead of the attention tasks, and the residual adds
-    and norms ride the GEMM_MAT epilogues. Tile layout: per-head
-    norm_rope, GEMM_WIDE strips, ADD_NORM / ADD tails. Returns
+    (PREFETCH_MAT, with ``mat_prefetch``) ahead of the attention tasks,
+    and the residual adds and norms ride the GEMM_MAT epilogues. Tile
+    layout: per-head norm_rope, GEMM_WIDE strips, ADD_NORM / ADD tails.
+    A MoE layer (``h.moe_w_gate``): router GEMM, MOE_TOPK over the
+    ``batch`` real rows, MOE_FFN, then ADD_NORM / ADD. Returns
     ``(x2, x2n)``."""
     hidden = x.cols
     d = TILE
@@ -279,7 +327,8 @@ def build_decode_layer(mb: MegaKernelBuilder, x: TensorHandle,
         mb.gemm_mat(h.qkv_out, xn, h.wqkv)
         mb.norm_rope_qkv(q, hq_local, h.k_new, hkv_local, h.q_norm,
                          h.k_norm, cos, sin, eps)
-        mb.prefetch_mat(h.wo)
+        if mat_prefetch:
+            mb.prefetch_mat(h.wo)
     else:
         q = mb.tensor(TILE, hq_local * d)
         mb.gemm(q, xn, h.wq)
@@ -312,7 +361,7 @@ def build_decode_layer(mb: MegaKernelBuilder, x: TensorHandle,
                                scale=scale, k_new=_col(h.k_new, kv),
                                v_new=_col(h.v_new, kv))
     apos = append_pos if append_pos is not None else pos
-    for kv in range(hkv_local):
+    for kv in range(hkv_local if inkernel_append else 0):
         for _ in range(2 if spec_append else 1):
             tid = mb.append_kv(h.kT[kv], h.v[kv], apos,
                                _col(h.k_new, kv), _col(h.v_new, kv))
@@ -325,7 +374,22 @@ def build_decode_layer(mb: MegaKernelBuilder, x: TensorHandle,
     if mat:
         # o-proj + residual + this layer's mlp norm (epilogue 3).
         mb.gemm_mat(x1, attn, h.wo, residual=x, norm_w=h.mlp_norm,
-                    norm_out=x1n, eps=eps, prefetch_first=True)
+                    norm_out=x1n, eps=eps, prefetch_first=mat_prefetch)
+    else:
+        o = mb.tensor(TILE, hidden)
+        mb.gemm(o, attn, h.wo)
+        mb.add_norm(x1, x, o, h.mlp_norm, x1n, eps)
+    if h.moe_w_gate is not None:
+        # Router GEMM → in-kernel top-k/softmax → one expert-loop task
+        # that skips the experts no row selected.
+        down = mb.tensor(TILE, hidden)
+        logits = mb.tensor(TILE, TILE)
+        mb.gemm(logits, x1n, h.moe_router)
+        wt = mb.tensor(TILE, TILE)
+        mb.moe_topk(wt, logits, moe_topk, moe_experts, batch)
+        mb.moe_ffn(down, x1n, wt, h.moe_w_gate, h.moe_w_up, h.moe_w_down,
+                   moe_experts)
+    elif mat:
         act = mb.tensor(TILE, h.w_gateup.n)
         mb.gemm_mat(act, x1n, h.w_gateup)
         x2 = mb.tensor(TILE, hidden)
@@ -335,18 +399,16 @@ def build_decode_layer(mb: MegaKernelBuilder, x: TensorHandle,
             return x2, nout
         mb.gemm_mat(x2, act, h.w_down, residual=x1)
         return x2, None
-    o = mb.tensor(TILE, hidden)
-    mb.gemm(o, attn, h.wo)
-    mb.add_norm(x1, x, o, h.mlp_norm, x1n, eps)
-    down = mb.tensor(TILE, hidden)
-    ffn_local = h.w_gate.cols
-    gate = mb.tensor(TILE, ffn_local)
-    up = mb.tensor(TILE, ffn_local)
-    act = mb.tensor(TILE, ffn_local)
-    mb.gemm(gate, x1n, h.w_gate)
-    mb.gemm(up, x1n, h.w_up)
-    mb.silu_mul(act, gate, up)
-    mb.gemm(down, act, h.w_down)
+    else:
+        down = mb.tensor(TILE, hidden)
+        ffn_local = h.w_gate.cols
+        gate = mb.tensor(TILE, ffn_local)
+        up = mb.tensor(TILE, ffn_local)
+        act = mb.tensor(TILE, ffn_local)
+        mb.gemm(gate, x1n, h.w_gate)
+        mb.gemm(up, x1n, h.w_up)
+        mb.silu_mul(act, gate, up)
+        mb.gemm(down, act, h.w_down)
     x2 = mb.tensor(TILE, hidden)
     if nw is not None:
         mb.add_norm(x2, x1, down, nw, nout, eps)
@@ -360,7 +422,10 @@ def _check_decode_step_config(*, hidden, hq_local, hkv_local, ffn_local,
                               fp8_weights: bool = False,
                               seq_blocks: bool = False,
                               kv_fp8: bool = False,
-                              spec_window: int = 1) -> None:
+                              spec_window: int = 1,
+                              inkernel_append: bool = True,
+                              moe_experts: int = 0,
+                              moe_topk: int = 0) -> None:
     """Named build-time validation: every TILE/geometry constraint raises
     here, naming the dimension and the ModelConfig field it comes from."""
     if head_dim not in (TILE // 2, TILE):
@@ -393,7 +458,12 @@ def _check_decode_step_config(*, hidden, hq_local, hkv_local, ffn_local,
                 "weight layout is single-block — batch > TILE needs the "
                 "matrix layout (fp8_weights=False) — batch serving "
                 "argument")
-        if not seq_blocks:
+        if moe_experts:
+            raise ValueError(
+                f"batch = {batch} > TILE with MoE: MOE_TOPK masks one "
+                "(B, E) logits tile, so the expert router is single-block "
+                "— config field num_experts / batch serving argument")
+        if inkernel_append and not seq_blocks:
             raise ValueError(
                 f"batch = {batch} > TILE with inkernel_append on the "
                 "linear cache: the append writes row 0 only (batch-1 "
@@ -415,6 +485,10 @@ def _check_decode_step_config(*, hidden, hq_local, hkv_local, ffn_local,
                 "fp8-weight programs forgo — pick fp8 KV pools (the "
                 "decode-bandwidth lever) or tiled fp8 weights, not both "
                 "— kv_dtype / fp8_weights serving arguments")
+        if moe_experts:
+            raise ValueError(
+                "kv_fp8=True with MoE: the megakernel serving lane "
+                "covers the dense stack — config field num_experts")
     if spec_window != 1:
         if not 1 <= spec_window <= TILE:
             raise ValueError(
@@ -428,6 +502,17 @@ def _check_decode_step_config(*, hidden, hq_local, hkv_local, ffn_local,
                 "in-kernel appends): the candidate window folds the "
                 "slot's fresh k/v causally and appends it through the "
                 "windowed APPEND_KV rows — spec_k serving argument")
+        if moe_experts:
+            raise ValueError(
+                f"spec_window = {spec_window} > 1 with MoE: the "
+                "megakernel serving lane covers the dense stack — "
+                "config field num_experts")
+    if moe_experts and (seq_blocks or fp8_weights):
+        # The JAX assembly takes these; no decoder of the port builds them.
+        raise MegakernelUnsupportedError(
+            "MoE in the paged serving form or over e4m3 weight tiles is not "
+            "ported: the MoE programs build the matrix-layout linear form "
+            "— kv_pool_pages / fp8_weights arguments")
     if num_layers < 1:
         raise ValueError(f"num_layers = {num_layers} must be >= 1 — "
                          "config field num_layers")
@@ -440,6 +525,11 @@ def _check_decode_step_config(*, hidden, hq_local, hkv_local, ffn_local,
             f"hq_local = {hq_local} not divisible by hkv_local = "
             f"{hkv_local}: GQA groups q-heads evenly over kv heads — "
             "config fields num_heads / num_kv_heads")
+    if moe_experts and not 1 <= moe_topk <= moe_experts <= TILE:
+        raise ValueError(
+            f"MoE config needs 1 <= moe_topk ({moe_topk}) <= moe_experts "
+            f"({moe_experts}) <= TILE ({TILE}) — config fields "
+            "num_experts_per_tok / num_experts")
     if not 0 <= pos < max_seq:
         raise ValueError(f"pos {pos} outside cache capacity {max_seq} "
                          "(the step appends this position's k/v)")
@@ -452,7 +542,11 @@ def build_decode_step(*, hidden: int, hq_local: int, hkv_local: int,
                       eps: float = 1e-6, batch: int = 1,
                       head_dim: int = TILE, kv_fp8: bool = False,
                       spec_window: int = 1, fp8_weights: bool = False,
-                      final_norm: bool = False) -> DecodeStepProgram:
+                      final_norm: bool = False,
+                      inkernel_append: bool = True,
+                      mat_prefetch: bool = True,
+                      moe_experts: int = 0,
+                      moe_topk: int = 0) -> DecodeStepProgram:
     """Assemble a full decode step. Embedding and lm_head stay outside.
 
     With ``kv_pool_pages``: the paged SERVING form (the JAX
@@ -479,13 +573,24 @@ def build_decode_step(*, hidden: int, hq_local: int, hkv_local: int,
     layout — projection/MLP weights in the e4m3 weight workspace,
     GEMM_WIDE_W8 strips. ``final_norm``: the model's final RMSNorm runs
     in the kernel, fused into the last layer's residual tail — ``x_out``
-    is the normalized row and ``prog.fnorm`` the weight handle to feed."""
+    is the normalized row and ``prog.fnorm`` the weight handle to feed.
+
+    ``moe_experts`` > 0 (with ``moe_topk``): the Qwen3-MoE FFN in place
+    of the dense MLP — ``ffn_local`` is the per-expert
+    moe_intermediate_size, ``batch`` the real rows MOE_TOPK routes (the
+    rest are masked). The linear form only. ``inkernel_append=False``
+    drops the APPEND_KV rows (the host feeds the caches; the JAX
+    package's MoE tests build this form, at ``batch`` rows sharing the
+    caches) and ``mat_prefetch=False`` the PREFETCH_MAT warms: the JAX
+    ``build_decode_step`` flags of the same names."""
     seq_blocks = kv_pool_pages is not None
     _check_decode_step_config(
         hidden=hidden, hq_local=hq_local, hkv_local=hkv_local,
         ffn_local=ffn_local, num_layers=num_layers, max_seq=max_seq,
         pos=pos, batch=batch, head_dim=head_dim, fp8_weights=fp8_weights,
-        seq_blocks=seq_blocks, kv_fp8=kv_fp8, spec_window=spec_window)
+        seq_blocks=seq_blocks, kv_fp8=kv_fp8, spec_window=spec_window,
+        inkernel_append=inkernel_append, moe_experts=moe_experts,
+        moe_topk=moe_topk)
     bt = -(-batch // TILE)
     mb = MegaKernelBuilder()
     mb.head_dim = head_dim
@@ -498,7 +603,14 @@ def build_decode_step(*, hidden: int, hq_local: int, hkv_local: int,
     layers: list[DecodeLayerHandles] = []
     d = TILE
     tp = table_pages if table_pages is not None else (kv_pool_pages or 0)
+    moe = moe_experts > 0
+    moe_w_gate = moe_w_up = moe_w_down = moe_router = None
     for _ in range(num_layers):
+        if moe:
+            moe_w_gate = mb.tensor(moe_experts * hidden, ffn_local)
+            moe_w_up = mb.tensor(moe_experts * hidden, ffn_local)
+            moe_w_down = mb.tensor(moe_experts * ffn_local, hidden)
+            moe_router = mb.tensor(hidden, TILE)
         if not fp8_weights:
             wqkv = mb.tensor_mat(hidden, (hq_local + 2 * hkv_local) * d)
             wo = mb.tensor_mat(hq_local * d, hidden)
@@ -507,8 +619,10 @@ def build_decode_step(*, hidden: int, hq_local: int, hkv_local: int,
                                  hkv_local * d)
             v_new = TensorHandle(qkv_out.base + hq_local + hkv_local,
                                  TILE, hkv_local * d)
-            w_gateup = mb.tensor_mat(hidden, ffn_local, pair=True)
-            w_down = mb.tensor_mat(ffn_local, hidden)
+            w_gateup = (None if moe
+                        else mb.tensor_mat(hidden, ffn_local, pair=True))
+            w_down = (moe_w_down if moe
+                      else mb.tensor_mat(ffn_local, hidden))
             wq = wk = wv = w_gate = w_up = None
         else:
             wqkv = w_gateup = qkv_out = None
@@ -536,7 +650,9 @@ def build_decode_step(*, hidden: int, hq_local: int, hkv_local: int,
             k_norm=mb.tensor(TILE, d),
             wq=wq, wk=wk, wv=wv, wo=wo, w_gate=w_gate, w_up=w_up,
             w_down=w_down, kT=kT, v=v, k_new=k_new, v_new=v_new,
-            wqkv=wqkv, w_gateup=w_gateup, qkv_out=qkv_out))
+            wqkv=wqkv, w_gateup=w_gateup, qkv_out=qkv_out,
+            moe_router=moe_router, moe_w_gate=moe_w_gate,
+            moe_w_up=moe_w_up, moe_w_down=moe_w_down))
     fnorm = mb.tensor(TILE, hidden) if final_norm else None
     cur = [row_block(x, b) for b in range(bt)]
     curn: list[TensorHandle | None] = [None] * bt
@@ -577,7 +693,10 @@ def build_decode_step(*, hidden: int, hq_local: int, hkv_local: int,
                 paged_tables=tables,
                 append_pos=(scratch * TILE) if seq_blocks else None,
                 meta_out=block_meta[b] if seq_blocks else None,
-                spec_append=spec_window > 1)
+                spec_append=spec_window > 1,
+                inkernel_append=inkernel_append, mat_prefetch=mat_prefetch,
+                moe_experts=moe_experts, moe_topk=moe_topk,
+                batch=min(batch, TILE))
     outs = [curn[b] if final_norm else cur[b] for b in range(bt)]
     meta = None
     if seq_blocks:

@@ -34,7 +34,7 @@ from triton_distributed_tpu_torch.megakernel.kernel import (
 )
 from triton_distributed_tpu_torch.megakernel.models import (
     DecodeStepProgram, advance_queue_pos, broadcast_rows, build_decode_step,
-    feed_layer_weights, pad_head_vec, rope_tables,
+    feed_layer_weights, feed_moe_weights, pad_head_vec, rope_tables,
 )
 from triton_distributed_tpu_torch.megakernel.tasks import TILE, WORDS
 from triton_distributed_tpu_torch.models.config import ModelConfig
@@ -67,15 +67,18 @@ def _vec(t) -> np.ndarray:
 
 def weight_feeds(prog: DecodeStepProgram, cfg: ModelConfig,
                  params: dict, *, projections: bool = True) -> dict:
-    """Map a dense param tree (``init_dense_llm`` / ``params_from_numpy``
+    """Map a param tree (``init_dense_llm`` / ``params_from_numpy``
     layout) onto the program's workspace handles. Norm weights become
     broadcast rows; projection weights stay tensors on their device
     (``projections=False`` leaves them out: the norm rows alone, for a
-    caller whose weight workspace is already built)."""
+    caller whose weight workspace is already built). A MoE layer's
+    ``moe`` subtree feeds the program's router and expert stacks
+    (``feed_moe_weights``) — the decoders here serve dense models, the
+    MoE programs are driven directly (``build_decode_step(moe_experts=)``)."""
     d = cfg.head_dim
     feeds: dict = {}
     for h, layer in zip(prog.layers, params["layers"]):
-        attn, mlp = layer["attn"], layer["mlp"]
+        attn = layer["attn"]
         feeds[h.attn_norm] = broadcast_rows(_vec(layer["attn_norm"]))
         feeds[h.mlp_norm] = broadcast_rows(_vec(layer["mlp_norm"]))
         qn = (_vec(attn["q_norm"]) if cfg.qk_norm
@@ -86,6 +89,12 @@ def weight_feeds(prog: DecodeStepProgram, cfg: ModelConfig,
         feeds[h.k_norm] = broadcast_rows(pad_head_vec(kn, d))
         if not projections:
             continue
+        if "moe" in layer:
+            feed_layer_weights(feeds, h, wq=attn["wq"], wk=attn["wk"],
+                               wv=attn["wv"], wo=attn["wo"], head_dim=d)
+            feed_moe_weights(feeds, h, **layer["moe"])
+            continue
+        mlp = layer["mlp"]
         feed_layer_weights(
             feeds, h, wq=attn["wq"], wk=attn["wk"], wv=attn["wv"],
             wo=attn["wo"], w_gate=mlp["w_gate"], w_up=mlp["w_up"],

@@ -6,7 +6,10 @@ weight layout (``models/convert.py`` turns a JAX tree into one). Caches
 are updated in place; each function returns the cache it was given, with
 its host-side bookkeeping (``offset``, ``kv_lens``) advanced.
 
-Per block (pre-norm):  x ─ rms_norm ─ attention ─(+)─ rms_norm ─ MLP ─(+)─ …
+Per block (pre-norm):  x ─ rms_norm ─ attention ─(+)─ rms_norm ─ FFN ─(+)─ …
+
+The FFN is the dense SwiGLU MLP, or on a MoE config (Qwen3-MoE) the
+expert MLP of ``ops/moe.moe_tp_fwd_local`` at one rank.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from triton_distributed_tpu_torch.layers.common import rms_norm
+from triton_distributed_tpu_torch.layers.ep_moe import init_ep_moe
 from triton_distributed_tpu_torch.layers.tp_attn import (
     init_tp_attn, tp_attn_decode_paged, tp_attn_prefill,
     tp_attn_prefill_chunk, tp_attn_verify_paged,
@@ -23,6 +27,7 @@ from triton_distributed_tpu_torch.models.config import ModelConfig
 from triton_distributed_tpu_torch.models.kv_cache import (
     KVCache, PagedModelCache,
 )
+from triton_distributed_tpu_torch.ops.moe import moe_tp_fwd_local
 from triton_distributed_tpu_torch.runtime.device import (
     resolve_device, torch_dtype,
 )
@@ -33,10 +38,9 @@ def init_dense_llm(cfg: ModelConfig, *, generator: torch.Generator,
     """Random parameters with the JAX package's scales, drawn from
     ``generator`` (which must live on ``device``; ``None`` = the card).
     The values differ from the JAX initialiser's — to compare the two,
-    convert the JAX tree with ``models/convert.params_from_numpy``."""
-    if cfg.is_moe:
-        raise NotImplementedError("the port serves dense models; MoE layers "
-                                  "come with a later slice")
+    convert the JAX tree with ``models/convert.params_from_numpy``.
+    A MoE config gets a ``moe`` subtree per layer (``init_ep_moe``) in
+    place of ``mlp``."""
     dev = resolve_device(device)
     dt = torch_dtype(cfg.dtype)
     h, v = cfg.hidden_size, cfg.vocab_size
@@ -47,13 +51,19 @@ def init_dense_llm(cfg: ModelConfig, *, generator: torch.Generator,
         "layers": [],
     }
     for _ in range(cfg.num_layers):
-        params["layers"].append({
+        layer = {
             "attn_norm": torch.ones((h,), dtype=dt, device=dev),
             "mlp_norm": torch.ones((h,), dtype=dt, device=dev),
             "attn": init_tp_attn(cfg, dt, generator=generator, device=dev),
-            "mlp": init_tp_mlp(h, cfg.intermediate_size, dt,
-                               generator=generator, device=dev),
-        })
+        }
+        if cfg.is_moe:
+            layer["moe"] = init_ep_moe(
+                h, cfg.moe_intermediate_size, cfg.num_experts, dt,
+                generator=generator, device=dev)
+        else:
+            layer["mlp"] = init_tp_mlp(h, cfg.intermediate_size, dt,
+                                       generator=generator, device=dev)
+        params["layers"].append(layer)
     if not cfg.tie_word_embeddings:
         params["lm_head"] = torch.randn((h, v), generator=generator,
                                         dtype=dt, device=dev) * 0.02
@@ -68,6 +78,16 @@ def _logits(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return x @ head
 
 
+def _mlp_or_moe(layer: dict, cfg: ModelConfig, h: torch.Tensor
+                ) -> torch.Tensor:
+    """FFN block dispatch: the dense SwiGLU MLP, or the MoE expert MLP."""
+    if "moe" in layer:
+        p = layer["moe"]
+        return moe_tp_fwd_local(h, p["router"], p["w_gate"], p["w_up"],
+                                p["w_down"], cfg.num_experts_per_tok)
+    return tp_mlp_fwd(layer["mlp"], h)
+
+
 def dense_prefill(params: dict, cfg: ModelConfig, input_ids: torch.Tensor,
                   cache: KVCache):
     """Causal prefill of whole prompts. input_ids: (B, S). Returns
@@ -80,7 +100,7 @@ def dense_prefill(params: dict, cfg: ModelConfig, input_ids: torch.Tensor,
                                       cache.layer(i))
         x = x + attn_out
         h = rms_norm(x, layer["mlp_norm"], cfg.rms_norm_eps)
-        x = x + tp_mlp_fwd(layer["mlp"], h)
+        x = x + _mlp_or_moe(layer, cfg, h)
     last = x.reshape(batch, seq, -1)[:, -1]
     return _logits(params, cfg, last), cache._replace(offset=seq)
 
@@ -100,7 +120,7 @@ def dense_prefill_slice(params: dict, cfg: ModelConfig,
                                             cache.layer(i), start, chunk)
         x = x + attn_out
         h = rms_norm(x, layer["mlp_norm"], cfg.rms_norm_eps)
-        x = x + tp_mlp_fwd(layer["mlp"], h)
+        x = x + _mlp_or_moe(layer, cfg, h)
     return x, cache
 
 
@@ -126,7 +146,7 @@ def dense_decode_step_paged(params: dict, cfg: ModelConfig,
                                       cache.layer(i))
         x = x + out
         h = rms_norm(x, layer["mlp_norm"], cfg.rms_norm_eps)
-        x = x + tp_mlp_fwd(layer["mlp"], h)
+        x = x + _mlp_or_moe(layer, cfg, h)
     logits = _logits(params, cfg, x)
     new_lens = torch.clamp(start_lens + 1, max=cache.capacity)
     return logits, cache._replace(kv_lens=new_lens)
@@ -152,7 +172,7 @@ def dense_verify_step_paged(params: dict, cfg: ModelConfig,
                                       cache.layer(i), window)
         x = x + out
         h = rms_norm(x, layer["mlp_norm"], cfg.rms_norm_eps)
-        x = x + tp_mlp_fwd(layer["mlp"], h)
+        x = x + _mlp_or_moe(layer, cfg, h)
     logits = _logits(params, cfg, x)
     new_lens = torch.clamp(start_lens + window, max=cache.capacity)
     return (logits.reshape(batch, window, -1),
