@@ -56,7 +56,26 @@ printing one JSON line:
    ``torch.argmax`` ties go to the first max. ``linear_parity``:
    ``Engine.serve`` on the megakernel token-identical to the eager serve,
    and the fp8-weight decoder to the eager engine on e4m3 pre-quantized
-   weights.
+   weights;
+9. kernel B3 (the tiled GEMM, ``ops/gemm.py``): ``gemm`` cases in the
+   ``kernels`` phase — every lane against its plain version at the
+   headline M=2048, K=N=5120 (bf16, e4m3 with e4m3 and bf16 output, bf16 x
+   e4m3, fp32 by FMA with TF32 off), at m=8, at the Qwen3-8B decode
+   products (M=1, e4m3) and the Qwen3-30B-A3B expert products (4 rows),
+   and at the reference's odd shapes; ``gemm_tuned`` —
+   ``pallas_matmul_tuned`` at the headline shape measures its candidates
+   once (a fresh tuner cache file), then hits the cache;
+   ``linear_engine`` — Qwen3-8B through ``Engine(cfg, params,
+   max_seq=2048)`` with the reference's defaults (linear-cache decode),
+   2 x 1024 prompts, 64 new; ``fp8_decode`` — the same model quantized by
+   ``quantize_dense_weights``, 64 ``dense_decode_step(dot_fn=fp8_dot)``
+   steps after a 1024-token prefill: 252 B3 launches a step, its time
+   against its byte bound, the device's busy share; then at float32 and 2
+   layers ``linear_engine_parity`` (the default engine's tokens identical
+   to the paged and megakernel serves) and ``fp8_parity`` (``fp8_dot``'s
+   tokens identical to ``fp8_emulated_dot``'s); last ``fp8_experts`` —
+   one Qwen3-30B-A3B MoE layer over e4m3 expert stacks through B3 against
+   its plain version, and one quantized decode step.
 
 Then the kernel summary line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failed phase raises: exit code 1
@@ -73,7 +92,8 @@ import sys
 import time
 
 HBM_BYTES_PER_S = 3.35e12                                   # H100 SXM
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}         # dense; fp32 = FMA
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12,         # dense; fp32 = FMA
+              "float8_e4m3fn": 1979e12}
 
 # Elementwise tolerance |kernel - plain| <= atol + rtol * |plain|, per
 # kernel and arithmetic, set from the errors measured on the card with a
@@ -1403,6 +1423,517 @@ def moe_tasks_alone(torch, mk, comp, prog, ws, queue, cfg, batch, timer):
 
 
 # ---------------------------------------------------------------------------
+# Kernel B3 (ops/gemm.py): the tiled GEMM against its plain version.
+# ---------------------------------------------------------------------------
+
+# Tolerances of B3 against its plain version (the fp32 product of the same
+# stored operands, then the same output cast), as |kernel - plain| <=
+# atol + rtol * |plain| with atol in units of the output's spread
+# s = sqrt(K) * rms(A) * rms(B). fp32 sums run in another order (the FMA
+# lane sequentially over K; the tensor cores in their own order; the e4m3
+# lane promotes each staged chunk's partial sum, the tensor core keeping
+# about 14 bits, to fp32): the fp32 outputs differ by a small multiple of
+# 2^-24 * sqrt(K) * s, and the e4m3 lane's by about 2^-14 * s. A rounded
+# output may then flip one unit of its type: 2^-7 relative for bf16, 2^-3
+# for e4m3 (plus 2^-9, its subnormal step). TF32 is off.
+GEMM_TOL = {"fp32": dict(atol_s=2.0 ** -13, rtol=0.0),
+            "bf16": dict(atol_s=2.0 ** -13, rtol=0.0),
+            "mixed": dict(atol_s=2.0 ** -13, rtol=0.0),
+            "e4m3": dict(atol_s=2.0 ** -10, rtol=0.0)}
+GEMM_ROUND = {"bfloat16": dict(rtol=2.0 ** -7, atol=0.0),
+              "float8_e4m3fn": dict(rtol=2.0 ** -3, atol=2.0 ** -9),
+              "float32": dict(rtol=0.0, atol=0.0)}
+# The Qwen3-8B decode step's B3 products (fp8_decode): (K, N) of wq/wo,
+# wk/wv, w_gate/w_up and w_down, at M = 1.
+QWEN3_8B_PRODUCTS = {"wq_wo": (4096, 4096), "wk_wv": (4096, 1024),
+                     "gate_up": (4096, 12288), "down": (12288, 4096)}
+MAIN_GEMM_CASE = "decode_m1_gate_up_e4m3"
+
+
+def gemm_case(torch, gemm, timer, *, name, m, k, n, a_dt, b_dt, out_dt,
+              seed, time_it=True, a_scale=1.0, tiles=None):
+    """One B3 case: operands drawn on the card (e4m3 through the saturating
+    cast), the kernel against its plain version, and when timed its time,
+    the plain version's, a one-call PyTorch yardstick where there is one
+    (``torch.matmul`` for bf16 and fp32; ``torch._scaled_mm`` with unit
+    scales for e4m3, its refusal of a shape recorded), and its bound."""
+    from triton_distributed_tpu_torch.models.fp8 import saturate_cast
+
+    e4m3 = torch.float8_e4m3fn
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    b_scale = 1.0 if (a_dt == e4m3 and b_dt == e4m3) else k ** -0.5
+    a = saturate_cast(torch.randn((m, k), generator=g, device="cuda")
+                      * a_scale, a_dt)
+    b = saturate_cast(torch.randn((k, n), generator=g, device="cuda")
+                      * b_scale, b_dt)
+    lane = gemm.gemm_lane(a_dt, b_dt)
+    caps = tiles or (512, 1024, 512)
+    tile = gemm.select_tile(lane, m, n, *caps)
+    kw = dict(tile_m=caps[0], tile_n=caps[1], tile_k=caps[2],
+              out_dtype=out_dt)
+    got = gemm.pallas_matmul(a, b, **kw)
+    want = gemm.matmul_plain(a, b, out_dt)
+    torch.cuda.synchronize()
+    spread = (k ** 0.5) * a.float().pow(2).mean().sqrt().item() \
+        * b.float().pow(2).mean().sqrt().item()
+    tol = GEMM_TOL[lane]
+    rnd = GEMM_ROUND[_dtype_name(out_dt)]
+    atol = tol["atol_s"] * spread + rnd["atol"]
+    rtol = tol["rtol"] + rnd["rtol"]
+    diff = (got.float() - want.float()).abs()
+    mag = want.float().abs()
+    share = (diff / (atol + rtol * mag)).max().item()
+    rec = {"case": name, "lane": lane, "m": m, "k": k, "n": n,
+           "a": _dtype_name(a_dt), "b": _dtype_name(b_dt),
+           "out": _dtype_name(out_dt), "tile": list(tile.tiles),
+           "spread": spread, "max_abs_err": diff.max().item(),
+           "max_err_over_spread": diff.max().item() / spread,
+           "share_not_identical": (diff > 0).float().mean().item(),
+           "saturated": (int((want.float().abs() == 448.0).sum().item())
+                         if out_dt == e4m3 else 0),
+           "tol": {"atol": atol, "rtol": rtol}, "tol_share": share,
+           "ok": bool(torch.isfinite(got.float()).all().item()
+                      and share <= 1.0)}
+    if time_it:
+        items = a.element_size(), b.element_size(), got.element_size()
+        nbytes = m * k * items[0] + k * n * items[1] + m * n * items[2]
+        peak = {"fp32": "float32", "bf16": "bfloat16", "mixed": "bfloat16",
+                "e4m3": "float8_e4m3fn"}[lane]
+        rec["bound_ms"], rec["bound_by"] = _bound_ms(nbytes, 2.0 * m * n * k,
+                                                     peak)
+        rec["ms"] = timer.ms(lambda: gemm.pallas_matmul(a, b, **kw))
+        rec["plain_ms"] = timer.ms(lambda: gemm.matmul_plain(a, b, out_dt))
+        rec["tflops"] = 2.0 * m * n * k / rec["ms"] / 1e9
+        rec["library_ms"], rec["library"] = None, None
+        if lane in ("bf16", "fp32") and a_dt == b_dt and out_dt == a_dt:
+            rec["library"] = "torch.matmul"
+            rec["library_ms"] = timer.ms(lambda: torch.matmul(a, b))
+        elif lane == "e4m3" and out_dt != e4m3:
+            bt = b.t().contiguous().t()            # column-major B
+            one = torch.ones((), device="cuda")
+            try:
+                rec["library_ms"] = timer.ms(lambda: torch._scaled_mm(
+                    a, bt, scale_a=one, scale_b=one, out_dtype=out_dt))
+                rec["library"] = "torch._scaled_mm"
+            except RuntimeError as e:        # the yardstick only
+                rec["library_refused"] = str(e)[:200]
+    return rec
+
+
+def phase_gemm_cases(torch, gemm, timer) -> dict:
+    """B3 in each lane: (a) the headline M=2048, K=N=5120; (b) the m=8
+    decode shape; (c) the Qwen3-8B decode step's products at M=1 (e4m3,
+    fp32 out, as ``fp8_dot`` runs them) and the Qwen3-30B-A3B expert
+    products at 4 rows; (d) the reference's odd shapes."""
+    bf16, f32, e4m3 = torch.bfloat16, torch.float32, torch.float8_e4m3fn
+    cases = []
+
+    def case(**kw):
+        cases.append(gemm_case(torch, gemm, timer, **kw))
+
+    head = dict(m=2048, k=5120, n=5120)
+    case(name="headline_bf16", a_dt=bf16, b_dt=bf16, out_dt=bf16, seed=40,
+         **head)
+    case(name="headline_e4m3", a_dt=e4m3, b_dt=e4m3, out_dt=e4m3, seed=41,
+         a_scale=2.0, **head)         # ~0.2% of the products past 448
+    case(name="headline_e4m3_bf16_out", a_dt=e4m3, b_dt=e4m3, out_dt=bf16,
+         seed=42, **head)
+    case(name="headline_mixed", a_dt=bf16, b_dt=e4m3, out_dt=bf16, seed=43,
+         **head)
+    case(name="headline_fp32", a_dt=f32, b_dt=f32, out_dt=f32, seed=44,
+         **head)
+    case(name="m8_bf16", m=8, k=5120, n=5120, a_dt=bf16, b_dt=bf16,
+         out_dt=bf16, seed=45)
+    case(name="m8_e4m3", m=8, k=5120, n=5120, a_dt=e4m3, b_dt=e4m3,
+         out_dt=f32, seed=46)
+    for pname, (k, n) in QWEN3_8B_PRODUCTS.items():
+        case(name=f"decode_m1_{pname}_e4m3", m=1, k=k, n=n, a_dt=e4m3,
+             b_dt=e4m3, out_dt=f32, seed=47)
+    for pname, (k, n) in (("gate_up", (2048, 768)), ("down", (768, 2048))):
+        case(name=f"expert_m4_{pname}_e4m3", m=4, k=k, n=n, a_dt=e4m3,
+             b_dt=e4m3, out_dt=f32, seed=48)
+    # Every compiled tile at least once, on a shape that is ragged in
+    # all three dimensions.
+    for lane, dts in (("bf16", (bf16, bf16, bf16)),
+                      ("e4m3", (e4m3, e4m3, f32)), ("fp32", (f32, f32, f32))):
+        for t in gemm.lane_tiles(lane):
+            case(name=f"tile_{lane}_{t.tile_m}x{t.tile_n}x{t.tile_k}",
+                 m=200, k=1000, n=300, a_dt=dts[0], b_dt=dts[1],
+                 out_dt=dts[2], seed=49, time_it=False, tiles=t.tiles)
+    for i, (m, k, n) in enumerate([(20, 256, 384), (8, 136, 128),
+                                   (24, 128, 136)]):
+        for dts in ((f32, f32, f32), (bf16, bf16, bf16), (bf16, e4m3, f32),
+                    (e4m3, e4m3, e4m3), (f32, e4m3, f32)):
+            case(name=f"odd_{m}x{k}x{n}_{_dtype_name(dts[0])}"
+                      f"x{_dtype_name(dts[1])}", m=m, k=k, n=n, a_dt=dts[0],
+                 b_dt=dts[1], out_dt=dts[2], seed=50 + i, time_it=False)
+    return {"gemm": cases}
+
+
+def phase_gemm_tuned(torch, gemm, timer) -> dict:
+    """``pallas_matmul_tuned`` at the headline bf16 shape, with the tuner's
+    disk cache at a fresh file: the first call measures the top candidates
+    (CUDA events, L2 warm), a second call and a cleared memory cache both
+    hit the cache, and the tuned call's output holds against the plain
+    version. The B3 launches of one tuned call on a hit are counted."""
+    from triton_distributed_tpu_torch.runtime import autotuner
+    from triton_distributed_tpu_torch.runtime.build import BUILD_DIR
+    from triton_distributed_tpu_torch.runtime.perf_model import (
+        rank_gemm_tiles,
+    )
+
+    m, k, n, bf16 = 2048, 5120, 5120, torch.bfloat16
+    path = BUILD_DIR / f"autotune-{os.getpid()}.json"
+    os.environ["TDTPU_AUTOTUNE_CACHE"] = str(path)
+    os.environ.pop("TDTPU_AUTOTUNE", None)
+    try:
+        autotuner._memory_cache.clear()
+        cands = rank_gemm_tiles(autotuner.gemm_tile_candidates(m, k, n, 2),
+                                m, n, k, 2, top=4)
+        t0 = time.perf_counter()
+        best = autotuner.tuned_matmul_tiles(m, k, n, bf16, device="cuda")
+        tune_s = time.perf_counter() - t0
+        report = autotuner.last_tune_report(m, k, n, bf16)
+        check(best is not None and report is not None,
+              "gemm_tuned: the first call did not measure")
+        again = autotuner.tuned_matmul_tiles(m, k, n, bf16, device="cuda")
+        check(again == best and autotuner.last_tune_report(m, k, n, bf16)
+              is None, "gemm_tuned: the second call did not hit the cache")
+        autotuner._memory_cache.clear()
+        check(autotuner.tuned_matmul_tiles(m, k, n, bf16, device="cuda")
+              == best and autotuner.last_tune_report(m, k, n, bf16) is None,
+              "gemm_tuned: the disk cache was not read")
+        g = torch.Generator(device="cuda").manual_seed(60)
+        a = torch.randn((m, k), generator=g, device="cuda").to(bf16)
+        b = (torch.randn((k, n), generator=g, device="cuda")
+             * k ** -0.5).to(bf16)
+        gemm.GEMM_KERNEL.launches = 0
+        out = gemm.pallas_matmul_tuned(a, b)
+        launches = gemm.GEMM_KERNEL.launches
+        check(launches == 1, f"gemm_tuned: {launches} launches on a hit")
+        want = gemm.matmul_plain(a, b, bf16)
+        err = (out.float() - want.float()).abs()
+        spread = (k ** 0.5) * a.float().pow(2).mean().sqrt().item() \
+            * b.float().pow(2).mean().sqrt().item()
+        share = (err / (GEMM_TOL["bf16"]["atol_s"] * spread
+                        + GEMM_ROUND["bfloat16"]["rtol"]
+                        * want.float().abs())).max().item()
+        check(share <= 1.0, f"gemm_tuned: tuned output off by {share}x tol")
+        tm, tn, tk = best
+        return {"phase": "gemm_tuned", "m": m, "k": k, "n": n,
+                "dtype": "bfloat16", "candidates": [list(c) for c in cands],
+                "timings_ms": [None if t is None else t * 1e3
+                               for t in report.timings],
+                "winner": list(best), "tune_s": tune_s,
+                "cache_hits": 2, "launches_on_hit": launches,
+                "tol_share": share,
+                "winner_ms": timer.ms(lambda: gemm.pallas_matmul(
+                    a, b, tile_m=tm, tile_n=tn, tile_k=tk)),
+                "default_ms": timer.ms(lambda: gemm.pallas_matmul(a, b))}
+    finally:
+        os.environ.pop("TDTPU_AUTOTUNE_CACHE", None)
+        path.unlink(missing_ok=True)
+
+
+def phase_linear_engine(torch, kernels, gemm_k, Engine, params, cfg, *,
+                        batch=2, prompt=1024, gen=64, reps=2) -> dict:
+    """Full Qwen3-8B through ``Engine(cfg, params, max_seq=2048)`` with the
+    reference's defaults (backend "auto", no page size): prefill by K1,
+    then ``dense_decode_step`` over the linear cache (attention by plain
+    ``_sdpa``, projections by ``torch.matmul``): K1 once per layer, K2 and
+    B3 never, no plain version."""
+    flash, paged = kernels[0], kernels[1]
+    L = cfg.num_layers
+    eng = Engine(cfg, params, max_seq=2048)
+    check(eng.backend == "auto" and eng.page_size is None,
+          "linear_engine: the defaults are not the reference's")
+    g = torch.Generator(device="cuda").manual_seed(21)
+    ids = torch.randint(0, cfg.vocab_size, (batch, prompt), generator=g,
+                        device="cuda", dtype=torch.int32)
+    eng.serve(ids[:, :128], 4)                                  # warm-up
+    serve_s, prefill_s, first = [], [], None
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        reset_counts(list(kernels) + [gemm_k])
+        t0 = time.perf_counter()
+        out = eng.serve(ids, gen)
+        torch.cuda.synchronize()
+        serve_s.append(time.perf_counter() - t0)
+        launches = {"flash_attention": flash.launches,
+                    "paged_attention": paged.launches,
+                    "gemm": gemm_k.launches}
+        check(flash.launches == L and paged.launches == 0
+              and gemm_k.launches == 0,
+              f"linear_engine: launch counts {launches}")
+        check(all(k.plain_calls == 0 for k in list(kernels) + [gemm_k]),
+              "linear_engine: a plain version ran on the main path")
+        check(tuple(out.shape) == (batch, gen)
+              and bool(((out >= 0) & (out < cfg.vocab_size)).all()),
+              "linear_engine: bad output")
+        check(first is None or torch.equal(out, first),
+              "linear_engine: a repeated serve gave other tokens")
+        first = out
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.prefill(ids)
+        torch.cuda.synchronize()
+        prefill_s.append(time.perf_counter() - t0)
+    total, pre = min(serve_s), min(prefill_s)
+    return {"phase": "linear_engine", "batch": batch, "prompt": prompt,
+            "gen": gen, "layers": L, "serve_s_runs": serve_s,
+            "prefill_ms_runs": [t * 1e3 for t in prefill_s],
+            "prefill_ms": pre * 1e3,
+            "decode_ms_per_step": (total - pre) * 1e3 / (gen - 1),
+            "tokens_per_s": batch * gen / total, "launches": launches}
+
+
+def phase_linear_engine_parity(torch, QWEN3_8B, init_dense_llm, Engine,
+                               kernels) -> dict:
+    """float32, Qwen3-8B widths cut to 2 layers: the default engine's
+    tokens (linear cache) identical to the paged eager serve's and to
+    ``Engine(backend="megakernel").serve``'s (the linear megakernel
+    decoder, batch 1)."""
+    cfg = dataclasses.replace(QWEN3_8B, num_layers=2, dtype="float32")
+    params = init_dense_llm(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(3))
+    engines = {"linear": Engine(cfg, params, max_seq=256),
+               "paged": Engine(cfg, params, max_seq=256, page_size=16),
+               "megakernel": Engine(cfg, params, max_seq=256,
+                                    backend="megakernel")}
+    g = torch.Generator().manual_seed(23)
+    runs = []
+    for n, gen in ((37, 24), (150, 40), (128, 16)):
+        prompt = [torch.randint(0, cfg.vocab_size, (n,), generator=g).tolist()]
+        toks = {k: e.serve(prompt, gen)[0].tolist()
+                for k, e in engines.items()}
+        for other in ("paged", "megakernel"):
+            if toks[other] != toks["linear"]:
+                step, gap = _first_divergence(torch, engines["linear"],
+                                              prompt[0], toks[other],
+                                              toks["linear"])
+                emit({"phase": "linear_engine_parity", "prompt": n,
+                      "against": other, "diverged_at_step": step,
+                      "top2_logit_gap": gap})
+                raise RuntimeError("chip_smoke: the default engine diverged "
+                                   f"from the {other} serve at step {step}")
+        runs.append({"prompt": n, "gen": gen, "identical": True})
+    return {"phase": "linear_engine_parity", "layers": 2,
+            "dtype": "float32", "runs": runs}
+
+
+def _busy_share(torch, fn, steps: int) -> dict:
+    """Kernel time over wall time of ``steps`` calls of ``fn`` under
+    ``torch.profiler`` (profiler overhead included), by kernel group."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    groups: dict = {}
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) != DeviceType.CUDA:
+            continue
+        us = (getattr(e, "self_device_time_total", None)
+              or getattr(e, "self_cuda_time_total", 0))
+        grp = "gemm_b3" if "gemm_tc_kernel" in e.key else (
+            "other_matmul" if any(w in e.key.lower() for w in (
+                "gemm", "gemv", "cutlass", "nvjet", "xmma")) else "other")
+        groups[grp] = groups.get(grp, 0.0) + us / 1e3 / steps
+    if not groups:
+        return {"measured": False,
+                "reason": "profiler recorded no device time"}
+    return {"measured": True, "steps": steps, "wall_ms_per_step":
+            wall_ms / steps, "device_ms_per_step": groups,
+            "busy_share": sum(groups.values()) * steps / wall_ms}
+
+
+def phase_fp8_decode(torch, kernels, gemm_k, Engine, params, cfg, *,
+                     prompt=1024, gen=64) -> dict:
+    """Full Qwen3-8B with ``quantize_dense_weights``: a 1024-token prefill
+    on the bf16 weights into the linear cache, then ``gen``
+    ``dense_decode_step(dot_fn=fp8_dot)`` steps — B3's e4m3 lane for every
+    projection, 7 per layer, 252 per step. Reports the step time against
+    the byte bound of its B3 products and of the whole step, the launch
+    count, and the device busy share from a short profile."""
+    from triton_distributed_tpu_torch.models.dense import dense_decode_step
+    from triton_distributed_tpu_torch.models.fp8 import (
+        fp8_dot, quantize_dense_weights,
+    )
+
+    L = cfg.num_layers
+    p8 = quantize_dense_weights(params)
+    eng = Engine(cfg, params, max_seq=2048)
+    g = torch.Generator(device="cuda").manual_seed(27)
+    ids = torch.randint(0, cfg.vocab_size, (1, prompt), generator=g,
+                        device="cuda", dtype=torch.int32)
+    logits, cache = eng.prefill(ids)
+    tok = logits.argmax(-1).to(torch.int32)
+    for _ in range(2):                                      # warm-up
+        lg, _ = dense_decode_step(p8, cfg, tok, cache, dot_fn=fp8_dot)
+    torch.cuda.synchronize()
+    reset_counts(list(kernels) + [gemm_k])
+    toks, walls = [int(tok[0])], []
+    t_run = time.perf_counter()
+    for _ in range(gen):
+        t0 = time.perf_counter()
+        lg, cache = dense_decode_step(p8, cfg, tok, cache, dot_fn=fp8_dot)
+        tok = lg.argmax(-1).to(torch.int32)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        toks.append(int(tok[0]))
+    run_s = time.perf_counter() - t_run
+    launches = gemm_k.launches
+    check(launches == 7 * L * gen
+          and gemm_k.variant_launches.get("e4m3", 0) == launches
+          and gemm_k.plain_calls == 0,
+          f"fp8_decode: {launches} B3 launches for {gen} steps of {L} "
+          f"layers (expected {7 * L * gen}, all e4m3)")
+    check(bool(torch.isfinite(lg.float()).all()) and all(
+        0 <= t < cfg.vocab_size for t in toks), "fp8_decode: bad output")
+    w8 = sum(t.numel() for layer in p8["layers"] for part in layer.values()
+             if isinstance(part, dict) for t in part.values()
+             if t.dtype == torch.float8_e4m3fn)
+    head = params.get("lm_head", params["embed"])
+    kv_bytes = 2 * L * (prompt + gen) * cfg.num_kv_heads * cfg.head_dim * 2
+    b3_bound = w8 / HBM_BYTES_PER_S * 1e3
+    step_bound = (w8 + head.numel() * head.element_size() + kv_bytes) \
+        / HBM_BYTES_PER_S * 1e3
+    prof = _busy_share(torch, lambda: dense_decode_step(
+        p8, cfg, tok, cache._replace(offset=prompt), dot_fn=fp8_dot), 4)
+    step_ms = _pct(walls[1:], 50) * 1e3
+    del p8
+    return {"phase": "fp8_decode", "layers": L, "prompt": prompt,
+            "steps": gen, "launches": {"gemm": launches,
+                                       "gemm_per_step": launches // gen},
+            "decode_ms_per_step": step_ms, "run_s": run_s,
+            "decode_tokens_per_s": gen / run_s,
+            "e4m3_weight_bytes": w8, "b3_bound_ms": b3_bound,
+            "step_bound_ms": step_bound, "step_over_bound": step_ms
+            / step_bound, "profile": prof, "tokens_head": toks[:8]}
+
+
+def phase_fp8_parity(torch, QWEN3_8B, init_dense_llm, Engine, gemm_k
+                     ) -> dict:
+    """float32 activations, Qwen3-8B widths cut to 2 layers, quantized
+    weights: the tokens of ``dense_decode_step(dot_fn=fp8_dot)`` (B3's
+    e4m3 lane, fp32 out) identical to ``fp8_emulated_dot``'s (both
+    operands rounded to e4m3, an fp32 torch matmul), with B3 launched
+    7 x 2 times a step."""
+    from triton_distributed_tpu_torch.models.dense import dense_decode_step
+    from triton_distributed_tpu_torch.models.fp8 import (
+        fp8_dot, fp8_emulated_dot, quantize_dense_weights,
+    )
+
+    cfg = dataclasses.replace(QWEN3_8B, num_layers=2, dtype="float32")
+    params = init_dense_llm(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(4))
+    p8 = quantize_dense_weights(params)
+    eng = Engine(cfg, params, max_seq=256)
+    g = torch.Generator().manual_seed(29)
+    runs = []
+    for n, gen in ((37, 24), (128, 24)):
+        ids = torch.randint(0, cfg.vocab_size, (1, n), generator=g)
+        toks, gaps = {}, {}
+        for name, dot in (("fp8_dot", fp8_dot),
+                          ("emulated", fp8_emulated_dot)):
+            logits, cache = eng.prefill(ids)
+            tok = logits.argmax(-1).to(torch.int32)
+            out, gap = [], []
+            gemm_k.launches = 0
+            for _ in range(gen):
+                lg, cache = dense_decode_step(p8, cfg, tok, cache,
+                                              dot_fn=dot)
+                top = torch.topk(lg[0], 2).values
+                gap.append(float(top[0] - top[1]))
+                tok = lg.argmax(-1).to(torch.int32)
+                out.append(int(tok[0]))
+            if name == "fp8_dot":
+                check(gemm_k.launches == 14 * gen,
+                      f"fp8 parity: {gemm_k.launches} B3 launches")
+            toks[name], gaps[name] = out, gap
+        if toks["fp8_dot"] != toks["emulated"]:
+            step = next(i for i, (a, b) in enumerate(
+                zip(toks["fp8_dot"], toks["emulated"])) if a != b)
+            emit({"phase": "fp8_parity", "prompt": n,
+                  "diverged_at_step": step,
+                  "top2_logit_gap": gaps["emulated"][step]})
+            raise RuntimeError("chip_smoke: fp8 parity: fp8_dot diverged "
+                               f"from fp8_emulated_dot at step {step}")
+        runs.append({"prompt": n, "gen": gen, "identical": True,
+                     "min_top2_gap": min(gaps["emulated"])})
+    return {"phase": "fp8_parity", "layers": 2, "dtype": "float32",
+            "runs": runs}
+
+
+def phase_fp8_experts(torch, gemm, moe, QWEN3_30B_A3B, init_dense_llm,
+                      *, batch=4) -> dict:
+    """Qwen3-30B-A3B widths cut to 2 layers, e4m3 expert stacks: layer 0's
+    ``moe_tp_fwd_local`` at a batch of 4 rows through B3 (one e4m3 launch
+    per non-empty expert group and projection) against the same call with
+    each product taken by B3's plain version; then one
+    ``dense_decode_step(dot_fn=fp8_dot)`` of the quantized model, counted."""
+    from triton_distributed_tpu_torch.models.dense import dense_decode_step
+    from triton_distributed_tpu_torch.models.fp8 import (
+        fp8_dot, quantize_dense_weights,
+    )
+    from triton_distributed_tpu_torch.models.kv_cache import init_kv_cache
+
+    cfg = dataclasses.replace(QWEN3_30B_A3B, num_layers=2)
+    params = quantize_dense_weights(init_dense_llm(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(5)))
+    p = params["layers"][0]["moe"]
+    g = torch.Generator(device="cuda").manual_seed(31)
+    x = torch.randn((batch, cfg.hidden_size), generator=g,
+                    device="cuda").to(torch.bfloat16)
+    args = (x, p["router"], p["w_gate"], p["w_up"], p["w_down"],
+            cfg.num_experts_per_tok)
+    gemm.GEMM_KERNEL.launches = 0
+    got = moe.moe_tp_fwd_local(*args)
+    launches = gemm.GEMM_KERNEL.launches
+    kernel_matmul = moe.pallas_matmul
+    moe.pallas_matmul = (lambda a, b, out_dtype:
+                         gemm.matmul_plain(a, b, out_dtype))
+    try:
+        want = moe.moe_tp_fwd_local(*args)
+    finally:
+        moe.pallas_matmul = kernel_matmul
+    torch.cuda.synchronize()
+    diff = (got.float() - want.float()).abs()
+    # The gate/up products round to bf16 and the SwiGLU output is quantized
+    # to e4m3 again for the down product: a one-unit bf16 flip next to an
+    # e4m3 rounding boundary moves that activation one e4m3 step (2^-3),
+    # about 2^-3 / sqrt(768 * 8) of the output's spread per flip. atol is
+    # 2^-5 of the output's rms, rtol two bf16 units.
+    rms = want.float().pow(2).mean().sqrt().item()
+    tol = {"atol": 2.0 ** -5 * rms, "rtol": 2.0 ** -6}
+    share = (diff / (tol["atol"] + tol["rtol"] * want.float().abs())
+             ).max().item()
+    check(share <= 1.0 and bool(torch.isfinite(got.float()).all()),
+          f"fp8 experts: B3 off its plain version by {share}x tolerance")
+    check(launches > 0 and launches % 3 == 0,
+          f"fp8 experts: {launches} B3 launches for the MoE layer")
+    cache = init_kv_cache(cfg, batch, 64)._replace(offset=8)
+    gemm.GEMM_KERNEL.launches = 0
+    lg, _ = dense_decode_step(params, cfg, torch.zeros(
+        (batch,), dtype=torch.int32, device="cuda"), cache, dot_fn=fp8_dot)
+    step_launches = gemm.GEMM_KERNEL.launches
+    check(step_launches > 4 * cfg.num_layers
+          and bool(torch.isfinite(lg.float()).all()),
+          f"fp8 experts: the MoE decode step launched B3 {step_launches}x")
+    return {"phase": "fp8_experts", "layers": 2, "batch": batch,
+            "moe_layer_launches": launches, "max_abs_err":
+            diff.max().item(), "out_rms": rms, "tol": tol,
+            "tol_share": share,
+            "decode_step_launches": step_launches}
+
+
+# ---------------------------------------------------------------------------
 # Phases 3-5: the main path.
 # ---------------------------------------------------------------------------
 
@@ -2305,6 +2836,8 @@ def main() -> int:
         "triton_distributed_tpu_torch.megakernel.builder")
     mkmodels = importlib.import_module(
         "triton_distributed_tpu_torch.megakernel.models")
+    gemm = importlib.import_module("triton_distributed_tpu_torch.ops.gemm")
+    moe = importlib.import_module("triton_distributed_tpu_torch.ops.moe")
     from triton_distributed_tpu_torch.models.config import (
         QWEN3_8B, QWEN3_30B_A3B,
     )
@@ -2346,6 +2879,7 @@ def main() -> int:
                                         QWEN3_8B))
     cases.update(phase_moe_cases(torch, mk, mkmodels, mkserv, timer,
                                  QWEN3_30B_A3B))
+    cases.update(phase_gemm_cases(torch, gemm, timer))
     L = QWEN3_8B.num_layers
     emit_phase({"phase": "kernels", "tol_reason": TOL_REASON,
                 "launches_per_step": {
@@ -2368,10 +2902,15 @@ def main() -> int:
                                           "Qwen3-30B-A3B on the eager lane",
                     "megakernel_moe": "1 per step of the MoE decode "
                                       "program (MOE_TOPK and MOE_FFN once "
-                                      "per layer)"},
+                                      "per layer)",
+                    "gemm": f"{7 * L} per step of the fp8 decode "
+                            "(dense_decode_step(dot_fn=fp8_dot)); per "
+                            "non-empty expert group and projection over "
+                            "e4m3 expert stacks"},
                 "cases": cases})
     bad = [c["case"] for cs in cases.values() for c in cs if not c["ok"]]
     check(not bad, f"kernels disagree with their plain versions: {bad}")
+    tuned_rec = emit_phase(phase_gemm_tuned(torch, gemm, timer))
 
     # One set of seeded Qwen3-8B weights serves every full-size phase.
     params = init_dense_llm(
@@ -2428,6 +2967,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     lin_rec = emit_phase(phase_megakernel_engine(
         torch, mk, mkserv, kernels, Engine, params, QWEN3_8B, timer))
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit_phase(phase_linear_engine(torch, kernels, gemm.GEMM_KERNEL, Engine,
+                                   params, QWEN3_8B))
+    fp8_dec_rec = emit_phase(phase_fp8_decode(
+        torch, kernels, gemm.GEMM_KERNEL, Engine, params, QWEN3_8B))
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -2436,6 +2981,10 @@ def main() -> int:
                             ServingEngine, kernels))
     emit_phase(phase_linear_parity(torch, mkserv, QWEN3_8B, init_dense_llm,
                                    Engine, kernels))
+    emit_phase(phase_linear_engine_parity(torch, QWEN3_8B, init_dense_llm,
+                                          Engine, kernels))
+    emit_phase(phase_fp8_parity(torch, QWEN3_8B, init_dense_llm, Engine,
+                                gemm.GEMM_KERNEL))
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2453,6 +3002,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     emit_phase(phase_moe_parity(torch, QWEN3_30B_A3B, init_dense_llm, Engine,
                                 ServingEngine, kernels))
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit_phase(phase_fp8_experts(torch, gemm, moe, QWEN3_30B_A3B,
+                                 init_dense_llm))
 
     tpu = "triton_distributed_tpu/"
     root = build.PKG_DIR.parent
@@ -2548,6 +3101,24 @@ def main() -> int:
              max_abs_err=max(p["moe_replay"]["moe_ffn"]["max_abs_err"]
                              for c in moe_cases for p in c.get("positions",
                                                                []))),
+    ]
+    gemm_cases = cases["gemm"]
+    summary += [
+        # B3's e4m3 lane, timed at the fp8 decode's largest product (w_gate
+        # / w_up at M=1); launches of the counted fp8_decode run (7 per
+        # layer and step).
+        _summary_entry(gemm.GEMM_KERNEL, "gemm_e4m3", tpu + "ops/gemm.py:32",
+                       [c for c in gemm_cases if c["lane"] == "e4m3"],
+                       next(c for c in gemm_cases
+                            if c["case"] == MAIN_GEMM_CASE),
+                       fp8_dec_rec["launches"]["gemm"], root),
+        # B3's bf16 lane at the headline shape; launches of the counted
+        # pallas_matmul_tuned call.
+        _summary_entry(gemm.GEMM_KERNEL, "gemm_bf16", tpu + "ops/gemm.py:32",
+                       [c for c in gemm_cases if c["lane"] == "bf16"],
+                       next(c for c in gemm_cases
+                            if c["case"] == "headline_bf16"),
+                       tuned_rec["launches_on_hit"], root),
     ]
     check(all(e["launches"] > 0 for e in summary),
           f"a kernel of the path was never launched: "

@@ -695,8 +695,8 @@ def test_linear_serve_refusals(tiny):
     """What the port refuses by name on the sequential megakernel path:
     a page_size with Engine.serve, Engine.decode, a batch of 2, a prompt
     that cannot fit, pos >= max_seq, a cache of another max_seq,
-    num_ranks > 1, profile=True; and the eager engine still needs its
-    page_size."""
+    num_ranks > 1, profile=True; and the serving tier refuses an engine
+    without a paged cache."""
     _, _, cfg, tparams = tiny
     eng = Engine(cfg, tparams, device="cpu", backend="megakernel",
                  max_seq=MAX_SEQ, page_size=128)
@@ -712,13 +712,13 @@ def test_linear_serve_refusals(tiny):
     with pytest.raises(ValueError, match="exceeds max_seq"):
         eng.serve([list(range(250))], 10)
     assert MEGA_KERNEL.plain_calls == calls
-    with pytest.raises(ValueError, match="page_size missing"):
-        Engine(cfg, tparams, device="cpu", max_seq=MAX_SEQ)
     from triton_distributed_tpu_torch.serving import (
         ServingConfigError, ServingEngine,
     )
     with pytest.raises(ServingConfigError, match="no paged cache"):
         ServingEngine(eng)
+    with pytest.raises(ServingConfigError, match="no paged cache"):
+        ServingEngine(Engine(cfg, tparams, device="cpu", max_seq=MAX_SEQ))
     dec = MegakernelDecoder(cfg, tparams, max_seq=MAX_SEQ, device="cpu")
     with pytest.raises(ValueError, match="start"):
         dec.step(torch.zeros(1), torch.tensor([1]), 3)

@@ -101,6 +101,36 @@ def test_moe_and_layer_initialisers_default_to_cuda(monkeypatch):
             make()
 
 
+def test_gemm_fp8_and_default_engine_default_to_cuda(monkeypatch):
+    """The GEMM slice's entry points: the default ``Engine(cfg, params)``
+    (linear cache) resolves ``device=None`` to the card and raises without
+    CUDA; ``pallas_matmul`` and ``fp8_dot`` run where their tensors live —
+    the plain version only on the CPU, another device raises by name, and
+    B3's build raises without the toolkit; the tuner is off without a
+    card."""
+    from triton_distributed_tpu_torch.models.fp8 import fp8_dot
+    from triton_distributed_tpu_torch.ops import gemm
+    from triton_distributed_tpu_torch.runtime import autotuner
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = tiny_config(num_layers=1)
+    params = init_dense_llm(cfg, generator=torch.Generator(), device="cpu")
+    with pytest.raises(RuntimeError, match="is_available"):
+        Engine(cfg, params)
+    assert Engine(cfg, params, device="cpu").page_size is None
+    a, b = torch.ones(4, 8), torch.ones(8, 16)
+    for fn in (gemm.pallas_matmul, fp8_dot):
+        with pytest.raises(ValueError, match="no kernel for device meta"):
+            fn(a.to("meta"), b.to("meta"))
+    monkeypatch.setattr(build, "_nvcc", lambda: (_ for _ in ()).throw(
+        build.KernelBuildError("nvcc not found")))
+    monkeypatch.setattr(gemm.GEMM_KERNEL, "_fn", None)
+    with pytest.raises(build.KernelBuildError):
+        gemm.GEMM_KERNEL._load()
+    assert not autotuner.autotune_enabled()
+    assert autotuner.tuned_matmul_tiles(4, 8, 16, torch.float32) is None
+
+
 def test_cache_and_workspace_constructors_default_to_cuda(monkeypatch):
     """The caches' and the megakernel workspaces' constructors allocate on
     the card unless given a device: with ``device=None`` they used to
@@ -158,10 +188,10 @@ def test_kernel_build_is_lazy_and_keyed_by_source():
     source, so each kernel gets its own file in the git-ignored build
     directory."""
     srcs = build.sources()
-    assert [s.name for s in srcs] == ["flash_attention.cu", "megakernel.cu",
-                                      "paged_attention.cu"]
+    assert [s.name for s in srcs] == ["flash_attention.cu", "gemm.cu",
+                                      "megakernel.cu", "paged_attention.cu"]
     paths = {build.library_path(s) for s in srcs}
-    assert len(paths) == 3
+    assert len(paths) == 4
     assert all(p.parent == build.BUILD_DIR for p in paths)
     gitignore = (ROOT / ".gitignore").read_text().split()
     assert "triton_distributed_tpu_torch/_build/" in gitignore

@@ -1,13 +1,15 @@
-"""Shared layer math: RMSNorm, RoPE, SwiGLU — counterpart of the JAX
-package's ``layers/common.py``. Plain tensor code: on the card these are
-PyTorch's own elementwise kernels, as the JAX package leaves them to XLA."""
+"""Shared layer math: RMSNorm, RoPE, SwiGLU and the plain projection —
+counterpart of the JAX package's ``layers/common.py``. Plain tensor code:
+on the card these are PyTorch's own elementwise kernels, as the JAX
+package leaves them to XLA."""
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import torch
-import torch.nn.functional as F
+
+from triton_distributed_tpu_torch.models.fp8 import E4M3
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float
@@ -42,8 +44,29 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
 
 
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """x * (1 / (1 + exp(-x))), op by op in x's type: the ops
+    ``jax.nn.silu`` lowers to, so bf16 rounds where the reference's does
+    (``F.silu`` and ``x * sigmoid(x)`` round elsewhere and differ from it
+    in about a third of bf16 inputs)."""
+    return x * (1 / (1 + torch.exp(-x)))
+
+
 def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
-    return F.silu(gate) * up
+    return silu(gate) * up
+
+
+def plain_dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w``, the projection when no ``dot_fn`` is given. e4m3 weights
+    are refused by name: torch has no mixed-type matmul, and the port runs
+    a quantized tree only on the linear decode step with
+    ``dot_fn=models.fp8.fp8_dot``."""
+    if w.dtype == E4M3:
+        raise ValueError(
+            "e4m3 weight without dot_fn: a quantize_dense_weights tree "
+            "decodes through dense_decode_step(dot_fn=fp8_dot) only "
+            "(prefill and the paged steps take the model-dtype tree)")
+    return x @ w
 
 
 class KVSlice(NamedTuple):

@@ -2,8 +2,11 @@
 package's ``layers/tp_attn.py`` (its replicated/single-rank branches).
 
 Projections are ``torch.matmul`` on weights kept in the JAX ``(in, out)``
-layout; attention goes through the port's kernels: K1 (flash prefill,
-whole prompt or one chunk at a host-int offset) and K2 (paged decode).
+layout, or a ``dot_fn`` on the decode steps that take one (the fp8 weight
+lane's ``fp8_dot``); attention goes through the port's kernels: K1 (flash
+prefill, whole prompt or one chunk at a host-int offset) and K2 (paged
+decode). The linear-cache decode (:func:`tp_attn_decode`) attends with
+:func:`_sdpa`, plain tensor code as the reference's is plain XLA.
 Multi-rank modes (AG+GEMM, GEMM+RS, fused AllReduce) come with the
 multi-GPU slices.
 
@@ -14,10 +17,12 @@ tensors they are given and return the same cache objects.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from triton_distributed_tpu_torch.layers.common import (
-    KVSlice, apply_rope, rms_norm, rope_cos_sin,
+    KVSlice, apply_rope, plain_dot, rms_norm, rope_cos_sin,
 )
 from triton_distributed_tpu_torch.models.config import ModelConfig
 from triton_distributed_tpu_torch.ops.flash_attention import (
@@ -55,20 +60,43 @@ def init_tp_attn(cfg: ModelConfig, dtype, *, generator: torch.Generator,
 
 
 def _project_qkv(params: dict, cfg: ModelConfig, x: torch.Tensor,
-                 batch: int, seq: int):
-    """x (B·S, h) → q (B,S,hq,d), k/v (B,S,hkv,d) with Qwen3 qk-norm."""
+                 batch: int, seq: int, dot_fn=None):
+    """x (B·S, h) → q (B,S,hq,d), k/v (B,S,hkv,d) with Qwen3 qk-norm;
+    ``dot_fn(x, w)`` replaces each ``x @ w``."""
+    dot = dot_fn or plain_dot
     d = cfg.head_dim
-    q = (x @ params["wq"]).reshape(batch, seq, -1, d)
-    k = (x @ params["wk"]).reshape(batch, seq, -1, d)
-    v = (x @ params["wv"]).reshape(batch, seq, -1, d)
+    q = dot(x, params["wq"]).reshape(batch, seq, -1, d)
+    k = dot(x, params["wk"]).reshape(batch, seq, -1, d)
+    v = dot(x, params["wv"]).reshape(batch, seq, -1, d)
     if cfg.qk_norm:
         q = rms_norm(q, params["q_norm"], cfg.rms_norm_eps)
         k = rms_norm(k, params["k_norm"], cfg.rms_norm_eps)
     return q, k, v
 
 
-def _out_proj(attn: torch.Tensor, params: dict) -> torch.Tensor:
-    return attn @ params["wo"]
+def _out_proj(attn: torch.Tensor, params: dict, dot_fn=None) -> torch.Tensor:
+    return (dot_fn or plain_dot)(attn, params["wo"])
+
+
+def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+          causal: bool, kv_len: int | None = None) -> torch.Tensor:
+    """Grouped-query attention in fp32, plain tensor code (the decode path
+    over a padded linear cache). q: (B, Sq, hq, d); k/v: (B, Skv, hkv, d);
+    ``kv_len`` masks positions >= kv_len (masked logits are -1e30, as the
+    reference's). Returns (B, Sq, hq, d) in q's type."""
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    qf = q.float().reshape(b, sq, hkv, hq // hkv, d)
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.float()) / math.sqrt(d)
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = torch.tril(mask, diagonal=skv - sq)
+    if kv_len is not None:
+        mask = mask & (torch.arange(skv, device=q.device) < kv_len)[None, :]
+    logits = torch.where(mask, logits, torch.full_like(logits, -1e30))
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.float())
+    return out.reshape(b, sq, hq, d).to(q.dtype)
 
 
 def tp_attn_prefill(params: dict, cfg: ModelConfig, x: torch.Tensor,
@@ -112,6 +140,29 @@ def tp_attn_prefill_chunk(params: dict, cfg: ModelConfig, x: torch.Tensor,
         q_offset=start, k_offset=0, causal=True)           # K1, partial
     attn = (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
     return _out_proj(attn.reshape(batch * chunk_len, -1), params), kv_slice
+
+
+def tp_attn_decode(params: dict, cfg: ModelConfig, x: torch.Tensor,
+                   kv_slice: KVSlice, pos: int, *, dot_fn=None):
+    """One-token decode over a linear cache at the host position ``pos``
+    (every sequence of the batch at the same length). Writes this token's
+    K/V at ``pos`` in place (the reference's ``dynamic_update_slice``),
+    then attends positions [0, pos] with :func:`_sdpa`; ``dot_fn``
+    replaces the projections. Returns (out (B, h), the slice)."""
+    if not 0 <= pos < kv_slice.k.shape[1]:
+        raise ValueError(f"decode position {pos} outside the linear cache "
+                         f"of {kv_slice.k.shape[1]} positions")
+    batch = x.shape[0]
+    q, k, v = _project_qkv(params, cfg, x, batch, 1, dot_fn)
+    cos, sin = rope_cos_sin(torch.tensor([pos], device=x.device),
+                            cfg.head_dim, cfg.rope_theta)
+    q = apply_rope(q, cos[None], sin[None])
+    k = apply_rope(k, cos[None], sin[None])
+    kv_slice.k[:, pos:pos + 1] = k.to(kv_slice.k.dtype)
+    kv_slice.v[:, pos:pos + 1] = v.to(kv_slice.v.dtype)
+    attn = _sdpa(q, kv_slice.k.to(q.dtype), kv_slice.v.to(q.dtype),
+                 causal=False, kv_len=pos + 1)
+    return _out_proj(attn.reshape(batch, -1), params, dot_fn), kv_slice
 
 
 def tp_attn_decode_paged(params: dict, cfg: ModelConfig, x: torch.Tensor,

@@ -1,10 +1,16 @@
 """Inference engine on one device — counterpart of the JAX package's
 ``models/engine.py`` at tensor-parallel degree 1.
 
-Eager PyTorch: prefill writes a linear cache, :meth:`Engine.to_paged`
-mirrors it into the paged layout, and each decode step runs
-``dense_decode_step_paged`` (K2) followed by the greedy token, all on the
-device — the host syncs once, when :meth:`Engine.serve` returns.
+Eager PyTorch: prefill writes a linear cache (``prefill_fn``, default
+``dense_prefill``). With the reference's defaults (``backend="auto"``,
+``page_size=None``) each decode step runs ``decode_fn`` (default
+``dense_decode_step``) over that linear cache; with a ``page_size``,
+:meth:`Engine.to_paged` mirrors the cache into the paged layout and each
+step runs ``dense_decode_step_paged`` (K2). The greedy token follows on
+the device — the host syncs once, when :meth:`Engine.serve` returns.
+Callers that pass ``page_size`` and ``backend`` keep the behaviour they
+had before ``"auto"`` became the default: ``"auto"`` and ``"xla"`` are
+the same eager path at one rank.
 
 ``kv_dtype`` sets the paged pools' storage type: ``torch.float8_e4m3fn``
 (or ``"float8_e4m3fn"``) halves the KV page, K2 reads it through its
@@ -13,10 +19,11 @@ linear→paged hand-off (:meth:`Engine.to_paged`, and the serving loop's
 prefill scatter) is the quantization point, through the saturating
 ``models/fp8.saturate_cast``.
 
-``backend`` picks the decode path: ``"xla"`` (the default; the name the
-JAX package gives its plain path) is the eager step above.
-``"megakernel"`` decodes through the persistent kernel: with a
-``page_size`` the engine serves the serving tier's paged lane
+``backend`` picks the decode path: ``"auto"`` (the default) and
+``"xla"`` (the name the JAX package gives its plain path) are the eager
+steps above; ``"overlap"`` (the reference's overlapped multi-rank path)
+is refused by name. ``"megakernel"`` decodes through the persistent
+kernel: with a ``page_size`` the engine serves the serving tier's paged lane
 (``ServingEngine`` decodes through ``megakernel/serving.py``); without
 one, :meth:`Engine.serve` runs the sequential batch-1 loop over the
 linear-workspace ``MegakernelDecoder`` — prefill as above, then one
@@ -40,7 +47,7 @@ from triton_distributed_tpu_torch.megakernel.kernel import (
 from triton_distributed_tpu_torch.models import sampling
 from triton_distributed_tpu_torch.models.config import ModelConfig
 from triton_distributed_tpu_torch.models.dense import (
-    dense_decode_step_paged, dense_prefill,
+    dense_decode_step, dense_decode_step_paged, dense_prefill,
 )
 from triton_distributed_tpu_torch.models.fp8 import E4M3, saturate_cast
 from triton_distributed_tpu_torch.models.kv_cache import (
@@ -60,23 +67,30 @@ def _to_device(tree, device):
 
 
 class Engine:
-    """Serve a dense LLM on one device with a paged decode cache.
+    """Serve a dense LLM on one device.
 
     ``device=None`` means the card and raises without CUDA; pass
     ``device="cpu"`` for the CPU (the kernels' plain versions run there).
     ``params`` (from ``init_dense_llm`` or ``params_from_numpy``) are
-    moved to ``device`` if they live elsewhere. ``backend``: ``"xla"`` or
-    ``"megakernel"``; ``kv_dtype``: the paged pools' type (see the module
-    docstring). The eager path decodes through the paged cache only, so
-    ``page_size`` is required there; ``backend="megakernel"`` takes
-    ``page_size=None`` for the sequential serve on the linear
-    workspace."""
+    moved to ``device`` if they live elsewhere. ``backend``: ``"auto"``,
+    ``"xla"`` or ``"megakernel"``; ``page_size``: None decodes through the
+    linear cache, a size through the paged one; ``kv_dtype``: the paged
+    pools' type (see the module docstring). ``prefill_fn(params, cfg,
+    ids, cache)`` and ``decode_fn(params, cfg, tokens, cache)`` replace the
+    dense forward (the paged lane keeps ``dense_decode_step_paged`` unless
+    ``decode_fn`` is given)."""
 
-    BACKENDS = ("xla", "megakernel")
+    BACKENDS = ("auto", "xla", "megakernel")
 
     def __init__(self, cfg: ModelConfig, params: dict, *, device=None,
                  max_seq: int = 256, page_size: int | None = None,
-                 backend: str = "xla", kv_dtype=None):
+                 backend: str = "auto", kv_dtype=None,
+                 prefill_fn=dense_prefill, decode_fn=dense_decode_step):
+        if backend == "overlap":
+            raise ValueError(
+                "backend = 'overlap' is not ported: the overlapped AG+GEMM "
+                "/ GEMM+RS path needs the multi-GPU runtime — argument "
+                "backend")
         if backend not in self.BACKENDS:
             raise ValueError(f"backend = {backend!r} unknown: expected one "
                              f"of {self.BACKENDS} — argument backend")
@@ -86,12 +100,6 @@ class Engine:
                     "kv_dtype without page_size: the KV storage dtype is a "
                     "property of the PAGED pool (decode serving); linear "
                     "caches stay in the model dtype — pass page_size too")
-            if backend != "megakernel":
-                raise ValueError(
-                    "page_size missing: the eager path decodes through "
-                    "the paged cache only (backend='megakernel' serves "
-                    "sequentially on its linear workspace without one) — "
-                    "argument page_size")
         elif page_size < 1:
             raise ValueError(f"page_size = {page_size} invalid: a page holds "
                              "at least one position — argument page_size")
@@ -108,6 +116,10 @@ class Engine:
         self.max_pages = (None if page_size is None
                           else -(-max_seq // page_size))
         self.params = _to_device(params, self.device)
+        self._prefill_fn = prefill_fn
+        self._decode_fn = (dense_decode_step_paged
+                           if page_size is not None
+                           and decode_fn is dense_decode_step else decode_fn)
         self._mk = None       # the sequential serve's cached decoder
 
     def new_cache(self, batch: int) -> KVCache:
@@ -145,8 +157,8 @@ class Engine:
         if seq > self.max_seq:
             raise ValueError(f"prompt {seq} exceeds max_seq {self.max_seq}")
         cache = cache if cache is not None else self.new_cache(batch)
-        return dense_prefill(self.params, self.cfg,
-                             input_ids.to(self.device), cache)
+        return self._prefill_fn(self.params, self.cfg,
+                                input_ids.to(self.device), cache)
 
     def _check_eager(self) -> None:
         if self.backend == "megakernel":
@@ -157,22 +169,24 @@ class Engine:
                 "backend='xla' for the eager step")
 
     def decode(self, tokens: torch.Tensor, cache):
-        """tokens: (B,). ``cache``: a PagedModelCache, or the linear cache
-        from :meth:`prefill` (converted on first use). Returns
-        (next_tokens (B,) int32, cache). The eager step only: refused by
-        name on ``backend="megakernel"``."""
+        """tokens: (B,). ``cache``: the linear cache from :meth:`prefill`
+        (without a ``page_size``), or a PagedModelCache (with one; a
+        linear cache is converted on first use). Returns (next_tokens (B,)
+        int32, cache). The eager step only: refused by name on
+        ``backend="megakernel"``."""
         self._check_eager()
-        if isinstance(cache, KVCache):
+        if self.page_size is not None and isinstance(cache, KVCache):
             cache = self.to_paged(cache)
-        logits, cache = dense_decode_step_paged(
-            self.params, self.cfg, tokens.to(self.device), cache)
+        logits, cache = self._decode_fn(self.params, self.cfg,
+                                        tokens.to(self.device), cache)
         return sampling.greedy(logits), cache
 
     def serve(self, input_ids, gen_len: int) -> torch.Tensor:
         """Greedy generation: (B, S) prompt ids → (B, gen_len) int32 token
         ids on the device. The first token comes from the prefill logits;
-        the rest from the eager paged step, or (``backend="megakernel"``,
-        batch 1) from one megakernel launch each."""
+        the rest from the eager step (linear or paged), or
+        (``backend="megakernel"``, batch 1) from one megakernel launch
+        each."""
         if not isinstance(input_ids, torch.Tensor):
             input_ids = torch.as_tensor(np.asarray(input_ids))
         if self.backend == "megakernel" and self.page_size is not None:
@@ -185,15 +199,23 @@ class Engine:
                 "page_size=None for Engine.serve, or use "
                 "ServingEngine(backend='megakernel') for the paged "
                 "persistent-kernel lane")
+        if (self.page_size is None and self.backend != "megakernel"
+                and input_ids.shape[1] + gen_len - 1 > self.max_seq):
+            raise ValueError(
+                f"prompt ({input_ids.shape[1]}) + gen_len ({gen_len}) "
+                f"exceeds max_seq {self.max_seq} of the linear cache")
         logits, cache = self.prefill(input_ids.to(self.device))
         tok = sampling.greedy(logits)
         if self.backend == "megakernel":
             return self._serve_megakernel(tok, cache, gen_len)
-        cache = self.to_paged(cache)
+        if self.page_size is not None:
+            cache = self.to_paged(cache)
         outs = [tok]
         for _ in range(gen_len - 1):
             tok, cache = self.decode(tok, cache)
             outs.append(tok)
+        if self.page_size is None:
+            return torch.stack(outs, dim=1)
         saturated = cache.saturated.cpu().numpy()
         if saturated.any():
             warnings.warn(

@@ -1,6 +1,8 @@
 """Token sampling and speculative acceptance — counterpart of the JAX
-package's ``models/sampling.py`` (greedy and ``accept_longest_prefix``;
-temperature sampling is not ported)."""
+package's ``models/sampling.py``: greedy, temperature / top-k
+:func:`sample` on an explicit ``torch.Generator`` (its draws differ from
+``jax.random``'s; the distribution is the same), and
+``accept_longest_prefix``."""
 
 from __future__ import annotations
 
@@ -34,3 +36,22 @@ def accept_longest_prefix(draft, verified) -> np.ndarray:
     while m < d.size and d[m] == v[m]:
         m += 1
     return v[:m + 1].astype(np.int32, copy=False)
+
+
+def sample(logits: torch.Tensor, generator: torch.Generator | None = None,
+           temperature: float = 1.0, top_k: int | None = None
+           ) -> torch.Tensor:
+    """Temperature / top-k sampling. (B, vocab) → (B,) int32. Greedy at
+    ``temperature <= 0``; otherwise a categorical draw from
+    softmax(logits / temperature) over the ``top_k`` largest logits (all
+    when None), by the Gumbel-max trick as ``jax.random.categorical``,
+    with uniforms from ``generator`` (on the logits' device)."""
+    if temperature <= 0.0:
+        return greedy(logits)
+    logits = logits.float() / temperature
+    if top_k is not None and top_k > 0:
+        kth = torch.sort(logits, dim=-1).values[:, -top_k][:, None]
+        logits = torch.where(logits < kth, float("-inf"), logits)
+    u = torch.rand(logits.shape, generator=generator, device=logits.device)
+    gumbel = -torch.log(-torch.log(u.clamp(min=torch.finfo(u.dtype).tiny)))
+    return torch.argmax(logits + gumbel, dim=-1).to(torch.int32)

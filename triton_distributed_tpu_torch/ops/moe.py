@@ -14,27 +14,30 @@ before its reduce-scatter. So this module is plain tensor code:
   cross to the host once per MoE layer (``moe_tp_fwd_local`` reads them
   and passes the list down), so the eager lane pays one host sync per
   MoE layer and step. A hand-written grouped GEMM is later work;
-- the combine: each token's ``topk`` weighted rows summed in slot order.
-  (``jax.ops.segment_sum`` over the sorted rows; ``index_add_`` on the
-  card would add them with atomics in a run-dependent order, so the port
-  gathers the rows back to token-major order and sums them.)
+- the combine: each token's ``topk`` weighted rows added one at a time
+  in expert-sorted order, each add rounded to the working type, as
+  ``jax.ops.segment_sum`` adds them (so bf16 matches the reference's
+  rounding; ``index_add_`` on the card would add them with atomics in a
+  run-dependent order).
 
-Not ported: the multi-rank modes (AG + grouped GEMM, the ring pipeline,
-the reduce-scatter combine) and the e4m3 expert stacks of the fp8 weight
-lane — both raise :class:`MoeUnsupportedError`.
+e4m3 expert stacks (the fp8 weight lane) run each group's product on
+kernel B3's e4m3 lane (:func:`ragged_dot_dtype_aware`). Not ported: the
+multi-rank modes (AG + grouped GEMM, the ring pipeline, the
+reduce-scatter combine), which raise :class:`MoeUnsupportedError`.
 """
 
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
-from triton_distributed_tpu_torch.models.fp8 import E4M3
+from triton_distributed_tpu_torch.layers.common import swiglu
+from triton_distributed_tpu_torch.models.fp8 import E4M3, to_e4m3
+from triton_distributed_tpu_torch.ops.gemm import pallas_matmul
 
 
 class MoeUnsupportedError(NotImplementedError):
-    """A MoE configuration the port has not ported: more than one rank, a
-    multi-rank mode, or e4m3 expert stacks. Raised by name."""
+    """A MoE configuration the port has not ported: more than one rank or
+    a multi-rank mode. Raised by name."""
 
 
 def sort_by_expert(expert_ids: torch.Tensor, num_experts: int):
@@ -58,17 +61,24 @@ def ragged_dot_dtype_aware(x: torch.Tensor, w: torch.Tensor,
     ``group_sizes[g]`` rows after the earlier groups) times ``w[g]``.
     x: (T, k); w: (E, k, n); ``group_sizes``: a tensor, or the host list
     of the sizes (no sync). Empty groups are skipped. Returns (T, n) in
-    the activations' type. e4m3 expert stacks raise."""
-    if w.dtype == E4M3:
-        raise MoeUnsupportedError(
-            "e4m3 expert stacks (the fp8 weight lane's pure-fp8 grouped "
-            "product) are not ported — serve the model's dtype")
+    the activations' type (fp32 for e4m3 activations).
+
+    e4m3 expert stacks (``quantize_dense_weights``) run the pure fp8
+    product, as ``fp8_dot``: the activation quantized through ``to_e4m3``,
+    then e4m3 x e4m3 into fp32 — one B3 launch per non-empty group on the
+    card. The mixed bf16 x e4m3 form is never run."""
     sizes = _host_sizes(group_sizes)
-    out = x.new_empty((x.shape[0], w.shape[-1]))
+    fp8 = w.dtype == E4M3
+    out_dt = torch.float32 if x.dtype == E4M3 else x.dtype
+    xq = to_e4m3(x) if fp8 else x
+    out = x.new_empty((x.shape[0], w.shape[-1]), dtype=out_dt)
     start = 0
     for g, n in enumerate(sizes):
         if n:
-            out[start:start + n] = x[start:start + n] @ w[g]
+            rows = xq[start:start + n]
+            out[start:start + n] = (
+                pallas_matmul(rows, w[g], out_dtype=torch.float32)
+                if fp8 else rows @ w[g])
         start += n
     return out
 
@@ -79,7 +89,7 @@ def grouped_mlp_gate_up(x_sorted: torch.Tensor, group_sizes,
     """silu(x @ w_gate[g]) * (x @ w_up[g]) per group, in x's type."""
     gate = ragged_dot_dtype_aware(x_sorted, w_gate, group_sizes)
     up = ragged_dot_dtype_aware(x_sorted, w_up, group_sizes)
-    return (F.silu(gate) * up).to(x_sorted.dtype)
+    return swiglu(gate, up).to(x_sorted.dtype)
 
 
 def grouped_mlp(x_sorted: torch.Tensor, group_sizes, w_gate: torch.Tensor,
@@ -119,10 +129,15 @@ def moe_reduce_rs_local(y_sorted: torch.Tensor, sort_idx: torch.Tensor,
     topk = sort_idx.shape[0] // num_tokens
     partial = ragged_dot_dtype_aware(y_sorted, w_down, group_sizes)
     partial = partial * topk_weights.reshape(-1)[sort_idx][:, None]
-    # Flat slot f = token·topk + k sits at sorted position inv[f].
+    # Flat slot f = token·topk + k sits at sorted position inv[f]. Each
+    # token's rows are added one at a time in sorted order, each add
+    # rounded to the working type, as jax.ops.segment_sum adds them.
     inv = torch.empty_like(sort_idx)
     inv[sort_idx] = torch.arange(sort_idx.shape[0], device=sort_idx.device)
-    combined = partial[inv].reshape(num_tokens, topk, -1).sum(dim=1)
+    rows = partial[torch.sort(inv.reshape(num_tokens, topk), dim=1).values]
+    combined = rows[:, 0]
+    for j in range(1, topk):
+        combined = combined + rows[:, j]
     return combined.to(y_sorted.dtype)
 
 

@@ -1,0 +1,125 @@
+"""Analytic GEMM model — the GEMM half of the JAX package's
+``runtime/perf_model.py``, re-derived for the H100.
+
+A roofline: ``max(flops / peak, bytes / HBM rate)``, with the operand dims
+quantized up to the tensor cores' tile and the peak taken for the operand
+type (the H100 runs fp8 at twice bf16's rate and fp32 outside the tensor
+cores at a fifteenth of it). It ranks kernel B3's tile candidates for the
+contextual autotuner (:func:`rank_gemm_tiles`) so only the top few are
+measured. The communication models of the reference wait for the
+multi-GPU runtime.
+
+The constants are published peaks (NVIDIA's H100 SXM data sheet, dense,
+at the 700 W power limit); the model ranks, so ±20% error in them is
+harmless.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+import math
+
+from triton_distributed_tpu_torch.runtime.utils import round_up
+
+
+@dataclasses.dataclass(frozen=True)
+class ChipSpec:
+    """Roofline parameters of one card."""
+
+    name: str
+    bf16_tflops: float       # dense tensor-core peak
+    fp8_tflops: float
+    fp32_tflops: float       # CUDA cores (FMA), no TF32
+    hbm_gbps: float          # device memory, GB/s
+    smem_bytes: int          # shared memory one block can use
+    sm_count: int
+    # Rows and columns of the tensor cores' tile (wgmma's M): a (65, k)
+    # product pays for (128, k) in the model.
+    tc_tile: int = 64
+    # Sustained share of the peak a well-tiled GEMM reaches; ranking only
+    # needs it to be the same for every tile.
+    gemm_efficiency: float = 0.6
+
+    def peak_tflops(self, itemsize: int) -> float:
+        """The peak for an operand type of ``itemsize`` bytes."""
+        return {1: self.fp8_tflops, 2: self.bf16_tflops}.get(
+            itemsize, self.fp32_tflops)
+
+
+# Peak rates and sizes from the H100 SXM data sheet.
+_SPECS = {
+    "h100": ChipSpec("h100", 989.0, 1979.0, 67.0, 3350.0, 232448, 132),
+}
+
+# CPU fallback: arbitrary but self-consistent, so ranking logic and the
+# tests behave; never used on the card.
+_FALLBACK = ChipSpec("generic", 100.0, 200.0, 10.0, 800.0, 48 << 10, 16)
+
+
+def chip_spec(kind: str | None = None) -> ChipSpec:
+    """Spec for a device name (default: ``torch.cuda.get_device_name()``,
+    or ``"cpu"`` without CUDA)."""
+    if kind is None:
+        kind = _default_device_kind()
+    k = kind.lower()
+    for tag, spec in sorted(_SPECS.items(), key=lambda kv: -len(kv[0])):
+        if tag in k:
+            return spec
+    return _FALLBACK
+
+
+@functools.lru_cache(maxsize=1)
+def _default_device_kind() -> str:
+    import torch
+
+    if torch.cuda.is_available():
+        return torch.cuda.get_device_name()
+    return "cpu"
+
+
+def gemm_time_s(m: int, n: int, k: int, itemsize: int,
+                spec: ChipSpec | None = None) -> float:
+    """Roofline time of an (m, k) @ (k, n) product: tile-quantized compute
+    at the type's peak vs each operand and the output moved once."""
+    spec = spec or chip_spec()
+    mq, nq, kq = (round_up(max(int(d), 1), spec.tc_tile) for d in (m, n, k))
+    flops = 2.0 * mq * nq * kq
+    t_compute = flops / (spec.peak_tflops(itemsize) * 1e12
+                         * spec.gemm_efficiency)
+    bytes_moved = (m * k + k * n + m * n) * itemsize
+    t_memory = bytes_moved / (spec.hbm_gbps * 1e9)
+    return max(t_compute, t_memory)
+
+
+def gemm_tflops(m: int, n: int, k: int, itemsize: int,
+                spec: ChipSpec | None = None) -> float:
+    """Achievable TFLOP/s for the (m, n, k) problem under the model."""
+    return 2.0 * m * n * k / gemm_time_s(m, n, k, itemsize, spec) / 1e12
+
+
+def rank_gemm_tiles(candidates, m: int, n: int, k: int, itemsize: int,
+                    spec: ChipSpec | None = None, top: int | None = None):
+    """Rank (tile_m, tile_n, tile_k) configs by modeled time, best first.
+
+    Each tile is charged its padding waste (ragged edges run whole tiles)
+    and the traffic of re-reading B for every row of tiles and A for every
+    column of tiles. The two terms are summed, not maxed: with the max
+    every tile under the compute roof ties and the ranking degenerates to
+    list order. A tile that fills fewer blocks than the card has SMs is
+    charged for the idle SMs."""
+    spec = spec or chip_spec()
+
+    def score(cfg) -> float:
+        tm, tn, tk = cfg
+        n_m, n_n, n_k = math.ceil(m / tm), math.ceil(n / tn), math.ceil(k / tk)
+        flops = 2.0 * (n_m * tm) * (n_n * tn) * (n_k * tk)
+        fill = min(1.0, n_m * n_n / spec.sm_count)
+        t_compute = flops / (spec.peak_tflops(itemsize) * 1e12
+                             * spec.gemm_efficiency * fill)
+        bytes_moved = (n_m * k * n + n_n * m * k + m * n) * itemsize
+        t_memory = bytes_moved / (spec.hbm_gbps * 1e9 * fill)
+        return t_compute + t_memory
+
+    ranked = sorted(candidates, key=score)
+    return ranked[:top] if top else ranked
