@@ -695,8 +695,8 @@ def test_linear_serve_refusals(tiny):
     """What the port refuses by name on the sequential megakernel path:
     a page_size with Engine.serve, Engine.decode, a batch of 2, a prompt
     that cannot fit, pos >= max_seq, a cache of another max_seq,
-    num_ranks > 1, profile=True; and the serving tier refuses an engine
-    without a paged cache."""
+    num_ranks > 1; and the serving tier refuses an engine without a paged
+    cache. profile=True builds (the stamp is ported)."""
     _, _, cfg, tparams = tiny
     eng = Engine(cfg, tparams, device="cpu", backend="megakernel",
                  max_seq=MAX_SEQ, page_size=128)
@@ -730,26 +730,30 @@ def test_linear_serve_refusals(tiny):
     with pytest.raises(MegakernelUnsupportedError, match="num_ranks"):
         MegakernelDecoder(cfg, tparams, max_seq=MAX_SEQ, device="cpu",
                           num_ranks=2)
-    with pytest.raises(MegakernelUnsupportedError, match="profile"):
-        MegakernelDecoder(cfg, tparams, max_seq=MAX_SEQ, device="cpu",
-                          profile=True)
+    assert MegakernelDecoder(cfg, tparams, max_seq=MAX_SEQ, device="cpu",
+                             profile=True).profile
     with pytest.raises(ValueError, match="TILE multiple"):
         MegakernelDecoder(cfg, tparams, max_seq=100, device="cpu")
 
 
 def test_builder_refusals():
-    """PREFETCH / PREFETCH_W8 stay refused by name (no decode program
-    emits them), at the builder and in a hand-made queue, like the other
-    unported types; fp8 handles are GEMM B operands only."""
+    """The builder's one-outstanding-warm rules (a second PREFETCH before
+    the first is consumed, a consumer whose first weight tile is not the
+    warmed one, a warm never consumed) and the multi-rank types in a
+    hand-made queue are refused by name; fp8 handles are GEMM B operands
+    only."""
     mb = MegaKernelBuilder()
     a, o = mb.tensor(TILE, TILE), mb.tensor(TILE, TILE)
     w8 = mb.tensor(TILE, TILE, fp8=True)
-    with pytest.raises(MegakernelUnsupportedError, match="PREFETCH"):
-        mb.prefetch(w8.tile(0, 0))
-    with pytest.raises(MegakernelUnsupportedError, match="PREFETCH_W8"):
-        mb.prefetch(w8.tile(0, 0), fp8=True)
-    with pytest.raises(MegakernelUnsupportedError, match="PREFETCH"):
+    with pytest.raises(ValueError, match="pending prefetch None"):
         mb.gemm(o, a, w8, prefetch_first=True)
+    mb.prefetch(w8.tile(0, 0))
+    with pytest.raises(ValueError, match="not yet consumed"):
+        mb.prefetch(w8.tile(0, 0), fp8=True)
+    with pytest.raises(ValueError, match="does not match"):
+        mb.gemm(o, a, w8, prefetch_first=True)     # warmed unfp8
+    with pytest.raises(ValueError, match="never consumed"):
+        mb.compile()
     for bad in (lambda: mb.add(o, a, w8), lambda: mb.copy(w8, a),
                 lambda: mb.norm_rope(o, w8, a, a, a),
                 lambda: mb.add_norm(o, a, a, w8, o),
@@ -760,8 +764,7 @@ def test_builder_refusals():
         mb.gemm(w8, a, w8)
     with pytest.raises(ValueError, match="distinct"):
         mb.tensor(TILE, TILE, fp8=True, kv8=True)
-    for tt in (TaskType.PREFETCH, TaskType.PREFETCH_W8, TaskType.ALLREDUCE,
-               TaskType.ALLREDUCE_ROW):
+    for tt in (TaskType.ALLREDUCE, TaskType.ALLREDUCE_ROW):
         mb2 = MegaKernelBuilder()
         t = mb2.tensor(TILE, TILE)
         mb2._emit(Task(tt, t.tile(0, 0), a0=t.tile(0, 0)), [], [])
@@ -787,6 +790,8 @@ def test_kernel_instantiation_follows_the_queue_types():
     assert len(paged.queue) > paged.num_exec
     assert not _full_kernel(paged.queue, paged.num_exec)
     assert _kernel_body(paged.queue, paged.num_exec) == 0
+    # Only the full bodies carry the profile stamp.
+    assert _kernel_body(paged.queue, paged.num_exec, profile=True) == 1
     for fp8 in (False, True):
         _, tc = _both(TINY, MAX_SEQ, fp8, False)
         assert _full_kernel(tc.queue, tc.num_exec)

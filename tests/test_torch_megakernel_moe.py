@@ -413,26 +413,28 @@ def test_moe_ffn_task_vs_jax(dtype):
 # ---------------------------------------------------------------------------
 
 def test_moe_refusals():
-    """A MoE batch above the live rows (both interpreters, and a launch
-    with fewer live rows than the batch), the MoE forms the port does not
-    build, and the config checks, all by name."""
+    """A MOE_TOPK batch past one logits tile (both interpreters), a launch
+    with fewer live rows than the batch, and the config checks, all by
+    name. A batch past the kernel's 4-row groups and the paged and e4m3
+    weight-tile MoE forms build (the JAX assembly's)."""
     kw = dict(TINY, pos=S - 1, inkernel_append=False, mat_prefetch=False)
-    prog = build_decode_step(batch=MAX_LIVE_ROWS + 1, **kw)
+    prog = build_decode_step(batch=MAX_LIVE_ROWS, **kw)
     tc = prog.mb.compile()
     ws = torch.zeros((tc.num_tiles + tc._strip_pad, TILE, TILE))
     wsm = torch.zeros((tc.num_mrows, 1024))
-    with pytest.raises(MegakernelUnsupportedError, match="MoE batch"):
-        tc.step(ws, wsm=wsm)
+    q = tc.queue.copy()
+    q[np.flatnonzero(q[:tc.num_exec, 0] == int(TaskType.MOE_TOPK)), 9] = \
+        MAX_LIVE_ROWS + 1
+    with pytest.raises(MegakernelUnsupportedError, match="MOE_TOPK"):
+        tc.step(ws, q, wsm=wsm)
     tc4 = build_decode_step(batch=4, **kw).mb.compile()
     with pytest.raises(MegakernelUnsupportedError, match="live_rows"):
         mk.cuda_launcher(tc4.queue, ws, wsm, num_exec=tc4.num_exec,
                          mat_specs=tc4.mat_specs, head_dim=TILE,
                          sync_before=tc4.sync_before, live_rows=2)
-    with pytest.raises(MegakernelUnsupportedError, match="not ported"):
-        build_decode_step(batch=1, kv_pool_pages=3, table_pages=2,
-                          **dict(TINY, pos=S - 1))
-    with pytest.raises(MegakernelUnsupportedError, match="not ported"):
-        build_decode_step(batch=1, fp8_weights=True, **dict(TINY, pos=S - 1))
+    build_decode_step(batch=1, kv_pool_pages=3, table_pages=2,
+                      **dict(TINY, pos=S - 1))
+    build_decode_step(batch=1, fp8_weights=True, **dict(TINY, pos=S - 1))
     with pytest.raises(ValueError, match="num_experts"):
         build_decode_step(batch=TILE + 1, **kw)
     with pytest.raises(ValueError, match="moe_topk"):

@@ -53,6 +53,19 @@ def test_port_imports_no_jax(path):
     assert _violations(path) == []
 
 
+def test_scan_covers_every_subpackage():
+    """The no-JAX scan reaches every subpackage of the port, the host
+    tools (``obs``, ``analysis``) included, and ``chip_smoke.py``."""
+    pkg = ROOT / "triton_distributed_tpu_torch"
+    subs = {p.parent.name for p in PORT_FILES if p.parent != pkg}
+    assert {"obs", "analysis", "megakernel", "runtime", "serving", "ops",
+            "models", "layers"} <= subs
+    for mod in ("obs/kernel_profile.py", "analysis/mklint.py",
+                "analysis/checker.py"):
+        assert pkg / mod in PORT_FILES
+    assert ROOT / "chip_smoke.py" in PORT_FILES
+
+
 def test_import_guard_catches_a_violation(tmp_path):
     f = tmp_path / "bad.py"
     f.write_text("import jax.numpy as jnp\nimport triton\n"

@@ -309,9 +309,9 @@ def test_spec_serving_megakernel_lane(kv, ctx1):
 
 
 def test_megakernel_lane_refuses_wide_windows():
-    """The kernel computes at most 4 rows per slot block: spec_k > 3 on
-    the megakernel lane is a named error, as is a program window past
-    the JAX builder's range."""
+    """A window rides the 128 rows of one slot block: spec_k >= 128 on the
+    megakernel lane is a named error, as is a program window past the JAX
+    builder's range; windows past the kernel's 4-row groups build."""
     cfg = ModelConfig(**dict(MK, num_layers=1))
     params = params_from_numpy(
         jax.tree.map(np.asarray, jinit(jax.random.PRNGKey(1),
@@ -319,11 +319,13 @@ def test_megakernel_lane_refuses_wide_windows():
         cfg, device="cpu")
     eng = Engine(cfg, params, device="cpu", backend="megakernel",
                  max_seq=256, page_size=128)
-    with pytest.raises(MegakernelUnsupportedError, match="spec_k <= 3"):
-        ServingEngine(eng, max_batch=1, prefill_chunk=128, spec_k=4)
+    with pytest.raises(MegakernelUnsupportedError, match="spec_k <= 127"):
+        ServingEngine(eng, max_batch=1, prefill_chunk=128, spec_k=128)
     with pytest.raises(MegakernelUnsupportedError, match="spec_window"):
         PagedMegakernelDecoder(cfg, params, num_slots=1, num_pages=2,
-                               max_pages=2, device="cpu", spec_window=5)
+                               max_pages=2, device="cpu", spec_window=129)
+    assert ServingEngine(eng, max_batch=1, prefill_chunk=128,
+                         spec_k=4)._mk.spec_w == 5
     with pytest.raises(ValueError, match="out of range"):
         build_decode_step(hidden=256, hq_local=2, hkv_local=1, ffn_local=256,
                           num_layers=1, max_seq=256, pos=255, batch=128,

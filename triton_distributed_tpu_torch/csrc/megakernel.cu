@@ -13,10 +13,20 @@
 // tile weight layout, GEMM_WIDE (12) / GEMM_WIDE_W8 (15: B tiles in the
 // e4m3 weight workspace), NORM_ROPE (13), ADD_NORM (20) and the row-wise
 // COPY, ADD, SILU_MUL, SCALE (0, 1, 2, 5). The Qwen3-MoE decode programs
-// add MOE_TOPK (17) and MOE_FFN (18). Any other type traps: a row
-// must never silently do nothing (megakernel/kernel.py checks the
-// program's types before launch and raises, so the trap marks a queue that
-// bypassed that check).
+// add MOE_TOPK (17) and MOE_FFN (18). PREFETCH (10) and PREFETCH_W8 (16)
+// warm one weight tile (main workspace, or e4m3 weight workspace) into L2
+// for the next GEMM_WIDE(_W8) with c0 == 1, which reads it as usual: the
+// TPU's warm lands in a reserved VMEM slot that the strip fetch re-reads
+// anyway (kernel.py:268-280), so here as there the warm changes no value.
+// Any other type traps: a row must never silently do nothing
+// (megakernel/kernel.py checks the program's types before launch and
+// raises, so the trap marks a queue that bypassed that check).
+//
+// Profile stamp (kernel.py:1356 _stamp_profile): with a non-null `prof`
+// (int32, num_exec x 128, filled with -1 by the host), block 0 writes row t
+// = [t, queue row t's 10 words] when it begins task t — the dispatch
+// record, no durations (the TPU kernel stamps none either). Only the PROF
+// instantiations of the full bodies carry it (see mega_kernel).
 //
 // GEMM_WIDE's item loop is a separate function (__noinline__): it gets its
 // own register allocation, so its pressure cannot spill the other handlers'
@@ -40,9 +50,19 @@
 //
 // Rows. Every handler is row-independent. One-token decode carries a token
 // in row 0 of each 128-row slot block; speculative decode carries the
-// W = spec_k + 1 candidates in rows 0..W-1. The kernel computes rows
-// [0, live_rows) of each block (live_rows = W <= MAX_LIVE) and leaves the
-// rest untouched.
+// W = spec_k + 1 candidates in rows 0..W-1; a MoE or linear batch its B
+// tokens in rows 0..B-1. The kernel computes rows [0, live_rows) of each
+// block (1 <= live_rows <= TILE) and leaves the rest untouched. A
+// row-blocked program (batch > TILE: one task row per 128-row block) takes
+// ONE count for all its blocks, the largest (TILE): a block with fewer
+// real rows computes its padding rows too, as run_queue_plain does.
+// Registers and shared memory hold sums for ROW_GROUP = 4 rows: each GEMM
+// and MOE_FFN item loops over groups of 4 live rows inside the item, so
+// the item's weight chunk is fetched from HBM once and re-read by the next
+// group from L1 or L2 (the blocks' chunks in flight stay far below L2's
+// 50 MB). At live_rows <= 4 there is one group and every sum keeps its
+// order. The attention fold scores the fresh window rows in shared memory
+// (one thread per row), then takes the max and the sum in row order.
 //
 // Rounding follows the TPU kernel: fp32 compute from the stored workspace
 // values, each task rounds only its stored outputs to the workspace type
@@ -99,7 +119,8 @@ constexpr int WORDS = 10;
 constexpr int MAT_COLS = 1024;
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
-constexpr int MAX_LIVE = 4;      // live rows per block the kernel computes
+constexpr int MAX_LIVE = TILE;   // live rows per block the kernel computes
+constexpr int ROW_GROUP = 4;     // rows whose sums a GEMM item holds at once
 constexpr int KLANES = 16;       // contraction lanes of a GEMM item
 
 enum TaskType : int {
@@ -110,11 +131,13 @@ enum TaskType : int {
   RMS_NORM = 6,
   ATTN_DECODE = 8,
   ATTN_DECODE_PAGED = 9,
+  PREFETCH = 10,
   ATTN_DECODE_GQA = 11,
   GEMM_WIDE = 12,
   NORM_ROPE = 13,
   APPEND_KV = 14,
   GEMM_WIDE_W8 = 15,
+  PREFETCH_W8 = 16,
   GEMM_MAT = 19,
   ADD_NORM = 20,
   NORM_ROPE_QKV = 21,
@@ -130,14 +153,14 @@ constexpr int GW_COLS = 32;      // output columns of a GEMM_WIDE item
 constexpr int GW_A_FLOATS = 8192;  // staged A values (all live rows)
 
 // Shared memory, in floats: the largest handler footprint (GEMM_MAT phase
-// A: KLANES x MAX_LIVE x TILE reduction slab + MAX_LIVE x 256 A chunk;
-// GEMM_WIDE: the staged A chunk + WARPS x MAX_LIVE x GW_COLS sums).
-constexpr int GEMM_MAT_FLOATS = KLANES * MAX_LIVE * TILE + MAX_LIVE * 256 + 64;
-constexpr int GEMM_WIDE_FLOATS = GW_A_FLOATS + WARPS * MAX_LIVE * GW_COLS;
+// A: KLANES x ROW_GROUP x TILE reduction slab + ROW_GROUP x 256 A chunk;
+// GEMM_WIDE: the staged A chunk + WARPS x ROW_GROUP x GW_COLS sums).
+constexpr int GEMM_MAT_FLOATS = KLANES * ROW_GROUP * TILE + ROW_GROUP * 256 + 64;
+constexpr int GEMM_WIDE_FLOATS = GW_A_FLOATS + WARPS * ROW_GROUP * GW_COLS;
 // MOE_FFN: the staged A chunk (as GEMM_WIDE), the per-warp sums of two
 // products, the active-expert list and its ballot words.
 constexpr int MOE_COLS = 32;     // output columns of a MOE_FFN item
-constexpr int MOE_LIST_OFF = GW_A_FLOATS + WARPS * 2 * MAX_LIVE * MOE_COLS;
+constexpr int MOE_LIST_OFF = GW_A_FLOATS + WARPS * 2 * ROW_GROUP * MOE_COLS;
 constexpr int MOE_FLOATS = MOE_LIST_OFF + TILE + TILE / 32;
 constexpr int cmax(int a, int b) { return a > b ? a : b; }
 constexpr int SMEM_FLOATS = cmax(GEMM_MAT_FLOATS, GEMM_WIDE_FLOATS);
@@ -152,6 +175,7 @@ struct Args {
   const __nv_fp8_e4m3* ws8;  // (tiles, TILE, TILE) e4m3 weight tiles (or null)
   __nv_fp8_e4m3* wkv8;     // (tiles, TILE, TILE) e4m3 KV pools (or null)
   float* partial;          // GEMM_MAT partial sums / MOE_FFN act (fp32)
+  int* prof;               // (num_exec, TILE) profile stamps (or null)
   int num_exec;
   int live_rows;
   int head_dim;
@@ -458,6 +482,7 @@ __device__ __forceinline__ void attn_row(T* ws, const P* pool, const KV kv, int 
   float* accs = pw + WARPS * TILE;            // WARPS x TILE partial PV
   float* ms = accs + WARPS * TILE;            // WARPS running maxima
   float* ls = ms + WARPS;                     // WARPS running sums
+  float* sws = ls + WARPS;                    // TILE fresh-row scores
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   if (threadIdx.x < TILE) qs[threadIdx.x] = ldw(tile_at(ws, qt, r, threadIdx.x));
   __syncthreads();
@@ -512,6 +537,18 @@ __device__ __forceinline__ void attn_row(T* ws, const P* pool, const KV kv, int 
   }
 #pragma unroll
   for (int i = 0; i < 4; ++i) accs[warp * TILE + lane * 4 + i] = acc[i];
+  // Fresh rows: row r itself (win == 0), or rows 0..min(r, win-1); thread
+  // j scores fresh row j0 + j.
+  const int j0 = win == 0 ? r : 0;
+  const int j1 = win == 0 ? r : min(r, win - 1);
+  if (c0 >= 0) {
+    for (int j = threadIdx.x; j <= j1 - j0; j += THREADS) {
+      float sj = 0.0f;
+      for (int e = 0; e < TILE; ++e)
+        sj += qs[e] * cur_kv<P>(ldw(tile_at(ws, c0, j0 + j, e)));
+      sws[j] = sj * scale;
+    }
+  }
   __syncthreads();
   if (threadIdx.x < TILE) {
     const int d = threadIdx.x;
@@ -524,22 +561,12 @@ __device__ __forceinline__ void attn_row(T* ws, const P* pool, const KV kv, int 
       a += accs[q * TILE + d] * f;
     }
     if (c0 >= 0) {
-      // Fresh rows: row r itself (win == 0), or rows 0..min(r, win-1).
-      const int j0 = win == 0 ? r : 0;
-      const int j1 = win == 0 ? r : min(r, win - 1);
-      float s_w[MAX_LIVE];
       float m_new = mx;
-      for (int j = j0; j <= j1; ++j) {
-        float sj = 0.0f;
-        for (int e = 0; e < TILE; ++e)
-          sj += qs[e] * cur_kv<P>(ldw(tile_at(ws, c0, j, e)));
-        s_w[j - j0] = sj * scale;
-        m_new = fmaxf(m_new, s_w[j - j0]);
-      }
+      for (int j = j0; j <= j1; ++j) m_new = fmaxf(m_new, sws[j - j0]);
       const float corr = expf(mx - m_new);
       float pv = 0.0f, psum = 0.0f;
       for (int j = j0; j <= j1; ++j) {
-        const float pj = expf(s_w[j - j0] - m_new);
+        const float pj = expf(sws[j - j0] - m_new);
         pv += pj * cur_kv<P>(ldw(tile_at(ws, d0, j, d)));
         psum += pj;
       }
@@ -637,7 +664,9 @@ __device__ __forceinline__ void unpack16(const uint4& u, const __nv_fp8_e4m3*,
 }
 
 // ML: the live rows one pass holds sums for (1: one-token decode; 2
-// otherwise, so rows 0-1 then rows 2-3 — the sums stay in registers).
+// otherwise, so rows 0-1 then rows 2-3 of each group of ROW_GROUP rows —
+// the sums stay in registers). An item stages its group's A rows and
+// streams its B slice once per group: the second group's reads hit L1/L2.
 template <typename T, typename B, int ML>
 __device__ __noinline__ void gemm_wide_items(T* ws, const B* bws, const int* w,
                                              int& seg, int live, float* smem,
@@ -648,21 +677,25 @@ __device__ __noinline__ void gemm_wide_items(T* ws, const B* bws, const int* w,
   constexpr int PASSES = TILE / RPP;            // passes per B tile
   constexpr int UNROLL = ML == 1 ? 6 : 4;       // loads in flight per thread
   constexpr int A_ELEMS = GW_A_FLOATS * (int)sizeof(float) / (int)sizeof(T);
+  if (ML == 1) live = 1;   // the caller's one-row form: the loops fold away
   const int out = w[1], a0 = w[2], b0 = w[3], kt = w[4], b_stride = w[6];
   const int width = w[7];
-  T* as = reinterpret_cast<T*>(smem);           // live x (kc_tiles * TILE)
+  T* as = reinterpret_cast<T*>(smem);           // group x (kc_tiles * TILE)
   float* red = smem + GW_A_FLOATS;              // WARPS x ML x GW_COLS
-  const int kc_tiles = A_ELEMS / TILE / live;   // A tiles per chunk
+  const int kc_tiles = A_ELEMS / TILE / min(live, ROW_GROUP);  // A tiles per chunk
   const int kc = kc_tiles * TILE;
-  const bool whole = kt <= kc_tiles;            // the row fits: keep it
+  // The row fits and one group holds every live row: keep it staged.
+  const bool whole = kt <= kc_tiles && live <= ROW_GROUP;
   const int key = (a0 << 8) | kt;               // which row, how much of it
   const int cg = threadIdx.x % TPR, rl = threadIdx.x / TPR;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int n = width * (TILE / GW_COLS);
   for (int it = first_item(seg); it < n; it += gridDim.x) {
     const int wc = it / (TILE / GW_COLS), cs = it % (TILE / GW_COLS);
-    for (int r0 = 0; r0 < live; r0 += ML) {
-      const int nr = min(ML, live - r0);
+    for (int g0 = 0; g0 < live; g0 += ROW_GROUP) {
+    const int gl = min(ROW_GROUP, live - g0);
+    for (int r0 = 0; r0 < gl; r0 += ML) {
+      const int nr = min(ML, gl - r0);
       float acc[ML][EPL];
 #pragma unroll
       for (int r = 0; r < ML; ++r)
@@ -672,10 +705,10 @@ __device__ __noinline__ void gemm_wide_items(T* ws, const B* bws, const int* w,
         const int nt = min(kc_tiles, kt - j0);
         if (!(whole && staged == key)) {
           __syncthreads();              // the last readers of `as` are done
-          for (int i = threadIdx.x; i < live * nt * TILE; i += THREADS) {
+          for (int i = threadIdx.x; i < gl * nt * TILE; i += THREADS) {
             const int r = i / (nt * TILE), k = i % (nt * TILE);
             as[r * kc + k] = __ldcg(static_cast<const T*>(
-                tile_at(ws, a0 + j0 + k / TILE, r, k % TILE)));
+                tile_at(ws, a0 + j0 + k / TILE, g0 + r, k % TILE)));
           }
           __syncthreads();
           staged = whole ? key : -1;
@@ -735,9 +768,10 @@ __device__ __noinline__ void gemm_wide_items(T* ws, const B* bws, const int* w,
         float v = 0.0f;
 #pragma unroll
         for (int q = 0; q < WARPS; ++q) v += red[(q * ML + r) * GW_COLS + c];
-        *tile_at(ws, out + wc, r0 + r, cs * GW_COLS + c) = tdt::from_f<T>(v);
+        *tile_at(ws, out + wc, g0 + r0 + r, cs * GW_COLS + c) = tdt::from_f<T>(v);
       }
       __syncthreads();
+    }
     }
   }
   seg += n;
@@ -759,12 +793,15 @@ __device__ void t_gemm_wide(T* ws, const B* bws, const int* w, int& seg,
 // from b_stride) into the tiles from d0 (eps in arg >> 8).
 __device__ __forceinline__ int gemm_kch(int K) { return K % 256 == 0 ? 256 : 128; }
 
-// ML: the live rows the instantiation holds sums for (MAX_LIVE, or 1 where
-// the caller knows the step has one live row).
+// ML: the live rows the instantiation holds sums for (ROW_GROUP, or 1
+// where the caller knows the step has one live row). Each phase-A item
+// loops over groups of ROW_GROUP live rows: its weight chunk comes from HBM
+// for the first group and from L1/L2 for the next.
 template <typename T, int ML>
 __device__ void t_gemm_mat(T* ws, const T* wsm, float* partial,
                            const int* specs, const int* w, int& seg, int live,
                            float* smem, cg::grid_group& grid) {
+  if (ML == 1) live = 1;   // the caller's one-row form: the loops fold away
   const int out = w[1], a0 = w[2], b0 = w[3], kt = w[4], norm_w = w[6];
   const int arg = w[7], resid = w[8], xn_out = w[9];
   const int ns = specs[w[5] * 4 + 1], nt_out = specs[w[5] * 4 + 2];
@@ -774,53 +811,56 @@ __device__ void t_gemm_mat(T* ws, const T* wsm, float* partial,
   const size_t pstride = (size_t)ns * MAT_COLS;   // one (ks, row) slab
 
   // Phase A: item = (strip, 128-column tile, contraction chunk).
-  float* red = smem;                              // KLANES x live x TILE
-  float* as = smem + KLANES * MAX_LIVE * TILE;    // live x kch A values
+  float* red = smem;                              // KLANES x group x TILE
+  float* as = smem + KLANES * ROW_GROUP * TILE;   // group x kch A values
   const int cgrp = threadIdx.x & 15, kl = threadIdx.x >> 4;
   const int n_a = ns * 8 * n_ks;
   for (int it = first_item(seg); it < n_a; it += gridDim.x) {
     const int s = it / (8 * n_ks), ct = (it / n_ks) % 8, ks = it % n_ks;
     const bool used = epi == 1 ? s * 4 + (ct & 3) < nt_out : s * 8 + ct < nt_out;
     if (!used) continue;       // pad columns of the last strip
-    for (int i = threadIdx.x; i < live * kch; i += THREADS) {
-      const int r = i / kch, k = ks * kch + i % kch;
-      as[i] = ldw(tile_at(ws, a0 + k / TILE, r, k % TILE));
-    }
-    __syncthreads();
-    float acc[ML][8];
-#pragma unroll
-    for (int r = 0; r < ML; ++r)
-#pragma unroll
-      for (int i = 0; i < 8; ++i) acc[r][i] = 0.0f;
     const T* wp = wsm + ((size_t)b0 + (size_t)s * K + (size_t)ks * kch) * MAT_COLS
                   + ct * TILE + cgrp * 8;
+    for (int g0 = 0; g0 < live; g0 += ML) {
+      const int gl = min(ML, live - g0);
+      for (int i = threadIdx.x; i < gl * kch; i += THREADS) {
+        const int r = i / kch, k = ks * kch + i % kch;
+        as[i] = ldw(tile_at(ws, a0 + k / TILE, g0 + r, k % TILE));
+      }
+      __syncthreads();
+      float acc[ML][8];
+#pragma unroll
+      for (int r = 0; r < ML; ++r)
+#pragma unroll
+        for (int i = 0; i < 8; ++i) acc[r][i] = 0.0f;
 #pragma unroll 4
-    for (int k = kl; k < kch; k += KLANES) {
-      float wv[8];
-      ldm8(wp + (size_t)k * MAT_COLS, wv);
+      for (int k = kl; k < kch; k += KLANES) {
+        float wv[8];
+        ldm8(wp + (size_t)k * MAT_COLS, wv);
 #pragma unroll
-      for (int r = 0; r < ML; ++r) {
-        if (r < live) {
-          const float a = as[r * kch + k];
+        for (int r = 0; r < ML; ++r) {
+          if (r < gl) {
+            const float a = as[r * kch + k];
 #pragma unroll
-          for (int i = 0; i < 8; ++i) acc[r][i] += a * wv[i];
+            for (int i = 0; i < 8; ++i) acc[r][i] += a * wv[i];
+          }
         }
       }
-    }
 #pragma unroll
-    for (int r = 0; r < ML; ++r)
-      if (r < live)
+      for (int r = 0; r < ML; ++r)
+        if (r < gl)
 #pragma unroll
-        for (int i = 0; i < 8; ++i)
-          red[(kl * live + r) * TILE + cgrp * 8 + i] = acc[r][i];
-    __syncthreads();
-    for (int i = threadIdx.x; i < live * TILE; i += THREADS) {
-      const int r = i / TILE, c = i % TILE;
-      float v = 0.0f;
-      for (int q = 0; q < KLANES; ++q) v += red[(q * live + r) * TILE + c];
-      partial[((size_t)ks * live + r) * pstride + s * MAT_COLS + ct * TILE + c] = v;
+          for (int i = 0; i < 8; ++i)
+            red[(kl * gl + r) * TILE + cgrp * 8 + i] = acc[r][i];
+      __syncthreads();
+      for (int i = threadIdx.x; i < gl * TILE; i += THREADS) {
+        const int r = i / TILE, c = i % TILE;
+        float v = 0.0f;
+        for (int q = 0; q < KLANES; ++q) v += red[(q * gl + r) * TILE + c];
+        partial[((size_t)ks * live + g0 + r) * pstride + s * MAT_COLS + ct * TILE + c] = v;
+      }
+      __syncthreads();
     }
-    __syncthreads();
   }
   grid.sync();
   seg = 0;
@@ -878,16 +918,19 @@ __device__ void t_gemm_mat(T* ws, const T* wsm, float* partial,
 // -- MOE_TOPK: the logits tile a0 masked to columns < E (word 6) and rows
 // < batch (word 9); arg experts per row by iterative argmax, ties to the
 // leftmost column; weights exp(l - row max) over the selected, / max(sum,
-// 1e-30); stored TRANSPOSED (E, B) at `out`, zeros elsewhere. One item:
-// warp r computes row r (its lanes hold 4 columns each); the host checks
-// batch <= live, so the columns past the live rows are zeros.
+// 1e-30); stored TRANSPOSED (E, B) at `out`, zeros elsewhere. Item i =
+// live rows [8i, 8i + 8): warp q computes row 8i + q (its lanes hold 4
+// columns each); item 0 also zeroes the columns past the live rows (the
+// host checks batch <= live).
 template <typename T>
 __device__ void t_moe_topk(T* ws, const int* w, int& seg, int live) {
   const int out = w[1], a0 = w[2], num_e = w[6], k = w[7], batch = w[9];
-  if (first_item(seg) == 0) {
-    for (int i = threadIdx.x; i < TILE_ELEMS; i += THREADS)
-      if (i % TILE >= live) ws[(size_t)out * TILE_ELEMS + i] = tdt::from_f<T>(0.0f);
-    const int r = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int n = (live + WARPS - 1) / WARPS;
+  for (int it = first_item(seg); it < n; it += gridDim.x) {
+    if (it == 0)
+      for (int i = threadIdx.x; i < TILE_ELEMS; i += THREADS)
+        if (i % TILE >= live) ws[(size_t)out * TILE_ELEMS + i] = tdt::from_f<T>(0.0f);
+    const int r = it * WARPS + (threadIdx.x >> 5), lane = threadIdx.x & 31;
     if (r < live) {
       float lg[4], work[4];
       bool sel[4];
@@ -929,7 +972,7 @@ __device__ void t_moe_topk(T* ws, const int* w, int& seg, int live) {
         *tile_at(ws, out, lane * 4 + i, r) = tdt::from_f<T>(wg[i] / z);
     }
   }
-  seg += 1;
+  seg += n;
 }
 
 // One MOE_FFN item's products: acc[b][r][i] += A[r][k] * B_b[k][col0 +
@@ -1009,24 +1052,28 @@ __device__ __forceinline__ void moe_warp_sums(
       }
 }
 
-// Stage `live` rows x (nt * TILE) values into `as` (row stride kc): from
-// the workspace row tiles a0.. (src == nullptr) or from fp32 scratch rows
-// of `stride` values (already rounded to the workspace type: exact).
+// Stage `rows` rows x (nt * TILE) values into `as` (row stride kc): from
+// the workspace row tiles a0.., rows row0.. (src == nullptr) or from fp32
+// scratch rows of `stride` values (already rounded to the workspace type:
+// exact).
 template <typename T>
-__device__ __forceinline__ void moe_stage(T* as, int kc, int nt, int live,
-                                          const T* ws, int a0,
+__device__ __forceinline__ void moe_stage(T* as, int kc, int nt, int rows,
+                                          const T* ws, int a0, int row0,
                                           const float* src, size_t stride) {
   __syncthreads();                 // the last readers of `as` are done
-  for (int i = threadIdx.x; i < live * nt * TILE; i += THREADS) {
+  for (int i = threadIdx.x; i < rows * nt * TILE; i += THREADS) {
     const int r = i / (nt * TILE), k = i % (nt * TILE);
     as[r * kc + k] = src ? tdt::from_f<T>(__ldcg(src + r * stride + k))
-                         : __ldcg(tile_at(ws, a0 + k / TILE, r, k % TILE));
+                         : __ldcg(tile_at(ws, a0 + k / TILE, row0 + r, k % TILE));
   }
   __syncthreads();
 }
 
-// MOE_FFN phase 1: item = (active expert a, 32-column strip of the ffn).
-// The xn row (ht tiles from a0) is staged once per block when it fits.
+// MOE_FFN phase 1: item = (active expert a, 32-column strip of the ffn),
+// over groups of ML live rows (the group's xn rows staged, the item's
+// weights streamed once per group: from HBM for the first, L1/L2 after).
+// The xn row (ht tiles from a0) is staged once per block when it fits and
+// one group holds every live row.
 // act[(a * live + r) * F + col] = round(silu(g) * u * w_tok[r]).
 template <typename T, int ML>
 __device__ __noinline__ void moe_gate_up_items(const T* ws, const int* w,
@@ -1036,6 +1083,7 @@ __device__ __noinline__ void moe_gate_up_items(const T* ws, const int* w,
   constexpr int EPL = 16 / (int)sizeof(T);
   constexpr int SPT = TILE / MOE_COLS;          // item strips per tile
   constexpr int A_ELEMS = GW_A_FLOATS * (int)sizeof(float) / (int)sizeof(T);
+  if (ML == 1) live = 1;   // the caller's one-row form: the loops fold away
   const int a0 = w[2], wt = w[3], ht = w[4], wg = w[5], wu = w[6];
   const int ft = w[7] >> 16, F = ft * TILE;
   T* as = reinterpret_cast<T*>(smem);
@@ -1043,46 +1091,50 @@ __device__ __noinline__ void moe_gate_up_items(const T* ws, const int* w,
   const int kc_tiles = min(ht, A_ELEMS / TILE / ML);
   const int kc = kc_tiles * TILE;
   const int n = n_act * ft * SPT;
+  const bool keep = kc_tiles == ht && live <= ML;
   bool staged = false;
   for (int it = first_item(seg); it < n; it += gridDim.x) {
     const int a = it / (ft * SPT), f = (it / SPT) % ft;
     const int col0 = (it % SPT) * MOE_COLS;
     const size_t e = list[a];
-    float acc[2][ML][EPL] = {};
-    for (int j0 = 0; j0 < ht; j0 += kc_tiles) {
-      const int nt = min(kc_tiles, ht - j0);
-      if (!(staged && kc_tiles == ht)) {
-        moe_stage(as, kc, nt, live, ws, a0 + j0, nullptr, 0);
-        staged = true;
+    for (int g0 = 0; g0 < live; g0 += ML) {
+      const int gl = min(ML, live - g0);
+      float acc[2][ML][EPL] = {};
+      for (int j0 = 0; j0 < ht; j0 += kc_tiles) {
+        const int nt = min(kc_tiles, ht - j0);
+        if (!(staged && keep)) {
+          moe_stage(as, kc, nt, gl, ws, a0 + j0, g0, nullptr, 0);
+          staged = true;
+        }
+        moe_mac<T, ML, 2>(ws, as, kc, nt, col0,
+                          [&](int b, int j) {
+                            return (size_t)(b ? wu : wg) + (e * ht + j0 + j) * ft + f;
+                          },
+                          acc);
       }
-      moe_mac<T, ML, 2>(ws, as, kc, nt, col0,
-                        [&](int b, int j) {
-                          return (size_t)(b ? wu : wg) + (e * ht + j0 + j) * ft + f;
-                        },
-                        acc);
-    }
-    moe_warp_sums<T, ML, 2>(acc, red);
-    __syncthreads();
-    for (int i = threadIdx.x; i < live * MOE_COLS; i += THREADS) {
-      const int r = i / MOE_COLS, c = i % MOE_COLS;
-      float g = 0.0f, u = 0.0f;
+      moe_warp_sums<T, ML, 2>(acc, red);
+      __syncthreads();
+      for (int i = threadIdx.x; i < gl * MOE_COLS; i += THREADS) {
+        const int r = i / MOE_COLS, c = i % MOE_COLS;
+        float g = 0.0f, u = 0.0f;
 #pragma unroll
-      for (int q = 0; q < WARPS; ++q) {
-        g += red[((q * 2) * ML + r) * MOE_COLS + c];
-        u += red[((q * 2 + 1) * ML + r) * MOE_COLS + c];
+        for (int q = 0; q < WARPS; ++q) {
+          g += red[((q * 2) * ML + r) * MOE_COLS + c];
+          u += red[((q * 2 + 1) * ML + r) * MOE_COLS + c];
+        }
+        const float wtok = ldw(tile_at(ws, wt, (int)e, g0 + r));
+        act[((size_t)a * live + g0 + r) * F + f * TILE + col0 + c] =
+            round_to<T>(g / (1.0f + expf(-g)) * u * wtok);
       }
-      const float wtok = ldw(tile_at(ws, wt, (int)e, r));
-      act[((size_t)a * live + r) * F + f * TILE + col0 + c] =
-          round_to<T>(g / (1.0f + expf(-g)) * u * wtok);
+      __syncthreads();
     }
-    __syncthreads();
   }
   seg += n;
 }
 
-// MOE_FFN phase 2: item = 32 hidden columns of the output row: the active
-// experts' act rows (staged per expert) @ their down weights, summed in
-// list order, stored once in the workspace type.
+// MOE_FFN phase 2: item = 32 hidden columns of the output row, per group of
+// ML live rows: the active experts' act rows (staged per expert) @ their
+// down weights, summed in list order, stored once in the workspace type.
 template <typename T, int ML>
 __device__ __noinline__ void moe_down_items(T* ws, const int* w, int& seg,
                                             int live, float* smem,
@@ -1091,6 +1143,7 @@ __device__ __noinline__ void moe_down_items(T* ws, const int* w, int& seg,
   constexpr int EPL = 16 / (int)sizeof(T);
   constexpr int SPT = TILE / MOE_COLS;
   constexpr int A_ELEMS = GW_A_FLOATS * (int)sizeof(float) / (int)sizeof(T);
+  if (ML == 1) live = 1;   // the caller's one-row form: the loops fold away
   const int out = w[1], ht = w[4], wd = w[8];
   const int ft = w[7] >> 16, F = ft * TILE;
   T* as = reinterpret_cast<T*>(smem);
@@ -1100,30 +1153,33 @@ __device__ __noinline__ void moe_down_items(T* ws, const int* w, int& seg,
   const int n = ht * SPT;
   for (int it = first_item(seg); it < n; it += gridDim.x) {
     const int j = it / SPT, col0 = (it % SPT) * MOE_COLS;
-    float acc[1][ML][EPL] = {};
-    for (int a = 0; a < n_act; ++a) {
-      const size_t e = list[a];
-      for (int f0 = 0; f0 < ft; f0 += kc_tiles) {
-        const int nt = min(kc_tiles, ft - f0);
-        moe_stage(as, kc, nt, live, ws, 0,
-                  act + (size_t)a * live * F + f0 * TILE, (size_t)F);
-        moe_mac<T, ML, 1>(ws, as, kc, nt, col0,
-                          [&](int, int f) {
-                            return (size_t)wd + (e * ft + f0 + f) * ht + j;
-                          },
-                          acc);
+    for (int g0 = 0; g0 < live; g0 += ML) {
+      const int gl = min(ML, live - g0);
+      float acc[1][ML][EPL] = {};
+      for (int a = 0; a < n_act; ++a) {
+        const size_t e = list[a];
+        for (int f0 = 0; f0 < ft; f0 += kc_tiles) {
+          const int nt = min(kc_tiles, ft - f0);
+          moe_stage(as, kc, nt, gl, ws, 0, 0,
+                    act + ((size_t)a * live + g0) * F + f0 * TILE, (size_t)F);
+          moe_mac<T, ML, 1>(ws, as, kc, nt, col0,
+                            [&](int, int f) {
+                              return (size_t)wd + (e * ft + f0 + f) * ht + j;
+                            },
+                            acc);
+        }
       }
-    }
-    moe_warp_sums<T, ML, 1>(acc, red);
-    __syncthreads();
-    for (int i = threadIdx.x; i < live * MOE_COLS; i += THREADS) {
-      const int r = i / MOE_COLS, c = i % MOE_COLS;
-      float v = 0.0f;
+      moe_warp_sums<T, ML, 1>(acc, red);
+      __syncthreads();
+      for (int i = threadIdx.x; i < gl * MOE_COLS; i += THREADS) {
+        const int r = i / MOE_COLS, c = i % MOE_COLS;
+        float v = 0.0f;
 #pragma unroll
-      for (int q = 0; q < WARPS; ++q) v += red[(q * ML + r) * MOE_COLS + c];
-      *tile_at(ws, out + j, r, col0 + c) = tdt::from_f<T>(v);
+        for (int q = 0; q < WARPS; ++q) v += red[(q * ML + r) * MOE_COLS + c];
+        *tile_at(ws, out + j, g0 + r, col0 + c) = tdt::from_f<T>(v);
+      }
+      __syncthreads();
     }
-    __syncthreads();
   }
   seg += n;
 }
@@ -1160,6 +1216,21 @@ __device__ void t_moe_ffn(T* ws, float* act, const int* w, int& seg,
   moe_down_items<T, ML>(ws, w, seg, live, smem, list, n_act, act);
 }
 
+// -- PREFETCH / PREFETCH_W8: warm tile a0 of the main workspace or of the
+// e4m3 weight workspace into L2 (one bulk prefetch, fire and forget; no
+// completion to wait for). The consuming GEMM_WIDE(_W8) with c0 == 1 reads
+// the tile as usual. One item.
+template <typename E>
+__device__ void t_prefetch(const E* base, int tile, int& seg) {
+  if (first_item(seg) == 0 && threadIdx.x == 0) {
+    const E* p = base + (size_t)tile * TILE_ELEMS;
+    asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;"
+                 :: "l"(p), "r"((unsigned)(TILE_ELEMS * sizeof(E)))
+                 : "memory");
+  }
+  seg += 1;
+}
+
 // The task types beyond the paged serving program's (with MOE, the MoE
 // types too): false where `type` is none of them. Only the full kernels
 // instantiate this.
@@ -1178,7 +1249,7 @@ __device__ __forceinline__ bool run_linear_task(const Args& args, T* ws,
       if (live == 1)
         t_moe_ffn<T, 1>(ws, args.partial, w, seg, live, smem, grid);
       else
-        t_moe_ffn<T, MAX_LIVE>(ws, args.partial, w, seg, live, smem, grid);
+        t_moe_ffn<T, ROW_GROUP>(ws, args.partial, w, seg, live, smem, grid);
       return true;
     }
   }
@@ -1205,6 +1276,12 @@ __device__ __forceinline__ bool run_linear_task(const Args& args, T* ws,
     case ADD_NORM:
       t_add_norm(ws, w, seg, live, smem);
       return true;
+    case PREFETCH:
+      t_prefetch(static_cast<const T*>(ws), w[2], seg);
+      return true;
+    case PREFETCH_W8:
+      t_prefetch(args.ws8, w[2], seg);
+      return true;
     default:
       return false;
   }
@@ -1219,10 +1296,14 @@ __device__ __forceinline__ bool run_linear_task(const Args& args, T* ws,
 // BODY_MOE adds MOE_TOPK and MOE_FFN (whose 4-row loops took the register
 // file to its cap and spilled the linear programs' GEMMs when they shared
 // BODY_LINEAR: the bf16 linear step ran 1.9x slower). The host picks by
-// the queue's types.
+// the queue's types. PROF: the full bodies again with the profile stamp
+// in the queue loop, for profiled launches only (the host runs a profiled
+// paged program on BODY_LINEAR, which interprets every non-MoE type): the
+// stamp's branch and pointer in the loop of every launch took the one-row
+// MoE step 5-6% slower.
 enum Body : int { BODY_LEAN = 0, BODY_LINEAR = 1, BODY_MOE = 2 };
 
-template <typename T, int BODY>
+template <typename T, int BODY, bool PROF>
 __global__ void __launch_bounds__(THREADS, BODY == BODY_LEAN ? 2 : 1)
     mega_kernel(Args args) {
   constexpr bool FULL = BODY != BODY_LEAN;
@@ -1277,7 +1358,18 @@ __global__ void __launch_bounds__(THREADS, BODY == BODY_LEAN ? 2 : 1)
       grid.sync();
       seg = 0;
     }
-    if (FULL && w[0] != GEMM_WIDE && w[0] != GEMM_WIDE_W8) staged = -1;
+    if constexpr (PROF) {
+      if (blockIdx.x == 0 && threadIdx.x == 0) {
+        int* row = args.prof + (size_t)p * TILE;
+        row[0] = p;
+#pragma unroll
+        for (int i = 0; i < WORDS; ++i) row[1 + i] = w[i];
+      }
+    }
+    // A warm neither writes the workspace nor touches shared memory.
+    if (FULL && w[0] != GEMM_WIDE && w[0] != GEMM_WIDE_W8 && w[0] != PREFETCH
+        && w[0] != PREFETCH_W8)
+      staged = -1;
     switch (w[0]) {
       case RMS_NORM:
         t_rms_norm(ws, w, seg, live, smem);
@@ -1301,7 +1393,7 @@ __global__ void __launch_bounds__(THREADS, BODY == BODY_LEAN ? 2 : 1)
           t_gemm_mat<T, 1>(ws, wsm, args.partial, args.specs, w, seg, live,
                            smem, grid);
         else
-          t_gemm_mat<T, MAX_LIVE>(ws, wsm, args.partial, args.specs, w, seg,
+          t_gemm_mat<T, ROW_GROUP>(ws, wsm, args.partial, args.specs, w, seg,
                                   live, smem, grid);
         break;
       case NORM_ROPE_QKV:
@@ -1327,15 +1419,15 @@ __global__ void __launch_bounds__(THREADS, BODY == BODY_LEAN ? 2 : 1)
 
 // Blocks of the cooperative grid, found once per instantiation (the port
 // drives one card per process): every SM, up to 2 blocks each.
-template <typename T, int BODY>
+template <typename T, int BODY, bool PROF>
 int& grid_blocks() {
   static int blocks = 0;
   return blocks;
 }
 
-template <typename T, int BODY>
+template <typename T, int BODY, bool PROF>
 cudaError_t launch(const Args& args, cudaStream_t stream) {
-  int& blocks = grid_blocks<T, BODY>();
+  int& blocks = grid_blocks<T, BODY, PROF>();
   if (blocks == 0) {
     int dev = 0, sms = 0, coop = 0, per_sm = 0;
     cudaError_t err = cudaGetDevice(&dev);
@@ -1346,7 +1438,7 @@ cudaError_t launch(const Args& args, cudaStream_t stream) {
     if (err != cudaSuccess) return err;
     if (!coop) return cudaErrorNotSupported;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, mega_kernel<T, BODY>, THREADS, 0);
+        &per_sm, mega_kernel<T, BODY, PROF>, THREADS, 0);
     if (err != cudaSuccess) return err;
     if (per_sm < 1) return cudaErrorLaunchOutOfResources;
     blocks = sms * (per_sm < 2 ? per_sm : 2);
@@ -1354,7 +1446,7 @@ cudaError_t launch(const Args& args, cudaStream_t stream) {
   Args a = args;
   void* params[] = {&a};
   const cudaError_t err = cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(mega_kernel<T, BODY>), dim3(blocks),
+      reinterpret_cast<const void*>(mega_kernel<T, BODY, PROF>), dim3(blocks),
       dim3(THREADS), params, 0, stream);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
@@ -1362,10 +1454,17 @@ cudaError_t launch(const Args& args, cudaStream_t stream) {
 
 template <typename T>
 cudaError_t launch_body(const Args& args, int body, cudaStream_t stream) {
+  const bool prof = args.prof != nullptr;
   switch (body) {
-    case BODY_LEAN: return launch<T, BODY_LEAN>(args, stream);
-    case BODY_LINEAR: return launch<T, BODY_LINEAR>(args, stream);
-    case BODY_MOE: return launch<T, BODY_MOE>(args, stream);
+    case BODY_LEAN:
+      return prof ? cudaErrorInvalidValue
+                  : launch<T, BODY_LEAN, false>(args, stream);
+    case BODY_LINEAR:
+      return prof ? launch<T, BODY_LINEAR, true>(args, stream)
+                  : launch<T, BODY_LINEAR, false>(args, stream);
+    case BODY_MOE:
+      return prof ? launch<T, BODY_MOE, true>(args, stream)
+                  : launch<T, BODY_MOE, false>(args, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1373,9 +1472,9 @@ cudaError_t launch_body(const Args& args, int body, cudaStream_t stream) {
 template <typename T>
 int body_blocks(int body) {
   switch (body) {
-    case BODY_LEAN: return grid_blocks<T, BODY_LEAN>();
-    case BODY_LINEAR: return grid_blocks<T, BODY_LINEAR>();
-    case BODY_MOE: return grid_blocks<T, BODY_MOE>();
+    case BODY_LEAN: return grid_blocks<T, BODY_LEAN, false>();
+    case BODY_LINEAR: return grid_blocks<T, BODY_LINEAR, false>();
+    case BODY_MOE: return grid_blocks<T, BODY_MOE, false>();
     default: return 0;
   }
 }
@@ -1383,17 +1482,18 @@ int body_blocks(int body) {
 }  // namespace
 
 // `body`: the instantiation (kernel.py `_kernel_body`): 0 the paged serving
-// program's types alone, 1 any other non-MoE type, 2 a MoE program.
+// program's types alone, 1 any other non-MoE type, 2 a MoE program. `prof`:
+// the (num_exec, TILE) int32 profile dump, or null (with body 1 or 2).
 extern "C" int megakernel_run(const int* queue, const int* sync_before,
                               const int* specs, void* ws, const void* wsm,
                               const void* ws8, void* wkv8, float* partial,
-                              int num_exec, int live_rows, int head_dim,
-                              int dtype, int body, void* stream) {
+                              int* prof, int num_exec, int live_rows,
+                              int head_dim, int dtype, int body, void* stream) {
   if (live_rows < 1 || live_rows > MAX_LIVE) return cudaErrorInvalidValue;
   Args args{queue,   sync_before, specs,     ws,       wsm,
             static_cast<const __nv_fp8_e4m3*>(ws8),
-            static_cast<__nv_fp8_e4m3*>(wkv8), partial, num_exec, live_rows,
-            head_dim};
+            static_cast<__nv_fp8_e4m3*>(wkv8), partial, prof, num_exec,
+            live_rows, head_dim};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err = dtype == 1
                               ? launch_body<__nv_bfloat16>(args, body, s)

@@ -8,8 +8,9 @@ and the linear programs' (``attn_decode_gqa``, ``attn_decode``, the
 linear ``append_kv``, and for the tile weight layout ``gemm`` — GEMM_WIDE,
 or GEMM_WIDE_W8 over e4m3 weight tiles —, ``norm_rope``, ``add_norm``,
 ``copy`` / ``add`` / ``silu_mul`` / ``scale``) and the Qwen3-MoE FFN's
-``moe_topk`` / ``moe_ffn``. ``prefetch`` (PREFETCH /
-PREFETCH_W8) is refused by name: no decode program emits it. Tensor
+``moe_topk`` / ``moe_ffn``, and the single-tile weight warm ``prefetch``
+(PREFETCH / PREFETCH_W8) that ``gemm(prefetch_first=True)`` consumes,
+with the JAX builder's one-outstanding-warm rules. Tensor
 allocation, hazard bookkeeping, the schedule and the packed queue follow
 the JAX builder step for step, so both emit the same queue word for word
 (the CPU tests hold them equal).
@@ -32,9 +33,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from triton_distributed_tpu_torch.megakernel.kernel import (
-    MegakernelUnsupportedError, run_queue,
-)
+from triton_distributed_tpu_torch.megakernel.kernel import run_queue
 from triton_distributed_tpu_torch.megakernel.scheduler import topo_schedule
 from triton_distributed_tpu_torch.megakernel.tasks import (
     MAT_COLS, TILE, WORDS, MatHandle, MatSpec, Task, TaskType, TensorHandle,
@@ -91,6 +90,10 @@ class MegaKernelBuilder:
         # outstanding warm awaiting its consuming GEMM_MAT.
         self._pfm_res: TensorHandle | None = None
         self._pending_pf_mat: tuple[int, int] | None = None
+        # Single-tile warm hand-off (PREFETCH / PREFETCH_W8): its pseudo
+        # resource, and (weight tile, fp8) of the outstanding warm.
+        self._pf_res: TensorHandle | None = None
+        self._pending_pf: tuple[int, bool] | None = None
 
     # -- tensors ------------------------------------------------------------
     def tensor(self, rows: int, cols: int, fp8: bool = False,
@@ -201,14 +204,25 @@ class MegaKernelBuilder:
             self._max_row = max(self._max_row, a.ct)
 
     def prefetch(self, weight_tile: int, fp8: bool = False):
-        """The JAX builder's single-tile weight warm (PREFETCH /
-        PREFETCH_W8). Not ported: no decode program emits it (the strip
-        fetch made the one-tile warm useless there), so the port refuses
-        it by name rather than carry a task type nothing runs."""
-        raise MegakernelUnsupportedError(
-            f"prefetch (task type "
-            f"{'PREFETCH_W8' if fp8 else 'PREFETCH'}) is not ported: no "
-            "decode program emits the single-tile weight warm")
+        """Start warming ``weight_tile`` into the reserved slot (the
+        reference's weight-prefetch task). The next ``gemm(...,
+        prefetch_first=True)`` whose first weight tile equals it consumes
+        the warm. One outstanding prefetch at a time — the pseudo-resource
+        hazard serializes slot reuse through the scheduler, and the
+        builder rejects an unconsumed double-issue. ``fp8``: the tile
+        lives in the e4m3 weight workspace (PREFETCH_W8). On the card the
+        warm is an L2 prefetch of the tile; it changes no value."""
+        if self._pending_pf is not None:
+            raise ValueError(
+                f"prefetch of tile {self._pending_pf[0]} not yet consumed — "
+                "one reserved slot, one outstanding prefetch")
+        if self._pf_res is None:
+            self._pf_res = self.tensor(TILE, TILE)   # hazard token only
+        tt = TaskType.PREFETCH_W8 if fp8 else TaskType.PREFETCH
+        read_id = int(weight_tile) + (self._W8_HAZARD if fp8 else 0)
+        self._emit(Task(tt, out=0, a0=int(weight_tile)),
+                   [read_id], [self._pf_res.tile(0, 0)])
+        self._pending_pf = (int(weight_tile), fp8)
 
     def gemm(self, out: TensorHandle, a: TensorHandle, b: TensorHandle,
              prefetch_first: bool = False, width: int = 16):
@@ -218,8 +232,9 @@ class MegaKernelBuilder:
         width with k % 4 == 0 carries the super-strip flag (d0 = 4): on
         the TPU a fetch shape, four k-rows per DMA; the CUDA kernel reads
         the same tiles either way, the word is kept so the queue equals
-        the JAX builder's. ``prefetch_first`` needs :meth:`prefetch`,
-        which the port refuses."""
+        the JAX builder's. ``prefetch_first``: the first task's first
+        weight tile was warmed by a preceding :meth:`prefetch` (queue word
+        c0 = 1)."""
         if isinstance(b, MatHandle):
             raise TypeError("matrix-workspace weights go through gemm_mat, "
                             "not gemm")
@@ -232,12 +247,16 @@ class MegaKernelBuilder:
                              "only — activations/outputs stay in the main "
                              "workspace")
         if prefetch_first:
-            raise MegakernelUnsupportedError(
-                "gemm(prefetch_first=True) consumes a PREFETCH warm, which "
-                "is not ported")
+            if self._pending_pf != (b.tile(0, 0), b.fp8):
+                raise ValueError(
+                    f"prefetch_first: pending prefetch {self._pending_pf} "
+                    f"does not match this gemm's first weight tile "
+                    f"{(b.tile(0, 0), b.fp8)}")
+            self._pending_pf = None
         kt = a.ct
         tt = TaskType.GEMM_WIDE_W8 if b.fp8 else TaskType.GEMM_WIDE
         b_off = self._W8_HAZARD if b.fp8 else 0
+        first = True
         for i in range(out.rt):
             j = 0
             while j < out.ct:
@@ -246,15 +265,19 @@ class MegaKernelBuilder:
                 reads = [a.tile(i, q) for q in range(kt)]
                 reads += [b.tile(q, j + w) + b_off for q in range(kt)
                           for w in range(wd)]
+                use_pf = prefetch_first and first
+                if use_pf:
+                    reads.append(self._pf_res.tile(0, 0))
                 self._emit(
                     Task(tt, out.tile(i, j),
                          a0=a.tile(i, 0), b0=b.tile(0, j),
                          k_tiles=kt, a_stride=1, b_stride=b.ct,
-                         arg=wd, c0=0, d0=su),
+                         arg=wd, c0=1 if use_pf else 0, d0=su),
                     reads, [out.tile(i, j + w) for w in range(wd)])
                 self._max_gemm_width = max(self._max_gemm_width, wd)
                 self._max_strip = max(self._max_strip, (su or 1) * wd)
                 self._max_row = max(self._max_row, kt)
+                first = False
                 j += wd
 
     def prefetch_mat(self, w: MatHandle) -> int:
@@ -724,6 +747,12 @@ class MegaKernelBuilder:
                 f"build-time head_dim {self.head_dim} — the norm/rope "
                 "sub-tile span is part of the assembly, not a free "
                 "compile knob")
+        if self._pending_pf is not None:
+            raise ValueError(
+                f"prefetch of tile {self._pending_pf[0]} never consumed — "
+                "the kernel would exit with an outstanding warm on the "
+                "reserved slot (emit the matching "
+                "gemm(prefetch_first=True))")
         if self._pending_pf_mat is not None:
             raise ValueError(
                 f"matrix prefetch of wsm base {self._pending_pf_mat[1]} "
@@ -977,13 +1006,16 @@ class CompiledMegaKernel:
              wsm: torch.Tensor | None = None, *,
              ws8: torch.Tensor | None = None,
              wkv8: torch.Tensor | None = None,
-             live_rows: int = TILE) -> torch.Tensor:
+             live_rows: int = TILE, profile: bool = False):
         """One queue execution over the workspace, in place; returns
         ``ws``. ``queue``: a host-retargeted copy of :attr:`queue`
         (default: the compiled one). ``ws8``: the e4m3 weight workspace
         of a program with GEMM_WIDE_W8 tasks; ``wkv8``: the kv8
         workspace, which a program with e4m3 pools needs (updated in
-        place too).
+        place too). ``profile=True``: the kernel also stamps each task's
+        dispatch record into an int32 (num_exec, 128) dump and the return
+        becomes ``(ws, dump)``; decode it with
+        ``obs.kernel_profile.KernelProfile.from_dump``.
         ``live_rows``: the rows of every 128-row block that carry data —
         the CUDA kernel computes only those (every handler is
         row-independent); the plain version computes all rows."""
@@ -1028,4 +1060,5 @@ class CompiledMegaKernel:
                          ws8=ws8, wkv8=wkv8,
                          num_exec=self.num_exec, mat_specs=self.mat_specs,
                          used_types=self.used_types, head_dim=self.head_dim,
-                         sync_before=self.sync_before, live_rows=live_rows)
+                         sync_before=self.sync_before, live_rows=live_rows,
+                         profile=profile)

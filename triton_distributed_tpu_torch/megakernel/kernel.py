@@ -11,10 +11,12 @@ serving program — with e4m3 pools (types 24/25 over the kv8 workspace)
 and the speculative window (the causal fold of types 9/24, the windowed
 append of 14/25) — and of the linear decode programs in both weight
 layouts (GQA / single-head attention over a linear cache, GEMM_WIDE and
-GEMM_WIDE_W8 over weight tiles, per-head NORM_ROPE, ADD_NORM and the
-row-wise elementwise types), and the Qwen3-MoE FFN's MOE_TOPK and MOE_FFN.
-:func:`run_queue` refuses any other type before launch, a window wider
-than :data:`MAX_LIVE_ROWS`, and a MoE batch wider than the live rows.
+GEMM_WIDE_W8 over weight tiles with their PREFETCH / PREFETCH_W8 warms,
+per-head NORM_ROPE, ADD_NORM and the row-wise elementwise types), and the
+Qwen3-MoE FFN's MOE_TOPK and MOE_FFN, on 1 to TILE live rows a block.
+:func:`run_queue` refuses the multi-rank types (ALLREDUCE,
+ALLREDUCE_ROW) before launch. ``profile=True`` adds the per-task
+dispatch dump of the TPU kernel's ``_stamp_profile``.
 
 :func:`run_queue_plain` is the same interpreter in plain PyTorch: it walks
 the queue rows in order with one handler per type on full 128-row tiles,
@@ -45,6 +47,7 @@ PORTED_TYPES = frozenset({
     TaskType.ADD_NORM, TaskType.NORM_ROPE_QKV, TaskType.PREFETCH_MAT,
     TaskType.ATTN_DECODE_PAGED_F8, TaskType.APPEND_KV_F8,
     TaskType.MOE_TOPK, TaskType.MOE_FFN,
+    TaskType.PREFETCH, TaskType.PREFETCH_W8,
 })
 _ATTN = (int(TaskType.ATTN_DECODE_PAGED), int(TaskType.ATTN_DECODE_PAGED_F8))
 _ATTN_LINEAR = (int(TaskType.ATTN_DECODE), int(TaskType.ATTN_DECODE_GQA))
@@ -57,27 +60,28 @@ _PAGED_PROGRAM = tuple(int(t) for t in (
     TaskType.RMS_NORM, TaskType.ATTN_DECODE_PAGED, TaskType.APPEND_KV,
     TaskType.GEMM_MAT, TaskType.NORM_ROPE_QKV, TaskType.PREFETCH_MAT,
     TaskType.ATTN_DECODE_PAGED_F8, TaskType.APPEND_KV_F8))
-_GEMM_WIDE = (int(TaskType.GEMM_WIDE), int(TaskType.GEMM_WIDE_W8))
 _MOE = (int(TaskType.MOE_TOPK), int(TaskType.MOE_FFN))
+_WARMS = (int(TaskType.PREFETCH), int(TaskType.PREFETCH_W8),
+          int(TaskType.PREFETCH_MAT))
 _EW = {int(TaskType.COPY): lambda a, b, f: a,
        int(TaskType.ADD): lambda a, b, f: a + b,
        int(TaskType.SILU_MUL): lambda a, b, f: torch.nn.functional.silu(a) * b,
        int(TaskType.SCALE): lambda a, b, f: a * f}
-MAX_LIVE_ROWS = 4        # rows per 128-row block the CUDA kernel computes
+MAX_LIVE_ROWS = TILE     # rows per 128-row block the CUDA kernel computes
+PROF_LANES = TILE        # int32 lanes of one profile-dump row
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _NEG = -1e30
 
 MEGA_KERNEL = CudaKernel(
     "megakernel.cu", "megakernel_run",
-    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
 
 
 class MegakernelUnsupportedError(ValueError):
     """The program, queue or configuration needs a part of the megakernel
-    the port has not ported yet (a task type, a speculative window wider
-    than the kernel's live rows, a page shape). Raised by name: the port
-    has no backend ladder, and a silent demotion would hide the
-    kernel."""
+    the port has not ported yet (the multi-rank task types, a page
+    shape). Raised by name: the port has no backend ladder, and a silent
+    demotion would hide the kernel."""
 
 
 def _type_name(t: int) -> str:
@@ -90,13 +94,12 @@ def _type_name(t: int) -> str:
 def check_queue(queue: np.ndarray, num_exec: int,
                 used_types=None) -> None:
     """Refuse a program or queue the interpreters cannot run: a task type
-    outside :data:`PORTED_TYPES`, or a speculative window past the
-    :data:`MAX_LIVE_ROWS` rows the CUDA kernel computes per slot block —
-    an attention row's window (word 5), or a windowed append reading
-    source rows ``[word 7, word 7 + word 4)`` —, or a MOE_TOPK routing
-    more rows than that (word 9); also a GEMM_WIDE consuming a PREFETCH
-    warm (word 8 = 1; the warm is not ported). Both interpreters refuse
-    alike, so a CPU run never accepts what the card would not."""
+    outside :data:`PORTED_TYPES` (the multi-rank ALLREDUCE /
+    ALLREDUCE_ROW, or no type at all), or rows past a 128-row block — an
+    attention row's speculative window (word 5), a windowed append
+    reading source rows ``[word 7, word 7 + word 4)``, or a MOE_TOPK
+    batch (word 9) above TILE. Both interpreters refuse alike, so a CPU
+    run never accepts what the card would not."""
     if used_types is not None:
         bad = sorted(int(t) for t in used_types if t not in PORTED_TYPES)
         if bad:
@@ -116,27 +119,19 @@ def check_queue(queue: np.ndarray, num_exec: int,
     if np.any(attn[:, 5] > MAX_LIVE_ROWS):
         raise MegakernelUnsupportedError(
             f"attention row with a speculative window of "
-            f"{int(attn[:, 5].max())} rows: the megakernel computes at most "
-            f"{MAX_LIVE_ROWS} per slot block — spec_window <= "
-            f"{MAX_LIVE_ROWS}")
-    wide = rows[np.isin(types, _GEMM_WIDE)]
-    if np.any(wide[:, 8] == 1):
-        raise MegakernelUnsupportedError(
-            "GEMM_WIDE row consuming a PREFETCH warm (word 8 = 1): the "
-            "single-tile weight warm is not ported")
+            f"{int(attn[:, 5].max())} rows: a window rides the "
+            f"{MAX_LIVE_ROWS} rows of one slot block")
     app = rows[np.isin(types, _APPEND)]
     live = app[:, 8] >= 0
     if np.any(live & (app[:, 4] > 0) & (app[:, 7] + app[:, 4] > MAX_LIVE_ROWS)):
         raise MegakernelUnsupportedError(
             "windowed append reading source rows past the "
-            f"{MAX_LIVE_ROWS} live rows of a slot block — spec_window <= "
-            f"{MAX_LIVE_ROWS}")
+            f"{MAX_LIVE_ROWS} rows of a slot block")
     topk = rows[types == int(TaskType.MOE_TOPK)]
     if np.any(topk[:, 9] > MAX_LIVE_ROWS):
         raise MegakernelUnsupportedError(
-            f"MOE_TOPK over a batch of {int(topk[:, 9].max())} rows: the "
-            f"megakernel computes at most {MAX_LIVE_ROWS} rows per block — "
-            f"MoE batch <= {MAX_LIVE_ROWS}")
+            f"MOE_TOPK over a batch of {int(topk[:, 9].max())} rows: one "
+            f"(B, E) logits tile holds at most {MAX_LIVE_ROWS}")
 
 
 def gemm_chunk_rows(k: int) -> int:
@@ -150,27 +145,40 @@ def run_queue(queue, ws: torch.Tensor, wsm: torch.Tensor | None, *,
               head_dim: int = TILE, sync_before=None,
               live_rows: int = TILE,
               ws8: torch.Tensor | None = None,
-              wkv8: torch.Tensor | None = None) -> torch.Tensor:
+              wkv8: torch.Tensor | None = None,
+              profile: bool = False):
     """Execute the packed task queue over the workspace, in place; returns
     ``ws``. The CUDA interpreter on a CUDA workspace (one launch; rows
     ``[0, live_rows)`` of every 128-row block), the plain version on a CPU
     one (every row). ``sync_before``: the builder's per-row barrier flags
     (``builder.barrier_rows``), needed on the card. ``ws8``: the e4m3
-    weight workspace of a program with GEMM_WIDE_W8 tasks (read-only);
-    ``wkv8``: the e4m3 KV-pool workspace of a program with types 24/25
-    (updated in place)."""
+    weight workspace of a program with GEMM_WIDE_W8 / PREFETCH_W8 tasks
+    (read-only); ``wkv8``: the e4m3 KV-pool workspace of a program with
+    types 24/25 (updated in place). ``profile``: also return the int32
+    (num_exec, 128) dispatch dump — row t is ``[t, *queue row t]``, the
+    other lanes -1 — as ``(ws, dump)``."""
     q = np.ascontiguousarray(queue, np.int32)
     check_queue(q, num_exec, used_types)
     if ws.device.type == "cuda":
         return _run_queue_cuda(q, ws, wsm, num_exec=num_exec,
                                mat_specs=mat_specs, head_dim=head_dim,
                                sync_before=sync_before, live_rows=live_rows,
-                               ws8=ws8, wkv8=wkv8)
+                               ws8=ws8, wkv8=wkv8, profile=profile)
     if ws.device.type == "cpu":
         return run_queue_plain(q, ws, wsm, num_exec=num_exec,
                                mat_specs=mat_specs, head_dim=head_dim,
-                               ws8=ws8, wkv8=wkv8)
+                               ws8=ws8, wkv8=wkv8, profile=profile)
     raise ValueError(f"megakernel: no kernel for device {ws.device}")
+
+
+def profile_dump(queue: np.ndarray, num_exec: int) -> np.ndarray:
+    """The dump a profiled run of ``queue`` stamps, built on the host:
+    row t = [t, *queue row t], the other lanes -1 (the plain version's
+    stamp, and the card's yardstick)."""
+    dump = np.full((num_exec, PROF_LANES), -1, np.int32)
+    dump[:, 0] = np.arange(num_exec)
+    dump[:, 1:1 + WORDS] = np.asarray(queue, np.int32)[:num_exec]
+    return dump
 
 
 # ---------------------------------------------------------------------------
@@ -217,18 +225,21 @@ def _check_e4m3_ws(q: np.ndarray, num_exec: int, ws, w8, name: str,
 
 def _check_side_workspaces(q, num_exec, ws, ws8, wkv8) -> None:
     _check_e4m3_ws(q, num_exec, ws, ws8, "ws8",
-                   (int(TaskType.GEMM_WIDE_W8),),
-                   "e4m3-weight tasks (type 15)")
+                   (int(TaskType.GEMM_WIDE_W8), int(TaskType.PREFETCH_W8)),
+                   "e4m3-weight tasks (types 15/16)")
     _check_e4m3_ws(q, num_exec, ws, wkv8, "wkv8", _KV8,
                    "e4m3-pool tasks (types 24/25)")
 
 
 def cuda_launcher(q: np.ndarray, ws, wsm, *, num_exec, mat_specs,
-                  head_dim, sync_before, live_rows, ws8=None, wkv8=None):
+                  head_dim, sync_before, live_rows, ws8=None, wkv8=None,
+                  profile: bool = False):
     """Check the operands, upload the queue (with the barrier flags and
     the GEMM_MAT spec table) and the partial-sum scratch, and return a
     zero-argument function that launches the kernel on them — so a timing
-    loop can launch without re-uploading."""
+    loop can launch without re-uploading. ``profile``: the launches also
+    stamp the dispatch dump into ``launch.prof`` (int32 (num_exec, 128),
+    -1 where nothing is stamped)."""
     if ws.dtype not in _DTYPE_CODE:
         raise ValueError(f"megakernel: workspace dtype {ws.dtype} "
                          "unsupported (float32 or bfloat16)")
@@ -267,18 +278,22 @@ def cuda_launcher(q: np.ndarray, ws, wsm, *, num_exec, mat_specs,
     partial = torch.empty(
         (_scratch_floats(q, num_exec, mat_specs, live_rows),),
         dtype=torch.float32, device=ws.device)
+    prof = (torch.full((num_exec, PROF_LANES), -1, dtype=torch.int32,
+                       device=ws.device) if profile else None)
     base = dev.data_ptr()
     args = (ctypes.c_void_p(base), ctypes.c_void_p(base + 4 * n_q),
             ctypes.c_void_p(base + 4 * (n_q + num_exec)),
-            ptr(ws), ptr(wsm), ptr(ws8), ptr(wkv8), ptr(partial),
+            ptr(ws), ptr(wsm), ptr(ws8), ptr(wkv8), ptr(partial), ptr(prof),
             int(num_exec), int(live_rows), int(head_dim),
-            _DTYPE_CODE[ws.dtype], _kernel_body(q, num_exec))
+            _DTYPE_CODE[ws.dtype], _kernel_body(q, num_exec, profile))
 
     variants = tuple(name for name, on in (
         ("full", args[-1] > 0),
         ("moe", args[-1] == 2),
         ("kv8", wkv8 is not None),
-        ("window", bool((rows[np.isin(rows[:, 0], _ATTN), 5] > 0).any())))
+        ("window", bool((rows[np.isin(rows[:, 0], _ATTN), 5] > 0).any())),
+        ("rows", live_rows > 4),
+        ("profile", profile))
         if on)
 
     def launch():
@@ -286,6 +301,7 @@ def cuda_launcher(q: np.ndarray, ws, wsm, *, num_exec, mat_specs,
                            variants=variants)
 
     launch.buffers = (dev, partial, wsm, ws8, wkv8)   # alive with the pointers
+    launch.prof = prof
     return launch
 
 
@@ -297,14 +313,16 @@ def _full_kernel(q: np.ndarray, num_exec: int) -> bool:
     return bool((~np.isin(q[:num_exec, 0], _PAGED_PROGRAM)).any())
 
 
-def _kernel_body(q: np.ndarray, num_exec: int) -> int:
+def _kernel_body(q: np.ndarray, num_exec: int,
+                 profile: bool = False) -> int:
     """The instantiation the queue launches: 0 the lean body, 1 the full
     body of the non-MoE types, 2 the full body with MOE_TOPK / MOE_FFN
     (their 4-row loops would take the register file from the linear
-    programs' GEMMs if the two shared a body)."""
-    if not _full_kernel(q, num_exec):
-        return 0
-    return 2 if np.isin(q[:num_exec, 0], _MOE).any() else 1
+    programs' GEMMs if the two shared a body). Only the full bodies have
+    profiled instantiations, so a profiled paged program runs body 1."""
+    if np.isin(q[:num_exec, 0], _MOE).any():
+        return 2
+    return 1 if profile or _full_kernel(q, num_exec) else 0
 
 
 def grid_blocks(dtype: torch.dtype, full: bool = False,
@@ -318,8 +336,9 @@ def grid_blocks(dtype: torch.dtype, full: bool = False,
 
 
 def _run_queue_cuda(q: np.ndarray, ws, wsm, **kw):
-    cuda_launcher(q, ws, wsm, **kw)()
-    return ws
+    launch = cuda_launcher(q, ws, wsm, **kw)
+    launch()
+    return (ws, launch.prof) if kw.get("profile") else ws
 
 
 # ---------------------------------------------------------------------------
@@ -605,12 +624,14 @@ def run_queue_plain(queue, ws: torch.Tensor, wsm: torch.Tensor | None, *,
                     num_exec: int, mat_specs: tuple,
                     head_dim: int = TILE,
                     ws8: torch.Tensor | None = None,
-                    wkv8: torch.Tensor | None = None) -> torch.Tensor:
+                    wkv8: torch.Tensor | None = None,
+                    profile: bool = False):
     """The megakernel's function in plain PyTorch: the queue rows in
     order, one handler per type, every row of every tile, fp32 compute
     and stores in the workspace dtype (e4m3 through the saturating cast
     in ``wkv8``). Updates ``ws`` (and ``wkv8``) in place and returns
-    ``ws``."""
+    ``ws``, or ``(ws, dump)`` with ``profile`` (:func:`profile_dump`, on
+    the workspace's device)."""
     MEGA_KERNEL.plain_calls += 1
     q = np.ascontiguousarray(queue, np.int32)
     check_queue(q, num_exec)
@@ -644,8 +665,8 @@ def run_queue_plain(queue, ws: torch.Tensor, wsm: torch.Tensor | None, *,
             _p_append_kv(ws, row, wkv8)
         elif t == TaskType.GEMM_MAT:
             _p_gemm_mat(ws, wsm, row, mat_specs)
-        elif t == TaskType.PREFETCH_MAT:
-            pass    # a DMA warm on the TPU: no arithmetic effect
+        elif t in _WARMS:
+            pass    # a DMA warm on the TPU, an L2 warm here: no value
         elif t == TaskType.MOE_TOPK:
             _p_moe_topk(ws, row)
         elif t == TaskType.MOE_FFN:
@@ -653,4 +674,6 @@ def run_queue_plain(queue, ws: torch.Tensor, wsm: torch.Tensor | None, *,
         else:
             raise MegakernelUnsupportedError(
                 f"task type {_type_name(t)} is not ported")
+    if profile:
+        return ws, torch.from_numpy(profile_dump(q, num_exec)).to(ws.device)
     return ws

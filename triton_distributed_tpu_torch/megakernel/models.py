@@ -36,7 +36,7 @@ appends:
   norm). The MoE programs also build without in-kernel appends
   (``inkernel_append=False``: the host feeds the caches, the batch rows
   share them) — the form of the JAX package's MoE tests, at a batch of up
-  to :data:`~.kernel.MAX_LIVE_ROWS` rows.
+  to TILE rows.
 
 Allocation and emission follow the JAX assembly step for step, so the
 compiled queues are equal word for word.
@@ -51,9 +51,6 @@ import torch
 
 from triton_distributed_tpu_torch.layers.common import rope_cos_sin
 from triton_distributed_tpu_torch.megakernel.builder import MegaKernelBuilder
-from triton_distributed_tpu_torch.megakernel.kernel import (
-    MegakernelUnsupportedError,
-)
 from triton_distributed_tpu_torch.megakernel.tasks import (
     TILE, MatHandle, TaskType, TensorHandle,
 )
@@ -507,12 +504,6 @@ def _check_decode_step_config(*, hidden, hq_local, hkv_local, ffn_local,
                 f"spec_window = {spec_window} > 1 with MoE: the "
                 "megakernel serving lane covers the dense stack — "
                 "config field num_experts")
-    if moe_experts and (seq_blocks or fp8_weights):
-        # The JAX assembly takes these; no decoder of the port builds them.
-        raise MegakernelUnsupportedError(
-            "MoE in the paged serving form or over e4m3 weight tiles is not "
-            "ported: the MoE programs build the matrix-layout linear form "
-            "— kv_pool_pages / fp8_weights arguments")
     if num_layers < 1:
         raise ValueError(f"num_layers = {num_layers} must be >= 1 — "
                          "config field num_layers")
@@ -630,9 +621,14 @@ def build_decode_step(*, hidden: int, hq_local: int, hkv_local: int,
             wk = mb.tensor(hidden, hkv_local * d, fp8=True)
             wv = mb.tensor(hidden, hkv_local * d, fp8=True)
             wo = mb.tensor(hq_local * d, hidden, fp8=True)
-            w_gate = mb.tensor(hidden, ffn_local, fp8=True)
-            w_up = mb.tensor(hidden, ffn_local, fp8=True)
-            w_down = mb.tensor(ffn_local, hidden, fp8=True)
+            # A MoE layer's dense-FFN fields alias the expert stacks (the
+            # MoE branch reads moe_w_*), as the JAX assembly allocates.
+            w_gate = moe_w_gate if moe else mb.tensor(hidden, ffn_local,
+                                                      fp8=True)
+            w_up = moe_w_up if moe else mb.tensor(hidden, ffn_local,
+                                                  fp8=True)
+            w_down = moe_w_down if moe else mb.tensor(ffn_local, hidden,
+                                                      fp8=True)
             k_new = mb.tensor(TILE, hkv_local * d)
             v_new = mb.tensor(TILE, hkv_local * d)
         if seq_blocks:

@@ -11,16 +11,18 @@ Two decoders share the weight feeds:
   ``advance_queue_pos`` retargets the queue per position), plus the
   embedding row in and the final RMSNorm, lm_head and greedy argmax out.
   Matrix weight layout in the workspace dtype, or ``fp8_weights``: the
-  tile layout over an e4m3 weight workspace.
+  tile layout over an e4m3 weight workspace. ``profile=True`` keeps each
+  step's per-task dispatch dump on ``last_profile``
+  (``obs.kernel_profile``).
 * :class:`PagedMegakernelDecoder` — the serving tier's lane: prefill runs
   elsewhere (the engine's chunked prefill through K1), a finished prompt's
   KV pages scatter into the workspace pools, and every decode step is ONE
   launch over every slot. It serves e4m3 KV pools (``kv_dtype``: the kv8
   workspace beside the main one) and the speculative window
-  (``spec_window`` W <= 4 candidate rows per slot).
+  (``spec_window`` W <= TILE candidate rows per slot).
 
-Not ported: ``num_ranks > 1`` (the in-kernel AllReduce tasks), the
-per-task profile dump, and ``copy_page`` (prefix copy-on-write).
+Not ported: ``num_ranks > 1`` (the in-kernel AllReduce tasks) and
+``copy_page`` (prefix copy-on-write).
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ import torch
 
 from triton_distributed_tpu_torch.layers.common import rms_norm
 from triton_distributed_tpu_torch.megakernel.kernel import (
-    MAX_LIVE_ROWS, MegakernelUnsupportedError,
+    MegakernelUnsupportedError,
 )
 from triton_distributed_tpu_torch.megakernel.models import (
     DecodeStepProgram, advance_queue_pos, broadcast_rows, build_decode_step,
@@ -146,9 +148,11 @@ class MegakernelDecoder:
     the model's final RMSNorm runs in the kernel, fused into the last
     layer's tail. ``device=None`` means the card; the CPU runs the
     kernel's plain version and only when asked for (``device="cpu"``).
-    ``num_ranks > 1`` and ``profile=True`` need the AllReduce tasks and
-    the profile stamp, which the port's kernel does not have: both raise
-    :class:`MegakernelUnsupportedError`."""
+    ``profile``: every step also stamps the kernel's per-task dispatch
+    dump (int32 (num_exec, 128)); the newest is kept on
+    :attr:`last_profile`, so steps stay (ws, tok)-shaped. ``num_ranks >
+    1`` needs the AllReduce tasks, which the port's kernel does not have:
+    it raises :class:`MegakernelUnsupportedError`."""
 
     def __init__(self, cfg: ModelConfig, params: dict, *, max_seq: int,
                  dtype=torch.float32, device=None, num_ranks: int = 1,
@@ -160,11 +164,9 @@ class MegakernelDecoder:
                 f"num_ranks = {num_ranks}: tensor-parallel megakernel "
                 "decode needs the in-kernel AllReduce tasks (ALLREDUCE, "
                 "ALLREDUCE_ROW), which are not ported — one rank only")
-        if profile:
-            raise MegakernelUnsupportedError(
-                "profile=True needs the kernel's per-task profile stamp, "
-                "which is not ported")
         self.cfg = cfg
+        self.profile = profile
+        self.last_profile: torch.Tensor | None = None
         self.max_seq = max_seq
         self.device = resolve_device(device)
         self.dtype = torch_dtype(dtype)
@@ -253,9 +255,13 @@ class MegakernelDecoder:
         return queue
 
     def launch(self, ws: torch.Tensor, queue: np.ndarray) -> torch.Tensor:
-        """The step's one megakernel launch (row 0 of every tile)."""
-        return self.comp.step(ws, queue, self._wsm, ws8=self._ws8,
-                              live_rows=1)
+        """The step's one megakernel launch (row 0 of every tile); with
+        ``profile``, its dispatch dump goes to :attr:`last_profile`."""
+        out = self.comp.step(ws, queue, self._wsm, ws8=self._ws8,
+                             live_rows=1, profile=self.profile)
+        if self.profile:
+            ws, self.last_profile = out
+        return ws
 
     def next_token(self, ws: torch.Tensor) -> torch.Tensor:
         """Final RMSNorm (unless it ran in the kernel), lm_head and
@@ -309,9 +315,8 @@ class PagedMegakernelDecoder:
     the ``(main, kv8)`` pair :meth:`start` returns, carried through
     :meth:`load_prefill` and :meth:`step`. ``spec_window`` W > 1: the
     draft-and-verify program — :meth:`step` takes (B, W) candidate tokens
-    and per-slot windows and returns (B, W) verifier tokens. The kernel
-    computes W rows per slot block, so W is at most
-    ``kernel.MAX_LIVE_ROWS`` (4)."""
+    and per-slot windows and returns (B, W) verifier tokens. The window
+    rides the rows of one slot block, so W is at most TILE."""
 
     def __init__(self, cfg: ModelConfig, params: dict, *, num_slots: int,
                  num_pages: int, max_pages: int, device=None, dtype=None,
@@ -321,11 +326,11 @@ class PagedMegakernelDecoder:
         if num_slots < 1:
             raise ValueError(f"num_slots = {num_slots} must be >= 1")
         self.spec_w = int(spec_window)
-        if self.spec_w > MAX_LIVE_ROWS:
+        if self.spec_w > TILE:
             raise MegakernelUnsupportedError(
-                f"spec_window = {self.spec_w}: the megakernel computes at "
-                f"most {MAX_LIVE_ROWS} rows per slot block — serve "
-                f"spec_k <= {MAX_LIVE_ROWS - 1} on this lane")
+                f"spec_window = {self.spec_w}: the candidate window rides "
+                f"the {TILE} rows of one slot block — serve spec_k <= "
+                f"{TILE - 1} on this lane")
         if num_pages < 1:
             raise ValueError(f"num_pages = {num_pages} must be >= 1")
         if max_pages < 1:

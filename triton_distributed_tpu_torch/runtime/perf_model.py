@@ -40,6 +40,11 @@ class ChipSpec:
     # Sustained share of the peak a well-tiled GEMM reaches; ranking only
     # needs it to be the same for every tile.
     gemm_efficiency: float = 0.6
+    # One card's NVLink to a peer, per direction, GB/s, and a hop's
+    # latency: what a cross-card push is charged (the reference's ICI link
+    # parameters).
+    link_gbps: float = 450.0
+    link_latency_s: float = 1e-6
 
     def peak_tflops(self, itemsize: int) -> float:
         """The peak for an operand type of ``itemsize`` bytes."""

@@ -43,9 +43,9 @@ Two decode features ride both lanes:
   (``dense_verify_step_paged`` eagerly, the megakernel's windowed program
   with ``spec_window = spec_k + 1`` on the persistent lane); the longest
   accepted prefix is kept and the rejected positions are rolled back
-  (``kv_len`` truncation and ``PageAllocator.free_tail``). The megakernel
-  lane serves ``spec_k <= 3`` (its kernel computes at most 4 rows per
-  slot block) and raises :class:`MegakernelUnsupportedError` above.
+  (``kv_len`` truncation and ``PageAllocator.free_tail``). On the
+  megakernel lane the window rides one 128-row slot block: ``spec_k``
+  up to 127, :class:`MegakernelUnsupportedError` above.
 
 Greedy decoding end to end, so each request's tokens are identical to a
 sequential ``Engine.serve`` of its prompt, with or without drafts. Not in
@@ -61,7 +61,6 @@ import time
 import numpy as np
 import torch
 
-from triton_distributed_tpu_torch.megakernel.kernel import MAX_LIVE_ROWS
 from triton_distributed_tpu_torch.megakernel.serving import (
     MegakernelUnsupportedError, PagedMegakernelDecoder,
     validate_megakernel_cfg,
@@ -195,13 +194,8 @@ class ServingEngine:
                                ) -> PagedMegakernelDecoder:
         """The paged persistent-kernel decoder, or a named
         MegakernelUnsupportedError saying which dimension the lane cannot
-        serve (page shape, model geometry, draft depth)."""
-        if self.spec_k + 1 > MAX_LIVE_ROWS:
-            raise MegakernelUnsupportedError(
-                f"spec_k = {self.spec_k} needs a candidate window of "
-                f"{self.spec_k + 1} rows per slot; the megakernel computes "
-                f"at most {MAX_LIVE_ROWS} — serve spec_k <= "
-                f"{MAX_LIVE_ROWS - 1} on this lane")
+        serve (page shape, model geometry; the decoder names a draft depth
+        past one slot block)."""
         if self.page != TILE:
             raise MegakernelUnsupportedError(
                 f"megakernel paged workspace needs page_size == TILE "
