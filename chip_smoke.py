@@ -84,6 +84,25 @@ printing one JSON line:
    tokens identical to ``fp8_emulated_dot``'s); last ``fp8_experts`` —
    one Qwen3-30B-A3B MoE layer over e4m3 expert stacks through B3 against
    its plain version, and one quantized decode step.
+10. tensor parallelism on n virtual ranks on cuda:0 (asked for
+   explicitly; the kernel code that would run across cards, only the peer
+   pointer table differs): ``collectives`` — the one-shot and parity-stream
+   AllReduce (B5), the ring reduce-scatter (B6) and the ring all-gather
+   (B4) of ``csrc/collectives.cu``, and the two-shot they make, at n = 2, 4
+   and 8, fp32 and bf16, 4-2048 rows x 4096, bit-identical to their plain
+   versions and timed (bound: the bytes every rank moves, all through the
+   one card's HBM); 200 back-to-back parity calls with a rotating rank held
+   back; a lost peer raising ``CommTimeoutError``; AUTO's method at every
+   AR payload the serving path runs; K1/K2 at one rank's TP=4 heads.
+   ``tp_serving`` — Qwen3-8B at full width and depth, bf16, through
+   ``ServingEngine(Engine(cfg, params, ctx of 4 ranks, page_size=16),
+   max_batch=4, prefill_chunk=256)`` over the six prompts x 32 tokens,
+   every kernel's launches as the path predicts (72 parity ARs a rank a
+   decode step, a two-shot per reduction of a slice), the decode window;
+   then ``spec_k=3`` (its verify steps take the one-shot). ``tp_parity`` —
+   float32, 2 layers: the TP=4 tokens identical to the TP=1 eager lane's
+   with a preemption, over workspace-dtype pools, e4m3 pools and with
+   ``spec_k=3``, and every rank's logits bit-identical.
 
 Then the kernel summary line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failed phase raises: exit code 1
@@ -98,6 +117,11 @@ import os
 import subprocess
 import sys
 import time
+
+# Virtual ranks run one stream each on one card: give every stream its own
+# hardware queue (the default is 8), so no rank's kernel queues behind a
+# peer's kernel that waits for it. Read when CUDA initialises.
+os.environ["CUDA_DEVICE_MAX_CONNECTIONS"] = "32"
 
 HBM_BYTES_PER_S = 3.35e12                                   # H100 SXM
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12,         # dense; fp32 = FMA
@@ -201,6 +225,15 @@ def nvidia_smi() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def nvidia_smi_all() -> str:
+    """Every card's name and power limit, one line each."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return out.stdout.strip()
 
 
 class Timer:
@@ -2988,6 +3021,605 @@ def segment_golden(eng, prompt, n, uninterrupted, cuts) -> list:
     return toks
 
 
+# ---------------------------------------------------------------------------
+# Tensor parallelism: the collective kernels (B4 ring AG, B5 one-shot and
+# parity-stream AR, B6 ring RS) and ServingEngine on a TP group of virtual
+# ranks on one card.
+# ---------------------------------------------------------------------------
+
+COLL_RANKS = (2, 4, 8)
+COLL_ROWS = (4, 16, 64, 256, 2048)
+COLL_COLS = 4096
+TP = 4                     # the TP group of the serving phases
+PARITY_CALLS = 200
+# The collectives' main-path shapes (n = 4, bf16, rows): decode's parity
+# AR over 4 slots, the verify step's one-shot over 4 x 4 rows, a 256-row
+# prefill slice's two-shot (its RS in, its AG out of 256 rows).
+COLL_MAIN = {"allreduce_parity": 4, "allreduce_one_shot": 16,
+             "reduce_scatter_ring": 256, "allgather_ring": 256}
+
+
+def virtual_devices(n: int) -> list:
+    """n virtual ranks on cuda:0 — asked for explicitly."""
+    return ["cuda:0"] * n
+
+
+def coll_modules():
+    import importlib
+
+    names = ("ops._comm", "ops.allreduce", "ops.reduce_scatter",
+             "ops.allgather", "runtime.context")
+    return [importlib.import_module(f"triton_distributed_tpu_torch.{n}")
+            for n in names]
+
+
+def _coll_ms(torch, ctx, fn, iters: int) -> tuple:
+    """Device time of one call of ``fn(rank)`` on every rank, without the
+    host in it: each rank's stream is held by a spin kernel while the rank
+    threads enqueue ``iters`` calls (meeting on the host before each
+    launch), then the calls run back to back; CUDA events on each rank's
+    stream around them, the slowest rank's span over ``iters``. The hold
+    is twice the host time the calls took in a warm-up; a measurement
+    whose enqueue outlasted its hold is taken again with twice the hold.
+    L2 is not flushed: the calls follow each other, as on the main path.
+    Returns (device ms a call, host ms a call)."""
+    comm = coll_modules()[0]
+    n = ctx.num_ranks
+    t0 = time.perf_counter()
+    ctx.run(lambda r: [fn(r) for _ in range(4)])
+    torch.cuda.synchronize()
+    host = (time.perf_counter() - t0) / 4
+    hold = 2 * host * iters + 0.02
+    for _ in range(4):
+        evs = [(torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True)) for _ in range(n)]
+
+        def body(r):
+            from triton_distributed_tpu_torch.runtime.build import (
+                current_stream,
+            )
+
+            comm.SPIN.launch(int(hold * 1e9), current_stream(ctx.devices[r]))
+            evs[r][0].record()
+            for _ in range(iters):
+                fn(r)
+            evs[r][1].record()
+
+        t0 = time.perf_counter()
+        ctx.run(body)
+        enqueue = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        ctx.raise_on_comm_error()
+        if enqueue < hold:
+            ms = max(s.elapsed_time(e) for s, e in evs) / iters
+            return ms, host * 1e3
+        hold *= 2
+    return "not measured: the host outran every hold", host * 1e3
+
+
+def coll_case(torch, timer, ctx, method: str, dtype, rows: int, seed: int,
+              time_it: bool) -> dict:
+    """One collective on every rank of ``ctx`` against its plain version
+    (bit for bit). ``rows``: the AR / RS input rows and the AG output
+    rows of one rank."""
+    comm, ar, rs, ag, _ = coll_modules()
+    n = ctx.num_ranks
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    cols = COLL_COLS
+    in_rows = rows // n if method == "allgather_ring" else rows
+    X = torch.randn((n, in_rows, cols), generator=g, device="cuda").to(dtype)
+    xs = [X[r].to(ctx.devices[r]) for r in range(n)]     # views on one card
+    item = X.element_size()
+    if method in ("allreduce_one_shot", "allreduce_two_shot"):
+        how = "one_shot" if method == "allreduce_one_shot" else "two_shot"
+
+        def fn(r):
+            return ar.all_reduce_local(xs[r], num_ranks=n, method=how)
+    elif method == "allreduce_parity":
+        ws, _ = ar.ar_stream_workspace(n, rows, cols, dtype, ctx=ctx,
+                                       tag=f"smoke-{rows}")
+        idx = [0] * n
+
+        def fn(r):
+            out, _, idx[r] = ar.all_reduce_stream(xs[r], ws, idx[r],
+                                                  num_ranks=n)
+            return out
+    elif method == "reduce_scatter_ring":
+        def fn(r):
+            return rs.reduce_scatter_local(xs[r], num_ranks=n)
+    else:
+        def fn(r):
+            return ag.all_gather_local(xs[r], num_ranks=n,
+                                       method="ring_1d")
+
+    xp = list(X)                 # the plain versions' inputs, one card
+
+    def plain_all():
+        if method in ("allreduce_one_shot", "allreduce_parity"):
+            s = ar.reduce_slots_plain(xp)
+            return [s] * n
+        if method == "reduce_scatter_ring":
+            return [rs.rs_ring_plain(xp, r) for r in range(n)]
+        if method == "allgather_ring":
+            return [ag.ag_plain(xp)] * n
+        full = ag.ag_plain([rs.rs_ring_plain(xp, c) for c in range(n)])
+        return [full] * n
+
+    got = [o.to(X.device) for o in ctx.run(fn)]
+    torch.cuda.synchronize()
+    ctx.raise_on_comm_error()
+    want = plain_all()
+    errs = [_max_err(a, b) for a, b in zip(got, want)]
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    ranks_same = all(torch.equal(got[0], o) for o in got[1:]) \
+        if method != "reduce_scatter_ring" else True
+    rec = {"case": f"{method}_n{n}_{_dtype_name(dtype)}_{rows}",
+           "method": method, "n": n, "dtype": _dtype_name(dtype),
+           "rows": rows, "cols": cols, "max_abs_err": max(errs),
+           "bit_identical": same, "ranks_identical": ranks_same,
+           "ok": bool(same and ranks_same
+                      and all(torch.isfinite(o).all().item() for o in got))}
+    if time_it:
+        B = rows * cols * item           # one rank's full payload
+        # The bytes every rank must move, all through the one card's HBM
+        # (virtual ranks): each input read once, each output written once.
+        nbytes = {"allreduce_one_shot": 2 * n * B, "allreduce_parity":
+                  2 * n * B, "allreduce_two_shot": 2 * n * B,
+                  "reduce_scatter_ring": n * B + B,
+                  "allgather_ring": B + n * B}[method]
+        adds = (n - 1) * rows * cols
+        rec["bound_ms"], rec["bound_by"] = _bound_ms(nbytes, adds, "float32")
+        rec["bound_note"] = ("bytes every rank moves, all through one "
+                             "card's HBM at 3.35 TB/s (virtual ranks)")
+        rec["ms"], rec["host_ms_per_call"] = _coll_ms(torch, ctx, fn, 20)
+        rec["plain_ms"] = timer.ms(plain_all)
+        if method == "allgather_ring":
+            rec["library_ms"] = timer.ms(lambda: torch.cat(xp))
+            rec["library_call"] = "torch.cat (one gathered copy)"
+        else:
+            rec["library_ms"] = timer.ms(lambda: X.sum(0))
+            rec["library_call"] = "X.sum(0) over the stacked inputs (one sum)"
+    return rec
+
+
+def parity_stress(torch, ctx, dtype, rows: int, calls: int) -> dict:
+    """``calls`` back-to-back parity ARs on every rank over one persistent
+    workspace, new inputs every call, a rotating rank held back by a
+    50 us spin on every third: every result must equal its plain sum."""
+    comm, ar, _, _, _ = coll_modules()
+    n = ctx.num_ranks
+    g = torch.Generator(device="cuda").manual_seed(77)
+    X = torch.randn((calls, n, rows, COLL_COLS), generator=g,
+                    device="cuda").to(dtype)
+    ws, _ = ar.ar_stream_workspace(n, rows, COLL_COLS, dtype, ctx=ctx,
+                                   tag="stress")
+
+    def loop(r):
+        idx, outs = 0, []
+        xr = X[:, r].to(ctx.devices[r])
+        for t in range(calls):
+            strag = ("rotate", 50_000) if t % 3 == 0 else None
+            out, _, idx = ar.all_reduce_stream(xr[t], ws, idx,
+                                               num_ranks=n, straggler=strag)
+            outs.append(out)
+        return torch.stack(outs)
+
+    got = [o.to(X.device) for o in ctx.run(loop)]
+    torch.cuda.synchronize()
+    ctx.raise_on_comm_error()
+    bad = [t for t in range(calls)
+           if not all(torch.equal(got[r][t], ar.reduce_slots_plain(
+               list(X[t]))) for r in range(n))]
+    return {"calls": calls, "n": n, "rows": rows,
+            "dtype": _dtype_name(dtype), "straggler": "rotate, 50 us, "
+            "every third call", "calls_wrong": bad, "ok": not bad}
+
+
+def timeout_case(torch, devices) -> dict:
+    """No wait hangs (100 ms deadlines). A lost peer — rank n-1 never
+    calls — leaves the others at the host meeting before the launch:
+    ``ctx.run`` raises CommTimeoutError. A peer held back on the device
+    past the deadline — rank n-1's stream spins 1 s before its parity AR
+    — leaves the others' kernels spinning: they time out, write their
+    error words and return, and ``raise_on_comm_error`` raises."""
+    _, ar, _, _, context = coll_modules()
+    out = {}
+    for what in ("lost_peer", "held_back_peer"):
+        ctx = context.DistContext([torch.device(d) for d in devices],
+                                  wait_timeout_ms=100)
+        n = ctx.num_ranks
+        ws, _ = ar.ar_stream_workspace(n, 4, COLL_COLS, torch.float32,
+                                       ctx=ctx, tag="timeout")
+        t0 = time.perf_counter()
+        raised = None
+        try:
+            if what == "lost_peer":
+                ctx.run(lambda r: None if r == n - 1 else
+                        ar.all_reduce_local(
+                            torch.ones((4, COLL_COLS), device=ctx.devices[r]),
+                            num_ranks=n, method="one_shot"))
+            else:
+                ctx.run(lambda r: ar.all_reduce_stream(
+                    torch.ones((4, COLL_COLS), device=ctx.devices[r]), ws,
+                    0, num_ranks=n, straggler=(n - 1, 1_000_000_000)))
+            torch.cuda.synchronize()
+            ctx.raise_on_comm_error()
+        except context.CommTimeoutError as exc:
+            raised = str(exc)
+        torch.cuda.synchronize()
+        out[what] = {"raised": raised, "wall_s": time.perf_counter() - t0}
+        ctx.close()
+    return {"n": len(devices), "timeout_ms": 100, **out,
+            "ok": all(v["raised"] for v in out.values())}
+
+
+def phase_collectives(torch, timer, fa, pa, *, devices_for=virtual_devices,
+                      ranks=COLL_RANKS, name="collectives") -> dict:
+    """Every collective kernel at n = 2, 4 and 8 ranks, fp32 and bf16, at
+    4-2048 rows x 4096, against its plain version (bit for bit), timed;
+    the 200-call parity stress; a lost peer's timeout; AUTO's choices;
+    K1 and K2 at one rank's TP=4 heads (8 q, 2 kv: GQA group 4)."""
+    comm, ar, rs, ag, context = coll_modules()
+    from triton_distributed_tpu_torch.runtime.perf_model import chip_spec
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases: dict = {}
+    methods = ("allreduce_one_shot", "allreduce_parity",
+               "reduce_scatter_ring", "allgather_ring",
+               "allreduce_two_shot")
+    seed = 100
+    for n in ranks:
+        ctx = context.DistContext(
+            [torch.device(d) for d in devices_for(n)], wait_timeout_ms=20_000)
+        for dtype in (f32, bf16):
+            for rows in COLL_ROWS:
+                for method in methods:
+                    if method != "allreduce_one_shot" and \
+                            method != "allreduce_parity" and rows % n:
+                        continue
+                    seed += 1
+                    try:
+                        rec = coll_case(torch, timer, ctx, method, dtype,
+                                        rows, seed, time_it=True)
+                    except Exception as exc:
+                        emit({"phase": name, "failed_case": {
+                            "method": method, "n": n, "rows": rows,
+                            "dtype": _dtype_name(dtype)},
+                            "error": repr(exc)})
+                        raise
+                    cases.setdefault(method, []).append(rec)
+        if n == TP:
+            stress = parity_stress(torch, ctx, bf16, 4, PARITY_CALLS)
+        ctx.close()
+        del ctx
+        torch.cuda.empty_cache()
+    spec = chip_spec()
+    auto = {f"{rows}x{COLL_COLS}_{_dtype_name(dt)}":
+            ar.get_auto_allreduce_method(
+                rows * COLL_COLS * torch.empty((), dtype=dt).element_size(),
+                TP, tree_halves=ar._tree_halves(rows)).value
+            for dt in (bf16, f32) for rows in (4, 16, 64, 256, 2048)}
+    tmo = timeout_case(torch, devices_for(TP))
+    g4 = dict(hq=32 // TP, hkv=8 // TP, d=128)
+    k1 = [flash_case(torch, fa, timer, name="tp4_slice_256_at_768",
+                     dtype=bf16, B=1, Sq=256, Sk=2048, q_off=768,
+                     normalize=False, time_it=True, seed=21, **g4)]
+    k2 = [paged_case(torch, pa, timer, name="tp4_decode_4", dtype=bf16,
+                     lens=[0, 1, 17, 1999], page=16, normalize=True,
+                     time_it=True, seed=22, **g4)]
+    bad = [c["case"] for cs in cases.values() for c in cs if not c["ok"]]
+    bad += [c["case"] for c in k1 + k2 if not c["ok"]]
+    check(not bad, f"{name}: disagree with their plain versions: {bad}")
+    check(stress["ok"], f"{name}: parity stress wrong at calls "
+          f"{stress['calls_wrong']}")
+    check(tmo["ok"], f"{name}: a lost peer did not raise CommTimeoutError")
+    return {"phase": name, "devices": devices_for(TP),
+            "ranks_note": "n virtual ranks on one card, asked for "
+            "explicitly (devices=['cuda:0'] * n)"
+            if devices_for(TP)[0] == devices_for(TP)[-1] else "one rank a card",
+            "tolerance": "bit-identical to the plain version (same order "
+            "and rounding)", "auto_method_n4": auto,
+            "main_shapes": COLL_MAIN, "parity_stress": stress,
+            "timeout": tmo, "cases": cases, "flash_attention_tp4": k1,
+            "paged_attention_tp4": k2}
+
+
+def coll_main_case(rec, method, dtype="bfloat16") -> dict:
+    rows = COLL_MAIN[method]
+    return next(c for c in rec["cases"][method]
+                if c["n"] == TP and c["dtype"] == dtype and c["rows"] == rows)
+
+
+def _coll_counts(comm) -> dict:
+    return {"allreduce_one_shot": comm.ONE_SHOT_KERNEL.launches,
+            "allreduce_parity": comm.PARITY_KERNEL.launches,
+            "reduce_scatter_ring": comm.RS_RING_KERNEL.launches,
+            "allgather_ring": comm.AG_RING_KERNEL.launches}
+
+
+def tp_drive(torch, se, kernels, prompts, gen, *, name) -> dict:
+    """Drive a TP ServingEngine with every count at 0 just before and read
+    just after; fail unless every request finished and each kernel ran
+    as often as the path predicts, per rank: K1 L per prefill slice, K2 L
+    per decode or verify step, a two-shot (RS + AG) per reduction of a
+    slice (2 L), the parity AR per reduction of a one-token step (2 L:
+    72 at 36 layers), the one-shot per reduction of a verify step; no
+    plain version."""
+    from triton_distributed_tpu_torch.serving import RequestState
+
+    comm = coll_modules()[0]
+    allk = list(kernels) + list(comm.COLLECTIVE_KERNELS)
+    n, L = se.engine.n, se.cfg.num_layers
+    torch.cuda.synchronize()
+    reset_counts(allk)
+    reqs, steps, slices, wall = _drive(se, prompts, [gen] * len(prompts))
+    torch.cuda.synchronize()
+    flash, paged, mega = kernels
+    c = _coll_counts(comm)
+    check(all(r.state is RequestState.FINISHED and len(r.tokens) == gen
+              for r in reqs), f"{name}: not every request finished")
+    check(flash.launches == n * L * slices,
+          f"{name}: K1 launched {flash.launches}, expected {n * L * slices}")
+    check(paged.launches == n * L * steps,
+          f"{name}: K2 launched {paged.launches}, expected {n * L * steps}")
+    check(c["reduce_scatter_ring"] == c["allgather_ring"]
+          == 2 * n * L * slices,
+          f"{name}: {c} for {slices} slices (a two-shot per reduction)")
+    verify = c["allreduce_one_shot"] // (2 * n * L)
+    check(c["allreduce_parity"] + c["allreduce_one_shot"]
+          == 2 * n * L * steps and c["allreduce_one_shot"] % (2 * n * L) == 0,
+          f"{name}: {c} for {steps} decode steps")
+    if not se.spec_k:
+        check(c["allreduce_one_shot"] == 0, f"{name}: one-shot off spec")
+    check(all(k.plain_calls == 0 for k in allk) and mega.launches == 0,
+          f"{name}: a plain version (or the megakernel) ran")
+    ttft = [r.ttft_s * 1e3 for r in reqs]
+    rec = {"requests": len(reqs), "gen": gen, "ranks": n,
+           "max_batch": se.max_batch, "prefill_chunk": se.chunk,
+           "spec_k": se.spec_k, "prefill_slices": slices,
+           "decode_steps": steps, "verify_steps": verify, "wall_s": wall,
+           "tokens_per_s": sum(len(r.tokens) for r in reqs) / wall,
+           "ttft_ms_p50": _pct(ttft, 50), "ttft_ms_p99": _pct(ttft, 99),
+           "preemptions": sum(r.preemptions for r in reqs),
+           "launches": dict(c, flash_attention=flash.launches,
+                            paged_attention=paged.launches),
+           "launches_per_rank_per_step": {
+               "allreduce_parity": (c["allreduce_parity"]
+                                    / max(1, n * (steps - verify))),
+               "two_shot_pairs_per_slice": c["reduce_scatter_ring"]
+               / max(1, n * slices)}}
+    if se.spec_k:
+        rec["drafted_tokens"] = sum(r.drafted_tokens for r in reqs)
+        rec["accepted_draft_tokens"] = sum(r.accepted_draft_tokens
+                                           for r in reqs)
+    return rec
+
+
+def phase_tp_serving(torch, params, cfg, Engine, ServingEngine, kernels,
+                     prompts, phrases) -> dict:
+    """Qwen3-8B at full width and depth, bf16, on a TP group of 4 virtual
+    ranks on cuda:0: ServingEngine(max_batch=4, prefill_chunk=256, page
+    16) over the six prompts x 32 tokens, launch counts as the path
+    predicts, the decode-only window's step wall and busy share; then a
+    spec_k=3 run over phrase prompts (its verify steps reduce through the
+    one-shot AR)."""
+    context = coll_modules()[4]
+    ctx = context.initialize_distributed(devices=virtual_devices(TP),
+                                         wait_timeout_ms=60_000)
+    emit({"note": f"tp_serving: {TP} virtual ranks on cuda:0, asked for "
+                  "explicitly: devices=['cuda:0'] * 4"})
+    t0 = time.perf_counter()
+    eng = Engine(cfg, params, ctx, max_seq=2048, page_size=16)
+    shard_s = time.perf_counter() - t0
+    se = ServingEngine(eng, max_batch=4, prefill_chunk=256)
+    rec = {"phase": "tp_serving", "ranks": TP,
+           "devices": [str(d) for d in ctx.devices], "layers": cfg.num_layers,
+           "dtype": cfg.dtype, "shard_s": shard_s,
+           "note": "4 ranks share one card's SMs and HBM: these times say "
+                   "nothing of four cards"}
+    rec["serve"] = tp_drive(torch, se, kernels, prompts, 32, name="tp_serving")
+    del se
+    se = ServingEngine(eng, max_batch=4, prefill_chunk=256)
+    rec["decode_window"] = decode_window(torch, se, eng, "decode")
+    del se
+    se = ServingEngine(eng, max_batch=4, prefill_chunk=256, spec_k=SPEC_K)
+    rec["spec"] = tp_drive(torch, se, kernels, phrases, 32,
+                           name="tp_spec_serving")
+    check(rec["spec"]["launches"]["allreduce_one_shot"] > 0,
+          "tp_spec_serving: no verify step ran the one-shot AR")
+    del se, eng
+    ctx.close()
+    return rec
+
+
+def rank_logits(torch, eng, prompt) -> dict:
+    """Every rank's logits, bit for bit: a 128-row prefill slice's last
+    logits (two-shot in fp32 at 2 MB) and one paged decode step over a
+    fresh parity workspace."""
+    from triton_distributed_tpu_torch.models.dense import (
+        dense_decode_step_paged, dense_last_logits, dense_prefill_slice,
+    )
+    from triton_distributed_tpu_torch.models.kv_cache import (
+        init_kv_cache, init_paged_model_cache,
+    )
+    from triton_distributed_tpu_torch.ops.allreduce import (
+        ar_stream_workspace,
+    )
+
+    cfg, n = eng.cfg, eng.n
+    ids = eng.replicate(torch.tensor([(list(prompt) * 2)[:128]],
+                                     dtype=torch.int32))
+    kw = eng.tp_kwargs("ar")
+    ws, _ = ar_stream_workspace(n, 1, cfg.hidden_size, torch.float32,
+                                ctx=eng.ctx, tag="rank-logits")
+
+    def run(r):
+        cache = init_kv_cache(cfg, 1, 128, device=eng.rank_devices[r],
+                              num_ranks=n)
+        x, cache = dense_prefill_slice(eng.rank_params[r], cfg, ids[r],
+                                       cache, 0, **kw)
+        pre = dense_last_logits(eng.rank_params[r], cfg, x[-1:],
+                                axis=eng.axis, num_ranks=n)
+        paged = init_paged_model_cache(cfg, 1, page_size=16, max_pages=9,
+                                       device=eng.rank_devices[r],
+                                       num_ranks=n)
+        pools = (paged.k_pools, paged.v_pools)
+        for pool, lin in zip(pools, (cache.k, cache.v)):
+            pool[:, :8] = lin[:, 0].reshape(cfg.num_layers, 8, 16,
+                                            *lin.shape[3:])
+        paged = paged._replace(kv_lens=torch.full(
+            (1,), 128, dtype=torch.int32, device=eng.rank_devices[r]))
+        tok = pre.argmax(-1).to(torch.int32)
+        dec, _, _ = dense_decode_step_paged(eng.rank_params[r], cfg, tok,
+                                            paged, ar_state=(ws, 0), **kw)
+        return pre, dec
+
+    outs = eng.run(run)
+    torch.cuda.synchronize()
+    eng.check_comm()
+    same = all(torch.equal(outs[0][i], o[i].to(outs[0][i].device))
+               for o in outs[1:] for i in (0, 1))
+    return {"ranks": n, "prefill_and_decode_logits_bit_identical": same,
+            "ok": same}
+
+
+def divergence(torch, eng, one, prompt, got, want) -> dict:
+    """Where a TP request left the TP=1 tokens: both engines replay the
+    TP=1 history (whole-prompt prefill, then paged decode steps) up to the
+    first differing step; the TP=1 logits' top-2 gap there and the two
+    lanes' largest logit difference."""
+    step = next(i for i, (x, y) in enumerate(zip(got.tokens, want.tokens))
+                if x != y)
+    hist = want.tokens[:step]
+
+    from triton_distributed_tpu_torch.models.dense import (
+        dense_last_logits, dense_prefill_slice,
+    )
+    from triton_distributed_tpu_torch.models.kv_cache import init_kv_cache
+
+    def logits_at(e):
+        # Prefill in 16-token slices (one-shot reductions at any n), the
+        # last real row's logits, then paged decode steps on the history.
+        C = 16
+        ids = torch.zeros((1, -(-len(prompt) // C) * C), dtype=torch.int32)
+        ids[0, :len(prompt)] = torch.tensor(prompt)
+        idr = e.replicate(ids)
+        kw = e.tp_kwargs("ar")
+        lkw = {k: v for k, v in kw.items() if k != "mode"}
+        row = (len(prompt) - 1) % C
+
+        def prefill(r):
+            cache = init_kv_cache(e.cfg, 1, e.max_seq,
+                                  device=e.rank_devices[r], num_ranks=e.n)
+            for start in range(0, ids.shape[1], C):
+                x, cache = dense_prefill_slice(
+                    e.rank_params[r], e.cfg, idr[r][:, start:start + C],
+                    cache, start, **kw)
+            logits = dense_last_logits(e.rank_params[r], e.cfg,
+                                       x[row:row + 1], **lkw)
+            return logits, cache._replace(offset=len(prompt))
+
+        outs = e.run(prefill)
+        logits, cache = outs[0][0], [o[1] for o in outs]
+        cache = e.to_paged(cache if e.n > 1 else cache[0])
+        for t in hist:
+            tok = torch.tensor([t], dtype=torch.int32)
+            if e.n == 1:
+                logits, cache = e._decode_fn(e.params, e.cfg,
+                                             tok.to(e.device), cache)
+            else:
+                toks = e.replicate(tok)
+                outs = e.run(lambda r: e._decode_fn(
+                    e.rank_params[r], e.cfg, toks[r], cache[r], **kw))
+                logits, cache = outs[0][0], [o[1] for o in outs]
+        return logits[0].float()
+
+    l1, ln = logits_at(one), logits_at(eng)
+    top = torch.topk(l1, 2).values
+    return {"req": got.req_id, "step": step,
+            "preemptions": got.preemptions,
+            "tp1_top2_gap": float(top[0] - top[1]),
+            "max_abs_logit_diff": float((l1 - ln).abs().max()),
+            "argmax_tp1_tpn": [int(l1.argmax()), int(ln.argmax())]}
+
+
+def phase_tp_parity(torch, QWEN3_8B, init_dense_llm, Engine, ServingEngine,
+                    kernels, *, devices=None) -> dict:
+    """float32 Qwen3-8B widths at 2 layers on a TP group of 4 ranks
+    (virtual ranks on cuda:0 unless ``devices``): ServingEngine's tokens
+    identical to the TP=1 eager lane's in the same call, each run with a
+    preemption — workspace-dtype pools, e4m3 pools, spec_k=3 —, and every
+    rank's logits bit-identical. 128-row slices: two-shot in fp32."""
+    context = coll_modules()[4]
+    comm = coll_modules()[0]
+    cfg = dataclasses.replace(QWEN3_8B, num_layers=2, dtype="float32")
+    params = init_dense_llm(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(2))
+    devices = devices or virtual_devices(TP)
+    ctx = context.initialize_distributed(devices=devices,
+                                         wait_timeout_ms=60_000)
+    e4m3 = torch.float8_e4m3fn
+    g = torch.Generator().manual_seed(17)
+    pre = ([90, 60, 75, 100], [40, 40, 40, 40])
+    small = dict(max_batch=3, num_pages=20, prefill_chunk=128)
+    result = {"phase": "tp_parity", "ranks": TP,
+              "devices": [str(d) for d in ctx.devices],
+              "layers": cfg.num_layers, "dtype": "float32"}
+    runs = {"tp_preempt": (None, {}, False),
+            "tp_fp8_preempt": (e4m3, {}, False),
+            "tp_spec_preempt": (None, dict(spec_k=SPEC_K), True)}
+    allk = list(kernels) + list(comm.COLLECTIVE_KERNELS)
+    for name, (kv, extra, phrases) in runs.items():
+        lengths, gens = pre
+        if phrases:
+            prompts = phrase_prompts(torch, cfg.vocab_size, lengths,
+                                     int(torch.randint(0, 1 << 30, (1,),
+                                                       generator=g)))
+        else:
+            prompts = [torch.randint(0, cfg.vocab_size, (n,),
+                                     generator=g).tolist() for n in lengths]
+        one = Engine(cfg, params, max_seq=256, page_size=16, kv_dtype=kv)
+        se1 = ServingEngine(one, **small, **extra)
+        want, _, _, _ = _drive(se1, prompts, gens)
+        del se1, one
+        eng = Engine(cfg, params, ctx, max_seq=256, page_size=16,
+                     kv_dtype=kv)
+        se = ServingEngine(eng, **small, **extra)
+        reset_counts(allk)
+        got, steps, slices, _ = _drive(se, prompts, gens)
+        c = _coll_counts(comm)
+        diverged = []
+        for a, b, p in zip(got, want, prompts):
+            if a.tokens != b.tokens:
+                diverged.append(divergence(torch, eng, Engine(
+                    cfg, params, max_seq=256, page_size=16, kv_dtype=kv),
+                    p, a, b))
+        if diverged:
+            emit({"phase": "tp_parity", "run": name, "diverged": diverged})
+        check(not diverged, f"tp_parity {name}: {len(diverged)} requests "
+              "diverged from TP=1")
+        n_pre = sum(r.preemptions for r in got)
+        check(n_pre >= 1, f"tp_parity {name}: no preemption")
+        check(c["reduce_scatter_ring"] > 0 and c["allgather_ring"] > 0
+              and c["allreduce_parity"] > 0,
+              f"tp_parity {name}: a kernel of the path never ran: {c}")
+        if extra.get("spec_k"):
+            check(c["allreduce_one_shot"] > 0,
+                  f"tp_parity {name}: no verify step ran the one-shot")
+        check(all(k.plain_calls == 0 for k in allk),
+              f"tp_parity {name}: a plain version ran")
+        result[name] = {"requests": len(got), "tokens": sum(gens),
+                        "preemptions": n_pre, "identical_to_tp1": True,
+                        "launches": c}
+        if name == "tp_preempt":
+            result["rank_logits"] = rank_logits(torch, eng, prompts[0])
+            check(result["rank_logits"]["ok"],
+                  "tp_parity: the ranks' logits differ")
+        del se, eng
+    ctx.close()
+    return result
+
+
 def _summary_entry(kernel, name, replaces, cases, main_case, launches,
                    root) -> dict:
     return {"name": name, "route": "cuda",
@@ -3101,6 +3733,11 @@ def main() -> int:
     bad = [c["case"] for cs in cases.values() for c in cs if not c["ok"]]
     check(not bad, f"kernels disagree with their plain versions: {bad}")
     tuned_rec = emit_phase(phase_gemm_tuned(torch, gemm, timer))
+    emit({"note": "collectives: n virtual ranks on cuda:0 for n = 2, 4, "
+                  "8, asked for explicitly: devices=['cuda:0'] * n"})
+    coll_rec = emit_phase(phase_collectives(torch, timer, fa, pa))
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # One set of seeded Qwen3-8B weights serves every full-size phase.
     params = init_dense_llm(
@@ -3131,6 +3768,13 @@ def main() -> int:
                                         name="spec_serving", prompts=phrases,
                                         spec_k=SPEC_K))
     del eng, eng8
+    gc.collect()
+    torch.cuda.empty_cache()
+    tp_rec = phase_tp_serving(torch, params, QWEN3_8B, Engine, ServingEngine,
+                              kernels, prompts, phrases)
+    tp_rec["tp1_serving"] = {k: serving_rec[k] for k in (
+        "tokens_per_s", "ttft_ms_p50", "decode_window")}
+    emit_phase(tp_rec)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3185,6 +3829,10 @@ def main() -> int:
                                           Engine, kernels))
     emit_phase(phase_fp8_parity(torch, QWEN3_8B, init_dense_llm, Engine,
                                 gemm.GEMM_KERNEL))
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit_phase(phase_tp_parity(torch, QWEN3_8B, init_dense_llm, Engine,
+                               ServingEngine, kernels))
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3339,6 +3987,38 @@ def main() -> int:
                        next(c for c in gemm_cases
                             if c["case"] == "headline_bf16"),
                        tuned_rec["launches_on_hit"], root),
+    ]
+    comm = coll_modules()[0]
+    serve, spec = tp_rec["serve"], tp_rec["spec"]
+    coll_replaces = {
+        # B5 one-shot: the verify steps of the spec_k=3 TP run.
+        "allreduce_one_shot": (comm.ONE_SHOT_KERNEL, "ops/allreduce.py:68",
+                               spec),
+        # B5 parity stream: every one-token decode step, 72 a rank.
+        "allreduce_parity": (comm.PARITY_KERNEL, "ops/allreduce.py:104",
+                             serve),
+        # B6 ring RS and B4 ring AG: the two-shot of every 256-row slice.
+        "reduce_scatter_ring": (comm.RS_RING_KERNEL,
+                                "ops/reduce_scatter.py:52", serve),
+        "allgather_ring": (comm.AG_RING_KERNEL, "ops/allgather.py:91",
+                           serve)}
+    for cname, (kern, rep, run) in coll_replaces.items():
+        summary.append(_summary_entry(
+            kern, cname, tpu + rep, coll_rec["cases"][cname],
+            coll_main_case(coll_rec, cname), run["launches"][cname], root))
+    summary += [
+        # K1 / K2 at one rank's TP=4 heads (8 q, 2 kv), launches of the
+        # TP serving run (every rank's).
+        _summary_entry(fa.FLASH_KERNEL, "flash_attention_tp4",
+                       tpu + "ops/flash_attention.py:157",
+                       coll_rec["flash_attention_tp4"],
+                       coll_rec["flash_attention_tp4"][0],
+                       serve["launches"]["flash_attention"], root),
+        _summary_entry(pa.PAGED_KERNEL, "paged_attention_tp4",
+                       tpu + "ops/paged_attention.py:160",
+                       coll_rec["paged_attention_tp4"],
+                       coll_rec["paged_attention_tp4"][0],
+                       serve["launches"]["paged_attention"], root),
     ]
     check(all(e["launches"] > 0 for e in summary),
           f"a kernel of the path was never launched: "

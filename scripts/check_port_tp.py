@@ -1,0 +1,92 @@
+#!/usr/bin/env python3
+"""Check the PyTorch/CUDA port's tensor-parallel path on CUDA cards, for
+the tree in the current directory.
+
+Builds ``csrc/collectives.cu`` (and the attention kernels), prints
+ptxas's register report, then runs ``chip_smoke.phase_collectives`` (the
+AllReduce, reduce-scatter and all-gather kernels at n = 2, 4 and 8 ranks
+against their plain versions, timed; the parity stress; a lost peer's
+timeout) and, with ``--parity``, ``chip_smoke.phase_tp_parity`` (float32
+2-layer serving on 4 ranks token-identical to one rank, each rank's
+logits bit-identical). Ranks are virtual ranks on ``cuda:0`` unless
+``--cards``: then rank r lives on ``cuda:r`` (4 cards, peer access; the
+collectives at n = 2 and 4). Prints one JSON line per phase, then the
+cards' names and power limits. About two minutes with the build:
+
+    python3 scripts/check_port_tp.py [--parity] [--cards]
+"""
+import importlib
+import json
+import os
+import sys
+import time
+
+sys.path.insert(0, ".")
+os.environ["CUDA_DEVICE_MAX_CONNECTIONS"] = "32"
+
+import torch  # noqa: E402
+
+import chip_smoke as cs  # noqa: E402
+from triton_distributed_tpu_torch.runtime import build  # noqa: E402
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("check_port_tp: needs a CUDA card", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cards = "--cards" in sys.argv
+    if cards and torch.cuda.device_count() < 4:
+        print("check_port_tp --cards: needs 4 cards", file=sys.stderr)
+        return 1
+    fa = importlib.import_module(
+        "triton_distributed_tpu_torch.ops.flash_attention")
+    pa = importlib.import_module(
+        "triton_distributed_tpu_torch.ops.paged_attention")
+    comm = importlib.import_module("triton_distributed_tpu_torch.ops._comm")
+    t0 = time.perf_counter()
+    srcs = [comm.ONE_SHOT_KERNEL.source_path, fa.FLASH_KERNEL.source_path,
+            pa.PAGED_KERNEL.source_path]
+    build.build(srcs)
+    log = build.library_path(srcs[0]).with_suffix(".log").read_text()
+    print(json.dumps({"build_s": time.perf_counter() - t0,
+                      "count": torch.cuda.device_count(), "ptxas": [
+                          ln.strip() for ln in log.splitlines()
+                          if "registers" in ln or "spill" in ln]}),
+          flush=True)
+    timer = cs.Timer(torch, "cuda")
+    failed = []
+
+    def run(name, fn):
+        try:
+            print(json.dumps(fn()), flush=True)
+        except Exception as e:          # report every phase, then fail
+            print(json.dumps({"phase": name, "error": repr(e)}), flush=True)
+            failed.append(name)
+
+    if cards:
+        def devices_for(n):
+            return [f"cuda:{r}" for r in range(n)]
+        ranks = (2, 4)
+    else:
+        devices_for, ranks = cs.virtual_devices, cs.COLL_RANKS
+    run("collectives", lambda: cs.phase_collectives(
+        torch, timer, fa, pa, devices_for=devices_for, ranks=ranks,
+        name="collectives_cards" if cards else "collectives"))
+    if "--parity" in sys.argv:
+        from triton_distributed_tpu_torch.megakernel import kernel as mk
+        from triton_distributed_tpu_torch.models.config import QWEN3_8B
+        from triton_distributed_tpu_torch.models.dense import init_dense_llm
+        from triton_distributed_tpu_torch.models.engine import Engine
+        from triton_distributed_tpu_torch.serving import ServingEngine
+
+        kernels = (fa.FLASH_KERNEL, pa.PAGED_KERNEL, mk.MEGA_KERNEL)
+        run("tp_parity", lambda: cs.phase_tp_parity(
+            torch, QWEN3_8B, init_dense_llm, Engine, ServingEngine, kernels,
+            devices=devices_for(cs.TP)))
+    print(cs.nvidia_smi_all(), flush=True)
+    return 1 if failed else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

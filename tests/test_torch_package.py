@@ -201,10 +201,83 @@ def test_kernel_build_is_lazy_and_keyed_by_source():
     source, so each kernel gets its own file in the git-ignored build
     directory."""
     srcs = build.sources()
-    assert [s.name for s in srcs] == ["flash_attention.cu", "gemm.cu",
-                                      "megakernel.cu", "paged_attention.cu"]
+    assert [s.name for s in srcs] == ["collectives.cu", "flash_attention.cu",
+                                      "gemm.cu", "megakernel.cu",
+                                      "paged_attention.cu"]
     paths = {build.library_path(s) for s in srcs}
-    assert len(paths) == 4
+    assert len(paths) == 5
     assert all(p.parent == build.BUILD_DIR for p in paths)
     gitignore = (ROOT / ".gitignore").read_text().split()
     assert "triton_distributed_tpu_torch/_build/" in gitignore
+
+
+def test_initialize_distributed_means_cards(monkeypatch):
+    """``devices=None`` means n cards and raises without them; CPU rank
+    threads and virtual ranks are asked for explicitly; nothing drops to
+    fewer ranks on its own."""
+    from triton_distributed_tpu_torch.runtime import context
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="asks for 4 cards, 0 visible"):
+        context.initialize_distributed(4)
+    with pytest.raises(RuntimeError, match="is_available"):
+        context.initialize_distributed(devices=["cuda:0"] * 4)
+    with pytest.raises(ValueError, match="argument n"):
+        context.initialize_distributed(2, devices=["cpu"] * 4)
+    ctx = context.initialize_distributed(devices=["cpu"] * 2)
+    assert ctx.num_ranks == 2 and not ctx.is_cuda and not ctx.virtual
+    assert context.get_context() is ctx
+    assert ctx.run(lambda r: r * 10) == [0, 10]
+    ctx.close()
+
+
+def test_kernel_counts_and_first_build_thread_safe(monkeypatch):
+    """Four rank threads launching one kernel at once lose no count, and
+    its first-use build and load run once."""
+    import threading
+
+    builds = []
+
+    def fake_build(srcs):
+        builds.append(srcs)
+        threading.Event().wait(0.05)        # the race window of a real nvcc
+        return {s.name: s for s in srcs}
+
+    class FakeLib:
+        def __init__(self, path):
+            self.sym = lambda *a: 0
+            self.tdt_error_string = lambda e: b""
+
+    monkeypatch.setattr(build, "build", fake_build)
+    monkeypatch.setattr(build.ctypes, "CDLL", FakeLib)
+    k = build.CudaKernel("fake.cu", "sym", [])
+    start = threading.Barrier(4)
+
+    def worker():
+        start.wait()
+        for _ in range(5000):
+            k.launch(variants=("lane",))
+            k.count_plain()
+
+    threads = [threading.Thread(target=worker) for _ in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert len(builds) == 1
+    assert k.launches == 20000 and k.plain_calls == 20000
+    assert k.variant_launches == {"lane": 20000}
+
+
+def test_topology_ring_is_rank_order():
+    """On the CPU (and on an all-to-all NVLink host) the ring is the rank
+    order; a pair of cards without peer access has no ring."""
+    from triton_distributed_tpu_torch.runtime import topology
+
+    topo = topology.detect_topology(["cpu"] * 4)
+    assert topo.platform == "cpu" and topo.all_to_all and not topo.virtual
+    assert topology.ring_order(topo) == [0, 1, 2, 3]
+    cut = topology.Topology(2, "cuda", ("a", "b"),
+                            ((True, False), (True, True)), virtual=False)
+    with pytest.raises(RuntimeError, match="peer access"):
+        topology.ring_order(cut)

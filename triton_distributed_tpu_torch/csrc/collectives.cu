@@ -1,0 +1,368 @@
+// The collective kernels of the tensor-parallel path, on dist.cuh.
+//
+// Each replaces one TPU kernel of the JAX package and computes what it
+// computes, in the same order and rounding (the replicas must end with
+// bit-identical sums, or their greedy tokens diverge):
+//
+//  ar_one_shot   ops/allreduce.py:68 _ar_one_shot_kernel — barrier, push
+//                this rank's block into slot `rank` of every peer's
+//                workspace, wait for the n-1 deliveries, sum the n slots
+//                in rank order 0..n-1 in fp32 from 0, cast once.
+//  ar_parity     ops/allreduce.py:104 _ar_one_shot_parity_kernel — the
+//                same without the barrier, over a persistent workspace
+//                of two parity slabs and per-parity flags (the decode
+//                path's repeated calls; safety argument in
+//                ops/allreduce.all_reduce_stream).
+//  rs_ring       ops/reduce_scatter.py:52 _rs_ring_kernel — ring reduce-
+//                scatter: chunk c starts at rank c+1 and gains one
+//                contribution a hop, added in the payload type (one
+//                rounding a hop), and lands summed at its owner.
+//  ag_ring       ops/allgather.py:91 _ag_ring_kernel — ring all-gather
+//                through a symmetric gather buffer that doubles as the
+//                transport; each rank forwards the chunk it received
+//                last step, then copies the gathered buffer out.
+//
+// What bounds them: bytes. Each is a copy with at most an add per
+// element, far below the card's 295 operations a byte; on n cards the
+// pushes cross NVLink (450 GB/s a direction), on one card with virtual
+// ranks every byte goes through the one card's HBM. Small payloads (a
+// decode step's 4 rows) are bound by latency instead: the flag round
+// trips, and the launch. The design moves 16 bytes a thread with
+// neighbouring threads on neighbouring addresses, and splits the payload
+// over a few blocks (at most kMaxBlocks), each of which synchronises only
+// with the same block of its peers — no grid-wide barrier, and a small
+// grid, so virtual ranks on one card never starve each other of SMs.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include "common.cuh"
+#include "dist.cuh"
+
+using tdt::from_f;
+using tdt::to_f;
+using namespace tdt::dist;
+
+namespace {
+
+// Elements of T in one 16-byte vector.
+template <typename T>
+struct Vec {
+  static constexpr int N = 16 / sizeof(T);
+};
+
+template <typename T>
+__device__ __forceinline__ const T* elems(const uint4& v) {
+  return reinterpret_cast<const T*>(&v);
+}
+
+// Sum the n slots of `ws` (slot stride `slot_vec` vectors) over vectors
+// [v0, v1): fp32 from 0, rank order, one cast — ops/allreduce.py:91
+// _reduce_slots.
+template <typename T>
+__device__ __forceinline__ void reduce_slots(const uint4* ws, long long slot_vec,
+                                             int n, uint4* out, long long v0,
+                                             long long v1) {
+  constexpr int E = Vec<T>::N;
+  for (long long v = v0 + threadIdx.x; v < v1; v += blockDim.x) {
+    float acc[E];
+#pragma unroll
+    for (int e = 0; e < E; ++e) acc[e] = 0.0f;
+    for (int i = 0; i < n; ++i) {
+      const uint4 s = __ldcg(ws + i * slot_vec + v);
+      const T* se = elems<T>(s);
+#pragma unroll
+      for (int e = 0; e < E; ++e) acc[e] = acc[e] + to_f(se[e]);
+    }
+    uint4 o;
+    T* oe = reinterpret_cast<T*>(&o);
+#pragma unroll
+    for (int e = 0; e < E; ++e) oe[e] = from_f<T>(acc[e]);
+    out[v] = o;
+  }
+}
+
+// dst = a + b over vectors [v0, v1), added in T (one rounding an add) —
+// ops/reduce_scatter.py:35 _tiled_add.
+template <typename T>
+__device__ __forceinline__ void add_into(uint4* dst, const uint4* a,
+                                         const uint4* b, long long v0,
+                                         long long v1) {
+  constexpr int E = Vec<T>::N;
+  for (long long v = v0 + threadIdx.x; v < v1; v += blockDim.x) {
+    const uint4 x = __ldcg(a + v);
+    const uint4 y = __ldcg(b + v);
+    const T* xe = elems<T>(x);
+    const T* ye = elems<T>(y);
+    uint4 o;
+    T* oe = reinterpret_cast<T*>(&o);
+#pragma unroll
+    for (int e = 0; e < E; ++e) oe[e] = from_f<T>(to_f(xe[e]) + to_f(ye[e]));
+    dst[v] = o;
+  }
+}
+
+// Push this block's vectors of x into slot `slot` of every rank's
+// workspace (this rank's own first: the local copy), then tell each peer.
+__device__ __forceinline__ void push_all(const Group& g, const uint4* x,
+                                         long long ws_off_bytes,
+                                         long long v0, long long v1,
+                                         int flag_base,
+                                         unsigned long long val) {
+  for (int i = 0; i < g.n; ++i) {
+    const int j = (g.rank + i) % g.n;
+    uint4* dst = reinterpret_cast<uint4*>(peer_base(g, j) + ws_off_bytes);
+    put(dst, x, v0, v1);
+  }
+  signal_peers(g, flag_base, val);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    ar_one_shot_kernel(Group g, const uint4* x, uint4* out, long long nvec) {
+  long long v0, v1;
+  block_range(nvec, &v0, &v1);
+  if (!barrier_all(g)) return;
+  const long long slot_bytes = nvec * 16;
+  const int base = kStepBase + blockIdx.x * kMaxRanks;
+  push_all(g, x, g.rank * slot_bytes, v0, v1, base, g.epoch);
+  if (!wait_peers(g, base, g.epoch)) return;
+  const uint4* ws = reinterpret_cast<const uint4*>(peer_base(g, g.rank));
+  reduce_slots<T>(ws, nvec, g.n, out, v0, v1);
+}
+
+// g.epoch carries call_index + 1; the parity slab is call_index % 2.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    ar_parity_kernel(Group g, const uint4* x, uint4* out, long long nvec) {
+  long long v0, v1;
+  block_range(nvec, &v0, &v1);
+  const int p = (int)((g.epoch - 1) & 1);
+  const long long slot_bytes = nvec * 16;
+  const long long slab_bytes = slot_bytes * g.n;
+  const int base = kStepBase + (p * kMaxBlocks + blockIdx.x) * kMaxRanks;
+  push_all(g, x, p * slab_bytes + g.rank * slot_bytes, v0, v1, base,
+           g.epoch);
+  if (!wait_peers(g, base, g.epoch)) return;
+  const uint4* ws = reinterpret_cast<const uint4*>(peer_base(g, g.rank) +
+                                                   p * slab_bytes);
+  reduce_slots<T>(ws, nvec, g.n, out, v0, v1);
+}
+
+// x: (n, chunk) of this rank's contributions; workspace: n-1 comm slots
+// of one chunk; out: the summed chunk `rank`. Step s's flag of block b is
+// kStepBase + s * kMaxBlocks + b, written by the left neighbour only.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    rs_ring_kernel(Group g, const uint4* x, uint4* out, long long cvec) {
+  long long v0, v1;
+  block_range(cvec, &v0, &v1);
+  if (!barrier_all(g)) return;
+  const int n = g.n;
+  const int right = (g.rank + 1) % n;
+  const uint4* comm = reinterpret_cast<const uint4*>(peer_base(g, g.rank));
+  uint4* rcomm = reinterpret_cast<uint4*>(peer_base(g, right));
+  for (int s = 0; s < n - 1; ++s) {
+    const int c = (g.rank - 1 - s + 2 * n) % n;   // the chunk sent at s
+    uint4* dst = rcomm + s * cvec;
+    if (s == 0) {
+      put(dst, x + c * cvec, v0, v1);
+    } else {
+      if (!wait(g, kStepBase + (s - 1) * kMaxBlocks + blockIdx.x, g.epoch))
+        return;
+      add_into<T>(dst, comm + (s - 1) * cvec, x + c * cvec, v0, v1);
+    }
+    signal(g, right, kStepBase + s * kMaxBlocks + blockIdx.x, g.epoch);
+  }
+  if (!wait(g, kStepBase + (n - 2) * kMaxBlocks + blockIdx.x, g.epoch))
+    return;
+  add_into<T>(out, comm + (n - 2) * cvec, x + g.rank * cvec, v0, v1);
+}
+
+// x: one chunk; the symmetric gather buffer and out: n chunks.
+__global__ void __launch_bounds__(kThreads)
+    ag_ring_kernel(Group g, const uint4* x, uint4* out, long long cvec) {
+  long long v0, v1;
+  block_range(cvec, &v0, &v1);
+  if (!barrier_all(g)) return;
+  const int n = g.n;
+  const int right = (g.rank + 1) % n;
+  uint4* buf = reinterpret_cast<uint4*>(peer_base(g, g.rank));
+  uint4* rbuf = reinterpret_cast<uint4*>(peer_base(g, right));
+  put(buf + g.rank * cvec, x, v0, v1);
+  for (int s = 0; s < n - 1; ++s) {
+    const int c = (g.rank - s + n) % n;   // own chunk at s = 0
+    if (s > 0 &&
+        !wait(g, kStepBase + (s - 1) * kMaxBlocks + blockIdx.x, g.epoch))
+      return;
+    __syncthreads();   // the own chunk's local copy, before it is read
+    put(rbuf + c * cvec, buf + c * cvec, v0, v1);
+    signal(g, right, kStepBase + s * kMaxBlocks + blockIdx.x, g.epoch);
+  }
+  if (!wait(g, kStepBase + (n - 2) * kMaxBlocks + blockIdx.x, g.epoch))
+    return;
+  for (int c = 0; c < n; ++c) put(out + c * cvec, buf + c * cvec, v0, v1);
+}
+
+// Holds a stream for `ns` nanoseconds: the straggler of the parity test.
+__global__ void spin_kernel(long long ns) {
+  const unsigned long long t0 = globaltimer();
+  while ((long long)(globaltimer() - t0) < ns) __nanosleep(1000);
+}
+
+int grid_for(long long nvec) {
+  // A block per 1024 vectors (16 KiB), 1..kMaxBlocks. The same payload
+  // gives the same grid on every rank, which the per-block flags need.
+  long long g = (nvec + 1023) / 1024;
+  return (int)(g < 1 ? 1 : (g > kMaxBlocks ? kMaxBlocks : g));
+}
+
+Group make_group(const void* table, const void* sig_table, void* err,
+                 int rank, int n, unsigned long long epoch,
+                 long long timeout_ns) {
+  Group g;
+  g.rank = rank;
+  g.n = n;
+  g.table = static_cast<const long long*>(table);
+  g.sig_table = static_cast<const long long*>(sig_table);
+  g.err = static_cast<long long*>(err);
+  g.epoch = epoch;
+  g.timeout_ns = timeout_ns;
+  return g;
+}
+
+bool bad_group(int rank, int n, long long nvec) {
+  return n < 1 || n > kMaxRanks || rank < 0 || rank >= n || nvec < 1;
+}
+
+}  // namespace
+
+extern "C" {
+
+// dtype: 0 float32, 1 bfloat16. nbytes: one rank's payload (a multiple of
+// 16; pointers 16-byte aligned). Every entry returns its cudaError_t.
+int tdt_ar_one_shot(const void* table, const void* sig_table, void* err,
+                    int rank, int n, unsigned long long epoch,
+                    long long timeout_ns, const void* x, void* out,
+                    long long nbytes, int dtype, cudaStream_t stream) {
+  const long long nvec = nbytes / 16;
+  if (bad_group(rank, n, nvec) || nbytes % 16) return cudaErrorInvalidValue;
+  const Group g = make_group(table, sig_table, err, rank, n, epoch,
+                             timeout_ns);
+  const dim3 grid(grid_for(nvec)), block(kThreads);
+  const uint4* xi = static_cast<const uint4*>(x);
+  uint4* o = static_cast<uint4*>(out);
+  if (dtype == 0)
+    ar_one_shot_kernel<float><<<grid, block, 0, stream>>>(g, xi, o, nvec);
+  else if (dtype == 1)
+    ar_one_shot_kernel<__nv_bfloat16><<<grid, block, 0, stream>>>(g, xi, o,
+                                                                  nvec);
+  else
+    return cudaErrorInvalidValue;
+  return cudaGetLastError();
+}
+
+int tdt_ar_parity(const void* table, const void* sig_table, void* err,
+                  int rank, int n, unsigned long long call_index,
+                  long long timeout_ns, const void* x, void* out,
+                  long long nbytes, int dtype, cudaStream_t stream) {
+  const long long nvec = nbytes / 16;
+  if (bad_group(rank, n, nvec) || nbytes % 16) return cudaErrorInvalidValue;
+  const Group g = make_group(table, sig_table, err, rank, n, call_index + 1,
+                             timeout_ns);
+  const dim3 grid(grid_for(nvec)), block(kThreads);
+  const uint4* xi = static_cast<const uint4*>(x);
+  uint4* o = static_cast<uint4*>(out);
+  if (dtype == 0)
+    ar_parity_kernel<float><<<grid, block, 0, stream>>>(g, xi, o, nvec);
+  else if (dtype == 1)
+    ar_parity_kernel<__nv_bfloat16><<<grid, block, 0, stream>>>(g, xi, o,
+                                                                nvec);
+  else
+    return cudaErrorInvalidValue;
+  return cudaGetLastError();
+}
+
+// chunk_bytes: one output chunk (x holds n of them).
+int tdt_rs_ring(const void* table, const void* sig_table, void* err,
+                int rank, int n, unsigned long long epoch,
+                long long timeout_ns, const void* x, void* out,
+                long long chunk_bytes, int dtype, cudaStream_t stream) {
+  const long long cvec = chunk_bytes / 16;
+  if (bad_group(rank, n, cvec) || n < 2 || chunk_bytes % 16)
+    return cudaErrorInvalidValue;
+  const Group g = make_group(table, sig_table, err, rank, n, epoch,
+                             timeout_ns);
+  const dim3 grid(grid_for(cvec)), block(kThreads);
+  const uint4* xi = static_cast<const uint4*>(x);
+  uint4* o = static_cast<uint4*>(out);
+  if (dtype == 0)
+    rs_ring_kernel<float><<<grid, block, 0, stream>>>(g, xi, o, cvec);
+  else if (dtype == 1)
+    rs_ring_kernel<__nv_bfloat16><<<grid, block, 0, stream>>>(g, xi, o, cvec);
+  else
+    return cudaErrorInvalidValue;
+  return cudaGetLastError();
+}
+
+// chunk_bytes: one input chunk (out holds n of them).
+int tdt_ag_ring(const void* table, const void* sig_table, void* err,
+                int rank, int n, unsigned long long epoch,
+                long long timeout_ns, const void* x, void* out,
+                long long chunk_bytes, cudaStream_t stream) {
+  const long long cvec = chunk_bytes / 16;
+  if (bad_group(rank, n, cvec) || n < 2 || chunk_bytes % 16)
+    return cudaErrorInvalidValue;
+  const Group g = make_group(table, sig_table, err, rank, n, epoch,
+                             timeout_ns);
+  ag_ring_kernel<<<grid_for(cvec), kThreads, 0, stream>>>(
+      g, static_cast<const uint4*>(x), static_cast<uint4*>(out), cvec);
+  return cudaGetLastError();
+}
+
+int tdt_spin(long long ns, cudaStream_t stream) {
+  spin_kernel<<<1, 1, 0, stream>>>(ns);
+  return cudaGetLastError();
+}
+
+// A non-blocking stream on `dev` for one rank. The rank group makes its
+// streams one after another here, so each takes the next hardware queue
+// (with CUDA_DEVICE_MAX_CONNECTIONS >= ranks + 1): two virtual ranks on
+// one queue could deadlock, a rank's kernel waiting behind a peer's that
+// waits for it.
+int tdt_stream_create(int dev, void** out) {
+  int prev = 0;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err != cudaSuccess) return err;
+  err = cudaSetDevice(dev);
+  if (err == cudaSuccess) {
+    cudaStream_t s;
+    err = cudaStreamCreateWithFlags(&s, cudaStreamNonBlocking);
+    if (err == cudaSuccess) *out = s;
+  }
+  cudaSetDevice(prev);
+  return err;
+}
+
+int tdt_stream_destroy(void* stream) {
+  return cudaStreamDestroy(static_cast<cudaStream_t>(stream));
+}
+
+// Let `dev` map `peer`'s memory; already enabled counts as success.
+int tdt_enable_peer_access(int dev, int peer) {
+  int prev = 0;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err != cudaSuccess) return err;
+  err = cudaSetDevice(dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceEnablePeerAccess(peer, 0);
+    if (err == cudaErrorPeerAccessAlreadyEnabled) {
+      cudaGetLastError();   // clear the error the call left behind
+      err = cudaSuccess;
+    }
+  }
+  cudaSetDevice(prev);
+  return err;
+}
+
+}  // extern "C"

@@ -42,28 +42,38 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);  // round to nearest even, as XLA's convert
 }
 
-// Lets `kernel` take `bytes` of dynamic shared memory. The driver call is
-// made only when a launch needs more than the cap already granted (48 KiB
-// needs none), so a steady-state launch costs one atomic load and no
-// driver call. The cap only grows, under a lock. `Cap` is one static per
-// kernel instantiation; the port drives one card per process, and
-// function attributes are set on the current device.
+// Lets `kernel` take `bytes` of dynamic shared memory on the current
+// device. `cudaFuncSetAttribute` is called only when a launch needs more
+// than the cap already granted on that device (48 KiB needs none), so a
+// steady-state launch costs one atomic load and no API call. The cap only
+// grows, under a lock. `Cap` is one static per kernel instantiation, with
+// one cap per device: the attribute is set per device, and the rank
+// threads of a tensor-parallel group launch on several cards.
+constexpr int kMaxDevices = 16;
+
 struct SmemCap {
-  std::atomic<int> bytes{48 << 10};
+  std::atomic<int> bytes[kMaxDevices];
   std::mutex mu;
+  SmemCap() {
+    for (auto& b : bytes) b.store(48 << 10);
+  }
 };
 
 template <typename Kernel>
 cudaError_t ensure_smem(Kernel kernel, size_t bytes, SmemCap& cap) {
-  if ((long long)bytes <= cap.bytes.load(std::memory_order_acquire))
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  std::atomic<int>& have = cap.bytes[dev];
+  if ((long long)bytes <= have.load(std::memory_order_acquire))
     return cudaSuccess;
   std::lock_guard<std::mutex> lock(cap.mu);
-  if ((long long)bytes <= cap.bytes.load(std::memory_order_relaxed))
+  if ((long long)bytes <= have.load(std::memory_order_relaxed))
     return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(
+  err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err == cudaSuccess)
-    cap.bytes.store((int)bytes, std::memory_order_release);
+  if (err == cudaSuccess) have.store((int)bytes, std::memory_order_release);
   return err;
 }
 

@@ -1,0 +1,190 @@
+// Device-side communication primitives of the rank group — the port's
+// counterpart of the JAX package's language/distributed_ops.py and
+// language/shmem_device.py (rank, num_ranks, putmem, signal, wait,
+// barrier_all, fence, quiet).
+//
+// A rank reaches a peer's symmetric buffer through a device table of base
+// pointers (runtime/symm.py): on n cards a peer's memory mapped by peer
+// access, on one card with n virtual ranks a sibling buffer. The code is
+// the same in both cases; only the table differs.
+//
+// Memory order, the same across cards and across virtual ranks:
+//  - a writer's payload stores go to the peer; the block meets at
+//    __syncthreads; then one thread fences at system scope and stores the
+//    call's epoch into the peer's flag with st.release.sys (signal);
+//  - the waiter loads its own flag with ld.acquire.sys until it reaches
+//    the epoch, and the block meets again before reading the payload
+//    (wait). Payload reads go through L2 (ld.global.cg).
+// Flags are 64-bit and only grow: a flag is never reset, the host hands
+// every call a larger epoch, and a wait compares with >=.
+//
+// No wait is endless: a spin that passes the deadline (%globaltimer, ns)
+// writes the rank's error word — (flag index, expected, observed, 1) —
+// and the kernel returns early. The host reads the word where it
+// synchronises anyway (DistContext.raise_on_comm_error) and raises
+// CommTimeoutError. Each collective kernel runs a small fixed grid (at
+// most kMaxBlocks blocks), so on one card a spinning rank never takes the
+// SMs its peers need.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace tdt {
+namespace dist {
+
+constexpr int kMaxBlocks = 8;
+constexpr int kMaxRanks = 8;
+constexpr int kThreads = 256;
+// Signal pad layout (64-bit words): [0, kMaxBlocks * kMaxRanks) barrier
+// flags (block b, from rank j); then the kernel's step flags.
+constexpr int kStepBase = kMaxBlocks * kMaxRanks;
+
+// What a collective kernel knows of its group, passed by value.
+struct Group {
+  int rank;
+  int n;
+  const long long* table;      // n data base pointers (this rank's device)
+  const long long* sig_table;  // n signal pad base pointers
+  long long* err;              // this rank's error word, 4 x int64
+  unsigned long long epoch;    // this call's epoch (>= 1)
+  long long timeout_ns;
+};
+
+__device__ __forceinline__ unsigned long long globaltimer() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+__device__ __forceinline__ void st_release_sys(unsigned long long* p,
+                                               unsigned long long v) {
+  asm volatile("st.release.sys.global.u64 [%0], %1;" ::"l"(p), "l"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ unsigned long long ld_acquire_sys(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.acquire.sys.global.u64 %0, [%1];"
+               : "=l"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ char* peer_base(const Group& g, int j) {
+  return reinterpret_cast<char*>(g.table[j]);
+}
+
+__device__ __forceinline__ unsigned long long* flags(const Group& g, int j) {
+  return reinterpret_cast<unsigned long long*>(g.sig_table[j]);
+}
+
+// fence + quiet: order this thread's earlier stores (local and remote)
+// before its later ones at system scope.
+__device__ __forceinline__ void fence() { __threadfence_system(); }
+
+// Store `val` into flag `idx` of rank j's pad, after the block's earlier
+// stores. Call from every thread of the block: the block meets first.
+__device__ __forceinline__ void signal(const Group& g, int j, int idx,
+                                       unsigned long long val) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    fence();
+    st_release_sys(flags(g, j) + idx, val);
+  }
+}
+
+__device__ __forceinline__ void record_timeout(const Group& g, int idx,
+                                               unsigned long long want,
+                                               unsigned long long seen) {
+  if (atomicCAS(reinterpret_cast<unsigned long long*>(g.err + 3), 0ull,
+                1ull) == 0ull) {
+    g.err[0] = idx;
+    g.err[1] = (long long)want;
+    g.err[2] = (long long)seen;
+  }
+}
+
+// Spin (one thread) until this rank's flag `idx` reaches `want`, or the
+// deadline. Returns false on timeout, having written the error word.
+__device__ __forceinline__ bool spin(const Group& g, int idx,
+                                     unsigned long long want) {
+  const unsigned long long* f = flags(g, g.rank) + idx;
+  unsigned long long seen = ld_acquire_sys(f);
+  if (seen >= want) return true;
+  const unsigned long long t0 = globaltimer();
+  while (seen < want) {
+    if ((long long)(globaltimer() - t0) > g.timeout_ns) {
+      record_timeout(g, idx, want, seen);
+      return false;
+    }
+    __nanosleep(100);
+    seen = ld_acquire_sys(f);
+  }
+  return true;
+}
+
+// Wait for flag `idx` (one thread spins, the block meets after). Call
+// from every thread; false (for every thread) on timeout.
+__device__ __forceinline__ bool wait(const Group& g, int idx,
+                                     unsigned long long want) {
+  int ok = 1;
+  if (threadIdx.x == 0) ok = spin(g, idx, want);
+  return __syncthreads_and(ok) != 0;
+}
+
+// Wait for the flags base + j, one from every peer j != rank (thread j
+// spins on its own), then meet.
+__device__ __forceinline__ bool wait_peers(const Group& g, int base,
+                                           unsigned long long want) {
+  int ok = 1;
+  const int j = threadIdx.x;
+  if (j < g.n && j != g.rank) ok = spin(g, base + j, want);
+  return __syncthreads_and(ok) != 0;
+}
+
+// Tell every peer j that this block reached epoch: flag base + rank of
+// each peer's pad. Call from every thread.
+__device__ __forceinline__ void signal_peers(const Group& g, int base,
+                                             unsigned long long val) {
+  __syncthreads();
+  const int j = threadIdx.x;
+  if (j < g.n && j != g.rank) {
+    fence();
+    st_release_sys(flags(g, j) + base + g.rank, val);
+  }
+}
+
+// Block-scope barrier_all over epochs: block b of every rank meets block
+// b of every other rank. It is what protects a reused symmetric buffer:
+// block b of a peer writes this rank's rows of block b for call t+1 only
+// after this rank's block b arrived at call t+1, i.e. after this rank's
+// whole call-t kernel finished (stream order).
+__device__ __forceinline__ bool barrier_all(const Group& g) {
+  const int base = blockIdx.x * kMaxRanks;
+  signal_peers(g, base, g.epoch);
+  return wait_peers(g, base, g.epoch);
+}
+
+// This block's share [v0, v1) of `nvec` 16-byte vectors.
+__device__ __forceinline__ void block_range(long long nvec, long long* v0,
+                                            long long* v1) {
+  const long long per = (nvec + gridDim.x - 1) / gridDim.x;
+  *v0 = min(nvec, per * blockIdx.x);
+  *v1 = min(nvec, *v0 + per);
+}
+
+// putmem: copy vectors [v0, v1) of src to dst (either may be a peer's),
+// 16 bytes a thread, neighbouring threads on neighbouring addresses.
+__device__ __forceinline__ void put(uint4* dst, const uint4* src,
+                                    long long v0, long long v1) {
+  for (long long v = v0 + threadIdx.x; v < v1; v += blockDim.x)
+    dst[v] = __ldcg(src + v);
+}
+
+}  // namespace dist
+}  // namespace tdt

@@ -1,7 +1,8 @@
-"""Shared layer math: RMSNorm, RoPE, SwiGLU and the plain projection —
-counterpart of the JAX package's ``layers/common.py``. Plain tensor code:
-on the card these are PyTorch's own elementwise kernels, as the JAX
-package leaves them to XLA."""
+"""Shared layer math: RMSNorm, RoPE, SwiGLU, the plain projection and
+the TP reduction — counterpart of the JAX package's ``layers/common.py``.
+Plain tensor code: on the card these are PyTorch's own elementwise
+kernels, as the JAX package leaves them to XLA; :func:`tp_reduce` is the
+collective (``ops/allreduce``)."""
 
 from __future__ import annotations
 
@@ -75,3 +76,18 @@ class KVSlice(NamedTuple):
 
     k: torch.Tensor
     v: torch.Tensor
+
+
+def tp_reduce(y: torch.Tensor, *, axis: str, n: int, inter_axis: str = "dcn",
+              n_inter: int = 1) -> torch.Tensor:
+    """The full AllReduce of a TP partial sum (``ops/allreduce.
+    all_reduce_local``, AUTO method) inside the rank runner. The
+    reference's two-tier form (``n_inter`` > 1: a TP group spanning a DCN
+    axis) is not ported and is refused by name."""
+    if n_inter > 1:
+        raise ValueError(
+            "tp_reduce: the two-tier hierarchical AllReduce (n_inter > 1, "
+            "ops/two_level.py) is not ported — argument n_inter")
+    from triton_distributed_tpu_torch.ops.allreduce import all_reduce_local
+
+    return all_reduce_local(y, axis=axis, num_ranks=n)

@@ -1,5 +1,6 @@
-"""Attention layer at tensor-parallel degree 1 — counterpart of the JAX
-package's ``layers/tp_attn.py`` (its replicated/single-rank branches).
+"""Tensor-parallel attention — counterpart of the JAX package's
+``layers/tp_attn.py``: column-parallel QKV (heads sharded over the ranks:
+hq/n query and hkv/n KV heads a rank), row-parallel output projection.
 
 Projections are ``torch.matmul`` on weights kept in the JAX ``(in, out)``
 layout, or a ``dot_fn`` on the decode steps that take one (the fp8 weight
@@ -7,8 +8,14 @@ lane's ``fp8_dot``); attention goes through the port's kernels: K1 (flash
 prefill, whole prompt or one chunk at a host-int offset) and K2 (paged
 decode). The linear-cache decode (:func:`tp_attn_decode`) attends with
 :func:`_sdpa`, plain tensor code as the reference's is plain XLA.
-Multi-rank modes (AG+GEMM, GEMM+RS, fused AllReduce) come with the
-multi-GPU slices.
+
+At n > 1 (call inside ``DistContext.run``) the input is replicated and
+the output projection's partial sums reduce per ``mode`` in
+:func:`_out_proj`: ``"ar"`` through the AllReduce kernels (or the decode
+loop's parity stream, ``ar_fn``), ``"xla_rep"`` through the rank group's
+plain sum. The row-sharded modes (``"overlap"``, ``"overlap2d"``,
+``"xla"``) are refused by name: they come with ``Engine.serve`` on a TP
+group.
 
 Caches are updated IN PLACE (the port's stand-in for JAX's donated
 functional updates): the functions write the new K/V into the cache
@@ -22,8 +29,9 @@ import math
 import torch
 
 from triton_distributed_tpu_torch.layers.common import (
-    KVSlice, apply_rope, plain_dot, rms_norm, rope_cos_sin,
+    KVSlice, apply_rope, plain_dot, rms_norm, rope_cos_sin, tp_reduce,
 )
+from triton_distributed_tpu_torch.layers.tp_mlp import refuse_row_sharded
 from triton_distributed_tpu_torch.models.config import ModelConfig
 from triton_distributed_tpu_torch.ops.flash_attention import (
     flash_attention_partial, shard_attention,
@@ -31,6 +39,7 @@ from triton_distributed_tpu_torch.ops.flash_attention import (
 from triton_distributed_tpu_torch.ops.paged_attention import (
     PagedKVCache, paged_append, paged_append_window, paged_decode_attention,
 )
+from triton_distributed_tpu_torch.runtime.context import P, group_psum
 from triton_distributed_tpu_torch.runtime.device import resolve_device
 
 
@@ -59,6 +68,15 @@ def init_tp_attn(cfg: ModelConfig, dtype, *, generator: torch.Generator,
     return params
 
 
+def tp_attn_specs(cfg: ModelConfig, axis: str = "tp") -> dict:
+    specs = {"wq": P(None, axis), "wk": P(None, axis), "wv": P(None, axis),
+             "wo": P(axis, None)}
+    if cfg.qk_norm:
+        specs["q_norm"] = P()
+        specs["k_norm"] = P()
+    return specs
+
+
 def _project_qkv(params: dict, cfg: ModelConfig, x: torch.Tensor,
                  batch: int, seq: int, dot_fn=None):
     """x (B·S, h) → q (B,S,hq,d), k/v (B,S,hkv,d) with Qwen3 qk-norm;
@@ -74,8 +92,22 @@ def _project_qkv(params: dict, cfg: ModelConfig, x: torch.Tensor,
     return q, k, v
 
 
-def _out_proj(attn: torch.Tensor, params: dict, dot_fn=None) -> torch.Tensor:
-    return (dot_fn or plain_dot)(attn, params["wo"])
+def _out_proj(attn: torch.Tensor, params: dict, *, axis: str = "tp",
+              n: int = 1, mode: str = "ar", ar_fn=None,
+              dot_fn=None) -> torch.Tensor:
+    """Row-parallel output projection and its TP reduction. ``ar_fn``
+    replaces the ``"ar"`` reduction (the decode loop's parity-stream AR);
+    at n = 1 a given ``ar_fn`` still runs."""
+    if n > 1:
+        refuse_row_sharded(mode, "attention")
+    y = (dot_fn or plain_dot)(attn, params["wo"])
+    if ar_fn is not None and (n == 1 or mode == "ar"):
+        return ar_fn(y)
+    if n == 1:
+        return y
+    if mode == "ar":
+        return tp_reduce(y, axis=axis, n=n)
+    return group_psum(y, axis=axis, num_ranks=n)
 
 
 def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -100,7 +132,9 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def tp_attn_prefill(params: dict, cfg: ModelConfig, x: torch.Tensor,
-                    batch: int, seq: int, kv_slice: KVSlice | None = None):
+                    batch: int, seq: int, kv_slice: KVSlice | None = None,
+                    *, axis: str = "tp", num_ranks: int = 1,
+                    mode: str = "ar"):
     """Causal prefill of whole prompts. x: (B·S, h). Writes the prompt's
     K/V into ``kv_slice`` at [0, S) in place; returns (out (B·S, h), the
     slice — or a fresh KVSlice of the prompt's K/V when none is given)."""
@@ -116,11 +150,14 @@ def tp_attn_prefill(params: dict, cfg: ModelConfig, x: torch.Tensor,
     else:
         new_kv = KVSlice(k=k, v=v)
     attn = shard_attention(q, k, v, causal=True)          # K1, normalized
-    return _out_proj(attn.reshape(batch * seq, -1), params), new_kv
+    return _out_proj(attn.reshape(batch * seq, -1), params, axis=axis,
+                     n=num_ranks, mode=mode), new_kv
 
 
 def tp_attn_prefill_chunk(params: dict, cfg: ModelConfig, x: torch.Tensor,
-                          kv_slice: KVSlice, start: int, chunk_len: int):
+                          kv_slice: KVSlice, start: int, chunk_len: int, *,
+                          axis: str = "tp", num_ranks: int = 1,
+                          mode: str = "ar"):
     """Chunked-prefill attention: the chunk's queries (positions
     [start, start+chunk_len)) attend the cached prefix. ``start`` is a
     host int. Attention runs over the whole capacity of ``kv_slice``;
@@ -139,11 +176,14 @@ def tp_attn_prefill_chunk(params: dict, cfg: ModelConfig, x: torch.Tensor,
         q, kv_slice.k.to(q.dtype), kv_slice.v.to(q.dtype),
         q_offset=start, k_offset=0, causal=True)           # K1, partial
     attn = (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
-    return _out_proj(attn.reshape(batch * chunk_len, -1), params), kv_slice
+    return _out_proj(attn.reshape(batch * chunk_len, -1), params, axis=axis,
+                     n=num_ranks, mode=mode), kv_slice
 
 
 def tp_attn_decode(params: dict, cfg: ModelConfig, x: torch.Tensor,
-                   kv_slice: KVSlice, pos: int, *, dot_fn=None):
+                   kv_slice: KVSlice, pos: int, *, axis: str = "tp",
+                   num_ranks: int = 1, mode: str = "ar", ar_fn=None,
+                   dot_fn=None):
     """One-token decode over a linear cache at the host position ``pos``
     (every sequence of the batch at the same length). Writes this token's
     K/V at ``pos`` in place (the reference's ``dynamic_update_slice``),
@@ -162,11 +202,14 @@ def tp_attn_decode(params: dict, cfg: ModelConfig, x: torch.Tensor,
     kv_slice.v[:, pos:pos + 1] = v.to(kv_slice.v.dtype)
     attn = _sdpa(q, kv_slice.k.to(q.dtype), kv_slice.v.to(q.dtype),
                  causal=False, kv_len=pos + 1)
-    return _out_proj(attn.reshape(batch, -1), params, dot_fn), kv_slice
+    return _out_proj(attn.reshape(batch, -1), params, axis=axis,
+                     n=num_ranks, mode=mode, ar_fn=ar_fn,
+                     dot_fn=dot_fn), kv_slice
 
 
 def tp_attn_decode_paged(params: dict, cfg: ModelConfig, x: torch.Tensor,
-                         cache: PagedKVCache):
+                         cache: PagedKVCache, *, axis: str = "tp",
+                         num_ranks: int = 1, mode: str = "ar", ar_fn=None):
     """One-token decode over a paged cache at per-sequence positions
     (``cache.kv_lens``). Appends this token's K/V to the pools in place
     (through the saturating cast for e4m3 pools), then attends — so the
@@ -179,11 +222,14 @@ def tp_attn_decode_paged(params: dict, cfg: ModelConfig, x: torch.Tensor,
     k = apply_rope(k, cos[:, None], sin[:, None])
     cache = paged_append(cache, k[:, 0], v[:, 0])
     attn = paged_decode_attention(q[:, 0], cache)          # K2
-    return _out_proj(attn.reshape(batch, -1).to(x.dtype), params), cache
+    return _out_proj(attn.reshape(batch, -1).to(x.dtype), params, axis=axis,
+                     n=num_ranks, mode=mode, ar_fn=ar_fn), cache
 
 
 def tp_attn_verify_paged(params: dict, cfg: ModelConfig, x: torch.Tensor,
-                         cache: PagedKVCache, window: int):
+                         cache: PagedKVCache, window: int, *,
+                         axis: str = "tp", num_ranks: int = 1,
+                         mode: str = "ar", ar_fn=None):
     """Speculative VERIFY attention: ``window`` candidate positions per
     sequence in one call. x: (B·window, h), row ``b·window + i`` is
     sequence b's candidate i. All the window's k/v append at
@@ -209,4 +255,5 @@ def tp_attn_verify_paged(params: dict, cfg: ModelConfig, x: torch.Tensor,
         torch.repeat_interleave(cache.page_table, window, dim=0),
         torch.clamp(pos + 1, max=capacity).to(torch.int32))
     attn = paged_decode_attention(q[:, 0], virtual)          # K2
-    return _out_proj(attn.reshape(rows, -1).to(x.dtype), params), cache
+    return _out_proj(attn.reshape(rows, -1).to(x.dtype), params, axis=axis,
+                     n=num_ranks, mode=mode, ar_fn=ar_fn), cache

@@ -632,7 +632,7 @@ def run_queue_plain(queue, ws: torch.Tensor, wsm: torch.Tensor | None, *,
     in ``wkv8``). Updates ``ws`` (and ``wkv8``) in place and returns
     ``ws``, or ``(ws, dump)`` with ``profile`` (:func:`profile_dump`, on
     the workspace's device)."""
-    MEGA_KERNEL.plain_calls += 1
+    MEGA_KERNEL.count_plain()
     q = np.ascontiguousarray(queue, np.int32)
     check_queue(q, num_exec)
     _check_side_workspaces(q, num_exec, ws, ws8, wkv8)

@@ -9,6 +9,11 @@ both sides and nothing is transposed.
 bf16 leaves arrive as ``ml_dtypes.bfloat16`` arrays, which
 ``torch.from_numpy`` rejects; they cross bit-exactly through a ``uint16``
 view reinterpreted as ``torch.bfloat16``.
+
+:func:`shard_params` carries a parameter dict onto a TP group's ranks per
+``models/dense.dense_llm_specs``: column-parallel q/k/v/gate/up split on
+the output dimension, row-parallel o/down on the input dimension,
+``lm_head`` by vocabulary, the embedding and norms replicated.
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ import numpy as np
 import torch
 
 from triton_distributed_tpu_torch.models.config import ModelConfig
+from triton_distributed_tpu_torch.runtime.context import DistContext, P
 from triton_distributed_tpu_torch.runtime.device import (
     resolve_device, torch_dtype,
 )
@@ -48,3 +54,62 @@ def params_from_numpy(tree, cfg: ModelConfig, *, device=None, dtype=None):
         return t.to(dev)
 
     return conv(tree)
+
+
+def shard_tree(tree, specs, ctx: DistContext) -> list:
+    """Split ``tree`` (dicts / lists of tensors or numpy leaves) per the
+    matching tree of :class:`~runtime.context.P` specs into one tree per
+    rank, rank r's leaves on ``ctx.devices[r]``. A sharded dim is cut
+    into n equal contiguous pieces (it must divide); a replicated leaf is
+    moved as it is — ranks that share a device (virtual ranks on one
+    card) share one copy, which nothing writes."""
+    n = ctx.num_ranks
+
+    def leaf(t, spec, r):
+        if not isinstance(t, torch.Tensor):
+            t = array_to_tensor(t)
+        dims = [d for d, ax in enumerate(spec) if ax is not None]
+        if not dims:
+            return t.to(ctx.devices[r])
+        if len(dims) > 1 or spec[dims[0]] != ctx.tp_axis:
+            raise ValueError(f"spec {spec!r}: the port shards one dim over "
+                             f"the axis {ctx.tp_axis!r}")
+        d = dims[0]
+        if t.shape[d] % n:
+            raise ValueError(f"dim {d} of {tuple(t.shape)} not divisible "
+                             f"by TP degree {n}")
+        step = t.shape[d] // n
+        # A copy, never a view: the shard must not keep the whole
+        # parameter alive.
+        return t.narrow(d, r * step, step).to(ctx.devices[r], copy=True,
+                                              memory_format=torch.contiguous_format)
+
+    def walk(node, spec, r):
+        if isinstance(spec, P):
+            return leaf(node, spec, r)
+        if isinstance(node, dict):
+            if set(node) != set(spec):
+                raise ValueError(f"parameter keys {sorted(node)} do not "
+                                 f"match the specs' {sorted(spec)}")
+            return {k: walk(node[k], spec[k], r) for k in node}
+        if isinstance(node, (list, tuple)):
+            if len(node) != len(spec):
+                raise ValueError(f"{len(node)} entries, specs have "
+                                 f"{len(spec)}")
+            return [walk(a, b, r) for a, b in zip(node, spec)]
+        raise TypeError(f"unexpected parameter node {type(node)}")
+
+    return [walk(tree, specs, r) for r in range(n)]
+
+
+def shard_params(params, ctx: DistContext, cfg: ModelConfig, *,
+                 axis: str = "tp") -> list:
+    """One parameter dict per rank of ``ctx`` per ``dense_llm_specs(cfg,
+    axis)``. ``params``: the port's dict (from ``init_dense_llm`` or
+    :func:`params_from_numpy`) or the JAX package's numpy tree."""
+    from triton_distributed_tpu_torch.models.dense import dense_llm_specs
+
+    if cfg.num_kv_heads % ctx.axis_size(axis):
+        raise ValueError(f"num_kv_heads {cfg.num_kv_heads} not divisible by "
+                         f"TP degree {ctx.num_ranks}")
+    return shard_tree(params, dense_llm_specs(cfg, axis), ctx)

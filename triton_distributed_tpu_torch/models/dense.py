@@ -1,5 +1,5 @@
-"""Dense decoder-only LLM (Qwen3-style) at tensor-parallel degree 1 —
-counterpart of the JAX package's ``models/dense.py``.
+"""Dense decoder-only LLM (Qwen3-style) — counterpart of the JAX
+package's ``models/dense.py``.
 
 Parameters are a plain dict with the JAX package's structure and (in, out)
 weight layout (``models/convert.py`` turns a JAX tree into one). Caches
@@ -18,6 +18,16 @@ takes ``dot_fn``, which replaces every projection and dense-MLP product:
 the fp8 weight lane passes ``models/fp8.fp8_dot`` over a
 ``quantize_dense_weights`` tree (kernel B3's e4m3 lane on the card; MoE
 expert stacks in e4m3 take B3 inside ``ragged_dot_dtype_aware``).
+
+On a TP group (``num_ranks`` > 1, called inside ``DistContext.run`` with
+each rank's shard of the parameters per :func:`dense_llm_specs`) the
+activations are replicated, every row-parallel projection reduces per
+``mode`` (``"ar"``: the AllReduce kernels; ``"xla_rep"``: the rank
+group's plain sum), and the vocabulary-sharded logits are gathered
+through the group (the reference's ``jax.lax.all_gather``). The paged
+decode step takes ``ar_state``: every ``"ar"`` reduction then rides the
+barrier-free parity stream (:func:`make_ar_stream_fn`). MoE layers over
+ranks come with a later slice and are refused by name.
 """
 
 from __future__ import annotations
@@ -28,14 +38,17 @@ from triton_distributed_tpu_torch.layers.common import rms_norm
 from triton_distributed_tpu_torch.layers.ep_moe import init_ep_moe
 from triton_distributed_tpu_torch.layers.tp_attn import (
     init_tp_attn, tp_attn_decode, tp_attn_decode_paged, tp_attn_prefill,
-    tp_attn_prefill_chunk, tp_attn_verify_paged,
+    tp_attn_prefill_chunk, tp_attn_specs, tp_attn_verify_paged,
 )
-from triton_distributed_tpu_torch.layers.tp_mlp import init_tp_mlp, tp_mlp_fwd
+from triton_distributed_tpu_torch.layers.tp_mlp import (
+    init_tp_mlp, refuse_row_sharded, tp_mlp_fwd, tp_mlp_specs,
+)
 from triton_distributed_tpu_torch.models.config import ModelConfig
 from triton_distributed_tpu_torch.models.kv_cache import (
     KVCache, PagedModelCache,
 )
 from triton_distributed_tpu_torch.ops.moe import moe_tp_fwd_local
+from triton_distributed_tpu_torch.runtime.context import P, group_all_gather
 from triton_distributed_tpu_torch.runtime.device import (
     resolve_device, torch_dtype,
 )
@@ -78,59 +91,113 @@ def init_dense_llm(cfg: ModelConfig, *, generator: torch.Generator,
     return params
 
 
-def _logits(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+def dense_llm_specs(cfg: ModelConfig, axis: str = "tp") -> dict:
+    """Partition specs matching :func:`init_dense_llm`'s structure:
+    column-parallel q/k/v/gate/up, row-parallel o/down, ``lm_head`` by
+    vocabulary, the embedding and norms replicated."""
+    specs: dict = {"embed": P(), "final_norm": P(), "layers": []}
+    for _ in range(cfg.num_layers):
+        layer = {"attn_norm": P(), "mlp_norm": P(),
+                 "attn": tp_attn_specs(cfg, axis)}
+        if cfg.is_moe:
+            layer["moe"] = {"router": P(), "w_gate": P(None, None, axis),
+                            "w_up": P(None, None, axis),
+                            "w_down": P(None, axis, None)}
+        else:
+            layer["mlp"] = tp_mlp_specs(axis)
+        specs["layers"].append(layer)
+    if not cfg.tie_word_embeddings:
+        specs["lm_head"] = P(None, axis)
+    return specs
+
+
+def _logits(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
+            axis: str = "tp", n: int = 1) -> torch.Tensor:
+    """Final norm + lm-head; at n > 1 the vocabulary-sharded logits are
+    gathered to the full vocabulary through the rank group (tied
+    embeddings are replicated: full vocabulary locally)."""
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     head = params.get("lm_head")
     if head is None:
-        head = params["embed"].T          # tied embeddings
-    return x @ head
+        return x @ params["embed"].T          # tied embeddings
+    local = x @ head
+    if n == 1:
+        return local
+    return group_all_gather(local, axis=axis, num_ranks=n, dim=1)
 
 
 def _mlp_or_moe(layer: dict, cfg: ModelConfig, h: torch.Tensor, *,
-                dot_fn=None) -> torch.Tensor:
+                axis: str = "tp", n: int = 1, mode: str = "ar",
+                ar_fn=None, dot_fn=None) -> torch.Tensor:
     """FFN block dispatch: the dense SwiGLU MLP (``dot_fn`` replacing its
     products), or the MoE expert MLP (whose e4m3 stacks pick their lane
-    by type, as the reference's)."""
+    by type, as the reference's) at one rank."""
     if "moe" in layer:
+        if n > 1:
+            raise ValueError("MoE layers over ranks (ops/moe.py's TP and "
+                             "EP forms, B8) are not ported — a MoE config "
+                             "runs at one rank")
         p = layer["moe"]
         return moe_tp_fwd_local(h, p["router"], p["w_gate"], p["w_up"],
                                 p["w_down"], cfg.num_experts_per_tok)
-    return tp_mlp_fwd(layer["mlp"], h, dot_fn=dot_fn)
+    return tp_mlp_fwd(layer["mlp"], h, axis=axis, num_ranks=n, mode=mode,
+                      ar_fn=ar_fn, dot_fn=dot_fn)
+
+
+def _replicated(mode: str, n: int, what: str) -> None:
+    if n > 1:
+        refuse_row_sharded(mode, what)
 
 
 def dense_prefill(params: dict, cfg: ModelConfig, input_ids: torch.Tensor,
-                  cache: KVCache):
+                  cache: KVCache, *, axis: str = "tp", num_ranks: int = 1,
+                  mode: str = "ar"):
     """Causal prefill of whole prompts. input_ids: (B, S). Returns
-    (last-token logits (B, vocab), cache filled for [0, S))."""
+    (last-token logits (B, vocab), cache filled for [0, S)). At n > 1
+    the replicated modes only (``"ar"``, ``"xla_rep"``)."""
+    n = num_ranks
+    _replicated(mode, n, "dense_prefill")
     batch, seq = input_ids.shape
     x = params["embed"][input_ids.reshape(-1).long()]       # (B·S, h)
     for i, layer in enumerate(params["layers"]):
         h = rms_norm(x, layer["attn_norm"], cfg.rms_norm_eps)
         attn_out, _ = tp_attn_prefill(layer["attn"], cfg, h, batch, seq,
-                                      cache.layer(i))
+                                      cache.layer(i), axis=axis,
+                                      num_ranks=n, mode=mode)
         x = x + attn_out
         h = rms_norm(x, layer["mlp_norm"], cfg.rms_norm_eps)
-        x = x + _mlp_or_moe(layer, cfg, h)
+        x = x + _mlp_or_moe(layer, cfg, h, axis=axis, n=n, mode=mode)
     last = x.reshape(batch, seq, -1)[:, -1]
-    return _logits(params, cfg, last), cache._replace(offset=seq)
+    return (_logits(params, cfg, last, axis=axis, n=n),
+            cache._replace(offset=seq))
 
 
 def dense_prefill_slice(params: dict, cfg: ModelConfig,
-                        input_ids: torch.Tensor, cache: KVCache, start: int):
+                        input_ids: torch.Tensor, cache: KVCache, start: int,
+                        *, axis: str = "tp", num_ranks: int = 1,
+                        mode: str = "ar"):
     """ONE chunk of causal prefill at host offset ``start`` — the serving
     loop's per-iteration slice. input_ids: (B, C). Returns (x (B·C, h)
     final-layer activations — feed the last REAL row to
     :func:`dense_last_logits` —, cache with K/V written at
-    [start, start+C))."""
+    [start, start+C)). Activations run replicated: mode ``"ar"`` or
+    ``"xla_rep"`` (anything else raises, as the reference's)."""
+    if mode not in ("ar", "xla_rep"):
+        raise ValueError(
+            f"chunked prefill runs replicated activations: mode must be "
+            f"'ar' or 'xla_rep', got {mode!r} — argument mode")
+    n = num_ranks
     batch, chunk = input_ids.shape
     x = params["embed"][input_ids.reshape(-1).long()]       # (B·C, h)
     for i, layer in enumerate(params["layers"]):
         h = rms_norm(x, layer["attn_norm"], cfg.rms_norm_eps)
         attn_out, _ = tp_attn_prefill_chunk(layer["attn"], cfg, h,
-                                            cache.layer(i), start, chunk)
+                                            cache.layer(i), start, chunk,
+                                            axis=axis, num_ranks=n,
+                                            mode=mode)
         x = x + attn_out
         h = rms_norm(x, layer["mlp_norm"], cfg.rms_norm_eps)
-        x = x + _mlp_or_moe(layer, cfg, h)
+        x = x + _mlp_or_moe(layer, cfg, h, axis=axis, n=n, mode=mode)
     return x, cache
 
 
@@ -153,13 +220,38 @@ def dense_prefill_chunked(params: dict, cfg: ModelConfig,
 
 
 def dense_last_logits(params: dict, cfg: ModelConfig,
-                      x_last: torch.Tensor) -> torch.Tensor:
-    """Final norm + lm-head for last-token activations (B, h)."""
-    return _logits(params, cfg, x_last)
+                      x_last: torch.Tensor, *, axis: str = "tp",
+                      num_ranks: int = 1) -> torch.Tensor:
+    """Final norm + lm-head for last-token activations (B, h); at n > 1
+    the logits gathered to the full vocabulary."""
+    return _logits(params, cfg, x_last, axis=axis, n=num_ranks)
+
+
+def make_ar_stream_fn(ar_state, *, axis: str, n: int,
+                      force_kernel: bool = False):
+    """The barrier-free parity AllReduce hook of a decode walk.
+    ``ar_state``: (ws, call_index) from ``ops/allreduce.
+    ar_stream_workspace``, threaded through the loop by the caller.
+    Returns (ar_fn, final_state_getter): every ``"ar"`` reduction of the
+    step goes through the ONE workspace with one call counter — no
+    barrier in steady state."""
+    from triton_distributed_tpu_torch.ops.allreduce import all_reduce_stream
+
+    state = list(ar_state)
+
+    def ar_fn(y):
+        out, ws, idx = all_reduce_stream(y, state[0], state[1], axis=axis,
+                                         num_ranks=n,
+                                         force_kernel=force_kernel)
+        state[0], state[1] = ws, idx
+        return out
+
+    return ar_fn, lambda: (state[0], state[1])
 
 
 def _decode_body(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
-                 attend, *, dot_fn=None) -> torch.Tensor:
+                 attend, *, axis: str = "tp", n: int = 1, mode: str = "ar",
+                 ar_fn=None, dot_fn=None) -> torch.Tensor:
     """The one-token transformer walk shared by the decode steps;
     ``attend(i, attn_params, h)`` supplies layer i's attention."""
     x = params["embed"][tokens.long()]                      # (B, h)
@@ -167,8 +259,9 @@ def _decode_body(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
         h = rms_norm(x, layer["attn_norm"], cfg.rms_norm_eps)
         x = x + attend(i, layer["attn"], h)
         h = rms_norm(x, layer["mlp_norm"], cfg.rms_norm_eps)
-        x = x + _mlp_or_moe(layer, cfg, h, dot_fn=dot_fn)
-    return _logits(params, cfg, x)
+        x = x + _mlp_or_moe(layer, cfg, h, axis=axis, n=n, mode=mode,
+                            ar_fn=ar_fn, dot_fn=dot_fn)
+    return _logits(params, cfg, x, axis=axis, n=n)
 
 
 def dense_decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
@@ -202,26 +295,42 @@ def dense_decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def dense_decode_step_paged(params: dict, cfg: ModelConfig,
-                            tokens: torch.Tensor, cache: PagedModelCache):
+                            tokens: torch.Tensor, cache: PagedModelCache,
+                            *, axis: str = "tp", num_ranks: int = 1,
+                            mode: str = "ar", ar_state=None):
     """One-token decode over a :class:`PagedModelCache` at per-sequence
     positions. tokens: (B,). Returns (logits (B, vocab), cache with
     ``kv_lens`` advanced by one — clamped at capacity, because a
-    saturated sequence's append was dropped)."""
+    saturated sequence's append was dropped); with ``ar_state`` (the
+    parity-stream AR at n > 1), (logits, cache, ar_state')."""
+    n = num_ranks
+    _replicated(mode, n, "dense_decode_step_paged")
     start_lens = cache.kv_lens
+    ar_fn = final = None
+    if ar_state is not None and mode == "ar" and n > 1:
+        ar_fn, final = make_ar_stream_fn(ar_state, axis=axis, n=n)
 
     def attend(i, attn_params, h):
         # Every layer appends at the same positions: each starts from the
         # step's start lengths; the lengths advance once, below.
-        out, _ = tp_attn_decode_paged(attn_params, cfg, h, cache.layer(i))
+        out, _ = tp_attn_decode_paged(attn_params, cfg, h, cache.layer(i),
+                                      axis=axis, num_ranks=n, mode=mode,
+                                      ar_fn=ar_fn)
         return out
 
-    logits = _decode_body(params, cfg, tokens, attend)
+    logits = _decode_body(params, cfg, tokens, attend, axis=axis, n=n,
+                          mode=mode, ar_fn=ar_fn)
     new_lens = torch.clamp(start_lens + 1, max=cache.capacity)
-    return logits, cache._replace(kv_lens=new_lens)
+    cache = cache._replace(kv_lens=new_lens)
+    if ar_state is not None:
+        return logits, cache, (final() if final is not None else ar_state)
+    return logits, cache
 
 
 def dense_verify_step_paged(params: dict, cfg: ModelConfig,
-                            tokens: torch.Tensor, cache: PagedModelCache):
+                            tokens: torch.Tensor, cache: PagedModelCache,
+                            *, axis: str = "tp", num_ranks: int = 1,
+                            mode: str = "ar"):
     """Speculative VERIFY decode: score W = k+1 candidate positions per
     sequence in one step. tokens: (B, W) — column 0 each sequence's last
     accepted token, columns 1..k its drafts. Every projection and MLP
@@ -231,17 +340,20 @@ def dense_verify_step_paged(params: dict, cfg: ModelConfig,
     (B, W, vocab), cache with all W positions appended and ``kv_lens``
     advanced by W, clamped at capacity); the caller truncates ``kv_lens``
     to the accepted prefix."""
+    n = num_ranks
+    _replicated(mode, n, "dense_verify_step_paged")
     batch, window = tokens.shape
     start_lens = cache.kv_lens
     x = params["embed"][tokens.reshape(-1).long()]           # (B·W, h)
     for i, layer in enumerate(params["layers"]):
         h = rms_norm(x, layer["attn_norm"], cfg.rms_norm_eps)
         out, _ = tp_attn_verify_paged(layer["attn"], cfg, h,
-                                      cache.layer(i), window)
+                                      cache.layer(i), window, axis=axis,
+                                      num_ranks=n, mode=mode)
         x = x + out
         h = rms_norm(x, layer["mlp_norm"], cfg.rms_norm_eps)
-        x = x + _mlp_or_moe(layer, cfg, h)
-    logits = _logits(params, cfg, x)
+        x = x + _mlp_or_moe(layer, cfg, h, axis=axis, n=n, mode=mode)
+    logits = _logits(params, cfg, x, axis=axis, n=n)
     new_lens = torch.clamp(start_lens + window, max=cache.capacity)
     return (logits.reshape(batch, window, -1),
             cache._replace(kv_lens=new_lens.to(torch.int32)))

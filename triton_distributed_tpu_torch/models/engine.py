@@ -1,5 +1,5 @@
-"""Inference engine on one device — counterpart of the JAX package's
-``models/engine.py`` at tensor-parallel degree 1.
+"""Inference engine — counterpart of the JAX package's
+``models/engine.py``, on one device or on a tensor-parallel rank group.
 
 Eager PyTorch: prefill writes a linear cache (``prefill_fn``, default
 ``dense_prefill``). With the reference's defaults (``backend="auto"``,
@@ -32,22 +32,42 @@ megakernel, and :meth:`Engine.serve` on a megakernel engine that has a
 ``page_size``, refuse by name instead of decoding eagerly — there is no
 demotion ladder. Not ported: the ladder, ``repartition``, observability
 spans, and a CUDA graph for the decode step.
+
+**On a TP group** (``Engine(cfg, params, ctx)``, ``ctx`` a
+``runtime/context.DistContext`` of n > 1 ranks; ``device=`` stays the
+one-rank form) the parameters are sharded per ``dense_llm_specs``
+(``models/convert.shard_params``), each rank keeps its shard of the KV
+heads, and every step runs once per rank through ``ctx.run`` (the
+``shard_map`` counterpart). Decode runs mode ``"ar"`` (``"xla_rep"`` on
+``backend="xla"``); with the default decode functions every row-parallel
+reduction of a decode step rides the barrier-free parity-stream
+AllReduce over a persistent workspace per batch shape
+(:meth:`Engine._ar_state`; ``TDTPU_AR_STREAM=0`` opts out). The ranks
+compute bit-identical logits; the engine returns rank 0's tokens.
+Not at n > 1 yet, refused by name: the linear-cache decode,
+:meth:`Engine.serve` wherever :meth:`Engine._prefill_mode` returns
+``"overlap"`` (kernels B9/B10), MoE configs, and the megakernel.
 """
 
 from __future__ import annotations
 
+import itertools
+import os
 import warnings
 
 import numpy as np
 import torch
 
+from triton_distributed_tpu_torch.layers.tp_mlp import pick_mode
 from triton_distributed_tpu_torch.megakernel.kernel import (
     MegakernelUnsupportedError,
 )
 from triton_distributed_tpu_torch.models import sampling
 from triton_distributed_tpu_torch.models.config import ModelConfig
+from triton_distributed_tpu_torch.models.convert import shard_params
 from triton_distributed_tpu_torch.models.dense import (
-    dense_decode_step, dense_decode_step_paged, dense_prefill,
+    dense_decode_step, dense_decode_step_paged, dense_llm_specs,
+    dense_prefill,
 )
 from triton_distributed_tpu_torch.models.fp8 import E4M3, saturate_cast
 from triton_distributed_tpu_torch.models.kv_cache import (
@@ -56,6 +76,9 @@ from triton_distributed_tpu_torch.models.kv_cache import (
 from triton_distributed_tpu_torch.runtime.device import (
     resolve_device, torch_dtype,
 )
+
+
+_ENGINE_SERIAL = itertools.count()
 
 
 def _to_device(tree, device):
@@ -67,7 +90,8 @@ def _to_device(tree, device):
 
 
 class Engine:
-    """Serve a dense LLM on one device.
+    """Serve a dense LLM on one device, or on the ranks of ``ctx`` (a TP
+    group; see the module docstring).
 
     ``device=None`` means the card and raises without CUDA; pass
     ``device="cpu"`` for the CPU (the kernels' plain versions run there).
@@ -82,7 +106,8 @@ class Engine:
 
     BACKENDS = ("auto", "xla", "megakernel")
 
-    def __init__(self, cfg: ModelConfig, params: dict, *, device=None,
+    def __init__(self, cfg: ModelConfig, params: dict, ctx=None, *,
+                 axis: str = "tp", device=None,
                  max_seq: int = 256, page_size: int | None = None,
                  backend: str = "auto", kv_dtype=None,
                  prefill_fn=dense_prefill, decode_fn=dense_decode_step):
@@ -108,30 +133,143 @@ class Engine:
             raise ValueError(f"kv_dtype = {kv_dtype} unsupported: the pools "
                              "hold the model dtype or float8_e4m3fn — "
                              "argument kv_dtype")
+        if ctx is not None and device is not None:
+            raise ValueError("pass ctx (a TP group) or device (one rank), "
+                             "not both — arguments ctx / device")
         self.backend = backend
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.ctx = ctx
+        self.axis = axis
+        self.n = 1 if ctx is None else ctx.axis_size(axis)
+        self.device = (ctx.devices[0] if ctx is not None
+                       else resolve_device(device))
         self.max_seq = max_seq
         self.page_size = page_size
         self.max_pages = (None if page_size is None
                           else -(-max_seq // page_size))
-        self.params = _to_device(params, self.device)
+        if self.n > 1:
+            if cfg.is_moe:
+                raise ValueError(
+                    "MoE over ranks (the TP and EP MoE forms, B8) is not "
+                    "ported — serve a MoE config at one rank")
+            if cfg.num_kv_heads % self.n:
+                raise ValueError(f"num_kv_heads {cfg.num_kv_heads} not "
+                                 f"divisible by TP degree {self.n}")
+            self.param_specs = dense_llm_specs(cfg, axis)
+            self.rank_params = shard_params(params, ctx, cfg, axis=axis)
+            self.params = None      # per rank: rank_params
+        else:
+            self.params = _to_device(params, self.device)
+            self.rank_params = [self.params]
+        # A tag of this engine's own for its parity workspaces: id() would
+        # be reused by a later engine on the same context, which would
+        # then find this one's flags already past its call indices.
+        self._serial = next(_ENGINE_SERIAL)
+        self._ar_states: dict = {}
         self._prefill_fn = prefill_fn
         self._decode_fn = (dense_decode_step_paged
                            if page_size is not None
                            and decode_fn is dense_decode_step else decode_fn)
         self._mk = None       # the sequential serve's cached decoder
 
-    def new_cache(self, batch: int) -> KVCache:
+    # -- the rank group ----------------------------------------------------
+    @property
+    def rank_devices(self) -> list:
+        return self.ctx.devices if self.n > 1 else [self.device]
+
+    def run(self, fn) -> list:
+        """``fn(rank)`` on every rank (through ``ctx.run`` at n > 1, in the
+        calling thread at n = 1); the results in rank order."""
+        if self.n == 1:
+            return [fn(0)]
+        return self.ctx.run(fn)
+
+    def replicate(self, x) -> list:
+        """A host array or CPU tensor on every rank's device (one copy per
+        distinct device: virtual ranks on one card share it)."""
+        t = x if isinstance(x, torch.Tensor) else torch.as_tensor(
+            np.asarray(x))
+        copies: dict = {}
+        return [copies.setdefault(d, t.to(d)) for d in self.rank_devices]
+
+    def tp_kwargs(self, mode: str) -> dict:
+        """The TP arguments of the model functions (none at n = 1, so
+        one-rank ``prefill_fn`` / ``decode_fn`` replacements keep their
+        signature)."""
+        if self.n == 1:
+            return {}
+        return {"axis": self.axis, "num_ranks": self.n, "mode": mode}
+
+    def check_comm(self) -> None:
+        """Raise ``CommTimeoutError`` if a collective kernel of the last
+        steps timed out (reads the ranks' error words: a device sync)."""
+        if self.n > 1:
+            self.ctx.raise_on_comm_error()
+
+    def _prefill_mode(self, batch: int, seq: int) -> str:
+        """The prefill's TP mode (reference ``_prefill_mode``): replicated
+        ``"ar"`` on the megakernel; ``"xla"`` / ``"xla_rep"`` on
+        ``backend="xla"``; else the perf model's ``pick_mode``."""
+        if self.backend == "megakernel":
+            return "ar"
+        if self.backend == "xla":
+            return "xla" if (batch * seq) % self.n == 0 else "xla_rep"
+        return pick_mode("auto", batch * seq, self.n,
+                         hidden=self.cfg.hidden_size,
+                         ffn=self.cfg.intermediate_size,
+                         itemsize=torch_dtype(self.cfg.dtype).itemsize)
+
+    def _decode_mode(self) -> str:
+        return "xla_rep" if self.backend == "xla" else "ar"
+
+    def _use_ar_stream(self) -> bool:
+        """The barrier-free parity AR on the decode path: real TP, mode
+        ``"ar"``, the dense paged decode function (a user's
+        ``decode_fn`` has no ``ar_state`` contract). ``TDTPU_AR_STREAM=0``
+        opts out."""
+        return (self.n > 1 and self._decode_mode() == "ar"
+                and self._decode_fn is dense_decode_step_paged
+                and os.environ.get("TDTPU_AR_STREAM", "1") != "0")
+
+    def _ar_state(self, batch: int) -> list:
+        """The persistent parity workspace of decode batch ``batch`` and
+        each rank's call index: [(ws, idx)] per rank. Allocated once per
+        batch shape, with a tag of this engine's own — the symmetric-
+        memory persistence the barrier-free protocol needs."""
+        if batch not in self._ar_states:
+            from triton_distributed_tpu_torch.ops.allreduce import (
+                ar_stream_workspace,
+            )
+
+            ws, idx = ar_stream_workspace(
+                self.n, batch, self.cfg.hidden_size,
+                torch_dtype(self.cfg.dtype), ctx=self.ctx,
+                tag=f"engine-{self._serial}-ar-stream")
+            self._ar_states[batch] = [(ws, idx)] * self.n
+        return self._ar_states[batch]
+
+    def new_cache(self, batch: int):
+        """A zeroed linear cache (at n > 1: one shard per rank, a list)."""
+        if self.n > 1:
+            return self.run(lambda r: init_kv_cache(
+                self.cfg, batch, self.max_seq, device=self.ctx.devices[r],
+                num_ranks=self.n))
         return init_kv_cache(self.cfg, batch, self.max_seq,
                              device=self.device)
 
-    def to_paged(self, cache: KVCache) -> PagedModelCache:
+    def to_paged(self, cache):
         """Mirror a linear cache into the paged layout: sequence b owns
         pages ``[b*max_pages, (b+1)*max_pages)``, lengths = ``offset``. A
         view of the same storage when ``max_seq`` is a page multiple and
         the pools keep the model dtype; with ``kv_dtype`` e4m3 the pools
-        are a saturating-cast copy (the quantization point)."""
+        are a saturating-cast copy (the quantization point). At n > 1,
+        a list of rank shards → a list."""
+        if isinstance(cache, list):
+            return self.run(lambda r: self._to_paged_one(
+                cache[r], self.rank_devices[r]))
+        return self._to_paged_one(cache, self.device)
+
+    def _to_paged_one(self, cache: KVCache, device) -> PagedModelCache:
         L, batch = cache.k.shape[0], cache.k.shape[1]
         P, mp = self.page_size, self.max_pages
         pad = mp * P - cache.max_seq
@@ -147,9 +285,9 @@ class Engine:
         return PagedModelCache(
             k_pools=to_pools(cache.k), v_pools=to_pools(cache.v),
             page_table=torch.arange(batch * mp, dtype=torch.int32,
-                                    device=self.device).reshape(batch, mp),
+                                    device=device).reshape(batch, mp),
             kv_lens=torch.full((batch,), cache.offset, dtype=torch.int32,
-                               device=self.device))
+                               device=device))
 
     def prefill(self, input_ids: torch.Tensor, cache: KVCache | None = None):
         """input_ids: (B, S). Returns (last-token logits (B, vocab), cache)."""
@@ -157,8 +295,21 @@ class Engine:
         if seq > self.max_seq:
             raise ValueError(f"prompt {seq} exceeds max_seq {self.max_seq}")
         cache = cache if cache is not None else self.new_cache(batch)
-        return self._prefill_fn(self.params, self.cfg,
-                                input_ids.to(self.device), cache)
+        if self.n == 1:
+            return self._prefill_fn(self.params, self.cfg,
+                                    input_ids.to(self.device), cache)
+        mode = self._prefill_mode(batch, seq)
+        if mode not in ("ar", "xla_rep"):
+            raise ValueError(
+                f"prefill at n = {self.n}: mode {mode!r} for {batch} x "
+                f"{seq} rows (row-sharded AG+GEMM / GEMM+RS, kernels "
+                "B9/B10) is not ported — it comes with Engine.serve on a "
+                "TP group; ServingEngine's slices run 'ar'")
+        ids = self.replicate(input_ids)
+        outs = self.run(lambda r: self._prefill_fn(
+            self.rank_params[r], self.cfg, ids[r], cache[r],
+            **self.tp_kwargs(mode)))
+        return outs[0][0], [o[1] for o in outs]
 
     def _check_eager(self) -> None:
         if self.backend == "megakernel":
@@ -175,11 +326,45 @@ class Engine:
         int32, cache). The eager step only: refused by name on
         ``backend="megakernel"``."""
         self._check_eager()
+        if self.n > 1:
+            return self._decode_run(tokens, cache)
         if self.page_size is not None and isinstance(cache, KVCache):
             cache = self.to_paged(cache)
         logits, cache = self._decode_fn(self.params, self.cfg,
                                         tokens.to(self.device), cache)
         return sampling.greedy(logits), cache
+
+    def _decode_run(self, tokens: torch.Tensor, caches: list):
+        """One decode step on every rank (reference ``_decode_run``):
+        ``caches`` the ranks' shards; with :meth:`_use_ar_stream` every
+        ``"ar"`` reduction rides the parity stream of this batch shape.
+        Returns (rank 0's next tokens, the ranks' caches)."""
+        if self.page_size is None:
+            raise ValueError(
+                f"linear-cache decode at n = {self.n} is not ported (it "
+                "comes with Engine.serve on a TP group) — build the engine "
+                "with page_size")
+        if isinstance(caches[0], KVCache):
+            caches = self.to_paged(caches)
+        batch = int(tokens.shape[0])
+        toks = self.replicate(tokens.cpu() if tokens.is_cuda else tokens)
+        kw = self.tp_kwargs(self._decode_mode())
+        if self._use_ar_stream():
+            states = self._ar_state(batch)
+
+            def step(r):
+                logits, cache, st = self._decode_fn(
+                    self.rank_params[r], self.cfg, toks[r], caches[r],
+                    ar_state=states[r], **kw)
+                states[r] = st
+                return sampling.greedy(logits), cache
+        else:
+            def step(r):
+                logits, cache = self._decode_fn(
+                    self.rank_params[r], self.cfg, toks[r], caches[r], **kw)
+                return sampling.greedy(logits), cache
+        outs = self.run(step)
+        return outs[0][0], [o[1] for o in outs]
 
     def serve(self, input_ids, gen_len: int) -> torch.Tensor:
         """Greedy generation: (B, S) prompt ids → (B, gen_len) int32 token
@@ -189,6 +374,8 @@ class Engine:
         each."""
         if not isinstance(input_ids, torch.Tensor):
             input_ids = torch.as_tensor(np.asarray(input_ids))
+        if self.n > 1:
+            return self._serve_tp(input_ids, gen_len)
         if self.backend == "megakernel" and self.page_size is not None:
             # The JAX package demotes down its backend ladder here; the
             # port has none.
@@ -224,6 +411,39 @@ class Engine:
                 "attended a truncated cache; raise max_seq",
                 RuntimeWarning, stacklevel=2)
         return torch.stack(outs, dim=1)
+
+    def _serve_tp(self, input_ids: torch.Tensor, gen_len: int
+                  ) -> torch.Tensor:
+        """:meth:`serve` on a TP group: the replicated prefill, then the
+        paged decode steps. Refused by name where the prefill's mode is
+        row-sharded ("overlap": kernels B9/B10, the next slice), without
+        a ``page_size``, and on the megakernel."""
+        if self.backend == "megakernel":
+            raise MegakernelUnsupportedError(
+                f"the megakernel is single-rank for now (TP group of "
+                f"{self.n}) — serve with backend='auto'")
+        batch, seq = input_ids.shape
+        mode = self._prefill_mode(batch, seq)
+        if mode not in ("ar", "xla_rep"):
+            raise ValueError(
+                f"Engine.serve at n = {self.n}: the prefill of {batch} x "
+                f"{seq} rows takes mode {mode!r} (AG+GEMM / GEMM+RS, "
+                "kernels B9/B10), which is not ported yet — serve through "
+                "ServingEngine, whose prefill slices run 'ar'")
+        if self.page_size is None:
+            raise ValueError(
+                f"Engine.serve at n = {self.n} needs a page_size: the "
+                "linear-cache decode on a TP group is not ported")
+        logits, caches = self.prefill(input_ids)
+        tok = sampling.greedy(logits)
+        caches = self.to_paged(caches)
+        outs = [tok]
+        for _ in range(gen_len - 1):
+            tok, caches = self.decode(tok, caches)
+            outs.append(tok)
+        out = torch.stack(outs, dim=1)
+        self.check_comm()
+        return out
 
     def _serve_megakernel(self, tok: torch.Tensor, cache: KVCache,
                           gen_len: int) -> torch.Tensor:

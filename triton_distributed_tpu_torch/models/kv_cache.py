@@ -7,6 +7,11 @@ version is an immutable pytree threaded through donated jits). The page
 allocator is the port's own copy of the host-side free list, without the
 refcount / share / copy-on-write / reclaim hooks, which come with the
 prefix-cache slice.
+
+On a TP group (``num_ranks`` > 1) each rank holds its shard of the KV
+heads — ``num_kv_heads / n`` a rank, per :func:`kv_cache_specs` /
+:func:`paged_cache_specs` — while the page table and lengths are
+replicated and one :class:`PageAllocator` serves every rank.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ import torch
 from triton_distributed_tpu_torch.layers.common import KVSlice
 from triton_distributed_tpu_torch.models.config import ModelConfig
 from triton_distributed_tpu_torch.ops.paged_attention import PagedKVCache
+from triton_distributed_tpu_torch.runtime.context import P
 from triton_distributed_tpu_torch.runtime.device import (
     resolve_device, torch_dtype,
 )
@@ -41,11 +47,26 @@ class KVCache(NamedTuple):
         return KVSlice(k=self.k[i], v=self.v[i])
 
 
+def _local_kv_heads(cfg: ModelConfig, num_ranks: int) -> int:
+    if num_ranks < 1 or cfg.num_kv_heads % num_ranks:
+        raise ValueError(f"num_kv_heads {cfg.num_kv_heads} not divisible by "
+                         f"TP degree {num_ranks} — argument num_ranks")
+    return cfg.num_kv_heads // num_ranks
+
+
+def kv_cache_specs(axis: str = "tp") -> KVCache:
+    """Partition specs of a linear cache: KV heads sharded."""
+    return KVCache(k=P(None, None, None, axis, None),
+                   v=P(None, None, None, axis, None), offset=P())
+
+
 def init_kv_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
-                  device=None) -> KVCache:
-    """A zeroed linear cache on ``device`` (None: the card)."""
+                  device=None, *, num_ranks: int = 1) -> KVCache:
+    """A zeroed linear cache on ``device`` (None: the card); at
+    ``num_ranks`` > 1 one rank's shard (``num_kv_heads / n`` heads)."""
     device = resolve_device(device)
-    shape = (cfg.num_layers, batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
+    shape = (cfg.num_layers, batch, max_seq,
+             _local_kv_heads(cfg, num_ranks), cfg.head_dim)
     dt = torch_dtype(dtype or cfg.dtype)
     return KVCache(k=torch.zeros(shape, dtype=dt, device=device),
                    v=torch.zeros(shape, dtype=dt, device=device), offset=0)
@@ -119,21 +140,30 @@ def identity_page_table(batch: int, max_pages: int, num_pages: int,
     return ids.reshape(batch, max_pages) % num_pages
 
 
+def paged_cache_specs(axis: str = "tp") -> PagedModelCache:
+    """Partition specs of a paged cache: the pools sharded by KV head,
+    the page table and lengths replicated."""
+    return PagedModelCache(k_pools=P(None, None, None, axis, None),
+                           v_pools=P(None, None, None, axis, None),
+                           page_table=P(), kv_lens=P())
+
+
 def init_paged_model_cache(cfg: ModelConfig, batch: int, *, page_size: int,
                            max_pages: int, num_pages: int | None = None,
-                           dtype=None, kv_dtype=None,
-                           device=None) -> PagedModelCache:
+                           dtype=None, kv_dtype=None, device=None,
+                           num_ranks: int = 1) -> PagedModelCache:
     """Zeroed pools + identity page tables on ``device`` (None: the
     card), sizing validated up front. ``kv_dtype`` overrides the pools'
     storage type (``float8_e4m3fn``: half the bf16 page bytes); writers
-    cast through ``models/fp8.saturate_cast``."""
+    cast through ``models/fp8.saturate_cast``. At ``num_ranks`` > 1 the
+    pools are one rank's shard (``num_kv_heads / n`` heads)."""
     device = resolve_device(device)
     num_pages = num_pages or batch * max_pages
     _check_paged_pool_config(page_size=page_size, max_pages=max_pages,
                              num_pages=num_pages, batch=batch)
     dt = torch_dtype(kv_dtype or dtype or cfg.dtype)
-    shape = (cfg.num_layers, num_pages, page_size, cfg.num_kv_heads,
-             cfg.head_dim)
+    shape = (cfg.num_layers, num_pages, page_size,
+             _local_kv_heads(cfg, num_ranks), cfg.head_dim)
     return PagedModelCache(
         torch.zeros(shape, dtype=dt, device=device),
         torch.zeros(shape, dtype=dt, device=device),

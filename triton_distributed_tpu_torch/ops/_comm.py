@@ -1,0 +1,142 @@
+"""What the collective wrappers share: the kernels of
+``csrc/collectives.cu``, their launch, the payload checks, the CPU
+rendezvous through a symmetric buffer's slots, and the straggler hook.
+
+A wrapper takes the kernel only for a CUDA tensor and the plain version
+only for a CPU tensor; nothing falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import time
+
+import torch
+
+from triton_distributed_tpu_torch.runtime.build import (
+    CudaKernel, current_stream, ptr,
+)
+from triton_distributed_tpu_torch.runtime.context import (
+    DistContext, current_rank,
+)
+from triton_distributed_tpu_torch.runtime.symm import SymmBuffer
+
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+_GROUP_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int,
+                                        ctypes.c_ulonglong, ctypes.c_longlong,
+                                        ctypes.c_void_p, ctypes.c_void_p,
+                                        ctypes.c_longlong]
+
+ONE_SHOT_KERNEL = CudaKernel("collectives.cu", "tdt_ar_one_shot",
+                             _GROUP_ARGS + [ctypes.c_int, ctypes.c_void_p])
+PARITY_KERNEL = CudaKernel("collectives.cu", "tdt_ar_parity",
+                           _GROUP_ARGS + [ctypes.c_int, ctypes.c_void_p])
+RS_RING_KERNEL = CudaKernel("collectives.cu", "tdt_rs_ring",
+                            _GROUP_ARGS + [ctypes.c_int, ctypes.c_void_p])
+AG_RING_KERNEL = CudaKernel("collectives.cu", "tdt_ag_ring",
+                            _GROUP_ARGS + [ctypes.c_void_p])
+# Not a collective: holds a stream (the straggler), and the library's
+# peer-access entry.
+SPIN = CudaKernel("collectives.cu", "tdt_spin",
+                  [ctypes.c_longlong, ctypes.c_void_p])
+PEER_ACCESS = CudaKernel("collectives.cu", "tdt_enable_peer_access",
+                         [ctypes.c_int, ctypes.c_int])
+STREAMS = CudaKernel("collectives.cu", "tdt_stream_create",
+                     [ctypes.c_int, ctypes.POINTER(ctypes.c_void_p)])
+
+COLLECTIVE_KERNELS = (ONE_SHOT_KERNEL, PARITY_KERNEL, RS_RING_KERNEL,
+                      AG_RING_KERNEL)
+
+
+class CollectiveUnsupportedError(ValueError):
+    """A method or form the port does not have yet, refused by name."""
+
+
+def rank_of(axis: str, num_ranks: int | None) -> tuple[DistContext, int, int]:
+    """(context, rank, n) of the calling rank thread, ``num_ranks``
+    checked against the group (the reference requires it inside
+    ``shard_map``)."""
+    if num_ranks is None:
+        raise ValueError("num_ranks required inside the rank runner")
+    ctx, rank = current_rank()
+    n = ctx.axis_size(axis)
+    if n != num_ranks:
+        raise ValueError(f"num_ranks = {num_ranks} but the rank group has "
+                         f"{n} — argument num_ranks")
+    return ctx, rank, n
+
+
+def check_payload(ctx: DistContext, rank: int, x: torch.Tensor, what: str
+                  ) -> torch.Tensor:
+    """The kernels take a 2-D float32 / bfloat16 payload of whole 16-byte
+    vectors, contiguous and 16-byte aligned, on the rank's device. A
+    misaligned or strided view is copied once; anything else raises."""
+    if x.dim() != 2:
+        raise ValueError(f"{what}: payload must be (rows, cols), got "
+                         f"{tuple(x.shape)}")
+    if x.dtype not in DTYPE_CODE:
+        raise ValueError(f"{what}: dtype {x.dtype} unsupported (float32 or "
+                         "bfloat16)")
+    if x.device != ctx.devices[rank]:
+        raise ValueError(f"{what}: rank {rank}'s payload on {x.device}, its "
+                         f"device is {ctx.devices[rank]}")
+    if x.numel() * x.element_size() % 16:
+        raise ValueError(f"{what}: payload of {x.numel() * x.element_size()}"
+                         " bytes is not whole 16-byte vectors")
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        x = x.contiguous().clone()
+    return x
+
+
+def launch(kernel: CudaKernel, buf: SymmBuffer, rank: int, epoch: int,
+           x: torch.Tensor, out: torch.Tensor, nbytes: int,
+           *dtype_code) -> None:
+    """One collective launch on the rank's current stream, made at the
+    rank group's meeting: the last rank to arrive launches every rank's
+    kernel (``DistContext.meet``), so no kernel of the collective runs
+    before every rank's part before it was enqueued, and every rank's
+    kernel is launched before any rank goes on — a rank thread that
+    later blocks on the device waits only for work that can finish."""
+    ctx = buf.ctx
+    kernel.library()              # a first-use build, before the meeting
+    buf.await_ready(rank)
+    dev = x.device
+    args = (ptr(buf.table[rank]), ptr(buf.signal_table[rank]),
+            ptr(ctx.error_word(rank)), rank, ctx.num_ranks, epoch,
+            int(ctx.timeout_s * 1e9), ptr(x), ptr(out), nbytes,
+            *dtype_code, current_stream(dev))
+
+    def act():
+        with torch.cuda.device(dev):
+            kernel.launch(*args)
+
+    ctx.meet(rank, "collective.launch", act)
+
+
+def push_slots(ctx: DistContext, rank: int, buf: SymmBuffer, x, index,
+               what: str) -> None:
+    """The plain versions' rendezvous: store ``x`` into ``[index]`` of
+    every rank's copy of ``buf`` (a push, as the kernels do), then meet."""
+    for t in buf.tensors:
+        t[index].copy_(x)
+    ctx.barrier(rank, what)
+
+
+def straggle(straggler, n: int, rank: int, call_index: int | None) -> None:
+    """Fault injection: ``straggler=(rank, ns)`` holds that rank back
+    ``ns`` nanoseconds before it pushes; ``("rotate", ns)`` picks rank
+    ``call_index % n`` (the reference's ``resolve_straggler``). On the
+    card the rank's stream spins; on the CPU its thread sleeps."""
+    if straggler is None:
+        return
+    who, ns = straggler
+    if who == "rotate":
+        who = (call_index or 0) % n
+    if who != rank:
+        return
+    ctx, _ = current_rank()
+    if ctx.is_cuda:
+        SPIN.launch(int(ns), current_stream(ctx.devices[rank]))
+    else:
+        time.sleep(ns / 1e9)

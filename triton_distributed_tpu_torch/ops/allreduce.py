@@ -1,0 +1,258 @@
+"""AllReduce over the rank group — counterpart of the JAX package's
+``ops/allreduce.py``: kernel B5 in its one-shot form
+(``_ar_one_shot_kernel``) and its barrier-free parity form
+(``_ar_one_shot_parity_kernel``, the decode path), both hand-written CUDA
+in ``csrc/collectives.cu``; two-shot as ring reduce-scatter (B6) then ring
+all-gather (B4); AUTO by the perf model.
+
+Methods:
+
+- ``ONE_SHOT``: every rank pushes its block into slot ``rank`` of every
+  peer's symmetric workspace, then sums the n slots in rank order in fp32
+  and casts once. One hop, n x traffic: the small payloads' method.
+- ``TWO_SHOT``: ``reduce_scatter_local`` then ``all_gather_local(RING_1D)``
+  — 2(n-1) hops of 1/n of the payload: the large payloads' method.
+- ``TREE``: the double binary tree (``_ar_tree_kernel``) is not ported
+  yet and is refused by name; AUTO selects it only between ~1.35 and
+  ~1.8 MB at n = 4 (runtime/perf_model.py), which the serving path's
+  shapes do not reach.
+- ``XLA``: the JAX package's ``psum`` — a plain sum through the rank
+  group (``runtime/context.group_psum``).
+
+Every method's order and rounding is part of its contract — the replicas
+must end bit-identical —, and each kernel's plain version keeps it:
+one-shot and parity add in fp32 from 0 in rank order and cast once; the
+ring RS adds in the payload type a hop.
+
+Call the ``*_local`` functions inside ``DistContext.run`` (the
+``shard_map`` counterpart); the host-level :func:`all_reduce` runs them on
+every rank.
+"""
+
+from __future__ import annotations
+
+import enum
+
+import torch
+
+from triton_distributed_tpu_torch.ops._comm import (
+    DTYPE_CODE, ONE_SHOT_KERNEL, PARITY_KERNEL, CollectiveUnsupportedError,
+    check_payload, launch, push_slots, rank_of, straggle,
+)
+from triton_distributed_tpu_torch.ops.allgather import (
+    AllGatherMethod, all_gather_local,
+)
+from triton_distributed_tpu_torch.ops.reduce_scatter import (
+    reduce_scatter_local,
+)
+from triton_distributed_tpu_torch.runtime.context import (
+    DistContext, get_context, group_psum,
+)
+from triton_distributed_tpu_torch.runtime.symm import SymmBuffer, symm_zeros
+
+
+class AllReduceMethod(enum.Enum):
+    AUTO = "auto"
+    ONE_SHOT = "one_shot"
+    TWO_SHOT = "two_shot"
+    TREE = "tree"
+    XLA = "xla"
+
+
+def get_auto_allreduce_method(nbytes: int, num_ranks: int,
+                              tree_halves: int = 2, spec=None
+                              ) -> AllReduceMethod:
+    """The method with the least modeled time for a payload of
+    ``nbytes`` (runtime/perf_model.allreduce_time_s): one-shot at n <= 2,
+    else the cheapest of one-shot, two-shot and tree."""
+    if num_ranks <= 2:
+        return AllReduceMethod.ONE_SHOT
+    from triton_distributed_tpu_torch.runtime.perf_model import (
+        allreduce_time_s,
+    )
+
+    times = {m: allreduce_time_s(nbytes, num_ranks, m, spec,
+                                 tree_halves=tree_halves)
+             for m in ("one_shot", "two_shot", "tree")}
+    return AllReduceMethod(min(times, key=times.get))
+
+
+def _tree_halves(m: int, dtype=None) -> int:
+    """2 when the rows split into two halves (the double tree), else 1.
+    The reference also asks each half to fill whole (8, 128) sublane
+    tiles; Hopper has no such tiling, so an even row count is enough."""
+    return 2 if m >= 2 and m % 2 == 0 else 1
+
+
+def reduce_slots_plain(slots) -> torch.Tensor:
+    """Plain version of the one-shot and parity kernels' reduction
+    (reference ``_reduce_slots``): ``slots`` (n, m, cols) — or a list of n
+    (m, cols) — summed in rank order in fp32 starting from 0, cast once
+    to the payload type. Starting from 0 matters: 0 + (-0) is +0."""
+    acc = torch.zeros(slots[0].shape, dtype=torch.float32,
+                      device=slots[0].device)
+    for s in slots:
+        acc = acc + s.float()
+    return acc.to(slots[0].dtype)
+
+
+def _one_shot(x: torch.Tensor, n: int, ctx: DistContext, rank: int
+              ) -> torch.Tensor:
+    m, cols = x.shape
+    buf = symm_zeros(ctx, (n, m, cols), x.dtype, tag="ar_one_shot")
+    if x.device.type == "cuda":
+        x = check_payload(ctx, rank, x, "all_reduce one_shot")
+        out = torch.empty_like(x)
+        launch(ONE_SHOT_KERNEL, buf, rank, buf.next_epoch(rank), x, out,
+               x.numel() * x.element_size(), DTYPE_CODE[x.dtype])
+        return out
+    if x.device.type != "cpu":
+        raise ValueError(f"all_reduce: no kernel for device {x.device}")
+    ONE_SHOT_KERNEL.count_plain()
+    ctx.barrier(rank, "ar_one_shot.entry")
+    push_slots(ctx, rank, buf, x, rank, "ar_one_shot.data")
+    return reduce_slots_plain(buf.tensors[rank])
+
+
+def all_reduce_local(x_local: torch.Tensor, axis: str = "tp",
+                     num_ranks: int | None = None,
+                     method: AllReduceMethod | str = AllReduceMethod.AUTO
+                     ) -> torch.Tensor:
+    """Rank-local AllReduce inside ``DistContext.run``: ``x_local``
+    (m, cols) on every rank → (m, cols) = the ranks' sum, bit-identical on
+    every rank. Repeated steady-state calls (decode) take
+    :func:`all_reduce_stream`."""
+    if isinstance(axis, (tuple, list)):
+        raise CollectiveUnsupportedError(
+            "multi-axis AllReduce (ops/multi_axis.py, the torus form) is "
+            "not ported — argument axis")
+    method = AllReduceMethod(method)
+    ctx, rank, n = rank_of(axis, num_ranks)
+    if n == 1:
+        return x_local
+    if method == AllReduceMethod.AUTO:
+        method = get_auto_allreduce_method(
+            x_local.numel() * x_local.element_size(), n,
+            tree_halves=_tree_halves(x_local.shape[0]))
+    if method == AllReduceMethod.XLA:
+        return group_psum(x_local, axis=axis, num_ranks=n)
+    if method == AllReduceMethod.TREE:
+        raise CollectiveUnsupportedError(
+            "AllReduce method 'tree' (the double binary tree, "
+            "ops/allreduce.py:169 _ar_tree_kernel) is not ported yet; AUTO "
+            f"chose it for {x_local.numel() * x_local.element_size()} bytes "
+            f"at n = {n} — pin method='one_shot' or 'two_shot'")
+    if method == AllReduceMethod.TWO_SHOT:
+        m = x_local.shape[0]
+        if m % n:
+            raise ValueError(f"two_shot requires rows {m} divisible by "
+                             f"num_ranks {n}")
+        scattered = reduce_scatter_local(x_local, axis=axis, num_ranks=n)
+        return all_gather_local(scattered, axis=axis, num_ranks=n,
+                                method=AllGatherMethod.RING_1D)
+    return _one_shot(x_local, n, ctx, rank)
+
+
+# ---------------------------------------------------------------------------
+# Barrier-free steady-state AR (the decode path).
+# ---------------------------------------------------------------------------
+
+def ar_stream_workspace(n: int, m: int, cols: int, dtype, *,
+                        ctx: DistContext | None = None,
+                        tag: str = "ar_stream") -> tuple[SymmBuffer, int]:
+    """The persistent (workspace, call_index) pair of
+    :func:`all_reduce_stream`: a symmetric (2, n, m, cols) buffer of two
+    parity slabs, allocated once per (shape, dtype, tag) on the context,
+    and call index 0. Thread both through the decode loop; give each
+    stream of calls its own ``tag``; asking again for a tag in use returns
+    its workspace with the index of its next call. The reference pads the
+    rows to the TPU's sublane tiling (``_ar_rows_padded``); Hopper has no
+    such tiling, so the rows stay as they are."""
+    ctx = ctx or get_context()
+    if ctx.num_ranks != n:
+        raise ValueError(f"n = {n} but the rank group has {ctx.num_ranks}")
+    ws = symm_zeros(ctx, (2, n, m, cols), dtype, tag=tag)
+    return ws, ws.epochs[0]
+
+
+def all_reduce_stream(x_local: torch.Tensor, ws: SymmBuffer,
+                      call_index: int, *, axis: str = "tp",
+                      num_ranks: int | None = None,
+                      straggler: tuple | None = None,
+                      force_kernel: bool = False):
+    """Barrier-free one-shot AllReduce over a persistent parity workspace
+    (reference ``all_reduce_stream``; kernel ``ar_parity`` of
+    ``csrc/collectives.cu``). x_local: (m, cols); ws from
+    :func:`ar_stream_workspace`; ``call_index``: a host int, the same
+    sequence on every rank. Returns (sum, ws, call_index + 1).
+
+    Call t uses parity slab ``t % 2``: each rank pushes its block into
+    slot ``rank`` of every peer's slab and waits for the peers' flags of
+    that parity, whose value is ``t + 1``. Safety, per parity p: for a
+    rank to write parity-p slots of call t+2 it must have finished call
+    t+1, which needed every peer's call-(t+1) delivery, which each peer
+    sends only after it finished reducing its call-t (parity-p) slab — the
+    completion chain orders the reuse, so no barrier is needed. That holds
+    only with a persistent (ws, call_index) pair per batch shape and per
+    rank, threaded through the loop: a transient buffer could be written
+    by a peer before it exists. Per-parity flags keep a fast peer's t+1
+    delivery from counting toward call t."""
+    ctx, rank, n = rank_of(axis, num_ranks)
+    if n == 1 and not force_kernel:
+        return x_local, ws, call_index + 1
+    m, cols = x_local.shape
+    shape = tuple(ws.tensors[rank].shape)
+    if shape != (2, n, m, cols):
+        raise ValueError(f"workspace shape {shape} != (2, {n}, {m}, {cols}) "
+                         "— allocate via ar_stream_workspace")
+    if ws.tensors[rank].dtype != x_local.dtype:
+        raise ValueError(f"workspace dtype {ws.tensors[rank].dtype} != input"
+                         f" {x_local.dtype} — allocate ar_stream_workspace "
+                         "with the activation dtype")
+    if call_index != ws.epochs[rank]:
+        raise ValueError(
+            f"all_reduce_stream: call_index {call_index} on rank {rank}, but "
+            f"this workspace's next call is {ws.epochs[rank]} — a (ws, "
+            "call_index) pair must stay persistent and in sequence (a "
+            "second stream of calls needs its own workspace tag)")
+    ws.epochs[rank] = call_index + 1
+    straggle(straggler, n, rank, call_index)
+    p = call_index % 2
+    if x_local.device.type == "cuda":
+        x = check_payload(ctx, rank, x_local, "all_reduce_stream")
+        out = torch.empty_like(x)
+        launch(PARITY_KERNEL, ws, rank, call_index, x, out,
+               x.numel() * x.element_size(), DTYPE_CODE[x.dtype])
+        return out, ws, call_index + 1
+    if x_local.device.type != "cpu":
+        raise ValueError(f"all_reduce_stream: no kernel for device "
+                         f"{x_local.device}")
+    PARITY_KERNEL.count_plain()
+    push_slots(ctx, rank, ws, x_local, (p, rank), "ar_stream")
+    return reduce_slots_plain(ws.tensors[rank][p]), ws, call_index + 1
+
+
+def split_ranks(ctx: DistContext, x) -> list:
+    """Per-rank contributions of a host-level call: a list of n tensors,
+    or a tensor whose leading dim is n (the reference's stacked global
+    array)."""
+    n = ctx.num_ranks
+    xs = list(x) if isinstance(x, (list, tuple)) else list(x.unbind(0))
+    if len(xs) != n:
+        raise ValueError(f"{len(xs)} contributions for {n} ranks")
+    return xs
+
+
+def all_reduce(x, ctx: DistContext | None = None, axis: str = "tp",
+               method: AllReduceMethod | str = AllReduceMethod.AUTO
+               ) -> list:
+    """Host-level AllReduce: ``x`` — n per-rank (m, cols) contributions
+    (a list, or stacked as (n, m, cols)) → the n per-rank sums, rank r's
+    on ``ctx.devices[r]``. Reads the ranks' error words after the run."""
+    ctx = ctx or get_context()
+    n = ctx.axis_size(axis)
+    xs = split_ranks(ctx, x)
+    outs = ctx.run(lambda r: all_reduce_local(
+        xs[r].to(ctx.devices[r]), axis=axis, num_ranks=n, method=method))
+    ctx.raise_on_comm_error()
+    return outs

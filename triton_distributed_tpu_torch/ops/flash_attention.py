@@ -101,7 +101,7 @@ def _flash_plain(q, k, v, q_offset: int, k_offset: int, *, causal: bool,
     mask to -1e30, ``p`` rounded to V's dtype before PV, fp32 (acc, m, l).
     Returns (out, m, l) in the public (B, S, h, ...) layout; ``out`` is
     ``q.dtype`` when ``normalize`` else fp32."""
-    FLASH_KERNEL.plain_calls += 1
+    FLASH_KERNEL.count_plain()
     b, sq, hq, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     g = hq // hkv

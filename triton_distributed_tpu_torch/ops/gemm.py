@@ -171,7 +171,7 @@ def matmul_plain(a: torch.Tensor, b: torch.Tensor, out_dtype) -> torch.Tensor:
     """B3's function in plain PyTorch: the fp32 product of the operands as
     stored (a narrower B upcasts exactly), then the output cast —
     saturating for e4m3."""
-    GEMM_KERNEL.plain_calls += 1
+    GEMM_KERNEL.count_plain()
     return saturate_cast(a.float() @ b.float(), out_dtype)
 
 

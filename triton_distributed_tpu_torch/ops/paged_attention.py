@@ -159,7 +159,7 @@ def _paged_decode_plain(q: torch.Tensor, cache: PagedKVCache, *,
     ``>= kv_len`` to -1e30, fp32 softmax statistics and PV.
     Returns (out, m, l); ``out`` is ``q.dtype`` when ``normalize`` else
     fp32 (B, hq, d)."""
-    PAGED_KERNEL.plain_calls += 1
+    PAGED_KERNEL.count_plain()
     b, hq, d = q.shape
     _, page, hkv, _ = cache.k_pool.shape
     g = hq // hkv

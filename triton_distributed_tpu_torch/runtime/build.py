@@ -20,6 +20,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -29,6 +30,11 @@ BUILD_DIR = PKG_DIR / "_build"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# One build at a time in this process: the rank threads of a tensor-
+# parallel group reach their first kernel together, and two nvcc runs of
+# one source would race on its temporary file.
+_BUILD_LOCK = threading.Lock()
 
 
 class KernelBuildError(RuntimeError):
@@ -72,6 +78,11 @@ def build(srcs: list[Path] | None = None) -> dict[str, Path]:
     The compiler's output (``-Xptxas -v``: registers, shared memory,
     spills) is kept beside each library as ``<name>.log``."""
     srcs = sources() if srcs is None else list(srcs)
+    with _BUILD_LOCK:
+        return _build_locked(srcs)
+
+
+def _build_locked(srcs: list[Path]) -> dict[str, Path]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = []
     for src in srcs:
@@ -116,7 +127,12 @@ class CudaKernel:
     ``variant_launches`` counts the launches of each named lane of the
     kernel (K2's ``"e4m3"`` pools; the megakernel's ``"kv8"`` pools,
     speculative ``"window"`` and ``"full"`` instantiation), so a run can
-    show which lanes its path took."""
+    show which lanes its path took.
+
+    Thread-safe: the rank threads of a tensor-parallel group launch the
+    same kernel at once, so the counts move under a lock (a bare ``+=``
+    loses counts between threads) and the first-use build and load run
+    once, under another."""
 
     def __init__(self, source: str, symbol: str, argtypes: list):
         self.source = source
@@ -127,6 +143,8 @@ class CudaKernel:
         self.variant_launches: dict[str, int] = {}
         self._lib = None
         self._fn = None
+        self._count_lock = threading.Lock()
+        self._load_lock = threading.Lock()
 
     @property
     def source_path(self) -> Path:
@@ -134,16 +152,30 @@ class CudaKernel:
 
     def _load(self):
         if self._fn is None:
-            path = build([self.source_path])[self.source]
-            lib = ctypes.CDLL(str(path))
-            fn = getattr(lib, self.symbol)
-            fn.argtypes = self.argtypes
-            fn.restype = ctypes.c_int
-            err_str = lib.tdt_error_string
-            err_str.argtypes = [ctypes.c_int]
-            err_str.restype = ctypes.c_char_p
-            self._lib, self._fn = lib, fn
+            with self._load_lock:
+                if self._fn is None:
+                    path = build([self.source_path])[self.source]
+                    lib = ctypes.CDLL(str(path))
+                    fn = getattr(lib, self.symbol)
+                    fn.argtypes = self.argtypes
+                    fn.restype = ctypes.c_int
+                    err_str = lib.tdt_error_string
+                    err_str.argtypes = [ctypes.c_int]
+                    err_str.restype = ctypes.c_char_p
+                    self._lib = lib
+                    self._fn = fn
         return self._fn
+
+    def library(self):
+        """The loaded shared library (built at first use), for the
+        source's other entry points."""
+        self._load()
+        return self._lib
+
+    def count_plain(self) -> None:
+        """Count one call of the kernel's plain version."""
+        with self._count_lock:
+            self.plain_calls += 1
 
     def launch(self, *args, variants: tuple = ()) -> None:
         """Call the C entry point (``args``: its arguments, the stream
@@ -152,9 +184,11 @@ class CudaKernel:
         if err != 0:
             msg = self._lib.tdt_error_string(err).decode()
             raise CudaKernelError(f"{self.symbol}: CUDA error {err} ({msg})")
-        self.launches += 1
-        for v in variants:
-            self.variant_launches[v] = self.variant_launches.get(v, 0) + 1
+        with self._count_lock:
+            self.launches += 1
+            for v in variants:
+                self.variant_launches[v] = (self.variant_launches.get(v, 0)
+                                            + 1)
 
 
 def ptr(t) -> ctypes.c_void_p:

@@ -6,8 +6,16 @@ quantized up to the tensor cores' tile and the peak taken for the operand
 type (the H100 runs fp8 at twice bf16's rate and fp32 outside the tensor
 cores at a fifteenth of it). It ranks kernel B3's tile candidates for the
 contextual autotuner (:func:`rank_gemm_tiles`) so only the top few are
-measured. The communication models of the reference wait for the
-multi-GPU runtime.
+measured.
+
+The communication half (:func:`allreduce_time_s` and its parts) feeds the
+collectives' AUTO selectors (``ops/allreduce.get_auto_allreduce_method``,
+``ops/allgather.get_auto_all_gather_method``) and ``layers/tp_mlp.
+pick_mode``. It is the reference's ICI model on the H100's NVLink: a
+rank pushes at ``link_gbps`` a direction, shared by its peers, and pays
+``link_latency_s`` a hop. An NVLink host joins its cards all to all
+(NVSwitch), so every peer is one hop away — where the reference walks a
+torus ring, the port's hop counts are 1.
 
 The constants are published peaks (NVIDIA's H100 SXM data sheet, dense,
 at the 700 W power limit); the model ranks, so ±20% error in them is
@@ -128,3 +136,98 @@ def rank_gemm_tiles(candidates, m: int, n: int, k: int, itemsize: int,
 
     ranked = sorted(candidates, key=score)
     return ranked[:top] if top else ranked
+
+
+# ---------------------------------------------------------------------------
+# Collective cost models. nbytes is the GLOBAL payload (the whole gathered
+# or reduced tensor), n the ranks of the group.
+# ---------------------------------------------------------------------------
+
+def _mean_ring_hops(n: int) -> float:
+    """Mean hops from a rank to its n-1 peers. The reference's torus ring
+    gives 4/3 at n = 4; on an all-to-all NVLink host every peer is one
+    hop away, so it is 1 (0 alone)."""
+    return 0.0 if n <= 1 else 1.0
+
+
+def _far_hops(n: int) -> int:
+    """Hops to the farthest peer: 1 on an all-to-all NVLink host (the
+    reference's ring has n // 2)."""
+    return 1
+
+
+def _link_bw(spec: ChipSpec) -> float:
+    """Bytes/s one rank can push (its NVLink egress, one direction)."""
+    return spec.link_gbps * 1e9
+
+
+def allgather_ring_time_s(nbytes: int, n: int,
+                          spec: ChipSpec | None = None) -> float:
+    """1-D ring AG: n-1 steps, each forwarding one shard one hop."""
+    spec = spec or chip_spec()
+    if n <= 1:
+        return 0.0
+    shard = nbytes / n
+    return (n - 1) * (shard / _link_bw(spec) + spec.link_latency_s)
+
+
+def allgather_full_mesh_time_s(nbytes: int, n: int,
+                               spec: ChipSpec | None = None) -> float:
+    """Full-mesh push AG: every rank pushes its shard to its n-1 peers at
+    once, sharing its egress; the latency is paid once, for the farthest
+    peer."""
+    spec = spec or chip_spec()
+    if n <= 1:
+        return 0.0
+    shard = nbytes / n
+    return ((n - 1) * shard * _mean_ring_hops(n) / _link_bw(spec)
+            + _far_hops(n) * spec.link_latency_s)
+
+
+def reduce_scatter_ring_time_s(nbytes: int, n: int,
+                               spec: ChipSpec | None = None) -> float:
+    """Ring RS mirrors ring AG step for step (the adds are free)."""
+    return allgather_ring_time_s(nbytes, n, spec)
+
+
+def allreduce_time_s(nbytes: int, n: int, method: str = "two_shot",
+                     spec: ChipSpec | None = None,
+                     tree_halves: int = 2) -> float:
+    """AR cost: ``one_shot`` — every rank pushes the WHOLE payload to its
+    n-1 peers; ``two_shot`` — ring RS + ring AG; ``tree`` — the double
+    binary tree, 2 ceil(log2 n) hops of a half payload
+    (``tree_halves=1``: one tree of the whole payload)."""
+    spec = spec or chip_spec()
+    if n <= 1:
+        return 0.0
+    if method == "one_shot":
+        return ((n - 1) * nbytes * _mean_ring_hops(n) / _link_bw(spec)
+                + _far_hops(n) * spec.link_latency_s)
+    if method == "two_shot":
+        return (reduce_scatter_ring_time_s(nbytes, n, spec)
+                + allgather_ring_time_s(nbytes, n, spec))
+    if method == "tree":
+        depth = max(1, math.ceil(math.log2(n)))
+        half = nbytes / max(tree_halves, 1)
+        return 2 * depth * (half / _link_bw(spec) + spec.link_latency_s)
+    raise ValueError(f"unknown allreduce method {method!r}")
+
+
+def ag_gemm_time_s(m_global: int, n_cols: int, k: int, n_ranks: int,
+                   itemsize: int, spec: ChipSpec | None = None) -> float:
+    """Overlapped AG+GEMM ~ max(comm, compute) + one chunk's fill."""
+    spec = spec or chip_spec()
+    t_gemm = gemm_time_s(m_global, n_cols, k, itemsize, spec)
+    t_ag = allgather_full_mesh_time_s(m_global * k * itemsize, n_ranks,
+                                      spec)
+    return max(t_gemm, t_ag) + t_ag / max(n_ranks, 1)
+
+
+def gemm_rs_time_s(m_global: int, n_cols: int, k: int, n_ranks: int,
+                   itemsize: int, spec: ChipSpec | None = None) -> float:
+    """Overlapped GEMM+RS ~ max(compute, comm) + one chunk's fill."""
+    spec = spec or chip_spec()
+    t_gemm = gemm_time_s(m_global, n_cols, k, itemsize, spec)
+    t_rs = reduce_scatter_ring_time_s(m_global * n_cols * itemsize,
+                                      n_ranks, spec)
+    return max(t_gemm, t_rs) + t_rs / max(n_ranks, 1)

@@ -47,6 +47,20 @@ Two decode features ride both lanes:
   megakernel lane the window rides one 128-row slot block: ``spec_k``
   up to 127, :class:`MegakernelUnsupportedError` above.
 
+On a TP group (``Engine(cfg, params, ctx)`` with n > 1 ranks) the
+prefill buffer and the pools are per rank — each holds its shard of the
+KV heads —, the page table and lengths are replicated, and one
+``PageAllocator`` serves every rank. The slice, its logits, the decode
+and the verify step run once per rank through the engine's rank runner
+(``Engine.run``): prefill slices and verify steps reduce in mode
+``"ar"`` (``ops/allreduce``'s AUTO: two-shot for a 256-row bf16 slice,
+one-shot for a 16-row verify step at n = 4), decode through the parity
+stream (``Engine._decode_run``), the logits gathered through the group.
+After each step's host sync the ranks' error words are read
+(``Engine.check_comm``): a collective that timed out raises
+``CommTimeoutError`` there. The megakernel lane is single-rank and raises
+:class:`MegakernelUnsupportedError` at n > 1, as the reference's does.
+
 Greedy decoding end to end, so each request's tokens are identical to a
 sequential ``Engine.serve`` of its prompt, with or without drafts. Not in
 this slice: prefix cache, the spec lane's transient-fault fallback
@@ -164,24 +178,25 @@ class ServingEngine:
         self.spec_k = int(spec_k)
         self._proposer = NGramProposer(self.spec_k) if self.spec_k else None
         self._drafts: dict[str, list[int]] = {}
-        self._pf_cache = init_kv_cache(self.cfg, 1, self.s_buf,
-                                       device=engine.device)
+        n, devs = engine.n, engine.rank_devices
+        self._pf_caches = engine.run(lambda r: init_kv_cache(
+            self.cfg, 1, self.s_buf, device=devs[r], num_ranks=n))
         # The megakernel lane's workspace holds the KV pools, with the
         # scratch page as a reserved pool row (the budget math sees it);
-        # the eager lane keeps a PagedModelCache.
+        # the eager lane keeps a PagedModelCache per rank.
         self._mk = None
         self._mk_ws = None
-        self._cache = None
+        self._caches = None
         if engine.backend == "megakernel":
             self._mk = self._build_megakernel_lane(pool_pages)
             self._mk_ws = self._mk.start()
             allocator = PageAllocator(pool_pages + 1, self.max_pages,
                                       reserved=(self.scratch_page,))
         else:
-            self._cache = init_paged_model_cache(
+            self._caches = engine.run(lambda r: init_paged_model_cache(
                 self.cfg, max_batch, page_size=page,
                 max_pages=self.max_pages, num_pages=pool_pages + 1,
-                kv_dtype=self.kv_dtype, device=engine.device)
+                kv_dtype=self.kv_dtype, device=devs[r], num_ranks=n))
             allocator = PageAllocator(pool_pages, self.max_pages)
         self.sched = Scheduler(
             num_slots=max_batch, allocator=allocator,
@@ -190,12 +205,26 @@ class ServingEngine:
         self._iter = 0
         self._finished: list[Request] = []
 
+    @property
+    def _cache(self):
+        """Rank 0's paged cache (None on the megakernel lane)."""
+        return None if self._caches is None else self._caches[0]
+
+    @property
+    def _pf_cache(self):
+        """Rank 0's prefill buffer."""
+        return self._pf_caches[0]
+
     def _build_megakernel_lane(self, pool_pages: int
                                ) -> PagedMegakernelDecoder:
         """The paged persistent-kernel decoder, or a named
         MegakernelUnsupportedError saying which dimension the lane cannot
-        serve (page shape, model geometry; the decoder names a draft depth
-        past one slot block)."""
+        serve (TP degree, page shape, model geometry; the decoder names a
+        draft depth past one slot block)."""
+        if self.engine.n > 1:
+            raise MegakernelUnsupportedError(
+                f"megakernel serving lane is single-rank for now (TP group "
+                f"of {self.engine.n}) — serve with backend='auto'")
         if self.page != TILE:
             raise MegakernelUnsupportedError(
                 f"megakernel paged workspace needs page_size == TILE "
@@ -272,14 +301,21 @@ class ServingEngine:
         ids = np.zeros((1, self.chunk), np.int32)
         real = text[start:start + self.chunk]
         ids[0, :len(real)] = real
-        x, self._pf_cache = dense_prefill_slice(
-            eng.params, self.cfg, torch.from_numpy(ids).to(eng.device),
-            self._pf_cache, start)
+        idr = eng.replicate(torch.from_numpy(ids))
+        kw = eng.tp_kwargs(eng._decode_mode())
+        outs = eng.run(lambda r: dense_prefill_slice(
+            eng.rank_params[r], self.cfg, idr[r], self._pf_caches[r], start,
+            **kw))
+        self._pf_caches = [o[1] for o in outs]
         req.prefill_pos = min(start + self.chunk, T)
         if req.prefill_pos >= T:
             row = (T - 1) - start
-            logits = dense_last_logits(eng.params, self.cfg, x[row:row + 1])
-            tok = int(sampling.greedy(logits)[0])       # host sync
+            lkw = {k: v for k, v in kw.items() if k != "mode"}
+            toks = eng.run(lambda r: sampling.greedy(dense_last_logits(
+                eng.rank_params[r], self.cfg, outs[r][0][row:row + 1],
+                **lkw)))
+            tok = int(toks[0][0])                       # host sync
+            eng.check_comm()
             now = self.clock()
             req.tokens.append(tok)
             req.kv_len = T
@@ -294,18 +330,24 @@ class ServingEngine:
         L, page = self.cfg.num_layers, self.page
         n_pages = -(-req.kv_len // page)
         owned = self.sched.allocator.pages(req.req_id)[:n_pages]
-        pf = self._pf_cache
         if self._mk is not None:
+            pf = self._pf_cache
             self._mk_ws = self._mk.load_prefill(self._mk_ws, pf.k, pf.v,
                                                 owned)
         else:
-            pages = torch.as_tensor(owned, dtype=torch.long,
-                                    device=self.engine.device)
-            for pool, lin in ((self._cache.k_pools, pf.k),
-                              (self._cache.v_pools, pf.v)):
-                src = lin[:, 0].reshape(L, self.s_buf // page, page,
-                                        *lin.shape[3:])[:, :n_pages]
-                pool[:, pages] = saturate_cast(src, pool.dtype)
+            eng = self.engine
+
+            def scatter(r):
+                pf, cache = self._pf_caches[r], self._caches[r]
+                pages = torch.as_tensor(owned, dtype=torch.long,
+                                        device=eng.rank_devices[r])
+                for pool, lin in ((cache.k_pools, pf.k),
+                                  (cache.v_pools, pf.v)):
+                    src = lin[:, 0].reshape(L, self.s_buf // page, page,
+                                            *lin.shape[3:])[:, :n_pages]
+                    pool[:, pages] = saturate_cast(src, pool.dtype)
+
+            eng.run(scatter)
         req.advance(RequestState.RUNNING)
         if req.done:
             self._finish(req)
@@ -327,6 +369,15 @@ class ServingEngine:
             pages = alloc.pages(req.req_id)
             table[req.slot, :len(pages)] = pages
         return toks, lens, table
+
+    def _rank_caches(self, table: np.ndarray, lens: np.ndarray) -> list:
+        """Each rank's paged cache with this step's page table and
+        lengths (replicated on the ranks' devices)."""
+        eng = self.engine
+        tables = eng.replicate(torch.from_numpy(table))
+        lensr = eng.replicate(torch.from_numpy(lens))
+        return [c._replace(page_table=tables[r], kv_lens=lensr[r])
+                for r, c in enumerate(self._caches)]
 
     def _plan_drafts(self) -> dict[str, int]:
         """Draft up to ``spec_k`` candidates per RUNNING slot from its own
@@ -368,11 +419,12 @@ class ServingEngine:
         else:
             eng = self.engine
             toks, lens, table = self._slot_state(ready, self.scratch_page)
-            cache = self._cache._replace(
-                page_table=torch.from_numpy(table).to(eng.device),
-                kv_lens=torch.from_numpy(lens).to(eng.device))
-            tok, self._cache = eng.decode(torch.from_numpy(toks), cache)
+            caches = self._rank_caches(table, lens)
+            tok, new = eng.decode(torch.from_numpy(toks),
+                                  caches if eng.n > 1 else caches[0])
+            self._caches = new if eng.n > 1 else [new]
             tok_np = tok.cpu().numpy()                  # host sync
+            eng.check_comm()
         self._decode_tail(ready, {r.req_id: [int(tok_np[r.slot])]
                                   for r in ready})
 
@@ -397,15 +449,23 @@ class ServingEngine:
                                              wins)
         else:
             eng = self.engine
-            cache = self._cache._replace(
-                page_table=torch.from_numpy(table).to(eng.device),
-                kv_lens=torch.from_numpy(lens).to(eng.device))
-            logits, self._cache = dense_verify_step_paged(
-                eng.params, self.cfg, torch.from_numpy(toks).to(eng.device),
-                cache)
-            b, w, v = logits.shape
-            ver = sampling.greedy(logits.reshape(b * w, v)).reshape(b, w)
-        self._spec_tail(ready, drafts, ver.cpu().numpy())    # host sync
+            caches = self._rank_caches(table, lens)
+            tokr = eng.replicate(torch.from_numpy(toks))
+            kw = eng.tp_kwargs(eng._decode_mode())
+
+            def verify(r):
+                logits, cache = dense_verify_step_paged(
+                    eng.rank_params[r], self.cfg, tokr[r], caches[r], **kw)
+                b, w, v = logits.shape
+                return (sampling.greedy(logits.reshape(b * w, v))
+                        .reshape(b, w), cache)
+
+            outs = eng.run(verify)
+            self._caches = [o[1] for o in outs]
+            ver = outs[0][0]
+        ver_np = ver.cpu().numpy()                      # host sync
+        self.engine.check_comm()
+        self._spec_tail(ready, drafts, ver_np)
 
     def _spec_tail(self, ready: list[Request], drafts: dict,
                    ver_np: np.ndarray) -> None:
