@@ -103,6 +103,25 @@ printing one JSON line:
    float32, 2 layers: the TP=4 tokens identical to the TP=1 eager lane's
    with a preemption, over workspace-dtype pools, e4m3 pools and with
    ``spec_k=3``, and every rank's logits bit-identical.
+11. the fused kernels of ``csrc/gemm_comm.cu`` — AG+GEMM (B9), GEMM+RS
+   (B10), GEMM+AR (B11) — and the double-tree AllReduce (B5's tree, in
+   ``csrc/collectives.cu``): ``collectives`` runs the tree beside the
+   other AR forms; ``collectives_fused`` each fused kernel at n = 2, 4 and
+   8, fp32 and bf16, the communication (B9's gathered A, B10's and B11's
+   reductions of the kernel's own slots) and the replicas bit for bit,
+   the GEMM at B3's tolerance, and at the main path's shapes (n = 4, bf16:
+   Qwen3-8B's 2 x 1024 prefill and a batch-2 decode step) timed; the tree
+   at 1, 7 and 203 rows; 200 back-to-back B11 calls with a rotating
+   straggler; a lost peer's ``CommTimeoutError`` for B9 and B11.
+   ``tp_engine`` — Qwen3-8B, bf16, ``Engine(cfg, params, ctx of 4 ranks,
+   max_seq=2048).serve`` with the reference's defaults: a 2 x 1024 prompt
+   for 64 tokens (prefill "overlap": B9 180 and B10 72 launches a rank;
+   linear decode: 72 parity ARs a rank a step), again under
+   ``TDTPU_GEMM_AR=1`` (72 B11 a step), then a 1 x 203 prompt whose "ar"
+   prefill reduces through the tree (72 a rank); TP=1's serve in the same
+   call. ``tp_engine_parity`` — float32, 2 layers: TP=4 ``Engine.serve``
+   tokens identical to TP=1's with the defaults, ``TDTPU_GEMM_AR=1``, the
+   tree prompt and ``backend="xla"``; every rank's logits bit-identical.
 
 Then the kernel summary line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failed phase raises: exit code 1
@@ -3110,8 +3129,9 @@ def coll_case(torch, timer, ctx, method: str, dtype, rows: int, seed: int,
     X = torch.randn((n, in_rows, cols), generator=g, device="cuda").to(dtype)
     xs = [X[r].to(ctx.devices[r]) for r in range(n)]     # views on one card
     item = X.element_size()
-    if method in ("allreduce_one_shot", "allreduce_two_shot"):
-        how = "one_shot" if method == "allreduce_one_shot" else "two_shot"
+    if method in ("allreduce_one_shot", "allreduce_two_shot",
+                  "allreduce_tree"):
+        how = method.replace("allreduce_", "")
 
         def fn(r):
             return ar.all_reduce_local(xs[r], num_ranks=n, method=how)
@@ -3142,6 +3162,8 @@ def coll_case(torch, timer, ctx, method: str, dtype, rows: int, seed: int,
             return [rs.rs_ring_plain(xp, r) for r in range(n)]
         if method == "allgather_ring":
             return [ag.ag_plain(xp)] * n
+        if method == "allreduce_tree":
+            return [ar.tree_plain(xp)] * n
         full = ag.ag_plain([rs.rs_ring_plain(xp, c) for c in range(n)])
         return [full] * n
 
@@ -3165,6 +3187,7 @@ def coll_case(torch, timer, ctx, method: str, dtype, rows: int, seed: int,
         # (virtual ranks): each input read once, each output written once.
         nbytes = {"allreduce_one_shot": 2 * n * B, "allreduce_parity":
                   2 * n * B, "allreduce_two_shot": 2 * n * B,
+                  "allreduce_tree": 2 * n * B,
                   "reduce_scatter_ring": n * B + B,
                   "allgather_ring": B + n * B}[method]
         adds = (n - 1) * rows * cols
@@ -3266,7 +3289,7 @@ def phase_collectives(torch, timer, fa, pa, *, devices_for=virtual_devices,
     cases: dict = {}
     methods = ("allreduce_one_shot", "allreduce_parity",
                "reduce_scatter_ring", "allgather_ring",
-               "allreduce_two_shot")
+               "allreduce_two_shot", "allreduce_tree")
     seed = 100
     for n in ranks:
         ctx = context.DistContext(
@@ -3274,8 +3297,9 @@ def phase_collectives(torch, timer, fa, pa, *, devices_for=virtual_devices,
         for dtype in (f32, bf16):
             for rows in COLL_ROWS:
                 for method in methods:
-                    if method != "allreduce_one_shot" and \
-                            method != "allreduce_parity" and rows % n:
+                    if method not in ("allreduce_one_shot",
+                                      "allreduce_parity",
+                                      "allreduce_tree") and rows % n:
                         continue
                     seed += 1
                     try:
@@ -3334,7 +3358,8 @@ def _coll_counts(comm) -> dict:
     return {"allreduce_one_shot": comm.ONE_SHOT_KERNEL.launches,
             "allreduce_parity": comm.PARITY_KERNEL.launches,
             "reduce_scatter_ring": comm.RS_RING_KERNEL.launches,
-            "allgather_ring": comm.AG_RING_KERNEL.launches}
+            "allgather_ring": comm.AG_RING_KERNEL.launches,
+            "allreduce_tree": comm.TREE_KERNEL.launches}
 
 
 def tp_drive(torch, se, kernels, prompts, gen, *, name) -> dict:
@@ -3620,6 +3645,608 @@ def phase_tp_parity(torch, QWEN3_8B, init_dense_llm, Engine, ServingEngine,
     return result
 
 
+# ---------------------------------------------------------------------------
+# The fused GEMM + communication kernels (B9 AG+GEMM, B10 GEMM+RS, B11
+# GEMM+AR) and the double-tree AR (B5 tree) on n virtual ranks, and
+# Engine.serve on a TP group with the reference's defaults.
+# ---------------------------------------------------------------------------
+
+# (name, rows a rank, K, N) of each fused kernel. Main path at n = 4, bf16:
+# Qwen3-8B's 2 x 1024 prefill (B9: the 512 rows of a rank against wq, wk /
+# wv and w_gate / w_up; B10: wo and w_down over all 2048 rows) and a batch-2
+# decode step (B11: wo and w_down).
+FUSED_MAIN = {
+    "ag_gemm": (("wq", 512, 4096, 1024), ("wk_wv", 512, 4096, 256),
+                ("gate_up", 512, 4096, 3072)),
+    "gemm_rs": (("wo", 2048, 1024, 4096), ("down", 2048, 3072, 4096)),
+    "gemm_ar": (("wo", 2, 1024, 4096), ("down", 2, 3072, 4096))}
+# Small shapes at every n and type: a tall tile and an unaligned B (100
+# columns), the short tile; rows that pad (B11 at 5 rows).
+FUSED_SMALL = {
+    "ag_gemm": (("small", 64, 512, 384), ("unaligned", 48, 256, 100)),
+    "gemm_rs": (("small", 128, 256, 512), ("short", 32, 128, 256)),
+    "gemm_ar": (("small", 2, 256, 512), ("pad", 5, 128, 1024))}
+TREE_ROWS = (1, 7, 203)          # one tree, odd halves, the main path's
+TREE_MAIN_ROWS = 203             # a 1 x 203 prompt's "ar" prefill
+GEMM_AR_CALLS = 3                # both parities and back
+
+
+def fused_modules():
+    import importlib
+
+    names = ("ops.allgather_gemm", "ops.gemm_reduce_scatter",
+             "ops.gemm_allreduce", "runtime.symm")
+    return [importlib.import_module(f"triton_distributed_tpu_torch.{n}")
+            for n in names]
+
+
+def _gemm_share(torch, got, want, spread, dtype) -> tuple:
+    """(max |got - want|, largest share of B3's tolerance one element
+    used): 2^-13 s (summation order, s = sqrt(K) rms(A) rms(B)) plus one
+    unit of the output type."""
+    lane = "fp32" if dtype == torch.float32 else "bf16"
+    rnd = GEMM_ROUND[_dtype_name(dtype)]
+    atol = GEMM_TOL[lane]["atol_s"] * spread + rnd["atol"]
+    rtol = GEMM_TOL[lane]["rtol"] + rnd["rtol"]
+    diff = (got.float() - want.float()).abs()
+    share = (diff / (atol + rtol * want.float().abs())).max().item()
+    return diff.max().item(), share
+
+
+def fused_case(torch, timer, ctx, op, dtype, shape, seed, time_it) -> dict:
+    """One fused kernel on every rank of ``ctx`` against its plain
+    version: the communication bit for bit (B9's gathered A; B10's and
+    B11's reductions of the kernel's own slots), the GEMM at B3's
+    tolerance (B9's output rows; B10's and B11's partials in the slots),
+    the replicas bit for bit (B11)."""
+    agm, grs, gar, symm = fused_modules()
+    name, m, k, ncols = shape
+    n = ctx.num_ranks
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    X = torch.randn((n, m, k), generator=g, device="cuda").to(dtype)
+    W = (torch.randn((n, k, ncols), generator=g, device="cuda")
+         * k ** -0.5).to(dtype)
+    xs = [X[r].to(ctx.devices[r]) for r in range(n)]
+    bs = [W[r].to(ctx.devices[r]) for r in range(n)]
+    spread = (k ** 0.5 * X.float().pow(2).mean().sqrt().item()
+              * W.float().pow(2).mean().sqrt().item())
+    rec = {"case": f"{op}_{name}_n{n}_{_dtype_name(dtype)}", "op": op,
+           "n": n, "dtype": _dtype_name(dtype), "rows": m, "k": k,
+           "ncols": ncols, "spread": spread}
+    if op == "ag_gemm":
+        sub = agm._ag_sub_chunks(m, agm.AGGemmConfig().sub_chunks, dtype)
+        outs = ctx.run(lambda r: agm.ag_gemm_local(
+            xs[r], bs[r], num_ranks=n, return_gathered=True))
+        torch.cuda.synchronize()
+        ctx.raise_on_comm_error()
+        full = torch.cat(list(X))
+        comm = all(torch.equal(gat.to(full.device), full) for _, gat in outs)
+        errs = [_gemm_share(torch, o.to(full.device), agm.ag_gemm_plain(
+            full, W[r], n, sub, r), spread, dtype)
+                for r, (o, _) in enumerate(outs)]
+        rec.update(sub_chunks=sub, gathered_bit_identical=comm)
+        ranks_same = True
+
+        def fn(r):
+            return agm.ag_gemm_local(xs[r], bs[r], num_ranks=n)
+
+        def plain():
+            return [agm.ag_gemm_plain(full, W[r], n, sub, r)
+                    for r in range(n)]
+
+        nbytes = (n * m * k + n * k * ncols + n * n * m * ncols) * \
+            X.element_size()
+        flops = n * 2.0 * n * m * k * ncols
+        library = (lambda: torch.matmul(full.expand(n, n * m, k), W),
+                   "torch.matmul of the gathered A by each rank's B, "
+                   "batched over the ranks (no communication)")
+    elif op == "gemm_rs":
+        mc = m // n
+        outs = ctx.run(lambda r: grs.gemm_rs_local(xs[r], bs[r],
+                                                   num_ranks=n))
+        torch.cuda.synchronize()
+        ctx.raise_on_comm_error()
+        buf = symm.symm_zeros(ctx, (n, mc, ncols), dtype, tag="gemm_rs")
+        slots = [t.to(X.device) for t in buf.tensors]
+        comm = all(torch.equal(gar.reduce_slots_plain(slots[r]),
+                               outs[r].to(X.device)) for r in range(n))
+        parts = [dict(grs.gemm_rs_partials(X[j], W[j], n, j))
+                 for j in range(n)]
+        errs = [_gemm_share(torch, slots[r][j], parts[j][r], spread, dtype)
+                for r in range(n) for j in range(n)]
+        rec["out_max_abs_err_vs_plain"] = max(
+            _max_err(outs[r].to(X.device),
+                     grs.gemm_rs_plain(list(X), list(W), r))
+            for r in range(n))
+        rec["slot_reduction_bit_identical"] = comm
+        ranks_same = True
+
+        def fn(r):
+            return grs.gemm_rs_local(xs[r], bs[r], num_ranks=n)
+
+        def plain():
+            return [grs.gemm_rs_plain(list(X), list(W), r)
+                    for r in range(n)]
+
+        nbytes = (n * m * k + n * k * ncols + m * ncols) * X.element_size()
+        flops = n * 2.0 * m * k * ncols
+        library = (lambda: torch.matmul(X, W),
+                   "torch.matmul of each rank's partials, batched over the "
+                   "ranks (no reduce-scatter)")
+    else:
+        ws, idx0 = gar.gemm_ar_stream_workspace(
+            n, m, ncols, dtype, ctx=ctx, tag=f"smoke-{name}-{m}-{k}-{ncols}")
+        idx = [idx0] * n
+        nch = ws.tensors[0].shape[1]
+        comm, ranks_same, errs = True, True, []
+        plain_out = gar.gemm_ar_plain(list(X), list(W))
+        parts = [gar.gemm_ar_partials(X[j], W[j], nch) for j in range(n)]
+        out_err = 0.0
+        for _ in range(GEMM_AR_CALLS):
+            p = idx[0] % 2
+
+            def call(r):
+                out, _, idx[r] = gar.gemm_ar_stream(xs[r], bs[r], ws, idx[r],
+                                                    num_ranks=n)
+                return out
+
+            outs = [o.to(X.device) for o in ctx.run(call)]
+            torch.cuda.synchronize()
+            ctx.raise_on_comm_error()
+            ranks_same &= all(torch.equal(outs[0], o) for o in outs[1:])
+            for r in range(n):
+                slab = ws.tensors[r][p].to(X.device)[:, :, :m]
+                red = torch.cat([gar.reduce_slots_plain(slab[c])
+                                 for c in range(nch)], dim=1)
+                comm &= torch.equal(red, outs[r])
+                errs += [_gemm_share(torch, slab[c, j], parts[j][c], spread,
+                                     dtype)
+                         for c in range(nch) for j in range(n)]
+            out_err = max(out_err, _max_err(outs[0], plain_out))
+        rec.update(calls=GEMM_AR_CALLS, n_chunks=nch,
+                   slot_reduction_bit_identical=comm,
+                   out_max_abs_err_vs_plain=out_err)
+
+        def fn(r):
+            out, _, idx[r] = gar.gemm_ar_stream(xs[r], bs[r], ws, idx[r],
+                                                num_ranks=n)
+            return out
+
+        def plain():
+            return gar.gemm_ar_plain(list(X), list(W))
+
+        nbytes = (n * m * k + n * k * ncols + n * m * ncols) * \
+            X.element_size()
+        flops = n * 2.0 * m * k * ncols
+        library = (lambda: torch.matmul(X, W),
+                   "torch.matmul of each rank's partials, batched over the "
+                   "ranks (no all-reduce)")
+    share = max(s for _, s in errs)
+    rec.update(max_abs_err=max(e for e, _ in errs), gemm_tol_share=share,
+               communication_bit_identical=comm, ranks_identical=ranks_same,
+               ok=bool(comm and ranks_same and share <= 1.0))
+    if time_it:
+        peak = "float32" if dtype == torch.float32 else "bfloat16"
+        rec["bound_ms"], rec["bound_by"] = _bound_ms(nbytes, flops, peak)
+        rec["bound_note"] = ("every rank's work on the one card: each input "
+                             "read and each output written once at 3.35 "
+                             "TB/s, the products at the peak of the type")
+        rec["ms"], rec["host_ms_per_call"] = _coll_ms(torch, ctx, fn, 10)
+        rec["plain_ms"] = timer.ms(plain)
+        rec["library_ms"] = timer.ms(library[0])
+        rec["library_call"] = library[1]
+    return rec
+
+
+def gemm_ar_stress(torch, ctx, dtype, calls: int) -> dict:
+    """``calls`` back-to-back B11 calls on every rank over one persistent
+    workspace at the decode's wo shape, new inputs every call, a rotating
+    rank held back 50 us on every third: each output must equal the sum
+    of the kernel's own slots, on every rank alike."""
+    _, _, gar, _ = fused_modules()
+    n, k, ncols = ctx.num_ranks, 1024, 4096
+    g = torch.Generator(device="cuda").manual_seed(78)
+    X = torch.randn((calls, n, 2, k), generator=g, device="cuda").to(dtype)
+    W = (torch.randn((n, k, ncols), generator=g, device="cuda")
+         * k ** -0.5).to(dtype)
+    ws, _ = gar.gemm_ar_stream_workspace(n, 2, ncols, dtype, ctx=ctx,
+                                         tag="stress")
+    nch = ws.tensors[0].shape[1]
+
+    def loop(r):
+        idx, outs, slabs = ws.epochs[r], [], []
+        xr, w = X[:, r].to(ctx.devices[r]), W[r].to(ctx.devices[r])
+        for t in range(calls):
+            strag = ("rotate", 50_000) if t % 3 == 0 else None
+            p = idx % 2
+            out, _, idx = gar.gemm_ar_stream(xr[t], w, ws, idx, num_ranks=n,
+                                             straggler=strag)
+            outs.append(out)
+            slabs.append(ws.tensors[r][p][:, :, :2].clone())
+        return torch.stack(outs), slabs
+
+    got = ctx.run(loop)
+    torch.cuda.synchronize()
+    ctx.raise_on_comm_error()
+    bad = []
+    for t in range(calls):
+        ref = got[0][0][t]
+        for r in range(n):
+            slab = got[r][1][t]
+            red = torch.cat([gar.reduce_slots_plain(slab[c])
+                             for c in range(nch)], dim=1)
+            if not (torch.equal(got[r][0][t].to(ref.device), ref)
+                    and torch.equal(red, got[r][0][t])):
+                bad.append(t)
+                break
+    return {"calls": calls, "n": n, "shape": [2, k, ncols],
+            "dtype": _dtype_name(dtype), "straggler": "rotate, 50 us, "
+            "every third call", "calls_wrong": bad, "ok": not bad}
+
+
+def fused_timeouts(torch, devices) -> dict:
+    """A lost peer raises CommTimeoutError for B9 and B11 (100 ms
+    deadlines): rank n-1 never calls, and the others wait at the host
+    meeting before the launch; rank n-1's stream held 1 s on the device
+    before its call, and the others' kernels spin past their deadline
+    (B9 in its entry barrier, B11 on its peers' flags), write the error
+    word and return."""
+    agm, _, gar, _ = fused_modules()
+    context = coll_modules()[4]
+    out = {}
+    for op in ("ag_gemm", "gemm_ar"):
+        for what in ("lost_peer", "held_back_peer"):
+            ctx = context.DistContext([torch.device(d) for d in devices],
+                                      wait_timeout_ms=100)
+            n = ctx.num_ranks
+            xs = [torch.ones((16, 256), device=d) for d in ctx.devices]
+            ws_ = [torch.ones((256, 256), device=d) for d in ctx.devices]
+            hold = (n - 1, 1_000_000_000) if what == "held_back_peer" \
+                else None
+            if op == "ag_gemm":
+                cfg = agm.AGGemmConfig(straggler=hold)
+
+                def fn(r):
+                    return agm.ag_gemm_local(xs[r], ws_[r], num_ranks=n,
+                                             cfg=cfg)
+            else:
+                ws, _ = gar.gemm_ar_stream_workspace(n, 16, 256,
+                                                     torch.float32, ctx=ctx,
+                                                     tag="timeout")
+
+                def fn(r):
+                    return gar.gemm_ar_stream(xs[r], ws_[r], ws, 0,
+                                              num_ranks=n, straggler=hold)
+            t0 = time.perf_counter()
+            raised = None
+            try:
+                ctx.run(lambda r: None if what == "lost_peer" and r == n - 1
+                        else fn(r))
+                torch.cuda.synchronize()
+                ctx.raise_on_comm_error()
+            except context.CommTimeoutError as exc:
+                raised = str(exc)
+            torch.cuda.synchronize()
+            out[f"{op}_{what}"] = {"raised": raised,
+                                   "wall_s": time.perf_counter() - t0}
+            ctx.close()
+    return {"n": len(devices), "timeout_ms": 100, **out,
+            "ok": all(v["raised"] for v in out.values())}
+
+
+def phase_fused(torch, timer, *, devices_for=virtual_devices,
+                ranks=COLL_RANKS, name="collectives_fused") -> dict:
+    """B9, B10 and B11 at n = 2, 4 and 8 ranks, fp32 and bf16, on small
+    shapes, and at the main path's shapes (n = 4, bf16) timed; the tree AR
+    at 1, 7 and 203 rows (its 4-2048-row cases run with the other
+    collectives); 200 back-to-back B11 calls with a rotating straggler; a
+    lost peer's CommTimeoutError for B9 and B11."""
+    context = coll_modules()[4]
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases: dict = {}
+    seed = 500
+    for n in ranks:
+        ctx = context.DistContext(
+            [torch.device(d) for d in devices_for(n)], wait_timeout_ms=20_000)
+        for dtype in (f32, bf16):
+            for op in ("ag_gemm", "gemm_rs", "gemm_ar"):
+                shapes = list(FUSED_SMALL[op])
+                if n == TP and dtype == bf16:
+                    shapes += list(FUSED_MAIN[op])
+                for shape in shapes:
+                    seed += 1
+                    timed = n == TP and dtype == bf16 and \
+                        shape in FUSED_MAIN[op]
+                    try:
+                        rec = fused_case(torch, timer, ctx, op, dtype, shape,
+                                         seed, timed)
+                    except Exception as exc:
+                        emit({"phase": name, "failed_case": {
+                            "op": op, "n": n, "shape": shape,
+                            "dtype": _dtype_name(dtype)},
+                            "error": repr(exc)})
+                        raise
+                    cases.setdefault(op, []).append(rec)
+            for rows in TREE_ROWS:
+                seed += 1
+                timed = n == TP and dtype == bf16 and rows == TREE_MAIN_ROWS
+                cases.setdefault("allreduce_tree", []).append(coll_case(
+                    torch, timer, ctx, "allreduce_tree", dtype, rows, seed,
+                    time_it=timed))
+        if n == TP:
+            stress = gemm_ar_stress(torch, ctx, bf16, PARITY_CALLS)
+        ctx.close()
+        del ctx
+        torch.cuda.empty_cache()
+    tmo = fused_timeouts(torch, devices_for(TP))
+    bad = [c["case"] for cs in cases.values() for c in cs if not c["ok"]]
+    check(not bad, f"{name}: disagree with their plain versions: {bad}")
+    check(stress["ok"], f"{name}: B11 stress wrong at calls "
+          f"{stress['calls_wrong']}")
+    check(tmo["ok"], f"{name}: a lost peer did not raise CommTimeoutError")
+    return {"phase": name, "devices": devices_for(TP),
+            "tolerance": "communication and replicas bit-identical to the "
+            "plain version; each GEMM (B9's output rows, B10's and B11's "
+            "slot partials) within B3's: 2^-13 sqrt(K) rms(A) rms(B) plus "
+            "one unit of the type", "main_shapes": FUSED_MAIN,
+            "gemm_ar_stress": stress, "timeout": tmo, "cases": cases}
+
+
+def fused_main_case(rec, op, which) -> dict:
+    return next(c for c in rec["cases"][op] if c["n"] == TP
+                and c["dtype"] == "bfloat16" and c["case"].startswith(
+                    f"{op}_{which}_"))
+
+
+def _tp_counts(comm) -> dict:
+    return {"ag_gemm": comm.AG_GEMM_KERNEL.launches,
+            "gemm_rs": comm.GEMM_RS_KERNEL.launches,
+            "gemm_ar": comm.GEMM_AR_KERNEL.launches, **_coll_counts(comm)}
+
+
+def tp_engine_run(torch, eng, kernels, ids, gen, *, name, expect,
+                  profile_steps=0) -> dict:
+    """One ``Engine.serve`` on a TP group with every count at 0 just before
+    and read just after; ``expect``: {kernel: launches per rank} for the
+    prefill and per decode step, checked exactly (every other collective
+    none); then the prefill alone, timed."""
+    comm = coll_modules()[0]
+    n, L = eng.n, eng.cfg.num_layers
+    allk = list(kernels) + list(comm.COLLECTIVE_KERNELS)
+    torch.cuda.synchronize()
+    reset_counts(allk)
+    t0 = time.perf_counter()
+    out = eng.serve(ids, gen)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    c = dict(_tp_counts(comm), flash_attention=kernels[0].launches,
+             paged_attention=kernels[1].launches)
+    steps = gen - 1
+    want = {k: 0 for k in c}
+    want["flash_attention"] = n * L
+    for kname, (per_prefill, per_step) in expect.items():
+        want[kname] = n * (per_prefill + per_step * steps)
+    check(c == want, f"{name}: launches {c}, expected {want}")
+    check(all(k.plain_calls == 0 for k in allk),
+          f"{name}: a plain version ran on the main path")
+    check(tuple(out.shape) == (ids.shape[0], gen) and bool(
+        ((out >= 0) & (out < eng.cfg.vocab_size)).all()),
+        f"{name}: bad output")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, _ = eng.prefill(ids)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    eng.check_comm()
+    check(bool(torch.isfinite(logits).all()), f"{name}: non-finite logits")
+    rec = {"batch": ids.shape[0], "prompt": ids.shape[1], "gen": gen,
+           "prefill_mode": eng._prefill_mode(*ids.shape),
+           "serve_s": serve_s, "prefill_ms": prefill_s * 1e3,
+           "decode_ms_per_step": (serve_s - prefill_s) * 1e3 / steps,
+           "tokens_per_s": ids.shape[0] * gen / serve_s, "launches": c,
+           "launches_per_rank": {
+               k: {"per_prefill": p, "per_decode_step": s}
+               for k, (p, s) in expect.items()}, "tokens": out}
+    return rec
+
+
+def tp_profile(torch, eng, ids) -> dict:
+    """``profile_decode`` of the TP engine's linear decode steps after a
+    prefill of ``ids``: each step's wall against its enqueue, and every
+    rank's device time a step by kernel."""
+    logits, caches = eng.prefill(ids)
+    return profile_decode(torch, eng, logits.argmax(-1).to(torch.int32),
+                          caches)
+
+
+def phase_tp_engine(torch, params, cfg, Engine, kernels) -> dict:
+    """Qwen3-8B at full width and depth, bf16, ``Engine(cfg, params, ctx of
+    4 virtual ranks, max_seq=2048).serve`` with the reference's defaults
+    (backend "auto", no page size): a 2 x 1024 prompt for 64 tokens — the
+    prefill in mode "overlap" (B9 5 a layer, B10 2 a layer), the linear
+    decode's reductions through the parity AR (2 a layer) —, again under
+    TDTPU_GEMM_AR=1 (B11 in place of the parity AR), then a 1 x 203
+    prompt whose "ar" prefill reduces through the double tree (2 a layer);
+    TP=1's Engine.serve of the same prompts in the same call."""
+    context = coll_modules()[4]
+    L = cfg.num_layers
+    ctx = context.initialize_distributed(devices=virtual_devices(TP),
+                                         wait_timeout_ms=60_000)
+    eng = Engine(cfg, params, ctx, max_seq=2048)
+    check(eng.backend == "auto" and eng.page_size is None and eng.n == TP,
+          "tp_engine: the defaults are not the reference's")
+    g = torch.Generator(device="cuda").manual_seed(31)
+    ids = torch.randint(0, cfg.vocab_size, (2, 1024), generator=g,
+                        device="cuda", dtype=torch.int32)
+    tree_ids = torch.randint(0, cfg.vocab_size, (1, TREE_MAIN_ROWS),
+                             generator=g, device="cuda", dtype=torch.int32)
+    check(eng._prefill_mode(2, 1024) == "overlap",
+          "tp_engine: the 2 x 1024 prefill does not take 'overlap'")
+    check(eng._prefill_mode(1, TREE_MAIN_ROWS) == "ar",
+          "tp_engine: the 203-row prefill does not take 'ar'")
+    rec = {"phase": "tp_engine", "ranks": TP, "layers": L,
+           "dtype": cfg.dtype, "devices": [str(d) for d in ctx.devices],
+           "note": "4 ranks share one card's SMs and HBM: these times say "
+                   "nothing of four cards"}
+    prev = os.environ.pop("TDTPU_GEMM_AR", None)
+    try:
+        eng.serve(ids[:, :64], 2)                                # warm-up
+        defaults = tp_engine_run(
+            torch, eng, kernels, ids, 64, name="tp_engine",
+            expect={"ag_gemm": (5 * L, 0), "gemm_rs": (2 * L, 0),
+                    "allreduce_parity": (0, 2 * L)})
+        defaults["decode_profile"] = tp_profile(torch, eng, ids)
+        rec["defaults"] = defaults
+        os.environ["TDTPU_GEMM_AR"] = "1"
+        fused = tp_engine_run(
+            torch, eng, kernels, ids, 64, name="tp_engine_gemm_ar",
+            expect={"ag_gemm": (5 * L, 0), "gemm_rs": (2 * L, 0),
+                    "gemm_ar": (0, 2 * L)})
+        fused["decode_profile"] = tp_profile(torch, eng, ids)
+        rec["gemm_ar"] = fused
+        os.environ.pop("TDTPU_GEMM_AR")
+        rec["tree"] = tp_engine_run(
+            torch, eng, kernels, tree_ids, 8, name="tp_engine_tree",
+            expect={"allreduce_tree": (2 * L, 0),
+                    "allreduce_parity": (0, 2 * L)})
+    finally:
+        if prev is None:
+            os.environ.pop("TDTPU_GEMM_AR", None)
+        else:
+            os.environ["TDTPU_GEMM_AR"] = prev
+    del eng
+    ctx.close()
+    one = Engine(cfg, params, max_seq=2048)
+    one.serve(ids[:, :64], 2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tp1 = one.serve(ids, 64)
+    torch.cuda.synchronize()
+    rec["tp1_serve_s"] = time.perf_counter() - t0
+    rec["tp1_tokens_per_s"] = 2 * 64 / rec["tp1_serve_s"]
+    for k in ("defaults", "gemm_ar", "tree"):
+        toks = rec[k].pop("tokens")
+        want = tp1 if k != "tree" else one.serve(tree_ids, 8)
+        rec[k]["bf16_tokens_equal_tp1"] = bool(torch.equal(toks, want))
+    rec["note_tokens"] = ("bf16 tokens may leave TP=1's where two logits "
+                          "differ by less than the summation order moves "
+                          "them; tp_engine_parity holds the tokens in fp32")
+    del one
+    return rec
+
+
+def tp_rank_logits(torch, eng, ids, fused: bool) -> bool:
+    """Every rank's logits bit for bit: the engine's prefill in its mode,
+    then one linear decode step over a fresh parity (or, ``fused``, B11)
+    workspace."""
+    from triton_distributed_tpu_torch.models.dense import dense_decode_step
+    from triton_distributed_tpu_torch.models.kv_cache import init_kv_cache
+    from triton_distributed_tpu_torch.ops.allreduce import (
+        ar_stream_workspace,
+    )
+    from triton_distributed_tpu_torch.ops.gemm_allreduce import (
+        gemm_ar_stream_workspace,
+    )
+
+    cfg, n = eng.cfg, eng.n
+    batch, seq = ids.shape
+    mode = eng._prefill_mode(batch, seq)
+    idr = eng.replicate(ids.cpu())
+    make = gemm_ar_stream_workspace if fused else ar_stream_workspace
+    ws, i0 = make(n, batch, cfg.hidden_size, getattr(torch, cfg.dtype),
+                  ctx=eng.ctx, tag=f"rank-logits-{fused}")
+
+    def run(r):
+        cache = init_kv_cache(cfg, batch, eng.max_seq,
+                              device=eng.rank_devices[r], num_ranks=n)
+        pre, cache = eng._prefill_fn(eng.rank_params[r], cfg, idr[r], cache,
+                                     **eng.tp_kwargs(mode))
+        tok = pre.argmax(-1).to(torch.int32)
+        dec, _, _ = dense_decode_step(eng.rank_params[r], cfg, tok, cache,
+                                      ar_state=(ws, i0), fused_gemm_ar=fused,
+                                      **eng.tp_kwargs("ar"))
+        return pre, dec
+
+    outs = eng.run(run)
+    torch.cuda.synchronize()
+    eng.check_comm()
+    return all(torch.equal(outs[0][i], o[i].to(outs[0][i].device))
+               for o in outs[1:] for i in (0, 1))
+
+
+def phase_tp_engine_parity(torch, QWEN3_8B, init_dense_llm, Engine, kernels,
+                           *, devices=None) -> dict:
+    """float32 Qwen3-8B widths at 2 layers: ``Engine.serve`` on 4 ranks
+    (virtual on cuda:0 unless ``devices``) gives TP=1's tokens with the
+    defaults (2 x 64 prompt: "overlap" prefill, linear decode over the
+    parity AR), under TDTPU_GEMM_AR=1 (B11), on a 1 x 203 prompt (the
+    tree) and on backend="xla"; every rank's prefill and decode logits
+    bit-identical."""
+    context = coll_modules()[4]
+    comm = coll_modules()[0]
+    cfg = dataclasses.replace(QWEN3_8B, num_layers=2, dtype="float32")
+    params = init_dense_llm(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(4))
+    ctx = context.initialize_distributed(devices=devices or
+                                         virtual_devices(TP),
+                                         wait_timeout_ms=60_000)
+    g = torch.Generator().manual_seed(29)
+    ids = torch.randint(0, cfg.vocab_size, (2, 64), generator=g,
+                        dtype=torch.int32)
+    tree_ids = torch.randint(0, cfg.vocab_size, (1, TREE_MAIN_ROWS),
+                             generator=g, dtype=torch.int32)
+    one = Engine(cfg, params, max_seq=256)
+    allk = list(kernels) + list(comm.COLLECTIVE_KERNELS)
+    runs = {"defaults": ("auto", None, ids, ("ag_gemm", "gemm_rs",
+                                             "allreduce_parity")),
+            "gemm_ar": ("auto", "1", ids, ("ag_gemm", "gemm_rs", "gemm_ar")),
+            "tree": ("auto", None, tree_ids, ("allreduce_tree",
+                                              "allreduce_parity")),
+            "xla": ("xla", None, ids, ())}
+    result = {"phase": "tp_engine_parity", "ranks": TP, "layers": 2,
+              "dtype": "float32", "devices": [str(d) for d in ctx.devices]}
+    prev = os.environ.pop("TDTPU_GEMM_AR", None)
+    try:
+        for name, (backend, flag, prompt, kerns) in runs.items():
+            if flag is None:
+                os.environ.pop("TDTPU_GEMM_AR", None)
+            else:
+                os.environ["TDTPU_GEMM_AR"] = flag
+            want = one.serve(prompt.cuda(), 16)
+            eng = Engine(cfg, params, ctx, max_seq=256, backend=backend)
+            reset_counts(allk)
+            got = eng.serve(prompt, 16)
+            c = _tp_counts(comm)
+            check(all(c[k] > 0 for k in kerns),
+                  f"tp_engine_parity {name}: a kernel of the path never "
+                  f"ran: {c}")
+            check(all(k.plain_calls == 0 for k in allk),
+                  f"tp_engine_parity {name}: a plain version ran")
+            same = torch.equal(got.cpu(), want.cpu())
+            if not same:
+                emit({"phase": "tp_engine_parity", "run": name,
+                      "tp4": got.tolist(), "tp1": want.tolist()})
+            check(same, f"tp_engine_parity {name}: TP=4 tokens differ from "
+                  "TP=1's")
+            entry = {"prompt": list(prompt.shape), "gen": 16,
+                     "prefill_mode": eng._prefill_mode(*prompt.shape),
+                     "identical_to_tp1": True, "launches": c}
+            if name in ("defaults", "gemm_ar"):
+                entry["rank_logits_bit_identical"] = tp_rank_logits(
+                    torch, eng, prompt, name == "gemm_ar")
+                check(entry["rank_logits_bit_identical"],
+                      f"tp_engine_parity {name}: the ranks' logits differ")
+            result[name] = entry
+            del eng
+    finally:
+        if prev is None:
+            os.environ.pop("TDTPU_GEMM_AR", None)
+        else:
+            os.environ["TDTPU_GEMM_AR"] = prev
+    ctx.close()
+    return result
+
+
 def _summary_entry(kernel, name, replaces, cases, main_case, launches,
                    root) -> dict:
     return {"name": name, "route": "cuda",
@@ -3738,6 +4365,9 @@ def main() -> int:
     coll_rec = emit_phase(phase_collectives(torch, timer, fa, pa))
     gc.collect()
     torch.cuda.empty_cache()
+    fused_rec = emit_phase(phase_fused(torch, timer))
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # One set of seeded Qwen3-8B weights serves every full-size phase.
     params = init_dense_llm(
@@ -3775,6 +4405,10 @@ def main() -> int:
     tp_rec["tp1_serving"] = {k: serving_rec[k] for k in (
         "tokens_per_s", "ttft_ms_p50", "decode_window")}
     emit_phase(tp_rec)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tpe_rec = emit_phase(phase_tp_engine(torch, params, QWEN3_8B, Engine,
+                                         kernels))
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3833,6 +4467,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     emit_phase(phase_tp_parity(torch, QWEN3_8B, init_dense_llm, Engine,
                                ServingEngine, kernels))
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit_phase(phase_tp_engine_parity(torch, QWEN3_8B, init_dense_llm,
+                                      Engine, kernels))
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -4019,6 +4657,37 @@ def main() -> int:
                        coll_rec["paged_attention_tp4"],
                        coll_rec["paged_attention_tp4"][0],
                        serve["launches"]["paged_attention"], root),
+    ]
+    tree_main = next(c for c in fused_rec["cases"]["allreduce_tree"]
+                     if c["n"] == TP and c["dtype"] == "bfloat16"
+                     and c["rows"] == TREE_MAIN_ROWS)
+    summary += [
+        # B5's double tree: the 1 x 203 prompt's "ar" prefill of tp_engine
+        # (72 a rank), timed at 203 x 4096.
+        _summary_entry(comm.TREE_KERNEL, "allreduce_tree",
+                       tpu + "ops/allreduce.py:169",
+                       coll_rec["cases"]["allreduce_tree"]
+                       + fused_rec["cases"]["allreduce_tree"], tree_main,
+                       tpe_rec["tree"]["launches"]["allreduce_tree"], root),
+        # B9 and B10: tp_engine's 2 x 1024 "overlap" prefills (180 and 72 a
+        # rank each), timed at wq and wo.
+        _summary_entry(comm.AG_GEMM_KERNEL, "ag_gemm",
+                       tpu + "ops/allgather_gemm.py:88",
+                       fused_rec["cases"]["ag_gemm"],
+                       fused_main_case(fused_rec, "ag_gemm", "wq"),
+                       tpe_rec["defaults"]["launches"]["ag_gemm"], root),
+        _summary_entry(comm.GEMM_RS_KERNEL, "gemm_rs",
+                       tpu + "ops/gemm_reduce_scatter.py:57",
+                       fused_rec["cases"]["gemm_rs"],
+                       fused_main_case(fused_rec, "gemm_rs", "wo"),
+                       tpe_rec["defaults"]["launches"]["gemm_rs"], root),
+        # B11: tp_engine's decode under TDTPU_GEMM_AR=1 (72 a rank a step),
+        # timed at wo.
+        _summary_entry(comm.GEMM_AR_KERNEL, "gemm_ar",
+                       tpu + "ops/gemm_allreduce.py:47",
+                       fused_rec["cases"]["gemm_ar"],
+                       fused_main_case(fused_rec, "gemm_ar", "wo"),
+                       tpe_rec["gemm_ar"]["launches"]["gemm_ar"], root),
     ]
     check(all(e["launches"] > 0 for e in summary),
           f"a kernel of the path was never launched: "

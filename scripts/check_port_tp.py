@@ -2,16 +2,23 @@
 """Check the PyTorch/CUDA port's tensor-parallel path on CUDA cards, for
 the tree in the current directory.
 
-Builds ``csrc/collectives.cu`` (and the attention kernels), prints
-ptxas's register report, then runs ``chip_smoke.phase_collectives`` (the
-AllReduce, reduce-scatter and all-gather kernels at n = 2, 4 and 8 ranks
-against their plain versions, timed; the parity stress; a lost peer's
-timeout) and, with ``--parity``, ``chip_smoke.phase_tp_parity`` (float32
-2-layer serving on 4 ranks token-identical to one rank, each rank's
-logits bit-identical). Ranks are virtual ranks on ``cuda:0`` unless
-``--cards``: then rank r lives on ``cuda:r`` (4 cards, peer access; the
-collectives at n = 2 and 4). Prints one JSON line per phase, then the
-cards' names and power limits. About two minutes with the build:
+Builds ``csrc/collectives.cu``, ``csrc/gemm_comm.cu`` (and the attention
+kernels), prints ptxas's register report, then runs
+``chip_smoke.phase_collectives`` (the AllReduce — one-shot, parity,
+double tree —, reduce-scatter and all-gather kernels at n = 2, 4 and 8
+ranks against their plain versions, timed; the parity stress; a lost
+peer's timeout) and ``chip_smoke.phase_fused`` (the fused AG+GEMM,
+GEMM+RS and GEMM+AR kernels and the tree's odd shapes, the B11 stress,
+the lost peers of B9 and B11) and, with ``--parity``,
+``chip_smoke.phase_tp_parity`` (float32 2-layer serving on 4 ranks
+token-identical to one rank, each rank's logits bit-identical) and
+``chip_smoke.phase_tp_engine_parity`` (float32 2-layer ``Engine.serve``
+on 4 ranks with the reference's defaults, ``TDTPU_GEMM_AR=1``, a tree
+prompt and ``backend="xla"``, token-identical to one rank). Ranks are
+virtual ranks on ``cuda:0`` unless ``--cards``: then rank r lives on
+``cuda:r`` (4 cards, peer access; the kernels at n = 2 and 4). Prints
+one JSON line per phase, then the cards' names and power limits. About
+three minutes with the build:
 
     python3 scripts/check_port_tp.py [--parity] [--cards]
 """
@@ -45,14 +52,17 @@ def main() -> int:
         "triton_distributed_tpu_torch.ops.paged_attention")
     comm = importlib.import_module("triton_distributed_tpu_torch.ops._comm")
     t0 = time.perf_counter()
-    srcs = [comm.ONE_SHOT_KERNEL.source_path, fa.FLASH_KERNEL.source_path,
+    srcs = [comm.ONE_SHOT_KERNEL.source_path,
+            comm.AG_GEMM_KERNEL.source_path, fa.FLASH_KERNEL.source_path,
             pa.PAGED_KERNEL.source_path]
     build.build(srcs)
-    log = build.library_path(srcs[0]).with_suffix(".log").read_text()
+    ptxas = {}
+    for src in srcs[:2]:
+        log = build.library_path(src).with_suffix(".log").read_text()
+        ptxas[src.name] = [ln.strip() for ln in log.splitlines()
+                           if "registers" in ln or "spill" in ln]
     print(json.dumps({"build_s": time.perf_counter() - t0,
-                      "count": torch.cuda.device_count(), "ptxas": [
-                          ln.strip() for ln in log.splitlines()
-                          if "registers" in ln or "spill" in ln]}),
+                      "count": torch.cuda.device_count(), "ptxas": ptxas}),
           flush=True)
     timer = cs.Timer(torch, "cuda")
     failed = []
@@ -73,6 +83,9 @@ def main() -> int:
     run("collectives", lambda: cs.phase_collectives(
         torch, timer, fa, pa, devices_for=devices_for, ranks=ranks,
         name="collectives_cards" if cards else "collectives"))
+    run("collectives_fused", lambda: cs.phase_fused(
+        torch, timer, devices_for=devices_for, ranks=ranks,
+        name="collectives_fused_cards" if cards else "collectives_fused"))
     if "--parity" in sys.argv:
         from triton_distributed_tpu_torch.megakernel import kernel as mk
         from triton_distributed_tpu_torch.models.config import QWEN3_8B
@@ -83,6 +96,9 @@ def main() -> int:
         kernels = (fa.FLASH_KERNEL, pa.PAGED_KERNEL, mk.MEGA_KERNEL)
         run("tp_parity", lambda: cs.phase_tp_parity(
             torch, QWEN3_8B, init_dense_llm, Engine, ServingEngine, kernels,
+            devices=devices_for(cs.TP)))
+        run("tp_engine_parity", lambda: cs.phase_tp_engine_parity(
+            torch, QWEN3_8B, init_dense_llm, Engine, kernels,
             devices=devices_for(cs.TP)))
     print(cs.nvidia_smi_all(), flush=True)
     return 1 if failed else 0

@@ -222,14 +222,19 @@ def test_fp8_moe_decode_vs_jax(moe_models):
 def test_quantized_tree_refused_off_the_fp8_lane(dense_models):
     """torch has no mixed bf16 x e4m3 matmul: a quantized tree reaching a
     plain projection (prefill, or decode without ``dot_fn``) is refused by
-    name."""
+    name. The parity-stream hook is no longer refused: at one rank without
+    ``force_ar_kernel`` an ``ar_state`` passes through untouched (the
+    reference's contract), beside the step's usual outputs."""
     _, _, tcfg, tparams = dense_models
     t8 = tfp8.quantize_dense_weights(tparams)
     tok = torch.zeros((1,), dtype=torch.int32)
     with pytest.raises(ValueError, match="e4m3 weight without dot_fn"):
         tdense.dense_decode_step(t8, tcfg, tok,
                                  init_kv_cache(tcfg, 1, 16, device="cpu"))
-    with pytest.raises(ValueError, match="ar_state"):
-        tdense.dense_decode_step(tparams, tcfg, tok,
-                                 init_kv_cache(tcfg, 1, 16, device="cpu"),
-                                 ar_state=(0, 0))
+    want, _ = tdense.dense_decode_step(
+        tparams, tcfg, tok, init_kv_cache(tcfg, 1, 16, device="cpu"))
+    got, cache, state = tdense.dense_decode_step(
+        tparams, tcfg, tok, init_kv_cache(tcfg, 1, 16, device="cpu"),
+        ar_state=(0, 0))
+    assert state == (0, 0) and cache.offset == 1
+    assert torch.equal(got, want)

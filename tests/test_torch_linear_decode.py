@@ -190,8 +190,8 @@ def test_default_engine_serve_vs_jax(models, ctx1, batch, prompt, gen):
 
 def test_engine_linear_decode_hooks_and_refusals(models):
     """``Engine.decode`` takes the linear cache; ``decode_fn`` /
-    ``prefill_fn`` replace the forward; a serve past max_seq and the
-    overlap backend are refused by name."""
+    ``prefill_fn`` replace the forward; a serve past max_seq is refused by
+    name; the overlap backend is, at one rank, the eager path."""
     _, _, tcfg, tparams = models
     ids = torch.from_numpy(np.random.default_rng(4).integers(
         0, tcfg.vocab_size, (1, 8)))
@@ -216,5 +216,7 @@ def test_engine_linear_decode_hooks_and_refusals(models):
     assert seen == ["prefill", 8, 9, 10]
     with pytest.raises(ValueError, match="exceeds max_seq"):
         eng.serve(ids, 10)
-    with pytest.raises(ValueError, match="'overlap' is not ported"):
-        Engine(tcfg, tparams, device="cpu", backend="overlap")
+    overlap = Engine(tcfg, tparams, device="cpu", max_seq=16,
+                     backend="overlap")
+    np.testing.assert_array_equal(overlap.serve(ids, 4).numpy(),
+                                  eng.serve(ids, 4).numpy())

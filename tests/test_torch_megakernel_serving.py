@@ -110,7 +110,8 @@ def test_megakernel_lane_refuses_by_name(two_layer):
     """Where the JAX package demotes down its backend ladder, the port
     raises MegakernelUnsupportedError (a ValueError): a page size that is
     not the tile, a head_dim the assembly cannot tile, and eager decode
-    on a megakernel engine."""
+    on a megakernel engine. The overlap backend is not the megakernel:
+    at one rank it serves the eager path."""
     cfg, params = two_layer
     eng = Engine(cfg, params, device="cpu", backend="megakernel",
                  max_seq=256, page_size=16)
@@ -130,9 +131,12 @@ def test_megakernel_lane_refuses_by_name(two_layer):
                  max_seq=256, page_size=128)
     with pytest.raises(MegakernelUnsupportedError, match="ServingEngine"):
         eng.serve([[1, 2, 3]], 2)
-    with pytest.raises(ValueError, match="backend"):
-        Engine(cfg, params, device="cpu", backend="overlap", max_seq=256,
-               page_size=128)
+    overlap = Engine(cfg, params, device="cpu", backend="overlap",
+                     max_seq=256, page_size=128)
+    eager = Engine(cfg, params, device="cpu", backend="xla", max_seq=256,
+                   page_size=128)
+    assert torch.equal(overlap.serve([[1, 2, 3]], 2),
+                       eager.serve([[1, 2, 3]], 2))
 
 
 def test_megakernel_lane_defaults_to_cuda(two_layer, monkeypatch):

@@ -202,10 +202,10 @@ def test_kernel_build_is_lazy_and_keyed_by_source():
     directory."""
     srcs = build.sources()
     assert [s.name for s in srcs] == ["collectives.cu", "flash_attention.cu",
-                                      "gemm.cu", "megakernel.cu",
-                                      "paged_attention.cu"]
+                                      "gemm.cu", "gemm_comm.cu",
+                                      "megakernel.cu", "paged_attention.cu"]
     paths = {build.library_path(s) for s in srcs}
-    assert len(paths) == 5
+    assert len(paths) == 6
     assert all(p.parent == build.BUILD_DIR for p in paths)
     gitignore = (ROOT / ".gitignore").read_text().split()
     assert "triton_distributed_tpu_torch/_build/" in gitignore

@@ -335,18 +335,26 @@ def test_serving_engine_n4_vs_n1(models, tctx, kw):
 
 
 def test_engine_serve_n4(models, tctx):
-    """Engine.serve on a TP group where the prefill's mode is "ar":
-    the one-rank tokens; where it would be "overlap", a named refusal."""
+    """Engine.serve on a TP group (paged decode) where the prefill's mode
+    is "ar", and where it is "overlap" (2 x 16 rows: AG+GEMM and GEMM+RS,
+    their plain versions here): the one-rank tokens."""
     _, _, tcfg, tparams = models
-    ids = np.random.default_rng(9).integers(0, 256, (2, 5)).astype(np.int32)
+    rng = np.random.default_rng(9)
+    ids = rng.integers(0, 256, (2, 5)).astype(np.int32)
     one = Engine(tcfg, tparams, device="cpu", max_seq=MAX_SEQ,
                  page_size=PAGE)
     four = Engine(tcfg, tparams, tctx, max_seq=MAX_SEQ, page_size=PAGE)
     assert four._prefill_mode(2, 5) == "ar"
     assert torch.equal(four.serve(ids, 6), one.serve(ids, 6))
-    four._prefill_mode = lambda b, s: "overlap"
-    with pytest.raises(ValueError, match="B9/B10"):
-        four.serve(ids, 6)
+    wide = rng.integers(0, 256, (2, 16)).astype(np.int32)
+    assert four._prefill_mode(2, 16) == "overlap"
+    before = (_comm.AG_GEMM_KERNEL.plain_calls,
+              _comm.GEMM_RS_KERNEL.plain_calls)
+    assert torch.equal(four.serve(wide, 6), one.serve(wide, 6))
+    L = tcfg.num_layers
+    assert (_comm.AG_GEMM_KERNEL.plain_calls - before[0],
+            _comm.GEMM_RS_KERNEL.plain_calls - before[1]) == (
+        N * 5 * L, N * 2 * L)
 
 
 def test_tp_refusals(models, tctx):
@@ -363,16 +371,19 @@ def test_tp_refusals(models, tctx):
                 backend="megakernel")
     with pytest.raises(MegakernelUnsupportedError, match="single-rank"):
         ServingEngine(mk, max_batch=2, prefill_chunk=128)
+    # The linear-cache decode is no longer refused at n = 4: one step from
+    # an empty cache lands at offset 1 on every rank.
     lin = Engine(tcfg, tparams, tctx, max_seq=MAX_SEQ)
-    with pytest.raises(ValueError, match="linear-cache decode"):
-        lin.decode(torch.zeros(1, dtype=torch.int32), lin.new_cache(1))
+    tok, caches = lin.decode(torch.zeros(1, dtype=torch.int32),
+                             lin.new_cache(1))
+    assert tok.shape == (1,) and [c.offset for c in caches] == [1] * N
     x = torch.ones((4, tcfg.hidden_size))
     from triton_distributed_tpu_torch.layers.tp_mlp import tp_mlp_fwd
 
     def row_sharded(r):
-        with pytest.raises(ValueError, match="B9/B10"):
+        with pytest.raises(ValueError, match="overlap2d"):
             tp_mlp_fwd(shard_params(tparams, tctx, tcfg)[r]["layers"][0]
-                       ["mlp"], x, num_ranks=N, mode="overlap")
+                       ["mlp"], x, num_ranks=N, mode="overlap2d")
         return True
 
     assert all(tctx.run(row_sharded))

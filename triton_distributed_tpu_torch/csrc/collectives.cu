@@ -21,6 +21,18 @@
 //                through a symmetric gather buffer that doubles as the
 //                transport; each rank forwards the chunk it received
 //                last step, then copies the gathered buffer out.
+//  ar_tree       ops/allreduce.py:169 _ar_tree_kernel — the double
+//                binary tree: tree 0 the heap over rank order, tree 1
+//                over reversed ranks, each owning half of the rows (rows
+//                [0, ceil(m/2)) and the rest; one tree of every row at
+//                m = 1). Leaves push their rows to the parent; an
+//                interior node adds its own rows, then child 2p+1's,
+//                then child 2p+2's in fp32 and rounds to the payload
+//                type once (one rounding a level) before it pushes up;
+//                the root's sum is broadcast down the same tree. Phases
+//                run leaf sends (both trees), interior reduces (both),
+//                broadcasts (both), so a node that is a leaf of one tree
+//                and interior in the other keeps both in flight.
 //
 // What bounds them: bytes. Each is a copy with at most an add per
 // element, far below the card's 295 operations a byte; on n cards the
@@ -44,43 +56,6 @@ using tdt::to_f;
 using namespace tdt::dist;
 
 namespace {
-
-// Elements of T in one 16-byte vector.
-template <typename T>
-struct Vec {
-  static constexpr int N = 16 / sizeof(T);
-};
-
-template <typename T>
-__device__ __forceinline__ const T* elems(const uint4& v) {
-  return reinterpret_cast<const T*>(&v);
-}
-
-// Sum the n slots of `ws` (slot stride `slot_vec` vectors) over vectors
-// [v0, v1): fp32 from 0, rank order, one cast — ops/allreduce.py:91
-// _reduce_slots.
-template <typename T>
-__device__ __forceinline__ void reduce_slots(const uint4* ws, long long slot_vec,
-                                             int n, uint4* out, long long v0,
-                                             long long v1) {
-  constexpr int E = Vec<T>::N;
-  for (long long v = v0 + threadIdx.x; v < v1; v += blockDim.x) {
-    float acc[E];
-#pragma unroll
-    for (int e = 0; e < E; ++e) acc[e] = 0.0f;
-    for (int i = 0; i < n; ++i) {
-      const uint4 s = __ldcg(ws + i * slot_vec + v);
-      const T* se = elems<T>(s);
-#pragma unroll
-      for (int e = 0; e < E; ++e) acc[e] = acc[e] + to_f(se[e]);
-    }
-    uint4 o;
-    T* oe = reinterpret_cast<T*>(&o);
-#pragma unroll
-    for (int e = 0; e < E; ++e) oe[e] = from_f<T>(acc[e]);
-    out[v] = o;
-  }
-}
 
 // dst = a + b over vectors [v0, v1), added in T (one rounding an add) —
 // ops/reduce_scatter.py:35 _tiled_add.
@@ -204,6 +179,97 @@ __global__ void __launch_bounds__(kThreads)
   for (int c = 0; c < n; ++c) put(out + c * cvec, buf + c * cvec, v0, v1);
 }
 
+// The tree's flags (kStepBase on): per block, tree and kind — 0 and 1 a
+// child's partial in slot 0 / 1, 2 the parent's broadcast.
+__device__ __forceinline__ int tree_flag(int tree, int kind) {
+  return kStepBase + (blockIdx.x * 2 + tree) * 3 + kind;
+}
+
+__device__ __forceinline__ int tree_pos(int rank, int n, int tree) {
+  return tree == 0 ? rank : n - 1 - rank;
+}
+
+// x, out: (m, cols) as vectors, row_vec a row; the symmetric workspace:
+// (n_trees, 3, mh0, cols) — slots 0 / 1 the children's partials, slot 2
+// the broadcast. Tree t owns rows [t * mh0, min(m, (t + 1) * mh0)).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    ar_tree_kernel(Group g, const uint4* x, uint4* out, long long row_vec,
+                   int m, int n_trees) {
+  if (!barrier_all(g)) return;
+  const int n = g.n;
+  const int mh0 = (m + n_trees - 1) / n_trees;
+  const long long slot_vec = (long long)mh0 * row_vec;
+  uint4* ws = reinterpret_cast<uint4*>(peer_base(g, g.rank));
+  long long v0[2], v1[2], off[2];
+  for (int t = 0; t < n_trees; ++t) {
+    const int rows = min(m, (t + 1) * mh0) - t * mh0;
+    off[t] = (long long)t * mh0 * row_vec;
+    block_range((long long)rows * row_vec, &v0[t], &v1[t]);
+  }
+  auto slot = [&](int j, int t, int kind) {
+    return reinterpret_cast<uint4*>(peer_base(g, j)) +
+           (t * 3 + kind) * slot_vec;
+  };
+  // Leaf sends: child 2p+1 lands in the parent's slot 0, 2p+2 in slot 1.
+  for (int t = 0; t < n_trees; ++t) {
+    const int pos = tree_pos(g.rank, n, t);
+    if (2 * pos + 1 < n) continue;
+    const int parent = tree_pos((pos - 1) / 2, n, t);
+    put(slot(parent, t, (pos + 1) % 2), x + off[t], v0[t], v1[t]);
+    signal(g, parent, tree_flag(t, (pos + 1) % 2), g.epoch);
+  }
+  // Interior reduces: own rows + slot 0 (+ slot 1) in fp32, one cast.
+  constexpr int E = Vec<T>::N;
+  for (int t = 0; t < n_trees; ++t) {
+    const int pos = tree_pos(g.rank, n, t);
+    if (2 * pos + 1 >= n) continue;
+    const bool has2 = 2 * pos + 2 < n;
+    if (!wait(g, tree_flag(t, 0), g.epoch)) return;
+    if (has2 && !wait(g, tree_flag(t, 1), g.epoch)) return;
+    const uint4* w0 = ws + (t * 3) * slot_vec;
+    const uint4* w1 = ws + (t * 3 + 1) * slot_vec;
+    for (long long v = v0[t] + threadIdx.x; v < v1[t]; v += blockDim.x) {
+      const uint4 a = __ldcg(x + off[t] + v);
+      const uint4 b = __ldcg(w0 + v);
+      float acc[E];
+#pragma unroll
+      for (int e = 0; e < E; ++e)
+        acc[e] = to_f(elems<T>(a)[e]) + to_f(elems<T>(b)[e]);
+      if (has2) {
+        const uint4 c = __ldcg(w1 + v);
+#pragma unroll
+        for (int e = 0; e < E; ++e) acc[e] = acc[e] + to_f(elems<T>(c)[e]);
+      }
+      uint4 o;
+      T* oe = reinterpret_cast<T*>(&o);
+#pragma unroll
+      for (int e = 0; e < E; ++e) oe[e] = from_f<T>(acc[e]);
+      out[off[t] + v] = o;
+    }
+    if (pos != 0) {
+      __syncthreads();
+      const int parent = tree_pos((pos - 1) / 2, n, t);
+      put(slot(parent, t, (pos + 1) % 2), out + off[t], v0[t], v1[t]);
+      signal(g, parent, tree_flag(t, (pos + 1) % 2), g.epoch);
+    }
+  }
+  // Broadcast down: the root's rows, copied by each node to its children.
+  for (int t = 0; t < n_trees; ++t) {
+    const int pos = tree_pos(g.rank, n, t);
+    if (pos != 0) {
+      if (!wait(g, tree_flag(t, 2), g.epoch)) return;
+      put(out + off[t], ws + (t * 3 + 2) * slot_vec, v0[t], v1[t]);
+      __syncthreads();
+    }
+    for (int c = 2 * pos + 1; c <= 2 * pos + 2 && c < n; ++c) {
+      const int child = tree_pos(c, n, t);
+      put(slot(child, t, 2), out + off[t], v0[t], v1[t]);
+      signal(g, child, tree_flag(t, 2), g.epoch);
+    }
+  }
+}
+
 // Holds a stream for `ns` nanoseconds: the straggler of the parity test.
 __global__ void spin_kernel(long long ns) {
   const unsigned long long t0 = globaltimer();
@@ -215,20 +281,6 @@ int grid_for(long long nvec) {
   // gives the same grid on every rank, which the per-block flags need.
   long long g = (nvec + 1023) / 1024;
   return (int)(g < 1 ? 1 : (g > kMaxBlocks ? kMaxBlocks : g));
-}
-
-Group make_group(const void* table, const void* sig_table, void* err,
-                 int rank, int n, unsigned long long epoch,
-                 long long timeout_ns) {
-  Group g;
-  g.rank = rank;
-  g.n = n;
-  g.table = static_cast<const long long*>(table);
-  g.sig_table = static_cast<const long long*>(sig_table);
-  g.err = static_cast<long long*>(err);
-  g.epoch = epoch;
-  g.timeout_ns = timeout_ns;
-  return g;
 }
 
 bool bad_group(int rank, int n, long long nvec) {
@@ -317,6 +369,34 @@ int tdt_ag_ring(const void* table, const void* sig_table, void* err,
                              timeout_ns);
   ag_ring_kernel<<<grid_for(cvec), kThreads, 0, stream>>>(
       g, static_cast<const uint4*>(x), static_cast<uint4*>(out), cvec);
+  return cudaGetLastError();
+}
+
+// row_bytes: one payload row (a multiple of 16); rows: m; n_trees: 2 (the
+// double tree) or 1.
+int tdt_ar_tree(const void* table, const void* sig_table, void* err,
+                int rank, int n, unsigned long long epoch,
+                long long timeout_ns, const void* x, void* out,
+                long long row_bytes, int rows, int n_trees, int dtype,
+                cudaStream_t stream) {
+  const long long row_vec = row_bytes / 16;
+  if (bad_group(rank, n, row_vec) || n < 2 || row_bytes % 16 || rows < 1 ||
+      n_trees < 1 || n_trees > 2 || n_trees > rows)
+    return cudaErrorInvalidValue;
+  const Group g = make_group(table, sig_table, err, rank, n, epoch,
+                             timeout_ns);
+  const long long half = (long long)((rows + n_trees - 1) / n_trees) * row_vec;
+  const dim3 grid(grid_for(half)), block(kThreads);
+  const uint4* xi = static_cast<const uint4*>(x);
+  uint4* o = static_cast<uint4*>(out);
+  if (dtype == 0)
+    ar_tree_kernel<float><<<grid, block, 0, stream>>>(g, xi, o, row_vec,
+                                                      rows, n_trees);
+  else if (dtype == 1)
+    ar_tree_kernel<__nv_bfloat16><<<grid, block, 0, stream>>>(
+        g, xi, o, row_vec, rows, n_trees);
+  else
+    return cudaErrorInvalidValue;
   return cudaGetLastError();
 }
 

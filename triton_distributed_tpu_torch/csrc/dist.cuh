@@ -23,14 +23,18 @@
 // and the kernel returns early. The host reads the word where it
 // synchronises anyway (DistContext.raise_on_comm_error) and raises
 // CommTimeoutError. Each collective kernel runs a small fixed grid (at
-// most kMaxBlocks blocks), so on one card a spinning rank never takes the
-// SMs its peers need.
+// most kMaxBlocks blocks), and each fused GEMM kernel (gemm_comm.cu) a
+// persistent grid of one block an SM on at most 1/r of the SMs, r the
+// ranks on the card, so on one card a spinning rank never takes the SMs
+// its peers need.
 
 #pragma once
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "common.cuh"
 
 namespace tdt {
 namespace dist {
@@ -41,6 +45,13 @@ constexpr int kThreads = 256;
 // Signal pad layout (64-bit words): [0, kMaxBlocks * kMaxRanks) barrier
 // flags (block b, from rank j); then the kernel's step flags.
 constexpr int kStepBase = kMaxBlocks * kMaxRanks;
+// The fused GEMM kernels' persistent grids (at most kMaxGemmBlocks blocks):
+// barrier flags [0, kMaxGemmBlocks * kMaxRanks), then their data flags
+// from kGemmFlagBase, one per (source rank, block) or finer. The pad
+// (runtime/symm.SIGNAL_WORDS) holds kSignalWords.
+constexpr int kMaxGemmBlocks = 128;
+constexpr int kGemmFlagBase = kMaxGemmBlocks * kMaxRanks;
+constexpr int kSignalWords = 8192;
 
 // What a collective kernel knows of its group, passed by value.
 struct Group {
@@ -52,6 +63,21 @@ struct Group {
   unsigned long long epoch;    // this call's epoch (>= 1)
   long long timeout_ns;
 };
+
+// The group of one launch, from the host's arguments.
+inline Group make_group(const void* table, const void* sig_table, void* err,
+                 int rank, int n, unsigned long long epoch,
+                 long long timeout_ns) {
+  Group g;
+  g.rank = rank;
+  g.n = n;
+  g.table = static_cast<const long long*>(table);
+  g.sig_table = static_cast<const long long*>(sig_table);
+  g.err = static_cast<long long*>(err);
+  g.epoch = epoch;
+  g.timeout_ns = timeout_ns;
+  return g;
+}
 
 __device__ __forceinline__ unsigned long long globaltimer() {
   unsigned long long t;
@@ -184,6 +210,69 @@ __device__ __forceinline__ void put(uint4* dst, const uint4* src,
                                     long long v0, long long v1) {
   for (long long v = v0 + threadIdx.x; v < v1; v += blockDim.x)
     dst[v] = __ldcg(src + v);
+}
+
+// Elements of T in one 16-byte vector.
+template <typename T>
+struct Vec {
+  static constexpr int N = 16 / sizeof(T);
+};
+
+template <typename T>
+__device__ __forceinline__ const T* elems(const uint4& v) {
+  return reinterpret_cast<const T*>(&v);
+}
+
+// Sum the n slots of `ws` (slot stride `slot_vec` vectors) over vectors
+// [v0, v1): fp32 from 0, rank order, one cast — ops/allreduce.py:91
+// _reduce_slots.
+template <typename T>
+__device__ __forceinline__ void reduce_slots(const uint4* ws,
+                                             long long slot_vec, int n,
+                                             uint4* out, long long v0,
+                                             long long v1) {
+  constexpr int E = Vec<T>::N;
+  for (long long v = v0 + threadIdx.x; v < v1; v += blockDim.x) {
+    float acc[E];
+#pragma unroll
+    for (int e = 0; e < E; ++e) acc[e] = 0.0f;
+    for (int i = 0; i < n; ++i) {
+      const uint4 s = __ldcg(ws + i * slot_vec + v);
+      const T* se = elems<T>(s);
+#pragma unroll
+      for (int e = 0; e < E; ++e) acc[e] = acc[e] + tdt::to_f(se[e]);
+    }
+    uint4 o;
+    T* oe = reinterpret_cast<T*>(&o);
+#pragma unroll
+    for (int e = 0; e < E; ++e) oe[e] = tdt::from_f<T>(acc[e]);
+    out[v] = o;
+  }
+}
+
+
+// Tell every rank j (this one included) that this block reached `val`:
+// flag idx of each rank's pad. Call from every thread.
+__device__ __forceinline__ void signal_all(const Group& g, int idx,
+                                           unsigned long long val) {
+  __syncthreads();
+  const int j = threadIdx.x;
+  if (j < g.n) {
+    fence();
+    st_release_sys(flags(g, j) + idx, val);
+  }
+}
+
+// Wait for `rows` x `count` flags of this rank's pad: base + i * stride + c
+// for i < rows, c < count (the block's threads share them), then meet.
+// False for every thread on timeout.
+__device__ __forceinline__ bool wait_flags(const Group& g, int base,
+                                           int rows, int stride, int count,
+                                           unsigned long long want) {
+  int ok = 1;
+  for (int t = threadIdx.x; t < rows * count && ok; t += blockDim.x)
+    ok = spin(g, base + (t / count) * stride + t % count, want);
+  return __syncthreads_and(ok) != 0;
 }
 
 }  // namespace dist

@@ -1,0 +1,396 @@
+// The fused GEMM + communication kernels of the tensor-parallel path, on
+// dist.cuh (flags, waits with a deadline) and gemm_tile.cuh (B3's tile
+// code). Each replaces one TPU kernel of the JAX package:
+//
+//  ag_gemm   B9, ops/allgather_gemm.py:88 _ag_gemm_kernel — entry
+//            barrier; every block pushes its share of each of this
+//            rank's `sub` A sub-blocks into slot `rank` of every rank's
+//            landing workspace (n*m, k) and raises that (source,
+//            sub-block) flag of its own on each; then the blocks walk the
+//            output tiles of all_gather(A) @ B_local in rank-swizzled
+//            order (own rows first, then rank+1, ...), each tile waiting
+//            only for the flags of its (source, sub-block). fp32
+//            accumulation, one cast; out (n*m, ncols).
+//  gemm_rs   B10, ops/gemm_reduce_scatter.py:57 _gemm_rs_kernel — entry
+//            barrier; the blocks compute the partial row chunks in the
+//            order rank+1, ..., rank (own chunk last), each tile cast to
+//            the payload type and stored straight into slot `rank` of the
+//            chunk owner's workspace (n, m/n, ncols); a block raises the
+//            owner's flag once it finished its tiles of that chunk; then
+//            every block waits for all n ranks' blocks and sums its share
+//            of the n slots in slot order, from 0 in fp32, one cast.
+//  gemm_ar   B11, ops/gemm_allreduce.py:47 _gemm_ar_stream_kernel — no
+//            barrier: the parity protocol of ar_parity over a persistent
+//            workspace (2, n_chunks, n, mp, nc); each output-column
+//            chunk's partial tiles are cast and stored into slot `rank`
+//            of that parity on every rank (the stores of chunk c drain
+//            while chunk c+1 computes); then wait for every rank's blocks
+//            of this parity and sum the n slots in rank order, from 0 in
+//            fp32, one cast; out (m, n_chunks * nc).
+//
+// What bounds them on an H100: B9 and B10 at the prefill's shapes are
+// GEMMs (2 * 2048 * 4096 * 1024 operations for B9 at wq: 17.2 GFLOP a
+// rank, 0.017 ms at 989 TFLOP/s bf16), their communication a copy of A
+// (B9) or of the partial output (B10) to every peer; B11 at decode
+// (M = 2) is bound by the bytes of its weight shard and by the flag
+// round trip. The design is the simple one: B3's mma.sync tiles, staged
+// through registers, no TMA or wgmma; a persistent grid of one block an
+// SM (each reserves more than half an SM's shared memory) on at most 1/r
+// of the SMs (r = ranks on the card), so every rank's whole grid is
+// resident at once and a laggard rank's other kernels keep SMs to run
+// on; every block
+// issues its pushes before it waits on anything, and every wait has the
+// group's deadline (a lost peer writes the error word and the kernel
+// returns). Flags are 64-bit epochs never reset, one per (source,
+// sub-block, block) or (source, block): a waiter knows which rows landed.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include "dist.cuh"
+#include "gemm_tile.cuh"
+
+using namespace tdt::dist;
+using tdt::tile::bf16;
+using tdt::tile::NT;
+
+namespace {
+
+static_assert(NT == kThreads, "one block size for tiles and collectives");
+
+// The two compiled tiles of each payload type: 0 for tall operands
+// (prefill), 1 for short ones (decode, M <= 16).
+template <typename T, int CFG>
+struct Tile;
+
+template <>
+struct Tile<bf16, 0> {
+  static constexpr int BM = 128, BN = 128;
+  static constexpr int SMEM =
+      tdt::tile::TcCfg<bf16, 128, 128, 32, 2, 4, 1>::SMEM;
+  template <bool CG, typename S>
+  __device__ static void run(unsigned char* sm, const bf16* A, long lda,
+                             const bf16* B, long ldb, int M, int N, int K,
+                             int m0, int n0, bool va, bool vb, S s) {
+    tdt::tile::tc_tile<bf16, bf16, bf16, 128, 128, 32, 2, 4, 1, CG>(
+        sm, A, lda, B, ldb, M, N, K, m0, n0, va, vb, s);
+  }
+};
+
+template <>
+struct Tile<bf16, 1> {
+  static constexpr int BM = 16, BN = 64;
+  static constexpr int SMEM =
+      tdt::tile::TcCfg<bf16, 16, 64, 256, 1, 2, 4>::SMEM;
+  template <bool CG, typename S>
+  __device__ static void run(unsigned char* sm, const bf16* A, long lda,
+                             const bf16* B, long ldb, int M, int N, int K,
+                             int m0, int n0, bool va, bool vb, S s) {
+    tdt::tile::tc_tile<bf16, bf16, bf16, 16, 64, 256, 1, 2, 4, CG>(
+        sm, A, lda, B, ldb, M, N, K, m0, n0, va, vb, s);
+  }
+};
+
+template <>
+struct Tile<float, 0> {
+  static constexpr int BM = 128, BN = 128;
+  static constexpr int SMEM = tdt::tile::FmaCfg<128, 128, 8, 8, 8>::SMEM;
+  template <bool CG, typename S>
+  __device__ static void run(unsigned char* sm, const float* A, long lda,
+                             const float* B, long ldb, int M, int N, int K,
+                             int m0, int n0, bool va, bool vb, S s) {
+    tdt::tile::fma_tile<float, 128, 128, 8, 8, 8, CG>(
+        sm, A, lda, B, ldb, M, N, K, m0, n0, va, vb, s);
+  }
+};
+
+template <>
+struct Tile<float, 1> {
+  static constexpr int BM = 16, BN = 64;
+  static constexpr int SMEM = tdt::tile::FmaCfg<16, 64, 32, 1, 4>::SMEM;
+  template <bool CG, typename S>
+  __device__ static void run(unsigned char* sm, const float* A, long lda,
+                             const float* B, long ldb, int M, int N, int K,
+                             int m0, int n0, bool va, bool vb, S s) {
+    tdt::tile::fma_tile<float, 16, 64, 32, 1, 4, CG>(
+        sm, A, lda, B, ldb, M, N, K, m0, n0, va, vb, s);
+  }
+};
+
+struct Shape {
+  const void* x;    // this rank's A
+  const void* b;    // this rank's B (k rows)
+  void* out;
+  int m;            // B9: A rows a rank; B10: all rows; B11: rows
+  int mp;           // B11: a slot's rows (m padded; rows >= m unused)
+  int k, ncols;     // B columns: all of them (B9, B10) or a chunk's (B11)
+  int parts;        // B9: sub-blocks; B11: column chunks
+  int vec_b;        // B rows 16-byte aligned
+};
+
+// Block barrier over the persistent grid: block b of every rank meets
+// block b of every other (flags [b * kMaxRanks + j]). A block of a peer
+// that arrived proves that peer's earlier kernels on its stream finished
+// — its reads of the workspace this call overwrites.
+__device__ __forceinline__ bool grid_barrier(const Group& g) {
+  const int base = blockIdx.x * kMaxRanks;
+  signal_peers(g, base, g.epoch);
+  return wait_peers(g, base, g.epoch);
+}
+
+__host__ __device__ inline int ceil_div(int a, int b) {
+  return (a + b - 1) / b;
+}
+
+// B9: flags kGemmFlagBase + (source * sub + s) * kMaxGemmBlocks + block.
+template <typename T, int CFG>
+__global__ void __launch_bounds__(NT) ag_gemm_kernel(Group g, Shape a) {
+  using Tl = Tile<T, CFG>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  if (!grid_barrier(g)) return;
+  const int n = g.n, me = g.rank, G = gridDim.x, sub = a.parts;
+  const int m_sub = a.m / sub;
+  const long long row_bytes = (long long)a.k * sizeof(T);
+  const long long sub_vec = m_sub * row_bytes / 16;
+  const uint4* x = static_cast<const uint4*>(a.x);
+  for (int s = 0; s < sub; ++s) {
+    long long v0, v1;
+    block_range(sub_vec, &v0, &v1);
+    const long long dst_off = ((long long)me * a.m + s * m_sub) * row_bytes;
+    for (int i = 0; i < n; ++i) {
+      uint4* dst = reinterpret_cast<uint4*>(peer_base(g, (me + i) % n) +
+                                            dst_off);
+      put(dst, x + s * sub_vec, v0, v1);
+    }
+    signal_all(g, kGemmFlagBase + (me * sub + s) * kMaxGemmBlocks +
+                      blockIdx.x, g.epoch);
+  }
+  const T* ws = reinterpret_cast<const T*>(peer_base(g, me));
+  const T* B = static_cast<const T*>(a.b);
+  T* out = static_cast<T*>(a.out);
+  const bool va = row_bytes % 16 == 0;
+  const int tn = ceil_div(a.ncols, Tl::BN);
+  const int per = ceil_div(m_sub, Tl::BM) * tn;
+  const int total = n * sub * per;
+  int waited = -1;
+  for (int t = blockIdx.x; t < total; t += G) {
+    const int q = t / per, w = t % per;          // q = i * sub + s
+    const int r = (me + q / sub) % n, s = q % sub;
+    if (q != waited) {
+      if (!wait_flags(g, kGemmFlagBase + (r * sub + s) * kMaxGemmBlocks, 1,
+                      0, G, g.epoch))
+        return;
+      waited = q;
+    }
+    const long long row0 = (long long)r * a.m + (long long)s * m_sub;
+    T* o = out + row0 * a.ncols;
+    const int ldo = a.ncols;
+    Tl::template run<true>(smem, ws + row0 * a.k, a.k, B, a.ncols, m_sub,
+                           a.ncols, a.k, (w / tn) * Tl::BM,
+                           (w % tn) * Tl::BN, va, a.vec_b,
+                           [&](int rr, int cc, float v) {
+                             o[(long long)rr * ldo + cc] =
+                                 tdt::from_f<T>(v);
+                           });
+  }
+}
+
+// B10: flags kGemmFlagBase + source * kMaxGemmBlocks + block.
+template <typename T, int CFG>
+__global__ void __launch_bounds__(NT) gemm_rs_kernel(Group g, Shape a) {
+  using Tl = Tile<T, CFG>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  if (!grid_barrier(g)) return;
+  const int n = g.n, me = g.rank, G = gridDim.x;
+  const int mc = a.m / n;
+  const T* x = static_cast<const T*>(a.x);
+  const T* B = static_cast<const T*>(a.b);
+  const bool va = ((long long)a.k * sizeof(T)) % 16 == 0;
+  const int tn = ceil_div(a.ncols, Tl::BN);
+  const int per = ceil_div(mc, Tl::BM) * tn;
+  const int flag = kGemmFlagBase + me * kMaxGemmBlocks + blockIdx.x;
+  int told = 0;     // chunks (in visiting order) whose owner was told
+  for (int t = blockIdx.x; t < n * per; t += G) {
+    const int i = t / per, w = t % per;
+    for (; told < i; ++told) signal(g, (me + 1 + told) % n, flag, g.epoch);
+    const int c = (me + 1 + i) % n;
+    T* dst = reinterpret_cast<T*>(peer_base(g, c)) + (long long)me * mc *
+                                                         a.ncols;
+    const int ldo = a.ncols;
+    Tl::template run<false>(smem, x + (long long)c * mc * a.k, a.k, B,
+                            a.ncols, mc, a.ncols, a.k, (w / tn) * Tl::BM,
+                            (w % tn) * Tl::BN, va, a.vec_b,
+                            [&](int rr, int cc, float v) {
+                              dst[(long long)rr * ldo + cc] =
+                                  tdt::from_f<T>(v);
+                            });
+  }
+  for (; told < n; ++told) signal(g, (me + 1 + told) % n, flag, g.epoch);
+  if (!wait_flags(g, kGemmFlagBase, n, kMaxGemmBlocks, G, g.epoch)) return;
+  const long long slot_vec = (long long)mc * a.ncols * sizeof(T) / 16;
+  long long v0, v1;
+  block_range(slot_vec, &v0, &v1);
+  reduce_slots<T>(reinterpret_cast<const uint4*>(peer_base(g, me)),
+                  slot_vec, n, static_cast<uint4*>(a.out), v0, v1);
+}
+
+// B11: g.epoch carries call_index + 1, the parity is call_index % 2;
+// flags kGemmFlagBase + (parity * kMaxRanks + source) * kMaxGemmBlocks +
+// block. B's chunk c is columns [c * nc, (c + 1) * nc) of a row of ldb.
+template <typename T, int CFG>
+__global__ void __launch_bounds__(NT)
+    gemm_ar_kernel(Group g, Shape a, int ldb) {
+  using Tl = Tile<T, CFG>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int n = g.n, me = g.rank, G = gridDim.x, nch = a.parts;
+  const int nc = a.ncols;
+  const int p = (int)((g.epoch - 1) & 1);
+  const long long slot = (long long)a.mp * nc;   // elements of one slot
+  const T* x = static_cast<const T*>(a.x);
+  const T* B = static_cast<const T*>(a.b);
+  const bool va = ((long long)a.k * sizeof(T)) % 16 == 0;
+  const int tn = ceil_div(nc, Tl::BN);
+  const int per = ceil_div(a.m, Tl::BM) * tn;
+  for (int t = blockIdx.x; t < nch * per; t += G) {
+    const int c = t / per, w = t % per;
+    const long long off = ((long long)(p * nch + c) * n + me) * slot;
+    Tl::template run<false>(smem, x, a.k, B + (long long)c * nc, ldb, a.m,
+                            nc, a.k, (w / tn) * Tl::BM, (w % tn) * Tl::BN,
+                            va, a.vec_b, [&](int rr, int cc, float v) {
+                              const T val = tdt::from_f<T>(v);
+                              for (int i = 0; i < n; ++i) {
+                                T* dst = reinterpret_cast<T*>(
+                                    peer_base(g, (me + i) % n));
+                                dst[off + (long long)rr * nc + cc] = val;
+                              }
+                            });
+  }
+  const int base = kGemmFlagBase + p * kMaxRanks * kMaxGemmBlocks;
+  signal_all(g, base + me * kMaxGemmBlocks + blockIdx.x, g.epoch);
+  if (!wait_flags(g, base, n, kMaxGemmBlocks, G, g.epoch)) return;
+  // out row r, columns of chunk c: the n slots of (p, c) at row r.
+  constexpr int E = Vec<T>::N;
+  const int cv = nc / E;                       // vectors a chunk row
+  const long long nvec = (long long)a.m * nch * cv;
+  long long v0, v1;
+  block_range(nvec, &v0, &v1);
+  const uint4* ws = reinterpret_cast<const uint4*>(peer_base(g, me));
+  uint4* out = static_cast<uint4*>(a.out);
+  const long long slot_v = slot / E;
+  for (long long v = v0 + threadIdx.x; v < v1; v += blockDim.x) {
+    const long long r = v / (nch * cv);
+    const int c = (int)(v / cv % nch), j = (int)(v % cv);
+    const uint4* s0 = ws + (long long)(p * nch + c) * n * slot_v + r * cv + j;
+    float acc[E];
+#pragma unroll
+    for (int e = 0; e < E; ++e) acc[e] = 0.0f;
+    for (int i = 0; i < n; ++i) {
+      const uint4 s = __ldcg(s0 + i * slot_v);
+#pragma unroll
+      for (int e = 0; e < E; ++e) acc[e] = acc[e] + tdt::to_f(elems<T>(s)[e]);
+    }
+    uint4 o;
+    T* oe = reinterpret_cast<T*>(&o);
+#pragma unroll
+    for (int e = 0; e < E; ++e) oe[e] = tdt::from_f<T>(acc[e]);
+    out[v] = o;
+  }
+}
+
+// Shared memory each block of a fused kernel reserves: more than half of an
+// SM's 228 KiB, so a block holds its SM alone. Every block of these
+// kernels may spin on a peer; a spinning block that shared its SM with a
+// peer rank's non-waiting kernel (a cuBLAS or K1 launch queued before
+// that peer's own fused kernel) could leave no SM with room for that
+// kernel's blocks, and the peer would never arrive. One block an SM, and
+// at most 1/r of the SMs a rank (r ranks on the card), leaves the
+// laggard's kernels SMs of their own.
+constexpr int kReserveSmem = 120 << 10;
+
+// The persistent grid: at most `tiles` blocks and at most 1/r of the SMs.
+cudaError_t persistent_grid(int tiles, int ranks_on_card, int* grid) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  int cap = sms / (ranks_on_card < 1 ? 1 : ranks_on_card);
+  cap = cap < kMaxGemmBlocks ? cap : kMaxGemmBlocks;
+  if (cap < 1) return cudaErrorInvalidConfiguration;
+  *grid = tiles < cap ? (tiles < 1 ? 1 : tiles) : cap;
+  return cudaSuccess;
+}
+
+enum Op { AG_GEMM = 0, GEMM_RS = 1, GEMM_AR = 2 };
+
+template <typename T, int CFG>
+cudaError_t launch(int op, const Group& g, const Shape& a, int ldb,
+                   int ranks_on_card, cudaStream_t stream) {
+  using Tl = Tile<T, CFG>;
+  int tiles = 0;
+  if (op == AG_GEMM)
+    tiles = g.n * a.parts * ceil_div(a.m / a.parts, Tl::BM) *
+            ceil_div(a.ncols, Tl::BN);
+  else if (op == GEMM_RS)
+    tiles = g.n * ceil_div(a.m / g.n, Tl::BM) * ceil_div(a.ncols, Tl::BN);
+  else
+    tiles = a.parts * ceil_div(a.m, Tl::BM) * ceil_div(a.ncols, Tl::BN);
+  static_assert(Tl::SMEM <= kReserveSmem, "the tile fits the reservation");
+  int grid = 1;
+  cudaError_t err = persistent_grid(tiles, ranks_on_card, &grid);
+  if (err != cudaSuccess) return err;
+  static tdt::SmemCap cap_ag, cap_rs, cap_ar;
+  if (op == AG_GEMM) {
+    err = tdt::ensure_smem(ag_gemm_kernel<T, CFG>, kReserveSmem, cap_ag);
+    if (err == cudaSuccess)
+      ag_gemm_kernel<T, CFG><<<grid, NT, kReserveSmem, stream>>>(g, a);
+  } else if (op == GEMM_RS) {
+    err = tdt::ensure_smem(gemm_rs_kernel<T, CFG>, kReserveSmem, cap_rs);
+    if (err == cudaSuccess)
+      gemm_rs_kernel<T, CFG><<<grid, NT, kReserveSmem, stream>>>(g, a);
+  } else {
+    err = tdt::ensure_smem(gemm_ar_kernel<T, CFG>, kReserveSmem, cap_ar);
+    if (err == cudaSuccess)
+      gemm_ar_kernel<T, CFG><<<grid, NT, kReserveSmem, stream>>>(g, a, ldb);
+  }
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// op: 0 AG+GEMM (B9), 1 GEMM+RS (B10), 2 GEMM+AR (B11). dtype: 0 float32,
+// 1 bfloat16 (A, B and out alike). cfg: the tile (0 tall, 1 short).
+// x, b, out: this rank's A, B and output, contiguous (B11's b: the whole
+// (k, ldb) shard, its chunks read in place). m, mp, k, ncols, parts: see
+// Shape. epoch: the call's epoch (B11: call_index, sent as + 1).
+// ranks_on_card: ranks sharing this card (the grid's share of it).
+// Returns the launch's cudaError_t.
+int tdt_gemm_comm(const void* table, const void* sig_table, void* err,
+                  int rank, int n, unsigned long long epoch,
+                  long long timeout_ns, const void* x, const void* b,
+                  void* out, int op, int m, int mp, int k, int ncols, int ldb,
+                  int parts, int dtype, int cfg, int vec_b, int ranks_on_card,
+                  cudaStream_t stream) {
+  if (n < 1 || n > kMaxRanks || rank < 0 || rank >= n || m < 1 || k < 1 ||
+      ncols < 1 || parts < 1 || op < 0 || op > 2)
+    return cudaErrorInvalidValue;
+  if (op == AG_GEMM && (m % parts || parts > 4)) return cudaErrorInvalidValue;
+  if (op == GEMM_RS && m % n) return cudaErrorInvalidValue;
+  if (op == GEMM_AR && (mp < m || parts > 8)) return cudaErrorInvalidValue;
+  const Group g = make_group(table, sig_table, err, rank, n,
+                             op == GEMM_AR ? epoch + 1 : epoch, timeout_ns);
+  const Shape a{x, b, out, m, mp, k, ncols, parts, vec_b};
+  const int code = dtype * 2 + cfg;
+  switch (code) {
+    case 0: return launch<float, 0>(op, g, a, ldb, ranks_on_card, stream);
+    case 1: return launch<float, 1>(op, g, a, ldb, ranks_on_card, stream);
+    case 2: return launch<bf16, 0>(op, g, a, ldb, ranks_on_card, stream);
+    case 3: return launch<bf16, 1>(op, g, a, ldb, ranks_on_card, stream);
+  }
+  return cudaErrorInvalidValue;
+}
+
+}  // extern "C"

@@ -9,13 +9,19 @@ prefill, whole prompt or one chunk at a host-int offset) and K2 (paged
 decode). The linear-cache decode (:func:`tp_attn_decode`) attends with
 :func:`_sdpa`, plain tensor code as the reference's is plain XLA.
 
-At n > 1 (call inside ``DistContext.run``) the input is replicated and
-the output projection's partial sums reduce per ``mode`` in
-:func:`_out_proj`: ``"ar"`` through the AllReduce kernels (or the decode
-loop's parity stream, ``ar_fn``), ``"xla_rep"`` through the rank group's
-plain sum. The row-sharded modes (``"overlap"``, ``"overlap2d"``,
-``"xla"``) are refused by name: they come with ``Engine.serve`` on a TP
-group.
+At n > 1 (call inside ``DistContext.run``) the modes are those of
+``layers/tp_mlp``. In the row-sharded prefill modes the input is (B·S/n,
+h): ``"overlap"`` projects q/k/v through the AG+GEMM kernel B9 (the
+gather re-materializes the whole sequence, which attention needs) and the
+output through the GEMM+RS kernel B10, back to B·S/n rows; ``"xla"`` does
+the same through the rank group's plain all-gather and reduce-scatter. In
+the replicated modes the output projection's partial sums reduce in
+:func:`_out_proj`: ``"ar"`` through the AllReduce kernels, the decode
+loop's parity stream (``ar_fn``) or the fused GEMM+AR kernel B11
+(``gemm_ar_fn``, which replaces the projection too), ``"xla_rep"``
+through the rank group's plain sum. The linear-cache decode
+(:func:`tp_attn_decode`) attends over the rank's shard of the KV heads.
+The two-tier ``"overlap2d"`` is refused by name.
 
 Caches are updated IN PLACE (the port's stand-in for JAX's donated
 functional updates): the functions write the new K/V into the cache
@@ -39,7 +45,9 @@ from triton_distributed_tpu_torch.ops.flash_attention import (
 from triton_distributed_tpu_torch.ops.paged_attention import (
     PagedKVCache, paged_append, paged_append_window, paged_decode_attention,
 )
-from triton_distributed_tpu_torch.runtime.context import P, group_psum
+from triton_distributed_tpu_torch.runtime.context import (
+    P, group_all_gather, group_psum, group_psum_scatter,
+)
 from triton_distributed_tpu_torch.runtime.device import resolve_device
 
 
@@ -78,14 +86,29 @@ def tp_attn_specs(cfg: ModelConfig, axis: str = "tp") -> dict:
 
 
 def _project_qkv(params: dict, cfg: ModelConfig, x: torch.Tensor,
-                 batch: int, seq: int, dot_fn=None):
-    """x (B·S, h) → q (B,S,hq,d), k/v (B,S,hkv,d) with Qwen3 qk-norm;
-    ``dot_fn(x, w)`` replaces each ``x @ w``."""
-    dot = dot_fn or plain_dot
+                 batch: int, seq: int, dot_fn=None, *, axis: str = "tp",
+                 n: int = 1, mode: str = "ar"):
+    """x → q (B,S,hq,d), k/v (B,S,hkv,d) with Qwen3 qk-norm. In the
+    row-sharded modes x is (B·S/n, h) and the projection regathers the
+    whole sequence; else x is (B·S, h) and ``dot_fn(x, w)`` replaces each
+    ``x @ w``."""
     d = cfg.head_dim
-    q = dot(x, params["wq"]).reshape(batch, seq, -1, d)
-    k = dot(x, params["wk"]).reshape(batch, seq, -1, d)
-    v = dot(x, params["wv"]).reshape(batch, seq, -1, d)
+    ws = (params["wq"], params["wk"], params["wv"])
+    if n > 1 and mode == "overlap":
+        from triton_distributed_tpu_torch.ops.allgather_gemm import (
+            ag_gemm_local,
+        )
+
+        q, k, v = (ag_gemm_local(x, w, axis=axis, num_ranks=n) for w in ws)
+    elif n > 1 and mode == "xla":
+        full = group_all_gather(x, axis=axis, num_ranks=n)
+        q, k, v = (full @ w for w in ws)
+    else:
+        dot = dot_fn or plain_dot
+        q, k, v = (dot(x, w) for w in ws)
+    q = q.reshape(batch, seq, -1, d)
+    k = k.reshape(batch, seq, -1, d)
+    v = v.reshape(batch, seq, -1, d)
     if cfg.qk_norm:
         q = rms_norm(q, params["q_norm"], cfg.rms_norm_eps)
         k = rms_norm(k, params["k_norm"], cfg.rms_norm_eps)
@@ -93,21 +116,27 @@ def _project_qkv(params: dict, cfg: ModelConfig, x: torch.Tensor,
 
 
 def _out_proj(attn: torch.Tensor, params: dict, *, axis: str = "tp",
-              n: int = 1, mode: str = "ar", ar_fn=None,
+              n: int = 1, mode: str = "ar", ar_fn=None, gemm_ar_fn=None,
               dot_fn=None) -> torch.Tensor:
-    """Row-parallel output projection and its TP reduction. ``ar_fn``
-    replaces the ``"ar"`` reduction (the decode loop's parity-stream AR);
-    at n = 1 a given ``ar_fn`` still runs."""
-    if n > 1:
-        refuse_row_sharded(mode, "attention")
-    y = (dot_fn or plain_dot)(attn, params["wo"])
-    if ar_fn is not None and (n == 1 or mode == "ar"):
-        return ar_fn(y)
-    if n == 1:
-        return y
-    if mode == "ar":
-        return tp_reduce(y, axis=axis, n=n)
-    return group_psum(y, axis=axis, num_ranks=n)
+    """Row-parallel output projection of replicated rows and its TP
+    reduction. ``ar_fn`` replaces the ``"ar"`` reduction (the decode
+    loop's parity-stream AR); ``gemm_ar_fn(attn, wo)`` replaces the
+    projection and its reduction (the fused GEMM+AR); at n = 1 a given
+    hook still runs."""
+    dot = dot_fn or plain_dot
+    if n == 1 or mode == "ar":
+        if gemm_ar_fn is not None:
+            return gemm_ar_fn(attn, params["wo"])
+        y = dot(attn, params["wo"])
+        if ar_fn is not None:
+            return ar_fn(y)
+        return y if n == 1 else tp_reduce(y, axis=axis, n=n)
+    if mode == "xla_rep":
+        return group_psum(dot(attn, params["wo"]), axis=axis, num_ranks=n)
+    refuse_row_sharded(mode, "attention")
+    raise ValueError(f"attention: mode {mode!r} runs row-sharded prefill "
+                     "activations; this projection takes replicated rows "
+                     "('ar' or 'xla_rep') — argument mode")
 
 
 def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -135,10 +164,16 @@ def tp_attn_prefill(params: dict, cfg: ModelConfig, x: torch.Tensor,
                     batch: int, seq: int, kv_slice: KVSlice | None = None,
                     *, axis: str = "tp", num_ranks: int = 1,
                     mode: str = "ar"):
-    """Causal prefill of whole prompts. x: (B·S, h). Writes the prompt's
-    K/V into ``kv_slice`` at [0, S) in place; returns (out (B·S, h), the
-    slice — or a fresh KVSlice of the prompt's K/V when none is given)."""
-    q, k, v = _project_qkv(params, cfg, x, batch, seq)
+    """Causal prefill of whole prompts. x: (B·S/n, h) row-sharded in the
+    ``"overlap"`` / ``"xla"`` modes at n > 1, else (B·S, h). Writes the
+    prompt's K/V (this rank's heads) into ``kv_slice`` at [0, S) in place;
+    returns (out, in x's layout; the slice — or a fresh KVSlice of the
+    prompt's K/V when none is given)."""
+    n = num_ranks
+    if n > 1:
+        refuse_row_sharded(mode, "tp_attn_prefill")
+    q, k, v = _project_qkv(params, cfg, x, batch, seq, axis=axis, n=n,
+                           mode=mode)
     cos, sin = rope_cos_sin(torch.arange(seq, device=x.device),
                             cfg.head_dim, cfg.rope_theta)
     q = apply_rope(q, cos[None], sin[None])
@@ -150,8 +185,18 @@ def tp_attn_prefill(params: dict, cfg: ModelConfig, x: torch.Tensor,
     else:
         new_kv = KVSlice(k=k, v=v)
     attn = shard_attention(q, k, v, causal=True)          # K1, normalized
-    return _out_proj(attn.reshape(batch * seq, -1), params, axis=axis,
-                     n=num_ranks, mode=mode), new_kv
+    attn = attn.reshape(batch * seq, -1)
+    if n > 1 and mode == "overlap":
+        from triton_distributed_tpu_torch.ops.gemm_reduce_scatter import (
+            gemm_rs_local,
+        )
+
+        return gemm_rs_local(attn, params["wo"], axis=axis,
+                             num_ranks=n), new_kv
+    if n > 1 and mode == "xla":
+        return group_psum_scatter(attn @ params["wo"], axis=axis,
+                                  num_ranks=n), new_kv
+    return _out_proj(attn, params, axis=axis, n=n, mode=mode), new_kv
 
 
 def tp_attn_prefill_chunk(params: dict, cfg: ModelConfig, x: torch.Tensor,
@@ -183,12 +228,15 @@ def tp_attn_prefill_chunk(params: dict, cfg: ModelConfig, x: torch.Tensor,
 def tp_attn_decode(params: dict, cfg: ModelConfig, x: torch.Tensor,
                    kv_slice: KVSlice, pos: int, *, axis: str = "tp",
                    num_ranks: int = 1, mode: str = "ar", ar_fn=None,
-                   dot_fn=None):
+                   gemm_ar_fn=None, dot_fn=None):
     """One-token decode over a linear cache at the host position ``pos``
-    (every sequence of the batch at the same length). Writes this token's
-    K/V at ``pos`` in place (the reference's ``dynamic_update_slice``),
-    then attends positions [0, pos] with :func:`_sdpa`; ``dot_fn``
-    replaces the projections. Returns (out (B, h), the slice)."""
+    (every sequence of the batch at the same length). x: (B, h),
+    replicated at n > 1, where ``kv_slice`` holds the rank's KV heads.
+    Writes this token's K/V at ``pos`` in place (the reference's
+    ``dynamic_update_slice``), then attends positions [0, pos] with
+    :func:`_sdpa`; ``dot_fn`` replaces the projections, ``ar_fn`` /
+    ``gemm_ar_fn`` the output projection's reduction (see
+    :func:`_out_proj`). Returns (out (B, h), the slice)."""
     if not 0 <= pos < kv_slice.k.shape[1]:
         raise ValueError(f"decode position {pos} outside the linear cache "
                          f"of {kv_slice.k.shape[1]} positions")
@@ -204,7 +252,7 @@ def tp_attn_decode(params: dict, cfg: ModelConfig, x: torch.Tensor,
                  causal=False, kv_len=pos + 1)
     return _out_proj(attn.reshape(batch, -1), params, axis=axis,
                      n=num_ranks, mode=mode, ar_fn=ar_fn,
-                     dot_fn=dot_fn), kv_slice
+                     gemm_ar_fn=gemm_ar_fn, dot_fn=dot_fn), kv_slice
 
 
 def tp_attn_decode_paged(params: dict, cfg: ModelConfig, x: torch.Tensor,

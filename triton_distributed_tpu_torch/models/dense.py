@@ -21,13 +21,17 @@ expert stacks in e4m3 take B3 inside ``ragged_dot_dtype_aware``).
 
 On a TP group (``num_ranks`` > 1, called inside ``DistContext.run`` with
 each rank's shard of the parameters per :func:`dense_llm_specs`) the
-activations are replicated, every row-parallel projection reduces per
-``mode`` (``"ar"``: the AllReduce kernels; ``"xla_rep"``: the rank
-group's plain sum), and the vocabulary-sharded logits are gathered
-through the group (the reference's ``jax.lax.all_gather``). The paged
-decode step takes ``ar_state``: every ``"ar"`` reduction then rides the
-barrier-free parity stream (:func:`make_ar_stream_fn`). MoE layers over
-ranks come with a later slice and are refused by name.
+vocabulary-sharded logits are gathered through the group (the
+reference's ``jax.lax.all_gather``), and the activations run per
+``mode`` (``layers/tp_mlp``): :func:`dense_prefill` row-sharded in
+``"overlap"`` (kernels B9/B10) and ``"xla"`` — each rank takes its 1/n
+of the prompt rows and the rows are gathered before the last token —,
+replicated in ``"ar"`` and ``"xla_rep"``; the decode steps replicated.
+The decode steps take ``ar_state``: every ``"ar"`` reduction then rides
+the barrier-free parity stream (:func:`make_ar_stream_fn`), or, with
+``fused_gemm_ar`` on the linear step, every row-parallel projection runs
+the fused GEMM+AR kernel B11 (:func:`make_gemm_ar_stream_fn`). Refused by
+name: MoE layers over ranks, and the two-tier ``"overlap2d"``.
 """
 
 from __future__ import annotations
@@ -48,7 +52,9 @@ from triton_distributed_tpu_torch.models.kv_cache import (
     KVCache, PagedModelCache,
 )
 from triton_distributed_tpu_torch.ops.moe import moe_tp_fwd_local
-from triton_distributed_tpu_torch.runtime.context import P, group_all_gather
+from triton_distributed_tpu_torch.runtime.context import (
+    P, current_rank, group_all_gather,
+)
 from triton_distributed_tpu_torch.runtime.device import (
     resolve_device, torch_dtype,
 )
@@ -128,7 +134,7 @@ def _logits(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
 
 def _mlp_or_moe(layer: dict, cfg: ModelConfig, h: torch.Tensor, *,
                 axis: str = "tp", n: int = 1, mode: str = "ar",
-                ar_fn=None, dot_fn=None) -> torch.Tensor:
+                ar_fn=None, gemm_ar_fn=None, dot_fn=None) -> torch.Tensor:
     """FFN block dispatch: the dense SwiGLU MLP (``dot_fn`` replacing its
     products), or the MoE expert MLP (whose e4m3 stacks pick their lane
     by type, as the reference's) at one rank."""
@@ -141,24 +147,39 @@ def _mlp_or_moe(layer: dict, cfg: ModelConfig, h: torch.Tensor, *,
         return moe_tp_fwd_local(h, p["router"], p["w_gate"], p["w_up"],
                                 p["w_down"], cfg.num_experts_per_tok)
     return tp_mlp_fwd(layer["mlp"], h, axis=axis, num_ranks=n, mode=mode,
-                      ar_fn=ar_fn, dot_fn=dot_fn)
+                      ar_fn=ar_fn, gemm_ar_fn=gemm_ar_fn, dot_fn=dot_fn)
 
 
 def _replicated(mode: str, n: int, what: str) -> None:
-    if n > 1:
+    """The decode and verify steps run replicated activations."""
+    if n > 1 and mode not in ("ar", "xla_rep"):
         refuse_row_sharded(mode, what)
+        raise ValueError(f"{what}: a decode step runs replicated "
+                         f"activations: mode 'ar' or 'xla_rep', got "
+                         f"{mode!r} — argument mode")
 
 
 def dense_prefill(params: dict, cfg: ModelConfig, input_ids: torch.Tensor,
                   cache: KVCache, *, axis: str = "tp", num_ranks: int = 1,
                   mode: str = "ar"):
-    """Causal prefill of whole prompts. input_ids: (B, S). Returns
-    (last-token logits (B, vocab), cache filled for [0, S)). At n > 1
-    the replicated modes only (``"ar"``, ``"xla_rep"``)."""
+    """Causal prefill of whole prompts. input_ids: (B, S), every rank's
+    the same. Returns (last-token logits (B, vocab), cache filled for
+    [0, S)). At n > 1 in ``"overlap"`` / ``"xla"`` each rank runs its
+    (B·S)/n rows of the flattened prompt and the final activations are
+    gathered through the group; else the rows run replicated."""
     n = num_ranks
-    _replicated(mode, n, "dense_prefill")
     batch, seq = input_ids.shape
     x = params["embed"][input_ids.reshape(-1).long()]       # (B·S, h)
+    row_sharded = n > 1 and mode in ("overlap", "xla")
+    if n > 1:
+        refuse_row_sharded(mode, "dense_prefill")
+    if row_sharded:
+        rows = (batch * seq) // n
+        if rows * n != batch * seq:
+            raise ValueError(f"dense_prefill: {batch} x {seq} rows do not "
+                             f"divide over {n} ranks in mode {mode!r}")
+        me = current_rank()[1]
+        x = x[me * rows:(me + 1) * rows]
     for i, layer in enumerate(params["layers"]):
         h = rms_norm(x, layer["attn_norm"], cfg.rms_norm_eps)
         attn_out, _ = tp_attn_prefill(layer["attn"], cfg, h, batch, seq,
@@ -167,6 +188,8 @@ def dense_prefill(params: dict, cfg: ModelConfig, input_ids: torch.Tensor,
         x = x + attn_out
         h = rms_norm(x, layer["mlp_norm"], cfg.rms_norm_eps)
         x = x + _mlp_or_moe(layer, cfg, h, axis=axis, n=n, mode=mode)
+    if row_sharded:
+        x = group_all_gather(x, axis=axis, num_ranks=n)    # (B·S, h)
     last = x.reshape(batch, seq, -1)[:, -1]
     return (_logits(params, cfg, last, axis=axis, n=n),
             cache._replace(offset=seq))
@@ -249,49 +272,92 @@ def make_ar_stream_fn(ar_state, *, axis: str, n: int,
     return ar_fn, lambda: (state[0], state[1])
 
 
+def make_gemm_ar_stream_fn(state0, *, axis: str, n: int,
+                           force_kernel: bool = False):
+    """The fused GEMM+AR hook of a linear decode walk: every ``"ar"``
+    row-parallel projection (attention's output, the MLP's down) runs
+    ``ops/gemm_allreduce.gemm_ar_stream`` (kernel B11) in place of the
+    product and its reduction. ``state0``: (ws, call_index) from
+    ``gemm_ar_stream_workspace(n, B, hidden, dtype)`` — one workspace for
+    every site (each reduces (B, hidden)). Returns (gemm_ar_fn,
+    final_state_getter)."""
+    from triton_distributed_tpu_torch.ops.gemm_allreduce import (
+        gemm_ar_stream,
+    )
+
+    state = list(state0)
+
+    def gemm_ar_fn(x, w):
+        out, ws, idx = gemm_ar_stream(x, w, state[0], state[1], axis=axis,
+                                      num_ranks=n, force_kernel=force_kernel)
+        state[0], state[1] = ws, idx
+        return out
+
+    return gemm_ar_fn, lambda: (state[0], state[1])
+
+
 def _decode_body(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                  attend, *, axis: str = "tp", n: int = 1, mode: str = "ar",
-                 ar_fn=None, dot_fn=None) -> torch.Tensor:
+                 ar_fn=None, gemm_ar_fn=None, dot_fn=None) -> torch.Tensor:
     """The one-token transformer walk shared by the decode steps;
-    ``attend(i, attn_params, h)`` supplies layer i's attention."""
+    ``attend(i, attn_params, h)`` supplies layer i's attention. The FFN
+    runs ``mode`` when it is a replicated one, else ``"ar"`` (a one-row
+    activation is never row-sharded)."""
     x = params["embed"][tokens.long()]                      # (B, h)
+    ffn_mode = mode if mode in ("ar", "xla_rep") else "ar"
     for i, layer in enumerate(params["layers"]):
         h = rms_norm(x, layer["attn_norm"], cfg.rms_norm_eps)
         x = x + attend(i, layer["attn"], h)
         h = rms_norm(x, layer["mlp_norm"], cfg.rms_norm_eps)
-        x = x + _mlp_or_moe(layer, cfg, h, axis=axis, n=n, mode=mode,
-                            ar_fn=ar_fn, dot_fn=dot_fn)
+        x = x + _mlp_or_moe(layer, cfg, h, axis=axis, n=n, mode=ffn_mode,
+                            ar_fn=ar_fn, gemm_ar_fn=gemm_ar_fn,
+                            dot_fn=dot_fn)
     return _logits(params, cfg, x, axis=axis, n=n)
 
 
 def dense_decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
-                      cache: KVCache, *, ar_state=None,
+                      cache: KVCache, *, axis: str = "tp",
+                      num_ranks: int = 1, mode: str = "ar", ar_state=None,
                       force_ar_kernel: bool = False,
                       fused_gemm_ar: bool = False, dot_fn=None):
     """One-token decode over the linear cache at ``cache.offset`` (every
-    sequence of the batch at that position). tokens: (B,). ``dot_fn``
-    replaces every projection / dense-MLP product (``fp8_dot`` over a
-    quantized tree). Returns (logits (B, vocab), cache with ``offset``
-    advanced by one). The reference's parity-stream AllReduce hooks
-    (``ar_state``, ``force_ar_kernel``, ``fused_gemm_ar``) need the
-    multi-GPU runtime and are refused by name."""
-    for name, val in (("ar_state", ar_state is not None),
-                      ("force_ar_kernel", force_ar_kernel),
-                      ("fused_gemm_ar", fused_gemm_ar)):
-        if val:
-            raise ValueError(
-                f"dense_decode_step: {name} is not ported (the parity-"
-                "stream AllReduce kernels come with the multi-GPU runtime)"
-                f" — argument {name}")
+    sequence of the batch at that position). tokens: (B,), every rank's
+    the same. ``dot_fn`` replaces every projection / dense-MLP product
+    (``fp8_dot`` over a quantized tree). Returns (logits (B, vocab), cache
+    with ``offset`` advanced by one); with ``ar_state``, (logits, cache,
+    ar_state').
+
+    ``ar_state``: (ws, call_index) of ``ops/allreduce.ar_stream_workspace``
+    — every ``"ar"`` reduction of the step rides the barrier-free parity
+    AllReduce — or, with ``fused_gemm_ar``, of ``ops/gemm_allreduce.
+    gemm_ar_stream_workspace`` — every row-parallel projection runs the
+    fused GEMM+AR kernel B11 in place of the product and its reduction.
+    ``force_ar_kernel``: run that kernel at n = 1 too (its loopback)."""
+    n = num_ranks
     pos = cache.offset
+    ar_fn = gemm_ar_fn = final = None
+    if ar_state is not None and mode == "ar" and (n > 1 or force_ar_kernel):
+        if fused_gemm_ar:
+            gemm_ar_fn, final = make_gemm_ar_stream_fn(
+                ar_state, axis=axis, n=n, force_kernel=force_ar_kernel)
+        else:
+            ar_fn, final = make_ar_stream_fn(ar_state, axis=axis, n=n,
+                                             force_kernel=force_ar_kernel)
 
     def attend(i, attn_params, h):
         out, _ = tp_attn_decode(attn_params, cfg, h, cache.layer(i), pos,
+                                axis=axis, num_ranks=n, mode=mode,
+                                ar_fn=ar_fn, gemm_ar_fn=gemm_ar_fn,
                                 dot_fn=dot_fn)
         return out
 
-    logits = _decode_body(params, cfg, tokens, attend, dot_fn=dot_fn)
-    return logits, cache._replace(offset=pos + 1)
+    logits = _decode_body(params, cfg, tokens, attend, axis=axis, n=n,
+                          mode=mode, ar_fn=ar_fn, gemm_ar_fn=gemm_ar_fn,
+                          dot_fn=dot_fn)
+    cache = cache._replace(offset=pos + 1)
+    if ar_state is not None:
+        return logits, cache, (final() if final is not None else ar_state)
+    return logits, cache
 
 
 def dense_decode_step_paged(params: dict, cfg: ModelConfig,

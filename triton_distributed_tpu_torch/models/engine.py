@@ -19,10 +19,11 @@ linear→paged hand-off (:meth:`Engine.to_paged`, and the serving loop's
 prefill scatter) is the quantization point, through the saturating
 ``models/fp8.saturate_cast``.
 
-``backend`` picks the decode path: ``"auto"`` (the default) and
-``"xla"`` (the name the JAX package gives its plain path) are the eager
-steps above; ``"overlap"`` (the reference's overlapped multi-rank path)
-is refused by name. ``"megakernel"`` decodes through the persistent
+``backend`` picks the decode path: ``"auto"`` (the default),
+``"overlap"`` (the reference's name for its overlapped multi-rank path:
+at n = 1 the eager path, on a TP group the same perf-model choice as
+``"auto"``) and ``"xla"`` (the name the JAX package gives its plain path)
+are the eager steps above. ``"megakernel"`` decodes through the persistent
 kernel: with a ``page_size`` the engine serves the serving tier's paged lane
 (``ServingEngine`` decodes through ``megakernel/serving.py``); without
 one, :meth:`Engine.serve` runs the sequential batch-1 loop over the
@@ -38,15 +39,24 @@ spans, and a CUDA graph for the decode step.
 one-rank form) the parameters are sharded per ``dense_llm_specs``
 (``models/convert.shard_params``), each rank keeps its shard of the KV
 heads, and every step runs once per rank through ``ctx.run`` (the
-``shard_map`` counterpart). Decode runs mode ``"ar"`` (``"xla_rep"`` on
-``backend="xla"``); with the default decode functions every row-parallel
-reduction of a decode step rides the barrier-free parity-stream
-AllReduce over a persistent workspace per batch shape
-(:meth:`Engine._ar_state`; ``TDTPU_AR_STREAM=0`` opts out). The ranks
-compute bit-identical logits; the engine returns rank 0's tokens.
-Not at n > 1 yet, refused by name: the linear-cache decode,
-:meth:`Engine.serve` wherever :meth:`Engine._prefill_mode` returns
-``"overlap"`` (kernels B9/B10), MoE configs, and the megakernel.
+``shard_map`` counterpart). The prefill runs :meth:`Engine._prefill_mode`'s
+mode: ``"overlap"`` (the perf model's pick for the prompts it pays on:
+rows sharded over the ranks, the column-parallel projections through the
+AG+GEMM kernel B9 and the row-parallel ones through the GEMM+RS kernel
+B10), ``"ar"`` (replicated rows, each reduction through the AllReduce
+kernel AUTO picks: one-shot, the double tree or two-shot), ``"xla"`` /
+``"xla_rep"`` on ``backend="xla"``. Decode runs mode ``"ar"``
+(``"xla_rep"`` on ``backend="xla"``) over the linear cache (the
+default) or the paged one; with the default decode functions every
+row-parallel reduction of a decode step rides the barrier-free
+parity-stream AllReduce over a persistent workspace per batch shape
+(:meth:`Engine._ar_state`; ``TDTPU_AR_STREAM=0`` opts out), and on the
+linear step, where :meth:`Engine._use_fused_gemm_ar` says so
+(``TDTPU_GEMM_AR=1``, or a measured win), every row-parallel projection
+runs the fused GEMM+AR kernel B11 instead. The ranks compute
+bit-identical logits; the engine returns rank 0's tokens. Refused by
+name at n > 1: MoE configs, the megakernel, and the two-tier
+``"overlap2d"`` (``layers/tp_mlp``).
 """
 
 from __future__ import annotations
@@ -104,18 +114,13 @@ class Engine:
     dense forward (the paged lane keeps ``dense_decode_step_paged`` unless
     ``decode_fn`` is given)."""
 
-    BACKENDS = ("auto", "xla", "megakernel")
+    BACKENDS = ("auto", "overlap", "xla", "megakernel")
 
     def __init__(self, cfg: ModelConfig, params: dict, ctx=None, *,
                  axis: str = "tp", device=None,
                  max_seq: int = 256, page_size: int | None = None,
                  backend: str = "auto", kv_dtype=None,
                  prefill_fn=dense_prefill, decode_fn=dense_decode_step):
-        if backend == "overlap":
-            raise ValueError(
-                "backend = 'overlap' is not ported: the overlapped AG+GEMM "
-                "/ GEMM+RS path needs the multi-GPU runtime — argument "
-                "backend")
         if backend not in self.BACKENDS:
             raise ValueError(f"backend = {backend!r} unknown: expected one "
                              f"of {self.BACKENDS} — argument backend")
@@ -166,6 +171,7 @@ class Engine:
         # then find this one's flags already past its call indices.
         self._serial = next(_ENGINE_SERIAL)
         self._ar_states: dict = {}
+        self._gemm_ar_choice: str | None = None
         self._prefill_fn = prefill_fn
         self._decode_fn = (dense_decode_step_paged
                            if page_size is not None
@@ -209,44 +215,83 @@ class Engine:
     def _prefill_mode(self, batch: int, seq: int) -> str:
         """The prefill's TP mode (reference ``_prefill_mode``): replicated
         ``"ar"`` on the megakernel; ``"xla"`` / ``"xla_rep"`` on
-        ``backend="xla"``; else the perf model's ``pick_mode``."""
+        ``backend="xla"``; else the perf model's ``pick_mode``
+        (``"overlap"`` or ``"ar"``)."""
         if self.backend == "megakernel":
             return "ar"
         if self.backend == "xla":
             return "xla" if (batch * seq) % self.n == 0 else "xla_rep"
-        return pick_mode("auto", batch * seq, self.n,
-                         hidden=self.cfg.hidden_size,
-                         ffn=self.cfg.intermediate_size,
-                         itemsize=torch_dtype(self.cfg.dtype).itemsize)
+        m = pick_mode("auto", batch * seq, self.n,
+                      hidden=self.cfg.hidden_size,
+                      ffn=self.cfg.intermediate_size,
+                      itemsize=torch_dtype(self.cfg.dtype).itemsize)
+        return m if self.backend == "auto" else (
+            "overlap" if m == "overlap" else "ar")
 
     def _decode_mode(self) -> str:
         return "xla_rep" if self.backend == "xla" else "ar"
 
     def _use_ar_stream(self) -> bool:
         """The barrier-free parity AR on the decode path: real TP, mode
-        ``"ar"``, the dense paged decode function (a user's
-        ``decode_fn`` has no ``ar_state`` contract). ``TDTPU_AR_STREAM=0``
-        opts out."""
+        ``"ar"``, a dense decode function (a user's ``decode_fn`` has no
+        ``ar_state`` contract). ``TDTPU_AR_STREAM=0`` opts out."""
         return (self.n > 1 and self._decode_mode() == "ar"
-                and self._decode_fn is dense_decode_step_paged
+                and self._decode_fn in (dense_decode_step,
+                                        dense_decode_step_paged)
                 and os.environ.get("TDTPU_AR_STREAM", "1") != "0")
 
-    def _ar_state(self, batch: int) -> list:
-        """The persistent parity workspace of decode batch ``batch`` and
-        each rank's call index: [(ws, idx)] per rank. Allocated once per
-        batch shape, with a tag of this engine's own — the symmetric-
-        memory persistence the barrier-free protocol needs."""
-        if batch not in self._ar_states:
+    def _use_fused_gemm_ar(self) -> bool:
+        """The fused GEMM+AR kernel B11 in every row-parallel projection of
+        the linear decode step (reference ``_use_fused_gemm_ar``):
+        ``TDTPU_GEMM_AR=1`` forces it, ``=0`` forbids it; unset, the comm
+        autotuner races dot + parity AR, fused and the plain sum at both
+        site shapes (attention's output, the MLP's down; batch 1), and the
+        fused path runs only where it won both
+        (``runtime/autotuner.tuned_gemm_ar_path``; with comm tuning off,
+        dot + parity AR). The paged step keeps dot + parity AR."""
+        if not (self._use_ar_stream()
+                and self._decode_fn is dense_decode_step):
+            return False
+        flag = os.environ.get("TDTPU_GEMM_AR", "auto")
+        if flag in ("0", "1"):
+            return flag == "1"
+        if self._gemm_ar_choice is None:
+            from triton_distributed_tpu_torch.runtime.autotuner import (
+                tuned_gemm_ar_path,
+            )
+
+            dt = torch_dtype(self.cfg.dtype)
+            h = self.cfg.hidden_size
+            o = tuned_gemm_ar_path(1, self.cfg.q_size // self.n, h, dt,
+                                   self.ctx, self.axis)
+            dn = tuned_gemm_ar_path(1, self.cfg.intermediate_size // self.n,
+                                    h, dt, self.ctx, self.axis)
+            self._gemm_ar_choice = ("fused" if o == "fused" and dn == "fused"
+                                    else "dot_ar")
+        return self._gemm_ar_choice == "fused"
+
+    def _ar_state(self, batch: int, fused: bool = False) -> list:
+        """The persistent workspace of decode batch ``batch`` and each
+        rank's call index: [(ws, idx)] per rank — the parity AR's, or with
+        ``fused`` B11's. Allocated once per batch shape, with a tag of this
+        engine's own — the symmetric-memory persistence the barrier-free
+        protocol needs."""
+        key = (batch, fused)
+        if key not in self._ar_states:
             from triton_distributed_tpu_torch.ops.allreduce import (
                 ar_stream_workspace,
             )
+            from triton_distributed_tpu_torch.ops.gemm_allreduce import (
+                gemm_ar_stream_workspace,
+            )
 
-            ws, idx = ar_stream_workspace(
-                self.n, batch, self.cfg.hidden_size,
-                torch_dtype(self.cfg.dtype), ctx=self.ctx,
-                tag=f"engine-{self._serial}-ar-stream")
-            self._ar_states[batch] = [(ws, idx)] * self.n
-        return self._ar_states[batch]
+            make = gemm_ar_stream_workspace if fused else ar_stream_workspace
+            ws, idx = make(self.n, batch, self.cfg.hidden_size,
+                           torch_dtype(self.cfg.dtype), ctx=self.ctx,
+                           tag=f"engine-{self._serial}-"
+                               f"{'gemm-ar' if fused else 'ar-stream'}")
+            self._ar_states[key] = [(ws, idx)] * self.n
+        return self._ar_states[key]
 
     def new_cache(self, batch: int):
         """A zeroed linear cache (at n > 1: one shard per rank, a list)."""
@@ -299,12 +344,6 @@ class Engine:
             return self._prefill_fn(self.params, self.cfg,
                                     input_ids.to(self.device), cache)
         mode = self._prefill_mode(batch, seq)
-        if mode not in ("ar", "xla_rep"):
-            raise ValueError(
-                f"prefill at n = {self.n}: mode {mode!r} for {batch} x "
-                f"{seq} rows (row-sharded AG+GEMM / GEMM+RS, kernels "
-                "B9/B10) is not ported — it comes with Engine.serve on a "
-                "TP group; ServingEngine's slices run 'ar'")
         ids = self.replicate(input_ids)
         outs = self.run(lambda r: self._prefill_fn(
             self.rank_params[r], self.cfg, ids[r], cache[r],
@@ -336,21 +375,22 @@ class Engine:
 
     def _decode_run(self, tokens: torch.Tensor, caches: list):
         """One decode step on every rank (reference ``_decode_run``):
-        ``caches`` the ranks' shards; with :meth:`_use_ar_stream` every
-        ``"ar"`` reduction rides the parity stream of this batch shape.
+        ``caches`` the ranks' shards, linear or paged (a linear cache is
+        mirrored into pages first when the engine has a ``page_size``);
+        with :meth:`_use_ar_stream` every ``"ar"`` reduction rides the
+        parity stream of this batch shape, or with
+        :meth:`_use_fused_gemm_ar` every row-parallel projection runs B11.
         Returns (rank 0's next tokens, the ranks' caches)."""
-        if self.page_size is None:
-            raise ValueError(
-                f"linear-cache decode at n = {self.n} is not ported (it "
-                "comes with Engine.serve on a TP group) — build the engine "
-                "with page_size")
-        if isinstance(caches[0], KVCache):
+        if self.page_size is not None and isinstance(caches[0], KVCache):
             caches = self.to_paged(caches)
         batch = int(tokens.shape[0])
         toks = self.replicate(tokens.cpu() if tokens.is_cuda else tokens)
         kw = self.tp_kwargs(self._decode_mode())
         if self._use_ar_stream():
-            states = self._ar_state(batch)
+            fused = self._use_fused_gemm_ar()
+            states = self._ar_state(batch, fused)
+            if fused:
+                kw["fused_gemm_ar"] = True
 
             def step(r):
                 logits, cache, st = self._decode_fn(
@@ -414,29 +454,23 @@ class Engine:
 
     def _serve_tp(self, input_ids: torch.Tensor, gen_len: int
                   ) -> torch.Tensor:
-        """:meth:`serve` on a TP group: the replicated prefill, then the
-        paged decode steps. Refused by name where the prefill's mode is
-        row-sharded ("overlap": kernels B9/B10, the next slice), without
-        a ``page_size``, and on the megakernel."""
+        """:meth:`serve` on a TP group: the prefill in its mode
+        (:meth:`_prefill_mode`), then the decode steps over the linear
+        cache, or over the paged one with a ``page_size``. Refused by name
+        on the megakernel."""
         if self.backend == "megakernel":
             raise MegakernelUnsupportedError(
                 f"the megakernel is single-rank for now (TP group of "
                 f"{self.n}) — serve with backend='auto'")
-        batch, seq = input_ids.shape
-        mode = self._prefill_mode(batch, seq)
-        if mode not in ("ar", "xla_rep"):
+        if (self.page_size is None
+                and input_ids.shape[1] + gen_len - 1 > self.max_seq):
             raise ValueError(
-                f"Engine.serve at n = {self.n}: the prefill of {batch} x "
-                f"{seq} rows takes mode {mode!r} (AG+GEMM / GEMM+RS, "
-                "kernels B9/B10), which is not ported yet — serve through "
-                "ServingEngine, whose prefill slices run 'ar'")
-        if self.page_size is None:
-            raise ValueError(
-                f"Engine.serve at n = {self.n} needs a page_size: the "
-                "linear-cache decode on a TP group is not ported")
+                f"prompt ({input_ids.shape[1]}) + gen_len ({gen_len}) "
+                f"exceeds max_seq {self.max_seq} of the linear cache")
         logits, caches = self.prefill(input_ids)
         tok = sampling.greedy(logits)
-        caches = self.to_paged(caches)
+        if self.page_size is not None:
+            caches = self.to_paged(caches)
         outs = [tok]
         for _ in range(gen_len - 1):
             tok, caches = self.decode(tok, caches)

@@ -1,6 +1,7 @@
 """What the collective wrappers share: the kernels of
-``csrc/collectives.cu``, their launch, the payload checks, the CPU
-rendezvous through a symmetric buffer's slots, and the straggler hook.
+``csrc/collectives.cu`` and ``csrc/gemm_comm.cu``, their launch, the
+payload checks, the CPU rendezvous through a symmetric buffer's slots,
+and the straggler hook.
 
 A wrapper takes the kernel only for a CUDA tensor and the plain version
 only for a CPU tensor; nothing falls back.
@@ -36,6 +37,19 @@ RS_RING_KERNEL = CudaKernel("collectives.cu", "tdt_rs_ring",
                             _GROUP_ARGS + [ctypes.c_int, ctypes.c_void_p])
 AG_RING_KERNEL = CudaKernel("collectives.cu", "tdt_ag_ring",
                             _GROUP_ARGS + [ctypes.c_void_p])
+TREE_KERNEL = CudaKernel("collectives.cu", "tdt_ar_tree",
+                         _GROUP_ARGS + [ctypes.c_int] * 3
+                         + [ctypes.c_void_p])
+# The fused GEMM + communication kernels B9 (AG+GEMM), B10 (GEMM+RS) and
+# B11 (GEMM+AR): one entry, one CudaKernel each, so each counts its own.
+_GEMM_COMM_ARGS = ([ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int,
+                                            ctypes.c_ulonglong,
+                                            ctypes.c_longlong]
+                   + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 11
+                   + [ctypes.c_void_p])
+AG_GEMM_KERNEL = CudaKernel("gemm_comm.cu", "tdt_gemm_comm", _GEMM_COMM_ARGS)
+GEMM_RS_KERNEL = CudaKernel("gemm_comm.cu", "tdt_gemm_comm", _GEMM_COMM_ARGS)
+GEMM_AR_KERNEL = CudaKernel("gemm_comm.cu", "tdt_gemm_comm", _GEMM_COMM_ARGS)
 # Not a collective: holds a stream (the straggler), and the library's
 # peer-access entry.
 SPIN = CudaKernel("collectives.cu", "tdt_spin",
@@ -46,7 +60,9 @@ STREAMS = CudaKernel("collectives.cu", "tdt_stream_create",
                      [ctypes.c_int, ctypes.POINTER(ctypes.c_void_p)])
 
 COLLECTIVE_KERNELS = (ONE_SHOT_KERNEL, PARITY_KERNEL, RS_RING_KERNEL,
-                      AG_RING_KERNEL)
+                      AG_RING_KERNEL, TREE_KERNEL, AG_GEMM_KERNEL,
+                      GEMM_RS_KERNEL, GEMM_AR_KERNEL)
+_GEMM_OP = {AG_GEMM_KERNEL: 0, GEMM_RS_KERNEL: 1, GEMM_AR_KERNEL: 2}
 
 
 class CollectiveUnsupportedError(ValueError):
@@ -99,19 +115,44 @@ def launch(kernel: CudaKernel, buf: SymmBuffer, rank: int, epoch: int,
     kernel is launched before any rank goes on — a rank thread that
     later blocks on the device waits only for work that can finish."""
     ctx = buf.ctx
+    _launch_at_meeting(kernel, buf, rank, x.device, "collective.launch", (
+        ptr(buf.table[rank]), ptr(buf.signal_table[rank]),
+        ptr(ctx.error_word(rank)), rank, ctx.num_ranks, epoch,
+        int(ctx.timeout_s * 1e9), ptr(x), ptr(out), nbytes, *dtype_code,
+        current_stream(x.device)))
+
+
+def _launch_at_meeting(kernel: CudaKernel, buf: SymmBuffer, rank: int,
+                       dev, what: str, args: tuple) -> None:
     kernel.library()              # a first-use build, before the meeting
     buf.await_ready(rank)
-    dev = x.device
-    args = (ptr(buf.table[rank]), ptr(buf.signal_table[rank]),
-            ptr(ctx.error_word(rank)), rank, ctx.num_ranks, epoch,
-            int(ctx.timeout_s * 1e9), ptr(x), ptr(out), nbytes,
-            *dtype_code, current_stream(dev))
 
     def act():
         with torch.cuda.device(dev):
             kernel.launch(*args)
 
-    ctx.meet(rank, "collective.launch", act)
+    buf.ctx.meet(rank, what, act)
+
+
+def launch_gemm_comm(kernel: CudaKernel, buf: SymmBuffer, rank: int,
+                     epoch: int, x: torch.Tensor, b: torch.Tensor,
+                     out: torch.Tensor, *, m: int, mp: int, k: int,
+                     ncols: int, ldb: int, parts: int, tile: int,
+                     vec_b: bool) -> None:
+    """One launch of a fused GEMM kernel (``csrc/gemm_comm.cu``) at the
+    rank group's meeting, as :func:`launch`. ``tile``: 0 the tall tile
+    (prefill rows), 1 the short one (decode). The kernel sizes its
+    persistent grid to its share of the card: the ranks on this rank's
+    device (n for virtual ranks, 1 with a card a rank)."""
+    ctx = buf.ctx
+    dev = x.device
+    on_card = sum(1 for d in ctx.devices if d == dev)
+    _launch_at_meeting(kernel, buf, rank, dev, "gemm_comm.launch", (
+        ptr(buf.table[rank]), ptr(buf.signal_table[rank]),
+        ptr(ctx.error_word(rank)), rank, ctx.num_ranks, epoch,
+        int(ctx.timeout_s * 1e9), ptr(x), ptr(b), ptr(out),
+        _GEMM_OP[kernel], m, mp, k, ncols, ldb, parts, DTYPE_CODE[x.dtype],
+        tile, int(vec_b), on_card, current_stream(dev)))
 
 
 def push_slots(ctx: DistContext, rank: int, buf: SymmBuffer, x, index,

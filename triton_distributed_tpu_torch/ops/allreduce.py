@@ -1,8 +1,9 @@
 """AllReduce over the rank group — counterpart of the JAX package's
 ``ops/allreduce.py``: kernel B5 in its one-shot form
-(``_ar_one_shot_kernel``) and its barrier-free parity form
-(``_ar_one_shot_parity_kernel``, the decode path), both hand-written CUDA
-in ``csrc/collectives.cu``; two-shot as ring reduce-scatter (B6) then ring
+(``_ar_one_shot_kernel``), its barrier-free parity form
+(``_ar_one_shot_parity_kernel``, the decode path) and its double binary
+tree (``_ar_tree_kernel``), all hand-written CUDA in
+``csrc/collectives.cu``; two-shot as ring reduce-scatter (B6) then ring
 all-gather (B4); AUTO by the perf model.
 
 Methods:
@@ -12,17 +13,19 @@ Methods:
   and casts once. One hop, n x traffic: the small payloads' method.
 - ``TWO_SHOT``: ``reduce_scatter_local`` then ``all_gather_local(RING_1D)``
   — 2(n-1) hops of 1/n of the payload: the large payloads' method.
-- ``TREE``: the double binary tree (``_ar_tree_kernel``) is not ported
-  yet and is refused by name; AUTO selects it only between ~1.35 and
-  ~1.8 MB at n = 4 (runtime/perf_model.py), which the serving path's
-  shapes do not reach.
+- ``TREE``: the double binary tree — tree 0 the heap over rank order,
+  tree 1 over reversed ranks, each reducing half of the rows up to its
+  root and broadcasting the sum down (one tree of every row at m = 1).
+  AUTO selects it at n = 4 between ~1.35 and ~1.8 MB (165-219 bf16 rows
+  x 4096: an ``"ar"`` prefill of that many rows).
 - ``XLA``: the JAX package's ``psum`` — a plain sum through the rank
   group (``runtime/context.group_psum``).
 
 Every method's order and rounding is part of its contract — the replicas
 must end bit-identical —, and each kernel's plain version keeps it:
 one-shot and parity add in fp32 from 0 in rank order and cast once; the
-ring RS adds in the payload type a hop.
+ring RS adds in the payload type a hop; the tree adds a node's own rows
+and its children's in fp32 and rounds once a level.
 
 Call the ``*_local`` functions inside ``DistContext.run`` (the
 ``shard_map`` counterpart); the host-level :func:`all_reduce` runs them on
@@ -36,8 +39,9 @@ import enum
 import torch
 
 from triton_distributed_tpu_torch.ops._comm import (
-    DTYPE_CODE, ONE_SHOT_KERNEL, PARITY_KERNEL, CollectiveUnsupportedError,
-    check_payload, launch, push_slots, rank_of, straggle,
+    DTYPE_CODE, ONE_SHOT_KERNEL, PARITY_KERNEL, TREE_KERNEL,
+    CollectiveUnsupportedError, check_payload, launch, push_slots, rank_of,
+    straggle,
 )
 from triton_distributed_tpu_torch.ops.allgather import (
     AllGatherMethod, all_gather_local,
@@ -60,28 +64,82 @@ class AllReduceMethod(enum.Enum):
 
 
 def get_auto_allreduce_method(nbytes: int, num_ranks: int,
-                              tree_halves: int = 2, spec=None
-                              ) -> AllReduceMethod:
+                              tree_halves: int = 2, spec=None, *,
+                              two_shot: bool = True) -> AllReduceMethod:
     """The method with the least modeled time for a payload of
     ``nbytes`` (runtime/perf_model.allreduce_time_s): one-shot at n <= 2,
-    else the cheapest of one-shot, two-shot and tree."""
+    else the cheapest of one-shot, two-shot and tree. ``two_shot=False``
+    leaves two-shot out: it needs the rows to divide by n (the reference
+    would pick it and then refuse the rows)."""
     if num_ranks <= 2:
         return AllReduceMethod.ONE_SHOT
     from triton_distributed_tpu_torch.runtime.perf_model import (
         allreduce_time_s,
     )
 
+    methods = ("one_shot", "two_shot", "tree") if two_shot else (
+        "one_shot", "tree")
     times = {m: allreduce_time_s(nbytes, num_ranks, m, spec,
                                  tree_halves=tree_halves)
-             for m in ("one_shot", "two_shot", "tree")}
+             for m in methods}
     return AllReduceMethod(min(times, key=times.get))
 
 
 def _tree_halves(m: int, dtype=None) -> int:
     """2 when the rows split into two halves (the double tree), else 1.
-    The reference also asks each half to fill whole (8, 128) sublane
-    tiles; Hopper has no such tiling, so an even row count is enough."""
-    return 2 if m >= 2 and m % 2 == 0 else 1
+    The reference asks each half to fill whole (8, 128) sublane tiles;
+    Hopper has no such tiling, so any m >= 2 splits: tree 0 takes rows
+    [0, ceil(m/2)), tree 1 the rest."""
+    return 2 if m >= 2 else 1
+
+
+def tree_plain(xs) -> torch.Tensor:
+    """Plain version of the double-tree AllReduce: ``xs`` — the n ranks'
+    (m, cols) contributions — reduced level by level exactly as the
+    kernel does: a leaf's rows go up as they are; an interior node at
+    heap position p adds its own rows, then child 2p+1's, then child
+    2p+2's in fp32 and rounds to the payload type once; the root's rows
+    are the sum every rank ends with. Tree 0 over rank order owns rows
+    [0, ceil(m/2)), tree 1 over reversed ranks the rest."""
+    n, m = len(xs), xs[0].shape[0]
+    trees = _tree_halves(m)
+    mh = -(-m // trees)
+    out = torch.empty_like(xs[0])
+    for t in range(trees):
+        rows = slice(t * mh, min(m, (t + 1) * mh))
+
+        def node(pos):
+            own = xs[pos if t == 0 else n - 1 - pos][rows]
+            if 2 * pos + 1 >= n:
+                return own
+            acc = own.float() + node(2 * pos + 1).float()
+            if 2 * pos + 2 < n:
+                acc = acc + node(2 * pos + 2).float()
+            return acc.to(own.dtype)
+
+        out[rows] = node(0)
+    return out
+
+
+def _tree(x: torch.Tensor, n: int, ctx: DistContext, rank: int
+          ) -> torch.Tensor:
+    m, cols = x.shape
+    trees = _tree_halves(m)
+    if x.device.type == "cuda":
+        buf = symm_zeros(ctx, (trees, 3, -(-m // trees), cols), x.dtype,
+                         tag="ar_tree")
+        x = check_payload(ctx, rank, x, "all_reduce tree")
+        out = torch.empty_like(x)
+        launch(TREE_KERNEL, buf, rank, buf.next_epoch(rank), x, out,
+               cols * x.element_size(), m, trees, DTYPE_CODE[x.dtype])
+        return out
+    if x.device.type != "cpu":
+        raise ValueError(f"all_reduce: no kernel for device {x.device}")
+    TREE_KERNEL.count_plain()
+    buf = symm_zeros(ctx, (n, m, cols), x.dtype, tag="ar_tree_plain")
+    ctx.barrier(rank, "ar_tree.entry")
+    push_slots(ctx, rank, buf, x, rank, "ar_tree.data")
+    return tree_plain(buf.tensors[rank])
 
 
 def reduce_slots_plain(slots) -> torch.Tensor:
@@ -133,15 +191,12 @@ def all_reduce_local(x_local: torch.Tensor, axis: str = "tp",
     if method == AllReduceMethod.AUTO:
         method = get_auto_allreduce_method(
             x_local.numel() * x_local.element_size(), n,
-            tree_halves=_tree_halves(x_local.shape[0]))
+            tree_halves=_tree_halves(x_local.shape[0]),
+            two_shot=x_local.shape[0] % n == 0)
     if method == AllReduceMethod.XLA:
         return group_psum(x_local, axis=axis, num_ranks=n)
     if method == AllReduceMethod.TREE:
-        raise CollectiveUnsupportedError(
-            "AllReduce method 'tree' (the double binary tree, "
-            "ops/allreduce.py:169 _ar_tree_kernel) is not ported yet; AUTO "
-            f"chose it for {x_local.numel() * x_local.element_size()} bytes "
-            f"at n = {n} — pin method='one_shot' or 'two_shot'")
+        return _tree(x_local, n, ctx, rank)
     if method == AllReduceMethod.TWO_SHOT:
         m = x_local.shape[0]
         if m % n:

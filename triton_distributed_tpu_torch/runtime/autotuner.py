@@ -1,5 +1,5 @@
-"""Contextual autotuner — the GEMM half of the JAX package's
-``runtime/autotuner.py``.
+"""Contextual autotuner — the GEMM and communication halves of the JAX
+package's ``runtime/autotuner.py``.
 
 ``contextual_autotune`` times each candidate config of a whole op (built
 by ``build(cfg)``) on real inputs, keeps the fastest, and caches the
@@ -22,6 +22,14 @@ for a CUDA device unless ``TDTPU_AUTOTUNE=0`` (:func:`autotune_enabled`),
 and returns None off the card or when every candidate fails, so the op
 launches at its static tiles. :func:`last_tune_report` gives the report of
 the last measurement (None after a cache hit).
+
+Communication tuning measures whole thunks, collectives included, on the
+rank group (the reference's ``contextual_autotune(is_dist=True)``); it is
+opt-in (``TDTPU_AUTOTUNE_COMM=1``, :func:`comm_autotune_enabled`) and
+cached by shape, rank count and card: :func:`tuned_gemm_ar_path` races
+the decode step's row-parallel projection as dot + parity AR, the fused
+GEMM+AR kernel B11 and the plain sum; :func:`tune_ag_gemm` picks the
+AG+GEMM's sub-block depth with the real AG in the loop.
 """
 
 from __future__ import annotations
@@ -211,4 +219,115 @@ def tuned_matmul_tiles(m: int, k: int, ncols: int, dtype, *, b_dtype=None,
         _last_report[report_key] = None
         return None
     _last_report[report_key] = report
+    return best
+
+
+def comm_autotune_enabled(device=None) -> bool:
+    """Comm-side tuning (whole thunks, collectives included) is opt-in:
+    ``TDTPU_AUTOTUNE_COMM=1``, and only where tuning is on at all
+    (:func:`autotune_enabled`). Its numbers hold only for the rank group
+    and card they ran on (the cache key carries both)."""
+    return (os.environ.get("TDTPU_AUTOTUNE_COMM", "") == "1"
+            and autotune_enabled(device))
+
+
+def _device_name(ctx) -> str:
+    d = ctx.devices[0]
+    return torch.cuda.get_device_name(d) if d.type == "cuda" else "cpu"
+
+
+def tuned_gemm_ar_path(m: int, k_local: int, ncols: int, dtype, ctx,
+                       axis: str = "tp") -> str | None:
+    """The measured path of the decode step's row-parallel projection
+    (x (m, k_local) @ w, reduced over ``axis``): ``"dot_ar"`` (the
+    product, then the parity-stream AR), ``"fused"`` (the GEMM+AR kernel
+    B11) or ``"xla"`` (the product, then the rank group's plain sum; n >
+    1 only), each timed as a whole call on every rank with its real
+    collective (the 0-peer loopback at n = 1) and cached by (shape, n,
+    card). None when comm tuning is off: callers keep dot + parity AR."""
+    if not comm_autotune_enabled(ctx.devices[0]):
+        return None
+    from triton_distributed_tpu_torch.ops.allreduce import (
+        all_reduce_stream, ar_stream_workspace,
+    )
+    from triton_distributed_tpu_torch.ops.gemm_allreduce import (
+        gemm_ar_stream, gemm_ar_stream_workspace,
+    )
+    from triton_distributed_tpu_torch.runtime.context import group_psum
+
+    n = ctx.axis_size(axis)
+    force = n == 1
+    cands = ["dot_ar", "fused"] + (["xla"] if n > 1 else [])
+    key = (m, k_local, ncols, str(dtype), n, _device_name(ctx))
+    g = torch.Generator().manual_seed(0)
+    xs = [(torch.randn((m, k_local), generator=g) * 0.1).to(dtype).to(d)
+          for d in ctx.devices]
+    ws_ = [(torch.randn((k_local, ncols), generator=g) * 0.05).to(dtype)
+           .to(d) for d in ctx.devices]
+
+    def build(c):
+        tag = f"tune-gemm-ar-{c}-{m}-{k_local}-{ncols}"
+        if c == "fused":
+            state = list(gemm_ar_stream_workspace(n, m, ncols, dtype,
+                                                  ctx=ctx, tag=tag))
+        elif c == "dot_ar":
+            state = list(ar_stream_workspace(n, m, ncols, dtype, ctx=ctx,
+                                             tag=tag))
+        idx = [None] * n
+
+        def one(r):
+            if c == "xla":
+                return group_psum(xs[r] @ ws_[r], axis=axis, num_ranks=n)
+            i = state[1] if idx[r] is None else idx[r]
+            if c == "fused":
+                out, _, idx[r] = gemm_ar_stream(
+                    xs[r], ws_[r], state[0], i, axis=axis, num_ranks=n,
+                    force_kernel=force)
+            else:
+                out, _, idx[r] = all_reduce_stream(
+                    xs[r] @ ws_[r], state[0], i, axis=axis, num_ranks=n,
+                    force_kernel=force)
+            return out
+
+        def call():
+            outs = ctx.run(one)
+            ctx.raise_on_comm_error()
+            return outs[0]
+
+        return call
+
+    try:
+        best, _ = contextual_autotune("gemm_ar_path", key, cands, build, ())
+    except RuntimeError:
+        return None
+    return best
+
+
+def tune_ag_gemm(xs, bs, ctx, axis: str = "tp"):
+    """The AG+GEMM's config measured with the real AG in the loop: the
+    sub-block depths 1, 2 and 4 (the CUDA kernel picks its own tile),
+    timed as a whole call on every rank and cached by (shapes, type, n,
+    card). ``xs`` / ``bs``: the ranks' A and B shards. None when every
+    candidate fails."""
+    from triton_distributed_tpu_torch.ops.allgather_gemm import (
+        AGGemmConfig, ag_gemm_local,
+    )
+
+    n = ctx.axis_size(axis)
+    key = (tuple(xs[0].shape), tuple(bs[0].shape), str(xs[0].dtype), n,
+           _device_name(ctx))
+    cands = [AGGemmConfig(sub_chunks=s) for s in (1, 2, 4)]
+
+    def build(cfg):
+        def call():
+            outs = ctx.run(lambda r: ag_gemm_local(
+                xs[r], bs[r], axis=axis, num_ranks=n, cfg=cfg))
+            ctx.raise_on_comm_error()
+            return outs[0]
+        return call
+
+    try:
+        best, _ = contextual_autotune("ag_gemm", key, cands, build, ())
+    except RuntimeError:
+        return None
     return best

@@ -35,9 +35,10 @@ returns, and :meth:`DistContext.raise_on_comm_error` — called where the
 caller already synchronises, at step end — raises the same error.
 
 XLA-level collectives of the JAX package (the logits' ``all_gather``,
-``psum`` in the ``xla_rep`` mode) are plain tensor copies through the
-group here (:func:`group_all_gather`, :func:`group_psum`), just as plain
-matmuls stay ``torch.matmul``.
+``psum`` in the ``xla_rep`` mode, ``all_gather`` and ``psum_scatter`` in
+the row-sharded ``xla`` mode) are plain tensor copies through the group
+here (:func:`group_all_gather`, :func:`group_psum`,
+:func:`group_psum_scatter`), just as plain matmuls stay ``torch.matmul``.
 """
 
 from __future__ import annotations
@@ -537,3 +538,19 @@ def group_psum(x: torch.Tensor, *, axis: str = "tp",
     for p in parts[1:]:
         acc = acc + p.to(x.device)
     return acc
+
+
+def group_psum_scatter(x: torch.Tensor, *, axis: str = "tp",
+                       num_ranks: int | None = None) -> torch.Tensor:
+    """Plain reduce-scatter through the rank group (the JAX package's
+    ``jax.lax.psum_scatter(..., scatter_dimension=0, tiled=True)``): the
+    ranks' ``x`` summed as :func:`group_psum` sums them, and this rank's
+    1/n of the rows."""
+    ctx, rank = current_rank()
+    n = _check_axis(ctx, axis, num_ranks)
+    if x.shape[0] % n:
+        raise ValueError(f"psum_scatter: rows {x.shape[0]} not divisible by "
+                         f"num_ranks {n}")
+    rows = x.shape[0] // n
+    return group_psum(x, axis=axis, num_ranks=n)[rank * rows:
+                                                 (rank + 1) * rows]

@@ -30,10 +30,11 @@ import torch
 
 from triton_distributed_tpu_torch.runtime.context import DistContext
 
-# 64-bit flags a rank's signal pad holds: room for the widest kernel's
-# barrier (blocks x ranks) plus its step flags (blocks x steps x ranks) at
-# 8 blocks, 8 steps and 8 ranks.
-SIGNAL_WORDS = 8 * 8 + 8 * 8 * 8
+# 64-bit flags a rank's signal pad holds (csrc/dist.cuh kSignalWords): the
+# collectives' barrier and step flags (8 blocks, 8 steps, 8 ranks), or the
+# fused GEMM kernels' barrier (128 blocks x 8 ranks) and data flags (up to
+# 8 ranks x 4 sub-blocks x 128 blocks).
+SIGNAL_WORDS = 8192
 
 
 @dataclasses.dataclass
