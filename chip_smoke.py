@@ -96,7 +96,7 @@ printing one JSON line:
    AR payload the serving path runs; K1/K2 at one rank's TP=4 heads.
    ``tp_serving`` — Qwen3-8B at full width and depth, bf16, through
    ``ServingEngine(Engine(cfg, params, ctx of 4 ranks, page_size=16),
-   max_batch=4, prefill_chunk=256)`` over the six prompts x 32 tokens,
+   max_batch=4, prefill_chunk=256)`` over the six prompts x 16 tokens,
    every kernel's launches as the path predicts (72 parity ARs a rank a
    decode step, a two-shot per reduction of a slice), the decode window;
    then ``spec_k=3`` (its verify steps take the one-shot). ``tp_parity`` —
@@ -115,13 +115,34 @@ printing one JSON line:
    straggler; a lost peer's ``CommTimeoutError`` for B9 and B11.
    ``tp_engine`` — Qwen3-8B, bf16, ``Engine(cfg, params, ctx of 4 ranks,
    max_seq=2048).serve`` with the reference's defaults: a 2 x 1024 prompt
-   for 64 tokens (prefill "overlap": B9 180 and B10 72 launches a rank;
+   for 24 tokens (prefill "overlap": B9 180 and B10 72 launches a rank;
    linear decode: 72 parity ARs a rank a step), again under
    ``TDTPU_GEMM_AR=1`` (72 B11 a step), then a 1 x 203 prompt whose "ar"
    prefill reduces through the tree (72 a rank); TP=1's serve in the same
    call. ``tp_engine_parity`` — float32, 2 layers: TP=4 ``Engine.serve``
    tokens identical to TP=1's with the defaults, ``TDTPU_GEMM_AR=1``, the
    tree prompt and ``backend="xla"``; every rank's logits bit-identical.
+12. MoE over ranks: ``collectives_a2a`` — the AllToAll of
+   ``csrc/all_to_all.cu`` (B8: the barrier form and the parity stream)
+   and the all-gather's full-mesh push (B4, ``csrc/collectives.cu``) at
+   n = 2, 4 and 8, fp32, bf16 and e4m3, with empty, ragged and full slots,
+   bit-identical to their plain versions on every rank, each timed at its
+   main-path shape; 200 parity calls with a rotating straggler; a lost and
+   a held-back peer raising ``CommTimeoutError``. After ``moe_engine`` and
+   ``moe_serving`` on the same Qwen3-30B-A3B weights: ``ep_moe`` — the EP
+   layer on 4 virtual ranks (32 experts a rank, dim-0 views): 4 tokens a
+   rank through all 48 layers for 8 steps on the parity stream, 512
+   tokens a rank through the barrier form, each layer held against the
+   one-rank form, then fp32 at 2 layers; ``tp_moe_engine`` — TP=1's
+   ``Engine.serve`` of a 2 x 1024 prompt for 16 tokens, then the weights
+   sharded over 4 virtual ranks leaf by leaf (never held twice) and the TP
+   engine's serve with the defaults (the prefill's B9 / B10 / ring RS and
+   the decode's parity AR counted exactly), its decode profile, and the
+   sequential "overlap" TP-MoE layer at n = 2 through the full-mesh push;
+   ``tp_moe_serving`` — ServingEngine on those shards, 4 prompts x 8
+   tokens and a 4-step decode window; last ``tp_moe_parity`` — float32, 2
+   layers: TP=4 tokens identical to TP=1's in ``Engine.serve`` (defaults,
+   ``backend="xla"``) and ``ServingEngine`` (a preemption, ``spec_k=3``).
 
 Then the kernel summary line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failed phase raises: exit code 1
@@ -2404,17 +2425,17 @@ def run_serving(torch, se, kernels, prompts, gen, *, lane: str,
 
 
 def phase_serving(torch, eng, kernels, ServingEngine, *, name="serving",
-                  prompts, **kw) -> dict:
+                  prompts, gen: int = 32, **kw) -> dict:
     """The eager lane on ``eng`` (page 16): ``ServingEngine(max_batch=4,
-    prefill_chunk=256, **kw)`` over ``prompts`` (32 new tokens each), then
-    the decode-only window."""
+    prefill_chunk=256, **kw)`` over ``prompts`` (``gen`` new tokens each),
+    then the decode-only window."""
     from triton_distributed_tpu_torch.serving import loop
 
     torch.cuda.reset_peak_memory_stats()
     se = ServingEngine(eng, max_batch=4, prefill_chunk=256, **kw)
     variants = ({"paged_attention": "e4m3"} if eng.kv_dtype is not None
                 else {})
-    rec = {"phase": name, **run_serving(torch, se, kernels, prompts, 32,
+    rec = {"phase": name, **run_serving(torch, se, kernels, prompts, gen,
                                         lane="eager", variants=variants)}
     rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
     if se.spec_k:
@@ -2711,8 +2732,10 @@ def phase_moe_engine(torch, kernels, Engine, ServingEngine, cfg, prompts):
     random weights): ``Engine.serve`` of 2 x 1024-token prompts for 32 new
     tokens (K1 once per layer, K2 once per layer and decode step, no plain
     version; prefill ms, decode ms/step, tokens/s, peak memory, the decode
-    profile), then ``ServingEngine`` (page 16) over the serving phases'
-    six prompts and its decode-only window. Returns the two records."""
+    profile; one timed serve), then ``ServingEngine`` (page 16) over the
+    serving phases' six prompts x 16 tokens and its decode-only window.
+    Returns the two records and the parameters (the EP and TP phases run
+    on them)."""
     from triton_distributed_tpu_torch.models.dense import init_dense_llm
 
     torch.cuda.reset_peak_memory_stats()
@@ -2722,14 +2745,14 @@ def phase_moe_engine(torch, kernels, Engine, ServingEngine, cfg, prompts):
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     eng = Engine(cfg, params, max_seq=2048, page_size=16)
-    rec = phase_engine(torch, eng, kernels[:2], gen=32)
+    rec = phase_engine(torch, eng, kernels[:2], gen=32, reps=1)
     rec.update(phase="moe_engine", model="Qwen3-30B-A3B", init_s=init_s,
                params_gb=sum(t.numel() * t.element_size() for t in
                              _leaves(params)) / 1e9)
     serving = phase_serving(torch, eng, kernels, ServingEngine,
-                            name="moe_serving", prompts=prompts)
+                            name="moe_serving", prompts=prompts, gen=16)
     serving["model"] = "Qwen3-30B-A3B"
-    return rec, serving
+    return rec, serving, params
 
 
 def _leaves(tree):
@@ -3050,6 +3073,10 @@ COLL_RANKS = (2, 4, 8)
 COLL_ROWS = (4, 16, 64, 256, 2048)
 COLL_COLS = 4096
 TP = 4                     # the TP group of the serving phases
+# New tokens of the TP serving and engine runs (cut from 32 and 64 to keep
+# the whole run inside its time limit as the MoE phases came in).
+TP_GEN = 16
+TP_ENGINE_GEN = 24
 PARITY_CALLS = 200
 # The collectives' main-path shapes (n = 4, bf16, rows): decode's parity
 # AR over 4 slots, the verify step's one-shot over 4 x 4 rows, a 256-row
@@ -3362,17 +3389,27 @@ def _coll_counts(comm) -> dict:
             "allreduce_tree": comm.TREE_KERNEL.launches}
 
 
-def tp_drive(torch, se, kernels, prompts, gen, *, name) -> dict:
+def tp_drive(torch, se, kernels, prompts, gen, *, name,
+             slice_ar: str) -> dict:
     """Drive a TP ServingEngine with every count at 0 just before and read
     just after; fail unless every request finished and each kernel ran
     as often as the path predicts, per rank: K1 L per prefill slice, K2 L
-    per decode or verify step, a two-shot (RS + AG) per reduction of a
-    slice (2 L), the parity AR per reduction of a one-token step (2 L:
-    72 at 36 layers), the one-shot per reduction of a verify step; no
-    plain version."""
+    per decode or verify step, per reduction of a slice (2 L) the AR
+    ``slice_ar`` the caller names for its payload ("two_shot", RS + AG,
+    for Qwen3-8B's 2 MB slice; "one_shot" for Qwen3-30B-A3B's 1 MB) —
+    AUTO must pick the same —, the parity AR per reduction of a one-token
+    step (2 L: 72 at 36 layers), the one-shot per reduction of a verify
+    step; no plain version."""
     from triton_distributed_tpu_torch.serving import RequestState
 
-    comm = coll_modules()[0]
+    comm, ar = coll_modules()[:2]
+    item = torch.empty((), dtype=getattr(torch, se.cfg.dtype)).element_size()
+    auto = ar.get_auto_allreduce_method(
+        se.chunk * se.cfg.hidden_size * item, se.engine.n,
+        tree_halves=ar._tree_halves(se.chunk),
+        two_shot=se.chunk % se.engine.n == 0).value
+    check(auto == slice_ar,
+          f"{name}: AUTO picks {auto} for a slice, the path {slice_ar}")
     allk = list(kernels) + list(comm.COLLECTIVE_KERNELS)
     n, L = se.engine.n, se.cfg.num_layers
     torch.cuda.synchronize()
@@ -3387,15 +3424,16 @@ def tp_drive(torch, se, kernels, prompts, gen, *, name) -> dict:
           f"{name}: K1 launched {flash.launches}, expected {n * L * slices}")
     check(paged.launches == n * L * steps,
           f"{name}: K2 launched {paged.launches}, expected {n * L * steps}")
-    check(c["reduce_scatter_ring"] == c["allgather_ring"]
-          == 2 * n * L * slices,
-          f"{name}: {c} for {slices} slices (a two-shot per reduction)")
-    verify = c["allreduce_one_shot"] // (2 * n * L)
-    check(c["allreduce_parity"] + c["allreduce_one_shot"]
-          == 2 * n * L * steps and c["allreduce_one_shot"] % (2 * n * L) == 0,
-          f"{name}: {c} for {steps} decode steps")
+    pairs = 2 * n * L * slices if slice_ar == "two_shot" else 0
+    check(c["reduce_scatter_ring"] == c["allgather_ring"] == pairs,
+          f"{name}: {c} for {slices} slices ({slice_ar} per reduction)")
+    one_shot = c["allreduce_one_shot"] - (2 * n * L * slices - pairs)
+    verify = one_shot // (2 * n * L)
+    check(c["allreduce_parity"] + one_shot == 2 * n * L * steps
+          and one_shot % (2 * n * L) == 0,
+          f"{name}: {c} for {steps} decode steps and {slices} slices")
     if not se.spec_k:
-        check(c["allreduce_one_shot"] == 0, f"{name}: one-shot off spec")
+        check(one_shot == 0, f"{name}: one-shot off spec")
     check(all(k.plain_calls == 0 for k in allk) and mega.launches == 0,
           f"{name}: a plain version (or the megakernel) ran")
     ttft = [r.ttft_s * 1e3 for r in reqs]
@@ -3424,7 +3462,7 @@ def phase_tp_serving(torch, params, cfg, Engine, ServingEngine, kernels,
                      prompts, phrases) -> dict:
     """Qwen3-8B at full width and depth, bf16, on a TP group of 4 virtual
     ranks on cuda:0: ServingEngine(max_batch=4, prefill_chunk=256, page
-    16) over the six prompts x 32 tokens, launch counts as the path
+    16) over the six prompts x 16 tokens, launch counts as the path
     predicts, the decode-only window's step wall and busy share; then a
     spec_k=3 run over phrase prompts (its verify steps reduce through the
     one-shot AR)."""
@@ -3442,14 +3480,15 @@ def phase_tp_serving(torch, params, cfg, Engine, ServingEngine, kernels,
            "dtype": cfg.dtype, "shard_s": shard_s,
            "note": "4 ranks share one card's SMs and HBM: these times say "
                    "nothing of four cards"}
-    rec["serve"] = tp_drive(torch, se, kernels, prompts, 32, name="tp_serving")
+    rec["serve"] = tp_drive(torch, se, kernels, prompts, TP_GEN,
+                            name="tp_serving", slice_ar="two_shot")
     del se
     se = ServingEngine(eng, max_batch=4, prefill_chunk=256)
     rec["decode_window"] = decode_window(torch, se, eng, "decode")
     del se
     se = ServingEngine(eng, max_batch=4, prefill_chunk=256, spec_k=SPEC_K)
-    rec["spec"] = tp_drive(torch, se, kernels, phrases, 32,
-                           name="tp_spec_serving")
+    rec["spec"] = tp_drive(torch, se, kernels, phrases, TP_GEN,
+                           name="tp_spec_serving", slice_ar="two_shot")
     check(rec["spec"]["launches"]["allreduce_one_shot"] > 0,
           "tp_spec_serving: no verify step ran the one-shot AR")
     del se, eng
@@ -4001,7 +4040,11 @@ def fused_main_case(rec, op, which) -> dict:
 def _tp_counts(comm) -> dict:
     return {"ag_gemm": comm.AG_GEMM_KERNEL.launches,
             "gemm_rs": comm.GEMM_RS_KERNEL.launches,
-            "gemm_ar": comm.GEMM_AR_KERNEL.launches, **_coll_counts(comm)}
+            "gemm_ar": comm.GEMM_AR_KERNEL.launches,
+            "ag_full_mesh": comm.AG_FULL_MESH_KERNEL.launches,
+            "a2a": comm.A2A_KERNEL.launches,
+            "a2a_parity": comm.A2A_PARITY_KERNEL.launches,
+            **_coll_counts(comm)}
 
 
 def tp_engine_run(torch, eng, kernels, ids, gen, *, name, expect,
@@ -4050,19 +4093,19 @@ def tp_engine_run(torch, eng, kernels, ids, gen, *, name, expect,
     return rec
 
 
-def tp_profile(torch, eng, ids) -> dict:
+def tp_profile(torch, eng, ids, steps: int = 4) -> dict:
     """``profile_decode`` of the TP engine's linear decode steps after a
     prefill of ``ids``: each step's wall against its enqueue, and every
     rank's device time a step by kernel."""
     logits, caches = eng.prefill(ids)
     return profile_decode(torch, eng, logits.argmax(-1).to(torch.int32),
-                          caches)
+                          caches, steps=steps)
 
 
 def phase_tp_engine(torch, params, cfg, Engine, kernels) -> dict:
     """Qwen3-8B at full width and depth, bf16, ``Engine(cfg, params, ctx of
     4 virtual ranks, max_seq=2048).serve`` with the reference's defaults
-    (backend "auto", no page size): a 2 x 1024 prompt for 64 tokens — the
+    (backend "auto", no page size): a 2 x 1024 prompt for 24 tokens — the
     prefill in mode "overlap" (B9 5 a layer, B10 2 a layer), the linear
     decode's reductions through the parity AR (2 a layer) —, again under
     TDTPU_GEMM_AR=1 (B11 in place of the parity AR), then a 1 x 203
@@ -4092,14 +4135,15 @@ def phase_tp_engine(torch, params, cfg, Engine, kernels) -> dict:
     try:
         eng.serve(ids[:, :64], 2)                                # warm-up
         defaults = tp_engine_run(
-            torch, eng, kernels, ids, 64, name="tp_engine",
+            torch, eng, kernels, ids, TP_ENGINE_GEN, name="tp_engine",
             expect={"ag_gemm": (5 * L, 0), "gemm_rs": (2 * L, 0),
                     "allreduce_parity": (0, 2 * L)})
         defaults["decode_profile"] = tp_profile(torch, eng, ids)
         rec["defaults"] = defaults
         os.environ["TDTPU_GEMM_AR"] = "1"
         fused = tp_engine_run(
-            torch, eng, kernels, ids, 64, name="tp_engine_gemm_ar",
+            torch, eng, kernels, ids, TP_ENGINE_GEN,
+            name="tp_engine_gemm_ar",
             expect={"ag_gemm": (5 * L, 0), "gemm_rs": (2 * L, 0),
                     "gemm_ar": (0, 2 * L)})
         fused["decode_profile"] = tp_profile(torch, eng, ids)
@@ -4120,10 +4164,10 @@ def phase_tp_engine(torch, params, cfg, Engine, kernels) -> dict:
     one.serve(ids[:, :64], 2)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    tp1 = one.serve(ids, 64)
+    tp1 = one.serve(ids, TP_ENGINE_GEN)
     torch.cuda.synchronize()
     rec["tp1_serve_s"] = time.perf_counter() - t0
-    rec["tp1_tokens_per_s"] = 2 * 64 / rec["tp1_serve_s"]
+    rec["tp1_tokens_per_s"] = 2 * TP_ENGINE_GEN / rec["tp1_serve_s"]
     for k in ("defaults", "gemm_ar", "tree"):
         toks = rec[k].pop("tokens")
         want = tp1 if k != "tree" else one.serve(tree_ids, 8)
@@ -4247,6 +4291,758 @@ def phase_tp_engine_parity(torch, QWEN3_8B, init_dense_llm, Engine, kernels,
     return result
 
 
+# ---------------------------------------------------------------------------
+# MoE over ranks: B4's full-mesh push, B8's AllToAll (both forms), the EP
+# layer, and Qwen3-30B-A3B on a TP group of 4 virtual ranks.
+# ---------------------------------------------------------------------------
+
+A2A_RANKS = (2, 4, 8)
+A2A_H = 2048                  # Qwen3-30B-A3B's hidden
+A2A_EPR = 4                   # experts a rank in the synthetic cases
+A2A_EXPERTS, A2A_TOPK = 128, 8  # Qwen3-30B-A3B's routing, for the main cases
+A2A_CAPS = (32, 256)
+# Main-path shapes (bf16, h 2048): the EP decode's 4 tokens a rank x top-8
+# on 4 ranks (cap 32, the parity form), the EP prefill's 512 tokens a rank
+# (cap 4096, the barrier form), and the sequential "overlap" TP-MoE's 2 x
+# 1024 prefill at n = 2 (1024 rows a rank, the full-mesh push).
+A2A_MAIN = {"a2a": 4096, "a2a_parity": 32}
+AG_MESH_ROWS = (4, 64, 1024)
+AG_MESH_MAIN = 1024
+A2A_CALLS = 200
+EP_RANKS = 4
+EP_DECODE_TOKENS = 4
+EP_STEPS = 8
+EP_PREFILL_TOKENS = 512
+# bf16 EP-MoE against the one-rank form on the same tokens: the expert
+# products are the same rows, the top-k combine a sum in another order
+# (one bf16 rounding of outputs of magnitude ~1).
+EP_TOL = {"bfloat16": dict(atol=2.0 ** -5, rtol=2.0 ** -5),
+          "float32": dict(atol=1e-5, rtol=1e-5)}
+
+
+def _bits(torch, t):
+    """A tensor's bytes, for bit-for-bit comparison in any type."""
+    return t.contiguous().view(torch.uint8)
+
+
+def a2a_modules():
+    import importlib
+
+    return (importlib.import_module("triton_distributed_tpu_torch.ops._comm"),
+            importlib.import_module(
+                "triton_distributed_tpu_torch.ops.all_to_all"),
+            importlib.import_module(
+                "triton_distributed_tpu_torch.ops.allgather"),
+            importlib.import_module(
+                "triton_distributed_tpu_torch.runtime.context"))
+
+
+def a2a_inputs(torch, n: int, cap: int, dtype, kind: str, seed: int):
+    """The n ranks' send slots S (n, n, cap, h) — [d, p] rank d's rows for
+    rank p — and splits (n, n, epr) int32, on the card. ``kind``: "empty"
+    (one live row in the call), "ragged" (counts off every block edge),
+    "full" (every slot full), "main" (the EP layer's dispatch: cap / 8
+    tokens a rank, each routed to 8 distinct experts of 128 drawn
+    uniformly, so epr = 128 / n and a slot holds what its experts got)."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    epr = A2A_EPR
+    if kind == "main":
+        epr = A2A_EXPERTS // n
+        scores = torch.rand((n, cap // A2A_TOPK, A2A_EXPERTS), generator=g)
+        ids = scores.topk(A2A_TOPK, dim=-1).indices.reshape(n, -1)
+        splits = torch.stack([torch.bincount(i, minlength=A2A_EXPERTS)
+                              for i in ids]).reshape(n, n, epr)
+        splits = splits.to(torch.int32)
+    elif kind == "empty":
+        splits = torch.zeros((n, n, epr), dtype=torch.int32)
+        splits[0, 1 % n, 0] = 1
+    elif kind == "full":
+        splits = torch.zeros((n, n, epr), dtype=torch.int32)
+        splits[..., 0] = cap
+    elif kind == "ragged":
+        splits = torch.randint(0, cap // epr + 1, (n, n, epr), generator=g,
+                               dtype=torch.int32)
+        splits[..., -1] = torch.clamp(splits[..., -1] - 3, min=0)
+    S = (torch.randn((n, n, cap, A2A_H), generator=torch.Generator(
+        device="cuda").manual_seed(seed), device="cuda") * 4).to(dtype)
+    return S, splits.cuda()
+
+
+def _token_rows(splits, cap: int) -> int:
+    """The rows the splits hold, every slot's count at most ``cap``."""
+    return int(splits.sum(-1).clamp(max=cap).sum().item())
+
+
+def _a2a_bytes(S, splits) -> int:
+    """What an AllToAll of these counts must move: each slot's rows and
+    the splits, read once and written once (the kernel's rounding up to
+    whole blocks is its own choice, not work the function needs)."""
+    cap, h = S.shape[2], S.shape[3]
+    return 2 * (_token_rows(splits, cap) * h * S.element_size()
+                + splits.numel() * splits.element_size())
+
+
+def a2a_case(torch, timer, ctx, form: str, dtype, cap: int, kind: str,
+             seed: int, time_it: bool) -> dict:
+    """One AllToAll on every rank of ``ctx`` (the barrier form "a2a" or the
+    parity stream "a2a_parity", two calls so both parities run) against
+    ``a2a_plain``: live rows and splits bit for bit on every rank."""
+    _, a2a, _, _ = a2a_modules()
+    n = ctx.num_ranks
+    S, spl = a2a_inputs(torch, n, cap, dtype, kind, seed)
+    block = a2a.default_block_rows(dtype)
+    sends = [S[r].to(ctx.devices[r]) for r in range(n)]
+    splits = [spl[r].to(ctx.devices[r]) for r in range(n)]
+    if form == "a2a":
+        def fn(r):
+            return a2a.fast_all_to_all_local(sends[r], splits[r],
+                                             num_ranks=n)
+    else:
+        ws, _ = a2a.a2a_stream_workspace(n, cap, A2A_H, dtype, ctx=ctx,
+                                         tag=f"smoke-{kind}-{seed}")
+        idx = list(ws.epochs)
+
+        def fn(r):
+            out, rs, _, idx[r] = a2a.fast_all_to_all_stream(
+                sends[r], splits[r], ws, idx[r], num_ranks=n)
+            return out, rs
+    want, want_rs = a2a.a2a_plain(S, spl, block)
+    bad = []
+    for call in range(1 if form == "a2a" else 2):
+        got = ctx.run(fn)
+        torch.cuda.synchronize()
+        ctx.raise_on_comm_error()
+        for d, (out, rs) in enumerate(got):
+            if not torch.equal(rs.to(spl.device), want_rs[d]):
+                bad.append(f"call {call} rank {d} splits")
+            rows = a2a.live_rows(want_rs[d], cap, block)
+            for p in range(n):
+                if not torch.equal(_bits(torch, out[p, :rows[p]].to(S.device)),
+                                   _bits(torch, want[d, p, :rows[p]])):
+                    bad.append(f"call {call} recv[{d},{p}]")
+    rec = {"case": f"{form}_n{n}_{_dtype_name(dtype)}_cap{cap}_{kind}",
+           "form": form, "n": n, "dtype": _dtype_name(dtype), "cap": cap,
+           "hidden": A2A_H, "kind": kind, "block": block,
+           "epr": spl.shape[-1], "token_rows": _token_rows(spl, cap),
+           "moved_rows": sum(sum(a2a.live_rows(spl[d], cap, block))
+                             for d in range(n)),
+           "max_abs_err": 0.0 if not bad else float("nan"),
+           "bit_identical": not bad, "wrong": bad[:8], "ok": not bad}
+    if time_it:
+        rec["bound_ms"], rec["bound_by"] = _bound_ms(_a2a_bytes(S, spl), 0,
+                                                     "float32")
+        rec["bound_note"] = ("every slot's token rows (its splits' sum) and "
+                             "the splits, read once and written once, every "
+                             "rank, through one card's HBM at 3.35 TB/s")
+        rec["ms"], rec["host_ms_per_call"] = _coll_ms(torch, ctx, fn, 20)
+        rec["plain_ms"] = timer.ms(lambda: a2a.a2a_plain(S, spl, block))
+        rec["library_ms"] = timer.ms(lambda: S.transpose(0, 1).contiguous())
+        rec["library_call"] = ("S.transpose(0, 1).contiguous() of the "
+                               "(n, n, cap, h) slot matrix (every row)")
+    return rec
+
+
+def ag_mesh_case(torch, timer, ctx, dtype, rows: int, seed: int,
+                 time_it: bool) -> dict:
+    """B4's full-mesh push on every rank against ``ag_plain``, bit for
+    bit. ``rows``: one rank's input rows (x A2A_H columns)."""
+    _, _, ag, _ = a2a_modules()
+    n = ctx.num_ranks
+    X = (torch.randn((n, rows, A2A_H), generator=torch.Generator(
+        device="cuda").manual_seed(seed), device="cuda") * 4).to(dtype)
+    xs = [X[r].to(ctx.devices[r]) for r in range(n)]
+
+    def fn(r):
+        return ag.all_gather_local(xs[r], num_ranks=n,
+                                   method="full_mesh_push")
+
+    got = ctx.run(fn)
+    torch.cuda.synchronize()
+    ctx.raise_on_comm_error()
+    want = ag.ag_plain(list(X))
+    same = all(torch.equal(_bits(torch, o.to(X.device)), _bits(torch, want))
+               for o in got)
+    rec = {"case": f"ag_full_mesh_n{n}_{_dtype_name(dtype)}_{rows}",
+           "n": n, "dtype": _dtype_name(dtype), "rows": rows,
+           "cols": A2A_H, "max_abs_err": 0.0 if same else float("nan"),
+           "bit_identical": same, "ok": same}
+    if time_it:
+        B = rows * A2A_H * X.element_size()
+        rec["bound_ms"], rec["bound_by"] = _bound_ms(n * (B + n * B), 0,
+                                                     "float32")
+        rec["bound_note"] = ("every rank reads its chunk and writes the n "
+                             "gathered chunks, through one card's HBM")
+        rec["ms"], rec["host_ms_per_call"] = _coll_ms(torch, ctx, fn, 20)
+        rec["plain_ms"] = timer.ms(lambda: ag.ag_plain(list(X)))
+        rec["library_ms"] = timer.ms(lambda: torch.cat(list(X)))
+        rec["library_call"] = "torch.cat (one gathered copy)"
+    return rec
+
+
+def a2a_stress(torch, ctx, dtype, cap: int, calls: int) -> dict:
+    """``calls`` parity AllToAlls on every rank over one workspace, new
+    data and new counts every call (empty slots among them), a rotating
+    rank held back 50 us on every third: every call's live rows and
+    splits equal to the plain version's."""
+    _, a2a, _, _ = a2a_modules()
+    n = ctx.num_ranks
+    block = a2a.default_block_rows(dtype)
+    g = torch.Generator(device="cpu").manual_seed(91)
+    spl = torch.randint(0, cap // A2A_EPR + 1, (calls, n, n, A2A_EPR),
+                        generator=g, dtype=torch.int32)
+    spl[::5, 0] = 0                                 # a silent rank
+    X = (torch.randn((calls, n, n, cap, A2A_H), device="cuda",
+                     generator=torch.Generator(device="cuda").manual_seed(92))
+         ).to(dtype)
+    spl_d = spl.cuda()
+    ws, _ = a2a.a2a_stream_workspace(n, cap, A2A_H, dtype, ctx=ctx,
+                                     tag="stress")
+
+    def loop(r):
+        idx, outs = ws.epochs[r], []
+        xr = X[:, r].to(ctx.devices[r])
+        sr = spl_d[:, r].to(ctx.devices[r])
+        for t in range(calls):
+            strag = ("rotate", 50_000) if t % 3 == 0 else None
+            out, rs, _, idx = a2a.fast_all_to_all_stream(
+                xr[t], sr[t], ws, idx, num_ranks=n, straggler=strag)
+            outs.append((out.to(X.device), rs.to(X.device)))
+        return outs
+
+    got = ctx.run(loop)
+    torch.cuda.synchronize()
+    ctx.raise_on_comm_error()
+    bad = []
+    for t in range(calls):
+        want, want_rs = a2a.a2a_plain(X[t], spl_d[t], block)
+        for d in range(n):
+            out, rs = got[d][t]
+            rows = a2a.live_rows(want_rs[d], cap, block)
+            if not torch.equal(rs, want_rs[d]) or not all(
+                    torch.equal(_bits(torch, out[p, :rows[p]]),
+                                _bits(torch, want[d, p, :rows[p]]))
+                    for p in range(n)):
+                bad.append((t, d))
+    return {"calls": calls, "n": n, "cap": cap, "dtype": _dtype_name(dtype),
+            "straggler": "rotate, 50 us, every third call",
+            "calls_wrong": bad[:16], "ok": not bad}
+
+
+def a2a_one_rank(torch, ctx) -> dict:
+    """The parity stream on a group of one rank: without ``force_kernel``
+    it hands its input back and launches nothing; with it, three calls
+    (both parities) each launch the kernel once and return the live rows
+    and splits bit for bit."""
+    comm, a2a, _, _ = a2a_modules()
+    S, spl = a2a_inputs(torch, 1, 32, torch.bfloat16, "ragged", 470)
+    ws, idx = a2a.a2a_stream_workspace(1, 32, A2A_H, torch.bfloat16, ctx=ctx,
+                                       tag="smoke-one-rank")
+    block = a2a.default_block_rows(torch.bfloat16)
+    x, sp = S[0], spl[0]
+    before = comm.A2A_PARITY_KERNEL.launches
+
+    def call(force):
+        def fn(r):
+            return a2a.fast_all_to_all_stream(x, sp, ws, idx, num_ranks=1,
+                                              force_kernel=force)
+        return ctx.run(fn)[0]
+
+    out, rs, _, _ = call(False)         # leaves the workspace's index
+    same = out is x and torch.equal(rs, sp)
+    untouched = comm.A2A_PARITY_KERNEL.launches == before
+    for _ in range(3):
+        out, rs, _, idx = call(True)
+        torch.cuda.synchronize()
+        ctx.raise_on_comm_error()
+        rows = a2a.live_rows(sp, 32, block)[0]
+        same = (same and torch.equal(rs, sp)
+                and torch.equal(_bits(torch, out[0, :rows]),
+                                _bits(torch, x[0, :rows])))
+    launched = comm.A2A_PARITY_KERNEL.launches - before
+    return {"calls": 3, "launches": launched, "bit_identical": same,
+            "ok": same and untouched and launched == 3}
+
+
+def a2a_timeouts(torch, devices) -> dict:
+    """100 ms deadlines. A lost peer — rank n-1 never calls the barrier
+    form — leaves the others at the launch's host meeting: ``ctx.run``
+    raises CommTimeoutError. A peer held back 1 s on the device before
+    its parity call leaves the others' kernels spinning on its flags:
+    they time out and ``raise_on_comm_error`` raises."""
+    _, a2a, _, context = a2a_modules()
+    out = {}
+    for what in ("lost_peer", "held_back_peer"):
+        ctx = context.DistContext([torch.device(d) for d in devices],
+                                  wait_timeout_ms=100)
+        n = ctx.num_ranks
+        x = torch.ones((n, 32, A2A_H), device="cuda")
+        s = torch.full((n, A2A_EPR), 2, dtype=torch.int32, device="cuda")
+        ws, _ = a2a.a2a_stream_workspace(n, 32, A2A_H, torch.float32,
+                                         ctx=ctx, tag="timeout")
+        t0 = time.perf_counter()
+        raised = None
+        try:
+            if what == "lost_peer":
+                ctx.run(lambda r: None if r == n - 1 else
+                        a2a.fast_all_to_all_local(x.to(ctx.devices[r]),
+                                                  s.to(ctx.devices[r]),
+                                                  num_ranks=n))
+            else:
+                ctx.run(lambda r: a2a.fast_all_to_all_stream(
+                    x.to(ctx.devices[r]), s.to(ctx.devices[r]), ws, 0,
+                    num_ranks=n, straggler=(n - 1, 1_000_000_000)))
+            torch.cuda.synchronize()
+            ctx.raise_on_comm_error()
+        except context.CommTimeoutError as exc:
+            raised = str(exc)
+        torch.cuda.synchronize()
+        out[what] = {"raised": raised, "wall_s": time.perf_counter() - t0}
+        ctx.close()
+    return {"n": len(devices), "timeout_ms": 100, **out,
+            "ok": all(v["raised"] for v in out.values())}
+
+
+def phase_a2a(torch, timer, *, devices_for=virtual_devices,
+              ranks=A2A_RANKS, name="collectives_a2a") -> dict:
+    """B8's two kernels and B4's full-mesh push at n = 2, 4 and 8, fp32,
+    bf16 and e4m3, against their plain versions bit for bit: the
+    AllToAll with empty, ragged and full slots at caps 32 and 256 (h
+    2048), the full-mesh push at 4, 64 and 1024 rows a rank; each timed
+    at its main-path shape (n = 4 for B8, n = 2 for the push; bf16); 200
+    parity calls with a rotating straggler; a lost and a held-back peer
+    raising CommTimeoutError."""
+    _, _, _, context = a2a_modules()
+    e4m3 = torch.float8_e4m3fn
+    cases: dict = {"a2a": [], "a2a_parity": [], "ag_full_mesh": []}
+    seed = 400
+    stress = None
+    for n in ranks:
+        ctx = context.DistContext([torch.device(d) for d in devices_for(n)],
+                                  wait_timeout_ms=20_000)
+        for dtype in (torch.float32, torch.bfloat16, e4m3):
+            dn = _dtype_name(dtype)
+            for form in ("a2a", "a2a_parity"):
+                for cap in A2A_CAPS:
+                    for kind in ("empty", "ragged", "full"):
+                        seed += 1
+                        cases[form].append(a2a_case(
+                            torch, timer, ctx, form, dtype, cap, kind, seed,
+                            time_it=False))
+                if n == EP_RANKS and dn == "bfloat16":
+                    seed += 1
+                    cases[form].append(a2a_case(
+                        torch, timer, ctx, form, dtype, A2A_MAIN[form],
+                        "main", seed, time_it=True))
+            for rows in AG_MESH_ROWS:
+                seed += 1
+                cases["ag_full_mesh"].append(ag_mesh_case(
+                    torch, timer, ctx, dtype, rows, seed,
+                    time_it=(n == 2 and dn == "bfloat16"
+                             and rows == AG_MESH_MAIN)))
+        if n == EP_RANKS:
+            stress = a2a_stress(torch, ctx, torch.bfloat16, 32, A2A_CALLS)
+        ctx.close()
+        del ctx
+        torch.cuda.empty_cache()
+    tmo = a2a_timeouts(torch, devices_for(EP_RANKS))
+    ctx = context.DistContext([torch.device(devices_for(1)[0])],
+                              wait_timeout_ms=20_000)
+    one = a2a_one_rank(torch, ctx)
+    ctx.close()
+    bad = [c["case"] for cs in cases.values() for c in cs if not c["ok"]]
+    check(not bad, f"{name}: disagree with their plain versions: {bad}")
+    check(one["ok"], f"{name}: the parity stream at n = 1: {one}")
+    check(stress is not None and stress["ok"],
+          f"{name}: parity stress wrong at {stress and stress['calls_wrong']}")
+    check(tmo["ok"], f"{name}: a lost or held-back peer did not raise "
+          "CommTimeoutError")
+    return {"phase": name, "devices": devices_for(EP_RANKS),
+            "tolerance": "bit-identical to the plain version on every rank "
+            "(live rows and splits; rows past a slot's count are "
+            "unspecified)", "main_shapes": {
+                "a2a": f"n = {EP_RANKS}, bf16, cap {A2A_MAIN['a2a']}",
+                "a2a_parity": f"n = {EP_RANKS}, bf16, cap "
+                              f"{A2A_MAIN['a2a_parity']}",
+                "ag_full_mesh": f"n = 2, bf16, {AG_MESH_MAIN} rows a rank"},
+            "parity_stress": stress, "timeout": tmo,
+            "one_rank_force_kernel": one, "cases": cases}
+
+
+def a2a_main_case(rec, form) -> dict:
+    if form == "ag_full_mesh":
+        return next(c for c in rec["cases"][form] if c["n"] == 2
+                    and c["dtype"] == "bfloat16" and c["rows"] == AG_MESH_MAIN)
+    return next(c for c in rec["cases"][form] if c["kind"] == "main")
+
+
+def _moe_layer_views(params, r: int, n: int) -> list:
+    """Rank r's EP shard of every MoE layer: dim-0 views of the expert
+    stacks (no copy), the router shared."""
+    out = []
+    for layer in params["layers"]:
+        p = layer["moe"]
+        e = p["w_gate"].shape[0] // n
+        out.append({"router": p["router"],
+                    **{k: p[k][r * e:(r + 1) * e]
+                       for k in ("w_gate", "w_up", "w_down")}})
+    return out
+
+
+def _close(torch, got, want, tol) -> dict:
+    diff = (got.float() - want.float()).abs()
+    share = (diff / (tol["atol"] + tol["rtol"] * want.float().abs())).max()
+    return {"max_abs_err": diff.max().item(), "tol_share": share.item(),
+            "ok": bool(torch.isfinite(got).all().item()
+                       and share.item() <= 1.0)}
+
+
+def ep_run(torch, ep, layers, ctx, x, *, topk, steps: int, stream: bool,
+           name: str) -> dict:
+    """Tokens ``x`` (n·t, h), t a rank, through every layer of ``layers``
+    (x <- rms-normalised x + moe(x)) on the EP layer, ``steps`` times:
+    the stream form threads one (ws, call_index) through every layer and
+    step (two parity calls a layer), the barrier form launches two
+    AllToAlls a layer.
+    Each layer's output is held against ``ep_moe_fwd`` at n = 1 on the
+    gathered tokens (``EP_TOL``). Returns errors, the EP time a layer
+    (host clock around a synced run, all ranks), launches."""
+    comm, a2a, _, _ = a2a_modules()
+    n = ctx.num_ranks
+    t = x.shape[0] // n
+    h = x.shape[1]
+    views = [_moe_layer_views({"layers": layers}, r, n) for r in range(n)]
+    cap = -(-(t * topk) // 16) * 16
+    ws, _ = a2a.a2a_stream_workspace(n, cap, h, x.dtype, ctx=ctx,
+                                     tag=f"ep-{name}")
+    idx = list(ws.epochs)
+    tol = EP_TOL[_dtype_name(x.dtype)]
+    worst = {"max_abs_err": 0.0, "tol_share": 0.0, "ok": True}
+    reset_counts(comm.COLLECTIVE_KERNELS)
+    ep_s = 0.0
+    for _ in range(steps):
+        for li, layer in enumerate(layers):
+            xs = [x[r * t:(r + 1) * t].to(ctx.devices[r]) for r in range(n)]
+
+            def body(r):
+                if not stream:
+                    return ep.ep_moe_fwd(views[r][li], xs[r], topk,
+                                         num_ranks=n)
+                y, (_, idx[r]) = ep.ep_moe_fwd(views[r][li], xs[r], topk,
+                                               num_ranks=n,
+                                               a2a_state=(ws, idx[r]))
+                return y
+
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ys = ctx.run(body)
+            torch.cuda.synchronize()
+            ep_s += time.perf_counter() - t0
+            y = torch.cat([o.to(x.device) for o in ys])
+            want = ep.ep_moe_fwd(layer["moe"], x, topk)
+            c = _close(torch, y, want, tol)
+            if c["tol_share"] >= worst["tol_share"]:
+                worst = dict(c, layer=li)
+            worst["ok"] = worst["ok"] and c["ok"]
+            # The next layer's input: the residual sum at unit rms, so 48
+            # layers of random experts neither vanish nor overflow.
+            z = (x + y).float()
+            x = (z * torch.rsqrt(z.pow(2).mean(-1, keepdim=True) + 1e-6)
+                 ).to(x.dtype)
+    ctx.raise_on_comm_error()
+    calls = steps * len(layers)
+    launches = {"a2a": comm.A2A_KERNEL.launches,
+                "a2a_parity": comm.A2A_PARITY_KERNEL.launches}
+    want_l = ({"a2a": 0, "a2a_parity": 2 * n * calls} if stream
+              else {"a2a": 2 * n * calls, "a2a_parity": 0})
+    check(launches == want_l, f"ep_moe {name}: launches {launches}, "
+          f"expected {want_l}")
+    check(all(k.plain_calls == 0 for k in comm.COLLECTIVE_KERNELS),
+          f"ep_moe {name}: a plain version ran")
+    check(worst["ok"], f"ep_moe {name}: disagrees with the one-rank form "
+          f"({worst})")
+    return {"tokens_per_rank": t, "layers": len(layers), "steps": steps,
+            "form": "stream" if stream else "barrier", "cap": cap,
+            "dtype": _dtype_name(x.dtype), "tol": tol, "vs_one_rank": worst,
+            "ep_ms_per_layer": ep_s * 1e3 / calls, "launches": launches,
+            "parity_calls_per_rank": launches["a2a_parity"] // n}
+
+
+def phase_ep_moe(torch, params, cfg) -> dict:
+    """The EP layer at Qwen3-30B-A3B's MoE widths (128 experts, h 2048,
+    ffn 768, top-8) on 4 virtual ranks, 32 experts a rank as dim-0 views
+    of the one-rank expert stacks (``params``, bf16, 48 layers): 4 tokens
+    a rank through all 48 layers for 8 steps on the parity stream (768
+    parity calls a rank), then 512 tokens a rank through the barrier
+    form; each layer held against the one-rank form on the gathered
+    tokens; the layer's time against ``moe_tp_fwd_local`` on the same
+    tokens at one rank. Then fp32 at 2 layers, both forms, tightly."""
+    import importlib
+
+    from triton_distributed_tpu_torch.layers.ep_moe import init_ep_moe
+
+    ep = importlib.import_module("triton_distributed_tpu_torch.layers.ep_moe")
+    moe = importlib.import_module("triton_distributed_tpu_torch.ops.moe")
+    _, _, _, context = a2a_modules()
+    topk, h = cfg.num_experts_per_tok, cfg.hidden_size
+    ctx = context.DistContext([torch.device(d)
+                               for d in virtual_devices(EP_RANKS)],
+                              wait_timeout_ms=60_000)
+    g = torch.Generator(device="cuda").manual_seed(61)
+    rec = {"phase": "ep_moe", "ranks": EP_RANKS, "model": "Qwen3-30B-A3B",
+           "experts_per_rank": cfg.num_experts // EP_RANKS,
+           "note": "4 ranks share one card's SMs and HBM"}
+    layers = params["layers"]
+    x = torch.randn((EP_RANKS * EP_DECODE_TOKENS, h), generator=g,
+                    device="cuda").to(torch.bfloat16)
+    rec["decode_stream"] = ep_run(torch, ep, layers, ctx, x, topk=topk,
+                                  steps=EP_STEPS, stream=True, name="decode")
+    x = torch.randn((EP_RANKS * EP_PREFILL_TOKENS, h), generator=g,
+                    device="cuda").to(torch.bfloat16)
+    rec["prefill_barrier"] = ep_run(torch, ep, layers, ctx, x, topk=topk,
+                                    steps=1, stream=False, name="prefill")
+    # The TP-MoE at one rank on the same tokens, a layer.
+    for key, rows in (("decode_stream", EP_DECODE_TOKENS),
+                      ("prefill_barrier", EP_PREFILL_TOKENS)):
+        xt = torch.randn((EP_RANKS * rows, h), generator=g,
+                         device="cuda").to(torch.bfloat16)
+        p = layers[0]["moe"]
+        fn = lambda: moe.moe_tp_fwd_local(  # noqa: E731
+            xt, p["router"], p["w_gate"], p["w_up"], p["w_down"], topk)
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            fn()
+        torch.cuda.synchronize()
+        rec[key]["tp1_moe_ms_per_layer"] = (time.perf_counter() - t0) * 200
+    # fp32, 2 layers: tight.
+    f32 = [{"moe": init_ep_moe(h, cfg.moe_intermediate_size, cfg.num_experts,
+                               torch.float32, generator=g)}
+           for _ in range(2)]
+    for form, rows in (("stream", EP_DECODE_TOKENS),
+                       ("barrier", EP_PREFILL_TOKENS)):
+        x = torch.randn((EP_RANKS * rows, h), generator=g, device="cuda")
+        rec[f"fp32_{form}"] = ep_run(torch, ep, f32, ctx, x, topk=topk,
+                                     steps=2, stream=form == "stream",
+                                     name=f"fp32-{form}")
+    ctx.close()
+    return rec
+
+
+def moe_overlap_layer(torch, cfg) -> dict:
+    """The sequential "overlap" TP-MoE (``moe_tp_fwd_local(mode="overlap")``)
+    on 2 virtual ranks at Qwen3-30B-A3B's MoE widths, one layer of fresh
+    bf16 experts (ffn sharded 2 ways) on a 2 x 1024 prefill's 1024 rows a
+    rank: the tokens gathered through B4's full-mesh push (AUTO's pick at
+    n = 2, one launch a rank), held against the one-rank MoE on all 2048
+    rows (``EP_TOL``); its time against the ring form's."""
+    from triton_distributed_tpu_torch.layers.ep_moe import init_ep_moe
+    from triton_distributed_tpu_torch.ops import moe
+
+    comm, _, _, context = a2a_modules()
+    n, h, topk = 2, cfg.hidden_size, cfg.num_experts_per_tok
+    g = torch.Generator(device="cuda").manual_seed(71)
+    p = init_ep_moe(h, cfg.moe_intermediate_size, cfg.num_experts,
+                    torch.bfloat16, generator=g)
+    x = torch.randn((2048, h), generator=g, device="cuda").to(torch.bfloat16)
+    ctx = context.DistContext([torch.device(d) for d in virtual_devices(n)],
+                              wait_timeout_ms=60_000)
+    f = cfg.moe_intermediate_size // n
+    shards = [(p["w_gate"][:, :, r * f:(r + 1) * f].contiguous(),
+               p["w_up"][:, :, r * f:(r + 1) * f].contiguous(),
+               p["w_down"][:, r * f:(r + 1) * f].contiguous())
+              for r in range(n)]
+    rows = x.shape[0] // n
+    rec = {"ranks": n, "rows_per_rank": rows}
+    want = moe.moe_tp_fwd_local(x, p["router"], p["w_gate"], p["w_up"],
+                                p["w_down"], topk)
+    for mode in ("overlap", "ring"):
+        def body(r):
+            return moe.moe_tp_fwd_local(x[r * rows:(r + 1) * rows],
+                                        p["router"], *shards[r], topk,
+                                        num_ranks=n, mode=mode)
+
+        ctx.run(body)                                  # warm-up
+        torch.cuda.synchronize()
+        reset_counts(comm.COLLECTIVE_KERNELS)
+        t0 = time.perf_counter()
+        ys = ctx.run(body)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        ctx.raise_on_comm_error()
+        c = _close(torch, torch.cat(ys), want, EP_TOL["bfloat16"])
+        rec[mode] = dict(c, ms=ms, launches=_tp_counts(comm))
+        check(c["ok"], f"moe_overlap_layer {mode}: disagrees with one rank "
+              f"({c})")
+        check(all(k.plain_calls == 0 for k in comm.COLLECTIVE_KERNELS),
+              f"moe_overlap_layer {mode}: a plain version ran")
+    check(rec["overlap"]["launches"]["ag_full_mesh"] == n,
+          f"moe_overlap_layer: the full-mesh push launched "
+          f"{rec['overlap']['launches']['ag_full_mesh']} times, expected {n}")
+    check(rec["ring"]["launches"]["reduce_scatter_ring"] == n,
+          "moe_overlap_layer: the ring form's RS did not run once a rank")
+    ctx.close()
+    return rec
+
+
+def phase_tp_moe_engine(torch, params, cfg, Engine, kernels, ServingEngine,
+                        prompts) -> tuple:
+    """Qwen3-30B-A3B at full width and depth, bf16: TP=1's
+    ``Engine(cfg, params, max_seq=2048).serve`` of a 2 x 1024 prompt for 16
+    tokens, then ``params`` sharded over 4 virtual ranks leaf by leaf
+    (``shard_params(consume=True)``: the full tree is emptied as its shards
+    are made, 61 GB never held twice) and the TP engine's serve with the
+    defaults — prefill "overlap" (B9 3 a layer: q, k, v; B10 1: o; the
+    ring TP-MoE's RS 1), linear decode (the parity AR 2 a layer a step:
+    attention's and the MoE combine's) — counts exact; the decode profile;
+    the sequential "overlap" MoE layer at n = 2 (the full-mesh push).
+    Then ``tp_moe_serving``: ServingEngine (page 16) on the same shards,
+    the 4 shortest serving prompts x 8 tokens, and a 4-step decode
+    window.
+    Returns the two records; ``params`` is empty afterwards."""
+    from triton_distributed_tpu_torch.models.convert import shard_params
+
+    comm, _, _, context = a2a_modules()
+    L = cfg.num_layers
+    g = torch.Generator(device="cuda").manual_seed(33)
+    ids = torch.randint(0, cfg.vocab_size, (2, 1024), generator=g,
+                        device="cuda", dtype=torch.int32)
+    rec = {"phase": "tp_moe_engine", "ranks": TP, "layers": L,
+           "model": "Qwen3-30B-A3B", "dtype": cfg.dtype,
+           "note": "4 ranks share one card's SMs and HBM: these times say "
+                   "nothing of four cards"}
+    one = Engine(cfg, params, max_seq=2048)
+    one.serve(ids[:, :64], 2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tp1 = one.serve(ids, 16)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    one.prefill(ids)
+    torch.cuda.synchronize()
+    pre_s = time.perf_counter() - t0
+    rec["tp1"] = {"serve_s": serve_s, "prefill_ms": pre_s * 1e3,
+                  "decode_ms_per_step": (serve_s - pre_s) * 1e3 / 15,
+                  "tokens_per_s": 2 * 16 / serve_s}
+    del one
+    gc_collect(torch)
+    ctx = context.initialize_distributed(devices=virtual_devices(TP),
+                                         wait_timeout_ms=60_000)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    shards = shard_params(params, ctx, cfg, consume=True)
+    torch.cuda.synchronize()
+    rec["shard_s"] = time.perf_counter() - t0
+    check(not params, "tp_moe_engine: the one-rank tree was not consumed")
+    gc_collect(torch)
+    eng = Engine(cfg, shards, ctx, max_seq=2048)
+    check(eng.backend == "auto" and eng.page_size is None
+          and eng._prefill_mode(2, 1024) == "overlap",
+          "tp_moe_engine: the defaults are not the reference's")
+    eng.serve(ids[:, :64], 2)                                     # warm-up
+    rec["defaults"] = tp_engine_run(
+        torch, eng, kernels, ids, 16, name="tp_moe_engine",
+        expect={"ag_gemm": (3 * L, 0), "gemm_rs": (L, 0),
+                "reduce_scatter_ring": (L, 0),
+                "allreduce_parity": (0, 2 * L)})
+    rec["defaults"]["decode_profile"] = tp_profile(torch, eng, ids, steps=2)
+    rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    toks = rec["defaults"].pop("tokens")
+    rec["defaults"]["bf16_tokens_equal_tp1"] = bool(torch.equal(toks, tp1))
+    rec["note_tokens"] = ("bf16 tokens may leave TP=1's where two logits "
+                          "differ by less than the summation order moves "
+                          "them; tp_moe_parity holds them in fp32")
+    rec["moe_overlap_layer_n2"] = moe_overlap_layer(torch, cfg)
+    # ServingEngine on the same shards (a paged engine beside this one).
+    seng = Engine(cfg, shards, ctx, max_seq=2048, page_size=16)
+    se = ServingEngine(seng, max_batch=4, prefill_chunk=256)
+    srec = {"phase": "tp_moe_serving", "ranks": TP, "model": "Qwen3-30B-A3B",
+            "serve": tp_drive(torch, se, kernels,
+                              sorted(prompts, key=len)[:4], 8,
+                              name="tp_moe_serving", slice_ar="one_shot")}
+    del se
+    se = ServingEngine(seng, max_batch=4, prefill_chunk=256)
+    srec["decode_window"] = decode_window(
+        torch, se, seng, "decode", steps=4, prompts=random_prompts(
+            torch, cfg.vocab_size, (100, 400, 250, 150), 14))
+    del se, seng, eng, shards
+    ctx.close()
+    gc_collect(torch)
+    return rec, srec
+
+
+def gc_collect(torch) -> None:
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_tp_moe_parity(torch, QWEN3_30B_A3B, init_dense_llm, Engine,
+                        ServingEngine, kernels, *, devices=None) -> dict:
+    """float32, Qwen3-30B-A3B widths cut to 2 layers: TP=4 tokens identical
+    to TP=1's in ``Engine.serve`` (the defaults: the ring TP-MoE in an
+    "overlap" prefill, the parity stream in decode; and ``backend="xla"``)
+    and in ``ServingEngine`` (page 16) with a preemption and with
+    ``spec_k=3``; every rank's logits bit-identical."""
+    _, _, _, context = a2a_modules()
+    cfg = dataclasses.replace(QWEN3_30B_A3B, num_layers=2, dtype="float32")
+    params = init_dense_llm(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(5))
+    ctx = context.initialize_distributed(
+        devices=devices or virtual_devices(TP), wait_timeout_ms=60_000)
+    g = torch.Generator().manual_seed(27)
+    ids = torch.randint(0, cfg.vocab_size, (2, 64), generator=g,
+                        dtype=torch.int32)
+    rec = {"phase": "tp_moe_parity", "layers": 2, "dtype": "float32",
+           "ranks": TP, "devices": [str(d) for d in ctx.devices]}
+    one = Engine(cfg, params, max_seq=256)
+    want = one.serve(ids, 8).cpu()
+    for backend in ("auto", "xla"):
+        eng = Engine(cfg, params, ctx, max_seq=256, backend=backend)
+        got = eng.serve(ids, 8).cpu()
+        check(torch.equal(got, want), f"tp_moe_parity: Engine.serve "
+              f"backend={backend} left TP=1's tokens")
+        rec[f"engine_{backend}"] = {"prefill_mode": eng._prefill_mode(2, 64),
+                                    "identical": True}
+        if backend == "auto":
+            check(rank_logits(torch, eng, ids[0].tolist())["ok"],
+                  "tp_moe_parity: the ranks' logits differ")
+        del eng
+    del one
+    runs = {"preempt": (dict(max_batch=3, num_pages=20, prefill_chunk=64),
+                        ([90, 60, 75, 100], [40, 40, 40, 40]), 0),
+            "spec_k3": (dict(max_batch=3, prefill_chunk=64),
+                        ([40, 70, 55], [16, 16, 16]), SPEC_K)}
+    one = Engine(cfg, params, max_seq=256, page_size=16)
+    four = Engine(cfg, params, ctx, max_seq=256, page_size=16)
+    for name, (kw, (lengths, gens), spec_k) in runs.items():
+        prompts = (phrase_prompts(torch, cfg.vocab_size, lengths, 29)
+                   if spec_k else
+                   random_prompts(torch, cfg.vocab_size, lengths, 28))
+        want = [r.tokens for r in _drive(ServingEngine(one, spec_k=spec_k,
+                                                       **kw), prompts,
+                                         gens)[0]]
+        se = ServingEngine(four, spec_k=spec_k, **kw)
+        reqs = _drive(se, prompts, gens)[0]
+        check([r.tokens for r in reqs] == want,
+              f"tp_moe_parity {name}: TP=4 left TP=1's tokens")
+        pre = sum(r.preemptions for r in reqs)
+        if name == "preempt":
+            check(pre >= 1, "tp_moe_parity: no preemption")
+        rec[name] = {"requests": len(reqs), "preemptions": pre,
+                     "identical": True}
+        if spec_k:
+            rec[name]["accepted_draft_tokens"] = sum(
+                r.accepted_draft_tokens for r in reqs)
+        del se
+    del one, four, params
+    ctx.close()
+    gc_collect(torch)
+    return rec
+
+
 def _summary_entry(kernel, name, replaces, cases, main_case, launches,
                    root) -> dict:
     return {"name": name, "route": "cuda",
@@ -4365,6 +5161,9 @@ def main() -> int:
     coll_rec = emit_phase(phase_collectives(torch, timer, fa, pa))
     gc.collect()
     torch.cuda.empty_cache()
+    a2a_rec = emit_phase(phase_a2a(torch, timer))
+    gc.collect()
+    torch.cuda.empty_cache()
     fused_rec = emit_phase(phase_fused(torch, timer))
     gc.collect()
     torch.cuda.empty_cache()
@@ -4474,12 +5273,28 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # Qwen3-MoE: the eager lane at full size, the MoE decode program at
-    # full depth, then fp32 token parity.
-    moe_rec, moe_serving_rec = phase_moe_engine(
+    # Qwen3-MoE: the eager lane at full size, the EP layer and the TP group
+    # on the same weights (sharded without a second copy), the MoE decode
+    # program at full depth, then fp32 token parity.
+    moe_rec, moe_serving_rec, moe_params = phase_moe_engine(
         torch, kernels, Engine, ServingEngine, QWEN3_30B_A3B, prompts)
     emit_phase(moe_rec)
     emit_phase(moe_serving_rec)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ep_rec = emit_phase(phase_ep_moe(torch, moe_params, QWEN3_30B_A3B))
+    gc.collect()
+    torch.cuda.empty_cache()
+    tpm_rec, tpms_rec = phase_tp_moe_engine(
+        torch, moe_params, QWEN3_30B_A3B, Engine, kernels, ServingEngine,
+        prompts)
+    tpm_rec["tp1_moe_engine_paged"] = {k: moe_rec.get(k) for k in (
+        "prefill_ms", "decode_ms_per_step", "tokens_per_s")}
+    emit_phase(tpm_rec)
+    tpms_rec["tp1_moe_serving"] = {k: moe_serving_rec[k] for k in (
+        "tokens_per_s", "ttft_ms_p50")}
+    emit_phase(tpms_rec)
+    del moe_params
     gc.collect()
     torch.cuda.empty_cache()
     moe_step_rec = emit_phase(phase_moe_step(torch, mk, mkmodels,
@@ -4490,6 +5305,8 @@ def main() -> int:
                                 ServingEngine, kernels))
     gc.collect()
     torch.cuda.empty_cache()
+    emit_phase(phase_tp_moe_parity(torch, QWEN3_30B_A3B, init_dense_llm,
+                                   Engine, ServingEngine, kernels))
     emit_phase(phase_fp8_experts(torch, gemm, moe, QWEN3_30B_A3B,
                                  init_dense_llm))
 
@@ -4688,6 +5505,28 @@ def main() -> int:
                        fused_rec["cases"]["gemm_ar"],
                        fused_main_case(fused_rec, "gemm_ar", "wo"),
                        tpe_rec["gemm_ar"]["launches"]["gemm_ar"], root),
+    ]
+    summary += [
+        # B4's full-mesh push: the sequential "overlap" TP-MoE layer at
+        # n = 2 (one launch a rank), timed at its 1024 rows a rank.
+        _summary_entry(comm.AG_FULL_MESH_KERNEL, "ag_full_mesh",
+                       tpu + "ops/allgather.py:66",
+                       a2a_rec["cases"]["ag_full_mesh"],
+                       a2a_main_case(a2a_rec, "ag_full_mesh"),
+                       tpm_rec["moe_overlap_layer_n2"]["overlap"]["launches"]
+                       ["ag_full_mesh"], root),
+        # B8: the EP layer's 512-token barrier run (2 a layer a rank) and
+        # its 8-step decode on the parity stream (768 a rank), timed at
+        # cap 4096 and cap 32.
+        _summary_entry(comm.A2A_KERNEL, "a2a", tpu + "ops/all_to_all.py:65",
+                       a2a_rec["cases"]["a2a"], a2a_main_case(a2a_rec, "a2a"),
+                       ep_rec["prefill_barrier"]["launches"]["a2a"], root),
+        _summary_entry(comm.A2A_PARITY_KERNEL, "a2a_parity",
+                       tpu + "ops/all_to_all.py:180",
+                       a2a_rec["cases"]["a2a_parity"],
+                       a2a_main_case(a2a_rec, "a2a_parity"),
+                       ep_rec["decode_stream"]["launches"]["a2a_parity"],
+                       root),
     ]
     check(all(e["launches"] > 0 for e in summary),
           f"a kernel of the path was never launched: "

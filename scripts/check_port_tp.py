@@ -2,25 +2,35 @@
 """Check the PyTorch/CUDA port's tensor-parallel path on CUDA cards, for
 the tree in the current directory.
 
-Builds ``csrc/collectives.cu``, ``csrc/gemm_comm.cu`` (and the attention
-kernels), prints ptxas's register report, then runs
-``chip_smoke.phase_collectives`` (the AllReduce — one-shot, parity,
-double tree —, reduce-scatter and all-gather kernels at n = 2, 4 and 8
-ranks against their plain versions, timed; the parity stress; a lost
-peer's timeout) and ``chip_smoke.phase_fused`` (the fused AG+GEMM,
-GEMM+RS and GEMM+AR kernels and the tree's odd shapes, the B11 stress,
-the lost peers of B9 and B11) and, with ``--parity``,
-``chip_smoke.phase_tp_parity`` (float32 2-layer serving on 4 ranks
-token-identical to one rank, each rank's logits bit-identical) and
+Builds ``csrc/collectives.cu``, ``csrc/all_to_all.cu``,
+``csrc/gemm_comm.cu`` (and the attention kernels), prints ptxas's
+register report, then runs ``chip_smoke.phase_collectives`` (the
+AllReduce — one-shot, parity, double tree —, reduce-scatter and
+all-gather kernels at n = 2, 4 and 8 ranks against their plain versions,
+timed; the parity stress; a lost peer's timeout),
+``chip_smoke.phase_a2a`` (the AllToAll's barrier and parity forms and
+the all-gather's full-mesh push in fp32, bf16 and e4m3, bit for bit,
+timed at their main-path shapes; 200 parity calls with a rotating
+straggler; a lost and a held-back peer) and ``chip_smoke.phase_fused``
+(the fused AG+GEMM, GEMM+RS and GEMM+AR kernels and the tree's odd
+shapes, the B11 stress, the lost peers of B9 and B11) and, with
+``--parity``, ``chip_smoke.phase_tp_parity`` (float32 2-layer serving on
+4 ranks token-identical to one rank, each rank's logits bit-identical),
 ``chip_smoke.phase_tp_engine_parity`` (float32 2-layer ``Engine.serve``
 on 4 ranks with the reference's defaults, ``TDTPU_GEMM_AR=1``, a tree
-prompt and ``backend="xla"``, token-identical to one rank). Ranks are
-virtual ranks on ``cuda:0`` unless ``--cards``: then rank r lives on
-``cuda:r`` (4 cards, peer access; the kernels at n = 2 and 4). Prints
+prompt and ``backend="xla"``, token-identical to one rank) and
+``chip_smoke.phase_tp_moe_parity`` (float32 2-layer Qwen3-30B-A3B on 4
+ranks: ``Engine.serve`` with the defaults and on ``backend="xla"``,
+``ServingEngine`` with a preemption and with ``spec_k=3``,
+token-identical to one rank). Ranks are virtual ranks on ``cuda:0``
+unless ``--cards``: then rank r lives on ``cuda:r`` (4 cards, peer
+access; the kernels at n = 2 and 4; their ``bound_ms`` stays the one-card
+HBM bound). ``--moe`` runs only the MoE-over-ranks phases
+(``collectives_a2a`` and, with ``--parity``, ``tp_moe_parity``). Prints
 one JSON line per phase, then the cards' names and power limits. About
-three minutes with the build:
+four minutes with the build (``--moe``: about one and a half):
 
-    python3 scripts/check_port_tp.py [--parity] [--cards]
+    python3 scripts/check_port_tp.py [--parity] [--cards] [--moe]
 """
 import importlib
 import json
@@ -52,12 +62,12 @@ def main() -> int:
         "triton_distributed_tpu_torch.ops.paged_attention")
     comm = importlib.import_module("triton_distributed_tpu_torch.ops._comm")
     t0 = time.perf_counter()
-    srcs = [comm.ONE_SHOT_KERNEL.source_path,
+    srcs = [comm.ONE_SHOT_KERNEL.source_path, comm.A2A_KERNEL.source_path,
             comm.AG_GEMM_KERNEL.source_path, fa.FLASH_KERNEL.source_path,
             pa.PAGED_KERNEL.source_path]
     build.build(srcs)
     ptxas = {}
-    for src in srcs[:2]:
+    for src in srcs[:3]:
         log = build.library_path(src).with_suffix(".log").read_text()
         ptxas[src.name] = [ln.strip() for ln in log.splitlines()
                            if "registers" in ln or "spill" in ln]
@@ -80,26 +90,38 @@ def main() -> int:
         ranks = (2, 4)
     else:
         devices_for, ranks = cs.virtual_devices, cs.COLL_RANKS
-    run("collectives", lambda: cs.phase_collectives(
-        torch, timer, fa, pa, devices_for=devices_for, ranks=ranks,
-        name="collectives_cards" if cards else "collectives"))
-    run("collectives_fused", lambda: cs.phase_fused(
+    moe = "--moe" in sys.argv
+    if not moe:
+        run("collectives", lambda: cs.phase_collectives(
+            torch, timer, fa, pa, devices_for=devices_for, ranks=ranks,
+            name="collectives_cards" if cards else "collectives"))
+    run("collectives_a2a", lambda: cs.phase_a2a(
         torch, timer, devices_for=devices_for, ranks=ranks,
-        name="collectives_fused_cards" if cards else "collectives_fused"))
+        name="collectives_a2a_cards" if cards else "collectives_a2a"))
+    if not moe:
+        run("collectives_fused", lambda: cs.phase_fused(
+            torch, timer, devices_for=devices_for, ranks=ranks,
+            name="collectives_fused_cards" if cards else "collectives_fused"))
     if "--parity" in sys.argv:
         from triton_distributed_tpu_torch.megakernel import kernel as mk
-        from triton_distributed_tpu_torch.models.config import QWEN3_8B
+        from triton_distributed_tpu_torch.models.config import (
+            QWEN3_8B, QWEN3_30B_A3B,
+        )
         from triton_distributed_tpu_torch.models.dense import init_dense_llm
         from triton_distributed_tpu_torch.models.engine import Engine
         from triton_distributed_tpu_torch.serving import ServingEngine
 
         kernels = (fa.FLASH_KERNEL, pa.PAGED_KERNEL, mk.MEGA_KERNEL)
-        run("tp_parity", lambda: cs.phase_tp_parity(
-            torch, QWEN3_8B, init_dense_llm, Engine, ServingEngine, kernels,
-            devices=devices_for(cs.TP)))
-        run("tp_engine_parity", lambda: cs.phase_tp_engine_parity(
-            torch, QWEN3_8B, init_dense_llm, Engine, kernels,
-            devices=devices_for(cs.TP)))
+        if not moe:
+            run("tp_parity", lambda: cs.phase_tp_parity(
+                torch, QWEN3_8B, init_dense_llm, Engine, ServingEngine,
+                kernels, devices=devices_for(cs.TP)))
+            run("tp_engine_parity", lambda: cs.phase_tp_engine_parity(
+                torch, QWEN3_8B, init_dense_llm, Engine, kernels,
+                devices=devices_for(cs.TP)))
+        run("tp_moe_parity", lambda: cs.phase_tp_moe_parity(
+            torch, QWEN3_30B_A3B, init_dense_llm, Engine, ServingEngine,
+            kernels, devices=devices_for(cs.TP)))
     print(cs.nvidia_smi_all(), flush=True)
     return 1 if failed else 0
 

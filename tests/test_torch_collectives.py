@@ -239,10 +239,13 @@ def test_named_refusals():
         # other's tree's leaf, and the sum of two equal inputs is exact.
         assert torch.equal(tar.all_reduce_local(x, num_ranks=2,
                                                 method="tree"), 2 * x)
+        # Nor is B4's full-mesh push, pinned or as AUTO's pick at n = 2:
+        # every rank gets both ranks' rows.
+        for how in ("full_mesh_push", "auto"):
+            assert torch.equal(tag.all_gather_local(x, num_ranks=2,
+                                                    method=how),
+                               torch.cat([x, x]))
         for fn in (
-                lambda: tag.all_gather_local(x, num_ranks=2,
-                                             method="full_mesh_push"),
-                lambda: tag.all_gather_local(x, num_ranks=2),  # AUTO: mesh
                 lambda: tag.all_gather_stream(x),
                 lambda: tar.all_reduce_local(x, axis=("dcn", "tp"),
                                              num_ranks=2),

@@ -37,6 +37,7 @@ from triton_distributed_tpu_torch.models.convert import params_from_numpy
 from triton_distributed_tpu_torch.models.dense import init_dense_llm
 from triton_distributed_tpu_torch.models.engine import Engine
 from triton_distributed_tpu_torch.ops import moe
+from triton_distributed_tpu_torch.runtime.context import DistContext
 from triton_distributed_tpu_torch.serving import (
     AdmitResult, RequestState, ServingEngine,
 )
@@ -289,15 +290,20 @@ def test_serving_engine_moe_spec_decode_vs_sequential(engines):
 # ---------------------------------------------------------------------------
 
 def test_moe_refusals(layer):
-    """More than one rank, another mode, and the megakernel lanes on a MoE
+    """Two ranks and the ring mode run; the megakernel lanes on a MoE
     model raise by name. (e4m3 expert stacks, once refused here, run B3's
     e4m3 lane: tests/test_torch_fp8_decode.py.)"""
     args = [_t(layer[n]) for n in ("x", "gate_w", "w_gate", "w_up",
                                    "w_down")]
-    with pytest.raises(moe.MoeUnsupportedError, match="num_ranks = 2"):
-        moe.moe_tp_fwd_local(*args, K, num_ranks=2)
-    with pytest.raises(moe.MoeUnsupportedError, match="'ring'"):
-        moe.moe_tp_fwd_local(*args, K, mode="ring")
+    # Two ranks and mode 'ring', once refused here, now run: at n = 2 (CPU
+    # rank threads) the ranks' row halves put together equal the one-rank
+    # FFN; mode 'ring' at n = 1 is the one-rank FFN itself.
+    one = moe.moe_tp_fwd_local(*args, K)
+    ctx = DistContext([torch.device("cpu")] * 2, wait_timeout_ms=60_000)
+    two = moe.moe_tp_fwd(*args, K, ctx, mode="ring")
+    ctx.close()
+    np.testing.assert_allclose(torch.cat(two).numpy(), one.numpy(), **TOL)
+    assert torch.equal(moe.moe_tp_fwd_local(*args, K, mode="ring"), one)
     # A MoE geometry the megakernel could tile (head_dim 128): refused for
     # being MoE, as the JAX package's validate_megakernel_cfg refuses it.
     cfg = tiny_config(hidden_size=256, num_heads=2, num_kv_heads=1,

@@ -201,11 +201,12 @@ def test_kernel_build_is_lazy_and_keyed_by_source():
     source, so each kernel gets its own file in the git-ignored build
     directory."""
     srcs = build.sources()
-    assert [s.name for s in srcs] == ["collectives.cu", "flash_attention.cu",
-                                      "gemm.cu", "gemm_comm.cu",
-                                      "megakernel.cu", "paged_attention.cu"]
+    assert [s.name for s in srcs] == ["all_to_all.cu", "collectives.cu",
+                                      "flash_attention.cu", "gemm.cu",
+                                      "gemm_comm.cu", "megakernel.cu",
+                                      "paged_attention.cu"]
     paths = {build.library_path(s) for s in srcs}
-    assert len(paths) == 6
+    assert len(paths) == 7
     assert all(p.parent == build.BUILD_DIR for p in paths)
     gitignore = (ROOT / ".gitignore").read_text().split()
     assert "triton_distributed_tpu_torch/_build/" in gitignore

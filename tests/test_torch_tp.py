@@ -361,10 +361,16 @@ def test_tp_refusals(models, tctx):
     _, _, tcfg, tparams = models
     with pytest.raises(ValueError, match="ctx .* or device"):
         Engine(tcfg, tparams, tctx, device="cpu")
-    with pytest.raises(ValueError, match="MoE over ranks"):
-        Engine(tiny_config(num_experts=4, num_experts_per_tok=2,
-                           moe_intermediate_size=64),
-               tparams, tctx)
+    # A MoE config on the TP group, once refused here, serves: its tokens
+    # equal the one-rank engine's.
+    mcfg = tiny_config(num_experts=4, num_experts_per_tok=2,
+                       moe_intermediate_size=64, num_layers=1)
+    mparams = tdense.init_dense_llm(
+        mcfg, generator=torch.Generator().manual_seed(5), device="cpu")
+    moe4 = Engine(mcfg, mparams, tctx, max_seq=MAX_SEQ)
+    moe1 = Engine(mcfg, mparams, device="cpu", max_seq=MAX_SEQ)
+    assert torch.equal(moe4.serve([[3, 1, 4, 1, 5]], 3),
+                       moe1.serve([[3, 1, 4, 1, 5]], 3))
     with pytest.raises(ValueError, match="not divisible"):
         Engine(tiny_config(num_kv_heads=2, num_heads=4), tparams, tctx)
     mk = Engine(tcfg, tparams, tctx, max_seq=256, page_size=128,

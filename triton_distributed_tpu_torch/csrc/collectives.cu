@@ -21,6 +21,11 @@
 //                through a symmetric gather buffer that doubles as the
 //                transport; each rank forwards the chunk it received
 //                last step, then copies the gathered buffer out.
+//  ag_full_mesh  ops/allgather.py:66 _ag_full_mesh_push_kernel — barrier,
+//                push this rank's chunk into slot `rank` of every peer's
+//                gather buffer (peers in the order me+1 ... me-1), wait
+//                for the n-1 deliveries, copy the buffer out: one hop, the
+//                ring's output bit for bit (a copy has no rounding).
 //  ar_tree       ops/allreduce.py:169 _ar_tree_kernel — the double
 //                binary tree: tree 0 the heap over rank order, tree 1
 //                over reversed ranks, each owning half of the rows (rows
@@ -177,6 +182,22 @@ __global__ void __launch_bounds__(kThreads)
   if (!wait(g, kStepBase + (n - 2) * kMaxBlocks + blockIdx.x, g.epoch))
     return;
   for (int c = 0; c < n; ++c) put(out + c * cvec, buf + c * cvec, v0, v1);
+}
+
+// x: one chunk; the symmetric gather buffer and out: n chunks. Every block
+// pushes its share of x into slot `rank` of every rank's buffer (its own
+// first, then me+1 ... me-1), tells each peer, waits for the n-1 peers'
+// shares of the same block and copies the gathered buffer out.
+__global__ void __launch_bounds__(kThreads)
+    ag_full_mesh_kernel(Group g, const uint4* x, uint4* out, long long cvec) {
+  long long v0, v1;
+  block_range(cvec, &v0, &v1);
+  if (!barrier_all(g)) return;
+  const int base = kStepBase + blockIdx.x * kMaxRanks;
+  push_all(g, x, g.rank * cvec * 16, v0, v1, base, g.epoch);
+  if (!wait_peers(g, base, g.epoch)) return;
+  const uint4* buf = reinterpret_cast<const uint4*>(peer_base(g, g.rank));
+  for (int c = 0; c < g.n; ++c) put(out + c * cvec, buf + c * cvec, v0, v1);
 }
 
 // The tree's flags (kStepBase on): per block, tree and kind — 0 and 1 a
@@ -368,6 +389,21 @@ int tdt_ag_ring(const void* table, const void* sig_table, void* err,
   const Group g = make_group(table, sig_table, err, rank, n, epoch,
                              timeout_ns);
   ag_ring_kernel<<<grid_for(cvec), kThreads, 0, stream>>>(
+      g, static_cast<const uint4*>(x), static_cast<uint4*>(out), cvec);
+  return cudaGetLastError();
+}
+
+// chunk_bytes: one input chunk (out holds n of them).
+int tdt_ag_full_mesh(const void* table, const void* sig_table, void* err,
+                     int rank, int n, unsigned long long epoch,
+                     long long timeout_ns, const void* x, void* out,
+                     long long chunk_bytes, cudaStream_t stream) {
+  const long long cvec = chunk_bytes / 16;
+  if (bad_group(rank, n, cvec) || n < 2 || chunk_bytes % 16)
+    return cudaErrorInvalidValue;
+  const Group g = make_group(table, sig_table, err, rank, n, epoch,
+                             timeout_ns);
+  ag_full_mesh_kernel<<<grid_for(cvec), kThreads, 0, stream>>>(
       g, static_cast<const uint4*>(x), static_cast<uint4*>(out), cvec);
   return cudaGetLastError();
 }

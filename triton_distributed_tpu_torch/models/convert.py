@@ -13,7 +13,8 @@ view reinterpreted as ``torch.bfloat16``.
 :func:`shard_params` carries a parameter dict onto a TP group's ranks per
 ``models/dense.dense_llm_specs``: column-parallel q/k/v/gate/up split on
 the output dimension, row-parallel o/down on the input dimension,
-``lm_head`` by vocabulary, the embedding and norms replicated.
+``lm_head`` by vocabulary, the embedding and norms replicated, a MoE
+layer's expert stacks on their ffn dim.
 """
 
 from __future__ import annotations
@@ -56,13 +57,17 @@ def params_from_numpy(tree, cfg: ModelConfig, *, device=None, dtype=None):
     return conv(tree)
 
 
-def shard_tree(tree, specs, ctx: DistContext) -> list:
+def shard_tree(tree, specs, ctx: DistContext, *, consume: bool = False
+               ) -> list:
     """Split ``tree`` (dicts / lists of tensors or numpy leaves) per the
     matching tree of :class:`~runtime.context.P` specs into one tree per
     rank, rank r's leaves on ``ctx.devices[r]``. A sharded dim is cut
     into n equal contiguous pieces (it must divide); a replicated leaf is
     moved as it is — ranks that share a device (virtual ranks on one
-    card) share one copy, which nothing writes."""
+    card) share one copy, which nothing writes. The tree is walked leaf
+    by leaf; ``consume=True`` drops each leaf from ``tree`` once its
+    shards exist, so a tree as large as the card (Qwen3-30B-A3B's 61 GB
+    on one H100) is never held twice: ``tree`` ends empty."""
     n = ctx.num_ranks
 
     def leaf(t, spec, r):
@@ -84,32 +89,50 @@ def shard_tree(tree, specs, ctx: DistContext) -> list:
         return t.narrow(d, r * step, step).to(ctx.devices[r], copy=True,
                                               memory_format=torch.contiguous_format)
 
-    def walk(node, spec, r):
+    def walk(node, spec) -> list:
         if isinstance(spec, P):
-            return leaf(node, spec, r)
+            return [leaf(node, spec, r) for r in range(n)]
         if isinstance(node, dict):
             if set(node) != set(spec):
                 raise ValueError(f"parameter keys {sorted(node)} do not "
                                  f"match the specs' {sorted(spec)}")
-            return {k: walk(node[k], spec[k], r) for k in node}
+            out = [{} for _ in range(n)]
+            for k in list(node):
+                for r, part in enumerate(walk(node[k], spec[k])):
+                    out[r][k] = part
+                if consume:
+                    del node[k]
+            return out
         if isinstance(node, (list, tuple)):
             if len(node) != len(spec):
                 raise ValueError(f"{len(node)} entries, specs have "
                                  f"{len(spec)}")
-            return [walk(a, b, r) for a, b in zip(node, spec)]
+            out = [[] for _ in range(n)]
+            for i, sub in enumerate(spec):
+                for r, part in enumerate(walk(node[i], sub)):
+                    out[r].append(part)
+                if consume and isinstance(node, list):
+                    node[i] = None
+            if consume and isinstance(node, list):
+                node.clear()
+            return out
         raise TypeError(f"unexpected parameter node {type(node)}")
 
-    return [walk(tree, specs, r) for r in range(n)]
+    return walk(tree, specs)
 
 
 def shard_params(params, ctx: DistContext, cfg: ModelConfig, *,
-                 axis: str = "tp") -> list:
+                 axis: str = "tp", consume: bool = False) -> list:
     """One parameter dict per rank of ``ctx`` per ``dense_llm_specs(cfg,
-    axis)``. ``params``: the port's dict (from ``init_dense_llm`` or
-    :func:`params_from_numpy`) or the JAX package's numpy tree."""
+    axis)`` (a MoE layer's experts sharded on their ffn dim, its router
+    replicated). ``params``: the port's dict (from ``init_dense_llm`` or
+    :func:`params_from_numpy`) or the JAX package's numpy tree;
+    ``consume``: empty it leaf by leaf as the shards are made
+    (:func:`shard_tree`)."""
     from triton_distributed_tpu_torch.models.dense import dense_llm_specs
 
     if cfg.num_kv_heads % ctx.axis_size(axis):
         raise ValueError(f"num_kv_heads {cfg.num_kv_heads} not divisible by "
                          f"TP degree {ctx.num_ranks}")
-    return shard_tree(params, dense_llm_specs(cfg, axis), ctx)
+    return shard_tree(params, dense_llm_specs(cfg, axis), ctx,
+                      consume=consume)

@@ -9,7 +9,8 @@ its host-side bookkeeping (``offset``, ``kv_lens``) advanced.
 Per block (pre-norm):  x ─ rms_norm ─ attention ─(+)─ rms_norm ─ FFN ─(+)─ …
 
 The FFN is the dense SwiGLU MLP, or on a MoE config (Qwen3-MoE) the
-expert MLP of ``ops/moe.moe_tp_fwd_local`` at one rank.
+TP-MoE of ``ops/moe.moe_tp_fwd_local`` (on a TP group: the ring form in
+the ``"overlap"`` prefill, the replicated ``"ar"`` form in decode).
 
 Decode runs over the paged cache (``dense_decode_step_paged``, K2) or the
 linear cache (:func:`dense_decode_step`: one host position for the whole
@@ -31,7 +32,7 @@ The decode steps take ``ar_state``: every ``"ar"`` reduction then rides
 the barrier-free parity stream (:func:`make_ar_stream_fn`), or, with
 ``fused_gemm_ar`` on the linear step, every row-parallel projection runs
 the fused GEMM+AR kernel B11 (:func:`make_gemm_ar_stream_fn`). Refused by
-name: MoE layers over ranks, and the two-tier ``"overlap2d"``.
+name: the two-tier ``"overlap2d"``.
 """
 
 from __future__ import annotations
@@ -136,16 +137,21 @@ def _mlp_or_moe(layer: dict, cfg: ModelConfig, h: torch.Tensor, *,
                 axis: str = "tp", n: int = 1, mode: str = "ar",
                 ar_fn=None, gemm_ar_fn=None, dot_fn=None) -> torch.Tensor:
     """FFN block dispatch: the dense SwiGLU MLP (``dot_fn`` replacing its
-    products), or the MoE expert MLP (whose e4m3 stacks pick their lane
-    by type, as the reference's) at one rank."""
+    products), or the TP-MoE (whose e4m3 stacks pick their lane by type,
+    as the reference's). On a TP group the MoE maps the modes as the
+    reference does: the row-sharded ``"overlap"`` prefill rides the ring
+    pipeline (``"ring"``), the others pass through; ``ar_fn`` (the decode
+    walk's parity AllReduce) sums its ``"ar"`` combine. The fused GEMM+AR
+    hook is the dense MLP's only: without ``ar_fn`` the combine reduces
+    through ``all_reduce_local``."""
     if "moe" in layer:
-        if n > 1:
-            raise ValueError("MoE layers over ranks (ops/moe.py's TP and "
-                             "EP forms, B8) are not ported — a MoE config "
-                             "runs at one rank")
         p = layer["moe"]
+        moe_mode = "ring" if mode == "overlap" and n > 1 else (
+            mode if n > 1 else "overlap")
         return moe_tp_fwd_local(h, p["router"], p["w_gate"], p["w_up"],
-                                p["w_down"], cfg.num_experts_per_tok)
+                                p["w_down"], cfg.num_experts_per_tok,
+                                axis=axis, num_ranks=n, mode=moe_mode,
+                                ar_fn=ar_fn)
     return tp_mlp_fwd(layer["mlp"], h, axis=axis, num_ranks=n, mode=mode,
                       ar_fn=ar_fn, gemm_ar_fn=gemm_ar_fn, dot_fn=dot_fn)
 

@@ -53,9 +53,13 @@ parity-stream AllReduce over a persistent workspace per batch shape
 (:meth:`Engine._ar_state`; ``TDTPU_AR_STREAM=0`` opts out), and on the
 linear step, where :meth:`Engine._use_fused_gemm_ar` says so
 (``TDTPU_GEMM_AR=1``, or a measured win), every row-parallel projection
-runs the fused GEMM+AR kernel B11 instead. The ranks compute
-bit-identical logits; the engine returns rank 0's tokens. Refused by
-name at n > 1: MoE configs, the megakernel, and the two-tier
+runs the fused GEMM+AR kernel B11 instead. A MoE config runs the TP-MoE
+of ``ops/moe.py`` in each layer: the ring form in the ``"overlap"``
+prefill (its tail the ring reduce-scatter), the replicated form reduced
+by the parity stream in decode (``models/dense._mlp_or_moe``). The ranks
+compute bit-identical logits; the engine returns rank 0's tokens.
+Refused by name at n > 1: the megakernel (on a MoE config too: its
+multi-rank task types 4 and 22 are not ported), and the two-tier
 ``"overlap2d"`` (``layers/tp_mlp``).
 """
 
@@ -106,10 +110,12 @@ class Engine:
     ``device=None`` means the card and raises without CUDA; pass
     ``device="cpu"`` for the CPU (the kernels' plain versions run there).
     ``params`` (from ``init_dense_llm`` or ``params_from_numpy``) are
-    moved to ``device`` if they live elsewhere. ``backend``: ``"auto"``,
-    ``"xla"`` or ``"megakernel"``; ``page_size``: None decodes through the
-    linear cache, a size through the paged one; ``kv_dtype``: the paged
-    pools' type (see the module docstring). ``prefill_fn(params, cfg,
+    moved to ``device`` if they live elsewhere; on a TP group they may
+    also be the ranks' shards, a list (``models/convert.shard_params``,
+    which can shard a tree too large to keep twice: ``consume=True``).
+    ``backend``: ``"auto"``, ``"xla"`` or ``"megakernel"``; ``page_size``:
+    None decodes through the linear cache, a size through the paged one;
+    ``kv_dtype``: the paged pools' type (see the module docstring). ``prefill_fn(params, cfg,
     ids, cache)`` and ``decode_fn(params, cfg, tokens, cache)`` replace the
     dense forward (the paged lane keeps ``dense_decode_step_paged`` unless
     ``decode_fn`` is given)."""
@@ -153,15 +159,17 @@ class Engine:
         self.max_pages = (None if page_size is None
                           else -(-max_seq // page_size))
         if self.n > 1:
-            if cfg.is_moe:
-                raise ValueError(
-                    "MoE over ranks (the TP and EP MoE forms, B8) is not "
-                    "ported — serve a MoE config at one rank")
             if cfg.num_kv_heads % self.n:
                 raise ValueError(f"num_kv_heads {cfg.num_kv_heads} not "
                                  f"divisible by TP degree {self.n}")
             self.param_specs = dense_llm_specs(cfg, axis)
-            self.rank_params = shard_params(params, ctx, cfg, axis=axis)
+            if isinstance(params, list):
+                if len(params) != self.n:
+                    raise ValueError(f"{len(params)} rank shards for a TP "
+                                     f"group of {self.n} — argument params")
+                self.rank_params = params
+            else:
+                self.rank_params = shard_params(params, ctx, cfg, axis=axis)
             self.params = None      # per rank: rank_params
         else:
             self.params = _to_device(params, self.device)

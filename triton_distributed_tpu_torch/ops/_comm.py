@@ -1,7 +1,7 @@
 """What the collective wrappers share: the kernels of
-``csrc/collectives.cu`` and ``csrc/gemm_comm.cu``, their launch, the
-payload checks, the CPU rendezvous through a symmetric buffer's slots,
-and the straggler hook.
+``csrc/collectives.cu``, ``csrc/all_to_all.cu`` and ``csrc/gemm_comm.cu``,
+their launch, the payload checks, the CPU rendezvous through a symmetric
+buffer's slots, and the straggler hook.
 
 A wrapper takes the kernel only for a CUDA tensor and the plain version
 only for a CPU tensor; nothing falls back.
@@ -23,6 +23,8 @@ from triton_distributed_tpu_torch.runtime.context import (
 from triton_distributed_tpu_torch.runtime.symm import SymmBuffer
 
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# The byte-copy kernels (the all-gathers, the AllToAll) carry any of these.
+COPY_DTYPES = (torch.float32, torch.bfloat16, torch.float8_e4m3fn)
 
 _GROUP_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int,
                                         ctypes.c_ulonglong, ctypes.c_longlong,
@@ -40,6 +42,16 @@ AG_RING_KERNEL = CudaKernel("collectives.cu", "tdt_ag_ring",
 TREE_KERNEL = CudaKernel("collectives.cu", "tdt_ar_tree",
                          _GROUP_ARGS + [ctypes.c_int] * 3
                          + [ctypes.c_void_p])
+AG_FULL_MESH_KERNEL = CudaKernel("collectives.cu", "tdt_ag_full_mesh",
+                                 _GROUP_ARGS + [ctypes.c_void_p])
+# B8, the EP AllToAll (csrc/all_to_all.cu): the barrier form and the
+# parity stream.
+_A2A_ARGS = ([ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int,
+                                      ctypes.c_ulonglong, ctypes.c_longlong]
+             + [ctypes.c_void_p] * 4 + [ctypes.c_longlong]
+             + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+A2A_KERNEL = CudaKernel("all_to_all.cu", "tdt_a2a", _A2A_ARGS)
+A2A_PARITY_KERNEL = CudaKernel("all_to_all.cu", "tdt_a2a_parity", _A2A_ARGS)
 # The fused GEMM + communication kernels B9 (AG+GEMM), B10 (GEMM+RS) and
 # B11 (GEMM+AR): one entry, one CudaKernel each, so each counts its own.
 _GEMM_COMM_ARGS = ([ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int,
@@ -61,7 +73,8 @@ STREAMS = CudaKernel("collectives.cu", "tdt_stream_create",
 
 COLLECTIVE_KERNELS = (ONE_SHOT_KERNEL, PARITY_KERNEL, RS_RING_KERNEL,
                       AG_RING_KERNEL, TREE_KERNEL, AG_GEMM_KERNEL,
-                      GEMM_RS_KERNEL, GEMM_AR_KERNEL)
+                      GEMM_RS_KERNEL, GEMM_AR_KERNEL, AG_FULL_MESH_KERNEL,
+                      A2A_KERNEL, A2A_PARITY_KERNEL)
 _GEMM_OP = {AG_GEMM_KERNEL: 0, GEMM_RS_KERNEL: 1, GEMM_AR_KERNEL: 2}
 
 
@@ -83,17 +96,19 @@ def rank_of(axis: str, num_ranks: int | None) -> tuple[DistContext, int, int]:
     return ctx, rank, n
 
 
-def check_payload(ctx: DistContext, rank: int, x: torch.Tensor, what: str
-                  ) -> torch.Tensor:
-    """The kernels take a 2-D float32 / bfloat16 payload of whole 16-byte
-    vectors, contiguous and 16-byte aligned, on the rank's device. A
-    misaligned or strided view is copied once; anything else raises."""
-    if x.dim() != 2:
-        raise ValueError(f"{what}: payload must be (rows, cols), got "
+def check_payload(ctx: DistContext, rank: int, x: torch.Tensor, what: str,
+                  *, copy: bool = False, dims: int = 2) -> torch.Tensor:
+    """The kernels take a ``dims``-D float32 / bfloat16 payload (``copy``:
+    a byte copy, so float8_e4m3fn too) of whole 16-byte vectors,
+    contiguous and 16-byte aligned, on the rank's device. A misaligned or
+    strided view is copied once; anything else raises."""
+    if x.dim() != dims:
+        raise ValueError(f"{what}: payload must have {dims} dims, got "
                          f"{tuple(x.shape)}")
-    if x.dtype not in DTYPE_CODE:
-        raise ValueError(f"{what}: dtype {x.dtype} unsupported (float32 or "
-                         "bfloat16)")
+    ok = COPY_DTYPES if copy else tuple(DTYPE_CODE)
+    if x.dtype not in ok:
+        raise ValueError(f"{what}: dtype {x.dtype} unsupported "
+                         f"({', '.join(str(d) for d in ok)})")
     if x.device != ctx.devices[rank]:
         raise ValueError(f"{what}: rank {rank}'s payload on {x.device}, its "
                          f"device is {ctx.devices[rank]}")
@@ -132,6 +147,24 @@ def _launch_at_meeting(kernel: CudaKernel, buf: SymmBuffer, rank: int,
             kernel.launch(*args)
 
     buf.ctx.meet(rank, what, act)
+
+
+def launch_a2a(kernel: CudaKernel, buf: SymmBuffer, rank: int, epoch: int,
+               send: torch.Tensor, send_splits: torch.Tensor,
+               out: torch.Tensor, out_splits: torch.Tensor, *, block: int,
+               spl_stride: int) -> None:
+    """One AllToAll launch (``csrc/all_to_all.cu``) at the rank group's
+    meeting, as :func:`launch`. ``epoch``: the barrier form's epoch, or
+    the parity form's call index."""
+    ctx = buf.ctx
+    n, cap = send.shape[0], send.shape[1]
+    row_bytes = send[0, 0].numel() * send.element_size()
+    _launch_at_meeting(kernel, buf, rank, send.device, "a2a.launch", (
+        ptr(buf.table[rank]), ptr(buf.signal_table[rank]),
+        ptr(ctx.error_word(rank)), rank, n, epoch, int(ctx.timeout_s * 1e9),
+        ptr(send), ptr(send_splits), ptr(out), ptr(out_splits), row_bytes,
+        cap, block, send_splits.shape[1], spl_stride,
+        current_stream(send.device)))
 
 
 def launch_gemm_comm(kernel: CudaKernel, buf: SymmBuffer, rank: int,

@@ -1,18 +1,21 @@
-"""Ring all-gather over the rank group — counterpart of the JAX
-package's ``ops/allgather.py``: kernel B4 in its ring form
-(``_ag_ring_kernel``) as hand-written CUDA in ``csrc/collectives.cu``
-(``ag_ring``).
+"""All-gather over the rank group — counterpart of the JAX package's
+``ops/allgather.py``: kernel B4 in its ring form (``_ag_ring_kernel``) and
+its full-mesh push (``_ag_full_mesh_push_kernel``) as hand-written CUDA in
+``csrc/collectives.cu`` (``ag_ring``, ``ag_full_mesh``).
 
 The ring forwards, at step s, the chunk received at step s-1 (its own at
 s = 0) to the right neighbour; the symmetric gather buffer doubles as the
 transport, so chunks land in their final slots, and each rank copies the
-gathered buffer out at the end. A block-scope barrier at entry protects
-the buffer across calls.
+gathered buffer out at the end. The full-mesh push stores each rank's
+chunk into its slot of every peer's gather buffer in one hop (AUTO's
+pick at n <= 2 and for small payloads: the sequential ``"overlap"``
+TP-MoE gathers its tokens through it). Both open with a block-scope
+barrier that protects the buffer across calls, and both give the same
+bits (a copy).
 
-Not ported, refused by name: ``FULL_MESH_PUSH``
-(``_ag_full_mesh_push_kernel``) and the barrier-free ``all_gather_stream``
-(``_ag_parity_kernel``) — neither is on the serving path. ``XLA`` (the
-JAX package's ``jax.lax.all_gather``) is a plain gather through the rank
+Not ported, refused by name: the barrier-free ``all_gather_stream``
+(``_ag_parity_kernel``) — no path of the port runs it. ``XLA`` (the JAX
+package's ``jax.lax.all_gather``) is a plain gather through the rank
 group.
 """
 
@@ -23,8 +26,8 @@ import enum
 import torch
 
 from triton_distributed_tpu_torch.ops._comm import (
-    AG_RING_KERNEL, CollectiveUnsupportedError, check_payload, launch,
-    push_slots, rank_of,
+    AG_FULL_MESH_KERNEL, AG_RING_KERNEL, CollectiveUnsupportedError,
+    check_payload, launch, push_slots, rank_of,
 )
 from triton_distributed_tpu_torch.runtime.context import (
     DistContext, get_context, group_all_gather,
@@ -57,25 +60,30 @@ def get_auto_all_gather_method(nbytes: int, num_ranks: int, spec=None
 
 
 def ag_plain(xs) -> torch.Tensor:
-    """Plain version of the ring AG: the ranks' chunks in rank order."""
+    """Plain version of the ring AG and the full-mesh push: the ranks'
+    chunks in rank order."""
     return torch.cat(list(xs), dim=0)
 
 
-def _ag_ring(x: torch.Tensor, n: int, ctx: DistContext, rank: int
-             ) -> torch.Tensor:
+def _ag_kernel(kernel, x: torch.Tensor, n: int, ctx: DistContext,
+               rank: int) -> torch.Tensor:
+    """The ring (``AG_RING_KERNEL``) or the full-mesh push
+    (``AG_FULL_MESH_KERNEL``) on a CUDA tensor, their plain version on a
+    CPU one. Both are byte copies, so e4m3 rides them too."""
     m, cols = x.shape
-    buf = symm_zeros(ctx, (n, m, cols), x.dtype, tag="ag_ring")
+    tag = "ag_ring" if kernel is AG_RING_KERNEL else "ag_full_mesh"
+    buf = symm_zeros(ctx, (n, m, cols), x.dtype, tag=tag)
     if x.device.type == "cuda":
-        x = check_payload(ctx, rank, x, "all_gather")
+        x = check_payload(ctx, rank, x, "all_gather", copy=True)
         out = torch.empty((n * m, cols), dtype=x.dtype, device=x.device)
-        launch(AG_RING_KERNEL, buf, rank, buf.next_epoch(rank), x, out,
+        launch(kernel, buf, rank, buf.next_epoch(rank), x, out,
                m * cols * x.element_size())
         return out
     if x.device.type != "cpu":
         raise ValueError(f"all_gather: no kernel for device {x.device}")
-    AG_RING_KERNEL.count_plain()
-    ctx.barrier(rank, "ag_ring.entry")
-    push_slots(ctx, rank, buf, x, rank, "ag_ring.data")
+    kernel.count_plain()
+    ctx.barrier(rank, f"{tag}.entry")
+    push_slots(ctx, rank, buf, x, rank, f"{tag}.data")
     return ag_plain(buf.tensors[rank])
 
 
@@ -99,11 +107,8 @@ def all_gather_local(x_local: torch.Tensor, axis: str = "tp",
     if method == AllGatherMethod.XLA:
         return group_all_gather(x_local, axis=axis, num_ranks=n)
     if method == AllGatherMethod.FULL_MESH_PUSH:
-        raise CollectiveUnsupportedError(
-            "all-gather method 'full_mesh_push' (ops/allgather.py:66 "
-            "_ag_full_mesh_push_kernel) is not ported — pin "
-            "method='ring_1d'")
-    return _ag_ring(x_local, n, ctx, rank)
+        return _ag_kernel(AG_FULL_MESH_KERNEL, x_local, n, ctx, rank)
+    return _ag_kernel(AG_RING_KERNEL, x_local, n, ctx, rank)
 
 
 def all_gather_stream(*args, **kwargs):

@@ -29,7 +29,8 @@ opt-in (``TDTPU_AUTOTUNE_COMM=1``, :func:`comm_autotune_enabled`) and
 cached by shape, rank count and card: :func:`tuned_gemm_ar_path` races
 the decode step's row-parallel projection as dot + parity AR, the fused
 GEMM+AR kernel B11 and the plain sum; :func:`tune_ag_gemm` picks the
-AG+GEMM's sub-block depth with the real AG in the loop.
+AG+GEMM's sub-block depth with the real AG in the loop;
+:func:`tuned_a2a_block_rows` the AllToAll's block of rows.
 """
 
 from __future__ import annotations
@@ -328,6 +329,36 @@ def tune_ag_gemm(xs, bs, ctx, axis: str = "tp"):
 
     try:
         best, _ = contextual_autotune("ag_gemm", key, cands, build, ())
+    except RuntimeError:
+        return None
+    return best
+
+
+def tuned_a2a_block_rows(sends, splits, ctx, axis: str = "tp"):
+    """The AllToAll's block of rows measured on the rank group (reference
+    ``tuned_a2a_block_rows``): the default block and its double and
+    quadruple where they divide the slot capacity, each timed as a whole
+    ``fast_all_to_all`` on every rank and cached by (shapes, type, n,
+    card). ``sends`` / ``splits``: the ranks' send buffers (n, cap, h)
+    and splits. None when every candidate fails (the default stands)."""
+    from triton_distributed_tpu_torch.ops.all_to_all import (
+        default_block_rows, fast_all_to_all,
+    )
+
+    n = ctx.axis_size(axis)
+    cap = sends[0].shape[1]
+    base = default_block_rows(sends[0].dtype)
+    cands = [b for b in (base, 2 * base, 4 * base) if cap % b == 0] or [base]
+    key = (tuple(sends[0].shape), tuple(splits[0].shape),
+           str(sends[0].dtype), n, _device_name(ctx))
+
+    def build(b):
+        return lambda: fast_all_to_all(sends, splits, ctx, axis=axis,
+                                       block_rows=b)[0][0]
+
+    try:
+        best, _ = contextual_autotune("a2a_block_rows", key, cands, build,
+                                      ())
     except RuntimeError:
         return None
     return best

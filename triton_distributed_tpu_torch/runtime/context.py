@@ -36,9 +36,11 @@ caller already synchronises, at step end — raises the same error.
 
 XLA-level collectives of the JAX package (the logits' ``all_gather``,
 ``psum`` in the ``xla_rep`` mode, ``all_gather`` and ``psum_scatter`` in
-the row-sharded ``xla`` mode) are plain tensor copies through the group
-here (:func:`group_all_gather`, :func:`group_psum`,
-:func:`group_psum_scatter`), just as plain matmuls stay ``torch.matmul``.
+the row-sharded ``xla`` mode, the MoE ring's ``ppermute``, the AllToAll
+splits' ``all_to_all``) are plain tensor copies through the group here
+(:func:`group_all_gather`, :func:`group_psum`, :func:`group_psum_scatter`,
+:func:`group_ppermute`, :func:`group_all_to_all`), just as plain matmuls
+stay ``torch.matmul``.
 """
 
 from __future__ import annotations
@@ -538,6 +540,40 @@ def group_psum(x: torch.Tensor, *, axis: str = "tp",
     for p in parts[1:]:
         acc = acc + p.to(x.device)
     return acc
+
+
+def group_ppermute(x: torch.Tensor, perm, *, axis: str = "tp",
+                   num_ranks: int | None = None) -> torch.Tensor:
+    """Plain permutation through the rank group (the JAX package's
+    ``jax.lax.ppermute``): ``perm`` lists (source, destination) pairs;
+    this rank gets the ``x`` of the source that names it, or zeros when
+    none does. Every rank calls it with the same ``perm``."""
+    ctx, rank = current_rank()
+    _check_axis(ctx, axis, num_ranks)
+    parts = ctx.exchange(rank, x, "ppermute")
+    src = [s for s, d in perm if d == rank]
+    if len(src) > 1:
+        raise ValueError(f"ppermute: rank {rank} is the destination of "
+                         f"{src} — argument perm")
+    return parts[src[0]].to(x.device) if src else torch.zeros_like(x)
+
+
+def group_all_to_all(x: torch.Tensor, *, axis: str = "tp",
+                     num_ranks: int | None = None) -> torch.Tensor:
+    """Plain all-to-all through the rank group (the JAX package's
+    ``jax.lax.all_to_all(x, axis, split_axis=0, concat_axis=0,
+    tiled=True)``): ``x``'s rows cut into n equal chunks, chunk p sent to
+    rank p; this rank's result is the chunks it received, in rank
+    order."""
+    ctx, rank = current_rank()
+    n = _check_axis(ctx, axis, num_ranks)
+    if x.shape[0] % n:
+        raise ValueError(f"all_to_all: rows {x.shape[0]} not divisible by "
+                         f"num_ranks {n}")
+    rows = x.shape[0] // n
+    parts = ctx.exchange(rank, x, "all_to_all")
+    return torch.cat([p[rank * rows:(rank + 1) * rows].to(x.device)
+                      for p in parts], dim=0)
 
 
 def group_psum_scatter(x: torch.Tensor, *, axis: str = "tp",
