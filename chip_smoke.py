@@ -905,15 +905,16 @@ def linear_case(torch, mk, mkserv, timer, *, name, dtype, cfg, seed,
     attn_tol = TOL["fp32" if fp32 else "megakernel_attn_bf16"]
     per_pos, by_type, share, ok = [], {}, 0.0, True
     launch = None
+    wsm, ws8 = dec.weights()
     for pos in LIN_POSITIONS:
         ws_s = ws0.clone()
-        queue = dec.stage(ws_s, [17 + pos], pos)
+        queue = dec.queue_at(pos)
+        dec.put_inputs(ws_s, [17 + pos], pos)
         ws_k, ws_p = ws_s.clone(), ws_s.clone()
-        launch = mk.cuda_launcher(queue, ws_k, dec._wsm, ws8=dec._ws8,
-                                  live_rows=1, sync_before=comp.sync_before,
-                                  **kw)
+        launch = mk.cuda_launcher(queue, ws_k, wsm, ws8=ws8, live_rows=1,
+                                  sync_before=comp.sync_before, **kw)
         launch()
-        mk.run_queue_plain(queue, ws_p, dec._wsm, ws8=dec._ws8, **kw)
+        mk.run_queue_plain(queue, ws_p, wsm, ws8=ws8, **kw)
         torch.cuda.synchronize()
         (gc_, ga), (wc, wa) = views(ws_k), views(ws_p)
         _, act = _errs(ga, wa, tol)
@@ -959,7 +960,7 @@ def linear_case(torch, mk, mkserv, timer, *, name, dtype, cfg, seed,
                                                      _dtype_name(dtype))
         rec["ms"] = timer.ms(launch)
         rec["plain_ms"] = timer.ms(lambda: mk.run_queue_plain(
-            queue, ws_p, dec._wsm, ws8=dec._ws8, **kw), iters=2, warmup=1)
+            queue, ws_p, wsm, ws8=ws8, **kw), iters=2, warmup=1)
         rec["library_ms"] = None     # no single PyTorch call runs a step
     return rec
 
@@ -1431,7 +1432,8 @@ def moe_eager_case(torch, mk, mkmodels, mkserv, *, cfg, seed, batch=4,
     x1n = rms_norm(x1, lay["mlp_norm"], eps)
     m = lay["moe"]
     want = x1 + moe_tp_fwd_local(x1n, m["router"], m["w_gate"], m["w_up"],
-                                 m["w_down"], cfg.num_experts_per_tok)
+                                 m["w_down"], cfg.num_experts_per_tok,
+                                 num_ranks=1)
     _, _, gs, _, _ = route_and_sort(x1n, m["router"], cfg.num_experts_per_tok)
     eager_experts = sorted(torch.nonzero(gs).flatten().tolist())
     topk_row = next(r for r in queue[:comp.num_exec]
@@ -2089,13 +2091,13 @@ def phase_fp8_experts(torch, gemm, moe, QWEN3_30B_A3B, init_dense_llm,
     args = (x, p["router"], p["w_gate"], p["w_up"], p["w_down"],
             cfg.num_experts_per_tok)
     gemm.GEMM_KERNEL.launches = 0
-    got = moe.moe_tp_fwd_local(*args)
+    got = moe.moe_tp_fwd_local(*args, num_ranks=1)
     launches = gemm.GEMM_KERNEL.launches
     kernel_matmul = moe.pallas_matmul
     moe.pallas_matmul = (lambda a, b, out_dtype:
                          gemm.matmul_plain(a, b, out_dtype))
     try:
-        want = moe.moe_tp_fwd_local(*args)
+        want = moe.moe_tp_fwd_local(*args, num_ranks=1)
     finally:
         moe.pallas_matmul = kernel_matmul
     torch.cuda.synchronize()
@@ -2556,12 +2558,14 @@ def linear_decode_run(torch, mk, dec, cache, tok, gen, mega, timer, cfg,
     comp = dec.comp
     kw = dict(num_exec=comp.num_exec, mat_specs=comp.mat_specs,
               head_dim=comp.head_dim)
-    queue = dec.stage(ws, tok, pos - 1)
-    launch = mk.cuda_launcher(queue, ws, dec._wsm, ws8=dec._ws8, live_rows=1,
+    queue = dec.queue_at(pos - 1)
+    dec.put_inputs(ws, tok, pos - 1)
+    wsm, ws8 = dec.weights()
+    launch = mk.cuda_launcher(queue, ws, wsm, ws8=ws8, live_rows=1,
                               sync_before=comp.sync_before, **kw)
     ms = timer.ms(launch, iters=5)
     plain_ms = timer.ms(lambda: mk.run_queue_plain(
-        queue, ws.clone(), dec._wsm, ws8=dec._ws8, **kw), iters=1, warmup=1)
+        queue, ws.clone(), wsm, ws8=ws8, **kw), iters=1, warmup=1)
     nbytes, flops = _mk_bound(cfg, [pos - 1], weight_item, 1,
                               ws.element_size())
     bound, bound_by = _bound_ms(nbytes, flops, _dtype_name(ws.dtype))
@@ -2594,7 +2598,7 @@ def profile_stamp(torch, mk, dec, ws, tok, pos, launch, mega, timer) -> dict:
     from triton_distributed_tpu_torch.obs import kernel_profile as kp
 
     comp = dec.comp
-    queue = dec.stage(ws.clone(), tok, pos)
+    queue = dec.queue_at(pos)
     ws_a = ws.clone()
     _, tok_a = dec.step(ws_a, tok, pos)
     dec.profile = True
@@ -2614,9 +2618,10 @@ def profile_stamp(torch, mk, dec, ws, tok, pos, launch, mega, timer) -> dict:
           "profile: the profiled step gave another token")
     kw = dict(num_exec=comp.num_exec, mat_specs=comp.mat_specs,
               head_dim=comp.head_dim)
-    launch_p = mk.cuda_launcher(queue, ws_b, dec._wsm, ws8=dec._ws8,
-                                live_rows=1, sync_before=comp.sync_before,
-                                profile=True, **kw)
+    wsm, ws8 = dec.weights()
+    launch_p = mk.cuda_launcher(queue, ws_b, wsm, ws8=ws8, live_rows=1,
+                                sync_before=comp.sync_before, profile=True,
+                                **kw)
     runs = {"plain": [], "profiled": []}
     for name in ("plain", "profiled", "profiled", "plain"):
         runs[name].append(timer.ms(launch if name == "plain" else launch_p,
@@ -4807,7 +4812,8 @@ def phase_ep_moe(torch, params, cfg) -> dict:
                          device="cuda").to(torch.bfloat16)
         p = layers[0]["moe"]
         fn = lambda: moe.moe_tp_fwd_local(  # noqa: E731
-            xt, p["router"], p["w_gate"], p["w_up"], p["w_down"], topk)
+            xt, p["router"], p["w_gate"], p["w_up"], p["w_down"], topk,
+            num_ranks=1)
         fn()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -4855,7 +4861,7 @@ def moe_overlap_layer(torch, cfg) -> dict:
     rows = x.shape[0] // n
     rec = {"ranks": n, "rows_per_rank": rows}
     want = moe.moe_tp_fwd_local(x, p["router"], p["w_gate"], p["w_up"],
-                                p["w_down"], topk)
+                                p["w_down"], topk, num_ranks=1)
     for mode in ("overlap", "ring"):
         def body(r):
             return moe.moe_tp_fwd_local(x[r * rows:(r + 1) * rows],
@@ -5043,6 +5049,663 @@ def phase_tp_moe_parity(torch, QWEN3_30B_A3B, init_dense_llm, Engine,
     return rec
 
 
+# ---------------------------------------------------------------------------
+# The megakernel on a TP group: its AllReduce task types 4 and 22.
+# ---------------------------------------------------------------------------
+
+MK_AR_RANKS = (2, 4, 8)
+MK_AR_ROWS = (1, 4, 128)
+MK_AR_TILES = 32           # a Qwen3-8B activation row: hidden 4096
+MK_AR_TIMEOUT_MS = 20_000  # a rank whose kernel never co-runs ends here
+MK_AR_MAIN = "allreduce_n4_bfloat16_1"
+TP_MK_GEN = 64
+
+
+def mk_ar_modules():
+    import importlib
+
+    names = ("megakernel.kernel", "megakernel.builder", "megakernel.tasks",
+             "runtime.context", "ops._comm")
+    return [importlib.import_module(f"triton_distributed_tpu_torch.{n}")
+            for n in names]
+
+
+def mk_ar_program(dtype, n: int, *, single: bool = True,
+                  force_ar: bool = False, nt: int = MK_AR_TILES):
+    """A hand-built program of the two AllReduce types, compiled for n
+    ranks: ALLREDUCE_ROW over a row of ``nt`` tiles and (``single``) the
+    one-tile ALLREDUCE of one more tile — placed by hand, as the builder
+    no longer emits type 4."""
+    _, builder, tasks, _, _ = mk_ar_modules()
+    mb = builder.MegaKernelBuilder()
+    mb.all_reduce(mb.tensor(tasks.TILE, nt * tasks.TILE))
+    if single:
+        t = mb.tensor(tasks.TILE, tasks.TILE).tile(0, 0)
+        mb._emit(tasks.Task(tasks.TaskType.ALLREDUCE, t), [t], [t])
+    return mb.compile(dtype=dtype, num_ranks=n, force_ar=force_ar)
+
+
+def _mk_ar_plain(mk, comp, ws, r, n, force_ar, tag):
+    group = mk.ar_group(comp.queue, comp.num_exec, ws, num_ranks=n,
+                        axis="tp", max_ar=comp.max_ar, force_ar=force_ar,
+                        ar_tag=tag)
+    mk.run_queue_plain(comp.queue, ws, None, num_exec=comp.num_exec,
+                       mat_specs=(), group=group)
+
+
+def mk_ar_case(torch, timer, *, n: int, dtype, rows: int, seed: int,
+               force_ar: bool = False, time_it: bool = False,
+               devices_for=virtual_devices) -> dict:
+    """Types 22 and 4 on n virtual ranks of cuda:0 (``force_ar``: one rank
+    against itself) at ``rows`` live rows, each rank's tiles drawn from
+    the seed, against the plain version on the same inputs: the live rows
+    bit for bit, every rank's alike, the other rows untouched. A launch
+    that did not run together with its peers' would leave every rank
+    waiting until the deadline (``MK_AR_TIMEOUT_MS``) and raise
+    CommTimeoutError. ``time_it``: ALLREDUCE_ROW alone at this shape, the
+    slowest rank's device time a launch (back to back behind a held
+    stream, L2 not flushed), its byte bound, the plain version's time and
+    ``X.sum(0)`` over the stacked slabs. ``devices_for(n)``: the ranks'
+    devices (one card, or a card a rank)."""
+    mk, _, tasks, context, _ = mk_ar_modules()
+    ctx = context.DistContext([torch.device(d) for d in devices_for(n)],
+                              wait_timeout_ms=MK_AR_TIMEOUT_MS)
+    comp = mk_ar_program(dtype, n, force_ar=force_ar)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    X = torch.randn((n, comp.num_tiles, tasks.TILE, tasks.TILE),
+                    generator=g, device="cuda").to(dtype)
+    name = (f"{'force_ar' if force_ar else 'allreduce'}_n{n}_"
+            f"{_dtype_name(dtype)}_{rows}")
+    ws_k = [X[r].to(ctx.devices[r], copy=True) for r in range(n)]
+    t0 = time.perf_counter()
+    ctx.run(lambda r: comp.step(ws_k[r], live_rows=rows, ar_tag=name))
+    torch.cuda.synchronize()
+    ctx.raise_on_comm_error()
+    wall = time.perf_counter() - t0
+    ws_p = [X[r].to(ctx.devices[r], copy=True) for r in range(n)]
+    ctx.run(lambda r: _mk_ar_plain(mk, comp, ws_p[r], r, n, force_ar,
+                                   name + "-plain"))
+    for d in set(ctx.devices):
+        torch.cuda.synchronize(d)
+    live = [w[:, :rows].to(X.device) for w in ws_k]
+    want = [w[:, :rows].to(X.device) for w in ws_p]
+    same = all(torch.equal(a, b) for a, b in zip(live, want))
+    untouched = all(torch.equal(ws_k[r][:, rows:].to(X.device),
+                                X[r][:, rows:]) for r in range(n))
+    ranks_same = all(torch.equal(live[0], o) for o in live[1:])
+    rec = {"case": name, "n": n, "dtype": _dtype_name(dtype), "rows": rows,
+           "tiles": comp.num_tiles, "force_ar": force_ar,
+           "max_abs_err": max(_max_err(a, b) for a, b in zip(live, want)),
+           "bit_identical": same, "ranks_identical": ranks_same,
+           "other_rows_untouched": untouched, "first_launch_wall_s": wall,
+           "grid_blocks": mk.grid_blocks(
+               dtype, full=True,
+               ranks_on_card=ctx.devices.count(ctx.devices[0])),
+           "ok": bool(same and ranks_same and untouched and all(
+               torch.isfinite(o).all().item() for o in live))}
+    if force_ar:
+        # One rank sums its own slot: x to fp32 and back, exactly x.
+        rec["equals_input"] = torch.equal(live[0], X[0][:, :rows])
+        rec["ok"] = rec["ok"] and rec["equals_input"]
+    if time_it:
+        row = mk_ar_program(dtype, n, single=False, force_ar=force_ar)
+        ws_t = [X[r][:row.num_tiles].to(ctx.devices[r], copy=True)
+                for r in range(n)]
+        launch = ctx.run(lambda r: mk.cuda_launcher(
+            row.queue, ws_t[r], None, num_exec=row.num_exec, mat_specs=(),
+            head_dim=tasks.TILE, sync_before=row.sync_before,
+            live_rows=rows, group=mk.ar_group(
+                row.queue, row.num_exec, ws_t[r], num_ranks=n, axis="tp",
+                max_ar=row.max_ar, force_ar=force_ar, ar_tag=name + "-row")))
+        rec["ms"], rec["host_ms_per_call"] = _coll_ms(
+            torch, ctx, lambda r: launch[r](), 20)
+        ctx.raise_on_comm_error()
+        rec["plain_ms"] = timer.ms(lambda: ctx.run(
+            lambda r: _mk_ar_plain(mk, row, ws_t[r], r, n, force_ar,
+                                   name + "-row-plain")), iters=3)
+        S = torch.stack([w[:, :rows].to(X.device) for w in ws_t])
+        rec["library_ms"] = timer.ms(lambda: S.sum(0))
+        rec["library_call"] = "X.sum(0) over the stacked slabs (one sum)"
+        row_bytes = rows * MK_AR_TILES * tasks.TILE * X.element_size()
+        # Each rank's live rows read once and its reduced rows written
+        # once, all through the one card's HBM (virtual ranks); n - 1 adds
+        # an element — as the collectives' AllReduce bounds count.
+        rec["bound_ms"], rec["bound_by"] = _bound_ms(
+            2 * n * row_bytes, (n - 1) * rows * MK_AR_TILES * tasks.TILE,
+            "float32")
+        rec["bound_note"] = ("each rank's live rows read once and written "
+                             "once, one HBM at 3.35 TB/s")
+    ctx.close()
+    return rec
+
+
+def mk_ar_timeout(torch, n: int = 4, devices_for=virtual_devices) -> dict:
+    """A rank held back on the device (its stream spins 1 s before its
+    launch) under 100 ms deadlines: the others' waits time out, write their
+    error words and run the rest of the launch without waiting; every
+    grid ends and ``raise_on_comm_error`` raises CommTimeoutError."""
+    mk, _, tasks, context, comm = mk_ar_modules()
+    from triton_distributed_tpu_torch.runtime.build import current_stream
+
+    ctx = context.DistContext([torch.device(d) for d in devices_for(n)],
+                              wait_timeout_ms=100)
+    comp = mk_ar_program(torch.bfloat16, n)
+    ws = [torch.ones((comp.num_tiles, tasks.TILE, tasks.TILE),
+                     dtype=torch.bfloat16, device=d) for d in ctx.devices]
+
+    def body(r):
+        # The queue's upload goes first: a host copy queued behind the
+        # spin would hold the rank's thread, and the host meeting (not
+        # the kernel) would time out.
+        launch = mk.cuda_launcher(
+            comp.queue, ws[r], None, num_exec=comp.num_exec, mat_specs=(),
+            head_dim=tasks.TILE, sync_before=comp.sync_before, live_rows=1,
+            group=mk.ar_group(comp.queue, comp.num_exec, ws[r],
+                              num_ranks=n, axis="tp", max_ar=comp.max_ar,
+                              force_ar=False, ar_tag="held-back"))
+        if r == n - 1:
+            comm.SPIN.launch(1_000_000_000, current_stream(ctx.devices[r]))
+        launch()
+
+    t0 = time.perf_counter()
+    raised = None
+    try:
+        ctx.run(body)
+        torch.cuda.synchronize()
+        ctx.raise_on_comm_error()
+    except context.CommTimeoutError as exc:
+        raised = str(exc)
+    for d in set(ctx.devices):
+        torch.cuda.synchronize(d)
+    ctx.close()
+    # The kernel's own deadline names a flag; the host meeting's, the
+    # meeting.
+    return {"n": n, "timeout_ms": 100, "held_back_s": 1.0,
+            "raised": raised, "wall_s": time.perf_counter() - t0,
+            "ok": raised is not None and "flag[" in raised}
+
+
+def phase_megakernel_ar(torch, timer, *, devices_for=virtual_devices,
+                        ranks=MK_AR_RANKS) -> tuple:
+    """Types 4 and 22 on 2, 4 and 8 virtual ranks (``ranks``, on
+    ``devices_for(n)``) in fp32 and bf16 at 1, 4 and 128 live rows and a
+    Qwen3-8B row (32 tiles), bit for bit against the plain version;
+    ``force_ar`` at one rank; the held-back rank. The main case (4 ranks,
+    bf16, 1 row: a decode step's reduction) timed."""
+    cases = []
+    for n in ranks:
+        for dt in (torch.float32, torch.bfloat16):
+            for rows in MK_AR_ROWS:
+                cases.append(mk_ar_case(
+                    torch, timer, n=n, dtype=dt, rows=rows,
+                    seed=100 * n + rows, devices_for=devices_for,
+                    time_it=(n == TP and dt == torch.bfloat16
+                             and rows == 1)))
+    for dt in (torch.float32, torch.bfloat16):
+        cases.append(mk_ar_case(torch, timer, n=1, dtype=dt, rows=1, seed=7,
+                                force_ar=True, time_it=dt == torch.bfloat16,
+                                devices_for=devices_for))
+    return cases, mk_ar_timeout(torch, devices_for=devices_for)
+
+
+def tp_step_vs_plain(torch, mk, dec, ws, tok, pos: int, ctx, tol) -> dict:
+    """One step of a TP linear decoder at ``pos`` by the ranks' kernels
+    (``dec.step``, as the main path launches them) and by the plain
+    version, each rank from the same staged workspace, the plain ranks'
+    AllReduce tasks meeting in slots of their own. Every rank's live row
+    of every tile and its cache tiles in full, elementwise under ``tol``
+    (the largest share one element used, and the final row's error
+    apart); the ranks' final rows bit-identical. ``ws`` is left
+    stepped."""
+    comp = dec.comp
+    queue = dec.queue_at(pos)
+    ctx.run(lambda r: dec.put_inputs(ws[r], tok, pos, r))
+    plain = [w.clone() for w in ws]
+    dec.step(ws, tok, pos)          # stages the same inputs, then launches
+    dec.check_comm()
+    t0 = time.perf_counter()
+    ctx.run(lambda r: mk.run_queue_plain(
+        queue, plain[r], dec.weights(r)[0], num_exec=comp.num_exec,
+        mat_specs=comp.mat_specs, head_dim=comp.head_dim,
+        group=mk.ar_group(queue, comp.num_exec, plain[r], num_ranks=dec.n,
+                          axis="tp", max_ar=comp.max_ar, force_ar=False,
+                          ar_tag="plain")))
+    for d in set(ctx.devices):
+        torch.cuda.synchronize(d)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    cache = sorted(t for h in dec.prog.layers for c in h.kT + h.v
+                   for t in c.tiles())
+    rest = sorted(set(range(comp.num_tiles)) - set(cache))
+    share, err, x_err, finite = 0.0, 0.0, 0.0, True
+    for got, want in zip(ws, plain):
+        ci = torch.tensor(cache, device=got.device)
+        ri = torch.tensor(rest, device=got.device)
+        for a, b in ((got[ci], want[ci]), (got[ri, 0], want[ri, 0])):
+            _, e = _errs(a.float(), b.float(), tol)
+            share = max(share, e["tol_share"])
+            err = max(err, e["max_abs_err"])
+        x_err = max(x_err, _max_err(comp.gather_output(got, dec.prog.x_out)[0],
+                                    comp.gather_output(want,
+                                                       dec.prog.x_out)[0]))
+        finite = finite and bool(torch.isfinite(got[ri, 0]).all())
+    rows = [r.to(ws[0].device) for r in dec.rank_rows(ws)]
+    same = all(torch.equal(rows[0], r) for r in rows[1:])
+    del plain
+    return {"workspace_dtype": _dtype_name(ws[0].dtype), "ranks": dec.n,
+            "layers": len(dec.prog.layers), "pos": pos, "tol": tol,
+            "max_abs_err": err, "final_row_max_abs_err": x_err,
+            "tol_share": share, "ranks_identical": same, "finite": finite,
+            "plain_ms": plain_ms,
+            "ok": bool(share <= 1.0 and same and finite)}
+
+
+def tp_linear_decode_run(torch, mk, dec, caches, tok, gen, mega, cfg,
+                         ctx) -> dict:
+    """``gen - 1`` steps of a TP linear decoder from the ranks' prefilled
+    caches, the megakernel's count set to 0 just before and read just
+    after (one launch a rank a step); each step's wall (synced) and
+    enqueue time; every rank's final row bit-identical; then one step's
+    launches alone (the ranks' kernels back to back behind a held stream,
+    the slowest rank's device time, L2 not flushed) against the one-rank
+    step's byte bound — the 4 ranks stream the weights and KV once
+    together, through one HBM — and the same step by the plain version
+    (``tp_step_vs_plain``: at full depth in bf16 its error is reported;
+    ``tp_megakernel_parity`` holds the step at 2 layers)."""
+    ws = dec.start(caches)
+    pos = int(caches[0].offset)
+    torch.cuda.synchronize()
+    reset_counts([mega])
+    walls, enq, toks = [], [], [int(tok[0])]
+    for _ in range(gen - 1):
+        t0 = time.perf_counter()
+        ws, tok = dec.step(ws, tok, pos)
+        enq.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        toks.append(int(tok[0]))
+        pos += 1
+    dec.check_comm()
+    n = dec.n
+    launches = mega.launches
+    check(launches == n * (gen - 1)
+          and mega.variant_launches.get("allreduce", 0) == launches
+          and mega.plain_calls == 0,
+          f"tp linear decoder: {launches} megakernel launches "
+          f"({mega.variant_launches}) and {mega.plain_calls} plain runs for "
+          f"{gen - 1} tokens on {n} ranks")
+    rows = dec.rank_rows(ws)
+    check(all(torch.equal(rows[0], r) for r in rows[1:]),
+          "tp linear decoder: the ranks' final rows differ")
+    comp = dec.comp
+    queue = dec.queue_at(pos - 1)
+    ctx.run(lambda r: dec.put_inputs(ws[r], tok, pos - 1, r))
+    launch = ctx.run(lambda r: mk.cuda_launcher(
+        queue, ws[r], dec.weights(r)[0], live_rows=1,
+        sync_before=comp.sync_before, num_exec=comp.num_exec,
+        mat_specs=comp.mat_specs, head_dim=comp.head_dim,
+        group=mk.ar_group(queue, comp.num_exec, ws[r], num_ranks=n,
+                          axis="tp", max_ar=comp.max_ar, force_ar=False,
+                          ar_tag=dec.ar_tag)))
+    ms, host_ms = _coll_ms(torch, ctx, lambda r: launch[r](), 5)
+    ctx.raise_on_comm_error()
+    del launch
+    vs = tp_step_vs_plain(torch, mk, dec, ws, tok, pos - 1, ctx,
+                          TOL["megakernel_bf16"])
+    nbytes, flops = _mk_bound(cfg, [pos - 1], ws[0].element_size(), 1)
+    bound, bound_by = _bound_ms(nbytes, flops, _dtype_name(ws[0].dtype))
+    return {"workspace_dtype": _dtype_name(ws[0].dtype), "ranks": n,
+            "tasks_per_rank": comp.num_exec,
+            "allreduce_rows_per_rank": sum(
+                1 for t in comp.queue[:comp.num_exec, 0] if t in (4, 22)),
+            "barriers": int(comp.sync_before.sum()),
+            "decoded_tokens": gen - 1, "launches": launches,
+            "first_step_ms": walls[0] * 1e3,
+            "step_ms": _pct(walls[1:], 50) * 1e3,
+            "enqueue_ms": _pct(enq[1:], 50) * 1e3,
+            "decode_tokens_per_s": (gen - 2) / sum(walls[1:]),
+            "kernel_pos": pos - 1, "ms": ms, "host_ms_per_step": host_ms,
+            "plain_ms": vs["plain_ms"], "bound_ms": bound,
+            "bound_by": bound_by, "bound_bytes": nbytes, "library_ms": None,
+            "vs_plain": dict(vs, note="reported, not held: bf16 stores "
+                                      "compound through every layer; "
+                                      "tp_megakernel_parity holds the "
+                                      "step at 2 layers, fp32 and bf16"),
+            "grid_blocks": mk.grid_blocks(ws[0].dtype, full=True,
+                                          ranks_on_card=n),
+            "ranks_identical": True, "tokens_head": toks[:8]}
+
+
+def force_ar_price(torch, mk, mkserv, mkmodels, cfg, params, cache, tok,
+                   context) -> dict:
+    """The in-kernel AllReduce rung's price on one card: the one-rank bf16
+    linear step (36 layers) against the same step compiled with
+    ``force_ar_tasks`` + ``force_ar`` (2 ALLREDUCE_ROW a layer, each run
+    against the rank itself on a one-rank group), the same weight
+    workspace, each timed back to back behind a held stream."""
+    dec = mkserv.MegakernelDecoder(cfg, params, max_seq=2048,
+                                   dtype=torch.bfloat16)
+    ws = dec.start(cache)
+    pos = int(cache.offset)
+    prog = mkmodels.build_decode_step(
+        hidden=cfg.hidden_size, hq_local=cfg.num_heads,
+        hkv_local=cfg.num_kv_heads, ffn_local=cfg.intermediate_size,
+        num_layers=cfg.num_layers, max_seq=2048, pos=2047,
+        eps=cfg.rms_norm_eps, head_dim=cfg.head_dim, inkernel_append=True,
+        mat_prefetch=True, force_ar_tasks=True)
+    comp = prog.mb.compile(dtype=torch.bfloat16, head_dim=cfg.head_dim,
+                           force_ar=True)
+    check(comp.num_mrows == dec.comp.num_mrows,
+          "force_ar: the weight workspace layout differs")
+    feeds = mkserv.weight_feeds(prog, cfg, params, projections=False)
+    feeds.update(mkserv.cache_feeds(prog, cache))
+    ws_f = comp.make_workspace(comp.split_feeds(feeds)[0])
+    del feeds
+    queue = dec.queue_at(pos)
+    dec.put_inputs(ws, tok, pos)
+    wsm = dec.weights()[0]
+    xt = ws_f[prog.x.base:prog.x.base + prog.x.ct]
+    xt[:, 0, :] = dec.embeds[0][tok.long()].to(ws_f.dtype).view(prog.x.ct, -1)
+    ws_f[prog.cos.base], ws_f[prog.sin.base] = dec._rope(pos, ws_f.device)
+    queue_f = mkmodels.advance_queue_pos(comp.queue, pos,
+                                         num_exec=comp.num_exec)
+    ctx1 = context.DistContext([torch.device("cuda:0")],
+                               wait_timeout_ms=60_000)
+    # Both launchers made in the rank's thread: each launches on the
+    # stream current where it was made, the one the timing holds.
+    plain_launch = ctx1.run(lambda r: mk.cuda_launcher(
+        queue, ws, wsm, live_rows=1, sync_before=dec.comp.sync_before,
+        num_exec=dec.comp.num_exec, mat_specs=dec.comp.mat_specs,
+        head_dim=dec.comp.head_dim))[0]
+    force = ctx1.run(lambda r: mk.cuda_launcher(
+        queue_f, ws_f, wsm, live_rows=1, sync_before=comp.sync_before,
+        num_exec=comp.num_exec, mat_specs=comp.mat_specs,
+        head_dim=comp.head_dim, group=mk.ar_group(
+            queue_f, comp.num_exec, ws_f, num_ranks=1, axis="tp",
+            max_ar=comp.max_ar, force_ar=True, ar_tag="force-ar")))[0]
+    one_ms, _ = _coll_ms(torch, ctx1, lambda r: plain_launch(), 10)
+    force_ms, _ = _coll_ms(torch, ctx1, lambda r: force(), 10)
+    force_ms2, _ = _coll_ms(torch, ctx1, lambda r: force(), 10)
+    one_ms2, _ = _coll_ms(torch, ctx1, lambda r: plain_launch(), 10)
+    ctx1.raise_on_comm_error()
+    x_one = dec.comp.gather_output(ws, dec.prog.x_out)[0].float()
+    x_f = comp.gather_output(ws_f, prog.x_out)[0].float()
+    ctx1.close()
+    n_ar = int((comp.queue[:comp.num_exec, 0] == 22).sum())
+    return {"one_rank_step_ms": [one_ms, one_ms2],
+            "force_ar_step_ms": [force_ms, force_ms2],
+            "allreduce_rows": n_ar,
+            "price_ms_per_step": (force_ms + force_ms2 - one_ms - one_ms2) / 2,
+            "price_ms_per_allreduce": (force_ms + force_ms2 - one_ms
+                                       - one_ms2) / 2 / n_ar,
+            "final_row_max_abs_diff": (x_f - x_one).abs().max().item(),
+            "note": "force_ar stores the o-proj and down rows before the "
+                    "AllReduce and adds the residual in ADD_NORM (no fused "
+                    "epilogue), so its bf16 row may differ by rounding",
+            "finite": bool(torch.isfinite(x_f).all())}
+
+
+def phase_tp_megakernel_engine(torch, mk, mkserv, mkmodels, kernels, Engine,
+                               params, cfg, *, one_rank_bf16_ms,
+                               eager_tp_step_ms, prompt=1024,
+                               gen=TP_MK_GEN) -> dict:
+    """Qwen3-8B at full width and depth through ``Engine(cfg, params, ctx
+    of 4 virtual ranks, backend="megakernel", max_seq=2048).serve``: one
+    1024-token prompt, 64 tokens — the "ar" prefill (the reference's mode
+    on the megakernel), then one megakernel launch a rank a step (float32
+    workspaces, as the engine builds them), its AllReduce rows carrying
+    the 72 reductions a step; no K2, no parity AR, no B11 in the decode.
+    Then ``MegakernelDecoder(dtype=bfloat16, num_ranks=4)`` from the same
+    prefill (step wall, enqueue, the launches alone against the bound),
+    beside the one-rank linear decoder's and the eager TP engine's steps
+    of this call, and the ``force_ar`` one-rank step's price."""
+    comm, context = coll_modules()[0], coll_modules()[4]
+    flash, paged, mega = kernels
+    L = cfg.num_layers
+    ctx = context.initialize_distributed(devices=virtual_devices(TP),
+                                         wait_timeout_ms=60_000)
+    g = torch.Generator(device="cuda").manual_seed(17)
+    ids = torch.randint(0, cfg.vocab_size, (1, prompt), generator=g,
+                        device="cuda", dtype=torch.int32)
+    rec = {"phase": "tp_megakernel_engine", "ranks": TP, "layers": L,
+           "prompt": prompt, "gen": gen, "max_seq": 2048,
+           "note": "4 ranks share one card's SMs and HBM: these times say "
+                   "nothing of four cards"}
+    gc_collect(torch)
+    torch.cuda.reset_peak_memory_stats()
+    eng = Engine(cfg, params, ctx, backend="megakernel", max_seq=2048)
+    check(eng._prefill_mode(1, prompt) == "ar",
+          "tp_megakernel_engine: the prefill does not take 'ar'")
+    t0 = time.perf_counter()
+    eng.serve(ids[:, :128], 4)          # builds the ranks' workspaces
+    torch.cuda.synchronize()
+    rec["first_serve_s"] = time.perf_counter() - t0
+    allk = list(kernels) + list(comm.COLLECTIVE_KERNELS)
+    torch.cuda.synchronize()
+    reset_counts(allk)
+    t0 = time.perf_counter()
+    out = eng.serve(ids, gen)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    steps = gen - 1
+    c = dict(_tp_counts(comm), flash_attention=flash.launches,
+             paged_attention=paged.launches, megakernel=mega.launches,
+             megakernel_allreduce=mega.variant_launches.get("allreduce", 0))
+    check(c["megakernel"] == TP * steps
+          and c["megakernel_allreduce"] == TP * steps,
+          f"tp_megakernel_engine: {c['megakernel']} megakernel launches "
+          f"for {steps} steps on {TP} ranks")
+    check(c["paged_attention"] == 0 and c["allreduce_parity"] == 0
+          and c["gemm_ar"] == 0 and c["flash_attention"] == TP * L,
+          f"tp_megakernel_engine: launches {c}")
+    check(all(k.plain_calls == 0 for k in allk),
+          "tp_megakernel_engine: a plain version ran on the main path")
+    check(tuple(out.shape) == (1, gen) and bool(
+        ((out >= 0) & (out < cfg.vocab_size)).all()),
+        "tp_megakernel_engine: bad output")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = eng.prefill(ids)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    eng.check_comm()
+    check(bool(torch.isfinite(logits).all()),
+          "tp_megakernel_engine: non-finite prefill logits")
+    rec["engine"] = {"workspace_dtype": "float32", "serve_s": serve_s,
+                     "prefill_ms": prefill_s * 1e3,
+                     "decode_ms_per_step": (serve_s - prefill_s) * 1e3 / steps,
+                     "tokens_per_s": gen / serve_s, "launches": c,
+                     "launches_per_rank": {"megakernel": "1 a step",
+                                           "allreduce_rows": f"{2 * L} a "
+                                                             "step, in it"},
+                     "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                     "tokens_head": out[0, :8].tolist()}
+    tok = logits.argmax(-1).to(torch.int32)
+    eng._mk = None
+    gc_collect(torch)
+    torch.cuda.reset_peak_memory_stats()
+    dec = mkserv.MegakernelDecoder(cfg, eng.rank_params, max_seq=2048,
+                                   dtype=torch.bfloat16, ctx=ctx,
+                                   num_ranks=TP)
+    bf16 = tp_linear_decode_run(torch, mk, dec, caches, tok, gen, mega, cfg,
+                                ctx)
+    bf16["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    bf16["one_rank_linear_bf16_step_ms"] = one_rank_bf16_ms
+    bf16["eager_tp_engine_step_ms"] = eager_tp_step_ms
+    rec["bf16"] = bf16
+    del dec, eng, caches
+    ctx.close()
+    gc_collect(torch)
+    one = Engine(cfg, params, max_seq=2048)
+    logits, cache = one.prefill(ids)
+    rec["force_ar"] = force_ar_price(torch, mk, mkserv, mkmodels, cfg, params,
+                                     cache, logits.argmax(-1).to(torch.int32),
+                                     context)
+    del one, cache
+    gc_collect(torch)
+    return rec
+
+
+def tp_moe_program_case(torch, mk, mkserv, mkmodels, init_dense_llm,
+                        QWEN3_30B_A3B, *, n=2, batch=4, pos=100,
+                        devices=None) -> dict:
+    """The MoE decode program on a TP group (reached through the builder,
+    as in the reference): Qwen3-30B-A3B widths at 2 layers, fp32, host-fed
+    caches at ``batch`` rows, n = 2 ranks (16/2 heads and 384 of each
+    expert's 768 ffn columns a rank, the combine summed by ALLREDUCE_ROW)
+    against the one-rank program on the same weights and cache: within
+    the fp32 megakernel tolerance, the same experts in every layer, the
+    ranks' rows bit-identical."""
+    from triton_distributed_tpu_torch.models.kv_cache import init_kv_cache
+
+    context = coll_modules()[4]
+    cfg = dataclasses.replace(QWEN3_30B_A3B, num_layers=2, dtype="float32")
+    params = init_dense_llm(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(23))
+    S = 256
+    g = torch.Generator(device="cuda").manual_seed(29)
+    cache = init_kv_cache(cfg, 1, S)
+    cache = cache._replace(
+        k=torch.randn(cache.k.shape, generator=g, device="cuda") * 0.3,
+        v=torch.randn(cache.v.shape, generator=g, device="cuda") * 0.3)
+    x = torch.zeros((128, cfg.hidden_size), device="cuda")
+    x[:batch] = torch.randn((batch, cfg.hidden_size), generator=g,
+                            device="cuda") * 0.3
+    cos, sin = (torch.from_numpy(t).cuda() for t in
+                mkmodels.rope_tables(pos, cfg.head_dim, cfg.rope_theta))
+
+    def run(num_ranks, ctx):
+        prog = mkmodels.build_decode_step(
+            hidden=cfg.hidden_size, hq_local=cfg.num_heads // num_ranks,
+            hkv_local=cfg.num_kv_heads // num_ranks,
+            ffn_local=cfg.moe_intermediate_size // num_ranks,
+            num_layers=2, max_seq=S, pos=pos, batch=batch,
+            eps=cfg.rms_norm_eps, head_dim=cfg.head_dim,
+            moe_experts=cfg.num_experts, moe_topk=cfg.num_experts_per_tok,
+            num_ranks=num_ranks)
+        comp = prog.mb.compile(num_ranks=num_ranks)
+        wss, wsms = [], []
+        for r in range(num_ranks):
+            feeds = mkserv.weight_feeds(prog, cfg, params, rank=r,
+                                        num_ranks=num_ranks)
+            feeds.update(mkserv.cache_feeds(prog, cache, rank=r,
+                                            num_ranks=num_ranks))
+            feeds.update({prog.x: x, prog.cos: cos, prog.sin: sin})
+            main, _, wm = comp.split_feeds(feeds)
+            dev = ctx.devices[r] if ctx is not None else None
+            wss.append(comp.make_workspace(main, device=dev))
+            wsms.append(comp.make_workspace_mat(wm, device=dev))
+        step = (lambda r: comp.step(wss[r], wsm=wsms[r], live_rows=batch))
+        if ctx is None:
+            step(0)
+        else:
+            ctx.run(step)
+            ctx.raise_on_comm_error()
+        for d in {w.device for w in wss}:
+            torch.cuda.synchronize(d)
+        outs = [comp.gather_output(w, prog.x_out)[:batch].to(x.device)
+                for w in wss]
+        experts = [moe_active(mk, comp, comp.queue, w, batch) for w in wss]
+        sel = [[w[int(row[1])][:cfg.num_experts, :batch].to(x.device) > 0
+                for row in comp.queue[:comp.num_exec]
+                if row[0] == int(mk.TaskType.MOE_TOPK)] for w in wss]
+        return outs, experts, sel
+
+    one, one_experts, one_sel = run(1, None)
+    ctx = context.DistContext(
+        [torch.device(d) for d in (devices or virtual_devices(n))],
+        wait_timeout_ms=60_000)
+    got, experts, sel = run(n, ctx)
+    ctx.close()
+    tol = TOL["fp32"]
+    err = _max_err(got[0], one[0])
+    share = ((got[0] - one[0]).abs()
+             / (tol["atol"] + tol["rtol"] * one[0].abs())).max().item()
+    same_sel = all(torch.equal(a, b) for s in sel
+                   for a, b in zip(s, one_sel[0]))
+    ranks_same = all(torch.equal(got[0], o) for o in got[1:])
+    rec = {"ranks": n, "layers": 2, "batch": batch, "dtype": "float32",
+           "max_abs_err": err, "tol": tol, "tol_share": share,
+           "active_experts": experts[0], "one_rank_active": one_experts[0],
+           "same_experts": same_sel, "ranks_identical": ranks_same,
+           "ok": bool(share <= 1.0 and same_sel and ranks_same
+                      and torch.isfinite(got[0]).all())}
+    del params, cache
+    return rec
+
+
+def phase_tp_megakernel_parity(torch, mk, mkserv, mkmodels, QWEN3_8B,
+                               QWEN3_30B_A3B, init_dense_llm, Engine,
+                               kernels, devices_for=virtual_devices) -> dict:
+    """float32, Qwen3-8B widths cut to 2 layers: ``Engine.serve`` on the
+    megakernel at TP=4 token-identical to TP=1's megakernel serve and to
+    the eager TP=4 serve (the defaults), with one launch a rank a step.
+    Then one step of the engine's decoder, and of a bf16 decoder on the
+    same shards, against the plain version (``tp_step_vs_plain``: every
+    rank's rows under the megakernel's tolerance, the ranks' final rows
+    bit-identical). Then the MoE program at n = 2 against one rank
+    (``tp_moe_program_case``). ``devices_for(n)``: the ranks' devices
+    (virtual ranks on one card, or a card a rank)."""
+    context = coll_modules()[4]
+    flash, paged, mega = kernels
+    cfg = dataclasses.replace(QWEN3_8B, num_layers=2, dtype="float32")
+    params = init_dense_llm(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(3))
+    g = torch.Generator().manual_seed(43)
+    rec = {"phase": "tp_megakernel_parity", "layers": 2, "dtype": "float32",
+           "ranks": TP}
+    ctx = context.initialize_distributed(devices=devices_for(TP),
+                                         wait_timeout_ms=60_000)
+    one = Engine(cfg, params, max_seq=512, backend="megakernel")
+    mk4 = Engine(cfg, params, ctx, max_seq=512, backend="megakernel")
+    eager4 = Engine(cfg, params, ctx, max_seq=512)
+    runs = []
+    for n_prompt, gen in ((37, 24), (203, 16)):
+        prompt = torch.randint(0, cfg.vocab_size, (1, n_prompt), generator=g)
+        want = one.serve(prompt, gen)
+        reset_counts(kernels)
+        got = mk4.serve(prompt, gen)
+        check(mega.launches == TP * (gen - 1) and paged.launches == 0
+              and mega.plain_calls == 0,
+              f"tp_megakernel_parity: {mega.launches} megakernel launches")
+        eager = eager4.serve(prompt, gen)
+        same = bool(torch.equal(got, want)) and bool(torch.equal(eager, want))
+        if not same:
+            emit({"phase": "tp_megakernel_parity", "prompt": n_prompt,
+                  "tp1": want.tolist(), "tp4_megakernel": got.tolist(),
+                  "tp4_eager": eager.tolist()})
+        check(same, f"tp_megakernel_parity: TP=4 tokens differ from TP=1's "
+                    f"({n_prompt}-token prompt)")
+        runs.append({"prompt": n_prompt, "gen": gen, "identical": True})
+    rec["engine_serve"] = runs
+    # One step of the engine's decoder (fp32), then of a bf16 decoder on
+    # the same shards and caches, each held against its plain version.
+    logits, caches = mk4.prefill(prompt)
+    tok = logits.argmax(-1).to(torch.int32)
+    pos = int(caches[0].offset)
+    dec = mk4._mk
+    dec16 = mkserv.MegakernelDecoder(cfg, mk4.rank_params, max_seq=512,
+                                     dtype=torch.bfloat16, ctx=ctx,
+                                     num_ranks=TP)
+    for key, d, tol in (("step_vs_plain", dec, TOL["megakernel_fp32"]),
+                        ("step_vs_plain_bf16", dec16,
+                         TOL["megakernel_bf16"])):
+        rec[key] = tp_step_vs_plain(torch, mk, d, d.start(caches), tok, pos,
+                                    ctx, tol)
+        check(rec[key]["ok"], f"tp_megakernel_parity: the TP={TP} step "
+                              f"against its plain version: {rec[key]}")
+    rec["ranks_identical"] = True
+    del one, mk4, eager4, dec, dec16, caches, params
+    ctx.close()
+    gc_collect(torch)
+    rec["moe_n2"] = tp_moe_program_case(torch, mk, mkserv, mkmodels,
+                                        init_dense_llm, QWEN3_30B_A3B,
+                                        devices=devices_for(2))
+    check(rec["moe_n2"]["ok"],
+          f"tp_megakernel_parity: the MoE program at n = 2: {rec['moe_n2']}")
+    gc_collect(torch)
+    return rec
+
+
 def _summary_entry(kernel, name, replaces, cases, main_case, launches,
                    root) -> dict:
     return {"name": name, "route": "cuda",
@@ -5123,6 +5786,10 @@ def main() -> int:
     cases.update(phase_moe_cases(torch, mk, mkmodels, mkserv, timer,
                                  QWEN3_30B_A3B))
     cases.update(phase_gemm_cases(torch, gemm, timer))
+    cases["megakernel_ar"], ar_timeout = phase_megakernel_ar(torch, timer)
+    check(ar_timeout["ok"], f"megakernel_ar: the held-back rank did not "
+                            f"raise the kernel's CommTimeoutError: "
+                            f"{ar_timeout}")
     L = QWEN3_8B.num_layers
     emit_phase({"phase": "kernels", "tol_reason": TOL_REASON,
                 "launches_per_step": {
@@ -5151,7 +5818,12 @@ def main() -> int:
                     "gemm": f"{7 * L} per step of the fp8 decode "
                             "(dense_decode_step(dot_fn=fp8_dot)); per "
                             "non-empty expert group and projection over "
-                            "e4m3 expert stacks"},
+                            "e4m3 expert stacks",
+                    "megakernel_ar": f"1 launch a rank a step of "
+                                     f"Engine.serve(backend='megakernel') "
+                                     f"on a TP group, {2 * L} "
+                                     "ALLREDUCE_ROW rows in it"},
+                "megakernel_ar_timeout": ar_timeout,
                 "cases": cases})
     bad = [c["case"] for cs in cases.values() for c in cs if not c["ok"]]
     check(not bad, f"kernels disagree with their plain versions: {bad}")
@@ -5250,6 +5922,12 @@ def main() -> int:
                                    params, QWEN3_8B))
     fp8_dec_rec = emit_phase(phase_fp8_decode(
         torch, kernels, gemm.GEMM_KERNEL, Engine, params, QWEN3_8B))
+    gc.collect()
+    torch.cuda.empty_cache()
+    tpmk_rec = emit_phase(phase_tp_megakernel_engine(
+        torch, mk, mkserv, mkmodels, kernels, Engine, params, QWEN3_8B,
+        one_rank_bf16_ms=lin_rec["forms"]["bf16"]["ms"],
+        eager_tp_step_ms=tpe_rec["defaults"]["decode_ms_per_step"]))
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -5272,6 +5950,9 @@ def main() -> int:
                                       Engine, kernels))
     gc.collect()
     torch.cuda.empty_cache()
+    tpmkp_rec = emit_phase(phase_tp_megakernel_parity(
+        torch, mk, mkserv, mkmodels, QWEN3_8B, QWEN3_30B_A3B, init_dense_llm,
+        Engine, kernels))
 
     # Qwen3-MoE: the eager lane at full size, the EP layer and the TP group
     # on the same weights (sharded without a second copy), the MoE decode
@@ -5383,6 +6064,26 @@ def main() -> int:
                        dict(lin_rec["forms"]["bf16"],
                             ms=bf16_prof["profiled_step_ms"]),
                        bf16_prof["launches"], root),
+        # The in-kernel AllReduce: ALLREDUCE_ROW (type 22) timed alone at
+        # the decode shape (4 ranks, bf16, 1 live row x 4096); its cases
+        # hold type 4 (:569) too. Launches: the megakernel launches of the
+        # TP=4 Engine.serve(backend="megakernel") that ran its AllReduce
+        # rows (72 a launch at Qwen3-8B).
+        _summary_entry(mk.MEGA_KERNEL, "megakernel_allreduce",
+                       tpu + "megakernel/kernel.py:601",
+                       cases["megakernel_ar"],
+                       next(c for c in cases["megakernel_ar"]
+                            if c["case"] == MK_AR_MAIN),
+                       tpmk_rec["engine"]["launches"]
+                       ["megakernel_allreduce"], root),
+        # The TP=4 linear decode step (36 layers, bf16 workspaces), the
+        # ranks' launches timed together; launches of its counted run;
+        # the error of the held TP=4 steps (2 layers, fp32 and bf16).
+        _summary_entry(mk.MEGA_KERNEL, "megakernel_tp_linear_bf16",
+                       tpu + "megakernel/kernel.py:39",
+                       [tpmkp_rec["step_vs_plain"],
+                        tpmkp_rec["step_vs_plain_bf16"]],
+                       tpmk_rec["bf16"], tpmk_rec["bf16"]["launches"], root),
     ]
     b1, b8 = moe_step_rec["batch_1"], moe_step_rec["batch_8"]
     moe_cases = cases["megakernel_moe"]

@@ -26,11 +26,22 @@ token-identical to one rank). Ranks are virtual ranks on ``cuda:0``
 unless ``--cards``: then rank r lives on ``cuda:r`` (4 cards, peer
 access; the kernels at n = 2 and 4; their ``bound_ms`` stays the one-card
 HBM bound). ``--moe`` runs only the MoE-over-ranks phases
-(``collectives_a2a`` and, with ``--parity``, ``tp_moe_parity``). Prints
-one JSON line per phase, then the cards' names and power limits. About
-four minutes with the build (``--moe``: about one and a half):
+(``collectives_a2a`` and, with ``--parity``, ``tp_moe_parity``).
+``--megakernel`` runs only the megakernel on a TP group:
+``chip_smoke.phase_megakernel_ar`` (its AllReduce task types 4 and 22 at
+n = 2, 4 and 8 — 2 and 4 with ``--cards`` — in fp32 and bf16, bit for bit
+against the plain version, every rank alike; ``force_ar`` at one rank; a
+held-back rank's CommTimeoutError) and, with ``--parity``,
+``chip_smoke.phase_tp_megakernel_parity`` (float32 2-layer
+``Engine.serve(backend="megakernel")`` on 4 ranks token-identical to one
+rank and to the eager TP serve; one step, fp32 and bf16, against the
+plain version on every rank, the ranks' final rows bit-identical; the
+MoE program at n = 2 against one rank). Prints one JSON line per phase,
+then the cards' names and power limits. About four minutes with the build
+(``--moe``: about one and a half):
 
     python3 scripts/check_port_tp.py [--parity] [--cards] [--moe]
+    python3 scripts/check_port_tp.py --megakernel [--parity] [--cards]
 """
 import importlib
 import json
@@ -61,13 +72,16 @@ def main() -> int:
     pa = importlib.import_module(
         "triton_distributed_tpu_torch.ops.paged_attention")
     comm = importlib.import_module("triton_distributed_tpu_torch.ops._comm")
+    from triton_distributed_tpu_torch.megakernel import kernel as mk
+
+    megakernel = "--megakernel" in sys.argv
     t0 = time.perf_counter()
     srcs = [comm.ONE_SHOT_KERNEL.source_path, comm.A2A_KERNEL.source_path,
-            comm.AG_GEMM_KERNEL.source_path, fa.FLASH_KERNEL.source_path,
-            pa.PAGED_KERNEL.source_path]
+            comm.AG_GEMM_KERNEL.source_path, mk.MEGA_KERNEL.source_path,
+            fa.FLASH_KERNEL.source_path, pa.PAGED_KERNEL.source_path]
     build.build(srcs)
     ptxas = {}
-    for src in srcs[:3]:
+    for src in srcs[:4]:
         log = build.library_path(src).with_suffix(".log").read_text()
         ptxas[src.name] = [ln.strip() for ln in log.splitlines()
                            if "registers" in ln or "spill" in ln]
@@ -91,19 +105,33 @@ def main() -> int:
     else:
         devices_for, ranks = cs.virtual_devices, cs.COLL_RANKS
     moe = "--moe" in sys.argv
-    if not moe:
+    if megakernel:
+        def megakernel_ar():
+            cases, timeout = cs.phase_megakernel_ar(
+                torch, timer, devices_for=devices_for, ranks=ranks)
+            bad = [c["case"] for c in cases if not c["ok"]]
+            if bad or not timeout["ok"]:
+                raise RuntimeError(f"megakernel_ar: {bad} {timeout}")
+            return {"phase": "megakernel_ar_cards" if cards
+                    else "megakernel_ar", "cases": cases,
+                    "timeout": timeout}
+
+        run("megakernel_ar", megakernel_ar)
+    if not moe and not megakernel:
         run("collectives", lambda: cs.phase_collectives(
             torch, timer, fa, pa, devices_for=devices_for, ranks=ranks,
             name="collectives_cards" if cards else "collectives"))
-    run("collectives_a2a", lambda: cs.phase_a2a(
-        torch, timer, devices_for=devices_for, ranks=ranks,
-        name="collectives_a2a_cards" if cards else "collectives_a2a"))
-    if not moe:
+    if not megakernel:
+        run("collectives_a2a", lambda: cs.phase_a2a(
+            torch, timer, devices_for=devices_for, ranks=ranks,
+            name="collectives_a2a_cards" if cards else "collectives_a2a"))
+    if not moe and not megakernel:
         run("collectives_fused", lambda: cs.phase_fused(
             torch, timer, devices_for=devices_for, ranks=ranks,
             name="collectives_fused_cards" if cards else "collectives_fused"))
     if "--parity" in sys.argv:
-        from triton_distributed_tpu_torch.megakernel import kernel as mk
+        from triton_distributed_tpu_torch.megakernel import models as mkmodels
+        from triton_distributed_tpu_torch.megakernel import serving as mkserv
         from triton_distributed_tpu_torch.models.config import (
             QWEN3_8B, QWEN3_30B_A3B,
         )
@@ -112,16 +140,21 @@ def main() -> int:
         from triton_distributed_tpu_torch.serving import ServingEngine
 
         kernels = (fa.FLASH_KERNEL, pa.PAGED_KERNEL, mk.MEGA_KERNEL)
-        if not moe:
+        if megakernel:
+            run("tp_megakernel_parity", lambda: cs.phase_tp_megakernel_parity(
+                torch, mk, mkserv, mkmodels, QWEN3_8B, QWEN3_30B_A3B,
+                init_dense_llm, Engine, kernels, devices_for=devices_for))
+        if not moe and not megakernel:
             run("tp_parity", lambda: cs.phase_tp_parity(
                 torch, QWEN3_8B, init_dense_llm, Engine, ServingEngine,
                 kernels, devices=devices_for(cs.TP)))
             run("tp_engine_parity", lambda: cs.phase_tp_engine_parity(
                 torch, QWEN3_8B, init_dense_llm, Engine, kernels,
                 devices=devices_for(cs.TP)))
-        run("tp_moe_parity", lambda: cs.phase_tp_moe_parity(
-            torch, QWEN3_30B_A3B, init_dense_llm, Engine, ServingEngine,
-            kernels, devices=devices_for(cs.TP)))
+        if not megakernel:
+            run("tp_moe_parity", lambda: cs.phase_tp_moe_parity(
+                torch, QWEN3_30B_A3B, init_dense_llm, Engine, ServingEngine,
+                kernels, devices=devices_for(cs.TP)))
     print(cs.nvidia_smi_all(), flush=True)
     return 1 if failed else 0
 

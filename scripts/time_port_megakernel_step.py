@@ -87,11 +87,13 @@ def linear(mk, mkserv, cfg, *, seed, fp8_weights=False):
         v=torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16),
         offset=0)
     ws0 = dec.start(cache)
-    queue = dec.stage(ws0, [17], 1999)
+    queue = dec.queue_at(1999)
+    dec.put_inputs(ws0, [17], 1999)
     comp = dec.comp
+    wsm, ws8 = dec.weights()
 
     def launcher(ws):
-        return mk.cuda_launcher(queue, ws, dec._wsm, ws8=dec._ws8,
+        return mk.cuda_launcher(queue, ws, wsm, ws8=ws8,
                                 live_rows=1, sync_before=comp.sync_before,
                                 num_exec=comp.num_exec,
                                 mat_specs=comp.mat_specs,

@@ -113,7 +113,8 @@ def test_moe_bf16_vs_jax():
                                                    scale=H ** -0.5)
     wd = _bf(14, E, F, H, scale=F ** -0.5)
     ref = jmoe.moe_tp_fwd_local(x, gw, wg, wu, wd, K, num_ranks=1)
-    got = tmoe.moe_tp_fwd_local(_t(x), _t(gw), _t(wg), _t(wu), _t(wd), K)
+    got = tmoe.moe_tp_fwd_local(_t(x), _t(gw), _t(wg), _t(wu), _t(wd), K,
+                                num_ranks=1)
     assert got.dtype == torch.bfloat16
     _hold(got, ref, 4e-3, 8e-3, 0.005)
 

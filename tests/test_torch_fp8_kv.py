@@ -314,7 +314,7 @@ def test_kv8_queue_word_for_word():
               kv_fp8=True)
     jc = jbuild(paged=True, inkernel_append=True, num_ranks=1,
                 mat_prefetch=True, **kw).mb.compile(head_dim=128)
-    prog = build_decode_step(**kw)
+    prog = build_decode_step(**kw, inkernel_append=True, mat_prefetch=True)
     tc = prog.mb.compile(head_dim=128)
     np.testing.assert_array_equal(tc.queue, np.asarray(jc.queue))
     assert (tc.num_tiles, tc.num_tiles_kv8) == (jc.num_tiles,

@@ -96,7 +96,8 @@ def test_compiled_queue_word_for_word(shape, form):
     cfg, slots, num_pages, max_pages = shape
     kw = dict(_program_kw(cfg, slots, num_pages, max_pages), **FORMS[form])
     jc = _jax_program(kw).mb.compile(head_dim=kw["head_dim"])
-    tc = build_decode_step(**kw).mb.compile(head_dim=kw["head_dim"])
+    tc = build_decode_step(**kw, inkernel_append=True, mat_prefetch=True).mb.compile(
+        head_dim=kw["head_dim"])
     np.testing.assert_array_equal(tc.queue, np.asarray(jc.queue))
     assert tc.num_exec == jc.num_exec
     assert tc.task_rows == jc.task_rows
@@ -126,7 +127,7 @@ def test_barrier_rows_cover_every_hazard_edge(shape, form):
     shared)."""
     cfg, slots, num_pages, max_pages = shape
     tc = build_decode_step(**_program_kw(cfg, slots, num_pages, max_pages),
-                           **FORMS[form]).mb.compile()
+                           **FORMS[form], inkernel_append=True, mat_prefetch=True).mb.compile()
     if FORMS[form].get("kv_fp8"):
         k8 = MegaKernelBuilder._K8_HAZARD
         assert any(t >= k8 and t < MegaKernelBuilder._WM_HAZARD
@@ -168,7 +169,7 @@ def test_workspaces_equal_jax(tiny):
     jprog = _jax_program(kw)
     jc = jprog.mb.compile()
     jmain, _, jwm = jc.split_feeds(jweight_feeds(jprog, jcfg, jparams))
-    prog = build_decode_step(**kw)
+    prog = build_decode_step(**kw, inkernel_append=True, mat_prefetch=True)
     tc = prog.mb.compile()
     main, _, wm = tc.split_feeds(weight_feeds(prog, cfg, tparams))
     ws = tc.make_workspace(main, device="cpu")
@@ -285,27 +286,28 @@ def test_paged_decoder_tokens_vs_jax(decoders):
 
 def test_run_queue_refuses_unported_types():
     """(f) A program naming a type outside the ported set (here the
-    in-kernel AllReduce) is refused before any launch, by name; so is a
-    speculative window wider than the rows the CUDA kernel computes per
-    slot block."""
+    retired GEMM slot; the in-kernel AllReduce, refused here before it was
+    ported, is tests/test_torch_megakernel_tp.py's) is refused before any
+    launch, by name; so is a speculative window wider than the rows the
+    CUDA kernel computes per slot block."""
     mb = MegaKernelBuilder()
     a, out = mb.tensor(TILE, TILE), mb.tensor(TILE, TILE)
     from triton_distributed_tpu_torch.megakernel.tasks import Task
-    mb._emit(Task(TaskType.ALLREDUCE_ROW, out.tile(0, 0), a0=a.tile(0, 0),
+    mb._emit(Task(TaskType.GEMM, out.tile(0, 0), a0=a.tile(0, 0),
                   b0=a.tile(0, 0), k_tiles=1), [a.tile(0, 0)],
              [out.tile(0, 0)])
     comp = mb.compile()
     ws = comp.make_workspace({}, device="cpu")
     calls = MEGA_KERNEL.plain_calls
-    with pytest.raises(MegakernelUnsupportedError, match="ALLREDUCE_ROW"):
+    with pytest.raises(MegakernelUnsupportedError, match="GEMM"):
         comp.step(ws)
-    with pytest.raises(MegakernelUnsupportedError, match="ALLREDUCE_ROW"):
+    with pytest.raises(MegakernelUnsupportedError, match="GEMM"):
         run_queue(comp.queue, ws, None, num_exec=comp.num_exec,
                   mat_specs=())
     assert MEGA_KERNEL.plain_calls == calls        # nothing ran
 
     kw = _program_kw(TINY, 1, 2, 1)
-    prog = build_decode_step(**kw)
+    prog = build_decode_step(**kw, inkernel_append=True, mat_prefetch=True)
     tc = prog.mb.compile()
     q = tc.queue.copy()
     attn = q[:tc.num_exec, 0] == int(TaskType.ATTN_DECODE_PAGED)
@@ -319,7 +321,8 @@ def test_run_queue_refuses_unported_types():
 def test_cuda_wrapper_rejects_without_fallback():
     """A non-CPU workspace never reaches the plain version: run_queue
     launches the kernel (on CUDA) or raises."""
-    tc = build_decode_step(**_program_kw(TINY, 1, 2, 1)).mb.compile()
+    tc = build_decode_step(**_program_kw(TINY, 1, 2, 1),
+                           inkernel_append=True, mat_prefetch=True).mb.compile()
     ws = tc.make_workspace({}, device="meta")
     before = MEGA_KERNEL.plain_calls
     with pytest.raises(ValueError, match="no kernel for device"):

@@ -94,7 +94,8 @@ def _both(cfg, max_seq, fp8, final_norm):
     jc = jbuild(num_ranks=1, inkernel_append=True, fp8_weights=fp8,
                 final_norm=final_norm, mat_prefetch=not fp8,
                 **kw).mb.compile(head_dim=kw["head_dim"])
-    tc = build_decode_step(fp8_weights=fp8, final_norm=final_norm,
+    tc = build_decode_step(inkernel_append=True, mat_prefetch=not fp8,
+                           fp8_weights=fp8, final_norm=final_norm,
                            **kw).mb.compile(head_dim=kw["head_dim"])
     return jc, tc
 
@@ -156,7 +157,8 @@ def test_advance_queue_pos_word_for_word(fp8):
         advance_queue_pos(tc, 5))
     # A program built at a small pos visits too few tiles for a later one.
     kw = dict(_program_kw(TINY, MAX_SEQ), pos=5)
-    short = build_decode_step(fp8_weights=fp8, **kw).mb.compile()
+    short = build_decode_step(inkernel_append=True, mat_prefetch=not fp8,
+                              fp8_weights=fp8, **kw).mb.compile()
     with pytest.raises(ValueError, match="build the program at"):
         advance_queue_pos(short, 200)
     # pos 0 with a cache-only attention task is an all-masked softmax.
@@ -170,7 +172,7 @@ def test_advance_queue_pos_word_for_word(fp8):
     # Page-table data rows must not be misread as tasks.
     paged = build_decode_step(**dict(_program_kw(TINY, MAX_SEQ),
                                      batch=TILE, kv_pool_pages=3,
-                                     table_pages=2)).mb.compile()
+                                     table_pages=2), inkernel_append=True, mat_prefetch=True).mb.compile()
     with pytest.raises(ValueError, match="num_exec"):
         advance_queue_pos(paged.queue, 5)
 
@@ -555,12 +557,13 @@ def test_decoder_step_vs_jax(form, request):
     jws, tws = jdec.start(jcache), tdec.start(tcache)
     np.testing.assert_array_equal(tws.numpy(), np.asarray(jws))
     if kw["fp8_weights"]:
-        assert tdec._wsm is None and tdec._ws8.dtype == torch.float8_e4m3fn
+        wsm, ws8 = tdec.weights()
+        assert wsm is None and ws8.dtype == torch.float8_e4m3fn
         np.testing.assert_array_equal(
-            tdec._ws8.view(torch.uint8).numpy(),
+            ws8.view(torch.uint8).numpy(),
             np.asarray(jdec._ws8).view(np.uint8))
     else:
-        np.testing.assert_array_equal(tdec._wsm.numpy(),
+        np.testing.assert_array_equal(tdec.weights()[0].numpy(),
                                       np.asarray(jdec._wsm))
     pos = len(IDS[0])
     assert tdec.warm is False
@@ -579,9 +582,9 @@ def test_decoder_step_vs_jax(form, request):
     assert ttok.dtype == torch.int32
     np.testing.assert_array_equal(ttok.numpy(), np.asarray(jtok))
     # A second start() reuses the weight workspace and reloads the cache.
-    w_before = tdec._ws8 if kw["fp8_weights"] else tdec._wsm
+    w_before = tdec.weights()[1 if kw["fp8_weights"] else 0]
     tws2 = tdec.start(tcache)
-    assert (tdec._ws8 if kw["fp8_weights"] else tdec._wsm) is w_before
+    assert tdec.weights()[1 if kw["fp8_weights"] else 0] is w_before
     np.testing.assert_array_equal(tws2.numpy(),
                                   np.asarray(jdec.start(jcache)))
     tdec.step(tws2, torch.from_numpy(tok.copy()), pos)
@@ -592,7 +595,7 @@ def test_cache_feeds_pad_head_dim_64(tiny_d64):
     """cache_feeds: kT is the (d, S) transpose, v the (S, d) rows; at
     head_dim 64 both are zero-padded to the 128-wide tile."""
     _, _, cfg, tparams = tiny_d64
-    prog = build_decode_step(**_program_kw(TINY_D64, MAX_SEQ))
+    prog = build_decode_step(**_program_kw(TINY_D64, MAX_SEQ), inkernel_append=True, mat_prefetch=True)
     cache = init_kv_cache(cfg, 1, MAX_SEQ, device="cpu")
     g = torch.Generator().manual_seed(0)
     cache = cache._replace(k=torch.randn(cache.k.shape, generator=g),
@@ -727,7 +730,10 @@ def test_linear_serve_refusals(tiny):
         dec.step(ws, torch.tensor([1]), MAX_SEQ)
     with pytest.raises(ValueError, match="max_seq"):
         dec.start(init_kv_cache(cfg, 1, 128, device="cpu"))
-    with pytest.raises(MegakernelUnsupportedError, match="num_ranks"):
+    # TP decode is ported (tests/test_torch_megakernel_tp.py); this
+    # model's one kv head does not split over 2 ranks, as the reference
+    # refuses it.
+    with pytest.raises(ValueError, match="not divisible by TP degree 2"):
         MegakernelDecoder(cfg, tparams, max_seq=MAX_SEQ, device="cpu",
                           num_ranks=2)
     assert MegakernelDecoder(cfg, tparams, max_seq=MAX_SEQ, device="cpu",
@@ -764,13 +770,23 @@ def test_builder_refusals():
         mb.gemm(w8, a, w8)
     with pytest.raises(ValueError, match="distinct"):
         mb.tensor(TILE, TILE, fp8=True, kv8=True)
-    for tt in (TaskType.ALLREDUCE, TaskType.ALLREDUCE_ROW):
+    # The AllReduce types are ported: at one rank without force_ar they
+    # do nothing, as the reference's do (tests/test_torch_megakernel_tp.py
+    # runs them on rank groups); the retired slots stay refused by name.
+    for tt in (TaskType.ALLREDUCE, TaskType.ALLREDUCE_ROW, TaskType.GEMM,
+               TaskType.ROPE):
         mb2 = MegaKernelBuilder()
         t = mb2.tensor(TILE, TILE)
-        mb2._emit(Task(tt, t.tile(0, 0), a0=t.tile(0, 0)), [], [])
+        mb2._emit(Task(tt, t.tile(0, 0), a0=t.tile(0, 0), k_tiles=1), [],
+                  [])
         comp = mb2.compile()
+        ws = comp.make_workspace({}, device="cpu")
+        ws.normal_(generator=torch.Generator().manual_seed(int(tt)))
+        if tt in PORTED_TYPES:
+            assert torch.equal(comp.step(ws.clone()), ws)
+            continue
         with pytest.raises(MegakernelUnsupportedError, match=tt.name):
-            comp.step(comp.make_workspace({}, device="cpu"))
+            comp.step(ws)
 
 
 def test_kernel_instantiation_follows_the_queue_types():
@@ -785,8 +801,8 @@ def test_kernel_instantiation_follows_the_queue_types():
 
     paged = build_decode_step(**dict(_program_kw(TINY, MAX_SEQ), batch=TILE,
                                      kv_pool_pages=3, table_pages=2,
-                                     kv_fp8=True, spec_window=2)
-                              ).mb.compile()
+                                     kv_fp8=True, spec_window=2),
+                              inkernel_append=True, mat_prefetch=True).mb.compile()
     assert len(paged.queue) > paged.num_exec
     assert not _full_kernel(paged.queue, paged.num_exec)
     assert _kernel_body(paged.queue, paged.num_exec) == 0

@@ -433,8 +433,9 @@ def test_moe_refusals():
                          mat_specs=tc4.mat_specs, head_dim=TILE,
                          sync_before=tc4.sync_before, live_rows=2)
     build_decode_step(batch=1, kv_pool_pages=3, table_pages=2,
-                      **dict(TINY, pos=S - 1))
-    build_decode_step(batch=1, fp8_weights=True, **dict(TINY, pos=S - 1))
+                      **dict(TINY, pos=S - 1), inkernel_append=True, mat_prefetch=True)
+    build_decode_step(batch=1, fp8_weights=True, **dict(TINY, pos=S - 1),
+                      inkernel_append=True)
     with pytest.raises(ValueError, match="num_experts"):
         build_decode_step(batch=TILE + 1, **kw)
     with pytest.raises(ValueError, match="moe_topk"):

@@ -1,7 +1,7 @@
 """Port's mklint vs the JAX package's: the same violation kinds at the same
 sites on every composition of the port's ``COMPOSITIONS`` (the JAX
-package's matrix less ``decode_force_ar``, whose AllReduce tasks are
-multi-rank), on the seeded compiled-artifact violations of
+package's matrix, ``decode_force_ar`` with its AllReduce tasks included),
+on the seeded compiled-artifact violations of
 ``tests/test_mklint.py`` (synthetic artifacts fed to both checkers), and on
 its seeded paged-step violations (each mutation applied to the port's and
 the JAX package's decoder after the same retarget: the queues are word for
@@ -60,8 +60,8 @@ def test_compositions_match_jax(name):
 
 
 def test_compositions_are_the_jax_matrix_less_force_ar():
-    assert set(mklint.COMPOSITIONS) == set(jlint.COMPOSITIONS) - {
-        "decode_force_ar"}
+    # The AllReduce tasks are ported: the matrix now has decode_force_ar.
+    assert set(mklint.COMPOSITIONS) == set(jlint.COMPOSITIONS)
 
 
 def test_cli_all_exits_zero(capsys):

@@ -119,7 +119,7 @@ def test_grouped_products_and_combine_vs_jax(layer):
     jout = jmoe.moe_reduce_rs_local(jact, sort_idx, gs, jnp.asarray(w[2]),
                                     topk_w, M, num_ranks=1)
     tout = moe.moe_reduce_rs_local(tact, tidx, tgs, _t(w[2]),
-                                   _t(topk_w), M)
+                                   _t(topk_w), M, num_ranks=1)
     np.testing.assert_allclose(tout.numpy(), np.asarray(jout), **TOL)
 
 
@@ -128,7 +128,7 @@ def test_moe_tp_fwd_local_vs_jax(layer):
     args = [layer[n] for n in ("x", "gate_w", "w_gate", "w_up", "w_down")]
     want = jmoe.moe_tp_fwd_local(*map(jnp.asarray, args), K, num_ranks=1,
                                  mode="overlap")
-    got = moe.moe_tp_fwd_local(*map(_t, args), K)
+    got = moe.moe_tp_fwd_local(*map(_t, args), K, num_ranks=1)
     assert got.shape == (M, H) and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
@@ -298,12 +298,13 @@ def test_moe_refusals(layer):
     # Two ranks and mode 'ring', once refused here, now run: at n = 2 (CPU
     # rank threads) the ranks' row halves put together equal the one-rank
     # FFN; mode 'ring' at n = 1 is the one-rank FFN itself.
-    one = moe.moe_tp_fwd_local(*args, K)
+    one = moe.moe_tp_fwd_local(*args, K, num_ranks=1)
     ctx = DistContext([torch.device("cpu")] * 2, wait_timeout_ms=60_000)
     two = moe.moe_tp_fwd(*args, K, ctx, mode="ring")
     ctx.close()
     np.testing.assert_allclose(torch.cat(two).numpy(), one.numpy(), **TOL)
-    assert torch.equal(moe.moe_tp_fwd_local(*args, K, mode="ring"), one)
+    assert torch.equal(moe.moe_tp_fwd_local(*args, K, num_ranks=1,
+                                            mode="ring"), one)
     # A MoE geometry the megakernel could tile (head_dim 128): refused for
     # being MoE, as the JAX package's validate_megakernel_cfg refuses it.
     cfg = tiny_config(hidden_size=256, num_heads=2, num_kv_heads=1,

@@ -20,7 +20,7 @@ from triton_distributed_tpu_torch.runtime import build
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "triton_distributed_tpu_torch").rglob("*.py")) \
-    + [ROOT / "chip_smoke.py"]
+    + [ROOT / "chip_smoke.py"] + sorted((ROOT / "scripts").glob("*port*.py"))
 
 
 def _violations(path: Path) -> list[str]:
@@ -64,6 +64,7 @@ def test_scan_covers_every_subpackage():
                 "analysis/checker.py"):
         assert pkg / mod in PORT_FILES
     assert ROOT / "chip_smoke.py" in PORT_FILES
+    assert ROOT / "scripts" / "check_port_tp.py" in PORT_FILES
 
 
 def test_import_guard_catches_a_violation(tmp_path):
@@ -85,6 +86,37 @@ def test_entry_points_default_to_cuda(monkeypatch):
         init_dense_llm(cfg, generator=torch.Generator(), device=None)
     with pytest.raises(RuntimeError, match="is_available"):
         params_from_numpy({"w": np.zeros(2, np.float32)}, cfg)
+
+
+def test_tp_megakernel_decoder_defaults_to_cuda(monkeypatch):
+    """``MegakernelDecoder`` resolves ``device=None`` to the card at one
+    rank, and at n > 1 takes its ranks' devices from a rank group only:
+    without ``ctx`` it raises instead of running CPU ranks, and a group of
+    cards (``initialize_distributed(2)``) raises without them. The CPU
+    ranks are asked for explicitly."""
+    from triton_distributed_tpu_torch.megakernel.serving import (
+        MegakernelDecoder,
+    )
+    from triton_distributed_tpu_torch.models.config import ModelConfig
+    from triton_distributed_tpu_torch.runtime import context
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = ModelConfig(hidden_size=128, intermediate_size=256, num_layers=1,
+                      num_heads=2, num_kv_heads=2, head_dim=128,
+                      vocab_size=64, dtype="float32")
+    params = init_dense_llm(cfg, generator=torch.Generator().manual_seed(0),
+                            device="cpu")
+    with pytest.raises(RuntimeError, match="is_available"):
+        MegakernelDecoder(cfg, params, max_seq=128)
+    with pytest.raises(ValueError, match="requires ctx"):
+        MegakernelDecoder(cfg, params, max_seq=128, num_ranks=2)
+    with pytest.raises(RuntimeError, match="asks for 2 cards"):
+        MegakernelDecoder(cfg, params, max_seq=128, num_ranks=2,
+                          ctx=context.initialize_distributed(2))
+    ctx = context.DistContext([torch.device("cpu")] * 2)
+    dec = MegakernelDecoder(cfg, params, max_seq=128, num_ranks=2, ctx=ctx)
+    assert [d.type for d in dec.devices] == ["cpu", "cpu"]
+    ctx.close()
 
 
 def test_moe_and_layer_initialisers_default_to_cuda(monkeypatch):
@@ -164,7 +196,8 @@ def test_cache_and_workspace_constructors_default_to_cuda(monkeypatch):
     comp = build_decode_step(hidden=128, hq_local=1, hkv_local=1,
                              ffn_local=128, num_layers=1, max_seq=128,
                              pos=127, kv_pool_pages=2, table_pages=1,
-                             batch=128, kv_fp8=True).mb.compile()
+                             batch=128, kv_fp8=True, inkernel_append=True,
+                             mat_prefetch=True).mb.compile()
     for make in (
             lambda: init_paged_kv_cache(1, num_pages=2, page_size=4,
                                         num_kv_heads=1, head_dim=16,

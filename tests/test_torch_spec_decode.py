@@ -329,7 +329,8 @@ def test_megakernel_lane_refuses_wide_windows():
     with pytest.raises(ValueError, match="out of range"):
         build_decode_step(hidden=256, hq_local=2, hkv_local=1, ffn_local=256,
                           num_layers=1, max_seq=256, pos=255, batch=128,
-                          kv_pool_pages=3, table_pages=2, spec_window=200)
+                          kv_pool_pages=3, table_pages=2, spec_window=200,
+                          inkernel_append=True, mat_prefetch=True)
 
 
 # ---------------------------------------------------------------------------

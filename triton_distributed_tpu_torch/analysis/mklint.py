@@ -539,11 +539,11 @@ def _build(name, **kw):
 
     # The JAX builder's defaults: host-fed appends, no matrix warms.
     base = dict(hidden=256, hq_local=2, hkv_local=1, ffn_local=256,
-                num_layers=1, max_seq=256, pos=100, inkernel_append=False,
-                mat_prefetch=False)
+                num_layers=1, max_seq=256, pos=100)
+    force_ar = kw.pop("force_ar", False)
     base.update(kw)
     prog = build_decode_step(**base)
-    return check_compiled(prog.mb.compile(), name=name)
+    return check_compiled(prog.mb.compile(force_ar=force_ar), name=name)
 
 
 def _serving(name, **kw):
@@ -580,14 +580,15 @@ def _serving(name, **kw):
     return rep
 
 
-# The builder matrix the --all sweep covers: the JAX package's, less its
-# force_ar composition (the multi-rank AllReduce tasks are not ported).
+# The builder matrix the --all sweep covers: the JAX package's.
 COMPOSITIONS = {
     "decode_n1_dense": lambda: _build("decode_n1_dense"),
     "decode_batch_2tile": lambda: _build("decode_batch_2tile", batch=256),
     "decode_head64": lambda: _build("decode_head64", head_dim=64),
     "decode_fp8_weights": lambda: _build("decode_fp8_weights",
                                          fp8_weights=True),
+    "decode_force_ar": lambda: _build("decode_force_ar",
+                                      force_ar_tasks=True, force_ar=True),
     "decode_mat_prefetch": lambda: _build("decode_mat_prefetch",
                                           mat_prefetch=True),
     "serving_paged": lambda: _serving("serving_paged"),

@@ -13,8 +13,11 @@
 // tile weight layout, GEMM_WIDE (12) / GEMM_WIDE_W8 (15: B tiles in the
 // e4m3 weight workspace), NORM_ROPE (13), ADD_NORM (20) and the row-wise
 // COPY, ADD, SILU_MUL, SCALE (0, 1, 2, 5). The Qwen3-MoE decode programs
-// add MOE_TOPK (17) and MOE_FFN (18). PREFETCH (10) and PREFETCH_W8 (16)
-// warm one weight tile (main workspace, or e4m3 weight workspace) into L2
+// add MOE_TOPK (17) and MOE_FFN (18). A program compiled for a TP group
+// adds the in-kernel AllReduce, ALLREDUCE (4) and ALLREDUCE_ROW (22): each
+// rank runs its own launch of the same queue on its shard, and the ranks'
+// launches run together (see t_allreduce and the grid's size). PREFETCH
+// (10) and PREFETCH_W8 (16) warm one weight tile (main workspace, or e4m3 weight workspace) into L2
 // for the next GEMM_WIDE(_W8) with c0 == 1, which reads it as usual: the
 // TPU's warm lands in a reserved VMEM slot that the strip fetch re-reads
 // anyway (kernel.py:268-280), so here as there the warm changes no value.
@@ -108,6 +111,7 @@
 #include <cooperative_groups.h>
 
 #include "common.cuh"
+#include "dist.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -138,6 +142,8 @@ enum TaskType : int {
   APPEND_KV = 14,
   GEMM_WIDE_W8 = 15,
   PREFETCH_W8 = 16,
+  ALLREDUCE = 4,
+  ALLREDUCE_ROW = 22,
   GEMM_MAT = 19,
   ADD_NORM = 20,
   NORM_ROPE_QKV = 21,
@@ -179,6 +185,12 @@ struct Args {
   int num_exec;
   int live_rows;
   int head_dim;
+  // The AllReduce tasks' rank group (ar_on = 0: they do nothing): table =
+  // every rank's AR slot buffer, (max(n, 1), max_ar, TILE, TILE) of T
+  // each; sig_table = their signal pads; epoch = the launch's first epoch.
+  tdt::dist::Group ar;
+  int ar_on;
+  int max_ar;
 };
 
 // -- loads: the workspace is written during the launch, so it is read
@@ -1231,6 +1243,126 @@ __device__ void t_prefetch(const E* base, int tile, int& seg) {
   seg += 1;
 }
 
+// -- ALLREDUCE (4) / ALLREDUCE_ROW (22): the TP reductions inside the step
+// (kernel.py:569 t_allreduce, :601 t_allreduce_row). Rank `me` pushes its
+// slab (word 4 tiles from `out`, or one tile) into slot `me` of every
+// rank's AR slot buffer, its own included; a grid barrier; one thread per
+// rank releases the delivery flag; every block waits for every rank's
+// delivery itself (its own acquire); each block sums its share of the slab
+// over slots 0..n-1 in rank order, in fp32 from zero, rounds once and
+// stores at `out`: every rank sums the same values in the same order, so
+// every rank's row is bit-identical. At n > 1 a grid barrier (the slots
+// are read), then the exit barrier: one thread per peer releases the exit
+// flag, every block waits for each peer's, so no rank's next push lands in
+// a slot a peer still reads (the reference's barrier_all). At n = 1
+// (force_ar) the protocol runs against the rank itself and needs no exit
+// barrier. Only the live rows move. AllReduce row k of a launch uses the
+// epoch ar.epoch + k; flags only grow.
+//
+// Bound: bytes — each rank pushes its live rows to n slots and reads n
+// slots back; one flag round trip and two grid barriers per task (three
+// and two round trips at n > 1).
+//
+// A wait that passes the deadline writes the rank's error word and
+// returns; every later wait of the launch sees the word and returns at
+// once, so the whole grid runs the rest of its queue without waiting,
+// reaches every grid barrier and ends. The host raises CommTimeoutError
+// where it synchronises (DistContext.raise_on_comm_error).
+constexpr int AR_DELIVERED = 0;
+constexpr int AR_EXITED = tdt::dist::kMaxRanks;
+
+__device__ __forceinline__ void ar_spin(const tdt::dist::Group& g, int idx,
+                                        unsigned long long want) {
+  namespace d = tdt::dist;
+  const unsigned long long* f = d::flags(g, g.rank) + idx;
+  const volatile long long* err = g.err + 3;
+  unsigned long long seen = d::ld_acquire_sys(f);
+  const unsigned long long t0 = d::globaltimer();
+  while (seen < want) {
+    if (*err != 0) return;
+    if ((long long)(d::globaltimer() - t0) > g.timeout_ns) {
+      d::record_timeout(g, idx, want, seen);
+      return;
+    }
+    __nanosleep(100);
+    seen = d::ld_acquire_sys(f);
+  }
+}
+
+// Every block: thread j < n (j != skip) waits for flag base + j, then the
+// block meets.
+__device__ __forceinline__ void ar_wait(const tdt::dist::Group& g, int base,
+                                        unsigned long long want, int skip) {
+  const int j = threadIdx.x;
+  if (j < g.n && j != skip) ar_spin(g, base + j, want);
+  __syncthreads();
+}
+
+// Block 0, thread j < n (j != skip): release flag base + me of rank j.
+__device__ __forceinline__ void ar_signal(const tdt::dist::Group& g, int base,
+                                          unsigned long long val, int skip) {
+  const int j = threadIdx.x;
+  if (blockIdx.x == 0 && j < g.n && j != skip) {
+    tdt::dist::fence();
+    tdt::dist::st_release_sys(tdt::dist::flags(g, j) + base + g.rank, val);
+  }
+}
+
+template <typename T>
+__device__ __noinline__ void t_allreduce(T* ws, const Args& a, const int* w,
+                                         int site, int live,
+                                         cg::grid_group& grid) {
+  const tdt::dist::Group& g = a.ar;
+  constexpr int VR = TILE * sizeof(T) / 16;   // 16-byte vectors a row
+  constexpr int E = 16 / sizeof(T);
+  const int nt = w[0] == ALLREDUCE_ROW ? w[4] : 1;
+  T* slab = ws + (size_t)w[1] * TILE_ELEMS;
+  const size_t slot = (size_t)a.max_ar * TILE_ELEMS;   // one rank's slot
+  const unsigned long long epoch = g.epoch + site;
+  const long long nvec = (long long)nt * live * VR;
+  const long long step = (long long)gridDim.x * THREADS;
+  const long long first = (long long)blockIdx.x * THREADS + threadIdx.x;
+  for (long long v = first; v < nvec; v += step) {
+    const size_t off = (size_t)(v / (live * VR)) * TILE_ELEMS +
+                       (size_t)((v / VR) % live) * TILE;
+    const int c = (int)(v % VR);
+    const uint4 x = __ldcg(reinterpret_cast<const uint4*>(slab + off) + c);
+    for (int j = 0; j < g.n; ++j) {
+      T* dst = reinterpret_cast<T*>(g.table[j]) + g.rank * slot + off;
+      reinterpret_cast<uint4*>(dst)[c] = x;
+    }
+  }
+  grid.sync();
+  ar_signal(g, AR_DELIVERED, epoch, -1);
+  ar_wait(g, AR_DELIVERED, epoch, -1);
+  const T* mine = reinterpret_cast<const T*>(g.table[g.rank]);
+  for (long long v = first; v < nvec; v += step) {
+    const size_t off = (size_t)(v / (live * VR)) * TILE_ELEMS +
+                       (size_t)((v / VR) % live) * TILE;
+    const int c = (int)(v % VR);
+    float acc[E];
+#pragma unroll
+    for (int e = 0; e < E; ++e) acc[e] = 0.0f;
+    for (int r = 0; r < g.n; ++r) {
+      const uint4 s =
+          __ldcg(reinterpret_cast<const uint4*>(mine + r * slot + off) + c);
+      const T* se = reinterpret_cast<const T*>(&s);
+#pragma unroll
+      for (int e = 0; e < E; ++e) acc[e] = acc[e] + tdt::to_f(se[e]);
+    }
+    uint4 o;
+    T* oe = reinterpret_cast<T*>(&o);
+#pragma unroll
+    for (int e = 0; e < E; ++e) oe[e] = tdt::from_f<T>(acc[e]);
+    reinterpret_cast<uint4*>(slab + off)[c] = o;
+  }
+  if (g.n > 1) {
+    grid.sync();
+    ar_signal(g, AR_EXITED, epoch, g.rank);
+    ar_wait(g, AR_EXITED, epoch, g.rank);
+  }
+}
+
 // The task types beyond the paged serving program's (with MOE, the MoE
 // types too): false where `type` is none of them. Only the full kernels
 // instantiate this.
@@ -1313,6 +1445,7 @@ __global__ void __launch_bounds__(THREADS, BODY == BODY_LEAN ? 2 : 1)
   const T* wsm = static_cast<const T*>(args.wsm);
   const int live = args.live_rows;
   int seg = 0;
+  int ar_site = 0;   // AllReduce rows so far (their epochs' offsets)
   // The A row (tile and width) GEMM_WIDE holds staged in shared memory (-1:
   // none); any other task may use the shared memory or rewrite the row.
   int staged = -1;
@@ -1407,9 +1540,16 @@ __global__ void __launch_bounds__(THREADS, BODY == BODY_LEAN ? 2 : 1)
         break;
       default:
         if constexpr (FULL) {
-          if (!run_linear_task<T, BODY == BODY_MOE>(args, ws, w, seg, live,
-                                                    smem, staged, grid))
+          if (w[0] == ALLREDUCE || w[0] == ALLREDUCE_ROW) {
+            if (args.ar_on) {
+              t_allreduce(ws, args, w, ar_site, live, grid);
+              seg = 0;
+            }
+            ++ar_site;
+          } else if (!run_linear_task<T, BODY == BODY_MOE>(
+                         args, ws, w, seg, live, smem, staged, grid)) {
             __trap();
+          }
         } else {
           __trap();
         }
@@ -1417,22 +1557,32 @@ __global__ void __launch_bounds__(THREADS, BODY == BODY_LEAN ? 2 : 1)
   }
 }
 
-// Blocks of the cooperative grid, found once per instantiation (the port
-// drives one card per process): every SM, up to 2 blocks each.
+// Blocks of the cooperative grid, per instantiation, card and number of
+// ranks of a group on that card, found at the first such launch: for one
+// rank, up to 2 blocks on every SM; for r ranks on one card (virtual
+// ranks), the same on at most 1/r of the SMs. A rank's AllReduce waits for
+// its peers' kernels, so the r grids must be resident together: r grids of
+// that size fit the card at once (csrc/gemm_comm.cu persistent_grid caps
+// its ranks the same way).
+constexpr int kMaxDevices = 16;
+
 template <typename T, int BODY, bool PROF>
-int& grid_blocks() {
-  static int blocks = 0;
-  return blocks;
+int& grid_blocks(int dev, int ranks) {
+  static int blocks[kMaxDevices][tdt::dist::kMaxRanks + 1] = {};
+  return blocks[dev][ranks];
 }
 
 template <typename T, int BODY, bool PROF>
-cudaError_t launch(const Args& args, cudaStream_t stream) {
-  int& blocks = grid_blocks<T, BODY, PROF>();
+cudaError_t launch(const Args& args, int ranks, cudaStream_t stream) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices || ranks < 1 || ranks > tdt::dist::kMaxRanks)
+    return cudaErrorInvalidValue;
+  int& blocks = grid_blocks<T, BODY, PROF>(dev, ranks);
   if (blocks == 0) {
-    int dev = 0, sms = 0, coop = 0, per_sm = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    int sms = 0, coop = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err == cudaSuccess)
       err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
     if (err != cudaSuccess) return err;
@@ -1441,11 +1591,13 @@ cudaError_t launch(const Args& args, cudaStream_t stream) {
         &per_sm, mega_kernel<T, BODY, PROF>, THREADS, 0);
     if (err != cudaSuccess) return err;
     if (per_sm < 1) return cudaErrorLaunchOutOfResources;
-    blocks = sms * (per_sm < 2 ? per_sm : 2);
+    const int cap = sms / ranks;
+    if (cap < 1) return cudaErrorInvalidConfiguration;
+    blocks = cap * (per_sm < 2 ? per_sm : 2);
   }
   Args a = args;
   void* params[] = {&a};
-  const cudaError_t err = cudaLaunchCooperativeKernel(
+  err = cudaLaunchCooperativeKernel(
       reinterpret_cast<const void*>(mega_kernel<T, BODY, PROF>), dim3(blocks),
       dim3(THREADS), params, 0, stream);
   if (err != cudaSuccess) return err;
@@ -1453,28 +1605,32 @@ cudaError_t launch(const Args& args, cudaStream_t stream) {
 }
 
 template <typename T>
-cudaError_t launch_body(const Args& args, int body, cudaStream_t stream) {
+cudaError_t launch_body(const Args& args, int body, int ranks,
+                        cudaStream_t stream) {
   const bool prof = args.prof != nullptr;
   switch (body) {
     case BODY_LEAN:
       return prof ? cudaErrorInvalidValue
-                  : launch<T, BODY_LEAN, false>(args, stream);
+                  : launch<T, BODY_LEAN, false>(args, ranks, stream);
     case BODY_LINEAR:
-      return prof ? launch<T, BODY_LINEAR, true>(args, stream)
-                  : launch<T, BODY_LINEAR, false>(args, stream);
+      return prof ? launch<T, BODY_LINEAR, true>(args, ranks, stream)
+                  : launch<T, BODY_LINEAR, false>(args, ranks, stream);
     case BODY_MOE:
-      return prof ? launch<T, BODY_MOE, true>(args, stream)
-                  : launch<T, BODY_MOE, false>(args, stream);
+      return prof ? launch<T, BODY_MOE, true>(args, ranks, stream)
+                  : launch<T, BODY_MOE, false>(args, ranks, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
 template <typename T>
-int body_blocks(int body) {
+int body_blocks(int body, int dev, int ranks) {
+  if (dev < 0 || dev >= kMaxDevices || ranks < 1 ||
+      ranks > tdt::dist::kMaxRanks)
+    return 0;
   switch (body) {
-    case BODY_LEAN: return grid_blocks<T, BODY_LEAN, false>();
-    case BODY_LINEAR: return grid_blocks<T, BODY_LINEAR, false>();
-    case BODY_MOE: return grid_blocks<T, BODY_MOE, false>();
+    case BODY_LEAN: return grid_blocks<T, BODY_LEAN, false>(dev, ranks);
+    case BODY_LINEAR: return grid_blocks<T, BODY_LINEAR, false>(dev, ranks);
+    case BODY_MOE: return grid_blocks<T, BODY_MOE, false>(dev, ranks);
     default: return 0;
   }
 }
@@ -1484,25 +1640,46 @@ int body_blocks(int body) {
 // `body`: the instantiation (kernel.py `_kernel_body`): 0 the paged serving
 // program's types alone, 1 any other non-MoE type, 2 a MoE program. `prof`:
 // the (num_exec, TILE) int32 profile dump, or null (with body 1 or 2).
+// The AllReduce group: `ar_on` 1 runs types 4 / 22 over the slot buffers of
+// `ar_table` (rank `rank` of `num_ranks`, the launch's first `epoch`,
+// slots of `max_ar` tiles), 0 makes them no-ops (one rank, no force_ar);
+// `ranks_on_card`: the group's ranks on this card (1 for one rank), which
+// sizes the grid.
 extern "C" int megakernel_run(const int* queue, const int* sync_before,
                               const int* specs, void* ws, const void* wsm,
                               const void* ws8, void* wkv8, float* partial,
                               int* prof, int num_exec, int live_rows,
-                              int head_dim, int dtype, int body, void* stream) {
+                              int head_dim, int dtype, int body,
+                              const void* ar_table, const void* ar_sig_table,
+                              void* ar_err, int rank, int num_ranks,
+                              unsigned long long epoch, long long timeout_ns,
+                              int ar_on, int max_ar, int ranks_on_card,
+                              void* stream) {
   if (live_rows < 1 || live_rows > MAX_LIVE) return cudaErrorInvalidValue;
+  if (ar_on && (num_ranks < 1 || num_ranks > tdt::dist::kMaxRanks ||
+                rank < 0 || rank >= num_ranks || max_ar < 1 ||
+                ar_table == nullptr || ar_sig_table == nullptr ||
+                ar_err == nullptr))
+    return cudaErrorInvalidValue;
   Args args{queue,   sync_before, specs,     ws,       wsm,
             static_cast<const __nv_fp8_e4m3*>(ws8),
             static_cast<__nv_fp8_e4m3*>(wkv8), partial, prof, num_exec,
-            live_rows, head_dim};
+            live_rows, head_dim,
+            tdt::dist::make_group(ar_table, ar_sig_table, ar_err, rank,
+                                  num_ranks, epoch, timeout_ns),
+            ar_on, max_ar};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = dtype == 1
-                              ? launch_body<__nv_bfloat16>(args, body, s)
-                              : launch_body<float>(args, body, s);
+  const cudaError_t err =
+      dtype == 1 ? launch_body<__nv_bfloat16>(args, body, ranks_on_card, s)
+                 : launch_body<float>(args, body, ranks_on_card, s);
   return static_cast<int>(err);
 }
 
-extern "C" int megakernel_grid(int dtype, int body) {
-  // Blocks of the launches of that instantiation (0 before the first).
-  return dtype == 1 ? body_blocks<__nv_bfloat16>(body)
-                    : body_blocks<float>(body);
+extern "C" int megakernel_grid(int dtype, int body, int ranks_on_card) {
+  // Blocks of that instantiation's launches on the current card with
+  // `ranks_on_card` ranks on it (0 before the first).
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  return dtype == 1 ? body_blocks<__nv_bfloat16>(body, dev, ranks_on_card)
+                    : body_blocks<float>(body, dev, ranks_on_card);
 }

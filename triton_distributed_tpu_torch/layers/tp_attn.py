@@ -163,7 +163,7 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def tp_attn_prefill(params: dict, cfg: ModelConfig, x: torch.Tensor,
                     batch: int, seq: int, kv_slice: KVSlice | None = None,
                     *, axis: str = "tp", num_ranks: int = 1,
-                    mode: str = "ar"):
+                    mode: str = "overlap"):
     """Causal prefill of whole prompts. x: (B·S/n, h) row-sharded in the
     ``"overlap"`` / ``"xla"`` modes at n > 1, else (B·S, h). Writes the
     prompt's K/V (this rank's heads) into ``kv_slice`` at [0, S) in place;

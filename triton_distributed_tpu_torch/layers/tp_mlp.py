@@ -100,7 +100,7 @@ def refuse_row_sharded(mode: str, what: str) -> None:
 
 
 def tp_mlp_fwd(params: dict, x: torch.Tensor, *, axis: str = "tp",
-               num_ranks: int = 1, mode: str = "ar", ar_fn=None,
+               num_ranks: int = 1, mode: str = "overlap", ar_fn=None,
                gemm_ar_fn=None, dot_fn=None) -> torch.Tensor:
     """x → (rows of x, h) with a concrete ``mode`` (see the module
     docstring for the layouts); ``dot_fn(a, w)`` replaces every ``a @ w``

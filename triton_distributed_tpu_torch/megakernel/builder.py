@@ -10,7 +10,10 @@ or GEMM_WIDE_W8 over e4m3 weight tiles —, ``norm_rope``, ``add_norm``,
 ``copy`` / ``add`` / ``silu_mul`` / ``scale``) and the Qwen3-MoE FFN's
 ``moe_topk`` / ``moe_ffn``, and the single-tile weight warm ``prefetch``
 (PREFETCH / PREFETCH_W8) that ``gemm(prefetch_first=True)`` consumes,
-with the JAX builder's one-outstanding-warm rules. Tensor
+with the JAX builder's one-outstanding-warm rules, and the cross-rank
+``all_reduce`` (one ALLREDUCE_ROW task per row of tiles) that a program
+compiled for a TP group (``compile(num_ranks=)``) or for the one-rank
+loopback (``compile(force_ar=True)``) runs in the kernel. Tensor
 allocation, hazard bookkeeping, the schedule and the packed queue follow
 the JAX builder step for step, so both emit the same queue word for word
 (the CPU tests hold them equal).
@@ -75,6 +78,7 @@ class MegaKernelBuilder:
         self._max_strip = 1
         self._max_moe_h = 0
         self._max_moe_f = 0
+        self._max_ar = 1
         self._mat_specs: list[MatSpec] = []
         self._tasks: list[Task] = []
         self._edges: list[tuple[int, int]] = []
@@ -736,9 +740,29 @@ class MegaKernelBuilder:
         # strips in its strip buffer; kept for the workspace geometry.
         self._max_strip = max(self._max_strip, 2 * ft, 2 * ht)
 
+    def all_reduce(self, t: TensorHandle):
+        """Sum ``t`` over the ranks in place (reference make_allreduce):
+        one ALLREDUCE_ROW task per row of tiles, which pushes the whole row
+        to each peer as one slab, with one delivery wait and one exit
+        barrier. The single-tile ALLREDUCE stays dispatchable for the
+        queue ABI; the builder no longer emits it."""
+        self._no_fp8(t)
+        for i in range(t.rt):
+            row = [t.tile(i, j) for j in range(t.ct)]
+            self._emit(Task(TaskType.ALLREDUCE_ROW, t.tile(i, 0),
+                            k_tiles=t.ct), row, row)
+        self._max_ar = max(self._max_ar, t.ct)
+
     # -- compile -------------------------------------------------------------
-    def compile(self, dtype=torch.float32,
-                head_dim: int | None = None) -> "CompiledMegaKernel":
+    def compile(self, dtype=torch.float32, head_dim: int | None = None, *,
+                num_ranks: int = 1, axis: str = "tp",
+                force_ar: bool = False) -> "CompiledMegaKernel":
+        """Pack the queue. ``num_ranks``: the TP group the program runs on
+        (every rank runs the same queue; the cross-rank tasks match by
+        queue position, which the deterministic schedule keeps equal);
+        ``axis``: the group's axis name; ``force_ar``: run the AllReduce
+        protocol at ``num_ranks == 1`` against the rank itself (the
+        one-card price of the in-kernel AR)."""
         if head_dim is None:
             head_dim = self.head_dim
         elif head_dim != self.head_dim:
@@ -789,6 +813,8 @@ class MegaKernelBuilder:
             max_moe_h=self._max_moe_h, max_moe_f=self._max_moe_f,
             num_mrows=self._num_mrows,
             mat_specs=tuple(self._mat_specs), used_types=used_types,
+            num_ranks=int(num_ranks), axis=axis, max_ar=self._max_ar,
+            force_ar=bool(force_ar),
             head_dim=int(head_dim), task_rows=tuple(task_rows),
             hazard_edges=tuple(self._edges),
             task_reads=tuple(self._reads),
@@ -852,6 +878,10 @@ class CompiledMegaKernel:
     num_mrows: int = 0            # 2D matrix-workspace rows (0 = unused)
     mat_specs: tuple = ()         # static GEMM_MAT shapes (spec index)
     used_types: tuple = ()        # task types in the queue
+    num_ranks: int = 1            # the TP group the queue runs on
+    axis: str = "tp"              # the group's axis name
+    max_ar: int = 1               # widest ALLREDUCE_ROW slab (tiles)
+    force_ar: bool = False        # run the AR protocol at n = 1 (loopback)
     head_dim: int = TILE          # NORM_ROPE_QKV sub-tile span
     task_rows: tuple | None = None    # emission task id -> queue row
     hazard_edges: tuple | None = None  # (src, dst) emission-id edges
@@ -863,11 +893,12 @@ class CompiledMegaKernel:
     def _strip_pad(self) -> int:
         """Tail tiles of the JAX package's main and e4m3 weight
         workspaces: its static-size strip fetches may overrun the last
-        real tile. The CUDA kernel addresses exactly the tiles a task
-        names and never reads the pad; it is kept so the two packages'
-        workspaces have the same shape, tile for tile."""
+        real tile (ALLREDUCE_ROW's static max_ar slab push too). The CUDA
+        kernel addresses exactly the tiles a task names and never reads
+        the pad; it is kept so the two packages' workspaces have the same
+        shape, tile for tile."""
         return max(self.max_strip, self.max_gemm_width, self.max_moe_h,
-                   self.max_moe_f, 8) - 1
+                   self.max_moe_f, self.max_ar, 8) - 1
 
     def scatter_input(self, ws: torch.Tensor, h: TensorHandle,
                       value) -> torch.Tensor:
@@ -1006,7 +1037,8 @@ class CompiledMegaKernel:
              wsm: torch.Tensor | None = None, *,
              ws8: torch.Tensor | None = None,
              wkv8: torch.Tensor | None = None,
-             live_rows: int = TILE, profile: bool = False):
+             live_rows: int = TILE, profile: bool = False,
+             ar_tag: str = ""):
         """One queue execution over the workspace, in place; returns
         ``ws``. ``queue``: a host-retargeted copy of :attr:`queue`
         (default: the compiled one). ``ws8``: the e4m3 weight workspace
@@ -1018,7 +1050,11 @@ class CompiledMegaKernel:
         ``obs.kernel_profile.KernelProfile.from_dump``.
         ``live_rows``: the rows of every 128-row block that carry data —
         the CUDA kernel computes only those (every handler is
-        row-independent); the plain version computes all rows."""
+        row-independent); the plain version computes all rows. A program
+        compiled for a TP group (or with ``force_ar``) runs inside the
+        group's rank runner (``DistContext.run``), each rank on its own
+        workspace; its AllReduce slots are the symmetric buffer of
+        ``ar_tag`` (``kernel.ar_slots``)."""
         if self.num_tiles_kv8 and wkv8 is None:
             raise ValueError(
                 f"program uses {self.num_tiles_kv8} e4m3 KV-pool tiles "
@@ -1061,4 +1097,6 @@ class CompiledMegaKernel:
                          num_exec=self.num_exec, mat_specs=self.mat_specs,
                          used_types=self.used_types, head_dim=self.head_dim,
                          sync_before=self.sync_before, live_rows=live_rows,
-                         profile=profile)
+                         profile=profile, num_ranks=self.num_ranks,
+                         axis=self.axis, max_ar=self.max_ar,
+                         force_ar=self.force_ar, ar_tag=ar_tag)

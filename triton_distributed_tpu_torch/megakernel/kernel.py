@@ -13,20 +13,32 @@ append of 14/25) — and of the linear decode programs in both weight
 layouts (GQA / single-head attention over a linear cache, GEMM_WIDE and
 GEMM_WIDE_W8 over weight tiles with their PREFETCH / PREFETCH_W8 warms,
 per-head NORM_ROPE, ADD_NORM and the row-wise elementwise types), and the
-Qwen3-MoE FFN's MOE_TOPK and MOE_FFN, on 1 to TILE live rows a block.
-:func:`run_queue` refuses the multi-rank types (ALLREDUCE,
-ALLREDUCE_ROW) before launch. ``profile=True`` adds the per-task
-dispatch dump of the TPU kernel's ``_stamp_profile``.
+Qwen3-MoE FFN's MOE_TOPK and MOE_FFN, on 1 to TILE live rows a block,
+and the cross-rank ALLREDUCE / ALLREDUCE_ROW of a program compiled for a
+TP group (the TPU kernel's ``t_allreduce`` / ``t_allreduce_row``; the
+CUDA kernel's ``t_allreduce`` runs both): each rank pushes its
+slab into its slot of every rank's AR slot buffer (a symmetric buffer of
+the rank group, :func:`ar_slots`), waits for one delivery from each
+rank, sums the slots in rank order in fp32, rounds once, and meets the
+others at an exit barrier before the slots are reused. Every rank sums
+in the same order, so every rank's row is bit-identical. At one rank the
+AllReduce tasks do nothing, unless the program was compiled with
+``force_ar``: then the protocol runs against the rank itself.
+``profile=True`` adds the per-task dispatch dump of the TPU kernel's
+``_stamp_profile``.
 
 :func:`run_queue_plain` is the same interpreter in plain PyTorch: it walks
 the queue rows in order with one handler per type on full 128-row tiles,
-rounding where the TPU kernel stores. CPU tensors take it; on the card
-``chip_smoke.py`` holds the CUDA kernel against it.
+rounding where the TPU kernel stores; its AllReduce meets the other
+rank threads through the group's CPU rendezvous, as the collectives'
+plain versions do. CPU tensors take it; on the card ``chip_smoke.py``
+holds the CUDA kernel against it.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import numpy as np
 import torch
@@ -35,9 +47,14 @@ from triton_distributed_tpu_torch.megakernel.tasks import (
     MAT_COLS, TILE, WORDS, TaskType,
 )
 from triton_distributed_tpu_torch.models.fp8 import E4M3, to_e4m3
+from triton_distributed_tpu_torch.ops._comm import _launch_at_meeting
 from triton_distributed_tpu_torch.runtime.build import (
     CudaKernel, current_stream, ptr,
 )
+from triton_distributed_tpu_torch.runtime.context import (
+    DistContext, current_rank,
+)
+from triton_distributed_tpu_torch.runtime.symm import SymmBuffer, symm_zeros
 
 PORTED_TYPES = frozenset({
     TaskType.COPY, TaskType.ADD, TaskType.SILU_MUL, TaskType.SCALE,
@@ -48,6 +65,7 @@ PORTED_TYPES = frozenset({
     TaskType.ATTN_DECODE_PAGED_F8, TaskType.APPEND_KV_F8,
     TaskType.MOE_TOPK, TaskType.MOE_FFN,
     TaskType.PREFETCH, TaskType.PREFETCH_W8,
+    TaskType.ALLREDUCE, TaskType.ALLREDUCE_ROW,
 })
 _ATTN = (int(TaskType.ATTN_DECODE_PAGED), int(TaskType.ATTN_DECODE_PAGED_F8))
 _ATTN_LINEAR = (int(TaskType.ATTN_DECODE), int(TaskType.ATTN_DECODE_GQA))
@@ -63,6 +81,7 @@ _PAGED_PROGRAM = tuple(int(t) for t in (
 _MOE = (int(TaskType.MOE_TOPK), int(TaskType.MOE_FFN))
 _WARMS = (int(TaskType.PREFETCH), int(TaskType.PREFETCH_W8),
           int(TaskType.PREFETCH_MAT))
+_AR = (int(TaskType.ALLREDUCE), int(TaskType.ALLREDUCE_ROW))
 _EW = {int(TaskType.COPY): lambda a, b, f: a,
        int(TaskType.ADD): lambda a, b, f: a + b,
        int(TaskType.SILU_MUL): lambda a, b, f: torch.nn.functional.silu(a) * b,
@@ -74,7 +93,10 @@ _NEG = -1e30
 
 MEGA_KERNEL = CudaKernel(
     "megakernel.cu", "megakernel_run",
-    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
+    + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
+    + [ctypes.c_ulonglong, ctypes.c_longlong] + [ctypes.c_int] * 3
+    + [ctypes.c_void_p])
 
 
 class MegakernelUnsupportedError(ValueError):
@@ -94,8 +116,8 @@ def _type_name(t: int) -> str:
 def check_queue(queue: np.ndarray, num_exec: int,
                 used_types=None) -> None:
     """Refuse a program or queue the interpreters cannot run: a task type
-    outside :data:`PORTED_TYPES` (the multi-rank ALLREDUCE /
-    ALLREDUCE_ROW, or no type at all), or rows past a 128-row block — an
+    outside :data:`PORTED_TYPES` (a retired slot, or no type at all), or
+    rows past a 128-row block — an
     attention row's speculative window (word 5), a windowed append
     reading source rows ``[word 7, word 7 + word 4)``, or a MOE_TOPK
     batch (word 9) above TILE. Both interpreters refuse alike, so a CPU
@@ -134,6 +156,72 @@ def check_queue(queue: np.ndarray, num_exec: int,
             f"(B, E) logits tile holds at most {MAX_LIVE_ROWS}")
 
 
+@dataclasses.dataclass
+class ArGroup:
+    """The rank group a launch's AllReduce tasks run in, as rank ``rank``
+    sees it: its AR slot buffer and the AllReduce rows of the queue (each
+    launch takes that many epochs of the slot buffer's flags)."""
+
+    ctx: DistContext
+    rank: int
+    n: int
+    slots: SymmBuffer
+    sites: int
+
+    def next_epochs(self) -> int:
+        """The first epoch of this rank's next launch: AllReduce row k of
+        the queue uses it + k, so the flags only grow."""
+        base = self.slots.epochs[self.rank] + 1
+        self.slots.epochs[self.rank] += self.sites
+        return base
+
+
+def ar_slots(ctx: DistContext, num_ranks: int, max_ar: int, dtype,
+             tag: str = "") -> SymmBuffer:
+    """The AllReduce slots of a rank group: per rank ``(max(n, 1),
+    max_ar, TILE, TILE)`` in the workspace type (the reference's
+    ``kernel.py:1589-1591``), slot r holding rank r's slab, with the
+    buffer's signal pad; one per (shape, type, ``tag``), made at first use
+    and cached on the context (``runtime/symm.symm_zeros``)."""
+    return symm_zeros(ctx, (max(num_ranks, 1), max_ar, TILE, TILE), dtype,
+                      tag="megakernel-ar" + (f"-{tag}" if tag else ""))
+
+
+def ar_group(q: np.ndarray, num_exec: int, ws: torch.Tensor, *,
+             num_ranks: int, axis: str, max_ar: int, force_ar: bool,
+             ar_tag: str = "") -> ArGroup | None:
+    """The group a queue's AllReduce tasks need, or None where they do
+    nothing (no such task, or one rank without ``force_ar``). Raises
+    outside the group's rank runner, on a group of another size, and on
+    a row wider than the slots."""
+    rows = q[:num_exec]
+    is_ar = np.isin(rows[:, 0], _AR)
+    if not is_ar.any() or (num_ranks == 1 and not force_ar):
+        return None
+    widths = np.where(rows[is_ar, 0] == int(TaskType.ALLREDUCE_ROW),
+                      rows[is_ar, 4], 1)
+    if widths.min() < 1 or widths.max() > max_ar:
+        raise ValueError(f"megakernel: an AllReduce row of {int(widths.max())}"
+                         f" tiles, past the program's max_ar {max_ar}")
+    try:
+        ctx, rank = current_rank()
+    except RuntimeError as exc:
+        raise ValueError(
+            f"megakernel: a program compiled for num_ranks = {num_ranks}"
+            f"{' with force_ar' if force_ar else ''} runs its AllReduce "
+            "tasks inside the rank group's runner (DistContext.run), one "
+            "workspace a rank") from exc
+    n = ctx.axis_size(axis)
+    if n != num_ranks:
+        raise ValueError(f"megakernel: program compiled for num_ranks = "
+                         f"{num_ranks}, the rank group has {n}")
+    if ws.device != ctx.devices[rank]:
+        raise ValueError(f"megakernel: rank {rank}'s workspace on "
+                         f"{ws.device}, its device is {ctx.devices[rank]}")
+    return ArGroup(ctx, rank, n, ar_slots(ctx, n, max_ar, ws.dtype, ar_tag),
+                   int(is_ar.sum()))
+
+
 def gemm_chunk_rows(k: int) -> int:
     """Contraction rows per GEMM_MAT item of the CUDA kernel (its
     ``gemm_kch``): the partial-sum scratch holds one slab per chunk."""
@@ -146,7 +234,9 @@ def run_queue(queue, ws: torch.Tensor, wsm: torch.Tensor | None, *,
               live_rows: int = TILE,
               ws8: torch.Tensor | None = None,
               wkv8: torch.Tensor | None = None,
-              profile: bool = False):
+              profile: bool = False, num_ranks: int = 1,
+              axis: str = "tp", max_ar: int = 1, force_ar: bool = False,
+              ar_tag: str = ""):
     """Execute the packed task queue over the workspace, in place; returns
     ``ws``. The CUDA interpreter on a CUDA workspace (one launch; rows
     ``[0, live_rows)`` of every 128-row block), the plain version on a CPU
@@ -156,18 +246,26 @@ def run_queue(queue, ws: torch.Tensor, wsm: torch.Tensor | None, *,
     (read-only); ``wkv8``: the e4m3 KV-pool workspace of a program with
     types 24/25 (updated in place). ``profile``: also return the int32
     (num_exec, 128) dispatch dump — row t is ``[t, *queue row t]``, the
-    other lanes -1 — as ``(ws, dump)``."""
+    other lanes -1 — as ``(ws, dump)``. ``num_ranks`` / ``axis`` /
+    ``max_ar`` / ``force_ar``: the program's AllReduce geometry
+    (``compile``); with AllReduce tasks to run, the call is one rank's,
+    inside the group's runner, and ``ar_tag`` names its slot buffer
+    (:func:`ar_slots`)."""
     q = np.ascontiguousarray(queue, np.int32)
     check_queue(q, num_exec, used_types)
+    group = ar_group(q, num_exec, ws, num_ranks=num_ranks, axis=axis,
+                     max_ar=max_ar, force_ar=force_ar, ar_tag=ar_tag)
     if ws.device.type == "cuda":
         return _run_queue_cuda(q, ws, wsm, num_exec=num_exec,
                                mat_specs=mat_specs, head_dim=head_dim,
                                sync_before=sync_before, live_rows=live_rows,
-                               ws8=ws8, wkv8=wkv8, profile=profile)
+                               ws8=ws8, wkv8=wkv8, profile=profile,
+                               group=group)
     if ws.device.type == "cpu":
         return run_queue_plain(q, ws, wsm, num_exec=num_exec,
                                mat_specs=mat_specs, head_dim=head_dim,
-                               ws8=ws8, wkv8=wkv8, profile=profile)
+                               ws8=ws8, wkv8=wkv8, profile=profile,
+                               group=group)
     raise ValueError(f"megakernel: no kernel for device {ws.device}")
 
 
@@ -233,13 +331,17 @@ def _check_side_workspaces(q, num_exec, ws, ws8, wkv8) -> None:
 
 def cuda_launcher(q: np.ndarray, ws, wsm, *, num_exec, mat_specs,
                   head_dim, sync_before, live_rows, ws8=None, wkv8=None,
-                  profile: bool = False):
+                  profile: bool = False, group: ArGroup | None = None):
     """Check the operands, upload the queue (with the barrier flags and
     the GEMM_MAT spec table) and the partial-sum scratch, and return a
     zero-argument function that launches the kernel on them — so a timing
     loop can launch without re-uploading. ``profile``: the launches also
     stamp the dispatch dump into ``launch.prof`` (int32 (num_exec, 128),
-    -1 where nothing is stamped)."""
+    -1 where nothing is stamped). ``group``: the AllReduce tasks' rank
+    group (:func:`ar_group`); each launch then takes fresh epochs and goes
+    out at the group's meeting, where the last rank to arrive launches
+    every rank's kernel back to back on the ranks' streams, so the
+    cooperative launches of the ranks run at once."""
     if ws.dtype not in _DTYPE_CODE:
         raise ValueError(f"megakernel: workspace dtype {ws.dtype} "
                          "unsupported (float32 or bfloat16)")
@@ -281,24 +383,44 @@ def cuda_launcher(q: np.ndarray, ws, wsm, *, num_exec, mat_specs,
     prof = (torch.full((num_exec, PROF_LANES), -1, dtype=torch.int32,
                        device=ws.device) if profile else None)
     base = dev.data_ptr()
+    body = _kernel_body(q, num_exec, profile)
     args = (ctypes.c_void_p(base), ctypes.c_void_p(base + 4 * n_q),
             ctypes.c_void_p(base + 4 * (n_q + num_exec)),
             ptr(ws), ptr(wsm), ptr(ws8), ptr(wkv8), ptr(partial), ptr(prof),
             int(num_exec), int(live_rows), int(head_dim),
-            _DTYPE_CODE[ws.dtype], _kernel_body(q, num_exec, profile))
+            _DTYPE_CODE[ws.dtype], body)
 
     variants = tuple(name for name, on in (
-        ("full", args[-1] > 0),
-        ("moe", args[-1] == 2),
+        ("full", body > 0),
+        ("moe", body == 2),
         ("kv8", wkv8 is not None),
         ("window", bool((rows[np.isin(rows[:, 0], _ATTN), 5] > 0).any())),
         ("rows", live_rows > 4),
-        ("profile", profile))
+        ("profile", profile),
+        ("allreduce", group is not None))
         if on)
+    stream = current_stream(ws.device)
 
-    def launch():
-        MEGA_KERNEL.launch(*args, current_stream(ws.device),
-                           variants=variants)
+    if group is None:
+        def launch():
+            MEGA_KERNEL.launch(*args, None, None, None, 0, 1, 0, 0, 0, 1, 1,
+                               stream, variants=variants)
+    else:
+        ctx, rank, slots = group.ctx, group.rank, group.slots
+        on_card = sum(1 for d in ctx.devices if d == ws.device)
+        ar = (ptr(slots.table[rank]), ptr(slots.signal_table[rank]),
+              ptr(ctx.error_word(rank)), rank, group.n)
+
+        def launch():
+            # The epochs are taken in the meeting's action: a rank whose
+            # peer fails before the meeting keeps its counter where its
+            # peers' are.
+            _launch_at_meeting(
+                MEGA_KERNEL, slots, rank, ws.device, "megakernel.launch",
+                lambda: args + ar + (
+                    group.next_epochs(), int(ctx.timeout_s * 1e9), 1,
+                    slots.tensors[rank].shape[1], on_card, stream),
+                variants=variants)
 
     launch.buffers = (dev, partial, wsm, ws8, wkv8)   # alive with the pointers
     launch.prof = prof
@@ -326,16 +448,20 @@ def _kernel_body(q: np.ndarray, num_exec: int,
 
 
 def grid_blocks(dtype: torch.dtype, full: bool = False,
-                moe: bool = False) -> int:
-    """Blocks of the cooperative grid the kernel launches for this
-    workspace dtype and instantiation (0 before the first launch)."""
+                moe: bool = False, ranks_on_card: int = 1) -> int:
+    """Blocks of the cooperative grid the kernel launches on the current
+    card for this workspace dtype and instantiation, with
+    ``ranks_on_card`` ranks of a group on the card (0 before the first
+    such launch)."""
     MEGA_KERNEL._load()
     fn = MEGA_KERNEL._lib.megakernel_grid
-    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
-    return int(fn(_DTYPE_CODE[dtype], 2 if moe else int(full)))
+    fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_int
+    return int(fn(_DTYPE_CODE[dtype], 2 if moe else int(full),
+                  int(ranks_on_card)))
 
 
 def _run_queue_cuda(q: np.ndarray, ws, wsm, **kw):
+    """One launch (at the group's meeting when ``kw["group"]`` is set)."""
     launch = cuda_launcher(q, ws, wsm, **kw)
     launch()
     return (ws, launch.prof) if kw.get("profile") else ws
@@ -620,18 +746,52 @@ def _p_moe_ffn(ws, w):
     _put_row(ws, out, acc)
 
 
+def _p_allreduce(ws, w, group: ArGroup | None):
+    """ALLREDUCE (one tile, slot slab 0) / ALLREDUCE_ROW (word 4 tiles
+    from ``out``): push the slab into slot ``rank`` of every rank's slot
+    buffer, meet (the deliveries), sum this rank's slots 0..n-1 in fp32
+    in rank order, round once and store at ``out``; then meet again (the
+    exit barrier, n > 1) before any rank reuses the slots. No group: one
+    rank without ``force_ar``, nothing to do."""
+    if group is None:
+        return
+    nt = w[4] if w[0] == TaskType.ALLREDUCE_ROW else 1
+    out, me = w[1], group.rank
+
+    def meet(what):
+        # On CUDA tensors (the card's yardstick run) each rank's copies
+        # run on its own stream: finish them before the peers read.
+        if ws.is_cuda:
+            torch.cuda.current_stream(ws.device).synchronize()
+        group.ctx.barrier(me, what)
+
+    for t in group.slots.tensors:
+        t[me, :nt] = ws[out:out + nt]
+    meet("megakernel.allreduce")
+    mine = group.slots.tensors[me]
+    acc = torch.zeros((nt, TILE, TILE), dtype=torch.float32,
+                      device=ws.device)
+    for r in range(group.n):
+        acc = acc + mine[r, :nt].float()
+    ws[out:out + nt] = acc.to(ws.dtype)
+    if group.n > 1:
+        meet("megakernel.allreduce.exit")
+
+
 def run_queue_plain(queue, ws: torch.Tensor, wsm: torch.Tensor | None, *,
                     num_exec: int, mat_specs: tuple,
                     head_dim: int = TILE,
                     ws8: torch.Tensor | None = None,
                     wkv8: torch.Tensor | None = None,
-                    profile: bool = False):
+                    profile: bool = False,
+                    group: ArGroup | None = None):
     """The megakernel's function in plain PyTorch: the queue rows in
     order, one handler per type, every row of every tile, fp32 compute
     and stores in the workspace dtype (e4m3 through the saturating cast
     in ``wkv8``). Updates ``ws`` (and ``wkv8``) in place and returns
     ``ws``, or ``(ws, dump)`` with ``profile`` (:func:`profile_dump`, on
-    the workspace's device)."""
+    the workspace's device). ``group``: the AllReduce tasks' rank group
+    (:func:`ar_group`; None where they do nothing)."""
     MEGA_KERNEL.count_plain()
     q = np.ascontiguousarray(queue, np.int32)
     check_queue(q, num_exec)
@@ -671,6 +831,8 @@ def run_queue_plain(queue, ws: torch.Tensor, wsm: torch.Tensor | None, *,
             _p_moe_topk(ws, row)
         elif t == TaskType.MOE_FFN:
             _p_moe_ffn(ws, row)
+        elif t in _AR:
+            _p_allreduce(ws, row, group)
         else:
             raise MegakernelUnsupportedError(
                 f"task type {_type_name(t)} is not ported")

@@ -1,8 +1,8 @@
 """MegaKernel model assembly — a whole decode step as one task queue.
 
 The port's counterpart of the JAX package's ``megakernel/models.py``, for
-the forms the decoders compile, all on one rank, dense, with in-kernel
-appends:
+the forms the decoders compile (dense; the decoders build them with
+in-kernel appends, ``inkernel_append=True``):
 
 * the paged SERVING form (``kv_pool_pages``): matrix-layout weights, paged
   KV pools in the workspace dtype or e4m3 (``kv_fp8``: the kv8
@@ -37,6 +37,17 @@ appends:
   (``inkernel_append=False``: the host feeds the caches, the batch rows
   share them) — the form of the JAX package's MoE tests, at a batch of up
   to TILE rows.
+
+On a TP group (``num_ranks`` > 1; or ``force_ar_tasks`` at one rank, the
+loopback that prices the in-kernel AllReduce on one card) each rank's
+program holds its shard of the heads and the ffn, and the two row-parallel
+reductions of a layer — the attention output after the o-proj and the MLP
+(or MoE) output after the down projection — are ALLREDUCE_ROW tasks in
+the queue: the o-proj stores its partial row, the AllReduce sums it over
+the ranks (the gate/up weight warm, with ``mat_prefetch``, issued under
+it), then ADD_NORM adds the residual and takes the mlp norm; the down
+projection likewise, then ADD_NORM (or ADD) closes the layer. The fused
+GEMM_MAT epilogues that add the residual are then n = 1 only.
 
 Allocation and emission follow the JAX assembly step for step, so the
 compiled queues are equal word for word.
@@ -286,10 +297,11 @@ def build_decode_layer(mb: MegaKernelBuilder, x: TensorHandle,
                        append_pos: int | None = None,
                        meta_out: dict | None = None,
                        spec_append: bool = False,
-                       inkernel_append: bool = True,
-                       mat_prefetch: bool = True,
+                       inkernel_append: bool = False,
+                       mat_prefetch: bool = False,
                        moe_experts: int = 0, moe_topk: int = 0,
-                       batch: int = 1):
+                       batch: int = 1, num_ranks: int = 1,
+                       force_ar_tasks: bool = False):
     """Emit one transformer layer's decode tasks for ONE row block.
     ``xn``: the already-normalised input row from the previous layer's
     fused tail (None: emit the rms_norm). ``out_norm``: (norm_w, norm_out)
@@ -309,13 +321,16 @@ def build_decode_layer(mb: MegaKernelBuilder, x: TensorHandle,
     and the residual adds and norms ride the GEMM_MAT epilogues. Tile
     layout: per-head norm_rope, GEMM_WIDE strips, ADD_NORM / ADD tails.
     A MoE layer (``h.moe_w_gate``): router GEMM, MOE_TOPK over the
-    ``batch`` real rows, MOE_FFN, then ADD_NORM / ADD. Returns
-    ``(x2, x2n)``."""
+    ``batch`` real rows, MOE_FFN, then ADD_NORM / ADD. At ``num_ranks`` >
+    1 (or with ``force_ar_tasks``) the attention and MLP outputs are
+    summed over the ranks by ALLREDUCE_ROW tasks (the module docstring).
+    Returns ``(x2, x2n)``."""
     hidden = x.cols
     d = TILE
     groups = hq_local // hkv_local
     scale = head_dim ** -0.5
     mat = h.wqkv is not None
+    ar = num_ranks > 1 or force_ar_tasks
     if xn is None:
         xn = mb.tensor(TILE, hidden)
         mb.rms_norm(xn, x, h.attn_norm, eps)
@@ -368,13 +383,22 @@ def build_decode_layer(mb: MegaKernelBuilder, x: TensorHandle,
     nw, nout = out_norm if out_norm is not None else (None, None)
     x1 = mb.tensor(TILE, hidden)
     x1n = mb.tensor(TILE, hidden)
-    if mat:
+    if mat and not ar:
         # o-proj + residual + this layer's mlp norm (epilogue 3).
         mb.gemm_mat(x1, attn, h.wo, residual=x, norm_w=h.mlp_norm,
                     norm_out=x1n, eps=eps, prefetch_first=mat_prefetch)
     else:
         o = mb.tensor(TILE, hidden)
-        mb.gemm(o, attn, h.wo)
+        if mat:
+            mb.gemm_mat(o, attn, h.wo, prefetch_first=mat_prefetch)
+        else:
+            mb.gemm(o, attn, h.wo)
+        if ar:
+            # The gate/up weight warm goes out before the AllReduce, so it
+            # streams while the ranks meet.
+            if mat_prefetch and h.w_gateup is not None:
+                mb.prefetch_mat(h.w_gateup)
+            mb.all_reduce(o)
         mb.add_norm(x1, x, o, h.mlp_norm, x1n, eps)
     if h.moe_w_gate is not None:
         # Router GEMM → in-kernel top-k/softmax → one expert-loop task
@@ -388,14 +412,18 @@ def build_decode_layer(mb: MegaKernelBuilder, x: TensorHandle,
                    moe_experts)
     elif mat:
         act = mb.tensor(TILE, h.w_gateup.n)
-        mb.gemm_mat(act, x1n, h.w_gateup)
-        x2 = mb.tensor(TILE, hidden)
-        if nw is not None:
-            mb.gemm_mat(x2, act, h.w_down, residual=x1, norm_w=nw,
-                        norm_out=nout, eps=eps)
-            return x2, nout
-        mb.gemm_mat(x2, act, h.w_down, residual=x1)
-        return x2, None
+        mb.gemm_mat(act, x1n, h.w_gateup,
+                    prefetch_first=mat_prefetch and ar)
+        if not ar:
+            x2 = mb.tensor(TILE, hidden)
+            if nw is not None:
+                mb.gemm_mat(x2, act, h.w_down, residual=x1, norm_w=nw,
+                            norm_out=nout, eps=eps)
+                return x2, nout
+            mb.gemm_mat(x2, act, h.w_down, residual=x1)
+            return x2, None
+        down = mb.tensor(TILE, hidden)
+        mb.gemm_mat(down, act, h.w_down)
     else:
         down = mb.tensor(TILE, hidden)
         ffn_local = h.w_gate.cols
@@ -406,6 +434,8 @@ def build_decode_layer(mb: MegaKernelBuilder, x: TensorHandle,
         mb.gemm(up, x1n, h.w_up)
         mb.silu_mul(act, gate, up)
         mb.gemm(down, act, h.w_down)
+    if ar:
+        mb.all_reduce(down)
     x2 = mb.tensor(TILE, hidden)
     if nw is not None:
         mb.add_norm(x2, x1, down, nw, nout, eps)
@@ -420,7 +450,7 @@ def _check_decode_step_config(*, hidden, hq_local, hkv_local, ffn_local,
                               seq_blocks: bool = False,
                               kv_fp8: bool = False,
                               spec_window: int = 1,
-                              inkernel_append: bool = True,
+                              inkernel_append: bool = False,
                               moe_experts: int = 0,
                               moe_topk: int = 0) -> None:
     """Named build-time validation: every TILE/geometry constraint raises
@@ -534,10 +564,11 @@ def build_decode_step(*, hidden: int, hq_local: int, hkv_local: int,
                       head_dim: int = TILE, kv_fp8: bool = False,
                       spec_window: int = 1, fp8_weights: bool = False,
                       final_norm: bool = False,
-                      inkernel_append: bool = True,
-                      mat_prefetch: bool = True,
+                      inkernel_append: bool = False,
+                      mat_prefetch: bool = False,
                       moe_experts: int = 0,
-                      moe_topk: int = 0) -> DecodeStepProgram:
+                      moe_topk: int = 0, num_ranks: int = 1,
+                      force_ar_tasks: bool = False) -> DecodeStepProgram:
     """Assemble a full decode step. Embedding and lm_head stay outside.
 
     With ``kv_pool_pages``: the paged SERVING form (the JAX
@@ -573,7 +604,15 @@ def build_decode_step(*, hidden: int, hq_local: int, hkv_local: int,
     drops the APPEND_KV rows (the host feeds the caches; the JAX
     package's MoE tests build this form, at ``batch`` rows sharing the
     caches) and ``mat_prefetch=False`` the PREFETCH_MAT warms: the JAX
-    ``build_decode_step`` flags of the same names."""
+    ``build_decode_step`` flags of the same names, with its defaults (both
+    off; the decoders turn them on).
+
+    ``num_ranks``: the TP group the program runs on; ``hq_local`` /
+    ``hkv_local`` / ``ffn_local`` are one rank's shards, and the layer's
+    two reductions become in-kernel AllReduce tasks (compile with
+    ``compile(num_ranks=)``). ``force_ar_tasks``: emit those tasks at one
+    rank too (compile with ``force_ar=True``: the loopback that prices
+    the in-kernel AllReduce on one card)."""
     seq_blocks = kv_pool_pages is not None
     _check_decode_step_config(
         hidden=hidden, hq_local=hq_local, hkv_local=hkv_local,
@@ -692,7 +731,8 @@ def build_decode_step(*, hidden: int, hq_local: int, hkv_local: int,
                 spec_append=spec_window > 1,
                 inkernel_append=inkernel_append, mat_prefetch=mat_prefetch,
                 moe_experts=moe_experts, moe_topk=moe_topk,
-                batch=min(batch, TILE))
+                batch=min(batch, TILE), num_ranks=num_ranks,
+                force_ar_tasks=force_ar_tasks)
     outs = [curn[b] if final_norm else cur[b] for b in range(bt)]
     meta = None
     if seq_blocks:

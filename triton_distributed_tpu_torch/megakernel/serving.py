@@ -1,7 +1,7 @@
 """Megakernel serving — dense model params in, a decode backend out.
 
-Counterpart of the JAX package's ``megakernel/serving.py`` on one rank.
-Two decoders share the weight feeds:
+Counterpart of the JAX package's ``megakernel/serving.py``. Two decoders
+share the weight feeds:
 
 * :class:`MegakernelDecoder` — the sequential batch-1 decode loop behind
   ``Engine.serve(backend="megakernel")``: the engine prefills into a
@@ -13,7 +13,9 @@ Two decoders share the weight feeds:
   Matrix weight layout in the workspace dtype, or ``fp8_weights``: the
   tile layout over an e4m3 weight workspace. ``profile=True`` keeps each
   step's per-task dispatch dump on ``last_profile``
-  (``obs.kernel_profile``).
+  (``obs.kernel_profile``). On a TP group (``num_ranks`` > 1) each rank
+  holds its shard (:func:`weight_feeds` / :func:`cache_feeds` with
+  ``rank``) and the in-kernel AllReduce tasks carry the reductions.
 * :class:`PagedMegakernelDecoder` — the serving tier's lane: prefill runs
   elsewhere (the engine's chunked prefill through K1), a finished prompt's
   KV pages scatter into the workspace pools, and every decode step is ONE
@@ -21,11 +23,13 @@ Two decoders share the weight feeds:
   workspace beside the main one) and the speculative window
   (``spec_window`` W <= TILE candidate rows per slot).
 
-Not ported: ``num_ranks > 1`` (the in-kernel AllReduce tasks) and
-``copy_page`` (prefix copy-on-write).
+The paged lane stays single-rank, as the reference's serving loop keeps
+it. Not ported: ``copy_page`` (prefix copy-on-write).
 """
 
 from __future__ import annotations
+
+import itertools
 
 import numpy as np
 import torch
@@ -67,18 +71,42 @@ def _vec(t) -> np.ndarray:
     return t.detach().float().cpu().numpy()
 
 
+def _shard(w, dim: int, size: int, rank: int, sharded: bool):
+    """Rank ``rank``'s ``size``-wide slice of ``w`` along ``dim``;
+    ``sharded``: ``w`` is that slice already (``models/convert.
+    shard_params``), taken as it is."""
+    if not sharded:
+        return w.narrow(dim, rank * size, size)
+    if w.shape[dim] != size:
+        raise ValueError(f"a rank's shard {tuple(w.shape)} is not {size} "
+                         f"wide on dim {dim}")
+    return w
+
+
 def weight_feeds(prog: DecodeStepProgram, cfg: ModelConfig,
-                 params: dict, *, projections: bool = True) -> dict:
+                 params: dict, *, rank: int = 0, num_ranks: int = 1,
+                 sharded: bool = False, projections: bool = True) -> dict:
     """Map a param tree (``init_dense_llm`` / ``params_from_numpy``
-    layout) onto the program's workspace handles. Norm weights become
-    broadcast rows; projection weights stay tensors on their device
-    (``projections=False`` leaves them out: the norm rows alone, for a
-    caller whose weight workspace is already built). A MoE layer's
-    ``moe`` subtree feeds the program's router and expert stacks
-    (``feed_moe_weights``) — the decoders here serve dense models, the
-    MoE programs are driven directly (``build_decode_step(moe_experts=)``)."""
+    layout) onto the program's workspace handles — ``rank``'s TP shard:
+    the q/k/v/gate/up columns and the o/down rows of that rank (the whole
+    matrices at one rank). ``params``: the whole tree, or (``sharded``)
+    rank ``rank``'s shard of it (``models/convert.shard_params``), whose
+    leaves are taken as they are. Norm weights become broadcast rows;
+    projection weights stay tensors on their device (``projections=False`` leaves them out:
+    the norm rows alone, for a caller whose weight workspace is already
+    built). A MoE layer's ``moe`` subtree feeds the program's router and
+    expert stacks (``feed_moe_weights``; the experts cut on their ffn
+    dim) — the decoders here serve dense models, the MoE programs are
+    driven directly (``build_decode_step(moe_experts=)``)."""
     d = cfg.head_dim
+    n = num_ranks
+    hq_l, hkv_l = cfg.num_heads // n, cfg.num_kv_heads // n
+    ffn_l = cfg.intermediate_size // n
     feeds: dict = {}
+
+    def cut(w, dim, size):
+        return _shard(w, dim, size, rank, sharded)
+
     for h, layer in zip(prog.layers, params["layers"]):
         attn = layer["attn"]
         feeds[h.attn_norm] = broadcast_rows(_vec(layer["attn_norm"]))
@@ -91,30 +119,48 @@ def weight_feeds(prog: DecodeStepProgram, cfg: ModelConfig,
         feeds[h.k_norm] = broadcast_rows(pad_head_vec(kn, d))
         if not projections:
             continue
+        proj = dict(wq=cut(attn["wq"], 1, hq_l * d),
+                    wk=cut(attn["wk"], 1, hkv_l * d),
+                    wv=cut(attn["wv"], 1, hkv_l * d),
+                    wo=cut(attn["wo"], 0, hq_l * d), head_dim=d)
         if "moe" in layer:
-            feed_layer_weights(feeds, h, wq=attn["wq"], wk=attn["wk"],
-                               wv=attn["wv"], wo=attn["wo"], head_dim=d)
-            feed_moe_weights(feeds, h, **layer["moe"])
+            moe = layer["moe"]
+            f = cfg.moe_intermediate_size // n
+            feed_layer_weights(feeds, h, **proj)
+            feed_moe_weights(feeds, h, router=moe["router"],
+                             w_gate=cut(moe["w_gate"], 2, f),
+                             w_up=cut(moe["w_up"], 2, f),
+                             w_down=cut(moe["w_down"], 1, f))
             continue
         mlp = layer["mlp"]
         feed_layer_weights(
-            feeds, h, wq=attn["wq"], wk=attn["wk"], wv=attn["wv"],
-            wo=attn["wo"], w_gate=mlp["w_gate"], w_up=mlp["w_up"],
-            w_down=mlp["w_down"], head_dim=d)
+            feeds, h, w_gate=cut(mlp["w_gate"], 1, ffn_l),
+            w_up=cut(mlp["w_up"], 1, ffn_l),
+            w_down=cut(mlp["w_down"], 0, ffn_l), **proj)
     return feeds
 
 
-def cache_feeds(prog: DecodeStepProgram, cache) -> dict:
-    """A linear KV cache (``models/kv_cache.KVCache``, batch 1) → the
-    program's per-head kT (d, S) / v (S, d) feeds; head_dim < TILE pads
-    into the tile rows/cols (the padded-head layout)."""
+def cache_feeds(prog: DecodeStepProgram, cache, *, rank: int = 0,
+                num_ranks: int = 1, sharded: bool = False) -> dict:
+    """A linear KV cache (``models/kv_cache.KVCache``, batch 1) → rank
+    ``rank``'s per-head kT (d, S) / v (S, d) feeds: its share of the kv
+    heads of a cache of every kv head, or (``sharded``) the whole of a
+    cache of the rank's own, as a TP engine's prefill leaves it;
+    head_dim < TILE pads into the tile rows/cols (the padded-head
+    layout)."""
     feeds: dict = {}
     k, v = cache.k, cache.v    # (L, 1, S, hkv, hd)
     pad = TILE - k.shape[-1]
+    hkv_l = len(prog.layers[0].kT)
+    first = 0 if sharded else rank * hkv_l
+    if k.shape[3] != (hkv_l if sharded else hkv_l * num_ranks):
+        raise ValueError(f"cache of {k.shape[3]} kv heads for rank {rank} "
+                         f"of {num_ranks} with {hkv_l} a rank"
+                         f"{' (its shard)' if sharded else ''}")
     for li, h in enumerate(prog.layers):
-        for kv in range(len(h.kT)):
-            kT = k[li, 0, :, kv, :].T                     # (hd, S)
-            vv = v[li, 0, :, kv, :]                       # (S, hd)
+        for kv in range(hkv_l):
+            kT = k[li, 0, :, first + kv, :].T             # (hd, S)
+            vv = v[li, 0, :, first + kv, :]               # (S, hd)
             if pad:
                 kT = torch.nn.functional.pad(kT, (0, 0, 0, pad))
                 vv = torch.nn.functional.pad(vv, (0, pad))
@@ -131,13 +177,16 @@ def _head32(params: dict) -> torch.Tensor:
     return (head if head is not None else params["embed"].T).float()
 
 
+_DECODERS = itertools.count()
+
+
 class MegakernelDecoder:
     """Sequential batch-1 decode over the compiled megakernel's LINEAR
-    workspace, on one rank.
+    workspace, on one rank or on the ranks of a TP group.
 
-    Build once per (cfg, max_seq); :meth:`start` loads a prefilled KV
-    cache into the workspace; :meth:`step` runs one token — the compiled
-    queue is retargeted per position without recompiling
+    Build once per (cfg, max_seq, num_ranks); :meth:`start` loads a
+    prefilled KV cache into the workspace; :meth:`step` runs one token —
+    the compiled queue is retargeted per position without recompiling
     (``models.advance_queue_pos``) and launched once. The workspace is
     updated in place.
 
@@ -150,25 +199,66 @@ class MegakernelDecoder:
     kernel's plain version and only when asked for (``device="cpu"``).
     ``profile``: every step also stamps the kernel's per-task dispatch
     dump (int32 (num_exec, 128)); the newest is kept on
-    :attr:`last_profile`, so steps stay (ws, tok)-shaped. ``num_ranks >
-    1`` needs the AllReduce tasks, which the port's kernel does not have:
-    it raises :class:`MegakernelUnsupportedError`."""
+    :attr:`last_profile`, so steps stay (ws, tok)-shaped.
 
-    def __init__(self, cfg: ModelConfig, params: dict, *, max_seq: int,
-                 dtype=torch.float32, device=None, num_ranks: int = 1,
+    **On a TP group** (``num_ranks`` > 1, ``ctx`` a one-axis
+    ``runtime/context.DistContext`` of that many ranks, which places them:
+    ``device`` stays None): rank r holds its shard of the heads, the kv
+    heads and the ffn (``params`` the whole tree, or the ranks' shards as
+    a list, as a TP ``Engine`` holds them), and the program's in-kernel
+    AllReduce tasks carry the TP reductions — the reference's multi-GPU
+    MegaTritonKernel serving shape. A step retargets the queue once on
+    the host, then each rank stages its inputs and the ranks' launches go
+    out together (``kernel.cuda_launcher``). The workspace is the list of
+    the ranks' workspaces. Every rank's final row is bit-identical
+    (:meth:`rank_rows`); rank 0's makes the token. The embedding, the
+    final norm and the lm_head (gathered whole from a vocabulary-sharded
+    one) are placed once, at construction, so no gather enters a step.
+    Refused as the reference refuses: ``profile`` at n > 1, heads, kv
+    heads or ffn not divisible by n, a per-rank ffn that is not a TILE
+    multiple, a group of another size or axis."""
+
+    def __init__(self, cfg: ModelConfig, params, *, max_seq: int,
+                 dtype=torch.float32, device=None, ctx=None,
+                 axis: str = "tp", num_ranks: int = 1,
                  fp8_weights: bool = False, profile: bool = False,
                  final_norm: bool = False):
         validate_megakernel_cfg(cfg, max_seq)
-        if num_ranks != 1:
-            raise MegakernelUnsupportedError(
-                f"num_ranks = {num_ranks}: tensor-parallel megakernel "
-                "decode needs the in-kernel AllReduce tasks (ALLREDUCE, "
-                "ALLREDUCE_ROW), which are not ported — one rank only")
+        n = num_ranks
+        if profile and n > 1:
+            raise ValueError(
+                "profile=True is single-rank for now — the per-task dump "
+                "is a per-core record and the TP step does not yet carry "
+                "a sharded profile output")
+        if cfg.num_heads % n or cfg.num_kv_heads % n or \
+                cfg.intermediate_size % n:
+            raise ValueError(f"heads/ffn not divisible by TP degree {n}")
+        if (cfg.intermediate_size // n) % TILE:
+            raise ValueError("per-rank ffn must stay a TILE multiple")
+        if n > 1:
+            if ctx is None:
+                raise ValueError("num_ranks > 1 requires ctx (the rank "
+                                 "group hosting the TP axis)")
+            if ctx.tp_axis != axis or ctx.num_ranks != n:
+                raise ValueError(
+                    f"megakernel TP serving needs a one-axis group of {n} "
+                    f"ranks over {axis!r}; got {ctx.num_ranks} ranks over "
+                    f"{ctx.tp_axis!r} — rank r's workspace lives on the "
+                    "group's r-th device")
+            if device is not None:
+                raise ValueError("pass ctx (a TP group) or device (one "
+                                 "rank), not both — arguments ctx / device")
+            self.devices = list(ctx.devices)
+        else:
+            self.devices = [resolve_device(device)]
         self.cfg = cfg
+        self.n = n
+        self.ctx = ctx if n > 1 else None
+        self.axis = axis
         self.profile = profile
         self.last_profile: torch.Tensor | None = None
         self.max_seq = max_seq
-        self.device = resolve_device(device)
+        self.device = self.devices[0]
         self.dtype = torch_dtype(dtype)
         self.fp8_weights = fp8_weights
         # The first step() of a fresh decoder pays the kernel's build and
@@ -178,87 +268,136 @@ class MegakernelDecoder:
         self.last_step_cold = True
         self.final_norm_inkernel = final_norm
         self.prog = build_decode_step(
-            hidden=cfg.hidden_size, hq_local=cfg.num_heads,
-            hkv_local=cfg.num_kv_heads, ffn_local=cfg.intermediate_size,
+            hidden=cfg.hidden_size, hq_local=cfg.num_heads // n,
+            hkv_local=cfg.num_kv_heads // n,
+            ffn_local=cfg.intermediate_size // n,
             num_layers=cfg.num_layers, max_seq=max_seq, pos=max_seq - 1,
             eps=cfg.rms_norm_eps, fp8_weights=fp8_weights,
-            final_norm=final_norm, head_dim=cfg.head_dim)
+            final_norm=final_norm, head_dim=cfg.head_dim,
+            inkernel_append=True, mat_prefetch=not fp8_weights,
+            num_ranks=n)
         self.comp = self.prog.mb.compile(dtype=self.dtype,
-                                         head_dim=cfg.head_dim)
-        self.params = params
-        self.embed = params["embed"]
-        self.final_norm = params["final_norm"]
-        self.head32 = _head32(params)
-        self._rope_cache: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
-        # Weight workspaces, built by the first start() and kept: the
-        # steps only read them.
-        self._wsm = None
-        self._ws8 = None
+                                         head_dim=cfg.head_dim,
+                                         num_ranks=n, axis=axis)
+        # The AllReduce slots of this decoder (kernel.ar_slots).
+        self.ar_tag = f"decoder-{next(_DECODERS)}"
+        # The ranks' shards as a TP engine holds them, or the whole tree.
+        self.sharded = isinstance(params, list)
+        self.rank_params = list(params) if self.sharded else [params] * n
+        if len(self.rank_params) != n:
+            raise ValueError(f"{len(self.rank_params)} rank shards for a "
+                             f"TP group of {n} — argument params")
+        first = self.rank_params[0]
+        self.final_norm = first["final_norm"]
+        copies: dict = {}
+        self.embeds = [copies.setdefault(d, first["embed"].to(d))
+                       for d in self.devices]
+        if n > 1 and first.get("lm_head") is not None \
+                and first["lm_head"].shape[1] != cfg.vocab_size:
+            head = torch.cat([p["lm_head"].to(self.device)
+                              for p in self.rank_params], dim=1)
+            self.head32 = head.float()
+        else:
+            self.head32 = _head32(first).to(self.device)
+        self._rope_cache: dict = {}
+        # Weight workspaces per rank, built by the first start() and kept:
+        # the steps only read them.
+        self._wsms: list | None = None
+        self._ws8s: list | None = None
 
     # -- workspace ----------------------------------------------------------
-    def start(self, cache) -> torch.Tensor:
+    def start(self, cache):
         """The main workspace with the norm weights and the prefilled KV
-        cache loaded, to carry through every step. The first call also
-        builds the weight workspace of the layout (matrix, or e4m3
-        tiles); later calls reuse it."""
-        if cache.k.shape[1] != 1:
-            raise ValueError("megakernel decode is batch-1 "
-                             f"(cache batch {cache.k.shape[1]})")
-        if cache.max_seq != self.max_seq:
-            raise ValueError(f"cache max_seq {cache.max_seq} != decoder "
-                             f"max_seq {self.max_seq}")
-        built = self._ws8 is not None or self._wsm is not None
-        feeds = weight_feeds(self.prog, self.cfg, self.params,
-                             projections=not built)
-        if self.final_norm_inkernel:
-            feeds[self.prog.fnorm] = broadcast_rows(_vec(self.final_norm))
-        feeds.update(cache_feeds(self.prog, cache))
-        main, w8, wm = self.comp.split_feeds(feeds)
-        del feeds
-        if not built and self.fp8_weights:
-            self._ws8 = self.comp.make_workspace8(w8, device=self.device)
-        if not built and self.comp.num_mrows:
-            self._wsm = self.comp.make_workspace_mat(wm, device=self.device)
-        del w8, wm
-        return self.comp.make_workspace(main, device=self.device)
+        cache loaded, to carry through every step: one tensor at one rank,
+        the ranks' list on a TP group. ``cache``: one linear cache of
+        every kv head, or (on a TP group) the ranks' caches as a list. The
+        first call also builds the weight workspaces of the layout
+        (matrix, or e4m3 tiles), one a rank; later calls reuse them."""
+        sharded = isinstance(cache, list)
+        caches = cache if sharded else [cache] * self.n
+        if len(caches) != self.n:
+            raise ValueError(f"{len(caches)} caches for {self.n} ranks")
+        for c in caches:
+            if c.k.shape[1] != 1:
+                raise ValueError("megakernel decode is batch-1 "
+                                 f"(cache batch {c.k.shape[1]})")
+            if c.max_seq != self.max_seq:
+                raise ValueError(f"cache max_seq {c.max_seq} != decoder "
+                                 f"max_seq {self.max_seq}")
+        built = self._wsms is not None or self._ws8s is not None
+        wsms, ws8s, out = [], [], []
+        for r, dev in enumerate(self.devices):
+            feeds = weight_feeds(self.prog, self.cfg, self.rank_params[r],
+                                 rank=r, num_ranks=self.n,
+                                 sharded=self.sharded, projections=not built)
+            if self.final_norm_inkernel:
+                feeds[self.prog.fnorm] = broadcast_rows(
+                    _vec(self.final_norm))
+            feeds.update(cache_feeds(self.prog, caches[r], rank=r,
+                                     num_ranks=self.n, sharded=sharded))
+            main, w8, wm = self.comp.split_feeds(feeds)
+            del feeds
+            if not built and self.fp8_weights:
+                ws8s.append(self.comp.make_workspace8(w8, device=dev))
+            if not built and self.comp.num_mrows:
+                wsms.append(self.comp.make_workspace_mat(wm, device=dev))
+            del w8, wm
+            out.append(self.comp.make_workspace(main, device=dev))
+        if not built:
+            self._wsms = wsms or None
+            self._ws8s = ws8s or None
+        return out[0] if self.n == 1 else out
 
-    def _rope(self, pos: int) -> tuple[torch.Tensor, torch.Tensor]:
-        t = self._rope_cache.get(pos)
+    def _rope(self, pos: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+        t = self._rope_cache.get((pos, device))
         if t is None:
             cos_t, sin_t = rope_tables(pos, self.cfg.head_dim,
                                        self.cfg.rope_theta)
-            t = tuple(torch.from_numpy(x).to(self.device).to(self.dtype)
+            t = tuple(torch.from_numpy(x).to(device).to(self.dtype)
                       for x in (cos_t, sin_t))
-            self._rope_cache[pos] = t
+            self._rope_cache[(pos, device)] = t
         return t
 
     # -- one token ----------------------------------------------------------
-    def stage(self, ws: torch.Tensor, token, pos: int) -> np.ndarray:
-        """Everything of a step before the launch: the queue retargeted
-        to ``pos`` (returned) and the step's inputs in the workspace —
-        the token's embedding in row 0 of ``x`` (the other rows stay
-        zero) and the rope tables at ``pos``."""
+    def queue_at(self, pos: int) -> np.ndarray:
+        """The compiled queue retargeted to ``pos`` (one host pass a step,
+        the same for every rank)."""
         if pos >= self.max_seq:
             raise ValueError(
                 f"pos {pos} >= max_seq {self.max_seq}: the step appends "
                 "this position's k/v — past capacity it would write into "
                 "the adjacent workspace region")
-        queue = advance_queue_pos(self.comp.queue, pos,
-                                  num_exec=self.comp.num_exec)
+        return advance_queue_pos(self.comp.queue, pos,
+                                 num_exec=self.comp.num_exec)
+
+    def put_inputs(self, ws: torch.Tensor, token, pos: int,
+                   rank: int = 0) -> None:
+        """The step's inputs in rank ``rank``'s workspace: the token's
+        embedding in row 0 of ``x`` (the other rows stay zero) and the
+        rope tables at ``pos``."""
         prog = self.prog
         tok = torch.as_tensor(token).reshape(-1)[:1].to(ws.device)
         xt = ws[prog.x.base:prog.x.base + prog.x.ct]
-        xt[:, 0, :] = self.embed[tok.long()].float().to(ws.dtype).view(
-            prog.x.ct, TILE)
-        cos, sin = self._rope(pos)
+        xt[:, 0, :] = self.embeds[rank][tok.long()].float().to(
+            ws.dtype).view(prog.x.ct, TILE)
+        cos, sin = self._rope(pos, ws.device)
         ws[prog.cos.base], ws[prog.sin.base] = cos, sin
-        return queue
 
-    def launch(self, ws: torch.Tensor, queue: np.ndarray) -> torch.Tensor:
-        """The step's one megakernel launch (row 0 of every tile); with
-        ``profile``, its dispatch dump goes to :attr:`last_profile`."""
-        out = self.comp.step(ws, queue, self._wsm, ws8=self._ws8,
-                             live_rows=1, profile=self.profile)
+    def weights(self, rank: int = 0) -> tuple:
+        """Rank ``rank``'s weight workspaces (matrix, e4m3 tiles), None
+        where the layout has none; the first :meth:`start` builds them."""
+        return tuple(None if w is None else w[rank]
+                     for w in (self._wsms, self._ws8s))
+
+    def launch(self, ws: torch.Tensor, queue: np.ndarray,
+               rank: int = 0) -> torch.Tensor:
+        """Rank ``rank``'s one megakernel launch of the step (row 0 of
+        every tile; on a TP group called in the rank's thread, and the
+        ranks' launches go out together); with ``profile``, its dispatch
+        dump goes to :attr:`last_profile`."""
+        wsm, ws8 = self.weights(rank)
+        out = self.comp.step(ws, queue, wsm, ws8=ws8, live_rows=1,
+                             profile=self.profile, ar_tag=self.ar_tag)
         if self.profile:
             ws, self.last_profile = out
         return ws
@@ -268,23 +407,45 @@ class MegakernelDecoder:
         greedy argmax of the output row, in fp32: (1,) int32."""
         x_out = self.comp.gather_output(ws, self.prog.x_out)[0:1].float()
         if not self.final_norm_inkernel:
-            x_out = rms_norm(x_out, self.final_norm.float(),
+            x_out = rms_norm(x_out, self.final_norm.float().to(ws.device),
                              self.cfg.rms_norm_eps)
         return torch.argmax(x_out @ self.head32, dim=-1).to(torch.int32)
 
-    def step(self, ws: torch.Tensor, token, pos: int):
+    def rank_rows(self, ws) -> list:
+        """Every rank's final row (1, hidden), as stored: bit-identical
+        across the ranks of a TP group."""
+        wss = ws if isinstance(ws, list) else [ws]
+        return [self.comp.gather_output(w, self.prog.x_out)[0:1]
+                for w in wss]
+
+    def step(self, ws, token, pos: int):
         """token: (1,) ints; pos: host int (current cache length). Returns
-        (workspace, next token (1,) int32 on the workspace's device)."""
-        if self._wsm is None and self._ws8 is None:
+        (workspace, next token (1,) int32 on rank 0's device). On a TP
+        group ``ws`` is the ranks' list and the step runs in the group's
+        rank runner."""
+        if self._wsms is None and self._ws8s is None:
             raise ValueError("start() first: the weights are not loaded")
-        queue = self.stage(ws, token, pos)
         self.last_step_cold = not self.warm
-        self.launch(ws, queue)
-        tok = self.next_token(ws)
+        queue = self.queue_at(pos)
+        wss = ws if self.n > 1 else [ws]
+
+        def rank_step(r):
+            self.put_inputs(wss[r], token, pos, r)
+            self.launch(wss[r], queue, r)
+            return self.next_token(wss[r]) if r == 0 else None
+
+        tok = (rank_step(0) if self.ctx is None
+               else self.ctx.run(rank_step)[0])
         # Warm only after a successful step: if the first call raises,
         # the retry still counts as cold.
         self.warm = True
         return ws, tok
+
+    def check_comm(self) -> None:
+        """Raise ``CommTimeoutError`` if an AllReduce wait of the steps so
+        far timed out (reads the ranks' error words: a device sync)."""
+        if self.n > 1:
+            self.ctx.raise_on_comm_error()
 
 
 class PagedMegakernelDecoder:
@@ -357,7 +518,8 @@ class PagedMegakernelDecoder:
             pos=capacity - 1, eps=cfg.rms_norm_eps,
             batch=num_slots * TILE, head_dim=cfg.head_dim,
             kv_pool_pages=num_pages + 1, table_pages=max_pages,
-            kv_fp8=self.kv_fp8, spec_window=self.spec_w)
+            kv_fp8=self.kv_fp8, spec_window=self.spec_w,
+            inkernel_append=True, mat_prefetch=True)
         self.comp = self.prog.mb.compile(dtype=self.dtype,
                                          head_dim=cfg.head_dim)
         self.params = params

@@ -37,7 +37,9 @@ class TaskType(enum.IntEnum):
     ADD = 1         # out <- a + b
     SILU_MUL = 2    # out <- silu(a) * b
     GEMM = 3        # retired slot (the builder emits GEMM_WIDE / GEMM_MAT)
-    ALLREDUCE = 4   # out <- sum over ranks of out (one tile)
+    ALLREDUCE = 4   # out <- sum over ranks of out (one tile, one-shot,
+    #                 through AR slot slab 0); the builder no longer
+    #                 emits it
     SCALE = 5       # out <- a * scalar (word 7, fixed point 1e-6)
     RMS_NORM = 6    # out row <- a row * rsqrt(mean(a^2) + eps) * w over
     #                 k_tiles column tiles; w at b0 (broadcast rows); eps in
@@ -86,7 +88,11 @@ class TaskType(enum.IntEnum):
     NORM_ROPE_QKV = 21  # NORM_ROPE over the k_tiles q-head tiles from a0 and
     #                 the b_stride k-head tiles after them: b0 / a_stride =
     #                 q / k norm weights, c0/d0 = cos/sin, arg = eps 1e-9
-    ALLREDUCE_ROW = 22  # AllReduce over k_tiles contiguous tiles at once
+    ALLREDUCE_ROW = 22  # AllReduce over k_tiles contiguous tiles (a whole
+    #                 activation row) in one task: one slab push to each
+    #                 peer, one delivery wait, one exit barrier. Words:
+    #                 out = row base tile, k_tiles = row tiles (<= the
+    #                 program's max_ar slab width)
     PREFETCH_MAT = 23  # warm the first chunk of the GEMM_MAT weight at wsm
     #                 row a0 (a_stride = the consuming task's MatSpec index);
     #                 a warm-spec GEMM_MAT consumes it

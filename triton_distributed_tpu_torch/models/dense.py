@@ -167,7 +167,7 @@ def _replicated(mode: str, n: int, what: str) -> None:
 
 def dense_prefill(params: dict, cfg: ModelConfig, input_ids: torch.Tensor,
                   cache: KVCache, *, axis: str = "tp", num_ranks: int = 1,
-                  mode: str = "ar"):
+                  mode: str = "overlap"):
     """Causal prefill of whole prompts. input_ids: (B, S), every rank's
     the same. Returns (last-token logits (B, vocab), cache filled for
     [0, S)). At n > 1 in ``"overlap"`` / ``"xla"`` each rank runs its

@@ -58,9 +58,13 @@ of ``ops/moe.py`` in each layer: the ring form in the ``"overlap"``
 prefill (its tail the ring reduce-scatter), the replicated form reduced
 by the parity stream in decode (``models/dense._mlp_or_moe``). The ranks
 compute bit-identical logits; the engine returns rank 0's tokens.
-Refused by name at n > 1: the megakernel (on a MoE config too: its
-multi-rank task types 4 and 22 are not ported), and the two-tier
-``"overlap2d"`` (``layers/tp_mlp``).
+``backend="megakernel"`` on a TP group (the reference's
+``_serve_megakernel``): :meth:`Engine.serve` prefills in mode ``"ar"``
+(replicated rows, :meth:`Engine._prefill_mode`), then decodes through
+``MegakernelDecoder(num_ranks=n)``: one launch a rank a step, the TP
+reductions inside the kernel (its AllReduce task types 4 and 22); a MoE
+config is refused there, as the reference refuses it. Refused by name at
+n > 1: the two-tier ``"overlap2d"`` (``layers/tp_mlp``).
 """
 
 from __future__ import annotations
@@ -424,16 +428,8 @@ class Engine:
             input_ids = torch.as_tensor(np.asarray(input_ids))
         if self.n > 1:
             return self._serve_tp(input_ids, gen_len)
-        if self.backend == "megakernel" and self.page_size is not None:
-            # The JAX package demotes down its backend ladder here; the
-            # port has none.
-            raise MegakernelUnsupportedError(
-                "megakernel sequential serve uses its own linear "
-                "workspace cache, not the paged pool (page_size="
-                f"{self.page_size}) — build the engine with "
-                "page_size=None for Engine.serve, or use "
-                "ServingEngine(backend='megakernel') for the paged "
-                "persistent-kernel lane")
+        if self.backend == "megakernel":
+            self._check_megakernel_serve()
         if (self.page_size is None and self.backend != "megakernel"
                 and input_ids.shape[1] + gen_len - 1 > self.max_seq):
             raise ValueError(
@@ -464,12 +460,16 @@ class Engine:
                   ) -> torch.Tensor:
         """:meth:`serve` on a TP group: the prefill in its mode
         (:meth:`_prefill_mode`), then the decode steps over the linear
-        cache, or over the paged one with a ``page_size``. Refused by name
-        on the megakernel."""
+        cache, or over the paged one with a ``page_size``; on the
+        megakernel, the linear decoder of the group (refused with a
+        ``page_size``, as at one rank)."""
         if self.backend == "megakernel":
-            raise MegakernelUnsupportedError(
-                f"the megakernel is single-rank for now (TP group of "
-                f"{self.n}) — serve with backend='auto'")
+            self._check_megakernel_serve()
+            logits, caches = self.prefill(input_ids)
+            out = self._serve_megakernel(sampling.greedy(logits), caches,
+                                         gen_len)
+            self.check_comm()
+            return out
         if (self.page_size is None
                 and input_ids.shape[1] + gen_len - 1 > self.max_seq):
             raise ValueError(
@@ -487,22 +487,41 @@ class Engine:
         self.check_comm()
         return out
 
-    def _serve_megakernel(self, tok: torch.Tensor, cache: KVCache,
+    def _check_megakernel_serve(self) -> None:
+        if self.page_size is not None:
+            # The JAX package demotes down its backend ladder here; the
+            # port has none.
+            raise MegakernelUnsupportedError(
+                "megakernel sequential serve uses its own linear "
+                "workspace cache, not the paged pool (page_size="
+                f"{self.page_size}) — build the engine with "
+                "page_size=None for Engine.serve, or use "
+                "ServingEngine(backend='megakernel') for the paged "
+                "persistent-kernel lane")
+
+    def _serve_megakernel(self, tok: torch.Tensor, cache,
                           gen_len: int) -> torch.Tensor:
         """Decode loop through the persistent megakernel: one launch per
-        token, the queue retargeted per position without recompiling. The
-        decoder (float32 linear workspace, as the JAX package's Engine
-        builds it) is cached on the engine; every serve reloads the
-        prefilled cache into a fresh main workspace."""
+        token (a rank), the queue retargeted per position without
+        recompiling. The decoder (float32 linear workspace, as the JAX
+        package's Engine builds it; on a TP group the ranks' shards, its
+        AllReduce tasks carrying the reductions) is cached on the engine;
+        every serve reloads the prefilled cache (the ranks' caches) into
+        fresh main workspaces."""
         from triton_distributed_tpu_torch.megakernel.serving import (
             MegakernelDecoder,
         )
 
         if self._mk is None:
-            self._mk = MegakernelDecoder(self.cfg, self.params,
-                                         max_seq=self.max_seq,
-                                         device=self.device)
-        pos = int(cache.offset)
+            if self.n > 1:
+                self._mk = MegakernelDecoder(
+                    self.cfg, self.rank_params, max_seq=self.max_seq,
+                    ctx=self.ctx, axis=self.axis, num_ranks=self.n)
+            else:
+                self._mk = MegakernelDecoder(self.cfg, self.params,
+                                             max_seq=self.max_seq,
+                                             device=self.device)
+        pos = int((cache[0] if isinstance(cache, list) else cache).offset)
         if pos + gen_len - 1 > self.max_seq:
             raise ValueError(
                 f"prompt ({pos}) + gen_len ({gen_len}) exceeds max_seq "

@@ -138,13 +138,18 @@ def launch(kernel: CudaKernel, buf: SymmBuffer, rank: int, epoch: int,
 
 
 def _launch_at_meeting(kernel: CudaKernel, buf: SymmBuffer, rank: int,
-                       dev, what: str, args: tuple) -> None:
+                       dev, what: str, args,
+                       variants: tuple = ()) -> None:
+    """Launch at the meeting. ``args``: the launch's arguments, or a
+    function making them, called inside the meeting's action — state it
+    moves (an epoch counter) then moves only once every rank has met."""
     kernel.library()              # a first-use build, before the meeting
     buf.await_ready(rank)
 
     def act():
         with torch.cuda.device(dev):
-            kernel.launch(*args)
+            kernel.launch(*(args() if callable(args) else args),
+                          variants=variants)
 
     buf.ctx.meet(rank, what, act)
 

@@ -137,8 +137,13 @@ def segment_sum_rows(data: torch.Tensor, seg: torch.Tensor,
 
 
 def _tp(num_ranks: int | None, axis: str) -> tuple[int, int]:
-    """(n, rank) of the calling rank thread; (1, 0) at one rank."""
-    n = 1 if num_ranks is None else num_ranks
+    """(n, rank) of the calling rank thread; (1, 0) at one rank. The
+    reference's rank-local functions take no default group size, so
+    ``None`` raises its error (a call that omitted it inside a rank group
+    would compute one rank's slice and return it unreduced)."""
+    if num_ranks is None:
+        raise ValueError("num_ranks required inside shard_map")
+    n = num_ranks
     if n == 1:
         return 1, 0
     ctx, rank = current_rank()
@@ -183,7 +188,7 @@ def ag_group_gemm_ring_local(x_local: torch.Tensor, expert_ids: torch.Tensor,
     E = w_experts.shape[0]
     if n == 1:
         return ag_group_gemm_local(x_local, expert_ids, w_experts,
-                                   topk_weights)
+                                   topk_weights, num_ranks=1)
     mc = x_local.shape[0]
     topk = expert_ids.shape[0] // (mc * n)
     ffn = w_experts.shape[2]
@@ -215,7 +220,7 @@ def ag_group_gemm_ring_local(x_local: torch.Tensor, expert_ids: torch.Tensor,
 def moe_reduce_rs_local(y_sorted: torch.Tensor, sort_idx: torch.Tensor,
                         group_sizes, w_down: torch.Tensor,
                         topk_weights: torch.Tensor, num_tokens: int, *,
-                        axis: str = "tp", num_ranks: int = 1,
+                        axis: str = "tp", num_ranks: int | None = None,
                         mode: str = "overlap", ar_fn=None) -> torch.Tensor:
     """Down projection + top-k weighted combine + the mode's reduction
     (reference ``run_moe_reduce_rs``). y_sorted: (M·topk, ffn_local)
@@ -224,7 +229,7 @@ def moe_reduce_rs_local(y_sorted: torch.Tensor, sort_idx: torch.Tensor,
     ``psum_scatter``) or (M, h) replicated (``"ar"``: ``ar_fn`` or
     ``all_reduce_local``; ``"xla_rep"``: the plain ``psum``); at n = 1
     the combine, in y's type."""
-    n = num_ranks
+    n, _ = _tp(num_ranks, axis)
     topk = sort_idx.shape[0] // num_tokens
     partial = ragged_dot_dtype_aware(y_sorted, w_down, group_sizes)
     partial = partial * topk_weights.reshape(-1)[sort_idx][:, None]
@@ -254,7 +259,8 @@ def moe_reduce_rs_overlap_local(act_sorted: torch.Tensor,
                                 w_down: torch.Tensor,
                                 topk_weights: torch.Tensor, num_tokens: int,
                                 *, axis: str = "tp",
-                                num_ranks: int = 1) -> torch.Tensor:
+                                num_ranks: int | None = None
+                                ) -> torch.Tensor:
     """The overlapped MoE tail: the M rows split into n ring chunks; at
     step s a rank computes the down projection + combine of chunk
     (me-2-s) while the running reduce-scatter accumulator of the previous
@@ -364,7 +370,8 @@ def moe_ring_fwd_local(x_local: torch.Tensor, gate_w: torch.Tensor,
 def moe_tp_fwd_local(x_local: torch.Tensor, gate_w: torch.Tensor,
                      w_gate: torch.Tensor, w_up: torch.Tensor,
                      w_down: torch.Tensor, topk: int, *, axis: str = "tp",
-                     num_ranks: int = 1, mode: str = "ring", ar_fn=None
+                     num_ranks: int | None = None, mode: str = "ring",
+                     ar_fn=None
                      ) -> torch.Tensor:
     """The TP-MoE forward (reference ``moe_tp_fwd_local``): router →
     gate/up grouped products → SwiGLU → down → combine → the mode's
@@ -373,7 +380,7 @@ def moe_tp_fwd_local(x_local: torch.Tensor, gate_w: torch.Tensor,
     (h, E) replicated; w_gate/w_up: (E, h, ffn_local); w_down: (E,
     ffn_local, h). Returns the layout it was given; at n = 1 every mode
     is the one-rank MLP (the group sizes cross to the host once)."""
-    n = num_ranks
+    n, _ = _tp(num_ranks, axis)
     if mode == "ring" and n > 1:
         return moe_ring_fwd_local(x_local, gate_w, w_gate, w_up, w_down,
                                   topk, axis=axis, num_ranks=n)
