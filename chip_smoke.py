@@ -144,6 +144,29 @@ printing one JSON line:
    layers: TP=4 tokens identical to TP=1's in ``Engine.serve`` (defaults,
    ``backend="xla"``) and ``ServingEngine`` (a preemption, ``spec_k=3``).
 
+13. sequence and pipeline parallelism: ``collectives_sp_pp`` — B4's
+   barrier-free parity AllGather (``ag_parity`` in
+   ``csrc/collectives.cu``) in fp32, bf16 and e4m3 at 1-2048 rows, and
+   B7's ring shift and permutation (``csrc/p2p.cu``) — shifts of +1, -1
+   and 2, a partial permutation with a multicast, a butterfly, a full
+   ring (which takes the shift kernel), one rank under ``force_kernel``
+   — at n = 2, 4 and 8, bit-identical to their plain versions on every
+   rank, timed at their main shapes (the SP decode's 128 x 130 fp32
+   partials; one 512 x 4096 bf16 PP microbatch); 200 parity calls with a
+   rotating straggler; held-back ranks raising ``CommTimeoutError``.
+   ``sp_decode`` — Qwen3-8B's attention widths, B = 4 sequences of 32768
+   tokens sharded over 4 ranks (ragged shard lengths, one empty), 36
+   layers x 16 steps through ``SpFlashDecodeAttention`` on the parity
+   stream, held against one-rank K2; one layer through ``flash_decode``
+   over B4's push and the plain gather. ``sp_prefill`` — ring, SP-AG and
+   Ulysses attention at S = 8192 on 4 ranks against one-rank K1.
+   ``pp_forward`` (with the Qwen3-8B weights) — GPipe on 4 stages of 9
+   layers and the interleaved schedule with 3 chunks, 8 microbatches of
+   512 tokens, against the 36 layers on one rank; one ``CommOp.exchange``
+   of a butterfly. ``sp_pp_parity`` (after ``tp_engine_parity``) — every
+   new entry point at n = 2 and 4, fp32, on the card against the CPU
+   rank threads' plain versions.
+
 Then the kernel summary line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failed phase raises: exit code 1
 and no result line. Without CUDA it exits 2 before printing anything.
@@ -508,6 +531,12 @@ def phase_kernels(torch, fa, pa, timer) -> dict:
         paged_case(torch, pa, timer, name="d64_page4", dtype=bf16,
                    lens=[3, 0, 9], page=4, normalize=False, time_it=False,
                    seed=7, hq=16, hkv=4, d=64),
+        # SP decode's shard partial: pages of pick_tile(8192, 512, 8) = 512
+        # rows, which the kernel walks in 128-token slices; a full shard,
+        # a ragged one, an empty one and one a row short of a page.
+        paged_case(torch, pa, timer, name="sp_shard_page512", dtype=bf16,
+                   lens=[8192, 3001, 0, 511], page=512, normalize=False,
+                   time_it=True, seed=15, **qwen),
     ]
     # K2's e4m3 lane: the main shape (the fp8 serving phase's decode batch
     # of 4, page 16), its partials, fp32 queries, and head_dim 64.
@@ -1918,9 +1947,11 @@ def phase_linear_engine_parity(torch, QWEN3_8B, init_dense_llm, Engine,
             "dtype": "float32", "runs": runs}
 
 
-def _busy_share(torch, fn, steps: int) -> dict:
+def _busy_share(torch, fn, steps: int, names: dict | None = None) -> dict:
     """Kernel time over wall time of ``steps`` calls of ``fn`` under
-    ``torch.profiler`` (profiler overhead included), by kernel group."""
+    ``torch.profiler`` (profiler overhead included), by kernel group:
+    ``names`` maps a group to a substring of its kernels' names (the rest
+    are "other"); by default B3 and the other matmuls."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1938,9 +1969,13 @@ def _busy_share(torch, fn, steps: int) -> dict:
             continue
         us = (getattr(e, "self_device_time_total", None)
               or getattr(e, "self_cuda_time_total", 0))
-        grp = "gemm_b3" if "gemm_tc_kernel" in e.key else (
-            "other_matmul" if any(w in e.key.lower() for w in (
-                "gemm", "gemv", "cutlass", "nvjet", "xmma")) else "other")
+        if names is not None:
+            grp = next((g for g, sub in names.items() if sub in e.key),
+                       "other")
+        else:
+            grp = "gemm_b3" if "gemm_tc_kernel" in e.key else (
+                "other_matmul" if any(w in e.key.lower() for w in (
+                    "gemm", "gemv", "cutlass", "nvjet", "xmma")) else "other")
         groups[grp] = groups.get(grp, 0.0) + us / 1e3 / steps
     if not groups:
         return {"measured": False,
@@ -5706,6 +5741,882 @@ def phase_tp_megakernel_parity(torch, mk, mkserv, mkmodels, QWEN3_8B,
     return rec
 
 
+# ---------------------------------------------------------------------------
+# Sequence and pipeline parallelism: B4's parity AllGather, B7's shift and
+# permutation, and the SP / PP paths over them.
+# ---------------------------------------------------------------------------
+
+SPPP_RANKS = (2, 4, 8)
+AGP_ROWS = (1, 7, 64, 2048)
+AGP_COLS = 256
+# The SP decode's partials payload: (B·hq, d + 2) fp32 at Qwen3-8B's 32 q
+# heads, d 128, B = 4.
+AGP_MAIN = (128, 130)
+P2P_ROWS, P2P_COLS = 8, 256
+P2P_MAIN = (512, 4096)           # one PP microbatch of Qwen3-8B, bf16
+SP_N = 4
+SP_B, SP_HQ, SP_HKV, SP_D = 4, 32, 8, 128
+SP_SHARD = 8192                  # 32768 tokens over 4 ranks
+SP_LENS = [8192, 8192, 3001, 0]
+SP_STEPS = 16
+SP_PREFILL_S = 8192
+PP_N, PP_MB, PP_MB_ROWS, PP_CHUNKS = 4, 8, 512, 3
+
+
+def sppp_modules():
+    import importlib
+
+    return [importlib.import_module(f"triton_distributed_tpu_torch.{n}")
+            for n in ("ops._comm", "ops.allgather", "ops.p2p",
+                      "runtime.context")]
+
+
+def _rand(torch, shape, dtype, seed):
+    x = torch.randn(shape, generator=torch.Generator(
+        device="cuda").manual_seed(seed), device="cuda") * 4
+    return x.to(dtype)
+
+
+def agp_case(torch, timer, ctx, dtype, rows: int, cols: int, seed: int,
+             time_it: bool) -> dict:
+    """B4's parity AllGather on every rank of ``ctx``, two calls over one
+    workspace (both parities, new data each), against ``ag_plain`` bit for
+    bit on every rank."""
+    _, ag, _, _ = sppp_modules()
+    n = ctx.num_ranks
+    X = [_rand(torch, (n, rows, cols), dtype, seed + t) for t in range(2)]
+    ws, _ = ag.ag_stream_workspace(n, rows, cols, dtype, ctx=ctx,
+                                   tag=f"smoke-{rows}x{cols}-{seed}")
+    idx = list(ws.epochs)
+    xs = [[X[t][r].to(ctx.devices[r]) for r in range(n)] for t in range(2)]
+    cur = [0]
+
+    def fn(r):
+        out, _, idx[r] = ag.all_gather_stream(xs[cur[0]][r], ws, idx[r],
+                                              num_ranks=n)
+        return out
+
+    same = True
+    for t in range(2):
+        cur[0] = t
+        got = ctx.run(fn)
+        torch.cuda.synchronize()
+        ctx.raise_on_comm_error()
+        want = ag.ag_plain(list(X[t]))
+        same = same and all(torch.equal(_bits(torch, o.to(want.device)),
+                                        _bits(torch, want)) for o in got)
+    rec = {"case": f"ag_parity_n{n}_{_dtype_name(dtype)}_{rows}x{cols}",
+           "n": n, "dtype": _dtype_name(dtype), "rows": rows, "cols": cols,
+           "calls": 2, "max_abs_err": 0.0 if same else float("nan"),
+           "bit_identical": same, "ok": same}
+    if time_it:
+        B = rows * cols * X[0].element_size()
+        rec["bound_ms"], rec["bound_by"] = _bound_ms(n * (B + n * B), 0,
+                                                     "float32")
+        rec["bound_note"] = ("every rank reads its chunk once and writes the "
+                             "n gathered chunks once, through one card's "
+                             "HBM at 3.35 TB/s")
+        rec["ms"], rec["host_ms_per_call"] = _coll_ms(torch, ctx, fn, 20)
+        rec["plain_ms"] = timer.ms(lambda: ag.ag_plain(list(X[0])))
+        rec["library_ms"] = timer.ms(lambda: torch.cat(list(X[0])))
+        rec["library_call"] = "torch.cat of the n chunks (one gathered copy)"
+    return rec
+
+
+def p2p_case(torch, timer, ctx, name: str, dtype, rows: int, cols: int,
+             seed: int, *, shift: int | None = None, perm=None,
+             force: bool = False, time_it: bool = False) -> dict:
+    """One B7 call on every rank (two calls: the receive buffer's reuse)
+    against ``p2p_plain`` bit for bit; a ring permutation must launch the
+    shift kernel and not the permutation."""
+    comm, _, p2p, _ = sppp_modules()
+    n = ctx.num_ranks
+    X = _rand(torch, (n, rows, cols), dtype, seed)
+    xs = [X[r].to(ctx.devices[r]) for r in range(n)]
+    if shift is not None:
+        plan = [(s, (s + shift) % n) for s in range(n)]
+
+        def fn(r):
+            return p2p.p2p_shift_local(xs[r], shift, num_ranks=n,
+                                       force_kernel=force)
+    else:
+        plan = perm
+
+        def fn(r):
+            return p2p.p2p_permute_local(xs[r], perm, num_ranks=n,
+                                         force_kernel=force)
+    want = p2p.p2p_plain(list(X), plan)
+    k0 = (comm.P2P_SHIFT_KERNEL.launches, comm.P2P_PERMUTE_KERNEL.launches)
+    same = True
+    for _ in range(2):
+        got = ctx.run(fn)
+        torch.cuda.synchronize()
+        ctx.raise_on_comm_error()
+        same = same and all(torch.equal(_bits(torch, o.to(X.device)),
+                                        _bits(torch, w))
+                            for o, w in zip(got, want))
+    launched = {"p2p_shift": comm.P2P_SHIFT_KERNEL.launches - k0[0],
+                "p2p_permute": comm.P2P_PERMUTE_KERNEL.launches - k0[1]}
+    ring = shift is not None or (p2p._as_shift(perm, n) is not None
+                                 and not (force and n == 1))
+    which = "p2p_shift" if ring else "p2p_permute"
+    right = launched[which] == 2 * n and sum(launched.values()) == 2 * n
+    rec = {"case": f"{name}_n{n}_{_dtype_name(dtype)}_{rows}x{cols}",
+           "n": n, "dtype": _dtype_name(dtype), "rows": rows, "cols": cols,
+           "perm": plan, "kernel": which, "launches": launched,
+           "max_abs_err": 0.0 if same else float("nan"),
+           "bit_identical": same, "ok": same and right}
+    if time_it:
+        B = rows * cols * X.element_size()
+        senders = len({s for s, _ in plan})
+        nbytes = senders * B + n * B
+        rec["bound_ms"], rec["bound_by"] = _bound_ms(nbytes, 0, "float32")
+        rec["bound_note"] = ("each sender reads its block once and every "
+                             "rank writes its output once (the receivers "
+                             "the block, the others zeros), through one "
+                             "card's HBM at 3.35 TB/s; the receive buffer "
+                             "is this port's staging, not counted")
+        rec["ms"], rec["host_ms_per_call"] = _coll_ms(torch, ctx, fn, 20)
+        rec["plain_ms"] = timer.ms(lambda: p2p.p2p_plain(list(X), plan))
+        Y = torch.empty_like(X)
+        rec["library_ms"] = timer.ms(lambda: Y.copy_(X))
+        rec["library_call"] = "Y.copy_(X): one copy of every rank's block"
+    return rec
+
+
+def agp_stress(torch, ctx, calls: int) -> dict:
+    """``calls`` parity AllGathers on every rank over one workspace at the
+    SP decode's payload, new data every call, a rotating rank held back
+    50 us on every third: every gather equal to the plain version's."""
+    _, ag, _, _ = sppp_modules()
+    n = ctx.num_ranks
+    rows, cols = AGP_MAIN
+    X = _rand(torch, (calls, n, rows, cols), torch.float32, 88)
+    ws, _ = ag.ag_stream_workspace(n, rows, cols, torch.float32, ctx=ctx,
+                                   tag="stress")
+
+    def loop(r):
+        idx, outs = ws.epochs[r], []
+        xr = X[:, r].to(ctx.devices[r])
+        for t in range(calls):
+            strag = ("rotate", 50_000) if t % 3 == 0 else None
+            out, _, idx = ag.all_gather_stream(xr[t], ws, idx, num_ranks=n,
+                                               straggler=strag)
+            outs.append(out)
+        return torch.stack(outs), idx
+
+    got = ctx.run(loop)
+    torch.cuda.synchronize()
+    ctx.raise_on_comm_error()
+    bad = [t for t in range(calls)
+           if not all(torch.equal(got[r][0][t], ag.ag_plain(list(X[t])))
+                      for r in range(n))]
+    return {"calls": calls, "n": n, "rows": rows, "cols": cols,
+            "straggler": "rotate, 50 us, every third call",
+            "index_after": [g[1] for g in got], "calls_wrong": bad,
+            "ok": not bad and all(g[1] == calls for g in got)}
+
+
+def sppp_timeouts(torch, devices) -> dict:
+    """100 ms deadlines. The parity AllGather with rank n-1 held back 1 s
+    on the device: its peers' kernels spin on its flags, time out and
+    ``raise_on_comm_error`` raises. The ring shift with rank n-1's stream
+    held the same way: its peers wait in the entry barrier."""
+    comm, ag, p2p, context = sppp_modules()
+    from triton_distributed_tpu_torch.runtime.build import current_stream
+
+    out = {}
+    for what in ("ag_parity", "p2p_shift"):
+        ctx = context.DistContext([torch.device(d) for d in devices],
+                                  wait_timeout_ms=100)
+        n = ctx.num_ranks
+        x = torch.ones((4, 256), device="cuda")
+        ws, _ = ag.ag_stream_workspace(n, 4, 256, torch.float32, ctx=ctx,
+                                       tag="timeout")
+
+        def fn(r):
+            if what == "ag_parity":
+                return ag.all_gather_stream(
+                    x.to(ctx.devices[r]), ws, 0, num_ranks=n,
+                    straggler=(n - 1, 1_000_000_000))
+            if r == n - 1:
+                comm.SPIN.launch(1_000_000_000,
+                                 current_stream(ctx.devices[r]))
+            return p2p.p2p_shift_local(x.to(ctx.devices[r]), 1, num_ranks=n)
+
+        t0 = time.perf_counter()
+        raised = None
+        try:
+            ctx.run(fn)
+            torch.cuda.synchronize()
+            ctx.raise_on_comm_error()
+        except context.CommTimeoutError as exc:
+            raised = str(exc)
+        torch.cuda.synchronize()
+        out[what] = {"raised": raised, "wall_s": time.perf_counter() - t0}
+        ctx.close()
+    return {"n": len(devices), "timeout_ms": 100, **out,
+            "ok": all(v["raised"] for v in out.values())}
+
+
+def phase_collectives_sp_pp(torch, timer, *, devices_for=virtual_devices,
+                            ranks=SPPP_RANKS,
+                            name="collectives_sp_pp") -> dict:
+    """B4's parity AllGather and B7's two kernels at n = 2, 4 and 8 against
+    their plain versions, bit for bit on every rank: the AllGather in
+    fp32, bf16 and e4m3 at 1-2048 rows (and the SP decode's 128 x 130 fp32
+    payload at n = 4, timed); the shift by +1 and -1 (and 2 at n = 4), a
+    partial permutation with a multicast, a butterfly and a full ring
+    (which must take the shift kernel) in fp32 and bf16; both kernels at
+    one rank under ``force_kernel``; the PP microbatch (512 x 4096 bf16,
+    n = 4) timed through each. 200 parity calls with a rotating
+    straggler; held-back ranks raising CommTimeoutError."""
+    _, _, _, context = sppp_modules()
+    cases: dict = {"ag_parity": [], "p2p_shift": [], "p2p_permute": []}
+    seed, stress = 700, None
+    for n in ranks:
+        ctx = context.DistContext([torch.device(d) for d in devices_for(n)],
+                                  wait_timeout_ms=20_000)
+        for dtype in (torch.float32, torch.bfloat16, torch.float8_e4m3fn):
+            for rows in AGP_ROWS:
+                seed += 1
+                cases["ag_parity"].append(agp_case(
+                    torch, timer, ctx, dtype, rows, AGP_COLS, seed, False))
+        if n == SP_N:
+            seed += 1
+            cases["ag_parity"].append(agp_case(
+                torch, timer, ctx, torch.float32, *AGP_MAIN, seed, True))
+        # Rank 0 multicasts (to itself at n = 2); at n > 2 the middle
+        # ranks are idle and rank n-1 sends back to 0.
+        perms = {"partial_multicast": [(0, 0), (0, 1)] if n == 2 else
+                 [(0, n - 1), (0, 1), (n - 1, 0)],
+                 "butterfly": [(s, s ^ 1) for s in range(n)],
+                 "ring_as_perm": [(s, (s + 1) % n) for s in range(n)]}
+        if n == 2:
+            perms["butterfly"] = [(1, 0)]          # 2's butterfly is a ring
+        for dtype in (torch.float32, torch.bfloat16):
+            shifts = (1, -1, 2) if n == SP_N else (1, -1)
+            for sh in shifts:
+                seed += 1
+                cases["p2p_shift"].append(p2p_case(
+                    torch, timer, ctx, f"shift{sh:+d}", dtype, P2P_ROWS,
+                    P2P_COLS, seed, shift=sh))
+            for pname, perm in perms.items():
+                seed += 1
+                rec = p2p_case(torch, timer, ctx, pname, dtype, P2P_ROWS,
+                               P2P_COLS, seed, perm=perm)
+                cases[rec["kernel"]].append(rec)
+        if n == PP_N:
+            seed += 1
+            cases["p2p_shift"].append(p2p_case(
+                torch, timer, ctx, "main_shift+1", torch.bfloat16,
+                *P2P_MAIN, seed, shift=1, time_it=True))
+            seed += 1
+            cases["p2p_permute"].append(p2p_case(
+                torch, timer, ctx, "main_butterfly", torch.bfloat16,
+                *P2P_MAIN, seed, perm=[(s, s ^ 1) for s in range(n)],
+                time_it=True))
+            stress = agp_stress(torch, ctx, PARITY_CALLS)
+        ctx.close()
+        del ctx
+        torch.cuda.empty_cache()
+    ctx = context.DistContext([torch.device(devices_for(1)[0])],
+                              wait_timeout_ms=20_000)
+    for dtype in (torch.float32, torch.bfloat16):
+        seed += 1
+        cases["p2p_shift"].append(p2p_case(
+            torch, timer, ctx, "force_kernel_shift", dtype, P2P_ROWS,
+            P2P_COLS, seed, shift=1, force=True))
+        seed += 1
+        cases["p2p_permute"].append(p2p_case(
+            torch, timer, ctx, "force_kernel_permute", dtype, P2P_ROWS,
+            P2P_COLS, seed, perm=[(0, 0)], force=True))
+        seed += 1
+        cases["ag_parity"].append(agp_force_one(torch, ctx, dtype, seed))
+    ctx.close()
+    tmo = sppp_timeouts(torch, devices_for(SP_N))
+    bad = [c["case"] for cs in cases.values() for c in cs if not c["ok"]]
+    check(not bad, f"{name}: disagree with their plain versions (or took "
+          f"the wrong kernel): {bad}")
+    check(stress is not None and stress["ok"],
+          f"{name}: parity stress wrong: {stress}")
+    check(tmo["ok"], f"{name}: a held-back rank did not raise "
+          f"CommTimeoutError: {tmo}")
+    return {"phase": name, "devices": devices_for(SP_N),
+            "tolerance": "bit-identical to the plain version on every rank",
+            "main_shapes": {
+                "ag_parity": f"n = {SP_N}, fp32, {AGP_MAIN[0]} x "
+                             f"{AGP_MAIN[1]} (the SP decode's partials)",
+                "p2p": f"n = {PP_N}, bf16, {P2P_MAIN[0]} x {P2P_MAIN[1]} "
+                       "(one PP microbatch)"},
+            "parity_stress": stress, "timeout": tmo, "cases": cases}
+
+
+def agp_force_one(torch, ctx, dtype, seed: int) -> dict:
+    """The parity AllGather at one rank: without ``force_kernel`` its
+    input back and no launch; with it, three calls (both parities) each
+    one launch, bit for bit."""
+    comm, ag, _, _ = sppp_modules()
+    x = _rand(torch, (16, AGP_COLS), dtype, seed)
+    ws, idx = ag.ag_stream_workspace(1, 16, AGP_COLS, dtype, ctx=ctx,
+                                     tag=f"smoke-one-{seed}")
+    before = comm.AG_PARITY_KERNEL.launches
+    same = ctx.run(lambda r: ag.all_gather_stream(x, ws, idx,
+                                                  num_ranks=1)[0])[0] is x
+    untouched = comm.AG_PARITY_KERNEL.launches == before
+    for _ in range(3):
+        out, _, idx = ctx.run(lambda r: ag.all_gather_stream(
+            x, ws, idx, num_ranks=1, force_kernel=True))[0]
+        torch.cuda.synchronize()
+        ctx.raise_on_comm_error()
+        same = same and torch.equal(_bits(torch, out), _bits(torch, x))
+    launched = comm.AG_PARITY_KERNEL.launches - before
+    ok = same and untouched and launched == 3 and idx == 3
+    return {"case": f"ag_parity_force_kernel_n1_{_dtype_name(dtype)}",
+            "n": 1, "dtype": _dtype_name(dtype), "launches": launched,
+            "max_abs_err": 0.0 if same else float("nan"),
+            "bit_identical": same, "ok": ok}
+
+
+def sp_reference(torch, pa, q, ks, vs, lens):
+    """One-rank K2 (normalized) over the concatenation of the shards'
+    valid rows, padded to whole 128-row pages (past kv_len, never
+    read)."""
+    k = torch.cat([x[:, :n] for x, n in zip(ks, lens)], dim=1)
+    v = torch.cat([x[:, :n] for x, n in zip(vs, lens)], dim=1)
+    b, s, hkv, d = k.shape
+    pages = -(-s // 128)
+    kp = torch.zeros((b, pages * 128, hkv, d), dtype=k.dtype, device=k.device)
+    vp = torch.zeros_like(kp)
+    kp[:, :s], vp[:, :s] = k, v
+    cache = pa.PagedKVCache(
+        kp.reshape(b * pages, 128, hkv, d), vp.reshape(b * pages, 128, hkv, d),
+        torch.arange(b * pages, dtype=torch.int32,
+                     device=k.device).reshape(b, pages),
+        torch.full((b,), s, dtype=torch.int32, device=k.device))
+    return pa.paged_decode_attention(q, cache)
+
+
+def phase_sp_decode(torch, pa, *, devices=None, layers=36,
+                    steps=SP_STEPS, name="sp_decode") -> dict:
+    """SP decode at Qwen3-8B's attention widths (32 / 8 heads, d 128,
+    bf16): B = 4 sequences of 32768 tokens sharded over 4 ranks (8192 rows
+    a rank, ragged shard lengths with an empty one), ``layers`` layers of
+    KV. ``steps`` decode steps through ``SpFlashDecodeAttention`` on the
+    parity stream (K2's partials, the parity AllGather of the (B·hq,
+    d + 2) partials, the combine), the last step's outputs held against
+    one-rank K2 over the valid rows; then one layer through
+    ``flash_decode`` with ``method="pallas"`` (B4's push) and ``"xla"``."""
+    comm, _, _, context = sppp_modules()
+    from triton_distributed_tpu_torch.layers.decode_layers import (
+        SpFlashDecodeAttention,
+    )
+    from triton_distributed_tpu_torch.ops.flash_decode import flash_decode
+
+    devices = devices or virtual_devices(SP_N)
+    n = len(devices)
+    ctx = context.DistContext([torch.device(d) for d in devices],
+                              tp_axis="sp", wait_timeout_ms=20_000)
+    bf16 = torch.bfloat16
+    B, hq, hkv, d = SP_B, SP_HQ, SP_HKV, SP_D
+    ks = [[_rand(torch, (B, SP_SHARD, hkv, d), bf16, 1000 + 2 * (r * layers
+                                                               + i))
+           .div_(4).to(devices[r]) for i in range(layers)] for r in range(n)]
+    vs = [[_rand(torch, (B, SP_SHARD, hkv, d), bf16, 1001 + 2 * (r * layers
+                                                               + i))
+           .div_(4).to(devices[r]) for i in range(layers)] for r in range(n)]
+    qs = _rand(torch, (steps, layers, B, hq, d), bf16, 999).div_(4)
+    layer = SpFlashDecodeAttention(axis="sp", num_ranks=n)
+    states = [None] * n
+    last = [None] * n
+
+    def decode(r, nsteps, first):
+        if states[r] is None:
+            states[r] = layer.init_state(B, hq, d)
+        state, outs = states[r], []
+        q = qs.to(devices[r])
+        for t in range(first, first + nsteps):
+            for i in range(layers):
+                out, state = layer(q[t % steps, i], ks[r][i], vs[r][i],
+                                   SP_LENS[r], state)
+                if t == first + nsteps - 1:
+                    outs.append(out)
+        states[r] = state
+        last[r] = outs
+        return state[1]
+
+    ctx.run(lambda r: decode(r, 1, 0))                  # warm-up
+    torch.cuda.synchronize()
+    kernels = (comm.AG_PARITY_KERNEL, pa.PAGED_KERNEL)
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    ctx.run(lambda r: decode(r, steps, 0))
+    torch.cuda.synchronize()
+    ctx.raise_on_comm_error()
+    wall = time.perf_counter() - t0
+    launches = {"ag_parity": comm.AG_PARITY_KERNEL.launches,
+                "paged_attention": pa.PAGED_KERNEL.launches}
+    plain = comm.AG_PARITY_KERNEL.plain_calls + pa.PAGED_KERNEL.plain_calls
+    want_l = n * layers * steps
+    check(launches == {"ag_parity": want_l, "paged_attention": want_l},
+          f"{name}: launches {launches}, expected {want_l} of each")
+    check(plain == 0, f"{name}: a plain version ran on the card")
+    tol = TOL["paged_attention"]
+    held = []
+    for i in range(layers):
+        ref = sp_reference(torch, pa, qs[steps - 1, i].to(devices[0]),
+                           [ks[r][i].to(devices[0]) for r in range(n)],
+                           [vs[r][i].to(devices[0]) for r in range(n)],
+                           SP_LENS)
+        rec = _close(torch, last[0][i], ref, tol)
+        rec["ranks_identical"] = all(torch.equal(last[r][i].to(ref.device),
+                                                 last[0][i])
+                                     for r in range(1, n))
+        held.append(rec)
+    # Two profiled steps (the parity index goes on from the timed run).
+    first = [steps]
+
+    def one_step():
+        ctx.run(lambda r: decode(r, 1, first[0]))
+        first[0] += 1
+
+    split = _busy_share(torch, one_step, 2, {
+        "paged_attention": "paged_decode", "ag_parity": "ag_parity"})
+    if split.get("measured"):
+        split["device_ms_per_layer_call"] = {
+            g: ms / layers for g, ms in split["device_ms_per_step"].items()}
+    one = {}
+    for method in ("pallas", "xla"):
+        reset_counts(kernels + (comm.AG_FULL_MESH_KERNEL,))
+        outs = flash_decode(qs[0, 0], [ks[r][0] for r in range(n)],
+                            [vs[r][0] for r in range(n)], SP_LENS, ctx,
+                            axis="sp", method=method)
+        torch.cuda.synchronize()
+        ref = sp_reference(torch, pa, qs[0, 0].to(devices[0]),
+                           [ks[r][0].to(devices[0]) for r in range(n)],
+                           [vs[r][0].to(devices[0]) for r in range(n)],
+                           SP_LENS)
+        one[method] = dict(_close(torch, outs[0].to(ref.device), ref, tol),
+                           launches={
+                               "paged_attention": pa.PAGED_KERNEL.launches,
+                               "ag_full_mesh":
+                                   comm.AG_FULL_MESH_KERNEL.launches})
+        one[method]["ranks_identical"] = all(
+            torch.equal(o.to(ref.device), outs[0].to(ref.device))
+            for o in outs)
+    check(one["pallas"]["launches"]["ag_full_mesh"] == n
+          and one["xla"]["launches"]["ag_full_mesh"] == 0,
+          f"{name}: flash_decode's exchanges: {one}")
+    bad = [(i, h) for i, h in enumerate(held)
+           if not (h["ok"] and h["ranks_identical"])]
+    bad += [(m, h) for m, h in one.items()
+            if not (h["ok"] and h["ranks_identical"])]
+    check(not bad, f"{name}: outside K2's tolerance of one rank, or the "
+          f"ranks differ (layer or method, record): {bad[:4]}")
+    kv_gb = 2 * n * layers * B * SP_SHARD * hkv * d * 2 / 2**30
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    ctx.close()
+    del ks, vs, states, last
+    gc_collect(torch)
+    return {"phase": name, "devices": devices, "layers": layers,
+            "steps": steps, "batch": B, "heads": [hq, hkv], "head_dim": d,
+            "shard_rows": SP_SHARD, "shard_lens": SP_LENS,
+            "kv_gib": kv_gb, "peak_mem_gb": peak,
+            "wall_ms_per_layer_call": wall * 1e3 / (layers * steps),
+            "wall_ms_per_step": wall * 1e3 / steps,
+            "device_split": split, "launches": launches,
+            "launches_per_rank_and_step": {
+                k: v / (n * steps) for k, v in launches.items()},
+            "tolerance": tol,
+            "max_abs_err": max(h["max_abs_err"] for h in held),
+            "tol_share": max(h["tol_share"] for h in held),
+            "one_layer": one}
+
+
+def phase_sp_prefill(torch, fa, timer, *, devices=None, seq=SP_PREFILL_S,
+                     name="sp_prefill") -> dict:
+    """The SP prefill family at Qwen3-8B's attention widths, B = 1, S =
+    ``seq``, bf16, causal, on 4 ranks: ``ring_attention``,
+    ``sp_ag_attention`` and ``ulysses_attention`` each held against K1 on
+    one rank over the whole sequence (K1's bf16 tolerance), timed, K1's
+    launches a rank counted."""
+    comm, _, _, context = sppp_modules()
+    import importlib
+
+    ops = {m: importlib.import_module(f"triton_distributed_tpu_torch.ops.{m}")
+           for m in ("ring_attention", "sp_ag_attention", "ulysses")}
+    devices = devices or virtual_devices(SP_N)
+    n = len(devices)
+    ctx = context.DistContext([torch.device(d) for d in devices],
+                              tp_axis="sp", wait_timeout_ms=20_000)
+    bf16 = torch.bfloat16
+    q = _rand(torch, (1, seq, SP_HQ, SP_D), bf16, 31).div_(4)
+    k = _rand(torch, (1, seq, SP_HKV, SP_D), bf16, 32).div_(4)
+    v = _rand(torch, (1, seq, SP_HKV, SP_D), bf16, 33).div_(4)
+    ref = fa.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    shards = [list(torch.chunk(x, n, dim=1)) for x in (q, k, v)]
+    shards = [[s.to(devices[r]).contiguous() for r, s in enumerate(p)]
+              for p in shards]
+    per_rank = {"ring_attention": n, "sp_ag_attention": n + 1,
+                "ulysses_attention": 1}
+    out = {}
+    for fname, mod in (("ring_attention", "ring_attention"),
+                       ("sp_ag_attention", "sp_ag_attention"),
+                       ("ulysses_attention", "ulysses")):
+        fn = getattr(ops[mod], fname)
+
+        def call():
+            return fn(*shards, ctx, axis="sp", causal=True)
+
+        call()                                           # warm-up
+        torch.cuda.synchronize()
+        reset_counts((fa.FLASH_KERNEL,) + tuple(comm.COLLECTIVE_KERNELS))
+        got = call()
+        torch.cuda.synchronize()
+        ctx.raise_on_comm_error()
+        rec = _close(torch, torch.cat([g.to(ref.device) for g in got], dim=1),
+                     ref, TOL["flash_attention"])
+        rec["k1_launches"] = fa.FLASH_KERNEL.launches
+        rec["k1_launches_per_rank"] = fa.FLASH_KERNEL.launches / n
+        rec["ag_launches"] = {"ag_ring": comm.AG_RING_KERNEL.launches,
+                              "ag_full_mesh":
+                                  comm.AG_FULL_MESH_KERNEL.launches}
+        check(rec["k1_launches"] == n * per_rank[fname],
+              f"{name}: {fname} launched K1 {rec['k1_launches']} times, "
+              f"expected {n * per_rank[fname]}")
+        check(fa.FLASH_KERNEL.plain_calls == 0,
+              f"{name}: K1's plain version ran")
+        walls = []
+        for _ in range(3):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            start.record()
+            call()
+            end.record()
+            torch.cuda.synchronize()
+            walls.append(((time.perf_counter() - t0) * 1e3,
+                          start.elapsed_time(end)))
+        rec["wall_ms_runs"] = [w for w, _ in walls]
+        rec["event_ms_runs"] = [e for _, e in walls]
+        rec["ms"] = sorted(w for w, _ in walls)[1]
+        out[fname] = rec
+    one_rank_ms = timer.ms(lambda: fa.flash_attention(q, k, v, causal=True),
+                           iters=3, warmup=1)
+    bad = [f for f, r in out.items() if not r["ok"]]
+    check(not bad, f"{name}: outside K1's tolerance of one rank: "
+          f"{ {f: out[f] for f in bad} }")
+    ctx.close()
+    del q, k, v, ref, shards
+    gc_collect(torch)
+    return {"phase": name, "devices": devices, "seq": seq, "batch": 1,
+            "heads": [SP_HQ, SP_HKV], "head_dim": SP_D, "dtype": "bfloat16",
+            "tolerance": TOL["flash_attention"],
+            "one_rank_k1_ms": one_rank_ms, "ops": out}
+
+
+def pp_layers_fn(cfg, layers):
+    """The stage function of the PP phases: ``layers`` decoder layers over
+    one microbatch (rows, hidden) of one sequence, as
+    ``models/dense.dense_prefill`` applies them at one rank —
+    ``tp_attn_prefill`` at n = 1 without a KV slice, then the MLP, each
+    behind its RMSNorm and added to the residual."""
+    from triton_distributed_tpu_torch.layers.common import rms_norm
+    from triton_distributed_tpu_torch.layers.tp_attn import tp_attn_prefill
+    from triton_distributed_tpu_torch.layers.tp_mlp import tp_mlp_fwd
+
+    def stage(x):
+        for layer in layers:
+            h = rms_norm(x, layer["attn_norm"], cfg.rms_norm_eps)
+            attn, _ = tp_attn_prefill(layer["attn"], cfg, h, 1, x.shape[0],
+                                      num_ranks=1)
+            x = x + attn
+            h = rms_norm(x, layer["mlp_norm"], cfg.rms_norm_eps)
+            x = x + tp_mlp_fwd(layer["mlp"], h, num_ranks=1)
+        return x
+
+    return stage
+
+
+def _on(tree, dev):
+    """``tree``'s tensors on ``dev`` (the same tensors when already
+    there: the stages share one copy of the weights on one card)."""
+    if isinstance(tree, dict):
+        return {k: _on(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_on(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+def phase_pp_forward(torch, params, cfg, fa, *, devices=None,
+                     num_mb=PP_MB, rows=PP_MB_ROWS, chunks=PP_CHUNKS,
+                     name="pp_forward") -> dict:
+    """``pp_pipeline_forward`` over ``cfg`` on 4 stages of L/4 decoder
+    layers (each stage its slice of ``params["layers"]``, no copy on one
+    card), ``num_mb`` microbatches of one ``rows``-token sequence, then
+    ``pp_pipeline_interleaved`` with ``chunks`` chunks (4·chunks virtual
+    stages of L/(4·chunks) layers). The last stage's outputs against the
+    L layers run on one rank over the same microbatches (expected
+    bit-identical); B7's shift launches a rank; the device's busy share;
+    one ``CommOp.exchange`` with a permutation that is not a ring."""
+    comm, _, p2p, context = sppp_modules()
+    from triton_distributed_tpu_torch.layers.pp import (
+        CommOp, pp_pipeline_forward, pp_pipeline_interleaved,
+    )
+
+    devices = devices or virtual_devices(PP_N)
+    n = len(devices)
+    L = len(params["layers"])
+    per, per_c = L // n, L // (n * chunks)
+    check(per * n == L and per_c * n * chunks == L,
+          f"{name}: {L} layers do not split over {n} x {chunks}")
+    ctx = context.DistContext([torch.device(d) for d in devices],
+                              tp_axis="pp", wait_timeout_ms=60_000)
+    dt = params["layers"][0]["attn_norm"].dtype
+    x = (torch.randn((num_mb, rows, cfg.hidden_size), device="cuda",
+                     generator=torch.Generator(device="cuda").manual_seed(41))
+         * 0.5).to(dt)
+    xs = [x.to(d) for d in devices]
+    gpipe = [pp_layers_fn(cfg, _on(params["layers"][r * per:(r + 1) * per],
+                                   devices[r])) for r in range(n)]
+    inter = [[pp_layers_fn(cfg, _on(params["layers"][
+        (c * n + r) * per_c:(c * n + r + 1) * per_c], devices[r]))
+        for c in range(chunks)] for r in range(n)]
+    whole = pp_layers_fn(cfg, params["layers"])
+    ref = torch.stack([whole(x[i]) for i in range(num_mb)])
+    torch.cuda.synchronize()
+
+    def run_gpipe():
+        return ctx.run(lambda r: pp_pipeline_forward(
+            gpipe[r], xs[r], axis="pp", num_ranks=n))
+
+    def run_inter():
+        return ctx.run(lambda r: pp_pipeline_interleaved(
+            lambda c, mb: inter[r][c](mb), xs[r], chunks=chunks, axis="pp",
+            num_ranks=n))
+
+    kernels = (fa.FLASH_KERNEL, comm.P2P_SHIFT_KERNEL,
+               comm.P2P_PERMUTE_KERNEL)
+    out = {}
+    for form, run, shifts in (
+            ("gpipe", run_gpipe, num_mb + n - 2),
+            ("interleaved", run_inter, (num_mb + chunks * n - 2) * chunks)):
+        run()                                             # warm-up
+        torch.cuda.synchronize()
+        reset_counts(kernels)
+        t0 = time.perf_counter()
+        got = run()
+        torch.cuda.synchronize()
+        ctx.raise_on_comm_error()
+        wall = (time.perf_counter() - t0) * 1e3
+        last = got[n - 1].to(ref.device)
+        same = torch.equal(last, ref)
+        rec = {"ms": wall, "bit_identical_to_one_rank": same,
+               "max_abs_err": _max_err(last, ref),
+               "shift_launches": comm.P2P_SHIFT_KERNEL.launches,
+               "shift_launches_per_rank":
+                   comm.P2P_SHIFT_KERNEL.launches / n,
+               "expected_per_rank": shifts,
+               "k1_launches": fa.FLASH_KERNEL.launches,
+               "others_zero": all(not g.any() for g in got[:n - 1])}
+        check(rec["shift_launches"] == n * shifts,
+              f"{name}: {form} launched the shift {rec['shift_launches']} "
+              f"times, expected {n * shifts}")
+        check(rec["k1_launches"] == num_mb * L,
+              f"{name}: {form} launched K1 {rec['k1_launches']} times, "
+              f"expected {num_mb * L} (each layer once a microbatch)")
+        check(comm.P2P_SHIFT_KERNEL.plain_calls == 0,
+              f"{name}: B7's plain version ran")
+        check(bool(torch.isfinite(last).all()) and rec["others_zero"],
+              f"{name}: {form} non-finite output or other stages not zero")
+        rec["busy"] = _busy_share(torch, run, 1)
+        out[form] = rec
+    one_ms = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(num_mb):
+            whole(x[i])
+        torch.cuda.synchronize()
+        one_ms.append((time.perf_counter() - t0) * 1e3)
+    perm = [(s, s ^ 1) for s in range(n)]
+    reset_counts(kernels)
+    ys = [xs[r][0] for r in range(n)]
+    ex = ctx.run(lambda r: CommOp(axis="pp", num_ranks=n).exchange(ys[r],
+                                                                   perm))
+    torch.cuda.synchronize()
+    ctx.raise_on_comm_error()
+    want = p2p.p2p_plain([y.to(x.device) for y in ys], perm)
+    exchange = {"perm": perm, "shape": [rows, cfg.hidden_size],
+                "launches": {"p2p_permute": comm.P2P_PERMUTE_KERNEL.launches,
+                             "p2p_shift": comm.P2P_SHIFT_KERNEL.launches},
+                "bit_identical": all(torch.equal(_bits(torch, e.to(x.device)),
+                                                 _bits(torch, w))
+                                     for e, w in zip(ex, want))}
+    check(exchange["bit_identical"]
+          and exchange["launches"] == {"p2p_permute": n, "p2p_shift": 0},
+          f"{name}: CommOp.exchange: {exchange}")
+    ctx.close()
+    del gpipe, inter, xs
+    gc_collect(torch)
+    return {"phase": name, "devices": devices, "stages": n, "layers": L,
+            "layers_per_stage": per, "chunks": chunks,
+            "layers_per_virtual_stage": per_c, "microbatches": num_mb,
+            "microbatch": [rows, cfg.hidden_size], "dtype": str(dt),
+            "one_rank_ms_runs": one_ms, **out,
+            "comm_op_exchange": exchange,
+            "bit_identical": all(out[f]["bit_identical_to_one_rank"]
+                                 for f in out)}
+
+
+def phase_sp_pp_parity(torch, *, devices_for=virtual_devices,
+                       ranks=(2, 4), name="sp_pp_parity") -> dict:
+    """Every new entry point at n = 2 and 4, fp32, small shapes, on the
+    card (its kernels) against the same call on CPU rank threads (the
+    plain versions): byte moves bit for bit (the parity AllGather, B7's
+    shift and permutation, ``CommOp``, ``PPStream``, both pipelines,
+    ``AllGatherLayer``), attention (``flash_decode`` in its three
+    exchanges, ``SpFlashDecodeAttention``, the SP prefill family) and
+    ``GemmARLayer`` within the fp32 tolerance."""
+    _, ag, p2p, context = sppp_modules()
+    import importlib
+
+    mods = {m: importlib.import_module(f"triton_distributed_tpu_torch.{m}")
+            for m in ("ops.flash_decode", "ops.ring_attention",
+                      "ops.sp_ag_attention", "ops.ulysses",
+                      "ops.low_latency_allgather", "layers.decode_layers",
+                      "layers.pp")}
+    fd, dl, pp = (mods["ops.flash_decode"], mods["layers.decode_layers"],
+                  mods["layers.pp"])
+    tol = TOL["fp32"]
+    g = torch.Generator().manual_seed(5)
+    results = []
+    for n in ranks:
+        gpu = context.DistContext([torch.device(d) for d in devices_for(n)],
+                                  tp_axis="sp", wait_timeout_ms=20_000)
+        cpu = context.DistContext([torch.device("cpu")] * n, tp_axis="sp",
+                                  wait_timeout_ms=60_000)
+        x = torch.randn((n, 16, 256), generator=g)
+        q = torch.randn((2, 8, 128), generator=g)
+        kv = torch.randn((2, n, 2, 64, 2, 128), generator=g)
+        qs = torch.randn((1, 64 * n, 8, 128), generator=g)
+        ks = torch.randn((2, 1, 64 * n, 4, 128), generator=g)
+        w = torch.randn((n, 64, 256), generator=g)
+        lens = [64, 0, 17, 40][:n]
+        mb = torch.randn((5, 16, 256), generator=g)
+
+        def entry(ctx, what):
+            dev = ctx.devices
+
+            def on(t, r):
+                return t.to(dev[r])
+
+            def body(r):
+                if what == "all_gather_stream":
+                    ws, idx = ag.ag_stream_workspace(n, 16, 256,
+                                                     torch.float32,
+                                                     tag="parity")
+                    outs = []
+                    for t in range(3):
+                        o, ws, idx = ag.all_gather_stream(
+                            on(x[r], r) * (t + 1), ws, idx, num_ranks=n,
+                            axis="sp")
+                        outs.append(o)
+                    return torch.stack(outs)
+                if what == "p2p_shift":
+                    return p2p.p2p_shift_local(on(x[r], r), -1, axis="sp",
+                                               num_ranks=n)
+                if what == "p2p_permute":
+                    return p2p.p2p_permute_local(
+                        on(x[r], r), [(0, n - 1), (n - 1, 0), (0, 1)]
+                        if n > 2 else [(1, 0)], axis="sp", num_ranks=n)
+                if what == "comm_op":
+                    op = pp.CommOp(axis="sp", num_ranks=n)
+                    return op.send(on(x[r], r), 1, 0) + op.exchange(
+                        on(x[r], r), [(s, (s + 1) % n) for s in range(n)])
+                if what == "pp_stream":
+                    st = pp.PPStream(axis="sp", num_ranks=n)
+                    return st.send_prev(st.send_next(on(x[r], r)))
+                if what == "pp_forward":
+                    return pp.pp_pipeline_forward(
+                        lambda t: t * 1.5 + r, on(mb, r), axis="sp",
+                        num_ranks=n)
+                if what == "pp_interleaved":
+                    return pp.pp_pipeline_interleaved(
+                        lambda c, t: t * 0.5 + (10.0 * c + r), on(mb, r),
+                        chunks=2, axis="sp", num_ranks=n)
+                if what.startswith("flash_decode_"):
+                    m = what[len("flash_decode_"):]
+                    args = (on(q, r), on(kv[0, r], r), on(kv[1, r], r),
+                            lens[r])
+                    if m != "stream":
+                        return fd.flash_decode_local(*args, axis="sp",
+                                                     num_ranks=n, method=m)
+                    layer = dl.SpFlashDecodeAttention(axis="sp",
+                                                      num_ranks=n)
+                    st = layer.init_state(2, 8, 128, tag="parity")
+                    outs = []
+                    for _ in range(3):
+                        o, st = layer(*args, st)
+                        outs.append(o)
+                    return torch.stack(outs)
+                if what == "gemm_ar_layer":
+                    layer = dl.GemmARLayer(axis="sp", num_ranks=n)
+                    st = layer.init_state(16, 256, tag="parity")
+                    o1, st = layer(on(x[r][:, :64], r), on(w[r], r), st)
+                    return torch.stack([o1, layer(on(x[r][:, :64], r),
+                                                  on(w[r], r))])
+                sh = [on(t[:, r * 64:(r + 1) * 64].contiguous(), r)
+                      for t in (qs, ks[0], ks[1])]
+                if what == "ring_attention":
+                    return mods["ops.ring_attention"].ring_attention_local(
+                        *sh, axis="sp", num_ranks=n)
+                if what == "sp_ag_attention":
+                    return mods["ops.sp_ag_attention"].sp_ag_attention_local(
+                        *sh, axis="sp", num_ranks=n)
+                return mods["ops.ulysses"].ulysses_attention_local(
+                    *sh, axis="sp", num_ranks=n)
+
+            if what == "allgather_layer":
+                return mods["ops.low_latency_allgather"].AllGatherLayer(
+                    ctx, axis="sp")(list(x[:, :5]))
+            outs = ctx.run(body)
+            ctx.raise_on_comm_error()
+            return outs
+
+        byte_moves = ("all_gather_stream", "p2p_shift", "p2p_permute",
+                      "comm_op", "pp_stream", "pp_forward", "pp_interleaved",
+                      "allgather_layer")
+        for what in byte_moves + (
+                "flash_decode_xla", "flash_decode_pallas",
+                "flash_decode_stream", "gemm_ar_layer", "ring_attention",
+                "sp_ag_attention", "ulysses_attention"):
+            got = entry(gpu, what)
+            torch.cuda.synchronize()
+            want = entry(cpu, what)
+            rec = {"case": f"{what}_n{n}", "n": n}
+            if what in byte_moves:
+                same = all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+                rec.update(bit_identical=same, ok=same,
+                           max_abs_err=0.0 if same else float("nan"))
+            else:
+                closes = [_close(torch, a.cpu(), b, tol)
+                          for a, b in zip(got, want)]
+                rec.update(max_abs_err=max(c["max_abs_err"] for c in closes),
+                           tol_share=max(c["tol_share"] for c in closes),
+                           ok=all(c["ok"] for c in closes))
+            results.append(rec)
+        gpu.close()
+        cpu.close()
+    bad = [r["case"] for r in results if not r["ok"]]
+    check(not bad, f"{name}: disagree with their plain versions: {bad}")
+    return {"phase": name, "devices_at_4": devices_for(4),
+            "tolerance": {"byte moves": "bit-identical", "attention and "
+                          "GemmARLayer (fp32)": tol}, "cases": results}
+
+
 def _summary_entry(kernel, name, replaces, cases, main_case, launches,
                    root) -> dict:
     return {"name": name, "route": "cuda",
@@ -5839,6 +6750,11 @@ def main() -> int:
     fused_rec = emit_phase(phase_fused(torch, timer))
     gc.collect()
     torch.cuda.empty_cache()
+    sppp_rec = emit_phase(phase_collectives_sp_pp(torch, timer))
+    gc.collect()
+    torch.cuda.empty_cache()
+    spd_rec = emit_phase(phase_sp_decode(torch, pa))
+    emit_phase(phase_sp_prefill(torch, fa, timer))
 
     # One set of seeded Qwen3-8B weights serves every full-size phase.
     params = init_dense_llm(
@@ -5928,6 +6844,7 @@ def main() -> int:
         torch, mk, mkserv, mkmodels, kernels, Engine, params, QWEN3_8B,
         one_rank_bf16_ms=lin_rec["forms"]["bf16"]["ms"],
         eager_tp_step_ms=tpe_rec["defaults"]["decode_ms_per_step"]))
+    pp_rec = emit_phase(phase_pp_forward(torch, params, QWEN3_8B, fa))
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -5948,6 +6865,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     emit_phase(phase_tp_engine_parity(torch, QWEN3_8B, init_dense_llm,
                                       Engine, kernels))
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit_phase(phase_sp_pp_parity(torch))
     gc.collect()
     torch.cuda.empty_cache()
     tpmkp_rec = emit_phase(phase_tp_megakernel_parity(
@@ -6227,6 +7147,30 @@ def main() -> int:
                        a2a_rec["cases"]["a2a_parity"],
                        a2a_main_case(a2a_rec, "a2a_parity"),
                        ep_rec["decode_stream"]["launches"]["a2a_parity"],
+                       root),
+    ]
+    sppp = sppp_rec["cases"]
+    summary += [
+        # B4's parity stream: the SP decode's 36 layers x 16 steps (36 a
+        # rank and step), timed at its (B·hq, d + 2) = 128 x 130 fp32
+        # partials on 4 ranks.
+        _summary_entry(comm.AG_PARITY_KERNEL, "ag_parity",
+                       tpu + "ops/allgather.py:192", sppp["ag_parity"],
+                       next(c for c in sppp["ag_parity"] if "ms" in c),
+                       spd_rec["launches"]["ag_parity"], root),
+        # B7's shift: both pipeline schedules of pp_forward (10 and 54 a
+        # rank), timed at one 512 x 4096 bf16 microbatch on 4 ranks.
+        _summary_entry(comm.P2P_SHIFT_KERNEL, "p2p_shift",
+                       tpu + "ops/p2p.py:30", sppp["p2p_shift"],
+                       next(c for c in sppp["p2p_shift"] if "ms" in c),
+                       pp_rec["gpipe"]["shift_launches"]
+                       + pp_rec["interleaved"]["shift_launches"], root),
+        # B7's permutation: pp_forward's CommOp.exchange (a butterfly) at
+        # that shape, one a rank.
+        _summary_entry(comm.P2P_PERMUTE_KERNEL, "p2p_permute",
+                       tpu + "ops/p2p.py:102", sppp["p2p_permute"],
+                       next(c for c in sppp["p2p_permute"] if "ms" in c),
+                       pp_rec["comm_op_exchange"]["launches"]["p2p_permute"],
                        root),
     ]
     check(all(e["launches"] > 0 for e in summary),

@@ -36,12 +36,25 @@ held-back rank's CommTimeoutError) and, with ``--parity``,
 ``Engine.serve(backend="megakernel")`` on 4 ranks token-identical to one
 rank and to the eager TP serve; one step, fp32 and bf16, against the
 plain version on every rank, the ranks' final rows bit-identical; the
-MoE program at n = 2 against one rank). Prints one JSON line per phase,
-then the cards' names and power limits. About four minutes with the build
-(``--moe``: about one and a half):
+MoE program at n = 2 against one rank). ``--sp`` and ``--pp`` run only
+the sequence- and pipeline-parallel path: ``chip_smoke.
+phase_collectives_sp_pp`` (B4's parity AllGather and B7's shift and
+permutation at n = 2, 4 and 8 — 2 and 4 with ``--cards`` — bit for bit
+against their plain versions, timed; the parity stress; held-back
+ranks), then with ``--sp`` ``chip_smoke.phase_sp_decode`` (36 layers x
+16 steps of ``SpFlashDecodeAttention`` on 4 ranks against one-rank K2)
+and ``phase_sp_prefill`` (ring, SP-AG and Ulysses attention against
+one-rank K1), with ``--pp`` ``chip_smoke.phase_pp_forward`` (Qwen3-8B,
+bf16, GPipe on 4 stages and the interleaved schedule against the 36
+layers on one rank; with ``--cards`` each stage's layers on its card),
+and with ``--parity`` ``chip_smoke.phase_sp_pp_parity`` (every new entry
+point, fp32, against the CPU rank threads' plain versions). Prints one
+JSON line per phase, then the cards' names and power limits. About four
+minutes with the build (``--moe``: about one and a half):
 
     python3 scripts/check_port_tp.py [--parity] [--cards] [--moe]
     python3 scripts/check_port_tp.py --megakernel [--parity] [--cards]
+    python3 scripts/check_port_tp.py --sp --pp [--parity] [--cards]
 """
 import importlib
 import json
@@ -75,13 +88,17 @@ def main() -> int:
     from triton_distributed_tpu_torch.megakernel import kernel as mk
 
     megakernel = "--megakernel" in sys.argv
+    sp, pp = "--sp" in sys.argv, "--pp" in sys.argv
     t0 = time.perf_counter()
-    srcs = [comm.ONE_SHOT_KERNEL.source_path, comm.A2A_KERNEL.source_path,
-            comm.AG_GEMM_KERNEL.source_path, mk.MEGA_KERNEL.source_path,
-            fa.FLASH_KERNEL.source_path, pa.PAGED_KERNEL.source_path]
-    build.build(srcs)
+    srcs = [comm.ONE_SHOT_KERNEL.source_path,
+            comm.P2P_SHIFT_KERNEL.source_path]
+    if not (sp or pp):
+        srcs += [comm.A2A_KERNEL.source_path, comm.AG_GEMM_KERNEL.source_path,
+                 mk.MEGA_KERNEL.source_path]
+    build.build(srcs + [fa.FLASH_KERNEL.source_path,
+                        pa.PAGED_KERNEL.source_path])
     ptxas = {}
-    for src in srcs[:4]:
+    for src in srcs:
         log = build.library_path(src).with_suffix(".log").read_text()
         ptxas[src.name] = [ln.strip() for ln in log.splitlines()
                            if "registers" in ln or "spill" in ln]
@@ -105,6 +122,38 @@ def main() -> int:
     else:
         devices_for, ranks = cs.virtual_devices, cs.COLL_RANKS
     moe = "--moe" in sys.argv
+    if sp or pp:
+        suffix = "_cards" if cards else ""
+        run("collectives_sp_pp", lambda: cs.phase_collectives_sp_pp(
+            torch, timer, devices_for=devices_for, ranks=ranks,
+            name="collectives_sp_pp" + suffix))
+        if sp:
+            run("sp_decode", lambda: cs.phase_sp_decode(
+                torch, pa, devices=devices_for(cs.SP_N),
+                name="sp_decode" + suffix))
+            run("sp_prefill", lambda: cs.phase_sp_prefill(
+                torch, fa, timer, devices=devices_for(cs.SP_N),
+                name="sp_prefill" + suffix))
+        if pp:
+            from triton_distributed_tpu_torch.models.config import QWEN3_8B
+            from triton_distributed_tpu_torch.models.dense import (
+                init_dense_llm,
+            )
+
+            def pp_forward():
+                params = init_dense_llm(QWEN3_8B, generator=torch.Generator(
+                    device="cuda").manual_seed(0))
+                return cs.phase_pp_forward(
+                    torch, params, QWEN3_8B, fa,
+                    devices=devices_for(cs.PP_N), name="pp_forward" + suffix)
+
+            run("pp_forward", pp_forward)
+        if "--parity" in sys.argv:
+            run("sp_pp_parity", lambda: cs.phase_sp_pp_parity(
+                torch, devices_for=devices_for,
+                name="sp_pp_parity" + suffix))
+        print(cs.nvidia_smi_all(), flush=True)
+        return 1 if failed else 0
     if megakernel:
         def megakernel_ar():
             cases, timeout = cs.phase_megakernel_ar(

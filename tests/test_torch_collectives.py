@@ -1,7 +1,8 @@
 """The port's collectives (``ops/allreduce``, ``ops/reduce_scatter``,
-``ops/allgather``) against the JAX package's on the conftest's CPU mesh
-(Pallas interpret mode, remote DMA emulated), method pinned, at n = 2, 4
-and 8 ranks, fp32 and bf16, on the shapes of ``tests/test_collectives.py``.
+``ops/allgather`` with its parity stream) against the JAX package's on the
+conftest's CPU mesh (Pallas interpret mode, remote DMA emulated), method
+pinned, at n = 2, 4 and 8 ranks, fp32 and bf16, on the shapes of
+``tests/test_collectives.py``.
 
 The port's ranks are CPU threads (``DistContext(devices=["cpu"] * n)``);
 the kernels' plain versions run, rendezvousing through the symmetric
@@ -26,6 +27,7 @@ import torch
 from jax.sharding import Mesh, PartitionSpec as JP
 
 from triton_distributed_tpu.ops import allreduce as jar
+from triton_distributed_tpu.ops import allgather as jag
 from triton_distributed_tpu.ops.allgather import all_gather as jall_gather
 from triton_distributed_tpu.ops.reduce_scatter import (
     reduce_scatter as jreduce_scatter,
@@ -38,7 +40,7 @@ from triton_distributed_tpu_torch.ops import allgather as tag
 from triton_distributed_tpu_torch.ops import allreduce as tar
 from triton_distributed_tpu_torch.ops import reduce_scatter as trs
 from triton_distributed_tpu_torch.ops._comm import (
-    ONE_SHOT_KERNEL, CollectiveUnsupportedError,
+    AG_PARITY_KERNEL, ONE_SHOT_KERNEL, CollectiveUnsupportedError,
 )
 from triton_distributed_tpu_torch.runtime import perf_model as tpm
 from triton_distributed_tpu_torch.runtime.context import (
@@ -156,6 +158,122 @@ def test_all_reduce_stream_vs_jax(n, dtype):
                                       err_msg=f"rank {r}")
 
 
+def _ag_stream_jax(n, x, calls, straggler):
+    """The JAX package's parity AllGather over ``calls`` calls of
+    x·(1 + t) on one workspace: the (calls, n·m, cols) gathers a rank
+    and the index after."""
+    m, cols = x.shape[1], x.shape[2]
+
+    def run(xl):
+        xl = xl[0]
+        ws, idx = jag.ag_stream_workspace(n, m, cols, xl.dtype)
+        outs = []
+        for t in range(calls):
+            out, ws, idx = jag.all_gather_stream(
+                xl * (1.0 + t), ws, idx, axis="tp", num_ranks=n,
+                straggler=straggler)
+            outs.append(out)
+        return jnp.stack(outs)[None], idx[None]
+
+    outs, idx = jax.jit(shard_map_on(jctx(n), run, JP("tp"),
+                                     (JP("tp"), JP("tp"))))(x)
+    return _bits(outs), np.asarray(idx)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("n", NS)
+def test_all_gather_stream_fixed_straggler_vs_jax(n, dtype):
+    """Barrier-free parity AllGather with a FIXED straggler (rank 1 held
+    back on both sides): three calls over one workspace — both parities
+    and a reuse — each gather bit for bit the JAX package's, on every
+    rank; the index after is 3."""
+    m, cols, calls = 16, 128, 3
+    jx, tx = _data((n, m, cols), dtype, 50 + n)
+    want, jidx = _ag_stream_jax(n, jx, calls, (1, 512))
+    assert (jidx == calls).all()
+    ctx = tctx(n)
+    ws, idx0 = tag.ag_stream_workspace(n, m, cols, DTYPES[dtype][1],
+                                       ctx=ctx, tag=f"test-fixed-{dtype}")
+    before = AG_PARITY_KERNEL.plain_calls
+
+    def trun(r):
+        idx, outs = idx0, []
+        for t in range(calls):
+            out, _, idx = tag.all_gather_stream(
+                tx[r] * (1.0 + t), ws, idx, axis="tp", num_ranks=n,
+                straggler=(1, 100_000))
+            outs.append(out)
+        return torch.stack(outs), idx
+
+    got = ctx.run(trun)
+    assert AG_PARITY_KERNEL.plain_calls - before == n * calls
+    for r, (outs, idx) in enumerate(got):
+        assert idx == calls
+        np.testing.assert_array_equal(_bits(outs), want[r],
+                                      err_msg=f"rank {r}")
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_all_gather_stream_rotating_200_calls(n):
+    """200 parity calls over one workspace with a rotating straggler: each
+    gather exact (x·(1 + t) in rank order, the JAX package's for the
+    first four), every rank alike; the index after is 200; a call out of
+    sequence and a workspace of another shape or type are refused."""
+    m, cols, steps = 16, 128, 200
+    jx, tx = _data((n, m, cols), "float32", 60 + n)
+    want4, _ = _ag_stream_jax(n, jx, 4, ("rotate", 256))
+    ctx = tctx(n)
+    ws, idx0 = tag.ag_stream_workspace(n, m, cols, torch.float32, ctx=ctx,
+                                       tag="test-rotating")
+    full = torch.cat(list(tx))
+
+    def trun(r):
+        idx, bad, first = idx0, [], []
+        for t in range(steps):
+            out, _, idx = tag.all_gather_stream(
+                tx[r] * (1.0 + t), ws, idx, num_ranks=n,
+                straggler=("rotate", 1_000))
+            if not torch.equal(out, full * (1.0 + t)):
+                bad.append(t)
+            if t < 4:
+                first.append(out)
+        with pytest.raises(ValueError, match="call_index"):
+            tag.all_gather_stream(tx[r], ws, idx + 1, num_ranks=n)
+        with pytest.raises(ValueError, match="workspace shape"):
+            tag.all_gather_stream(tx[r][:8], ws, idx, num_ranks=n)
+        with pytest.raises(ValueError, match="workspace dtype"):
+            tag.all_gather_stream(tx[r].double(), ws, idx, num_ranks=n)
+        return bad, torch.stack(first), idx
+
+    for r, (bad, first, idx) in enumerate(ctx.run(trun)):
+        assert bad == [] and idx == steps
+        np.testing.assert_array_equal(_bits(first), want4[r],
+                                      err_msg=f"rank {r}")
+    # A second ask for the tag returns the workspace at its next call.
+    assert tag.ag_stream_workspace(n, m, cols, torch.float32, ctx=ctx,
+                                   tag="test-rotating") == (ws, steps)
+
+
+def test_all_gather_stream_one_rank():
+    """At n = 1 the input comes back without a call; ``force_kernel`` runs
+    the plain version of the loopback (the push to itself)."""
+    ctx = DistContext([torch.device("cpu")], wait_timeout_ms=60_000)
+    x = torch.arange(4 * 128, dtype=torch.float32).reshape(4, 128)
+    ws, idx = tag.ag_stream_workspace(1, 4, 128, torch.float32, ctx=ctx)
+
+    def body(r):
+        before = AG_PARITY_KERNEL.plain_calls
+        same, _, i1 = tag.all_gather_stream(x, ws, idx, num_ranks=1)
+        forced, _, i2 = tag.all_gather_stream(x, ws, idx, num_ranks=1,
+                                              force_kernel=True)
+        return same, forced, i1, i2, AG_PARITY_KERNEL.plain_calls - before
+
+    same, forced, i1, i2, calls = ctx.run(body)[0]
+    assert same is x and torch.equal(forced, x) and forced is not x
+    assert (i1, i2, calls) == (1, 1, 1)
+    ctx.close()
+
+
 def test_plain_reduction_order():
     """The one-shot's plain sum starts from 0 (0 + -0 = +0, as the TPU
     kernel's zeroed accumulator) and adds in rank order in fp32; the ring
@@ -245,8 +363,16 @@ def test_named_refusals():
             assert torch.equal(tag.all_gather_local(x, num_ranks=2,
                                                     method=how),
                                torch.cat([x, x]))
+        # Nor is B4's parity stream: two calls over one workspace (both
+        # parities) gather both ranks' rows.
+        ws, idx = tag.ag_stream_workspace(2, 4, 128, x.dtype,
+                                          tag="refusals")
+        for t in range(2):
+            got, _, idx = tag.all_gather_stream(x * (t + 1), ws, idx,
+                                                num_ranks=2)
+            assert torch.equal(got, torch.cat([x, x]) * (t + 1))
+        out.append(idx == 2)
         for fn in (
-                lambda: tag.all_gather_stream(x),
                 lambda: tar.all_reduce_local(x, axis=("dcn", "tp"),
                                              num_ranks=2),
                 lambda: trs.reduce_scatter_local(x, axis=("dcn", "tp"),

@@ -237,9 +237,9 @@ def test_kernel_build_is_lazy_and_keyed_by_source():
     assert [s.name for s in srcs] == ["all_to_all.cu", "collectives.cu",
                                       "flash_attention.cu", "gemm.cu",
                                       "gemm_comm.cu", "megakernel.cu",
-                                      "paged_attention.cu"]
+                                      "p2p.cu", "paged_attention.cu"]
     paths = {build.library_path(s) for s in srcs}
-    assert len(paths) == 7
+    assert len(paths) == 8
     assert all(p.parent == build.BUILD_DIR for p in paths)
     gitignore = (ROOT / ".gitignore").read_text().split()
     assert "triton_distributed_tpu_torch/_build/" in gitignore
@@ -315,3 +315,63 @@ def test_topology_ring_is_rank_order():
                             ((True, False), (True, True)), virtual=False)
     with pytest.raises(RuntimeError, match="peer access"):
         topology.ring_order(cut)
+
+
+def test_sp_pp_state_defaults_to_cuda(monkeypatch):
+    """The SP/PP slice's state — the decode layers' parity workspaces, the
+    bucketed AllGather's buffers, B7's receive buffers — lives on a rank
+    group's devices. Without a group none is made (nothing drops to the
+    CPU on its own), the default group is cards and raises without CUDA,
+    and CPU ranks are asked for explicitly."""
+    from triton_distributed_tpu_torch.layers.decode_layers import (
+        GemmARLayer, SpFlashDecodeAttention,
+    )
+    from triton_distributed_tpu_torch.ops.low_latency_allgather import (
+        AllGatherLayer,
+    )
+    from triton_distributed_tpu_torch.ops.p2p import p2p_shift
+    from triton_distributed_tpu_torch.runtime import context
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(context, "_GLOBAL_CONTEXT", None)
+    x = torch.ones((4, 128))
+    for make in (
+            lambda: SpFlashDecodeAttention(num_ranks=2).init_state(1, 2, 64),
+            lambda: GemmARLayer(num_ranks=2).init_state(4, 128),
+            lambda: AllGatherLayer(),
+            lambda: p2p_shift(x)):
+        with pytest.raises(RuntimeError, match="No distributed context"):
+            make()
+    with pytest.raises(RuntimeError, match="asks for 2 cards"):
+        context.initialize_distributed(2, tp_axis="sp")
+    ctx = context.DistContext([torch.device("cpu")] * 2, tp_axis="sp")
+    ws, idx = SpFlashDecodeAttention(axis="sp", num_ranks=2).init_state(
+        1, 2, 64, ctx=ctx)
+    assert idx == 0 and [t.device.type for t in ws.tensors] == ["cpu"] * 2
+    assert ws.tensors[0].shape == (2, 2 * 2, 66)
+    ctx.close()
+
+
+def test_package_exports_keep_submodules():
+    """The ops and layers packages export the SP and PP entry points, but
+    a function named as its module (``flash_decode``, ``ring_attention``,
+    ``sp_ag_attention``) is left out: ``from ...ops import <module>`` must
+    keep giving the module (the scripts and tests import them so)."""
+    import pkgutil
+    import types
+
+    import triton_distributed_tpu_torch.layers as layers
+    import triton_distributed_tpu_torch.ops as ops
+
+    for pkg in (ops, layers):
+        for m in pkgutil.iter_modules(pkg.__path__):
+            got = getattr(pkg, m.name, None)
+            assert got is None or isinstance(got, types.ModuleType), m.name
+    for name in ("all_gather_stream", "ag_stream_workspace", "p2p_shift",
+                 "p2p_permute_local", "flash_decode_local",
+                 "ulysses_attention", "AllGatherLayer", "combine_partials"):
+        assert callable(getattr(ops, name))
+    for name in ("SpFlashDecodeAttention", "GemmARLayer", "CommOp",
+                 "PPStream", "pp_pipeline_forward",
+                 "pp_pipeline_interleaved"):
+        assert callable(getattr(layers, name))

@@ -26,6 +26,12 @@
 //                gather buffer (peers in the order me+1 ... me-1), wait
 //                for the n-1 deliveries, copy the buffer out: one hop, the
 //                ring's output bit for bit (a copy has no rounding).
+//  ag_parity     ops/allgather.py:192 _ag_parity_kernel — the full-mesh
+//                push without the barrier, over a persistent workspace of
+//                two parity slabs and per-parity flags (the SP decode
+//                loop's repeated gathers of its attention partials; the
+//                same safety argument as ar_parity, in
+//                ops/allgather.all_gather_stream).
 //  ar_tree       ops/allreduce.py:169 _ar_tree_kernel — the double
 //                binary tree: tree 0 the heap over rank order, tree 1
 //                over reversed ranks, each owning half of the rows (rows
@@ -198,6 +204,22 @@ __global__ void __launch_bounds__(kThreads)
   if (!wait_peers(g, base, g.epoch)) return;
   const uint4* buf = reinterpret_cast<const uint4*>(peer_base(g, g.rank));
   for (int c = 0; c < g.n; ++c) put(out + c * cvec, buf + c * cvec, v0, v1);
+}
+
+// x: one chunk; the symmetric workspace: two parity slabs of n chunks; out:
+// n chunks. g.epoch carries call_index + 1; the slab is call_index % 2.
+__global__ void __launch_bounds__(kThreads)
+    ag_parity_kernel(Group g, const uint4* x, uint4* out, long long cvec) {
+  long long v0, v1;
+  block_range(cvec, &v0, &v1);
+  const int p = (int)((g.epoch - 1) & 1);
+  const long long slab_bytes = cvec * 16 * g.n;
+  const int base = kStepBase + (p * kMaxBlocks + blockIdx.x) * kMaxRanks;
+  push_all(g, x, p * slab_bytes + g.rank * cvec * 16, v0, v1, base, g.epoch);
+  if (!wait_peers(g, base, g.epoch)) return;
+  const uint4* slab = reinterpret_cast<const uint4*>(peer_base(g, g.rank) +
+                                                     p * slab_bytes);
+  for (int c = 0; c < g.n; ++c) put(out + c * cvec, slab + c * cvec, v0, v1);
 }
 
 // The tree's flags (kStepBase on): per block, tree and kind — 0 and 1 a
@@ -404,6 +426,22 @@ int tdt_ag_full_mesh(const void* table, const void* sig_table, void* err,
   const Group g = make_group(table, sig_table, err, rank, n, epoch,
                              timeout_ns);
   ag_full_mesh_kernel<<<grid_for(cvec), kThreads, 0, stream>>>(
+      g, static_cast<const uint4*>(x), static_cast<uint4*>(out), cvec);
+  return cudaGetLastError();
+}
+
+// chunk_bytes: one input chunk (out holds n of them). n = 1 is the
+// loopback (force_kernel): the push to itself and the copy out.
+int tdt_ag_parity(const void* table, const void* sig_table, void* err,
+                  int rank, int n, unsigned long long call_index,
+                  long long timeout_ns, const void* x, void* out,
+                  long long chunk_bytes, cudaStream_t stream) {
+  const long long cvec = chunk_bytes / 16;
+  if (bad_group(rank, n, cvec) || chunk_bytes % 16)
+    return cudaErrorInvalidValue;
+  const Group g = make_group(table, sig_table, err, rank, n, call_index + 1,
+                             timeout_ns);
+  ag_parity_kernel<<<grid_for(cvec), kThreads, 0, stream>>>(
       g, static_cast<const uint4*>(x), static_cast<uint4*>(out), cvec);
   return cudaGetLastError();
 }

@@ -23,10 +23,12 @@
 //    j < ceil(kv_len / page), and inside the last page only its valid rows;
 //    table entries past the valid pages (-1, or the serving loop's scratch
 //    page) are never read, and kv_len = 0 reads nothing and writes zeros;
-//  - pages are staged a tile of ~64 tokens at a time, each thread issuing
-//    all its 16-byte K/V loads for the tile before it stores any of them,
-//    so the tile's loads are in flight together instead of one latency
-//    after another;
+//  - pages are staged a tile of ~64 tokens at a time (whole pages up to a
+//    page of 128; a larger page, such as the 512-row split-KV chunks of
+//    ops/flash_decode.py, in 128-token slices), each thread issuing all
+//    its 16-byte K/V loads for the tile before it stores any of them, so
+//    the tile's loads are in flight together instead of one latency after
+//    another;
 //  - the softmax statistics of each query head reduce across one warp with
 //    shuffles; K rows are padded by one float in shared memory so the
 //    threads scoring neighbouring rows hit different banks.
@@ -48,6 +50,7 @@ using tdt::to_f;
 
 constexpr int PT = 128;        // threads per block (4 warps)
 constexpr int TILE_TOK = 64;   // tokens staged per iteration (whole pages)
+constexpr int MAX_TILE = 128;  // ... and at most this many
 constexpr int NB = 8;          // 16-byte loads a thread keeps in flight
 
 // Unpack one 16-byte chunk into E = 16 / sizeof(T) floats (16 for e4m3).
@@ -71,13 +74,16 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// Whole pages per staged tile (one page when a page holds >= TILE_TOK).
-__host__ __device__ inline int tile_pages(int page) {
-  return page >= TILE_TOK ? 1 : TILE_TOK / page;
+// Tokens per staged tile: whole pages up to TILE_TOK (one page when a page
+// holds >= TILE_TOK), at most MAX_TILE (a larger page is walked in slices;
+// a tile's rows are addressed one by one, so it need not start a page).
+__host__ __device__ inline int tile_tokens(int page) {
+  if (page < TILE_TOK) return TILE_TOK / page * page;
+  return page < MAX_TILE ? page : MAX_TILE;
 }
 
 inline size_t smem_bytes(int g, int d, int page) {
-  const size_t tile = (size_t)tile_pages(page) * page;
+  const size_t tile = (size_t)tile_tokens(page);
   return sizeof(float) * ((size_t)2 * g * d + tile * (2 * d + 1) +
                           (size_t)g * tile + 3 * (size_t)g);
 }
@@ -98,8 +104,7 @@ paged_decode_kernel(const T* __restrict__ q, const TK* __restrict__ kp,
   constexpr int CH = D / E;           // chunks per K/V row
   extern __shared__ float smem[];
   const int g = hq / hkv;
-  const int tp = tile_pages(page);
-  const int tile = tp * page;
+  const int tile = tile_tokens(page);
   float* Qs = smem;                  // [g][D]
   float* Acc = Qs + g * D;           // [g][D]
   float* Ks = Acc + g * D;           // [tile][D + 1]
@@ -115,7 +120,7 @@ paged_decode_kernel(const T* __restrict__ q, const TK* __restrict__ kp,
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int len = max(lens[b], 0);
-  const int n_pages = min((len + page - 1) / page, max_pages);
+  const int len_c = min(len, max_pages * page);  // rows the table holds
   const size_t q_base = ((size_t)b * hq + (size_t)kvh * g) * D;
   const int* trow = table + (size_t)b * max_pages;
 
@@ -128,8 +133,8 @@ paged_decode_kernel(const T* __restrict__ q, const TK* __restrict__ kp,
     Ls[gi] = 0.f;
   }
 
-  for (int p0 = 0; p0 < n_pages; p0 += tp) {
-    const int valid = min(min(tp, n_pages - p0) * page, len - p0 * page);
+  for (int t0 = 0; t0 < len_c; t0 += tile) {
+    const int valid = min(tile, len_c - t0);
     __syncthreads();  // the previous tile is consumed
     // Stage the tile's valid rows: every 16-byte load of a batch is issued
     // before any is unpacked into shared memory.
@@ -141,9 +146,10 @@ paged_decode_kernel(const T* __restrict__ q, const TK* __restrict__ kp,
         if (idx < valid * CH) {
           const int r = idx / CH;
           const int c = idx - r * CH;
-          const int pid = trow[p0 + r / page];
+          const int pos = t0 + r;
+          const int pid = trow[pos / page];
           const size_t row =
-              (((size_t)pid * page + r % page) * hkv + kvh) * D;
+              (((size_t)pid * page + pos % page) * hkv + kvh) * D;
           kb[i] = reinterpret_cast<const uint4*>(kp + row)[c];
           vb[i] = reinterpret_cast<const uint4*>(vp + row)[c];
         }

@@ -1,5 +1,6 @@
 """What the collective wrappers share: the kernels of
-``csrc/collectives.cu``, ``csrc/all_to_all.cu`` and ``csrc/gemm_comm.cu``,
+``csrc/collectives.cu``, ``csrc/all_to_all.cu``, ``csrc/gemm_comm.cu`` and
+``csrc/p2p.cu``,
 their launch, the payload checks, the CPU rendezvous through a symmetric
 buffer's slots, and the straggler hook.
 
@@ -44,6 +45,15 @@ TREE_KERNEL = CudaKernel("collectives.cu", "tdt_ar_tree",
                          + [ctypes.c_void_p])
 AG_FULL_MESH_KERNEL = CudaKernel("collectives.cu", "tdt_ag_full_mesh",
                                  _GROUP_ARGS + [ctypes.c_void_p])
+AG_PARITY_KERNEL = CudaKernel("collectives.cu", "tdt_ag_parity",
+                              _GROUP_ARGS + [ctypes.c_void_p])
+# B7, the PP transport (csrc/p2p.cu): the ring shift (its shift) and the
+# static permutation (this rank's destination set and source).
+P2P_SHIFT_KERNEL = CudaKernel("p2p.cu", "tdt_p2p_shift",
+                              _GROUP_ARGS + [ctypes.c_int, ctypes.c_void_p])
+P2P_PERMUTE_KERNEL = CudaKernel("p2p.cu", "tdt_p2p_permute",
+                                _GROUP_ARGS + [ctypes.c_int, ctypes.c_int,
+                                               ctypes.c_void_p])
 # B8, the EP AllToAll (csrc/all_to_all.cu): the barrier form and the
 # parity stream.
 _A2A_ARGS = ([ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int,
@@ -74,7 +84,8 @@ STREAMS = CudaKernel("collectives.cu", "tdt_stream_create",
 COLLECTIVE_KERNELS = (ONE_SHOT_KERNEL, PARITY_KERNEL, RS_RING_KERNEL,
                       AG_RING_KERNEL, TREE_KERNEL, AG_GEMM_KERNEL,
                       GEMM_RS_KERNEL, GEMM_AR_KERNEL, AG_FULL_MESH_KERNEL,
-                      A2A_KERNEL, A2A_PARITY_KERNEL)
+                      A2A_KERNEL, A2A_PARITY_KERNEL, AG_PARITY_KERNEL,
+                      P2P_SHIFT_KERNEL, P2P_PERMUTE_KERNEL)
 _GEMM_OP = {AG_GEMM_KERNEL: 0, GEMM_RS_KERNEL: 1, GEMM_AR_KERNEL: 2}
 
 
@@ -122,18 +133,20 @@ def check_payload(ctx: DistContext, rank: int, x: torch.Tensor, what: str,
 
 def launch(kernel: CudaKernel, buf: SymmBuffer, rank: int, epoch: int,
            x: torch.Tensor, out: torch.Tensor, nbytes: int,
-           *dtype_code) -> None:
+           *extra) -> None:
     """One collective launch on the rank's current stream, made at the
     rank group's meeting: the last rank to arrive launches every rank's
     kernel (``DistContext.meet``), so no kernel of the collective runs
     before every rank's part before it was enqueued, and every rank's
     kernel is launched before any rank goes on — a rank thread that
-    later blocks on the device waits only for work that can finish."""
+    later blocks on the device waits only for work that can finish.
+    ``extra``: the kernel's own arguments between the byte count and the
+    stream (a dtype code, a shift, a permutation's send set and source)."""
     ctx = buf.ctx
     _launch_at_meeting(kernel, buf, rank, x.device, "collective.launch", (
         ptr(buf.table[rank]), ptr(buf.signal_table[rank]),
         ptr(ctx.error_word(rank)), rank, ctx.num_ranks, epoch,
-        int(ctx.timeout_s * 1e9), ptr(x), ptr(out), nbytes, *dtype_code,
+        int(ctx.timeout_s * 1e9), ptr(x), ptr(out), nbytes, *extra,
         current_stream(x.device)))
 
 
@@ -191,6 +204,17 @@ def launch_gemm_comm(kernel: CudaKernel, buf: SymmBuffer, rank: int,
         int(ctx.timeout_s * 1e9), ptr(x), ptr(b), ptr(out),
         _GEMM_OP[kernel], m, mp, k, ncols, ldb, parts, DTYPE_CODE[x.dtype],
         tile, int(vec_b), on_card, current_stream(dev)))
+
+
+def rank_shards(ctx: DistContext, axis: str, x, dim: int = 0) -> list:
+    """The n per-rank inputs of a host-level call: ``x`` as a list of n,
+    or a tensor cut into n along ``dim``."""
+    n = ctx.axis_size(axis)
+    xs = (list(x) if isinstance(x, (list, tuple))
+          else list(torch.chunk(x, n, dim=dim)))
+    if len(xs) != n:
+        raise ValueError(f"{len(xs)} shards for {n} ranks")
+    return xs
 
 
 def push_slots(ctx: DistContext, rank: int, buf: SymmBuffer, x, index,

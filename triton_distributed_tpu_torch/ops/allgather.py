@@ -1,7 +1,8 @@
 """All-gather over the rank group — counterpart of the JAX package's
-``ops/allgather.py``: kernel B4 in its ring form (``_ag_ring_kernel``) and
-its full-mesh push (``_ag_full_mesh_push_kernel``) as hand-written CUDA in
-``csrc/collectives.cu`` (``ag_ring``, ``ag_full_mesh``).
+``ops/allgather.py``: kernel B4 in its ring form (``_ag_ring_kernel``), its
+full-mesh push (``_ag_full_mesh_push_kernel``) and its barrier-free parity
+stream (``_ag_parity_kernel``) as hand-written CUDA in
+``csrc/collectives.cu`` (``ag_ring``, ``ag_full_mesh``, ``ag_parity``).
 
 The ring forwards, at step s, the chunk received at step s-1 (its own at
 s = 0) to the right neighbour; the symmetric gather buffer doubles as the
@@ -11,12 +12,11 @@ chunk into its slot of every peer's gather buffer in one hop (AUTO's
 pick at n <= 2 and for small payloads: the sequential ``"overlap"``
 TP-MoE gathers its tokens through it). Both open with a block-scope
 barrier that protects the buffer across calls, and both give the same
-bits (a copy).
-
-Not ported, refused by name: the barrier-free ``all_gather_stream``
-(``_ag_parity_kernel``) — no path of the port runs it. ``XLA`` (the JAX
-package's ``jax.lax.all_gather``) is a plain gather through the rank
-group.
+bits (a copy). :func:`all_gather_stream` is the push without the
+barrier, over a persistent workspace of two parity slabs (the SP decode
+loop's gather of its attention partials, ``ops/flash_decode.py``).
+``XLA`` (the JAX package's ``jax.lax.all_gather``) is a plain gather
+through the rank group.
 """
 
 from __future__ import annotations
@@ -26,13 +26,14 @@ import enum
 import torch
 
 from triton_distributed_tpu_torch.ops._comm import (
-    AG_FULL_MESH_KERNEL, AG_RING_KERNEL, CollectiveUnsupportedError,
-    check_payload, launch, push_slots, rank_of,
+    AG_FULL_MESH_KERNEL, AG_PARITY_KERNEL, AG_RING_KERNEL,
+    CollectiveUnsupportedError, check_payload, launch, push_slots, rank_of,
+    rank_shards, straggle,
 )
 from triton_distributed_tpu_torch.runtime.context import (
-    DistContext, get_context, group_all_gather,
+    DistContext, get_context, group_all_gather, group_context,
 )
-from triton_distributed_tpu_torch.runtime.symm import symm_zeros
+from triton_distributed_tpu_torch.runtime.symm import SymmBuffer, symm_zeros
 
 
 class AllGatherMethod(enum.Enum):
@@ -111,12 +112,77 @@ def all_gather_local(x_local: torch.Tensor, axis: str = "tp",
     return _ag_kernel(AG_RING_KERNEL, x_local, n, ctx, rank)
 
 
-def all_gather_stream(*args, **kwargs):
-    """The reference's barrier-free parity AG (``_ag_parity_kernel``) —
-    not ported, refused by name."""
-    raise CollectiveUnsupportedError(
-        "all_gather_stream (ops/allgather.py:192 _ag_parity_kernel) is not "
-        "ported: no path of the port runs it")
+def ag_stream_workspace(n: int, m: int, cols: int, dtype, *,
+                        ctx: DistContext | None = None,
+                        tag: str = "ag_stream") -> tuple[SymmBuffer, int]:
+    """The persistent (workspace, call_index) pair of
+    :func:`all_gather_stream`: a symmetric (2, n·m, cols) buffer of two
+    parity slabs, allocated once per (shape, dtype, tag) on the context,
+    and the index of the next call (0 for a new tag). Thread both through
+    the decode loop; give each stream of calls its own ``tag``. Called
+    inside a rank thread it returns that rank's next index."""
+    ctx = group_context(ctx)
+    if ctx.num_ranks != n:
+        raise ValueError(f"n = {n} but the rank group has {ctx.num_ranks}")
+    ws = symm_zeros(ctx, (2, n * m, cols), dtype, tag=tag)
+    return ws, ws.call_index()
+
+
+def all_gather_stream(x_local: torch.Tensor, ws: SymmBuffer,
+                      call_index: int, *, axis: str = "tp",
+                      num_ranks: int | None = None,
+                      straggler: tuple | None = None,
+                      force_kernel: bool = False):
+    """Barrier-free full-mesh-push AllGather over a persistent parity
+    workspace (reference ``all_gather_stream``; kernel ``ag_parity`` of
+    ``csrc/collectives.cu``). x_local: (m, cols); ws from
+    :func:`ag_stream_workspace`; ``call_index``: a host int, the same
+    sequence on every rank. Returns ((n·m, cols), ws, call_index + 1),
+    rank j's rows at [j·m, (j+1)·m).
+
+    Call t uses parity slab ``t % 2``: each rank pushes its block into
+    slot ``rank`` of every peer's slab, waits for the n - 1 peers' flags
+    of that parity (value ``t + 1``), then copies the whole slab out. The
+    completion chain orders the reuse, as in ``all_reduce_stream``: to
+    write parity p of call t+2 a rank must have finished call t+1, which
+    needed every peer's call-(t+1) delivery, which each peer sends only
+    after it copied out its call-t (parity-p) slab. Per-parity flags keep
+    a fast peer's call t+1 from counting toward call t. At n = 1 the input
+    comes back unless ``force_kernel`` (the loopback: the kernel pushes to
+    itself)."""
+    ctx, rank, n = rank_of(axis, num_ranks)
+    if n == 1 and not force_kernel:
+        return x_local, ws, call_index + 1
+    m, cols = x_local.shape
+    shape = tuple(ws.tensors[rank].shape)
+    if shape != (2, n * m, cols):
+        raise ValueError(f"workspace shape {shape} != (2, {n * m}, {cols})")
+    if ws.tensors[rank].dtype != x_local.dtype:
+        raise ValueError(f"workspace dtype {ws.tensors[rank].dtype} != input"
+                         f" {x_local.dtype} — allocate ag_stream_workspace "
+                         "with the payload dtype")
+    if call_index != ws.epochs[rank]:
+        raise ValueError(
+            f"all_gather_stream: call_index {call_index} on rank {rank}, but "
+            f"this workspace's next call is {ws.epochs[rank]} — a (ws, "
+            "call_index) pair must stay persistent and in sequence (a "
+            "second stream of calls needs its own workspace tag)")
+    ws.epochs[rank] = call_index + 1
+    straggle(straggler, n, rank, call_index)
+    p = call_index % 2
+    if x_local.device.type == "cuda":
+        x = check_payload(ctx, rank, x_local, "all_gather_stream", copy=True)
+        out = torch.empty((n * m, cols), dtype=x.dtype, device=x.device)
+        launch(AG_PARITY_KERNEL, ws, rank, call_index, x, out,
+               m * cols * x.element_size())
+        return out, ws, call_index + 1
+    if x_local.device.type != "cpu":
+        raise ValueError(f"all_gather_stream: no kernel for device "
+                         f"{x_local.device}")
+    AG_PARITY_KERNEL.count_plain()
+    push_slots(ctx, rank, ws, x_local, (p, slice(rank * m, (rank + 1) * m)),
+               "ag_stream")
+    return ws.tensors[rank][p].clone(), ws, call_index + 1
 
 
 def all_gather(x, ctx: DistContext | None = None, axis: str = "tp",
@@ -125,11 +191,8 @@ def all_gather(x, ctx: DistContext | None = None, axis: str = "tp",
     list, or a (n*m, cols) tensor split by rows) → the n per-rank
     gathered (n*m, cols) copies."""
     ctx = ctx or get_context()
-    n = ctx.axis_size(axis)
-    xs = (list(x) if isinstance(x, (list, tuple))
-          else list(torch.chunk(x, n, dim=0)))
-    if len(xs) != n:
-        raise ValueError(f"{len(xs)} shards for {n} ranks")
+    xs = rank_shards(ctx, axis, x)
+    n = len(xs)
     outs = ctx.run(lambda r: all_gather_local(
         xs[r].to(ctx.devices[r]), axis=axis, num_ranks=n, method=method))
     ctx.raise_on_comm_error()

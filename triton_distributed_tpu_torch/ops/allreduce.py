@@ -50,7 +50,7 @@ from triton_distributed_tpu_torch.ops.reduce_scatter import (
     reduce_scatter_local,
 )
 from triton_distributed_tpu_torch.runtime.context import (
-    DistContext, get_context, group_psum,
+    DistContext, get_context, group_context, group_psum,
 )
 from triton_distributed_tpu_torch.runtime.symm import SymmBuffer, symm_zeros
 
@@ -220,14 +220,15 @@ def ar_stream_workspace(n: int, m: int, cols: int, dtype, *,
     parity slabs, allocated once per (shape, dtype, tag) on the context,
     and call index 0. Thread both through the decode loop; give each
     stream of calls its own ``tag``; asking again for a tag in use returns
-    its workspace with the index of its next call. The reference pads the
+    its workspace with the index of its next call (the calling rank's,
+    inside a rank thread). The reference pads the
     rows to the TPU's sublane tiling (``_ar_rows_padded``); Hopper has no
     such tiling, so the rows stay as they are."""
-    ctx = ctx or get_context()
+    ctx = group_context(ctx)
     if ctx.num_ranks != n:
         raise ValueError(f"n = {n} but the rank group has {ctx.num_ranks}")
     ws = symm_zeros(ctx, (2, n, m, cols), dtype, tag=tag)
-    return ws, ws.epochs[0]
+    return ws, ws.call_index()
 
 
 def all_reduce_stream(x_local: torch.Tensor, ws: SymmBuffer,

@@ -497,6 +497,15 @@ def get_context() -> DistContext:
     return _GLOBAL_CONTEXT
 
 
+def group_context(ctx: DistContext | None = None) -> DistContext:
+    """``ctx`` if given, else the calling rank thread's group, else the
+    global one — where a per-rank state (a parity workspace) is made."""
+    if ctx is not None:
+        return ctx
+    cur = getattr(_TLS, "rank", None)
+    return cur[0] if cur is not None else get_context()
+
+
 def current_rank() -> tuple[DistContext, int]:
     """(context, rank) of the calling rank thread — what a collective
     called inside :meth:`DistContext.run` serves. Raises outside one."""

@@ -28,7 +28,9 @@ from typing import Sequence
 
 import torch
 
-from triton_distributed_tpu_torch.runtime.context import DistContext
+from triton_distributed_tpu_torch.runtime.context import (
+    DistContext, current_rank,
+)
 
 # 64-bit flags a rank's signal pad holds (csrc/dist.cuh kSignalWords): the
 # collectives' barrier and step flags (8 blocks, 8 steps, 8 ranks), or the
@@ -65,6 +67,18 @@ class SymmBuffer:
         for ev in self.ready:
             stream.wait_event(ev)
         self._waited.add(rank)
+
+    def call_index(self) -> int:
+        """The index of the next call of a parity stream over this buffer
+        for the caller: inside a rank thread of the buffer's context its
+        rank's, elsewhere rank 0's (before a run every rank's is the
+        same). A rank thread must not read rank 0's: rank 0 may already
+        have made its call of the step."""
+        try:
+            ctx, rank = current_rank()
+        except RuntimeError:
+            return self.epochs[0]
+        return self.epochs[rank if ctx is self.ctx else 0]
 
     def next_epoch(self, rank: int) -> int:
         """The epoch of rank ``rank``'s next call on this buffer (1, 2,
