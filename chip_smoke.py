@@ -167,6 +167,32 @@ printing one JSON line:
    new entry point at n = 2 and 4, fp32, on the card against the CPU
    rank threads' plain versions.
 
+14. the two-tier rank group (``mesh_shape=(2, 4), axis_names=("dcn",
+   "tp")``, 8 virtual ranks): ``collectives_2d`` — B12's torus AllGather
+   and hierarchical one-shot AllReduce (``csrc/multi_axis.cu``) at (2, 4),
+   (4, 2) and (2, 2), fp32 and bf16, 1-2048 rows x 4096, and the two-shot
+   (B6 along each axis, then the torus AG), bit-identical to their plain
+   versions on every rank; the (8, 1) and (1, 8) grids through the 1-D
+   ops; a counted main run through the tuple-axis entry points, timed.
+   ``migrate`` — ``kv_migrate_local`` of one 1024-token request's KV at
+   Qwen3-8B widths (64 pages x 16 rows x 18432 bf16) from slice 0 into
+   slice 1 at rewritten ids, in two blocks, through B13's pack and scatter
+   (``csrc/migrate.cu``): the landed pages bit for bit, the rest and the
+   inputs untouched, the validation errors; B13 timed at one 32-page
+   block; a ``MigrationStream`` over card tensors with its checksums and
+   the dropped / corrupted / late-block errors. ``tp2d_engine`` (after
+   ``tp_engine``) — Qwen3-8B at full width cut to 4 layers, bf16:
+   ``Engine.serve`` on (dcn=2, tp=4) of a 2 x 1024 prompt for 8 tokens,
+   the prefill in "overlap2d" (256 rows a rank; B9, B10 and B3 counted
+   exactly), the decode through the two-tier AllReduce; B9, B10 and B3
+   under ``ag_gemm_2d_local`` / ``gemm_rs_2d_local`` at the prefill's
+   shapes and weights against their plain composition, every rank's
+   prefill logits bit-identical; the one-axis TP=4 engine's serve in the
+   same call. ``tp2d_parity`` (after
+   ``sp_pp_parity``) — float32, 2 layers: the two-tier serve's tokens
+   equal to the one-rank engine's ("overlap2d" and "ar" prefills), every
+   rank's logits bit-identical.
+
 Then the kernel summary line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failed phase raises: exit code 1
 and no result line. Without CUDA it exits 2 before printing anything.
@@ -6617,6 +6643,760 @@ def phase_sp_pp_parity(torch, *, devices_for=virtual_devices,
                           "GemmARLayer (fp32)": tol}, "cases": results}
 
 
+# ---------------------------------------------------------------------------
+# The two-tier rank group: B12's torus AllGather / AllReduce, B13's page
+# pack / scatter under kv_migrate_local, and Engine.serve on (dcn, tp).
+# ---------------------------------------------------------------------------
+
+GRIDS_2D = ((2, 4), (4, 2), (2, 2))
+DEGENERATE_2D = ((8, 1), (1, 8))
+ROWS_2D = (1, 16, 256, 2048)
+COLS_2D = 4096
+# The main shapes (bf16, (2, 4) = 8 virtual ranks): a 256-row shard a
+# rank gathered (a 2 x 1024 prefill's rows over both tiers), a 16-row
+# AllReduce (a verify step's rows), each through the tuple-axis entry
+# points a layer would call.
+MAIN_2D = {"ag_torus": 256, "ar_torus": 16}
+# kv_migrate_local at Qwen3-8B widths on (dcn=2, tp=4): one 1024-token
+# request, pages of 16 rows, C = 36 layers x (k, v) x 2 kv heads a tp rank
+# x 128 = 18432 bf16 columns; 64 pages in two blocks, from a pool of 80
+# into one of 96 at rewritten ids.
+MIG_PAGE_ROWS, MIG_COLS = 16, 36 * 2 * 2 * 128
+MIG_PAGES, MIG_SRC_POOL, MIG_DST_POOL = 64, 80, 96
+TP2D_LAYERS = 4
+TP2D_GEN = 8
+
+
+def twotier_modules():
+    import importlib
+
+    names = ("ops._comm", "ops.multi_axis", "ops.allgather", "ops.allreduce",
+             "runtime.context", "disagg.migrate")
+    return [importlib.import_module(f"triton_distributed_tpu_torch.{n}")
+            for n in names]
+
+
+def grid_ctx(torch, shape, devices_for=virtual_devices, timeout_ms=20_000):
+    """A (dcn, tp) group of ``shape``: virtual ranks on cuda:0, or with
+    ``devices_for`` one rank a card."""
+    context = twotier_modules()[4]
+    return context.DistContext(
+        [torch.device(d) for d in devices_for(shape[0] * shape[1])],
+        mesh_shape=shape, axis_names=("dcn", "tp"),
+        wait_timeout_ms=timeout_ms)
+
+
+def two_shot_plain(xs, n0: int, n1: int):
+    """The plain two-shot over an (n0, n1) grid: B6's ring RS along the
+    outer axis on n0 super-chunks, then along the inner axis (each add in
+    the payload type, in the ring's order), then every chunk gathered in
+    joint order — the bits every rank must end with."""
+    rs = importlib_module("ops.reduce_scatter")
+    mids = {(a, b): rs.rs_ring_plain([xs[u * n1 + b] for u in range(n0)], a)
+            for a in range(n0) for b in range(n1)}
+    import torch
+
+    return torch.cat([rs.rs_ring_plain([mids[(a, v)] for v in range(n1)], b)
+                      for a in range(n0) for b in range(n1)])
+
+
+def torus_case(torch, timer, ctx, op: str, dtype, rows: int, seed: int, *,
+               method: str = "one_shot", time_it: bool = False) -> dict:
+    """B12 on every rank of a 2-axis group (two calls: the buffers'
+    reuse) through the tuple-axis entry points, against the plain version
+    bit for bit on every rank: the AllGather against ``torch.cat`` of the
+    shards in joint order, the AllReduce against ``ar_torus_plain`` (each
+    grid row in order, then the rows, fp32 sums and one cast each) or,
+    for two-shot, against the RS-then-AG plain composition."""
+    comm, ma, ag, ar, _, _ = twotier_modules()
+    n = ctx.num_ranks
+    n0, n1 = ctx.mesh_shape
+    axes = tuple(ctx.axis_names)
+    X = _rand(torch, (n, rows, COLS_2D), dtype, seed)
+    xs = [X[r].to(ctx.devices[r]) for r in range(n)]
+
+    def fn(r):
+        if op == "ag_torus":
+            return ag.all_gather_local(xs[r], axis=axes, num_ranks=(n0, n1))
+        return ar.all_reduce_local(xs[r], axis=axes, num_ranks=(n0, n1),
+                                   method=method)
+
+    if op == "ag_torus":
+        want = ag.ag_plain(list(X))
+    elif method == "two_shot":
+        want = two_shot_plain(list(X), n0, n1)
+    else:
+        want = ma.ar_torus_plain(list(X), n0, n1)
+    k0 = {k.symbol: k.launches for k in (comm.AG_TORUS_KERNEL,
+                                         comm.AR_TORUS_KERNEL)}
+    same = True
+    for _ in range(2):
+        got = ctx.run(fn)
+        torch.cuda.synchronize()
+        ctx.raise_on_comm_error()
+        same = same and all(torch.equal(_bits(torch, o.to(want.device)),
+                                        _bits(torch, want)) for o in got)
+    kern = comm.AG_TORUS_KERNEL if op == "ag_torus" else comm.AR_TORUS_KERNEL
+    degenerate = n0 == 1 or n1 == 1
+    launched = kern.launches - k0[kern.symbol]
+    # A degenerate grid takes the 1-D op; two-shot's halves are B6 and B12.
+    right = launched == (0 if degenerate else 2 * n)
+    if op == "ar_torus" and method == "two_shot" and not degenerate:
+        right = (launched == 0 and comm.AG_TORUS_KERNEL.launches
+                 - k0[comm.AG_TORUS_KERNEL.symbol] == 2 * n)
+    rec = {"case": f"{op}_{method if op == 'ar_torus' else 'ring'}_"
+                   f"{n0}x{n1}_{_dtype_name(dtype)}_{rows}",
+           "grid": [n0, n1], "op": op, "dtype": _dtype_name(dtype),
+           "rows": rows, "cols": COLS_2D, "launches": launched,
+           "max_abs_err": 0.0 if same else float("nan"),
+           "bit_identical": same, "ok": same and right}
+    if op == "ar_torus":
+        rec["method"] = method
+    if time_it:
+        B = rows * COLS_2D * X.element_size()
+        nbytes = n * (B + n * B) if op == "ag_torus" else n * 2 * B
+        rec["bound_ms"], rec["bound_by"] = _bound_ms(nbytes, 0, "float32")
+        rec["bound_note"] = ("every rank reads its input once and writes "
+                             "its output once, all through one card's HBM "
+                             "at 3.35 TB/s")
+        rec["ms"], rec["host_ms_per_call"] = _coll_ms(torch, ctx, fn, 20)
+        if op == "ag_torus":
+            rec["plain_ms"] = timer.ms(lambda: ag.ag_plain(list(X)))
+            rec["library_ms"] = timer.ms(lambda: torch.cat(list(X)))
+            rec["library_call"] = "torch.cat of the n shards"
+        else:
+            rec["plain_ms"] = timer.ms(
+                lambda: ma.ar_torus_plain(list(X), n0, n1))
+            rec["library_ms"] = timer.ms(lambda: X.sum(0))
+            rec["library_call"] = "X.sum(0) over the stacked inputs"
+    return rec
+
+
+def phase_collectives_2d(torch, timer, *, devices_for=virtual_devices,
+                         grids=GRIDS_2D + DEGENERATE_2D,
+                         name="collectives_2d") -> dict:
+    """B12 (``csrc/multi_axis.cu``) on 2-axis groups of virtual ranks on
+    cuda:0: ``ag_torus`` and ``ar_torus`` at (2, 4), (4, 2) and (2, 2),
+    fp32 and bf16, 1-2048 rows x 4096, bit-identical to their plain
+    versions on every rank; two-shot (RS over both axes, then the torus
+    AG) at the rows that divide; the degenerate (8, 1) and (1, 8) grids
+    through the 1-D ops (no torus launch). Then the main run — every count
+    at 0, the tuple-axis AllGather and AllReduce at the main shapes on
+    (2, 4), counts read — and each kernel timed there."""
+    comm = twotier_modules()[0]
+    cases: dict = {"ag_torus": [], "ar_torus": []}
+    seed = 1300
+    for shape in grids:
+        ctx = grid_ctx(torch, shape, devices_for)
+        for dtype in (torch.float32, torch.bfloat16):
+            for rows in ROWS_2D:
+                if shape in DEGENERATE_2D and rows not in (16, 256):
+                    continue
+                seed += 1
+                cases["ag_torus"].append(torus_case(
+                    torch, timer, ctx, "ag_torus", dtype, rows, seed))
+                seed += 1
+                cases["ar_torus"].append(torus_case(
+                    torch, timer, ctx, "ar_torus", dtype, rows, seed))
+                if rows % (shape[0] * shape[1]) == 0 and rows <= 256:
+                    seed += 1
+                    cases["ar_torus"].append(torus_case(
+                        torch, timer, ctx, "ar_torus", dtype, rows, seed,
+                        method="two_shot"))
+        ctx.close()
+        torch.cuda.empty_cache()
+    main = grids[0]
+    ctx = grid_ctx(torch, main, devices_for)
+    n = ctx.num_ranks
+    axes = tuple(ctx.axis_names)
+    _, _, ag, ar, _, _ = twotier_modules()
+    X = {op: [x.to(d) for x, d in zip(
+        _rand(torch, (n, rows, COLS_2D), torch.bfloat16, 1399 + i),
+        ctx.devices)] for i, (op, rows) in enumerate(MAIN_2D.items())}
+    torch.cuda.synchronize()
+    reset_counts(comm.COLLECTIVE_KERNELS)
+    ctx.run(lambda r: (ag.all_gather_local(X["ag_torus"][r], axis=axes,
+                                           num_ranks=main),
+                       ar.all_reduce_local(X["ar_torus"][r], axis=axes,
+                                           num_ranks=main)))
+    torch.cuda.synchronize()
+    ctx.raise_on_comm_error()
+    main_launches = {"ag_torus": comm.AG_TORUS_KERNEL.launches,
+                     "ar_torus": comm.AR_TORUS_KERNEL.launches}
+    check(main_launches == {"ag_torus": n, "ar_torus": n},
+          f"{name}: the main run launched {main_launches}")
+    check(all(k.plain_calls == 0 for k in comm.COLLECTIVE_KERNELS),
+          f"{name}: a plain version ran on the main run")
+    for op, rows in MAIN_2D.items():
+        rec = torus_case(torch, timer, ctx, op, torch.bfloat16, rows,
+                         1390 + len(cases[op]), time_it=True)
+        rec["main"] = True
+        cases[op].append(rec)
+    ctx.close()
+    bad = [c["case"] for cs in cases.values() for c in cs if not c["ok"]]
+    check(not bad, f"{name}: disagree with their plain versions "
+          f"(or took the wrong kernel): {bad}")
+    return {"phase": name, "main_grid": list(main),
+            "devices": devices_for(main[0] * main[1]),
+            "tolerance": "bit-identical to the plain version on every "
+                         "rank (two-shot: B6's ring RS along each axis, "
+                         "then the gather)",
+            "main_shapes": {op: f"{main}, bf16, {rows} x {COLS_2D} a rank, "
+                                "through the tuple-axis entry points"
+                            for op, rows in MAIN_2D.items()},
+            "main_launches": main_launches, "cases": cases}
+
+
+def torus_main_case(rec, op) -> dict:
+    return next(c for c in rec["cases"][op] if c.get("main"))
+
+
+def _mig_pools(torch, ctx, seed: int):
+    """Each rank's source pool (80 pages) and destination pool (96
+    pages), bf16, seeded; the page lists: 64 distinct source pages and 64
+    distinct, rewritten destination ids."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rows = MIG_PAGE_ROWS
+    src = [torch.randn((MIG_SRC_POOL * rows, MIG_COLS), generator=g,
+                       device="cuda").to(torch.bfloat16).to(d)
+           for d in ctx.devices]
+    dst = [torch.randn((MIG_DST_POOL * rows, MIG_COLS), generator=g,
+                       device="cuda").to(torch.bfloat16).to(d)
+           for d in ctx.devices]
+    gh = torch.Generator().manual_seed(seed)
+    src_pages = torch.randperm(MIG_SRC_POOL, generator=gh)[:MIG_PAGES]
+    dst_pages = torch.randperm(MIG_DST_POOL, generator=gh)[:MIG_PAGES]
+    return src, dst, src_pages.tolist(), dst_pages.tolist()
+
+
+def migrate_stream_case(torch, mig, pool, dst_pool) -> dict:
+    """A ``MigrationStream`` over card tensors: two blocks of 32 pages,
+    each packed by ``migrate_pack`` into (k, v) halves, a copy standing
+    for the hop, landed by ``migrate_scatter``; its checksums verified;
+    a dropped and a corrupted block raising the named errors, and a
+    stalled clock the deadline's."""
+    rows = MIG_PAGE_ROWS
+    half = MIG_COLS // 2
+    pages = list(range(MIG_PAGES))
+    dst = list(range(MIG_DST_POOL - 1, MIG_DST_POOL - 1 - MIG_PAGES, -1))
+    blocks = []
+    for s in (0, MIG_PAGES // 2):
+        buf = mig.pack_pages(pool, pages[s:s + MIG_PAGES // 2], rows)
+        blocks.append((buf[:, :half].contiguous(), buf[:, half:].contiguous()))
+    dst_groups = [dst[:MIG_PAGES // 2], dst[MIG_PAGES // 2:]]
+    state = {"pool": dst_pool}
+
+    def put(kv):
+        return tuple(t.clone() for t in kv)
+
+    def land(i, kv, ids):
+        state["pool"] = mig.scatter_pages(state["pool"], torch.cat(kv, 1),
+                                          ids, rows)
+
+    stream = mig.MigrationStream("smoke", blocks, dst_groups, put=put,
+                                 verify=True)
+    rounds = 0
+    while not stream.advance(land):
+        rounds += 1
+    torch.cuda.synchronize()
+    landed = state["pool"].view(-1, rows, MIG_COLS)
+    src3 = pool.view(-1, rows, MIG_COLS)
+    exact = all(torch.equal(_bits(torch, landed[d]), _bits(torch, src3[p]))
+                for p, d in zip(pages, dst))
+    errors = {}
+    for what, hook in (("dropped", lambda i, kv: None if i == 1 else kv),
+                       ("corrupted", lambda i, kv: (kv[0] + 1, kv[1])
+                        if i == 0 else kv)):
+        s = mig.MigrationStream("smoke", blocks, dst_groups, put=put,
+                                verify=True, chaos_hook=hook)
+        try:
+            while not s.advance(lambda i, kv, ids: None):
+                pass
+            errors[what] = None
+        except mig.MigrationError as exc:
+            errors[what] = type(exc).__name__
+    t = [0.0]
+    s = mig.MigrationStream("smoke", blocks, dst_groups, put=put,
+                            verify=False, timeout_s=1.0, clock=lambda: t[0])
+    s.advance(lambda i, kv, ids: None)
+    t[0] = 2.0
+    try:
+        s.advance(lambda i, kv, ids: None)
+        errors["deadline"] = None
+    except mig.MigrationError as exc:
+        errors["deadline"] = type(exc).__name__
+    ok = (exact and stream.pages_moved == MIG_PAGES and errors == {
+        "dropped": "MigrationError", "corrupted": "MigrationIntegrityError",
+        "deadline": "MigrationTimeoutError"})
+    return {"blocks": 2, "rotations": rounds + 1,
+            "pages_moved": stream.pages_moved,
+            "bytes_moved": stream.bytes_moved, "pages_exact": exact,
+            "errors": errors, "ok": ok}
+
+
+def phase_migrate(torch, timer, *, devices_for=virtual_devices,
+                  grid=(2, 4), name="migrate") -> dict:
+    """``kv_migrate_local`` on a (dcn=2, tp=4) group of virtual ranks:
+    one 1024-token request's KV at Qwen3-8B widths (64 pages of 16 rows x
+    18432 bf16 columns, ~36 MiB a rank) from slice 0's pools into slice
+    1's at rewritten ids, in two blocks. Every count at 0 before the run;
+    then: every destination page bit for bit the source page of the same
+    tp rank, untargeted pages and slice 0's pools unchanged, the input
+    pools unchanged; the validation errors raised; B13's two kernels
+    timed against their byte bounds and ``index_select`` /
+    ``index_copy``; a ``MigrationStream`` over card tensors."""
+    _, _, _, _, _, mig = twotier_modules()
+    ctx = grid_ctx(torch, grid, devices_for)
+    n, rows = ctx.num_ranks, MIG_PAGE_ROWS
+    senders = n // 2
+    src, dst, src_pages, dst_pages = _mig_pools(torch, ctx, 1350)
+    src_copy = [t.clone() for t in src]
+    dst_copy = [t.clone() for t in dst]
+    torch.cuda.synchronize()
+    reset_counts(mig.MIGRATE_KERNELS)
+
+    def fn(r):
+        return mig.kv_migrate_local(src[r], dst[r], src_pages, dst_pages,
+                                    inter_axis="dcn", n_inter=2,
+                                    page_rows=rows)
+
+    t0 = time.perf_counter()
+    got = ctx.run(fn)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = {"migrate_pack": mig.MIGRATE_PACK_KERNEL.launches,
+                "migrate_scatter": mig.MIGRATE_SCATTER_KERNEL.launches}
+    check(launches == {"migrate_pack": 2 * senders,
+                       "migrate_scatter": 2 * senders},
+          f"{name}: launches {launches} ({senders} senders x 2 blocks each "
+          "way)")
+    check(all(k.plain_calls == 0 for k in mig.MIGRATE_KERNELS),
+          f"{name}: a plain version ran")
+    landed_ok, untouched_ok = True, True
+    targets = set(dst_pages)
+    for r in range(n):
+        a, b = ctx.coords(r)
+        if a == 0:
+            untouched_ok = untouched_ok and got[r] is dst[r]
+            continue
+        peer = ctx.fiber_members(r, "dcn")[0]
+        out3 = got[r].view(-1, rows, MIG_COLS)
+        src3 = src_copy[peer].to(got[r].device).view(-1, rows, MIG_COLS)
+        old3 = dst_copy[r].view(-1, rows, MIG_COLS)
+        landed_ok = landed_ok and all(
+            torch.equal(_bits(torch, out3[d]), _bits(torch, src3[s]))
+            for s, d in zip(src_pages, dst_pages))
+        rest = [p for p in range(MIG_DST_POOL) if p not in targets]
+        idx = torch.tensor(rest, device=got[r].device)
+        untouched_ok = untouched_ok and torch.equal(
+            _bits(torch, out3.index_select(0, idx)),
+            _bits(torch, old3.index_select(0, idx)))
+    inputs_kept = all(torch.equal(_bits(torch, s), _bits(torch, c))
+                      for s, c in zip(src + dst, src_copy + dst_copy))
+    errors = {}
+    for what, args in (("pair", ((0, 1), (2,))),
+                       ("duplicate", ((0, 1), (2, 2))),
+                       ("range", ((MIG_SRC_POOL,), (0,)))):
+        try:
+            mig.kv_migrate_local(src[0], dst[0], *args, inter_axis="dcn",
+                                 n_inter=2, page_rows=rows)
+            errors[what] = None
+        except ValueError as exc:
+            errors[what] = str(exc)[:80]
+    check(all(errors.values()), f"{name}: validation not raised: {errors}")
+    check(landed_ok and untouched_ok and inputs_kept,
+          f"{name}: landed {landed_ok}, untouched {untouched_ok}, inputs "
+          f"kept {inputs_kept}")
+    del src_copy, dst_copy
+    # B13 alone at the main path's call, one block of 32 pages, on rank
+    # 0's card (its destination pool is one the run kept).
+    pool, dpool = src[0], dst[0]
+    blk = src_pages[:MIG_PAGES // 2]
+    ids_blk = torch.tensor(blk, device="cuda")
+    dids = torch.tensor(dst_pages[:MIG_PAGES // 2], device="cuda")
+    buf = mig.pack_pages(pool, blk, rows)
+    page_bytes = rows * MIG_COLS * pool.element_size()
+    pool3 = pool.view(-1, rows, MIG_COLS)
+    dpool3 = dpool.view(-1, rows, MIG_COLS)
+    buf3 = buf.view(-1, rows, MIG_COLS)
+    pack = {"case": "pack_32_pages", "pages": len(blk),
+            "page_bytes": page_bytes,
+            "max_abs_err": 0.0 if torch.equal(
+                buf, mig.pack_plain(pool, blk, rows)) else float("nan")}
+    pack["bound_ms"], pack["bound_by"] = _bound_ms(
+        2 * len(blk) * page_bytes, 0, "float32")
+    # The kernel's time: its launch on device ids made beforehand (the
+    # wrapper's call also builds and uploads the ids on the host, which
+    # the events would count as device idle: ``wrapper_ms``).
+    from triton_distributed_tpu_torch.runtime.build import (
+        current_stream, ptr,
+    )
+
+    ids32, dids32 = ids_blk.to(torch.int32), dids.to(torch.int32)
+    out_p, out_s = torch.empty_like(buf), torch.empty_like(dpool)
+
+    def pack_launch():
+        mig.MIGRATE_PACK_KERNEL.launch(
+            ptr(pool), ptr(ids32), ptr(out_p), page_bytes, len(blk),
+            MIG_SRC_POOL, current_stream(pool.device))
+
+    def scatter_launch():
+        mig.MIGRATE_SCATTER_KERNEL.launch(
+            ptr(dpool), ptr(buf), ptr(dids32), ptr(out_s), page_bytes,
+            len(blk), MIG_DST_POOL, current_stream(dpool.device))
+
+    pack["ms"] = timer.ms(pack_launch)
+    pack["wrapper_ms"] = timer.ms(lambda: mig.pack_pages(pool, blk, rows))
+    pack["plain_ms"] = timer.ms(lambda: mig.pack_plain(pool, blk, rows))
+    pack["library_ms"] = timer.ms(lambda: pool3.index_select(0, ids_blk))
+    pack["library_call"] = "pool.view(P, 16, C).index_select(0, pages)"
+    scat = {"case": "scatter_32_pages_into_96", "pages": len(blk),
+            "pool_pages": MIG_DST_POOL, "page_bytes": page_bytes,
+            "max_abs_err": 0.0 if torch.equal(
+                mig.scatter_pages(dpool, buf, dst_pages[:32], rows),
+                mig.scatter_plain(dpool, buf, dst_pages[:32], rows))
+            else float("nan")}
+    scat["bound_ms"], scat["bound_by"] = _bound_ms(
+        2 * MIG_DST_POOL * page_bytes, 0, "float32")
+    scat["bound_note"] = ("the pool's untargeted pages and the buffer read "
+                          "once, the whole new pool written once")
+    scat["ms"] = timer.ms(scatter_launch)
+    scat["wrapper_ms"] = timer.ms(lambda: mig.scatter_pages(
+        dpool, buf, dst_pages[:32], rows))
+    torch.cuda.synchronize()
+    pack["launch_equals_wrapper"] = bool(torch.equal(out_p, buf))
+    scat["launch_equals_wrapper"] = bool(torch.equal(
+        out_s, mig.scatter_pages(dpool, buf, dst_pages[:32], rows)))
+    scat["plain_ms"] = timer.ms(lambda: mig.scatter_plain(
+        dpool, buf, dst_pages[:32], rows))
+    scat["library_ms"] = timer.ms(lambda: dpool3.index_copy(0, dids, buf3))
+    scat["library_call"] = ("pool.view(P, 16, C).index_copy(0, pages, "
+                            "buf): out of place, one call")
+    for c in (pack, scat):
+        c["ok"] = c["max_abs_err"] == 0.0 and c["launch_equals_wrapper"]
+    check(pack["ok"] and scat["ok"], f"{name}: B13 differs from its plain "
+                                     "version")
+    stream = migrate_stream_case(torch, mig, src[0], dst[0])
+    check(stream["ok"], f"{name}: MigrationStream wrong: {stream}")
+    ctx.close()
+    return {"phase": name, "grid": list(grid),
+            "devices": devices_for(n),
+            "request": {"tokens": MIG_PAGES * rows, "pages": MIG_PAGES,
+                        "page_rows": rows, "cols": MIG_COLS,
+                        "dtype": "bfloat16", "blocks": 2,
+                        "bytes_a_rank": MIG_PAGES * page_bytes},
+            "wall_ms": wall_ms, "launches": launches,
+            "landed_bit_identical": landed_ok,
+            "untargeted_and_prefill_slice_kept": untouched_ok,
+            "inputs_unchanged": inputs_kept, "validation": errors,
+            "cases": {"migrate_pack": [pack], "migrate_scatter": [scat]},
+            "stream": stream}
+
+
+def _twotier_counts(comm, gemm) -> dict:
+    return {"ag_gemm": comm.AG_GEMM_KERNEL.launches,
+            "gemm_rs": comm.GEMM_RS_KERNEL.launches,
+            "allgather_ring": comm.AG_RING_KERNEL.launches,
+            "reduce_scatter_ring": comm.RS_RING_KERNEL.launches,
+            "gemm": gemm.GEMM_KERNEL.launches,
+            "ag_torus": comm.AG_TORUS_KERNEL.launches,
+            "ar_torus": comm.AR_TORUS_KERNEL.launches,
+            "others": sum(k.launches for k in comm.COLLECTIVE_KERNELS
+                          if k not in (comm.AG_GEMM_KERNEL,
+                                       comm.GEMM_RS_KERNEL,
+                                       comm.AG_RING_KERNEL,
+                                       comm.RS_RING_KERNEL,
+                                       comm.AG_TORUS_KERNEL,
+                                       comm.AR_TORUS_KERNEL))}
+
+
+def _layers_cut(params, cfg, layers: int):
+    """A config and a parameter dict of the first ``layers`` layers (the
+    tensors shared, not copied)."""
+    cut = dict(params, layers=params["layers"][:layers])
+    return dataclasses.replace(cfg, num_layers=layers), cut
+
+
+def _serve_timed(torch, eng, ids, gen: int) -> dict:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = eng.serve(ids, gen)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    logits, _ = eng.prefill(ids)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    eng.check_comm()
+    check(bool(torch.isfinite(logits).all()), "tp2d_engine: non-finite "
+                                              "logits")
+    return {"serve_s": serve_s, "prefill_ms": prefill_s * 1e3,
+            "decode_ms_per_step": (serve_s - prefill_s) * 1e3 / (gen - 1),
+            "tokens_per_s": ids.shape[0] * gen / serve_s, "tokens": out}
+
+
+def _rms(t) -> float:
+    return t.float().pow(2).mean().sqrt().item()
+
+
+def tp2d_fused_case(torch, eng, seed: int, m: int = 256) -> dict:
+    """B9, B10 and B3 (on each landed slice block) under
+    ``ag_gemm_2d_local`` / ``gemm_rs_2d_local`` on the engine's (dcn, tp)
+    group at its prefill's shapes: ``m`` rows a rank and each rank's own
+    layer-0 weights, every rank's output held against the plain
+    composition. AG+GEMM: the rows gathered in global order times the
+    rank's columns in fp32, one cast; B3's tolerance (2^-13 s plus one
+    unit of the output type). GEMM+RS: each rank's fp32 partial cast to
+    the payload type, each slice's partials of the rank's rows summed in
+    slot order in fp32 and cast, the slice sums added in the inter ring's
+    order (me+1, ..., me) in the payload type; the tolerance is B3's
+    2^-13 s_j for each of the N partials plus one unit of the output type
+    at each rounding of the path, of the value rounded there (the N
+    partials, the n_inter slice sums, the n_inter - 1 ring sums)."""
+    hier = importlib_module("ops.hierarchical")
+    ar = importlib_module("ops.allreduce")
+    ctx, n1, n0 = eng.ctx, eng.n, eng.n_inter
+    N = n0 * n1
+    axes = (eng.inter_axis, eng.axis)
+    kw = dict(intra_axis=eng.axis, inter_axis=eng.inter_axis, n_intra=n1,
+              n_inter=n0)
+    gidx = [ctx.axis_index(r, axes) for r in range(N)]
+    rank_at = {g: r for r, g in enumerate(gidx)}
+    layers = [eng.rank_params[r]["layers"][0] for r in range(N)]
+    dt, dev = layers[0]["attn"]["wq"].dtype, layers[0]["attn"]["wq"].device
+    unit = GEMM_ROUND[_dtype_name(dt)]["rtol"]
+    atol_s = GEMM_TOL["fp32" if dt == torch.float32 else "bf16"]["atol_s"]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    h = eng.cfg.hidden_size
+    X = torch.randn((N, m, h), generator=gen, device=dev).to(dt)
+    full = X.reshape(N * m, h)
+    cases = []
+    for sub, name in (("attn", "wq"), ("attn", "wk"), ("attn", "wv"),
+                      ("mlp", "w_gate"), ("mlp", "w_up")):
+        ws = [lp[sub][name] for lp in layers]
+        outs = ctx.run(lambda r: hier.ag_gemm_2d_local(
+            X[gidx[r]].to(ctx.devices[r]), ws[r], **kw))
+        torch.cuda.synchronize()
+        ctx.raise_on_comm_error()
+        errs = [_gemm_share(
+            torch, outs[r].to(full.device),
+            (full.float() @ ws[r].float().to(full.device)).to(dt),
+            h ** 0.5 * _rms(full) * _rms(ws[r]), dt) for r in range(N)]
+        share = max(s for _, s in errs)
+        cases.append({"case": f"ag_gemm_2d_{name}", "rows_a_rank": m,
+                      "k": h, "ncols": ws[0].shape[1],
+                      "max_abs_err": max(e for e, _ in errs),
+                      "tol_share": share, "ok": share <= 1.0})
+    slice_rows = n1 * m
+    for sub, name in (("attn", "wo"), ("mlp", "w_down")):
+        ws = [lp[sub][name] for lp in layers]
+        k = ws[0].shape[0]
+        A = torch.randn((N, N * m, k), generator=gen, device=dev).to(dt)
+        outs = ctx.run(lambda r: hier.gemm_rs_2d_local(
+            A[r].to(ctx.devices[r]), ws[r], **kw))
+        torch.cuda.synchronize()
+        ctx.raise_on_comm_error()
+        parts = [(A[r].float() @ ws[r].float().to(A.device)).to(dt)
+                 for r in range(N)]
+        s_sum = sum(atol_s * k ** 0.5 * _rms(A[r]) * _rms(ws[r])
+                    for r in range(N))
+        err, share = 0.0, 0.0
+        for r in range(N):
+            a, b = divmod(gidx[r], n1)
+            rows = slice(a * slice_rows + b * m, a * slice_rows + (b + 1) * m)
+            mine = [[parts[rank_at[s * n1 + j]][rows] for j in range(n1)]
+                    for s in range(n0)]
+            slices = [ar.reduce_slots_plain(p) for p in mine]
+            mag = sum(p.float().abs() for ps in mine for p in ps)
+            mag = mag + sum(s.float().abs() for s in slices)
+            acc = slices[(a + 1) % n0]
+            for t in range(2, n0 + 1):
+                acc = acc + slices[(a + t) % n0]
+                mag = mag + acc.float().abs()
+            diff = (outs[r].to(acc.device).float() - acc.float()).abs()
+            err = max(err, diff.max().item())
+            share = max(share, (diff / (s_sum + unit * mag)).max().item())
+        cases.append({"case": f"gemm_rs_2d_{name}", "rows_a_rank": m,
+                      "rows_in": N * m, "k": k, "ncols": ws[0].shape[1],
+                      "max_abs_err": err, "tol_share": share,
+                      "ok": share <= 1.0})
+        del A, parts
+    bad = [c["case"] for c in cases if not c["ok"]]
+    check(not bad, f"tp2d_engine: the fused 2-D ops disagree with their "
+                   f"plain composition: {bad}")
+    return {"cases": cases, "tol": "AG+GEMM: 2^-13 s + one unit of the "
+            "output type of the value (B3's); GEMM+RS: 2^-13 s_j summed "
+            "over the N partials + one unit of the output type at each "
+            "rounding of the path, of the value rounded there"}
+
+
+def phase_tp2d_engine(torch, params, cfg, Engine, kernels) -> dict:
+    """Qwen3-8B at full width, cut to 4 layers, bf16: ``Engine.serve`` on
+    a (dcn=2, tp=4) group of 8 virtual ranks (the TP group spans both
+    tiers: 8 kv heads over 8 joint ranks, one a rank) with the defaults,
+    a 2 x 1024 prompt for 8 tokens — the prefill in "overlap2d" (256 rows
+    a rank: B9 5 a layer, B10 2 a layer and slice chunk, B3 5 a layer for
+    the remote slice's rows), the decode through the two-tier
+    ``tp_reduce`` — every count at 0 before and read after; then B9, B10
+    and B3 under the 2-D fused ops at the prefill's shapes against their
+    plain composition (:func:`tp2d_fused_case`) and every rank's prefill
+    logits bit-identical; then the one-axis TP=4 engine's serve of the
+    same prompt in the same call."""
+    comm = twotier_modules()[0]
+    gemm = importlib_module("ops.gemm")
+    context = twotier_modules()[4]
+    cfg4, params4 = _layers_cut(params, cfg, TP2D_LAYERS)
+    L = TP2D_LAYERS
+    ctx = context.initialize_distributed(
+        devices=virtual_devices(8), mesh_shape=(2, 4),
+        axis_names=("dcn", "tp"), wait_timeout_ms=60_000)
+    eng = Engine(cfg4, params4, ctx, max_seq=2048)
+    check(eng.hierarchical and eng.n_total == 8 and eng.n_inter == 2,
+          "tp2d_engine: the engine did not take the two-tier layout")
+    g = torch.Generator(device="cuda").manual_seed(37)
+    ids = torch.randint(0, cfg.vocab_size, (2, 1024), generator=g,
+                        device="cuda", dtype=torch.int32)
+    mode = eng._prefill_mode(2, 1024)
+    check(mode == "overlap2d", f"tp2d_engine: the 2 x 1024 prefill took "
+                               f"{mode!r}")
+    eng.serve(ids[:, :64], 2)                                  # warm-up
+    allk = list(kernels) + list(comm.COLLECTIVE_KERNELS) + [gemm.GEMM_KERNEL]
+    torch.cuda.synchronize()
+    reset_counts(allk)
+    t0 = time.perf_counter()
+    out = eng.serve(ids, TP2D_GEN)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    c = _twotier_counts(comm, gemm)
+    nr = ctx.num_ranks
+    want = {"ag_gemm": nr * 5 * L, "gemm_rs": nr * 2 * 2 * L,
+            "gemm": nr * 5 * L, "allgather_ring": 0,
+            "reduce_scatter_ring": 0, "ag_torus": 0, "ar_torus": 0,
+            "others": 0}
+    check(c == want, f"tp2d_engine: launches {c}, expected {want}")
+    check(all(k.plain_calls == 0 for k in allk),
+          "tp2d_engine: a plain version ran on the main path")
+    check(tuple(out.shape) == (2, TP2D_GEN) and bool(
+        ((out >= 0) & (out < cfg.vocab_size)).all()),
+        "tp2d_engine: bad output")
+    timed = _serve_timed(torch, eng, ids, TP2D_GEN)
+    toks2d = timed.pop("tokens")
+    fused = tp2d_fused_case(torch, eng, seed=43)
+    idr = eng.replicate(ids)
+    caches = eng.new_cache(2)
+    logits = eng.run(lambda r: eng._prefill_fn(
+        eng.rank_params[r], cfg4, idr[r], caches[r],
+        **eng.tp_kwargs(mode))[0])
+    torch.cuda.synchronize()
+    eng.check_comm()
+    replicas = all(torch.equal(x, logits[0]) for x in logits[1:])
+    check(replicas, "tp2d_engine: the ranks' prefill logits differ")
+    del eng, caches, logits
+    ctx.close()
+    gc_collect(torch)
+    ctx4 = context.initialize_distributed(devices=virtual_devices(TP),
+                                          wait_timeout_ms=60_000)
+    eng4 = Engine(cfg4, params4, ctx4, max_seq=2048)
+    eng4.serve(ids[:, :64], 2)
+    tp4 = _serve_timed(torch, eng4, ids, TP2D_GEN)
+    toks4 = tp4.pop("tokens")
+    tp4["prefill_mode"] = eng4._prefill_mode(2, 1024)
+    del eng4
+    ctx4.close()
+    gc_collect(torch)
+    return {"phase": "tp2d_engine", "grid": {"dcn": 2, "tp": 4},
+            "layers": L, "dtype": cfg.dtype, "batch": 2, "prompt": 1024,
+            "gen": TP2D_GEN, "prefill_mode": mode, "rows_a_rank": 256,
+            "serve_s": serve_s, **timed,
+            "launches": c,
+            "launches_per_rank": {
+                "ag_gemm": {"per_prefill": 5 * L, "per_decode_step": 0},
+                "gemm_rs": {"per_prefill": 4 * L, "per_decode_step": 0},
+                "gemm": {"per_prefill": 5 * L, "per_decode_step": 0},
+                "allgather_ring": {"per_prefill": 0, "per_decode_step": 0},
+                "reduce_scatter_ring": {"per_prefill": 0,
+                                        "per_decode_step": 0}},
+            "decode_note": "the decode's 2-row reductions do not divide "
+                           "over the 4 tp ranks, so the two-tier tp_reduce "
+                           "takes the plain sums (as the reference's)",
+            "fused_2d_vs_plain": fused,
+            "rank_logits_bit_identical": replicas,
+            "tp4_one_axis": tp4,
+            "bf16_tokens_equal_tp4": bool(torch.equal(toks2d, toks4)),
+            "bf16_tokens_note": "recorded, not checked: the two layouts "
+                                "sum in different orders in bf16; "
+                                "tp2d_parity holds the tokens at fp32",
+            "note": "8 ranks share one card's SMs and HBM, and the inter "
+                    "hop is a handover on one host: these times say "
+                    "nothing of two hosts"}
+
+
+def importlib_module(name: str):
+    import importlib
+
+    return importlib.import_module(f"triton_distributed_tpu_torch.{name}")
+
+
+def phase_tp2d_parity(torch, QWEN3_8B, init_dense_llm, Engine, kernels
+                      ) -> dict:
+    """float32 Qwen3-8B widths at 2 layers: ``Engine.serve`` on (dcn=2,
+    tp=4) gives the one-rank engine's tokens (``backend="overlap"``, which
+    takes "overlap2d" whenever the rows divide over both tiers: a 2 x 64
+    prompt; and 1 x 12, whose rows do not: "ar", its reductions through
+    the two-tier AllReduce's B6 and B4), every rank's prefill logits
+    bit-identical."""
+    comm = twotier_modules()[0]
+    context = twotier_modules()[4]
+    cfg = dataclasses.replace(QWEN3_8B, num_layers=2, dtype="float32")
+    params = init_dense_llm(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(6))
+    ctx = context.initialize_distributed(
+        devices=virtual_devices(8), mesh_shape=(2, 4),
+        axis_names=("dcn", "tp"), wait_timeout_ms=60_000)
+    one = Engine(cfg, params, max_seq=256)
+    eng = Engine(cfg, params, ctx, max_seq=256, backend="overlap")
+    check(eng.hierarchical, "tp2d_parity: not the two-tier layout")
+    g = torch.Generator().manual_seed(41)
+    result = {"phase": "tp2d_parity", "grid": {"dcn": 2, "tp": 4},
+              "layers": 2, "dtype": "float32"}
+    allk = list(kernels) + list(comm.COLLECTIVE_KERNELS)
+    for name, shape in (("overlap2d", (2, 64)), ("ar", (1, 12))):
+        prompt = torch.randint(0, cfg.vocab_size, shape, generator=g,
+                               dtype=torch.int32)
+        check(eng._prefill_mode(*shape) == name,
+              f"tp2d_parity: {shape} took {eng._prefill_mode(*shape)}")
+        want = one.serve(prompt.cuda(), 16)
+        reset_counts(allk)
+        got = eng.serve(prompt, 16)
+        c = _tp_counts(comm)
+        kerns = (("ag_gemm", "gemm_rs") if name == "overlap2d" else
+                 ("reduce_scatter_ring", "allgather_ring"))
+        check(all(c[k] > 0 for k in kerns),
+              f"tp2d_parity {name}: a kernel of the path never ran: {c}")
+        check(all(k.plain_calls == 0 for k in allk),
+              f"tp2d_parity {name}: a plain version ran")
+        same = torch.equal(got.cpu(), want.cpu())
+        if not same:
+            emit({"phase": "tp2d_parity", "run": name, "tp2d": got.tolist(),
+                  "one": want.tolist()})
+        check(same, f"tp2d_parity {name}: tokens differ from one rank's")
+        ids = eng.replicate(prompt)
+        caches = eng.new_cache(shape[0])
+        mode = eng._prefill_mode(*shape)
+        logits = eng.run(lambda r: eng._prefill_fn(
+            eng.rank_params[r], cfg, ids[r], caches[r],
+            **eng.tp_kwargs(mode))[0])
+        torch.cuda.synchronize()
+        replicas = all(torch.equal(x, logits[0]) for x in logits)
+        check(replicas, f"tp2d_parity {name}: the ranks' logits differ")
+        result[name] = {"prompt": list(shape), "gen": 16,
+                        "identical_to_one_rank": True,
+                        "rank_logits_bit_identical": replicas,
+                        "launches": c}
+    ctx.close()
+    return result
+
+
 def _summary_entry(kernel, name, replaces, cases, main_case, launches,
                    root) -> dict:
     return {"name": name, "route": "cuda",
@@ -6755,6 +7535,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     spd_rec = emit_phase(phase_sp_decode(torch, pa))
     emit_phase(phase_sp_prefill(torch, fa, timer))
+    gc.collect()
+    torch.cuda.empty_cache()
+    c2d_rec = emit_phase(phase_collectives_2d(torch, timer))
+    gc.collect()
+    torch.cuda.empty_cache()
+    mig_rec = emit_phase(phase_migrate(torch, timer))
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # One set of seeded Qwen3-8B weights serves every full-size phase.
     params = init_dense_llm(
@@ -6796,6 +7584,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     tpe_rec = emit_phase(phase_tp_engine(torch, params, QWEN3_8B, Engine,
                                          kernels))
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit_phase(phase_tp2d_engine(torch, params, QWEN3_8B, Engine, kernels))
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -6868,6 +7659,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     emit_phase(phase_sp_pp_parity(torch))
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit_phase(phase_tp2d_parity(torch, QWEN3_8B, init_dense_llm, Engine,
+                                 kernels))
     gc.collect()
     torch.cuda.empty_cache()
     tpmkp_rec = emit_phase(phase_tp_megakernel_parity(
@@ -7172,6 +7967,34 @@ def main() -> int:
                        next(c for c in sppp["p2p_permute"] if "ms" in c),
                        pp_rec["comm_op_exchange"]["launches"]["p2p_permute"],
                        root),
+    ]
+    mig = twotier_modules()[5]
+    summary += [
+        # B12: the main run of collectives_2d — the tuple-axis AllGather and
+        # AllReduce on (dcn=2, tp=4), one launch a rank each — timed there
+        # (256 and 16 rows x 4096 bf16 a rank).
+        _summary_entry(comm.AG_TORUS_KERNEL, "ag_torus",
+                       tpu + "ops/multi_axis.py:60",
+                       c2d_rec["cases"]["ag_torus"],
+                       torus_main_case(c2d_rec, "ag_torus"),
+                       c2d_rec["main_launches"]["ag_torus"], root),
+        _summary_entry(comm.AR_TORUS_KERNEL, "ar_torus",
+                       tpu + "ops/multi_axis.py:169",
+                       c2d_rec["cases"]["ar_torus"],
+                       torus_main_case(c2d_rec, "ar_torus"),
+                       c2d_rec["main_launches"]["ar_torus"], root),
+        # B13: kv_migrate_local's run on (dcn=2, tp=4) (2 blocks, 4
+        # senders and 4 receivers), timed at one 32-page block.
+        _summary_entry(mig.MIGRATE_PACK_KERNEL, "migrate_pack",
+                       tpu + "disagg/migrate.py:249",
+                       mig_rec["cases"]["migrate_pack"],
+                       mig_rec["cases"]["migrate_pack"][0],
+                       mig_rec["launches"]["migrate_pack"], root),
+        _summary_entry(mig.MIGRATE_SCATTER_KERNEL, "migrate_scatter",
+                       tpu + "disagg/migrate.py:277",
+                       mig_rec["cases"]["migrate_scatter"],
+                       mig_rec["cases"]["migrate_scatter"][0],
+                       mig_rec["launches"]["migrate_scatter"], root),
     ]
     check(all(e["launches"] > 0 for e in summary),
           f"a kernel of the path was never launched: "

@@ -48,13 +48,27 @@ one-rank K1), with ``--pp`` ``chip_smoke.phase_pp_forward`` (Qwen3-8B,
 bf16, GPipe on 4 stages and the interleaved schedule against the 36
 layers on one rank; with ``--cards`` each stage's layers on its card),
 and with ``--parity`` ``chip_smoke.phase_sp_pp_parity`` (every new entry
-point, fp32, against the CPU rank threads' plain versions). Prints one
-JSON line per phase, then the cards' names and power limits. About four
+point, fp32, against the CPU rank threads' plain versions). ``--twod``
+runs only the two-tier group: ``chip_smoke.phase_collectives_2d`` (B12's
+torus AllGather and AllReduce on (dcn, tp) grids — (2, 4), (4, 2), (2, 2)
+and the degenerate ones on virtual ranks, (2, 2) one rank a card with
+``--cards`` — bit for bit on every rank, timed) and
+``chip_smoke.phase_migrate`` (``kv_migrate_local`` through B13 from slice
+0 into slice 1, on (2, 4) virtual ranks or, with ``--cards``, across the
+pairs of cards of a (2, 2) group), on virtual ranks
+``chip_smoke.phase_tp2d_engine`` (Qwen3-8B cut to 4 layers, bf16:
+``Engine.serve`` on (2, 4) in "overlap2d", B9 / B10 / B3 under the 2-D
+fused ops against their plain composition, the ranks' logits bit for
+bit), and with ``--parity`` ``chip_smoke.phase_tp2d_parity`` (virtual
+ranks only: float32 2-layer ``Engine.serve`` on (2, 4) token-identical
+to one rank). Prints one JSON
+line per phase, then the cards' names and power limits. About four
 minutes with the build (``--moe``: about one and a half):
 
     python3 scripts/check_port_tp.py [--parity] [--cards] [--moe]
     python3 scripts/check_port_tp.py --megakernel [--parity] [--cards]
     python3 scripts/check_port_tp.py --sp --pp [--parity] [--cards]
+    python3 scripts/check_port_tp.py --twod [--parity] [--cards]
 """
 import importlib
 import json
@@ -89,9 +103,12 @@ def main() -> int:
 
     megakernel = "--megakernel" in sys.argv
     sp, pp = "--sp" in sys.argv, "--pp" in sys.argv
+    twod = "--twod" in sys.argv
     t0 = time.perf_counter()
     srcs = [comm.ONE_SHOT_KERNEL.source_path,
-            comm.P2P_SHIFT_KERNEL.source_path]
+            comm.P2P_SHIFT_KERNEL.source_path,
+            comm.AG_TORUS_KERNEL.source_path,
+            build.CSRC_DIR / "migrate.cu"]
     if not (sp or pp):
         srcs += [comm.A2A_KERNEL.source_path, comm.AG_GEMM_KERNEL.source_path,
                  mk.MEGA_KERNEL.source_path]
@@ -122,6 +139,37 @@ def main() -> int:
     else:
         devices_for, ranks = cs.virtual_devices, cs.COLL_RANKS
     moe = "--moe" in sys.argv
+    if twod:
+        suffix = "_cards" if cards else ""
+        grids = ((2, 2),) if cards else cs.GRIDS_2D + cs.DEGENERATE_2D
+        run("collectives_2d", lambda: cs.phase_collectives_2d(
+            torch, timer, devices_for=devices_for, grids=grids,
+            name="collectives_2d" + suffix))
+        run("migrate", lambda: cs.phase_migrate(
+            torch, timer, devices_for=devices_for,
+            grid=(2, 2) if cards else (2, 4), name="migrate" + suffix))
+        if not cards:
+            import dataclasses
+
+            from triton_distributed_tpu_torch.models.config import QWEN3_8B
+            from triton_distributed_tpu_torch.models.dense import (
+                init_dense_llm,
+            )
+            from triton_distributed_tpu_torch.models.engine import Engine
+
+            kernels = (fa.FLASH_KERNEL, pa.PAGED_KERNEL)
+            cut = dataclasses.replace(QWEN3_8B, num_layers=cs.TP2D_LAYERS)
+            params = init_dense_llm(cut, generator=torch.Generator(
+                device="cuda").manual_seed(0))
+            run("tp2d_engine", lambda: cs.phase_tp2d_engine(
+                torch, params, QWEN3_8B, Engine, kernels))
+            del params
+            if "--parity" in sys.argv:
+                run("tp2d_parity", lambda: cs.phase_tp2d_parity(
+                    torch, QWEN3_8B, init_dense_llm, Engine, kernels))
+        if not (sp or pp):
+            print(cs.nvidia_smi_all(), flush=True)
+            return 1 if failed else 0
     if sp or pp:
         suffix = "_cards" if cards else ""
         run("collectives_sp_pp", lambda: cs.phase_collectives_sp_pp(

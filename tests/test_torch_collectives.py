@@ -40,7 +40,7 @@ from triton_distributed_tpu_torch.ops import allgather as tag
 from triton_distributed_tpu_torch.ops import allreduce as tar
 from triton_distributed_tpu_torch.ops import reduce_scatter as trs
 from triton_distributed_tpu_torch.ops._comm import (
-    AG_PARITY_KERNEL, ONE_SHOT_KERNEL, CollectiveUnsupportedError,
+    AG_PARITY_KERNEL, ONE_SHOT_KERNEL,
 )
 from triton_distributed_tpu_torch.runtime import perf_model as tpm
 from triton_distributed_tpu_torch.runtime.context import (
@@ -372,15 +372,19 @@ def test_named_refusals():
                                                 num_ranks=2)
             assert torch.equal(got, torch.cat([x, x]) * (t + 1))
         out.append(idx == 2)
+        # The tuple-axis forms (ops/multi_axis.py) and the two-tier
+        # tp_reduce are ported: on this one-axis group a real (2, 2) grid
+        # names the axis it does not have (tests/test_torch_multi_axis.py
+        # runs them on 2-axis groups).
         for fn in (
                 lambda: tar.all_reduce_local(x, axis=("dcn", "tp"),
-                                             num_ranks=2),
+                                             num_ranks=(2, 2)),
                 lambda: trs.reduce_scatter_local(x, axis=("dcn", "tp"),
-                                                 num_ranks=2)):
-            with pytest.raises(CollectiveUnsupportedError):
+                                                 num_ranks=(2, 2))):
+            with pytest.raises(ValueError, match="'dcn' unknown"):
                 fn()
             out.append(True)
-        with pytest.raises(ValueError, match="n_inter"):
+        with pytest.raises(ValueError, match="'dcn' unknown"):
             tp_reduce(x, axis="tp", n=2, n_inter=2)
         with pytest.raises(ValueError, match="num_ranks"):
             tar.all_reduce_local(x, num_ranks=4)

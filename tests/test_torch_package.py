@@ -237,9 +237,10 @@ def test_kernel_build_is_lazy_and_keyed_by_source():
     assert [s.name for s in srcs] == ["all_to_all.cu", "collectives.cu",
                                       "flash_attention.cu", "gemm.cu",
                                       "gemm_comm.cu", "megakernel.cu",
+                                      "migrate.cu", "multi_axis.cu",
                                       "p2p.cu", "paged_attention.cu"]
     paths = {build.library_path(s) for s in srcs}
-    assert len(paths) == 8
+    assert len(paths) == 10
     assert all(p.parent == build.BUILD_DIR for p in paths)
     gitignore = (ROOT / ".gitignore").read_text().split()
     assert "triton_distributed_tpu_torch/_build/" in gitignore

@@ -387,9 +387,12 @@ def test_tp_refusals(models, tctx):
     from triton_distributed_tpu_torch.layers.tp_mlp import tp_mlp_fwd
 
     def row_sharded(r):
-        with pytest.raises(ValueError, match="overlap2d"):
-            tp_mlp_fwd(shard_params(tparams, tctx, tcfg)[r]["layers"][0]
-                       ["mlp"], x, num_ranks=N, mode="overlap2d")
-        return True
+        # "overlap2d" is ported (layers/tp_mlp over ops/hierarchical): on
+        # one tier (n_inter = 1) it is the one-tier "overlap" path, bit for
+        # bit (tests/test_torch_hierarchical.py runs two tiers).
+        mlp = shard_params(tparams, tctx, tcfg)[r]["layers"][0]["mlp"]
+        return torch.equal(
+            tp_mlp_fwd(mlp, x, num_ranks=N, mode="overlap2d"),
+            tp_mlp_fwd(mlp, x, num_ranks=N, mode="overlap"))
 
     assert all(tctx.run(row_sharded))

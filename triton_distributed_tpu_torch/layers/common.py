@@ -80,14 +80,18 @@ class KVSlice(NamedTuple):
 
 def tp_reduce(y: torch.Tensor, *, axis: str, n: int, inter_axis: str = "dcn",
               n_inter: int = 1) -> torch.Tensor:
-    """The full AllReduce of a TP partial sum (``ops/allreduce.
-    all_reduce_local``, AUTO method) inside the rank runner. The
-    reference's two-tier form (``n_inter`` > 1: a TP group spanning a DCN
-    axis) is not ported and is refused by name."""
+    """The full AllReduce of a TP partial sum inside the rank runner: the
+    AllReduce kernels on one axis (``ops/allreduce.all_reduce_local``,
+    AUTO method), or — the TP group spanning a second, inter tier
+    (``n_inter`` > 1) — the two-tier AllReduce (intra ring RS, the inter
+    tier's sum, intra ring AG: ``ops/two_level.all_reduce_2d_local``)."""
     if n_inter > 1:
-        raise ValueError(
-            "tp_reduce: the two-tier hierarchical AllReduce (n_inter > 1, "
-            "ops/two_level.py) is not ported — argument n_inter")
+        from triton_distributed_tpu_torch.ops.two_level import (
+            all_reduce_2d_local,
+        )
+
+        return all_reduce_2d_local(y, intra_axis=axis, inter_axis=inter_axis,
+                                   n_intra=n, n_inter=n_inter)
     from triton_distributed_tpu_torch.ops.allreduce import all_reduce_local
 
     return all_reduce_local(y, axis=axis, num_ranks=n)

@@ -21,7 +21,12 @@ loop's parity stream (``ar_fn``) or the fused GEMM+AR kernel B11
 (``gemm_ar_fn``, which replaces the projection too), ``"xla_rep"``
 through the rank group's plain sum. The linear-cache decode
 (:func:`tp_attn_decode`) attends over the rank's shard of the KV heads.
-The two-tier ``"overlap2d"`` is refused by name.
+On a TP group spanning a second, inter tier (``n_inter`` > 1, heads
+sharded over both tiers), ``"overlap2d"`` takes the prefill's rows
+sharded over both tiers: q/k/v through ``ops/hierarchical.
+ag_gemm_2d_local``, the output through ``gemm_rs_2d_local``; the
+replicated modes reduce through the two-tier ``tp_reduce`` (``"ar"``) or
+the plain sum over both axes (``"xla_rep"``).
 
 Caches are updated IN PLACE (the port's stand-in for JAX's donated
 functional updates): the functions write the new K/V into the cache
@@ -37,7 +42,7 @@ import torch
 from triton_distributed_tpu_torch.layers.common import (
     KVSlice, apply_rope, plain_dot, rms_norm, rope_cos_sin, tp_reduce,
 )
-from triton_distributed_tpu_torch.layers.tp_mlp import refuse_row_sharded
+from triton_distributed_tpu_torch.layers.tp_mlp import check_mode
 from triton_distributed_tpu_torch.models.config import ModelConfig
 from triton_distributed_tpu_torch.ops.flash_attention import (
     flash_attention_partial, shard_attention,
@@ -87,14 +92,23 @@ def tp_attn_specs(cfg: ModelConfig, axis: str = "tp") -> dict:
 
 def _project_qkv(params: dict, cfg: ModelConfig, x: torch.Tensor,
                  batch: int, seq: int, dot_fn=None, *, axis: str = "tp",
-                 n: int = 1, mode: str = "ar"):
+                 n: int = 1, mode: str = "ar", inter_axis: str = "dcn",
+                 n_inter: int = 1):
     """x → q (B,S,hq,d), k/v (B,S,hkv,d) with Qwen3 qk-norm. In the
-    row-sharded modes x is (B·S/n, h) and the projection regathers the
-    whole sequence; else x is (B·S, h) and ``dot_fn(x, w)`` replaces each
-    ``x @ w``."""
+    row-sharded modes x is (B·S/n, h) — (B·S/(n·n_inter), h) in
+    ``"overlap2d"`` — and the projection regathers the whole sequence;
+    else x is (B·S, h) and ``dot_fn(x, w)`` replaces each ``x @ w``."""
     d = cfg.head_dim
     ws = (params["wq"], params["wk"], params["wv"])
-    if n > 1 and mode == "overlap":
+    if n * n_inter > 1 and mode == "overlap2d":
+        from triton_distributed_tpu_torch.ops.hierarchical import (
+            ag_gemm_2d_local,
+        )
+
+        q, k, v = (ag_gemm_2d_local(x, w, intra_axis=axis,
+                                    inter_axis=inter_axis, n_intra=n,
+                                    n_inter=n_inter) for w in ws)
+    elif n > 1 and mode == "overlap":
         from triton_distributed_tpu_torch.ops.allgather_gemm import (
             ag_gemm_local,
         )
@@ -116,24 +130,27 @@ def _project_qkv(params: dict, cfg: ModelConfig, x: torch.Tensor,
 
 
 def _out_proj(attn: torch.Tensor, params: dict, *, axis: str = "tp",
-              n: int = 1, mode: str = "ar", ar_fn=None, gemm_ar_fn=None,
+              n: int = 1, mode: str = "ar", inter_axis: str = "dcn",
+              n_inter: int = 1, ar_fn=None, gemm_ar_fn=None,
               dot_fn=None) -> torch.Tensor:
     """Row-parallel output projection of replicated rows and its TP
-    reduction. ``ar_fn`` replaces the ``"ar"`` reduction (the decode
-    loop's parity-stream AR); ``gemm_ar_fn(attn, wo)`` replaces the
-    projection and its reduction (the fused GEMM+AR); at n = 1 a given
-    hook still runs."""
+    reduction (the two-tier one at ``n_inter`` > 1). ``ar_fn`` replaces
+    the ``"ar"`` reduction (the decode loop's parity-stream AR);
+    ``gemm_ar_fn(attn, wo)`` replaces the projection and its reduction
+    (the fused GEMM+AR); at n·n_inter = 1 a given hook still runs."""
     dot = dot_fn or plain_dot
-    if n == 1 or mode == "ar":
+    if n * n_inter == 1 or mode == "ar":
         if gemm_ar_fn is not None:
             return gemm_ar_fn(attn, params["wo"])
         y = dot(attn, params["wo"])
         if ar_fn is not None:
             return ar_fn(y)
-        return y if n == 1 else tp_reduce(y, axis=axis, n=n)
+        return y if n * n_inter == 1 else tp_reduce(
+            y, axis=axis, n=n, inter_axis=inter_axis, n_inter=n_inter)
     if mode == "xla_rep":
-        return group_psum(dot(attn, params["wo"]), axis=axis, num_ranks=n)
-    refuse_row_sharded(mode, "attention")
+        return group_psum(dot(attn, params["wo"]),
+                          axis=(inter_axis, axis) if n_inter > 1 else axis)
+    check_mode(mode, "attention")
     raise ValueError(f"attention: mode {mode!r} runs row-sharded prefill "
                      "activations; this projection takes replicated rows "
                      "('ar' or 'xla_rep') — argument mode")
@@ -163,17 +180,19 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def tp_attn_prefill(params: dict, cfg: ModelConfig, x: torch.Tensor,
                     batch: int, seq: int, kv_slice: KVSlice | None = None,
                     *, axis: str = "tp", num_ranks: int = 1,
-                    mode: str = "overlap"):
+                    mode: str = "overlap", inter_axis: str = "dcn",
+                    n_inter: int = 1):
     """Causal prefill of whole prompts. x: (B·S/n, h) row-sharded in the
-    ``"overlap"`` / ``"xla"`` modes at n > 1, else (B·S, h). Writes the
-    prompt's K/V (this rank's heads) into ``kv_slice`` at [0, S) in place;
-    returns (out, in x's layout; the slice — or a fresh KVSlice of the
-    prompt's K/V when none is given)."""
+    ``"overlap"`` / ``"xla"`` modes at n > 1, (B·S/(n·n_inter), h) in
+    ``"overlap2d"``, else (B·S, h). Writes the prompt's K/V (this rank's
+    heads) into ``kv_slice`` at [0, S) in place; returns (out, in x's
+    layout; the slice — or a fresh KVSlice of the prompt's K/V when none
+    is given)."""
     n = num_ranks
-    if n > 1:
-        refuse_row_sharded(mode, "tp_attn_prefill")
+    if n * n_inter > 1:
+        check_mode(mode, "tp_attn_prefill")
     q, k, v = _project_qkv(params, cfg, x, batch, seq, axis=axis, n=n,
-                           mode=mode)
+                           mode=mode, inter_axis=inter_axis, n_inter=n_inter)
     cos, sin = rope_cos_sin(torch.arange(seq, device=x.device),
                             cfg.head_dim, cfg.rope_theta)
     q = apply_rope(q, cos[None], sin[None])
@@ -186,6 +205,14 @@ def tp_attn_prefill(params: dict, cfg: ModelConfig, x: torch.Tensor,
         new_kv = KVSlice(k=k, v=v)
     attn = shard_attention(q, k, v, causal=True)          # K1, normalized
     attn = attn.reshape(batch * seq, -1)
+    if n * n_inter > 1 and mode == "overlap2d":
+        from triton_distributed_tpu_torch.ops.hierarchical import (
+            gemm_rs_2d_local,
+        )
+
+        return gemm_rs_2d_local(attn, params["wo"], intra_axis=axis,
+                                inter_axis=inter_axis, n_intra=n,
+                                n_inter=n_inter), new_kv
     if n > 1 and mode == "overlap":
         from triton_distributed_tpu_torch.ops.gemm_reduce_scatter import (
             gemm_rs_local,
@@ -196,7 +223,8 @@ def tp_attn_prefill(params: dict, cfg: ModelConfig, x: torch.Tensor,
     if n > 1 and mode == "xla":
         return group_psum_scatter(attn @ params["wo"], axis=axis,
                                   num_ranks=n), new_kv
-    return _out_proj(attn, params, axis=axis, n=n, mode=mode), new_kv
+    return _out_proj(attn, params, axis=axis, n=n, mode=mode,
+                     inter_axis=inter_axis, n_inter=n_inter), new_kv
 
 
 def tp_attn_prefill_chunk(params: dict, cfg: ModelConfig, x: torch.Tensor,
@@ -227,7 +255,8 @@ def tp_attn_prefill_chunk(params: dict, cfg: ModelConfig, x: torch.Tensor,
 
 def tp_attn_decode(params: dict, cfg: ModelConfig, x: torch.Tensor,
                    kv_slice: KVSlice, pos: int, *, axis: str = "tp",
-                   num_ranks: int = 1, mode: str = "ar", ar_fn=None,
+                   num_ranks: int = 1, mode: str = "ar",
+                   inter_axis: str = "dcn", n_inter: int = 1, ar_fn=None,
                    gemm_ar_fn=None, dot_fn=None):
     """One-token decode over a linear cache at the host position ``pos``
     (every sequence of the batch at the same length). x: (B, h),
@@ -251,13 +280,16 @@ def tp_attn_decode(params: dict, cfg: ModelConfig, x: torch.Tensor,
     attn = _sdpa(q, kv_slice.k.to(q.dtype), kv_slice.v.to(q.dtype),
                  causal=False, kv_len=pos + 1)
     return _out_proj(attn.reshape(batch, -1), params, axis=axis,
-                     n=num_ranks, mode=mode, ar_fn=ar_fn,
-                     gemm_ar_fn=gemm_ar_fn, dot_fn=dot_fn), kv_slice
+                     n=num_ranks, mode=mode, inter_axis=inter_axis,
+                     n_inter=n_inter, ar_fn=ar_fn, gemm_ar_fn=gemm_ar_fn,
+                     dot_fn=dot_fn), kv_slice
 
 
 def tp_attn_decode_paged(params: dict, cfg: ModelConfig, x: torch.Tensor,
                          cache: PagedKVCache, *, axis: str = "tp",
-                         num_ranks: int = 1, mode: str = "ar", ar_fn=None):
+                         num_ranks: int = 1, mode: str = "ar",
+                         inter_axis: str = "dcn", n_inter: int = 1,
+                         ar_fn=None):
     """One-token decode over a paged cache at per-sequence positions
     (``cache.kv_lens``). Appends this token's K/V to the pools in place
     (through the saturating cast for e4m3 pools), then attends — so the
@@ -271,7 +303,8 @@ def tp_attn_decode_paged(params: dict, cfg: ModelConfig, x: torch.Tensor,
     cache = paged_append(cache, k[:, 0], v[:, 0])
     attn = paged_decode_attention(q[:, 0], cache)          # K2
     return _out_proj(attn.reshape(batch, -1).to(x.dtype), params, axis=axis,
-                     n=num_ranks, mode=mode, ar_fn=ar_fn), cache
+                     n=num_ranks, mode=mode, inter_axis=inter_axis,
+                     n_inter=n_inter, ar_fn=ar_fn), cache
 
 
 def tp_attn_verify_paged(params: dict, cfg: ModelConfig, x: torch.Tensor,

@@ -14,10 +14,15 @@ Modes at n > 1 (call inside ``DistContext.run``):
   AllReduce kernels (``layers/common.tp_reduce``), or the decode loop's
   parity stream given as ``ar_fn``, or — ``gemm_ar_fn`` — the fused
   GEMM+AR kernel B11 in place of the down projection and its reduction;
-- ``"xla_rep"``: x replicated, the rank group's plain sum.
-
-The two-tier ``"overlap2d"`` (a TP group spanning a DCN axis) is not
-ported and is refused by name."""
+- ``"xla_rep"``: x replicated, the rank group's plain sum;
+- ``"overlap2d"`` (a TP group spanning a second, inter tier:
+  ``n_inter`` > 1): x row-sharded over both tiers, (m/(n·n_inter), h) in
+  and out — gate and up through ``ops/hierarchical.ag_gemm_2d_local`` (B9
+  in the slice, the slice blocks rotating over the inter tier into B3),
+  down through ``gemm_rs_2d_local`` (B10 a slice chunk, the chunks
+  reduced around the inter ring). On such a group ``"ar"`` reduces
+  through the two-tier ``tp_reduce`` and ``"xla_rep"`` sums over both
+  axes."""
 
 from __future__ import annotations
 
@@ -31,7 +36,9 @@ from triton_distributed_tpu_torch.runtime.context import (
 )
 from triton_distributed_tpu_torch.runtime.device import resolve_device
 
-ROW_SHARDED_MODES = ("overlap", "xla")
+# "overlap2d": rows sharded over both tiers of a 2-axis group (the
+# two-tier AG+GEMM / GEMM+RS of ops/hierarchical.py).
+ROW_SHARDED_MODES = ("overlap", "xla", "overlap2d")
 REPLICATED_MODES = ("ar", "xla_rep")
 
 
@@ -63,56 +70,73 @@ def pick_mode(mode: str, m_total: int, n: int, *, hidden: int | None = None,
     """Resolve ``"auto"`` (reference ``pick_mode``) on the port's perf
     model: ``"overlap"`` (AG+GEMM then GEMM+RS) when the rows divide into
     shards of >= 8 and its modeled time beats the replicated GEMMs plus
-    the AllReduce, else ``"ar"``. The two-tier form (``n_inter`` > 1) is
-    not ported and is refused by name."""
+    the AllReduce, else ``"ar"``. ``n_inter`` > 1 (a 2-axis (inter, tp)
+    group) adds the two-tier ``"overlap2d"`` candidate: rows sharded over
+    both tiers (the joint degree n·n_inter must divide them into >= 8),
+    its modeled time carrying the inter hops' latency, so AUTO declines it
+    at small row counts; the replicated path's reduction then also pays
+    the inter tier (``perf_model.dcn_collective_time_s``)."""
     if mode != "auto":
         return mode
-    if n_inter > 1:
-        raise ValueError("pick_mode: the hierarchical 'overlap2d' candidate "
-                         "(n_inter > 1) is not ported — argument n_inter")
-    if not (n > 1 and m_total % n == 0 and m_total // n >= 8):
+    N = n * n_inter
+    can_1d = n > 1 and m_total % n == 0 and m_total // n >= 8
+    can_2d = (n_inter > 1 and N > 1 and m_total % N == 0
+              and m_total // N >= 8)
+    if not can_1d and not can_2d:
         return "ar"
     if hidden is None or ffn is None:
-        return "overlap"
+        return "overlap2d" if can_2d else "overlap"
     from triton_distributed_tpu_torch.runtime.perf_model import (
-        ag_gemm_time_s, allreduce_time_s, gemm_rs_time_s, gemm_time_s,
+        ag_gemm_2d_time_s, ag_gemm_time_s, allreduce_time_s,
+        dcn_collective_time_s, gemm_rs_2d_time_s, gemm_rs_time_s,
+        gemm_time_s,
     )
 
     t_ar = (gemm_time_s(m_total, ffn, hidden, itemsize, spec)
             + gemm_time_s(m_total, hidden, ffn, itemsize, spec)
             + allreduce_time_s(m_total * hidden * itemsize, n, spec=spec))
-    t_overlap = (ag_gemm_time_s(m_total, ffn, hidden, n, itemsize, spec)
-                 + gemm_rs_time_s(m_total, hidden, ffn, n, itemsize, spec))
-    return "overlap" if t_overlap <= t_ar else "ar"
+    if n_inter > 1:
+        t_ar += dcn_collective_time_s(m_total * hidden * itemsize, n_inter,
+                                      spec)
+    best, t_best = "ar", t_ar
+    if can_1d:
+        t_overlap = (ag_gemm_time_s(m_total, ffn, hidden, n, itemsize, spec)
+                     + gemm_rs_time_s(m_total, hidden, ffn, n, itemsize,
+                                      spec))
+        if t_overlap <= t_best:
+            best, t_best = "overlap", t_overlap
+    if can_2d:
+        t_2d = (ag_gemm_2d_time_s(m_total, ffn, hidden, n, n_inter,
+                                  itemsize, spec)
+                + gemm_rs_2d_time_s(m_total, hidden, ffn, n, n_inter,
+                                    itemsize, spec))
+        if t_2d < t_best:
+            return "overlap2d"
+    return best
 
 
-def refuse_row_sharded(mode: str, what: str) -> None:
-    """Name the mode whose kernels are not ported (the two-tier
-    ``"overlap2d"``); refuse an unknown one."""
-    if mode == "overlap2d":
-        raise ValueError(
-            f"{what}: mode 'overlap2d' (the two-tier hierarchical AG+GEMM / "
-            "GEMM+RS of a TP group spanning a DCN axis, n_inter > 1) is not "
-            "ported — the port runs 'overlap', 'xla', 'ar' and 'xla_rep' — "
-            "argument mode")
+def check_mode(mode: str, what: str) -> None:
+    """Refuse an unknown mode by name."""
     if mode not in ROW_SHARDED_MODES + REPLICATED_MODES:
         raise ValueError(f"{what}: unknown TP mode {mode!r} — argument mode")
 
 
 def tp_mlp_fwd(params: dict, x: torch.Tensor, *, axis: str = "tp",
-               num_ranks: int = 1, mode: str = "overlap", ar_fn=None,
+               num_ranks: int = 1, mode: str = "overlap",
+               inter_axis: str = "dcn", n_inter: int = 1, ar_fn=None,
                gemm_ar_fn=None, dot_fn=None) -> torch.Tensor:
     """x → (rows of x, h) with a concrete ``mode`` (see the module
     docstring for the layouts); ``dot_fn(a, w)`` replaces every ``a @ w``
     of the replicated modes (the row-sharded ones fuse the products into
     their collectives). ``ar_fn`` replaces the ``"ar"`` reduction (the
     decode loop's parity stream); ``gemm_ar_fn(act, w_down)`` replaces
-    the down projection and its reduction (the fused GEMM+AR). At n = 1
-    a given hook still runs."""
+    the down projection and its reduction (the fused GEMM+AR). At
+    n·n_inter = 1 a given hook still runs. ``n_inter`` > 1: the TP group
+    spans the inter tier ``inter_axis`` too (weights sharded over both)."""
     dot = dot_fn or plain_dot
     n = num_ranks
     wg, wu, wd = params["w_gate"], params["w_up"], params["w_down"]
-    if n == 1:
+    if n * n_inter == 1:
         act = swiglu(dot(x, wg), dot(x, wu))
         if gemm_ar_fn is not None:
             return gemm_ar_fn(act, wd)
@@ -121,7 +145,7 @@ def tp_mlp_fwd(params: dict, x: torch.Tensor, *, axis: str = "tp",
     if mode == "auto":
         raise ValueError("resolve 'auto' with pick_mode() before calling "
                          "(the activation layout depends on the mode)")
-    refuse_row_sharded(mode, "tp_mlp_fwd")
+    check_mode(mode, "tp_mlp_fwd")
     if mode == "overlap":
         from triton_distributed_tpu_torch.ops.allgather_gemm import (
             ag_gemm_local,
@@ -133,6 +157,16 @@ def tp_mlp_fwd(params: dict, x: torch.Tensor, *, axis: str = "tp",
         gate = ag_gemm_local(x, wg, axis=axis, num_ranks=n)
         up = ag_gemm_local(x, wu, axis=axis, num_ranks=n)
         return gemm_rs_local(swiglu(gate, up), wd, axis=axis, num_ranks=n)
+    if mode == "overlap2d":
+        from triton_distributed_tpu_torch.ops.hierarchical import (
+            ag_gemm_2d_local, gemm_rs_2d_local,
+        )
+
+        kw = dict(intra_axis=axis, inter_axis=inter_axis, n_intra=n,
+                  n_inter=n_inter)
+        gate = ag_gemm_2d_local(x, wg, **kw)
+        up = ag_gemm_2d_local(x, wu, **kw)
+        return gemm_rs_2d_local(swiglu(gate, up), wd, **kw)
     if mode == "xla":
         full = group_all_gather(x, axis=axis, num_ranks=n)
         h = swiglu(full @ wg, full @ wu)
@@ -144,5 +178,7 @@ def tp_mlp_fwd(params: dict, x: torch.Tensor, *, axis: str = "tp",
         y = dot(act, wd)
         if ar_fn is not None:
             return ar_fn(y)
-        return tp_reduce(y, axis=axis, n=n)
-    return group_psum(dot(act, wd), axis=axis, num_ranks=n)
+        return tp_reduce(y, axis=axis, n=n, inter_axis=inter_axis,
+                         n_inter=n_inter)
+    return group_psum(dot(act, wd),
+                      axis=(inter_axis, axis) if n_inter > 1 else axis)

@@ -76,17 +76,22 @@ def shard_tree(tree, specs, ctx: DistContext, *, consume: bool = False
         dims = [d for d, ax in enumerate(spec) if ax is not None]
         if not dims:
             return t.to(ctx.devices[r])
-        if len(dims) > 1 or spec[dims[0]] != ctx.tp_axis:
-            raise ValueError(f"spec {spec!r}: the port shards one dim over "
-                             f"the axis {ctx.tp_axis!r}")
+        if len(dims) > 1:
+            raise ValueError(f"spec {spec!r}: the port shards one dim")
         d = dims[0]
-        if t.shape[d] % n:
+        # The dim's axis: one of the group's, or a tuple of them (a
+        # two-tier group's joint (inter, tp) sharding); the ranks that
+        # differ only off it hold the same piece.
+        ax = spec[d]
+        k = ctx.axis_size(ax)
+        if t.shape[d] % k:
             raise ValueError(f"dim {d} of {tuple(t.shape)} not divisible "
-                             f"by TP degree {n}")
-        step = t.shape[d] // n
+                             f"by TP degree {k}")
+        step = t.shape[d] // k
+        i = ctx.axis_index(r, ax)
         # A copy, never a view: the shard must not keep the whole
         # parameter alive.
-        return t.narrow(d, r * step, step).to(ctx.devices[r], copy=True,
+        return t.narrow(d, i * step, step).to(ctx.devices[r], copy=True,
                                               memory_format=torch.contiguous_format)
 
     def walk(node, spec) -> list:
@@ -124,8 +129,9 @@ def shard_tree(tree, specs, ctx: DistContext, *, consume: bool = False
 def shard_params(params, ctx: DistContext, cfg: ModelConfig, *,
                  axis: str = "tp", consume: bool = False) -> list:
     """One parameter dict per rank of ``ctx`` per ``dense_llm_specs(cfg,
-    axis)`` (a MoE layer's experts sharded on their ffn dim, its router
-    replicated). ``params``: the port's dict (from ``init_dense_llm`` or
+    axis)``: a MoE layer's experts sharded on their ffn dim, its router
+    replicated; ``axis`` a name, or a tuple — the joint (inter, tp)
+    sharding of a two-tier group. ``params``: the port's dict (from ``init_dense_llm`` or
     :func:`params_from_numpy`) or the JAX package's numpy tree;
     ``consume``: empty it leaf by leaf as the shards are made
     (:func:`shard_tree`)."""
@@ -133,6 +139,6 @@ def shard_params(params, ctx: DistContext, cfg: ModelConfig, *,
 
     if cfg.num_kv_heads % ctx.axis_size(axis):
         raise ValueError(f"num_kv_heads {cfg.num_kv_heads} not divisible by "
-                         f"TP degree {ctx.num_ranks}")
+                         f"TP degree {ctx.axis_size(axis)}")
     return shard_tree(params, dense_llm_specs(cfg, axis), ctx,
                       consume=consume)

@@ -31,8 +31,14 @@ replicated in ``"ar"`` and ``"xla_rep"``; the decode steps replicated.
 The decode steps take ``ar_state``: every ``"ar"`` reduction then rides
 the barrier-free parity stream (:func:`make_ar_stream_fn`), or, with
 ``fused_gemm_ar`` on the linear step, every row-parallel projection runs
-the fused GEMM+AR kernel B11 (:func:`make_gemm_ar_stream_fn`). Refused by
-name: the two-tier ``"overlap2d"``.
+the fused GEMM+AR kernel B11 (:func:`make_gemm_ar_stream_fn`).
+
+On a TP group spanning a second, inter tier (``n_inter`` > 1: the
+parameters sharded over the joint (inter, tp) index, ``dense_llm_specs(
+cfg, (inter_axis, axis))``), :func:`dense_prefill` runs ``"overlap2d"``
+with (B·S)/(n·n_inter) rows a rank — global shard g = inter·n + intra —
+and the rows and the logits gather over both axes; the replicated modes
+(and the decode steps) reduce through the two-tier ``tp_reduce``.
 """
 
 from __future__ import annotations
@@ -46,7 +52,7 @@ from triton_distributed_tpu_torch.layers.tp_attn import (
     tp_attn_prefill_chunk, tp_attn_specs, tp_attn_verify_paged,
 )
 from triton_distributed_tpu_torch.layers.tp_mlp import (
-    init_tp_mlp, refuse_row_sharded, tp_mlp_fwd, tp_mlp_specs,
+    check_mode, init_tp_mlp, tp_mlp_fwd, tp_mlp_specs,
 )
 from triton_distributed_tpu_torch.models.config import ModelConfig
 from triton_distributed_tpu_torch.models.kv_cache import (
@@ -54,7 +60,7 @@ from triton_distributed_tpu_torch.models.kv_cache import (
 )
 from triton_distributed_tpu_torch.ops.moe import moe_tp_fwd_local
 from triton_distributed_tpu_torch.runtime.context import (
-    P, current_rank, group_all_gather,
+    P, axis_index, group_all_gather,
 )
 from triton_distributed_tpu_torch.runtime.device import (
     resolve_device, torch_dtype,
@@ -101,7 +107,8 @@ def init_dense_llm(cfg: ModelConfig, *, generator: torch.Generator,
 def dense_llm_specs(cfg: ModelConfig, axis: str = "tp") -> dict:
     """Partition specs matching :func:`init_dense_llm`'s structure:
     column-parallel q/k/v/gate/up, row-parallel o/down, ``lm_head`` by
-    vocabulary, the embedding and norms replicated."""
+    vocabulary, the embedding and norms replicated. ``axis`` may be a
+    tuple of axes: the joint (inter, tp) sharding of a two-tier group."""
     specs: dict = {"embed": P(), "final_norm": P(), "layers": []}
     for _ in range(cfg.num_layers):
         layer = {"attn_norm": P(), "mlp_norm": P(),
@@ -119,23 +126,28 @@ def dense_llm_specs(cfg: ModelConfig, axis: str = "tp") -> dict:
 
 
 def _logits(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
-            axis: str = "tp", n: int = 1) -> torch.Tensor:
-    """Final norm + lm-head; at n > 1 the vocabulary-sharded logits are
-    gathered to the full vocabulary through the rank group (tied
-    embeddings are replicated: full vocabulary locally)."""
+            axis: str = "tp", n: int = 1, inter_axis: str = "dcn",
+            n_inter: int = 1) -> torch.Tensor:
+    """Final norm + lm-head; at n·n_inter > 1 the vocabulary-sharded
+    logits are gathered to the full vocabulary through the rank group,
+    over (inter_axis, axis) when the head is sharded over both tiers
+    (tied embeddings are replicated: full vocabulary locally)."""
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     head = params.get("lm_head")
     if head is None:
         return x @ params["embed"].T          # tied embeddings
     local = x @ head
-    if n == 1:
+    if n * n_inter == 1:
         return local
-    return group_all_gather(local, axis=axis, num_ranks=n, dim=1)
+    gather_axis = (inter_axis, axis) if n_inter > 1 else axis
+    return group_all_gather(local, axis=gather_axis, num_ranks=n * n_inter,
+                            dim=1)
 
 
 def _mlp_or_moe(layer: dict, cfg: ModelConfig, h: torch.Tensor, *,
                 axis: str = "tp", n: int = 1, mode: str = "ar",
-                ar_fn=None, gemm_ar_fn=None, dot_fn=None) -> torch.Tensor:
+                inter_axis: str = "dcn", n_inter: int = 1, ar_fn=None,
+                gemm_ar_fn=None, dot_fn=None) -> torch.Tensor:
     """FFN block dispatch: the dense SwiGLU MLP (``dot_fn`` replacing its
     products), or the TP-MoE (whose e4m3 stacks pick their lane by type,
     as the reference's). On a TP group the MoE maps the modes as the
@@ -153,13 +165,14 @@ def _mlp_or_moe(layer: dict, cfg: ModelConfig, h: torch.Tensor, *,
                                 axis=axis, num_ranks=n, mode=moe_mode,
                                 ar_fn=ar_fn)
     return tp_mlp_fwd(layer["mlp"], h, axis=axis, num_ranks=n, mode=mode,
-                      ar_fn=ar_fn, gemm_ar_fn=gemm_ar_fn, dot_fn=dot_fn)
+                      inter_axis=inter_axis, n_inter=n_inter, ar_fn=ar_fn,
+                      gemm_ar_fn=gemm_ar_fn, dot_fn=dot_fn)
 
 
 def _replicated(mode: str, n: int, what: str) -> None:
     """The decode and verify steps run replicated activations."""
     if n > 1 and mode not in ("ar", "xla_rep"):
-        refuse_row_sharded(mode, what)
+        check_mode(mode, what)
         raise ValueError(f"{what}: a decode step runs replicated "
                          f"activations: mode 'ar' or 'xla_rep', got "
                          f"{mode!r} — argument mode")
@@ -167,37 +180,49 @@ def _replicated(mode: str, n: int, what: str) -> None:
 
 def dense_prefill(params: dict, cfg: ModelConfig, input_ids: torch.Tensor,
                   cache: KVCache, *, axis: str = "tp", num_ranks: int = 1,
-                  mode: str = "overlap"):
+                  mode: str = "overlap", inter_axis: str = "dcn",
+                  n_inter: int = 1):
     """Causal prefill of whole prompts. input_ids: (B, S), every rank's
     the same. Returns (last-token logits (B, vocab), cache filled for
     [0, S)). At n > 1 in ``"overlap"`` / ``"xla"`` each rank runs its
-    (B·S)/n rows of the flattened prompt and the final activations are
-    gathered through the group; else the rows run replicated."""
+    (B·S)/n rows of the flattened prompt — in ``"overlap2d"`` its
+    (B·S)/(n·n_inter), global shard inter·n + intra — and the final
+    activations are gathered through the group; else the rows run
+    replicated."""
     n = num_ranks
+    N = n * n_inter
     batch, seq = input_ids.shape
     x = params["embed"][input_ids.reshape(-1).long()]       # (B·S, h)
-    row_sharded = n > 1 and mode in ("overlap", "xla")
-    if n > 1:
-        refuse_row_sharded(mode, "dense_prefill")
+    row_sharded = (n > 1 and mode in ("overlap", "xla")) or (
+        N > 1 and mode == "overlap2d")
+    if N > 1:
+        check_mode(mode, "dense_prefill")
+    two_tier = mode == "overlap2d" and n_inter > 1
+    gather_axis = (inter_axis, axis) if two_tier else axis
     if row_sharded:
-        rows = (batch * seq) // n
-        if rows * n != batch * seq:
+        shards = N if mode == "overlap2d" else n
+        rows = (batch * seq) // shards
+        if rows * shards != batch * seq:
             raise ValueError(f"dense_prefill: {batch} x {seq} rows do not "
-                             f"divide over {n} ranks in mode {mode!r}")
-        me = current_rank()[1]
+                             f"divide over {shards} ranks in mode {mode!r}")
+        me = axis_index(gather_axis)
         x = x[me * rows:(me + 1) * rows]
     for i, layer in enumerate(params["layers"]):
         h = rms_norm(x, layer["attn_norm"], cfg.rms_norm_eps)
         attn_out, _ = tp_attn_prefill(layer["attn"], cfg, h, batch, seq,
                                       cache.layer(i), axis=axis,
-                                      num_ranks=n, mode=mode)
+                                      num_ranks=n, mode=mode,
+                                      inter_axis=inter_axis,
+                                      n_inter=n_inter)
         x = x + attn_out
         h = rms_norm(x, layer["mlp_norm"], cfg.rms_norm_eps)
-        x = x + _mlp_or_moe(layer, cfg, h, axis=axis, n=n, mode=mode)
+        x = x + _mlp_or_moe(layer, cfg, h, axis=axis, n=n, mode=mode,
+                            inter_axis=inter_axis, n_inter=n_inter)
     if row_sharded:
-        x = group_all_gather(x, axis=axis, num_ranks=n)    # (B·S, h)
+        x = group_all_gather(x, axis=gather_axis)            # (B·S, h)
     last = x.reshape(batch, seq, -1)[:, -1]
-    return (_logits(params, cfg, last, axis=axis, n=n),
+    return (_logits(params, cfg, last, axis=axis, n=n, inter_axis=inter_axis,
+                    n_inter=n_inter),
             cache._replace(offset=seq))
 
 
@@ -304,7 +329,8 @@ def make_gemm_ar_stream_fn(state0, *, axis: str, n: int,
 
 def _decode_body(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                  attend, *, axis: str = "tp", n: int = 1, mode: str = "ar",
-                 ar_fn=None, gemm_ar_fn=None, dot_fn=None) -> torch.Tensor:
+                 inter_axis: str = "dcn", n_inter: int = 1, ar_fn=None,
+                 gemm_ar_fn=None, dot_fn=None) -> torch.Tensor:
     """The one-token transformer walk shared by the decode steps;
     ``attend(i, attn_params, h)`` supplies layer i's attention. The FFN
     runs ``mode`` when it is a replicated one, else ``"ar"`` (a one-row
@@ -316,16 +342,19 @@ def _decode_body(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
         x = x + attend(i, layer["attn"], h)
         h = rms_norm(x, layer["mlp_norm"], cfg.rms_norm_eps)
         x = x + _mlp_or_moe(layer, cfg, h, axis=axis, n=n, mode=ffn_mode,
+                            inter_axis=inter_axis, n_inter=n_inter,
                             ar_fn=ar_fn, gemm_ar_fn=gemm_ar_fn,
                             dot_fn=dot_fn)
-    return _logits(params, cfg, x, axis=axis, n=n)
+    return _logits(params, cfg, x, axis=axis, n=n, inter_axis=inter_axis,
+                   n_inter=n_inter)
 
 
 def dense_decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                       cache: KVCache, *, axis: str = "tp",
                       num_ranks: int = 1, mode: str = "ar", ar_state=None,
                       force_ar_kernel: bool = False,
-                      fused_gemm_ar: bool = False, dot_fn=None):
+                      fused_gemm_ar: bool = False, dot_fn=None,
+                      inter_axis: str = "dcn", n_inter: int = 1):
     """One-token decode over the linear cache at ``cache.offset`` (every
     sequence of the batch at that position). tokens: (B,), every rank's
     the same. ``dot_fn`` replaces every projection / dense-MLP product
@@ -353,13 +382,14 @@ def dense_decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     def attend(i, attn_params, h):
         out, _ = tp_attn_decode(attn_params, cfg, h, cache.layer(i), pos,
                                 axis=axis, num_ranks=n, mode=mode,
+                                inter_axis=inter_axis, n_inter=n_inter,
                                 ar_fn=ar_fn, gemm_ar_fn=gemm_ar_fn,
                                 dot_fn=dot_fn)
         return out
 
     logits = _decode_body(params, cfg, tokens, attend, axis=axis, n=n,
-                          mode=mode, ar_fn=ar_fn, gemm_ar_fn=gemm_ar_fn,
-                          dot_fn=dot_fn)
+                          mode=mode, inter_axis=inter_axis, n_inter=n_inter,
+                          ar_fn=ar_fn, gemm_ar_fn=gemm_ar_fn, dot_fn=dot_fn)
     cache = cache._replace(offset=pos + 1)
     if ar_state is not None:
         return logits, cache, (final() if final is not None else ar_state)
@@ -369,7 +399,8 @@ def dense_decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 def dense_decode_step_paged(params: dict, cfg: ModelConfig,
                             tokens: torch.Tensor, cache: PagedModelCache,
                             *, axis: str = "tp", num_ranks: int = 1,
-                            mode: str = "ar", ar_state=None):
+                            mode: str = "ar", ar_state=None,
+                            inter_axis: str = "dcn", n_inter: int = 1):
     """One-token decode over a :class:`PagedModelCache` at per-sequence
     positions. tokens: (B,). Returns (logits (B, vocab), cache with
     ``kv_lens`` advanced by one — clamped at capacity, because a
@@ -387,11 +418,13 @@ def dense_decode_step_paged(params: dict, cfg: ModelConfig,
         # step's start lengths; the lengths advance once, below.
         out, _ = tp_attn_decode_paged(attn_params, cfg, h, cache.layer(i),
                                       axis=axis, num_ranks=n, mode=mode,
-                                      ar_fn=ar_fn)
+                                      inter_axis=inter_axis,
+                                      n_inter=n_inter, ar_fn=ar_fn)
         return out
 
     logits = _decode_body(params, cfg, tokens, attend, axis=axis, n=n,
-                          mode=mode, ar_fn=ar_fn)
+                          mode=mode, inter_axis=inter_axis, n_inter=n_inter,
+                          ar_fn=ar_fn)
     new_lens = torch.clamp(start_lens + 1, max=cache.capacity)
     cache = cache._replace(kv_lens=new_lens)
     if ar_state is not None:

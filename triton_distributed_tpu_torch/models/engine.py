@@ -63,8 +63,22 @@ compute bit-identical logits; the engine returns rank 0's tokens.
 (replicated rows, :meth:`Engine._prefill_mode`), then decodes through
 ``MegakernelDecoder(num_ranks=n)``: one launch a rank a step, the TP
 reductions inside the kernel (its AllReduce task types 4 and 22); a MoE
-config is refused there, as the reference refuses it. Refused by name at
-n > 1: the two-tier ``"overlap2d"`` (``layers/tp_mlp``).
+config is refused there, as the reference refuses it.
+
+**On a two-tier group** (``ctx`` of two axes, e.g. ``mesh_shape=(2, 4),
+axis_names=("dcn", "tp")``; reference ``models/engine.py:55-131``) the TP
+group spans both tiers when ``inter_axis`` resolves to an axis (``None``:
+the first other axis of size > 1; ``""`` opts out): the parameters and
+the caches shard over the joint (inter, tp) index (``shard_axes``,
+``n_total`` = n·n_inter KV-head shards), the prefill runs ``"overlap2d"``
+(:meth:`Engine._prefill_mode`; rows over both tiers through
+``ops/hierarchical``) or ``"ar"``, and decode reduces through the
+two-tier ``tp_reduce`` (no parity stream, as the reference's). MoE
+configs, ``backend="xla"`` and replaced model functions keep the one-axis
+layout: the second axis replicates. ``backend="megakernel"`` is refused
+there by name (``MegakernelUnsupportedError``): its in-kernel AllReduce
+spans every rank of its group, and the linear decoder takes a one-axis
+group only.
 """
 
 from __future__ import annotations
@@ -130,6 +144,7 @@ class Engine:
                  axis: str = "tp", device=None,
                  max_seq: int = 256, page_size: int | None = None,
                  backend: str = "auto", kv_dtype=None,
+                 inter_axis: str | None = None,
                  prefill_fn=dense_prefill, decode_fn=dense_decode_step):
         if backend not in self.BACKENDS:
             raise ValueError(f"backend = {backend!r} unknown: expected one "
@@ -156,24 +171,39 @@ class Engine:
         self.ctx = ctx
         self.axis = axis
         self.n = 1 if ctx is None else ctx.axis_size(axis)
+        # Every rank of the group runs the steps (ctx.run); on a two-tier
+        # group that is n·n_inter ranks, or n per slice with the second
+        # axis replicating.
+        self.grouped = ctx is not None and ctx.num_ranks > 1
+        if backend == "megakernel" and ctx is not None and \
+                ctx.num_ranks != self.n:
+            raise MegakernelUnsupportedError(
+                f"backend='megakernel' on a group of {ctx.num_ranks} ranks "
+                f"over axes {ctx.axis_names} is not ported: the "
+                "megakernel's in-kernel AllReduce spans every rank of its "
+                f"group, so it needs a one-axis group of {self.n} ranks "
+                f"over {axis!r} — argument ctx")
+        self._resolve_tiers(inter_axis, prefill_fn, decode_fn)
         self.device = (ctx.devices[0] if ctx is not None
                        else resolve_device(device))
         self.max_seq = max_seq
         self.page_size = page_size
         self.max_pages = (None if page_size is None
                           else -(-max_seq // page_size))
-        if self.n > 1:
-            if cfg.num_kv_heads % self.n:
+        if self.grouped:
+            if cfg.num_kv_heads % self.n_total:
                 raise ValueError(f"num_kv_heads {cfg.num_kv_heads} not "
-                                 f"divisible by TP degree {self.n}")
-            self.param_specs = dense_llm_specs(cfg, axis)
+                                 f"divisible by TP degree {self.n_total}")
+            self.param_specs = dense_llm_specs(cfg, self.shard_axes)
             if isinstance(params, list):
-                if len(params) != self.n:
-                    raise ValueError(f"{len(params)} rank shards for a TP "
-                                     f"group of {self.n} — argument params")
+                if len(params) != ctx.num_ranks:
+                    raise ValueError(f"{len(params)} rank shards for a "
+                                     f"group of {ctx.num_ranks} — argument "
+                                     "params")
                 self.rank_params = params
             else:
-                self.rank_params = shard_params(params, ctx, cfg, axis=axis)
+                self.rank_params = shard_params(params, ctx, cfg,
+                                                axis=self.shard_axes)
             self.params = None      # per rank: rank_params
         else:
             self.params = _to_device(params, self.device)
@@ -190,15 +220,42 @@ class Engine:
                            and decode_fn is dense_decode_step else decode_fn)
         self._mk = None       # the sequential serve's cached decoder
 
+    def _resolve_tiers(self, inter_axis, prefill_fn, decode_fn) -> None:
+        """The two-tier layout (reference ``Engine.__init__``):
+        ``inter_axis`` None finds the first other axis of size > 1, ``""``
+        opts out; the TP group spans it (``hierarchical``) only on the
+        eager dense path with the reference's model functions, and when
+        the KV heads divide over both tiers."""
+        ctx, cfg = self.ctx, self.cfg
+        if inter_axis == "" or ctx is None:
+            inter_axis = None
+        elif inter_axis is None:
+            inter_axis = next((a for a in ctx.axis_names
+                               if a != self.axis and ctx.axis_size(a) > 1),
+                              None)
+        self.inter_axis = inter_axis
+        self.n_inter = (ctx.axis_size(inter_axis) if inter_axis is not None
+                        else 1)
+        self.hierarchical = (
+            self.n_inter > 1 and self.backend in ("auto", "overlap")
+            and not cfg.is_moe and prefill_fn is dense_prefill
+            and decode_fn is dense_decode_step
+            and cfg.num_kv_heads % (self.n * self.n_inter) == 0)
+        if not self.hierarchical:
+            self.n_inter = 1
+        self.n_total = self.n * self.n_inter
+        self.shard_axes = ((self.inter_axis, self.axis) if self.hierarchical
+                           else self.axis)
+
     # -- the rank group ----------------------------------------------------
     @property
     def rank_devices(self) -> list:
-        return self.ctx.devices if self.n > 1 else [self.device]
+        return self.ctx.devices if self.grouped else [self.device]
 
     def run(self, fn) -> list:
-        """``fn(rank)`` on every rank (through ``ctx.run`` at n > 1, in the
-        calling thread at n = 1); the results in rank order."""
-        if self.n == 1:
+        """``fn(rank)`` on every rank (through ``ctx.run`` on a group, in
+        the calling thread at one rank); the results in rank order."""
+        if not self.grouped:
             return [fn(0)]
         return self.ctx.run(fn)
 
@@ -211,28 +268,44 @@ class Engine:
         return [copies.setdefault(d, t.to(d)) for d in self.rank_devices]
 
     def tp_kwargs(self, mode: str) -> dict:
-        """The TP arguments of the model functions (none at n = 1, so
+        """The TP arguments of the model functions (none at one rank, so
         one-rank ``prefill_fn`` / ``decode_fn`` replacements keep their
-        signature)."""
-        if self.n == 1:
+        signature; the inter tier's on a two-tier engine)."""
+        if not self.grouped:
             return {}
-        return {"axis": self.axis, "num_ranks": self.n, "mode": mode}
+        kw = {"axis": self.axis, "num_ranks": self.n, "mode": mode}
+        if self.hierarchical:
+            kw.update(inter_axis=self.inter_axis, n_inter=self.n_inter)
+        return kw
 
     def check_comm(self) -> None:
         """Raise ``CommTimeoutError`` if a collective kernel of the last
         steps timed out (reads the ranks' error words: a device sync)."""
-        if self.n > 1:
+        if self.grouped:
             self.ctx.raise_on_comm_error()
 
     def _prefill_mode(self, batch: int, seq: int) -> str:
         """The prefill's TP mode (reference ``_prefill_mode``): replicated
         ``"ar"`` on the megakernel; ``"xla"`` / ``"xla_rep"`` on
-        ``backend="xla"``; else the perf model's ``pick_mode``
+        ``backend="xla"``; on a two-tier engine ``"overlap2d"`` or
+        ``"ar"`` (``backend="overlap"`` takes ``"overlap2d"`` whenever the
+        rows divide over both tiers, ``"auto"`` the perf model's pick with
+        the inter tier's crossover); else the perf model's ``pick_mode``
         (``"overlap"`` or ``"ar"``)."""
+        itemsize = torch_dtype(self.cfg.dtype).itemsize
         if self.backend == "megakernel":
             return "ar"
         if self.backend == "xla":
             return "xla" if (batch * seq) % self.n == 0 else "xla_rep"
+        if self.hierarchical:
+            if self.backend == "overlap":
+                return ("overlap2d" if (batch * seq) % self.n_total == 0
+                        else "ar")
+            m = pick_mode("auto", batch * seq, self.n,
+                          hidden=self.cfg.hidden_size,
+                          ffn=self.cfg.intermediate_size, itemsize=itemsize,
+                          n_inter=self.n_inter)
+            return m if m == "overlap2d" else "ar"
         m = pick_mode("auto", batch * seq, self.n,
                       hidden=self.cfg.hidden_size,
                       ffn=self.cfg.intermediate_size,
@@ -246,8 +319,12 @@ class Engine:
     def _use_ar_stream(self) -> bool:
         """The barrier-free parity AR on the decode path: real TP, mode
         ``"ar"``, a dense decode function (a user's ``decode_fn`` has no
-        ``ar_state`` contract). ``TDTPU_AR_STREAM=0`` opts out."""
-        return (self.n > 1 and self._decode_mode() == "ar"
+        ``ar_state`` contract), one tier (a two-tier engine reduces
+        through the two-tier ``tp_reduce``, as the reference's).
+        ``TDTPU_AR_STREAM=0`` opts out."""
+        return (self.n > 1 and self.n_inter == 1
+                and self.ctx.num_ranks == self.n
+                and self._decode_mode() == "ar"
                 and self._decode_fn in (dense_decode_step,
                                         dense_decode_step_paged)
                 and os.environ.get("TDTPU_AR_STREAM", "1") != "0")
@@ -306,11 +383,12 @@ class Engine:
         return self._ar_states[key]
 
     def new_cache(self, batch: int):
-        """A zeroed linear cache (at n > 1: one shard per rank, a list)."""
-        if self.n > 1:
+        """A zeroed linear cache (on a group: one shard per rank, a list;
+        ``n_total`` KV-head shards)."""
+        if self.grouped:
             return self.run(lambda r: init_kv_cache(
                 self.cfg, batch, self.max_seq, device=self.ctx.devices[r],
-                num_ranks=self.n))
+                num_ranks=self.n_total))
         return init_kv_cache(self.cfg, batch, self.max_seq,
                              device=self.device)
 
@@ -352,7 +430,7 @@ class Engine:
         if seq > self.max_seq:
             raise ValueError(f"prompt {seq} exceeds max_seq {self.max_seq}")
         cache = cache if cache is not None else self.new_cache(batch)
-        if self.n == 1:
+        if not self.grouped:
             return self._prefill_fn(self.params, self.cfg,
                                     input_ids.to(self.device), cache)
         mode = self._prefill_mode(batch, seq)
@@ -377,7 +455,7 @@ class Engine:
         int32, cache). The eager step only: refused by name on
         ``backend="megakernel"``."""
         self._check_eager()
-        if self.n > 1:
+        if self.grouped:
             return self._decode_run(tokens, cache)
         if self.page_size is not None and isinstance(cache, KVCache):
             cache = self.to_paged(cache)
@@ -426,7 +504,7 @@ class Engine:
         each."""
         if not isinstance(input_ids, torch.Tensor):
             input_ids = torch.as_tensor(np.asarray(input_ids))
-        if self.n > 1:
+        if self.grouped:
             return self._serve_tp(input_ids, gen_len)
         if self.backend == "megakernel":
             self._check_megakernel_serve()
@@ -513,7 +591,7 @@ class Engine:
         )
 
         if self._mk is None:
-            if self.n > 1:
+            if self.grouped:
                 self._mk = MegakernelDecoder(
                     self.cfg, self.rank_params, max_seq=self.max_seq,
                     ctx=self.ctx, axis=self.axis, num_ranks=self.n)

@@ -1,6 +1,6 @@
 """What the collective wrappers share: the kernels of
-``csrc/collectives.cu``, ``csrc/all_to_all.cu``, ``csrc/gemm_comm.cu`` and
-``csrc/p2p.cu``,
+``csrc/collectives.cu``, ``csrc/all_to_all.cu``, ``csrc/gemm_comm.cu``,
+``csrc/p2p.cu`` and ``csrc/multi_axis.cu``,
 their launch, the payload checks, the CPU rendezvous through a symmetric
 buffer's slots, and the straggler hook.
 
@@ -54,6 +54,14 @@ P2P_SHIFT_KERNEL = CudaKernel("p2p.cu", "tdt_p2p_shift",
 P2P_PERMUTE_KERNEL = CudaKernel("p2p.cu", "tdt_p2p_permute",
                                 _GROUP_ARGS + [ctypes.c_int, ctypes.c_int,
                                                ctypes.c_void_p])
+# B12, the collectives over both axes of a 2-axis group
+# (csrc/multi_axis.cu): the grid's (n0, n1) ride after the byte count.
+AG_TORUS_KERNEL = CudaKernel("multi_axis.cu", "tdt_ag_torus",
+                             _GROUP_ARGS + [ctypes.c_int, ctypes.c_int,
+                                            ctypes.c_void_p])
+AR_TORUS_KERNEL = CudaKernel("multi_axis.cu", "tdt_ar_torus",
+                             _GROUP_ARGS + [ctypes.c_int] * 3
+                             + [ctypes.c_void_p])
 # B8, the EP AllToAll (csrc/all_to_all.cu): the barrier form and the
 # parity stream.
 _A2A_ARGS = ([ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int,
@@ -85,22 +93,23 @@ COLLECTIVE_KERNELS = (ONE_SHOT_KERNEL, PARITY_KERNEL, RS_RING_KERNEL,
                       AG_RING_KERNEL, TREE_KERNEL, AG_GEMM_KERNEL,
                       GEMM_RS_KERNEL, GEMM_AR_KERNEL, AG_FULL_MESH_KERNEL,
                       A2A_KERNEL, A2A_PARITY_KERNEL, AG_PARITY_KERNEL,
-                      P2P_SHIFT_KERNEL, P2P_PERMUTE_KERNEL)
+                      P2P_SHIFT_KERNEL, P2P_PERMUTE_KERNEL, AG_TORUS_KERNEL,
+                      AR_TORUS_KERNEL)
 _GEMM_OP = {AG_GEMM_KERNEL: 0, GEMM_RS_KERNEL: 1, GEMM_AR_KERNEL: 2}
 
 
-class CollectiveUnsupportedError(ValueError):
-    """A method or form the port does not have yet, refused by name."""
-
-
-def rank_of(axis: str, num_ranks: int | None) -> tuple[DistContext, int, int]:
-    """(context, rank, n) of the calling rank thread, ``num_ranks``
-    checked against the group (the reference requires it inside
-    ``shard_map``)."""
+def rank_of(axis, num_ranks: int | None) -> tuple[DistContext, int, int]:
+    """(group, rank, n) of the calling rank thread along ``axis``,
+    ``num_ranks`` checked against it (the reference requires it inside
+    ``shard_map``). On a one-axis group that is the group itself; on a
+    multi-axis one, the rank's fiber along ``axis`` (a
+    ``runtime/context.Fiber``) and its rank there — what the kernels
+    address, as the reference's address ``dl.rank(axis)``."""
     if num_ranks is None:
         raise ValueError("num_ranks required inside the rank runner")
     ctx, rank = current_rank()
-    n = ctx.axis_size(axis)
+    ctx, rank = ctx.fiber(rank, axis)
+    n = ctx.num_ranks
     if n != num_ranks:
         raise ValueError(f"num_ranks = {num_ranks} but the rank group has "
                          f"{n} — argument num_ranks")
@@ -197,7 +206,9 @@ def launch_gemm_comm(kernel: CudaKernel, buf: SymmBuffer, rank: int,
     device (n for virtual ranks, 1 with a card a rank)."""
     ctx = buf.ctx
     dev = x.device
-    on_card = sum(1 for d in ctx.devices if d == dev)
+    # The whole group's ranks on this card, not the fiber's: the cap keeps
+    # every rank on the card its share of the SMs.
+    on_card = ctx.ranks_on(dev)
     _launch_at_meeting(kernel, buf, rank, dev, "gemm_comm.launch", (
         ptr(buf.table[rank]), ptr(buf.signal_table[rank]),
         ptr(ctx.error_word(rank)), rank, ctx.num_ranks, epoch,

@@ -26,9 +26,8 @@ import enum
 import torch
 
 from triton_distributed_tpu_torch.ops._comm import (
-    AG_FULL_MESH_KERNEL, AG_PARITY_KERNEL, AG_RING_KERNEL,
-    CollectiveUnsupportedError, check_payload, launch, push_slots, rank_of,
-    rank_shards, straggle,
+    AG_FULL_MESH_KERNEL, AG_PARITY_KERNEL, AG_RING_KERNEL, check_payload,
+    launch, push_slots, rank_of, rank_shards, straggle,
 )
 from triton_distributed_tpu_torch.runtime.context import (
     DistContext, get_context, group_all_gather, group_context,
@@ -95,9 +94,26 @@ def all_gather_local(x_local: torch.Tensor, axis: str = "tp",
     """Rank-local AllGather inside ``DistContext.run``: ``x_local``
     (m, cols) → (n*m, cols), rank j's rows at [j*m, (j+1)*m)."""
     if isinstance(axis, (tuple, list)):
-        raise CollectiveUnsupportedError(
-            "multi-axis all-gather (ops/multi_axis.py) is not ported — "
-            "argument axis")
+        # The multi-axis form (ops/multi_axis.py): num_ranks is (n0, n1);
+        # the ring-of-rings for "auto" / "ring_1d", the plain gather over
+        # both axes for "xla"; a pinned method without a 2-axis form is
+        # refused, not swapped for another kernel.
+        if num_ranks is None:
+            raise ValueError("num_ranks (n0, n1) required inside the rank "
+                             "runner")
+        mk = AllGatherMethod(method).value
+        if mk == "xla":
+            return group_all_gather(x_local, axis=tuple(axis))
+        if mk not in ("auto", "ring_1d"):
+            raise ValueError(
+                f"method {mk!r} has no multi-axis form; tuple-axis AG "
+                "supports auto (ring-of-rings) or xla")
+        from triton_distributed_tpu_torch.ops.multi_axis import (
+            all_gather_torus_local,
+        )
+
+        return all_gather_torus_local(x_local, axes=tuple(axis),
+                                      dims=tuple(num_ranks))
     method = AllGatherMethod(method)
     ctx, rank, n = rank_of(axis, num_ranks)
     if n == 1:

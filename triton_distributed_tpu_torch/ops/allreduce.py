@@ -39,9 +39,8 @@ import enum
 import torch
 
 from triton_distributed_tpu_torch.ops._comm import (
-    DTYPE_CODE, ONE_SHOT_KERNEL, PARITY_KERNEL, TREE_KERNEL,
-    CollectiveUnsupportedError, check_payload, launch, push_slots, rank_of,
-    straggle,
+    DTYPE_CODE, ONE_SHOT_KERNEL, PARITY_KERNEL, TREE_KERNEL, check_payload,
+    launch, push_slots, rank_of, straggle,
 )
 from triton_distributed_tpu_torch.ops.allgather import (
     AllGatherMethod, all_gather_local,
@@ -181,9 +180,22 @@ def all_reduce_local(x_local: torch.Tensor, axis: str = "tp",
     every rank. Repeated steady-state calls (decode) take
     :func:`all_reduce_stream`."""
     if isinstance(axis, (tuple, list)):
-        raise CollectiveUnsupportedError(
-            "multi-axis AllReduce (ops/multi_axis.py, the torus form) is "
-            "not ported — argument axis")
+        # The multi-axis form (ops/multi_axis.py): num_ranks is (n0, n1);
+        # "xla" is the plain sum over both axes, "auto" passes through
+        # (the torus op maps it to the hierarchical one-shot on a real
+        # grid and runs the 1-D AUTO on a degenerate one).
+        if num_ranks is None:
+            raise ValueError("num_ranks (n0, n1) required inside the rank "
+                             "runner")
+        from triton_distributed_tpu_torch.ops.multi_axis import (
+            all_reduce_torus_local,
+        )
+
+        m = AllReduceMethod(method).value
+        if m == "xla":
+            return group_psum(x_local, axis=tuple(axis))
+        return all_reduce_torus_local(x_local, axes=tuple(axis),
+                                      dims=tuple(num_ranks), method=m)
     method = AllReduceMethod(method)
     ctx, rank, n = rank_of(axis, num_ranks)
     if n == 1:

@@ -137,10 +137,11 @@ def segment_sum_rows(data: torch.Tensor, seg: torch.Tensor,
 
 
 def _tp(num_ranks: int | None, axis: str) -> tuple[int, int]:
-    """(n, rank) of the calling rank thread; (1, 0) at one rank. The
-    reference's rank-local functions take no default group size, so
-    ``None`` raises its error (a call that omitted it inside a rank group
-    would compute one rank's slice and return it unreduced)."""
+    """(n, the calling rank thread's index along ``axis``); (1, 0) at one
+    rank. The reference's rank-local functions take no default group
+    size, so ``None`` raises its error (a call that omitted it inside a
+    rank group would compute one rank's slice and return it
+    unreduced)."""
     if num_ranks is None:
         raise ValueError("num_ranks required inside shard_map")
     n = num_ranks
@@ -150,7 +151,7 @@ def _tp(num_ranks: int | None, axis: str) -> tuple[int, int]:
     if ctx.axis_size(axis) != n:
         raise ValueError(f"num_ranks = {n} but the rank group has "
                          f"{ctx.axis_size(axis)} — argument num_ranks")
-    return n, rank
+    return n, ctx.axis_index(rank, axis)
 
 
 def ag_group_gemm_local(x_local: torch.Tensor, expert_ids: torch.Tensor,

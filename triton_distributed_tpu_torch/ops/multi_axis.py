@@ -1,0 +1,259 @@
+"""Collectives over both axes of a 2-axis rank group — counterpart of the
+JAX package's ``ops/multi_axis.py``: kernel B12 (``_ag_torus_kernel``,
+``_ar_one_shot_torus_kernel``) as the hand-written CUDA kernels
+``ag_torus`` and ``ar_torus`` of ``csrc/multi_axis.cu``.
+
+Ranks are row-major over ``axes = (ax0, ax1)``: rank (a, b) has the
+joint index g = a·n1 + b, as ``P((ax0, ax1))`` shards.
+
+- :func:`all_gather_torus_local`: the ring-of-rings AllGather — each
+  rank's shard to its inner peers, and each inner shard forwarded to the
+  outer peers as it lands; shard (a, b) at rows [(a·n1 + b)·m, ...).
+- :func:`all_reduce_torus_local`: ``"one_shot"`` — the hierarchical
+  one-shot (along ax1, then the reduced block along ax0, one kernel; each
+  phase sums its slots in order in fp32 and casts once); ``"two_shot"`` —
+  :func:`reduce_scatter_torus_local` then :func:`all_gather_torus_local`;
+  ``"auto"`` — one-shot on a real grid.
+- :func:`reduce_scatter_torus_local`: the ring RS (B6) along ax0 on n0
+  super-chunks, then along ax1 — two B6 rings in sequence, each on the
+  rank's fiber of its axis.
+
+A degenerate grid (``n0 == 1`` or ``n1 == 1``) takes the 1-D op of the
+other axis; ``n0·n1 == 1`` is the identity. On a CUDA tensor the wrappers
+launch the kernels (counted in ``AG_TORUS_KERNEL`` / ``AR_TORUS_KERNEL``);
+on a CPU tensor they run the plain versions after a rendezvous through
+the symmetric buffer's slots. Call the ``*_local`` functions inside
+``DistContext.run``; the host-level forms run them on every rank.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from triton_distributed_tpu_torch.ops._comm import (
+    AG_TORUS_KERNEL, AR_TORUS_KERNEL, DTYPE_CODE, check_payload, launch,
+    push_slots, rank_of,
+)
+from triton_distributed_tpu_torch.ops.allgather import ag_plain
+from triton_distributed_tpu_torch.ops.allreduce import reduce_slots_plain
+from triton_distributed_tpu_torch.runtime.context import (
+    DistContext, get_context,
+)
+from triton_distributed_tpu_torch.runtime.symm import symm_zeros
+
+
+def ar_torus_plain(slots, n0: int, n1: int) -> torch.Tensor:
+    """Plain version of ``ar_torus``: ``slots`` — the n0·n1 ranks'
+    (m, cols) contributions in joint order — reduced as the kernel does:
+    each row a of the grid summed over b in order (fp32 from 0, one cast),
+    then those n0 sums over a the same way."""
+    mids = [reduce_slots_plain([slots[a * n1 + b] for b in range(n1)])
+            for a in range(n0)]
+    return reduce_slots_plain(mids)
+
+
+def _grid_call(x_local: torch.Tensor, axes, dims, what: str):
+    ctx, rank, n = rank_of(tuple(axes), dims[0] * dims[1])
+    if x_local.dim() != 2:
+        raise ValueError(f"{what}: payload must be (m, cols), got "
+                         f"{tuple(x_local.shape)}")
+    return ctx, rank, n
+
+
+def all_gather_torus_local(x_local: torch.Tensor, *, axes: tuple[str, str],
+                           dims: tuple[int, int]) -> torch.Tensor:
+    """Rank-local 2-axis AllGather inside ``DistContext.run``:
+    ``x_local`` (m, cols) → (n0·n1·m, cols), joint-rank-major over
+    (axes[0], axes[1])."""
+    ax0, ax1 = axes
+    n0, n1 = dims
+    if n0 * n1 == 1:
+        return x_local
+    if n0 == 1 or n1 == 1:
+        from triton_distributed_tpu_torch.ops.allgather import (
+            AllGatherMethod, all_gather_local,
+        )
+
+        axis, n = (ax1, n1) if n0 == 1 else (ax0, n0)
+        return all_gather_local(x_local, axis=axis, num_ranks=n,
+                                method=AllGatherMethod.RING_1D)
+    ctx, rank, n = _grid_call(x_local, axes, dims, "all_gather_torus")
+    m, cols = x_local.shape
+    buf = symm_zeros(ctx, (n, m, cols), x_local.dtype, tag="ag_torus")
+    if x_local.device.type == "cuda":
+        x = check_payload(ctx, rank, x_local, "all_gather_torus", copy=True)
+        out = torch.empty((n * m, cols), dtype=x.dtype, device=x.device)
+        launch(AG_TORUS_KERNEL, buf, rank, buf.next_epoch(rank), x, out,
+               m * cols * x.element_size(), n0, n1)
+        return out
+    if x_local.device.type != "cpu":
+        raise ValueError(f"all_gather_torus: no kernel for device "
+                         f"{x_local.device}")
+    AG_TORUS_KERNEL.count_plain()
+    ctx.barrier(rank, "ag_torus.entry")
+    push_slots(ctx, rank, buf, x_local, rank, "ag_torus.data")
+    return ag_plain(buf.tensors[rank])
+
+
+def all_reduce_torus_local(x_local: torch.Tensor, *, axes: tuple[str, str],
+                           dims: tuple[int, int],
+                           method: str = "one_shot") -> torch.Tensor:
+    """Rank-local 2-axis AllReduce inside ``DistContext.run``:
+    ``x_local`` (m, cols) → (m, cols) summed over the n0·n1 grid, the
+    same bits on every rank. ``method``: ``"one_shot"`` (the hierarchical
+    one-shot), ``"two_shot"`` (RS then AG over both axes), ``"auto"``
+    (one-shot on a real grid; the 1-D AUTO on a degenerate one)."""
+    ax0, ax1 = axes
+    n0, n1 = dims
+    if n0 * n1 == 1:
+        return x_local
+    if n0 == 1 or n1 == 1:
+        from triton_distributed_tpu_torch.ops.allreduce import (
+            all_reduce_local,
+        )
+
+        axis, n = (ax1, n1) if n0 == 1 else (ax0, n0)
+        return all_reduce_local(x_local, axis=axis, num_ranks=n,
+                                method=method)
+    if method == "auto":
+        method = "one_shot"
+    if method == "two_shot":
+        total = n0 * n1
+        m = x_local.shape[0]
+        if m % total:
+            raise ValueError(
+                f"two_shot requires rows {m} divisible by n0*n1 {total}")
+        scattered = reduce_scatter_torus_local(x_local, axes=axes, dims=dims)
+        return all_gather_torus_local(scattered, axes=axes, dims=dims)
+    if method != "one_shot":
+        raise ValueError(f"unknown torus AR method {method!r}")
+    ctx, rank, n = _grid_call(x_local, axes, dims, "all_reduce_torus")
+    m, cols = x_local.shape
+    if x_local.device.type == "cuda":
+        x = check_payload(ctx, rank, x_local, "all_reduce_torus")
+        # ws1 (n1 slots), ws0 (n0 slots) and mid, one symmetric buffer.
+        ws = symm_zeros(ctx, (n1 + n0 + 1, m, cols), x.dtype, tag="ar_torus")
+        out = torch.empty_like(x)
+        launch(AR_TORUS_KERNEL, ws, rank, ws.next_epoch(rank), x, out,
+               x.numel() * x.element_size(), n0, n1, DTYPE_CODE[x.dtype])
+        return out
+    if x_local.device.type != "cpu":
+        raise ValueError(f"all_reduce_torus: no kernel for device "
+                         f"{x_local.device}")
+    AR_TORUS_KERNEL.count_plain()
+    buf = symm_zeros(ctx, (n, m, cols), x_local.dtype, tag="ar_torus_plain")
+    ctx.barrier(rank, "ar_torus.entry")
+    push_slots(ctx, rank, buf, x_local, rank, "ar_torus.data")
+    return ar_torus_plain(buf.tensors[rank], n0, n1)
+
+
+def reduce_scatter_torus_local(x_local: torch.Tensor, *,
+                               axes: tuple[str, str],
+                               dims: tuple[int, int]) -> torch.Tensor:
+    """Rank-local 2-axis ReduceScatter inside ``DistContext.run``:
+    ``x_local`` (n0·n1·mo, cols) contributions → (mo, cols), rank (a, b)
+    owning chunk a·n1 + b summed over the grid. The ring RS along
+    ``axes[0]`` on n0 super-chunks of n1·mo rows, then along ``axes[1]``
+    (a true data dependence: no cross-phase pipeline)."""
+    from triton_distributed_tpu_torch.ops.reduce_scatter import (
+        reduce_scatter_local,
+    )
+
+    ax0, ax1 = axes
+    n0, n1 = dims
+    if n0 * n1 == 1:
+        return x_local
+    if n0 == 1:
+        return reduce_scatter_local(x_local, axis=ax1, num_ranks=n1)
+    if n1 == 1:
+        return reduce_scatter_local(x_local, axis=ax0, num_ranks=n0)
+    mt = x_local.shape[0]
+    if mt % (n0 * n1):
+        raise ValueError(f"rows {mt} not divisible by n0*n1 {n0 * n1}")
+    mid = reduce_scatter_local(x_local, axis=ax0, num_ranks=n0)
+    return reduce_scatter_local(mid, axis=ax1, num_ranks=n1)
+
+
+# ---------------------------------------------------------------------------
+# Host-level forms: the per-rank inputs in joint order over ``axes``, the
+# per-rank outputs in group rank order.
+# ---------------------------------------------------------------------------
+
+def _resolve_axes(ctx: DistContext, axes) -> tuple[tuple[str, str],
+                                                   tuple[int, int]]:
+    if axes is None:
+        names = tuple(ctx.axis_names)
+        if len(names) != 2:
+            raise ValueError(
+                f"torus collectives need two mesh axes; the group has "
+                f"{names} — pass axes=(outer, inner) explicitly")
+        axes = names
+    ax0, ax1 = axes
+    return (ax0, ax1), (ctx.axis_size(ax0), ctx.axis_size(ax1))
+
+
+def _run_grid(ctx: DistContext, axes, parts: list, fn) -> list:
+    """``fn(part)`` on every rank, rank r taking the part of its joint
+    index over ``axes``; the group's ranks must be exactly the grid."""
+    if ctx.axis_size(axes) != ctx.num_ranks:
+        raise ValueError(f"axes {axes} cover {ctx.axis_size(axes)} of the "
+                         f"group's {ctx.num_ranks} ranks")
+    outs = ctx.run(lambda r: fn(
+        parts[ctx.axis_index(r, axes)].to(ctx.devices[r])))
+    ctx.raise_on_comm_error()
+    return outs
+
+
+def _grid_parts(x, n0: int, n1: int) -> list:
+    """n0·n1 per-rank contributions in joint order: a list, or a tensor
+    stacked (n0, n1, ...)."""
+    if isinstance(x, (list, tuple)):
+        parts = list(x)
+    else:
+        if tuple(x.shape[:2]) != (n0, n1):
+            raise ValueError(f"stacked contributions {tuple(x.shape)} do not "
+                             f"start with the grid ({n0}, {n1})")
+        parts = list(x.reshape(n0 * n1, *x.shape[2:]).unbind(0))
+    if len(parts) != n0 * n1:
+        raise ValueError(f"{len(parts)} contributions for {n0 * n1} ranks")
+    return parts
+
+
+def all_gather_torus(x, ctx: DistContext | None = None,
+                     axes: tuple[str, str] | None = None) -> list:
+    """Host-level 2-axis AllGather: ``x`` (n0·n1·m, cols) row-sharded
+    joint-major over ``axes`` (or the n0·n1 shards as a list) → every
+    rank's gathered (n0·n1·m, cols)."""
+    ctx = ctx or get_context()
+    axes, dims = _resolve_axes(ctx, axes)
+    n = dims[0] * dims[1]
+    parts = (list(x) if isinstance(x, (list, tuple))
+             else list(torch.chunk(x, n, dim=0)))
+    return _run_grid(ctx, axes, parts, lambda p: all_gather_torus_local(
+        p, axes=axes, dims=dims))
+
+
+def all_reduce_torus(x, ctx: DistContext | None = None,
+                     axes: tuple[str, str] | None = None,
+                     method: str = "one_shot") -> list:
+    """Host-level 2-axis AllReduce: ``x`` (n0, n1, m, cols) stacked
+    contributions (or a list in joint order) → every rank's (m, cols)
+    sum."""
+    ctx = ctx or get_context()
+    axes, dims = _resolve_axes(ctx, axes)
+    parts = _grid_parts(x, *dims)
+    return _run_grid(ctx, axes, parts, lambda p: all_reduce_torus_local(
+        p, axes=axes, dims=dims, method=method))
+
+
+def reduce_scatter_torus(x, ctx: DistContext | None = None,
+                         axes: tuple[str, str] | None = None) -> list:
+    """Host-level 2-axis ReduceScatter: ``x`` (n0, n1, N·mo, cols)
+    stacked contributions (N = n0·n1; or a list in joint order) → every
+    rank's (mo, cols) chunk of the sum, rank (a, b) holding chunk
+    a·n1 + b."""
+    ctx = ctx or get_context()
+    axes, dims = _resolve_axes(ctx, axes)
+    parts = _grid_parts(x, *dims)
+    return _run_grid(ctx, axes, parts, lambda p: reduce_scatter_torus_local(
+        p, axes=axes, dims=dims))

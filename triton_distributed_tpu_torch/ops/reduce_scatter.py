@@ -17,8 +17,7 @@ from __future__ import annotations
 import torch
 
 from triton_distributed_tpu_torch.ops._comm import (
-    DTYPE_CODE, RS_RING_KERNEL, CollectiveUnsupportedError, check_payload,
-    launch, push_slots, rank_of,
+    DTYPE_CODE, RS_RING_KERNEL, check_payload, launch, push_slots, rank_of,
 )
 from triton_distributed_tpu_torch.runtime.context import (
     DistContext, get_context,
@@ -71,9 +70,16 @@ def reduce_scatter_local(x_local: torch.Tensor, axis: str = "tp",
     ``x_local`` (n*m, cols) → (m, cols), chunk ``rank`` summed over the
     ranks."""
     if isinstance(axis, (tuple, list)):
-        raise CollectiveUnsupportedError(
-            "multi-axis reduce-scatter (ops/multi_axis.py) is not ported — "
-            "argument axis")
+        # The multi-axis form (ops/multi_axis.py): num_ranks is (n0, n1).
+        if num_ranks is None:
+            raise ValueError("num_ranks (n0, n1) required inside the rank "
+                             "runner")
+        from triton_distributed_tpu_torch.ops.multi_axis import (
+            reduce_scatter_torus_local,
+        )
+
+        return reduce_scatter_torus_local(x_local, axes=tuple(axis),
+                                          dims=tuple(num_ranks))
     ctx, rank, n = rank_of(axis, num_ranks)
     if n == 1:
         return x_local

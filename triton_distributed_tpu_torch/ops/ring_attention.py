@@ -28,7 +28,7 @@ from triton_distributed_tpu_torch.ops.sp_ag_attention import (
     _normalize, run_sequence_sharded,
 )
 from triton_distributed_tpu_torch.runtime.context import (
-    DistContext, current_rank, group_ppermute,
+    DistContext, axis_index, group_ppermute,
 )
 
 
@@ -42,7 +42,7 @@ def ring_attention_local(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if num_ranks is None:
         raise ValueError("num_ranks required inside the rank runner")
     n = num_ranks
-    me = current_rank()[1] if n > 1 else 0
+    me = axis_index(axis) if n > 1 else 0
     sq, sk = q.shape[1], k.shape[1]
     q_off = me * sq
 

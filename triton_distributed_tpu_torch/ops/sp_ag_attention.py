@@ -27,7 +27,7 @@ from triton_distributed_tpu_torch.ops.flash_attention import (
     _merge, shard_attention_partial,
 )
 from triton_distributed_tpu_torch.runtime.context import (
-    DistContext, current_rank, get_context,
+    DistContext, axis_index, get_context,
 )
 
 
@@ -53,7 +53,7 @@ def sp_ag_attention_local(q: torch.Tensor, k_shard: torch.Tensor,
     if n == 1:
         return _normalize(shard_attention_partial(q, k_shard, v_shard,
                                                   causal=causal), q.dtype)
-    me = current_rank()[1]
+    me = axis_index(axis)
     flat = torch.cat([k_shard.reshape(b * sk, hkv * d),
                       v_shard.reshape(b * sk, hkv * d)], dim=1)
     gathered = all_gather_local(flat, axis=axis, num_ranks=n, method=method)

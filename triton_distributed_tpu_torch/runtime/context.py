@@ -28,6 +28,17 @@ remote DMA. The port keeps that single-controller shape:
   would run across cards; only the pointer table differs. On a host with n
   cards rank r lives on ``cuda:r``, with peer access enabled.
 
+The group has named axes, as the reference's mesh: one (``tp_axis``) by
+default, or ``mesh_shape`` / ``axis_names`` — ``(2, 4), ("dcn", "tp")``
+is two slices of a 4-rank TP group (the reference's DCN x ICI tiers; on
+H100s, the network between hosts x NVLink). Ranks are row-major over the
+axes (global rank g = a·n1 + b). A collective over one axis acts on the
+calling rank's *fiber* — the ranks that differ only along that axis
+(:class:`Fiber`, from :meth:`DistContext.fiber`) —, addressed by its rank
+there, with symmetric buffers of its own; every rank of the group still
+meets at every collective call, so the SPMD order is the group's. On a
+one-axis group the fiber is the group itself.
+
 No wait is without a deadline: a host rendezvous that sees no peer for
 ``wait_timeout_ms`` raises :class:`CommTimeoutError`; a kernel's spin on a
 peer flag that passes the deadline writes the rank's error word and
@@ -51,6 +62,7 @@ import threading
 import time
 from typing import Any, Callable, Sequence
 
+import numpy as np
 import torch
 
 DEFAULT_TIMEOUT_MS = 300_000.0
@@ -214,13 +226,34 @@ def _resolve_devices(n: int | None, devices) -> list[torch.device]:
 
 
 class DistContext:
-    """n ranks: ``devices[r]`` is rank r's device. Build it with
-    :func:`initialize_distributed`."""
+    """n ranks: ``devices[r]`` is rank r's device, laid out row-major over
+    the named axes (``axis_names``, ``mesh_shape``; one axis, ``tp_axis``,
+    by default). Build it with :func:`initialize_distributed`."""
 
     def __init__(self, devices: Sequence[torch.device], *,
-                 tp_axis: str = "tp", wait_timeout_ms: float | None = None):
+                 tp_axis: str = "tp", mesh_shape: Sequence[int] | None = None,
+                 axis_names: Sequence[str] | None = None,
+                 wait_timeout_ms: float | None = None):
         self.devices = list(devices)
-        self.tp_axis = tp_axis
+        names = tuple(axis_names) if axis_names is not None else (tp_axis,)
+        shape = (tuple(int(s) for s in mesh_shape) if mesh_shape is not None
+                 else (len(self.devices),) if len(names) == 1 else None)
+        if shape is None or len(shape) != len(names):
+            raise ValueError(f"mesh_shape {mesh_shape} and axis_names "
+                             f"{names} must have equal length — arguments "
+                             "mesh_shape / axis_names")
+        if len(set(names)) != len(names):
+            raise ValueError(f"axis_names {names} repeat a name")
+        if int(np.prod(shape)) != len(self.devices):
+            raise ValueError(f"mesh_shape {shape} does not cover "
+                             f"{len(self.devices)} ranks")
+        self.axis_names = names
+        self.mesh_shape = shape
+        # The reference's tp_axis is the mesh's first name.
+        self.tp_axis = names[0]
+        self._coords = [tuple(int(c) for c in np.unravel_index(r, shape))
+                        for r in range(len(self.devices))]
+        self._fibers: dict = {}
         self.wait_timeout_ms = wait_timeout_ms
         self.timeout_s = resolve_timeout_ms(wait_timeout_ms) / 1e3
         n = len(self.devices)
@@ -243,13 +276,82 @@ class DistContext:
     # -- the mesh vocabulary of the reference --------------------------------
     @property
     def num_ranks(self) -> int:
+        """Every rank of the group (on a one-axis group, the TP degree;
+        on a 2-axis group the product of the axes — ``axis_size`` gives
+        one axis's)."""
         return len(self.devices)
 
-    def axis_size(self, axis: str) -> int:
-        if axis != self.tp_axis:
-            raise ValueError(f"axis {axis!r} unknown: the port's rank group "
-                             f"has the one axis {self.tp_axis!r}")
-        return self.num_ranks
+    def _axes(self, axis) -> tuple[int, ...]:
+        names = (axis,) if isinstance(axis, str) else tuple(axis)
+        dims = []
+        for a in names:
+            if a not in self.axis_names:
+                raise ValueError(f"axis {a!r} unknown: the rank group has the "
+                                 f"axes {self.axis_names}")
+            dims.append(self.axis_names.index(a))
+        if len(set(dims)) != len(dims):
+            raise ValueError(f"axis {axis!r} names an axis twice")
+        return tuple(dims)
+
+    def axis_size(self, axis) -> int:
+        """The size of one axis, or for a tuple of names the product."""
+        return int(np.prod([self.mesh_shape[d] for d in self._axes(axis)]))
+
+    def coords(self, rank: int) -> tuple[int, ...]:
+        """Rank ``rank``'s index along each axis: ranks are row-major over
+        ``axis_names`` (global rank g = a·n1 + b on a 2-axis group, as
+        ``P((ax0, ax1))`` orders them)."""
+        return self._coords[rank]
+
+    def axis_index(self, rank: int, axis) -> int:
+        """Rank ``rank``'s index along ``axis``; for a tuple, its joint
+        index row-major over the tuple's axes in the order given."""
+        c = self.coords(rank)
+        idx = 0
+        for d in self._axes(axis):
+            idx = idx * self.mesh_shape[d] + c[d]
+        return idx
+
+    def fiber_members(self, rank: int, axis) -> tuple[int, ...]:
+        """The ranks that share every coordinate of ``rank`` off
+        ``axis`` (its fiber along ``axis``), in the order of their index
+        along it. The whole group for ``axis`` covering every axis."""
+        dims = self._axes(axis)
+        off = [d for d in range(len(self.mesh_shape)) if d not in dims]
+        c = self._coords[rank]
+        same = [g for g, cg in enumerate(self._coords)
+                if all(cg[d] == c[d] for d in off)]
+        return tuple(sorted(same, key=lambda g: self.axis_index(g, axis)))
+
+    def fiber(self, rank: int, axis) -> "tuple[DistContext | Fiber, int]":
+        """(the rank group of ``rank``'s fiber along ``axis``, its rank
+        there): this context itself when the fiber is the whole group in
+        rank order (every one-axis call), else a :class:`Fiber` view,
+        one per fiber. Both are kept on the context: every collective
+        call asks."""
+        key = (rank, axis if isinstance(axis, str) else tuple(axis))
+        hit = self._fibers.get(key)
+        if hit is None:
+            members = self.fiber_members(rank, axis)
+            if members == tuple(range(self.num_ranks)):
+                hit = (self, rank)
+            else:
+                fib = next((f for f, _ in self._fibers.values()
+                            if isinstance(f, Fiber)
+                            and f.members == members), None)
+                hit = (fib or Fiber(self, members), members.index(rank))
+            self._fibers[key] = hit
+        return hit
+
+    def ranks_on(self, device) -> int:
+        """How many ranks of the group live on ``device`` (n virtual
+        ranks on one card, else 1)."""
+        return sum(1 for d in self.devices if d == device)
+
+    def rank_in(self, ctx: "DistContext", rank: int) -> int | None:
+        """The index of (``ctx``, ``rank``) — a rank thread's group and
+        rank — in this group, or None when it is not a member."""
+        return rank if ctx is self else None
 
     # -- per-rank CUDA state -------------------------------------------------
     def stream(self, rank: int):
@@ -412,6 +514,66 @@ class DistContext:
             self._pool = None
 
 
+class Fiber:
+    """One fiber of a :class:`DistContext` along an axis — the ranks that
+    differ only in their index along it (a TP group of one ``dcn`` slice
+    on a (dcn, tp) group) — addressed by their rank in the fiber, as the
+    reference's kernels address ``dl.rank(axis)``. It is what a
+    collective over one axis of a multi-axis group sees: its devices,
+    its size, and its own symmetric buffers (cached on the group under
+    the fiber's key, so two fibers never share flags), each buffer's
+    pointer table in fiber order. Meetings, exchanges and error words are
+    the group's: every rank of the group meets at every collective call
+    (the SPMD order is the group's), whichever fiber it serves."""
+
+    def __init__(self, group: DistContext, members: Sequence[int]):
+        self.group = group
+        self.members = tuple(members)
+        self.devices = [group.devices[g] for g in self.members]
+        self.is_cuda = group.is_cuda
+        self.virtual = group.virtual
+        self.timeout_s = group.timeout_s
+
+    @property
+    def num_ranks(self) -> int:
+        return len(self.members)
+
+    def axis_size(self, axis) -> int:
+        return self.group.axis_size(axis)
+
+    def ranks_on(self, device) -> int:
+        return self.group.ranks_on(device)
+
+    def rank_in(self, ctx: DistContext, rank: int) -> int | None:
+        if ctx is not self.group or rank not in self.members:
+            return None
+        return self.members.index(rank)
+
+    def stream(self, i: int):
+        return self.group.stream(self.members[i])
+
+    def error_word(self, i: int) -> torch.Tensor:
+        return self.group.error_word(self.members[i])
+
+    def raise_on_comm_error(self) -> None:
+        self.group.raise_on_comm_error()
+
+    def meet(self, i: int, what: str, action: Callable[[], Any] | None
+             = None) -> None:
+        self.group.meet(self.members[i], what, action)
+
+    def barrier(self, i: int, what: str = "barrier") -> None:
+        self.group.barrier(self.members[i], what)
+
+    def exchange(self, i: int, value, what: str = "exchange") -> list:
+        vals = self.group.exchange(self.members[i], value, what)
+        return [vals[g] for g in self.members]
+
+    def symm_cache(self, key, make: Callable[[], Any]):
+        return self.group.symm_cache(("fiber", self.members) + tuple(key),
+                                     make)
+
+
 def _rank_streams(devices: list[torch.device]) -> list:
     """One non-blocking stream a rank, made one after another so each
     takes its own hardware queue. Virtual ranks on one card need as many
@@ -469,6 +631,8 @@ def _enable_peer_access(devices: list[torch.device]) -> None:
 
 
 def initialize_distributed(n: int | None = None, devices=None, *,
+                           mesh_shape: Sequence[int] | None = None,
+                           axis_names: Sequence[str] | None = None,
                            tp_axis: str = "tp",
                            wait_timeout_ms: float | None = None
                            ) -> DistContext:
@@ -478,8 +642,18 @@ def initialize_distributed(n: int | None = None, devices=None, *,
     raises if fewer are visible. Anything else is asked for explicitly:
     ``devices=["cuda:0"] * n`` for n virtual ranks on one card,
     ``devices=["cpu"] * n`` for CPU rank threads. Nothing drops to fewer
-    ranks, to the CPU or to a plain version on its own."""
+    ranks, to the CPU or to a plain version on its own.
+
+    ``mesh_shape`` / ``axis_names`` (the reference's) lay the ranks out
+    over named axes, row-major: ``mesh_shape=(2, 4), axis_names=("dcn",
+    "tp")`` is two slices of a 4-rank TP group, global rank g = a·4 + b
+    (``n`` defaults to the product). ``tp_axis`` names the one axis of a
+    one-axis group; with ``axis_names`` the first name is the tp axis,
+    as in the reference."""
+    if n is None and devices is None and mesh_shape is not None:
+        n = int(np.prod(mesh_shape))
     ctx = DistContext(_resolve_devices(n, devices), tp_axis=tp_axis,
+                      mesh_shape=mesh_shape, axis_names=axis_names,
                       wait_timeout_ms=wait_timeout_ms)
     set_context(ctx)
     return ctx
@@ -517,85 +691,95 @@ def current_rank() -> tuple[DistContext, int]:
     return cur
 
 
-def _check_axis(ctx: DistContext, axis: str, num_ranks: int | None) -> int:
-    n = ctx.axis_size(axis)
+def axis_index(axis) -> int:
+    """The calling rank thread's index along ``axis`` (the reference's
+    ``jax.lax.axis_index``); for a tuple, its joint index over the
+    tuple's axes, row-major."""
+    ctx, rank = current_rank()
+    return ctx.axis_index(rank, axis)
+
+
+def _fiber_of(axis, num_ranks: int | None, what: str):
+    """(fiber group, this rank's index in it, its size) of the calling
+    rank along ``axis``, ``num_ranks`` checked against the size."""
+    ctx, rank = current_rank()
+    fib, i = ctx.fiber(rank, axis)
+    n = fib.num_ranks
     if num_ranks is not None and num_ranks != n:
-        raise ValueError(f"num_ranks = {num_ranks} but the rank group "
-                         f"has {n} — argument num_ranks")
-    return n
+        raise ValueError(f"{what}: num_ranks = {num_ranks} but axis "
+                         f"{axis!r} has {n} ranks — argument num_ranks")
+    return fib, i, n
 
 
-def group_all_gather(x: torch.Tensor, *, axis: str = "tp",
+def group_all_gather(x: torch.Tensor, *, axis="tp",
                      num_ranks: int | None = None, dim: int = 0
                      ) -> torch.Tensor:
     """Plain all-gather through the rank group (the JAX package's
-    ``jax.lax.all_gather(..., tiled=True)``): every rank's ``x``,
-    concatenated along ``dim`` in rank order, on this rank's device."""
-    ctx, rank = current_rank()
-    _check_axis(ctx, axis, num_ranks)
-    parts = ctx.exchange(rank, x, "all_gather")
+    ``jax.lax.all_gather(..., tiled=True)``): the ``x`` of every rank of
+    this rank's fiber along ``axis`` (one name or a tuple), concatenated
+    along ``dim`` in fiber order, on this rank's device. Every rank of
+    the group meets at the call."""
+    fib, i, _ = _fiber_of(axis, num_ranks, "all_gather")
+    parts = fib.exchange(i, x, "all_gather")
     return torch.cat([p.to(x.device) for p in parts], dim=dim)
 
 
-def group_psum(x: torch.Tensor, *, axis: str = "tp",
+def group_psum(x: torch.Tensor, *, axis="tp",
                num_ranks: int | None = None) -> torch.Tensor:
     """Plain sum through the rank group (the JAX package's ``psum``): the
-    ranks' ``x`` added in rank order in ``x``'s type — every rank adds the
-    same operands in the same order, so the replicas stay bit-identical."""
-    ctx, rank = current_rank()
-    _check_axis(ctx, axis, num_ranks)
-    parts = ctx.exchange(rank, x, "psum")
+    fiber's ``x`` added in fiber order in ``x``'s type — every rank adds
+    the same operands in the same order, so the replicas stay
+    bit-identical."""
+    fib, i, _ = _fiber_of(axis, num_ranks, "psum")
+    parts = fib.exchange(i, x, "psum")
     acc = parts[0].to(x.device)
     for p in parts[1:]:
         acc = acc + p.to(x.device)
     return acc
 
 
-def group_ppermute(x: torch.Tensor, perm, *, axis: str = "tp",
+def group_ppermute(x: torch.Tensor, perm, *, axis="tp",
                    num_ranks: int | None = None) -> torch.Tensor:
     """Plain permutation through the rank group (the JAX package's
-    ``jax.lax.ppermute``): ``perm`` lists (source, destination) pairs;
-    this rank gets the ``x`` of the source that names it, or zeros when
-    none does. Every rank calls it with the same ``perm``."""
-    ctx, rank = current_rank()
-    _check_axis(ctx, axis, num_ranks)
-    parts = ctx.exchange(rank, x, "ppermute")
-    src = [s for s, d in perm if d == rank]
+    ``jax.lax.ppermute``): ``perm`` lists (source, destination) pairs of
+    indices along ``axis``; this rank gets the ``x`` of the source that
+    names it, or zeros when none does. Every rank calls it with the same
+    ``perm``."""
+    fib, i, _ = _fiber_of(axis, num_ranks, "ppermute")
+    parts = fib.exchange(i, x, "ppermute")
+    src = [s for s, d in perm if d == i]
     if len(src) > 1:
-        raise ValueError(f"ppermute: rank {rank} is the destination of "
+        raise ValueError(f"ppermute: index {i} is the destination of "
                          f"{src} — argument perm")
     return parts[src[0]].to(x.device) if src else torch.zeros_like(x)
 
 
-def group_all_to_all(x: torch.Tensor, *, axis: str = "tp",
+def group_all_to_all(x: torch.Tensor, *, axis="tp",
                      num_ranks: int | None = None) -> torch.Tensor:
     """Plain all-to-all through the rank group (the JAX package's
     ``jax.lax.all_to_all(x, axis, split_axis=0, concat_axis=0,
     tiled=True)``): ``x``'s rows cut into n equal chunks, chunk p sent to
-    rank p; this rank's result is the chunks it received, in rank
+    fiber rank p; this rank's result is the chunks it received, in fiber
     order."""
-    ctx, rank = current_rank()
-    n = _check_axis(ctx, axis, num_ranks)
+    fib, i, n = _fiber_of(axis, num_ranks, "all_to_all")
     if x.shape[0] % n:
         raise ValueError(f"all_to_all: rows {x.shape[0]} not divisible by "
                          f"num_ranks {n}")
     rows = x.shape[0] // n
-    parts = ctx.exchange(rank, x, "all_to_all")
-    return torch.cat([p[rank * rows:(rank + 1) * rows].to(x.device)
+    parts = fib.exchange(i, x, "all_to_all")
+    return torch.cat([p[i * rows:(i + 1) * rows].to(x.device)
                       for p in parts], dim=0)
 
 
-def group_psum_scatter(x: torch.Tensor, *, axis: str = "tp",
+def group_psum_scatter(x: torch.Tensor, *, axis="tp",
                        num_ranks: int | None = None) -> torch.Tensor:
     """Plain reduce-scatter through the rank group (the JAX package's
     ``jax.lax.psum_scatter(..., scatter_dimension=0, tiled=True)``): the
-    ranks' ``x`` summed as :func:`group_psum` sums them, and this rank's
+    fiber's ``x`` summed as :func:`group_psum` sums them, and this rank's
     1/n of the rows."""
-    ctx, rank = current_rank()
-    n = _check_axis(ctx, axis, num_ranks)
+    fib, i, n = _fiber_of(axis, num_ranks, "psum_scatter")
     if x.shape[0] % n:
         raise ValueError(f"psum_scatter: rows {x.shape[0]} not divisible by "
                          f"num_ranks {n}")
     rows = x.shape[0] // n
-    return group_psum(x, axis=axis, num_ranks=n)[rank * rows:
-                                                 (rank + 1) * rows]
+    return group_psum(x, axis=axis, num_ranks=n)[i * rows:(i + 1) * rows]

@@ -19,7 +19,10 @@ torus ring, the port's hop counts are 1.
 
 The constants are published peaks (NVIDIA's H100 SXM data sheet, dense,
 at the 700 W power limit); the model ranks, so ±20% error in them is
-harmless.
+harmless. The inter tier of a two-tier (dcn, tp) group —
+:func:`dcn_collective_time_s` and the 2-D fused estimates that
+``layers/tp_mlp.pick_mode`` reads for its ``"overlap2d"`` candidate — is
+charged at one InfiniBand port a card (``ChipSpec.dcn_gbps``).
 """
 
 from __future__ import annotations
@@ -53,6 +56,16 @@ class ChipSpec:
     # parameters).
     link_gbps: float = 450.0
     link_latency_s: float = 1e-6
+    # The inter tier of a two-tier group (the reference's DCN; here the
+    # network between H100 hosts): one NDR InfiniBand port a card, 400
+    # Gb/s = 50 GB/s a direction (NVIDIA DGX H100: eight ConnectX-7 NDR
+    # ports, one a GPU), and a hop's latency for one RDMA write and its
+    # flag through the network: a guess, neither measured nor taken from a
+    # published figure. It sets AUTO's "overlap2d" crossover, which
+    # ``scripts/dcn_crossover.py`` shows at half and twice this value. No
+    # TPU DCN number is used.
+    dcn_gbps: float = 50.0
+    dcn_latency_s: float = 5e-6
 
     def peak_tflops(self, itemsize: int) -> float:
         """The peak for an operand type of ``itemsize`` bytes."""
@@ -231,3 +244,60 @@ def gemm_rs_time_s(m_global: int, n_cols: int, k: int, n_ranks: int,
     t_rs = reduce_scatter_ring_time_s(m_global * n_cols * itemsize,
                                       n_ranks, spec)
     return max(t_gemm, t_rs) + t_rs / max(n_ranks, 1)
+
+
+# ---------------------------------------------------------------------------
+# The inter tier of a two-tier group (ops/two_level.py, ops/hierarchical.py).
+# ---------------------------------------------------------------------------
+
+def dcn_collective_time_s(nbytes: int, n_hosts: int,
+                          spec: ChipSpec | None = None) -> float:
+    """A ring collective over the inter tier: n_hosts - 1 hops of one
+    host's shard of ``nbytes``."""
+    spec = spec or chip_spec()
+    if n_hosts <= 1:
+        return 0.0
+    shard = nbytes / n_hosts
+    return (n_hosts - 1) * (shard / (spec.dcn_gbps * 1e9)
+                            + spec.dcn_latency_s)
+
+
+def _dcn_hop_time_s(nbytes: int, spec: ChipSpec) -> float:
+    """One hop over the inter tier: its latency and the payload at its
+    rate."""
+    return nbytes / (spec.dcn_gbps * 1e9) + spec.dcn_latency_s
+
+
+def ag_gemm_2d_time_s(m_global: int, n_cols: int, k: int, n_intra: int,
+                      n_inter: int, itemsize: int,
+                      spec: ChipSpec | None = None) -> float:
+    """The two-tier AG+GEMM (``ops/hierarchical.ag_gemm_2d``): the slice's
+    fused AG+GEMM fills the pipeline, then each of the n_inter - 1 inter
+    hops overlaps one slice block's GEMM — max(hop, slice GEMM) a remote
+    slice. The inter hop's latency makes AUTO decline the path at small
+    row counts."""
+    spec = spec or chip_spec()
+    m_slice = max(m_global // max(n_inter, 1), 1)
+    t_intra = ag_gemm_time_s(m_slice, n_cols, k, n_intra, itemsize, spec)
+    if n_inter <= 1:
+        return t_intra
+    t_slice_gemm = gemm_time_s(m_slice, n_cols, k, itemsize, spec)
+    t_hop = _dcn_hop_time_s(m_slice * k * itemsize, spec)
+    return t_intra + (n_inter - 1) * max(t_hop, t_slice_gemm)
+
+
+def gemm_rs_2d_time_s(m_global: int, n_cols: int, k: int, n_intra: int,
+                      n_inter: int, itemsize: int,
+                      spec: ChipSpec | None = None) -> float:
+    """The two-tier GEMM+RS (``ops/hierarchical.gemm_rs_2d``): a slice
+    chunk's fused GEMM+RS a step, and the chunk's inter hop (already
+    reduced in the slice: 1/n_intra of its bytes) under the next chunk's
+    compute; the first chunk fills the pipeline."""
+    spec = spec or chip_spec()
+    m_slice = max(m_global // max(n_inter, 1), 1)
+    t_chunk = gemm_rs_time_s(m_slice, n_cols, k, n_intra, itemsize, spec)
+    if n_inter <= 1:
+        return t_chunk
+    t_hop = _dcn_hop_time_s(m_slice // max(n_intra, 1) * n_cols * itemsize,
+                            spec)
+    return t_chunk + (n_inter - 1) * max(t_hop, t_chunk)

@@ -19,6 +19,11 @@ Buffers are persistent: :func:`symm_zeros` caches them on the context by
 (shape, dtype, tag), allocated once and never freed while the context
 lives — the property the collectives' barriers and the parity stream's
 barrier-free protocol rest on.
+
+On a multi-axis group a collective over one axis allocates on the
+calling rank's fiber (``runtime/context.Fiber``): the buffer's ranks,
+tables and epochs are the fiber's, in fiber order, and its cache key
+carries the fiber, so two fibers never share a flag.
 """
 
 from __future__ import annotations
@@ -78,7 +83,8 @@ class SymmBuffer:
             ctx, rank = current_rank()
         except RuntimeError:
             return self.epochs[0]
-        return self.epochs[rank if ctx is self.ctx else 0]
+        i = self.ctx.rank_in(ctx, rank)
+        return self.epochs[0 if i is None else i]
 
     def next_epoch(self, rank: int) -> int:
         """The epoch of rank ``rank``'s next call on this buffer (1, 2,

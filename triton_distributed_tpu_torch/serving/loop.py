@@ -131,6 +131,12 @@ class ServingEngine:
                 "engine has no paged cache: construct Engine(page_size=...) "
                 "— the serving tier schedules against the paged pool "
                 "(argument engine)")
+        if engine.grouped and engine.ctx.num_ranks != engine.n:
+            raise ServingConfigError(
+                f"engine on a {engine.ctx.num_ranks}-rank group with axes "
+                f"{engine.ctx.axis_names}: the serving tier runs one TP "
+                "axis (the two-tier group serves through Engine.serve) — "
+                "argument engine")
         page = engine.page_size
         chunk = prefill_chunk if prefill_chunk is not None else page
         if chunk < 1 or chunk % page:
