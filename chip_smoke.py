@@ -364,6 +364,23 @@ def _dtype_name(dt) -> str:
     return str(dt).replace("torch.", "")
 
 
+def library_every_rank(timer, n: int, call, what: str, *,
+                       outputs_per_call: int = 1) -> dict:
+    """A collective's library yardstick: the PyTorch call that makes one
+    rank's output, once per rank, back to back in one timed lambda — the
+    work that the kernel time (every rank's call) and the bound (every
+    rank's bytes) cover. ``outputs_per_call`` > 1 where one call makes
+    several ranks' outputs (a reduce-scatter's chunks)."""
+    calls = -(-n // outputs_per_call)
+
+    def run():
+        for _ in range(calls):
+            call()
+
+    return {"library_ms": timer.ms(run), "library_outputs": n,
+            "library_call": f"{calls} x {what}"}
+
+
 # ---------------------------------------------------------------------------
 # Phase 2: kernels against their plain versions.
 # ---------------------------------------------------------------------------
@@ -415,48 +432,73 @@ def compare(torch, kernel, dtype, normalize, got, want, want32) -> dict:
 
 
 def flash_case(torch, fa, timer, *, name, dtype, B, Sq, Sk, hq, hkv, d,
-               q_off, normalize, time_it, seed):
-    """One K1 case. Keys past the causal frontier are NaN in the kernel's
-    input: K1 must never load them (the plain version gets zeros there)."""
+               q_off, normalize, time_it, seed, k_off=0, causal=True):
+    """One K1 case. Keys past the call's key frontier are NaN in the
+    kernel's input: K1 must never let them reach its output (the plain
+    version gets zeros there). Rows that see no key must end dead: m =
+    -1e30 and l = 0 exactly, a normalized output of 0."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     q = torch.randn((B, Sq, hq, d), generator=g, device="cuda").to(dtype)
     k = torch.randn((B, Sk, hkv, d), generator=g, device="cuda").to(dtype)
     v = torch.randn((B, Sk, hkv, d), generator=g, device="cuda").to(dtype)
-    frontier = min(Sk, q_off + Sq)              # keys any query can see
+    frontier = max(0, fa.key_frontier(Sq, Sk, q_off, k_off, causal=causal))
     k_nan, v_nan = k.clone(), v.clone()
     k_nan[:, frontier:] = float("nan")
     v_nan[:, frontier:] = float("nan")
-    got = fa._flash_cuda(q, k_nan, v_nan, q_off, 0, causal=True,
+    got = fa._flash_cuda(q, k_nan, v_nan, q_off, k_off, causal=causal,
                          normalize=normalize)
-    want = fa._flash_plain(q, k, v, q_off, 0, causal=True,
+    want = fa._flash_plain(q, k, v, q_off, k_off, causal=causal,
                            normalize=normalize)
     want32 = None if dtype == torch.float32 else fa._flash_plain(
-        q.float(), k.float(), v.float(), q_off, 0, causal=True,
+        q.float(), k.float(), v.float(), q_off, k_off, causal=causal,
         normalize=normalize)
     torch.cuda.synchronize()
-    rec = {"case": name, "dtype": _dtype_name(dtype), "shape": {
-        "B": B, "Sq": Sq, "Sk": Sk, "hq": hq, "hkv": hkv, "d": d,
-        "q_offset": q_off, "normalize": normalize},
+    plan = fa.flash_launch_plan(B, Sq, Sk, hq, d, q_off, k_off, causal=causal,
+                                dtype=dtype)
+    rec = {"case": name, "dtype": _dtype_name(dtype), "lane": plan["lane"],
+           "shape": {"B": B, "Sq": Sq, "Sk": Sk, "hq": hq, "hkv": hkv, "d": d,
+                     "q_offset": q_off, "k_offset": k_off, "causal": causal,
+                     "normalize": normalize, "key_frontier":
+                     plan["key_frontier"]},
         **compare(torch, "flash_attention", dtype, normalize, got, want,
                   want32)}
     out = got[0]
+    # Visible keys of each query row, and the rows that see none.
+    seen = [min(Sk, max(0, q_off + i + 1 - k_off)) if causal else Sk
+            for i in range(Sq)]
+    dead = [i for i, n in enumerate(seen) if n == 0]
+    if dead:
+        rows = torch.tensor(dead, device="cuda")
+        if normalize:
+            dead_ok = bool((out[:, rows] == 0).all().item())
+        else:
+            dead_ok = bool((got[1][:, rows] == -1e30).all().item()
+                           and (got[2][:, rows] == 0).all().item()
+                           and (out[:, rows] == 0).all().item())
+        rec["dead_rows"] = len(dead)
+        rec["dead_rows_ok"] = dead_ok
+        rec["ok"] = rec["ok"] and dead_ok
     if time_it:
         item = q.element_size()
-        pairs = sum(max(0, min(Sk, q_off + i + 1)) for i in range(Sq))
-        flops = 4.0 * B * hq * d * pairs
+        flops = 4.0 * B * hq * d * sum(seen)
         nbytes = item * (B * Sq * hq * d + 2 * B * frontier * hkv * d) \
             + out.element_size() * B * Sq * hq * d
+        if not normalize:
+            nbytes += 2 * 4 * B * Sq * hq               # m and l
         rec["bound_ms"], rec["bound_by"] = _bound_ms(nbytes, flops,
                                                      _dtype_name(dtype))
         rec["ms"] = timer.ms(lambda: fa._flash_cuda(
-            q, k, v, q_off, 0, causal=True, normalize=normalize))
+            q, k, v, q_off, k_off, causal=causal, normalize=normalize))
+        rec["tflops"] = flops / (rec["ms"] * 1e-3) / 1e12
+        rec["bound_share"] = rec["bound_ms"] / rec["ms"]
         rec["plain_ms"] = timer.ms(lambda: fa._flash_plain(
-            q, k, v, q_off, 0, causal=True, normalize=normalize))
-        if q_off == 0 and Sq == Sk and normalize:
+            q, k, v, q_off, k_off, causal=causal, normalize=normalize))
+        if q_off == k_off and Sq == Sk and normalize:
             qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
             sdpa = torch.nn.functional.scaled_dot_product_attention
             rec["library_ms"] = timer.ms(lambda: sdpa(
-                qt, kt, vt, is_causal=True, enable_gqa=True))
+                qt, kt, vt, is_causal=causal, enable_gqa=True))
+            rec["library_ratio"] = rec["ms"] / rec["library_ms"]
         else:
             rec["library_ms"] = None
     return rec
@@ -524,9 +566,15 @@ def paged_case(torch, pa, timer, *, name, dtype, lens, page, hq, hkv, d,
     return rec
 
 
-def phase_kernels(torch, fa, pa, timer) -> dict:
+def k1_cases(torch, fa, timer) -> tuple:
+    """K1 against its plain version: the Qwen3-8B shapes (32 / 8 heads, d
+    128) and GQA group 8 (Qwen3-30B-A3B, 32 / 4), both lanes; the bf16
+    lane's partials as the ring / SP-AG shards call them (causal=False),
+    a key frontier off every key-tile edge, a ragged tile, d = 64, and a
+    call whose frontier is <= 0 (every row dead)."""
     bf16, f32 = torch.bfloat16, torch.float32
     qwen = dict(hq=32, hkv=8, d=128)
+    g8 = dict(hq=32, hkv=4, d=128)
     k1 = [
         flash_case(torch, fa, timer, name="prefill_1024", dtype=bf16, B=1,
                    Sq=1024, Sk=1024, q_off=0, normalize=True, time_it=True,
@@ -543,7 +591,51 @@ def phase_kernels(torch, fa, pa, timer) -> dict:
         flash_case(torch, fa, timer, name="d64_gqa4_ragged", dtype=bf16, B=1,
                    Sq=100, Sk=357, q_off=257, normalize=False,
                    time_it=False, seed=3, hq=16, hkv=4, d=64),
+        # An off-diagonal ring / SP-AG shard: every key visible, no mask.
+        flash_case(torch, fa, timer, name="shard_512_at_k512_noncausal",
+                   dtype=bf16, B=1, Sq=512, Sk=512, q_off=1024, k_off=512,
+                   causal=False, normalize=False, time_it=True, seed=16,
+                   **qwen),
+        flash_case(torch, fa, timer, name="noncausal_ragged_200x333",
+                   dtype=bf16, B=2, Sq=200, Sk=333, q_off=0, causal=False,
+                   normalize=True, time_it=False, seed=17, **qwen),
+        # Frontier 900: inside the 8th key tile, NaN past it.
+        flash_case(torch, fa, timer, name="slice_200_at_700_frontier_900",
+                   dtype=bf16, B=1, Sq=200, Sk=2048, q_off=700,
+                   normalize=False, time_it=False, seed=18, **qwen),
+        flash_case(torch, fa, timer, name="bf16_ragged_300", dtype=bf16, B=2,
+                   Sq=300, Sk=300, q_off=0, normalize=True, time_it=False,
+                   seed=19, **qwen),
+        flash_case(torch, fa, timer, name="prefill_2x1024_d64", dtype=bf16,
+                   B=2, Sq=1024, Sk=1024, q_off=0, normalize=True,
+                   time_it=True, seed=20, hq=32, hkv=8, d=64),
+        # Keys start after every query: the frontier is -448.
+        flash_case(torch, fa, timer, name="frontier_le_0_dead", dtype=bf16,
+                   B=1, Sq=64, Sk=256, q_off=0, k_off=512, normalize=False,
+                   time_it=False, seed=21, **qwen),
+        # A block whose first rows are dead and whose last are not.
+        flash_case(torch, fa, timer, name="half_dead_k_offset_100",
+                   dtype=bf16, B=1, Sq=300, Sk=300, q_off=0, k_off=100,
+                   normalize=True, time_it=False, seed=22, **qwen),
     ]
+    k1_g8 = [
+        flash_case(torch, fa, timer, name="prefill_2x1024_g8", dtype=bf16,
+                   B=2, Sq=1024, Sk=1024, q_off=0, normalize=True,
+                   time_it=True, seed=9, **g8),
+        flash_case(torch, fa, timer, name="slice_256_at_768_g8", dtype=bf16,
+                   B=1, Sq=256, Sk=2048, q_off=768, normalize=False,
+                   time_it=False, seed=10, **g8),
+        flash_case(torch, fa, timer, name="fp32_ragged_300_g8", dtype=f32,
+                   B=2, Sq=300, Sk=300, q_off=0, normalize=True,
+                   time_it=False, seed=11, **g8),
+    ]
+    return k1, k1_g8
+
+
+def phase_kernels(torch, fa, pa, timer) -> dict:
+    bf16, f32 = torch.bfloat16, torch.float32
+    qwen = dict(hq=32, hkv=8, d=128)
+    k1, k1_g8 = k1_cases(torch, fa, timer)
     k2 = [
         paged_case(torch, pa, timer, name="decode_4", dtype=bf16,
                    lens=[0, 1, 17, 1999], page=16, normalize=True,
@@ -586,17 +678,6 @@ def phase_kernels(torch, fa, pa, timer) -> dict:
     # GQA group 8 (Qwen3-30B-A3B: 32 q heads over 4 kv heads), the MoE
     # engine's prefill and decode shapes.
     g8 = dict(hq=32, hkv=4, d=128)
-    k1_g8 = [
-        flash_case(torch, fa, timer, name="prefill_2x1024_g8", dtype=bf16,
-                   B=2, Sq=1024, Sk=1024, q_off=0, normalize=True,
-                   time_it=True, seed=9, **g8),
-        flash_case(torch, fa, timer, name="slice_256_at_768_g8", dtype=bf16,
-                   B=1, Sq=256, Sk=2048, q_off=768, normalize=False,
-                   time_it=False, seed=10, **g8),
-        flash_case(torch, fa, timer, name="fp32_ragged_300_g8", dtype=f32,
-                   B=2, Sq=300, Sk=300, q_off=0, normalize=True,
-                   time_it=False, seed=11, **g8),
-    ]
     k2_g8 = [
         paged_case(torch, pa, timer, name="decode_4_g8", dtype=bf16,
                    lens=[0, 1, 17, 1999], page=16, normalize=True,
@@ -3290,11 +3371,18 @@ def coll_case(torch, timer, ctx, method: str, dtype, rows: int, seed: int,
         rec["ms"], rec["host_ms_per_call"] = _coll_ms(torch, ctx, fn, 20)
         rec["plain_ms"] = timer.ms(plain_all)
         if method == "allgather_ring":
-            rec["library_ms"] = timer.ms(lambda: torch.cat(xp))
-            rec["library_call"] = "torch.cat (one gathered copy)"
+            rec.update(library_every_rank(
+                timer, n, lambda: torch.cat(xp),
+                "torch.cat of the n chunks (one rank's gathered copy)"))
+        elif method == "reduce_scatter_ring":
+            rec.update(library_every_rank(
+                timer, n, lambda: X.sum(0),
+                "X.sum(0) over the stacked inputs (every rank's chunk)",
+                outputs_per_call=n))
         else:
-            rec["library_ms"] = timer.ms(lambda: X.sum(0))
-            rec["library_call"] = "X.sum(0) over the stacked inputs (one sum)"
+            rec.update(library_every_rank(
+                timer, n, lambda: X.sum(0),
+                "X.sum(0) over the stacked inputs (one rank's sum)"))
     return rec
 
 
@@ -4540,8 +4628,10 @@ def ag_mesh_case(torch, timer, ctx, dtype, rows: int, seed: int,
                              "gathered chunks, through one card's HBM")
         rec["ms"], rec["host_ms_per_call"] = _coll_ms(torch, ctx, fn, 20)
         rec["plain_ms"] = timer.ms(lambda: ag.ag_plain(list(X)))
-        rec["library_ms"] = timer.ms(lambda: torch.cat(list(X)))
-        rec["library_call"] = "torch.cat (one gathered copy)"
+        xp = list(X)
+        rec.update(library_every_rank(
+            timer, n, lambda: torch.cat(xp),
+            "torch.cat of the n chunks (one rank's gathered copy)"))
     return rec
 
 
@@ -5225,8 +5315,9 @@ def mk_ar_case(torch, timer, *, n: int, dtype, rows: int, seed: int,
             lambda r: _mk_ar_plain(mk, row, ws_t[r], r, n, force_ar,
                                    name + "-row-plain")), iters=3)
         S = torch.stack([w[:, :rows].to(X.device) for w in ws_t])
-        rec["library_ms"] = timer.ms(lambda: S.sum(0))
-        rec["library_call"] = "X.sum(0) over the stacked slabs (one sum)"
+        rec.update(library_every_rank(
+            timer, n, lambda: S.sum(0),
+            "X.sum(0) over the stacked slabs (one rank's sum)"))
         row_bytes = rows * MK_AR_TILES * tasks.TILE * X.element_size()
         # Each rank's live rows read once and its reduced rows written
         # once, all through the one card's HBM (virtual ranks); n - 1 adds
@@ -5844,8 +5935,10 @@ def agp_case(torch, timer, ctx, dtype, rows: int, cols: int, seed: int,
                              "HBM at 3.35 TB/s")
         rec["ms"], rec["host_ms_per_call"] = _coll_ms(torch, ctx, fn, 20)
         rec["plain_ms"] = timer.ms(lambda: ag.ag_plain(list(X[0])))
-        rec["library_ms"] = timer.ms(lambda: torch.cat(list(X[0])))
-        rec["library_call"] = "torch.cat of the n chunks (one gathered copy)"
+        x0 = list(X[0])
+        rec.update(library_every_rank(
+            timer, n, lambda: torch.cat(x0),
+            "torch.cat of the n chunks (one rank's gathered copy)"))
     return rec
 
 
@@ -6762,13 +6855,16 @@ def torus_case(torch, timer, ctx, op: str, dtype, rows: int, seed: int, *,
         rec["ms"], rec["host_ms_per_call"] = _coll_ms(torch, ctx, fn, 20)
         if op == "ag_torus":
             rec["plain_ms"] = timer.ms(lambda: ag.ag_plain(list(X)))
-            rec["library_ms"] = timer.ms(lambda: torch.cat(list(X)))
-            rec["library_call"] = "torch.cat of the n shards"
+            xp = list(X)
+            rec.update(library_every_rank(
+                timer, n, lambda: torch.cat(xp),
+                "torch.cat of the n shards (one rank's gathered copy)"))
         else:
             rec["plain_ms"] = timer.ms(
                 lambda: ma.ar_torus_plain(list(X), n0, n1))
-            rec["library_ms"] = timer.ms(lambda: X.sum(0))
-            rec["library_call"] = "X.sum(0) over the stacked inputs"
+            rec.update(library_every_rank(
+                timer, n, lambda: X.sum(0),
+                "X.sum(0) over the stacked inputs (one rank's sum)"))
     return rec
 
 

@@ -3,12 +3,17 @@
 Counterpart of the JAX package's ``ops/flash_attention.py``. The TPU
 kernel there (``_flash_kernel``, a Pallas grid over (B, hq, q-tiles,
 k-tiles) with VMEM-carried online-softmax state) becomes the hand-written
-CUDA kernel ``csrc/flash_attention.cu``: one block per (q-tile, head,
-batch) that loops over K/V tiles staged in shared memory up to the causal
-frontier. The VMEM tile ladder, compile probe and tile autotuner of the
-TPU version have no meaning here and are not ported; nor is the dense
-fallback, which existed because of VMEM limits — on a CUDA tensor the
-wrappers below launch K1 or raise.
+CUDA kernel ``csrc/flash_attention.cu``, in two lanes picked by dtype:
+bf16 runs on ``wgmma`` + TMA (a persistent block an SM walks work tiles
+of 128 queries of one head and batch; a producer warp streams 128-key K/V
+tiles through a two-stage shared-memory ring, two consumer warpgroups run
+the products), fp32 on fp32 FMA (the tensor cores would take it only as
+TF32).
+:func:`flash_launch_plan` holds the launch geometry of both. The VMEM
+tile ladder, compile probe and tile autotuner of the TPU version have no
+meaning here and are not ported; nor is the dense fallback, which existed
+because of VMEM limits — on a CUDA tensor the wrappers below launch K1
+or raise.
 
 Contracts kept from the TPU kernel (the tests pin each):
 
@@ -44,7 +49,14 @@ _HEAD_DIMS = (64, 128)
 
 FLASH_KERNEL = CudaKernel(
     "flash_attention.cu", "flash_attention_fwd",
-    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11 + [ctypes.c_void_p])
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 13 + [ctypes.c_void_p])
+
+# The lanes' tiles, as csrc/flash_attention.cu compiles them.
+_WG_TQ = _WG_TK = 128   # bf16: query rows a work tile, keys a K/V tile
+_WG_STAGES = 2          # bf16: K/V ring depth
+_WG_THREADS = 384       # two consumer warpgroups and a producer
+_FMA_BQ, _FMA_BK, _FMA_THREADS = 64, 32, 256
+H100_SMS = 132
 
 
 # ---------------------------------------------------------------------------
@@ -130,7 +142,86 @@ def _flash_plain(q, k, v, q_offset: int, k_offset: int, *, causal: bool,
 # K1 launch.
 # ---------------------------------------------------------------------------
 
+def key_frontier(sq: int, sk: int, q_offset: int, k_offset: int, *,
+                 causal: bool) -> int:
+    """Keys any query of the call can see: ``min(Sk, q_offset + Sq -
+    k_offset)`` when causal (<= 0 when every row is hidden), else Sk."""
+    return min(sk, q_offset + sq - k_offset) if causal else sk
+
+
+def _lane(dtype) -> str:
+    if dtype == torch.bfloat16:
+        return "wgmma"
+    if dtype == torch.float32:
+        return "fma"
+    raise ValueError(f"flash attention: dtype {dtype} unsupported (K1 "
+                     "takes float32 or bfloat16)")
+
+
+def _smem_bytes(lane: str, d: int) -> int:
+    if lane == "wgmma":
+        # 1024 to align the tiles to the swizzle's period, Q and the K/V
+        # stages of 128 rows, the mbarriers.
+        return 1024 + (1 + 2 * _WG_STAGES) * _WG_TQ * d * 2 + 128
+    return 4 * (_FMA_BQ * (d + 1) + _FMA_BK * (d + 1) + _FMA_BK * d
+                + _FMA_BQ * (_FMA_BK + 1))
+
+
+def wgmma_schedule(grid: int, total: int) -> list:
+    """The bf16 lane's persistent blocks' work tiles, as the kernel's
+    ``tile_of`` walks them: round r takes tiles [r G, r G + G) forwards on
+    even rounds and backwards on odd ones. Work tile w is query head
+    w % hq of query-tile row w // hq (longest causal rows first)."""
+    blocks = [[] for _ in range(grid)]
+    for r in range(-(-total // grid)):
+        for c in range(grid):
+            w = r * grid + (grid - 1 - c if r & 1 else c)
+            if w < total:
+                blocks[c].append(w)
+    return blocks
+
+
+def flash_launch_plan(b: int, sq: int, sk: int, hq: int, d: int,
+                      q_offset: int, k_offset: int, *, causal: bool,
+                      dtype, num_sms: int = H100_SMS) -> dict:
+    """K1's launch geometry, as ``csrc/flash_attention.cu`` computes it.
+
+    ``lane`` ("wgmma" for bf16, "fma" for fp32), ``grid`` (x, y, z: on the
+    bf16 lane one persistent block an SM, at most one a work tile),
+    ``threads``, ``work_tiles`` (query tiles x heads x batch),
+    ``key_frontier`` (the K/V tensor maps' row extent on the bf16 lane),
+    ``key_tile`` (keys a tile), ``key_tiles`` (tiles each query tile
+    loads, in query-tile order: never past the frontier of its last row)
+    and ``smem_bytes`` (dynamic shared memory a block; the C entry refuses
+    a plan whose number differs from its own)."""
+    lane = _lane(dtype)
+    frontier = key_frontier(sq, sk, q_offset, k_offset, causal=causal)
+    tq, tk = (_WG_TQ, _WG_TK) if lane == "wgmma" else (_FMA_BQ, _FMA_BK)
+    n_qt = -(-sq // tq)
+    tiles = []
+    for qt in range(n_qt):
+        rows = min(tq, sq - qt * tq)
+        n = -(-sk // tk)
+        if causal:
+            last = q_offset + qt * tq + rows - 1 - k_offset
+            n = 0 if last < 0 or frontier <= 0 else min(
+                -(-frontier // tk), last // tk + 1)
+        tiles.append(n)
+    work = n_qt * hq * b
+    if lane == "wgmma":
+        grid, threads = (min(num_sms, work), 1, 1), _WG_THREADS
+    else:
+        grid, threads = (n_qt, hq, b), _FMA_THREADS
+    return {"lane": lane, "grid": grid, "threads": threads,
+            "work_tiles": work, "key_frontier": frontier, "key_tile": tk,
+            "key_tiles": tuple(tiles), "smem_bytes": _smem_bytes(lane, d)}
+
+
 def _check_cuda_inputs(q, k, v) -> None:
+    """Refuse what K1 does not take, by name: other devices or dtypes
+    among q, k, v, a head_dim other than 64 / 128, and on the bf16 lane
+    what TMA refuses (a base pointer not 16-byte aligned, a row stride not
+    a multiple of 16 bytes)."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device:
             raise ValueError(f"flash attention: {name} on {t.device}, q on "
@@ -138,11 +229,20 @@ def _check_cuda_inputs(q, k, v) -> None:
         if t.dtype != q.dtype:
             raise ValueError(f"flash attention: {name} is {t.dtype}, q is "
                              f"{q.dtype} — K1 takes one dtype")
-        if not t.is_contiguous():
-            raise ValueError(f"flash attention: {name} must be contiguous")
         if t.dim() != 4:
             raise ValueError(f"flash attention: {name} must be (B, S, h, d),"
                              f" got shape {tuple(t.shape)}")
+        if t.dtype == torch.bfloat16:
+            if t.data_ptr() % 16:
+                raise ValueError(f"flash attention: {name}'s base pointer is "
+                                 "not 16-byte aligned (TMA refuses it)")
+            row = t.stride(1) * t.element_size()
+            if row % 16:
+                raise ValueError(f"flash attention: {name}'s row stride "
+                                 f"{row} bytes is not a multiple of 16 (TMA "
+                                 "refuses it)")
+        if not t.is_contiguous():
+            raise ValueError(f"flash attention: {name} must be contiguous")
     if q.dtype not in _DTYPE_CODE:
         raise ValueError(f"flash attention: dtype {q.dtype} unsupported "
                          "(K1 takes float32 or bfloat16)")
@@ -165,6 +265,9 @@ def _flash_cuda(q, k, v, q_offset: int, k_offset: int, *, causal: bool,
     _check_cuda_inputs(q, k, v)
     b, sq, hq, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
+    lane = _lane(q.dtype)
+    frontier = key_frontier(sq, sk, int(q_offset), int(k_offset),
+                            causal=causal)
     out = torch.empty(q.shape, dtype=q.dtype if normalize else torch.float32,
                       device=q.device)
     m = l = None
@@ -174,7 +277,8 @@ def _flash_cuda(q, k, v, q_offset: int, k_offset: int, *, causal: bool,
     FLASH_KERNEL.launch(
         ptr(q), ptr(k), ptr(v), ptr(out), ptr(m), ptr(l),
         b, sq, sk, hq, hkv, d, int(q_offset), int(k_offset), int(causal),
-        int(normalize), _DTYPE_CODE[q.dtype], current_stream(q.device))
+        int(normalize), _DTYPE_CODE[q.dtype], frontier, _smem_bytes(lane, d),
+        current_stream(q.device), variants=(lane,))
     return out, m, l
 
 
