@@ -96,7 +96,7 @@ printing one JSON line:
    AR payload the serving path runs; K1/K2 at one rank's TP=4 heads.
    ``tp_serving`` — Qwen3-8B at full width and depth, bf16, through
    ``ServingEngine(Engine(cfg, params, ctx of 4 ranks, page_size=16),
-   max_batch=4, prefill_chunk=256)`` over the six prompts x 16 tokens,
+   max_batch=4, prefill_chunk=256)`` over the six prompts x 4 tokens,
    every kernel's launches as the path predicts (72 parity ARs a rank a
    decode step, a two-shot per reduction of a slice), the decode window;
    then ``spec_k=3`` (its verify steps take the one-shot). ``tp_parity`` —
@@ -110,12 +110,19 @@ printing one JSON line:
    8, fp32 and bf16, the communication (B9's gathered A, B10's and B11's
    reductions of the kernel's own slots) and the replicas bit for bit,
    the GEMM at B3's tolerance, and at the main path's shapes (n = 4, bf16:
-   Qwen3-8B's 2 x 1024 prefill and a batch-2 decode step) timed; the tree
-   at 1, 7 and 203 rows; 200 back-to-back B11 calls with a rotating
-   straggler; a lost peer's ``CommTimeoutError`` for B9 and B11.
-   ``tp_engine`` — Qwen3-8B, bf16, ``Engine(cfg, params, ctx of 4 ranks,
-   max_seq=2048).serve`` with the reference's defaults: a 2 x 1024 prompt
-   for 24 tokens (prefill "overlap": B9 180 and B10 72 launches a rank;
+   Qwen3-8B's 2 x 1024 prefill and a batch-2 decode step) timed; B9 and
+   B10 on their wgmma + TMA route at the edges of its tile (bf16, every n;
+   a held-back rank at n = 4), with NaN in B9's landing workspace and
+   B10's slots before every checked call, and each case's route
+   (``variant_launches``) the picker's — "wgmma" at every main and edge
+   shape, the tall mma.sync tile for bf16 at the "_tall" controls (B9 at
+   100 columns, B10 with a B one element off 16 bytes); the tree at 1, 7
+   and 203 rows; 200 back-to-back B11 calls with a rotating straggler; a
+   lost peer's ``CommTimeoutError`` for B9 and B11. ``tp_engine`` —
+   Qwen3-8B, bf16, ``Engine(cfg, params, ctx of 4 ranks,
+   max_seq=2048).serve`` with the reference's defaults: a 2 x 1024
+   prompt for 12 tokens (prefill "overlap": B9 180 and B10 72 launches a
+   rank, every one on the wgmma route;
    linear decode: 72 parity ARs a rank a step), again under
    ``TDTPU_GEMM_AR=1`` (72 B11 a step), then a 1 x 203 prompt whose "ar"
    prefill reduces through the tree (72 a rank); TP=1's serve in the same
@@ -131,15 +138,15 @@ printing one JSON line:
    a held-back peer raising ``CommTimeoutError``. After ``moe_engine`` and
    ``moe_serving`` on the same Qwen3-30B-A3B weights: ``ep_moe`` — the EP
    layer on 4 virtual ranks (32 experts a rank, dim-0 views): 4 tokens a
-   rank through all 48 layers for 8 steps on the parity stream, 512
+   rank through all 48 layers for 4 steps on the parity stream, 512
    tokens a rank through the barrier form, each layer held against the
    one-rank form, then fp32 at 2 layers; ``tp_moe_engine`` — TP=1's
-   ``Engine.serve`` of a 2 x 1024 prompt for 16 tokens, then the weights
+   ``Engine.serve`` of a 2 x 1024 prompt for 4 tokens, then the weights
    sharded over 4 virtual ranks leaf by leaf (never held twice) and the TP
    engine's serve with the defaults (the prefill's B9 / B10 / ring RS and
    the decode's parity AR counted exactly), its decode profile, and the
    sequential "overlap" TP-MoE layer at n = 2 through the full-mesh push;
-   ``tp_moe_serving`` — ServingEngine on those shards, 4 prompts x 8
+   ``tp_moe_serving`` — ServingEngine on those shards, 2 prompts x 4
    tokens and a 4-step decode window; last ``tp_moe_parity`` — float32, 2
    layers: TP=4 tokens identical to TP=1's in ``Engine.serve`` (defaults,
    ``backend="xla"``) and ``ServingEngine`` (a preemption, ``spec_k=3``).
@@ -2876,11 +2883,11 @@ def phase_megakernel_engine(torch, mk, mkserv, kernels, Engine, params, cfg,
 
 def phase_moe_engine(torch, kernels, Engine, ServingEngine, cfg, prompts):
     """Qwen3-30B-A3B at full width and depth (48 layers, bf16, seeded
-    random weights): ``Engine.serve`` of 2 x 1024-token prompts for 32 new
+    random weights): ``Engine.serve`` of 2 x 1024-token prompts for 16 new
     tokens (K1 once per layer, K2 once per layer and decode step, no plain
     version; prefill ms, decode ms/step, tokens/s, peak memory, the decode
     profile; one timed serve), then ``ServingEngine`` (page 16) over the
-    serving phases' six prompts x 16 tokens and its decode-only window.
+    serving phases' six prompts x 8 tokens and its decode-only window.
     Returns the two records and the parameters (the EP and TP phases run
     on them)."""
     from triton_distributed_tpu_torch.models.dense import init_dense_llm
@@ -2892,12 +2899,12 @@ def phase_moe_engine(torch, kernels, Engine, ServingEngine, cfg, prompts):
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     eng = Engine(cfg, params, max_seq=2048, page_size=16)
-    rec = phase_engine(torch, eng, kernels[:2], gen=32, reps=1)
+    rec = phase_engine(torch, eng, kernels[:2], gen=16, reps=1)
     rec.update(phase="moe_engine", model="Qwen3-30B-A3B", init_s=init_s,
                params_gb=sum(t.numel() * t.element_size() for t in
                              _leaves(params)) / 1e9)
     serving = phase_serving(torch, eng, kernels, ServingEngine,
-                            name="moe_serving", prompts=prompts, gen=16)
+                            name="moe_serving", prompts=prompts, gen=8)
     serving["model"] = "Qwen3-30B-A3B"
     return rec, serving, params
 
@@ -3222,8 +3229,15 @@ COLL_COLS = 4096
 TP = 4                     # the TP group of the serving phases
 # New tokens of the TP serving and engine runs (cut from 32 and 64 to keep
 # the whole run inside its time limit as the MoE phases came in).
-TP_GEN = 16
-TP_ENGINE_GEN = 24
+# Depths cut to fit the 1200 s on a slow host (the host-bound phases).
+TP_GEN = 4                 # tp_serving's new tokens (was 16)
+TP_ENGINE_GEN = 12         # tp_engine's serves (was 24)
+TP_TREE_GEN = 4            # tp_engine's 1 x 203 serve (was 8)
+TP_MOE_GEN = 4             # tp_moe_engine's serves (was 16)
+TP_MOE_SERVING_PROMPTS = 2  # tp_moe_serving's shortest prompts (was 4)
+TP_MOE_SERVING_GEN = 4     # tp_moe_serving's new tokens (was 8)
+TP_PROFILE_STEPS = 2       # the TP decode profiles' steps (was 4, 2)
+TP_WINDOW_STEPS = 4        # the TP decode windows' steps (was 8, 4)
 PARITY_CALLS = 200
 # The collectives' main-path shapes (n = 4, bf16, rows): decode's parity
 # AR over 4 slots, the verify step's one-shot over 4 x 4 rows, a 256-row
@@ -3616,10 +3630,10 @@ def phase_tp_serving(torch, params, cfg, Engine, ServingEngine, kernels,
                      prompts, phrases) -> dict:
     """Qwen3-8B at full width and depth, bf16, on a TP group of 4 virtual
     ranks on cuda:0: ServingEngine(max_batch=4, prefill_chunk=256, page
-    16) over the six prompts x 16 tokens, launch counts as the path
-    predicts, the decode-only window's step wall and busy share; then a
-    spec_k=3 run over phrase prompts (its verify steps reduce through the
-    one-shot AR)."""
+    16) over the six prompts x TP_GEN tokens (two of them wait for a slot),
+    launch counts as the path predicts, the decode-only window's step wall
+    and busy share; then a spec_k=3 run over the six phrase prompts (its
+    verify steps reduce through the one-shot AR)."""
     context = coll_modules()[4]
     ctx = context.initialize_distributed(devices=virtual_devices(TP),
                                          wait_timeout_ms=60_000)
@@ -3638,7 +3652,8 @@ def phase_tp_serving(torch, params, cfg, Engine, ServingEngine, kernels,
                             name="tp_serving", slice_ar="two_shot")
     del se
     se = ServingEngine(eng, max_batch=4, prefill_chunk=256)
-    rec["decode_window"] = decode_window(torch, se, eng, "decode")
+    rec["decode_window"] = decode_window(torch, se, eng, "decode",
+                                         steps=TP_WINDOW_STEPS)
     del se
     se = ServingEngine(eng, max_batch=4, prefill_chunk=256, spec_k=SPEC_K)
     rec["spec"] = tp_drive(torch, se, kernels, phrases, TP_GEN,
@@ -3854,11 +3869,29 @@ FUSED_MAIN = {
     "gemm_rs": (("wo", 2048, 1024, 4096), ("down", 2048, 3072, 4096)),
     "gemm_ar": (("wo", 2, 1024, 4096), ("down", 2, 3072, 4096))}
 # Small shapes at every n and type: a tall tile and an unaligned B (100
-# columns), the short tile; rows that pad (B11 at 5 rows).
+# columns), the short tile; rows that pad (B11 at 5 rows). The "_tall"
+# cases keep bf16 on the tall mma.sync tile at every n (B9: 100 columns,
+# sub-blocks of 128 rows; B10: chunks of 64-256 rows, B a contiguous view
+# one element past a 16-byte boundary, as "offset_b" names).
 FUSED_SMALL = {
-    "ag_gemm": (("small", 64, 512, 384), ("unaligned", 48, 256, 100)),
-    "gemm_rs": (("small", 128, 256, 512), ("short", 32, 128, 256)),
+    "ag_gemm": (("small", 64, 512, 384), ("unaligned", 48, 256, 100),
+                ("unaligned_tall", 256, 512, 100)),
+    "gemm_rs": (("small", 128, 256, 512), ("short", 32, 128, 256),
+                ("offset_b_tall", 512, 256, 512)),
     "gemm_ar": (("small", 2, 256, 512), ("pad", 5, 128, 1024))}
+# B9 and B10 on the wgmma route (bf16, every n), at the edges of its tile:
+# rows of a sub-block not a multiple of 128 (B9 at sub 1, 2 and 4: the
+# fifth entry; B10's chunks of m / n rows), K not a multiple of 64 and
+# columns not a multiple of 128.
+FUSED_EDGE = {
+    "ag_gemm": (("m200_k1032_n1000_sub1", 200, 1032, 1000, 1),
+                ("m144_k1032_n1000_sub2", 288, 1032, 1000, 2),
+                ("m80_k512_n384_sub4", 320, 512, 384, 4)),
+    "gemm_rs": (("m800_k1032_n1000", 800, 1032, 1000),
+                ("m768_k512_n384", 768, 512, 384))}
+# The held-back rank of the wgmma cases: rank n - 1's stream is held this
+# long before its launch.
+FUSED_HOLD_NS = 300_000
 TREE_ROWS = (1, 7, 203)          # one tree, odd halves, the main path's
 TREE_MAIN_ROWS = 203             # a 1 x 203 prompt's "ar" prefill
 GEMM_AR_CALLS = 3                # both parities and back
@@ -3886,42 +3919,86 @@ def _gemm_share(torch, got, want, spread, dtype) -> tuple:
     return diff.max().item(), share
 
 
-def fused_case(torch, timer, ctx, op, dtype, shape, seed, time_it) -> dict:
+def _fused_routes(comm, op) -> dict:
+    kern = {"ag_gemm": comm.AG_GEMM_KERNEL, "gemm_rs": comm.GEMM_RS_KERNEL,
+            "gemm_ar": comm.GEMM_AR_KERNEL}[op]
+    return dict(kern.variant_launches)
+
+
+def _nan_fill(torch, buf) -> None:
+    """The sentinel: every rank's copy of a fused kernel's workspace NaN,
+    landed before any rank's stream launches (a tile that reads before its
+    flag, or past a tail, then shows as NaN)."""
+    for t in buf.tensors:
+        t.fill_(float("nan"))
+    torch.cuda.synchronize()
+
+
+def _offset_view(torch, b):
+    """``b``'s values in a contiguous view whose base is one element past a
+    16-byte boundary (the fused kernels' B without 16-byte rows)."""
+    flat = torch.empty(b.numel() + 1, dtype=b.dtype, device=b.device)
+    view = flat[1:].view(b.shape)
+    view.copy_(b)
+    return view
+
+
+def fused_case(torch, timer, ctx, op, dtype, shape, seed, time_it,
+               hold_ns: int = 0) -> dict:
     """One fused kernel on every rank of ``ctx`` against its plain
     version: the communication bit for bit (B9's gathered A; B10's and
     B11's reductions of the kernel's own slots), the GEMM at B3's
     tolerance (B9's output rows; B10's and B11's partials in the slots),
-    the replicas bit for bit (B11)."""
+    the replicas bit for bit (B11). B9's landing workspace and B10's slots
+    are NaN before the checked call, and no output may hold a NaN; the
+    route each launch took is recorded (``routes``). ``shape``: (name,
+    rows a rank, K, N[, B9's sub-blocks]); ``hold_ns``: rank n - 1's
+    stream held that long before the checked call."""
     agm, grs, gar, symm = fused_modules()
-    name, m, k, ncols = shape
+    comm = coll_modules()[0]
+    name, m, k, ncols = shape[:4]
     n = ctx.num_ranks
+    hold = (n - 1, hold_ns) if hold_ns else None
     g = torch.Generator(device="cuda").manual_seed(seed)
     X = torch.randn((n, m, k), generator=g, device="cuda").to(dtype)
     W = (torch.randn((n, k, ncols), generator=g, device="cuda")
          * k ** -0.5).to(dtype)
     xs = [X[r].to(ctx.devices[r]) for r in range(n)]
     bs = [W[r].to(ctx.devices[r]) for r in range(n)]
+    if name.startswith("offset_b"):
+        bs = [_offset_view(torch, b) for b in bs]
     spread = (k ** 0.5 * X.float().pow(2).mean().sqrt().item()
               * W.float().pow(2).mean().sqrt().item())
     rec = {"case": f"{op}_{name}_n{n}_{_dtype_name(dtype)}", "op": op,
            "n": n, "dtype": _dtype_name(dtype), "rows": m, "k": k,
            "ncols": ncols, "spread": spread}
+    if hold:
+        rec["case"] += "_held"
+        rec["held_back_rank"] = {"rank": n - 1, "ns": hold_ns}
+    routes0 = _fused_routes(comm, op)
     if op == "ag_gemm":
-        sub = agm._ag_sub_chunks(m, agm.AGGemmConfig().sub_chunks, dtype)
+        acfg = agm.AGGemmConfig(sub_chunks=(shape[4] if len(shape) > 4
+                                            else 2))
+        sub = agm._ag_sub_chunks(m, acfg.sub_chunks, dtype)
+        _nan_fill(torch, symm.symm_zeros(ctx, (n * m, k), dtype,
+                                         tag="ag_gemm"))
         outs = ctx.run(lambda r: agm.ag_gemm_local(
-            xs[r], bs[r], num_ranks=n, return_gathered=True))
+            xs[r], bs[r], num_ranks=n, return_gathered=True,
+            cfg=dataclasses.replace(acfg, straggler=hold)))
         torch.cuda.synchronize()
         ctx.raise_on_comm_error()
+        finite = all(bool(torch.isfinite(o).all()) for o, _ in outs)
         full = torch.cat(list(X))
-        comm = all(torch.equal(gat.to(full.device), full) for _, gat in outs)
+        comm_ok = all(torch.equal(gat.to(full.device), full)
+                      for _, gat in outs)
         errs = [_gemm_share(torch, o.to(full.device), agm.ag_gemm_plain(
             full, W[r], n, sub, r), spread, dtype)
                 for r, (o, _) in enumerate(outs)]
-        rec.update(sub_chunks=sub, gathered_bit_identical=comm)
+        rec.update(sub_chunks=sub, gathered_bit_identical=comm_ok)
         ranks_same = True
 
         def fn(r):
-            return agm.ag_gemm_local(xs[r], bs[r], num_ranks=n)
+            return agm.ag_gemm_local(xs[r], bs[r], num_ranks=n, cfg=acfg)
 
         def plain():
             return [agm.ag_gemm_plain(full, W[r], n, sub, r)
@@ -3935,14 +4012,17 @@ def fused_case(torch, timer, ctx, op, dtype, shape, seed, time_it) -> dict:
                    "batched over the ranks (no communication)")
     elif op == "gemm_rs":
         mc = m // n
+        buf = symm.symm_zeros(ctx, (n, mc, ncols), dtype, tag="gemm_rs")
+        _nan_fill(torch, buf)
+        rcfg = grs.GemmRSConfig(straggler=hold)
         outs = ctx.run(lambda r: grs.gemm_rs_local(xs[r], bs[r],
-                                                   num_ranks=n))
+                                                   num_ranks=n, cfg=rcfg))
         torch.cuda.synchronize()
         ctx.raise_on_comm_error()
-        buf = symm.symm_zeros(ctx, (n, mc, ncols), dtype, tag="gemm_rs")
+        finite = all(bool(torch.isfinite(o).all()) for o in outs)
         slots = [t.to(X.device) for t in buf.tensors]
-        comm = all(torch.equal(gar.reduce_slots_plain(slots[r]),
-                               outs[r].to(X.device)) for r in range(n))
+        comm_ok = all(torch.equal(gar.reduce_slots_plain(slots[r]),
+                                  outs[r].to(X.device)) for r in range(n))
         parts = [dict(grs.gemm_rs_partials(X[j], W[j], n, j))
                  for j in range(n)]
         errs = [_gemm_share(torch, slots[r][j], parts[j][r], spread, dtype)
@@ -3951,7 +4031,7 @@ def fused_case(torch, timer, ctx, op, dtype, shape, seed, time_it) -> dict:
             _max_err(outs[r].to(X.device),
                      grs.gemm_rs_plain(list(X), list(W), r))
             for r in range(n))
-        rec["slot_reduction_bit_identical"] = comm
+        rec["slot_reduction_bit_identical"] = comm_ok
         ranks_same = True
 
         def fn(r):
@@ -3971,7 +4051,7 @@ def fused_case(torch, timer, ctx, op, dtype, shape, seed, time_it) -> dict:
             n, m, ncols, dtype, ctx=ctx, tag=f"smoke-{name}-{m}-{k}-{ncols}")
         idx = [idx0] * n
         nch = ws.tensors[0].shape[1]
-        comm, ranks_same, errs = True, True, []
+        comm_ok, ranks_same, errs, finite = True, True, [], True
         plain_out = gar.gemm_ar_plain(list(X), list(W))
         parts = [gar.gemm_ar_partials(X[j], W[j], nch) for j in range(n)]
         out_err = 0.0
@@ -3986,18 +4066,19 @@ def fused_case(torch, timer, ctx, op, dtype, shape, seed, time_it) -> dict:
             outs = [o.to(X.device) for o in ctx.run(call)]
             torch.cuda.synchronize()
             ctx.raise_on_comm_error()
+            finite &= all(bool(torch.isfinite(o).all()) for o in outs)
             ranks_same &= all(torch.equal(outs[0], o) for o in outs[1:])
             for r in range(n):
                 slab = ws.tensors[r][p].to(X.device)[:, :, :m]
                 red = torch.cat([gar.reduce_slots_plain(slab[c])
                                  for c in range(nch)], dim=1)
-                comm &= torch.equal(red, outs[r])
+                comm_ok &= torch.equal(red, outs[r])
                 errs += [_gemm_share(torch, slab[c, j], parts[j][c], spread,
                                      dtype)
                          for c in range(nch) for j in range(n)]
             out_err = max(out_err, _max_err(outs[0], plain_out))
         rec.update(calls=GEMM_AR_CALLS, n_chunks=nch,
-                   slot_reduction_bit_identical=comm,
+                   slot_reduction_bit_identical=comm_ok,
                    out_max_abs_err_vs_plain=out_err)
 
         def fn(r):
@@ -4015,9 +4096,19 @@ def fused_case(torch, timer, ctx, op, dtype, shape, seed, time_it) -> dict:
                    "torch.matmul of each rank's partials, batched over the "
                    "ranks (no all-reduce)")
     share = max(s for _, s in errs)
+    aligned = agm.aligned_rows(bs[0])
+    tile = (agm.gemm_tile_for(m // sub, dtype, aligned) if op == "ag_gemm"
+            else agm.gemm_tile_for(m // n, dtype, aligned)
+            if op == "gemm_rs" else agm.gemm_tile_for(m))
+    rec["route"] = comm.GEMM_ROUTES[tile]
+    routes = _fused_routes(comm, op)
+    rec["routes"] = {r: c - routes0.get(r, 0) for r, c in routes.items()
+                     if c != routes0.get(r, 0)}
     rec.update(max_abs_err=max(e for e, _ in errs), gemm_tol_share=share,
-               communication_bit_identical=comm, ranks_identical=ranks_same,
-               ok=bool(comm and ranks_same and share <= 1.0))
+               communication_bit_identical=comm_ok,
+               ranks_identical=ranks_same, outputs_finite=finite,
+               ok=bool(comm_ok and ranks_same and finite and share <= 1.0
+                       and set(rec["routes"]) == {rec["route"]}))
     if time_it:
         peak = "float32" if dtype == torch.float32 else "bfloat16"
         rec["bound_ms"], rec["bound_by"] = _bound_ms(nbytes, flops, peak)
@@ -4130,29 +4221,39 @@ def fused_timeouts(torch, devices) -> dict:
 def phase_fused(torch, timer, *, devices_for=virtual_devices,
                 ranks=COLL_RANKS, name="collectives_fused") -> dict:
     """B9, B10 and B11 at n = 2, 4 and 8 ranks, fp32 and bf16, on small
-    shapes, and at the main path's shapes (n = 4, bf16) timed; the tree AR
+    shapes, and at the main path's shapes (n = 4, bf16) timed; B9 and B10
+    on the wgmma route at the edges of its tile (bf16, every n), and with
+    rank n - 1 held back (n = 4); each case's route checked against the
+    picker's, the main shapes' against "wgmma", and bf16 on the tall
+    mma.sync tile run for B9 and B10 (the "_tall" controls); the tree AR
     at 1, 7 and 203 rows (its 4-2048-row cases run with the other
     collectives); 200 back-to-back B11 calls with a rotating straggler; a
     lost peer's CommTimeoutError for B9 and B11."""
     context = coll_modules()[4]
     bf16, f32 = torch.bfloat16, torch.float32
     cases: dict = {}
+    wgmma_routes: list = []      # (case, routes) of B9 / B10's wgmma cases
+    bf16_tall: set = set()       # B9 / B10 launched bf16 on the tall tile
     seed = 500
     for n in ranks:
         ctx = context.DistContext(
             [torch.device(d) for d in devices_for(n)], wait_timeout_ms=20_000)
         for dtype in (f32, bf16):
             for op in ("ag_gemm", "gemm_rs", "gemm_ar"):
-                shapes = list(FUSED_SMALL[op])
+                shapes = [(sh, 0) for sh in FUSED_SMALL[op]]
+                if dtype == bf16:
+                    shapes += [(sh, 0) for sh in FUSED_EDGE.get(op, ())]
                 if n == TP and dtype == bf16:
-                    shapes += list(FUSED_MAIN[op])
-                for shape in shapes:
+                    shapes += [(sh, 0) for sh in FUSED_MAIN[op]]
+                    shapes += [(sh, FUSED_HOLD_NS)
+                               for sh in FUSED_EDGE.get(op, ())[:1]]
+                for shape, hold in shapes:
                     seed += 1
                     timed = n == TP and dtype == bf16 and \
                         shape in FUSED_MAIN[op]
                     try:
                         rec = fused_case(torch, timer, ctx, op, dtype, shape,
-                                         seed, timed)
+                                         seed, timed, hold_ns=hold)
                     except Exception as exc:
                         emit({"phase": name, "failed_case": {
                             "op": op, "n": n, "shape": shape,
@@ -4160,6 +4261,12 @@ def phase_fused(torch, timer, *, devices_for=virtual_devices,
                             "error": repr(exc)})
                         raise
                     cases.setdefault(op, []).append(rec)
+                    if op != "gemm_ar" and (shape in FUSED_MAIN[op]
+                                            or shape in FUSED_EDGE[op]):
+                        wgmma_routes.append((rec["case"], rec["routes"]))
+                    if op != "gemm_ar" and dtype == bf16 and \
+                            set(rec["routes"]) == {"mma_tall"}:
+                        bf16_tall.add(op)
             for rows in TREE_ROWS:
                 seed += 1
                 timed = n == TP and dtype == bf16 and rows == TREE_MAIN_ROWS
@@ -4174,6 +4281,11 @@ def phase_fused(torch, timer, *, devices_for=virtual_devices,
     tmo = fused_timeouts(torch, devices_for(TP))
     bad = [c["case"] for cs in cases.values() for c in cs if not c["ok"]]
     check(not bad, f"{name}: disagree with their plain versions: {bad}")
+    off = [c for c, routes in wgmma_routes if set(routes) != {"wgmma"}]
+    check(wgmma_routes and not off,
+          f"{name}: the wgmma route was not launched at {off}")
+    check(bf16_tall == {"ag_gemm", "gemm_rs"},
+          f"{name}: bf16 on the tall mma.sync tile ran only for {bf16_tall}")
     check(stress["ok"], f"{name}: B11 stress wrong at calls "
           f"{stress['calls_wrong']}")
     check(tmo["ok"], f"{name}: a lost peer did not raise CommTimeoutError")
@@ -4181,7 +4293,9 @@ def phase_fused(torch, timer, *, devices_for=virtual_devices,
             "tolerance": "communication and replicas bit-identical to the "
             "plain version; each GEMM (B9's output rows, B10's and B11's "
             "slot partials) within B3's: 2^-13 sqrt(K) rms(A) rms(B) plus "
-            "one unit of the type", "main_shapes": FUSED_MAIN,
+            "one unit of the type; no NaN from the sentinel in B9's "
+            "landing workspace or B10's slots reaches an output",
+            "main_shapes": FUSED_MAIN, "edge_shapes": FUSED_EDGE,
             "gemm_ar_stress": stress, "timeout": tmo, "cases": cases}
 
 
@@ -4218,6 +4332,8 @@ def tp_engine_run(torch, eng, kernels, ids, gen, *, name, expect,
     serve_s = time.perf_counter() - t0
     c = dict(_tp_counts(comm), flash_attention=kernels[0].launches,
              paged_attention=kernels[1].launches)
+    routes = {"ag_gemm": dict(comm.AG_GEMM_KERNEL.variant_launches),
+              "gemm_rs": dict(comm.GEMM_RS_KERNEL.variant_launches)}
     steps = gen - 1
     want = {k: 0 for k in c}
     want["flash_attention"] = n * L
@@ -4241,6 +4357,7 @@ def tp_engine_run(torch, eng, kernels, ids, gen, *, name, expect,
            "serve_s": serve_s, "prefill_ms": prefill_s * 1e3,
            "decode_ms_per_step": (serve_s - prefill_s) * 1e3 / steps,
            "tokens_per_s": ids.shape[0] * gen / serve_s, "launches": c,
+           "fused_routes": routes,
            "launches_per_rank": {
                k: {"per_prefill": p, "per_decode_step": s}
                for k, (p, s) in expect.items()}, "tokens": out}
@@ -4259,12 +4376,13 @@ def tp_profile(torch, eng, ids, steps: int = 4) -> dict:
 def phase_tp_engine(torch, params, cfg, Engine, kernels) -> dict:
     """Qwen3-8B at full width and depth, bf16, ``Engine(cfg, params, ctx of
     4 virtual ranks, max_seq=2048).serve`` with the reference's defaults
-    (backend "auto", no page size): a 2 x 1024 prompt for 24 tokens — the
-    prefill in mode "overlap" (B9 5 a layer, B10 2 a layer), the linear
-    decode's reductions through the parity AR (2 a layer) —, again under
-    TDTPU_GEMM_AR=1 (B11 in place of the parity AR), then a 1 x 203
-    prompt whose "ar" prefill reduces through the double tree (2 a layer);
-    TP=1's Engine.serve of the same prompts in the same call."""
+    (backend "auto", no page size): a 2 x 1024 prompt for TP_ENGINE_GEN
+    tokens — the prefill in mode "overlap" (B9 5 a layer, B10 2 a layer,
+    all on the wgmma route), the linear decode's reductions through the
+    parity AR (2 a layer) —, again under TDTPU_GEMM_AR=1 (B11 in place of
+    the parity AR), then a 1 x 203 prompt whose "ar" prefill reduces
+    through the double tree (2 a layer); TP=1's Engine.serve of the same
+    prompts in the same call."""
     context = coll_modules()[4]
     L = cfg.num_layers
     ctx = context.initialize_distributed(devices=virtual_devices(TP),
@@ -4292,7 +4410,13 @@ def phase_tp_engine(torch, params, cfg, Engine, kernels) -> dict:
             torch, eng, kernels, ids, TP_ENGINE_GEN, name="tp_engine",
             expect={"ag_gemm": (5 * L, 0), "gemm_rs": (2 * L, 0),
                     "allreduce_parity": (0, 2 * L)})
-        defaults["decode_profile"] = tp_profile(torch, eng, ids)
+        defaults["decode_profile"] = tp_profile(torch, eng, ids,
+                                                steps=TP_PROFILE_STEPS)
+        for k in ("ag_gemm", "gemm_rs"):
+            check(defaults["fused_routes"][k] ==
+                  {"wgmma": defaults["launches"][k]},
+                  f"tp_engine: {k} left the wgmma route: "
+                  f"{defaults['fused_routes'][k]}")
         rec["defaults"] = defaults
         os.environ["TDTPU_GEMM_AR"] = "1"
         fused = tp_engine_run(
@@ -4300,11 +4424,13 @@ def phase_tp_engine(torch, params, cfg, Engine, kernels) -> dict:
             name="tp_engine_gemm_ar",
             expect={"ag_gemm": (5 * L, 0), "gemm_rs": (2 * L, 0),
                     "gemm_ar": (0, 2 * L)})
-        fused["decode_profile"] = tp_profile(torch, eng, ids)
+        fused["decode_profile"] = tp_profile(torch, eng, ids,
+                                             steps=TP_PROFILE_STEPS)
         rec["gemm_ar"] = fused
         os.environ.pop("TDTPU_GEMM_AR")
         rec["tree"] = tp_engine_run(
-            torch, eng, kernels, tree_ids, 8, name="tp_engine_tree",
+            torch, eng, kernels, tree_ids, TP_TREE_GEN,
+            name="tp_engine_tree",
             expect={"allreduce_tree": (2 * L, 0),
                     "allreduce_parity": (0, 2 * L)})
     finally:
@@ -4324,7 +4450,7 @@ def phase_tp_engine(torch, params, cfg, Engine, kernels) -> dict:
     rec["tp1_tokens_per_s"] = 2 * TP_ENGINE_GEN / rec["tp1_serve_s"]
     for k in ("defaults", "gemm_ar", "tree"):
         toks = rec[k].pop("tokens")
-        want = tp1 if k != "tree" else one.serve(tree_ids, 8)
+        want = tp1 if k != "tree" else one.serve(tree_ids, TP_TREE_GEN)
         rec[k]["bf16_tokens_equal_tp1"] = bool(torch.equal(toks, want))
     rec["note_tokens"] = ("bf16 tokens may leave TP=1's where two logits "
                           "differ by less than the summation order moves "
@@ -4465,7 +4591,7 @@ AG_MESH_MAIN = 1024
 A2A_CALLS = 200
 EP_RANKS = 4
 EP_DECODE_TOKENS = 4
-EP_STEPS = 8
+EP_STEPS = 4                # the EP layer's stream steps (was 8)
 EP_PREFILL_TOKENS = 512
 # bf16 EP-MoE against the one-rank form on the same tokens: the expert
 # products are the same rows, the top-k combine a sum in another order
@@ -4927,8 +5053,9 @@ def phase_ep_moe(torch, params, cfg) -> dict:
     """The EP layer at Qwen3-30B-A3B's MoE widths (128 experts, h 2048,
     ffn 768, top-8) on 4 virtual ranks, 32 experts a rank as dim-0 views
     of the one-rank expert stacks (``params``, bf16, 48 layers): 4 tokens
-    a rank through all 48 layers for 8 steps on the parity stream (768
-    parity calls a rank), then 512 tokens a rank through the barrier
+    a rank through all 48 layers for EP_STEPS steps on the parity stream
+    (2 x 48 parity calls a rank a step), then 512 tokens a rank through
+    the barrier
     form; each layer held against the one-rank form on the gathered
     tokens; the layer's time against ``moe_tp_fwd_local`` on the same
     tokens at one rank. Then fp32 at 2 layers, both forms, tightly."""
@@ -5045,8 +5172,9 @@ def moe_overlap_layer(torch, cfg) -> dict:
 def phase_tp_moe_engine(torch, params, cfg, Engine, kernels, ServingEngine,
                         prompts) -> tuple:
     """Qwen3-30B-A3B at full width and depth, bf16: TP=1's
-    ``Engine(cfg, params, max_seq=2048).serve`` of a 2 x 1024 prompt for 16
-    tokens, then ``params`` sharded over 4 virtual ranks leaf by leaf
+    ``Engine(cfg, params, max_seq=2048).serve`` of a 2 x 1024 prompt for
+    TP_MOE_GEN tokens, then ``params`` sharded over 4 virtual ranks leaf by
+    leaf
     (``shard_params(consume=True)``: the full tree is emptied as its shards
     are made, 61 GB never held twice) and the TP engine's serve with the
     defaults — prefill "overlap" (B9 3 a layer: q, k, v; B10 1: o; the
@@ -5054,7 +5182,8 @@ def phase_tp_moe_engine(torch, params, cfg, Engine, kernels, ServingEngine,
     attention's and the MoE combine's) — counts exact; the decode profile;
     the sequential "overlap" MoE layer at n = 2 (the full-mesh push).
     Then ``tp_moe_serving``: ServingEngine (page 16) on the same shards,
-    the 4 shortest serving prompts x 8 tokens, and a 4-step decode
+    the TP_MOE_SERVING_PROMPTS shortest serving prompts x
+    TP_MOE_SERVING_GEN tokens, and a 2-step decode
     window.
     Returns the two records; ``params`` is empty afterwards."""
     from triton_distributed_tpu_torch.models.convert import shard_params
@@ -5072,7 +5201,7 @@ def phase_tp_moe_engine(torch, params, cfg, Engine, kernels, ServingEngine,
     one.serve(ids[:, :64], 2)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    tp1 = one.serve(ids, 16)
+    tp1 = one.serve(ids, TP_MOE_GEN)
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -5080,8 +5209,9 @@ def phase_tp_moe_engine(torch, params, cfg, Engine, kernels, ServingEngine,
     torch.cuda.synchronize()
     pre_s = time.perf_counter() - t0
     rec["tp1"] = {"serve_s": serve_s, "prefill_ms": pre_s * 1e3,
-                  "decode_ms_per_step": (serve_s - pre_s) * 1e3 / 15,
-                  "tokens_per_s": 2 * 16 / serve_s}
+                  "decode_ms_per_step":
+                      (serve_s - pre_s) * 1e3 / (TP_MOE_GEN - 1),
+                  "tokens_per_s": 2 * TP_MOE_GEN / serve_s}
     del one
     gc_collect(torch)
     ctx = context.initialize_distributed(devices=virtual_devices(TP),
@@ -5099,11 +5229,12 @@ def phase_tp_moe_engine(torch, params, cfg, Engine, kernels, ServingEngine,
           "tp_moe_engine: the defaults are not the reference's")
     eng.serve(ids[:, :64], 2)                                     # warm-up
     rec["defaults"] = tp_engine_run(
-        torch, eng, kernels, ids, 16, name="tp_moe_engine",
+        torch, eng, kernels, ids, TP_MOE_GEN, name="tp_moe_engine",
         expect={"ag_gemm": (3 * L, 0), "gemm_rs": (L, 0),
                 "reduce_scatter_ring": (L, 0),
                 "allreduce_parity": (0, 2 * L)})
-    rec["defaults"]["decode_profile"] = tp_profile(torch, eng, ids, steps=2)
+    rec["defaults"]["decode_profile"] = tp_profile(
+        torch, eng, ids, steps=TP_PROFILE_STEPS // 2)
     rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
     toks = rec["defaults"].pop("tokens")
     rec["defaults"]["bf16_tokens_equal_tp1"] = bool(torch.equal(toks, tp1))
@@ -5116,12 +5247,15 @@ def phase_tp_moe_engine(torch, params, cfg, Engine, kernels, ServingEngine,
     se = ServingEngine(seng, max_batch=4, prefill_chunk=256)
     srec = {"phase": "tp_moe_serving", "ranks": TP, "model": "Qwen3-30B-A3B",
             "serve": tp_drive(torch, se, kernels,
-                              sorted(prompts, key=len)[:4], 8,
-                              name="tp_moe_serving", slice_ar="one_shot")}
+                              sorted(prompts, key=len)[
+                                  :TP_MOE_SERVING_PROMPTS],
+                              TP_MOE_SERVING_GEN, name="tp_moe_serving",
+                              slice_ar="one_shot")}
     del se
     se = ServingEngine(seng, max_batch=4, prefill_chunk=256)
     srec["decode_window"] = decode_window(
-        torch, se, seng, "decode", steps=4, prompts=random_prompts(
+        torch, se, seng, "decode", steps=TP_WINDOW_STEPS // 2,
+        prompts=random_prompts(
             torch, cfg.vocab_size, (100, 400, 250, 150), 14))
     del se, seng, eng, shards
     ctx.close()

@@ -9,7 +9,9 @@ CUDA events, the L2 cache flushed before each launch (as
 a 256-row slice at 768 of a 2048-row buffer and a non-causal 512-row shard
 (both as partials), each beside SDPA where one PyTorch call computes the
 same function, and checks each output against the tree's plain version.
-Prints one JSON line per case, then the card's name and power limit.
+Prints one JSON line per case, with the SHA-256 of the kernel's outputs
+(inputs drawn from one seed, so two trees whose K1 computes the same bits
+print the same digests), then the card's name and power limit.
 
 To compare two commits on one card, unpack the other one's tree with
 ``git archive`` into a git-ignored directory and run, in one call, parent,
@@ -18,6 +20,7 @@ change, change, parent:
     python3 scripts/time_port_flash.py [--tree DIR] [--label NAME]
 """
 import argparse
+import hashlib
 import importlib
 import json
 import os
@@ -96,7 +99,13 @@ def main() -> int:
         err = (out - ref).abs().max().item()
         # chip_smoke's K1 tolerance: atol 4e-3, rtol 1.6e-2.
         ok = bool(((out - ref).abs() <= 4e-3 + 1.6e-2 * ref.abs()).all())
+        digest = hashlib.sha256()
+        for t in got:
+            if t is not None:
+                digest.update(t.contiguous().view(torch.uint8).cpu()
+                              .numpy().tobytes())
         rec = {"tree": label, "case": name, "max_abs_err": err, "ok": ok,
+               "sha256": digest.hexdigest(),
                "ms": timed_ms(torch, flush, lambda: fa._flash_cuda(
                    q, k, v, qo, ko, causal=causal, normalize=norm))}
         if norm and qo == ko and sq == sk:

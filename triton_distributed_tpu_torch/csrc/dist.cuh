@@ -225,14 +225,15 @@ __device__ __forceinline__ const T* elems(const uint4& v) {
 
 // Sum the n slots of `ws` (slot stride `slot_vec` vectors) over vectors
 // [v0, v1): fp32 from 0, rank order, one cast — ops/allreduce.py:91
-// _reduce_slots.
+// _reduce_slots. Threads tid of nthreads share the vectors.
 template <typename T>
-__device__ __forceinline__ void reduce_slots(const uint4* ws,
-                                             long long slot_vec, int n,
-                                             uint4* out, long long v0,
-                                             long long v1) {
+__device__ __forceinline__ void reduce_slots_part(const uint4* ws,
+                                                  long long slot_vec, int n,
+                                                  uint4* out, long long v0,
+                                                  long long v1, int tid,
+                                                  int nthreads) {
   constexpr int E = Vec<T>::N;
-  for (long long v = v0 + threadIdx.x; v < v1; v += blockDim.x) {
+  for (long long v = v0 + tid; v < v1; v += nthreads) {
     float acc[E];
 #pragma unroll
     for (int e = 0; e < E; ++e) acc[e] = 0.0f;
@@ -250,6 +251,15 @@ __device__ __forceinline__ void reduce_slots(const uint4* ws,
   }
 }
 
+// reduce_slots_part over the whole block.
+template <typename T>
+__device__ __forceinline__ void reduce_slots(const uint4* ws,
+                                             long long slot_vec, int n,
+                                             uint4* out, long long v0,
+                                             long long v1) {
+  reduce_slots_part<T>(ws, slot_vec, n, out, v0, v1, threadIdx.x,
+                       blockDim.x);
+}
 
 // Tell every rank j (this one included) that this block reached `val`:
 // flag idx of each rank's pad. Call from every thread.

@@ -1,12 +1,13 @@
 // The fused GEMM + communication kernels of the tensor-parallel path, on
-// dist.cuh (flags, waits with a deadline) and gemm_tile.cuh (B3's tile
-// code). Each replaces one TPU kernel of the JAX package:
+// dist.cuh (flags, waits with a deadline), gemm_tile.cuh (B3's tile code)
+// and gemm_wgmma.cuh (the wgmma + TMA mainloop). Each replaces one TPU
+// kernel of the JAX package:
 //
 //  ag_gemm   B9, ops/allgather_gemm.py:88 _ag_gemm_kernel — entry
 //            barrier; every block pushes its share of each of this
 //            rank's `sub` A sub-blocks into slot `rank` of every rank's
 //            landing workspace (n*m, k) and raises that (source,
-//            sub-block) flag of its own on each; then the blocks walk the
+//            sub-block) flag of its own on each; the blocks walk the
 //            output tiles of all_gather(A) @ B_local in rank-swizzled
 //            order (own rows first, then rank+1, ...), each tile waiting
 //            only for the flags of its (source, sub-block). fp32
@@ -33,24 +34,45 @@
 // rank, 0.017 ms at 989 TFLOP/s bf16), their communication a copy of A
 // (B9) or of the partial output (B10) to every peer; B11 at decode
 // (M = 2) is bound by the bytes of its weight shard and by the flag
-// round trip. The design is the simple one: B3's mma.sync tiles, staged
-// through registers, no TMA or wgmma; a persistent grid of one block an
-// SM (each reserves more than half an SM's shared memory) on at most 1/r
-// of the SMs (r = ranks on the card), so every rank's whole grid is
-// resident at once and a laggard rank's other kernels keep SMs to run
-// on; every block
-// issues its pushes before it waits on anything, and every wait has the
-// group's deadline (a lost peer writes the error word and the kernel
-// returns). Flags are 64-bit epochs never reset, one per (source,
-// sub-block, block) or (source, block): a waiter knows which rows landed.
+// round trip. Two routes, picked by the wrapper from dtype, rows and
+// alignment before the launch (ops/allgather_gemm.py gemm_tile_for):
+//
+//  - bf16 at the tall tile, A's and B's rows whole 16-byte units (B9 and
+//    B10 only): the wgmma + TMA mainloop of gemm_wgmma.cuh, a producer
+//    warpgroup and two consumer warpgroups a block, clusters of two
+//    blocks on a pair of row tiles of the same columns. B9 reads its own
+//    rank's rows
+//    straight from its input through their own tensor map, so the
+//    own-rank tiles need no flag, and the producer's three free warps push
+//    A's sub-blocks to the peers while the consumers compute them; a
+//    peer's sub-block is read only after its flags landed and a
+//    fence.proxy.async (the pushes are generic-proxy stores, TMA reads
+//    through the async proxy). B10 stores its tiles with 16-byte vectors
+//    into the owner's slot; its reduce is unchanged.
+//  - everything else (fp32, the short tile, an unaligned B, and B11):
+//    B3's mma.sync tiles, staged through registers, no TMA or wgmma.
+//
+// Both run a persistent grid of one block an SM (each reserves more than
+// half an SM's shared memory) on at most 1/r of the SMs (r = ranks on the
+// card), so every rank's whole grid is resident at once and a laggard
+// rank's other kernels keep SMs to run on; every block issues its pushes
+// before it waits on anything, and every wait has the group's deadline (a
+// lost peer writes the error word and the kernel returns; the wgmma
+// route's producer runs its ring on over whatever landed, so the
+// consumers finish; the host raises). Flags are 64-bit epochs never
+// reset, one per (source, sub-block, block) or (source, block): a waiter
+// knows which rows landed.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "dist.cuh"
 #include "gemm_tile.cuh"
+#include "gemm_wgmma.cuh"
 
 using namespace tdt::dist;
+using namespace tdt::hopper;
+namespace wg = tdt::wg;
 using tdt::tile::bf16;
 using tdt::tile::NT;
 
@@ -297,6 +319,214 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
+// ---------------------------------------------------------------------------
+// The wgmma + TMA route of B9 and B10 (bf16, tall tile): gemm_wgmma.cuh's
+// ring; the entry barrier and the flags as above.
+// ---------------------------------------------------------------------------
+
+// Producer warp: wait (its 32 lanes sharing the G flags) for the flags
+// base + b, b < G; false on timeout. Every lane's acquire is ordered before
+// the warp's later work by the __syncwarp.
+__device__ __forceinline__ bool warp_wait_flags(const Group& g, int base,
+                                                int G) {
+  const int lane = threadIdx.x & 31;
+  bool ok = true;
+  for (int b = lane; b < G && ok; b += 32) ok = spin(g, base + b, g.epoch);
+  ok = __all_sync(0xffffffffu, ok);
+  __syncwarp();
+  return ok;
+}
+
+// B9: flags kGemmFlagBase + (source * sub + s) * kMaxGemmBlocks + block.
+// tx: this rank's A (m, k); tws: this rank's landing workspace (n*m, k);
+// tb: B (k, ncols). Clusters of two CTAs; the cluster's pair tile t: group
+// q = t / per (source rank me + q / sub, sub-block q % sub), pair t % per
+// of it.
+template <int BN>
+__global__ void __cluster_dims__(wg::CLUSTER, 1, 1)
+    __launch_bounds__(wg::THREADS, 1)
+    ag_gemm_wgmma(Group g, Shape a, const __grid_constant__ CUtensorMap tx,
+                  const __grid_constant__ CUtensorMap tws,
+                  const __grid_constant__ CUtensorMap tb) {
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  if (!grid_barrier(g)) return;
+  const wg::Ring ring = wg::ring_of<BN>(smem_raw);
+  if (threadIdx.x == 0) wg::ring_init<BN>(ring);
+  __syncthreads();
+  const int n = g.n, me = g.rank, sub = a.parts;
+  const int crank = blockIdx.x % wg::CLUSTER;   // the cluster's CTA rank
+  const int cl = blockIdx.x / wg::CLUSTER, ncl = gridDim.x / wg::CLUSTER;
+  const int m_sub = a.m / sub;
+  const int rtp = wg::pairs_of(ceil_div(m_sub, wg::BM));
+  const int per = rtp * ceil_div(a.ncols, BN);
+  const int total = n * sub * per;
+  const int ktiles = ceil_div(a.k, wg::BK);
+  // Warp-uniform (a shuffle from lane 0), so the wgmma descriptors built
+  // from it live in uniform registers.
+  const int wgi = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);
+  if (wgi == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(
+        wg::kProducerRegs));
+    const int warp = (threadIdx.x >> 5) & 3;
+    if (warp == 0) {
+      // TMA: own rows from x at once; a peer's (source, sub-block) after
+      // its flags from every block of that peer, then a proxy fence. A
+      // timed-out wait (the error word is written) stops the waiting, and
+      // the ring runs on so the consumers finish.
+      int it = 0, waited = -1;
+      bool failed = false;
+      for (int t = cl; t < total; t += ncl) {
+        const int q = t / per;
+        const int r = (me + q / sub) % n, s = q % sub;
+        const int2 at = wg::tile_at(t % per, rtp, BN, crank);
+        const int row = s * m_sub + at.x;
+        if (r != me && q != waited) {
+          if (!failed)
+            failed = !warp_wait_flags(
+                g, kGemmFlagBase + (r * sub + s) * kMaxGemmBlocks,
+                gridDim.x);
+          waited = q;
+          if ((threadIdx.x & 31) == 0) fence_proxy_async_global();
+        }
+        if ((threadIdx.x & 31) == 0)
+          wg::load_tile<BN>(ring, it, r == me ? &tx : &tws,
+                            r == me ? row : r * a.m + row, &tb, at.y,
+                            ktiles);
+        __syncwarp();
+      }
+    } else {
+      // Warps 1-3: this block's share of each sub-block, read once and
+      // stored into slot `me` of every rank (the peers before this one),
+      // then that sub-block's flag raised on every rank.
+      const int pt = threadIdx.x - 256 - 32, np = 96;
+      constexpr int U = 4;
+      const long long row_vec = (long long)a.k * 2 / 16;
+      const long long sub_vec = m_sub * row_vec;
+      const uint4* x = static_cast<const uint4*>(a.x);
+      const long long me_off = (long long)me * a.m * row_vec;
+      for (int s = 0; s < sub; ++s) {
+        long long v0, v1;
+        block_range(sub_vec, &v0, &v1);
+        const uint4* src = x + s * sub_vec;
+        const long long off = me_off + s * sub_vec;
+        for (long long v = v0 + pt; v < v1; v += np * U) {
+          uint4 val[U];
+#pragma unroll
+          for (int u = 0; u < U; ++u)
+            if (v + u * np < v1) val[u] = __ldcg(src + v + u * np);
+          for (int i = 1; i <= n; ++i) {
+            uint4* dst = reinterpret_cast<uint4*>(
+                             peer_base(g, (me + n - i) % n)) + off;
+#pragma unroll
+            for (int u = 0; u < U; ++u)
+              if (v + u * np < v1) dst[v + u * np] = val[u];
+          }
+        }
+        bar_sync(wg::kBarPushers, np);
+        if (pt < n) {
+          fence();
+          st_release_sys(flags(g, pt) + kGemmFlagBase +
+                             (me * sub + s) * kMaxGemmBlocks + blockIdx.x,
+                         g.epoch);
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(
+        wg::kConsumerRegs));
+    bf16* out = static_cast<bf16*>(a.out);
+    int it = 0;
+    float acc[BN / 2];
+    for (int t = cl; t < total; t += ncl) {
+      const int q = t / per;
+      const int r = (me + q / sub) % n, s = q % sub;
+      const int2 at = wg::tile_at(t % per, rtp, BN, crank);
+      wg::mma_tile<BN>(ring, it, ktiles, wgi, acc);
+      wg::store_tile<BN>(
+          wgi, acc,
+          out + ((long long)r * a.m + s * m_sub + at.x) * a.ncols + at.y,
+          a.ncols, m_sub - at.x, a.ncols - at.y);
+    }
+  }
+}
+
+// B10: flags kGemmFlagBase + source * kMaxGemmBlocks + block. tx: this
+// rank's A (m, k); tb: B (k, ncols). Clusters of two CTAs; the cluster's
+// pair tile t: chunk i = t / per (owner me + 1 + i), pair t % per of it.
+template <int BN>
+__global__ void __cluster_dims__(wg::CLUSTER, 1, 1)
+    __launch_bounds__(wg::THREADS, 1)
+    gemm_rs_wgmma(Group g, Shape a, const __grid_constant__ CUtensorMap tx,
+                  const __grid_constant__ CUtensorMap tb) {
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  if (!grid_barrier(g)) return;
+  const wg::Ring ring = wg::ring_of<BN>(smem_raw);
+  if (threadIdx.x == 0) wg::ring_init<BN>(ring);
+  __syncthreads();
+  const int n = g.n, me = g.rank;
+  const int crank = blockIdx.x % wg::CLUSTER;
+  const int cl = blockIdx.x / wg::CLUSTER, ncl = gridDim.x / wg::CLUSTER;
+  const int mc = a.m / n;
+  const int rtp = wg::pairs_of(ceil_div(mc, wg::BM));
+  const int per = rtp * ceil_div(a.ncols, BN);
+  const int ktiles = ceil_div(a.k, wg::BK);
+  const int wgi = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);
+  if (wgi == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(
+        wg::kProducerRegs));
+    if (threadIdx.x == 256) {
+      int it = 0;
+      for (int t = cl; t < n * per; t += ncl) {
+        const int c = (me + 1 + t / per) % n;
+        const int2 at = wg::tile_at(t % per, rtp, BN, crank);
+        wg::load_tile<BN>(ring, it, &tx, c * mc + at.x, &tb, at.y, ktiles);
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(
+      wg::kConsumerRegs));
+  const int ct = threadIdx.x;     // 0 .. 255
+  const int flag = kGemmFlagBase + me * kMaxGemmBlocks + blockIdx.x;
+  // Tell chunk owner j that this block's stores to it are done: the
+  // consumers meet, then one fences and raises the flag.
+  auto tell = [&](int j) {
+    bar_sync(wg::kBarConsumers, 256);
+    if (ct == 0) {
+      fence();
+      st_release_sys(flags(g, j) + flag, g.epoch);
+    }
+  };
+  int it = 0, told = 0;
+  float acc[BN / 2];
+  for (int t = cl; t < n * per; t += ncl) {
+    const int i = t / per;
+    for (; told < i; ++told) tell((me + 1 + told) % n);
+    const int c = (me + 1 + i) % n;
+    const int2 at = wg::tile_at(t % per, rtp, BN, crank);
+    bf16* dst = reinterpret_cast<bf16*>(peer_base(g, c)) +
+                (long long)me * mc * a.ncols;
+    wg::mma_tile<BN>(ring, it, ktiles, wgi, acc);
+    wg::store_tile<BN>(wgi, acc, dst + (long long)at.x * a.ncols + at.y,
+                       a.ncols, mc - at.x, a.ncols - at.y);
+  }
+  for (; told < n; ++told) tell((me + 1 + told) % n);
+  // Every rank's blocks of this rank's chunk, the flags shared by the
+  // consumers; then the unchanged slot reduction over 256 threads.
+  const int G = gridDim.x;
+  bool ok = true;
+  for (int f = ct; f < n * G && ok; f += 256)
+    ok = spin(g, kGemmFlagBase + (f / G) * kMaxGemmBlocks + f % G,
+              g.epoch);
+  if (!bar_and(wg::kBarConsumers, 256, ok)) return;
+  const long long slot_vec = (long long)mc * a.ncols * 2 / 16;
+  long long v0, v1;
+  block_range(slot_vec, &v0, &v1);
+  reduce_slots_part<bf16>(
+      reinterpret_cast<const uint4*>(peer_base(g, me)), slot_vec, n,
+      static_cast<uint4*>(a.out), v0, v1, ct, 256);
+}
+
 // Shared memory each block of a fused kernel reserves: more than half of an
 // SM's 228 KiB, so a block holds its SM alone. Every block of these
 // kernels may spin on a peer; a spinning block that shared its SM with a
@@ -304,7 +534,8 @@ __global__ void __launch_bounds__(NT)
 // that peer's own fused kernel) could leave no SM with room for that
 // kernel's blocks, and the peer would never arrive. One block an SM, and
 // at most 1/r of the SMs a rank (r ranks on the card), leaves the
-// laggard's kernels SMs of their own.
+// laggard's kernels SMs of their own. The mma.sync tiles reserve
+// kReserveSmem; the wgmma route's ring takes wg::SMEM_BYTES, more again.
 constexpr int kReserveSmem = 120 << 10;
 
 // The persistent grid: at most `tiles` blocks and at most 1/r of the SMs.
@@ -322,6 +553,67 @@ cudaError_t persistent_grid(int tiles, int ranks_on_card, int* grid) {
 }
 
 enum Op { AG_GEMM = 0, GEMM_RS = 1, GEMM_AR = 2 };
+
+static_assert(wg::SMEM_BYTES > (228 << 10) / 2 &&
+                  wg::SMEM_BYTES <= 232448,
+              "the ring holds its SM alone and fits a block");
+
+// The wgmma route of B9 (op 0) and B10 (op 1) at tile width BN: bf16; A's
+// rows, B's rows and the bases whole 16-byte units (else refused: the
+// wrapper routes such shapes to the mma.sync tiles before the launch). ws:
+// this rank's landing workspace (B9's A map over it).
+template <int BN>
+cudaError_t launch_wgmma_bn(int op, const Group& g, const Shape& a,
+                            const void* ws, int ranks_on_card,
+                            cudaStream_t stream) {
+  // Clusters of two CTAs, one a pair of row tiles: the grid is even, at
+  // most 1/r of the SMs, at most two blocks a pair tile.
+  const int tn = ceil_div(a.ncols, BN);
+  const int pairs =
+      op == AG_GEMM
+          ? g.n * a.parts *
+                wg::pairs_of(ceil_div(a.m / a.parts, wg::BM)) * tn
+          : g.n * wg::pairs_of(ceil_div(a.m / g.n, wg::BM)) * tn;
+  int grid = 1;
+  cudaError_t err = persistent_grid(wg::CLUSTER * pairs, ranks_on_card,
+                                    &grid);
+  if (err != cudaSuccess) return err;
+  grid -= grid % wg::CLUSTER;
+  if (grid < wg::CLUSTER) return cudaErrorInvalidConfiguration;
+  CUtensorMap tx, tb, tws;
+  err = make_map_2d(&tx, a.x, a.m, a.k, a.k, wg::BM);
+  if (err == cudaSuccess)
+    err = make_map_2d(&tb, a.b, a.k, a.ncols, a.ncols, wg::BK);
+  if (err == cudaSuccess && op == AG_GEMM)
+    err = make_map_2d(&tws, ws, (long long)g.n * a.m, a.k, a.k, wg::BM);
+  if (err != cudaSuccess) return err;
+  static tdt::SmemCap cap_ag, cap_rs;
+  if (op == AG_GEMM) {
+    err = tdt::ensure_smem(ag_gemm_wgmma<BN>, wg::SMEM_BYTES, cap_ag);
+    if (err == cudaSuccess)
+      ag_gemm_wgmma<BN><<<grid, wg::THREADS, wg::SMEM_BYTES, stream>>>(
+          g, a, tx, tws, tb);
+  } else {
+    err = tdt::ensure_smem(gemm_rs_wgmma<BN>, wg::SMEM_BYTES, cap_rs);
+    if (err == cudaSuccess)
+      gemm_rs_wgmma<BN><<<grid, wg::THREADS, wg::SMEM_BYTES, stream>>>(
+          g, a, tx, tb);
+  }
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// BN 256 where the output has 512 columns or more (fewer bytes from L2 a
+// product), else 128 (gemm_wgmma.cuh).
+cudaError_t launch_wgmma(int op, const Group& g, const Shape& a,
+                         const void* ws, int ranks_on_card,
+                         cudaStream_t stream) {
+  if (op == GEMM_AR || (a.k * 2) % 16 || (a.ncols * 2) % 16 || !a.vec_b)
+    return cudaErrorInvalidValue;
+  return a.ncols >= 512
+             ? launch_wgmma_bn<256>(op, g, a, ws, ranks_on_card, stream)
+             : launch_wgmma_bn<128>(op, g, a, ws, ranks_on_card, stream);
+}
 
 template <typename T, int CFG>
 cudaError_t launch(int op, const Group& g, const Shape& a, int ldb,
@@ -362,20 +654,22 @@ cudaError_t launch(int op, const Group& g, const Shape& a, int ldb,
 extern "C" {
 
 // op: 0 AG+GEMM (B9), 1 GEMM+RS (B10), 2 GEMM+AR (B11). dtype: 0 float32,
-// 1 bfloat16 (A, B and out alike). cfg: the tile (0 tall, 1 short).
+// 1 bfloat16 (A, B and out alike). cfg: the route (0 the tall mma.sync
+// tile, 1 the short one, 2 the wgmma + TMA mainloop: bf16, B9 and B10).
 // x, b, out: this rank's A, B and output, contiguous (B11's b: the whole
-// (k, ldb) shard, its chunks read in place). m, mp, k, ncols, parts: see
-// Shape. epoch: the call's epoch (B11: call_index, sent as + 1).
+// (k, ldb) shard, its chunks read in place); ws: this rank's symmetric
+// workspace (its base as the host sees it, for B9's tensor map). m, mp,
+// k, ncols, parts: see Shape. epoch: the call's epoch (B11: call_index, sent as + 1).
 // ranks_on_card: ranks sharing this card (the grid's share of it).
 // Returns the launch's cudaError_t.
 int tdt_gemm_comm(const void* table, const void* sig_table, void* err,
                   int rank, int n, unsigned long long epoch,
                   long long timeout_ns, const void* x, const void* b,
-                  void* out, int op, int m, int mp, int k, int ncols, int ldb,
-                  int parts, int dtype, int cfg, int vec_b, int ranks_on_card,
-                  cudaStream_t stream) {
+                  void* out, const void* ws, int op, int m, int mp, int k,
+                  int ncols, int ldb, int parts, int dtype, int cfg,
+                  int vec_b, int ranks_on_card, cudaStream_t stream) {
   if (n < 1 || n > kMaxRanks || rank < 0 || rank >= n || m < 1 || k < 1 ||
-      ncols < 1 || parts < 1 || op < 0 || op > 2)
+      ncols < 1 || parts < 1 || op < 0 || op > 2 || cfg < 0 || cfg > 2)
     return cudaErrorInvalidValue;
   if (op == AG_GEMM && (m % parts || parts > 4)) return cudaErrorInvalidValue;
   if (op == GEMM_RS && m % n) return cudaErrorInvalidValue;
@@ -383,6 +677,9 @@ int tdt_gemm_comm(const void* table, const void* sig_table, void* err,
   const Group g = make_group(table, sig_table, err, rank, n,
                              op == GEMM_AR ? epoch + 1 : epoch, timeout_ns);
   const Shape a{x, b, out, m, mp, k, ncols, parts, vec_b};
+  if (cfg == 2)
+    return dtype == 1 ? launch_wgmma(op, g, a, ws, ranks_on_card, stream)
+                      : cudaErrorInvalidValue;
   const int code = dtype * 2 + cfg;
   switch (code) {
     case 0: return launch<float, 0>(op, g, a, ldb, ranks_on_card, stream);

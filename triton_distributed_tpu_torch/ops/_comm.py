@@ -75,8 +75,13 @@ A2A_PARITY_KERNEL = CudaKernel("all_to_all.cu", "tdt_a2a_parity", _A2A_ARGS)
 _GEMM_COMM_ARGS = ([ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int,
                                             ctypes.c_ulonglong,
                                             ctypes.c_longlong]
-                   + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 11
+                   + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11
                    + [ctypes.c_void_p])
+# The fused kernels' routes, by the tile code the wrappers pass
+# (ops/allgather_gemm.gemm_tile_for): B3's tall and short mma.sync tiles,
+# and the wgmma + TMA mainloop. Each launch counts under its route's name
+# in ``variant_launches``.
+GEMM_ROUTES = ("mma_tall", "mma_short", "wgmma")
 AG_GEMM_KERNEL = CudaKernel("gemm_comm.cu", "tdt_gemm_comm", _GEMM_COMM_ARGS)
 GEMM_RS_KERNEL = CudaKernel("gemm_comm.cu", "tdt_gemm_comm", _GEMM_COMM_ARGS)
 GEMM_AR_KERNEL = CudaKernel("gemm_comm.cu", "tdt_gemm_comm", _GEMM_COMM_ARGS)
@@ -200,8 +205,9 @@ def launch_gemm_comm(kernel: CudaKernel, buf: SymmBuffer, rank: int,
                      ncols: int, ldb: int, parts: int, tile: int,
                      vec_b: bool) -> None:
     """One launch of a fused GEMM kernel (``csrc/gemm_comm.cu``) at the
-    rank group's meeting, as :func:`launch`. ``tile``: 0 the tall tile
-    (prefill rows), 1 the short one (decode). The kernel sizes its
+    rank group's meeting, as :func:`launch`. ``tile``: the route of
+    :data:`GEMM_ROUTES` (0 the tall mma.sync tile, 1 the short one, 2 the
+    wgmma mainloop), counted under its name. The kernel sizes its
     persistent grid to its share of the card: the ranks on this rank's
     device (n for virtual ranks, 1 with a card a rank)."""
     ctx = buf.ctx
@@ -213,8 +219,9 @@ def launch_gemm_comm(kernel: CudaKernel, buf: SymmBuffer, rank: int,
         ptr(buf.table[rank]), ptr(buf.signal_table[rank]),
         ptr(ctx.error_word(rank)), rank, ctx.num_ranks, epoch,
         int(ctx.timeout_s * 1e9), ptr(x), ptr(b), ptr(out),
-        _GEMM_OP[kernel], m, mp, k, ncols, ldb, parts, DTYPE_CODE[x.dtype],
-        tile, int(vec_b), on_card, current_stream(dev)))
+        ptr(buf.tensors[rank]), _GEMM_OP[kernel], m, mp, k, ncols, ldb,
+        parts, DTYPE_CODE[x.dtype], tile, int(vec_b), on_card,
+        current_stream(dev)), variants=(GEMM_ROUTES[tile],))
 
 
 def rank_shards(ctx: DistContext, axis: str, x, dim: int = 0) -> list:

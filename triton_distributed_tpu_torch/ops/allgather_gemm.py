@@ -13,7 +13,10 @@ rows first), each sub-block's rows as soon as that sub-block's flag
 arrived, fp32 accumulation and one cast.
 
 On a CUDA tensor :func:`ag_gemm_local` launches B9 (counted in
-``AG_GEMM_KERNEL.launches``); on a CPU tensor it runs the plain version
+``AG_GEMM_KERNEL.launches``, and under its route in ``variant_launches``:
+:func:`gemm_tile_for` sends bf16 at the tall tile to the wgmma + TMA
+mainloop, whose own-rank tiles read the input while the pushes fly, and
+the rest to B3's mma.sync tiles); on a CPU tensor it runs the plain version
 (:func:`ag_gemm_plain` after a push through the symmetric buffer's
 slots). At n = 1 it runs B3 (``pallas_matmul``), as the reference runs
 its Pallas matmul there.
@@ -72,10 +75,18 @@ def _ag_sub_chunks(m: int, want: int, dtype) -> int:
     return sub
 
 
-def gemm_tile_for(rows: int) -> int:
-    """The compiled tile of the fused kernels for GEMMs of ``rows`` rows:
-    0 the tall one (128 x 128), 1 the short one (16 x 64, decode)."""
-    return 0 if rows >= SHORT_TILE_ROWS else 1
+def gemm_tile_for(rows: int, dtype=None, aligned: bool = False) -> int:
+    """The route of the fused kernels for GEMMs of ``rows`` rows
+    (``_comm.GEMM_ROUTES``): 1 the short mma.sync tile (16 x 64, decode)
+    below ``SHORT_TILE_ROWS``; at the tall tile 2, the wgmma + TMA
+    mainloop (``csrc/gemm_wgmma.cuh``: 128 x 256 tiles from 512 output
+    columns, 128 x 128 below), for bf16 whose B rows and base are whole
+    16-byte units (``aligned``; A's are checked by the wrappers), else 0,
+    the tall mma.sync tile (128 x 128). Decided from the shape before the
+    launch; B11 passes no dtype and keeps the mma.sync tiles."""
+    if rows < SHORT_TILE_ROWS:
+        return 1
+    return 2 if dtype == torch.bfloat16 and aligned else 0
 
 
 def aligned_rows(t: torch.Tensor, ld: int | None = None) -> bool:
@@ -149,7 +160,8 @@ def ag_gemm_local(x_local: torch.Tensor, b_local: torch.Tensor,
         launch_gemm_comm(AG_GEMM_KERNEL, buf, rank, buf.next_epoch(rank), x,
                          b, out, m=m, mp=m, k=k, ncols=b.shape[1],
                          ldb=b.shape[1], parts=sub,
-                         tile=gemm_tile_for(m // sub),
+                         tile=gemm_tile_for(m // sub, x.dtype,
+                                            aligned_rows(b)),
                          vec_b=aligned_rows(b))
         if return_gathered:
             return out, buf.tensors[rank].clone()

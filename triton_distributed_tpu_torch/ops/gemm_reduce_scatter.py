@@ -12,8 +12,9 @@ ncols) workspace; once every rank's chunk landed it sums the n slots in
 slot order, from 0 in fp32, and casts once.
 
 On a CUDA tensor :func:`gemm_rs_local` launches B10 (counted in
-``GEMM_RS_KERNEL.launches``); on a CPU tensor its plain version runs
-through the symmetric buffer's slots. At n = 1 it runs B3.
+``GEMM_RS_KERNEL.launches``, and under its route in ``variant_launches``,
+picked by ``allgather_gemm.gemm_tile_for``); on a CPU tensor its plain
+version runs through the symmetric buffer's slots. At n = 1 it runs B3.
 """
 
 from __future__ import annotations
@@ -102,7 +103,8 @@ def gemm_rs_local(x_local: torch.Tensor, b_local: torch.Tensor,
         out = torch.empty((mc, ncols), dtype=x.dtype, device=x.device)
         launch_gemm_comm(GEMM_RS_KERNEL, buf, rank, buf.next_epoch(rank), x,
                          b, out, m=m, mp=m, k=k, ncols=ncols, ldb=ncols,
-                         parts=1, tile=gemm_tile_for(mc),
+                         parts=1, tile=gemm_tile_for(mc, x.dtype,
+                                                     aligned_rows(b)),
                          vec_b=aligned_rows(b))
         return out
     if x_local.device.type != "cpu":
