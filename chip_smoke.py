@@ -3262,31 +3262,36 @@ def coll_modules():
 
 def _coll_ms(torch, ctx, fn, iters: int) -> tuple:
     """Device time of one call of ``fn(rank)`` on every rank, without the
-    host in it: each rank's stream is held by a spin kernel while the rank
-    threads enqueue ``iters`` calls (meeting on the host before each
-    launch), then the calls run back to back; CUDA events on each rank's
-    stream around them, the slowest rank's span over ``iters``. The hold
-    is twice the host time the calls took in a warm-up; a measurement
-    whose enqueue outlasted its hold is taken again with twice the hold.
-    L2 is not flushed: the calls follow each other, as on the main path.
-    Returns (device ms a call, host ms a call)."""
+    host in it: each rank's stream is held by a hold kernel polling one
+    page-locked host word while the rank threads enqueue ``iters`` calls
+    (meeting on the host before each launch); the host then sets the word,
+    so every rank's calls start at one instant and run back to back; CUDA
+    events on each rank's stream around them, the slowest rank's span over
+    ``iters``. The hold's deadline is twice the host time the calls took
+    in a warm-up plus 50 ms; a measurement whose enqueue outlasted it is
+    taken again with twice the deadline. L2 is not flushed: the calls
+    follow each other, as on the main path. Returns (device ms a call,
+    host ms a call)."""
     comm = coll_modules()[0]
+    from triton_distributed_tpu_torch.runtime.build import (
+        current_stream, ptr,
+    )
+
     n = ctx.num_ranks
     t0 = time.perf_counter()
     ctx.run(lambda r: [fn(r) for _ in range(4)])
     torch.cuda.synchronize()
     host = (time.perf_counter() - t0) / 4
-    hold = 2 * host * iters + 0.02
-    for _ in range(4):
+    deadline = 2 * host * iters + 0.05
+    go = torch.zeros(1, dtype=torch.int32).pin_memory()
+    for _ in range(3):
+        go.zero_()
         evs = [(torch.cuda.Event(enable_timing=True),
                 torch.cuda.Event(enable_timing=True)) for _ in range(n)]
 
         def body(r):
-            from triton_distributed_tpu_torch.runtime.build import (
-                current_stream,
-            )
-
-            comm.SPIN.launch(int(hold * 1e9), current_stream(ctx.devices[r]))
+            comm.HOLD.launch(ptr(go), int(deadline * 1e9),
+                             current_stream(ctx.devices[r]))
             evs[r][0].record()
             for _ in range(iters):
                 fn(r)
@@ -3295,12 +3300,13 @@ def _coll_ms(torch, ctx, fn, iters: int) -> tuple:
         t0 = time.perf_counter()
         ctx.run(body)
         enqueue = time.perf_counter() - t0
+        go.fill_(1)
         torch.cuda.synchronize()
         ctx.raise_on_comm_error()
-        if enqueue < hold:
+        if enqueue < deadline:
             ms = max(s.elapsed_time(e) for s, e in evs) / iters
             return ms, host * 1e3
-        hold *= 2
+        deadline *= 2
     return "not measured: the host outran every hold", host * 1e3
 
 
@@ -4752,6 +4758,10 @@ def ag_mesh_case(torch, timer, ctx, dtype, rows: int, seed: int,
                                                      "float32")
         rec["bound_note"] = ("every rank reads its chunk and writes the n "
                              "gathered chunks, through one card's HBM")
+        # The push protocol moves exactly the bound's bytes: each rank's
+        # chunk read once and written into the n outputs (no gather
+        # buffer, no copy out).
+        rec["bytes_moved"] = rec["bound_bytes"] = n * (B + n * B)
         rec["ms"], rec["host_ms_per_call"] = _coll_ms(torch, ctx, fn, 20)
         rec["plain_ms"] = timer.ms(lambda: ag.ag_plain(list(X)))
         xp = list(X)
@@ -4759,6 +4769,160 @@ def ag_mesh_case(torch, timer, ctx, dtype, rows: int, seed: int,
             timer, n, lambda: torch.cat(xp),
             "torch.cat of the n chunks (one rank's gathered copy)"))
     return rec
+
+
+# The push protocol's edge cases (csrc/push.cuh, B4's push and B7):
+# payloads from one 16-byte vector to ~4 MB a rank, under one block's
+# share and with odd tails over many blocks (rows x cols a rank), a
+# held-back rank (2 ms on its stream before its call), and 200 calls back
+# to back without a sync.
+PUSH_TAILS = {"float32": ((1, 4), (3, 12), (5, 1028), (1000, 1028)),
+              "bfloat16": ((1, 8), (3, 24), (5, 2056), (1000, 2056))}
+PUSH_HOLD_NS = 2_000_000
+PUSH_STREAM_CALLS = 200
+
+
+def _push_perm(n: int) -> list:
+    """A permutation that is not a ring: a multicast (rank 0 to itself and
+    1 at n = 2; to n-1 and 1 beyond, the middle ranks idle, n-1 back to
+    0); at one rank (0, 0) under ``force_kernel``."""
+    if n == 1:
+        return [(0, 0)]
+    if n == 2:
+        return [(0, 0), (0, 1)]
+    return [(0, n - 1), (0, 1), (n - 1, 0)]
+
+
+def _push_call(kind: str, x, n: int, perm, out=None):
+    """One call of a push-protocol kernel on the calling rank; at n = 1
+    under ``force_kernel`` (the loopback)."""
+    _, ag, p2p, _ = sppp_modules()
+    one = n == 1
+    if kind == "ag_full_mesh":
+        return ag.all_gather_local(x, num_ranks=n, method="full_mesh_push",
+                                   force_kernel=one, out=out)
+    if kind == "p2p_shift":
+        return p2p.p2p_shift_local(x, 1, num_ranks=n, force_kernel=one,
+                                   out=out)
+    return p2p.p2p_permute_local(x, perm, num_ranks=n, force_kernel=one,
+                                 out=out)
+
+
+def _push_want(kind: str, X, n: int, perm) -> list:
+    _, ag, p2p, _ = sppp_modules()
+    if kind == "ag_full_mesh":
+        return [ag.ag_plain(list(X))] * n
+    plan = ([(s, (s + 1) % n) for s in range(n)] if kind == "p2p_shift"
+            else perm)
+    return p2p.p2p_plain(list(X), plan)
+
+
+def push_case(torch, ctx, kind: str, dtype, rows: int, cols: int,
+              seed: int, *, what: str, perm=None, hold=None) -> dict:
+    """One call of ``kind`` (``"ag_full_mesh"``, ``"p2p_shift"``,
+    ``"p2p_permute"``) on every rank of ``ctx`` into outputs filled with
+    0xFF bytes (NaN in every payload type) through ``out=``, against the
+    plain version bit for bit: a NaN left shows an element no sender
+    wrote. ``hold``: (rank, ns) spun on that rank's stream before its
+    call — a receiver publishing its address late, a sender writing late.
+    Each rank launches the kernel once."""
+    comm, _, _, _ = sppp_modules()
+    from triton_distributed_tpu_torch.runtime.build import current_stream
+
+    n = ctx.num_ranks
+    perm = perm or _push_perm(n)
+    X = _rand(torch, (n, rows, cols), dtype, seed)
+    xs = [X[r].to(ctx.devices[r]) for r in range(n)]
+    shape = (n * rows, cols) if kind == "ag_full_mesh" else (rows, cols)
+    outs = [torch.empty(shape, dtype=dtype, device=ctx.devices[r])
+            for r in range(n)]
+    for o in outs:
+        o.view(torch.uint8).fill_(0xFF)
+    kern = {"ag_full_mesh": comm.AG_FULL_MESH_KERNEL,
+            "p2p_shift": comm.P2P_SHIFT_KERNEL,
+            "p2p_permute": comm.P2P_PERMUTE_KERNEL}[kind]
+    k0 = kern.launches
+
+    def fn(r):
+        if hold is not None and r == hold[0]:
+            comm.SPIN.launch(hold[1], current_stream(ctx.devices[r]))
+        return _push_call(kind, xs[r], n, perm, out=outs[r])
+
+    got = ctx.run(fn)
+    torch.cuda.synchronize()
+    ctx.raise_on_comm_error()
+    want = _push_want(kind, X, n, perm)
+    same = all(torch.equal(_bits(torch, o.to(X.device)), _bits(torch, w))
+               for o, w in zip(got, want))
+    launched = kern.launches - k0
+    ok = same and all(g is o for g, o in zip(got, outs)) and launched == n
+    return {"case": f"{kind}_{what}_n{n}_{_dtype_name(dtype)}_{rows}x{cols}",
+            "kernel": kind, "n": n, "dtype": _dtype_name(dtype),
+            "rows": rows, "cols": cols,
+            "bytes_a_rank": rows * cols * X.element_size(),
+            "perm": perm if kind == "p2p_permute" else None,
+            "hold": list(hold) if hold else None, "out_sentinel": "0xFF",
+            "launches": launched,
+            "max_abs_err": 0.0 if same else float("nan"),
+            "bit_identical": same, "ok": ok}
+
+
+def push_stream_case(torch, ctx, kind: str, seed: int) -> dict:
+    """PUSH_STREAM_CALLS calls of ``kind`` on every rank in one run, new
+    data every call, no host sync between them: every call's output equal
+    to the plain version's (a fast sender of call t+1 never writes call
+    t's output)."""
+    n = ctx.num_ranks
+    perm = _push_perm(n)
+    calls = PUSH_STREAM_CALLS
+    X = _rand(torch, (calls, n, 16, 256), torch.bfloat16, seed)
+
+    def loop(r):
+        xr = X[:, r].to(ctx.devices[r])
+        return [_push_call(kind, xr[t], n, perm) for t in range(calls)]
+
+    got = ctx.run(loop)
+    torch.cuda.synchronize()
+    ctx.raise_on_comm_error()
+    bad = []
+    for t in range(calls):
+        want = _push_want(kind, X[t], n, perm)
+        if not all(torch.equal(_bits(torch, got[r][t].to(X.device)),
+                               _bits(torch, want[r])) for r in range(n)):
+            bad.append(t)
+    return {"case": f"{kind}_stream{calls}_n{n}_bfloat16_16x256",
+            "kernel": kind, "n": n, "calls": calls, "calls_wrong": bad[:8],
+            "max_abs_err": 0.0 if not bad else float("nan"),
+            "bit_identical": not bad, "ok": not bad}
+
+
+def push_edge_cases(torch, ctx, kinds, seed: int) -> list:
+    """The push protocol's edge cases for each kernel of ``kinds`` on
+    ``ctx``: the tails of PUSH_TAILS in fp32 and bf16, a held-back
+    receiver and a held-back sender, and the 200-call stream. At one rank
+    the loopback (``force_kernel``): the tails and the stream."""
+    n = ctx.num_ranks
+    out = []
+    for kind in kinds:
+        for dtype in (torch.float32, torch.bfloat16):
+            for rows, cols in PUSH_TAILS[_dtype_name(dtype)]:
+                seed += 1
+                out.append(push_case(torch, ctx, kind, dtype, rows, cols,
+                                     seed, what="tail"))
+        if n > 1:
+            # B7: a lone pair, so the receiver and the sender are distinct
+            # ranks (rank 1 and rank 0); the push: every rank is both.
+            pair = [(0, 1)] if kind == "p2p_permute" else None
+            holds = ({"held_receiver": 1, "held_sender": 0}
+                     if kind == "p2p_permute" else {"held_rank": n - 1})
+            for what, rank in holds.items():
+                seed += 1
+                out.append(push_case(torch, ctx, kind, torch.bfloat16, 64,
+                                     2048, seed, what=what, perm=pair,
+                                     hold=(rank, PUSH_HOLD_NS)))
+        seed += 1
+        out.append(push_stream_case(torch, ctx, kind, seed))
+    return out
 
 
 def a2a_stress(torch, ctx, dtype, cap: int, calls: int) -> dict:
@@ -4849,11 +5013,14 @@ def a2a_timeouts(torch, devices) -> dict:
     """100 ms deadlines. A lost peer — rank n-1 never calls the barrier
     form — leaves the others at the launch's host meeting: ``ctx.run``
     raises CommTimeoutError. A peer held back 1 s on the device before
-    its parity call leaves the others' kernels spinning on its flags:
-    they time out and ``raise_on_comm_error`` raises."""
-    _, a2a, _, context = a2a_modules()
+    its parity call, or before its full-mesh push (its address published
+    late), leaves the others' kernels spinning on its flags: they time
+    out and ``raise_on_comm_error`` raises."""
+    comm, a2a, ag, context = a2a_modules()
+    from triton_distributed_tpu_torch.runtime.build import current_stream
+
     out = {}
-    for what in ("lost_peer", "held_back_peer"):
+    for what in ("lost_peer", "held_back_peer", "push_held_back_peer"):
         ctx = context.DistContext([torch.device(d) for d in devices],
                                   wait_timeout_ms=100)
         n = ctx.num_ranks
@@ -4869,6 +5036,16 @@ def a2a_timeouts(torch, devices) -> dict:
                         a2a.fast_all_to_all_local(x.to(ctx.devices[r]),
                                                   s.to(ctx.devices[r]),
                                                   num_ranks=n))
+            elif what == "push_held_back_peer":
+                def held(r):
+                    if r == n - 1:
+                        comm.SPIN.launch(1_000_000_000,
+                                         current_stream(ctx.devices[r]))
+                    return ag.all_gather_local(x[r].to(ctx.devices[r]),
+                                               num_ranks=n,
+                                               method="full_mesh_push")
+
+                ctx.run(held)
             else:
                 ctx.run(lambda r: a2a.fast_all_to_all_stream(
                     x.to(ctx.devices[r]), s.to(ctx.devices[r]), ws, 0,
@@ -4889,10 +5066,13 @@ def phase_a2a(torch, timer, *, devices_for=virtual_devices,
     """B8's two kernels and B4's full-mesh push at n = 2, 4 and 8, fp32,
     bf16 and e4m3, against their plain versions bit for bit: the
     AllToAll with empty, ragged and full slots at caps 32 and 256 (h
-    2048), the full-mesh push at 4, 64 and 1024 rows a rank; each timed
-    at its main-path shape (n = 4 for B8, n = 2 for the push; bf16); 200
-    parity calls with a rotating straggler; a lost and a held-back peer
-    raising CommTimeoutError."""
+    2048), the full-mesh push at 4, 64 and 1024 rows a rank and its push
+    protocol's edge cases (``push_edge_cases``: tails into NaN-filled
+    outputs, a held-back rank, 200 calls without a sync; the loopback at
+    one rank); each timed at its main-path shape
+    (n = 4 for B8, n = 2 for the push; bf16); 200 parity calls with a
+    rotating straggler; a lost and a held-back peer raising
+    CommTimeoutError, for the push too."""
     _, _, _, context = a2a_modules()
     e4m3 = torch.float8_e4m3fn
     cases: dict = {"a2a": [], "a2a_parity": [], "ag_full_mesh": []}
@@ -4921,6 +5101,9 @@ def phase_a2a(torch, timer, *, devices_for=virtual_devices,
                     torch, timer, ctx, dtype, rows, seed,
                     time_it=(n == 2 and dn == "bfloat16"
                              and rows == AG_MESH_MAIN)))
+        cases["ag_full_mesh"] += push_edge_cases(torch, ctx,
+                                                 ("ag_full_mesh",), seed)
+        seed += 100
         if n == EP_RANKS:
             stress = a2a_stress(torch, ctx, torch.bfloat16, 32, A2A_CALLS)
         ctx.close()
@@ -4930,6 +5113,8 @@ def phase_a2a(torch, timer, *, devices_for=virtual_devices,
     ctx = context.DistContext([torch.device(devices_for(1)[0])],
                               wait_timeout_ms=20_000)
     one = a2a_one_rank(torch, ctx)
+    cases["ag_full_mesh"] += push_edge_cases(torch, ctx, ("ag_full_mesh",),
+                                             seed)
     ctx.close()
     bad = [c["case"] for cs in cases.values() for c in cs if not c["ok"]]
     check(not bad, f"{name}: disagree with their plain versions: {bad}")
@@ -6079,7 +6264,7 @@ def agp_case(torch, timer, ctx, dtype, rows: int, cols: int, seed: int,
 def p2p_case(torch, timer, ctx, name: str, dtype, rows: int, cols: int,
              seed: int, *, shift: int | None = None, perm=None,
              force: bool = False, time_it: bool = False) -> dict:
-    """One B7 call on every rank (two calls: the receive buffer's reuse)
+    """One B7 call on every rank (two calls: the pad's words reused)
     against ``p2p_plain`` bit for bit; a ring permutation must launch the
     shift kernel and not the permutation."""
     comm, _, p2p, _ = sppp_modules()
@@ -6127,8 +6312,10 @@ def p2p_case(torch, timer, ctx, name: str, dtype, rows: int, cols: int,
         rec["bound_note"] = ("each sender reads its block once and every "
                              "rank writes its output once (the receivers "
                              "the block, the others zeros), through one "
-                             "card's HBM at 3.35 TB/s; the receive buffer "
-                             "is this port's staging, not counted")
+                             "card's HBM at 3.35 TB/s")
+        # The push protocol moves exactly these bytes: the senders write
+        # the receivers' outputs (no receive buffer, no copy out).
+        rec["bytes_moved"] = rec["bound_bytes"] = nbytes
         rec["ms"], rec["host_ms_per_call"] = _coll_ms(torch, ctx, fn, 20)
         rec["plain_ms"] = timer.ms(lambda: p2p.p2p_plain(list(X), plan))
         Y = torch.empty_like(X)
@@ -6162,7 +6349,8 @@ def agp_stress(torch, ctx, calls: int) -> dict:
     torch.cuda.synchronize()
     ctx.raise_on_comm_error()
     bad = [t for t in range(calls)
-           if not all(torch.equal(got[r][0][t], ag.ag_plain(list(X[t])))
+           if not all(torch.equal(got[r][0][t].to(X.device),
+                                  ag.ag_plain(list(X[t])))
                       for r in range(n))]
     return {"calls": calls, "n": n, "rows": rows, "cols": cols,
             "straggler": "rotate, 50 us, every third call",
@@ -6174,7 +6362,8 @@ def sppp_timeouts(torch, devices) -> dict:
     """100 ms deadlines. The parity AllGather with rank n-1 held back 1 s
     on the device: its peers' kernels spin on its flags, time out and
     ``raise_on_comm_error`` raises. The ring shift with rank n-1's stream
-    held the same way: its peers wait in the entry barrier."""
+    held the same way: its source waits for its address, its destination
+    for its data."""
     comm, ag, p2p, context = sppp_modules()
     from triton_distributed_tpu_torch.runtime.build import current_stream
 
@@ -6221,9 +6410,12 @@ def phase_collectives_sp_pp(torch, timer, *, devices_for=virtual_devices,
     payload at n = 4, timed); the shift by +1 and -1 (and 2 at n = 4), a
     partial permutation with a multicast, a butterfly and a full ring
     (which must take the shift kernel) in fp32 and bf16; both kernels at
-    one rank under ``force_kernel``; the PP microbatch (512 x 4096 bf16,
-    n = 4) timed through each. 200 parity calls with a rotating
-    straggler; held-back ranks raising CommTimeoutError."""
+    one rank under ``force_kernel``; B7's push-protocol edge cases
+    (``push_edge_cases``: tails into NaN-filled outputs, a held-back
+    receiver and sender, 200 calls without a sync; the loopback at one
+    rank); the PP microbatch (512 x 4096 bf16, n = 4)
+    timed through each. 200 parity calls with a rotating straggler;
+    held-back ranks raising CommTimeoutError."""
     _, _, _, context = sppp_modules()
     cases: dict = {"ag_parity": [], "p2p_shift": [], "p2p_permute": []}
     seed, stress = 700, None
@@ -6259,6 +6451,10 @@ def phase_collectives_sp_pp(torch, timer, *, devices_for=virtual_devices,
                 rec = p2p_case(torch, timer, ctx, pname, dtype, P2P_ROWS,
                                P2P_COLS, seed, perm=perm)
                 cases[rec["kernel"]].append(rec)
+        for rec in push_edge_cases(torch, ctx, ("p2p_shift", "p2p_permute"),
+                                   seed):
+            cases[rec["kernel"]].append(rec)
+        seed += 100
         if n == PP_N:
             seed += 1
             cases["p2p_shift"].append(p2p_case(
@@ -6286,6 +6482,9 @@ def phase_collectives_sp_pp(torch, timer, *, devices_for=virtual_devices,
             P2P_COLS, seed, perm=[(0, 0)], force=True))
         seed += 1
         cases["ag_parity"].append(agp_force_one(torch, ctx, dtype, seed))
+    for rec in push_edge_cases(torch, ctx, ("p2p_shift", "p2p_permute"),
+                               seed):
+        cases[rec["kernel"]].append(rec)
     ctx.close()
     tmo = sppp_timeouts(torch, devices_for(SP_N))
     bad = [c["case"] for cs in cases.values() for c in cs if not c["ok"]]

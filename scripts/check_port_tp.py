@@ -26,7 +26,9 @@ token-identical to one rank). Ranks are virtual ranks on ``cuda:0``
 unless ``--cards``: then rank r lives on ``cuda:r`` (4 cards, peer
 access; the kernels at n = 2 and 4; their ``bound_ms`` stays the one-card
 HBM bound). ``--moe`` runs only the MoE-over-ranks phases
-(``collectives_a2a`` and, with ``--parity``, ``tp_moe_parity``).
+(``collectives_a2a`` and, with ``--parity``, ``tp_moe_parity``); with
+``--sp`` / ``--pp`` too, after those (B7 and B4's full-mesh push in one
+run).
 ``--megakernel`` runs only the megakernel on a TP group:
 ``chip_smoke.phase_megakernel_ar`` (its AllReduce task types 4 and 22 at
 n = 2, 4 and 8 — 2 and 4 with ``--cards`` — in fp32 and bf16, bit for bit
@@ -109,7 +111,7 @@ def main() -> int:
             comm.P2P_SHIFT_KERNEL.source_path,
             comm.AG_TORUS_KERNEL.source_path,
             build.CSRC_DIR / "migrate.cu"]
-    if not (sp or pp):
+    if not (sp or pp) or "--moe" in sys.argv:
         srcs += [comm.A2A_KERNEL.source_path, comm.AG_GEMM_KERNEL.source_path,
                  mk.MEGA_KERNEL.source_path]
     build.build(srcs + [fa.FLASH_KERNEL.source_path,
@@ -200,8 +202,9 @@ def main() -> int:
             run("sp_pp_parity", lambda: cs.phase_sp_pp_parity(
                 torch, devices_for=devices_for,
                 name="sp_pp_parity" + suffix))
-        print(cs.nvidia_smi_all(), flush=True)
-        return 1 if failed else 0
+        if not moe:
+            print(cs.nvidia_smi_all(), flush=True)
+            return 1 if failed else 0
     if megakernel:
         def megakernel_ar():
             cases, timeout = cs.phase_megakernel_ar(

@@ -1,0 +1,309 @@
+#!/usr/bin/env python3
+"""Time the port's copy kernels B4's full-mesh push (``ops/allgather.py``
+``all_gather_local(method="full_mesh_push")``) and B7's shift and
+permutation (``ops/p2p.py``) of one tree at the main path's shapes on one
+CUDA card, each beside the PyTorch call that computes the same outputs.
+
+Main shapes (virtual ranks on ``cuda:0``, bf16): the push at n = 2, 1024
+rows a rank x 2048 (the sequential "overlap" TP-MoE layer's tokens at
+Qwen3-30B-A3B's hidden); B7 at n = 4, one 512 x 4096 microbatch (Qwen3-8B's
+pipeline stage boundary), the shift by one and a butterfly permutation.
+Each case is first checked bit for bit against the tree's plain version on
+every rank, then timed: every rank's stream is held while the rank threads
+enqueue CALLS calls (by the tree's ``HOLD`` kernel polling one page-locked
+host word, released at one instant; a tree without it holds with its
+``SPIN`` for a duration), CUDA events between consecutive calls on each
+rank's stream, a call's time the slowest rank's, the median of calls
+2..CALLS (``ms``); and again with events only around the CALLS calls, the
+slowest rank's span over CALLS (``span_ms``: an event recorded on each of
+n streams costs the card's front end about what a small call does). L2 is
+not flushed: the calls follow each other, as on the main path. The
+library call is timed both ways in the same run (its one stream held by
+``SPIN``): for the push ``torch.cat`` of the n chunks once a rank (n
+calls), for B7 one ``Y.copy_(X)`` of every rank's block. The bound: the
+bytes every rank must move (each source read once, each output written
+once) through one HBM at 3.35 TB/s. Prints one JSON line a case,
+ptxas's report of ``collectives.cu`` and ``p2p.cu`` (registers, spills,
+shared memory), the launch floor (a kernel that exits at once, on each
+rank's stream, timed both ways), then the card's name and power limit.
+
+``--paths`` also reads the walls of the paths that run these kernels, from
+the tree's own ``chip_smoke.py``: ``phase_pp_forward`` on Qwen3-8B (random
+weights, seed 0; GPipe and interleaved, 10 and 54 shifts a rank) and
+``phase_sp_prefill`` (S = 8192; the SP-AG attention's wall among them).
+
+To compare two commits on one card, unpack the other one's tree with
+``git archive`` into a git-ignored directory and run, in one call, parent,
+change, change, parent:
+
+    python3 scripts/time_port_copy.py [--tree DIR] [--label NAME] [--paths]
+"""
+import argparse
+import importlib
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+os.environ["CUDA_DEVICE_MAX_CONNECTIONS"] = "32"
+
+CALLS = 21
+HBM_BYTES_PER_S = 3.35e12
+# (case, kernel, ranks, rows, cols)
+CASES = [("ag_full_mesh_n2", "push", 2, 1024, 2048),
+         ("p2p_shift_n4", "shift", 4, 512, 4096),
+         ("p2p_butterfly_n4", "butterfly", 4, 512, 4096)]
+
+
+def spaced_ms(torch, ctx, comm, build, fn, every: bool = True) -> tuple:
+    """(ms a call, the hold used). The streams are held while CALLS calls
+    are enqueued; ``every``: the median over calls 2..CALLS of the slowest
+    rank's time between consecutive events (an event after every call);
+    else the slowest rank's span over the CALLS calls divided by CALLS
+    (events only around them: an event recorded on each of n streams
+    costs the card's front end about as much as a small call)."""
+    n = ctx.num_ranks
+    ctx.run(lambda r: [fn(r) for _ in range(3)])
+    torch.cuda.synchronize()
+    go = (torch.zeros(1, dtype=torch.int32).pin_memory()
+          if hasattr(comm, "HOLD") else None)
+    hold = 0.05
+    for _ in range(4):
+        evs = [[torch.cuda.Event(enable_timing=True)
+                for _ in range(CALLS + 1)] for _ in range(n)]
+
+        def body(r):
+            stream = build.current_stream(ctx.devices[r])
+            if go is not None:
+                comm.HOLD.launch(build.ptr(go), int(hold * 1e9), stream)
+            else:
+                comm.SPIN.launch(int(hold * 1e9), stream)
+            evs[r][0].record()
+            for i in range(CALLS):
+                fn(r)
+                if every or i == CALLS - 1:
+                    evs[r][i + 1].record()
+
+        if go is not None:
+            go.zero_()
+        t0 = time.perf_counter()
+        ctx.run(body)
+        enqueue = time.perf_counter() - t0
+        if go is not None:
+            go.fill_(1)
+        torch.cuda.synchronize()
+        ctx.raise_on_comm_error()
+        if enqueue < hold:
+            kind = "go_word" if go is not None else "spin"
+            if not every:
+                return max(evs[r][0].elapsed_time(evs[r][CALLS])
+                           for r in range(n)) / CALLS, kind
+            per = [max(evs[r][i].elapsed_time(evs[r][i + 1])
+                       for r in range(n)) for i in range(1, CALLS)]
+            return statistics.median(per), kind
+        hold *= 2
+    raise RuntimeError("the enqueue outlasted every hold")
+
+
+def library_ms(torch, comm, build, fn, every: bool = True) -> float:
+    """As :func:`spaced_ms` for one PyTorch call on the current stream,
+    held by the tree's ``SPIN`` while the calls are enqueued (a call of a
+    few microseconds is shorter than its launch on the host)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    hold = 0.02
+    for _ in range(4):
+        evs = [torch.cuda.Event(enable_timing=True)
+               for _ in range(CALLS + 1)]
+        t0 = time.perf_counter()
+        comm.SPIN.launch(int(hold * 1e9),
+                         build.current_stream(torch.device("cuda:0")))
+        evs[0].record()
+        for i in range(CALLS):
+            fn()
+            if every or i == CALLS - 1:
+                evs[i + 1].record()
+        enqueue = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        if enqueue < hold:
+            if not every:
+                return evs[0].elapsed_time(evs[CALLS]) / CALLS
+            return statistics.median(evs[i].elapsed_time(evs[i + 1])
+                                     for i in range(1, CALLS))
+        hold *= 2
+    raise RuntimeError("the enqueue outlasted every hold")
+
+
+def copy_case(torch, mods, name, kind, n, rows, cols, seed) -> dict:
+    """One main-shape case: checked bit for bit on every rank, then
+    timed beside its library call."""
+    ag, p2p, comm, build, context = mods
+    ctx = context.DistContext([torch.device("cuda:0")] * n,
+                              wait_timeout_ms=20_000)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    X = (torch.randn((n, rows, cols), generator=g, device="cuda")
+         * 4).bfloat16()
+    xs = list(X)
+    B = rows * cols * X.element_size()
+    if kind == "push":
+        def fn(r):
+            return ag.all_gather_local(xs[r], num_ranks=n,
+                                       method="full_mesh_push")
+        want = [ag.ag_plain(xs)] * n
+        nbytes = n * (B + n * B)
+
+        def lib():
+            for _ in range(n):
+                torch.cat(xs)
+        lib_call = f"{n} x torch.cat of the {n} chunks"
+    else:
+        perm = ([(s, (s + 1) % n) for s in range(n)] if kind == "shift"
+                else [(s, s ^ 1) for s in range(n)])
+
+        def fn(r):
+            if kind == "shift":
+                return p2p.p2p_shift_local(xs[r], 1, num_ranks=n)
+            return p2p.p2p_permute_local(xs[r], perm, num_ranks=n)
+        want = p2p.p2p_plain(xs, perm)
+        nbytes = n * B + n * B
+        Y = torch.empty_like(X)
+
+        def lib():
+            Y.copy_(X)
+        lib_call = "Y.copy_(X) of every rank's block"
+    got = ctx.run(fn)
+    torch.cuda.synchronize()
+    ctx.raise_on_comm_error()
+    same = all(torch.equal(o.view(torch.int16), w.view(torch.int16))
+               for o, w in zip(got, want))
+    ms, hold = spaced_ms(torch, ctx, comm, build, fn)
+    span, _ = spaced_ms(torch, ctx, comm, build, fn, every=False)
+    ctx.close()
+    return {"case": name, "ranks": n, "rows": rows, "cols": cols,
+            "dtype": "bfloat16", "bit_identical": same, "ok": same,
+            "ms": ms, "span_ms": span, "hold": hold,
+            "library_ms": library_ms(torch, comm, build, lib),
+            "library_span_ms": library_ms(torch, comm, build, lib,
+                                          every=False),
+            "library_call": lib_call, "bytes": nbytes,
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+
+
+def floor_case(torch, mods, n: int) -> dict:
+    """The launch floor of a call on n virtual ranks: the tree's ``SPIN``
+    for 0 ns (one thread that exits) on every rank's stream, timed as the
+    kernels are — what the card's front end alone costs a call."""
+    _, _, comm, build, context = mods
+    ctx = context.DistContext([torch.device("cuda:0")] * n,
+                              wait_timeout_ms=20_000)
+
+    def fn(r):
+        comm.SPIN.launch(0, build.current_stream(ctx.devices[r]))
+
+    ms, hold = spaced_ms(torch, ctx, comm, build, fn)
+    span, _ = spaced_ms(torch, ctx, comm, build, fn, every=False)
+    ctx.close()
+    return {"case": f"launch_floor_n{n}", "ranks": n, "ms": ms,
+            "span_ms": span, "hold": hold, "ok": True}
+
+
+def paths_case(torch, root) -> dict:
+    """The walls of pp_forward (GPipe, interleaved) and sp_prefill (ring,
+    SP-AG, Ulysses), from the tree's chip_smoke.py."""
+    cs = importlib.import_module("chip_smoke")
+    if not cs.__file__.startswith(root):
+        raise RuntimeError(f"imported {cs.__file__}, not {root}'s")
+    fa = importlib.import_module(
+        "triton_distributed_tpu_torch.ops.flash_attention")
+    from triton_distributed_tpu_torch.models.config import QWEN3_8B
+    from triton_distributed_tpu_torch.models.dense import init_dense_llm
+
+    timer = cs.Timer(torch, "cuda")
+    sp = cs.phase_sp_prefill(torch, fa, timer)
+    params = init_dense_llm(QWEN3_8B, generator=torch.Generator(
+        device="cuda").manual_seed(0))
+    pp = cs.phase_pp_forward(torch, params, QWEN3_8B, fa)
+    del params
+    return {"case": "paths",
+            "pp_gpipe_ms": pp["gpipe"]["ms"],
+            "pp_interleaved_ms": pp["interleaved"]["ms"],
+            "pp_shifts_per_rank": [pp["gpipe"]["shift_launches_per_rank"],
+                                   pp["interleaved"]
+                                   ["shift_launches_per_rank"]],
+            "pp_one_rank_ms": pp["one_rank_ms_runs"],
+            "sp_prefill_ms": {f: r["ms"] for f, r in sp["ops"].items()},
+            "sp_ag_launches": sp["ops"]["sp_ag_attention"]["ag_launches"],
+            "ok": pp["bit_identical"]}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--tree", default=".", help="root of the tree to time")
+    ap.add_argument("--label", default=None)
+    ap.add_argument("--paths", action="store_true",
+                    help="also read pp_forward's and sp_prefill's walls")
+    args = ap.parse_args()
+    root = os.path.abspath(args.tree)
+    sys.path.insert(0, root)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("time_port_copy: needs a CUDA card", file=sys.stderr)
+        return 1
+    ag = importlib.import_module("triton_distributed_tpu_torch.ops.allgather")
+    if not ag.__file__.startswith(root):
+        print(f"time_port_copy: imported {ag.__file__}, not {root}'s",
+              file=sys.stderr)
+        return 1
+    p2p = importlib.import_module("triton_distributed_tpu_torch.ops.p2p")
+    comm = importlib.import_module("triton_distributed_tpu_torch.ops._comm")
+    build = importlib.import_module(
+        "triton_distributed_tpu_torch.runtime.build")
+    context = importlib.import_module(
+        "triton_distributed_tpu_torch.runtime.context")
+    label = args.label or root
+    t0 = time.perf_counter()
+    srcs = [comm.AG_FULL_MESH_KERNEL.source_path,
+            comm.P2P_SHIFT_KERNEL.source_path]
+    build.build(srcs)
+    ptxas = []
+    for src in srcs:
+        log = build.library_path(src).with_suffix(".log").read_text()
+        ptxas += [ln.strip() for ln in log.splitlines()
+                  if "Compiling" in ln or "registers" in ln
+                  or "spill" in ln or "warning" in ln]
+    print(json.dumps({"tree": label, "build_s": time.perf_counter() - t0,
+                      "ptxas": ptxas}), flush=True)
+    mods = (ag, p2p, comm, build, context)
+    failed = []
+    for i, (name, kind, n, rows, cols) in enumerate(CASES):
+        rec = copy_case(torch, mods, name, kind, n, rows, cols, 950 + i)
+        rec["tree"] = label
+        print(json.dumps(rec), flush=True)
+        if not rec["ok"]:
+            failed.append(name)
+    for n in sorted({c[2] for c in CASES}):
+        rec = floor_case(torch, mods, n)
+        rec["tree"] = label
+        print(json.dumps(rec), flush=True)
+    if args.paths:
+        rec = paths_case(torch, root)
+        rec["tree"] = label
+        print(json.dumps(rec), flush=True)
+        if not rec["ok"]:
+            failed.append("paths")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    print(smi.stdout.strip().splitlines()[0], flush=True)
+    if failed:
+        print(f"time_port_copy: wrong results: {failed}", file=sys.stderr)
+    return 1 if failed else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -21,11 +21,16 @@
 //                through a symmetric gather buffer that doubles as the
 //                transport; each rank forwards the chunk it received
 //                last step, then copies the gathered buffer out.
-//  ag_full_mesh  ops/allgather.py:66 _ag_full_mesh_push_kernel — barrier,
-//                push this rank's chunk into slot `rank` of every peer's
-//                gather buffer (peers in the order me+1 ... me-1), wait
-//                for the n-1 deliveries, copy the buffer out: one hop, the
-//                ring's output bit for bit (a copy has no rounding).
+//  ag_full_mesh  ops/allgather.py:66 _ag_full_mesh_push_kernel — on the
+//                push protocol of push.cuh: every rank publishes its
+//                fresh output to every peer, then writes its chunk
+//                straight into slot `rank` of every rank's output (its
+//                own first, then me+1 ... me-1; the chunk read once,
+//                written n times), and waits for the n-1 peers' data
+//                flags: one hop, no gather buffer, no copy out, no entry
+//                barrier; the ring's output bit for bit (a copy has no
+//                rounding). Its grid is the copy engine's (at most 1/r of
+//                the SMs), not kMaxBlocks.
 //  ag_parity     ops/allgather.py:192 _ag_parity_kernel — the full-mesh
 //                push without the barrier, over a persistent workspace of
 //                two parity slabs and per-parity flags (the SP decode
@@ -61,6 +66,7 @@
 
 #include "common.cuh"
 #include "dist.cuh"
+#include "push.cuh"
 
 using tdt::from_f;
 using tdt::to_f;
@@ -190,20 +196,26 @@ __global__ void __launch_bounds__(kThreads)
   for (int c = 0; c < n; ++c) put(out + c * cvec, buf + c * cvec, v0, v1);
 }
 
-// x: one chunk; the symmetric gather buffer and out: n chunks. Every block
-// pushes its share of x into slot `rank` of every rank's buffer (its own
-// first, then me+1 ... me-1), tells each peer, waits for the n-1 peers'
-// shares of the same block and copies the gathered buffer out.
-__global__ void __launch_bounds__(kThreads)
-    ag_full_mesh_kernel(Group g, const uint4* x, uint4* out, long long cvec) {
-  long long v0, v1;
-  block_range(cvec, &v0, &v1);
-  if (!barrier_all(g)) return;
-  const int base = kStepBase + blockIdx.x * kMaxRanks;
-  push_all(g, x, g.rank * cvec * 16, v0, v1, base, g.epoch);
-  if (!wait_peers(g, base, g.epoch)) return;
-  const uint4* buf = reinterpret_cast<const uint4*>(peer_base(g, g.rank));
-  for (int c = 0; c < g.n; ++c) put(out + c * cvec, buf + c * cvec, v0, v1);
+// x: one chunk; out: n chunks, this rank's fresh output. Block 0 publishes
+// out to every peer; every block writes its share of x into slot `rank` of
+// every rank's output, signals each peer, and waits for the n-1 peers'
+// shares of the same block. n = 1 is the loopback (force_kernel): the
+// copy into its own slot.
+template <bool SYS>
+__global__ void __launch_bounds__(tdt::push::kThreads)
+    ag_full_mesh_kernel(Group g, tdt::push::Layout L, const char* x,
+                        char* out, long long chunk_bytes) {
+  namespace pu = tdt::push;
+  const int all = (1 << g.n) - 1;
+  const int j = threadIdx.x;
+  if (blockIdx.x == 0 && j < g.n && j != g.rank)
+    pu::publish<SYS>(g, L, j, out);
+  long long lo, hi;
+  pu::share(chunk_bytes, &lo, &hi);
+  if (!pu::push_share<SYS>(g, L, x, out, g.rank * chunk_bytes, all, lo, hi))
+    return;
+  if (threadIdx.x == 0) pu::signal_data<SYS>(g, L, all);
+  pu::wait_data<SYS>(g, L, all);
 }
 
 // x: one chunk; the symmetric workspace: two parity slabs of n chunks; out:
@@ -319,6 +331,14 @@ __global__ void spin_kernel(long long ns) {
   while ((long long)(globaltimer() - t0) < ns) __nanosleep(1000);
 }
 
+// Holds a stream until the host sets `*go` (a pinned word every rank's
+// hold polls, so the streams are released at one instant), or `ns`
+// nanoseconds passed: the timing hold of a collective measurement.
+__global__ void hold_kernel(const volatile int* go, long long ns) {
+  const unsigned long long t0 = globaltimer();
+  while (*go == 0 && (long long)(globaltimer() - t0) < ns) __nanosleep(200);
+}
+
 int grid_for(long long nvec) {
   // A block per 1024 vectors (16 KiB), 1..kMaxBlocks. The same payload
   // gives the same grid on every rank, which the per-block flags need.
@@ -415,18 +435,31 @@ int tdt_ag_ring(const void* table, const void* sig_table, void* err,
   return cudaGetLastError();
 }
 
-// chunk_bytes: one input chunk (out holds n of them).
+// chunk_bytes: one input chunk (out, this rank's fresh output, holds n of
+// them). grid, sys (the flags' scope: 1 when a peer is another card) and
+// the pad layout (addr, ready, data, stride) come from the host
+// (ops/_comm.launch_push), the same on every rank. n = 1 is the loopback
+// (force_kernel).
 int tdt_ag_full_mesh(const void* table, const void* sig_table, void* err,
                      int rank, int n, unsigned long long epoch,
                      long long timeout_ns, const void* x, void* out,
-                     long long chunk_bytes, cudaStream_t stream) {
+                     long long chunk_bytes, int grid, int sys, int addr,
+                     int ready, int data, int stride, cudaStream_t stream) {
   const long long cvec = chunk_bytes / 16;
-  if (bad_group(rank, n, cvec) || n < 2 || chunk_bytes % 16)
+  const tdt::push::Layout L{addr, ready, data, stride};
+  if (bad_group(rank, n, cvec) || chunk_bytes % 16 ||
+      tdt::push::bad_layout(L, n, grid))
     return cudaErrorInvalidValue;
   const Group g = make_group(table, sig_table, err, rank, n, epoch,
                              timeout_ns);
-  ag_full_mesh_kernel<<<grid_for(cvec), kThreads, 0, stream>>>(
-      g, static_cast<const uint4*>(x), static_cast<uint4*>(out), cvec);
+  const char* xi = static_cast<const char*>(x);
+  char* o = static_cast<char*>(out);
+  if (sys)
+    ag_full_mesh_kernel<true><<<grid, tdt::push::kThreads, 0, stream>>>(
+        g, L, xi, o, chunk_bytes);
+  else
+    ag_full_mesh_kernel<false><<<grid, tdt::push::kThreads, 0, stream>>>(
+        g, L, xi, o, chunk_bytes);
   return cudaGetLastError();
 }
 
@@ -476,6 +509,13 @@ int tdt_ar_tree(const void* table, const void* sig_table, void* err,
 
 int tdt_spin(long long ns, cudaStream_t stream) {
   spin_kernel<<<1, 1, 0, stream>>>(ns);
+  return cudaGetLastError();
+}
+
+// go: a page-locked host word (its host address: with unified addressing
+// the card reads it there); ns: the deadline.
+int tdt_hold(const void* go, long long ns, cudaStream_t stream) {
+  hold_kernel<<<1, 1, 0, stream>>>(static_cast<const volatile int*>(go), ns);
   return cudaGetLastError();
 }
 

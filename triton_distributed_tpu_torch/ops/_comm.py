@@ -2,7 +2,8 @@
 ``csrc/collectives.cu``, ``csrc/all_to_all.cu``, ``csrc/gemm_comm.cu``,
 ``csrc/p2p.cu`` and ``csrc/multi_axis.cu``,
 their launch, the payload checks, the CPU rendezvous through a symmetric
-buffer's slots, and the straggler hook.
+buffer's slots, the push protocol's plan (pad layout, grid, scope) and
+the straggler hook.
 
 A wrapper takes the kernel only for a CUDA tensor and the plain version
 only for a CPU tensor; nothing falls back.
@@ -11,6 +12,7 @@ only for a CPU tensor; nothing falls back.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import time
 
 import torch
@@ -43,17 +45,22 @@ AG_RING_KERNEL = CudaKernel("collectives.cu", "tdt_ag_ring",
 TREE_KERNEL = CudaKernel("collectives.cu", "tdt_ar_tree",
                          _GROUP_ARGS + [ctypes.c_int] * 3
                          + [ctypes.c_void_p])
+# The push protocol's launch arguments (csrc/push.cuh): the grid, the
+# flags' scope, and the pad layout's addr, ready, data and stride.
+_PUSH_ARGS = [ctypes.c_int] * 6
 AG_FULL_MESH_KERNEL = CudaKernel("collectives.cu", "tdt_ag_full_mesh",
-                                 _GROUP_ARGS + [ctypes.c_void_p])
+                                 _GROUP_ARGS + _PUSH_ARGS
+                                 + [ctypes.c_void_p])
 AG_PARITY_KERNEL = CudaKernel("collectives.cu", "tdt_ag_parity",
                               _GROUP_ARGS + [ctypes.c_void_p])
 # B7, the PP transport (csrc/p2p.cu): the ring shift (its shift) and the
 # static permutation (this rank's destination set and source).
 P2P_SHIFT_KERNEL = CudaKernel("p2p.cu", "tdt_p2p_shift",
-                              _GROUP_ARGS + [ctypes.c_int, ctypes.c_void_p])
+                              _GROUP_ARGS + [ctypes.c_int] + _PUSH_ARGS
+                              + [ctypes.c_void_p])
 P2P_PERMUTE_KERNEL = CudaKernel("p2p.cu", "tdt_p2p_permute",
-                                _GROUP_ARGS + [ctypes.c_int, ctypes.c_int,
-                                               ctypes.c_void_p])
+                                _GROUP_ARGS + [ctypes.c_int, ctypes.c_int]
+                                + _PUSH_ARGS + [ctypes.c_void_p])
 # B12, the collectives over both axes of a 2-axis group
 # (csrc/multi_axis.cu): the grid's (n0, n1) ride after the byte count.
 AG_TORUS_KERNEL = CudaKernel("multi_axis.cu", "tdt_ag_torus",
@@ -89,6 +96,10 @@ GEMM_AR_KERNEL = CudaKernel("gemm_comm.cu", "tdt_gemm_comm", _GEMM_COMM_ARGS)
 # peer-access entry.
 SPIN = CudaKernel("collectives.cu", "tdt_spin",
                   [ctypes.c_longlong, ctypes.c_void_p])
+# Not a collective either: holds a stream until a page-locked host word is
+# set (a timing harness releases every rank's stream at one instant).
+HOLD = CudaKernel("collectives.cu", "tdt_hold",
+                  [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p])
 PEER_ACCESS = CudaKernel("collectives.cu", "tdt_enable_peer_access",
                          [ctypes.c_int, ctypes.c_int])
 STREAMS = CudaKernel("collectives.cu", "tdt_stream_create",
@@ -101,6 +112,96 @@ COLLECTIVE_KERNELS = (ONE_SHOT_KERNEL, PARITY_KERNEL, RS_RING_KERNEL,
                       P2P_SHIFT_KERNEL, P2P_PERMUTE_KERNEL, AG_TORUS_KERNEL,
                       AR_TORUS_KERNEL)
 _GEMM_OP = {AG_GEMM_KERNEL: 0, GEMM_RS_KERNEL: 1, GEMM_AR_KERNEL: 2}
+
+
+# The push protocol of B4's full-mesh push and B7 (csrc/push.cuh): the
+# receiver publishes its fresh output's address into its senders' signal
+# pads, each sender writes its block straight into that output and raises
+# a data flag a block. The host lays the pad out, sizes the grid and picks
+# the flags' scope; the kernel checks them.
+MAX_RANKS = 8                    # csrc/dist.cuh kMaxRanks
+PUSH_MAX_BLOCKS = 128            # the data flags a source: the largest grid
+PUSH_BLOCK_BYTES = 64 << 10      # the least payload a block is given
+
+
+@dataclasses.dataclass(frozen=True)
+class PushLayout:
+    """Word offsets of the push protocol in a rank's signal pad: ``addr +
+    j`` receiver j's output address and ``ready + j`` its epoch (in the
+    sender's pad); ``data + src * stride + b`` source src's block b landed
+    (in the receiver's pad)."""
+
+    addr: int = 0
+    ready: int = MAX_RANKS
+    data: int = 2 * MAX_RANKS
+    stride: int = PUSH_MAX_BLOCKS
+
+    def words(self, n: int, grid: int) -> dict:
+        """The words a call at n ranks and ``grid`` blocks uses, by
+        kind."""
+        return {"addr": [self.addr + j for j in range(n)],
+                "ready": [self.ready + j for j in range(n)],
+                "data": [self.data + s * self.stride + b
+                         for s in range(n) for b in range(grid)]}
+
+    def args(self) -> tuple:
+        return (self.addr, self.ready, self.data, self.stride)
+
+
+PUSH_LAYOUT = PushLayout()
+
+
+def push_grid(nbytes: int, caps) -> int:
+    """The copy engine's grid for a payload of ``nbytes`` a rank (the bytes
+    a rank reads): a block per PUSH_BLOCK_BYTES, at least 1, at most the
+    least of ``caps`` (each card's SMs over the group's ranks on it) and
+    PUSH_MAX_BLOCKS — so the same on every rank of the group."""
+    cap = min([PUSH_MAX_BLOCKS, *caps])
+    if cap < 1:
+        raise ValueError(f"no SMs for the push: caps {list(caps)}")
+    return max(1, min(cap, -(-nbytes // PUSH_BLOCK_BYTES)))
+
+
+def _sm_caps(ctx) -> list:
+    return [torch.cuda.get_device_properties(d).multi_processor_count
+            // ctx.ranks_on(d) for d in dict.fromkeys(ctx.devices)]
+
+
+def push_scope(ctx) -> int:
+    """The flags' memory scope: 0 (the GPU's) when the whole group lives on
+    one card, 1 (the system's) when a peer is another card."""
+    return 0 if len(set(ctx.devices)) == 1 else 1
+
+
+def launch_push(kernel: CudaKernel, pad: SymmBuffer, rank: int,
+                x: torch.Tensor, out: torch.Tensor, nbytes: int,
+                *extra) -> None:
+    """One launch of a push-protocol kernel (B4's full-mesh push, B7) at
+    the rank group's meeting, as :func:`launch`, on the pad ``pad`` (a
+    :func:`~triton_distributed_tpu_torch.runtime.symm.symm_pad`): ``out``
+    is this rank's fresh output, which its senders write."""
+    ctx = pad.ctx
+    grid = push_grid(nbytes, _sm_caps(ctx))
+    epoch = pad.next_epoch(rank)
+    _launch_at_meeting(kernel, pad, rank, x.device, "push.launch", (
+        ptr(pad.table[rank]), ptr(pad.signal_table[rank]),
+        ptr(ctx.error_word(rank)), rank, ctx.num_ranks, epoch,
+        int(ctx.timeout_s * 1e9), ptr(x), ptr(out), nbytes, *extra, grid,
+        push_scope(ctx), *PUSH_LAYOUT.args(), current_stream(x.device)))
+
+
+def check_out(ctx: DistContext, rank: int, out: torch.Tensor, shape,
+              dtype, what: str) -> torch.Tensor:
+    """A caller's ``out=`` (a harness's sentinel-filled output): of the
+    result's shape and type, contiguous, on the rank's device."""
+    if (tuple(out.shape) != tuple(shape) or out.dtype != dtype
+            or out.device != ctx.devices[rank] or not out.is_contiguous()
+            or out.data_ptr() % 16):
+        raise ValueError(f"{what}: out must be a contiguous, 16-byte aligned"
+                         f" {tuple(shape)} {dtype} tensor on "
+                         f"{ctx.devices[rank]}; got {tuple(out.shape)} "
+                         f"{out.dtype} on {out.device}")
+    return out
 
 
 def rank_of(axis, num_ranks: int | None) -> tuple[DistContext, int, int]:

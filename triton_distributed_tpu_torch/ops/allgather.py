@@ -7,14 +7,19 @@ stream (``_ag_parity_kernel``) as hand-written CUDA in
 The ring forwards, at step s, the chunk received at step s-1 (its own at
 s = 0) to the right neighbour; the symmetric gather buffer doubles as the
 transport, so chunks land in their final slots, and each rank copies the
-gathered buffer out at the end. The full-mesh push stores each rank's
-chunk into its slot of every peer's gather buffer in one hop (AUTO's
-pick at n <= 2 and for small payloads: the sequential ``"overlap"``
-TP-MoE gathers its tokens through it). Both open with a block-scope
-barrier that protects the buffer across calls, and both give the same
-bits (a copy). :func:`all_gather_stream` is the push without the
-barrier, over a persistent workspace of two parity slabs (the SP decode
-loop's gather of its attention partials, ``ops/flash_decode.py``).
+gathered buffer out at the end, behind a block-scope entry barrier that
+protects the buffer across calls. The full-mesh push writes each rank's
+chunk straight into its slot of every rank's output in one hop, as the
+TPU kernel's remote DMA does: every rank publishes its fresh output's
+address to its peers, each writes, signals, and waits for the others'
+(the push protocol, ``csrc/push.cuh``; only a signal pad is kept,
+no gather buffer, copy out or barrier). AUTO takes the push at n <= 2
+and for small payloads (the sequential ``"overlap"`` TP-MoE layer, SP-AG
+attention, ``flash_decode``'s ``"pallas"`` method and the two-level
+intra gathers reach it). Both give the same bits (a copy).
+:func:`all_gather_stream` is the push over a persistent workspace of two
+parity slabs (the SP decode loop's gather of its attention partials,
+``ops/flash_decode.py``).
 ``XLA`` (the JAX package's ``jax.lax.all_gather``) is a plain gather
 through the rank group.
 """
@@ -26,13 +31,16 @@ import enum
 import torch
 
 from triton_distributed_tpu_torch.ops._comm import (
-    AG_FULL_MESH_KERNEL, AG_PARITY_KERNEL, AG_RING_KERNEL, check_payload,
-    launch, push_slots, rank_of, rank_shards, straggle,
+    AG_FULL_MESH_KERNEL, AG_PARITY_KERNEL, AG_RING_KERNEL, check_out,
+    check_payload, launch, launch_push, push_slots, rank_of, rank_shards,
+    straggle,
 )
 from triton_distributed_tpu_torch.runtime.context import (
     DistContext, get_context, group_all_gather, group_context,
 )
-from triton_distributed_tpu_torch.runtime.symm import SymmBuffer, symm_zeros
+from triton_distributed_tpu_torch.runtime.symm import (
+    SymmBuffer, symm_pad, symm_zeros,
+)
 
 
 class AllGatherMethod(enum.Enum):
@@ -65,34 +73,62 @@ def ag_plain(xs) -> torch.Tensor:
     return torch.cat(list(xs), dim=0)
 
 
-def _ag_kernel(kernel, x: torch.Tensor, n: int, ctx: DistContext,
-               rank: int) -> torch.Tensor:
-    """The ring (``AG_RING_KERNEL``) or the full-mesh push
-    (``AG_FULL_MESH_KERNEL``) on a CUDA tensor, their plain version on a
-    CPU one. Both are byte copies, so e4m3 rides them too."""
+def _ag_ring(x: torch.Tensor, n: int, ctx: DistContext,
+             rank: int) -> torch.Tensor:
+    """The ring on a CUDA tensor, its plain version on a CPU one."""
     m, cols = x.shape
-    tag = "ag_ring" if kernel is AG_RING_KERNEL else "ag_full_mesh"
-    buf = symm_zeros(ctx, (n, m, cols), x.dtype, tag=tag)
+    buf = symm_zeros(ctx, (n, m, cols), x.dtype, tag="ag_ring")
     if x.device.type == "cuda":
         x = check_payload(ctx, rank, x, "all_gather", copy=True)
         out = torch.empty((n * m, cols), dtype=x.dtype, device=x.device)
-        launch(kernel, buf, rank, buf.next_epoch(rank), x, out,
+        launch(AG_RING_KERNEL, buf, rank, buf.next_epoch(rank), x, out,
                m * cols * x.element_size())
         return out
     if x.device.type != "cpu":
         raise ValueError(f"all_gather: no kernel for device {x.device}")
-    kernel.count_plain()
-    ctx.barrier(rank, f"{tag}.entry")
-    push_slots(ctx, rank, buf, x, rank, f"{tag}.data")
+    AG_RING_KERNEL.count_plain()
+    ctx.barrier(rank, "ag_ring.entry")
+    push_slots(ctx, rank, buf, x, rank, "ag_ring.data")
     return ag_plain(buf.tensors[rank])
+
+
+def _ag_push(x: torch.Tensor, n: int, ctx: DistContext, rank: int,
+             out: torch.Tensor | None) -> torch.Tensor:
+    """The full-mesh push on a CUDA tensor, its plain version on a CPU
+    one: each rank's chunk into slot ``rank`` of every rank's output (a
+    byte copy, so e4m3 rides it too). ``out``: the output to write (a
+    harness's sentinel), else a fresh one."""
+    m, cols = x.shape
+    if out is not None:
+        out = check_out(ctx, rank, out, (n * m, cols), x.dtype, "all_gather")
+    if x.device.type == "cuda":
+        x = check_payload(ctx, rank, x, "all_gather", copy=True)
+        if out is None:
+            out = torch.empty((n * m, cols), dtype=x.dtype, device=x.device)
+        launch_push(AG_FULL_MESH_KERNEL, symm_pad(ctx, tag="ag_full_mesh"),
+                    rank, x, out, m * cols * x.element_size())
+        return out
+    if x.device.type != "cpu":
+        raise ValueError(f"all_gather: no kernel for device {x.device}")
+    AG_FULL_MESH_KERNEL.count_plain()
+    if out is None:
+        out = torch.empty((n * m, cols), dtype=x.dtype)
+    for o in ctx.exchange(rank, out, "ag_full_mesh.addr"):
+        o[rank * m:(rank + 1) * m].copy_(x)
+    ctx.barrier(rank, "ag_full_mesh.data")
+    return out
 
 
 def all_gather_local(x_local: torch.Tensor, axis: str = "tp",
                      num_ranks: int | None = None,
-                     method: AllGatherMethod | str = AllGatherMethod.AUTO
-                     ) -> torch.Tensor:
+                     method: AllGatherMethod | str = AllGatherMethod.AUTO,
+                     *, force_kernel: bool = False,
+                     out: torch.Tensor | None = None) -> torch.Tensor:
     """Rank-local AllGather inside ``DistContext.run``: ``x_local``
-    (m, cols) → (n*m, cols), rank j's rows at [j*m, (j+1)*m)."""
+    (m, cols) → (n*m, cols), rank j's rows at [j*m, (j+1)*m).
+    ``force_kernel`` runs the full-mesh push at n = 1 too (the loopback:
+    the rank writes its own slot); ``out`` is the tensor the push writes
+    (every element), else a fresh one — both for the push alone."""
     if isinstance(axis, (tuple, list)):
         # The multi-axis form (ops/multi_axis.py): num_ranks is (n0, n1);
         # the ring-of-rings for "auto" / "ring_1d", the plain gather over
@@ -116,7 +152,14 @@ def all_gather_local(x_local: torch.Tensor, axis: str = "tp",
                                       dims=tuple(num_ranks))
     method = AllGatherMethod(method)
     ctx, rank, n = rank_of(axis, num_ranks)
-    if n == 1:
+    if (force_kernel or out is not None) and \
+            method != AllGatherMethod.FULL_MESH_PUSH:
+        raise ValueError("force_kernel / out are the full-mesh push's — "
+                         f"method {method.value!r}")
+    if n == 1 and not force_kernel:
+        if out is not None:
+            raise ValueError("all_gather: out= needs the kernel (n > 1 or "
+                             "force_kernel)")
         return x_local
     if method == AllGatherMethod.AUTO:
         method = get_auto_all_gather_method(
@@ -124,8 +167,8 @@ def all_gather_local(x_local: torch.Tensor, axis: str = "tp",
     if method == AllGatherMethod.XLA:
         return group_all_gather(x_local, axis=axis, num_ranks=n)
     if method == AllGatherMethod.FULL_MESH_PUSH:
-        return _ag_kernel(AG_FULL_MESH_KERNEL, x_local, n, ctx, rank)
-    return _ag_kernel(AG_RING_KERNEL, x_local, n, ctx, rank)
+        return _ag_push(x_local, n, ctx, rank, out)
+    return _ag_ring(x_local, n, ctx, rank)
 
 
 def ag_stream_workspace(n: int, m: int, cols: int, dtype, *,

@@ -5,9 +5,9 @@ The single-hop full-mesh push (B4's ``ag_full_mesh`` in
 ``csrc/collectives.cu``) is the whole method space here, as in the
 reference. :class:`AllGatherLayer` pads a rank's rows up to a bucket
 (the smallest power-of-two multiple of the reference's row alignment at
-least the rows), so decode steps of varying token counts reuse one
-symmetric buffer a bucket (the push's buffer is keyed by its shape); the
-pad rows never leave the op.
+least the rows), as the reference's staged buffers do; the push writes
+into each call's fresh output and keeps only a signal pad, so the buckets
+share it. The pad rows never leave the op.
 """
 
 from __future__ import annotations
@@ -42,8 +42,8 @@ def _bucket(m: int, align: int) -> int:
 
 class AllGatherLayer:
     """Decode comm layer: the bucketed low-latency AllGather (reference
-    ``low_latency_allgather_layer.py``'s staged buffers become one
-    symmetric buffer a bucket)."""
+    ``low_latency_allgather_layer.py``'s staged buffers become the
+    bucket's padded rows, pushed into each call's output)."""
 
     def __init__(self, ctx: DistContext | None = None, axis: str = "tp"):
         self.ctx = ctx or get_context()

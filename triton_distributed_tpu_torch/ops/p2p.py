@@ -10,14 +10,15 @@ multicast (one source, several destinations), no duplicate destination —
 and a rank that receives nothing gets zeros. A permutation that is a full
 ring shift takes the shift kernel.
 
-On the card a source pushes its block into the destination's symmetric
-receive buffer (one per (shape, dtype), which both kernels share) and
-signals it; the destination copies the buffer to a fresh output. Both
-kernels open with the reference's entry barrier, which here keeps a peer
-from overwriting a receive buffer before its owner copied out the last
-call. On the CPU
-the plain version goes through the same buffers: the sources store into
-their destinations' copies, the ranks meet, each copies its own out.
+On the card the sender writes the receiver's output, as the TPU kernels'
+remote DMA does: each receiver publishes its fresh output's address to its
+source (the call's epoch as the flag), the source writes its block
+straight into it and signals, the receiver waits (the push protocol,
+``csrc/push.cuh``). Only a signal pad is kept (tag ``"p2p"``, shared
+by both kernels); there is no receive buffer, copy out or entry barrier.
+On the CPU the plain version mirrors the protocol through the rank
+group's rendezvous: the ranks exchange their outputs, the sources store
+into their destinations' outputs, the ranks meet.
 """
 
 from __future__ import annotations
@@ -25,13 +26,13 @@ from __future__ import annotations
 import torch
 
 from triton_distributed_tpu_torch.ops._comm import (
-    P2P_PERMUTE_KERNEL, P2P_SHIFT_KERNEL, check_payload, launch, rank_of,
-    rank_shards,
+    P2P_PERMUTE_KERNEL, P2P_SHIFT_KERNEL, check_out, check_payload,
+    launch_push, rank_of, rank_shards,
 )
 from triton_distributed_tpu_torch.runtime.context import (
     DistContext, get_context,
 )
-from triton_distributed_tpu_torch.runtime.symm import symm_zeros
+from triton_distributed_tpu_torch.runtime.symm import symm_pad
 
 
 def p2p_plain(xs, perm) -> list:
@@ -48,39 +49,49 @@ def _shift_perm(shift: int, n: int) -> list:
 
 
 def _p2p(kernel, x: torch.Tensor, perm, ctx: DistContext, rank: int,
-         n: int, extra: tuple) -> torch.Tensor:
+         n: int, extra: tuple, out: torch.Tensor | None) -> torch.Tensor:
     """One B7 call: ``kernel`` on a CUDA tensor (``extra``: its own
-    arguments), the plain version on a CPU one."""
-    buf = symm_zeros(ctx, tuple(x.shape), x.dtype, tag="p2p")
+    arguments), the plain version on a CPU one. ``out``: the output to
+    write (a harness's sentinel), else a fresh one."""
+    if out is not None:
+        out = check_out(ctx, rank, out, x.shape, x.dtype, "p2p")
     if x.device.type == "cuda":
         x = check_payload(ctx, rank, x, "p2p", copy=True, dims=x.dim())
-        out = torch.empty_like(x)
-        launch(kernel, buf, rank, buf.next_epoch(rank), x, out,
-               x.numel() * x.element_size(), *extra)
+        out = torch.empty_like(x) if out is None else out
+        launch_push(kernel, symm_pad(ctx, tag="p2p"), rank, x, out,
+                    x.numel() * x.element_size(), *extra)
         return out
     if x.device.type != "cpu":
         raise ValueError(f"p2p: no kernel for device {x.device}")
     kernel.count_plain()
-    ctx.barrier(rank, "p2p.entry")
+    out = torch.empty_like(x) if out is None else out
+    outs = ctx.exchange(rank, out, "p2p.addr")
     for s, d in perm:
         if s == rank:
-            buf.tensors[d].copy_(x)
+            outs[d].copy_(x)
+    if not any(d == rank for _, d in perm):
+        out.zero_()
     ctx.barrier(rank, "p2p.data")
-    src = [s for s, d in perm if d == rank]
-    return buf.tensors[rank].clone() if src else torch.zeros_like(x)
+    return out
 
 
 def p2p_shift_local(x_local: torch.Tensor, shift: int = 1, axis: str = "tp",
                     num_ranks: int | None = None,
-                    force_kernel: bool = False) -> torch.Tensor:
+                    force_kernel: bool = False,
+                    out: torch.Tensor | None = None) -> torch.Tensor:
     """Rank-local ring shift inside ``DistContext.run``: the output on
     rank (d + shift) % n is rank d's ``x_local``. ``force_kernel`` runs
-    the kernel at n = 1 too (the loopback: the rank pushes to itself)."""
+    the kernel at n = 1 too (the loopback: the rank pushes to itself).
+    ``out``: the tensor the kernel writes (every element), else a fresh
+    one; not taken at n = 1 without ``force_kernel``."""
     ctx, rank, n = rank_of(axis, num_ranks)
     if n == 1 and not force_kernel:
+        if out is not None:
+            raise ValueError("p2p: out= needs the kernel (n > 1 or "
+                             "force_kernel)")
         return x_local
     return _p2p(P2P_SHIFT_KERNEL, x_local, _shift_perm(shift, n), ctx, rank,
-                n, (int(shift),))
+                n, (int(shift),), out)
 
 
 def p2p_shift(x, ctx: DistContext | None = None, shift: int = 1,
@@ -112,7 +123,8 @@ def _as_shift(perm, n: int) -> int | None:
 
 def p2p_permute_local(x_local: torch.Tensor, perm, axis: str = "tp",
                       num_ranks: int | None = None,
-                      force_kernel: bool = False) -> torch.Tensor:
+                      force_kernel: bool = False,
+                      out: torch.Tensor | None = None) -> torch.Tensor:
     """Rank-local arbitrary-pair exchange inside ``DistContext.run``.
 
     ``perm``: static (src, dst) rank pairs — partial sends (idle ranks
@@ -121,7 +133,8 @@ def p2p_permute_local(x_local: torch.Tensor, perm, axis: str = "tp",
     shift takes the shift kernel. ``force_kernel`` runs the permute
     kernel even at n = 1 (there the ring fast path is suppressed, so THIS
     kernel is what runs); at n = 1 without it the result is ``x_local`` if
-    (0, 0) is in the perm, else zeros."""
+    (0, 0) is in the perm, else zeros. ``out``: as
+    :func:`p2p_shift_local`'s."""
     ctx, rank, n = rank_of(axis, num_ranks)
     perm = tuple((int(s), int(d)) for s, d in perm)
     dsts = [d for _, d in perm]
@@ -131,15 +144,18 @@ def p2p_permute_local(x_local: torch.Tensor, perm, axis: str = "tp",
         if not (0 <= s < n and 0 <= d < n):
             raise ValueError(f"pair ({s}, {d}) outside 0..{n - 1}")
     if n == 1 and not force_kernel:
+        if out is not None:
+            raise ValueError("p2p: out= needs the kernel (n > 1 or "
+                             "force_kernel)")
         return x_local if (0, 0) in perm else torch.zeros_like(x_local)
     shift = _as_shift(perm, n)
     if shift is not None and not (force_kernel and n == 1):
         return p2p_shift_local(x_local, shift=shift, axis=axis, num_ranks=n,
-                               force_kernel=force_kernel)
+                               force_kernel=force_kernel, out=out)
     send_mask = sum(1 << d for s, d in perm if s == rank)
     src = next((s for s, d in perm if d == rank), -1)
     return _p2p(P2P_PERMUTE_KERNEL, x_local, perm, ctx, rank, n,
-                (send_mask, src))
+                (send_mask, src), out)
 
 
 def p2p_permute(x, perm, ctx: DistContext | None = None,

@@ -38,9 +38,10 @@ from triton_distributed_tpu_torch.runtime.context import (
 )
 
 # 64-bit flags a rank's signal pad holds (csrc/dist.cuh kSignalWords): the
-# collectives' barrier and step flags (8 blocks, 8 steps, 8 ranks), or the
+# collectives' barrier and step flags (8 blocks, 8 steps, 8 ranks), the
 # fused GEMM kernels' barrier (128 blocks x 8 ranks) and data flags (up to
-# 8 ranks x 4 sub-blocks x 128 blocks).
+# 8 ranks x 4 sub-blocks x 128 blocks), or the push protocol's address,
+# ready and data words (ops/_comm.PushLayout: 8 + 8 + 8 x 128).
 SIGNAL_WORDS = 8192
 
 
@@ -135,3 +136,12 @@ def symm_full(ctx: DistContext, shape: Sequence[int], fill_value,
     key = ("symm", tuple(shape), dtype, tag, fill_value)
     return ctx.symm_cache(key,
                           lambda: _allocate(ctx, shape, dtype, fill_value))
+
+
+def symm_pad(ctx: DistContext, *, tag: str) -> SymmBuffer:
+    """A signal pad a rank and no payload (each rank's tensor is empty):
+    the push protocol's (B4's full-mesh push, B7), whose senders write the
+    receivers' own outputs. Cached on ``ctx`` by ``tag``; its epochs are
+    the calls'."""
+    key = ("pad", tag)
+    return ctx.symm_cache(key, lambda: _allocate(ctx, (0,), torch.int64, 0))
