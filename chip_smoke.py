@@ -1791,12 +1791,16 @@ MAIN_GEMM_CASE = "decode_m1_gate_up_e4m3"
 
 
 def gemm_case(torch, gemm, timer, *, name, m, k, n, a_dt, b_dt, out_dt,
-              seed, time_it=True, a_scale=1.0, tiles=None):
+              seed, time_it=True, a_scale=1.0, tiles=None, route=None,
+              repeat=False):
     """One B3 case: operands drawn on the card (e4m3 through the saturating
-    cast), the kernel against its plain version, and when timed its time,
-    the plain version's, a one-call PyTorch yardstick where there is one
-    (``torch.matmul`` for bf16 and fp32; ``torch._scaled_mm`` with unit
-    scales for e4m3, its refusal of a shape recorded), and its bound."""
+    cast), the kernel into a NaN-filled output against its plain version,
+    the route it launched on (``variant_launches``) against the picker's
+    and, when given, ``route``; with ``repeat`` a second call's bits
+    against the first's. When timed its time, the plain version's, a
+    one-call PyTorch yardstick where there is one (``torch.matmul`` for
+    bf16 and fp32; ``torch._scaled_mm`` with unit scales for e4m3, its
+    refusal of a shape recorded), and its bound."""
     from triton_distributed_tpu_torch.models.fp8 import saturate_cast
 
     e4m3 = torch.float8_e4m3fn
@@ -1808,10 +1812,16 @@ def gemm_case(torch, gemm, timer, *, name, m, k, n, a_dt, b_dt, out_dt,
                       * b_scale, b_dt)
     lane = gemm.gemm_lane(a_dt, b_dt)
     caps = tiles or (512, 1024, 512)
-    tile = gemm.select_tile(lane, m, n, *caps)
+    tile = gemm.select_tile(lane, m, n, *caps,
+                            aligned=gemm._aligned(a) and gemm._aligned(b))
     kw = dict(tile_m=caps[0], tile_n=caps[1], tile_k=caps[2],
               out_dtype=out_dt)
-    got = gemm.pallas_matmul(a, b, **kw)
+    got = torch.full((m, n), float("nan"), device="cuda").to(out_dt)
+    before = dict(gemm.GEMM_KERNEL.variant_launches)
+    gemm.pallas_matmul(a, b, **kw, out=got)
+    took = [r for r in gemm.ROUTES
+            if gemm.GEMM_KERNEL.variant_launches.get(r, 0)
+            > before.get(r, 0)]
     want = gemm.matmul_plain(a, b, out_dt)
     torch.cuda.synchronize()
     spread = (k ** 0.5) * a.float().pow(2).mean().sqrt().item() \
@@ -1823,17 +1833,25 @@ def gemm_case(torch, gemm, timer, *, name, m, k, n, a_dt, b_dt, out_dt,
     diff = (got.float() - want.float()).abs()
     mag = want.float().abs()
     share = (diff / (atol + rtol * mag)).max().item()
+    route_ok = took == [tile.route] and route in (None, tile.route)
     rec = {"case": name, "lane": lane, "m": m, "k": k, "n": n,
            "a": _dtype_name(a_dt), "b": _dtype_name(b_dt),
            "out": _dtype_name(out_dt), "tile": list(tile.tiles),
+           "route": tile.route, "routes_launched": took,
            "spread": spread, "max_abs_err": diff.max().item(),
            "max_err_over_spread": diff.max().item() / spread,
            "share_not_identical": (diff > 0).float().mean().item(),
+           "nan_left": int(torch.isnan(got.float()).sum().item()),
            "saturated": (int((want.float().abs() == 448.0).sum().item())
                          if out_dt == e4m3 else 0),
            "tol": {"atol": atol, "rtol": rtol}, "tol_share": share,
            "ok": bool(torch.isfinite(got.float()).all().item()
-                      and share <= 1.0)}
+                      and share <= 1.0 and route_ok)}
+    if repeat:
+        again = gemm.pallas_matmul(a, b, **kw)
+        rec["bit_identical"] = bool(torch.equal(got.view(torch.uint8),
+                                                again.view(torch.uint8)))
+        rec["ok"] = rec["ok"] and rec["bit_identical"]
     if time_it:
         items = a.element_size(), b.element_size(), got.element_size()
         nbytes = m * k * items[0] + k * n * items[1] + m * n * items[2]
@@ -1864,7 +1882,12 @@ def phase_gemm_cases(torch, gemm, timer) -> dict:
     """B3 in each lane: (a) the headline M=2048, K=N=5120; (b) the m=8
     decode shape; (c) the Qwen3-8B decode step's products at M=1 (e4m3,
     fp32 out, as ``fp8_dot`` runs them) and the Qwen3-30B-A3B expert
-    products at 4 rows; (d) the reference's odd shapes."""
+    products at 4 rows; (d) the wgmma route in bf16 and e4m3 into every
+    output type on shapes off every tile edge (aligned), and an unaligned
+    B on the mma.sync route; (e) the split-K route at 1, 4, 8 and 16 rows,
+    K 4096 / 12288 and one no split divides, each called twice for
+    identical bits; (f) every compiled tile and the reference's odd
+    shapes. Each case checks the route it launched on."""
     bf16, f32, e4m3 = torch.bfloat16, torch.float32, torch.float8_e4m3fn
     cases = []
 
@@ -1873,33 +1896,70 @@ def phase_gemm_cases(torch, gemm, timer) -> dict:
 
     head = dict(m=2048, k=5120, n=5120)
     case(name="headline_bf16", a_dt=bf16, b_dt=bf16, out_dt=bf16, seed=40,
-         **head)
+         route="wgmma", **head)
     case(name="headline_e4m3", a_dt=e4m3, b_dt=e4m3, out_dt=e4m3, seed=41,
-         a_scale=2.0, **head)         # ~0.2% of the products past 448
+         a_scale=2.0, route="wgmma", **head)  # ~0.2% of products past 448
     case(name="headline_e4m3_bf16_out", a_dt=e4m3, b_dt=e4m3, out_dt=bf16,
-         seed=42, **head)
+         seed=42, route="wgmma", **head)
     case(name="headline_mixed", a_dt=bf16, b_dt=e4m3, out_dt=bf16, seed=43,
-         **head)
+         route="mma", **head)
     case(name="headline_fp32", a_dt=f32, b_dt=f32, out_dt=f32, seed=44,
-         **head)
+         route="fma", **head)
     case(name="m8_bf16", m=8, k=5120, n=5120, a_dt=bf16, b_dt=bf16,
-         out_dt=bf16, seed=45)
+         out_dt=bf16, seed=45, route="splitk", repeat=True)
     case(name="m8_e4m3", m=8, k=5120, n=5120, a_dt=e4m3, b_dt=e4m3,
-         out_dt=f32, seed=46)
+         out_dt=f32, seed=46, route="splitk", repeat=True)
     for pname, (k, n) in QWEN3_8B_PRODUCTS.items():
         case(name=f"decode_m1_{pname}_e4m3", m=1, k=k, n=n, a_dt=e4m3,
-             b_dt=e4m3, out_dt=f32, seed=47)
+             b_dt=e4m3, out_dt=f32, seed=47, route="splitk", repeat=True)
     for pname, (k, n) in (("gate_up", (2048, 768)), ("down", (768, 2048))):
         case(name=f"expert_m4_{pname}_e4m3", m=4, k=k, n=n, a_dt=e4m3,
-             b_dt=e4m3, out_dt=f32, seed=48)
-    # Every compiled tile at least once, on a shape that is ragged in
-    # all three dimensions.
+             b_dt=e4m3, out_dt=f32, seed=48, route="splitk", repeat=True)
+    # The wgmma route off every tile edge: 200 / 300 rows (one pair tile,
+    # and two with the last CTA past M), K a k-step and a part, columns
+    # not a tile's multiple; every output type, the headline in fp32 too.
+    for out_dt in (bf16, f32):
+        case(name=f"wgmma_bf16_200x1000x312_{_dtype_name(out_dt)}", m=200,
+             k=1000, n=312, a_dt=bf16, b_dt=bf16, out_dt=out_dt, seed=52,
+             route="wgmma", time_it=False)
+    case(name="wgmma_bf16_300x1000x312_fp32", m=300, k=1000, n=312,
+         a_dt=bf16, b_dt=bf16, out_dt=f32, seed=53, route="wgmma",
+         time_it=False)
+    case(name="wgmma_bf16_headline_fp32", a_dt=bf16, b_dt=bf16, out_dt=f32,
+         seed=54, route="wgmma", time_it=False, **head)
+    for out_dt in (e4m3, bf16, f32):
+        case(name=f"wgmma_e4m3_200x1008x336_{_dtype_name(out_dt)}", m=200,
+             k=1008, n=336, a_dt=e4m3, b_dt=e4m3, out_dt=out_dt, seed=55,
+             route="wgmma", time_it=False)
+    case(name="wgmma_e4m3_headline_fp32", a_dt=e4m3, b_dt=e4m3, out_dt=f32,
+         seed=56, route="wgmma", time_it=False, **head)
+    # An unaligned B (300 bf16 columns: 600 bytes a row) takes mma.sync.
+    case(name="unaligned_bf16_256x1000x300", m=256, k=1000, n=300,
+         a_dt=bf16, b_dt=bf16, out_dt=bf16, seed=57, route="mma",
+         time_it=False)
+    # Split-K: 1-16 rows, K 4096 / 12288 and 4000 (no split divides it),
+    # N 1024-12288, every output type, twice each.
+    for i, (m, k, n, dts) in enumerate([
+            (1, 4096, 1024, (e4m3, f32)), (4, 12288, 4096, (e4m3, bf16)),
+            (8, 4096, 12288, (e4m3, f32)), (16, 4000, 2048, (e4m3, e4m3)),
+            (16, 12288, 1024, (e4m3, f32)), (1, 4096, 4096, (bf16, bf16)),
+            (4, 4000, 12288, (bf16, f32)), (16, 12288, 1024, (bf16, bf16))]):
+        case(name=f"splitk_{m}x{k}x{n}_{_dtype_name(dts[0])}_"
+                  f"{_dtype_name(dts[1])}", m=m, k=k, n=n, a_dt=dts[0],
+             b_dt=dts[0], out_dt=dts[1], seed=60 + i, route="splitk",
+             repeat=True, time_it=False)
+    # Every compiled tile at least once, on a shape that is ragged in all
+    # three dimensions (aligned for the wgmma and split-K routes, at 16
+    # rows for split-K).
     for lane, dts in (("bf16", (bf16, bf16, bf16)),
                       ("e4m3", (e4m3, e4m3, f32)), ("fp32", (f32, f32, f32))):
         for t in gemm.lane_tiles(lane):
+            m, k, n = {"wgmma": (200, 1008, 336), "splitk": (16, 1008, 336)
+                       }.get(t.route, (200, 1000, 300))
             case(name=f"tile_{lane}_{t.tile_m}x{t.tile_n}x{t.tile_k}",
-                 m=200, k=1000, n=300, a_dt=dts[0], b_dt=dts[1],
-                 out_dt=dts[2], seed=49, time_it=False, tiles=t.tiles)
+                 m=m, k=k, n=n, a_dt=dts[0], b_dt=dts[1],
+                 out_dt=dts[2], seed=49, time_it=False, tiles=t.tiles,
+                 route=t.route)
     for i, (m, k, n) in enumerate([(20, 256, 384), (8, 136, 128),
                                    (24, 128, 136)]):
         for dts in ((f32, f32, f32), (bf16, bf16, bf16), (bf16, e4m3, f32),
@@ -1929,7 +1989,8 @@ def phase_gemm_tuned(torch, gemm, timer) -> dict:
     try:
         autotuner._memory_cache.clear()
         cands = rank_gemm_tiles(autotuner.gemm_tile_candidates(m, k, n, 2),
-                                m, n, k, 2, top=4)
+                                m, n, k, 2, top=4,
+                                routes=gemm.tile_routes("bf16"))
         t0 = time.perf_counter()
         best = autotuner.tuned_matmul_tiles(m, k, n, bf16, device="cuda")
         tune_s = time.perf_counter() - t0
@@ -1947,10 +2008,14 @@ def phase_gemm_tuned(torch, gemm, timer) -> dict:
         a = torch.randn((m, k), generator=g, device="cuda").to(bf16)
         b = (torch.randn((k, n), generator=g, device="cuda")
              * k ** -0.5).to(bf16)
-        gemm.GEMM_KERNEL.launches = 0
+        reset_counts([gemm.GEMM_KERNEL])
         out = gemm.pallas_matmul_tuned(a, b)
         launches = gemm.GEMM_KERNEL.launches
+        routes = dict(gemm.GEMM_KERNEL.variant_launches)
         check(launches == 1, f"gemm_tuned: {launches} launches on a hit")
+        check(routes.get("wgmma", 0) == 1,
+              f"gemm_tuned: the tuned headline launched on {routes}, not "
+              "the wgmma route")
         want = gemm.matmul_plain(a, b, bf16)
         err = (out.float() - want.float()).abs()
         spread = (k ** 0.5) * a.float().pow(2).mean().sqrt().item() \
@@ -1966,6 +2031,7 @@ def phase_gemm_tuned(torch, gemm, timer) -> dict:
                                for t in report.timings],
                 "winner": list(best), "tune_s": tune_s,
                 "cache_hits": 2, "launches_on_hit": launches,
+                "routes_on_hit": routes,
                 "tol_share": share,
                 "winner_ms": timer.ms(lambda: gemm.pallas_matmul(
                     a, b, tile_m=tm, tile_n=tn, tile_k=tk)),
@@ -2061,6 +2127,12 @@ def phase_linear_engine_parity(torch, QWEN3_8B, init_dense_llm, Engine,
             "dtype": "float32", "runs": runs}
 
 
+# The names of B3's kernels (csrc/gemm.cu), as the profiler reports them
+# after the namespace: every route's, the e4m3 wgmma route's pre-pass too.
+B3_KERNELS = ("gemm_tc_kernel<", "gemm_fma_kernel<", "gemm_wgmma<",
+              "gemm_splitk<", "transpose_b8(")
+
+
 def _busy_share(torch, fn, steps: int, names: dict | None = None) -> dict:
     """Kernel time over wall time of ``steps`` calls of ``fn`` under
     ``torch.profiler`` (profiler overhead included), by kernel group:
@@ -2087,7 +2159,8 @@ def _busy_share(torch, fn, steps: int, names: dict | None = None) -> dict:
             grp = next((g for g, sub in names.items() if sub in e.key),
                        "other")
         else:
-            grp = "gemm_b3" if "gemm_tc_kernel" in e.key else (
+            grp = "gemm_b3" if any(f"::{k}" in e.key for k in B3_KERNELS
+                                   ) else (
                 "other_matmul" if any(w in e.key.lower() for w in (
                     "gemm", "gemv", "cutlass", "nvjet", "xmma")) else "other")
         groups[grp] = groups.get(grp, 0.0) + us / 1e3 / steps
@@ -2137,9 +2210,11 @@ def phase_fp8_decode(torch, kernels, gemm_k, Engine, params, cfg, *,
     launches = gemm_k.launches
     check(launches == 7 * L * gen
           and gemm_k.variant_launches.get("e4m3", 0) == launches
+          and gemm_k.variant_launches.get("splitk", 0) == launches
           and gemm_k.plain_calls == 0,
           f"fp8_decode: {launches} B3 launches for {gen} steps of {L} "
-          f"layers (expected {7 * L * gen}, all e4m3)")
+          f"layers (expected {7 * L * gen}, all e4m3 on split-K): "
+          f"{gemm_k.variant_launches}")
     check(bool(torch.isfinite(lg.float()).all()) and all(
         0 <= t < cfg.vocab_size for t in toks), "fp8_decode: bad output")
     w8 = sum(t.numel() for layer in p8["layers"] for part in layer.values()
@@ -2156,7 +2231,9 @@ def phase_fp8_decode(torch, kernels, gemm_k, Engine, params, cfg, *,
     del p8
     return {"phase": "fp8_decode", "layers": L, "prompt": prompt,
             "steps": gen, "launches": {"gemm": launches,
-                                       "gemm_per_step": launches // gen},
+                                       "gemm_per_step": launches // gen,
+                                       "gemm_routes":
+                                           dict(gemm_k.variant_launches)},
             "decode_ms_per_step": step_ms, "run_s": run_s,
             "decode_tokens_per_s": gen / run_s,
             "e4m3_weight_bytes": w8, "b3_bound_ms": b3_bound,
@@ -2239,9 +2316,10 @@ def phase_fp8_experts(torch, gemm, moe, QWEN3_30B_A3B, init_dense_llm,
                     device="cuda").to(torch.bfloat16)
     args = (x, p["router"], p["w_gate"], p["w_up"], p["w_down"],
             cfg.num_experts_per_tok)
-    gemm.GEMM_KERNEL.launches = 0
+    reset_counts([gemm.GEMM_KERNEL])
     got = moe.moe_tp_fwd_local(*args, num_ranks=1)
     launches = gemm.GEMM_KERNEL.launches
+    routes = dict(gemm.GEMM_KERNEL.variant_launches)
     kernel_matmul = moe.pallas_matmul
     moe.pallas_matmul = (lambda a, b, out_dtype:
                          gemm.matmul_plain(a, b, out_dtype))
@@ -2262,8 +2340,10 @@ def phase_fp8_experts(torch, gemm, moe, QWEN3_30B_A3B, init_dense_llm,
              ).max().item()
     check(share <= 1.0 and bool(torch.isfinite(got.float()).all()),
           f"fp8 experts: B3 off its plain version by {share}x tolerance")
-    check(launches > 0 and launches % 3 == 0,
-          f"fp8 experts: {launches} B3 launches for the MoE layer")
+    check(launches > 0 and launches % 3 == 0
+          and routes.get("splitk", 0) == launches,
+          f"fp8 experts: {launches} B3 launches for the MoE layer, by "
+          f"route {routes} (all split-K at {batch} rows)")
     cache = init_kv_cache(cfg, batch, 64)._replace(offset=8)
     gemm.GEMM_KERNEL.launches = 0
     lg, _ = dense_decode_step(params, cfg, torch.zeros(
@@ -2273,7 +2353,8 @@ def phase_fp8_experts(torch, gemm, moe, QWEN3_30B_A3B, init_dense_llm,
           and bool(torch.isfinite(lg.float()).all()),
           f"fp8 experts: the MoE decode step launched B3 {step_launches}x")
     return {"phase": "fp8_experts", "layers": 2, "batch": batch,
-            "moe_layer_launches": launches, "max_abs_err":
+            "moe_layer_launches": launches, "moe_layer_routes": routes,
+            "max_abs_err":
             diff.max().item(), "out_rms": rms, "tol": tol,
             "tol_share": share,
             "decode_step_launches": step_launches}

@@ -14,7 +14,9 @@ CUDA events between consecutive calls on each rank's stream, a call's time
 the slowest rank's, the median of the last 20 (L2 not flushed: the calls
 follow each other, as on the main path). The batched ``torch.matmul`` of
 the same products (no communication) is timed the same way in the same
-run. Prints one JSON line per case, ptxas's report of the tree's
+run. Prints one JSON line per case (with the SHA-256 of the ranks'
+outputs: inputs come from one seed, so two trees whose kernels compute the
+same bits print the same digest), ptxas's report of the tree's
 ``gemm_comm.cu`` (registers, spills, shared memory), then the card's name
 and power limit.
 
@@ -37,6 +39,7 @@ change, change, parent:
         [--engine]
 """
 import argparse
+import hashlib
 import importlib
 import json
 import os
@@ -153,10 +156,15 @@ def kernel_case(torch, ctx, mods, op, name, m, k, ncols, seed) -> dict:
     atol = (2.0 ** -13 * spread if op == "ag_gemm"
             else n * (2.0 ** -13 + 4 * 2.0 ** -7) * spread)
     errs = [gemm_share(o, w, atol) for o, w in zip(got, want)]
+    digest = hashlib.sha256()
+    for o in got:
+        digest.update(o.contiguous().view(torch.uint8).cpu().numpy()
+                      .tobytes())
     rec = {"case": f"{op}_{name}", "ranks": n, "rows": m, "k": k,
            "ncols": ncols, "max_abs_err": max(e for e, _ in errs),
            "tol_share": max(s for _, s in errs),
-           "finite": all(bool(torch.isfinite(o).all()) for o in got)}
+           "finite": all(bool(torch.isfinite(o).all()) for o in got),
+           "sha256": digest.hexdigest()}
     rec["ok"] = rec["finite"] and rec["tol_share"] <= 1.0
     rec["ms"] = spaced_ms(torch, ctx, comm, build, fn)
     rec["library_ms"] = library_ms(torch, lib)

@@ -15,7 +15,7 @@ import jax.numpy as jnp
 
 from triton_distributed_tpu.runtime import utils as jutils
 from triton_distributed_tpu_torch.ops.gemm import (
-    lane_tiles, pallas_matmul, pallas_matmul_tuned,
+    lane_tiles, pallas_matmul, pallas_matmul_tuned, tile_routes,
 )
 from triton_distributed_tpu_torch.runtime import autotuner as at
 from triton_distributed_tpu_torch.runtime import perf_model as pm
@@ -25,22 +25,26 @@ SPEC = pm.chip_spec("NVIDIA H100 80GB HBM3")
 
 
 def test_autotune_picks_fastest_and_caches(tmp_path, monkeypatch):
+    """Each candidate's time is scripted (2 / 4 / 6 ms for configs 1 / 2 /
+    3, through a stubbed ``measure``), so the ranking and the caches are
+    tested, not the host's clock under load."""
     monkeypatch.setenv("TDTPU_AUTOTUNE_CACHE", str(tmp_path / "cache.json"))
-    import time
-
     calls = []
 
     def build(cfg):
+        calls.append(cfg)
+
         def fn(x):
-            calls.append(cfg)
-            time.sleep(0.002 * cfg)
             return x
+        fn.cfg = cfg
         return fn
 
+    monkeypatch.setattr(at, "measure",
+                        lambda fn, args, warmup=1, iters=3: 0.002 * fn.cfg)
     best, report = at.contextual_autotune(
         "sleepy", "k1", [3, 1, 2], build, (torch.zeros(4),), iters=2)
     assert best == 1 and report.best_index == 1
-    assert all(t is not None for t in report.timings)
+    assert report.timings == pytest.approx((0.006, 0.002, 0.004))
     before = len(calls)
     best2, report2 = at.contextual_autotune(
         "sleepy", "k1", [3, 1, 2], build, (torch.zeros(4),), iters=2)
@@ -52,6 +56,24 @@ def test_autotune_picks_fastest_and_caches(tmp_path, monkeypatch):
     at._memory_cache.clear()
     assert at.contextual_autotune("sleepy", "k1", [3, 2, 1], build,
                                   (torch.zeros(4),), iters=1)[1] is not None
+
+
+@pytest.mark.parametrize("itemsize,lane", [(2, "bf16"), (1, "e4m3")])
+def test_tuner_top4_holds_wgmma(itemsize, lane):
+    """At the headline 2048 x 5120 x 5120 the card's candidate space holds
+    the wgmma tiles, and the route-aware ranking puts one in the four the
+    tuner measures; at decode the split-K tile leads."""
+    cands = at.gemm_tile_candidates(2048, 5120, 5120, itemsize,
+                                    smem_budget=SPEC.smem_bytes)
+    routes = tile_routes(lane)
+    assert {routes[c] for c in cands} == {"wgmma", "mma"}
+    top4 = pm.rank_gemm_tiles(cands, 2048, 5120, 5120, itemsize, SPEC,
+                              top=4, routes=routes)
+    assert routes[top4[0]] == "wgmma"
+    dec = at.gemm_tile_candidates(1, 4096, 12288, itemsize,
+                                  smem_budget=SPEC.smem_bytes)
+    assert routes[pm.rank_gemm_tiles(dec, 1, 12288, 4096, itemsize, SPEC,
+                                     routes=routes)[0]] == "splitk"
 
 
 def test_autotune_prunes_failing_candidates(tmp_path, monkeypatch):
@@ -78,8 +100,12 @@ def test_gemm_tile_candidates_fit(itemsize, lane):
     assert cands and set(cands) <= compiled
     for tm, tn, tk in cands:
         assert tm <= 256 and tn <= 1024 and tk <= 512
-    assert len(at.gemm_tile_candidates(2048, 5120, 5120, itemsize)) == len(
-        compiled)
+    # At 2048 rows: every compiled tile that fits a block's shared memory
+    # on this machine's spec, less the split-K tile (<= 16 rows).
+    budget = pm.chip_spec().smem_bytes
+    assert set(at.gemm_tile_candidates(2048, 5120, 5120, itemsize)) == {
+        t.tiles for t in lane_tiles(lane)
+        if t.smem_bytes <= budget and t.route != "splitk"}
     assert at.gemm_tile_candidates(8, 64, 32, itemsize)  # never empty
     assert at.gemm_tile_candidates(2048, 5120, 5120, itemsize,
                                    smem_budget=0) == [
@@ -135,12 +161,20 @@ def test_gemm_tflops_below_peak():
 
 def test_rank_gemm_tiles_prefers_large_tiles():
     cands = [t.tiles for t in lane_tiles("bf16")]
-    ranked = pm.rank_gemm_tiles(cands, 2048, 5120, 5120, 2, SPEC)
-    assert ranked[0] == (128, 128, 32) and set(ranked) == set(cands)
-    top2 = pm.rank_gemm_tiles(cands, 2048, 5120, 5120, 2, SPEC, top=2)
+    routes = tile_routes("bf16")
+    ranked = pm.rank_gemm_tiles(cands, 2048, 5120, 5120, 2, SPEC,
+                                routes=routes)
+    assert routes[ranked[0]] == "wgmma" and set(ranked) == set(cands)
+    top2 = pm.rank_gemm_tiles(cands, 2048, 5120, 5120, 2, SPEC, top=2,
+                              routes=routes)
     assert top2 == ranked[:2]
+    # Among the mma.sync tiles the large one leads at the headline.
+    mma = [c for c in cands if routes[c] == "mma"]
+    assert pm.rank_gemm_tiles(mma, 2048, 5120, 5120, 2, SPEC,
+                              routes=routes)[0] == (128, 128, 32)
     # At decode the 16-row tiles waste nothing on padding rows.
-    assert pm.rank_gemm_tiles(cands, 8, 4096, 4096, 2, SPEC)[0][0] == 16
+    assert pm.rank_gemm_tiles(cands, 8, 4096, 4096, 2, SPEC,
+                              routes=routes)[0][0] == 16
 
 
 def test_autotuner_pruning_keeps_modeled_winner():

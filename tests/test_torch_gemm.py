@@ -20,7 +20,9 @@ import jax.numpy as jnp
 from triton_distributed_tpu.ops.gemm import pallas_matmul as jmatmul
 from triton_distributed_tpu_torch.models.convert import array_to_tensor
 from triton_distributed_tpu_torch.ops import gemm
-from triton_distributed_tpu_torch.runtime.perf_model import chip_spec
+from triton_distributed_tpu_torch.runtime.perf_model import (
+    WGMMA_TILE_TIME, chip_spec,
+)
 
 F32, BF16, E4M3 = torch.float32, torch.bfloat16, torch.float8_e4m3fn
 JDT = {F32: jnp.float32, BF16: jnp.bfloat16, E4M3: jnp.float8_e4m3fn}
@@ -124,25 +126,36 @@ def test_e4m3_store_saturates():
 
 
 def test_tile_selection():
-    """Default caps pick the large tile at large M and a 16-row K-split
-    tile at decode; exact caps pick that tile; caps under every tile, a
-    lane or an output type the kernel does not compile raise by name."""
+    """Default caps pick the wgmma route at large M and the split-K route
+    at decode (aligned operands); exact caps pick that tile where its route
+    takes the operands; the mma.sync tiles keep the register-staged
+    budget, the wgmma tiles the ring's shared memory; caps under every
+    tile, a lane or an output type the kernel does not compile raise by
+    name."""
     h100 = chip_spec("NVIDIA H100 80GB HBM3")
 
     def pick(lane, m, n):
-        return gemm.select_tile(lane, m, n, 512, 1024, 512, spec=h100).tiles
+        return gemm.select_tile(lane, m, n, 512, 1024, 512, spec=h100)
 
-    assert pick("bf16", 2048, 5120) == (128, 128, 32)
-    assert pick("e4m3", 2048, 5120) == (128, 128, 64)
-    # Decode: 16-row tiles; the wider one once it fills the 132 SMs.
-    assert pick("e4m3", 1, 12288) == (16, 64, 512)
-    assert pick("e4m3", 1, 4096) == (16, 32, 512)
-    assert pick("e4m3", 8, 1024) == (16, 32, 512)
-    assert pick("fp32", 2048, 5120) == (128, 128, 8)
-    assert pick("fp32", 1, 512) == (16, 64, 32)
-    for t in gemm.lane_tiles("bf16"):
-        assert gemm.select_tile("bf16", 2048, 5120, *t.tiles) == t
-        assert t.smem_bytes <= 48 << 10
+    assert pick("bf16", 2048, 5120).route == "wgmma"
+    assert pick("e4m3", 2048, 5120).tiles == (128, 128, 128)
+    # Decode: the split-K strip (a warp's 128 e4m3 / 64 bf16 columns).
+    assert pick("e4m3", 1, 12288).tiles == (16, 128, 32)
+    assert pick("e4m3", 1, 4096).tiles == (16, 128, 32)
+    assert pick("e4m3", 8, 1024).route == "splitk"
+    assert pick("bf16", 8, 5120).tiles == (16, 64, 32)
+    assert pick("fp32", 2048, 5120).tiles == (128, 128, 8)
+    assert pick("fp32", 1, 512).tiles == (16, 64, 32)
+    assert pick("mixed", 2048, 5120).tiles == (128, 128, 32)
+    for t in gemm.lane_tiles("bf16") + gemm.lane_tiles("e4m3"):
+        lane = "bf16" if t in gemm.lane_tiles("bf16") else "e4m3"
+        m = 16 if t.route == "splitk" else 2048
+        assert gemm.select_tile(lane, m, 5120, *t.tiles) == t
+        if t.route == "mma":
+            assert t.smem_bytes <= 48 << 10
+        elif t.route == "wgmma":
+            assert t.smem_bytes == gemm.WGMMA_SMEM_BYTES == 197760
+        assert t.smem_bytes <= 232448
     with pytest.raises(gemm.GemmConfigError, match="tile_m"):
         gemm.select_tile("bf16", 64, 64, 8, 1024, 512)
     a, b = _pair(16, 64, 32, F32, F32)
@@ -150,6 +163,98 @@ def test_tile_selection():
         gemm.pallas_matmul(_t(a), _t(b), out_dtype=BF16)
     with pytest.raises(gemm.GemmConfigError, match="no B3 lane"):
         gemm.pallas_matmul(_t(a).half(), _t(b).half())
+
+
+H100 = chip_spec("NVIDIA H100 80GB HBM3")
+# (lane, m, n, aligned, caps, expected route, expected tile or None)
+ROUTE_CASES = [
+    ("bf16", 2048, 5120, True, None, "wgmma", None),
+    ("bf16", 2048, 5120, False, None, "mma", (128, 128, 32)),
+    ("e4m3", 2048, 5120, False, None, "mma", (128, 128, 64)),
+    ("bf16", 64, 4096, True, None, "wgmma", None),
+    ("bf16", 63, 4096, True, None, "mma", None),
+    ("e4m3", 17, 4096, True, None, "mma", None),
+    ("e4m3", 16, 4096, True, None, "splitk", (16, 128, 32)),
+    ("e4m3", 1, 4096, False, None, "mma", (16, 32, 512)),
+    ("bf16", 4, 768, True, None, "splitk", (16, 64, 32)),
+    # Caps that exclude the new routes: a tile_k of 32 leaves the bf16
+    # wgmma tiles out, a tile_n of 64 the e4m3 split-K strip.
+    ("bf16", 2048, 5120, True, (512, 1024, 32), "mma", (128, 128, 32)),
+    ("e4m3", 1, 4096, True, (512, 64, 512), "mma", (16, 32, 512)),
+    # AGGemmConfig's caps admit the new tiles.
+    ("bf16", 512, 4096, True, (512, 1024, 1024), "wgmma", None),
+]
+
+
+@pytest.mark.parametrize("lane,m,n,aligned,caps,route,tile", ROUTE_CASES,
+                         ids=[f"{c[0]}-m{c[1]}-n{c[2]}-"
+                              f"{'al' if c[3] else 'unal'}-"
+                              f"{'caps' if c[4] else 'dflt'}"
+                              for c in ROUTE_CASES])
+def test_route_picker(lane, m, n, aligned, caps, route, tile):
+    t = gemm.select_tile(lane, m, n, *(caps or (512, 1024, 512)),
+                         spec=H100, aligned=aligned)
+    assert t.route == route
+    if tile is not None:
+        assert t.tiles == tile
+
+
+def test_wgmma_width_weighs_last_wave():
+    """At the headline 128 x 256 makes 160 pair tiles over 66 clusters
+    (3 waves), 128 x 128 320 (5 waves): the picker takes the smaller
+    modeled time. Where both fit one wave the narrow tile spreads wider;
+    at 4096 x 4096 (4 waves against 8) the wide one wins."""
+    wide, narrow = (t for t in gemm.lane_tiles("bf16")
+                    if t.route == "wgmma")
+    assert gemm.wgmma_wave_cost(wide, 2048, 5120, H100) == pytest.approx(
+        3 * WGMMA_TILE_TIME[256])
+    assert gemm.wgmma_wave_cost(narrow, 2048, 5120, H100) == pytest.approx(
+        5 * WGMMA_TILE_TIME[128])
+    best = min((wide, narrow), key=lambda t: gemm.wgmma_wave_cost(
+        t, 2048, 5120, H100))
+    assert gemm.select_tile("bf16", 2048, 5120, 512, 1024, 512,
+                            spec=H100) == best
+    assert gemm.select_tile("bf16", 256, 2048, 512, 1024, 512,
+                            spec=H100) == narrow
+    assert gemm.select_tile("bf16", 4096, 4096, 512, 1024, 512,
+                            spec=H100) == wide
+
+
+# (k, n) of the Qwen3-8B decode products and the 4-row expert products:
+# the split count (one cluster a 128-column strip), k-steps a CTA.
+SPLIT_CASES = [((4096, 1024), (8, 16)), ((12288, 4096), (6, 64)),
+               ((4096, 12288), (2, 64)), ((4096, 4096), (6, 22)),
+               ((2048, 768), (8, 8)), ((768, 2048), (3, 8))]
+
+
+@pytest.mark.parametrize("kn,plan", SPLIT_CASES,
+                         ids=[f"k{k}-n{n}" for (k, n), _ in SPLIT_CASES])
+def test_splitk_plan(kn, plan):
+    k, n = kn
+    splits, per, chunk = gemm.splitk_plan("e4m3", 1, n, k, spec=H100)
+    assert (splits, per) == plan
+    steps = -(-k // gemm.SPLITK_STEP)
+    # Every CTA has k-steps, none past K; the cluster is portable; the
+    # grid is one wave at 1.5 CTAs a SM.
+    assert (splits - 1) * per < steps <= splits * per
+    assert 1 <= splits <= 8 and 1 <= chunk <= per
+    assert splits * -(-n // 128) <= 1.5 * H100.sm_count
+    # A's staged rows fit the route's shared memory at 16 rows too.
+    s16 = gemm.splitk_plan("e4m3", 16, n, k, spec=H100)
+    assert 16 * (s16[2] * gemm.SPLITK_STEP + 16) <= gemm.SPLITK_SMEM_BYTES
+
+
+def test_out_argument_written_in_place():
+    """``out=``: the product lands in the caller's tensor (the card's
+    harness passes a NaN-filled one); a wrong shape or type is refused by
+    name."""
+    a, b = _pair(8, 64, 32, BF16, BF16)
+    want = gemm.pallas_matmul(_t(a), _t(b), out_dtype=F32)
+    out = torch.full((8, 32), float("nan"))
+    got = gemm.pallas_matmul(_t(a), _t(b), out_dtype=F32, out=out)
+    assert got is out and torch.equal(out, want)
+    with pytest.raises(ValueError, match="argument out"):
+        gemm.pallas_matmul(_t(a), _t(b), out=torch.empty((8, 32)))
 
 
 def test_plain_version_counts_and_other_devices_refused():

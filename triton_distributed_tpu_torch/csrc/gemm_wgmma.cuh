@@ -1,6 +1,8 @@
 // The wgmma + TMA mainloop of the fused GEMM kernels B9 (ag_gemm) and B10
-// (gemm_rs) in gemm_comm.cu, bf16 at the tall tile: C = A @ B with A (M, K)
-// row-major and B (K, N) row-major as stored, fp32 accumulation, one cast.
+// (gemm_rs) in gemm_comm.cu, bf16 at the tall tile, and of B3's tall route
+// in gemm.cu (bf16, and e4m3 through the K-major forms at the end of this
+// file): C = A @ B with A (M, K) row-major and B (K, N) row-major as
+// stored, fp32 accumulation, one cast.
 //
 // A block of THREADS threads is three warpgroups:
 //  - warpgroup 2, the producer (setmaxnreg down to kProducerRegs): its
@@ -51,6 +53,7 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "common.cuh"
 #include "hopper.cuh"
 
 namespace tdt {
@@ -244,6 +247,185 @@ __device__ __forceinline__ void store_tile(int wgi, const float (&acc)[BN / 2],
     const int col = 8 * (j + (odd ? 1 : 0));
     if (row_ok && col < cols)
       *reinterpret_cast<uint4*>(dst + col) = make_uint4(w0, w1, w2, w3);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// B3's other epilogues and its e4m3 operands (gemm.cu). The bf16 forms
+// above stay as B9 / B10 compile them.
+// ---------------------------------------------------------------------------
+
+// The 4 x 4 word transpose of a quad (the exchange store_tile does inline):
+// x[t] is this lane's word for quad lane t; on return x[s] is quad lane
+// s's word for this lane. Two rounds of two xor shuffles; the words a lane
+// keeps stay in place, so no register is indexed by the lane.
+__device__ __forceinline__ void quad_transpose(uint32_t (&x)[4]) {
+  const int q = threadIdx.x & 3;
+  const bool b0 = q & 1, b1 = q & 2;
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    uint32_t s = b0 ? x[2 * u] : x[2 * u + 1];
+    s = __shfl_xor_sync(0xffffffffu, s, 1);
+    if (b0)
+      x[2 * u] = s;
+    else
+      x[2 * u + 1] = s;
+  }
+#pragma unroll
+  for (int v = 0; v < 2; ++v) {
+    uint32_t s = b1 ? x[v] : x[2 + v];
+    s = __shfl_xor_sync(0xffffffffu, s, 2);
+    if (b1)
+      x[v] = s;
+    else
+      x[2 + v] = s;
+  }
+}
+
+// Consumer warpgroup `wgi`: store its rows of the tile at `dst` (row
+// stride `ld` floats) in fp32; rows >= `rows` and columns >= `cols` left
+// out (`cols` a multiple of 4). For each 8-column group j the even lane of
+// a quad pair takes row r0, the odd one row r0 + 8, each 4 consecutive
+// columns (one xor shuffle of two words): 16-byte stores.
+template <int BN>
+__device__ __forceinline__ void store_tile_f32(int wgi,
+                                               const float (&acc)[BN / 2],
+                                               float* dst, long long ld,
+                                               int rows, int cols) {
+  const int t = threadIdx.x & 127;
+  const int lane = t & 31, q = lane & 3;
+  const bool odd = q & 1;
+  const int row = 64 * wgi + 16 * (t >> 5) + (lane >> 2) + (odd ? 8 : 0);
+  const bool row_ok = row < rows;
+  dst += (long long)row * ld;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    // Even: send row r0 + 8's pair, keep r0's; odd: the other way round.
+    const float s0 = odd ? acc[4 * j] : acc[4 * j + 2];
+    const float s1 = odd ? acc[4 * j + 1] : acc[4 * j + 3];
+    const float r0 = __shfl_xor_sync(0xffffffffu, s0, 1);
+    const float r1 = __shfl_xor_sync(0xffffffffu, s1, 1);
+    const float4 v = odd ? make_float4(r0, r1, acc[4 * j + 2], acc[4 * j + 3])
+                         : make_float4(acc[4 * j], acc[4 * j + 1], r0, r1);
+    const int col = 8 * j + 4 * (q >> 1);
+    if (row_ok && col < cols) *reinterpret_cast<float4*>(dst + col) = v;
+  }
+}
+
+// Two saturating e4m3 bytes (tdt::to_e4m3), `lo` in the low byte.
+__device__ __forceinline__ uint32_t pack_e4m3x2(float lo, float hi) {
+  return (uint32_t)tdt::to_e4m3(lo).__x |
+         ((uint32_t)tdt::to_e4m3(hi).__x << 8);
+}
+
+// Consumer warpgroup `wgi`: store its rows of the tile at `dst` (row
+// stride `ld` bytes) in e4m3, saturating to +-448; rows >= `rows` and
+// columns >= `cols` left out (`cols` a multiple of 16). For each 32-column
+// group (j = 4 J .. 4 J + 3) a lane's word for quad lane t holds its two
+// columns of j = 4 J + 2 (t & 1) and of the next j, on row r0 + 8 (t >> 1);
+// after the quad transpose lane q holds 16 consecutive columns of one row.
+template <int BN>
+__device__ __forceinline__ void store_tile_e4m3(int wgi,
+                                                const float (&acc)[BN / 2],
+                                                uint8_t* dst, long long ld,
+                                                int rows, int cols) {
+  static_assert(BN % 32 == 0, "32-column groups");
+  const int t = threadIdx.x & 127;
+  const int lane = t & 31, q = lane & 3;
+  const int row = 64 * wgi + 16 * (t >> 5) + (lane >> 2) + ((q & 2) ? 8 : 0);
+  const bool row_ok = row < rows;
+  dst += (long long)row * ld;
+#pragma unroll
+  for (int jj = 0; jj < BN / 8; jj += 4) {
+    uint32_t x[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int ja = jj + 2 * (u & 1), h = 2 * (u >> 1);
+      x[u] = pack_e4m3x2(acc[4 * ja + h], acc[4 * ja + h + 1]) |
+             (pack_e4m3x2(acc[4 * ja + 4 + h], acc[4 * ja + 5 + h]) << 16);
+    }
+    quad_transpose(x);
+    // x[s]: lane s's columns 2 s, 2 s + 1 of j = ja (low half) and of ja + 1.
+    const uint4 v = make_uint4(__byte_perm(x[0], x[1], 0x5410),
+                               __byte_perm(x[2], x[3], 0x5410),
+                               __byte_perm(x[0], x[1], 0x7632),
+                               __byte_perm(x[2], x[3], 0x7632));
+    const int col = 8 * jj + 16 * (q & 1);
+    if (row_ok && col < cols) *reinterpret_cast<uint4*>(dst + col) = v;
+  }
+}
+
+// e4m3 operands. fp8 wgmma reads both operands K-major, and TMA does not
+// transpose: B3 hands the mainloop B^T (N, K), written by its transposing
+// pre-pass. (The producer warpgroup's three free warps transposing each
+// k-step's B box in shared memory — byte permutes, conflict-free loads and
+// stores, a 4-deep ring of raw boxes — set the pace instead: slower than
+// pre-pass plus mainloop at the headline on an H100, PERF.md.) A k-step
+// is then 128 K values (the 128-byte swizzle row), one box of A (128 rows)
+// and one of B^T (BN rows): the bf16 ring's stages, in bytes.
+constexpr int BK8 = 128;
+
+template <int BN>
+__device__ __forceinline__ void load_tile_k8(const Ring& r, int& it,
+                                             const CUtensorMap* ta, int arow,
+                                             const CUtensorMap* tbt, int col0,
+                                             int ktiles) {
+  using C = Cfg<BN>;
+  static_assert(C::B_BYTES == BN * BK8, "B^T box fills the B slot");
+  for (int kt = 0; kt < ktiles; ++kt, ++it) {
+    const int s = it % C::STAGES;
+    if (it >= C::STAGES)
+      mbar_wait(r.empty0 + 8 * s, ((it / C::STAGES) - 1) & 1);
+    const uint32_t full = r.full0 + 8 * s;
+    mbar_expect_tx(full, C::STAGE);
+    tma_load(r.a0 + s * A_BYTES, ta, full, kt * BK8, arow);
+    tma_load(r.b0 + s * C::B_BYTES, tbt, full, kt * BK8, col0);
+  }
+}
+
+// Consumer warpgroup `wgi`, e4m3: its 64 x 128 share of one output tile
+// into `acc`. The fp8 tensor cores keep about 14 bits of a running sum
+// (the mma.sync lane's finding, gemm_tile.cuh), so every PROMOTE8 wgmmas
+// (64 K values, that lane's cadence) sum into `part` from zero, and
+// `part` is added to the fp32 `acc` once they retire. Promoting once a
+// k-step (128 K values) was faster but broke chip_smoke's e4m3 tolerance
+// (2^-10 of the output's spread) at K = 1008 for some seeds on an H100.
+// Holding both pins this route to BN 128 (128 accumulator registers a
+// thread); while a warpgroup waits for its wgmmas the other one's keep the
+// tensor cores busy. The partial cannot be added while the next group
+// runs: ptxas serializes every wgmma when other instructions read an
+// accumulator with a wgmma in flight (C7514).
+constexpr int PROMOTE8 = 2;
+
+__device__ __forceinline__ void mma_tile_e4m3(const Ring& r, int& it,
+                                              int ktiles, int wgi,
+                                              float (&acc)[64],
+                                              float (&part)[64]) {
+  using C = Cfg<128>;
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  for (int kt = 0; kt < ktiles; ++kt, ++it) {
+    const int s = it % C::STAGES;
+    mbar_wait(r.full0 + 8 * s, (it / C::STAGES) & 1);
+    const uint32_t a = r.a0 + s * A_BYTES + wgi * 64 * 128;
+    const uint32_t b = r.b0 + s * C::B_BYTES;
+#pragma unroll
+    for (int g = 0; g < BK8 / 32; g += PROMOTE8) {
+      fence_regs(part);
+      wg_fence();
+#pragma unroll
+      for (int kk = g; kk < g + PROMOTE8; ++kk)
+        wgmma_ss_m64n128_e4m3(part, sw128_desc(a + kk * 32, 16),
+                              sw128_desc(b + kk * 32, 16), kk > g);
+      wg_commit();
+      wg_wait0();
+      fence_regs(part);
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[i] += part[i];
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(r.empty0 + 8 * s);
   }
 }
 

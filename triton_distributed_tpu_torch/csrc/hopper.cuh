@@ -1,9 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the port's wgmma + TMA kernels:
-// K1's bf16 lane (flash_attention.cu) and the fused GEMMs' mainloop
-// (gemm_wgmma.cuh). mbarriers, TMA tile loads, the 128-byte-swizzle wgmma
-// descriptor, the warpgroup's fence / commit / wait, named barriers, and
-// cuTensorMapEncodeTiled reached through the runtime's entry-point lookup
-// (so no library links libcuda).
+// K1's bf16 lane (flash_attention.cu) and the GEMMs' mainloop
+// (gemm_wgmma.cuh: B9 / B10 in gemm_comm.cu, B3 in gemm.cu). mbarriers, TMA
+// tile loads, the 128-byte-swizzle wgmma descriptor, the warpgroup's fence
+// / commit / wait, named barriers, and cuTensorMapEncodeTiled reached
+// through the runtime's entry-point lookup (so no library links libcuda).
 
 #pragma once
 
@@ -233,6 +233,45 @@ __device__ __forceinline__ void wgmma_ss_m64n256(float (&d)[128], uint64_t a,
       : "l"(a), "l"(b), "r"(scale_d), "n"(TRANS_B));
 }
 
+// wgmma m64n128k32, e4m3 in, fp32 accumulate, A and B from shared memory,
+// both K-major (the fp8 forms have no transpose bit). scale-d 0 overwrites
+// d.
+__device__ __forceinline__ void wgmma_ss_m64n128_e4m3(float (&d)[64],
+                                                       uint64_t a, uint64_t b,
+                                                       int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.f32.e4m3.e4m3 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
 // cuTensorMapEncodeTiled, found through the CUDA runtime's entry-point
 // lookup, so the library links no libcuda.
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
@@ -260,23 +299,27 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A 2-D map over a row-major bf16 matrix of `rows` x `cols` elements
-// (`ld` elements a row): boxes of 64 columns (128 bytes) x `box_rows`
-// rows, 128-byte swizzled, zeros past either extent. TMA needs a 16-byte
-// aligned base and a row of whole 16-byte units.
+// A 2-D map over a row-major matrix of `rows` x `cols` elements of `elem`
+// bytes (2: bf16, 1: e4m3 as bytes; `ld` elements a row): boxes of 128
+// bytes of columns (64 bf16, 128 e4m3) x `box_rows` rows, 128-byte
+// swizzled, zeros past either extent. TMA needs a 16-byte aligned base and
+// a row of whole 16-byte units.
 inline cudaError_t make_map_2d(CUtensorMap* map, const void* ptr, long long rows,
-                               long long cols, long long ld, int box_rows) {
+                               long long cols, long long ld, int box_rows,
+                               int elem = 2) {
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
-  if (reinterpret_cast<uintptr_t>(ptr) % 16 || (ld * 2) % 16 || rows < 1 ||
-      cols < 1)
+  if (reinterpret_cast<uintptr_t>(ptr) % 16 || (ld * elem) % 16 ||
+      rows < 1 || cols < 1 || (elem != 1 && elem != 2))
     return cudaErrorInvalidValue;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
-  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)(ld * elem)};
+  const cuuint32_t box[2] = {(cuuint32_t)(128 / elem), (cuuint32_t)box_rows};
   const cuuint32_t estr[2] = {1, 1};
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims,
+      map, elem == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                     : CU_TENSOR_MAP_DATA_TYPE_UINT8,
+      2, const_cast<void*>(ptr), dims,
       strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

@@ -141,17 +141,21 @@ def gemm_tile_candidates(m: int, k: int, ncols: int, itemsize: int,
     """B3's search space at this shape: the compiled tiles of the lane of
     an A of ``itemsize`` bytes (4 fp32, 2 bf16, 1 e4m3) whose block fits
     ``smem_budget`` bytes of shared memory (default: a block's share on
-    this card, ``perf_model.chip_spec().smem_bytes``) and is no larger
-    than the problem (rounded up to 16 rows and 32 columns and K); the
-    smallest tile when none is."""
-    from triton_distributed_tpu_torch.ops.gemm import lane_tiles
+    this card, ``perf_model.chip_spec().smem_bytes``), whose route takes
+    ``m`` rows (split-K at most 16) and that is no larger than the problem
+    (rounded up to 16 rows and 32 columns and K); the smallest tile when
+    none is."""
+    from triton_distributed_tpu_torch.ops.gemm import (
+        SPLITK_ROWS, lane_tiles,
+    )
     from triton_distributed_tpu_torch.runtime.perf_model import chip_spec
     from triton_distributed_tpu_torch.runtime.utils import round_up
 
     if smem_budget is None:
         smem_budget = chip_spec().smem_bytes
     lane = {4: "fp32", 2: "bf16", 1: "e4m3"}[itemsize]
-    tiles = [t for t in lane_tiles(lane) if t.smem_bytes <= smem_budget]
+    tiles = [t for t in lane_tiles(lane) if t.smem_bytes <= smem_budget
+             and (t.route != "splitk" or m <= SPLITK_ROWS)]
     fits = [t.tiles for t in tiles if t.tile_m <= round_up(m, 16)
             and t.tile_n <= round_up(ncols, 32)
             and t.tile_k <= round_up(k, 32)]
@@ -189,7 +193,9 @@ def tuned_matmul_tiles(m: int, k: int, ncols: int, dtype, *, b_dtype=None,
     if not autotune_enabled(device):
         return None
     from triton_distributed_tpu_torch.models.fp8 import saturate_cast
-    from triton_distributed_tpu_torch.ops.gemm import pallas_matmul
+    from triton_distributed_tpu_torch.ops.gemm import (
+        pallas_matmul, tile_routes,
+    )
     from triton_distributed_tpu_torch.runtime.perf_model import (
         rank_gemm_tiles,
     )
@@ -201,7 +207,9 @@ def tuned_matmul_tiles(m: int, k: int, ncols: int, dtype, *, b_dtype=None,
     space_tag = zlib.crc32(repr(base).encode())
     key = (m, k, ncols, str(dtype), str(b_dtype),
            torch.cuda.get_device_name(dev), space_tag)
-    cands = rank_gemm_tiles(base, m, ncols, k, itemsize, top=4)
+    lane = {4: "fp32", 2: "bf16", 1: "e4m3"}[itemsize]
+    cands = rank_gemm_tiles(base, m, ncols, k, itemsize, top=4,
+                            routes=tile_routes(lane))
     g = torch.Generator(device=dev).manual_seed(0)
     a = saturate_cast(torch.randn((m, k), generator=g, device=dev), dtype)
     b = saturate_cast(torch.randn((k, ncols), generator=g, device=dev) * 0.05,

@@ -197,6 +197,16 @@ def ptr(t) -> ctypes.c_void_p:
 
 
 def current_stream(device) -> ctypes.c_void_p:
+    """PyTorch's current stream on ``device`` as a ``c_void_p``: the raw
+    handle where this torch exposes it (0.2 us a call on an H100 host,
+    against 7.5 for building a ``torch.cuda.Stream``), else the stream
+    object's."""
     import torch
 
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        dev = torch.device(device)
+        index = torch.cuda.current_device() if dev.index is None \
+            else dev.index
+        return ctypes.c_void_p(raw(index))
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)

@@ -78,6 +78,25 @@ _SPECS = {
     "h100": ChipSpec("h100", 989.0, 1979.0, 67.0, 3350.0, 232448, 132),
 }
 
+# Kernel B3's routes (ops/gemm.ROUTES): the share of the peak (operations,
+# bytes) each reaches, which ranks the tuner's candidates across routes.
+# Read on an H100 80GB HBM3 at 700 W (PERF.md row 3): "mma" and "fma" are
+# the register-staged tiles at the headline 2048 x 5120 x 5120 (bf16 87
+# TFLOP/s = 8.8% of 989; fp32 4.549 ms against the 1.603 bound = 35%) and
+# at m = 8 (bf16 0.0621 ms against the 0.0157 byte bound = 25%); "wgmma"
+# the headline on the wgmma route (bf16 0.164 ms against 0.1086 = 66%;
+# e4m3 with its B^T pre-pass 0.133 against 0.0543 = 41%); "splitk" the
+# M = 1 e4m3 decode products (w_gate/w_up and w_down 0.026 ms against
+# 0.0150 = 58%, wq/wo 38%) — its mma.sync never bounds it at <= 16 rows.
+ROUTE_EFFICIENCY = {"mma": (0.088, 0.25), "fma": (0.35, 0.25),
+                    "wgmma": (0.6, 0.6), "splitk": (0.3, 0.55)}
+# The wgmma route's time for one pair tile (two 128-row tiles) at each
+# width, in units of the 128-column one: what ``ops/gemm.select_tile``
+# weighs against the last wave's fill. The bf16 headline took 162.7 us in
+# 3 waves of 128 x 256 pair tiles and 176.3 in 5 of 128 x 128 (the H100
+# above): 54.2 / 35.3 = 1.54.
+WGMMA_TILE_TIME = {128: 1.0, 256: 1.54}
+
 # CPU fallback: arbitrary but self-consistent, so ranking logic and the
 # tests behave; never used on the card.
 _FALLBACK = ChipSpec("generic", 100.0, 200.0, 10.0, 800.0, 48 << 10, 16)
@@ -125,7 +144,8 @@ def gemm_tflops(m: int, n: int, k: int, itemsize: int,
 
 
 def rank_gemm_tiles(candidates, m: int, n: int, k: int, itemsize: int,
-                    spec: ChipSpec | None = None, top: int | None = None):
+                    spec: ChipSpec | None = None, top: int | None = None,
+                    routes: dict | None = None):
     """Rank (tile_m, tile_n, tile_k) configs by modeled time, best first.
 
     Each tile is charged its padding waste (ragged edges run whole tiles)
@@ -133,18 +153,27 @@ def rank_gemm_tiles(candidates, m: int, n: int, k: int, itemsize: int,
     column of tiles. The two terms are summed, not maxed: with the max
     every tile under the compute roof ties and the ranking degenerates to
     list order. A tile that fills fewer blocks than the card has SMs is
-    charged for the idle SMs."""
+    charged for the idle SMs. ``routes`` ({tile: B3 route}, e.g.
+    ``ops.gemm.tile_routes(lane)``) scales each term by its route's
+    :data:`ROUTE_EFFICIENCY`; without it every tile gets
+    ``spec.gemm_efficiency``. The persistent routes (wgmma, split-K) fill
+    the card whatever their tile count."""
     spec = spec or chip_spec()
 
     def score(cfg) -> float:
         tm, tn, tk = cfg
+        route = (routes or {}).get(tuple(cfg))
+        eff_c, eff_b = ROUTE_EFFICIENCY.get(
+            route, (spec.gemm_efficiency, 1.0))
         n_m, n_n, n_k = math.ceil(m / tm), math.ceil(n / tn), math.ceil(k / tk)
         flops = 2.0 * (n_m * tm) * (n_n * tn) * (n_k * tk)
-        fill = min(1.0, n_m * n_n / spec.sm_count)
+        fill = (1.0 if route in ("wgmma", "splitk")
+                else min(1.0, n_m * n_n / spec.sm_count))
         t_compute = flops / (spec.peak_tflops(itemsize) * 1e12
-                             * spec.gemm_efficiency * fill)
-        bytes_moved = (n_m * k * n + n_n * m * k + m * n) * itemsize
-        t_memory = bytes_moved / (spec.hbm_gbps * 1e9 * fill)
+                             * eff_c * fill)
+        reread = 1 if route == "splitk" else n_m
+        bytes_moved = (reread * k * n + n_n * m * k + m * n) * itemsize
+        t_memory = bytes_moved / (spec.hbm_gbps * 1e9 * eff_b * fill)
         return t_compute + t_memory
 
     ranked = sorted(candidates, key=score)
