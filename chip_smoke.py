@@ -117,7 +117,9 @@ printing one JSON line:
    (``variant_launches``) the picker's — "wgmma" at every main and edge
    shape, the tall mma.sync tile for bf16 at the "_tall" controls (B9 at
    100 columns, B10 with a B one element off 16 bytes); the tree at 1, 7
-   and 203 rows; 200 back-to-back B11 calls with a rotating straggler; a
+   and 203 rows at n = 2, 3, 4, 8 into 0xFF-filled outputs, a held-back
+   rank 0 and rank n - 1, 200 calls without a sync (the tree on the push
+   protocol); 200 back-to-back B11 calls with a rotating straggler; a
    lost peer's ``CommTimeoutError`` for B9 and B11. ``tp_engine`` —
    Qwen3-8B, bf16, ``Engine(cfg, params, ctx of 4 ranks,
    max_seq=2048).serve`` with the reference's defaults: a 2 x 1024
@@ -179,7 +181,10 @@ printing one JSON line:
    and hierarchical one-shot AllReduce (``csrc/multi_axis.cu``) at (2, 4),
    (4, 2) and (2, 2), fp32 and bf16, 1-2048 rows x 4096, and the two-shot
    (B6 along each axis, then the torus AG), bit-identical to their plain
-   versions on every rank; the (8, 1) and (1, 8) grids through the 1-D
+   versions on every rank — the AllGather (on the push protocol) into
+   0xFF-filled outputs, at 3 and 1000 rows too, with a
+   held-back rank 0 and rank n - 1 and 200 calls without a sync on each
+   grid; the (8, 1) and (1, 8) grids through the 1-D
    ops; a counted main run through the tuple-axis entry points, timed.
    ``migrate`` — ``kv_migrate_local`` of one 1024-token request's KV at
    Qwen3-8B widths (64 pages x 16 rows x 18432 bf16) from slice 0 into
@@ -3392,11 +3397,16 @@ def _coll_ms(torch, ctx, fn, iters: int) -> tuple:
 
 
 def coll_case(torch, timer, ctx, method: str, dtype, rows: int, seed: int,
-              time_it: bool) -> dict:
+              time_it: bool, hold=None) -> dict:
     """One collective on every rank of ``ctx`` against its plain version
     (bit for bit). ``rows``: the AR / RS input rows and the AG output
-    rows of one rank."""
+    rows of one rank. The double tree writes outputs filled with 0xFF
+    bytes (NaN in both types) through ``out=``, so a sentinel left shows
+    an element no writer reached, and must launch its kernel once a rank;
+    ``hold``: (rank, ns) spun on that rank's stream before its call (a
+    late parent or child)."""
     comm, ar, rs, ag, _ = coll_modules()
+    from triton_distributed_tpu_torch.runtime.build import current_stream
     n = ctx.num_ranks
     g = torch.Generator(device="cuda").manual_seed(seed)
     cols = COLL_COLS
@@ -3442,20 +3452,43 @@ def coll_case(torch, timer, ctx, method: str, dtype, rows: int, seed: int,
         full = ag.ag_plain([rs.rs_ring_plain(xp, c) for c in range(n)])
         return [full] * n
 
-    got = [o.to(X.device) for o in ctx.run(fn)]
+    tree = method == "allreduce_tree"
+    outs = [torch.empty((rows, cols), dtype=dtype, device=ctx.devices[r])
+            for r in range(n)] if tree else None
+    for o in outs or ():
+        o.view(torch.uint8).fill_(0xFF)
+    k0 = comm.TREE_KERNEL.launches
+
+    def checked(r):
+        if hold is not None and r == hold[0]:
+            comm.SPIN.launch(hold[1], current_stream(ctx.devices[r]))
+        if tree:
+            return ar.all_reduce_local(xs[r], num_ranks=n, method="tree",
+                                       out=outs[r])
+        return fn(r)
+
+    res = ctx.run(checked)
     torch.cuda.synchronize()
     ctx.raise_on_comm_error()
+    got = [o.to(X.device) for o in res]
     want = plain_all()
     errs = [_max_err(a, b) for a, b in zip(got, want)]
-    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    same = all(torch.equal(_bits(torch, a), _bits(torch, b))
+               for a, b in zip(got, want))
     ranks_same = all(torch.equal(got[0], o) for o in got[1:]) \
         if method != "reduce_scatter_ring" else True
-    rec = {"case": f"{method}_n{n}_{_dtype_name(dtype)}_{rows}",
+    on_kernel = not tree or (comm.TREE_KERNEL.launches - k0 == n and all(
+        g is o for g, o in zip(res, outs)))
+    rec = {"case": f"{method}_n{n}_{_dtype_name(dtype)}_{rows}"
+                   + (f"_held{hold[0]}" if hold else ""),
            "method": method, "n": n, "dtype": _dtype_name(dtype),
            "rows": rows, "cols": cols, "max_abs_err": max(errs),
            "bit_identical": same, "ranks_identical": ranks_same,
-           "ok": bool(same and ranks_same
+           "ok": bool(same and ranks_same and on_kernel
                       and all(torch.isfinite(o).all().item() for o in got))}
+    if tree:
+        rec["out_sentinel"] = "0xFF"
+        rec["hold"] = list(hold) if hold else None
     if time_it:
         B = rows * cols * item           # one rank's full payload
         # The bytes every rank must move, all through the one card's HBM
@@ -3518,6 +3551,71 @@ def parity_stress(torch, ctx, dtype, rows: int, calls: int) -> dict:
     return {"calls": calls, "n": n, "rows": rows,
             "dtype": _dtype_name(dtype), "straggler": "rotate, 50 us, "
             "every third call", "calls_wrong": bad, "ok": not bad}
+
+
+def tree_stream_case(torch, ctx, rows: int, calls: int, seed: int) -> dict:
+    """``calls`` double-tree AllReduces on every rank in one run, new bf16
+    data every call, no host sync between them: every call's result equal
+    to ``tree_plain``'s on every rank (a child writes its parent's slot
+    for call t+1 only after the parent freed it, i.e. after the parent's
+    call t read it), and every call on the kernel."""
+    comm, ar, _, _, _ = coll_modules()
+    n = ctx.num_ranks
+    X = _rand(torch, (calls, n, rows, COLL_COLS), torch.bfloat16, seed)
+    k0 = comm.TREE_KERNEL.launches
+
+    def loop(r):
+        xr = X[:, r].to(ctx.devices[r])
+        return [ar.all_reduce_local(xr[t], num_ranks=n, method="tree")
+                for t in range(calls)]
+
+    got = ctx.run(loop)
+    torch.cuda.synchronize()
+    ctx.raise_on_comm_error()
+    bad = [t for t in range(calls) if not all(
+        torch.equal(_bits(torch, got[r][t].to(X.device)),
+                    _bits(torch, ar.tree_plain(list(X[t]))))
+        for r in range(n))]
+    launched = comm.TREE_KERNEL.launches - k0
+    return {"case": f"allreduce_tree_stream{calls}_n{n}_bfloat16_{rows}",
+            "method": "allreduce_tree", "n": n, "rows": rows,
+            "calls": calls, "calls_wrong": bad[:8], "launches": launched,
+            "max_abs_err": 0.0 if not bad else float("nan"),
+            "bit_identical": not bad,
+            "ok": not bad and launched == n * calls}
+
+
+def tree_edge_cases(torch, timer, devices_for, seed: int) -> list:
+    """B5's double tree on the push protocol at its edges (bf16 and fp32,
+    outputs 0xFF-filled): n = 3 (the heap's lone child; tree 1 over
+    reversed ranks) at 1, 7 and 203 rows; at n = 3 and 4 a held-back rank
+    0 (tree 0's root: its children wait for the slots it frees and the
+    address it publishes; tree 1's leaf) and a held-back rank n - 1 (tree
+    0's leaf: its parent waits for its partial; tree 1's root), and the
+    200-call stream without a sync. n = 2, 4 and 8 run at these rows in
+    ``phase_fused``, at 4-2048 rows in ``phase_collectives``."""
+    context = coll_modules()[4]
+    out = []
+    for n in (3, 4):
+        ctx = context.DistContext(
+            [torch.device(d) for d in devices_for(n)], wait_timeout_ms=20_000)
+        if n == 3:
+            for dtype in (torch.float32, torch.bfloat16):
+                for rows in TREE_ROWS:
+                    seed += 1
+                    out.append(coll_case(torch, timer, ctx, "allreduce_tree",
+                                         dtype, rows, seed, time_it=False))
+        for held in (0, n - 1):
+            seed += 1
+            out.append(coll_case(torch, timer, ctx, "allreduce_tree",
+                                 torch.bfloat16, TREE_MAIN_ROWS, seed,
+                                 time_it=False, hold=(held, PUSH_HOLD_NS)))
+        seed += 1
+        out.append(tree_stream_case(torch, ctx, 7, PARITY_CALLS, seed))
+        ctx.close()
+        del ctx
+        torch.cuda.empty_cache()
+    return out
 
 
 def timeout_case(torch, devices) -> dict:
@@ -4313,9 +4411,11 @@ def phase_fused(torch, timer, *, devices_for=virtual_devices,
     rank n - 1 held back (n = 4); each case's route checked against the
     picker's, the main shapes' against "wgmma", and bf16 on the tall
     mma.sync tile run for B9 and B10 (the "_tall" controls); the tree AR
-    at 1, 7 and 203 rows (its 4-2048-row cases run with the other
-    collectives); 200 back-to-back B11 calls with a rotating straggler; a
-    lost peer's CommTimeoutError for B9 and B11."""
+    at 1, 7 and 203 rows into 0xFF-filled outputs, at n = 3 too, with a
+    held-back rank and 200 calls without a sync (``tree_edge_cases``; its
+    4-2048-row cases run with the other collectives); 200 back-to-back B11
+    calls with a rotating straggler; a lost peer's CommTimeoutError for B9
+    and B11."""
     context = coll_modules()[4]
     bf16, f32 = torch.bfloat16, torch.float32
     cases: dict = {}
@@ -4365,6 +4465,8 @@ def phase_fused(torch, timer, *, devices_for=virtual_devices,
         ctx.close()
         del ctx
         torch.cuda.empty_cache()
+    cases["allreduce_tree"] += tree_edge_cases(torch, timer, devices_for,
+                                               seed)
     tmo = fused_timeouts(torch, devices_for(TP))
     bad = [c["case"] for cs in cases.values() for c in cs if not c["ok"]]
     check(not bad, f"{name}: disagree with their plain versions: {bad}")
@@ -7158,6 +7260,7 @@ def phase_sp_pp_parity(torch, *, devices_for=virtual_devices,
 GRIDS_2D = ((2, 4), (4, 2), (2, 2))
 DEGENERATE_2D = ((8, 1), (1, 8))
 ROWS_2D = (1, 16, 256, 2048)
+ROWS_2D_ODD = (3, 1000)       # shards off the blocks' shares (AG only)
 COLS_2D = 4096
 # The main shapes (bf16, (2, 4) = 8 virtual ranks): a 256-row shard a
 # rank gathered (a 2 x 1024 prefill's rows over both tiers), a 16-row
@@ -7208,25 +7311,41 @@ def two_shot_plain(xs, n0: int, n1: int):
 
 
 def torus_case(torch, timer, ctx, op: str, dtype, rows: int, seed: int, *,
-               method: str = "one_shot", time_it: bool = False) -> dict:
-    """B12 on every rank of a 2-axis group (two calls: the buffers'
-    reuse) through the tuple-axis entry points, against the plain version
-    bit for bit on every rank: the AllGather against ``torch.cat`` of the
-    shards in joint order, the AllReduce against ``ar_torus_plain`` (each
-    grid row in order, then the rows, fp32 sums and one cast each) or,
-    for two-shot, against the RS-then-AG plain composition."""
+               method: str = "one_shot", time_it: bool = False,
+               hold=None) -> dict:
+    """B12 on every rank of a 2-axis group (two calls: the pad's and the
+    buffers' reuse) through the tuple-axis entry points, against the plain
+    version bit for bit on every rank: the AllGather against ``torch.cat``
+    of the shards in joint order — on a real grid into outputs filled with
+    0xFF bytes (NaN in both types) through ``out=``, so a sentinel left
+    shows an element no writer reached —, the AllReduce against
+    ``ar_torus_plain`` (each grid row in order, then the rows, fp32 sums
+    and one cast each) or, for two-shot, against the RS-then-AG plain
+    composition. ``hold``: (rank, ns) spun on that rank's stream before
+    each of its calls (its writers wait for its address; its receivers
+    for its shard)."""
     comm, ma, ag, ar, _, _ = twotier_modules()
+    from triton_distributed_tpu_torch.runtime.build import current_stream
+
     n = ctx.num_ranks
     n0, n1 = ctx.mesh_shape
     axes = tuple(ctx.axis_names)
     X = _rand(torch, (n, rows, COLS_2D), dtype, seed)
     xs = [X[r].to(ctx.devices[r]) for r in range(n)]
+    sentinel = op == "ag_torus" and n0 > 1 and n1 > 1
+    outs = None
 
     def fn(r):
         if op == "ag_torus":
-            return ag.all_gather_local(xs[r], axis=axes, num_ranks=(n0, n1))
+            return ag.all_gather_local(xs[r], axis=axes, num_ranks=(n0, n1),
+                                       out=outs[r] if outs else None)
         return ar.all_reduce_local(xs[r], axis=axes, num_ranks=(n0, n1),
                                    method=method)
+
+    def checked(r):
+        if hold is not None and r == hold[0]:
+            comm.SPIN.launch(hold[1], current_stream(ctx.devices[r]))
+        return fn(r)
 
     if op == "ag_torus":
         want = ag.ag_plain(list(X))
@@ -7238,11 +7357,19 @@ def torus_case(torch, timer, ctx, op: str, dtype, rows: int, seed: int, *,
                                          comm.AR_TORUS_KERNEL)}
     same = True
     for _ in range(2):
-        got = ctx.run(fn)
+        if sentinel:
+            outs = [torch.empty((n * rows, COLS_2D), dtype=dtype,
+                                device=ctx.devices[r]) for r in range(n)]
+            for o in outs:
+                o.view(torch.uint8).fill_(0xFF)
+        got = ctx.run(checked)
         torch.cuda.synchronize()
         ctx.raise_on_comm_error()
         same = same and all(torch.equal(_bits(torch, o.to(want.device)),
                                         _bits(torch, want)) for o in got)
+        if sentinel:
+            same = same and all(g is o for g, o in zip(got, outs))
+    outs = None
     kern = comm.AG_TORUS_KERNEL if op == "ag_torus" else comm.AR_TORUS_KERNEL
     degenerate = n0 == 1 or n1 == 1
     launched = kern.launches - k0[kern.symbol]
@@ -7252,13 +7379,18 @@ def torus_case(torch, timer, ctx, op: str, dtype, rows: int, seed: int, *,
         right = (launched == 0 and comm.AG_TORUS_KERNEL.launches
                  - k0[comm.AG_TORUS_KERNEL.symbol] == 2 * n)
     rec = {"case": f"{op}_{method if op == 'ar_torus' else 'ring'}_"
-                   f"{n0}x{n1}_{_dtype_name(dtype)}_{rows}",
+                   f"{n0}x{n1}_{_dtype_name(dtype)}_{rows}"
+                   + (f"_held{hold[0]}" if hold else ""),
            "grid": [n0, n1], "op": op, "dtype": _dtype_name(dtype),
            "rows": rows, "cols": COLS_2D, "launches": launched,
            "max_abs_err": 0.0 if same else float("nan"),
            "bit_identical": same, "ok": same and right}
     if op == "ar_torus":
         rec["method"] = method
+    if sentinel:
+        rec["out_sentinel"] = "0xFF"
+    if hold:
+        rec["hold"] = list(hold)
     if time_it:
         B = rows * COLS_2D * X.element_size()
         nbytes = n * (B + n * B) if op == "ag_torus" else n * 2 * B
@@ -7282,6 +7414,40 @@ def torus_case(torch, timer, ctx, op: str, dtype, rows: int, seed: int, *,
     return rec
 
 
+def torus_stream_case(torch, ctx, calls: int, seed: int) -> dict:
+    """``calls`` torus AllGathers on every rank of a 2-axis group in one
+    run, new bf16 data every call (16 x 256 a rank), no host sync between
+    them: every call's output equal to ``torch.cat`` of its shards on
+    every rank (a fast writer of call t+1 never writes call t's output),
+    and every call on the kernel."""
+    comm, _, ag, _, _, _ = twotier_modules()
+    n = ctx.num_ranks
+    dims = tuple(ctx.mesh_shape)
+    axes = tuple(ctx.axis_names)
+    X = _rand(torch, (calls, n, 16, 256), torch.bfloat16, seed)
+    k0 = comm.AG_TORUS_KERNEL.launches
+
+    def loop(r):
+        xr = X[:, r].to(ctx.devices[r])
+        return [ag.all_gather_local(xr[t], axis=axes, num_ranks=dims)
+                for t in range(calls)]
+
+    got = ctx.run(loop)
+    torch.cuda.synchronize()
+    ctx.raise_on_comm_error()
+    bad = [t for t in range(calls) if not all(
+        torch.equal(_bits(torch, got[r][t].to(X.device)),
+                    _bits(torch, X[t].reshape(n * 16, 256)))
+        for r in range(n))]
+    launched = comm.AG_TORUS_KERNEL.launches - k0
+    return {"case": f"ag_torus_stream{calls}_{dims[0]}x{dims[1]}"
+                    "_bfloat16_16x256",
+            "grid": list(dims), "op": "ag_torus", "calls": calls,
+            "calls_wrong": bad[:8], "launches": launched,
+            "max_abs_err": 0.0 if not bad else float("nan"),
+            "bit_identical": not bad, "ok": not bad and launched == n * calls}
+
+
 def phase_collectives_2d(torch, timer, *, devices_for=virtual_devices,
                          grids=GRIDS_2D + DEGENERATE_2D,
                          name="collectives_2d") -> dict:
@@ -7290,9 +7456,12 @@ def phase_collectives_2d(torch, timer, *, devices_for=virtual_devices,
     fp32 and bf16, 1-2048 rows x 4096, bit-identical to their plain
     versions on every rank; two-shot (RS over both axes, then the torus
     AG) at the rows that divide; the degenerate (8, 1) and (1, 8) grids
-    through the 1-D ops (no torus launch). Then the main run — every count
-    at 0, the tuple-axis AllGather and AllReduce at the main shapes on
-    (2, 4), counts read — and each kernel timed there."""
+    through the 1-D ops (no torus launch). The AllGather writes
+    0xFF-filled outputs on every real grid; on each real grid also 3 and
+    1000 rows, a held-back rank 0 and rank n - 1 (bf16, 256 rows) and 200
+    calls without a sync. Then the main run — every count at 0, the
+    tuple-axis AllGather and AllReduce at the main shapes on (2, 4),
+    counts read — and each kernel timed there."""
     comm = twotier_modules()[0]
     cases: dict = {"ag_torus": [], "ar_torus": []}
     seed = 1300
@@ -7313,6 +7482,20 @@ def phase_collectives_2d(torch, timer, *, devices_for=virtual_devices,
                     cases["ar_torus"].append(torus_case(
                         torch, timer, ctx, "ar_torus", dtype, rows, seed,
                         method="two_shot"))
+        if shape not in DEGENERATE_2D:
+            for dtype in (torch.float32, torch.bfloat16):
+                for rows in ROWS_2D_ODD:
+                    seed += 1
+                    cases["ag_torus"].append(torus_case(
+                        torch, timer, ctx, "ag_torus", dtype, rows, seed))
+            for held in (0, shape[0] * shape[1] - 1):
+                seed += 1
+                cases["ag_torus"].append(torus_case(
+                    torch, timer, ctx, "ag_torus", torch.bfloat16, 256, seed,
+                    hold=(held, PUSH_HOLD_NS)))
+            seed += 1
+            cases["ag_torus"].append(torus_stream_case(
+                torch, ctx, PUSH_STREAM_CALLS, seed))
         ctx.close()
         torch.cuda.empty_cache()
     main = grids[0]

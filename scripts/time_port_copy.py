@@ -1,13 +1,19 @@
 #!/usr/bin/env python3
 """Time the port's copy kernels B4's full-mesh push (``ops/allgather.py``
-``all_gather_local(method="full_mesh_push")``) and B7's shift and
-permutation (``ops/p2p.py``) of one tree at the main path's shapes on one
-CUDA card, each beside the PyTorch call that computes the same outputs.
+``all_gather_local(method="full_mesh_push")``), B7's shift and permutation
+(``ops/p2p.py``), B12's torus AllGather and AllReduce (``ops/multi_axis.py``
+through ``all_gather_local`` / ``all_reduce_local`` over both axes) and
+B5's double tree (``ops/allreduce.py`` ``method="tree"``) of one tree at
+the main path's shapes on one CUDA card, each beside the PyTorch call that
+computes the same outputs.
 
 Main shapes (virtual ranks on ``cuda:0``, bf16): the push at n = 2, 1024
 rows a rank x 2048 (the sequential "overlap" TP-MoE layer's tokens at
 Qwen3-30B-A3B's hidden); B7 at n = 4, one 512 x 4096 microbatch (Qwen3-8B's
-pipeline stage boundary), the shift by one and a butterfly permutation.
+pipeline stage boundary), the shift by one and a butterfly permutation;
+B12 on a (2, 4) grid of 8 ranks, the AllGather of 256 x 4096 a rank and
+the AllReduce of 16 x 4096; the tree at n = 4, 203 x 4096 (a 1 x 203
+prompt's "ar" prefill).
 Each case is first checked bit for bit against the tree's plain version on
 every rank, then timed: every rank's stream is held while the rank threads
 enqueue CALLS calls (by the tree's ``HOLD`` kernel polling one page-locked
@@ -20,17 +26,23 @@ n streams costs the card's front end about what a small call does). L2 is
 not flushed: the calls follow each other, as on the main path. The
 library call is timed both ways in the same run (its one stream held by
 ``SPIN``): for the push ``torch.cat`` of the n chunks once a rank (n
-calls), for B7 one ``Y.copy_(X)`` of every rank's block. The bound: the
-bytes every rank must move (each source read once, each output written
-once) through one HBM at 3.35 TB/s. Prints one JSON line a case,
-ptxas's report of ``collectives.cu`` and ``p2p.cu`` (registers, spills,
-shared memory), the launch floor (a kernel that exits at once, on each
-rank's stream, timed both ways), then the card's name and power limit.
+calls), for B7 one ``Y.copy_(X)`` of every rank's block, for the torus
+AllGather ``torch.cat`` once a rank, for the AllReduces ``X.sum(0)`` once
+a rank. The bound: the bytes every rank must move (each source read once,
+each output written once) through one HBM at 3.35 TB/s. Prints one JSON
+line a case (with each rank's output's SHA-256, the same in every tree),
+ptxas's report of ``collectives.cu``, ``p2p.cu`` and ``multi_axis.cu``
+(registers, spills, shared memory), the launch floor (a kernel that exits
+at once, on each rank's stream, timed both ways), then the card's name and
+power limit.
 
 ``--paths`` also reads the walls of the paths that run these kernels, from
 the tree's own ``chip_smoke.py``: ``phase_pp_forward`` on Qwen3-8B (random
-weights, seed 0; GPipe and interleaved, 10 and 54 shifts a rank) and
-``phase_sp_prefill`` (S = 8192; the SP-AG attention's wall among them).
+weights, seed 0; GPipe and interleaved, 10 and 54 shifts a rank),
+``phase_sp_prefill`` (S = 8192; the SP-AG attention's wall among them) and
+``Engine.prefill`` of a 1 x 203 prompt on 4 ranks (the "ar" prefill, 72
+tree AllReduces a rank): its wall, and the tree kernel's device time a
+prefill and rank from ``torch.profiler``.
 
 To compare two commits on one card, unpack the other one's tree with
 ``git archive`` into a git-ignored directory and run, in one call, parent,
@@ -39,6 +51,7 @@ change, change, parent:
     python3 scripts/time_port_copy.py [--tree DIR] [--label NAME] [--paths]
 """
 import argparse
+import hashlib
 import importlib
 import json
 import os
@@ -54,7 +67,12 @@ HBM_BYTES_PER_S = 3.35e12
 # (case, kernel, ranks, rows, cols)
 CASES = [("ag_full_mesh_n2", "push", 2, 1024, 2048),
          ("p2p_shift_n4", "shift", 4, 512, 4096),
-         ("p2p_butterfly_n4", "butterfly", 4, 512, 4096)]
+         ("p2p_butterfly_n4", "butterfly", 4, 512, 4096),
+         ("ag_torus_2x4", "ag_torus", 8, 256, 4096),
+         ("ar_torus_2x4", "ar_torus", 8, 16, 4096),
+         ("ar_tree_n4", "tree", 4, 203, 4096)]
+GRID_2D = (2, 4)
+TREE_PROMPT = 203
 
 
 def spaced_ms(torch, ctx, comm, build, fn, every: bool = True) -> tuple:
@@ -140,18 +158,29 @@ def library_ms(torch, comm, build, fn, every: bool = True) -> float:
 def copy_case(torch, mods, name, kind, n, rows, cols, seed) -> dict:
     """One main-shape case: checked bit for bit on every rank, then
     timed beside its library call."""
-    ag, p2p, comm, build, context = mods
-    ctx = context.DistContext([torch.device("cuda:0")] * n,
-                              wait_timeout_ms=20_000)
+    ag, p2p, comm, build, context, ar, ma = mods
+    if kind in ("ag_torus", "ar_torus"):
+        ctx = context.DistContext([torch.device("cuda:0")] * n,
+                                  mesh_shape=GRID_2D,
+                                  axis_names=("dcn", "tp"),
+                                  wait_timeout_ms=20_000)
+    else:
+        ctx = context.DistContext([torch.device("cuda:0")] * n,
+                                  wait_timeout_ms=20_000)
     g = torch.Generator(device="cuda").manual_seed(seed)
     X = (torch.randn((n, rows, cols), generator=g, device="cuda")
          * 4).bfloat16()
     xs = list(X)
     B = rows * cols * X.element_size()
-    if kind == "push":
-        def fn(r):
-            return ag.all_gather_local(xs[r], num_ranks=n,
-                                       method="full_mesh_push")
+    if kind in ("push", "ag_torus"):
+        if kind == "push":
+            def fn(r):
+                return ag.all_gather_local(xs[r], num_ranks=n,
+                                           method="full_mesh_push")
+        else:
+            def fn(r):
+                return ag.all_gather_local(xs[r], axis=("dcn", "tp"),
+                                           num_ranks=GRID_2D)
         want = [ag.ag_plain(xs)] * n
         nbytes = n * (B + n * B)
 
@@ -159,6 +188,23 @@ def copy_case(torch, mods, name, kind, n, rows, cols, seed) -> dict:
             for _ in range(n):
                 torch.cat(xs)
         lib_call = f"{n} x torch.cat of the {n} chunks"
+    elif kind in ("ar_torus", "tree"):
+        if kind == "tree":
+            def fn(r):
+                return ar.all_reduce_local(xs[r], num_ranks=n,
+                                           method="tree")
+            want = [ar.tree_plain(xs)] * n
+        else:
+            def fn(r):
+                return ar.all_reduce_local(xs[r], axis=("dcn", "tp"),
+                                           num_ranks=GRID_2D)
+            want = [ma.ar_torus_plain(xs, *GRID_2D)] * n
+        nbytes = n * 2 * B
+
+        def lib():
+            for _ in range(n):
+                X.sum(0)
+        lib_call = f"{n} x X.sum(0) over the stacked inputs"
     else:
         perm = ([(s, (s + 1) % n) for s in range(n)] if kind == "shift"
                 else [(s, s ^ 1) for s in range(n)])
@@ -179,11 +225,14 @@ def copy_case(torch, mods, name, kind, n, rows, cols, seed) -> dict:
     ctx.raise_on_comm_error()
     same = all(torch.equal(o.view(torch.int16), w.view(torch.int16))
                for o, w in zip(got, want))
+    sha = sorted({hashlib.sha256(o.view(torch.uint8).cpu().numpy()
+                                 .tobytes()).hexdigest()[:16] for o in got})
     ms, hold = spaced_ms(torch, ctx, comm, build, fn)
     span, _ = spaced_ms(torch, ctx, comm, build, fn, every=False)
     ctx.close()
     return {"case": name, "ranks": n, "rows": rows, "cols": cols,
             "dtype": "bfloat16", "bit_identical": same, "ok": same,
+            "sha256_16": sha,
             "ms": ms, "span_ms": span, "hold": hold,
             "library_ms": library_ms(torch, comm, build, lib),
             "library_span_ms": library_ms(torch, comm, build, lib,
@@ -196,7 +245,7 @@ def floor_case(torch, mods, n: int) -> dict:
     """The launch floor of a call on n virtual ranks: the tree's ``SPIN``
     for 0 ns (one thread that exits) on every rank's stream, timed as the
     kernels are — what the card's front end alone costs a call."""
-    _, _, comm, build, context = mods
+    _, _, comm, build, context = mods[:5]
     ctx = context.DistContext([torch.device("cuda:0")] * n,
                               wait_timeout_ms=20_000)
 
@@ -239,6 +288,67 @@ def paths_case(torch, root) -> dict:
             "ok": pp["bit_identical"]}
 
 
+def tree_path_case(torch, mods) -> dict:
+    """``Engine.prefill`` of a 1 x TREE_PROMPT prompt on 4 virtual ranks
+    (Qwen3-8B, random weights, seed 0; the "ar" prefill: 2 tree
+    AllReduces a layer): the wall of each of 5 prefills after a warm-up,
+    and, from one profiled prefill, the tree kernel's device time summed
+    over the ranks' launches, a rank."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    comm, context = mods[2], mods[4]
+    from triton_distributed_tpu_torch.models.config import QWEN3_8B
+    from triton_distributed_tpu_torch.models.dense import init_dense_llm
+    from triton_distributed_tpu_torch.models.engine import Engine
+
+    n = 4
+    params = init_dense_llm(QWEN3_8B, generator=torch.Generator(
+        device="cuda").manual_seed(0))
+    ctx = context.initialize_distributed(devices=["cuda:0"] * n,
+                                         wait_timeout_ms=60_000)
+    eng = Engine(QWEN3_8B, params, ctx, max_seq=2048)
+    del params
+    ids = torch.randint(0, QWEN3_8B.vocab_size, (1, TREE_PROMPT),
+                        generator=torch.Generator(device="cuda")
+                        .manual_seed(31), device="cuda", dtype=torch.int32)
+    mode = eng._prefill_mode(1, TREE_PROMPT)
+    for _ in range(2):
+        eng.prefill(ids)
+    torch.cuda.synchronize()
+    walls = []
+    k0 = comm.TREE_KERNEL.launches
+    for _ in range(5):
+        t0 = time.perf_counter()
+        eng.prefill(ids)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    launches = (comm.TREE_KERNEL.launches - k0) // 5
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eng.prefill(ids)
+        torch.cuda.synchronize()
+    tree_us, calls = 0.0, 0
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) != DeviceType.CUDA:
+            continue
+        if "ar_tree_kernel" in e.key:
+            tree_us += (getattr(e, "self_device_time_total", None)
+                        or getattr(e, "self_cuda_time_total", 0))
+            calls += e.count
+    eng.check_comm()
+    del eng
+    ctx.close()
+    return {"case": "tree_path", "prompt": [1, TREE_PROMPT],
+            "prefill_mode": mode, "ranks": n,
+            "prefill_wall_ms": walls,
+            "prefill_wall_ms_median": statistics.median(walls),
+            "tree_launches_per_prefill": launches,
+            "tree_kernels_profiled": calls,
+            "tree_device_ms_per_prefill_per_rank": tree_us / 1e3 / n,
+            "ok": mode == "ar" and launches == n * 2 * QWEN3_8B.num_layers}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--tree", default=".", help="root of the tree to time")
@@ -267,7 +377,8 @@ def main() -> int:
     label = args.label or root
     t0 = time.perf_counter()
     srcs = [comm.AG_FULL_MESH_KERNEL.source_path,
-            comm.P2P_SHIFT_KERNEL.source_path]
+            comm.P2P_SHIFT_KERNEL.source_path,
+            comm.AG_TORUS_KERNEL.source_path]
     build.build(srcs)
     ptxas = []
     for src in srcs:
@@ -277,7 +388,10 @@ def main() -> int:
                   or "spill" in ln or "warning" in ln]
     print(json.dumps({"tree": label, "build_s": time.perf_counter() - t0,
                       "ptxas": ptxas}), flush=True)
-    mods = (ag, p2p, comm, build, context)
+    ar = importlib.import_module("triton_distributed_tpu_torch.ops.allreduce")
+    ma = importlib.import_module(
+        "triton_distributed_tpu_torch.ops.multi_axis")
+    mods = (ag, p2p, comm, build, context, ar, ma)
     failed = []
     for i, (name, kind, n, rows, cols) in enumerate(CASES):
         rec = copy_case(torch, mods, name, kind, n, rows, cols, 950 + i)
@@ -290,11 +404,13 @@ def main() -> int:
         rec["tree"] = label
         print(json.dumps(rec), flush=True)
     if args.paths:
-        rec = paths_case(torch, root)
-        rec["tree"] = label
-        print(json.dumps(rec), flush=True)
-        if not rec["ok"]:
-            failed.append("paths")
+        for what, fn in (("paths", lambda: paths_case(torch, root)),
+                         ("tree_path", lambda: tree_path_case(torch, mods))):
+            rec = fn()
+            rec["tree"] = label
+            print(json.dumps(rec), flush=True)
+            if not rec["ok"]:
+                failed.append(what)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -41,14 +41,23 @@
 //                binary tree: tree 0 the heap over rank order, tree 1
 //                over reversed ranks, each owning half of the rows (rows
 //                [0, ceil(m/2)) and the rest; one tree of every row at
-//                m = 1). Leaves push their rows to the parent; an
-//                interior node adds its own rows, then child 2p+1's,
-//                then child 2p+2's in fp32 and rounds to the payload
-//                type once (one rounding a level) before it pushes up;
-//                the root's sum is broadcast down the same tree. Phases
-//                run leaf sends (both trees), interior reduces (both),
-//                broadcasts (both), so a node that is a leaf of one tree
-//                and interior in the other keeps both in flight.
+//                m = 1). A leaf writes its rows into its parent's slot; an
+//                interior node adds its own rows, then child 2p+1's, then
+//                child 2p+2's in fp32 and rounds to the payload type once
+//                (one rounding a level), writing the sum straight into its
+//                parent's slot; the root's sum goes, in the same pass of
+//                registers, to its own output and its children's, and each
+//                interior node passes its rows on from its output to its
+//                children's (read once, written twice). On the push
+//                protocol (push.cuh): each child publishes its fresh output
+//                to its parent in each tree; each parent's block frees its
+//                two slots to its children at its start (a slot written
+//                for call t only after the parent's call-t kernel began,
+//                which stream order puts after its call t-1 read them), so
+//                no entry barrier and no broadcast slot. Each tree runs on
+//                its own blocks ([0, G) tree 0, [G, 2G) tree 1), so a rank
+//                that is a leaf of one tree and interior in the other never
+//                holds one tree's work behind the other's waits.
 //
 // What bounds them: bytes. Each is a copy with at most an add per
 // element, far below the card's 295 operations a byte; on n cards the
@@ -59,7 +68,16 @@
 // neighbouring threads on neighbouring addresses, and splits the payload
 // over a few blocks (at most kMaxBlocks), each of which synchronises only
 // with the same block of its peers — no grid-wide barrier, and a small
-// grid, so virtual ranks on one card never starve each other of SMs.
+// grid, so virtual ranks on one card never starve each other of SMs. The
+// push-protocol kernels (ag_full_mesh, ar_tree) size their grids on the
+// host instead, at most 1/r of the SMs. The tree is latency-bound at its
+// main shape (a 203-row prefill's 1.6 MB: four dependent data hops at
+// n = 4, two up and two down, each a flag round trip): its design cuts a
+// hop's cost — no entry barrier, every byte moved once a hop (the first
+// tree stored each interior partial into its own output and read it
+// back, and copied the broadcast out of a slot), both trees at once on
+// their own blocks, and shares small enough (a block per 32 KiB, 512
+// threads) that a hop is one round of loads a thread.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -234,95 +252,173 @@ __global__ void __launch_bounds__(kThreads)
   for (int c = 0; c < g.n; ++c) put(out + c * cvec, slab + c * cvec, v0, v1);
 }
 
-// The tree's flags (kStepBase on): per block, tree and kind — 0 and 1 a
-// child's partial in slot 0 / 1, 2 the parent's broadcast.
-__device__ __forceinline__ int tree_flag(int tree, int kind) {
-  return kStepBase + (blockIdx.x * 2 + tree) * 3 + kind;
+// The tree's words in a rank's signal pad (ops/_comm.TreeLayout), for
+// tree t, child slot c (0 for child 2p+1, 1 for 2p+2) and the tree's
+// block k:
+//   addr + 2t + c, ready + 2t + c  child c's output and its epoch (the
+//                                  parent's pad);
+//   free + t * stride + k          the parent's block k let this rank
+//                                  write its slot (the child's pad);
+//   up + (2t + c) * stride + k     child c's block k wrote its slot (the
+//                                  parent's pad);
+//   down + t * stride + k          the parent's block k wrote this rank's
+//                                  rows of tree t (the child's pad).
+struct TreeLayout {
+  int addr;
+  int ready;
+  int free;
+  int up;
+  int down;
+  int stride;
+};
+
+// Every word inside the pad, the five ranges apart.
+bool bad_tree_layout(const TreeLayout& L, int blocks) {
+  return blocks < 1 || L.stride < blocks || L.addr < 0 ||
+         L.ready < L.addr + 4 || L.free < L.ready + 4 ||
+         L.up < L.free + 2 * L.stride || L.down < L.up + 4 * L.stride ||
+         L.down + 2 * L.stride > kSignalWords;
 }
 
 __device__ __forceinline__ int tree_pos(int rank, int n, int tree) {
   return tree == 0 ? rank : n - 1 - rank;
 }
 
-// x, out: (m, cols) as vectors, row_vec a row; the symmetric workspace:
-// (n_trees, 3, mh0, cols) — slots 0 / 1 the children's partials, slot 2
-// the broadcast. Tree t owns rows [t * mh0, min(m, (t + 1) * mh0)).
+// The tree's blocks: 512 threads, so that a block's share of a 203-row
+// prefill's rows (~51 KiB) is one round of kUnroll loads a thread: each
+// of a call's four data hops is one round, not two (on an H100 80GB HBM3
+// at 700 W, 256 threads and a block per 64 KiB measured 0.0313 ms a call
+// against 0.0246 at the main shape: PERF.md §6).
+constexpr int kTreeThreads = 512;
+
+// The node's own rows plus its children's slots (1 or 2), added in fp32
+// in that order and cast once, over vectors [v0, v1) of the tree's rows,
+// stored to each of `nd` destinations. kUnroll vectors a thread in flight.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    ar_tree_kernel(Group g, const uint4* x, uint4* out, long long row_vec,
-                   int m, int n_trees) {
-  if (!barrier_all(g)) return;
-  const int n = g.n;
-  const int mh0 = (m + n_trees - 1) / n_trees;
-  const long long slot_vec = (long long)mh0 * row_vec;
-  uint4* ws = reinterpret_cast<uint4*>(peer_base(g, g.rank));
-  long long v0[2], v1[2], off[2];
-  for (int t = 0; t < n_trees; ++t) {
-    const int rows = min(m, (t + 1) * mh0) - t * mh0;
-    off[t] = (long long)t * mh0 * row_vec;
-    block_range((long long)rows * row_vec, &v0[t], &v1[t]);
-  }
-  auto slot = [&](int j, int t, int kind) {
-    return reinterpret_cast<uint4*>(peer_base(g, j)) +
-           (t * 3 + kind) * slot_vec;
-  };
-  // Leaf sends: child 2p+1 lands in the parent's slot 0, 2p+2 in slot 1.
-  for (int t = 0; t < n_trees; ++t) {
-    const int pos = tree_pos(g.rank, n, t);
-    if (2 * pos + 1 < n) continue;
-    const int parent = tree_pos((pos - 1) / 2, n, t);
-    put(slot(parent, t, (pos + 1) % 2), x + off[t], v0[t], v1[t]);
-    signal(g, parent, tree_flag(t, (pos + 1) % 2), g.epoch);
-  }
-  // Interior reduces: own rows + slot 0 (+ slot 1) in fp32, one cast.
+__device__ __forceinline__ void reduce_fan(const uint4* x, const uint4* w0,
+                                           const uint4* w1, bool has2,
+                                           uint4* const* dst, int nd,
+                                           long long v0, long long v1) {
   constexpr int E = Vec<T>::N;
-  for (int t = 0; t < n_trees; ++t) {
-    const int pos = tree_pos(g.rank, n, t);
-    if (2 * pos + 1 >= n) continue;
-    const bool has2 = 2 * pos + 2 < n;
-    if (!wait(g, tree_flag(t, 0), g.epoch)) return;
-    if (has2 && !wait(g, tree_flag(t, 1), g.epoch)) return;
-    const uint4* w0 = ws + (t * 3) * slot_vec;
-    const uint4* w1 = ws + (t * 3 + 1) * slot_vec;
-    for (long long v = v0[t] + threadIdx.x; v < v1[t]; v += blockDim.x) {
-      const uint4 a = __ldcg(x + off[t] + v);
-      const uint4 b = __ldcg(w0 + v);
+  constexpr int U = tdt::push::kUnroll;
+  const long long TB = blockDim.x;
+  for (long long base = v0 + threadIdx.x; base < v1; base += TB * U) {
+    uint4 a[U], b[U], c[U];
+#pragma unroll
+    for (int k = 0; k < U; ++k) {
+      const long long v = base + k * TB;
+      if (v < v1) {
+        a[k] = __ldg(x + v);
+        b[k] = __ldcg(w0 + v);
+        if (has2) c[k] = __ldcg(w1 + v);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < U; ++k) {
       float acc[E];
 #pragma unroll
       for (int e = 0; e < E; ++e)
-        acc[e] = to_f(elems<T>(a)[e]) + to_f(elems<T>(b)[e]);
+        acc[e] = to_f(elems<T>(a[k])[e]) + to_f(elems<T>(b[k])[e]);
       if (has2) {
-        const uint4 c = __ldcg(w1 + v);
 #pragma unroll
-        for (int e = 0; e < E; ++e) acc[e] = acc[e] + to_f(elems<T>(c)[e]);
+        for (int e = 0; e < E; ++e)
+          acc[e] = acc[e] + to_f(elems<T>(c[k])[e]);
       }
-      uint4 o;
-      T* oe = reinterpret_cast<T*>(&o);
+      T* oe = reinterpret_cast<T*>(&a[k]);
 #pragma unroll
       for (int e = 0; e < E; ++e) oe[e] = from_f<T>(acc[e]);
-      out[off[t] + v] = o;
     }
-    if (pos != 0) {
-      __syncthreads();
-      const int parent = tree_pos((pos - 1) / 2, n, t);
-      put(slot(parent, t, (pos + 1) % 2), out + off[t], v0[t], v1[t]);
-      signal(g, parent, tree_flag(t, (pos + 1) % 2), g.epoch);
-    }
-  }
-  // Broadcast down: the root's rows, copied by each node to its children.
-  for (int t = 0; t < n_trees; ++t) {
-    const int pos = tree_pos(g.rank, n, t);
-    if (pos != 0) {
-      if (!wait(g, tree_flag(t, 2), g.epoch)) return;
-      put(out + off[t], ws + (t * 3 + 2) * slot_vec, v0[t], v1[t]);
-      __syncthreads();
-    }
-    for (int c = 2 * pos + 1; c <= 2 * pos + 2 && c < n; ++c) {
-      const int child = tree_pos(c, n, t);
-      put(slot(child, t, 2), out + off[t], v0[t], v1[t]);
-      signal(g, child, tree_flag(t, 2), g.epoch);
+    for (int d = 0; d < nd; ++d) {
+      uint4* o = dst[d];
+#pragma unroll
+      for (int k = 0; k < U; ++k) {
+        const long long v = base + k * TB;
+        if (v < v1) o[v] = a[k];
+      }
     }
   }
+}
+
+// x, out: (m, cols) as vectors, row_vec a row; out this rank's fresh
+// output; the symmetric workspace: (n_trees, 2, mh0, cols), slot c of
+// tree t child c's partial. Tree t owns rows [t * mh0, min(m, (t + 1) *
+// mh0)) and blocks [t * G, (t + 1) * G); its block k the k-th share of
+// them, the same on every rank.
+template <typename T, bool SYS>
+__global__ void __launch_bounds__(kTreeThreads)
+    ar_tree_kernel(Group g, TreeLayout L, const uint4* x, uint4* out,
+                   long long row_vec, int m, int n_trees, int G) {
+  namespace pu = tdt::push;
+  const int t = blockIdx.x / G, k = blockIdx.x % G;
+  const int n = g.n, j = threadIdx.x;
+  const int mh0 = (m + n_trees - 1) / n_trees;
+  const int rows = min(m, (t + 1) * mh0) - t * mh0;
+  const long long slot_vec = (long long)mh0 * row_vec;
+  const long long off = (long long)t * slot_vec;
+  const long long nvec = (long long)rows * row_vec;
+  const long long per = (nvec + G - 1) / G;
+  const long long v0 = min(nvec, per * k), v1 = min(nvec, v0 + per);
+  const int pos = tree_pos(g.rank, n, t);
+  const int parent = pos == 0 ? -1 : tree_pos((pos - 1) / 2, n, t);
+  const int mine = (pos + 1) % 2;            // this rank's slot at parent
+  const int nc = min(2, max(0, n - 1 - 2 * pos));
+  auto child = [&](int c) { return tree_pos(2 * pos + 1 + c, n, t); };
+  __shared__ uint4* dst[3];
+  // Publish this call's output to the parent (the tree's first block);
+  // free this rank's slots to its children (every block, its share).
+  if (k == 0 && j == 0 && parent >= 0)
+    pu::publish_at<SYS>(g, parent, L.addr + 2 * t + mine,
+                        L.ready + 2 * t + mine, out);
+  if (j < nc)
+    pu::signal_word<SYS>(g, child(j), L.free + t * L.stride + k);
+  uint4* up = nullptr;                       // this rank's parent slot
+  if (parent >= 0)
+    up = reinterpret_cast<uint4*>(peer_base(g, parent)) +
+         (2 * t + mine) * slot_vec;
+  const uint4* ws = reinterpret_cast<const uint4*>(peer_base(g, g.rank));
+  // Up: a leaf's rows, or own + children's partials, into the parent's
+  // slot once it is free; the root's sum to its output and its children's.
+  int ok = 1;
+  if (j < nc) ok = pu::spin<SYS>(g, L.up + (2 * t + j) * L.stride + k,
+                                 g.epoch);
+  if (j == 0 && parent >= 0 && ok)
+    ok = pu::spin<SYS>(g, L.free + t * L.stride + k, g.epoch);
+  if (j == 0 && ok) {
+    if (parent >= 0) {
+      dst[0] = up;
+    } else {
+      dst[0] = out + off;
+    }
+  }
+  if (j < nc && parent < 0 && ok) {
+    char* o = pu::await_at<SYS>(g, L.addr + 2 * t + j, L.ready + 2 * t + j);
+    ok = o != nullptr;
+    dst[1 + j] = reinterpret_cast<uint4*>(o) + off;
+  }
+  if (!__syncthreads_and(ok)) return;
+  const int nd = parent >= 0 ? 1 : 1 + nc;
+  if (nc == 0)
+    pu::fan_out(x + off, dst, nd, v0, v1);
+  else
+    reduce_fan<T>(x + off, ws + (2 * t) * slot_vec,
+                  ws + (2 * t + 1) * slot_vec, nc == 2, dst, nd, v0, v1);
+  __syncthreads();
+  if (j == 0 && parent >= 0)
+    pu::signal_word<SYS>(g, parent, L.up + (2 * t + mine) * L.stride + k);
+  if (j < nc && parent < 0)
+    pu::signal_word<SYS>(g, child(j), L.down + t * L.stride + k);
+  if (parent < 0) return;
+  // Down: this rank's rows from its parent, then on to its children.
+  if (!pu::wait_word<SYS>(g, L.down + t * L.stride + k) || nc == 0) return;
+  if (j < nc) {
+    char* o = pu::await_at<SYS>(g, L.addr + 2 * t + j, L.ready + 2 * t + j);
+    ok = o != nullptr;
+    dst[j] = reinterpret_cast<uint4*>(o) + off;
+  }
+  if (!__syncthreads_and(ok)) return;
+  pu::fan_out<true>(out + off, dst, nc, v0, v1);
+  __syncthreads();
+  if (j < nc) pu::signal_word<SYS>(g, child(j), L.down + t * L.stride + k);
 }
 
 // Holds a stream for `ns` nanoseconds: the straggler of the parity test.
@@ -480,28 +576,39 @@ int tdt_ag_parity(const void* table, const void* sig_table, void* err,
 }
 
 // row_bytes: one payload row (a multiple of 16); rows: m; n_trees: 2 (the
-// double tree) or 1.
+// double tree) or 1; out: this rank's fresh output. grid (G blocks a
+// tree), sys (the flags' scope) and the pad layout (addr, ready, free, up,
+// down, stride) come from the host (ops/_comm.launch_tree), the same on
+// every rank.
 int tdt_ar_tree(const void* table, const void* sig_table, void* err,
                 int rank, int n, unsigned long long epoch,
                 long long timeout_ns, const void* x, void* out,
                 long long row_bytes, int rows, int n_trees, int dtype,
-                cudaStream_t stream) {
+                int grid, int sys, int addr, int ready, int free_w, int up,
+                int down, int stride, cudaStream_t stream) {
   const long long row_vec = row_bytes / 16;
+  const TreeLayout L{addr, ready, free_w, up, down, stride};
   if (bad_group(rank, n, row_vec) || n < 2 || row_bytes % 16 || rows < 1 ||
-      n_trees < 1 || n_trees > 2 || n_trees > rows)
+      n_trees < 1 || n_trees > 2 || n_trees > rows ||
+      bad_tree_layout(L, grid))
     return cudaErrorInvalidValue;
   const Group g = make_group(table, sig_table, err, rank, n, epoch,
                              timeout_ns);
-  const long long half = (long long)((rows + n_trees - 1) / n_trees) * row_vec;
-  const dim3 grid(grid_for(half)), block(kThreads);
+  const dim3 blocks(grid * n_trees), block(kTreeThreads);
   const uint4* xi = static_cast<const uint4*>(x);
   uint4* o = static_cast<uint4*>(out);
-  if (dtype == 0)
-    ar_tree_kernel<float><<<grid, block, 0, stream>>>(g, xi, o, row_vec,
-                                                      rows, n_trees);
+  if (dtype == 0 && sys)
+    ar_tree_kernel<float, true><<<blocks, block, 0, stream>>>(
+        g, L, xi, o, row_vec, rows, n_trees, grid);
+  else if (dtype == 0)
+    ar_tree_kernel<float, false><<<blocks, block, 0, stream>>>(
+        g, L, xi, o, row_vec, rows, n_trees, grid);
+  else if (dtype == 1 && sys)
+    ar_tree_kernel<__nv_bfloat16, true><<<blocks, block, 0, stream>>>(
+        g, L, xi, o, row_vec, rows, n_trees, grid);
   else if (dtype == 1)
-    ar_tree_kernel<__nv_bfloat16><<<grid, block, 0, stream>>>(
-        g, xi, o, row_vec, rows, n_trees);
+    ar_tree_kernel<__nv_bfloat16, false><<<blocks, block, 0, stream>>>(
+        g, L, xi, o, row_vec, rows, n_trees, grid);
   else
     return cudaErrorInvalidValue;
   return cudaGetLastError();

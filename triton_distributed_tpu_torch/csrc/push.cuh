@@ -1,6 +1,7 @@
 // The push protocol and its copy engine: what B4's full-mesh push
-// (collectives.cu ag_full_mesh) and B7's shift and permutation (p2p.cu)
-// share. Nothing else uses this header.
+// (collectives.cu ag_full_mesh), B5's double tree (collectives.cu
+// ar_tree), B7's shift and permutation (p2p.cu) and B12's torus AllGather
+// (multi_axis.cu ag_torus) share. Nothing else uses this header.
 //
 // The protocol: the sender writes the receiver's output. A TPU kernel's
 // remote DMA lands in the peer's output; here the output is a fresh tensor
@@ -24,6 +25,11 @@
 // Flags only grow (the host hands every call a larger epoch), so a stale
 // flag never satisfies a wait. The layout (addr, ready, data, stride) is
 // computed on the host (ops/_comm.PushLayout) and passed by value.
+// Two kernels index the words otherwise. B12's torus AllGather indexes
+// its data words by the output's slot, not by the sender (each slot of a
+// receiver has one writer, on either hop). B5's tree keeps its own words
+// (collectives.cu TreeLayout): a child's address in its parent's pad, and
+// flags along the tree's edges.
 //
 // The copy engine reads each source byte once and writes it to every
 // destination (the push's n outputs, a multicast's destinations), over a
@@ -141,15 +147,34 @@ __device__ __forceinline__ bool spin(const Group& g, int idx,
   return true;
 }
 
+// Receiver side: store `out` into word `addr` of rank j's pad, then
+// release the call's epoch into word `ready` there. One thread.
+template <bool SYS>
+__device__ __forceinline__ void publish_at(const Group& g, int j, int addr,
+                                           int ready, const void* out) {
+  unsigned long long* pad = dist::flags(g, j);
+  *reinterpret_cast<volatile unsigned long long*>(pad + addr) =
+      reinterpret_cast<unsigned long long>(out);
+  fence_to<SYS>();
+  st_release<SYS>(pad + ready, g.epoch);
+}
+
 // Receiver side: tell sender j where this rank's output is. One thread.
 template <bool SYS>
 __device__ __forceinline__ void publish(const Group& g, const Layout& L,
                                         int j, const void* out) {
-  unsigned long long* pad = dist::flags(g, j);
-  *reinterpret_cast<volatile unsigned long long*>(pad + L.addr + g.rank) =
-      reinterpret_cast<unsigned long long>(out);
-  fence_to<SYS>();
-  st_release<SYS>(pad + L.ready + g.rank, g.epoch);
+  publish_at<SYS>(g, j, L.addr + g.rank, L.ready + g.rank, out);
+}
+
+// Sender side: the address in word `addr` of this rank's pad once word
+// `ready` reached the call's epoch, or nullptr on a timeout. One thread.
+template <bool SYS>
+__device__ __forceinline__ char* await_at(const Group& g, int addr,
+                                          int ready) {
+  if (!spin<SYS>(g, ready, g.epoch)) return nullptr;
+  return reinterpret_cast<char*>(
+      *reinterpret_cast<volatile unsigned long long*>(
+          dist::flags(g, g.rank) + addr));
 }
 
 // Sender side: the output address receiver j published for this call, or
@@ -157,10 +182,24 @@ __device__ __forceinline__ void publish(const Group& g, const Layout& L,
 template <bool SYS>
 __device__ __forceinline__ char* await_dest(const Group& g, const Layout& L,
                                             int j) {
-  if (!spin<SYS>(g, L.ready + j, g.epoch)) return nullptr;
-  return reinterpret_cast<char*>(
-      *reinterpret_cast<volatile unsigned long long*>(
-          dist::flags(g, g.rank) + L.addr + j));
+  return await_at<SYS>(g, L.addr + j, L.ready + j);
+}
+
+// Wait until word `idx` of this rank's pad reaches the call's epoch (one
+// thread spins), then meet. False for every thread on a timeout.
+template <bool SYS>
+__device__ __forceinline__ bool wait_word(const Group& g, int idx) {
+  int ok = 1;
+  if (threadIdx.x == 0) ok = spin<SYS>(g, idx, g.epoch);
+  return __syncthreads_and(ok) != 0;
+}
+
+// Release the call's epoch into word `idx` of rank j's pad, after this
+// thread's earlier stores (fenced: the block met past its stores first).
+template <bool SYS>
+__device__ __forceinline__ void signal_word(const Group& g, int j, int idx) {
+  fence_to<SYS>();
+  st_release<SYS>(dist::flags(g, j) + idx, g.epoch);
 }
 
 // Sender side, once the block's threads have met past their stores: tell
@@ -190,7 +229,11 @@ __device__ __forceinline__ bool wait_data(const Group& g, const Layout& L,
 }
 
 // Vectors [v0, v1) of src to each of `nd` destinations, kUnroll 16-byte
-// loads in flight a thread. Every thread of the block.
+// loads in flight a thread. Every thread of the block. kL2: src was
+// written during this launch (by a peer, behind a flag this block
+// acquired), so it is read through L2 (ld.global.cg), not the read-only
+// path, which holds only what stays unchanged for the whole launch.
+template <bool kL2 = false>
 __device__ __forceinline__ void fan_out(const uint4* src,
                                         uint4* const* dst, int nd,
                                         long long v0, long long v1) {
@@ -200,7 +243,7 @@ __device__ __forceinline__ void fan_out(const uint4* src,
 #pragma unroll
     for (int k = 0; k < kUnroll; ++k) {
       const long long v = base + k * T;
-      if (v < v1) r[k] = __ldg(src + v);
+      if (v < v1) r[k] = kL2 ? __ldcg(src + v) : __ldg(src + v);
     }
     for (int d = 0; d < nd; ++d) {
       uint4* o = dst[d];

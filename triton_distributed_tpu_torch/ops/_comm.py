@@ -42,12 +42,14 @@ RS_RING_KERNEL = CudaKernel("collectives.cu", "tdt_rs_ring",
                             _GROUP_ARGS + [ctypes.c_int, ctypes.c_void_p])
 AG_RING_KERNEL = CudaKernel("collectives.cu", "tdt_ag_ring",
                             _GROUP_ARGS + [ctypes.c_void_p])
-TREE_KERNEL = CudaKernel("collectives.cu", "tdt_ar_tree",
-                         _GROUP_ARGS + [ctypes.c_int] * 3
-                         + [ctypes.c_void_p])
 # The push protocol's launch arguments (csrc/push.cuh): the grid, the
 # flags' scope, and the pad layout's addr, ready, data and stride.
 _PUSH_ARGS = [ctypes.c_int] * 6
+# B5's double tree on the push protocol: rows, trees and the dtype code,
+# then the grid (blocks a tree), the scope and its pad layout (TreeLayout).
+TREE_KERNEL = CudaKernel("collectives.cu", "tdt_ar_tree",
+                         _GROUP_ARGS + [ctypes.c_int] * 3
+                         + [ctypes.c_int] * 8 + [ctypes.c_void_p])
 AG_FULL_MESH_KERNEL = CudaKernel("collectives.cu", "tdt_ag_full_mesh",
                                  _GROUP_ARGS + _PUSH_ARGS
                                  + [ctypes.c_void_p])
@@ -62,10 +64,11 @@ P2P_PERMUTE_KERNEL = CudaKernel("p2p.cu", "tdt_p2p_permute",
                                 _GROUP_ARGS + [ctypes.c_int, ctypes.c_int]
                                 + _PUSH_ARGS + [ctypes.c_void_p])
 # B12, the collectives over both axes of a 2-axis group
-# (csrc/multi_axis.cu): the grid's (n0, n1) ride after the byte count.
+# (csrc/multi_axis.cu): the grid's (n0, n1) ride after the byte count;
+# the AllGather is a push-protocol kernel.
 AG_TORUS_KERNEL = CudaKernel("multi_axis.cu", "tdt_ag_torus",
-                             _GROUP_ARGS + [ctypes.c_int, ctypes.c_int,
-                                            ctypes.c_void_p])
+                             _GROUP_ARGS + [ctypes.c_int, ctypes.c_int]
+                             + _PUSH_ARGS + [ctypes.c_void_p])
 AR_TORUS_KERNEL = CudaKernel("multi_axis.cu", "tdt_ar_torus",
                              _GROUP_ARGS + [ctypes.c_int] * 3
                              + [ctypes.c_void_p])
@@ -114,11 +117,12 @@ COLLECTIVE_KERNELS = (ONE_SHOT_KERNEL, PARITY_KERNEL, RS_RING_KERNEL,
 _GEMM_OP = {AG_GEMM_KERNEL: 0, GEMM_RS_KERNEL: 1, GEMM_AR_KERNEL: 2}
 
 
-# The push protocol of B4's full-mesh push and B7 (csrc/push.cuh): the
-# receiver publishes its fresh output's address into its senders' signal
-# pads, each sender writes its block straight into that output and raises
-# a data flag a block. The host lays the pad out, sizes the grid and picks
-# the flags' scope; the kernel checks them.
+# The push protocol of B4's full-mesh push, B5's tree, B7 and B12's torus
+# AllGather (csrc/push.cuh): the receiver publishes its fresh output's
+# address into its senders' signal pads, each sender writes its block
+# straight into that output and raises a data flag a block. The host lays
+# the pad out, sizes the grid and picks the flags' scope; the kernel
+# checks them.
 MAX_RANKS = 8                    # csrc/dist.cuh kMaxRanks
 PUSH_MAX_BLOCKS = 128            # the data flags a source: the largest grid
 PUSH_BLOCK_BYTES = 64 << 10      # the least payload a block is given
@@ -151,6 +155,48 @@ class PushLayout:
 PUSH_LAYOUT = PushLayout()
 
 
+@dataclasses.dataclass(frozen=True)
+class TreeLayout:
+    """Word offsets of B5's double tree on the push protocol
+    (``csrc/collectives.cu`` TreeLayout), for tree t, child slot c (0 for
+    child 2p+1, 1 for 2p+2) and the tree's block k: ``addr + 2t + c`` /
+    ``ready + 2t + c`` child c's output address and epoch (in the parent's
+    pad); ``free + t * stride + k`` the parent's block k freed this rank's
+    slot (in the child's pad); ``up + (2t + c) * stride + k`` child c's
+    block k wrote its slot (in the parent's pad); ``down + t * stride +
+    k`` the parent's block k wrote this rank's rows (in the child's
+    pad)."""
+
+    addr: int = 0
+    ready: int = 4
+    free: int = 8
+    up: int = 8 + 2 * PUSH_MAX_BLOCKS
+    down: int = 8 + 6 * PUSH_MAX_BLOCKS
+    stride: int = PUSH_MAX_BLOCKS
+
+    def words(self, trees: int, grid: int) -> dict:
+        """The words a call with ``trees`` trees of ``grid`` blocks each
+        uses, by kind."""
+        return {"addr": [self.addr + 2 * t + c for t in range(trees)
+                         for c in range(2)],
+                "ready": [self.ready + 2 * t + c for t in range(trees)
+                          for c in range(2)],
+                "free": [self.free + t * self.stride + k
+                         for t in range(trees) for k in range(grid)],
+                "up": [self.up + (2 * t + c) * self.stride + k
+                       for t in range(trees) for c in range(2)
+                       for k in range(grid)],
+                "down": [self.down + t * self.stride + k
+                         for t in range(trees) for k in range(grid)]}
+
+    def args(self) -> tuple:
+        return (self.addr, self.ready, self.free, self.up, self.down,
+                self.stride)
+
+
+TREE_LAYOUT = TreeLayout()
+
+
 def push_grid(nbytes: int, caps) -> int:
     """The copy engine's grid for a payload of ``nbytes`` a rank (the bytes
     a rank reads): a block per PUSH_BLOCK_BYTES, at least 1, at most the
@@ -160,6 +206,21 @@ def push_grid(nbytes: int, caps) -> int:
     if cap < 1:
         raise ValueError(f"no SMs for the push: caps {list(caps)}")
     return max(1, min(cap, -(-nbytes // PUSH_BLOCK_BYTES)))
+
+
+TREE_BLOCK_BYTES = 32 << 10      # the least share of a tree's block
+
+
+def tree_grid(tree_bytes: int, trees: int, caps) -> int:
+    """B5's tree: G blocks a tree over one tree's bytes (``tree_bytes``,
+    its larger half), a block per TREE_BLOCK_BYTES — the tree is
+    latency-bound, so more, smaller shares than the copy engine's —, with
+    each card's cap split between the trees, so the ``trees`` x G blocks
+    stay within 1/r of the SMs and are the same on every rank."""
+    cap = min([PUSH_MAX_BLOCKS, *[c // trees for c in caps]])
+    if cap < 1:
+        raise ValueError(f"no SMs for the tree: caps {list(caps)}")
+    return max(1, min(cap, -(-tree_bytes // TREE_BLOCK_BYTES)))
 
 
 def _sm_caps(ctx) -> list:
@@ -175,19 +236,37 @@ def push_scope(ctx) -> int:
 
 def launch_push(kernel: CudaKernel, pad: SymmBuffer, rank: int,
                 x: torch.Tensor, out: torch.Tensor, nbytes: int,
-                *extra) -> None:
-    """One launch of a push-protocol kernel (B4's full-mesh push, B7) at
-    the rank group's meeting, as :func:`launch`, on the pad ``pad`` (a
-    :func:`~triton_distributed_tpu_torch.runtime.symm.symm_pad`): ``out``
-    is this rank's fresh output, which its senders write."""
+                *extra, grid: int | None = None,
+                layout=PUSH_LAYOUT) -> None:
+    """One launch of a push-protocol kernel (B4's full-mesh push, B7, B12's
+    torus AllGather; B5's tree with its ``grid`` and ``layout``) at the
+    rank group's meeting, as :func:`launch`, on the pad ``pad`` (a
+    :func:`~triton_distributed_tpu_torch.runtime.symm.symm_pad`, or the
+    tree's workspace): ``out`` is this rank's fresh output, which its
+    senders write. ``grid``: else :func:`push_grid` over ``nbytes``."""
     ctx = pad.ctx
-    grid = push_grid(nbytes, _sm_caps(ctx))
+    if grid is None:
+        grid = push_grid(nbytes, _sm_caps(ctx))
     epoch = pad.next_epoch(rank)
     _launch_at_meeting(kernel, pad, rank, x.device, "push.launch", (
         ptr(pad.table[rank]), ptr(pad.signal_table[rank]),
         ptr(ctx.error_word(rank)), rank, ctx.num_ranks, epoch,
         int(ctx.timeout_s * 1e9), ptr(x), ptr(out), nbytes, *extra, grid,
-        push_scope(ctx), *PUSH_LAYOUT.args(), current_stream(x.device)))
+        push_scope(ctx), *layout.args(), current_stream(x.device)))
+
+
+def launch_tree(ws: SymmBuffer, rank: int, x: torch.Tensor,
+                out: torch.Tensor, trees: int) -> None:
+    """One launch of B5's double tree (``csrc/collectives.cu`` ar_tree) on
+    its workspace ``ws`` (the parents' slots, (trees, 2, mh, cols); its
+    signal pad holds the tree's words), as :func:`launch_push`: ``x``
+    (m, cols) this rank's rows, ``out`` its fresh output; G blocks a tree
+    (:func:`tree_grid`)."""
+    m, cols = x.shape
+    row = cols * x.element_size()
+    grid = tree_grid(-(-m // trees) * row, trees, _sm_caps(ws.ctx))
+    launch_push(TREE_KERNEL, ws, rank, x, out, row, m, trees,
+                DTYPE_CODE[x.dtype], grid=grid, layout=TREE_LAYOUT)
 
 
 def check_out(ctx: DistContext, rank: int, out: torch.Tensor, shape,

@@ -128,7 +128,8 @@ def all_gather_local(x_local: torch.Tensor, axis: str = "tp",
     (m, cols) → (n*m, cols), rank j's rows at [j*m, (j+1)*m).
     ``force_kernel`` runs the full-mesh push at n = 1 too (the loopback:
     the rank writes its own slot); ``out`` is the tensor the push writes
-    (every element), else a fresh one — both for the push alone."""
+    (every element), else a fresh one — both for the push alone, and
+    ``out`` for the torus kernel of a tuple ``axis``."""
     if isinstance(axis, (tuple, list)):
         # The multi-axis form (ops/multi_axis.py): num_ranks is (n0, n1);
         # the ring-of-rings for "auto" / "ring_1d", the plain gather over
@@ -138,6 +139,9 @@ def all_gather_local(x_local: torch.Tensor, axis: str = "tp",
             raise ValueError("num_ranks (n0, n1) required inside the rank "
                              "runner")
         mk = AllGatherMethod(method).value
+        if force_kernel or (out is not None and mk == "xla"):
+            raise ValueError("force_kernel / out=: the tuple-axis AG takes "
+                             "out= on the torus kernel alone")
         if mk == "xla":
             return group_all_gather(x_local, axis=tuple(axis))
         if mk not in ("auto", "ring_1d"):
@@ -149,7 +153,7 @@ def all_gather_local(x_local: torch.Tensor, axis: str = "tp",
         )
 
         return all_gather_torus_local(x_local, axes=tuple(axis),
-                                      dims=tuple(num_ranks))
+                                      dims=tuple(num_ranks), out=out)
     method = AllGatherMethod(method)
     ctx, rank, n = rank_of(axis, num_ranks)
     if (force_kernel or out is not None) and \

@@ -16,6 +16,9 @@ Methods:
 - ``TREE``: the double binary tree — tree 0 the heap over rank order,
   tree 1 over reversed ranks, each reducing half of the rows up to its
   root and broadcasting the sum down (one tree of every row at m = 1).
+  On the push protocol: each partial lands in the parent's symmetric slot
+  once the parent freed it, and each sum is written straight into the
+  children's fresh outputs (:func:`tree_schedule`).
   AUTO selects it at n = 4 between ~1.35 and ~1.8 MB (165-219 bf16 rows
   x 4096: an ``"ar"`` prefill of that many rows).
 - ``XLA``: the JAX package's ``psum`` — a plain sum through the rank
@@ -39,8 +42,8 @@ import enum
 import torch
 
 from triton_distributed_tpu_torch.ops._comm import (
-    DTYPE_CODE, ONE_SHOT_KERNEL, PARITY_KERNEL, TREE_KERNEL, check_payload,
-    launch, push_slots, rank_of, straggle,
+    DTYPE_CODE, ONE_SHOT_KERNEL, PARITY_KERNEL, TREE_KERNEL, check_out,
+    check_payload, launch, launch_tree, push_slots, rank_of, straggle,
 )
 from triton_distributed_tpu_torch.ops.allgather import (
     AllGatherMethod, all_gather_local,
@@ -120,25 +123,88 @@ def tree_plain(xs) -> torch.Tensor:
     return out
 
 
-def _tree(x: torch.Tensor, n: int, ctx: DistContext, rank: int
-          ) -> torch.Tensor:
+def tree_schedule(n: int, trees: int) -> list:
+    """The double tree's edges as ``csrc/collectives.cu`` ar_tree walks
+    them: for each tree t (tree 0 the heap over rank order, tree 1 over
+    reversed ranks), one dict a rank with its heap position ``pos``, its
+    ``level`` (the root 0), its ``parent`` (a rank, or None at the root),
+    ``slot`` (its slot at the parent: 0 for child 2p+1, 1 for 2p+2) and
+    its ``children`` (ranks, child 2p+1 first)."""
+    def rank_at(pos, t):
+        return pos if t == 0 else n - 1 - pos
+
+    plan = []
+    for t in range(trees):
+        nodes = [None] * n
+        for pos in range(n):
+            nodes[rank_at(pos, t)] = {
+                "pos": pos, "level": (pos + 1).bit_length() - 1,
+                "parent": None if pos == 0 else rank_at((pos - 1) // 2, t),
+                "slot": (pos + 1) % 2,
+                "children": [rank_at(c, t) for c in (2 * pos + 1,
+                                                     2 * pos + 2) if c < n]}
+        plan.append(nodes)
+    return plan
+
+
+def _tree(x: torch.Tensor, n: int, ctx: DistContext, rank: int,
+          out: torch.Tensor | None = None) -> torch.Tensor:
+    """The double tree on a CUDA tensor, its plain version on a CPU one:
+    the partials land in the parents' symmetric slots (trees, 2, mh,
+    cols), the sums in the ranks' own outputs (``out``, a harness's
+    sentinel, else fresh)."""
     m, cols = x.shape
     trees = _tree_halves(m)
+    mh = -(-m // trees)
+    ws = symm_zeros(ctx, (trees, 2, mh, cols), x.dtype, tag="ar_tree")
+    if out is not None:
+        out = check_out(ctx, rank, out, (m, cols), x.dtype, "all_reduce tree")
     if x.device.type == "cuda":
-        buf = symm_zeros(ctx, (trees, 3, -(-m // trees), cols), x.dtype,
-                         tag="ar_tree")
         x = check_payload(ctx, rank, x, "all_reduce tree")
-        out = torch.empty_like(x)
-        launch(TREE_KERNEL, buf, rank, buf.next_epoch(rank), x, out,
-               cols * x.element_size(), m, trees, DTYPE_CODE[x.dtype])
+        if out is None:
+            out = torch.empty_like(x)
+        launch_tree(ws, rank, x, out, trees)
         return out
     if x.device.type != "cpu":
         raise ValueError(f"all_reduce: no kernel for device {x.device}")
     TREE_KERNEL.count_plain()
-    buf = symm_zeros(ctx, (n, m, cols), x.dtype, tag="ar_tree_plain")
-    ctx.barrier(rank, "ar_tree.entry")
-    push_slots(ctx, rank, buf, x, rank, "ar_tree.data")
-    return tree_plain(buf.tensors[rank])
+    if out is None:
+        out = torch.empty_like(x)
+    plan = tree_schedule(n, trees)
+    outs = ctx.exchange(rank, out, "ar_tree.addr")
+    depth = max(node["level"] for node in plan[0])
+    # Up, deepest level first: a node's partial into its parent's slot,
+    # the root's sum into its output and its children's; the ranks meet
+    # after each level.
+    for level in range(depth, -1, -1):
+        for t in range(trees):
+            node = plan[t][rank]
+            if node["level"] != level:
+                continue
+            rows = slice(t * mh, min(m, (t + 1) * mh))
+            nr = rows.stop - rows.start
+            part = x[rows]
+            if node["children"]:
+                acc = part.float() + ws.tensors[rank][t, 0, :nr].float()
+                if len(node["children"]) == 2:
+                    acc = acc + ws.tensors[rank][t, 1, :nr].float()
+                part = acc.to(x.dtype)
+            if node["parent"] is None:
+                for d in [rank, *node["children"]]:
+                    outs[d][rows].copy_(part)
+            else:
+                ws.tensors[node["parent"]][t, node["slot"], :nr].copy_(part)
+        ctx.barrier(rank, f"ar_tree.up{level}")
+    # Down: each interior node passes its rows on to its children.
+    for level in range(1, depth):
+        for t in range(trees):
+            node = plan[t][rank]
+            if node["level"] == level:
+                rows = slice(t * mh, min(m, (t + 1) * mh))
+                for c in node["children"]:
+                    outs[c][rows].copy_(out[rows])
+        ctx.barrier(rank, f"ar_tree.down{level}")
+    return out
 
 
 def reduce_slots_plain(slots) -> torch.Tensor:
@@ -173,12 +239,16 @@ def _one_shot(x: torch.Tensor, n: int, ctx: DistContext, rank: int
 
 def all_reduce_local(x_local: torch.Tensor, axis: str = "tp",
                      num_ranks: int | None = None,
-                     method: AllReduceMethod | str = AllReduceMethod.AUTO
-                     ) -> torch.Tensor:
+                     method: AllReduceMethod | str = AllReduceMethod.AUTO,
+                     *, out: torch.Tensor | None = None) -> torch.Tensor:
     """Rank-local AllReduce inside ``DistContext.run``: ``x_local``
     (m, cols) on every rank → (m, cols) = the ranks' sum, bit-identical on
-    every rank. Repeated steady-state calls (decode) take
-    :func:`all_reduce_stream`."""
+    every rank. ``out``: the output the double tree writes (every element;
+    a harness's sentinel), for ``method="tree"`` alone. Repeated
+    steady-state calls (decode) take :func:`all_reduce_stream`."""
+    if out is not None and AllReduceMethod(method) != AllReduceMethod.TREE:
+        raise ValueError("all_reduce: out= is the tree's — method "
+                         f"{AllReduceMethod(method).value!r}")
     if isinstance(axis, (tuple, list)):
         # The multi-axis form (ops/multi_axis.py): num_ranks is (n0, n1);
         # "xla" is the plain sum over both axes, "auto" passes through
@@ -199,6 +269,8 @@ def all_reduce_local(x_local: torch.Tensor, axis: str = "tp",
     method = AllReduceMethod(method)
     ctx, rank, n = rank_of(axis, num_ranks)
     if n == 1:
+        if out is not None:
+            raise ValueError("all_reduce: out= needs the tree (n > 1)")
         return x_local
     if method == AllReduceMethod.AUTO:
         method = get_auto_allreduce_method(
@@ -208,7 +280,7 @@ def all_reduce_local(x_local: torch.Tensor, axis: str = "tp",
     if method == AllReduceMethod.XLA:
         return group_psum(x_local, axis=axis, num_ranks=n)
     if method == AllReduceMethod.TREE:
-        return _tree(x_local, n, ctx, rank)
+        return _tree(x_local, n, ctx, rank, out)
     if method == AllReduceMethod.TWO_SHOT:
         m = x_local.shape[0]
         if m % n:

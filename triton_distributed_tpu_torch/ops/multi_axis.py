@@ -7,8 +7,12 @@ Ranks are row-major over ``axes = (ax0, ax1)``: rank (a, b) has the
 joint index g = a·n1 + b, as ``P((ax0, ax1))`` shards.
 
 - :func:`all_gather_torus_local`: the ring-of-rings AllGather — each
-  rank's shard to its inner peers, and each inner shard forwarded to the
-  outer peers as it lands; shard (a, b) at rows [(a·n1 + b)·m, ...).
+  rank's shard to its inner and outer peers, and each inner shard
+  forwarded to the outer peers as it lands; shard (a, b) at rows
+  [(a·n1 + b)·m, ...). On the push protocol (``csrc/push.cuh``): every
+  writer stores straight into its receivers' fresh outputs, whose
+  addresses they publish (:func:`torus_schedule`); only a signal pad is
+  kept, no gather buffer.
 - :func:`all_reduce_torus_local`: ``"one_shot"`` — the hierarchical
   one-shot (along ax1, then the reduced block along ax0, one kernel; each
   phase sums its slots in order in fp32 and casts once); ``"two_shot"`` —
@@ -31,15 +35,14 @@ from __future__ import annotations
 import torch
 
 from triton_distributed_tpu_torch.ops._comm import (
-    AG_TORUS_KERNEL, AR_TORUS_KERNEL, DTYPE_CODE, check_payload, launch,
-    push_slots, rank_of,
+    AG_TORUS_KERNEL, AR_TORUS_KERNEL, DTYPE_CODE, check_out, check_payload,
+    launch, launch_push, push_slots, rank_of,
 )
-from triton_distributed_tpu_torch.ops.allgather import ag_plain
 from triton_distributed_tpu_torch.ops.allreduce import reduce_slots_plain
 from triton_distributed_tpu_torch.runtime.context import (
     DistContext, get_context,
 )
-from triton_distributed_tpu_torch.runtime.symm import symm_zeros
+from triton_distributed_tpu_torch.runtime.symm import symm_pad, symm_zeros
 
 
 def ar_torus_plain(slots, n0: int, n1: int) -> torch.Tensor:
@@ -52,6 +55,28 @@ def ar_torus_plain(slots, n0: int, n1: int) -> torch.Tensor:
     return reduce_slots_plain(mids)
 
 
+def torus_schedule(n0: int, n1: int) -> list:
+    """What every rank of an (n0, n1) grid writes in the torus AllGather,
+    as ``csrc/multi_axis.cu`` ag_torus does it: rank g = (a, b) its ``own``
+    shard into slot g of its own output, then of its inner peers (a, b+1),
+    (a, b+2), ... and its outer peers (a+1, b), (a+2, b), ...; then its
+    ``forward`` hops in the inner ring's order (b-1, b-2, ...): slot (a, c)
+    from its own output into its outer peers' outputs, once that slot
+    landed. Each rank's ``writers`` (the ranks it publishes its output to)
+    are its inner and outer peers. One dict a rank, in rank order."""
+    plan = []
+    for g in range(n0 * n1):
+        a, b = divmod(g, n1)
+        inner = [a * n1 + (b + i) % n1 for i in range(1, n1)]
+        outer = [((a + i) % n0) * n1 + b for i in range(1, n0)]
+        plan.append({
+            "own": [g, *inner, *outer],
+            "forward": [(a * n1 + (b - i) % n1, outer)
+                        for i in range(1, n1)],
+            "writers": sorted(inner + outer)})
+    return plan
+
+
 def _grid_call(x_local: torch.Tensor, axes, dims, what: str):
     ctx, rank, n = rank_of(tuple(axes), dims[0] * dims[1])
     if x_local.dim() != 2:
@@ -61,12 +86,18 @@ def _grid_call(x_local: torch.Tensor, axes, dims, what: str):
 
 
 def all_gather_torus_local(x_local: torch.Tensor, *, axes: tuple[str, str],
-                           dims: tuple[int, int]) -> torch.Tensor:
+                           dims: tuple[int, int],
+                           out: torch.Tensor | None = None) -> torch.Tensor:
     """Rank-local 2-axis AllGather inside ``DistContext.run``:
     ``x_local`` (m, cols) → (n0·n1·m, cols), joint-rank-major over
-    (axes[0], axes[1])."""
+    (axes[0], axes[1]). ``out``: the output its writers fill (every
+    element; a harness's sentinel), else a fresh one — on a real grid
+    only (a degenerate one takes the 1-D ring)."""
     ax0, ax1 = axes
     n0, n1 = dims
+    if (n0 == 1 or n1 == 1) and out is not None:
+        raise ValueError("all_gather_torus: out= needs the torus kernel "
+                         f"(a real grid), not {dims}")
     if n0 * n1 == 1:
         return x_local
     if n0 == 1 or n1 == 1:
@@ -79,20 +110,32 @@ def all_gather_torus_local(x_local: torch.Tensor, *, axes: tuple[str, str],
                                 method=AllGatherMethod.RING_1D)
     ctx, rank, n = _grid_call(x_local, axes, dims, "all_gather_torus")
     m, cols = x_local.shape
-    buf = symm_zeros(ctx, (n, m, cols), x_local.dtype, tag="ag_torus")
+    if out is not None:
+        out = check_out(ctx, rank, out, (n * m, cols), x_local.dtype,
+                        "all_gather_torus")
     if x_local.device.type == "cuda":
         x = check_payload(ctx, rank, x_local, "all_gather_torus", copy=True)
-        out = torch.empty((n * m, cols), dtype=x.dtype, device=x.device)
-        launch(AG_TORUS_KERNEL, buf, rank, buf.next_epoch(rank), x, out,
-               m * cols * x.element_size(), n0, n1)
+        if out is None:
+            out = torch.empty((n * m, cols), dtype=x.dtype, device=x.device)
+        launch_push(AG_TORUS_KERNEL, symm_pad(ctx, tag="ag_torus"), rank, x,
+                    out, m * cols * x.element_size(), n0, n1)
         return out
     if x_local.device.type != "cpu":
         raise ValueError(f"all_gather_torus: no kernel for device "
                          f"{x_local.device}")
     AG_TORUS_KERNEL.count_plain()
-    ctx.barrier(rank, "ag_torus.entry")
-    push_slots(ctx, rank, buf, x_local, rank, "ag_torus.data")
-    return ag_plain(buf.tensors[rank])
+    if out is None:
+        out = torch.empty((n * m, cols), dtype=x_local.dtype)
+    plan = torus_schedule(n0, n1)[rank]
+    outs = ctx.exchange(rank, out, "ag_torus.addr")
+    for d in plan["own"]:
+        outs[d][rank * m:(rank + 1) * m].copy_(x_local)
+    ctx.barrier(rank, "ag_torus.inner")
+    for s, dests in plan["forward"]:
+        for d in dests:
+            outs[d][s * m:(s + 1) * m].copy_(out[s * m:(s + 1) * m])
+    ctx.barrier(rank, "ag_torus.data")
+    return out
 
 
 def all_reduce_torus_local(x_local: torch.Tensor, *, axes: tuple[str, str],
