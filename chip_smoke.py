@@ -91,8 +91,11 @@ printing one JSON line:
    (B4) of ``csrc/collectives.cu``, and the two-shot they make, at n = 2, 4
    and 8, fp32 and bf16, 4-2048 rows x 4096, bit-identical to their plain
    versions and timed (bound: the bytes every rank moves, all through the
-   one card's HBM); 200 back-to-back parity calls with a rotating rank held
-   back; a lost peer raising ``CommTimeoutError``; AUTO's method at every
+   one card's HBM); B6's push-protocol edges at n = 2, 3, 4 and 8 (chunks
+   of 1-2048 rows, held-back ranks, NaN written into a source's input
+   after each call, 200 calls without a sync); 200 back-to-back parity
+   calls with a rotating rank held back; a lost peer raising
+   ``CommTimeoutError``; AUTO's method at every
    AR payload the serving path runs; K1/K2 at one rank's TP=4 heads.
    ``tp_serving`` — Qwen3-8B at full width and depth, bf16, through
    ``ServingEngine(Engine(cfg, params, ctx of 4 ranks, page_size=16),
@@ -136,8 +139,10 @@ printing one JSON line:
    and the all-gather's full-mesh push (B4, ``csrc/collectives.cu``) at
    n = 2, 4 and 8, fp32, bf16 and e4m3, with empty, ragged and full slots,
    bit-identical to their plain versions on every rank, each timed at its
-   main-path shape; 200 parity calls with a rotating straggler; a lost and
-   a held-back peer raising ``CommTimeoutError``. After ``moe_engine`` and
+   main-path shape; the parity stream's push-protocol edges (0xFF-filled
+   outputs, held-back ranks, the loopback); 200 parity calls with a
+   rotating straggler; a lost and a held-back peer raising
+   ``CommTimeoutError``. After ``moe_engine`` and
    ``moe_serving`` on the same Qwen3-30B-A3B weights: ``ep_moe`` — the EP
    layer on 4 virtual ranks (32 experts a rank, dim-0 views): 4 tokens a
    rank through all 48 layers for 4 steps on the parity stream, 512
@@ -3660,7 +3665,9 @@ def phase_collectives(torch, timer, fa, pa, *, devices_for=virtual_devices,
                       ranks=COLL_RANKS, name="collectives") -> dict:
     """Every collective kernel at n = 2, 4 and 8 ranks, fp32 and bf16, at
     4-2048 rows x 4096, against its plain version (bit for bit), timed;
-    the 200-call parity stress; a lost peer's timeout; AUTO's choices;
+    B6's push-protocol edge cases (``rs_edge_cases``) at those n and at
+    n = 3; the 200-call parity stress; a lost peer's timeout; AUTO's
+    choices;
     K1 and K2 at one rank's TP=4 heads (8 q, 2 kv: GQA group 4)."""
     comm, ar, rs, ag, context = coll_modules()
     from triton_distributed_tpu_torch.runtime.perf_model import chip_spec
@@ -3692,11 +3699,23 @@ def phase_collectives(torch, timer, fa, pa, *, devices_for=virtual_devices,
                             "error": repr(exc)})
                         raise
                     cases.setdefault(method, []).append(rec)
+        seed += 1
+        cases["reduce_scatter_ring"] += push_edge_cases(torch, ctx,
+                                                        ("rs_ring",), seed)
         if n == TP:
             stress = parity_stress(torch, ctx, bf16, 4, PARITY_CALLS)
         ctx.close()
         del ctx
         torch.cuda.empty_cache()
+    # B6 at n = 3 too: a ring whose chunks no power of two divides evenly
+    # over the ranks' reads.
+    ctx = context.DistContext([torch.device(d) for d in devices_for(3)],
+                              wait_timeout_ms=20_000)
+    cases["reduce_scatter_ring"] += push_edge_cases(torch, ctx, ("rs_ring",),
+                                                    seed + 50)
+    ctx.close()
+    del ctx
+    torch.cuda.empty_cache()
     spec = chip_spec()
     auto = {f"{rows}x{COLL_COLS}_{_dtype_name(dt)}":
             ar.get_auto_allreduce_method(
@@ -3730,8 +3749,8 @@ def phase_collectives(torch, timer, fa, pa, *, devices_for=virtual_devices,
 
 def coll_main_case(rec, method, dtype="bfloat16") -> dict:
     rows = COLL_MAIN[method]
-    return next(c for c in rec["cases"][method]
-                if c["n"] == TP and c["dtype"] == dtype and c["rows"] == rows)
+    return next(c for c in rec["cases"][method] if "ms" in c
+                and c["n"] == TP and c["dtype"] == dtype and c["rows"] == rows)
 
 
 def _coll_counts(comm) -> dict:
@@ -5079,14 +5098,184 @@ def push_stream_case(torch, ctx, kind: str, seed: int) -> dict:
             "bit_identical": not bad, "ok": not bad}
 
 
+# B6 on the push protocol (the owner reads): chunks of 1-2048 rows (rows x
+# cols a chunk, 16 bytes to ~8 MB), at n = 2, 3, 4 and 8.
+RS_EDGE = {"float32": ((1, 4), (3, 12), (1000, 1028), (2048, 1028)),
+           "bfloat16": ((1, 8), (3, 24), (1000, 2056), (2048, 2056))}
+RS_NAN_CALLS = 20
+
+
+def rs_case(torch, ctx, dtype, chunk: int, cols: int, seed: int, *,
+            what: str, hold=None, calls: int = 1, nan_source=None) -> dict:
+    """``calls`` ring reduce-scatters on every rank of ``ctx`` in one run,
+    no host sync between them, new inputs every call, each rank's chunk
+    against ``rs_ring_plain`` bit for bit, every call on the kernel.
+    ``hold``: (rank, ns) spun on that rank's stream before each of its
+    calls — a late source (its peers wait for its address) and a late
+    owner (its peers' exits wait for its release). ``nan_source``: that
+    rank fills its input with NaN on its own stream right after each
+    call: a source whose kernel ended before an owner finished reading
+    (a missing exit wait) would hand that owner NaN."""
+    comm, _, rs, _, _ = coll_modules()
+    from triton_distributed_tpu_torch.runtime.build import current_stream
+
+    n = ctx.num_ranks
+    X = _rand(torch, (calls, n, n * chunk, cols), dtype, seed)
+    want = [[rs.rs_ring_plain(list(X[t]), r) for r in range(n)]
+            for t in range(calls)]
+    ins = [X[:, r].to(ctx.devices[r]).clone() for r in range(n)]
+    k0 = comm.RS_RING_KERNEL.launches
+
+    def loop(r):
+        outs = []
+        for t in range(calls):
+            if hold is not None and r == hold[0]:
+                comm.SPIN.launch(hold[1], current_stream(ctx.devices[r]))
+            outs.append(rs.reduce_scatter_local(ins[r][t], num_ranks=n))
+            if r == nan_source:
+                ins[r][t].fill_(float("nan"))
+        return outs
+
+    got = ctx.run(loop)
+    torch.cuda.synchronize()
+    ctx.raise_on_comm_error()
+    bad = [t for t in range(calls) if not all(
+        torch.equal(_bits(torch, got[r][t].to(X.device)),
+                    _bits(torch, want[t][r])) for r in range(n))]
+    launched = comm.RS_RING_KERNEL.launches - k0
+    return {"case": f"reduce_scatter_ring_{what}_n{n}_{_dtype_name(dtype)}"
+                    f"_{chunk}x{cols}", "method": "reduce_scatter_ring",
+            "n": n, "dtype": _dtype_name(dtype), "rows": n * chunk,
+            "chunk_rows": chunk, "cols": cols, "calls": calls,
+            "hold": list(hold) if hold else None, "nan_source": nan_source,
+            "launches": launched, "calls_wrong": bad[:8],
+            "max_abs_err": 0.0 if not bad else float("nan"),
+            "bit_identical": not bad,
+            "ok": not bad and launched == n * calls}
+
+
+def rs_edge_cases(torch, ctx, seed: int) -> list:
+    """B6's edge cases on ``ctx``: the chunks of RS_EDGE in fp32 and bf16;
+    a held-back rank 0 and rank n - 1 (each a late source and a late
+    owner); RS_NAN_CALLS calls with rank n - 1 filling its input with NaN
+    after each and rank 0 held back 100 us before each (its reads of rank
+    n - 1's chunk come late); PUSH_STREAM_CALLS calls without a sync."""
+    n = ctx.num_ranks
+    out = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for chunk, cols in RS_EDGE[_dtype_name(dtype)]:
+            seed += 1
+            out.append(rs_case(torch, ctx, dtype, chunk, cols, seed,
+                               what="tail"))
+    for held in (0, n - 1):
+        seed += 1
+        out.append(rs_case(torch, ctx, torch.bfloat16, 64, 4096, seed,
+                           what=f"held{held}", hold=(held, PUSH_HOLD_NS)))
+    seed += 1
+    out.append(rs_case(torch, ctx, torch.bfloat16, 64, 4096, seed,
+                       what="nan_after", calls=RS_NAN_CALLS,
+                       hold=(0, 100_000), nan_source=n - 1))
+    seed += 1
+    out.append(rs_case(torch, ctx, torch.bfloat16, 16, 256, seed,
+                       what="stream", calls=PUSH_STREAM_CALLS))
+    return out
+
+
+def a2a_sentinel_case(torch, ctx, dtype, cap: int, kind: str, seed: int,
+                      hold=None) -> dict:
+    """One parity-stream AllToAll on every rank of ``ctx`` into outputs and
+    splits filled with 0xFF bytes (NaN in every payload type, -1 in the
+    splits) through ``out=`` / ``out_splits=``, against ``a2a_plain``:
+    live rows and splits bit for bit, each output the one handed in, one
+    launch a rank (at one rank under ``force_kernel``: the loopback).
+    ``hold``: (rank, ns) spun on that rank's stream before its call — a
+    late receiver (its senders wait for its addresses) and a late sender."""
+    comm, a2a, _, _ = a2a_modules()
+    from triton_distributed_tpu_torch.runtime.build import current_stream
+
+    n = ctx.num_ranks
+    S, spl = a2a_inputs(torch, n, cap, dtype, kind, seed)
+    block = a2a.default_block_rows(dtype)
+    ws, _ = a2a.a2a_stream_workspace(n, cap, A2A_H, dtype, ctx=ctx,
+                                     tag=f"sentinel-{kind}-{seed}")
+    sends = [S[r].to(ctx.devices[r]) for r in range(n)]
+    splits = [spl[r].to(ctx.devices[r]) for r in range(n)]
+    outs = [torch.empty_like(x) for x in sends]
+    osps = [torch.empty_like(x) for x in splits]
+    for t in outs + osps:
+        t.view(torch.uint8).fill_(0xFF)
+    k0 = comm.A2A_PARITY_KERNEL.launches
+
+    def fn(r):
+        if hold is not None and r == hold[0]:
+            comm.SPIN.launch(hold[1], current_stream(ctx.devices[r]))
+        return a2a.fast_all_to_all_stream(
+            sends[r], splits[r], ws, ws.epochs[r], num_ranks=n,
+            force_kernel=n == 1, out=outs[r], out_splits=osps[r])
+
+    got = ctx.run(fn)
+    torch.cuda.synchronize()
+    ctx.raise_on_comm_error()
+    want, want_rs = a2a.a2a_plain(S, spl, block)
+    bad = []
+    for d, (out, rs, _, _) in enumerate(got):
+        if out is not outs[d] or rs is not osps[d]:
+            bad.append(f"rank {d} not its out=")
+        if not torch.equal(rs.to(spl.device), want_rs[d]):
+            bad.append(f"rank {d} splits")
+        rows = a2a.live_rows(want_rs[d], cap, block)
+        for p in range(n):
+            if not torch.equal(_bits(torch, out[p, :rows[p]].to(S.device)),
+                               _bits(torch, want[d, p, :rows[p]])):
+                bad.append(f"recv[{d},{p}]")
+    launched = comm.A2A_PARITY_KERNEL.launches - k0
+    what = f"held{hold[0]}" if hold else "sentinel"
+    return {"case": f"a2a_parity_{what}_n{n}_{_dtype_name(dtype)}_cap{cap}"
+                    f"_{kind}", "form": "a2a_parity", "n": n,
+            "dtype": _dtype_name(dtype), "cap": cap, "hidden": A2A_H,
+            "kind": kind, "block": block, "out_sentinel": "0xFF",
+            "hold": list(hold) if hold else None, "launches": launched,
+            "max_abs_err": 0.0 if not bad else float("nan"),
+            "bit_identical": not bad, "wrong": bad[:8],
+            "ok": not bad and launched == n}
+
+
+def a2a_edge_cases(torch, ctx, seed: int) -> list:
+    """B8's parity stream on the push protocol at its edges on ``ctx``:
+    empty, ragged and full slots in fp32, bf16 and e4m3 into 0xFF-filled
+    outputs (cap 32); at n > 1 a held-back rank 0 and rank n - 1 (bf16,
+    ragged, cap 256). ``a2a_stress`` (200 calls, a rotating straggler) and
+    ``a2a_one_rank`` run beside these in ``phase_a2a``."""
+    n = ctx.num_ranks
+    out = []
+    for dtype in (torch.float32, torch.bfloat16, torch.float8_e4m3fn):
+        for kind in ("empty", "ragged", "full"):
+            seed += 1
+            out.append(a2a_sentinel_case(torch, ctx, dtype, 32, kind, seed))
+    if n > 1:
+        for held in (0, n - 1):
+            seed += 1
+            out.append(a2a_sentinel_case(torch, ctx, torch.bfloat16, 256,
+                                         "ragged", seed,
+                                         hold=(held, PUSH_HOLD_NS)))
+    return out
+
+
 def push_edge_cases(torch, ctx, kinds, seed: int) -> list:
     """The push protocol's edge cases for each kernel of ``kinds`` on
-    ``ctx``: the tails of PUSH_TAILS in fp32 and bf16, a held-back
-    receiver and a held-back sender, and the 200-call stream. At one rank
-    the loopback (``force_kernel``): the tails and the stream."""
+    ``ctx``: B6 (``"rs_ring"``: ``rs_edge_cases``) and B8's parity stream
+    (``"a2a_parity"``: ``a2a_edge_cases``) their own; the copy kernels the
+    tails of PUSH_TAILS in fp32 and bf16, a held-back receiver and a
+    held-back sender, and the 200-call stream. At one rank the loopback
+    (``force_kernel``): the tails and the stream."""
     n = ctx.num_ranks
     out = []
     for kind in kinds:
+        if kind in ("rs_ring", "a2a_parity"):
+            edge = rs_edge_cases if kind == "rs_ring" else a2a_edge_cases
+            out += edge(torch, ctx, seed)
+            seed += 50
+            continue
         for dtype in (torch.float32, torch.bfloat16):
             for rows, cols in PUSH_TAILS[_dtype_name(dtype)]:
                 seed += 1
@@ -5126,6 +5315,8 @@ def a2a_stress(torch, ctx, dtype, cap: int, calls: int) -> dict:
     spl_d = spl.cuda()
     ws, _ = a2a.a2a_stream_workspace(n, cap, A2A_H, dtype, ctx=ctx,
                                      tag="stress")
+    comm = a2a_modules()[0]
+    k0 = comm.A2A_PARITY_KERNEL.launches
 
     def loop(r):
         idx, outs = ws.epochs[r], []
@@ -5152,9 +5343,11 @@ def a2a_stress(torch, ctx, dtype, cap: int, calls: int) -> dict:
                                 _bits(torch, want[d, p, :rows[p]]))
                     for p in range(n)):
                 bad.append((t, d))
+    launched = comm.A2A_PARITY_KERNEL.launches - k0
     return {"calls": calls, "n": n, "cap": cap, "dtype": _dtype_name(dtype),
             "straggler": "rotate, 50 us, every third call",
-            "calls_wrong": bad[:16], "ok": not bad}
+            "launches": launched, "calls_wrong": bad[:16],
+            "ok": not bad and launched == n * calls}
 
 
 def a2a_one_rank(torch, ctx) -> dict:
@@ -5249,10 +5442,11 @@ def phase_a2a(torch, timer, *, devices_for=virtual_devices,
     """B8's two kernels and B4's full-mesh push at n = 2, 4 and 8, fp32,
     bf16 and e4m3, against their plain versions bit for bit: the
     AllToAll with empty, ragged and full slots at caps 32 and 256 (h
-    2048), the full-mesh push at 4, 64 and 1024 rows a rank and its push
-    protocol's edge cases (``push_edge_cases``: tails into NaN-filled
-    outputs, a held-back rank, 200 calls without a sync; the loopback at
-    one rank); each timed at its main-path shape
+    2048), the full-mesh push at 4, 64 and 1024 rows a rank and the push
+    protocol's edge cases of it and of the parity stream
+    (``push_edge_cases``: tails / slots into 0xFF-filled outputs, held-back
+    ranks, 200 calls without a sync; the loopback at one rank); each
+    timed at its main-path shape
     (n = 4 for B8, n = 2 for the push; bf16); 200 parity calls with a
     rotating straggler; a lost and a held-back peer raising
     CommTimeoutError, for the push too."""
@@ -5286,6 +5480,8 @@ def phase_a2a(torch, timer, *, devices_for=virtual_devices,
                              and rows == AG_MESH_MAIN)))
         cases["ag_full_mesh"] += push_edge_cases(torch, ctx,
                                                  ("ag_full_mesh",), seed)
+        cases["a2a_parity"] += push_edge_cases(torch, ctx, ("a2a_parity",),
+                                               seed + 50)
         seed += 100
         if n == EP_RANKS:
             stress = a2a_stress(torch, ctx, torch.bfloat16, 32, A2A_CALLS)
@@ -5298,6 +5494,8 @@ def phase_a2a(torch, timer, *, devices_for=virtual_devices,
     one = a2a_one_rank(torch, ctx)
     cases["ag_full_mesh"] += push_edge_cases(torch, ctx, ("ag_full_mesh",),
                                              seed)
+    cases["a2a_parity"] += push_edge_cases(torch, ctx, ("a2a_parity",),
+                                           seed + 50)
     ctx.close()
     bad = [c["case"] for cs in cases.values() for c in cs if not c["ok"]]
     check(not bad, f"{name}: disagree with their plain versions: {bad}")

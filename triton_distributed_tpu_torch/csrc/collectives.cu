@@ -14,9 +14,25 @@
 //                path's repeated calls; safety argument in
 //                ops/allreduce.all_reduce_stream).
 //  rs_ring       ops/reduce_scatter.py:52 _rs_ring_kernel — ring reduce-
-//                scatter: chunk c starts at rank c+1 and gains one
-//                contribution a hop, added in the payload type (one
-//                rounding a hop), and lands summed at its owner.
+//                scatter: chunk c summed in the ring's order, x_{c+1} +
+//                x_{c+2} + ... + x_c, each add in fp32 and rounded to the
+//                payload type (the ring's one rounding a hop). On the push
+//                protocol with the roles mirrored: the owner reads. Each
+//                rank publishes its INPUT's address to every peer (block
+//                0, the call's epoch as the release flag); owner c's block
+//                b reads share b of chunk c straight from every source's
+//                input (its own locally) and sums it in that order into its
+//                fresh output, then releases the epoch into word `data +
+//                c * stride + b` of each source's pad; a source's block b
+//                returns only once every owner released it, since a
+//                caller may overwrite or free its input when the kernel
+//                ends. One hop behind one flag, each byte read once; no
+//                entry barrier, relay slots or dependent hops (the ring
+//                made n-1 of them through an (n-1, chunk) workspace).
+//                Safe across calls by push.cuh's argument mirrored: an
+//                owner of call t+1 reads a source's address only after
+//                the source's ready word reached t+1, and a source reaches
+//                call t+1 only after every owner released call t.
 //  ag_ring       ops/allgather.py:91 _ag_ring_kernel — ring all-gather
 //                through a symmetric gather buffer that doubles as the
 //                transport; each rank forwards the chunk it received
@@ -69,15 +85,18 @@
 // over a few blocks (at most kMaxBlocks), each of which synchronises only
 // with the same block of its peers — no grid-wide barrier, and a small
 // grid, so virtual ranks on one card never starve each other of SMs. The
-// push-protocol kernels (ag_full_mesh, ar_tree) size their grids on the
-// host instead, at most 1/r of the SMs. The tree is latency-bound at its
-// main shape (a 203-row prefill's 1.6 MB: four dependent data hops at
-// n = 4, two up and two down, each a flag round trip): its design cuts a
-// hop's cost — no entry barrier, every byte moved once a hop (the first
-// tree stored each interior partial into its own output and read it
-// back, and copied the broadcast out of a slot), both trees at once on
-// their own blocks, and shares small enough (a block per 32 KiB, 512
-// threads) that a hop is one round of loads a thread.
+// push-protocol kernels (ag_full_mesh, ar_tree, rs_ring) size their grids
+// on the host instead, at most 1/r of the SMs; rs_ring by its input's bytes
+// (a 256-row slice's 2 MiB: 32 blocks, under the cap of 33 at 4 ranks a
+// card), each thread keeping push::kUnroll 16-byte loads of one operand in
+// flight. The tree is latency-bound at its main shape (a 203-row
+// prefill's 1.6 MB: four dependent data hops at n = 4, two up and two
+// down, each a flag round trip): its design cuts a hop's cost — no entry
+// barrier, every byte moved once a hop (the first tree stored each
+// interior partial into its own output and read it back, and copied the
+// broadcast out of a slot), both trees at once on their own blocks, and
+// shares small enough (a block per 32 KiB, 512 threads) that a hop is one
+// round of loads a thread.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -91,26 +110,6 @@ using tdt::to_f;
 using namespace tdt::dist;
 
 namespace {
-
-// dst = a + b over vectors [v0, v1), added in T (one rounding an add) —
-// ops/reduce_scatter.py:35 _tiled_add.
-template <typename T>
-__device__ __forceinline__ void add_into(uint4* dst, const uint4* a,
-                                         const uint4* b, long long v0,
-                                         long long v1) {
-  constexpr int E = Vec<T>::N;
-  for (long long v = v0 + threadIdx.x; v < v1; v += blockDim.x) {
-    const uint4 x = __ldcg(a + v);
-    const uint4 y = __ldcg(b + v);
-    const T* xe = elems<T>(x);
-    const T* ye = elems<T>(y);
-    uint4 o;
-    T* oe = reinterpret_cast<T*>(&o);
-#pragma unroll
-    for (int e = 0; e < E; ++e) oe[e] = from_f<T>(to_f(xe[e]) + to_f(ye[e]));
-    dst[v] = o;
-  }
-}
 
 // Push this block's vectors of x into slot `slot` of every rank's
 // workspace (this rank's own first: the local copy), then tell each peer.
@@ -159,34 +158,79 @@ __global__ void __launch_bounds__(kThreads)
   reduce_slots<T>(ws, nvec, g.n, out, v0, v1);
 }
 
-// x: (n, chunk) of this rank's contributions; workspace: n-1 comm slots
-// of one chunk; out: the summed chunk `rank`. Step s's flag of block b is
-// kStepBase + s * kMaxBlocks + b, written by the left neighbour only.
+// Vectors [v0, v1) of the n operands src[0..n-1] summed in that order into
+// out: each add in fp32, rounded to T (one rounding an add, as the ring's
+// hops: ops/reduce_scatter.py:35 _tiled_add's chain). kUnroll loads of one
+// operand in flight a thread, through L2 (a peer's input, behind the flag
+// this block acquired).
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    rs_ring_kernel(Group g, const uint4* x, uint4* out, long long cvec) {
-  long long v0, v1;
-  block_range(cvec, &v0, &v1);
-  if (!barrier_all(g)) return;
-  const int n = g.n;
-  const int right = (g.rank + 1) % n;
-  const uint4* comm = reinterpret_cast<const uint4*>(peer_base(g, g.rank));
-  uint4* rcomm = reinterpret_cast<uint4*>(peer_base(g, right));
-  for (int s = 0; s < n - 1; ++s) {
-    const int c = (g.rank - 1 - s + 2 * n) % n;   // the chunk sent at s
-    uint4* dst = rcomm + s * cvec;
-    if (s == 0) {
-      put(dst, x + c * cvec, v0, v1);
-    } else {
-      if (!wait(g, kStepBase + (s - 1) * kMaxBlocks + blockIdx.x, g.epoch))
-        return;
-      add_into<T>(dst, comm + (s - 1) * cvec, x + c * cvec, v0, v1);
+__device__ __forceinline__ void ring_sum(const uint4* const* src, int n,
+                                         uint4* out, long long v0,
+                                         long long v1) {
+  constexpr int E = Vec<T>::N;
+  constexpr int U = tdt::push::kUnroll;
+  const long long TB = blockDim.x;
+  for (long long base = v0 + threadIdx.x; base < v1; base += TB * U) {
+    uint4 a[U], b[U];
+#pragma unroll
+    for (int k = 0; k < U; ++k) {
+      const long long v = base + k * TB;
+      if (v < v1) a[k] = __ldcg(src[0] + v);
     }
-    signal(g, right, kStepBase + s * kMaxBlocks + blockIdx.x, g.epoch);
+    for (int s = 1; s < n; ++s) {
+      const uint4* p = src[s];
+#pragma unroll
+      for (int k = 0; k < U; ++k) {
+        const long long v = base + k * TB;
+        if (v < v1) b[k] = __ldcg(p + v);
+      }
+#pragma unroll
+      for (int k = 0; k < U; ++k) {
+        T* ae = reinterpret_cast<T*>(&a[k]);
+        const T* be = elems<T>(b[k]);
+#pragma unroll
+        for (int e = 0; e < E; ++e)
+          ae[e] = from_f<T>(to_f(ae[e]) + to_f(be[e]));
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < U; ++k) {
+      const long long v = base + k * TB;
+      if (v < v1) out[v] = a[k];
+    }
   }
-  if (!wait(g, kStepBase + (n - 2) * kMaxBlocks + blockIdx.x, g.epoch))
-    return;
-  add_into<T>(out, comm + (n - 2) * cvec, x + g.rank * cvec, v0, v1);
+}
+
+// x: (n, chunk) of this rank's contributions, published to every peer; out:
+// this rank's fresh summed chunk. Block b reads share b of chunk `rank` from
+// every source (the same share on every rank), operand k the input of rank
+// rank+1+k (mod n), so the last is this rank's own.
+template <typename T, bool SYS>
+__global__ void __launch_bounds__(tdt::push::kThreads)
+    rs_ring_kernel(Group g, tdt::push::Layout L, const char* x, char* out,
+                   long long chunk_bytes) {
+  namespace pu = tdt::push;
+  __shared__ const uint4* src[kMaxRanks];
+  const int n = g.n, me = g.rank, j = threadIdx.x;
+  const int all = (1 << n) - 1;
+  if (blockIdx.x == 0 && j < n && j != me) pu::publish<SYS>(g, L, j, x);
+  // Thread j resolves source j's input: operand (j - me - 1) mod n.
+  int ok = 1;
+  if (j < n) {
+    const char* b = j == me ? x : pu::await_dest<SYS>(g, L, j);
+    ok = b != nullptr;
+    src[(j - me - 1 + n) % n] = reinterpret_cast<const uint4*>(
+        ok ? b + me * chunk_bytes : nullptr);
+  }
+  if (!__syncthreads_and(ok)) return;
+  long long lo, hi;
+  pu::share(chunk_bytes, &lo, &hi);
+  ring_sum<T>(src, n, reinterpret_cast<uint4*>(out), lo / 16, hi / 16);
+  // Every thread's loads returned (their sums are stored); release the
+  // sources, then hold this rank's input until every owner released it.
+  __syncthreads();
+  if (j == 0) pu::signal_data<SYS>(g, L, all);
+  pu::wait_data<SYS>(g, L, all);
 }
 
 // x: one chunk; the symmetric gather buffer and out: n chunks.
@@ -494,23 +538,39 @@ int tdt_ar_parity(const void* table, const void* sig_table, void* err,
   return cudaGetLastError();
 }
 
-// chunk_bytes: one output chunk (x holds n of them).
+// chunk_bytes: one output chunk (x, this rank's input, holds n of them;
+// out is this rank's fresh output). grid (sized by x's bytes), sys (the
+// flags' scope: 1 when a peer is another card) and the pad layout (addr,
+// ready, data, stride) come from the host (ops/_comm.launch_push), the same
+// on every rank.
 int tdt_rs_ring(const void* table, const void* sig_table, void* err,
                 int rank, int n, unsigned long long epoch,
                 long long timeout_ns, const void* x, void* out,
-                long long chunk_bytes, int dtype, cudaStream_t stream) {
+                long long chunk_bytes, int dtype, int grid, int sys,
+                int addr, int ready, int data, int stride,
+                cudaStream_t stream) {
   const long long cvec = chunk_bytes / 16;
-  if (bad_group(rank, n, cvec) || n < 2 || chunk_bytes % 16)
+  const tdt::push::Layout L{addr, ready, data, stride};
+  if (bad_group(rank, n, cvec) || n < 2 || chunk_bytes % 16 ||
+      tdt::push::bad_layout(L, n, grid))
     return cudaErrorInvalidValue;
   const Group g = make_group(table, sig_table, err, rank, n, epoch,
                              timeout_ns);
-  const dim3 grid(grid_for(cvec)), block(kThreads);
-  const uint4* xi = static_cast<const uint4*>(x);
-  uint4* o = static_cast<uint4*>(out);
-  if (dtype == 0)
-    rs_ring_kernel<float><<<grid, block, 0, stream>>>(g, xi, o, cvec);
+  const dim3 blocks(grid), block(tdt::push::kThreads);
+  const char* xi = static_cast<const char*>(x);
+  char* o = static_cast<char*>(out);
+  if (dtype == 0 && sys)
+    rs_ring_kernel<float, true><<<blocks, block, 0, stream>>>(g, L, xi, o,
+                                                             chunk_bytes);
+  else if (dtype == 0)
+    rs_ring_kernel<float, false><<<blocks, block, 0, stream>>>(g, L, xi, o,
+                                                              chunk_bytes);
+  else if (dtype == 1 && sys)
+    rs_ring_kernel<__nv_bfloat16, true><<<blocks, block, 0, stream>>>(
+        g, L, xi, o, chunk_bytes);
   else if (dtype == 1)
-    rs_ring_kernel<__nv_bfloat16><<<grid, block, 0, stream>>>(g, xi, o, cvec);
+    rs_ring_kernel<__nv_bfloat16, false><<<blocks, block, 0, stream>>>(
+        g, L, xi, o, chunk_bytes);
   else
     return cudaErrorInvalidValue;
   return cudaGetLastError();

@@ -1,7 +1,9 @@
 // The push protocol and its copy engine: what B4's full-mesh push
 // (collectives.cu ag_full_mesh), B5's double tree (collectives.cu
-// ar_tree), B7's shift and permutation (p2p.cu) and B12's torus AllGather
-// (multi_axis.cu ag_torus) share. Nothing else uses this header.
+// ar_tree), B6's reduce-scatter (collectives.cu rs_ring), B7's shift and
+// permutation (p2p.cu), B8's parity AllToAll (all_to_all.cu a2a_push) and
+// B12's torus AllGather (multi_axis.cu ag_torus) share. Nothing else uses
+// this header.
 //
 // The protocol: the sender writes the receiver's output. A TPU kernel's
 // remote DMA lands in the peer's output; here the output is a fresh tensor
@@ -25,11 +27,16 @@
 // Flags only grow (the host hands every call a larger epoch), so a stale
 // flag never satisfies a wait. The layout (addr, ready, data, stride) is
 // computed on the host (ops/_comm.PushLayout) and passed by value.
-// Two kernels index the words otherwise. B12's torus AllGather indexes
-// its data words by the output's slot, not by the sender (each slot of a
+// Four kernels use the words otherwise. B12's torus AllGather indexes its
+// data words by the output's slot, not by the sender (each slot of a
 // receiver has one writer, on either hop). B5's tree keeps its own words
 // (collectives.cu TreeLayout): a child's address in its parent's pad, and
-// flags along the tree's edges.
+// flags along the tree's edges. B6's reduce-scatter mirrors the roles: a
+// rank publishes its INPUT, its owners read from it, and the data word
+// `data + owner * stride + b` (in the source's pad) releases the input,
+// which the source holds until every owner released it. B8's parity
+// AllToAll publishes two addresses a receiver (its output and its splits:
+// the second at word `splits + receiver`, ops/_comm.A2ALayout).
 //
 // The copy engine reads each source byte once and writes it to every
 // destination (the push's n outputs, a multicast's destinations), over a

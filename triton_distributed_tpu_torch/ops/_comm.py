@@ -38,13 +38,16 @@ ONE_SHOT_KERNEL = CudaKernel("collectives.cu", "tdt_ar_one_shot",
                              _GROUP_ARGS + [ctypes.c_int, ctypes.c_void_p])
 PARITY_KERNEL = CudaKernel("collectives.cu", "tdt_ar_parity",
                            _GROUP_ARGS + [ctypes.c_int, ctypes.c_void_p])
-RS_RING_KERNEL = CudaKernel("collectives.cu", "tdt_rs_ring",
-                            _GROUP_ARGS + [ctypes.c_int, ctypes.c_void_p])
 AG_RING_KERNEL = CudaKernel("collectives.cu", "tdt_ag_ring",
                             _GROUP_ARGS + [ctypes.c_void_p])
 # The push protocol's launch arguments (csrc/push.cuh): the grid, the
 # flags' scope, and the pad layout's addr, ready, data and stride.
 _PUSH_ARGS = [ctypes.c_int] * 6
+# B6's ring reduce-scatter on the push protocol (the owner reads): the
+# dtype code, then the push arguments.
+RS_RING_KERNEL = CudaKernel("collectives.cu", "tdt_rs_ring",
+                            _GROUP_ARGS + [ctypes.c_int] + _PUSH_ARGS
+                            + [ctypes.c_void_p])
 # B5's double tree on the push protocol: rows, trees and the dtype code,
 # then the grid (blocks a tree), the scope and its pad layout (TreeLayout).
 TREE_KERNEL = CudaKernel("collectives.cu", "tdt_ar_tree",
@@ -72,14 +75,19 @@ AG_TORUS_KERNEL = CudaKernel("multi_axis.cu", "tdt_ag_torus",
 AR_TORUS_KERNEL = CudaKernel("multi_axis.cu", "tdt_ar_torus",
                              _GROUP_ARGS + [ctypes.c_int] * 3
                              + [ctypes.c_void_p])
-# B8, the EP AllToAll (csrc/all_to_all.cu): the barrier form and the
-# parity stream.
+# B8, the EP AllToAll (csrc/all_to_all.cu): the barrier form; the parity
+# stream on the push protocol (the send buffer and the output as the
+# payload, the row's bytes, then both splits, cap, block and experts a
+# rank, then the grid, the scope and A2ALayout's five words).
 _A2A_ARGS = ([ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int,
                                       ctypes.c_ulonglong, ctypes.c_longlong]
              + [ctypes.c_void_p] * 4 + [ctypes.c_longlong]
              + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 A2A_KERNEL = CudaKernel("all_to_all.cu", "tdt_a2a", _A2A_ARGS)
-A2A_PARITY_KERNEL = CudaKernel("all_to_all.cu", "tdt_a2a_parity", _A2A_ARGS)
+A2A_PARITY_KERNEL = CudaKernel("all_to_all.cu", "tdt_a2a_parity",
+                               _GROUP_ARGS + [ctypes.c_void_p] * 2
+                               + [ctypes.c_int] * 3 + [ctypes.c_int] * 7
+                               + [ctypes.c_void_p])
 # The fused GEMM + communication kernels B9 (AG+GEMM), B10 (GEMM+RS) and
 # B11 (GEMM+AR): one entry, one CudaKernel each, so each counts its own.
 _GEMM_COMM_ARGS = ([ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int,
@@ -117,15 +125,22 @@ COLLECTIVE_KERNELS = (ONE_SHOT_KERNEL, PARITY_KERNEL, RS_RING_KERNEL,
 _GEMM_OP = {AG_GEMM_KERNEL: 0, GEMM_RS_KERNEL: 1, GEMM_AR_KERNEL: 2}
 
 
-# The push protocol of B4's full-mesh push, B5's tree, B7 and B12's torus
-# AllGather (csrc/push.cuh): the receiver publishes its fresh output's
-# address into its senders' signal pads, each sender writes its block
-# straight into that output and raises a data flag a block. The host lays
-# the pad out, sizes the grid and picks the flags' scope; the kernel
-# checks them.
+# The push protocol of B4's full-mesh push, B5's tree, B6, B7, B8's parity
+# stream and B12's torus AllGather (csrc/push.cuh): the receiver publishes
+# its fresh output's address into its senders' signal pads, each sender
+# writes its block straight into that output and raises a data flag a
+# block (B6 mirrors the roles: a rank publishes its input, its owners read
+# it and release it). The host lays the pad out, sizes the grid and picks
+# the flags' scope; the kernel checks them.
 MAX_RANKS = 8                    # csrc/dist.cuh kMaxRanks
 PUSH_MAX_BLOCKS = 128            # the data flags a source: the largest grid
 PUSH_BLOCK_BYTES = 64 << 10      # the least payload a block is given
+# B8's parity stream: a block per 16 KiB of the send buffer. A decode call
+# moves a few 16-row blocks a slot and is bound by latency, so more and
+# smaller shares: at cap 32 x 2048 bf16 on 4 ranks 32 blocks measured
+# 0.0134 ms a call as a span against 0.0142 at 16 and 0.0146-0.0149 at 8
+# (H100 80GB HBM3, 700 W; scripts/time_port_copy.py, PERF.md §6 PR 19).
+A2A_BLOCK_BYTES = 16 << 10
 
 
 @dataclasses.dataclass(frozen=True)
@@ -153,6 +168,27 @@ class PushLayout:
 
 
 PUSH_LAYOUT = PushLayout()
+
+
+@dataclasses.dataclass(frozen=True)
+class A2ALayout(PushLayout):
+    """B8's parity stream on the push protocol: :class:`PushLayout` plus
+    ``splits + j``, receiver j's splits address (in the sender's pad; a
+    receiver publishes its output and its splits)."""
+
+    splits: int = MAX_RANKS
+    ready: int = 2 * MAX_RANKS
+    data: int = 3 * MAX_RANKS
+
+    def words(self, n: int, grid: int) -> dict:
+        return {**super().words(n, grid),
+                "splits": [self.splits + j for j in range(n)]}
+
+    def args(self) -> tuple:
+        return (self.addr, self.splits, self.ready, self.data, self.stride)
+
+
+A2A_LAYOUT = A2ALayout()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -197,15 +233,16 @@ class TreeLayout:
 TREE_LAYOUT = TreeLayout()
 
 
-def push_grid(nbytes: int, caps) -> int:
+def push_grid(nbytes: int, caps, block_bytes: int = PUSH_BLOCK_BYTES
+              ) -> int:
     """The copy engine's grid for a payload of ``nbytes`` a rank (the bytes
-    a rank reads): a block per PUSH_BLOCK_BYTES, at least 1, at most the
+    a rank reads): a block per ``block_bytes``, at least 1, at most the
     least of ``caps`` (each card's SMs over the group's ranks on it) and
     PUSH_MAX_BLOCKS — so the same on every rank of the group."""
     cap = min([PUSH_MAX_BLOCKS, *caps])
     if cap < 1:
         raise ValueError(f"no SMs for the push: caps {list(caps)}")
-    return max(1, min(cap, -(-nbytes // PUSH_BLOCK_BYTES)))
+    return max(1, min(cap, -(-nbytes // block_bytes)))
 
 
 TREE_BLOCK_BYTES = 32 << 10      # the least share of a tree's block
@@ -237,16 +274,21 @@ def push_scope(ctx) -> int:
 def launch_push(kernel: CudaKernel, pad: SymmBuffer, rank: int,
                 x: torch.Tensor, out: torch.Tensor, nbytes: int,
                 *extra, grid: int | None = None,
+                grid_bytes: int | None = None,
+                block_bytes: int = PUSH_BLOCK_BYTES,
                 layout=PUSH_LAYOUT) -> None:
-    """One launch of a push-protocol kernel (B4's full-mesh push, B7, B12's
-    torus AllGather; B5's tree with its ``grid`` and ``layout``) at the
-    rank group's meeting, as :func:`launch`, on the pad ``pad`` (a
+    """One launch of a push-protocol kernel (B4's full-mesh push, B6, B7,
+    B8's parity stream with its layout, B12's torus AllGather; B5's tree
+    with its ``grid`` and ``layout``) at the rank group's meeting, as
+    :func:`launch`, on the pad ``pad`` (a
     :func:`~triton_distributed_tpu_torch.runtime.symm.symm_pad`, or the
     tree's workspace): ``out`` is this rank's fresh output, which its
-    senders write. ``grid``: else :func:`push_grid` over ``nbytes``."""
+    senders write (B6: its owner's sum). ``grid``: else :func:`push_grid`
+    over ``grid_bytes``, else over ``nbytes``, a block per
+    ``block_bytes``."""
     ctx = pad.ctx
     if grid is None:
-        grid = push_grid(nbytes, _sm_caps(ctx))
+        grid = push_grid(grid_bytes or nbytes, _sm_caps(ctx), block_bytes)
     epoch = pad.next_epoch(rank)
     _launch_at_meeting(kernel, pad, rank, x.device, "push.launch", (
         ptr(pad.table[rank]), ptr(pad.signal_table[rank]),
@@ -361,17 +403,16 @@ def _launch_at_meeting(kernel: CudaKernel, buf: SymmBuffer, rank: int,
     buf.ctx.meet(rank, what, act)
 
 
-def launch_a2a(kernel: CudaKernel, buf: SymmBuffer, rank: int, epoch: int,
+def launch_a2a(buf: SymmBuffer, rank: int, epoch: int,
                send: torch.Tensor, send_splits: torch.Tensor,
                out: torch.Tensor, out_splits: torch.Tensor, *, block: int,
                spl_stride: int) -> None:
-    """One AllToAll launch (``csrc/all_to_all.cu``) at the rank group's
-    meeting, as :func:`launch`. ``epoch``: the barrier form's epoch, or
-    the parity form's call index."""
+    """One launch of the barrier-form AllToAll (``csrc/all_to_all.cu``
+    ``tdt_a2a``) at the rank group's meeting, as :func:`launch`."""
     ctx = buf.ctx
     n, cap = send.shape[0], send.shape[1]
     row_bytes = send[0, 0].numel() * send.element_size()
-    _launch_at_meeting(kernel, buf, rank, send.device, "a2a.launch", (
+    _launch_at_meeting(A2A_KERNEL, buf, rank, send.device, "a2a.launch", (
         ptr(buf.table[rank]), ptr(buf.signal_table[rank]),
         ptr(ctx.error_word(rank)), rank, n, epoch, int(ctx.timeout_s * 1e9),
         ptr(send), ptr(send_splits), ptr(out), ptr(out_splits), row_bytes,

@@ -22,11 +22,14 @@ package's ``jax.lax.all_to_all``) and the live blocks through a
 symmetric buffer's slots.
 
 The barrier form opens with a block-scope barrier that protects its
-receive buffer across calls; the stream form (the EP decode path)
-threads a persistent ``(workspace, call_index)`` pair and is safe
-without one because every rank signals every peer on every call (see
-``csrc/all_to_all.cu``). Payloads are byte copies: float32, bfloat16 and
-float8_e4m3fn.
+receive buffer across calls. The stream form (the EP decode path)
+threads a persistent ``(workspace, call_index)`` pair, the reference's
+contract; on the card it runs the push protocol (``csrc/push.cuh``):
+each receiver publishes its fresh output and splits, each sender writes
+its live rows and splits row straight into them and signals every peer
+on every call, empty slots included, so the workspace is only the signal
+pad carrying the epochs (call index + 1) — no parity slab, no copy-out.
+Payloads are byte copies: float32, bfloat16 and float8_e4m3fn.
 """
 
 from __future__ import annotations
@@ -37,14 +40,17 @@ from typing import NamedTuple
 import torch
 
 from triton_distributed_tpu_torch.ops._comm import (
-    A2A_KERNEL, A2A_PARITY_KERNEL, check_payload, launch_a2a, rank_of,
-    straggle,
+    A2A_BLOCK_BYTES, A2A_KERNEL, A2A_LAYOUT, A2A_PARITY_KERNEL, check_out,
+    check_payload, launch_a2a, launch_push, rank_of, straggle,
 )
 from triton_distributed_tpu_torch.ops.tiling import sublane_align
+from triton_distributed_tpu_torch.runtime.build import ptr
 from triton_distributed_tpu_torch.runtime.context import (
     DistContext, get_context, group_all_to_all,
 )
-from triton_distributed_tpu_torch.runtime.symm import SymmBuffer, symm_zeros
+from triton_distributed_tpu_torch.runtime.symm import (
+    SymmBuffer, symm_pad, symm_zeros,
+)
 
 # int32 a splits row of the stream workspace: room for up to this many
 # experts a rank, whatever the layer (a2a_stream_workspace has no epr).
@@ -108,13 +114,14 @@ def _plain_local(ctx: DistContext, rank: int, n: int, send: torch.Tensor,
                  what: str):
     """One rank's part of the plain version: the splits through the
     group's all-to-all (a meeting), the live blocks pushed into slot
-    ``rank`` of every peer's ``slots`` (each rank's (n, cap, h) view),
-    a meeting, then this rank's slots copied out."""
+    ``rank`` of every peer's ``slots`` (each rank's (n, cap, h) view) in
+    :func:`a2a_push_schedule`'s order, a meeting, then this rank's slots
+    copied out."""
     cap = send.shape[1]
     recv_splits = group_all_to_all(splits, num_ranks=n)
     rows = live_rows(splits, cap, block)
-    for p in range(n):
-        slots[p][rank, :rows[p]] = send[p, :rows[p]]
+    for p, slot in a2a_push_schedule(n)[rank]:
+        slots[p][slot, :rows[p]] = send[p, :rows[p]]
     ctx.barrier(rank, what)
     out = torch.zeros_like(send)
     for q, r in enumerate(live_rows(recv_splits, cap, block)):
@@ -153,7 +160,7 @@ def fast_all_to_all_local(send_buf: torch.Tensor, send_splits: torch.Tensor,
         spl = send_splits.contiguous()
         out = torch.empty_like(x)
         out_splits = torch.empty_like(spl)
-        launch_a2a(A2A_KERNEL, buf, rank, buf.next_epoch(rank), x, spl, out,
+        launch_a2a(buf, rank, buf.next_epoch(rank), x, spl, out,
                    out_splits, block=block, spl_stride=stride)
         return out, out_splits
     if send_buf.device.type != "cpu":
@@ -168,11 +175,13 @@ def fast_all_to_all_local(send_buf: torch.Tensor, send_splits: torch.Tensor,
 
 @dataclasses.dataclass
 class A2AStreamWorkspace:
-    """The persistent workspace of :func:`fast_all_to_all_stream`: a
-    symmetric byte buffer of two parity slabs, each n slots of (cap,
-    hidden) ``dtype`` rows then n splits rows of :data:`STREAM_SPLITS`
-    int32, and the shape it was made for. ``epochs[r]``: rank r's next
-    call index."""
+    """The persistent workspace of :func:`fast_all_to_all_stream` and the
+    shape it was made for. On the card ``buf`` is the push protocol's
+    signal pad (no payload: the senders write the receivers' outputs); on
+    the CPU, where the plain version meets through slots, a symmetric byte
+    buffer of two parity slabs, each n slots of (cap, hidden) ``dtype``
+    rows then n splits rows of :data:`STREAM_SPLITS` int32.
+    ``epochs[r]``: rank r's next call index."""
 
     buf: SymmBuffer
     n: int
@@ -194,7 +203,8 @@ class A2AStreamWorkspace:
                 + self.n * STREAM_SPLITS * 4)
 
     def slots(self, rank: int, parity: int) -> torch.Tensor:
-        """Rank ``rank``'s (n, cap, hidden) slots of ``parity``."""
+        """Rank ``rank``'s (n, cap, hidden) slots of ``parity`` (the CPU
+        workspace)."""
         item = torch.empty((), dtype=self.dtype).element_size()
         nb = self.n * self.cap * self.hidden * item
         t = self.buf.tensors[rank][parity * self.slab_bytes():][:nb]
@@ -213,12 +223,23 @@ def a2a_stream_workspace(n: int, cap: int, hidden: int, dtype, *,
     ctx = ctx or get_context()
     if ctx.num_ranks != n:
         raise ValueError(f"n = {n} but the rank group has {ctx.num_ranks}")
-    item = torch.empty((), dtype=dtype).element_size()
-    slab = n * cap * hidden * item + n * STREAM_SPLITS * 4
-    buf = symm_zeros(ctx, (2 * slab,), torch.uint8,
-                     tag=f"{tag}-{n}x{cap}x{hidden}-{dtype}")
+    key = f"{tag}-{n}x{cap}x{hidden}-{dtype}"
+    if ctx.is_cuda:
+        buf = symm_pad(ctx, tag=key)
+    else:
+        item = torch.empty((), dtype=dtype).element_size()
+        slab = n * cap * hidden * item + n * STREAM_SPLITS * 4
+        buf = symm_zeros(ctx, (2 * slab,), torch.uint8, tag=key)
     ws = A2AStreamWorkspace(buf, n, cap, hidden, dtype)
     return ws, ws.epochs[0]
+
+
+def a2a_push_schedule(n: int) -> list:
+    """The stream kernel's writes, a sender each: (receiver, slot) pairs in
+    the order the sender's blocks write them — its own slot first, then
+    receivers me+1 ... me-1, each at slot ``me`` of the receiver's output
+    and row ``me`` of its splits."""
+    return [[((me + i) % n, me) for i in range(n)] for me in range(n)]
 
 
 def fast_all_to_all_stream(send_buf: torch.Tensor, send_splits: torch.Tensor,
@@ -226,15 +247,18 @@ def fast_all_to_all_stream(send_buf: torch.Tensor, send_splits: torch.Tensor,
                            axis: str = "tp", num_ranks: int | None = None,
                            block_rows: int | None = None,
                            straggler: tuple | None = None,
-                           force_kernel: bool = False):
+                           force_kernel: bool = False,
+                           out: torch.Tensor | None = None,
+                           out_splits: torch.Tensor | None = None):
     """Barrier-free steady-state AllToAll (the EP decode path; kernel
     ``tdt_a2a_parity``): the contract of :func:`fast_all_to_all_local`
     plus the threaded (ws, call_index) pair of :func:`a2a_stream_workspace`.
-    Returns (recv_buf, recv_splits, ws, call_index + 1). Call t uses the
-    parity slab ``t % 2``; a call index out of sequence raises (a second
-    stream of calls needs its own workspace tag). ``straggler``: hold a
-    rank back (``chip_smoke``'s stress). ``force_kernel`` runs the kernel
-    at n = 1 too."""
+    Returns (recv_buf, recv_splits, ws, call_index + 1). A call index out
+    of sequence raises (a second stream of calls needs its own workspace
+    tag). ``straggler``: hold a rank back (``chip_smoke``'s stress).
+    ``force_kernel`` runs the kernel at n = 1 too. ``out`` /
+    ``out_splits``: the outputs to write (a harness's sentinels), else
+    fresh ones."""
     ctx, rank, n = rank_of(axis, num_ranks)
     send_splits = send_splits.to(torch.int32)
     if n == 1 and not force_kernel:
@@ -257,26 +281,43 @@ def fast_all_to_all_stream(send_buf: torch.Tensor, send_splits: torch.Tensor,
             f"{rank}, but this workspace's next call is {ws.epochs[rank]} — "
             "a (ws, call_index) pair must stay persistent and in sequence "
             "(a second stream of calls needs its own workspace tag)")
-    ws.epochs[rank] = call_index + 1
+    if out is not None:
+        out = check_out(ctx, rank, out, send_buf.shape, send_buf.dtype,
+                        "all_to_all_stream")
+    if out_splits is not None:
+        out_splits = check_out(ctx, rank, out_splits, send_splits.shape,
+                               torch.int32, "all_to_all_stream")
     straggle(straggler, n, rank, call_index)
     if send_buf.device.type == "cuda":
         x = check_payload(ctx, rank, send_buf, "all_to_all_stream",
                           copy=True, dims=3)
         spl = send_splits.contiguous()
-        out = torch.empty_like(x)
-        out_splits = torch.empty_like(spl)
-        launch_a2a(A2A_PARITY_KERNEL, ws.buf, rank, call_index, x, spl, out,
-                   out_splits, block=block, spl_stride=STREAM_SPLITS)
+        out = torch.empty_like(x) if out is None else out
+        out_splits = torch.empty_like(spl) if out_splits is None \
+            else out_splits
+        # The pad's next epoch is call_index + 1: the kernel's flags.
+        launch_push(A2A_PARITY_KERNEL, ws.buf, rank, x, out,
+                    hidden * x.element_size(), ptr(spl), ptr(out_splits),
+                    cap, block, spl.shape[1],
+                    grid_bytes=x.numel() * x.element_size(),
+                    block_bytes=A2A_BLOCK_BYTES, layout=A2A_LAYOUT)
         return out, out_splits, ws, call_index + 1
     if send_buf.device.type != "cpu":
         raise ValueError(f"all_to_all_stream: no kernel for device "
                          f"{send_buf.device}")
     A2A_PARITY_KERNEL.count_plain()
+    ws.epochs[rank] = call_index + 1
     p = call_index % 2
     slots = [ws.slots(r, p) for r in range(n)]
-    out, recv_splits = _plain_local(ctx, rank, n, send_buf, send_splits,
-                                    block, slots, "a2a_stream.data")
-    return out, recv_splits, ws, call_index + 1
+    recv, recv_splits = _plain_local(ctx, rank, n, send_buf, send_splits,
+                                     block, slots, "a2a_stream.data")
+    if out is not None:
+        out.copy_(recv)
+        recv = out
+    if out_splits is not None:
+        out_splits.copy_(recv_splits)
+        recv_splits = out_splits
+    return recv, recv_splits, ws, call_index + 1
 
 
 def fast_all_to_all(send_buf, send_splits, ctx: DistContext | None = None,

@@ -2,14 +2,16 @@
 package's ``ops/reduce_scatter.py``: kernel B6 (``_rs_ring_kernel``) as
 hand-written CUDA in ``csrc/collectives.cu`` (``rs_ring``).
 
-The ring: chunk c starts at rank c+1, gains one rank's contribution a
-hop, and lands summed at its owner after n-1 hops. Each hop's partial
-lands in its own slot of the receiver's symmetric comm workspace (n-1
-slots), so a fast upstream rank never overwrites a slot not yet read; a
-block-scope barrier at entry protects the workspace across calls. The
-partials travel and are added in the payload type — one rounding a hop,
-in the chunk order above — and the plain version adds in that order, so
-it is the kernel's yardstick bit for bit.
+What it computes is the ring's: chunk c is summed in the order x_{c+1} +
+x_{c+2} + ... + x_c (:func:`ring_order`), each add in the payload type —
+one rounding a hop — and the plain version adds in that order, so it is
+the kernel's yardstick bit for bit. How the kernel gets there is one hop
+on the push protocol (``csrc/push.cuh``) with the roles mirrored: each
+rank publishes its input's address to every peer, owner c reads share b
+of chunk c straight from every source's input and sums it in that order
+into its fresh output, then releases the source; a source's kernel ends
+only once every owner released it. Only a signal pad is kept (tag
+``"rs_ring"``): no entry barrier, no relay workspace, no dependent hops.
 """
 
 from __future__ import annotations
@@ -17,12 +19,20 @@ from __future__ import annotations
 import torch
 
 from triton_distributed_tpu_torch.ops._comm import (
-    DTYPE_CODE, RS_RING_KERNEL, check_payload, launch, push_slots, rank_of,
+    DTYPE_CODE, RS_RING_KERNEL, check_payload, launch_push, push_slots,
+    rank_of,
 )
 from triton_distributed_tpu_torch.runtime.context import (
     DistContext, get_context,
 )
-from triton_distributed_tpu_torch.runtime.symm import symm_zeros
+from triton_distributed_tpu_torch.runtime.symm import symm_pad, symm_zeros
+
+
+def ring_order(n: int, owner: int) -> list:
+    """The sources of chunk ``owner`` in the order the ring adds them: rank
+    owner+1 first (where the chunk starts), the owner's own last. The
+    kernel reads each source's chunk once, in this order."""
+    return [(owner + k) % n for k in range(1, n + 1)]
 
 
 def rs_ring_plain(xs, rank: int) -> torch.Tensor:
@@ -32,13 +42,10 @@ def rs_ring_plain(xs, rank: int) -> torch.Tensor:
     type."""
     n = len(xs)
     m = xs[0].shape[0] // n
-
-    def chunk(j):
-        return xs[j % n][rank * m:(rank + 1) * m]
-
-    acc = chunk(rank + 1)
-    for k in range(2, n + 1):
-        acc = acc + chunk(rank + k)
+    first, *rest = ring_order(n, rank)
+    acc = xs[first][rank * m:(rank + 1) * m]
+    for j in rest:
+        acc = acc + xs[j][rank * m:(rank + 1) * m]
     return acc
 
 
@@ -47,11 +54,11 @@ def _rs_ring(x: torch.Tensor, n: int, ctx: DistContext, rank: int
     mt, cols = x.shape
     m = mt // n
     if x.device.type == "cuda":
-        buf = symm_zeros(ctx, (n - 1, m, cols), x.dtype, tag="rs_ring")
         x = check_payload(ctx, rank, x, "reduce_scatter")
         out = torch.empty((m, cols), dtype=x.dtype, device=x.device)
-        launch(RS_RING_KERNEL, buf, rank, buf.next_epoch(rank), x, out,
-               m * cols * x.element_size(), DTYPE_CODE[x.dtype])
+        launch_push(RS_RING_KERNEL, symm_pad(ctx, tag="rs_ring"), rank, x,
+                    out, m * cols * x.element_size(), DTYPE_CODE[x.dtype],
+                    grid_bytes=mt * cols * x.element_size())
         return out
     if x.device.type != "cpu":
         raise ValueError(f"reduce_scatter: no kernel for device {x.device}")
