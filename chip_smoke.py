@@ -122,14 +122,19 @@ printing one JSON line:
    100 columns, B10 with a B one element off 16 bytes); the tree at 1, 7
    and 203 rows at n = 2, 3, 4, 8 into 0xFF-filled outputs, a held-back
    rank 0 and rank n - 1, 200 calls without a sync (the tree on the push
-   protocol); 200 back-to-back B11 calls with a rotating straggler; a
-   lost peer's ``CommTimeoutError`` for B9 and B11. ``tp_engine`` —
+   protocol); B11 on its split-K route (bf16, every n: 1, 2, 5 and 16
+   rows, K 1024 / 3072 / 1000, 4096 / 512 / 1000 columns, every slot NaN
+   before each call, a held-back rank at n = 4; 17 rows and a B one
+   element off 16 bytes as the short-tile controls); 200 back-to-back
+   B11 calls with a rotating straggler, every one on split-K; a lost
+   peer's ``CommTimeoutError`` for B9 and B11. ``tp_engine`` —
    Qwen3-8B, bf16, ``Engine(cfg, params, ctx of 4 ranks,
    max_seq=2048).serve`` with the reference's defaults: a 2 x 1024
    prompt for 12 tokens (prefill "overlap": B9 180 and B10 72 launches a
    rank, every one on the wgmma route;
    linear decode: 72 parity ARs a rank a step), again under
-   ``TDTPU_GEMM_AR=1`` (72 B11 a step), then a 1 x 203 prompt whose "ar"
+   ``TDTPU_GEMM_AR=1`` (72 B11 a step, every one on split-K), then a
+   1 x 203 prompt whose "ar"
    prefill reduces through the tree (72 a rank); TP=1's serve in the same
    call. ``tp_engine_parity`` — float32, 2 layers: TP=4 ``Engine.serve``
    tokens identical to TP=1's with the defaults, ``TDTPU_GEMM_AR=1``, the
@@ -160,7 +165,9 @@ printing one JSON line:
 
 13. sequence and pipeline parallelism: ``collectives_sp_pp`` — B4's
    barrier-free parity AllGather (``ag_parity`` in
-   ``csrc/collectives.cu``) in fp32, bf16 and e4m3 at 1-2048 rows, and
+   ``csrc/collectives.cu``, on the push protocol) in fp32, bf16 and e4m3
+   at 1-2048 rows into 0xFF-filled outputs, with held-back ranks 0 and
+   n - 1 and at one rank under ``force_kernel``, and
    B7's ring shift and permutation (``csrc/p2p.cu``) — shifts of +1, -1
    and 2, a partial permutation with a multicast, a butterfly, a full
    ring (which takes the shift kernel), one rank under ``force_kernel``
@@ -4093,8 +4100,21 @@ FUSED_EDGE = {
                 ("m80_k512_n384_sub4", 320, 512, 384, 4)),
     "gemm_rs": (("m800_k1032_n1000", 800, 1032, 1000),
                 ("m768_k512_n384", 768, 512, 384))}
-# The held-back rank of the wgmma cases: rank n - 1's stream is held this
-# long before its launch.
+# B11 on its split-K route (bf16, every n): 1, 2, 5 and 16 rows; K of
+# 1024 and 3072 (wo, w_down) and 1000; 4096, 512 and 1000 columns (the
+# last one chunk of 1000: a strip cut at 40 columns). The controls: 17
+# rows and a B one element off 16 bytes ("offset_b") stay on the short
+# mma.sync tile, as fp32 does.
+FUSED_AR_EDGE = (("m1_k1024_n4096", 1, 1024, 4096),
+                 ("m2_k3072_n512", 2, 3072, 512),
+                 ("m5_k1000_n1000", 5, 1000, 1000),
+                 ("m16_k3072_n4096", 16, 3072, 4096),
+                 ("m16_k1000_n512", 16, 1000, 512),
+                 ("m1_k3072_n1000", 1, 3072, 1000))
+FUSED_AR_CONTROLS = (("m17_k1024_n512", 17, 1024, 512),
+                     ("offset_b_m2_k256_n512", 2, 256, 512))
+# The held-back rank of the wgmma and split-K cases: rank n - 1's stream
+# is held this long before its launch.
 FUSED_HOLD_NS = 300_000
 TREE_ROWS = (1, 7, 203)          # one tree, odd halves, the main path's
 TREE_MAIN_ROWS = 203             # a 1 x 203 prompt's "ar" prefill
@@ -4135,7 +4155,8 @@ def _nan_fill(torch, buf) -> None:
     flag, or past a tail, then shows as NaN)."""
     for t in buf.tensors:
         t.fill_(float("nan"))
-    torch.cuda.synchronize()
+    for d in dict.fromkeys(t.device for t in buf.tensors):
+        torch.cuda.synchronize(d)
 
 
 def _offset_view(torch, b):
@@ -4153,9 +4174,10 @@ def fused_case(torch, timer, ctx, op, dtype, shape, seed, time_it,
     version: the communication bit for bit (B9's gathered A; B10's and
     B11's reductions of the kernel's own slots), the GEMM at B3's
     tolerance (B9's output rows; B10's and B11's partials in the slots),
-    the replicas bit for bit (B11). B9's landing workspace and B10's slots
-    are NaN before the checked call, and no output may hold a NaN; the
-    route each launch took is recorded (``routes``). ``shape``: (name,
+    the replicas bit for bit (B11). B9's landing workspace, B10's slots
+    and B11's (before each of its calls) are NaN before the checked call,
+    and no output may hold a NaN; the route each launch took is recorded
+    (``routes``). ``shape``: (name,
     rows a rank, K, N[, B9's sub-blocks]); ``hold_ns``: rank n - 1's
     stream held that long before the checked call."""
     agm, grs, gar, symm = fused_modules()
@@ -4261,10 +4283,14 @@ def fused_case(torch, timer, ctx, op, dtype, shape, seed, time_it,
         out_err = 0.0
         for _ in range(GEMM_AR_CALLS):
             p = idx[0] % 2
+            # Every slot NaN before the call: a strip reduced before its
+            # flag, or a slot row left unwritten, shows in the output.
+            _nan_fill(torch, ws)
 
             def call(r):
                 out, _, idx[r] = gar.gemm_ar_stream(xs[r], bs[r], ws, idx[r],
-                                                    num_ranks=n)
+                                                    num_ranks=n,
+                                                    straggler=hold)
                 return out
 
             outs = [o.to(X.device) for o in ctx.run(call)]
@@ -4301,9 +4327,14 @@ def fused_case(torch, timer, ctx, op, dtype, shape, seed, time_it,
                    "ranks (no all-reduce)")
     share = max(s for _, s in errs)
     aligned = agm.aligned_rows(bs[0])
-    tile = (agm.gemm_tile_for(m // sub, dtype, aligned) if op == "ag_gemm"
-            else agm.gemm_tile_for(m // n, dtype, aligned)
-            if op == "gemm_rs" else agm.gemm_tile_for(m))
+    if op == "ag_gemm":
+        tile = agm.gemm_tile_for(m // sub, dtype, aligned)
+    elif op == "gemm_rs":
+        tile = agm.gemm_tile_for(m // n, dtype, aligned)
+    else:
+        nc = ncols // nch
+        tile = gar.gemm_ar_route(m, k, nc, dtype, aligned
+                                 and agm.aligned_rows(bs[0], nc))
     rec["route"] = comm.GEMM_ROUTES[tile]
     routes = _fused_routes(comm, op)
     rec["routes"] = {r: c - routes0.get(r, 0) for r, c in routes.items()
@@ -4340,6 +4371,8 @@ def gemm_ar_stress(torch, ctx, dtype, calls: int) -> dict:
     ws, _ = gar.gemm_ar_stream_workspace(n, 2, ncols, dtype, ctx=ctx,
                                          tag="stress")
     nch = ws.tensors[0].shape[1]
+    comm = coll_modules()[0]
+    routes0 = dict(comm.GEMM_AR_KERNEL.variant_launches)
 
     def loop(r):
         idx, outs, slabs = ws.epochs[r], [], []
@@ -4367,9 +4400,13 @@ def gemm_ar_stress(torch, ctx, dtype, calls: int) -> dict:
                     and torch.equal(red, got[r][0][t])):
                 bad.append(t)
                 break
+    routes = {r: c - routes0.get(r, 0) for r, c in
+              comm.GEMM_AR_KERNEL.variant_launches.items()
+              if c != routes0.get(r, 0)}
     return {"calls": calls, "n": n, "shape": [2, k, ncols],
             "dtype": _dtype_name(dtype), "straggler": "rotate, 50 us, "
-            "every third call", "calls_wrong": bad, "ok": not bad}
+            "every third call", "routes": routes, "calls_wrong": bad,
+            "ok": not bad and routes == {"splitk": n * calls}}
 
 
 def fused_timeouts(torch, devices) -> dict:
@@ -4432,13 +4469,16 @@ def phase_fused(torch, timer, *, devices_for=virtual_devices,
     mma.sync tile run for B9 and B10 (the "_tall" controls); the tree AR
     at 1, 7 and 203 rows into 0xFF-filled outputs, at n = 3 too, with a
     held-back rank and 200 calls without a sync (``tree_edge_cases``; its
-    4-2048-row cases run with the other collectives); 200 back-to-back B11
-    calls with a rotating straggler; a lost peer's CommTimeoutError for B9
-    and B11."""
+    4-2048-row cases run with the other collectives); B11 on its split-K
+    route at its edges (``FUSED_AR_EDGE``, bf16, every n; a held-back rank
+    at n = 4) beside the short-tile controls (``FUSED_AR_CONTROLS``, fp32);
+    200 back-to-back B11 calls with a rotating straggler; a lost peer's
+    CommTimeoutError for B9 and B11."""
     context = coll_modules()[4]
     bf16, f32 = torch.bfloat16, torch.float32
     cases: dict = {}
     wgmma_routes: list = []      # (case, routes) of B9 / B10's wgmma cases
+    splitk_routes: list = []     # (case, routes, split-K expected) of B11
     bf16_tall: set = set()       # B9 / B10 launched bf16 on the tall tile
     seed = 500
     for n in ranks:
@@ -4447,12 +4487,14 @@ def phase_fused(torch, timer, *, devices_for=virtual_devices,
         for dtype in (f32, bf16):
             for op in ("ag_gemm", "gemm_rs", "gemm_ar"):
                 shapes = [(sh, 0) for sh in FUSED_SMALL[op]]
+                edge = FUSED_EDGE.get(op, FUSED_AR_EDGE)
                 if dtype == bf16:
-                    shapes += [(sh, 0) for sh in FUSED_EDGE.get(op, ())]
+                    shapes += [(sh, 0) for sh in edge]
+                    if op == "gemm_ar":
+                        shapes += [(sh, 0) for sh in FUSED_AR_CONTROLS]
                 if n == TP and dtype == bf16:
                     shapes += [(sh, 0) for sh in FUSED_MAIN[op]]
-                    shapes += [(sh, FUSED_HOLD_NS)
-                               for sh in FUSED_EDGE.get(op, ())[:1]]
+                    shapes += [(sh, FUSED_HOLD_NS) for sh in edge[:1]]
                 for shape, hold in shapes:
                     seed += 1
                     timed = n == TP and dtype == bf16 and \
@@ -4470,6 +4512,10 @@ def phase_fused(torch, timer, *, devices_for=virtual_devices,
                     if op != "gemm_ar" and (shape in FUSED_MAIN[op]
                                             or shape in FUSED_EDGE[op]):
                         wgmma_routes.append((rec["case"], rec["routes"]))
+                    if op == "gemm_ar" and dtype == bf16:
+                        splitk_routes.append((
+                            rec["case"], rec["routes"],
+                            shape not in FUSED_AR_CONTROLS))
                     if op != "gemm_ar" and dtype == bf16 and \
                             set(rec["routes"]) == {"mma_tall"}:
                         bf16_tall.add(op)
@@ -4494,6 +4540,11 @@ def phase_fused(torch, timer, *, devices_for=virtual_devices,
           f"{name}: the wgmma route was not launched at {off}")
     check(bf16_tall == {"ag_gemm", "gemm_rs"},
           f"{name}: bf16 on the tall mma.sync tile ran only for {bf16_tall}")
+    off = [c for c, routes, want in splitk_routes
+           if (set(routes) == {"splitk"}) != want]
+    check(splitk_routes and not off,
+          f"{name}: B11's bf16 cases off their route (split-K at <= 16 "
+          f"aligned rows, the short tile for the controls): {off}")
     check(stress["ok"], f"{name}: B11 stress wrong at calls "
           f"{stress['calls_wrong']}")
     check(tmo["ok"], f"{name}: a lost peer did not raise CommTimeoutError")
@@ -4541,7 +4592,8 @@ def tp_engine_run(torch, eng, kernels, ids, gen, *, name, expect,
     c = dict(_tp_counts(comm), flash_attention=kernels[0].launches,
              paged_attention=kernels[1].launches)
     routes = {"ag_gemm": dict(comm.AG_GEMM_KERNEL.variant_launches),
-              "gemm_rs": dict(comm.GEMM_RS_KERNEL.variant_launches)}
+              "gemm_rs": dict(comm.GEMM_RS_KERNEL.variant_launches),
+              "gemm_ar": dict(comm.GEMM_AR_KERNEL.variant_launches)}
     steps = gen - 1
     want = {k: 0 for k in c}
     want["flash_attention"] = n * L
@@ -4632,6 +4684,10 @@ def phase_tp_engine(torch, params, cfg, Engine, kernels) -> dict:
             name="tp_engine_gemm_ar",
             expect={"ag_gemm": (5 * L, 0), "gemm_rs": (2 * L, 0),
                     "gemm_ar": (0, 2 * L)})
+        check(fused["fused_routes"]["gemm_ar"] ==
+              {"splitk": fused["launches"]["gemm_ar"]},
+              f"tp_engine: B11 left the split-K route: "
+              f"{fused['fused_routes']['gemm_ar']}")
         fused["decode_profile"] = tp_profile(torch, eng, ids,
                                              steps=TP_PROFILE_STEPS)
         rec["gemm_ar"] = fused
@@ -6595,11 +6651,17 @@ def _rand(torch, shape, dtype, seed):
 
 
 def agp_case(torch, timer, ctx, dtype, rows: int, cols: int, seed: int,
-             time_it: bool) -> dict:
+             time_it: bool, hold=None) -> dict:
     """B4's parity AllGather on every rank of ``ctx``, two calls over one
-    workspace (both parities, new data each), against ``ag_plain`` bit for
-    bit on every rank."""
-    _, ag, _, _ = sppp_modules()
+    workspace (both parities, new data each) into outputs filled with 0xFF
+    bytes (NaN in every payload type) through ``out=``, against
+    ``ag_plain`` bit for bit on every rank, each output the one handed
+    in, one launch a rank a call. ``hold``: (rank, ns) spun on that rank's
+    stream before each call — a late receiver (its senders wait for its
+    address) and a late sender."""
+    comm, ag, _, _ = sppp_modules()
+    from triton_distributed_tpu_torch.runtime.build import current_stream
+
     n = ctx.num_ranks
     X = [_rand(torch, (n, rows, cols), dtype, seed + t) for t in range(2)]
     ws, _ = ag.ag_stream_workspace(n, rows, cols, dtype, ctx=ctx,
@@ -6607,26 +6669,40 @@ def agp_case(torch, timer, ctx, dtype, rows: int, cols: int, seed: int,
     idx = list(ws.epochs)
     xs = [[X[t][r].to(ctx.devices[r]) for r in range(n)] for t in range(2)]
     cur = [0]
+    outs = [None] * n
 
     def fn(r):
+        if hold is not None and r == hold[0]:
+            comm.SPIN.launch(hold[1], current_stream(ctx.devices[r]))
         out, _, idx[r] = ag.all_gather_stream(xs[cur[0]][r], ws, idx[r],
-                                              num_ranks=n)
+                                              num_ranks=n, out=outs[r])
         return out
 
-    same = True
+    same, k0 = True, comm.AG_PARITY_KERNEL.launches
     for t in range(2):
         cur[0] = t
+        outs[:] = [torch.empty((n * rows, cols), dtype=dtype, device=d)
+                   for d in ctx.devices]
+        for o in outs:
+            o.view(torch.uint8).fill_(0xFF)
         got = ctx.run(fn)
         torch.cuda.synchronize()
         ctx.raise_on_comm_error()
         want = ag.ag_plain(list(X[t]))
-        same = same and all(torch.equal(_bits(torch, o.to(want.device)),
-                                        _bits(torch, want)) for o in got)
-    rec = {"case": f"ag_parity_n{n}_{_dtype_name(dtype)}_{rows}x{cols}",
+        same = same and all(
+            o is outs[r] and torch.equal(_bits(torch, o.to(want.device)),
+                                         _bits(torch, want))
+            for r, o in enumerate(got))
+    launched = comm.AG_PARITY_KERNEL.launches - k0
+    what = f"_held{hold[0]}" if hold else ""
+    rec = {"case": f"ag_parity{what}_n{n}_{_dtype_name(dtype)}_{rows}x{cols}",
            "n": n, "dtype": _dtype_name(dtype), "rows": rows, "cols": cols,
-           "calls": 2, "max_abs_err": 0.0 if same else float("nan"),
-           "bit_identical": same, "ok": same}
+           "calls": 2, "out_sentinel": "0xFF",
+           "hold": list(hold) if hold else None, "launches": launched,
+           "max_abs_err": 0.0 if same else float("nan"),
+           "bit_identical": same, "ok": same and launched == 2 * n}
     if time_it:
+        outs[:] = [None] * n
         B = rows * cols * X[0].element_size()
         rec["bound_ms"], rec["bound_by"] = _bound_ms(n * (B + n * B), 0,
                                                      "float32")
@@ -6787,7 +6863,8 @@ def phase_collectives_sp_pp(torch, timer, *, devices_for=virtual_devices,
                             name="collectives_sp_pp") -> dict:
     """B4's parity AllGather and B7's two kernels at n = 2, 4 and 8 against
     their plain versions, bit for bit on every rank: the AllGather in
-    fp32, bf16 and e4m3 at 1-2048 rows (and the SP decode's 128 x 130 fp32
+    fp32, bf16 and e4m3 at 1-2048 rows into 0xFF-filled outputs, with
+    rank 0 and rank n - 1 held back (and the SP decode's 128 x 130 fp32
     payload at n = 4, timed); the shift by +1 and -1 (and 2 at n = 4), a
     partial permutation with a multicast, a butterfly and a full ring
     (which must take the shift kernel) in fp32 and bf16; both kernels at
@@ -6808,6 +6885,11 @@ def phase_collectives_sp_pp(torch, timer, *, devices_for=virtual_devices,
                 seed += 1
                 cases["ag_parity"].append(agp_case(
                     torch, timer, ctx, dtype, rows, AGP_COLS, seed, False))
+        for held in (0, n - 1):
+            seed += 1
+            cases["ag_parity"].append(agp_case(
+                torch, timer, ctx, torch.bfloat16, 64, AGP_COLS, seed, False,
+                hold=(held, PUSH_HOLD_NS)))
         if n == SP_N:
             seed += 1
             cases["ag_parity"].append(agp_case(
@@ -6861,6 +6943,7 @@ def phase_collectives_sp_pp(torch, timer, *, devices_for=virtual_devices,
         cases["p2p_permute"].append(p2p_case(
             torch, timer, ctx, "force_kernel_permute", dtype, P2P_ROWS,
             P2P_COLS, seed, perm=[(0, 0)], force=True))
+    for dtype in (torch.float32, torch.bfloat16, torch.float8_e4m3fn):
         seed += 1
         cases["ag_parity"].append(agp_force_one(torch, ctx, dtype, seed))
     for rec in push_edge_cases(torch, ctx, ("p2p_shift", "p2p_permute"),
@@ -6888,7 +6971,7 @@ def phase_collectives_sp_pp(torch, timer, *, devices_for=virtual_devices,
 def agp_force_one(torch, ctx, dtype, seed: int) -> dict:
     """The parity AllGather at one rank: without ``force_kernel`` its
     input back and no launch; with it, three calls (both parities) each
-    one launch, bit for bit."""
+    one launch into a 0xFF-filled ``out=``, bit for bit (the loopback)."""
     comm, ag, _, _ = sppp_modules()
     x = _rand(torch, (16, AGP_COLS), dtype, seed)
     ws, idx = ag.ag_stream_workspace(1, 16, AGP_COLS, dtype, ctx=ctx,
@@ -6898,15 +6981,19 @@ def agp_force_one(torch, ctx, dtype, seed: int) -> dict:
                                                   num_ranks=1)[0])[0] is x
     untouched = comm.AG_PARITY_KERNEL.launches == before
     for _ in range(3):
+        o = torch.empty_like(x)
+        o.view(torch.uint8).fill_(0xFF)
         out, _, idx = ctx.run(lambda r: ag.all_gather_stream(
-            x, ws, idx, num_ranks=1, force_kernel=True))[0]
+            x, ws, idx, num_ranks=1, force_kernel=True, out=o))[0]
         torch.cuda.synchronize()
         ctx.raise_on_comm_error()
-        same = same and torch.equal(_bits(torch, out), _bits(torch, x))
+        same = (same and out is o
+                and torch.equal(_bits(torch, out), _bits(torch, x)))
     launched = comm.AG_PARITY_KERNEL.launches - before
     ok = same and untouched and launched == 3 and idx == 3
     return {"case": f"ag_parity_force_kernel_n1_{_dtype_name(dtype)}",
             "n": 1, "dtype": _dtype_name(dtype), "launches": launched,
+            "out_sentinel": "0xFF",
             "max_abs_err": 0.0 if same else float("nan"),
             "bit_identical": same, "ok": ok}
 

@@ -6,6 +6,7 @@ through ``all_gather_local`` / ``all_reduce_local`` over both axes), B5's
 double tree (``ops/allreduce.py`` ``method="tree"``), B6's ring
 reduce-scatter (``ops/reduce_scatter.py`` ``reduce_scatter_local``) and
 B8's parity AllToAll (``ops/all_to_all.py`` ``fast_all_to_all_stream``)
+and B4's parity AllGather (``ops/allgather.py`` ``all_gather_stream``)
 of one tree at the main path's shapes on one CUDA card, each beside the
 PyTorch call that computes the same outputs.
 
@@ -18,8 +19,10 @@ the AllReduce of 16 x 4096; the tree at n = 4, 203 x 4096 (a 1 x 203
 prompt's "ar" prefill); B6 at n = 4, 256 x 4096 a rank into 64-row chunks
 (the two-shot AllReduce's first half on a 256-row prefill slice); B8's
 parity stream at n = 4, cap 32 x 2048 a slot, the splits of 4 tokens a
-rank routed top-8 over 128 experts (the EP decode's dispatch).
-Each case is first checked bit for bit against the tree's plain version on
+rank routed top-8 over 128 experts (the EP decode's dispatch); B4's
+parity stream at n = 4, 128 x 130 fp32 a rank (the SP decode's attention
+partials at Qwen3-8B's 32 q heads, d 128, B = 4), over one persistent
+workspace. Each case is first checked bit for bit against the tree's plain version on
 every rank, then timed: every rank's stream is held while the rank threads
 enqueue CALLS calls (by the tree's ``HOLD`` kernel polling one page-locked
 host word, released at one instant; a tree without it holds with its
@@ -32,7 +35,7 @@ not flushed: the calls follow each other, as on the main path. The
 library call is timed both ways in the same run (its one stream held by
 ``SPIN``): for the push ``torch.cat`` of the n chunks once a rank (n
 calls), for B7 one ``Y.copy_(X)`` of every rank's block, for the torus
-AllGather ``torch.cat`` once a rank, for the AllReduces ``X.sum(0)`` once
+AllGather and the parity stream ``torch.cat`` once a rank, for the AllReduces ``X.sum(0)`` once
 a rank, for B6 one ``X.sum(0)`` (it makes every rank's chunk), for B8
 ``S.transpose(0, 1).contiguous()`` of the slot matrix. The bound: the
 bytes every rank must move (each source read once, each output written
@@ -87,7 +90,8 @@ CASES = [("ag_full_mesh_n2", "push", 2, 1024, 2048),
          ("ar_torus_2x4", "ar_torus", 8, 16, 4096),
          ("ar_tree_n4", "tree", 4, 203, 4096),
          ("rs_ring_n4", "rs", 4, 256, 4096),
-         ("a2a_parity_n4", "a2a", 4, 32, 2048)]
+         ("a2a_parity_n4", "a2a", 4, 32, 2048),
+         ("ag_parity_n4", "agp", 4, 128, 130)]
 GRID_2D = (2, 4)
 TREE_PROMPT = 203
 SLICE = 256                  # the TP serving loop's prefill chunk
@@ -339,6 +343,52 @@ def a2a_copy_case(torch, mods, name, n, cap, h, seed) -> dict:
             "library_call": "S.transpose(0, 1).contiguous() of the slot "
                             "matrix (every row)", "bytes": nbytes,
             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+
+
+def agp_copy_case(torch, mods, name, n, rows, cols, seed) -> dict:
+    """B4's parity stream at its main shape (fp32): every rank's gather
+    checked bit for bit against ``ag_plain``, then timed over one
+    persistent workspace beside n x ``torch.cat``."""
+    ag, comm, build, context = mods[0], mods[2], mods[3], mods[4]
+    ctx = context.DistContext([torch.device("cuda:0")] * n,
+                              wait_timeout_ms=20_000)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    X = torch.randn((n, rows, cols), generator=g, device="cuda") * 4
+    xs = list(X)
+    ws, _ = ag.ag_stream_workspace(n, rows, cols, X.dtype, ctx=ctx,
+                                   tag=f"time-{name}")
+    idx = list(ws.epochs)
+
+    def fn(r):
+        out, _, idx[r] = ag.all_gather_stream(xs[r], ws, idx[r],
+                                              num_ranks=n)
+        return out
+
+    got = ctx.run(fn)
+    torch.cuda.synchronize()
+    ctx.raise_on_comm_error()
+    want = ag.ag_plain(xs)
+    same = all(torch.equal(o.view(torch.int32), want.view(torch.int32))
+               for o in got)
+    sha = sorted({hashlib.sha256(o.view(torch.uint8).cpu().numpy()
+                                 .tobytes()).hexdigest()[:16] for o in got})
+    B = rows * cols * X.element_size()
+    nbytes = n * (B + n * B)
+    ms, hold = spaced_ms(torch, ctx, comm, build, fn)
+    span, _ = spaced_ms(torch, ctx, comm, build, fn, every=False)
+    ctx.close()
+
+    def lib():
+        for _ in range(n):
+            torch.cat(xs)
+    return {"case": name, "ranks": n, "rows": rows, "cols": cols,
+            "dtype": "float32", "bit_identical": same, "ok": same,
+            "sha256_16": sha, "ms": ms, "span_ms": span, "hold": hold,
+            "library_ms": library_ms(torch, comm, build, lib),
+            "library_span_ms": library_ms(torch, comm, build, lib,
+                                          every=False),
+            "library_call": f"{n} x torch.cat of the {n} chunks",
+            "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
 
 
 def floor_case(torch, mods, n: int) -> dict:
@@ -624,6 +674,8 @@ def main() -> int:
             continue
         if kind == "a2a":
             rec = a2a_copy_case(torch, mods, name, n, rows, cols, 950 + i)
+        elif kind == "agp":
+            rec = agp_copy_case(torch, mods, name, n, rows, cols, 950 + i)
         else:
             rec = copy_case(torch, mods, name, kind, n, rows, cols, 950 + i)
         rec["tree"] = label

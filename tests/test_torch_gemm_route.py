@@ -1,13 +1,15 @@
 """The fused kernels' route (B9 AG+GEMM, B10 GEMM+RS, B11 GEMM+AR) and the
 edge shapes of the wgmma route, against the JAX package.
 
-- The route picker (``ops/allgather_gemm.gemm_tile_for``) over every shape
-  of ``chip_smoke.FUSED_MAIN``, ``FUSED_SMALL`` and ``FUSED_EDGE`` in fp32
+- The route pickers (``ops/allgather_gemm.gemm_tile_for``, B11's
+  ``ops/gemm_allreduce.gemm_ar_route``) over every shape of
+  ``chip_smoke.FUSED_MAIN``, ``FUSED_SMALL`` and ``FUSED_EDGE`` in fp32
   and bf16 at n = 2, 4, 8: the main and edge bf16 shapes of B9 and B10 go
-  to the wgmma + TMA mainloop; fp32, the short tile, the unaligned B and
-  every B11 shape stay on B3's mma.sync tiles, and the "_tall" controls
-  keep bf16 on the tall one. The launch carries the
-  route's tile code and counts under its name (``_comm.GEMM_ROUTES``).
+  to the wgmma + TMA mainloop, B11's bf16 shapes to its split-K weight
+  stream; fp32, the short tile and the unaligned B stay on B3's mma.sync
+  tiles, and the "_tall" controls keep bf16 on the tall one. The launch
+  carries the route's tile code and counts under its name
+  (``_comm.GEMM_ROUTES``).
 - The edge shapes (rows of a sub-block not a multiple of 128, at sub 1, 2
   and 4; K = 1032; 1000 columns) at n = 2 and 4, through
   ``ag_gemm_local`` / ``gemm_rs_local`` on CPU rank threads (the plain
@@ -32,6 +34,7 @@ from triton_distributed_tpu.ops import gemm_reduce_scatter as jgrs
 from triton_distributed_tpu.runtime import shard_map_on
 from triton_distributed_tpu_torch.ops import _comm
 from triton_distributed_tpu_torch.ops import allgather_gemm as tagm
+from triton_distributed_tpu_torch.ops import gemm_allreduce as tgar
 from triton_distributed_tpu_torch.ops import gemm_reduce_scatter as tgrs
 from triton_distributed_tpu_torch.runtime.context import DistContext
 
@@ -69,7 +72,9 @@ def _route(op, sh, dtype, n) -> str:
     elif op == "gemm_rs":
         tile = tagm.gemm_tile_for(m // n, dtype, aligned)
     else:
-        tile = tagm.gemm_tile_for(m)
+        nc = ncols // tgar._gemm_ar_chunks(ncols, 4)
+        tile = tgar.gemm_ar_route(m, k, nc, dtype,
+                                  aligned and tagm.aligned_rows(b, nc))
     return _comm.GEMM_ROUTES[tile]
 
 
@@ -81,8 +86,10 @@ def _route(op, sh, dtype, n) -> str:
 def test_route_picker(op, kind, sh, dtype, n):
     got = _route(op, sh, DTYPES[dtype], n)
     _, m, k, ncols = sh[:4]
-    if op == "gemm_ar" or dtype == "float32":
+    if dtype == "float32":
         assert got in ("mma_tall", "mma_short")
+    elif op == "gemm_ar":
+        assert got == "splitk"
     elif kind in ("main", "edge"):
         assert got == "wgmma"
     elif sh[0] == "unaligned":          # 100 columns: 200-byte B rows
@@ -92,7 +99,7 @@ def test_route_picker(op, kind, sh, dtype, n):
     if got == "wgmma":
         assert (ncols * 2) % 16 == 0 and (k * 2) % 16 == 0
     rows = (m // n if op == "gemm_rs" else m)
-    if rows < tagm.SHORT_TILE_ROWS:
+    if rows < tagm.SHORT_TILE_ROWS and got != "splitk":
         assert got == "mma_short"
 
 
@@ -106,14 +113,16 @@ def test_route_picker_rules():
     assert tagm.gemm_tile_for(512, bf, False) == 0
     assert tagm.gemm_tile_for(512, f32, True) == 0
     assert tagm.gemm_tile_for(512) == 0
-    assert _comm.GEMM_ROUTES == ("mma_tall", "mma_short", "wgmma")
+    assert _comm.GEMM_ROUTES == ("mma_tall", "mma_short", "wgmma",
+                                 "splitk")
 
 
-@pytest.mark.parametrize("tile", [0, 1, 2])
+@pytest.mark.parametrize("tile", [0, 1, 2, 3])
 def test_launch_passes_route_and_workspace(monkeypatch, tile):
     """``launch_gemm_comm`` hands the C entry one argument per declared
-    type (the workspace base among them) and counts the launch under its
-    route's name."""
+    type (the workspace base among them, the ranks on the card and the
+    flags' scope after the route) and counts the launch under its route's
+    name."""
     seen = {}
 
     def fake_launch(kernel, buf, rank, dev, what, args, variants=()):
@@ -127,7 +136,8 @@ def test_launch_passes_route_and_workspace(monkeypatch, tile):
     ws = torch.zeros((512, 64), dtype=torch.bfloat16)
     ctx = types.SimpleNamespace(ranks_on=lambda dev: 2,
                                 error_word=lambda r: None, num_ranks=2,
-                                timeout_s=1.0)
+                                timeout_s=1.0,
+                                devices=[torch.device("cuda:0")] * 2)
     buf = types.SimpleNamespace(ctx=ctx, table=[None, None],
                                 signal_table=[None, None],
                                 tensors=[ws, ws])
@@ -139,6 +149,7 @@ def test_launch_passes_route_and_workspace(monkeypatch, tile):
     assert seen["variants"] == (_comm.GEMM_ROUTES[tile],)
     assert args[10].value == ws.data_ptr()       # the workspace base
     assert args[19] == tile
+    assert tuple(args[21:23]) == (2, 0)  # 2 ranks on the card, GPU scope
 
 
 # ---------------------------------------------------------------------------

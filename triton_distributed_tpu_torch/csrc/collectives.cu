@@ -47,12 +47,14 @@
 //                barrier; the ring's output bit for bit (a copy has no
 //                rounding). Its grid is the copy engine's (at most 1/r of
 //                the SMs), not kMaxBlocks.
-//  ag_parity     ops/allgather.py:192 _ag_parity_kernel — the full-mesh
-//                push without the barrier, over a persistent workspace of
-//                two parity slabs and per-parity flags (the SP decode
-//                loop's repeated gathers of its attention partials; the
-//                same safety argument as ar_parity, in
-//                ops/allgather.all_gather_stream).
+//  ag_parity     ops/allgather.py:192 _ag_parity_kernel — the SP decode
+//                loop's repeated gathers of its attention partials: the
+//                same push protocol and body as ag_full_mesh, over the
+//                stream's own pad (the TPU kernel's parity slabs and the
+//                copy-out gone: the output is fresh every call, the pad's
+//                epochs order its reuse — push.cuh's argument), on a grid
+//                of a block per 8 KiB of the chunk: the gather is
+//                latency-bound (65 KiB a rank at the main shape).
 //  ar_tree       ops/allreduce.py:169 _ar_tree_kernel — the double
 //                binary tree: tree 0 the heap over rank order, tree 1
 //                over reversed ranks, each owning half of the rows (rows
@@ -85,11 +87,11 @@
 // over a few blocks (at most kMaxBlocks), each of which synchronises only
 // with the same block of its peers — no grid-wide barrier, and a small
 // grid, so virtual ranks on one card never starve each other of SMs. The
-// push-protocol kernels (ag_full_mesh, ar_tree, rs_ring) size their grids
-// on the host instead, at most 1/r of the SMs; rs_ring by its input's bytes
-// (a 256-row slice's 2 MiB: 32 blocks, under the cap of 33 at 4 ranks a
-// card), each thread keeping push::kUnroll 16-byte loads of one operand in
-// flight. The tree is latency-bound at its main shape (a 203-row
+// push-protocol kernels (ag_full_mesh, ag_parity, ar_tree, rs_ring) size
+// their grids on the host instead, at most 1/r of the SMs; rs_ring by its
+// input's bytes (a 256-row slice's 2 MiB: 32 blocks, under the cap of 33
+// at 4 ranks a card), each thread keeping push::kUnroll 16-byte loads of
+// one operand in flight. The tree is latency-bound at its main shape (a 203-row
 // prefill's 1.6 MB: four dependent data hops at n = 4, two up and two
 // down, each a flag round trip): its design cuts a hop's cost — no entry
 // barrier, every byte moved once a hop (the first tree stored each
@@ -262,11 +264,12 @@ __global__ void __launch_bounds__(kThreads)
 // out to every peer; every block writes its share of x into slot `rank` of
 // every rank's output, signals each peer, and waits for the n-1 peers'
 // shares of the same block. n = 1 is the loopback (force_kernel): the
-// copy into its own slot.
+// copy into its own slot. The body of ag_full_mesh and ag_parity.
 template <bool SYS>
-__global__ void __launch_bounds__(tdt::push::kThreads)
-    ag_full_mesh_kernel(Group g, tdt::push::Layout L, const char* x,
-                        char* out, long long chunk_bytes) {
+__device__ __forceinline__ void ag_push(const Group& g,
+                                        const tdt::push::Layout& L,
+                                        const char* x, char* out,
+                                        long long chunk_bytes) {
   namespace pu = tdt::push;
   const int all = (1 << g.n) - 1;
   const int j = threadIdx.x;
@@ -280,20 +283,21 @@ __global__ void __launch_bounds__(tdt::push::kThreads)
   pu::wait_data<SYS>(g, L, all);
 }
 
-// x: one chunk; the symmetric workspace: two parity slabs of n chunks; out:
-// n chunks. g.epoch carries call_index + 1; the slab is call_index % 2.
-__global__ void __launch_bounds__(kThreads)
-    ag_parity_kernel(Group g, const uint4* x, uint4* out, long long cvec) {
-  long long v0, v1;
-  block_range(cvec, &v0, &v1);
-  const int p = (int)((g.epoch - 1) & 1);
-  const long long slab_bytes = cvec * 16 * g.n;
-  const int base = kStepBase + (p * kMaxBlocks + blockIdx.x) * kMaxRanks;
-  push_all(g, x, p * slab_bytes + g.rank * cvec * 16, v0, v1, base, g.epoch);
-  if (!wait_peers(g, base, g.epoch)) return;
-  const uint4* slab = reinterpret_cast<const uint4*>(peer_base(g, g.rank) +
-                                                     p * slab_bytes);
-  for (int c = 0; c < g.n; ++c) put(out + c * cvec, slab + c * cvec, v0, v1);
+template <bool SYS>
+__global__ void __launch_bounds__(tdt::push::kThreads)
+    ag_full_mesh_kernel(Group g, tdt::push::Layout L, const char* x,
+                        char* out, long long chunk_bytes) {
+  ag_push<SYS>(g, L, x, out, chunk_bytes);
+}
+
+// The parity stream: the same push over the stream's own pad, its grid
+// sized for a latency-bound copy (ops/_comm.AGP_BLOCK_BYTES); its own
+// kernel so that a profile tells the two apart.
+template <bool SYS>
+__global__ void __launch_bounds__(tdt::push::kThreads)
+    ag_parity_kernel(Group g, tdt::push::Layout L, const char* x, char* out,
+                     long long chunk_bytes) {
+  ag_push<SYS>(g, L, x, out, chunk_bytes);
 }
 
 // The tree's words in a rank's signal pad (ops/_comm.TreeLayout), for
@@ -619,19 +623,29 @@ int tdt_ag_full_mesh(const void* table, const void* sig_table, void* err,
   return cudaGetLastError();
 }
 
-// chunk_bytes: one input chunk (out holds n of them). n = 1 is the
-// loopback (force_kernel): the push to itself and the copy out.
+// As tdt_ag_full_mesh, over the parity stream's pad: epoch is the call
+// index + 1 (the pad's), so a call out of sequence waits for words no
+// peer raises and times out. n = 1 is the loopback (force_kernel).
 int tdt_ag_parity(const void* table, const void* sig_table, void* err,
-                  int rank, int n, unsigned long long call_index,
+                  int rank, int n, unsigned long long epoch,
                   long long timeout_ns, const void* x, void* out,
-                  long long chunk_bytes, cudaStream_t stream) {
+                  long long chunk_bytes, int grid, int sys, int addr,
+                  int ready, int data, int stride, cudaStream_t stream) {
   const long long cvec = chunk_bytes / 16;
-  if (bad_group(rank, n, cvec) || chunk_bytes % 16)
+  const tdt::push::Layout L{addr, ready, data, stride};
+  if (bad_group(rank, n, cvec) || chunk_bytes % 16 ||
+      tdt::push::bad_layout(L, n, grid))
     return cudaErrorInvalidValue;
-  const Group g = make_group(table, sig_table, err, rank, n, call_index + 1,
+  const Group g = make_group(table, sig_table, err, rank, n, epoch,
                              timeout_ns);
-  ag_parity_kernel<<<grid_for(cvec), kThreads, 0, stream>>>(
-      g, static_cast<const uint4*>(x), static_cast<uint4*>(out), cvec);
+  const char* xi = static_cast<const char*>(x);
+  char* o = static_cast<char*>(out);
+  if (sys)
+    ag_parity_kernel<true><<<grid, tdt::push::kThreads, 0, stream>>>(
+        g, L, xi, o, chunk_bytes);
+  else
+    ag_parity_kernel<false><<<grid, tdt::push::kThreads, 0, stream>>>(
+        g, L, xi, o, chunk_bytes);
   return cudaGetLastError();
 }
 

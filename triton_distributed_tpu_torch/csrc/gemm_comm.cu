@@ -24,18 +24,20 @@
 //            barrier: the parity protocol of ar_parity over a persistent
 //            workspace (2, n_chunks, n, mp, nc); each output-column
 //            chunk's partial tiles are cast and stored into slot `rank`
-//            of that parity on every rank (the stores of chunk c drain
-//            while chunk c+1 computes); then wait for every rank's blocks
-//            of this parity and sum the n slots in rank order, from 0 in
-//            fp32, one cast; out (m, n_chunks * nc).
+//            of that parity on every rank; then wait for the blocks that
+//            wrote what this block reduces (on the split-K route the n
+//            blocks of its strips; on the mma.sync tiles every rank's
+//            blocks) and sum the n slots in rank order, from 0 in fp32,
+//            one cast; out (m, n_chunks * nc).
 //
 // What bounds them on an H100: B9 and B10 at the prefill's shapes are
 // GEMMs (2 * 2048 * 4096 * 1024 operations for B9 at wq: 17.2 GFLOP a
 // rank, 0.017 ms at 989 TFLOP/s bf16), their communication a copy of A
 // (B9) or of the partial output (B10) to every peer; B11 at decode
 // (M = 2) is bound by the bytes of its weight shard and by the flag
-// round trip. Two routes, picked by the wrapper from dtype, rows and
-// alignment before the launch (ops/allgather_gemm.py gemm_tile_for):
+// round trip. Three routes, picked by the wrapper from dtype, rows and
+// alignment before the launch (ops/allgather_gemm.py gemm_tile_for,
+// ops/gemm_allreduce.py gemm_ar_route):
 //
 //  - bf16 at the tall tile, A's and B's rows whole 16-byte units (B9 and
 //    B10 only): the wgmma + TMA mainloop of gemm_wgmma.cuh, a producer
@@ -49,10 +51,13 @@
 //    fence.proxy.async (the pushes are generic-proxy stores, TMA reads
 //    through the async proxy). B10 stores its tiles with 16-byte vectors
 //    into the owner's slot; its reduce is unchanged.
-//  - everything else (fp32, the short tile, an unaligned B, and B11):
-//    B3's mma.sync tiles, staged through registers, no TMA or wgmma.
+//  - B11 in bf16 at m <= 16 with aligned operands: the split-K weight
+//    stream (gemm_ar_splitk, below), one flag a block and n waits.
+//  - everything else (fp32, the short tile, an unaligned B, B11 past 16
+//    rows): B3's mma.sync tiles, staged through registers, no TMA or
+//    wgmma.
 //
-// Both run a persistent grid of one block an SM (each reserves more than
+// All run a persistent grid of one block an SM (each reserves more than
 // half an SM's shared memory) on at most 1/r of the SMs (r = ranks on the
 // card), so every rank's whole grid is resident at once and a laggard
 // rank's other kernels keep SMs to run on; every block issues its pushes
@@ -69,6 +74,7 @@
 #include "dist.cuh"
 #include "gemm_tile.cuh"
 #include "gemm_wgmma.cuh"
+#include "push.cuh"
 
 using namespace tdt::dist;
 using namespace tdt::hopper;
@@ -316,6 +322,253 @@ __global__ void __launch_bounds__(NT)
 #pragma unroll
     for (int e = 0; e < E; ++e) oe[e] = tdt::from_f<T>(acc[e]);
     out[v] = o;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The split-K route of B11 (bf16, m <= 16, aligned): a weight stream.
+// ---------------------------------------------------------------------------
+
+// At decode the bytes of the weight shard are the bound, so it streams
+// through every block of the grid. The work unit is a strip: 64 output
+// columns of one chunk (a warp's 8 lanes x 16 bytes) over the rank's whole
+// K shard; strip s of chunk c is columns [c * nc + 64 s, ...) of B, the
+// chunk's last strip cut at nc. The strips (chunk-major) are dealt to the
+// persistent grid as strip = b, b + G, ... — the same on every rank, since
+// every rank's grid is the same. In a block the 8 warps split K into
+// 32-row steps (warp w takes w, w + 8, ...), each lane keeping eight
+// 16-byte weight loads in flight with the next step's (the next strip's
+// first, at a strip's end) issued before this step's products; the m rows
+// of A wait in shared memory, all of K staged once a launch. The products
+// run on mma.sync with the weight as the 16-row operand (W^T x A^T: its
+// rows are output columns, the activation rows the 8-wide side), the
+// weight bytes paired in registers by byte permutes, as B3's split-K. The
+// warps' partials are summed in shared memory in warp order in fp32, cast
+// once to bf16 (gemm_ar_partials' rounding, within B3's tolerance), and
+// the strip's m rows x 128 bytes go as 16-byte vectors into slot `me` of
+// (p, c) on every rank, this rank's own first. No clusters: the r ranks'
+// grids on one card must all be resident at once, since every block pushes
+// before it waits, and clusters of up to 8 CTAs do not promise that.
+//
+// The exchange: after its last strip, block b raises flag (p, me, b) on
+// every rank, then waits only for (p, s, b) from each source s — the n
+// blocks that wrote the strips it reduces — and sums those strips' n
+// slots in rank order from 0, in fp32, one cast, straight into `out`: n
+// flags a block, not n·G. Safe across calls: at call t+2 block b writes
+// parity p of peer q only after this rank's call t+1 ended, and that
+// kernel's block b waited for q's block b's call-(t+1) flag; q's block b
+// raised it in q's call t+1, which began after q's call t — whose block b
+// reduced the same strips of parity p — had ended (stream order). The
+// flags are per parity, so a fast peer's call t+1 never counts toward t.
+// Their memory scope is push.cuh's: the GPU's when the group lives on one
+// card (on an H100 80GB HBM3 at 700 W the system scope cost 0.038-0.041
+// against 0.033 ms a call at wo: scripts/time_port_gemm_comm.py, PERF.md
+// §6), the system's across cards.
+constexpr int kSkThreads = 256, kSkWarps = 8;
+constexpr int kSkCols = 64;     // a strip's columns
+constexpr int kSkStep = 32;     // K rows a warp takes a step
+
+// Shared memory: A's m rows of all of K (a row padded by 16 bytes), the
+// warps' partials (float4 per lane and tile), the strip's bf16 sums.
+__host__ __device__ inline int sk_pitch(int k) {
+  return ceil_div(k, kSkStep) * kSkStep * 2 + 16;
+}
+__host__ __device__ inline int sk_red_bytes(int mt) {
+  return kSkWarps * mt * 4 * 32 * 16;
+}
+__host__ __device__ inline int sk_smem(int m, int k) {
+  return m * sk_pitch(k) + sk_red_bytes(m <= 8 ? 1 : 2) + 16 * kSkCols * 2;
+}
+
+__device__ __forceinline__ uint32_t word_of(const uint4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+template <int MT, bool SYS>
+__global__ void __launch_bounds__(kSkThreads, 1)
+    gemm_ar_splitk(Group g, Shape a, int ldb) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int F = MT * 4, U = F * 32;      // a lane's tiles; the units
+  const int n = g.n, me = g.rank, G = gridDim.x, b = blockIdx.x;
+  const int m = a.m, nc = a.ncols, nch = a.parts;
+  const int p = (int)((g.epoch - 1) & 1);
+  const int spc = ceil_div(nc, kSkCols);       // strips a chunk
+  const int strips = nch * spc;
+  const int ns = b < strips ? ceil_div(strips - b, G) : 0;
+  const int total = ceil_div(a.k, kSkStep);
+  const int pitch = sk_pitch(a.k);
+  unsigned char* sa = smem;
+  float4* red = reinterpret_cast<float4*>(smem + m * pitch);
+  bf16* tile = reinterpret_cast<bf16*>(smem + m * pitch + sk_red_bytes(MT));
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, t = lane & 3;
+  const bf16* B = static_cast<const bf16*>(a.b);
+  const long long slot = (long long)a.mp * nc;   // elements of one slot
+
+  {
+    // A's rows [0, m) of K [0, total * 32), zeros past K.
+    const int kv = a.k / 8, vrow = total * kSkStep / 8;
+    const uint4* x = static_cast<const uint4*>(a.x);
+    for (int v = threadIdx.x; v < m * vrow; v += kSkThreads) {
+      const int r = v / vrow, cv = v % vrow;
+      const uint4 val = cv < kv ? __ldg(x + (long long)r * kv + cv)
+                                : make_uint4(0, 0, 0, 0);
+      *reinterpret_cast<uint4*>(sa + r * pitch + cv * 16) = val;
+    }
+  }
+  // Rows of B a lane loads at a step: 2t, 2t+1, 2t+8, 2t+9 of each 16-row
+  // half (the weight operand's a0-a1 / a2-a3 K pairs).
+  auto load = [&](uint4 (&v)[8], int st, int step, bool ok) {
+    const int col = (st % spc) * kSkCols + gq * 8;
+    const bf16* src = B + (long long)(st / spc) * nc + col;
+    ok = ok && col < nc;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int row = step * kSkStep + (i >> 2) * 16 + ((i & 2) ? 8 : 0) +
+                      2 * t + (i & 1);
+      v[i] = make_uint4(0, 0, 0, 0);
+      if (ok && row < a.k)
+        v[i] = __ldcs(reinterpret_cast<const uint4*>(src + (long long)row *
+                                                                ldb));
+    }
+  };
+  const bool works = warp < total;
+  uint4 cur[8];
+  if (works) load(cur, b, warp, ns > 0);
+  __syncthreads();
+  for (int i = 0; i < ns; ++i) {
+    const int st = b + i * G;
+    float acc[MT][4][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0.f;
+    for (int s = warp; works && s < total; s += kSkWarps) {
+      uint4 nxt[8];
+      const bool more = s + kSkWarps < total;
+      load(nxt, more ? st : st + G, more ? s + kSkWarps : warp,
+           more || i + 1 < ns);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        uint32_t bb[MT][2];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          const int r = mt * 8 + gq;
+          const unsigned char* ar =
+              sa + r * pitch + (s * kSkStep + 16 * h + 2 * t) * 2;
+          bb[mt][0] = r < m ? *reinterpret_cast<const uint32_t*>(ar) : 0u;
+          bb[mt][1] =
+              r < m ? *reinterpret_cast<const uint32_t*>(ar + 16) : 0u;
+        }
+        const uint4& r0 = cur[4 * h];
+        const uint4& r1 = cur[4 * h + 1];
+        const uint4& r8 = cur[4 * h + 2];
+        const uint4& r9 = cur[4 * h + 3];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const uint32_t w0 = word_of(r0, j), w1 = word_of(r1, j);
+          const uint32_t w8 = word_of(r8, j), w9 = word_of(r9, j);
+          const uint32_t wa[4] = {__byte_perm(w0, w1, 0x5410),
+                                  __byte_perm(w0, w1, 0x7632),
+                                  __byte_perm(w8, w9, 0x5410),
+                                  __byte_perm(w8, w9, 0x7632)};
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+            tdt::tile::Mma<bf16>::run(acc[mt][j], wa, bb[mt]);
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < 8; ++q) cur[q] = nxt[q];
+    }
+    // The partials: tile (mt, j) of lane ln holds weight columns c, c + 1
+    // (its a0 / a1 rows) of activation rows 2 t', 2 t' + 1 of block mt.
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        red[(warp * F + mt * 4 + j) * 32 + lane] =
+            make_float4(acc[mt][j][0], acc[mt][j][1], acc[mt][j][2],
+                        acc[mt][j][3]);
+    __syncthreads();
+    for (int u = threadIdx.x; u < U; u += kSkThreads) {
+      float4 sum = red[u];
+#pragma unroll
+      for (int w = 1; w < kSkWarps; ++w) {
+        const float4 v = red[w * U + u];
+        sum.x += v.x;
+        sum.y += v.y;
+        sum.z += v.z;
+        sum.w += v.w;
+      }
+      const int f = u >> 5, ln = u & 31;
+      const int c = (ln >> 2) * 8 + 2 * (f % 4), r = (f / 4) * 8 + 2 * (ln & 3);
+      if (r < m) {
+        tile[r * kSkCols + c] = tdt::from_f<bf16>(sum.x);
+        tile[r * kSkCols + c + 1] = tdt::from_f<bf16>(sum.z);
+      }
+      if (r + 1 < m) {
+        tile[(r + 1) * kSkCols + c] = tdt::from_f<bf16>(sum.y);
+        tile[(r + 1) * kSkCols + c + 1] = tdt::from_f<bf16>(sum.w);
+      }
+    }
+    __syncthreads();
+    // The strip's rows into slot `me` of (p, c) on every rank, own first.
+    const int c = st / spc, col0 = (st % spc) * kSkCols;
+    const int vecs = min(kSkCols, nc - col0) / 8;
+    const long long base = ((long long)(p * nch + c) * n + me) * slot + col0;
+    for (int v = threadIdx.x; v < m * 8; v += kSkThreads) {
+      const int r = v >> 3, j = v & 7;
+      if (j >= vecs) continue;
+      const uint4 val =
+          *reinterpret_cast<const uint4*>(tile + r * kSkCols + j * 8);
+      const long long off = base + (long long)r * nc + j * 8;
+      for (int q = 0; q < n; ++q)
+        *reinterpret_cast<uint4*>(
+            reinterpret_cast<bf16*>(peer_base(g, (me + q) % n)) + off) = val;
+    }
+  }
+  // Every strip's stores issued (the block meets past them): raise (p,
+  // me, b) on every rank, then wait for (p, s, b) of every source s.
+  const int fb = kGemmFlagBase + p * kMaxRanks * kMaxGemmBlocks;
+  __syncthreads();
+  int ok = 1;
+  if (threadIdx.x < n) {
+    tdt::push::signal_word<SYS>(g, threadIdx.x, fb + me * kMaxGemmBlocks + b);
+    ok = tdt::push::spin<SYS>(g, fb + threadIdx.x * kMaxGemmBlocks + b,
+                              g.epoch);
+  }
+  if (!__syncthreads_and(ok)) return;
+  // This block's strips of the n slots of (p, c), summed in rank order.
+  const uint4* ws = reinterpret_cast<const uint4*>(peer_base(g, me));
+  uint4* out = static_cast<uint4*>(a.out);
+  const long long slot_v = slot / 8;
+  for (int v = threadIdx.x; v < ns * m * 8; v += kSkThreads) {
+    const int i = v / (m * 8), r = v / 8 % m, j = v & 7;
+    const int st = b + i * G, c = st / spc, col0 = (st % spc) * kSkCols;
+    if (col0 + j * 8 >= nc) continue;
+    const uint4* s0 = ws + (long long)(p * nch + c) * n * slot_v +
+                      ((long long)r * nc + col0 + j * 8) / 8;
+    uint4 sv[kMaxRanks];
+#pragma unroll
+    for (int q = 0; q < kMaxRanks; ++q)
+      if (q < n) sv[q] = __ldcg(s0 + q * slot_v);
+    float acc[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc[e] = 0.0f;
+#pragma unroll
+    for (int q = 0; q < kMaxRanks; ++q)
+      if (q < n) {
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          acc[e] = acc[e] + tdt::to_f(elems<bf16>(sv[q])[e]);
+      }
+    uint4 o;
+    bf16* oe = reinterpret_cast<bf16*>(&o);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) oe[e] = tdt::from_f<bf16>(acc[e]);
+    out[((long long)r * nch * nc + c * nc + col0 + j * 8) / 8] = o;
   }
 }
 
@@ -615,6 +868,41 @@ cudaError_t launch_wgmma(int op, const Group& g, const Shape& a,
              : launch_wgmma_bn<128>(op, g, a, ws, ranks_on_card, stream);
 }
 
+// B11's split-K route: bf16, m <= 16; A's rows, B's base and rows of ldb
+// and a chunk's nc columns whole 16-byte units; A's rows of all of K and
+// the partials within a block's shared memory (else refused: the wrapper
+// keeps such shapes on the mma.sync tiles, ops/gemm_allreduce.py
+// gemm_ar_route). One block a strip at most, at most 1/r of the SMs, one
+// block an SM (at least kReserveSmem of shared memory).
+template <int MT, bool SYS>
+cudaError_t launch_splitk_mt(const Group& g, const Shape& a, int ldb,
+                             int grid, int smem, cudaStream_t stream) {
+  static tdt::SmemCap cap;
+  cudaError_t err = tdt::ensure_smem(gemm_ar_splitk<MT, SYS>, smem, cap);
+  if (err != cudaSuccess) return err;
+  gemm_ar_splitk<MT, SYS><<<grid, kSkThreads, smem, stream>>>(g, a, ldb);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_splitk(const Group& g, const Shape& a, int ldb,
+                          int ranks_on_card, int sys, cudaStream_t stream) {
+  if (a.m > 16 || !a.vec_b || a.k % 8 || a.ncols % 8 || ldb % 8 ||
+      a.parts * a.ncols > ldb)
+    return cudaErrorInvalidValue;
+  const int need = sk_smem(a.m, a.k);
+  if (need > 232448) return cudaErrorInvalidValue;
+  const int smem = need > kReserveSmem ? need : kReserveSmem;
+  int grid = 1;
+  cudaError_t err = persistent_grid(a.parts * ceil_div(a.ncols, kSkCols),
+                                    ranks_on_card, &grid);
+  if (err != cudaSuccess) return err;
+  if (a.m <= 8)
+    return sys ? launch_splitk_mt<1, true>(g, a, ldb, grid, smem, stream)
+               : launch_splitk_mt<1, false>(g, a, ldb, grid, smem, stream);
+  return sys ? launch_splitk_mt<2, true>(g, a, ldb, grid, smem, stream)
+             : launch_splitk_mt<2, false>(g, a, ldb, grid, smem, stream);
+}
+
 template <typename T, int CFG>
 cudaError_t launch(int op, const Group& g, const Shape& a, int ldb,
                    int ranks_on_card, cudaStream_t stream) {
@@ -655,21 +943,24 @@ extern "C" {
 
 // op: 0 AG+GEMM (B9), 1 GEMM+RS (B10), 2 GEMM+AR (B11). dtype: 0 float32,
 // 1 bfloat16 (A, B and out alike). cfg: the route (0 the tall mma.sync
-// tile, 1 the short one, 2 the wgmma + TMA mainloop: bf16, B9 and B10).
+// tile, 1 the short one, 2 the wgmma + TMA mainloop: bf16, B9 and B10; 3
+// the split-K weight stream: bf16, B11 at m <= 16).
 // x, b, out: this rank's A, B and output, contiguous (B11's b: the whole
 // (k, ldb) shard, its chunks read in place); ws: this rank's symmetric
 // workspace (its base as the host sees it, for B9's tensor map). m, mp,
 // k, ncols, parts: see Shape. epoch: the call's epoch (B11: call_index, sent as + 1).
-// ranks_on_card: ranks sharing this card (the grid's share of it).
-// Returns the launch's cudaError_t.
+// ranks_on_card: ranks sharing this card (the grid's share of it). sys:
+// the split-K route's flags at the system's scope (1: a peer is another
+// card) or the GPU's (0). Returns the launch's cudaError_t.
 int tdt_gemm_comm(const void* table, const void* sig_table, void* err,
                   int rank, int n, unsigned long long epoch,
                   long long timeout_ns, const void* x, const void* b,
                   void* out, const void* ws, int op, int m, int mp, int k,
                   int ncols, int ldb, int parts, int dtype, int cfg,
-                  int vec_b, int ranks_on_card, cudaStream_t stream) {
+                  int vec_b, int ranks_on_card, int sys,
+                  cudaStream_t stream) {
   if (n < 1 || n > kMaxRanks || rank < 0 || rank >= n || m < 1 || k < 1 ||
-      ncols < 1 || parts < 1 || op < 0 || op > 2 || cfg < 0 || cfg > 2)
+      ncols < 1 || parts < 1 || op < 0 || op > 2 || cfg < 0 || cfg > 3)
     return cudaErrorInvalidValue;
   if (op == AG_GEMM && (m % parts || parts > 4)) return cudaErrorInvalidValue;
   if (op == GEMM_RS && m % n) return cudaErrorInvalidValue;
@@ -680,6 +971,10 @@ int tdt_gemm_comm(const void* table, const void* sig_table, void* err,
   if (cfg == 2)
     return dtype == 1 ? launch_wgmma(op, g, a, ws, ranks_on_card, stream)
                       : cudaErrorInvalidValue;
+  if (cfg == 3)
+    return dtype == 1 && op == GEMM_AR
+               ? launch_splitk(g, a, ldb, ranks_on_card, sys, stream)
+               : cudaErrorInvalidValue;
   const int code = dtype * 2 + cfg;
   switch (code) {
     case 0: return launch<float, 0>(op, g, a, ldb, ranks_on_card, stream);

@@ -1,9 +1,10 @@
-// The push protocol and its copy engine: what B4's full-mesh push
-// (collectives.cu ag_full_mesh), B5's double tree (collectives.cu
-// ar_tree), B6's reduce-scatter (collectives.cu rs_ring), B7's shift and
-// permutation (p2p.cu), B8's parity AllToAll (all_to_all.cu a2a_push) and
-// B12's torus AllGather (multi_axis.cu ag_torus) share. Nothing else uses
-// this header.
+// The push protocol and its copy engine: what B4's full-mesh push and
+// parity stream (collectives.cu ag_full_mesh, ag_parity), B5's double
+// tree (collectives.cu ar_tree), B6's reduce-scatter (collectives.cu
+// rs_ring), B7's shift and permutation (p2p.cu), B8's parity AllToAll
+// (all_to_all.cu a2a_push) and B12's torus AllGather (multi_axis.cu
+// ag_torus) share; B11's split-K route (gemm_comm.cu) takes its scoped
+// flags (signal_word, spin).
 //
 // The protocol: the sender writes the receiver's output. A TPU kernel's
 // remote DMA lands in the peer's output; here the output is a fresh tensor

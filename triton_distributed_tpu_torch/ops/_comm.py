@@ -57,7 +57,7 @@ AG_FULL_MESH_KERNEL = CudaKernel("collectives.cu", "tdt_ag_full_mesh",
                                  _GROUP_ARGS + _PUSH_ARGS
                                  + [ctypes.c_void_p])
 AG_PARITY_KERNEL = CudaKernel("collectives.cu", "tdt_ag_parity",
-                              _GROUP_ARGS + [ctypes.c_void_p])
+                              _GROUP_ARGS + _PUSH_ARGS + [ctypes.c_void_p])
 # B7, the PP transport (csrc/p2p.cu): the ring shift (its shift) and the
 # static permutation (this rank's destination set and source).
 P2P_SHIFT_KERNEL = CudaKernel("p2p.cu", "tdt_p2p_shift",
@@ -93,13 +93,14 @@ A2A_PARITY_KERNEL = CudaKernel("all_to_all.cu", "tdt_a2a_parity",
 _GEMM_COMM_ARGS = ([ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int,
                                             ctypes.c_ulonglong,
                                             ctypes.c_longlong]
-                   + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11
+                   + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 12
                    + [ctypes.c_void_p])
 # The fused kernels' routes, by the tile code the wrappers pass
-# (ops/allgather_gemm.gemm_tile_for): B3's tall and short mma.sync tiles,
-# and the wgmma + TMA mainloop. Each launch counts under its route's name
-# in ``variant_launches``.
-GEMM_ROUTES = ("mma_tall", "mma_short", "wgmma")
+# (ops/allgather_gemm.gemm_tile_for, ops/gemm_allreduce.gemm_ar_route):
+# B3's tall and short mma.sync tiles, the wgmma + TMA mainloop (B9, B10)
+# and B11's split-K weight stream. Each launch counts under its route's
+# name in ``variant_launches``.
+GEMM_ROUTES = ("mma_tall", "mma_short", "wgmma", "splitk")
 AG_GEMM_KERNEL = CudaKernel("gemm_comm.cu", "tdt_gemm_comm", _GEMM_COMM_ARGS)
 GEMM_RS_KERNEL = CudaKernel("gemm_comm.cu", "tdt_gemm_comm", _GEMM_COMM_ARGS)
 GEMM_AR_KERNEL = CudaKernel("gemm_comm.cu", "tdt_gemm_comm", _GEMM_COMM_ARGS)
@@ -125,8 +126,8 @@ COLLECTIVE_KERNELS = (ONE_SHOT_KERNEL, PARITY_KERNEL, RS_RING_KERNEL,
 _GEMM_OP = {AG_GEMM_KERNEL: 0, GEMM_RS_KERNEL: 1, GEMM_AR_KERNEL: 2}
 
 
-# The push protocol of B4's full-mesh push, B5's tree, B6, B7, B8's parity
-# stream and B12's torus AllGather (csrc/push.cuh): the receiver publishes
+# The push protocol of B4's full-mesh push and parity stream, B5's tree,
+# B6, B7, B8's parity stream and B12's torus AllGather (csrc/push.cuh): the receiver publishes
 # its fresh output's address into its senders' signal pads, each sender
 # writes its block straight into that output and raises a data flag a
 # block (B6 mirrors the roles: a rank publishes its input, its owners read
@@ -141,6 +142,12 @@ PUSH_BLOCK_BYTES = 64 << 10      # the least payload a block is given
 # 0.0134 ms a call as a span against 0.0142 at 16 and 0.0146-0.0149 at 8
 # (H100 80GB HBM3, 700 W; scripts/time_port_copy.py, PERF.md §6 PR 19).
 A2A_BLOCK_BYTES = 16 << 10
+# B4's parity stream: a block per AGP_BLOCK_BYTES of a rank's chunk. The SP
+# decode's gather (128 x 130 fp32, 65 KiB a rank) is latency-bound, so
+# small shares (9 blocks): on 4 ranks 4, 8 and 16 KiB measured 0.0121,
+# 0.0118 and 0.0121 ms a call as a span, 32 KiB 0.0134 (H100 80GB HBM3,
+# 700 W; scripts/time_port_copy.py's case, PERF.md §6).
+AGP_BLOCK_BYTES = 8 << 10
 
 
 @dataclasses.dataclass(frozen=True)
@@ -277,8 +284,9 @@ def launch_push(kernel: CudaKernel, pad: SymmBuffer, rank: int,
                 grid_bytes: int | None = None,
                 block_bytes: int = PUSH_BLOCK_BYTES,
                 layout=PUSH_LAYOUT) -> None:
-    """One launch of a push-protocol kernel (B4's full-mesh push, B6, B7,
-    B8's parity stream with its layout, B12's torus AllGather; B5's tree
+    """One launch of a push-protocol kernel (B4's full-mesh push and
+    parity stream, B6, B7, B8's parity stream with its layout, B12's torus
+    AllGather; B5's tree
     with its ``grid`` and ``layout``) at the rank group's meeting, as
     :func:`launch`, on the pad ``pad`` (a
     :func:`~triton_distributed_tpu_torch.runtime.symm.symm_pad`, or the
@@ -428,9 +436,10 @@ def launch_gemm_comm(kernel: CudaKernel, buf: SymmBuffer, rank: int,
     """One launch of a fused GEMM kernel (``csrc/gemm_comm.cu``) at the
     rank group's meeting, as :func:`launch`. ``tile``: the route of
     :data:`GEMM_ROUTES` (0 the tall mma.sync tile, 1 the short one, 2 the
-    wgmma mainloop), counted under its name. The kernel sizes its
+    wgmma mainloop, 3 B11's split-K), counted under its name. The kernel sizes its
     persistent grid to its share of the card: the ranks on this rank's
-    device (n for virtual ranks, 1 with a card a rank)."""
+    device (n for virtual ranks, 1 with a card a rank); the split-K
+    route's flags take :func:`push_scope`."""
     ctx = buf.ctx
     dev = x.device
     # The whole group's ranks on this card, not the fiber's: the cap keeps
@@ -442,7 +451,7 @@ def launch_gemm_comm(kernel: CudaKernel, buf: SymmBuffer, rank: int,
         int(ctx.timeout_s * 1e9), ptr(x), ptr(b), ptr(out),
         ptr(buf.tensors[rank]), _GEMM_OP[kernel], m, mp, k, ncols, ldb,
         parts, DTYPE_CODE[x.dtype], tile, int(vec_b), on_card,
-        current_stream(dev)), variants=(GEMM_ROUTES[tile],))
+        push_scope(ctx), current_stream(dev)), variants=(GEMM_ROUTES[tile],))
 
 
 def rank_shards(ctx: DistContext, axis: str, x, dim: int = 0) -> list:

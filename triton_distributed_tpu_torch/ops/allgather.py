@@ -17,23 +17,26 @@ no gather buffer, copy out or barrier). AUTO takes the push at n <= 2
 and for small payloads (the sequential ``"overlap"`` TP-MoE layer, SP-AG
 attention, ``flash_decode``'s ``"pallas"`` method and the two-level
 intra gathers reach it). Both give the same bits (a copy).
-:func:`all_gather_stream` is the push over a persistent workspace of two
-parity slabs (the SP decode loop's gather of its attention partials,
-``ops/flash_decode.py``).
+:func:`all_gather_stream` is the SP decode loop's gather of its attention
+partials (``ops/flash_decode.py``) over a persistent (workspace, call
+index) pair: on a card the same push protocol (the workspace a signal
+pad, the grid sized for a latency-bound copy), on the CPU a plain gather
+through two parity slabs.
 ``XLA`` (the JAX package's ``jax.lax.all_gather``) is a plain gather
 through the rank group.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import enum
 
 import torch
 
 from triton_distributed_tpu_torch.ops._comm import (
-    AG_FULL_MESH_KERNEL, AG_PARITY_KERNEL, AG_RING_KERNEL, check_out,
-    check_payload, launch, launch_push, push_slots, rank_of, rank_shards,
-    straggle,
+    AG_FULL_MESH_KERNEL, AG_PARITY_KERNEL, AG_RING_KERNEL, AGP_BLOCK_BYTES,
+    check_out, check_payload, launch, launch_push, push_slots, rank_of,
+    rank_shards, straggle,
 )
 from triton_distributed_tpu_torch.runtime.context import (
     DistContext, get_context, group_all_gather, group_context,
@@ -175,53 +178,92 @@ def all_gather_local(x_local: torch.Tensor, axis: str = "tp",
     return _ag_ring(x_local, n, ctx, rank)
 
 
+@dataclasses.dataclass
+class AGStreamWorkspace:
+    """The persistent workspace of :func:`all_gather_stream`: on a card
+    ``buf`` is a signal pad (no payload: the senders write the receivers'
+    outputs); on the CPU, where the plain version meets through slots, a
+    symmetric (2, n·m, cols) buffer of two parity slabs. ``epochs[r]``:
+    rank r's next call index."""
+
+    buf: SymmBuffer
+    n: int
+    m: int
+    cols: int
+    dtype: torch.dtype
+
+    @property
+    def shape(self) -> tuple:
+        return (2, self.n * self.m, self.cols)
+
+    @property
+    def epochs(self) -> list:
+        return self.buf.epochs
+
+    @property
+    def tensors(self) -> list:
+        """Each rank's buffer: its two parity slabs on the CPU; a pad's
+        empty tensor on a card."""
+        return self.buf.tensors
+
+
 def ag_stream_workspace(n: int, m: int, cols: int, dtype, *,
                         ctx: DistContext | None = None,
-                        tag: str = "ag_stream") -> tuple[SymmBuffer, int]:
+                        tag: str = "ag_stream"
+                        ) -> tuple[AGStreamWorkspace, int]:
     """The persistent (workspace, call_index) pair of
-    :func:`all_gather_stream`: a symmetric (2, n·m, cols) buffer of two
-    parity slabs, allocated once per (shape, dtype, tag) on the context,
-    and the index of the next call (0 for a new tag). Thread both through
-    the decode loop; give each stream of calls its own ``tag``. Called
-    inside a rank thread it returns that rank's next index."""
+    :func:`all_gather_stream` for (m, cols) ``dtype`` chunks, allocated
+    once per (shape, dtype, tag) on the context, and the index of the next
+    call (0 for a new tag). Thread both through the decode loop; give each
+    stream of calls its own ``tag``. Called inside a rank thread it
+    returns that rank's next index."""
     ctx = group_context(ctx)
     if ctx.num_ranks != n:
         raise ValueError(f"n = {n} but the rank group has {ctx.num_ranks}")
-    ws = symm_zeros(ctx, (2, n * m, cols), dtype, tag=tag)
-    return ws, ws.call_index()
+    if ctx.is_cuda:
+        buf = symm_pad(ctx, tag=f"{tag}-{n}x{m}x{cols}-{dtype}")
+    else:
+        buf = symm_zeros(ctx, (2, n * m, cols), dtype, tag=tag)
+    return AGStreamWorkspace(buf, n, m, cols, dtype), buf.call_index()
 
 
-def all_gather_stream(x_local: torch.Tensor, ws: SymmBuffer,
+def all_gather_stream(x_local: torch.Tensor, ws: AGStreamWorkspace,
                       call_index: int, *, axis: str = "tp",
                       num_ranks: int | None = None,
                       straggler: tuple | None = None,
-                      force_kernel: bool = False):
-    """Barrier-free full-mesh-push AllGather over a persistent parity
-    workspace (reference ``all_gather_stream``; kernel ``ag_parity`` of
+                      force_kernel: bool = False,
+                      out: torch.Tensor | None = None):
+    """Barrier-free full-mesh-push AllGather over a persistent workspace
+    (reference ``all_gather_stream``; kernel ``ag_parity`` of
     ``csrc/collectives.cu``). x_local: (m, cols); ws from
     :func:`ag_stream_workspace`; ``call_index``: a host int, the same
     sequence on every rank. Returns ((n·m, cols), ws, call_index + 1),
-    rank j's rows at [j·m, (j+1)·m).
+    rank j's rows at [j·m, (j+1)·m). ``out``: the output to write (a
+    harness's sentinel), else a fresh one.
 
-    Call t uses parity slab ``t % 2``: each rank pushes its block into
-    slot ``rank`` of every peer's slab, waits for the n - 1 peers' flags
-    of that parity (value ``t + 1``), then copies the whole slab out. The
-    completion chain orders the reuse, as in ``all_reduce_stream``: to
-    write parity p of call t+2 a rank must have finished call t+1, which
-    needed every peer's call-(t+1) delivery, which each peer sends only
-    after it copied out its call-t (parity-p) slab. Per-parity flags keep
-    a fast peer's call t+1 from counting toward call t. At n = 1 the input
-    comes back unless ``force_kernel`` (the loopback: the kernel pushes to
-    itself)."""
+    On a card, the push protocol (``csrc/push.cuh``): each receiver's
+    block 0 publishes its fresh output with the call's epoch (call_index +
+    1); each sender's block b reads its share of its chunk once, writes it
+    into slot ``rank`` of every receiver's output, its own first, and
+    releases block b's data word in each receiver's pad; the receiver's
+    block b waits for its sources' words. No slab, copy-out or entry
+    barrier: the output is fresh every call, and the pad's epochs order
+    its reuse. On the CPU, call t uses parity slab ``t % 2``: each rank
+    pushes its block into slot ``rank`` of every peer's slab, meets them
+    and copies its slab out. At n = 1 the input comes back unless
+    ``force_kernel`` (the loopback: the kernel pushes to itself)."""
     ctx, rank, n = rank_of(axis, num_ranks)
     if n == 1 and not force_kernel:
+        if out is not None:
+            raise ValueError("all_gather_stream: out= needs the kernel (n > "
+                             "1 or force_kernel)")
         return x_local, ws, call_index + 1
     m, cols = x_local.shape
-    shape = tuple(ws.tensors[rank].shape)
-    if shape != (2, n * m, cols):
-        raise ValueError(f"workspace shape {shape} != (2, {n * m}, {cols})")
-    if ws.tensors[rank].dtype != x_local.dtype:
-        raise ValueError(f"workspace dtype {ws.tensors[rank].dtype} != input"
+    if ws.shape != (2, n * m, cols):
+        raise ValueError(f"workspace shape {ws.shape} != (2, {n * m}, "
+                         f"{cols})")
+    if ws.dtype != x_local.dtype:
+        raise ValueError(f"workspace dtype {ws.dtype} != input"
                          f" {x_local.dtype} — allocate ag_stream_workspace "
                          "with the payload dtype")
     if call_index != ws.epochs[rank]:
@@ -230,22 +272,31 @@ def all_gather_stream(x_local: torch.Tensor, ws: SymmBuffer,
             f"this workspace's next call is {ws.epochs[rank]} — a (ws, "
             "call_index) pair must stay persistent and in sequence (a "
             "second stream of calls needs its own workspace tag)")
-    ws.epochs[rank] = call_index + 1
+    if out is not None:
+        out = check_out(ctx, rank, out, (n * m, cols), x_local.dtype,
+                        "all_gather_stream")
     straggle(straggler, n, rank, call_index)
-    p = call_index % 2
     if x_local.device.type == "cuda":
         x = check_payload(ctx, rank, x_local, "all_gather_stream", copy=True)
-        out = torch.empty((n * m, cols), dtype=x.dtype, device=x.device)
-        launch(AG_PARITY_KERNEL, ws, rank, call_index, x, out,
-               m * cols * x.element_size())
+        if out is None:
+            out = torch.empty((n * m, cols), dtype=x.dtype, device=x.device)
+        # The pad's next epoch is call_index + 1: the kernel's flags.
+        launch_push(AG_PARITY_KERNEL, ws.buf, rank, x, out,
+                    m * cols * x.element_size(), block_bytes=AGP_BLOCK_BYTES)
         return out, ws, call_index + 1
     if x_local.device.type != "cpu":
         raise ValueError(f"all_gather_stream: no kernel for device "
                          f"{x_local.device}")
     AG_PARITY_KERNEL.count_plain()
-    push_slots(ctx, rank, ws, x_local, (p, slice(rank * m, (rank + 1) * m)),
-               "ag_stream")
-    return ws.tensors[rank][p].clone(), ws, call_index + 1
+    ws.epochs[rank] = call_index + 1
+    p = call_index % 2
+    push_slots(ctx, rank, ws.buf, x_local,
+               (p, slice(rank * m, (rank + 1) * m)), "ag_stream")
+    got = ws.buf.tensors[rank][p]
+    if out is None:
+        return got.clone(), ws, call_index + 1
+    out.copy_(got)
+    return out, ws, call_index + 1
 
 
 def all_gather(x, ctx: DistContext | None = None, axis: str = "tp",

@@ -6,10 +6,9 @@ hand-written CUDA kernel ``gemm_ar`` of ``csrc/gemm_comm.cu``.
 projection: x (m, k_local) @ w (k_local, ncols), summed over the ranks.
 The output columns are computed in ``n_chunks`` chunks; each chunk's
 partial, cast to the payload type, is stored into slot ``rank`` of every
-rank's persistent parity workspace (2, n_chunks, n, mp, nc) while the
-next chunk computes; after the last chunk the kernel waits for every
-rank's partials of this parity and sums the n slots in rank order, from
-0 in fp32, one cast. No barrier: the parity protocol of
+rank's persistent parity workspace (2, n_chunks, n, mp, nc); the kernel
+then waits for the ranks' partials of this parity and sums the n slots in
+rank order, from 0 in fp32, one cast. No barrier: the parity protocol of
 ``ops/allreduce.all_reduce_stream`` (a persistent (workspace, call index)
 pair per stream of calls, the index in sequence on every rank) makes the
 reuse safe. A slot's rows are padded to the reference's sublane
@@ -17,10 +16,19 @@ alignment (``ops/tiling.sublane_align``), which sets the workspace's
 shape; the kernel computes and stores only the m real rows (the plain
 version computes the padded ones as zeros), and no one reads the rest.
 
+Two routes (:func:`gemm_ar_route`, picked before the launch): bf16 at
+m <= 16 with aligned operands takes ``"splitk"``, a weight stream — each
+block of a persistent grid owns strips of 64 output columns over the
+whole K shard (:func:`splitk_plan`), pushes each finished strip into its
+slot on every rank, then raises one flag and waits for the n flags of the
+blocks that wrote its strips, and reduces them; fp32, more rows and
+unaligned operands keep B3's ``mma.sync`` tiles, every block waiting for
+every block's flags.
+
 :func:`gemm_ar_local` is the one-off compose: the product, then
 ``all_reduce_local``. On a CUDA tensor the stream launches B11 (counted
-in ``GEMM_AR_KERNEL.launches``); on a CPU tensor its plain version runs
-through the workspace's slots.
+in ``GEMM_AR_KERNEL.launches``, by route in ``variant_launches``); on a
+CPU tensor its plain version runs through the workspace's slots.
 """
 
 from __future__ import annotations
@@ -28,7 +36,8 @@ from __future__ import annotations
 import torch
 
 from triton_distributed_tpu_torch.ops._comm import (
-    GEMM_AR_KERNEL, check_payload, launch_gemm_comm, rank_of, straggle,
+    GEMM_AR_KERNEL, MAX_RANKS, check_payload, launch_gemm_comm, rank_of,
+    straggle,
 )
 from triton_distributed_tpu_torch.ops.allgather_gemm import (
     _rank_parts, aligned_rows, check_weight, gemm_tile_for,
@@ -51,6 +60,73 @@ def _gemm_ar_chunks(ncols: int, n_chunks: int) -> int:
     while n_chunks > 1 and (col_tiles % n_chunks or ncols % n_chunks):
         n_chunks -= 1
     return n_chunks
+
+
+# B11's split-K route (csrc/gemm_comm.cu gemm_ar_splitk): a strip is
+# SPLITK_COLS output columns of one chunk; a block's warps take K in
+# SPLITK_STEP-row steps; A's rows of all of K, the warps' partials and the
+# strip's sums live in the block's shared memory, at least RESERVE_SMEM
+# (one block an SM) and at most MAX_SMEM.
+SPLITK_ROUTE = 3                 # _comm.GEMM_ROUTES index
+SPLITK_MAX_ROWS = 16
+SPLITK_COLS = 64
+SPLITK_STEP = 32
+SPLITK_WARPS = 8
+RESERVE_SMEM = 120 << 10         # csrc/gemm_comm.cu kReserveSmem
+MAX_SMEM = 232448                # a block's shared memory on an H100
+MAX_GEMM_BLOCKS = 128            # csrc/dist.cuh kMaxGemmBlocks
+GEMM_FLAG_BASE = MAX_GEMM_BLOCKS * MAX_RANKS     # dist.cuh kGemmFlagBase
+
+
+def splitk_smem(m: int, k: int) -> int:
+    """Shared memory the split-K route needs (``gemm_comm.cu``
+    ``sk_smem``): A's m rows of K padded to whole steps, 16 bytes more a
+    row; the 8 warps' float4 partials of 4 x (1 or 2) tiles a lane; the
+    strip's 16 x 64 bf16 sums."""
+    pitch = -(-k // SPLITK_STEP) * SPLITK_STEP * 2 + 16
+    mt = 1 if m <= 8 else 2
+    return m * pitch + SPLITK_WARPS * mt * 4 * 32 * 16 + 16 * SPLITK_COLS * 2
+
+
+def gemm_ar_route(m: int, k: int, nc: int, dtype, aligned: bool) -> int:
+    """B11's route (``_comm.GEMM_ROUTES``), from the shape before the
+    launch: 3, the split-K weight stream, for bf16 at m <= 16 whose A rows
+    (k), chunk columns (nc) and B (``aligned``: its base and rows of ldb,
+    and nc) are whole 16-byte units and whose A rows fit a block's shared
+    memory; else B3's mma.sync tiles (``gemm_tile_for``: the short tile
+    below 64 rows)."""
+    if (dtype == torch.bfloat16 and m <= SPLITK_MAX_ROWS and aligned
+            and (k * 2) % 16 == 0 and (nc * 2) % 16 == 0
+            and splitk_smem(m, k) <= MAX_SMEM):
+        return SPLITK_ROUTE
+    return gemm_tile_for(m)
+
+
+def splitk_plan(ncols: int, n_chunks: int, sm_cap: int) -> dict:
+    """The split-K route's work plan (``gemm_comm.cu`` gemm_ar_splitk),
+    the same on every rank: ``strips`` — (chunk, first column in the
+    chunk, columns) of each strip, chunk-major, the chunk's last strip cut
+    at nc = ncols / n_chunks —, the persistent ``grid`` (a block a strip at
+    most, at most ``sm_cap`` = the card's SMs over its ranks and
+    MAX_GEMM_BLOCKS: ``persistent_grid``) and ``blocks`` — block b's
+    strips b, b + grid, ... ."""
+    nch = _gemm_ar_chunks(ncols, n_chunks)
+    nc = ncols // nch
+    strips = [(c, c0, min(SPLITK_COLS, nc - c0)) for c in range(nch)
+              for c0 in range(0, nc, SPLITK_COLS)]
+    grid = max(1, min(len(strips), sm_cap, MAX_GEMM_BLOCKS))
+    return {"n_chunks": nch, "nc": nc, "strips": strips, "grid": grid,
+            "blocks": [list(range(b, len(strips), grid))
+                       for b in range(grid)]}
+
+
+def splitk_flag(parity: int, source: int, block: int) -> int:
+    """The signal-pad word of block ``block`` of rank ``source`` at parity
+    ``parity`` (``gemm_comm.cu``: raised on every rank after the block's
+    last strip; block b of each rank waits for (parity, s, b) of every
+    source s)."""
+    return (GEMM_FLAG_BASE + (parity * MAX_RANKS + source) * MAX_GEMM_BLOCKS
+            + block)
 
 
 def _padded_rows(m: int, dtype) -> int:
@@ -141,10 +217,11 @@ def gemm_ar_stream(x_local: torch.Tensor, b_local: torch.Tensor,
             raise ValueError(f"gemm_ar_stream: chunks of {nc} columns are "
                              "not whole 16-byte vectors")
         out = torch.empty((m, ncols), dtype=x.dtype, device=x.device)
+        vec_b = aligned_rows(b) and aligned_rows(b, nc)
         launch_gemm_comm(GEMM_AR_KERNEL, ws, rank, call_index, x, b, out,
                          m=m, mp=mp, k=k, ncols=nc, ldb=ncols, parts=nch,
-                         tile=gemm_tile_for(m),
-                         vec_b=aligned_rows(b) and aligned_rows(b, nc))
+                         tile=gemm_ar_route(m, k, nc, x.dtype, vec_b),
+                         vec_b=vec_b)
         return out, ws, call_index + 1
     if x_local.device.type != "cpu":
         raise ValueError(f"gemm_ar_stream: no kernel for device "
