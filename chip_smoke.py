@@ -3408,6 +3408,15 @@ def _coll_ms(torch, ctx, fn, iters: int) -> tuple:
     return "not measured: the host outran every hold", host * 1e3
 
 
+def symm_payload_bytes(ctx, tag: str) -> int:
+    """Bytes of the symmetric payload buffers tagged ``tag`` that ``ctx``
+    holds, every shape and every rank's copy (signal pads hold no
+    payload): what a collective's workspace costs the group."""
+    return sum(t.numel() * t.element_size()
+               for key, buf in ctx._symm.items()
+               if key[0] == "symm" and key[3] == tag for t in buf.tensors)
+
+
 def coll_case(torch, timer, ctx, method: str, dtype, rows: int, seed: int,
               time_it: bool, hold=None) -> dict:
     """One collective on every rank of ``ctx`` against its plain version
@@ -3520,6 +3529,7 @@ def coll_case(torch, timer, ctx, method: str, dtype, rows: int, seed: int,
             rec.update(library_every_rank(
                 timer, n, lambda: torch.cat(xp),
                 "torch.cat of the n chunks (one rank's gathered copy)"))
+            rec["symm_payload_bytes"] = symm_payload_bytes(ctx, "ag_ring")
         elif method == "reduce_scatter_ring":
             rec.update(library_every_rank(
                 timer, n, lambda: X.sum(0),
@@ -3672,9 +3682,9 @@ def phase_collectives(torch, timer, fa, pa, *, devices_for=virtual_devices,
                       ranks=COLL_RANKS, name="collectives") -> dict:
     """Every collective kernel at n = 2, 4 and 8 ranks, fp32 and bf16, at
     4-2048 rows x 4096, against its plain version (bit for bit), timed;
-    B6's push-protocol edge cases (``rs_edge_cases``) at those n and at
-    n = 3; the 200-call parity stress; a lost peer's timeout; AUTO's
-    choices;
+    B6's and B4's ring's push-protocol edge cases (``rs_edge_cases``,
+    ``ring_edge_cases``) at those n and at n = 3; the 200-call parity
+    stress; a lost peer's timeout; AUTO's choices;
     K1 and K2 at one rank's TP=4 heads (8 q, 2 kv: GQA group 4)."""
     comm, ar, rs, ag, context = coll_modules()
     from triton_distributed_tpu_torch.runtime.perf_model import chip_spec
@@ -3709,17 +3719,21 @@ def phase_collectives(torch, timer, fa, pa, *, devices_for=virtual_devices,
         seed += 1
         cases["reduce_scatter_ring"] += push_edge_cases(torch, ctx,
                                                         ("rs_ring",), seed)
+        cases["allgather_ring"] += push_edge_cases(torch, ctx, ("ag_ring",),
+                                                   seed + 50)
         if n == TP:
             stress = parity_stress(torch, ctx, bf16, 4, PARITY_CALLS)
         ctx.close()
         del ctx
         torch.cuda.empty_cache()
-    # B6 at n = 3 too: a ring whose chunks no power of two divides evenly
-    # over the ranks' reads.
+    # B6 and B4's ring at n = 3 too: chunks no power of two divides evenly
+    # over the ranks' reads, a ring of odd length.
     ctx = context.DistContext([torch.device(d) for d in devices_for(3)],
                               wait_timeout_ms=20_000)
     cases["reduce_scatter_ring"] += push_edge_cases(torch, ctx, ("rs_ring",),
                                                     seed + 50)
+    cases["allgather_ring"] += push_edge_cases(torch, ctx, ("ag_ring",),
+                                               seed + 100)
     ctx.close()
     del ctx
     torch.cuda.empty_cache()
@@ -4881,9 +4895,11 @@ def a2a_modules():
                 "triton_distributed_tpu_torch.runtime.context"))
 
 
-def a2a_inputs(torch, n: int, cap: int, dtype, kind: str, seed: int):
+def a2a_inputs(torch, n: int, cap: int, dtype, kind: str, seed: int,
+               hidden: int = A2A_H):
     """The n ranks' send slots S (n, n, cap, h) — [d, p] rank d's rows for
-    rank p — and splits (n, n, epr) int32, on the card. ``kind``: "empty"
+    rank p, h = ``hidden`` — and splits (n, n, epr) int32, on the card.
+    ``kind``: "empty"
     (one live row in the call), "ragged" (counts off every block edge),
     "full" (every slot full), "main" (the EP layer's dispatch: cap / 8
     tokens a rank, each routed to 8 distinct experts of 128 drawn
@@ -4907,7 +4923,7 @@ def a2a_inputs(torch, n: int, cap: int, dtype, kind: str, seed: int):
         splits = torch.randint(0, cap // epr + 1, (n, n, epr), generator=g,
                                dtype=torch.int32)
         splits[..., -1] = torch.clamp(splits[..., -1] - 3, min=0)
-    S = (torch.randn((n, n, cap, A2A_H), generator=torch.Generator(
+    S = (torch.randn((n, n, cap, hidden), generator=torch.Generator(
         device="cuda").manual_seed(seed), device="cuda") * 4).to(dtype)
     return S, splits.cuda()
 
@@ -4983,6 +4999,7 @@ def a2a_case(torch, timer, ctx, form: str, dtype, cap: int, kind: str,
         rec["library_ms"] = timer.ms(lambda: S.transpose(0, 1).contiguous())
         rec["library_call"] = ("S.transpose(0, 1).contiguous() of the "
                                "(n, n, cap, h) slot matrix (every row)")
+        rec["symm_payload_bytes"] = symm_payload_bytes(ctx, form)
     return rec
 
 
@@ -5237,6 +5254,172 @@ def rs_edge_cases(torch, ctx, seed: int) -> list:
     return out
 
 
+# B4's ring on the push protocol: chunks from one 16-byte vector to 4 MiB
+# a rank (rows x cols), at n = 2, 3, 4 and 8.
+RING_EDGE = {"float32": ((1, 4), (3, 12), (5, 1028), (1024, 1024)),
+             "bfloat16": ((1, 8), (3, 24), (5, 2056), (1024, 2048)),
+             "float8_e4m3fn": ((1, 16), (3, 48), (5, 4112), (1024, 4096))}
+
+
+def ring_case(torch, ctx, dtype, rows: int, cols: int, seed: int, *,
+              what: str, hold=None, calls: int = 1) -> dict:
+    """``calls`` ring AllGathers (``all_gather_local(method="ring_1d")``)
+    on every rank of ``ctx`` in one run, no host sync between them, new
+    inputs every call, each rank's output against ``ag_plain`` bit for
+    bit, every call on the kernel. The ring writes fresh outputs (it takes
+    no ``out=``): a vector it failed to write holds what the allocator
+    handed back — another call's bits, not this call's. ``hold``: (rank,
+    ns) spun on that rank's stream before each of its calls — a late
+    receiver (its senders wait for its address) and a late sender (its
+    receivers wait for its data words)."""
+    comm, _, _, ag, _ = coll_modules()
+    from triton_distributed_tpu_torch.runtime.build import current_stream
+
+    n = ctx.num_ranks
+    X = _rand(torch, (calls, n, rows, cols), dtype, seed)
+    ins = [X[:, r].contiguous().to(ctx.devices[r]) for r in range(n)]
+    k0 = comm.AG_RING_KERNEL.launches
+
+    def loop(r):
+        outs = []
+        for t in range(calls):
+            if hold is not None and r == hold[0]:
+                comm.SPIN.launch(hold[1], current_stream(ctx.devices[r]))
+            outs.append(ag.all_gather_local(ins[r][t], num_ranks=n,
+                                            method="ring_1d"))
+        return outs
+
+    got = ctx.run(loop)
+    torch.cuda.synchronize()
+    ctx.raise_on_comm_error()
+    bad = [t for t in range(calls) if not all(
+        torch.equal(_bits(torch, got[r][t].to(X.device)),
+                    _bits(torch, ag.ag_plain(list(X[t]))))
+        for r in range(n))]
+    launched = comm.AG_RING_KERNEL.launches - k0
+    return {"case": f"allgather_ring_{what}_n{n}_{_dtype_name(dtype)}"
+                    f"_{rows}x{cols}", "method": "allgather_ring", "n": n,
+            "dtype": _dtype_name(dtype), "rows": n * rows,
+            "chunk_rows": rows, "cols": cols,
+            "bytes_a_rank": rows * cols * X.element_size(), "calls": calls,
+            "hold": list(hold) if hold else None, "launches": launched,
+            "calls_wrong": bad[:8],
+            "max_abs_err": 0.0 if not bad else float("nan"),
+            "bit_identical": not bad,
+            "ok": not bad and launched == n * calls}
+
+
+def ring_edge_cases(torch, ctx, seed: int) -> list:
+    """B4's ring edge cases on ``ctx``: the chunks of RING_EDGE in fp32,
+    bf16 and e4m3; a held-back rank 0 and rank n - 1 (64 x 4096 bf16, the
+    256-row slice's chunk); PUSH_STREAM_CALLS calls without a sync."""
+    n = ctx.num_ranks
+    out = []
+    for dtype in (torch.float32, torch.bfloat16, torch.float8_e4m3fn):
+        for rows, cols in RING_EDGE[_dtype_name(dtype)]:
+            seed += 1
+            out.append(ring_case(torch, ctx, dtype, rows, cols, seed,
+                                 what="tail"))
+    for held in (0, n - 1):
+        seed += 1
+        out.append(ring_case(torch, ctx, torch.bfloat16, 64, 4096, seed,
+                             what=f"held{held}", hold=(held, PUSH_HOLD_NS)))
+    seed += 1
+    out.append(ring_case(torch, ctx, torch.bfloat16, 16, 256, seed,
+                         what="stream", calls=PUSH_STREAM_CALLS))
+    return out
+
+
+A2A_NAN_CALLS = 20
+
+
+def a2a_barrier_case(torch, ctx, dtype, cap: int, kind: str, seed: int, *,
+                     what: str, hidden: int = A2A_H, hold=None,
+                     calls: int = 1, nan_after: bool = False) -> dict:
+    """``calls`` barrier-form AllToAlls (``fast_all_to_all_local``) on
+    every rank of ``ctx`` in one run, no host sync between them, new slots
+    and counts every call (``a2a_inputs`` of ``kind``), each rank's live
+    rows and splits against ``a2a_plain`` bit for bit, every call on the
+    kernel. ``hold``: (rank, ns) spun on that rank's stream before each of
+    its calls — a late receiver and a late sender. ``nan_after``: every
+    sender fills its send buffer with NaN on its own stream right after
+    each call: a sender whose kernel ended before its stores landed, or a
+    receiver that read a send buffer after its call, would hand on NaN."""
+    comm, a2a, _, _ = a2a_modules()
+    from triton_distributed_tpu_torch.runtime.build import current_stream
+
+    n = ctx.num_ranks
+    block = a2a.default_block_rows(dtype)
+    data = [a2a_inputs(torch, n, cap, dtype, kind, seed + 1000 * t, hidden)
+            for t in range(calls)]
+    sends = [[S[r].clone().to(ctx.devices[r]) for S, _ in data]
+             for r in range(n)]
+    splits = [[spl[r].to(ctx.devices[r]) for _, spl in data]
+              for r in range(n)]
+    k0 = comm.A2A_KERNEL.launches
+
+    def loop(r):
+        outs = []
+        for t in range(calls):
+            if hold is not None and r == hold[0]:
+                comm.SPIN.launch(hold[1], current_stream(ctx.devices[r]))
+            outs.append(a2a.fast_all_to_all_local(sends[r][t], splits[r][t],
+                                                  num_ranks=n))
+            if nan_after:
+                sends[r][t].view(torch.uint8).fill_(0xFF)
+        return outs
+
+    got = ctx.run(loop)
+    torch.cuda.synchronize()
+    ctx.raise_on_comm_error()
+    bad = []
+    for t, (S, spl) in enumerate(data):
+        want, want_rs = a2a.a2a_plain(S, spl, block)
+        for d in range(n):
+            out, rs = got[d][t]
+            rows = a2a.live_rows(want_rs[d], cap, block)
+            if not torch.equal(rs.to(spl.device), want_rs[d]) or not all(
+                    torch.equal(_bits(torch, out[p, :rows[p]].to(S.device)),
+                                _bits(torch, want[d, p, :rows[p]]))
+                    for p in range(n)):
+                bad.append((t, d))
+    launched = comm.A2A_KERNEL.launches - k0
+    return {"case": f"a2a_{what}_n{n}_{_dtype_name(dtype)}_cap{cap}_{kind}",
+            "form": "a2a", "n": n, "dtype": _dtype_name(dtype), "cap": cap,
+            "hidden": hidden, "kind": kind, "block": block, "calls": calls,
+            "hold": list(hold) if hold else None, "nan_after": nan_after,
+            "launches": launched, "calls_wrong": bad[:8],
+            "max_abs_err": 0.0 if not bad else float("nan"),
+            "bit_identical": not bad,
+            "ok": not bad and launched == n * calls}
+
+
+def a2a_barrier_edge_cases(torch, ctx, seed: int) -> list:
+    """B8's barrier form on the push protocol at its edges on ``ctx`` (its
+    empty, ragged and full slots in fp32, bf16 and e4m3 run in
+    ``phase_a2a``'s own cases): a held-back rank 0 and rank n - 1 (bf16,
+    ragged, cap 256); A2A_NAN_CALLS calls with every sender's send buffer
+    filled with NaN after each and rank 0 held back 100 us before each;
+    PUSH_STREAM_CALLS calls without a sync (ragged, cap 32, h 256)."""
+    n = ctx.num_ranks
+    out = []
+    for held in (0, n - 1):
+        seed += 1
+        out.append(a2a_barrier_case(torch, ctx, torch.bfloat16, 256,
+                                    "ragged", seed, what=f"held{held}",
+                                    hold=(held, PUSH_HOLD_NS)))
+    seed += 1
+    out.append(a2a_barrier_case(torch, ctx, torch.bfloat16, 32, "ragged",
+                                seed, what="nan_after", hidden=256,
+                                calls=A2A_NAN_CALLS, hold=(0, 100_000),
+                                nan_after=True))
+    seed += 1
+    out.append(a2a_barrier_case(torch, ctx, torch.bfloat16, 32, "ragged",
+                                seed, what="stream", hidden=256,
+                                calls=PUSH_STREAM_CALLS))
+    return out
+
+
 def a2a_sentinel_case(torch, ctx, dtype, cap: int, kind: str, seed: int,
                       hold=None) -> dict:
     """One parity-stream AllToAll on every rank of ``ctx`` into outputs and
@@ -5319,17 +5502,20 @@ def a2a_edge_cases(torch, ctx, seed: int) -> list:
 
 def push_edge_cases(torch, ctx, kinds, seed: int) -> list:
     """The push protocol's edge cases for each kernel of ``kinds`` on
-    ``ctx``: B6 (``"rs_ring"``: ``rs_edge_cases``) and B8's parity stream
-    (``"a2a_parity"``: ``a2a_edge_cases``) their own; the copy kernels the
+    ``ctx``: B6 (``"rs_ring"``: ``rs_edge_cases``), B4's ring
+    (``"ag_ring"``: ``ring_edge_cases``) and B8's two forms
+    (``"a2a_parity"``: ``a2a_edge_cases``; ``"a2a"``:
+    ``a2a_barrier_edge_cases``) their own; the copy kernels the
     tails of PUSH_TAILS in fp32 and bf16, a held-back receiver and a
     held-back sender, and the 200-call stream. At one rank the loopback
     (``force_kernel``): the tails and the stream."""
     n = ctx.num_ranks
     out = []
+    own = {"rs_ring": rs_edge_cases, "ag_ring": ring_edge_cases,
+           "a2a_parity": a2a_edge_cases, "a2a": a2a_barrier_edge_cases}
     for kind in kinds:
-        if kind in ("rs_ring", "a2a_parity"):
-            edge = rs_edge_cases if kind == "rs_ring" else a2a_edge_cases
-            out += edge(torch, ctx, seed)
+        if kind in own:
+            out += own[kind](torch, ctx, seed)
             seed += 50
             continue
         for dtype in (torch.float32, torch.bfloat16):
@@ -5538,6 +5724,7 @@ def phase_a2a(torch, timer, *, devices_for=virtual_devices,
                                                  ("ag_full_mesh",), seed)
         cases["a2a_parity"] += push_edge_cases(torch, ctx, ("a2a_parity",),
                                                seed + 50)
+        cases["a2a"] += push_edge_cases(torch, ctx, ("a2a",), seed + 75)
         seed += 100
         if n == EP_RANKS:
             stress = a2a_stress(torch, ctx, torch.bfloat16, 32, A2A_CALLS)

@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
-"""Time the port's copy kernels B4's full-mesh push (``ops/allgather.py``
-``all_gather_local(method="full_mesh_push")``), B7's shift and permutation
+"""Time the port's copy kernels B4's full-mesh push and ring
+(``ops/allgather.py`` ``all_gather_local(method="full_mesh_push")`` and
+``method="ring_1d"``), B7's shift and permutation
 (``ops/p2p.py``), B12's torus AllGather and AllReduce (``ops/multi_axis.py``
 through ``all_gather_local`` / ``all_reduce_local`` over both axes), B5's
 double tree (``ops/allreduce.py`` ``method="tree"``), B6's ring
-reduce-scatter (``ops/reduce_scatter.py`` ``reduce_scatter_local``) and
-B8's parity AllToAll (``ops/all_to_all.py`` ``fast_all_to_all_stream``)
-and B4's parity AllGather (``ops/allgather.py`` ``all_gather_stream``)
+reduce-scatter (``ops/reduce_scatter.py`` ``reduce_scatter_local``),
+B8's AllToAll in both forms (``ops/all_to_all.py``
+``fast_all_to_all_local`` and ``fast_all_to_all_stream``) and B4's parity
+AllGather (``ops/allgather.py`` ``all_gather_stream``)
 of one tree at the main path's shapes on one CUDA card, each beside the
 PyTorch call that computes the same outputs.
 
@@ -17,9 +19,12 @@ pipeline stage boundary), the shift by one and a butterfly permutation;
 B12 on a (2, 4) grid of 8 ranks, the AllGather of 256 x 4096 a rank and
 the AllReduce of 16 x 4096; the tree at n = 4, 203 x 4096 (a 1 x 203
 prompt's "ar" prefill); B6 at n = 4, 256 x 4096 a rank into 64-row chunks
-(the two-shot AllReduce's first half on a 256-row prefill slice); B8's
-parity stream at n = 4, cap 32 x 2048 a slot, the splits of 4 tokens a
-rank routed top-8 over 128 experts (the EP decode's dispatch); B4's
+(the two-shot AllReduce's first half on a 256-row prefill slice); B4's
+ring at n = 4, 64 rows a rank x 4096 gathered to 256 (its second half)
+and at 512 rows a rank (2048 gathered); B8's parity stream at n = 4, cap
+32 x 2048 a slot, the splits of 4 tokens a rank routed top-8 over 128
+experts (the EP decode's dispatch), and its barrier form at cap 4096 x
+2048, 512 tokens a rank routed the same way (the EP prefill's); B4's
 parity stream at n = 4, 128 x 130 fp32 a rank (the SP decode's attention
 partials at Qwen3-8B's 32 q heads, d 128, B = 4), over one persistent
 workspace. Each case is first checked bit for bit against the tree's plain version on
@@ -33,19 +38,25 @@ slowest rank's span over CALLS (``span_ms``: an event recorded on each of
 n streams costs the card's front end about what a small call does). L2 is
 not flushed: the calls follow each other, as on the main path. The
 library call is timed both ways in the same run (its one stream held by
-``SPIN``): for the push ``torch.cat`` of the n chunks once a rank (n
-calls), for B7 one ``Y.copy_(X)`` of every rank's block, for the torus
+``SPIN``): for the push and the ring ``torch.cat`` of the n chunks once a
+rank (n calls), for B7 one ``Y.copy_(X)`` of every rank's block, for the torus
 AllGather and the parity stream ``torch.cat`` once a rank, for the AllReduces ``X.sum(0)`` once
 a rank, for B6 one ``X.sum(0)`` (it makes every rank's chunk), for B8
 ``S.transpose(0, 1).contiguous()`` of the slot matrix. The bound: the
 bytes every rank must move (each source read once, each output written
 once; B8 each slot's token rows and the splits) through one HBM at 3.35
-TB/s. Prints one JSON line a case (with each rank's output's SHA-256 —
-B8's live rows and splits —, the same in every tree), ptxas's report of
+TB/s. Each case also records the peak device memory it allocated
+(``torch.cuda.max_memory_allocated`` over the case, MiB) and the bytes of
+symmetric payload buffers its group holds. Prints one JSON line a case
+(with each rank's output's SHA-256 — B8's live rows and splits —, the
+same in every tree), ptxas's report of
 ``collectives.cu``, ``p2p.cu``, ``multi_axis.cu`` and ``all_to_all.cu``
 (registers, spills, shared memory), the launch floor (a kernel that exits
 at once, on each rank's stream, timed both ways), then the card's name and
-power limit. ``--only NAME[,NAME]`` runs those cases alone.
+power limit. ``--only NAME[,NAME]`` runs those cases alone;
+``--ring-block KIB[,KIB]`` runs the ring's cases again at each block size
+(KiB of a rank's chunk a block; a tree whose ring launches through
+``launch_push``), the design sweep of its grid.
 
 ``--paths`` also reads the walls of the paths that run these kernels, from
 the tree's own ``chip_smoke.py``: ``phase_pp_forward`` on Qwen3-8B (random
@@ -56,17 +67,20 @@ tree AllReduces a rank): its wall, and the tree kernel's device time a
 prefill and rank from ``torch.profiler``; a 256-row prefill slice on 4
 ranks (``ServingEngine(max_batch=4, prefill_chunk=256)`` on Qwen3-8B, a
 256-token prompt, one new token: 72 two-shot AllReduces a rank, each a B6
-and a B4 ring launch), its wall and B6's device time a slice and rank;
-and the EP layer's decode stream (``chip_smoke.ep_run`` over EP_LAYERS
-random bf16 layers at Qwen3-30B-A3B's MoE widths, 4 tokens a rank, 4
-ranks), its ms a layer and B8's device time a layer and rank.
+and a B4 ring launch), its wall and B6's and the ring's device time a
+slice and rank; and the EP layer (``chip_smoke.ep_run`` over EP_LAYERS
+random bf16 layers at Qwen3-30B-A3B's MoE widths, 4 ranks): its decode
+stream (4 tokens a rank), its ms a layer and the parity form's device
+time a layer and rank, and its barrier-form prefill run (512 tokens a
+rank), its ms a layer and the barrier form's device time a layer and
+rank.
 
 To compare two commits on one card, unpack the other one's tree with
 ``git archive`` into a git-ignored directory and run, in one call, parent,
 change, change, parent:
 
     python3 scripts/time_port_copy.py [--tree DIR] [--label NAME] [--paths]
-                                      [--only NAME,...]
+                                      [--only NAME,...] [--ring-block KIB,...]
 """
 import argparse
 import hashlib
@@ -90,7 +104,10 @@ CASES = [("ag_full_mesh_n2", "push", 2, 1024, 2048),
          ("ar_torus_2x4", "ar_torus", 8, 16, 4096),
          ("ar_tree_n4", "tree", 4, 203, 4096),
          ("rs_ring_n4", "rs", 4, 256, 4096),
+         ("ag_ring_n4", "ring", 4, 64, 4096),
+         ("ag_ring_n4_2048", "ring", 4, 512, 4096),
          ("a2a_parity_n4", "a2a", 4, 32, 2048),
+         ("a2a_n4", "a2a_barrier", 4, 4096, 2048),
          ("ag_parity_n4", "agp", 4, 128, 130)]
 GRID_2D = (2, 4)
 TREE_PROMPT = 203
@@ -179,10 +196,29 @@ def library_ms(torch, comm, build, fn, every: bool = True) -> float:
     raise RuntimeError("the enqueue outlasted every hold")
 
 
+def memory_start(torch) -> int:
+    """Reset the peak counter; the bytes allocated now."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def memory_record(torch, ctx, base: int) -> dict:
+    """The case's peak device memory over ``base`` (MiB) and the bytes of
+    the symmetric payload buffers its group holds (signal pads excluded),
+    every rank's copy."""
+    symm = sum(t.numel() * t.element_size()
+               for key, buf in ctx._symm.items() if key[0] == "symm"
+               for t in buf.tensors)
+    return {"peak_mib": (torch.cuda.max_memory_allocated() - base) / 2**20,
+            "symm_payload_mib": symm / 2**20}
+
+
 def copy_case(torch, mods, name, kind, n, rows, cols, seed) -> dict:
     """One main-shape case: checked bit for bit on every rank, then
     timed beside its library call."""
     ag, p2p, comm, build, context, ar, ma, rs, _ = mods
+    base = memory_start(torch)
     if kind in ("ag_torus", "ar_torus"):
         ctx = context.DistContext([torch.device("cuda:0")] * n,
                                   mesh_shape=GRID_2D,
@@ -196,11 +232,13 @@ def copy_case(torch, mods, name, kind, n, rows, cols, seed) -> dict:
          * 4).bfloat16()
     xs = list(X)
     B = rows * cols * X.element_size()
-    if kind in ("push", "ag_torus"):
-        if kind == "push":
+    if kind in ("push", "ring", "ag_torus"):
+        if kind in ("push", "ring"):
+            method = "full_mesh_push" if kind == "push" else "ring_1d"
+
             def fn(r):
                 return ag.all_gather_local(xs[r], num_ranks=n,
-                                           method="full_mesh_push")
+                                           method=method)
         else:
             def fn(r):
                 return ag.all_gather_local(xs[r], axis=("dcn", "tp"),
@@ -262,10 +300,11 @@ def copy_case(torch, mods, name, kind, n, rows, cols, seed) -> dict:
                                  .tobytes()).hexdigest()[:16] for o in got})
     ms, hold = spaced_ms(torch, ctx, comm, build, fn)
     span, _ = spaced_ms(torch, ctx, comm, build, fn, every=False)
+    mem = memory_record(torch, ctx, base)
     ctx.close()
     return {"case": name, "ranks": n, "rows": rows, "cols": cols,
             "dtype": "bfloat16", "bit_identical": same, "ok": same,
-            "sha256_16": sha,
+            "sha256_16": sha, **mem,
             "ms": ms, "span_ms": span, "hold": hold,
             "library_ms": library_ms(torch, comm, build, lib),
             "library_span_ms": library_ms(torch, comm, build, lib,
@@ -291,23 +330,29 @@ def a2a_inputs(torch, n: int, cap: int, h: int, seed: int):
     return S, splits.cuda()
 
 
-def a2a_copy_case(torch, mods, name, n, cap, h, seed) -> dict:
-    """B8's parity stream at its main shape: every rank's live rows and
-    splits checked bit for bit against ``a2a_plain``, then timed beside
-    ``S.transpose(0, 1).contiguous()``."""
+def a2a_copy_case(torch, mods, name, n, cap, h, seed,
+                  stream: bool = True) -> dict:
+    """B8 at a main shape — the parity stream (``stream``) or the barrier
+    form: every rank's live rows and splits checked bit for bit against
+    ``a2a_plain``, then timed beside ``S.transpose(0, 1).contiguous()``."""
     comm, build, context, a2a = mods[2], mods[3], mods[4], mods[8]
+    base = memory_start(torch)
     ctx = context.DistContext([torch.device("cuda:0")] * n,
                               wait_timeout_ms=20_000)
     S, spl = a2a_inputs(torch, n, cap, h, seed)
     block = a2a.default_block_rows(S.dtype)
-    ws, _ = a2a.a2a_stream_workspace(n, cap, h, S.dtype, ctx=ctx,
-                                     tag=f"time-{name}")
-    idx = list(ws.epochs)
+    if stream:
+        ws, _ = a2a.a2a_stream_workspace(n, cap, h, S.dtype, ctx=ctx,
+                                         tag=f"time-{name}")
+        idx = list(ws.epochs)
 
-    def fn(r):
-        out, rsp, _, idx[r] = a2a.fast_all_to_all_stream(
-            S[r], spl[r], ws, idx[r], num_ranks=n)
-        return out, rsp
+        def fn(r):
+            out, rsp, _, idx[r] = a2a.fast_all_to_all_stream(
+                S[r], spl[r], ws, idx[r], num_ranks=n)
+            return out, rsp
+    else:
+        def fn(r):
+            return a2a.fast_all_to_all_local(S[r], spl[r], num_ranks=n)
 
     got = ctx.run(fn)
     torch.cuda.synchronize()
@@ -329,12 +374,14 @@ def a2a_copy_case(torch, mods, name, n, cap, h, seed) -> dict:
                   + spl.numel() * spl.element_size())
     ms, hold = spaced_ms(torch, ctx, comm, build, fn)
     span, _ = spaced_ms(torch, ctx, comm, build, fn, every=False)
+    mem = memory_record(torch, ctx, base)
     ctx.close()
 
     def lib():
         S.transpose(0, 1).contiguous()
     return {"case": name, "ranks": n, "cap": cap, "hidden": h,
             "dtype": "bfloat16", "token_rows": token_rows,
+            "form": "stream" if stream else "barrier", **mem,
             "bit_identical": same, "ok": same, "sha256_16": sorted(sha),
             "ms": ms, "span_ms": span, "hold": hold,
             "library_ms": library_ms(torch, comm, build, lib),
@@ -549,34 +596,44 @@ def slice_path_case(torch, mods) -> dict:
     for _ in range(2):
         one()
     walls = []
-    k0 = comm.RS_RING_KERNEL.launches
+    k0 = (comm.RS_RING_KERNEL.launches, comm.AG_RING_KERNEL.launches)
     for _ in range(5):
         t0 = time.perf_counter()
         one()
         walls.append((time.perf_counter() - t0) * 1e3)
-    launches = (comm.RS_RING_KERNEL.launches - k0) // 5
+    launches = (comm.RS_RING_KERNEL.launches - k0[0]) // 5
+    ag_launches = (comm.AG_RING_KERNEL.launches - k0[1]) // 5
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         one()
     rs_ms, calls = _device_ms(prof, "rs_ring_kernel")
+    ag_ms, ag_calls = _device_ms(prof, "ag_ring_kernel")
     eng.check_comm()
     del se, eng
     ctx.close()
+    want = n * 2 * QWEN3_8B.num_layers
     return {"case": "slice_path", "prompt": SLICE, "ranks": n,
             "request_wall_ms": walls,
             "request_wall_ms_median": statistics.median(walls),
             "rs_launches_per_slice": launches,
             "rs_kernels_profiled": calls,
             "rs_device_ms_per_slice_per_rank": rs_ms / n,
-            "ok": launches == n * 2 * QWEN3_8B.num_layers}
+            "ag_ring_launches_per_slice": ag_launches,
+            "ag_ring_kernels_profiled": ag_calls,
+            "ag_ring_device_ms_per_slice_per_rank": ag_ms / n,
+            "ok": launches == want and ag_launches == want}
 
 
 def ep_path_case(torch, root) -> dict:
-    """The EP layer's decode stream on 4 virtual ranks through the tree's
+    """The EP layer on 4 virtual ranks through the tree's
     ``chip_smoke.ep_run``: EP_LAYERS random bf16 layers at Qwen3-30B-A3B's
-    MoE widths, 4 tokens a rank, 4 steps (two parity AllToAlls a layer a
-    rank, each layer held against the one-rank form), its ms a layer; then
-    one step under ``torch.profiler``: B8's device time a layer and
+    MoE widths. Its decode stream, 4 tokens a rank, 4 steps (two parity
+    AllToAlls a layer a rank, each layer held against the one-rank form),
+    its ms a layer, then one step under ``torch.profiler``: the parity
+    form's device time a layer and rank. Its barrier-form prefill run,
+    ``chip_smoke.EP_PREFILL_TOKENS`` a rank (two barrier AllToAlls a layer
+    a rank at cap 4096), its ms a layer after a warm run, then one run
+    under the profiler: the barrier form's device time a layer and
     rank."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -605,6 +662,15 @@ def ep_path_case(torch, root) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         cs.ep_run(torch, ep, layers, ctx, x, steps=1, name="prof", **kw)
     a2a_ms, calls = _device_ms(prof, "a2a")
+    xp = torch.randn((n * cs.EP_PREFILL_TOKENS, C.hidden_size), generator=g,
+                     device="cuda").to(torch.bfloat16)
+    kw["stream"] = False
+    cs.ep_run(torch, ep, layers, ctx, xp, steps=1, name="pwarm", **kw)
+    pre = cs.ep_run(torch, ep, layers, ctx, xp, steps=1, name="ptime", **kw)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        cs.ep_run(torch, ep, layers, ctx, xp, steps=1, name="pprof", **kw)
+    bar_ms, bar_calls = _device_ms(prof, "a2a_kernel")
     ctx.close()
     return {"case": "ep_path", "layers": EP_LAYERS, "ranks": n,
             "tokens_per_rank": cs.EP_DECODE_TOKENS,
@@ -613,7 +679,35 @@ def ep_path_case(torch, root) -> dict:
             "a2a_kernels_profiled": calls,
             "a2a_device_ms_per_layer_per_rank": a2a_ms / EP_LAYERS / n,
             "vs_one_rank": rec["vs_one_rank"],
-            "ok": calls == 2 * n * EP_LAYERS}
+            "prefill_tokens_per_rank": cs.EP_PREFILL_TOKENS,
+            "prefill_cap": pre["cap"],
+            "prefill_ep_ms_per_layer": pre["ep_ms_per_layer"],
+            "prefill_a2a_launches": pre["launches"],
+            "prefill_a2a_kernels_profiled": bar_calls,
+            "prefill_a2a_device_ms_per_layer_per_rank":
+                bar_ms / EP_LAYERS / n,
+            "prefill_vs_one_rank": pre["vs_one_rank"],
+            "ok": calls == 2 * n * EP_LAYERS
+            and bar_calls == 2 * n * EP_LAYERS}
+
+
+_RING_LAUNCH = {}
+
+
+def ring_block(ag, comm, nbytes) -> None:
+    """Make the ring's launches take a block per ``nbytes`` of a rank's
+    chunk (``launch_push``'s ``block_bytes``); None restores the tree's
+    own. Other kernels' launches are untouched."""
+    real = _RING_LAUNCH.setdefault("real", ag.launch_push)
+    if nbytes is None:
+        ag.launch_push = real
+        return
+
+    def launch(kernel, *a, **k):
+        if kernel is comm.AG_RING_KERNEL:
+            k["block_bytes"] = nbytes
+        return real(kernel, *a, **k)
+    ag.launch_push = launch
 
 
 def main() -> int:
@@ -625,6 +719,9 @@ def main() -> int:
                          "run on")
     ap.add_argument("--only", default=None,
                     help="comma-separated case names to run (default all)")
+    ap.add_argument("--ring-block", default=None,
+                    help="comma-separated KiB a block: run the ring's cases "
+                         "again at each (the grid sweep)")
     args = ap.parse_args()
     only = set(args.only.split(",")) if args.only else None
     root = os.path.abspath(args.tree)
@@ -669,15 +766,24 @@ def main() -> int:
     mods = (ag, p2p, comm, build, context, ar, ma, rs, a2a)
     failed = []
     cases = [c for c in CASES if only is None or c[0] in only]
-    for i, (name, kind, n, rows, cols) in enumerate(CASES):
-        if (name, kind, n, rows, cols) not in cases:
-            continue
-        if kind == "a2a":
-            rec = a2a_copy_case(torch, mods, name, n, rows, cols, 950 + i)
+    runs = [(i, c, None) for i, c in enumerate(CASES) if c in cases]
+    for kib in (args.ring_block.split(",") if args.ring_block else ()):
+        runs += [(i, c, int(kib)) for i, c in enumerate(CASES)
+                 if c in cases and c[1] == "ring"]
+    for i, (name, kind, n, rows, cols), kib in runs:
+        if kib is not None:
+            ring_block(ag, comm, kib << 10)
+            name = f"{name}_block{kib}k"
+        if kind in ("a2a", "a2a_barrier"):
+            rec = a2a_copy_case(torch, mods, name, n, rows, cols, 950 + i,
+                                stream=kind == "a2a")
         elif kind == "agp":
             rec = agp_copy_case(torch, mods, name, n, rows, cols, 950 + i)
         else:
             rec = copy_case(torch, mods, name, kind, n, rows, cols, 950 + i)
+        if kib is not None:
+            ring_block(ag, comm, None)
+            rec["ring_block_bytes"] = kib << 10
         rec["tree"] = label
         print(json.dumps(rec), flush=True)
         if not rec["ok"]:

@@ -107,10 +107,11 @@ def test_reduce_scatter_vs_jax(n, dtype):
                                       err_msg=f"rank {r}")
 
 
+@pytest.mark.parametrize("rows", [16, 48])
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("n", NS)
-def test_all_gather_ring_vs_jax(n, dtype):
-    jx, tx = _data((n * 16, 128), dtype, 30 + n)
+def test_all_gather_ring_vs_jax(n, dtype, rows):
+    jx, tx = _data((n * rows, 128), dtype, 30 + n + rows - 16)
     want = _bits(jall_gather(jx, jctx(n), method="ring_1d", stacked=True))
     got = tag.all_gather(tx, tctx(n), method="ring_1d")
     for r, out in enumerate(got):

@@ -1,24 +1,26 @@
 // The low-latency AllToAll of the expert-parallel MoE layer (kernel B8):
-// the barrier form on dist.cuh, the parity stream on push.cuh.
+// both forms on the push protocol of push.cuh, one body (a2a_push) under
+// two kernels and entries, so that a profile and the launch counters tell
+// them apart.
 //
-//  a2a         ops/all_to_all.py:65 _a2a_kernel — barrier, then for every
-//              peer p (in the order me+1 ... me-1) copy ceil(rows_p /
-//              block) blocks of `block` rows of send slot p into slot `me`
-//              of p's symmetric receive buffer, with the splits row of
-//              slot p beside it; tell each peer, wait for the n-1 peers,
-//              copy each received slot's live rows and its splits row out.
+//  a2a         ops/all_to_all.py:65 _a2a_kernel — the barrier form (the EP
+//              prefill's dispatch and combine, cap 4096 x 2048 a slot):
+//              the TPU kernel's entry barrier protects its receive slots
+//              across calls, then each rank copies ceil(rows_p / block)
+//              blocks of send slot p into slot `me` of rank p's slots and
+//              counts the DMAs. Here no entry barrier, receive buffer or
+//              copy-out: each receiver's block 0 publishes its fresh output
+//              and splits (two address words) with the call's epoch, each
+//              sender's block b writes its share of every slot's live
+//              vectors straight into slot `me` of each receiver's output
+//              (its own slot locally), block 0 its splits row into row `me`
+//              of each receiver's splits, then releases its data word to
+//              every peer, empty slots included; the receiver's block b
+//              waits for the n-1 data words of block b.
 //  a2a_push    ops/all_to_all.py:180 _a2a_parity_kernel — the stream form
-//              (no barrier; the reference's two parity slabs) on the push
-//              protocol of push.cuh: each receiver's block 0 publishes its
-//              fresh output and splits to every sender (two address words,
-//              the call's epoch, call index + 1, as the release flag);
-//              each sender's block b writes its share of slot p's live
-//              blocks straight into slot `me` of receiver p's output (its
-//              own slot locally), block 0 its splits row into row `me` of
-//              p's splits, then releases its data word to every peer,
-//              empty slots included; the receiver's block b waits for the
-//              n-1 data words of block b, and the call is done — no
-//              parity slab and no copy-out.
+//              (the EP decode's; the reference's two parity slabs, no
+//              barrier): the same body over the stream's own pad, whose
+//              epochs are the call index + 1.
 //
 // Slot layout (the JAX package's contract): send and receive buffers are
 // (n, cap, row) with cap % block == 0; slot p holds the rows for / from
@@ -29,29 +31,29 @@
 // receiver learns its counts from the kernel: the JAX package exchanges
 // them through an XLA all_to_all instead and counts DMA completions.
 //
-// Stream safety is push.cuh's: the outputs are fresh every call, so no
-// payload buffer is reused; the reused words are the pad's, and only grow.
-// A sender of call t+1 reads a receiver's addresses only after its ready
-// word reached t+1, which the receiver stores after the new addresses; the
-// receiver reaches call t+1 only after every sender's call-t data word,
-// i.e. after each one read call t's addresses. The host refuses a call
-// index out of sequence (ops/all_to_all.fast_all_to_all_stream).
+// Safety across calls is push.cuh's: the outputs are fresh every call, so
+// no payload buffer is reused; the reused words are the pad's, and only
+// grow. A sender of call t+1 reads a receiver's addresses only after its
+// ready word reached t+1, which the receiver stores after the new
+// addresses; the receiver reaches call t+1 only after every sender's
+// call-t data word, i.e. after each one read call t's addresses. A
+// sender's kernel ends only after its own stores were fenced and every
+// peer's data words arrived, so a caller may overwrite its send buffer
+// once the call is done. The host refuses a stream call index out of
+// sequence (ops/all_to_all.fast_all_to_all_stream).
 //
 // What bounds it: bytes — a copy. Each live row is read once from the send
-// buffer and written once (the barrier form writes it into the peer's
-// slot, then reads and writes it again in the copy-out); on one card with
-// virtual ranks all of it goes through one HBM. Decode-sized payloads (a
-// few 16-row blocks a slot) are bound by the launch and the flag round
-// trip instead, so the stream form makes one hop behind one flag. Both
-// move only the live blocks (traffic follows the real token count, not
-// cap), 16 bytes a thread, over a grid the same on every rank (sized by
-// cap and the row, which every rank shares): the barrier form's at most
-// kMaxBlocks blocks, the stream form's push_grid over the send buffer at a
-// block per 16 KiB (at most 1/r of the SMs: a latency-bound decode call
-// gains from more, smaller shares), kUnroll loads in flight a thread,
-// across slot edges; block b of every rank signals and waits only for
-// block b of its peers, so no grid-wide barrier, and virtual ranks on one
-// card never take the SMs their peers need.
+// buffer and written once into its receiver's output; on one card with
+// virtual ranks all of it goes through one HBM. Both forms move only the
+// live blocks (traffic follows the real token count, not cap), 16 bytes a
+// thread, loads in flight a thread across slot edges, over a grid the host
+// sizes by the send buffer (cap and the row, which every rank shares, so
+// the same on every rank; at most 1/r of the SMs): the barrier form,
+// bandwidth-bound at the prefill's ~128 MiB of live rows through the card,
+// a block per 64 KiB (push_grid's default, 33 blocks at the cap) and 16
+// loads a thread; the stream form a block per 16 KiB (a latency-bound
+// decode call gains from more, smaller shares) and 8. Block b of every rank signals and waits only
+// for block b of its peers, so no grid-wide barrier.
 
 #include <cuda_runtime.h>
 
@@ -72,7 +74,6 @@ struct Slots {
   int cap;
   int block;
   int epr;
-  int spl_stride;          // ints per splits row in the barrier workspace
 };
 
 __device__ __forceinline__ long long slot_bytes(const Slots& s) {
@@ -87,81 +88,18 @@ __device__ __forceinline__ int whole_blocks(long long rows, int cap,
   return (int)((rows + block - 1) / block) * block;
 }
 
-// Live rows of a slot: whole_blocks of its splits row's sum.
-__device__ __forceinline__ int live_rows(const int* splits, int epr,
-                                         int cap, int block) {
-  long long rows = 0;
-  for (int j = 0; j < epr; ++j) rows += __ldcg(splits + j);
-  return whole_blocks(rows, cap, block);
-}
-
-// Copy this block's share of `rows` rows (16-byte vectors) src -> dst.
-__device__ __forceinline__ void copy_rows(char* dst, const char* src,
-                                          int rows, long long row_bytes) {
-  long long v0, v1;
-  block_range(rows * row_bytes / 16, &v0, &v1);
-  put(reinterpret_cast<uint4*>(dst), reinterpret_cast<const uint4*>(src),
-      v0, v1);
-}
-
-// The barrier form over the symmetric receive buffer (n slots, then n
-// splits rows of spl_stride int32).
-__global__ void __launch_bounds__(kThreads) a2a_kernel(Group g, Slots s) {
-  __shared__ int rows_s[kMaxRanks];
-  const int n = g.n, me = g.rank;
-  if (!barrier_all(g)) return;
-  const long long sb = slot_bytes(s);
-  const int base = kStepBase + blockIdx.x * kMaxRanks;
-  if (threadIdx.x < n)
-    rows_s[threadIdx.x] =
-        live_rows(s.send_splits + threadIdx.x * s.epr, s.epr, s.cap, s.block);
-  __syncthreads();
-  // Push: slot p of the send buffer into slot me of p's workspace, and the
-  // splits row beside it (every block writes the same row: the receiver's
-  // block b reads it after block b's flag).
-  for (int i = 1; i < n; ++i) {
-    const int p = (me + i) % n;
-    char* ws = peer_base(g, p);
-    copy_rows(ws + me * sb, s.send + p * sb, rows_s[p], s.row_bytes);
-    int* spl = reinterpret_cast<int*>(ws + n * sb) + me * s.spl_stride;
-    for (int j = threadIdx.x; j < s.epr; j += blockDim.x)
-      spl[j] = s.send_splits[p * s.epr + j];
-  }
-  // Own slot: straight to the output.
-  copy_rows(s.out + me * sb, s.send + me * sb, rows_s[me], s.row_bytes);
-  if (blockIdx.x == 0)
-    for (int j = threadIdx.x; j < s.epr; j += blockDim.x)
-      s.out_splits[me * s.epr + j] = s.send_splits[me * s.epr + j];
-  signal_peers(g, base, g.epoch);
-  if (!wait_peers(g, base, g.epoch)) return;
-  // Copy out: each peer's slot, as many rows as its splits row says.
-  const char* ws = peer_base(g, me);
-  const int* spl = reinterpret_cast<const int*>(ws + n * sb);
-  if (threadIdx.x < n && threadIdx.x != me)
-    rows_s[threadIdx.x] = live_rows(spl + threadIdx.x * s.spl_stride, s.epr,
-                                    s.cap, s.block);
-  __syncthreads();
-  for (int i = 1; i < n; ++i) {
-    const int q = (me + i) % n;
-    copy_rows(s.out + q * sb, ws + q * sb, rows_s[q], s.row_bytes);
-    if (blockIdx.x == 0)
-      for (int j = threadIdx.x; j < s.epr; j += blockDim.x)
-        s.out_splits[q * s.epr + j] = __ldcg(spl + q * s.spl_stride + j);
-  }
-}
-
-// The stream form on the push protocol. L: the pad's address, ready and
+// Both forms' body on the push protocol. L: the pad's address, ready and
 // data words; `saddr + j`: receiver j's splits address (sender's pad).
 // Thread j resolves receiver j's output and splits (its own locally). The
 // live vectors of every slot, in write order (its own slot first, then
 // me+1 ... me-1), make one index space; block b copies its b-th share of
-// it, kUnroll loads in flight a thread across slot edges, so a decode
-// call's few 16-row blocks a slot are one round of loads, not one a slot.
-template <bool SYS>
-__global__ void __launch_bounds__(tdt::push::kThreads)
-    a2a_push_kernel(Group g, tdt::push::Layout L, int saddr, Slots s) {
+// it, U loads in flight a thread across slot edges, so a decode call's few
+// 16-row blocks a slot are one round of loads, not one a slot.
+template <bool SYS, int U>
+__device__ __forceinline__ void a2a_push(const Group& g,
+                                         const tdt::push::Layout& L,
+                                         int saddr, const Slots& s) {
   namespace pu = tdt::push;
-  constexpr int U = pu::kUnroll;
   __shared__ uint4* dst[kMaxRanks];
   __shared__ int* sdst[kMaxRanks];
   __shared__ int cnt[kMaxRanks];             // tokens for receiver j
@@ -236,13 +174,32 @@ __global__ void __launch_bounds__(tdt::push::kThreads)
   pu::wait_data<SYS>(g, L, all);
 }
 
-int grid_for(long long nvec) {
-  // A block per 1024 vectors (16 KiB) of one full slot, 1..kMaxBlocks: the
-  // same on every rank (cap and the row are), which the per-block flags
-  // need.
-  long long g = (nvec + 1023) / 1024;
-  return (int)(g < 1 ? 1 : (g > kMaxBlocks ? kMaxBlocks : g));
+// The barrier form's loads in flight a thread: the prefill's ~128 MiB of
+// live rows are bandwidth-bound, and at cap 4096 x 2048 bf16 on 4 ranks 16
+// loads measured 0.0651 ms a call as a span against 0.0709-0.0713 at 8
+// (126 registers against 70); 32 loads 0.0658, 16 at 512 threads 0.0640
+// and 8 at 1024 threads 0.0638 (a block filling an SM's registers, or
+// spilling) added nothing to keep (H100 80GB HBM3, 700 W;
+// scripts/time_port_copy.py, PERF.md §6 row 11).
+constexpr int kBarrierUnroll = 2 * tdt::push::kUnroll;
+
+// The barrier form: its own kernel, so that a profile tells the forms
+// apart.
+template <bool SYS>
+__global__ void __launch_bounds__(tdt::push::kThreads)
+    a2a_kernel(Group g, tdt::push::Layout L, int saddr, Slots s) {
+  a2a_push<SYS, kBarrierUnroll>(g, L, saddr, s);
 }
+
+// The stream form: a decode call's few rows a slot are one round of
+// loads at push.cuh's kUnroll.
+template <bool SYS>
+__global__ void __launch_bounds__(tdt::push::kThreads)
+    a2a_push_kernel(Group g, tdt::push::Layout L, int saddr, Slots s) {
+  a2a_push<SYS, tdt::push::kUnroll>(g, L, saddr, s);
+}
+
+typedef void (*A2AKernel)(Group, tdt::push::Layout, int, Slots);
 
 bool bad_slots(int rank, int n, long long row_bytes, int cap, int block,
                int epr) {
@@ -252,7 +209,7 @@ bool bad_slots(int rank, int n, long long row_bytes, int cap, int block,
 
 Slots make_slots(const void* send, const void* send_splits, void* out,
                  void* out_splits, long long row_bytes, int cap, int block,
-                 int epr, int spl_stride) {
+                 int epr) {
   Slots s;
   s.send = static_cast<const char*>(send);
   s.send_splits = static_cast<const int*>(send_splits);
@@ -262,47 +219,18 @@ Slots make_slots(const void* send, const void* send_splits, void* out,
   s.cap = cap;
   s.block = block;
   s.epr = epr;
-  s.spl_stride = spl_stride;
   return s;
 }
 
-}  // namespace
-
-extern "C" {
-
-// send / out: (n, cap, row_bytes) bytes, 16-byte aligned; send_splits /
-// out_splits: (n, epr) int32; the symmetric workspace: n slots of cap rows
-// then n splits rows of spl_stride int32. Every entry returns its
-// cudaError_t.
-int tdt_a2a(const void* table, const void* sig_table, void* err, int rank,
-            int n, unsigned long long epoch, long long timeout_ns,
-            const void* send, const void* send_splits, void* out,
-            void* out_splits, long long row_bytes, int cap, int block,
-            int epr, int spl_stride, cudaStream_t stream) {
-  if (bad_slots(rank, n, row_bytes, cap, block, epr) || spl_stride < epr ||
-      spl_stride % 4)
-    return cudaErrorInvalidValue;
-  const Group g = make_group(table, sig_table, err, rank, n, epoch,
-                             timeout_ns);
-  const Slots s = make_slots(send, send_splits, out, out_splits, row_bytes,
-                             cap, block, epr, spl_stride);
-  a2a_kernel<<<grid_for(cap * row_bytes / 16), kThreads, 0, stream>>>(g, s);
-  return cudaGetLastError();
-}
-
-// The stream form: send / out (this rank's fresh output) and the splits as
-// tdt_a2a's; epoch: the call index + 1. grid (push_grid over the send
-// buffer), sys (the flags' scope: 1 when a peer is another card) and the
-// pad layout (addr, splits, ready, data, stride: ops/_comm.A2ALayout) come
-// from the host (ops/_comm.launch_push), the same on every rank. n = 1 is
-// the loopback (force_kernel): the copy of its own slot.
-int tdt_a2a_parity(const void* table, const void* sig_table, void* err,
-                   int rank, int n, unsigned long long epoch,
-                   long long timeout_ns, const void* send, void* out,
-                   long long row_bytes, const void* send_splits,
-                   void* out_splits, int cap, int block, int epr, int grid,
-                   int sys, int addr, int splits, int ready, int data,
-                   int stride, cudaStream_t stream) {
+// One launch of either form, its arguments checked: the slots' shape and
+// the host's layout inside the pad (addr, then splits, then ready).
+int launch_a2a(A2AKernel gpu_k, A2AKernel sys_k, const void* table,
+               const void* sig_table, void* err, int rank, int n,
+               unsigned long long epoch, long long timeout_ns,
+               const void* send, void* out, long long row_bytes,
+               const void* send_splits, void* out_splits, int cap,
+               int block, int epr, int grid, int sys, int addr, int splits,
+               int ready, int data, int stride, cudaStream_t stream) {
   const tdt::push::Layout L{addr, ready, data, stride};
   if (bad_slots(rank, n, row_bytes, cap, block, epr) ||
       tdt::push::bad_layout(L, n, grid) || splits < addr + n ||
@@ -311,14 +239,48 @@ int tdt_a2a_parity(const void* table, const void* sig_table, void* err,
   const Group g = make_group(table, sig_table, err, rank, n, epoch,
                              timeout_ns);
   const Slots s = make_slots(send, send_splits, out, out_splits, row_bytes,
-                             cap, block, epr, epr);
-  if (sys)
-    a2a_push_kernel<true><<<grid, tdt::push::kThreads, 0, stream>>>(
-        g, L, splits, s);
-  else
-    a2a_push_kernel<false><<<grid, tdt::push::kThreads, 0, stream>>>(
-        g, L, splits, s);
+                             cap, block, epr);
+  const A2AKernel k = sys ? sys_k : gpu_k;
+  k<<<grid, tdt::push::kThreads, 0, stream>>>(g, L, splits, s);
   return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// send / out (this rank's fresh output): (n, cap, row_bytes) bytes,
+// 16-byte aligned; send_splits / out_splits: (n, epr) int32. grid
+// (push_grid over the send buffer), sys (the flags' scope: 1 when a peer
+// is another card) and the pad layout (addr, splits, ready, data, stride:
+// ops/_comm.A2ALayout) come from the host (ops/_comm.launch_push), the same
+// on every rank. Every entry returns its cudaError_t. The barrier form at
+// n = 1 is never launched (the wrapper returns its input).
+int tdt_a2a(const void* table, const void* sig_table, void* err, int rank,
+            int n, unsigned long long epoch, long long timeout_ns,
+            const void* send, void* out, long long row_bytes,
+            const void* send_splits, void* out_splits, int cap, int block,
+            int epr, int grid, int sys, int addr, int splits, int ready,
+            int data, int stride, cudaStream_t stream) {
+  return launch_a2a(a2a_kernel<false>, a2a_kernel<true>, table, sig_table,
+                    err, rank, n, epoch, timeout_ns, send, out, row_bytes,
+                    send_splits, out_splits, cap, block, epr, grid, sys,
+                    addr, splits, ready, data, stride, stream);
+}
+
+// The stream form, as tdt_a2a; epoch: the call index + 1 (the pad's). n =
+// 1 is the loopback (force_kernel): the copy of its own slot.
+int tdt_a2a_parity(const void* table, const void* sig_table, void* err,
+                   int rank, int n, unsigned long long epoch,
+                   long long timeout_ns, const void* send, void* out,
+                   long long row_bytes, const void* send_splits,
+                   void* out_splits, int cap, int block, int epr, int grid,
+                   int sys, int addr, int splits, int ready, int data,
+                   int stride, cudaStream_t stream) {
+  return launch_a2a(a2a_push_kernel<false>, a2a_push_kernel<true>, table,
+                    sig_table, err, rank, n, epoch, timeout_ns, send, out,
+                    row_bytes, send_splits, out_splits, cap, block, epr, grid,
+                    sys, addr, splits, ready, data, stride, stream);
 }
 
 }  // extern "C"

@@ -33,10 +33,17 @@
 //                owner of call t+1 reads a source's address only after
 //                the source's ready word reached t+1, and a source reaches
 //                call t+1 only after every owner released call t.
-//  ag_ring       ops/allgather.py:91 _ag_ring_kernel — ring all-gather
-//                through a symmetric gather buffer that doubles as the
-//                transport; each rank forwards the chunk it received
-//                last step, then copies the gathered buffer out.
+//  ag_ring       ops/allgather.py:91 _ag_ring_kernel — the ring
+//                all-gather (the two-shot AllReduce's second half), on the
+//                push protocol in one hop: the full-mesh push's body
+//                (ag_push) under the ring's own kernel and entry. The TPU
+//                ring forwards each chunk n-1 times for a torus's links; on
+//                one card every byte goes through one HBM, and behind
+//                NVSwitch every pair of cards has the same path, so a
+//                rank sends its n-1 copies either way and the ring's n-2
+//                dependent hops (a flag round trip each), its entry barrier,
+//                its gather buffer and its copy-out bought nothing. The
+//                output is the ring's bit for bit (a copy has no rounding).
 //  ag_full_mesh  ops/allgather.py:66 _ag_full_mesh_push_kernel — on the
 //                push protocol of push.cuh: every rank publishes its
 //                fresh output to every peer, then writes its chunk
@@ -84,14 +91,20 @@
 // decode step's 4 rows) are bound by latency instead: the flag round
 // trips, and the launch. The design moves 16 bytes a thread with
 // neighbouring threads on neighbouring addresses, and splits the payload
-// over a few blocks (at most kMaxBlocks), each of which synchronises only
-// with the same block of its peers — no grid-wide barrier, and a small
-// grid, so virtual ranks on one card never starve each other of SMs. The
-// push-protocol kernels (ag_full_mesh, ag_parity, ar_tree, rs_ring) size
-// their grids on the host instead, at most 1/r of the SMs; rs_ring by its
-// input's bytes (a 256-row slice's 2 MiB: 32 blocks, under the cap of 33
-// at 4 ranks a card), each thread keeping push::kUnroll 16-byte loads of
-// one operand in flight. The tree is latency-bound at its main shape (a 203-row
+// over blocks, each of which synchronises only with the same block of its
+// peers — no grid-wide barrier, and a grid within 1/r of the SMs (r ranks
+// on the card), so virtual ranks on one card never starve each other of
+// SMs. The one-shot and parity AllReduces still run a small fixed grid
+// (at most kMaxBlocks) on dist.cuh's put, one load in flight a thread.
+// The push-protocol kernels (ag_ring, ag_full_mesh, ag_parity, ar_tree,
+// rs_ring) size their grids on the host: the AllGathers and rs_ring by
+// their payload (a 256-row slice's 2 MiB input: 32 blocks, under the cap
+// of 33 at 4 ranks a card), each thread keeping push::kUnroll 16-byte
+// loads in flight. They are safe across calls by push.cuh's argument: the
+// output is fresh every call, a sender reads a receiver's address only
+// once the receiver's ready word reached the call's epoch, and a receiver
+// reaches its next call only after every sender's data word of this one.
+// The tree is latency-bound at its main shape (a 203-row
 // prefill's 1.6 MB: four dependent data hops at n = 4, two up and two
 // down, each a flag round trip): its design cuts a hop's cost — no entry
 // barrier, every byte moved once a hop (the first tree stored each
@@ -235,36 +248,12 @@ __global__ void __launch_bounds__(tdt::push::kThreads)
   pu::wait_data<SYS>(g, L, all);
 }
 
-// x: one chunk; the symmetric gather buffer and out: n chunks.
-__global__ void __launch_bounds__(kThreads)
-    ag_ring_kernel(Group g, const uint4* x, uint4* out, long long cvec) {
-  long long v0, v1;
-  block_range(cvec, &v0, &v1);
-  if (!barrier_all(g)) return;
-  const int n = g.n;
-  const int right = (g.rank + 1) % n;
-  uint4* buf = reinterpret_cast<uint4*>(peer_base(g, g.rank));
-  uint4* rbuf = reinterpret_cast<uint4*>(peer_base(g, right));
-  put(buf + g.rank * cvec, x, v0, v1);
-  for (int s = 0; s < n - 1; ++s) {
-    const int c = (g.rank - s + n) % n;   // own chunk at s = 0
-    if (s > 0 &&
-        !wait(g, kStepBase + (s - 1) * kMaxBlocks + blockIdx.x, g.epoch))
-      return;
-    __syncthreads();   // the own chunk's local copy, before it is read
-    put(rbuf + c * cvec, buf + c * cvec, v0, v1);
-    signal(g, right, kStepBase + s * kMaxBlocks + blockIdx.x, g.epoch);
-  }
-  if (!wait(g, kStepBase + (n - 2) * kMaxBlocks + blockIdx.x, g.epoch))
-    return;
-  for (int c = 0; c < n; ++c) put(out + c * cvec, buf + c * cvec, v0, v1);
-}
-
 // x: one chunk; out: n chunks, this rank's fresh output. Block 0 publishes
 // out to every peer; every block writes its share of x into slot `rank` of
 // every rank's output, signals each peer, and waits for the n-1 peers'
 // shares of the same block. n = 1 is the loopback (force_kernel): the
-// copy into its own slot. The body of ag_full_mesh and ag_parity.
+// copy into its own slot. The body of ag_ring, ag_full_mesh and
+// ag_parity.
 template <bool SYS>
 __device__ __forceinline__ void ag_push(const Group& g,
                                         const tdt::push::Layout& L,
@@ -287,6 +276,15 @@ template <bool SYS>
 __global__ void __launch_bounds__(tdt::push::kThreads)
     ag_full_mesh_kernel(Group g, tdt::push::Layout L, const char* x,
                         char* out, long long chunk_bytes) {
+  ag_push<SYS>(g, L, x, out, chunk_bytes);
+}
+
+// The ring: the same push, its own kernel so that a profile tells it
+// apart (the two-shot AllReduce's second half).
+template <bool SYS>
+__global__ void __launch_bounds__(tdt::push::kThreads)
+    ag_ring_kernel(Group g, tdt::push::Layout L, const char* x, char* out,
+                   long long chunk_bytes) {
   ag_push<SYS>(g, L, x, out, chunk_bytes);
 }
 
@@ -494,6 +492,31 @@ bool bad_group(int rank, int n, long long nvec) {
   return n < 1 || n > kMaxRanks || rank < 0 || rank >= n || nvec < 1;
 }
 
+// The AllGathers on ag_push: one kernel a scope.
+typedef void (*AgPushKernel)(Group, tdt::push::Layout, const char*, char*,
+                             long long);
+
+// One launch of an AllGather on ag_push, its arguments checked: at least
+// `min_n` ranks, whole 16-byte vectors, the host's layout inside the pad.
+int launch_ag(AgPushKernel gpu_k, AgPushKernel sys_k, int min_n,
+              const void* table, const void* sig_table, void* err, int rank,
+              int n, unsigned long long epoch, long long timeout_ns,
+              const void* x, void* out, long long chunk_bytes, int grid,
+              int sys, int addr, int ready, int data, int stride,
+              cudaStream_t stream) {
+  const tdt::push::Layout L{addr, ready, data, stride};
+  if (bad_group(rank, n, chunk_bytes / 16) || n < min_n || chunk_bytes % 16 ||
+      tdt::push::bad_layout(L, n, grid))
+    return cudaErrorInvalidValue;
+  const Group g = make_group(table, sig_table, err, rank, n, epoch,
+                             timeout_ns);
+  const AgPushKernel k = sys ? sys_k : gpu_k;
+  k<<<grid, tdt::push::kThreads, 0, stream>>>(
+      g, L, static_cast<const char*>(x), static_cast<char*>(out),
+      chunk_bytes);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -580,47 +603,30 @@ int tdt_rs_ring(const void* table, const void* sig_table, void* err,
   return cudaGetLastError();
 }
 
-// chunk_bytes: one input chunk (out holds n of them).
-int tdt_ag_ring(const void* table, const void* sig_table, void* err,
-                int rank, int n, unsigned long long epoch,
-                long long timeout_ns, const void* x, void* out,
-                long long chunk_bytes, cudaStream_t stream) {
-  const long long cvec = chunk_bytes / 16;
-  if (bad_group(rank, n, cvec) || n < 2 || chunk_bytes % 16)
-    return cudaErrorInvalidValue;
-  const Group g = make_group(table, sig_table, err, rank, n, epoch,
-                             timeout_ns);
-  ag_ring_kernel<<<grid_for(cvec), kThreads, 0, stream>>>(
-      g, static_cast<const uint4*>(x), static_cast<uint4*>(out), cvec);
-  return cudaGetLastError();
-}
-
 // chunk_bytes: one input chunk (out, this rank's fresh output, holds n of
 // them). grid, sys (the flags' scope: 1 when a peer is another card) and
 // the pad layout (addr, ready, data, stride) come from the host
-// (ops/_comm.launch_push), the same on every rank. n = 1 is the loopback
-// (force_kernel).
+// (ops/_comm.launch_push), the same on every rank. The ring needs n >= 2
+// (a one-rank group returns its input without a launch).
+int tdt_ag_ring(const void* table, const void* sig_table, void* err,
+                int rank, int n, unsigned long long epoch,
+                long long timeout_ns, const void* x, void* out,
+                long long chunk_bytes, int grid, int sys, int addr,
+                int ready, int data, int stride, cudaStream_t stream) {
+  return launch_ag(ag_ring_kernel<false>, ag_ring_kernel<true>, 2, table,
+                   sig_table, err, rank, n, epoch, timeout_ns, x, out,
+                   chunk_bytes, grid, sys, addr, ready, data, stride, stream);
+}
+
+// As tdt_ag_ring; n = 1 is the loopback (force_kernel).
 int tdt_ag_full_mesh(const void* table, const void* sig_table, void* err,
                      int rank, int n, unsigned long long epoch,
                      long long timeout_ns, const void* x, void* out,
                      long long chunk_bytes, int grid, int sys, int addr,
                      int ready, int data, int stride, cudaStream_t stream) {
-  const long long cvec = chunk_bytes / 16;
-  const tdt::push::Layout L{addr, ready, data, stride};
-  if (bad_group(rank, n, cvec) || chunk_bytes % 16 ||
-      tdt::push::bad_layout(L, n, grid))
-    return cudaErrorInvalidValue;
-  const Group g = make_group(table, sig_table, err, rank, n, epoch,
-                             timeout_ns);
-  const char* xi = static_cast<const char*>(x);
-  char* o = static_cast<char*>(out);
-  if (sys)
-    ag_full_mesh_kernel<true><<<grid, tdt::push::kThreads, 0, stream>>>(
-        g, L, xi, o, chunk_bytes);
-  else
-    ag_full_mesh_kernel<false><<<grid, tdt::push::kThreads, 0, stream>>>(
-        g, L, xi, o, chunk_bytes);
-  return cudaGetLastError();
+  return launch_ag(ag_full_mesh_kernel<false>, ag_full_mesh_kernel<true>, 1,
+                   table, sig_table, err, rank, n, epoch, timeout_ns, x, out,
+                   chunk_bytes, grid, sys, addr, ready, data, stride, stream);
 }
 
 // As tdt_ag_full_mesh, over the parity stream's pad: epoch is the call
@@ -631,22 +637,9 @@ int tdt_ag_parity(const void* table, const void* sig_table, void* err,
                   long long timeout_ns, const void* x, void* out,
                   long long chunk_bytes, int grid, int sys, int addr,
                   int ready, int data, int stride, cudaStream_t stream) {
-  const long long cvec = chunk_bytes / 16;
-  const tdt::push::Layout L{addr, ready, data, stride};
-  if (bad_group(rank, n, cvec) || chunk_bytes % 16 ||
-      tdt::push::bad_layout(L, n, grid))
-    return cudaErrorInvalidValue;
-  const Group g = make_group(table, sig_table, err, rank, n, epoch,
-                             timeout_ns);
-  const char* xi = static_cast<const char*>(x);
-  char* o = static_cast<char*>(out);
-  if (sys)
-    ag_parity_kernel<true><<<grid, tdt::push::kThreads, 0, stream>>>(
-        g, L, xi, o, chunk_bytes);
-  else
-    ag_parity_kernel<false><<<grid, tdt::push::kThreads, 0, stream>>>(
-        g, L, xi, o, chunk_bytes);
-  return cudaGetLastError();
+  return launch_ag(ag_parity_kernel<false>, ag_parity_kernel<true>, 1, table,
+                   sig_table, err, rank, n, epoch, timeout_ns, x, out,
+                   chunk_bytes, grid, sys, addr, ready, data, stride, stream);
 }
 
 // row_bytes: one payload row (a multiple of 16); rows: m; n_trees: 2 (the

@@ -22,11 +22,13 @@
 // writes the rank's error word — (flag index, expected, observed, 1) —
 // and the kernel returns early. The host reads the word where it
 // synchronises anyway (DistContext.raise_on_comm_error) and raises
-// CommTimeoutError. Each collective kernel runs a small fixed grid (at
-// most kMaxBlocks blocks), and each fused GEMM kernel (gemm_comm.cu) a
-// persistent grid of one block an SM on at most 1/r of the SMs, r the
-// ranks on the card, so on one card a spinning rank never takes the SMs
-// its peers need.
+// CommTimeoutError. The one-shot and parity AllReduces and B12's torus
+// AllReduce run a small fixed grid (at most kMaxBlocks blocks) on put and
+// barrier_all; the push-protocol kernels (push.cuh) a grid the host sizes
+// by the payload, and each fused GEMM kernel (gemm_comm.cu) a persistent
+// grid of one block an SM, both on at most 1/r of the SMs, r the ranks on
+// the card, so on one card a spinning rank never takes the SMs its peers
+// need.
 
 #pragma once
 
@@ -152,15 +154,6 @@ __device__ __forceinline__ bool spin(const Group& g, int idx,
     seen = ld_acquire_sys(f);
   }
   return true;
-}
-
-// Wait for flag `idx` (one thread spins, the block meets after). Call
-// from every thread; false (for every thread) on timeout.
-__device__ __forceinline__ bool wait(const Group& g, int idx,
-                                     unsigned long long want) {
-  int ok = 1;
-  if (threadIdx.x == 0) ok = spin(g, idx, want);
-  return __syncthreads_and(ok) != 0;
 }
 
 // Wait for the flags base + j, one from every peer j != rank (thread j

@@ -1,10 +1,10 @@
-// The push protocol and its copy engine: what B4's full-mesh push and
-// parity stream (collectives.cu ag_full_mesh, ag_parity), B5's double
-// tree (collectives.cu ar_tree), B6's reduce-scatter (collectives.cu
-// rs_ring), B7's shift and permutation (p2p.cu), B8's parity AllToAll
-// (all_to_all.cu a2a_push) and B12's torus AllGather (multi_axis.cu
-// ag_torus) share; B11's split-K route (gemm_comm.cu) takes its scoped
-// flags (signal_word, spin).
+// The push protocol and its copy engine: what B4's ring, full-mesh push
+// and parity stream (collectives.cu ag_ring, ag_full_mesh, ag_parity),
+// B5's double tree (collectives.cu ar_tree), B6's reduce-scatter
+// (collectives.cu rs_ring), B7's shift and permutation (p2p.cu), B8's
+// AllToAll in both forms (all_to_all.cu a2a, a2a_push) and B12's torus
+// AllGather (multi_axis.cu ag_torus) share; B11's split-K route
+// (gemm_comm.cu) takes its scoped flags (signal_word, spin).
 //
 // The protocol: the sender writes the receiver's output. A TPU kernel's
 // remote DMA lands in the peer's output; here the output is a fresh tensor
@@ -35,8 +35,8 @@
 // flags along the tree's edges. B6's reduce-scatter mirrors the roles: a
 // rank publishes its INPUT, its owners read from it, and the data word
 // `data + owner * stride + b` (in the source's pad) releases the input,
-// which the source holds until every owner released it. B8's parity
-// AllToAll publishes two addresses a receiver (its output and its splits:
+// which the source holds until every owner released it. B8's AllToAll
+// publishes two addresses a receiver (its output and its splits:
 // the second at word `splits + receiver`, ops/_comm.A2ALayout).
 //
 // The copy engine reads each source byte once and writes it to every

@@ -38,11 +38,12 @@ ONE_SHOT_KERNEL = CudaKernel("collectives.cu", "tdt_ar_one_shot",
                              _GROUP_ARGS + [ctypes.c_int, ctypes.c_void_p])
 PARITY_KERNEL = CudaKernel("collectives.cu", "tdt_ar_parity",
                            _GROUP_ARGS + [ctypes.c_int, ctypes.c_void_p])
-AG_RING_KERNEL = CudaKernel("collectives.cu", "tdt_ag_ring",
-                            _GROUP_ARGS + [ctypes.c_void_p])
 # The push protocol's launch arguments (csrc/push.cuh): the grid, the
 # flags' scope, and the pad layout's addr, ready, data and stride.
 _PUSH_ARGS = [ctypes.c_int] * 6
+# B4's ring: the full-mesh push's body in one hop, its own entry.
+AG_RING_KERNEL = CudaKernel("collectives.cu", "tdt_ag_ring",
+                            _GROUP_ARGS + _PUSH_ARGS + [ctypes.c_void_p])
 # B6's ring reduce-scatter on the push protocol (the owner reads): the
 # dtype code, then the push arguments.
 RS_RING_KERNEL = CudaKernel("collectives.cu", "tdt_rs_ring",
@@ -75,19 +76,14 @@ AG_TORUS_KERNEL = CudaKernel("multi_axis.cu", "tdt_ag_torus",
 AR_TORUS_KERNEL = CudaKernel("multi_axis.cu", "tdt_ar_torus",
                              _GROUP_ARGS + [ctypes.c_int] * 3
                              + [ctypes.c_void_p])
-# B8, the EP AllToAll (csrc/all_to_all.cu): the barrier form; the parity
-# stream on the push protocol (the send buffer and the output as the
-# payload, the row's bytes, then both splits, cap, block and experts a
-# rank, then the grid, the scope and A2ALayout's five words).
-_A2A_ARGS = ([ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int,
-                                      ctypes.c_ulonglong, ctypes.c_longlong]
-             + [ctypes.c_void_p] * 4 + [ctypes.c_longlong]
-             + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+# B8, the EP AllToAll (csrc/all_to_all.cu): the barrier form and the
+# parity stream, both on the push protocol (the send buffer and the output
+# as the payload, the row's bytes, then both splits, cap, block and
+# experts a rank, then the grid, the scope and A2ALayout's five words).
+_A2A_ARGS = (_GROUP_ARGS + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
+             + [ctypes.c_int] * 7 + [ctypes.c_void_p])
 A2A_KERNEL = CudaKernel("all_to_all.cu", "tdt_a2a", _A2A_ARGS)
-A2A_PARITY_KERNEL = CudaKernel("all_to_all.cu", "tdt_a2a_parity",
-                               _GROUP_ARGS + [ctypes.c_void_p] * 2
-                               + [ctypes.c_int] * 3 + [ctypes.c_int] * 7
-                               + [ctypes.c_void_p])
+A2A_PARITY_KERNEL = CudaKernel("all_to_all.cu", "tdt_a2a_parity", _A2A_ARGS)
 # The fused GEMM + communication kernels B9 (AG+GEMM), B10 (GEMM+RS) and
 # B11 (GEMM+AR): one entry, one CudaKernel each, so each counts its own.
 _GEMM_COMM_ARGS = ([ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int,
@@ -126,8 +122,8 @@ COLLECTIVE_KERNELS = (ONE_SHOT_KERNEL, PARITY_KERNEL, RS_RING_KERNEL,
 _GEMM_OP = {AG_GEMM_KERNEL: 0, GEMM_RS_KERNEL: 1, GEMM_AR_KERNEL: 2}
 
 
-# The push protocol of B4's full-mesh push and parity stream, B5's tree,
-# B6, B7, B8's parity stream and B12's torus AllGather (csrc/push.cuh): the receiver publishes
+# The push protocol of B4's ring, full-mesh push and parity stream, B5's
+# tree, B6, B7, B8 and B12's torus AllGather (csrc/push.cuh): the receiver publishes
 # its fresh output's address into its senders' signal pads, each sender
 # writes its block straight into that output and raises a data flag a
 # block (B6 mirrors the roles: a rank publishes its input, its owners read
@@ -148,6 +144,14 @@ A2A_BLOCK_BYTES = 16 << 10
 # 0.0118 and 0.0121 ms a call as a span, 32 KiB 0.0134 (H100 80GB HBM3,
 # 700 W; scripts/time_port_copy.py's case, PERF.md §6).
 AGP_BLOCK_BYTES = 8 << 10
+# B4's ring: a block per AG_RING_BLOCK_BYTES of a rank's chunk. The 256-row
+# prefill slice's gather (64 x 4096 bf16, 512 KiB a rank) is latency-bound:
+# on 4 ranks 16 and 32 KiB a block measured 0.0140 / 0.0141 ms a call as a
+# span against 0.0174-0.0177 at 64 KiB (8 blocks: two rounds of loads a
+# thread); at 2048 rows all three hit the cap of 33 blocks and tied at
+# 0.0451-0.0454 (H100 80GB HBM3, 700 W; scripts/time_port_copy.py
+# --ring-block, PERF.md §6 row 4).
+AG_RING_BLOCK_BYTES = 32 << 10
 
 
 @dataclasses.dataclass(frozen=True)
@@ -179,7 +183,7 @@ PUSH_LAYOUT = PushLayout()
 
 @dataclasses.dataclass(frozen=True)
 class A2ALayout(PushLayout):
-    """B8's parity stream on the push protocol: :class:`PushLayout` plus
+    """B8 (both forms) on the push protocol: :class:`PushLayout` plus
     ``splits + j``, receiver j's splits address (in the sender's pad; a
     receiver publishes its output and its splits)."""
 
@@ -284,8 +288,8 @@ def launch_push(kernel: CudaKernel, pad: SymmBuffer, rank: int,
                 grid_bytes: int | None = None,
                 block_bytes: int = PUSH_BLOCK_BYTES,
                 layout=PUSH_LAYOUT) -> None:
-    """One launch of a push-protocol kernel (B4's full-mesh push and
-    parity stream, B6, B7, B8's parity stream with its layout, B12's torus
+    """One launch of a push-protocol kernel (B4's ring, full-mesh push and
+    parity stream, B6, B7, B8's two forms with their layout, B12's torus
     AllGather; B5's tree
     with its ``grid`` and ``layout``) at the rank group's meeting, as
     :func:`launch`, on the pad ``pad`` (a
@@ -409,23 +413,6 @@ def _launch_at_meeting(kernel: CudaKernel, buf: SymmBuffer, rank: int,
                           variants=variants)
 
     buf.ctx.meet(rank, what, act)
-
-
-def launch_a2a(buf: SymmBuffer, rank: int, epoch: int,
-               send: torch.Tensor, send_splits: torch.Tensor,
-               out: torch.Tensor, out_splits: torch.Tensor, *, block: int,
-               spl_stride: int) -> None:
-    """One launch of the barrier-form AllToAll (``csrc/all_to_all.cu``
-    ``tdt_a2a``) at the rank group's meeting, as :func:`launch`."""
-    ctx = buf.ctx
-    n, cap = send.shape[0], send.shape[1]
-    row_bytes = send[0, 0].numel() * send.element_size()
-    _launch_at_meeting(A2A_KERNEL, buf, rank, send.device, "a2a.launch", (
-        ptr(buf.table[rank]), ptr(buf.signal_table[rank]),
-        ptr(ctx.error_word(rank)), rank, n, epoch, int(ctx.timeout_s * 1e9),
-        ptr(send), ptr(send_splits), ptr(out), ptr(out_splits), row_bytes,
-        cap, block, send_splits.shape[1], spl_stride,
-        current_stream(send.device)))
 
 
 def launch_gemm_comm(kernel: CudaKernel, buf: SymmBuffer, rank: int,

@@ -21,14 +21,16 @@ yardstick — exchanges the splits through ``group_all_to_all`` (the JAX
 package's ``jax.lax.all_to_all``) and the live blocks through a
 symmetric buffer's slots.
 
-The barrier form opens with a block-scope barrier that protects its
-receive buffer across calls. The stream form (the EP decode path)
-threads a persistent ``(workspace, call_index)`` pair, the reference's
-contract; on the card it runs the push protocol (``csrc/push.cuh``):
-each receiver publishes its fresh output and splits, each sender writes
-its live rows and splits row straight into them and signals every peer
-on every call, empty slots included, so the workspace is only the signal
-pad carrying the epochs (call index + 1) — no parity slab, no copy-out.
+On the card both forms run the push protocol (``csrc/push.cuh``), one
+body under two kernels: each receiver publishes its fresh output and
+splits, each sender writes its live rows and splits row straight into
+them and signals every peer on every call, empty slots included — no
+entry barrier, receive buffer, parity slab or copy-out. The barrier form
+(the EP prefill's) keeps only a signal pad (tag ``"a2a"``), its grid a
+block per 64 KiB of the send buffer (bandwidth-bound); the stream form
+(the EP decode path) threads a persistent ``(workspace, call_index)``
+pair, the reference's contract, the workspace the signal pad carrying the
+epochs (call index + 1), its grid a block per 16 KiB (latency-bound).
 Payloads are byte copies: float32, bfloat16 and float8_e4m3fn.
 """
 
@@ -41,7 +43,7 @@ import torch
 
 from triton_distributed_tpu_torch.ops._comm import (
     A2A_BLOCK_BYTES, A2A_KERNEL, A2A_LAYOUT, A2A_PARITY_KERNEL, check_out,
-    check_payload, launch_a2a, launch_push, rank_of, straggle,
+    check_payload, launch_push, rank_of, straggle,
 )
 from triton_distributed_tpu_torch.ops.tiling import sublane_align
 from triton_distributed_tpu_torch.runtime.build import ptr
@@ -129,10 +131,6 @@ def _plain_local(ctx: DistContext, rank: int, n: int, send: torch.Tensor,
     return out, recv_splits
 
 
-def _spl_stride(epr: int) -> int:
-    return -(-epr // 4) * 4
-
-
 def fast_all_to_all_local(send_buf: torch.Tensor, send_splits: torch.Tensor,
                           axis: str = "tp", num_ranks: int | None = None,
                           block_rows: int | None = None):
@@ -141,33 +139,40 @@ def fast_all_to_all_local(send_buf: torch.Tensor, send_splits: torch.Tensor,
     for rank p's experts; send_splits: (n, epr) token counts per
     destination expert. Returns (recv_buf (n, cap, hidden), recv_splits
     (n, epr) int32): slot p what rank p sent, ``recv_splits[p, j]`` the
-    tokens rank p sent to this rank's j-th expert."""
+    tokens rank p sent to this rank's j-th expert.
+
+    On a card, the push protocol (kernel ``tdt_a2a``): each receiver
+    publishes its fresh output and splits with the call's epoch; each
+    sender writes every slot's live rows into slot ``rank`` of its
+    receiver's output, its splits rows beside them, and releases its data
+    words. Only the ``"a2a"`` pad is kept. On the CPU the splits go
+    through the group's all-to-all and the live blocks through a symmetric
+    (n, cap, hidden) buffer's slots."""
     ctx, rank, n = rank_of(axis, num_ranks)
     block = _check(send_buf, send_splits, n, block_rows)
     send_splits = send_splits.to(torch.int32)
     if n == 1:
         return send_buf, send_splits
     _, cap, hidden = send_buf.shape
-    epr = send_splits.shape[1]
-    item = send_buf.element_size()
-    slot_bytes = cap * hidden * item
-    stride = _spl_stride(epr)
-    buf = symm_zeros(ctx, (n * slot_bytes + n * stride * 4,), torch.uint8,
-                     tag="a2a")
     if send_buf.device.type == "cuda":
         x = check_payload(ctx, rank, send_buf, "all_to_all", copy=True,
                           dims=3)
         spl = send_splits.contiguous()
         out = torch.empty_like(x)
         out_splits = torch.empty_like(spl)
-        launch_a2a(buf, rank, buf.next_epoch(rank), x, spl, out,
-                   out_splits, block=block, spl_stride=stride)
+        launch_push(A2A_KERNEL, symm_pad(ctx, tag="a2a"), rank, x, out,
+                    hidden * x.element_size(), ptr(spl), ptr(out_splits),
+                    cap, block, spl.shape[1],
+                    grid_bytes=x.numel() * x.element_size(),
+                    layout=A2A_LAYOUT)
         return out, out_splits
     if send_buf.device.type != "cpu":
         raise ValueError(f"all_to_all: no kernel for device "
                          f"{send_buf.device}")
     A2A_KERNEL.count_plain()
-    slots = [t[:n * slot_bytes].view(send_buf.dtype).view(n, cap, hidden)
+    nb = n * cap * hidden * send_buf.element_size()
+    buf = symm_zeros(ctx, (nb,), torch.uint8, tag="a2a")
+    slots = [t.view(send_buf.dtype).view(n, cap, hidden)
              for t in buf.tensors]
     return _plain_local(ctx, rank, n, send_buf, send_splits, block, slots,
                         "a2a.data")

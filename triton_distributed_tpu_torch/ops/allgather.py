@@ -2,21 +2,26 @@
 ``ops/allgather.py``: kernel B4 in its ring form (``_ag_ring_kernel``), its
 full-mesh push (``_ag_full_mesh_push_kernel``) and its barrier-free parity
 stream (``_ag_parity_kernel``) as hand-written CUDA in
-``csrc/collectives.cu`` (``ag_ring``, ``ag_full_mesh``, ``ag_parity``).
+``csrc/collectives.cu`` (``ag_ring``, ``ag_full_mesh``, ``ag_parity``, all
+three on one body, ``ag_push``).
 
-The ring forwards, at step s, the chunk received at step s-1 (its own at
-s = 0) to the right neighbour; the symmetric gather buffer doubles as the
-transport, so chunks land in their final slots, and each rank copies the
-gathered buffer out at the end, behind a block-scope entry barrier that
-protects the buffer across calls. The full-mesh push writes each rank's
-chunk straight into its slot of every rank's output in one hop, as the
-TPU kernel's remote DMA does: every rank publishes its fresh output's
-address to its peers, each writes, signals, and waits for the others'
-(the push protocol, ``csrc/push.cuh``; only a signal pad is kept,
-no gather buffer, copy out or barrier). AUTO takes the push at n <= 2
-and for small payloads (the sequential ``"overlap"`` TP-MoE layer, SP-AG
-attention, ``flash_decode``'s ``"pallas"`` method and the two-level
-intra gathers reach it). Both give the same bits (a copy).
+The full-mesh push writes each rank's chunk straight into its slot of
+every rank's output in one hop, as the TPU kernel's remote DMA does: every
+rank publishes its fresh output's address to its peers, each writes,
+signals, and waits for the others' (the push protocol, ``csrc/push.cuh``;
+only a signal pad is kept, no gather buffer, copy out or barrier). The
+TPU ring forwards, at step s, the chunk received at step s-1 to the right
+neighbour, for a torus's links; on one card every byte goes through one
+HBM and behind NVSwitch every pair of cards has the same path, so on the
+card the ring runs the push's body in one hop under its own kernel
+(``ag_ring``), launch counter and pad (tag ``"ag_ring"``): no entry
+barrier, gather buffer, dependent hops or copy-out. Its plain version
+keeps the ring's rendezvous through a symmetric buffer's slots. AUTO
+takes the push at n <= 2 and for small payloads (the sequential
+``"overlap"`` TP-MoE layer, SP-AG attention, ``flash_decode``'s
+``"pallas"`` method and the two-level intra gathers reach it); the
+two-shot AllReduces pin the ring for their second half. Both give the
+same bits (a copy).
 :func:`all_gather_stream` is the SP decode loop's gather of its attention
 partials (``ops/flash_decode.py``) over a persistent (workspace, call
 index) pair: on a card the same push protocol (the workspace a signal
@@ -34,9 +39,9 @@ import enum
 import torch
 
 from triton_distributed_tpu_torch.ops._comm import (
-    AG_FULL_MESH_KERNEL, AG_PARITY_KERNEL, AG_RING_KERNEL, AGP_BLOCK_BYTES,
-    check_out, check_payload, launch, launch_push, push_slots, rank_of,
-    rank_shards, straggle,
+    AG_FULL_MESH_KERNEL, AG_PARITY_KERNEL, AG_RING_BLOCK_BYTES,
+    AG_RING_KERNEL, AGP_BLOCK_BYTES, check_out, check_payload, launch_push,
+    push_slots, rank_of, rank_shards, straggle,
 )
 from triton_distributed_tpu_torch.runtime.context import (
     DistContext, get_context, group_all_gather, group_context,
@@ -78,18 +83,28 @@ def ag_plain(xs) -> torch.Tensor:
 
 def _ag_ring(x: torch.Tensor, n: int, ctx: DistContext,
              rank: int) -> torch.Tensor:
-    """The ring on a CUDA tensor, its plain version on a CPU one."""
+    """The ring on a CUDA tensor, its plain version on a CPU one. On the
+    card, one hop on the push protocol: each receiver's block 0 publishes
+    its fresh output with the call's epoch, each sender's block b writes
+    its share of its chunk into slot ``rank`` of every output, its own
+    first, and releases its data word; only the ``"ag_ring"`` pad is
+    kept, the grid ``push_grid`` over the chunk at a block per
+    AG_RING_BLOCK_BYTES (the slice's gather is latency-bound). On the CPU
+    each rank pushes its chunk into slot ``rank`` of every peer's
+    symmetric (n, m, cols) buffer, meets them and copies its buffer
+    out."""
     m, cols = x.shape
-    buf = symm_zeros(ctx, (n, m, cols), x.dtype, tag="ag_ring")
     if x.device.type == "cuda":
         x = check_payload(ctx, rank, x, "all_gather", copy=True)
         out = torch.empty((n * m, cols), dtype=x.dtype, device=x.device)
-        launch(AG_RING_KERNEL, buf, rank, buf.next_epoch(rank), x, out,
-               m * cols * x.element_size())
+        launch_push(AG_RING_KERNEL, symm_pad(ctx, tag="ag_ring"), rank, x,
+                    out, m * cols * x.element_size(),
+                    block_bytes=AG_RING_BLOCK_BYTES)
         return out
     if x.device.type != "cpu":
         raise ValueError(f"all_gather: no kernel for device {x.device}")
     AG_RING_KERNEL.count_plain()
+    buf = symm_zeros(ctx, (n, m, cols), x.dtype, tag="ag_ring")
     ctx.barrier(rank, "ag_ring.entry")
     push_slots(ctx, rank, buf, x, rank, "ag_ring.data")
     return ag_plain(buf.tensors[rank])
