@@ -3682,8 +3682,9 @@ def phase_collectives(torch, timer, fa, pa, *, devices_for=virtual_devices,
                       ranks=COLL_RANKS, name="collectives") -> dict:
     """Every collective kernel at n = 2, 4 and 8 ranks, fp32 and bf16, at
     4-2048 rows x 4096, against its plain version (bit for bit), timed;
-    B6's and B4's ring's push-protocol edge cases (``rs_edge_cases``,
-    ``ring_edge_cases``) at those n and at n = 3; the 200-call parity
+    B6's, B4's ring's and B5's one-shot's push-protocol edge cases
+    (``rs_edge_cases``, ``ring_edge_cases``, ``one_shot_edge_cases``) at
+    those n and at n = 3; the 200-call parity
     stress; a lost peer's timeout; AUTO's choices;
     K1 and K2 at one rank's TP=4 heads (8 q, 2 kv: GQA group 4)."""
     comm, ar, rs, ag, context = coll_modules()
@@ -3721,19 +3722,24 @@ def phase_collectives(torch, timer, fa, pa, *, devices_for=virtual_devices,
                                                         ("rs_ring",), seed)
         cases["allgather_ring"] += push_edge_cases(torch, ctx, ("ag_ring",),
                                                    seed + 50)
+        cases["allreduce_one_shot"] += push_edge_cases(
+            torch, ctx, ("ar_one_shot",), seed + 75)
         if n == TP:
             stress = parity_stress(torch, ctx, bf16, 4, PARITY_CALLS)
         ctx.close()
         del ctx
         torch.cuda.empty_cache()
-    # B6 and B4's ring at n = 3 too: chunks no power of two divides evenly
-    # over the ranks' reads, a ring of odd length.
+    # B6, B4's ring and the one-shot at n = 3 too: chunks no power of two
+    # divides evenly over the ranks' reads, a ring of odd length.
     ctx = context.DistContext([torch.device(d) for d in devices_for(3)],
                               wait_timeout_ms=20_000)
     cases["reduce_scatter_ring"] += push_edge_cases(torch, ctx, ("rs_ring",),
                                                     seed + 50)
     cases["allgather_ring"] += push_edge_cases(torch, ctx, ("ag_ring",),
                                                seed + 100)
+    cases["allreduce_one_shot"] += push_edge_cases(torch, ctx,
+                                                   ("ar_one_shot",),
+                                                   seed + 125)
     ctx.close()
     del ctx
     torch.cuda.empty_cache()
@@ -5254,6 +5260,95 @@ def rs_edge_cases(torch, ctx, seed: int) -> list:
     return out
 
 
+# B5's one-shot on the push protocol (every rank reads every input): rows x
+# cols a rank from one 16-byte vector to 2048 rows (~8 MB), odd tails over
+# many blocks, at n = 2, 3, 4 and 8.
+ONE_SHOT_EDGE = {"float32": ((1, 4), (3, 12), (5, 1028), (2048, 1028)),
+                 "bfloat16": ((1, 8), (3, 24), (5, 2056), (2048, 2056))}
+ONE_SHOT_NAN_CALLS = 20
+
+
+def one_shot_case(torch, ctx, dtype, rows: int, cols: int, seed: int, *,
+                  what: str, hold=None, calls: int = 1,
+                  nan_after: bool = False) -> dict:
+    """``calls`` one-shot AllReduces (``all_reduce_local(method=
+    "one_shot")``) on every rank of ``ctx`` in one run, no host sync
+    between them, new inputs every call, every rank's sum against
+    ``reduce_slots_plain`` bit for bit, every call on the kernel. The
+    outputs are fresh (the one-shot takes no ``out=``): a vector it failed
+    to write holds what the allocator handed back. ``hold``: (rank, ns)
+    spun on that rank's stream before each of its calls — a late source
+    (its peers wait for its address) and a late reader (its peers' exits
+    wait for its release). ``nan_after``: every rank fills its input with
+    NaN on its own stream right after each call: a source whose kernel
+    ended before a reader finished reading would hand that reader NaN."""
+    comm, ar, _, _, _ = coll_modules()
+    from triton_distributed_tpu_torch.runtime.build import current_stream
+
+    n = ctx.num_ranks
+    X = _rand(torch, (calls, n, rows, cols), dtype, seed)
+    want = [ar.reduce_slots_plain(list(X[t])) for t in range(calls)]
+    ins = [X[:, r].to(ctx.devices[r]).clone() for r in range(n)]
+    k0 = comm.ONE_SHOT_KERNEL.launches
+
+    def loop(r):
+        outs = []
+        for t in range(calls):
+            if hold is not None and r == hold[0]:
+                comm.SPIN.launch(hold[1], current_stream(ctx.devices[r]))
+            outs.append(ar.all_reduce_local(ins[r][t], num_ranks=n,
+                                            method="one_shot"))
+            if nan_after:
+                ins[r][t].fill_(float("nan"))
+        return outs
+
+    got = ctx.run(loop)
+    torch.cuda.synchronize()
+    ctx.raise_on_comm_error()
+    bad = [t for t in range(calls) if not all(
+        torch.equal(_bits(torch, got[r][t].to(X.device)),
+                    _bits(torch, want[t])) for r in range(n))]
+    launched = comm.ONE_SHOT_KERNEL.launches - k0
+    return {"case": f"allreduce_one_shot_{what}_n{n}_{_dtype_name(dtype)}"
+                    f"_{rows}x{cols}", "method": "allreduce_one_shot",
+            "n": n, "dtype": _dtype_name(dtype), "rows": rows, "cols": cols,
+            "bytes_a_rank": rows * cols * X.element_size(), "calls": calls,
+            "hold": list(hold) if hold else None, "nan_after": nan_after,
+            "launches": launched, "calls_wrong": bad[:8],
+            "max_abs_err": 0.0 if not bad else float("nan"),
+            "bit_identical": not bad,
+            "ok": not bad and launched == n * calls}
+
+
+def one_shot_edge_cases(torch, ctx, seed: int) -> list:
+    """B5's one-shot edge cases on ``ctx``: the shapes of ONE_SHOT_EDGE in
+    fp32 and bf16; a held-back rank 0 and rank n - 1 (16 x 4096 bf16, the
+    verify step's); ONE_SHOT_NAN_CALLS calls with every rank filling its
+    input with NaN after each and rank 0 held back 100 us before each (its
+    reads of every peer's input come late); PUSH_STREAM_CALLS calls
+    without a sync."""
+    n = ctx.num_ranks
+    out = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for rows, cols in ONE_SHOT_EDGE[_dtype_name(dtype)]:
+            seed += 1
+            out.append(one_shot_case(torch, ctx, dtype, rows, cols, seed,
+                                     what="tail"))
+    for held in (0, n - 1):
+        seed += 1
+        out.append(one_shot_case(torch, ctx, torch.bfloat16, 16, 4096, seed,
+                                 what=f"held{held}",
+                                 hold=(held, PUSH_HOLD_NS)))
+    seed += 1
+    out.append(one_shot_case(torch, ctx, torch.bfloat16, 16, 4096, seed,
+                             what="nan_after", calls=ONE_SHOT_NAN_CALLS,
+                             hold=(0, 100_000), nan_after=True))
+    seed += 1
+    out.append(one_shot_case(torch, ctx, torch.bfloat16, 16, 4096, seed,
+                             what="stream", calls=PUSH_STREAM_CALLS))
+    return out
+
+
 # B4's ring on the push protocol: chunks from one 16-byte vector to 4 MiB
 # a rank (rows x cols), at n = 2, 3, 4 and 8.
 RING_EDGE = {"float32": ((1, 4), (3, 12), (5, 1028), (1024, 1024)),
@@ -5502,7 +5597,8 @@ def a2a_edge_cases(torch, ctx, seed: int) -> list:
 
 def push_edge_cases(torch, ctx, kinds, seed: int) -> list:
     """The push protocol's edge cases for each kernel of ``kinds`` on
-    ``ctx``: B6 (``"rs_ring"``: ``rs_edge_cases``), B4's ring
+    ``ctx``: B6 (``"rs_ring"``: ``rs_edge_cases``), B5's one-shot
+    (``"ar_one_shot"``: ``one_shot_edge_cases``), B4's ring
     (``"ag_ring"``: ``ring_edge_cases``) and B8's two forms
     (``"a2a_parity"``: ``a2a_edge_cases``; ``"a2a"``:
     ``a2a_barrier_edge_cases``) their own; the copy kernels the
@@ -5512,7 +5608,8 @@ def push_edge_cases(torch, ctx, kinds, seed: int) -> list:
     n = ctx.num_ranks
     out = []
     own = {"rs_ring": rs_edge_cases, "ag_ring": ring_edge_cases,
-           "a2a_parity": a2a_edge_cases, "a2a": a2a_barrier_edge_cases}
+           "a2a_parity": a2a_edge_cases, "a2a": a2a_barrier_edge_cases,
+           "ar_one_shot": one_shot_edge_cases}
     for kind in kinds:
         if kind in own:
             out += own[kind](torch, ctx, seed)
@@ -6320,13 +6417,145 @@ def mk_ar_timeout(torch, n: int = 4, devices_for=virtual_devices) -> dict:
             "ok": raised is not None and "flag[" in raised}
 
 
+MK_AR_STREAM_CALLS = 200   # launches without a sync
+MK_AR_BODY_CALLS = 40      # alternating bodies, over one slot buffer
+
+
+def mk_ar_mixed_program(dtype, n: int, nt: int = MK_AR_TILES):
+    """Three AllReduce rows of unlike widths, no hazard between them:
+    ALLREDUCE_ROW over ``nt`` tiles, the one-tile ALLREDUCE, ALLREDUCE_ROW
+    over 4 tiles (the builder puts a grid barrier between each two) — an
+    odd number of rows a launch, so consecutive launches start on
+    alternate slot sets."""
+    _, builder, tasks, _, _ = mk_ar_modules()
+    mb = builder.MegaKernelBuilder()
+    mb.all_reduce(mb.tensor(tasks.TILE, nt * tasks.TILE))
+    t = mb.tensor(tasks.TILE, tasks.TILE).tile(0, 0)
+    mb._emit(tasks.Task(tasks.TaskType.ALLREDUCE, t), [t], [t])
+    mb.all_reduce(mb.tensor(tasks.TILE, 4 * tasks.TILE))
+    return mb.compile(dtype=dtype, num_ranks=n)
+
+
+def mk_ar_moe_program(dtype, n: int, batch: int, nt: int = MK_AR_TILES):
+    """ALLREDUCE_ROW over ``nt`` tiles beside a MOE_TOPK on tiles of its
+    own: a queue the kernel runs on its MoE body (kernel._kernel_body 2),
+    with the AllReduce geometry (max_ar ``nt``) of the mixed program, so
+    both take one slot buffer under one ``ar_tag``."""
+    _, builder, tasks, _, _ = mk_ar_modules()
+    mb = builder.MegaKernelBuilder()
+    mb.all_reduce(mb.tensor(tasks.TILE, nt * tasks.TILE))
+    logits = mb.tensor(tasks.TILE, tasks.TILE)
+    wt = mb.tensor(tasks.TILE, tasks.TILE)
+    mb.moe_topk(wt, logits, topk=8, num_experts=128, batch=batch)
+    return mb.compile(dtype=dtype, num_ranks=n)
+
+
+def _mk_ar_tiles(comp) -> list:
+    """The tiles a program's AllReduce rows reduce, in queue order."""
+    tt = mk_ar_modules()[2].TaskType
+    tiles = []
+    for w in comp.queue[:comp.num_exec]:
+        if w[0] == tt.ALLREDUCE_ROW:
+            tiles += range(int(w[1]), int(w[1]) + int(w[4]))
+        elif w[0] == tt.ALLREDUCE:
+            tiles.append(int(w[1]))
+    return tiles
+
+
+def mk_ar_stream_case(torch, *, n: int, calls: int, seed: int,
+                      bodies: bool = False, rows: int = 4,
+                      devices_for=virtual_devices) -> dict:
+    """``calls`` megakernel launches on every rank of n virtual ranks in
+    one run, no host sync between them, new bf16 inputs every launch (each
+    rank copies them into its workspace on its stream, launches, and
+    copies the result out): ``mk_ar_mixed_program`` (three AllReduce rows
+    of 32, 1 and 4 tiles), or with ``bodies`` that program and
+    ``mk_ar_moe_program`` in turn — a full body and the MoE body, whose
+    grids may differ — over ONE slot buffer (one ``ar_tag``). Every
+    launch's reduced tiles against the rank-order fp32 sum rounded once,
+    bit for bit on every rank, the rows past ``rows`` untouched; every
+    launch on the kernel. A fast rank writing a slot set a peer still
+    reads, or a stale flag counted, would show as a wrong launch."""
+    mk, _, tasks, context, _ = mk_ar_modules()
+    ar = coll_modules()[1]
+    bf16 = torch.bfloat16
+    ctx = context.DistContext([torch.device(d) for d in devices_for(n)],
+                              wait_timeout_ms=MK_AR_TIMEOUT_MS)
+    progs = [mk_ar_mixed_program(bf16, n)]
+    if bodies:
+        progs.append(mk_ar_moe_program(bf16, n, rows))
+    check(len({c.max_ar for c in progs}) == 1,
+          "megakernel_ar: the programs' slot buffers differ")
+    tag = f"{'bodies' if bodies else 'stream'}-{n}"
+    X = [_rand(torch, (n, progs[t % len(progs)].num_tiles, tasks.TILE,
+                       tasks.TILE), bf16, seed + t) for t in range(calls)]
+    wss = [[torch.zeros((c.num_tiles, tasks.TILE, tasks.TILE), dtype=bf16,
+                        device=d) for d in ctx.devices] for c in progs]
+    outs = [[torch.empty_like(wss[t % len(progs)][r]) for r in range(n)]
+            for t in range(calls)]
+    launchers = [ctx.run(lambda r, c=c, w=w: mk.cuda_launcher(
+        c.queue, w[r], None, num_exec=c.num_exec, mat_specs=(),
+        head_dim=tasks.TILE, sync_before=c.sync_before, live_rows=rows,
+        group=mk.ar_group(c.queue, c.num_exec, w[r], num_ranks=n,
+                          axis="tp", max_ar=c.max_ar, force_ar=False,
+                          ar_tag=tag))) for c, w in zip(progs, wss)]
+    mega = mk.MEGA_KERNEL
+    torch.cuda.synchronize()
+    k0, v0 = mega.launches, dict(mega.variant_launches)
+
+    def loop(r):
+        for t in range(calls):
+            p = t % len(progs)
+            wss[p][r].copy_(X[t][r])
+            launchers[p][r]()
+            outs[t][r].copy_(wss[p][r])
+
+    t0 = time.perf_counter()
+    ctx.run(loop)
+    torch.cuda.synchronize()
+    ctx.raise_on_comm_error()
+    wall = time.perf_counter() - t0
+    bad = []
+    for t in range(calls):
+        c = progs[t % len(progs)]
+        idx = torch.tensor(_mk_ar_tiles(c), device=X[t].device)
+        want = ar.reduce_slots_plain([X[t][r][idx, :rows] for r in range(n)])
+        got = [o.to(X[t].device)[idx] for o in outs[t]]
+        ok = all(torch.equal(_bits(torch, g[:, :rows]), _bits(torch, want))
+                 and torch.equal(g[:, rows:], X[t][r][idx, rows:])
+                 for r, g in enumerate(got))
+        if not ok:
+            bad.append(t)
+    launched = mega.launches - k0
+    moe = mega.variant_launches.get("moe", 0) - v0.get("moe", 0)
+    ranks_on = ctx.devices.count(ctx.devices[0])
+    grids = {name: mk.grid_blocks(bf16, full=True, moe=m,
+                                  ranks_on_card=ranks_on)
+             for name, m in (("full", False), ("moe", True))
+             if m is False or bodies}
+    ctx.close()
+    want_moe = n * (calls // 2) if bodies else 0
+    return {"case": f"{'bodies' if bodies else 'stream'}{calls}_n{n}"
+                    f"_bfloat16_{rows}", "n": n, "dtype": "bfloat16",
+            "rows": rows, "calls": calls, "ar_tag": tag,
+            "programs": ["mixed (32, 1, 4 tiles)"]
+            + (["moe body (32 tiles + MOE_TOPK)"] if bodies else []),
+            "grid_blocks": grids, "launches": launched,
+            "moe_body_launches": moe, "calls_wrong": bad[:8],
+            "wall_s": wall, "max_abs_err": 0.0 if not bad else float("nan"),
+            "bit_identical": not bad,
+            "ok": not bad and launched == n * calls and moe == want_moe}
+
+
 def phase_megakernel_ar(torch, timer, *, devices_for=virtual_devices,
                         ranks=MK_AR_RANKS) -> tuple:
     """Types 4 and 22 on 2, 4 and 8 virtual ranks (``ranks``, on
     ``devices_for(n)``) in fp32 and bf16 at 1, 4 and 128 live rows and a
     Qwen3-8B row (32 tiles), bit for bit against the plain version;
-    ``force_ar`` at one rank; the held-back rank. The main case (4 ranks,
-    bf16, 1 row: a decode step's reduction) timed."""
+    ``force_ar`` at one rank; at 4 ranks 200 launches without a sync and
+    two bodies in turn over one slot buffer (``mk_ar_stream_case``); the
+    held-back rank. The main case (4 ranks, bf16, 1 row: a decode step's
+    reduction) timed."""
     cases = []
     for n in ranks:
         for dt in (torch.float32, torch.bfloat16):
@@ -6340,6 +6569,11 @@ def phase_megakernel_ar(torch, timer, *, devices_for=virtual_devices,
         cases.append(mk_ar_case(torch, timer, n=1, dtype=dt, rows=1, seed=7,
                                 force_ar=True, time_it=dt == torch.bfloat16,
                                 devices_for=devices_for))
+    cases.append(mk_ar_stream_case(torch, n=TP, calls=MK_AR_STREAM_CALLS,
+                                   seed=900, devices_for=devices_for))
+    cases.append(mk_ar_stream_case(torch, n=TP, calls=MK_AR_BODY_CALLS,
+                                   seed=1200, bodies=True,
+                                   devices_for=devices_for))
     return cases, mk_ar_timeout(torch, devices_for=devices_for)
 
 

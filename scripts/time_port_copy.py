@@ -7,8 +7,9 @@ through ``all_gather_local`` / ``all_reduce_local`` over both axes), B5's
 double tree (``ops/allreduce.py`` ``method="tree"``), B6's ring
 reduce-scatter (``ops/reduce_scatter.py`` ``reduce_scatter_local``),
 B8's AllToAll in both forms (``ops/all_to_all.py``
-``fast_all_to_all_local`` and ``fast_all_to_all_stream``) and B4's parity
-AllGather (``ops/allgather.py`` ``all_gather_stream``)
+``fast_all_to_all_local`` and ``fast_all_to_all_stream``), B4's parity
+AllGather (``ops/allgather.py`` ``all_gather_stream``) and B5's one-shot
+AllReduce (``ops/allreduce.py`` ``method="one_shot"``)
 of one tree at the main path's shapes on one CUDA card, each beside the
 PyTorch call that computes the same outputs.
 
@@ -27,7 +28,9 @@ experts (the EP decode's dispatch), and its barrier form at cap 4096 x
 2048, 512 tokens a rank routed the same way (the EP prefill's); B4's
 parity stream at n = 4, 128 x 130 fp32 a rank (the SP decode's attention
 partials at Qwen3-8B's 32 q heads, d 128, B = 4), over one persistent
-workspace. Each case is first checked bit for bit against the tree's plain version on
+workspace; the one-shot at n = 4, 16 x 4096 a rank (the TP verify step's
+reductions at ``spec_k=3``), 4 rows (a decode step's) and 2048 rows. Each
+case is first checked bit for bit against the tree's plain version on
 every rank, then timed: every rank's stream is held while the rank threads
 enqueue CALLS calls (by the tree's ``HOLD`` kernel polling one page-locked
 host word, released at one instant; a tree without it holds with its
@@ -56,7 +59,9 @@ at once, on each rank's stream, timed both ways), then the card's name and
 power limit. ``--only NAME[,NAME]`` runs those cases alone;
 ``--ring-block KIB[,KIB]`` runs the ring's cases again at each block size
 (KiB of a rank's chunk a block; a tree whose ring launches through
-``launch_push``), the design sweep of its grid.
+``launch_push``), the design sweep of its grid; ``--one-shot-block
+KIB[,KIB]`` the one-shot's (KiB of the payload a block; a tree whose
+one-shot launches through ``launch_push``).
 
 ``--paths`` also reads the walls of the paths that run these kernels, from
 the tree's own ``chip_smoke.py``: ``phase_pp_forward`` on Qwen3-8B (random
@@ -81,6 +86,7 @@ change, change, parent:
 
     python3 scripts/time_port_copy.py [--tree DIR] [--label NAME] [--paths]
                                       [--only NAME,...] [--ring-block KIB,...]
+                                      [--one-shot-block KIB,...]
 """
 import argparse
 import hashlib
@@ -108,7 +114,10 @@ CASES = [("ag_full_mesh_n2", "push", 2, 1024, 2048),
          ("ag_ring_n4_2048", "ring", 4, 512, 4096),
          ("a2a_parity_n4", "a2a", 4, 32, 2048),
          ("a2a_n4", "a2a_barrier", 4, 4096, 2048),
-         ("ag_parity_n4", "agp", 4, 128, 130)]
+         ("ag_parity_n4", "agp", 4, 128, 130),
+         ("ar_one_shot_n4", "one_shot", 4, 16, 4096),
+         ("ar_one_shot_n4_4", "one_shot", 4, 4, 4096),
+         ("ar_one_shot_n4_2048", "one_shot", 4, 2048, 4096)]
 GRID_2D = (2, 4)
 TREE_PROMPT = 203
 SLICE = 256                  # the TP serving loop's prefill chunk
@@ -250,12 +259,12 @@ def copy_case(torch, mods, name, kind, n, rows, cols, seed) -> dict:
             for _ in range(n):
                 torch.cat(xs)
         lib_call = f"{n} x torch.cat of the {n} chunks"
-    elif kind in ("ar_torus", "tree"):
-        if kind == "tree":
+    elif kind in ("ar_torus", "tree", "one_shot"):
+        if kind in ("tree", "one_shot"):
             def fn(r):
-                return ar.all_reduce_local(xs[r], num_ranks=n,
-                                           method="tree")
-            want = [ar.tree_plain(xs)] * n
+                return ar.all_reduce_local(xs[r], num_ranks=n, method=kind)
+            want = [ar.tree_plain(xs) if kind == "tree"
+                    else ar.reduce_slots_plain(xs)] * n
         else:
             def fn(r):
                 return ar.all_reduce_local(xs[r], axis=("dcn", "tp"),
@@ -691,23 +700,23 @@ def ep_path_case(torch, root) -> dict:
             and bar_calls == 2 * n * EP_LAYERS}
 
 
-_RING_LAUNCH = {}
+_REAL_LAUNCH = {}
 
 
-def ring_block(ag, comm, nbytes) -> None:
-    """Make the ring's launches take a block per ``nbytes`` of a rank's
-    chunk (``launch_push``'s ``block_bytes``); None restores the tree's
-    own. Other kernels' launches are untouched."""
-    real = _RING_LAUNCH.setdefault("real", ag.launch_push)
+def block_sweep(mod, kernel, nbytes) -> None:
+    """Make ``kernel``'s launches from the wrapper module ``mod`` take a
+    block per ``nbytes`` (``launch_push``'s ``block_bytes``); None
+    restores the tree's own. Other kernels' launches are untouched."""
+    real = _REAL_LAUNCH.setdefault(mod.__name__, mod.launch_push)
     if nbytes is None:
-        ag.launch_push = real
+        mod.launch_push = real
         return
 
-    def launch(kernel, *a, **k):
-        if kernel is comm.AG_RING_KERNEL:
-            k["block_bytes"] = nbytes
-        return real(kernel, *a, **k)
-    ag.launch_push = launch
+    def launch(k, *a, **kw):
+        if k is kernel:
+            kw["block_bytes"] = nbytes
+        return real(k, *a, **kw)
+    mod.launch_push = launch
 
 
 def main() -> int:
@@ -722,6 +731,9 @@ def main() -> int:
     ap.add_argument("--ring-block", default=None,
                     help="comma-separated KiB a block: run the ring's cases "
                          "again at each (the grid sweep)")
+    ap.add_argument("--one-shot-block", default=None,
+                    help="comma-separated KiB a block: run the one-shot's "
+                         "cases again at each (the grid sweep)")
     args = ap.parse_args()
     only = set(args.only.split(",")) if args.only else None
     root = os.path.abspath(args.tree)
@@ -767,12 +779,19 @@ def main() -> int:
     failed = []
     cases = [c for c in CASES if only is None or c[0] in only]
     runs = [(i, c, None) for i, c in enumerate(CASES) if c in cases]
-    for kib in (args.ring_block.split(",") if args.ring_block else ()):
-        runs += [(i, c, int(kib)) for i, c in enumerate(CASES)
-                 if c in cases and c[1] == "ring"]
+    sweeps = {"ring": (ag, comm.AG_RING_KERNEL, args.ring_block),
+              "one_shot": (ar, comm.ONE_SHOT_KERNEL, args.one_shot_block)}
+    for kind, (mod, _, kibs) in sweeps.items():
+        if kibs and not hasattr(mod, "launch_push"):
+            print(f"time_port_copy: {root}'s {kind} does not launch through"
+                  " launch_push: no block sweep", file=sys.stderr)
+            continue
+        for kib in (kibs.split(",") if kibs else ()):
+            runs += [(i, c, int(kib)) for i, c in enumerate(CASES)
+                     if c in cases and c[1] == kind]
     for i, (name, kind, n, rows, cols), kib in runs:
         if kib is not None:
-            ring_block(ag, comm, kib << 10)
+            block_sweep(*sweeps[kind][:2], kib << 10)
             name = f"{name}_block{kib}k"
         if kind in ("a2a", "a2a_barrier"):
             rec = a2a_copy_case(torch, mods, name, n, rows, cols, 950 + i,
@@ -782,8 +801,8 @@ def main() -> int:
         else:
             rec = copy_case(torch, mods, name, kind, n, rows, cols, 950 + i)
         if kib is not None:
-            ring_block(ag, comm, None)
-            rec["ring_block_bytes"] = kib << 10
+            block_sweep(*sweeps[kind][:2], None)
+            rec["block_bytes"] = kib << 10
         rec["tree"] = label
         print(json.dumps(rec), flush=True)
         if not rec["ok"]:

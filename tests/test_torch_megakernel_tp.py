@@ -163,7 +163,12 @@ def test_tp_queue_word_for_word(name):
 def test_tp_barrier_rows_cover_hazards(name):
     """The CUDA interpreter's barrier flags at n > 1: every hazard edge has
     a barrier between its rows, so each AllReduce starts after the
-    projection that stores its slab, and its readers after it."""
+    projection that stores its slab, and its readers after it. The CUDA
+    AllReduce task holds no grid barrier of its own, so these carry it:
+    checked for every AllReduce row by name — a barrier after each of its
+    producers, one before its first reader, and one between it and the
+    next AllReduce row (the two parity slot sets' reuse rests on it; the
+    launcher's ``check_ar_barriers`` holds every queue to that)."""
     make, n, _ = PROGRAMS[name]
     _, tc = _both(make(), n)
     sync, rows = tc.sync_before, tc.task_rows
@@ -171,7 +176,24 @@ def test_tp_barrier_rows_cover_hazards(name):
     for u, t in tc.hazard_edges:
         assert rows[u] < rows[t]
         assert sync[rows[u] + 1:rows[t] + 1].any(), (u, t)
-    assert np.isin(tc.queue[:tc.num_exec, 0], AR_TYPES).any()
+    types = tc.queue[:tc.num_exec, 0]
+    ar_rows = np.flatnonzero(np.isin(types, AR_TYPES))
+    assert len(ar_rows)
+    task_at = {row: t for t, row in enumerate(rows)}
+    for a in ar_rows:
+        t = task_at[a]
+        ins = [rows[u] for u, d in tc.hazard_edges if d == t]
+        outs = [rows[d] for u, d in tc.hazard_edges if u == t]
+        assert ins and outs, f"AllReduce row {a}: no producer or reader"
+        for p in ins:
+            assert sync[p + 1:a + 1].any(), \
+                f"AllReduce row {a}: no barrier after its producer {p}"
+        assert sync[a + 1:min(outs) + 1].any(), \
+            f"AllReduce row {a}: no barrier before its first reader"
+    for a, b in zip(ar_rows, ar_rows[1:]):
+        assert sync[a + 1:b + 1].any(), \
+            f"AllReduce rows {a} and {b} share a barrier interval"
+    mk.check_ar_barriers(tc.queue, tc.num_exec, sync)
 
 
 # ---------------------------------------------------------------------------

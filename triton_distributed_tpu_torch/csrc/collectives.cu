@@ -4,14 +4,33 @@
 // computes, in the same order and rounding (the replicas must end with
 // bit-identical sums, or their greedy tokens diverge):
 //
-//  ar_one_shot   ops/allreduce.py:68 _ar_one_shot_kernel — barrier, push
-//                this rank's block into slot `rank` of every peer's
-//                workspace, wait for the n-1 deliveries, sum the n slots
-//                in rank order 0..n-1 in fp32 from 0, cast once.
+//  ar_one_shot   ops/allreduce.py:68 _ar_one_shot_kernel — the n inputs
+//                summed in rank order 0..n-1 in fp32 from 0 and cast once,
+//                on the push protocol with every rank an owner of the whole
+//                payload (rs_ring's roles, below, with one chunk): block 0
+//                of each rank publishes its INPUT's address to every peer
+//                with the call's epoch; block b of each rank reads share b
+//                of every rank's input (its own locally, a peer's through
+//                L2 behind the acquired ready word), sums it into its fresh
+//                output, then releases the epoch into word `data + rank *
+//                stride + b` of each source's pad; a source's block b
+//                returns only once every reader released it, since a
+//                caller may overwrite or free its input when the kernel
+//                ends. One hop behind one flag; no entry barrier, slot
+//                workspace (the first kernel pushed every byte into an (n,
+//                m, cols) slot buffer and read it back) or dependent hops.
+//                Safe across calls as rs_ring: a reader of call t+1 reads
+//                a source's address only after the source's ready word
+//                reached t+1, which the source stores after the new
+//                address; and a source reaches call t+1 only after every
+//                reader released call t, i.e. after each one's last load
+//                of the source's call-t input returned.
 //  ar_parity     ops/allreduce.py:104 _ar_one_shot_parity_kernel — the
-//                same without the barrier, over a persistent workspace
-//                of two parity slabs and per-parity flags (the decode
-//                path's repeated calls; safety argument in
+//                same sum as the slot form the one-shot was: each rank
+//                pushes its block into slot `rank` of every peer's
+//                persistent workspace of two parity slabs, waits for the
+//                peers' per-parity flags and sums its n slots; no barrier
+//                (the decode path's repeated calls; safety argument in
 //                ops/allreduce.all_reduce_stream).
 //  rs_ring       ops/reduce_scatter.py:52 _rs_ring_kernel — ring reduce-
 //                scatter: chunk c summed in the ring's order, x_{c+1} +
@@ -94,13 +113,13 @@
 // over blocks, each of which synchronises only with the same block of its
 // peers — no grid-wide barrier, and a grid within 1/r of the SMs (r ranks
 // on the card), so virtual ranks on one card never starve each other of
-// SMs. The one-shot and parity AllReduces still run a small fixed grid
-// (at most kMaxBlocks) on dist.cuh's put, one load in flight a thread.
-// The push-protocol kernels (ag_ring, ag_full_mesh, ag_parity, ar_tree,
-// rs_ring) size their grids on the host: the AllGathers and rs_ring by
-// their payload (a 256-row slice's 2 MiB input: 32 blocks, under the cap
-// of 33 at 4 ranks a card), each thread keeping push::kUnroll 16-byte
-// loads in flight. They are safe across calls by push.cuh's argument: the
+// SMs. The parity AllReduce still runs a small fixed grid (at most
+// kMaxBlocks) on dist.cuh's put, one load in flight a thread. The
+// push-protocol kernels (ar_one_shot, ag_ring, ag_full_mesh, ag_parity,
+// ar_tree, rs_ring) size their grids on the host: the AllGathers, rs_ring
+// and the one-shot by their payload (a 256-row slice's 2 MiB input: 32
+// blocks, under the cap of 33 at 4 ranks a card), each thread keeping
+// push::kUnroll 16-byte loads in flight. They are safe across calls by push.cuh's argument: the
 // output is fresh every call, a sender reads a receiver's address only
 // once the receiver's ready word reached the call's epoch, and a receiver
 // reaches its next call only after every sender's data word of this one.
@@ -141,20 +160,6 @@ __device__ __forceinline__ void push_all(const Group& g, const uint4* x,
   signal_peers(g, flag_base, val);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    ar_one_shot_kernel(Group g, const uint4* x, uint4* out, long long nvec) {
-  long long v0, v1;
-  block_range(nvec, &v0, &v1);
-  if (!barrier_all(g)) return;
-  const long long slot_bytes = nvec * 16;
-  const int base = kStepBase + blockIdx.x * kMaxRanks;
-  push_all(g, x, g.rank * slot_bytes, v0, v1, base, g.epoch);
-  if (!wait_peers(g, base, g.epoch)) return;
-  const uint4* ws = reinterpret_cast<const uint4*>(peer_base(g, g.rank));
-  reduce_slots<T>(ws, nvec, g.n, out, v0, v1);
-}
-
 // g.epoch carries call_index + 1; the parity slab is call_index % 2.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -174,23 +179,33 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // Vectors [v0, v1) of the n operands src[0..n-1] summed in that order into
-// out: each add in fp32, rounded to T (one rounding an add, as the ring's
-// hops: ops/reduce_scatter.py:35 _tiled_add's chain). kUnroll loads of one
-// operand in flight a thread, through L2 (a peer's input, behind the flag
-// this block acquired).
-template <typename T>
-__device__ __forceinline__ void ring_sum(const uint4* const* src, int n,
-                                         uint4* out, long long v0,
-                                         long long v1) {
+// out, kUnroll loads of one operand in flight a thread, through L2 (a
+// peer's input, behind the flag this block acquired). kOnce = false: each
+// add in fp32, rounded to T (one rounding an add, as the ring's hops:
+// ops/reduce_scatter.py:35 _tiled_add's chain). kOnce = true: fp32 from 0,
+// rounded to T once (the one-shot's: ops/allreduce.py:91 _reduce_slots;
+// 0 + (-0) is +0).
+template <typename T, bool kOnce>
+__device__ __forceinline__ void ordered_sum(const uint4* const* src, int n,
+                                            uint4* out, long long v0,
+                                            long long v1) {
   constexpr int E = Vec<T>::N;
   constexpr int U = tdt::push::kUnroll;
   const long long TB = blockDim.x;
   for (long long base = v0 + threadIdx.x; base < v1; base += TB * U) {
     uint4 a[U], b[U];
+    float acc[kOnce ? U : 1][kOnce ? E : 1];
 #pragma unroll
     for (int k = 0; k < U; ++k) {
       const long long v = base + k * TB;
       if (v < v1) a[k] = __ldcg(src[0] + v);
+    }
+    if constexpr (kOnce) {
+#pragma unroll
+      for (int k = 0; k < U; ++k)
+#pragma unroll
+        for (int e = 0; e < E; ++e)
+          acc[k][e] = 0.0f + to_f(elems<T>(a[k])[e]);
     }
     for (int s = 1; s < n; ++s) {
       const uint4* p = src[s];
@@ -201,11 +216,24 @@ __device__ __forceinline__ void ring_sum(const uint4* const* src, int n,
       }
 #pragma unroll
       for (int k = 0; k < U; ++k) {
-        T* ae = reinterpret_cast<T*>(&a[k]);
         const T* be = elems<T>(b[k]);
+        if constexpr (kOnce) {
 #pragma unroll
-        for (int e = 0; e < E; ++e)
-          ae[e] = from_f<T>(to_f(ae[e]) + to_f(be[e]));
+          for (int e = 0; e < E; ++e) acc[k][e] = acc[k][e] + to_f(be[e]);
+        } else {
+          T* ae = reinterpret_cast<T*>(&a[k]);
+#pragma unroll
+          for (int e = 0; e < E; ++e)
+            ae[e] = from_f<T>(to_f(ae[e]) + to_f(be[e]));
+        }
+      }
+    }
+    if constexpr (kOnce) {
+#pragma unroll
+      for (int k = 0; k < U; ++k) {
+        T* ae = reinterpret_cast<T*>(&a[k]);
+#pragma unroll
+        for (int e = 0; e < E; ++e) ae[e] = from_f<T>(acc[k][e]);
       }
     }
 #pragma unroll
@@ -214,6 +242,37 @@ __device__ __forceinline__ void ring_sum(const uint4* const* src, int n,
       if (v < v1) out[v] = a[k];
     }
   }
+}
+
+// x: this rank's payload (nbytes), published to every peer; out: this
+// rank's fresh sum. Block b reads share b of every rank's input (the same
+// share on every rank), operand k the input of rank k, so the sum is in
+// rank order; then it releases every source and holds this rank's input
+// until every reader released it. n = 1 reads its own input alone.
+template <typename T, bool SYS>
+__global__ void __launch_bounds__(tdt::push::kThreads)
+    ar_one_shot_kernel(Group g, tdt::push::Layout L, const char* x,
+                       char* out, long long nbytes) {
+  namespace pu = tdt::push;
+  __shared__ const uint4* src[kMaxRanks];
+  const int n = g.n, me = g.rank, j = threadIdx.x;
+  const int all = (1 << n) - 1;
+  if (blockIdx.x == 0 && j < n && j != me) pu::publish<SYS>(g, L, j, x);
+  // Thread j resolves source j's input.
+  int ok = 1;
+  if (j < n) {
+    const char* b = j == me ? x : pu::await_dest<SYS>(g, L, j);
+    ok = b != nullptr;
+    src[j] = reinterpret_cast<const uint4*>(b);
+  }
+  if (!__syncthreads_and(ok)) return;
+  long long lo, hi;
+  pu::share(nbytes, &lo, &hi);
+  ordered_sum<T, true>(src, n, reinterpret_cast<uint4*>(out), lo / 16,
+                       hi / 16);
+  __syncthreads();
+  if (j == 0) pu::signal_data<SYS>(g, L, all);
+  pu::wait_data<SYS>(g, L, all);
 }
 
 // x: (n, chunk) of this rank's contributions, published to every peer; out:
@@ -240,7 +299,8 @@ __global__ void __launch_bounds__(tdt::push::kThreads)
   if (!__syncthreads_and(ok)) return;
   long long lo, hi;
   pu::share(chunk_bytes, &lo, &hi);
-  ring_sum<T>(src, n, reinterpret_cast<uint4*>(out), lo / 16, hi / 16);
+  ordered_sum<T, false>(src, n, reinterpret_cast<uint4*>(out), lo / 16,
+                        hi / 16);
   // Every thread's loads returned (their sums are stored); release the
   // sources, then hold this rank's input until every owner released it.
   __syncthreads();
@@ -523,22 +583,36 @@ extern "C" {
 
 // dtype: 0 float32, 1 bfloat16. nbytes: one rank's payload (a multiple of
 // 16; pointers 16-byte aligned). Every entry returns its cudaError_t.
+// x: this rank's input, out: its fresh sum. grid (sized by the payload),
+// sys (the flags' scope: 1 when a peer is another card) and the pad layout
+// (addr, ready, data, stride) come from the host (ops/_comm.launch_push),
+// the same on every rank.
 int tdt_ar_one_shot(const void* table, const void* sig_table, void* err,
                     int rank, int n, unsigned long long epoch,
                     long long timeout_ns, const void* x, void* out,
-                    long long nbytes, int dtype, cudaStream_t stream) {
-  const long long nvec = nbytes / 16;
-  if (bad_group(rank, n, nvec) || nbytes % 16) return cudaErrorInvalidValue;
+                    long long nbytes, int dtype, int grid, int sys, int addr,
+                    int ready, int data, int stride, cudaStream_t stream) {
+  const tdt::push::Layout L{addr, ready, data, stride};
+  if (bad_group(rank, n, nbytes / 16) || nbytes % 16 ||
+      tdt::push::bad_layout(L, n, grid))
+    return cudaErrorInvalidValue;
   const Group g = make_group(table, sig_table, err, rank, n, epoch,
                              timeout_ns);
-  const dim3 grid(grid_for(nvec)), block(kThreads);
-  const uint4* xi = static_cast<const uint4*>(x);
-  uint4* o = static_cast<uint4*>(out);
-  if (dtype == 0)
-    ar_one_shot_kernel<float><<<grid, block, 0, stream>>>(g, xi, o, nvec);
+  const dim3 blocks(grid), block(tdt::push::kThreads);
+  const char* xi = static_cast<const char*>(x);
+  char* o = static_cast<char*>(out);
+  if (dtype == 0 && sys)
+    ar_one_shot_kernel<float, true><<<blocks, block, 0, stream>>>(
+        g, L, xi, o, nbytes);
+  else if (dtype == 0)
+    ar_one_shot_kernel<float, false><<<blocks, block, 0, stream>>>(
+        g, L, xi, o, nbytes);
+  else if (dtype == 1 && sys)
+    ar_one_shot_kernel<__nv_bfloat16, true><<<blocks, block, 0, stream>>>(
+        g, L, xi, o, nbytes);
   else if (dtype == 1)
-    ar_one_shot_kernel<__nv_bfloat16><<<grid, block, 0, stream>>>(g, xi, o,
-                                                                  nvec);
+    ar_one_shot_kernel<__nv_bfloat16, false><<<blocks, block, 0, stream>>>(
+        g, L, xi, o, nbytes);
   else
     return cudaErrorInvalidValue;
   return cudaGetLastError();

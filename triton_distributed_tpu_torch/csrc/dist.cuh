@@ -22,13 +22,15 @@
 // writes the rank's error word — (flag index, expected, observed, 1) —
 // and the kernel returns early. The host reads the word where it
 // synchronises anyway (DistContext.raise_on_comm_error) and raises
-// CommTimeoutError. The one-shot and parity AllReduces and B12's torus
-// AllReduce run a small fixed grid (at most kMaxBlocks blocks) on put and
-// barrier_all; the push-protocol kernels (push.cuh) a grid the host sizes
-// by the payload, and each fused GEMM kernel (gemm_comm.cu) a persistent
-// grid of one block an SM, both on at most 1/r of the SMs, r the ranks on
-// the card, so on one card a spinning rank never takes the SMs its peers
-// need.
+// CommTimeoutError. The parity AllReduce and B12's torus AllReduce run a
+// small fixed grid (at most kMaxBlocks blocks) on put (the torus on
+// barrier_all too); the push-protocol kernels (push.cuh: the one-shot
+// AllReduce among them) a grid the host sizes by the payload, and each
+// fused GEMM kernel (gemm_comm.cu) a persistent grid of one block an SM,
+// both on at most 1/r of the SMs, r the ranks on the card, so on one card
+// a spinning rank never takes the SMs its peers need. The megakernel's
+// AllReduce (megakernel.cu t_allreduce) keeps its own flags: a word a
+// parity, source and block.
 
 #pragma once
 

@@ -16,7 +16,9 @@
 // add MOE_TOPK (17) and MOE_FFN (18). A program compiled for a TP group
 // adds the in-kernel AllReduce, ALLREDUCE (4) and ALLREDUCE_ROW (22): each
 // rank runs its own launch of the same queue on its shard, and the ranks'
-// launches run together (see t_allreduce and the grid's size). PREFETCH
+// launches run together (the grid's size); a task meets its peers through
+// per-block flags over two parity slot sets, with no grid barrier or exit
+// barrier of its own (see t_allreduce). PREFETCH
 // (10) and PREFETCH_W8 (16) warm one weight tile (main workspace, or e4m3 weight workspace) into L2
 // for the next GEMM_WIDE(_W8) with c0 == 1, which reads it as usual: the
 // TPU's warm lands in a reserved VMEM slot that the strip fetch re-reads
@@ -112,6 +114,7 @@
 
 #include "common.cuh"
 #include "dist.cuh"
+#include "push.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -186,11 +189,15 @@ struct Args {
   int live_rows;
   int head_dim;
   // The AllReduce tasks' rank group (ar_on = 0: they do nothing): table =
-  // every rank's AR slot buffer, (max(n, 1), max_ar, TILE, TILE) of T
-  // each; sig_table = their signal pads; epoch = the launch's first epoch.
+  // every rank's AR slot buffer, two sets of (n, max_ar, TILE, TILE) of T
+  // each; sig_table = their signal pads; epoch = the launch's first epoch;
+  // ar_sys = the flags' scope (1: the system's, a peer on another card);
+  // ar_stride = the flag words a (parity, source): the largest grid.
   tdt::dist::Group ar;
   int ar_on;
   int max_ar;
+  int ar_sys;
+  int ar_stride;
 };
 
 // -- loads: the workspace is written during the launch, so it is read
@@ -1244,39 +1251,68 @@ __device__ void t_prefetch(const E* base, int tile, int& seg) {
 }
 
 // -- ALLREDUCE (4) / ALLREDUCE_ROW (22): the TP reductions inside the step
-// (kernel.py:569 t_allreduce, :601 t_allreduce_row). Rank `me` pushes its
-// slab (word 4 tiles from `out`, or one tile) into slot `me` of every
-// rank's AR slot buffer, its own included; a grid barrier; one thread per
-// rank releases the delivery flag; every block waits for every rank's
-// delivery itself (its own acquire); each block sums its share of the slab
-// over slots 0..n-1 in rank order, in fp32 from zero, rounds once and
-// stores at `out`: every rank sums the same values in the same order, so
-// every rank's row is bit-identical. At n > 1 a grid barrier (the slots
-// are read), then the exit barrier: one thread per peer releases the exit
-// flag, every block waits for each peer's, so no rank's next push lands in
-// a slot a peer still reads (the reference's barrier_all). At n = 1
-// (force_ar) the protocol runs against the rank itself and needs no exit
-// barrier. Only the live rows move. AllReduce row k of a launch uses the
-// epoch ar.epoch + k; flags only grow.
+// (kernel.py:569 t_allreduce, :601 t_allreduce_row). AllReduce row k of a
+// launch has the epoch e = ar.epoch + k (epochs run on across launches,
+// kernel.py ArGroup.next_epochs) and uses slot set p = e & 1 of the AR slot
+// buffers ((2, n, max_ar, TILE, TILE) of T a rank). Block b pushes its
+// grid-strided vectors of the slab (word 4 tiles from `out`, or one tile;
+// the live rows only) into slot `me` of set p of every rank, its own
+// included; fences; releases word (p, me, b) at every peer (at n = 1, with
+// force_ar, at itself); waits for the words (p, j, b) of the n - 1 peers;
+// then sums exactly the vectors it pushed over slots 0..n-1 of its own set
+// p in rank order, in fp32 from zero, rounds once and stores them at `out`.
+// The grid is the same on every rank of a launch (one queue, one body, one
+// card's share), so block b of every rank moves the same vectors, and every
+// rank's row is bit-identical. Blocks with no vectors skip both sides (at 1
+// row x 32 tiles bf16, all but 2). No grid barrier and no exit barrier: the
+// first task held two grid barriers and two flag round trips (the delivery
+// flag from block 0 after a grid barrier, and at n > 1 an exit barrier after
+// another), the reference's barrier_all.
+//
+// Why the slots and flags are safe without them. Two AllReduce rows of a
+// launch always have a grid barrier between them (sync_before: builder.py
+// barrier_rows puts one before every AllReduce row that follows another in
+// its interval, and kernel.py refuses a queue without it), and a rank's
+// launch ends before its next one starts (stream order). So no block of
+// rank r pushes epoch e + 2 (set p again) before every block of r finished
+// row e + 1, block 0 included — it always has vectors, and it waited there
+// for every peer j's block 0 delivery of e + 1; and j's block 0 pushed e + 1
+// only after j's own barrier (or launch boundary) behind row e, i.e. after
+// every block of j summed its set p of epoch e. The argument is about whole
+// grids, so a grid that differs between launches (grid_blocks per body)
+// breaks nothing. Word (p, j, b) sits at (p * n + j) * ar_stride + b, the
+// stride the largest grid any body takes on this card (the host's, checked
+// against the pad: 2 * n * ar_stride words), so a word means the same in
+// every launch. It holds the last epoch of parity p that j's block b
+// delivered; a wait for e sees e itself: earlier launches wrote smaller
+// epochs, and j delivers e + 2 only after r passed row e + 1, i.e. after
+// r's wait for e. One word a parity, so a fast peer's e + 1 never counts
+// toward e; flags only grow. The flags' scope is a runtime field (ar_sys:
+// the GPU's when every rank of the group is on this card, the system's
+// otherwise), not a template argument, which would double mega_kernel's
+// instantiations.
 //
 // Bound: bytes — each rank pushes its live rows to n slots and reads n
-// slots back; one flag round trip and two grid barriers per task (three
-// and two round trips at n > 1).
+// slots back; one flag round trip per task and block.
 //
 // A wait that passes the deadline writes the rank's error word and
 // returns; every later wait of the launch sees the word and returns at
 // once, so the whole grid runs the rest of its queue without waiting,
 // reaches every grid barrier and ends. The host raises CommTimeoutError
 // where it synchronises (DistContext.raise_on_comm_error).
-constexpr int AR_DELIVERED = 0;
-constexpr int AR_EXITED = tdt::dist::kMaxRanks;
+__device__ __forceinline__ unsigned long long ar_load(const Args& a,
+                                                      const unsigned long long* f) {
+  return a.ar_sys ? tdt::push::ld_acquire<true>(f)
+                  : tdt::push::ld_acquire<false>(f);
+}
 
-__device__ __forceinline__ void ar_spin(const tdt::dist::Group& g, int idx,
+__device__ __forceinline__ void ar_spin(const Args& a, int idx,
                                         unsigned long long want) {
   namespace d = tdt::dist;
+  const d::Group& g = a.ar;
   const unsigned long long* f = d::flags(g, g.rank) + idx;
   const volatile long long* err = g.err + 3;
-  unsigned long long seen = d::ld_acquire_sys(f);
+  unsigned long long seen = ar_load(a, f);
   const unsigned long long t0 = d::globaltimer();
   while (seen < want) {
     if (*err != 0) return;
@@ -1285,33 +1321,31 @@ __device__ __forceinline__ void ar_spin(const tdt::dist::Group& g, int idx,
       return;
     }
     __nanosleep(100);
-    seen = d::ld_acquire_sys(f);
+    seen = ar_load(a, f);
   }
 }
 
-// Every block: thread j < n (j != skip) waits for flag base + j, then the
-// block meets.
-__device__ __forceinline__ void ar_wait(const tdt::dist::Group& g, int base,
-                                        unsigned long long want, int skip) {
+// Thread j < n releases word `idx` of rank j's pad (j != rank, or j = rank
+// alone at n = 1), after the block's stores: the block met first.
+__device__ __forceinline__ void ar_signal(const Args& a, int idx,
+                                          unsigned long long val) {
+  const tdt::dist::Group& g = a.ar;
   const int j = threadIdx.x;
-  if (j < g.n && j != skip) ar_spin(g, base + j, want);
-  __syncthreads();
-}
-
-// Block 0, thread j < n (j != skip): release flag base + me of rank j.
-__device__ __forceinline__ void ar_signal(const tdt::dist::Group& g, int base,
-                                          unsigned long long val, int skip) {
-  const int j = threadIdx.x;
-  if (blockIdx.x == 0 && j < g.n && j != skip) {
-    tdt::dist::fence();
-    tdt::dist::st_release_sys(tdt::dist::flags(g, j) + base + g.rank, val);
+  if (j < g.n && (j != g.rank || g.n == 1)) {
+    unsigned long long* f = tdt::dist::flags(g, j) + idx;
+    if (a.ar_sys) {
+      tdt::push::fence_to<true>();
+      tdt::push::st_release<true>(f, val);
+    } else {
+      tdt::push::fence_to<false>();
+      tdt::push::st_release<false>(f, val);
+    }
   }
 }
 
 template <typename T>
 __device__ __noinline__ void t_allreduce(T* ws, const Args& a, const int* w,
-                                         int site, int live,
-                                         cg::grid_group& grid) {
+                                         int site, int live) {
   const tdt::dist::Group& g = a.ar;
   constexpr int VR = TILE * sizeof(T) / 16;   // 16-byte vectors a row
   constexpr int E = 16 / sizeof(T);
@@ -1319,23 +1353,30 @@ __device__ __noinline__ void t_allreduce(T* ws, const Args& a, const int* w,
   T* slab = ws + (size_t)w[1] * TILE_ELEMS;
   const size_t slot = (size_t)a.max_ar * TILE_ELEMS;   // one rank's slot
   const unsigned long long epoch = g.epoch + site;
+  const int p = (int)(epoch & 1);
+  const size_t set = (size_t)p * g.n * slot;           // set p's offset
   const long long nvec = (long long)nt * live * VR;
   const long long step = (long long)gridDim.x * THREADS;
   const long long first = (long long)blockIdx.x * THREADS + threadIdx.x;
+  if ((long long)blockIdx.x * THREADS >= nvec) return;   // no vectors
   for (long long v = first; v < nvec; v += step) {
     const size_t off = (size_t)(v / (live * VR)) * TILE_ELEMS +
                        (size_t)((v / VR) % live) * TILE;
     const int c = (int)(v % VR);
     const uint4 x = __ldcg(reinterpret_cast<const uint4*>(slab + off) + c);
     for (int j = 0; j < g.n; ++j) {
-      T* dst = reinterpret_cast<T*>(g.table[j]) + g.rank * slot + off;
+      T* dst = reinterpret_cast<T*>(g.table[j]) + set + g.rank * slot + off;
       reinterpret_cast<uint4*>(dst)[c] = x;
     }
   }
-  grid.sync();
-  ar_signal(g, AR_DELIVERED, epoch, -1);
-  ar_wait(g, AR_DELIVERED, epoch, -1);
-  const T* mine = reinterpret_cast<const T*>(g.table[g.rank]);
+  __syncthreads();
+  const int words = a.ar_stride;
+  ar_signal(a, (p * g.n + g.rank) * words + blockIdx.x, epoch);
+  const int j = threadIdx.x;
+  if (j < g.n && (j != g.rank || g.n == 1))
+    ar_spin(a, (p * g.n + j) * words + blockIdx.x, epoch);
+  __syncthreads();
+  const T* mine = reinterpret_cast<const T*>(g.table[g.rank]) + set;
   for (long long v = first; v < nvec; v += step) {
     const size_t off = (size_t)(v / (live * VR)) * TILE_ELEMS +
                        (size_t)((v / VR) % live) * TILE;
@@ -1355,11 +1396,6 @@ __device__ __noinline__ void t_allreduce(T* ws, const Args& a, const int* w,
 #pragma unroll
     for (int e = 0; e < E; ++e) oe[e] = tdt::from_f<T>(acc[e]);
     reinterpret_cast<uint4*>(slab + off)[c] = o;
-  }
-  if (g.n > 1) {
-    grid.sync();
-    ar_signal(g, AR_EXITED, epoch, g.rank);
-    ar_wait(g, AR_EXITED, epoch, g.rank);
   }
 }
 
@@ -1542,7 +1578,7 @@ __global__ void __launch_bounds__(THREADS, BODY == BODY_LEAN ? 2 : 1)
         if constexpr (FULL) {
           if (w[0] == ALLREDUCE || w[0] == ALLREDUCE_ROW) {
             if (args.ar_on) {
-              t_allreduce(ws, args, w, ar_site, live, grid);
+              t_allreduce(ws, args, w, ar_site, live);
               seg = 0;
             }
             ++ar_site;
@@ -1595,6 +1631,8 @@ cudaError_t launch(const Args& args, int ranks, cudaStream_t stream) {
     if (cap < 1) return cudaErrorInvalidConfiguration;
     blocks = cap * (per_sm < 2 ? per_sm : 2);
   }
+  // The AllReduce's flag words a (parity, source) hold the whole grid.
+  if (args.ar_on && blocks > args.ar_stride) return cudaErrorInvalidValue;
   Args a = args;
   void* params[] = {&a};
   err = cudaLaunchCooperativeKernel(
@@ -1642,9 +1680,12 @@ int body_blocks(int body, int dev, int ranks) {
 // the (num_exec, TILE) int32 profile dump, or null (with body 1 or 2).
 // The AllReduce group: `ar_on` 1 runs types 4 / 22 over the slot buffers of
 // `ar_table` (rank `rank` of `num_ranks`, the launch's first `epoch`,
-// slots of `max_ar` tiles), 0 makes them no-ops (one rank, no force_ar);
-// `ranks_on_card`: the group's ranks on this card (1 for one rank), which
-// sizes the grid.
+// slots of `max_ar` tiles, two parity sets), 0 makes them no-ops (one
+// rank, no force_ar); `ranks_on_card`: the group's ranks on this card (1
+// for one rank), which sizes the grid; `ar_sys`: the flags' scope (1 the
+// system's: a peer on another card); `ar_stride`: the flag words a
+// (parity, source), at least the grid (kernel.py ar_flag_stride), with 2 x
+// num_ranks x ar_stride words inside the pad.
 extern "C" int megakernel_run(const int* queue, const int* sync_before,
                               const int* specs, void* ws, const void* wsm,
                               const void* ws8, void* wkv8, float* partial,
@@ -1654,12 +1695,13 @@ extern "C" int megakernel_run(const int* queue, const int* sync_before,
                               void* ar_err, int rank, int num_ranks,
                               unsigned long long epoch, long long timeout_ns,
                               int ar_on, int max_ar, int ranks_on_card,
-                              void* stream) {
+                              int ar_sys, int ar_stride, void* stream) {
   if (live_rows < 1 || live_rows > MAX_LIVE) return cudaErrorInvalidValue;
   if (ar_on && (num_ranks < 1 || num_ranks > tdt::dist::kMaxRanks ||
                 rank < 0 || rank >= num_ranks || max_ar < 1 ||
                 ar_table == nullptr || ar_sig_table == nullptr ||
-                ar_err == nullptr))
+                ar_err == nullptr || ar_stride < 1 ||
+                2LL * num_ranks * ar_stride > tdt::dist::kSignalWords))
     return cudaErrorInvalidValue;
   Args args{queue,   sync_before, specs,     ws,       wsm,
             static_cast<const __nv_fp8_e4m3*>(ws8),
@@ -1667,7 +1709,7 @@ extern "C" int megakernel_run(const int* queue, const int* sync_before,
             live_rows, head_dim,
             tdt::dist::make_group(ar_table, ar_sig_table, ar_err, rank,
                                   num_ranks, epoch, timeout_ns),
-            ar_on, max_ar};
+            ar_on, max_ar, ar_sys, ar_stride};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
       dtype == 1 ? launch_body<__nv_bfloat16>(args, body, ranks_on_card, s)

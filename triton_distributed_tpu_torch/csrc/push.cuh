@@ -1,7 +1,7 @@
 // The push protocol and its copy engine: what B4's ring, full-mesh push
 // and parity stream (collectives.cu ag_ring, ag_full_mesh, ag_parity),
-// B5's double tree (collectives.cu ar_tree), B6's reduce-scatter
-// (collectives.cu rs_ring), B7's shift and permutation (p2p.cu), B8's
+// B5's one-shot and double tree (collectives.cu ar_one_shot, ar_tree),
+// B6's reduce-scatter (collectives.cu rs_ring), B7's shift and permutation (p2p.cu), B8's
 // AllToAll in both forms (all_to_all.cu a2a, a2a_push) and B12's torus
 // AllGather (multi_axis.cu ag_torus) share; B11's split-K route
 // (gemm_comm.cu) takes its scoped flags (signal_word, spin).
@@ -32,8 +32,9 @@
 // data words by the output's slot, not by the sender (each slot of a
 // receiver has one writer, on either hop). B5's tree keeps its own words
 // (collectives.cu TreeLayout): a child's address in its parent's pad, and
-// flags along the tree's edges. B6's reduce-scatter mirrors the roles: a
-// rank publishes its INPUT, its owners read from it, and the data word
+// flags along the tree's edges. B6's reduce-scatter and B5's one-shot
+// mirror the roles: a rank publishes its INPUT, its owners (the one-shot:
+// every rank, of the whole payload) read from it, and the data word
 // `data + owner * stride + b` (in the source's pad) releases the input,
 // which the source holds until every owner released it. B8's AllToAll
 // publishes two addresses a receiver (its output and its splits:

@@ -743,9 +743,12 @@ class MegaKernelBuilder:
     def all_reduce(self, t: TensorHandle):
         """Sum ``t`` over the ranks in place (reference make_allreduce):
         one ALLREDUCE_ROW task per row of tiles, which pushes the whole row
-        to each peer as one slab, with one delivery wait and one exit
-        barrier. The single-tile ALLREDUCE stays dispatchable for the
-        queue ABI; the builder no longer emits it."""
+        to each peer as one slab. On the card each block pushes its share,
+        raises one flag a peer and waits for theirs, over two parity slot
+        sets: no grid or exit barrier inside the task; the queue's barrier
+        before each AllReduce row that follows another orders the sets'
+        reuse (:func:`barrier_rows`). The single-tile ALLREDUCE stays
+        dispatchable for the queue ABI; the builder no longer emits it."""
         self._no_fp8(t)
         for i in range(t.rt):
             row = [t.tile(i, j) for j in range(t.ct)]
@@ -843,15 +846,22 @@ def barrier_rows(order: list[int], edges, types) -> np.ndarray:
     run time each slot's pages are its own. Linear programs: built at
     ``pos = max_seq - 1``, each attention task reads every tile of its
     head's cache, so the append of that head waits for it wherever
-    ``advance_queue_pos`` moves the append to."""
+    ``advance_queue_pos`` moves the append to. An AllReduce row that
+    follows another in the interval starts after a barrier too: the CUDA
+    task has none of its own, and its two parity slot sets rest on one
+    between any two AllReduce rows of a launch (``csrc/megakernel.cu``
+    t_allreduce)."""
     preds: list[set[int]] = [set() for _ in types]
     for s, d in edges:
         preds[d].add(s)
+    ar = (TaskType.ALLREDUCE, TaskType.ALLREDUCE_ROW)
     sync = np.zeros((len(order),), np.int32)
     open_tasks: set[int] = set()
     for pos, t in enumerate(order):
         scratch = types[t] in (TaskType.GEMM_MAT, TaskType.MOE_FFN)
-        if pos and (scratch or preds[t] & open_tasks):
+        after_ar = types[t] in ar and any(types[u] in ar
+                                          for u in open_tasks)
+        if pos and (scratch or after_ar or preds[t] & open_tasks):
             sync[pos] = 1
             open_tasks = set()
         open_tasks.add(t)

@@ -19,10 +19,14 @@ TP group (the TPU kernel's ``t_allreduce`` / ``t_allreduce_row``; the
 CUDA kernel's ``t_allreduce`` runs both): each rank pushes its
 slab into its slot of every rank's AR slot buffer (a symmetric buffer of
 the rank group, :func:`ar_slots`), waits for one delivery from each
-rank, sums the slots in rank order in fp32, rounds once, and meets the
-others at an exit barrier before the slots are reused. Every rank sums
-in the same order, so every rank's row is bit-identical. At one rank the
-AllReduce tasks do nothing, unless the program was compiled with
+rank, sums the slots in rank order in fp32 and rounds once. On the card
+each block pushes, signals, waits and sums its own vectors (a flag a
+block, parity and source), and the two parity slot sets alternate by the
+row's epoch: the grid barrier the queue holds between two AllReduce rows
+(:func:`check_ar_barriers`) and stream order between launches order the
+slots' reuse, so the task has no grid or exit barrier of its own. Every
+rank sums in the same order, so every rank's row is bit-identical. At one
+rank the AllReduce tasks do nothing, unless the program was compiled with
 ``force_ar``: then the protocol runs against the rank itself.
 ``profile=True`` adds the per-task dispatch dump of the TPU kernel's
 ``_stamp_profile``.
@@ -54,7 +58,9 @@ from triton_distributed_tpu_torch.runtime.build import (
 from triton_distributed_tpu_torch.runtime.context import (
     DistContext, current_rank,
 )
-from triton_distributed_tpu_torch.runtime.symm import SymmBuffer, symm_zeros
+from triton_distributed_tpu_torch.runtime.symm import (
+    SIGNAL_WORDS, SymmBuffer, symm_zeros,
+)
 
 PORTED_TYPES = frozenset({
     TaskType.COPY, TaskType.ADD, TaskType.SILU_MUL, TaskType.SCALE,
@@ -95,7 +101,7 @@ MEGA_KERNEL = CudaKernel(
     "megakernel.cu", "megakernel_run",
     [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
     + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
-    + [ctypes.c_ulonglong, ctypes.c_longlong] + [ctypes.c_int] * 3
+    + [ctypes.c_ulonglong, ctypes.c_longlong] + [ctypes.c_int] * 5
     + [ctypes.c_void_p])
 
 
@@ -170,7 +176,9 @@ class ArGroup:
 
     def next_epochs(self) -> int:
         """The first epoch of this rank's next launch: AllReduce row k of
-        the queue uses it + k, so the flags only grow."""
+        the queue uses it + k, so the flags only grow, and the card's slot
+        set ``epoch & 1`` alternates from row to row, across launches
+        too."""
         base = self.slots.epochs[self.rank] + 1
         self.slots.epochs[self.rank] += self.sites
         return base
@@ -181,10 +189,58 @@ def ar_slots(ctx: DistContext, num_ranks: int, max_ar: int, dtype,
     """The AllReduce slots of a rank group: per rank ``(max(n, 1),
     max_ar, TILE, TILE)`` in the workspace type (the reference's
     ``kernel.py:1589-1591``), slot r holding rank r's slab, with the
-    buffer's signal pad; one per (shape, type, ``tag``), made at first use
-    and cached on the context (``runtime/symm.symm_zeros``)."""
-    return symm_zeros(ctx, (max(num_ranks, 1), max_ar, TILE, TILE), dtype,
+    buffer's signal pad; on the card two such sets, ``(2, max(n, 1),
+    max_ar, TILE, TILE)`` (AllReduce row k of a launch uses set ``epoch &
+    1``; the plain version's meetings order one set). One per (shape,
+    type, ``tag``), made at first use and cached on the context
+    (``runtime/symm.symm_zeros``)."""
+    shape = (max(num_ranks, 1), max_ar, TILE, TILE)
+    return symm_zeros(ctx, (2, *shape) if ctx.is_cuda else shape, dtype,
                       tag="megakernel-ar" + (f"-{tag}" if tag else ""))
+
+
+def ar_flag_stride(sms: int, ranks_on_card: int) -> int:
+    """The AllReduce's flag words a (parity, source): the largest grid any
+    body takes on a card of ``sms`` SMs with ``ranks_on_card`` ranks of a
+    group on it (two blocks an SM on 1/r of the SMs: ``csrc/megakernel.cu``
+    launch), so a word's meaning stays the same across launches of
+    different bodies."""
+    return 2 * (sms // max(ranks_on_card, 1))
+
+
+def ar_flag_words(num_ranks: int, stride: int) -> int:
+    """The AllReduce's flag words in its slot buffer's pad: one a parity,
+    source and block, ``2 * n * stride`` from word 0. Raises past
+    ``SIGNAL_WORDS`` (the C entry refuses it too)."""
+    words = 2 * max(num_ranks, 1) * stride
+    if words > SIGNAL_WORDS:
+        raise ValueError(
+            f"megakernel: the AllReduce's {words} flag words (2 parities x "
+            f"{num_ranks} ranks x {stride}) do not fit the signal pad's "
+            f"{SIGNAL_WORDS}")
+    return words
+
+
+def ar_scope(ranks_on_card: int, num_ranks: int) -> int:
+    """The AllReduce flags' memory scope: 0 (the GPU's) when every rank of
+    the group is on this card, 1 (the system's) otherwise."""
+    return 0 if ranks_on_card == num_ranks else 1
+
+
+def check_ar_barriers(q: np.ndarray, num_exec: int, sync_before) -> None:
+    """Refuse a queue in which two AllReduce rows share a barrier interval:
+    the CUDA task has no barrier of its own, and its two parity slot sets
+    are safe only with a grid barrier between any two of a launch's
+    AllReduce rows (``csrc/megakernel.cu`` t_allreduce; the builder's
+    ``barrier_rows`` puts one there)."""
+    rows = np.flatnonzero(np.isin(q[:num_exec, 0], _AR))
+    sync = np.asarray(sync_before[:num_exec])
+    for a, b in zip(rows, rows[1:]):
+        if not sync[a + 1:b + 1].any():
+            raise ValueError(
+                f"megakernel: AllReduce rows {int(a)} and {int(b)} share a "
+                "barrier interval — their slot sets need a grid barrier "
+                "between them (builder.barrier_rows)")
 
 
 def ar_group(q: np.ndarray, num_exec: int, ws: torch.Tensor, *,
@@ -404,10 +460,14 @@ def cuda_launcher(q: np.ndarray, ws, wsm, *, num_exec, mat_specs,
     if group is None:
         def launch():
             MEGA_KERNEL.launch(*args, None, None, None, 0, 1, 0, 0, 0, 1, 1,
-                               stream, variants=variants)
+                               0, 1, stream, variants=variants)
     else:
+        check_ar_barriers(q, num_exec, sync_before)
         ctx, rank, slots = group.ctx, group.rank, group.slots
         on_card = sum(1 for d in ctx.devices if d == ws.device)
+        stride = ar_flag_stride(torch.cuda.get_device_properties(
+            ws.device).multi_processor_count, on_card)
+        ar_flag_words(group.n, stride)
         ar = (ptr(slots.table[rank]), ptr(slots.signal_table[rank]),
               ptr(ctx.error_word(rank)), rank, group.n)
 
@@ -419,7 +479,8 @@ def cuda_launcher(q: np.ndarray, ws, wsm, *, num_exec, mat_specs,
                 MEGA_KERNEL, slots, rank, ws.device, "megakernel.launch",
                 lambda: args + ar + (
                     group.next_epochs(), int(ctx.timeout_s * 1e9), 1,
-                    slots.tensors[rank].shape[1], on_card, stream),
+                    slots.tensors[rank].shape[-3], on_card,
+                    ar_scope(on_card, group.n), stride, stream),
                 variants=variants)
 
     launch.buffers = (dev, partial, wsm, ws8, wkv8)   # alive with the pointers
@@ -751,12 +812,15 @@ def _p_allreduce(ws, w, group: ArGroup | None):
     from ``out``): push the slab into slot ``rank`` of every rank's slot
     buffer, meet (the deliveries), sum this rank's slots 0..n-1 in fp32
     in rank order, round once and store at ``out``; then meet again (the
-    exit barrier, n > 1) before any rank reuses the slots. No group: one
-    rank without ``force_ar``, nothing to do."""
+    exit barrier, n > 1) before any rank reuses the slots. On CUDA tensors
+    (the card's yardstick run) the slot buffer has the kernel's two sets:
+    the meetings order one, set 0. No group: one rank without
+    ``force_ar``, nothing to do."""
     if group is None:
         return
     nt = w[4] if w[0] == TaskType.ALLREDUCE_ROW else 1
     out, me = w[1], group.rank
+    sets = [t[0] if t.dim() == 5 else t for t in group.slots.tensors]
 
     def meet(what):
         # On CUDA tensors (the card's yardstick run) each rank's copies
@@ -765,10 +829,10 @@ def _p_allreduce(ws, w, group: ArGroup | None):
             torch.cuda.current_stream(ws.device).synchronize()
         group.ctx.barrier(me, what)
 
-    for t in group.slots.tensors:
+    for t in sets:
         t[me, :nt] = ws[out:out + nt]
     meet("megakernel.allreduce")
-    mine = group.slots.tensors[me]
+    mine = sets[me]
     acc = torch.zeros((nt, TILE, TILE), dtype=torch.float32,
                       device=ws.device)
     for r in range(group.n):

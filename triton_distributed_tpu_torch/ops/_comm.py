@@ -34,13 +34,16 @@ _GROUP_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int,
                                         ctypes.c_void_p, ctypes.c_void_p,
                                         ctypes.c_longlong]
 
-ONE_SHOT_KERNEL = CudaKernel("collectives.cu", "tdt_ar_one_shot",
-                             _GROUP_ARGS + [ctypes.c_int, ctypes.c_void_p])
 PARITY_KERNEL = CudaKernel("collectives.cu", "tdt_ar_parity",
                            _GROUP_ARGS + [ctypes.c_int, ctypes.c_void_p])
 # The push protocol's launch arguments (csrc/push.cuh): the grid, the
 # flags' scope, and the pad layout's addr, ready, data and stride.
 _PUSH_ARGS = [ctypes.c_int] * 6
+# B5's one-shot on the push protocol (every rank reads every input): the
+# dtype code, then the push arguments.
+ONE_SHOT_KERNEL = CudaKernel("collectives.cu", "tdt_ar_one_shot",
+                             _GROUP_ARGS + [ctypes.c_int] + _PUSH_ARGS
+                             + [ctypes.c_void_p])
 # B4's ring: the full-mesh push's body in one hop, its own entry.
 AG_RING_KERNEL = CudaKernel("collectives.cu", "tdt_ag_ring",
                             _GROUP_ARGS + _PUSH_ARGS + [ctypes.c_void_p])
@@ -123,11 +126,11 @@ _GEMM_OP = {AG_GEMM_KERNEL: 0, GEMM_RS_KERNEL: 1, GEMM_AR_KERNEL: 2}
 
 
 # The push protocol of B4's ring, full-mesh push and parity stream, B5's
-# tree, B6, B7, B8 and B12's torus AllGather (csrc/push.cuh): the receiver publishes
-# its fresh output's address into its senders' signal pads, each sender
-# writes its block straight into that output and raises a data flag a
-# block (B6 mirrors the roles: a rank publishes its input, its owners read
-# it and release it). The host lays the pad out, sizes the grid and picks
+# one-shot and tree, B6, B7, B8 and B12's torus AllGather (csrc/push.cuh):
+# the receiver publishes its fresh output's address into its senders'
+# signal pads, each sender writes its block straight into that output and
+# raises a data flag a block (B6 and the one-shot mirror the roles: a rank
+# publishes its input, its owners read it and release it). The host lays the pad out, sizes the grid and picks
 # the flags' scope; the kernel checks them.
 MAX_RANKS = 8                    # csrc/dist.cuh kMaxRanks
 PUSH_MAX_BLOCKS = 128            # the data flags a source: the largest grid
@@ -152,6 +155,14 @@ AGP_BLOCK_BYTES = 8 << 10
 # 0.0451-0.0454 (H100 80GB HBM3, 700 W; scripts/time_port_copy.py
 # --ring-block, PERF.md §6 row 4).
 AG_RING_BLOCK_BYTES = 32 << 10
+# B5's one-shot: a block per AR_ONE_SHOT_BLOCK_BYTES of the payload. The
+# verify step's 16 x 4096 bf16 (128 KiB a rank) is latency-bound: on 4
+# ranks 4, 8 and 16 KiB a block (32 / 16 / 8 blocks) measured 0.0122-0.0132,
+# 0.0125-0.0136 and 0.0128-0.0129 ms a call as a span, 32 KiB 0.0132-0.0139,
+# 64 KiB (the copy engine's default, 2 blocks) 0.0150; at 2048 rows all hit
+# the cap of 33 and tied at 0.0825-0.0840 (H100 80GB HBM3, 700 W;
+# scripts/time_port_copy.py --one-shot-block, PERF.md §6 row 6).
+AR_ONE_SHOT_BLOCK_BYTES = 8 << 10
 
 
 @dataclasses.dataclass(frozen=True)

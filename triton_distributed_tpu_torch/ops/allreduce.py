@@ -8,9 +8,14 @@ all-gather (B4); AUTO by the perf model.
 
 Methods:
 
-- ``ONE_SHOT``: every rank pushes its block into slot ``rank`` of every
-  peer's symmetric workspace, then sums the n slots in rank order in fp32
-  and casts once. One hop, n x traffic: the small payloads' method.
+- ``ONE_SHOT``: every rank reads every rank's input and sums the n of
+  them in rank order in fp32, casting once. One hop, n x traffic: the
+  small payloads' method. On the push protocol with every rank an owner
+  of the whole payload (B6's roles): each rank publishes its input's
+  address, reads its peers' inputs straight from them and releases each
+  source, whose kernel holds its input until every reader released it —
+  no entry barrier and no slot workspace (only the ``"ar_one_shot"``
+  signal pad).
 - ``TWO_SHOT``: ``reduce_scatter_local`` then ``all_gather_local(RING_1D)``
   — 2(n-1) hops of 1/n of the payload: the large payloads' method.
 - ``TREE``: the double binary tree — tree 0 the heap over rank order,
@@ -42,8 +47,9 @@ import enum
 import torch
 
 from triton_distributed_tpu_torch.ops._comm import (
-    DTYPE_CODE, ONE_SHOT_KERNEL, PARITY_KERNEL, TREE_KERNEL, check_out,
-    check_payload, launch, launch_tree, push_slots, rank_of, straggle,
+    AR_ONE_SHOT_BLOCK_BYTES, DTYPE_CODE, ONE_SHOT_KERNEL, PARITY_KERNEL,
+    TREE_KERNEL, check_out, check_payload, launch, launch_push, launch_tree,
+    push_slots, rank_of, straggle,
 )
 from triton_distributed_tpu_torch.ops.allgather import (
     AllGatherMethod, all_gather_local,
@@ -54,7 +60,9 @@ from triton_distributed_tpu_torch.ops.reduce_scatter import (
 from triton_distributed_tpu_torch.runtime.context import (
     DistContext, get_context, group_context, group_psum,
 )
-from triton_distributed_tpu_torch.runtime.symm import SymmBuffer, symm_zeros
+from triton_distributed_tpu_torch.runtime.symm import (
+    SymmBuffer, symm_pad, symm_zeros,
+)
 
 
 class AllReduceMethod(enum.Enum):
@@ -221,17 +229,21 @@ def reduce_slots_plain(slots) -> torch.Tensor:
 
 def _one_shot(x: torch.Tensor, n: int, ctx: DistContext, rank: int
               ) -> torch.Tensor:
+    """The one-shot on a CUDA tensor (the push protocol over the
+    ``"ar_one_shot"`` pad: no payload buffer), its plain version on a CPU
+    one (a rendezvous through the slots of an (n, m, cols) buffer)."""
     m, cols = x.shape
-    buf = symm_zeros(ctx, (n, m, cols), x.dtype, tag="ar_one_shot")
     if x.device.type == "cuda":
         x = check_payload(ctx, rank, x, "all_reduce one_shot")
         out = torch.empty_like(x)
-        launch(ONE_SHOT_KERNEL, buf, rank, buf.next_epoch(rank), x, out,
-               x.numel() * x.element_size(), DTYPE_CODE[x.dtype])
+        launch_push(ONE_SHOT_KERNEL, symm_pad(ctx, tag="ar_one_shot"), rank,
+                    x, out, x.numel() * x.element_size(),
+                    DTYPE_CODE[x.dtype], block_bytes=AR_ONE_SHOT_BLOCK_BYTES)
         return out
     if x.device.type != "cpu":
         raise ValueError(f"all_reduce: no kernel for device {x.device}")
     ONE_SHOT_KERNEL.count_plain()
+    buf = symm_zeros(ctx, (n, m, cols), x.dtype, tag="ar_one_shot_plain")
     ctx.barrier(rank, "ar_one_shot.entry")
     push_slots(ctx, rank, buf, x, rank, "ar_one_shot.data")
     return reduce_slots_plain(buf.tensors[rank])
