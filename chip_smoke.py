@@ -3539,6 +3539,9 @@ def coll_case(torch, timer, ctx, method: str, dtype, rows: int, seed: int,
             rec.update(library_every_rank(
                 timer, n, lambda: X.sum(0),
                 "X.sum(0) over the stacked inputs (one rank's sum)"))
+            if method == "allreduce_parity":
+                rec["symm_payload_bytes"] = symm_payload_bytes(
+                    ctx, f"smoke-{rows}")
     return rec
 
 
@@ -3682,9 +3685,10 @@ def phase_collectives(torch, timer, fa, pa, *, devices_for=virtual_devices,
                       ranks=COLL_RANKS, name="collectives") -> dict:
     """Every collective kernel at n = 2, 4 and 8 ranks, fp32 and bf16, at
     4-2048 rows x 4096, against its plain version (bit for bit), timed;
-    B6's, B4's ring's and B5's one-shot's push-protocol edge cases
-    (``rs_edge_cases``, ``ring_edge_cases``, ``one_shot_edge_cases``) at
-    those n and at n = 3; the 200-call parity
+    B6's, B4's ring's and B5's one-shot's and parity stream's
+    push-protocol edge cases (``rs_edge_cases``, ``ring_edge_cases``,
+    ``one_shot_edge_cases``, ``parity_edge_cases``) at those n and at
+    n = 3 (the parity stream's loopback at n = 1); the 200-call parity
     stress; a lost peer's timeout; AUTO's choices;
     K1 and K2 at one rank's TP=4 heads (8 q, 2 kv: GQA group 4)."""
     comm, ar, rs, ag, context = coll_modules()
@@ -3724,13 +3728,16 @@ def phase_collectives(torch, timer, fa, pa, *, devices_for=virtual_devices,
                                                    seed + 50)
         cases["allreduce_one_shot"] += push_edge_cases(
             torch, ctx, ("ar_one_shot",), seed + 75)
+        cases["allreduce_parity"] += push_edge_cases(
+            torch, ctx, ("ar_parity",), seed + 90)
         if n == TP:
             stress = parity_stress(torch, ctx, bf16, 4, PARITY_CALLS)
         ctx.close()
         del ctx
         torch.cuda.empty_cache()
-    # B6, B4's ring and the one-shot at n = 3 too: chunks no power of two
-    # divides evenly over the ranks' reads, a ring of odd length.
+    # B6, B4's ring, the one-shot and the parity stream at n = 3 too: chunks
+    # no power of two divides evenly over the ranks' reads, a ring of odd
+    # length; the parity stream's loopback at one rank.
     ctx = context.DistContext([torch.device(d) for d in devices_for(3)],
                               wait_timeout_ms=20_000)
     cases["reduce_scatter_ring"] += push_edge_cases(torch, ctx, ("rs_ring",),
@@ -3740,6 +3747,13 @@ def phase_collectives(torch, timer, fa, pa, *, devices_for=virtual_devices,
     cases["allreduce_one_shot"] += push_edge_cases(torch, ctx,
                                                    ("ar_one_shot",),
                                                    seed + 125)
+    cases["allreduce_parity"] += push_edge_cases(torch, ctx, ("ar_parity",),
+                                                 seed + 140)
+    ctx.close()
+    ctx = context.DistContext([torch.device(devices_for(1)[0])],
+                              wait_timeout_ms=20_000)
+    cases["allreduce_parity"] += push_edge_cases(torch, ctx, ("ar_parity",),
+                                                 seed + 160)
     ctx.close()
     del ctx
     torch.cuda.empty_cache()
@@ -5349,6 +5363,128 @@ def one_shot_edge_cases(torch, ctx, seed: int) -> list:
     return out
 
 
+PARITY_TAGS = ("smoke-edge-a", "smoke-edge-b")
+
+
+def parity_case(torch, ctx, dtype, rows: int, cols: int, seed: int, *,
+                what: str, hold=None, calls: int = 1, nan_after: bool = False,
+                tags: int = 1) -> dict:
+    """``calls`` parity-stream AllReduces (``all_reduce_stream``) on
+    every rank of ``ctx`` in one run, no host sync between them, new
+    inputs every call, call t over workspace ``t % tags`` of PARITY_TAGS
+    (``tags`` = 2: two streams of calls interleaved, each its own pad and
+    index), every rank's sum against ``reduce_slots_plain`` bit for bit,
+    every call on the kernel; at one rank under ``force_kernel`` (the
+    loopback). The outputs are fresh (the stream takes no ``out=``).
+    ``hold``: (rank, ns) spun on that rank's stream before each of its
+    calls — a late source and a late reader. ``nan_after``: every rank
+    fills its input with NaN on its own stream right after each call: a
+    source whose kernel ended before a reader finished reading would hand
+    that reader NaN."""
+    comm, ar, _, _, _ = coll_modules()
+    from triton_distributed_tpu_torch.runtime.build import current_stream
+
+    n = ctx.num_ranks
+    X = _rand(torch, (calls, n, rows, cols), dtype, seed)
+    want = [ar.reduce_slots_plain(list(X[t])) for t in range(calls)]
+    ins = [X[:, r].to(ctx.devices[r]).clone() for r in range(n)]
+    wss = [ar.ar_stream_workspace(n, rows, cols, dtype, ctx=ctx,
+                                  tag=f"{PARITY_TAGS[i]}-{seed}")
+           for i in range(tags)]
+    k0 = comm.PARITY_KERNEL.launches
+
+    def loop(r):
+        idx = [i for _, i in wss]
+        outs = []
+        for t in range(calls):
+            w = t % tags
+            if hold is not None and r == hold[0]:
+                comm.SPIN.launch(hold[1], current_stream(ctx.devices[r]))
+            out, _, idx[w] = ar.all_reduce_stream(
+                ins[r][t], wss[w][0], idx[w], num_ranks=n,
+                force_kernel=n == 1)
+            outs.append(out)
+            if nan_after:
+                ins[r][t].fill_(float("nan"))
+        return outs, idx
+
+    res = ctx.run(loop)
+    torch.cuda.synchronize()
+    ctx.raise_on_comm_error()
+    got = [o for o, _ in res]
+    bad = [t for t in range(calls) if not all(
+        torch.equal(_bits(torch, got[r][t].to(X.device)),
+                    _bits(torch, want[t])) for r in range(n))]
+    launched = comm.PARITY_KERNEL.launches - k0
+    # Each stream's index advanced by its own calls, on every rank.
+    counted = all(idx == [wss[w][1] + len(range(w, calls, tags))
+                          for w in range(tags)] for _, idx in res)
+    return {"case": f"allreduce_parity_{what}_n{n}_{_dtype_name(dtype)}"
+                    f"_{rows}x{cols}", "method": "allreduce_parity",
+            "n": n, "dtype": _dtype_name(dtype), "rows": rows, "cols": cols,
+            "bytes_a_rank": rows * cols * X.element_size(), "calls": calls,
+            "tags": tags, "hold": list(hold) if hold else None,
+            "nan_after": nan_after, "launches": launched,
+            "calls_wrong": bad[:8],
+            "max_abs_err": 0.0 if not bad else float("nan"),
+            "bit_identical": not bad,
+            "ok": not bad and counted and launched == n * calls}
+
+
+def parity_one_rank(torch, ctx, seed: int) -> dict:
+    """The parity stream on a group of one rank without ``force_kernel``:
+    its input comes back, the index advances, nothing is launched."""
+    comm, ar, _, _, _ = coll_modules()
+    x = _rand(torch, (4, COLL_COLS), torch.bfloat16, seed)
+    ws, idx = ar.ar_stream_workspace(1, 4, COLL_COLS, torch.bfloat16,
+                                     ctx=ctx, tag=f"smoke-one-{seed}")
+    k0 = comm.PARITY_KERNEL.launches
+    out, _, nxt = ctx.run(lambda r: ar.all_reduce_stream(x, ws, idx,
+                                                         num_ranks=1))[0]
+    ok = out is x and nxt == idx + 1 and comm.PARITY_KERNEL.launches == k0
+    return {"case": "allreduce_parity_no_kernel_n1_bfloat16_4x4096",
+            "method": "allreduce_parity", "n": 1, "launches": 0,
+            "max_abs_err": 0.0 if ok else float("nan"),
+            "bit_identical": ok, "ok": ok}
+
+
+def parity_edge_cases(torch, ctx, seed: int) -> list:
+    """B5's parity stream on the push protocol at its edges on ``ctx``:
+    the shapes of ONE_SHOT_EDGE in fp32 and bf16; a held-back rank 0 and
+    rank n - 1 (4 x 4096 bf16, a decode step's); ONE_SHOT_NAN_CALLS calls
+    with every rank filling its input with NaN after each and rank 0 held
+    back 100 us before each; PUSH_STREAM_CALLS calls without a sync over
+    one workspace; PUSH_STREAM_CALLS calls over two workspaces
+    interleaved. At one rank the loopback (``force_kernel``): the shapes
+    and the stream, and the input handed back without it."""
+    n = ctx.num_ranks
+    out = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for rows, cols in ONE_SHOT_EDGE[_dtype_name(dtype)]:
+            seed += 1
+            out.append(parity_case(torch, ctx, dtype, rows, cols, seed,
+                                   what="tail"))
+    if n > 1:
+        for held in (0, n - 1):
+            seed += 1
+            out.append(parity_case(torch, ctx, torch.bfloat16, 4, 4096,
+                                   seed, what=f"held{held}",
+                                   hold=(held, PUSH_HOLD_NS)))
+        seed += 1
+        out.append(parity_case(torch, ctx, torch.bfloat16, 4, 4096, seed,
+                               what="nan_after", calls=ONE_SHOT_NAN_CALLS,
+                               hold=(0, 100_000), nan_after=True))
+    else:
+        seed += 1
+        out.append(parity_one_rank(torch, ctx, seed))
+    for tags in (1, 2):
+        seed += 1
+        out.append(parity_case(torch, ctx, torch.bfloat16, 4, 4096, seed,
+                               what=f"stream_tags{tags}",
+                               calls=PUSH_STREAM_CALLS, tags=tags))
+    return out
+
+
 # B4's ring on the push protocol: chunks from one 16-byte vector to 4 MiB
 # a rank (rows x cols), at n = 2, 3, 4 and 8.
 RING_EDGE = {"float32": ((1, 4), (3, 12), (5, 1028), (1024, 1024)),
@@ -5598,7 +5734,8 @@ def a2a_edge_cases(torch, ctx, seed: int) -> list:
 def push_edge_cases(torch, ctx, kinds, seed: int) -> list:
     """The push protocol's edge cases for each kernel of ``kinds`` on
     ``ctx``: B6 (``"rs_ring"``: ``rs_edge_cases``), B5's one-shot
-    (``"ar_one_shot"``: ``one_shot_edge_cases``), B4's ring
+    (``"ar_one_shot"``: ``one_shot_edge_cases``) and parity stream
+    (``"ar_parity"``: ``parity_edge_cases``), B4's ring
     (``"ag_ring"``: ``ring_edge_cases``) and B8's two forms
     (``"a2a_parity"``: ``a2a_edge_cases``; ``"a2a"``:
     ``a2a_barrier_edge_cases``) their own; the copy kernels the
@@ -5609,7 +5746,8 @@ def push_edge_cases(torch, ctx, kinds, seed: int) -> list:
     out = []
     own = {"rs_ring": rs_edge_cases, "ag_ring": ring_edge_cases,
            "a2a_parity": a2a_edge_cases, "a2a": a2a_barrier_edge_cases,
-           "ar_one_shot": one_shot_edge_cases}
+           "ar_one_shot": one_shot_edge_cases,
+           "ar_parity": parity_edge_cases}
     for kind in kinds:
         if kind in own:
             out += own[kind](torch, ctx, seed)
@@ -8019,14 +8157,14 @@ def two_shot_plain(xs, n0: int, n1: int):
 def torus_case(torch, timer, ctx, op: str, dtype, rows: int, seed: int, *,
                method: str = "one_shot", time_it: bool = False,
                hold=None) -> dict:
-    """B12 on every rank of a 2-axis group (two calls: the pad's and the
-    buffers' reuse) through the tuple-axis entry points, against the plain
-    version bit for bit on every rank: the AllGather against ``torch.cat``
-    of the shards in joint order — on a real grid into outputs filled with
-    0xFF bytes (NaN in both types) through ``out=``, so a sentinel left
-    shows an element no writer reached —, the AllReduce against
-    ``ar_torus_plain`` (each grid row in order, then the rows, fp32 sums
-    and one cast each) or, for two-shot, against the RS-then-AG plain
+    """B12 on every rank of a 2-axis group (two calls: the pad's reuse)
+    through the tuple-axis entry points, against the plain version bit for
+    bit on every rank: the AllGather against ``torch.cat`` of the shards
+    in joint order, the AllReduce against ``ar_torus_plain`` (each grid
+    row in order, then the rows, fp32 sums and one cast each) — on a real
+    grid both into outputs filled with 0xFF bytes (NaN in both types)
+    through ``out=``, so a sentinel left shows an element no writer
+    reached — or, for two-shot, against the RS-then-AG plain
     composition. ``hold``: (rank, ns) spun on that rank's stream before
     each of its calls (its writers wait for its address; its receivers
     for its shard)."""
@@ -8038,7 +8176,8 @@ def torus_case(torch, timer, ctx, op: str, dtype, rows: int, seed: int, *,
     axes = tuple(ctx.axis_names)
     X = _rand(torch, (n, rows, COLS_2D), dtype, seed)
     xs = [X[r].to(ctx.devices[r]) for r in range(n)]
-    sentinel = op == "ag_torus" and n0 > 1 and n1 > 1
+    sentinel = (op == "ag_torus" or method == "one_shot") and n0 > 1 \
+        and n1 > 1
     outs = None
 
     def fn(r):
@@ -8046,7 +8185,8 @@ def torus_case(torch, timer, ctx, op: str, dtype, rows: int, seed: int, *,
             return ag.all_gather_local(xs[r], axis=axes, num_ranks=(n0, n1),
                                        out=outs[r] if outs else None)
         return ar.all_reduce_local(xs[r], axis=axes, num_ranks=(n0, n1),
-                                   method=method)
+                                   method=method,
+                                   out=outs[r] if outs else None)
 
     def checked(r):
         if hold is not None and r == hold[0]:
@@ -8062,10 +8202,11 @@ def torus_case(torch, timer, ctx, op: str, dtype, rows: int, seed: int, *,
     k0 = {k.symbol: k.launches for k in (comm.AG_TORUS_KERNEL,
                                          comm.AR_TORUS_KERNEL)}
     same = True
+    shape = (n * rows if op == "ag_torus" else rows, COLS_2D)
     for _ in range(2):
         if sentinel:
-            outs = [torch.empty((n * rows, COLS_2D), dtype=dtype,
-                                device=ctx.devices[r]) for r in range(n)]
+            outs = [torch.empty(shape, dtype=dtype, device=ctx.devices[r])
+                    for r in range(n)]
             for o in outs:
                 o.view(torch.uint8).fill_(0xFF)
         got = ctx.run(checked)
@@ -8120,6 +8261,103 @@ def torus_case(torch, timer, ctx, op: str, dtype, rows: int, seed: int, *,
     return rec
 
 
+# B12's torus AR on the push protocol: rows x cols a rank from one 16-byte
+# vector to 2048 rows (~8 MB), odd tails over many blocks.
+TORUS_AR_EDGE = ONE_SHOT_EDGE
+
+
+def torus_ar_case(torch, ctx, dtype, rows: int, cols: int, seed: int, *,
+                  what: str, hold=None, calls: int = 1,
+                  nan_after: bool = False) -> dict:
+    """``calls`` torus AllReduces (``all_reduce_local`` over both axes)
+    on every rank of a 2-axis group in one run, no host sync between them,
+    new inputs every call, each into an output filled with 0xFF bytes (NaN
+    in both types) through ``out=``, every rank's sum against
+    ``ar_torus_plain`` bit for bit (a sentinel left: an element no phase
+    wrote), every call on the kernel. ``hold``: (rank, ns) spun on that
+    rank's stream before each of its calls — a late source of its row and
+    of its column, and a late reader of both. ``nan_after``: every rank
+    fills its input with NaN on its own stream right after each call: a
+    rank whose kernel ended before its row's readers finished would hand
+    them NaN (its mid, freed with the call, the allocator may hand out
+    again to the next call)."""
+    comm, ma, _, ar, _, _ = twotier_modules()
+    from triton_distributed_tpu_torch.runtime.build import current_stream
+
+    n = ctx.num_ranks
+    n0, n1 = ctx.mesh_shape
+    axes = tuple(ctx.axis_names)
+    X = _rand(torch, (calls, n, rows, cols), dtype, seed)
+    want = [ma.ar_torus_plain(list(X[t]), n0, n1) for t in range(calls)]
+    ins = [X[:, r].to(ctx.devices[r]).clone() for r in range(n)]
+    outs = [torch.empty((calls, rows, cols), dtype=dtype,
+                        device=ctx.devices[r]) for r in range(n)]
+    for o in outs:
+        o.view(torch.uint8).fill_(0xFF)
+    k0 = comm.AR_TORUS_KERNEL.launches
+
+    def loop(r):
+        got = []
+        for t in range(calls):
+            if hold is not None and r == hold[0]:
+                comm.SPIN.launch(hold[1], current_stream(ctx.devices[r]))
+            got.append(ar.all_reduce_local(ins[r][t], axis=axes,
+                                           num_ranks=(n0, n1),
+                                           out=outs[r][t]))
+            if nan_after:
+                ins[r][t].fill_(float("nan"))
+        return got
+
+    got = ctx.run(loop)
+    torch.cuda.synchronize()
+    ctx.raise_on_comm_error()
+    mine = all(g is not None and g.data_ptr() == outs[r][t].data_ptr()
+               for r in range(n) for t, g in enumerate(got[r]))
+    bad = [t for t in range(calls) if not all(
+        torch.equal(_bits(torch, outs[r][t].to(X.device)),
+                    _bits(torch, want[t])) for r in range(n))]
+    launched = comm.AR_TORUS_KERNEL.launches - k0
+    return {"case": f"ar_torus_{what}_{n0}x{n1}_{_dtype_name(dtype)}"
+                    f"_{rows}x{cols}", "grid": [n0, n1], "op": "ar_torus",
+            "method": "one_shot", "dtype": _dtype_name(dtype),
+            "rows": rows, "cols": cols, "calls": calls,
+            "hold": list(hold) if hold else None, "nan_after": nan_after,
+            "out_sentinel": "0xFF", "launches": launched,
+            "calls_wrong": bad[:8],
+            "max_abs_err": 0.0 if not bad else float("nan"),
+            "bit_identical": not bad,
+            "ok": not bad and mine and launched == n * calls}
+
+
+def torus_ar_edge_cases(torch, ctx, seed: int) -> list:
+    """B12's torus AR on the push protocol at its edges on a real grid:
+    the shapes of TORUS_AR_EDGE in fp32 and bf16 (1-2048 rows, odd tails);
+    a held-back rank (0, 0) and (n0 - 1, n1 - 1) (16 x 4096 bf16, the main
+    shape); RS_NAN_CALLS calls with every rank filling its input with NaN
+    after each and rank 0 held back 100 us before each;
+    PUSH_STREAM_CALLS calls without a sync. Every output 0xFF-filled."""
+    n = ctx.num_ranks
+    out = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for rows, cols in TORUS_AR_EDGE[_dtype_name(dtype)]:
+            seed += 1
+            out.append(torus_ar_case(torch, ctx, dtype, rows, cols, seed,
+                                     what="tail"))
+    for held in (0, n - 1):
+        seed += 1
+        out.append(torus_ar_case(torch, ctx, torch.bfloat16, 16, COLS_2D,
+                                 seed, what=f"held{held}",
+                                 hold=(held, PUSH_HOLD_NS)))
+    seed += 1
+    out.append(torus_ar_case(torch, ctx, torch.bfloat16, 16, COLS_2D, seed,
+                             what="nan_after", calls=RS_NAN_CALLS,
+                             hold=(0, 100_000), nan_after=True))
+    seed += 1
+    out.append(torus_ar_case(torch, ctx, torch.bfloat16, 16, 256, seed,
+                             what="stream", calls=PUSH_STREAM_CALLS))
+    return out
+
+
 def torus_stream_case(torch, ctx, calls: int, seed: int) -> dict:
     """``calls`` torus AllGathers on every rank of a 2-axis group in one
     run, new bf16 data every call (16 x 256 a rank), no host sync between
@@ -8162,12 +8400,13 @@ def phase_collectives_2d(torch, timer, *, devices_for=virtual_devices,
     fp32 and bf16, 1-2048 rows x 4096, bit-identical to their plain
     versions on every rank; two-shot (RS over both axes, then the torus
     AG) at the rows that divide; the degenerate (8, 1) and (1, 8) grids
-    through the 1-D ops (no torus launch). The AllGather writes
-    0xFF-filled outputs on every real grid; on each real grid also 3 and
-    1000 rows, a held-back rank 0 and rank n - 1 (bf16, 256 rows) and 200
-    calls without a sync. Then the main run — every count at 0, the
-    tuple-axis AllGather and AllReduce at the main shapes on (2, 4),
-    counts read — and each kernel timed there."""
+    through the 1-D ops (no torus launch). Both write 0xFF-filled outputs
+    on every real grid; on each real grid also the AllGather at 3 and 1000
+    rows, a held-back rank 0 and rank n - 1 (bf16, 256 rows) and 200 calls
+    without a sync, and the AllReduce's ``torus_ar_edge_cases``. Then the
+    main run — every count at 0, the tuple-axis AllGather and AllReduce at
+    the main shapes on (2, 4), counts read — and each kernel timed
+    there."""
     comm = twotier_modules()[0]
     cases: dict = {"ag_torus": [], "ar_torus": []}
     seed = 1300
@@ -8202,6 +8441,8 @@ def phase_collectives_2d(torch, timer, *, devices_for=virtual_devices,
             seed += 1
             cases["ag_torus"].append(torus_stream_case(
                 torch, ctx, PUSH_STREAM_CALLS, seed))
+            cases["ar_torus"] += torus_ar_edge_cases(torch, ctx, seed)
+            seed += 50
         ctx.close()
         torch.cuda.empty_cache()
     main = grids[0]

@@ -1,67 +1,66 @@
 #!/usr/bin/env python3
 """Time the port's copy kernels B4's full-mesh push and ring
 (``ops/allgather.py`` ``all_gather_local(method="full_mesh_push")`` and
-``method="ring_1d"``), B7's shift and permutation
-(``ops/p2p.py``), B12's torus AllGather and AllReduce (``ops/multi_axis.py``
-through ``all_gather_local`` / ``all_reduce_local`` over both axes), B5's
-double tree (``ops/allreduce.py`` ``method="tree"``), B6's ring
-reduce-scatter (``ops/reduce_scatter.py`` ``reduce_scatter_local``),
-B8's AllToAll in both forms (``ops/all_to_all.py``
+``method="ring_1d"``), B7's shift and permutation (``ops/p2p.py``), B12's torus
+AllGather and AllReduce (``ops/multi_axis.py`` through ``all_gather_local`` /
+``all_reduce_local`` over both axes), B5's double tree (``ops/allreduce.py``
+``method="tree"``), B6's ring reduce-scatter (``ops/reduce_scatter.py``
+``reduce_scatter_local``), B8's AllToAll in both forms (``ops/all_to_all.py``
 ``fast_all_to_all_local`` and ``fast_all_to_all_stream``), B4's parity
-AllGather (``ops/allgather.py`` ``all_gather_stream``) and B5's one-shot
-AllReduce (``ops/allreduce.py`` ``method="one_shot"``)
-of one tree at the main path's shapes on one CUDA card, each beside the
-PyTorch call that computes the same outputs.
+AllGather (``ops/allgather.py`` ``all_gather_stream``), B5's one-shot AllReduce
+(``ops/allreduce.py`` ``method="one_shot"``) and its parity stream
+(``all_reduce_stream``) of one tree at the main path's shapes on one CUDA card,
+each beside the PyTorch call that computes the same outputs.
 
-Main shapes (virtual ranks on ``cuda:0``, bf16): the push at n = 2, 1024
-rows a rank x 2048 (the sequential "overlap" TP-MoE layer's tokens at
-Qwen3-30B-A3B's hidden); B7 at n = 4, one 512 x 4096 microbatch (Qwen3-8B's
-pipeline stage boundary), the shift by one and a butterfly permutation;
-B12 on a (2, 4) grid of 8 ranks, the AllGather of 256 x 4096 a rank and
-the AllReduce of 16 x 4096; the tree at n = 4, 203 x 4096 (a 1 x 203
-prompt's "ar" prefill); B6 at n = 4, 256 x 4096 a rank into 64-row chunks
-(the two-shot AllReduce's first half on a 256-row prefill slice); B4's
-ring at n = 4, 64 rows a rank x 4096 gathered to 256 (its second half)
-and at 512 rows a rank (2048 gathered); B8's parity stream at n = 4, cap
-32 x 2048 a slot, the splits of 4 tokens a rank routed top-8 over 128
-experts (the EP decode's dispatch), and its barrier form at cap 4096 x
-2048, 512 tokens a rank routed the same way (the EP prefill's); B4's
-parity stream at n = 4, 128 x 130 fp32 a rank (the SP decode's attention
-partials at Qwen3-8B's 32 q heads, d 128, B = 4), over one persistent
+Main shapes (virtual ranks on ``cuda:0``, bf16): the push at n = 2, 1024 rows a
+rank x 2048 (the sequential "overlap" TP-MoE layer's tokens at Qwen3-30B-A3B's
+hidden); B7 at n = 4, one 512 x 4096 microbatch (Qwen3-8B's pipeline stage
+boundary), the shift by one and a butterfly permutation; B12 on a (2, 4) grid
+of 8 ranks, the AllGather of 256 x 4096 a rank and the AllReduce of 16 x 4096
+(and 2048 x 4096); the tree at n = 4, 203 x 4096 (a 1 x 203 prompt's "ar"
+prefill); B6 at n = 4, 256 x 4096 a rank into 64-row chunks (the two-shot
+AllReduce's first half on a 256-row prefill slice); B4's ring at n = 4, 64 rows
+a rank x 4096 gathered to 256 (its second half) and at 512 rows a rank (2048
+gathered); B8's parity stream at n = 4, cap 32 x 2048 a slot, the splits of 4
+tokens a rank routed top-8 over 128 experts (the EP decode's dispatch), and its
+barrier form at cap 4096 x 2048, 512 tokens a rank routed the same way (the EP
+prefill's); B4's parity stream at n = 4, 128 x 130 fp32 a rank (the SP decode's
+attention partials at Qwen3-8B's 32 q heads, d 128, B = 4), over one persistent
 workspace; the one-shot at n = 4, 16 x 4096 a rank (the TP verify step's
-reductions at ``spec_k=3``), 4 rows (a decode step's) and 2048 rows. Each
-case is first checked bit for bit against the tree's plain version on
-every rank, then timed: every rank's stream is held while the rank threads
-enqueue CALLS calls (by the tree's ``HOLD`` kernel polling one page-locked
-host word, released at one instant; a tree without it holds with its
-``SPIN`` for a duration), CUDA events between consecutive calls on each
-rank's stream, a call's time the slowest rank's, the median of calls
-2..CALLS (``ms``); and again with events only around the CALLS calls, the
-slowest rank's span over CALLS (``span_ms``: an event recorded on each of
-n streams costs the card's front end about what a small call does). L2 is
-not flushed: the calls follow each other, as on the main path. The
-library call is timed both ways in the same run (its one stream held by
-``SPIN``): for the push and the ring ``torch.cat`` of the n chunks once a
-rank (n calls), for B7 one ``Y.copy_(X)`` of every rank's block, for the torus
-AllGather and the parity stream ``torch.cat`` once a rank, for the AllReduces ``X.sum(0)`` once
-a rank, for B6 one ``X.sum(0)`` (it makes every rank's chunk), for B8
-``S.transpose(0, 1).contiguous()`` of the slot matrix. The bound: the
-bytes every rank must move (each source read once, each output written
-once; B8 each slot's token rows and the splits) through one HBM at 3.35
+reductions at ``spec_k=3``), 4 rows (a decode step's) and 2048 rows; the parity
+stream at n = 4, 4 x 4096 a rank (the TP decode step's 72 reductions), 16 and
+2048 rows, each case over one persistent workspace. Each case is first checked
+bit for bit against the tree's plain version on every rank, then timed: every
+rank's stream is held while the rank threads enqueue CALLS calls (by the tree's
+``HOLD`` kernel polling one page-locked host word, released at one instant; a
+tree without it holds with its ``SPIN`` for a duration), CUDA events between
+consecutive calls on each rank's stream, a call's time the slowest rank's, the
+median of calls 2..CALLS (``ms``); and again with events only around the CALLS
+calls, the slowest rank's span over CALLS (``span_ms``: an event recorded on
+each of n streams costs the card's front end about what a small call does). L2
+is not flushed: the calls follow each other, as on the main path. The library
+call is timed both ways in the same run (its one stream held by ``SPIN``): for
+the push and the ring ``torch.cat`` of the n chunks once a rank (n calls), for
+B7 one ``Y.copy_(X)`` of every rank's block, for the torus AllGather and the
+parity AllGather ``torch.cat`` once a rank, for the AllReduces (the parity
+stream's too) ``X.sum(0)`` once a rank, for B6 one ``X.sum(0)`` (it makes every
+rank's chunk), for B8 ``S.transpose(0, 1).contiguous()`` of the slot matrix.
+The bound: the bytes every rank must move (each source read once, each output
+written once; B8 each slot's token rows and the splits) through one HBM at 3.35
 TB/s. Each case also records the peak device memory it allocated
 (``torch.cuda.max_memory_allocated`` over the case, MiB) and the bytes of
-symmetric payload buffers its group holds. Prints one JSON line a case
-(with each rank's output's SHA-256 — B8's live rows and splits —, the
-same in every tree), ptxas's report of
-``collectives.cu``, ``p2p.cu``, ``multi_axis.cu`` and ``all_to_all.cu``
-(registers, spills, shared memory), the launch floor (a kernel that exits
-at once, on each rank's stream, timed both ways), then the card's name and
-power limit. ``--only NAME[,NAME]`` runs those cases alone;
-``--ring-block KIB[,KIB]`` runs the ring's cases again at each block size
-(KiB of a rank's chunk a block; a tree whose ring launches through
-``launch_push``), the design sweep of its grid; ``--one-shot-block
-KIB[,KIB]`` the one-shot's (KiB of the payload a block; a tree whose
-one-shot launches through ``launch_push``).
+symmetric payload buffers its group holds. Prints one JSON line a case (with
+each rank's output's SHA-256 — B8's live rows and splits —, the same in every
+tree), ptxas's report of ``collectives.cu``, ``p2p.cu``, ``multi_axis.cu`` and
+``all_to_all.cu`` (registers, spills, shared memory), the launch floor (a
+kernel that exits at once, on each rank's stream, timed both ways), then the
+card's name and power limit. ``--only NAME[,NAME]`` runs those cases alone;
+``--block KIND=KIB[,KIB]`` (repeatable; KIND ``ring``, ``one_shot``, ``parity``
+or ``ar_torus``) runs that kernel's cases again at each block size (KiB of a
+rank's chunk, for the ring, or of the payload a block), the design sweep of its
+grid; each such record says whether the tree's kernel took it
+(``block_applied``: a tree whose kernel does not launch through ``launch_push``
+runs at its own grid).
 
 ``--paths`` also reads the walls of the paths that run these kernels, from
 the tree's own ``chip_smoke.py``: ``phase_pp_forward`` on Qwen3-8B (random
@@ -78,15 +77,18 @@ random bf16 layers at Qwen3-30B-A3B's MoE widths, 4 ranks): its decode
 stream (4 tokens a rank), its ms a layer and the parity form's device
 time a layer and rank, and its barrier-form prefill run (512 tokens a
 rank), its ms a layer and the barrier form's device time a layer and
-rank.
+rank; and the TP decode step (``Engine.serve`` on 4 virtual ranks,
+Qwen3-8B, random weights, seed 0, a 2 x 64 prompt and DECODE_GEN tokens:
+every decode step's 72 parity AllReduces a rank): the step's wall, and
+from one profiled serve the parity kernel's device time a step and rank.
 
 To compare two commits on one card, unpack the other one's tree with
 ``git archive`` into a git-ignored directory and run, in one call, parent,
 change, change, parent:
 
     python3 scripts/time_port_copy.py [--tree DIR] [--label NAME] [--paths]
-                                      [--only NAME,...] [--ring-block KIB,...]
-                                      [--one-shot-block KIB,...]
+                                      [--only NAME,...]
+                                      [--block KIND=KIB,... ...]
 """
 import argparse
 import hashlib
@@ -108,6 +110,7 @@ CASES = [("ag_full_mesh_n2", "push", 2, 1024, 2048),
          ("p2p_butterfly_n4", "butterfly", 4, 512, 4096),
          ("ag_torus_2x4", "ag_torus", 8, 256, 4096),
          ("ar_torus_2x4", "ar_torus", 8, 16, 4096),
+         ("ar_torus_2x4_2048", "ar_torus", 8, 2048, 4096),
          ("ar_tree_n4", "tree", 4, 203, 4096),
          ("rs_ring_n4", "rs", 4, 256, 4096),
          ("ag_ring_n4", "ring", 4, 64, 4096),
@@ -117,11 +120,15 @@ CASES = [("ag_full_mesh_n2", "push", 2, 1024, 2048),
          ("ag_parity_n4", "agp", 4, 128, 130),
          ("ar_one_shot_n4", "one_shot", 4, 16, 4096),
          ("ar_one_shot_n4_4", "one_shot", 4, 4, 4096),
-         ("ar_one_shot_n4_2048", "one_shot", 4, 2048, 4096)]
+         ("ar_one_shot_n4_2048", "one_shot", 4, 2048, 4096),
+         ("ar_parity_n4", "parity", 4, 4, 4096),
+         ("ar_parity_n4_16", "parity", 4, 16, 4096),
+         ("ar_parity_n4_2048", "parity", 4, 2048, 4096)]
 GRID_2D = (2, 4)
 TREE_PROMPT = 203
 SLICE = 256                  # the TP serving loop's prefill chunk
 EP_LAYERS = 8
+DECODE_GEN = 8               # the decode path's tokens (7 decode steps)
 A2A_EXPERTS, A2A_TOPK = 128, 8
 
 
@@ -259,12 +266,22 @@ def copy_case(torch, mods, name, kind, n, rows, cols, seed) -> dict:
             for _ in range(n):
                 torch.cat(xs)
         lib_call = f"{n} x torch.cat of the {n} chunks"
-    elif kind in ("ar_torus", "tree", "one_shot"):
+    elif kind in ("ar_torus", "tree", "one_shot", "parity"):
         if kind in ("tree", "one_shot"):
             def fn(r):
                 return ar.all_reduce_local(xs[r], num_ranks=n, method=kind)
             want = [ar.tree_plain(xs) if kind == "tree"
                     else ar.reduce_slots_plain(xs)] * n
+        elif kind == "parity":
+            ws, _ = ar.ar_stream_workspace(n, rows, cols, X.dtype, ctx=ctx,
+                                           tag=f"time-{name}")
+            idx = list(ws.epochs)
+
+            def fn(r):
+                out, _, idx[r] = ar.all_reduce_stream(xs[r], ws, idx[r],
+                                                      num_ranks=n)
+                return out
+            want = [ar.reduce_slots_plain(xs)] * n
         else:
             def fn(r):
                 return ar.all_reduce_local(xs[r], axis=("dcn", "tp"),
@@ -633,6 +650,65 @@ def slice_path_case(torch, mods) -> dict:
             "ok": launches == want and ag_launches == want}
 
 
+def decode_path_case(torch, mods) -> dict:
+    """The TP decode step on 4 virtual ranks: ``Engine.serve`` of a 2 x 64
+    prompt and DECODE_GEN tokens (Qwen3-8B, random weights, seed 0; every
+    decode step 72 parity AllReduces a rank) — the serve's wall three times
+    after a warm-up, its prefill's median taken off over the DECODE_GEN - 1
+    decode steps, the parity kernel's launches a step and rank, and from
+    one profiled serve its device time a decode step and rank."""
+    from torch.profiler import ProfilerActivity, profile
+
+    comm, context = mods[2], mods[4]
+    from triton_distributed_tpu_torch.models.config import QWEN3_8B
+    from triton_distributed_tpu_torch.models.dense import init_dense_llm
+    from triton_distributed_tpu_torch.models.engine import Engine
+
+    n, steps = 4, DECODE_GEN - 1
+    mods[3].build_all()          # the engine's kernels, in parallel
+    params = init_dense_llm(QWEN3_8B, generator=torch.Generator(
+        device="cuda").manual_seed(0))
+    ctx = context.initialize_distributed(devices=["cuda:0"] * n,
+                                         wait_timeout_ms=60_000)
+    eng = Engine(QWEN3_8B, params, ctx, max_seq=2048)
+    del params
+    ids = torch.randint(0, QWEN3_8B.vocab_size, (2, 64),
+                        generator=torch.Generator(device="cuda")
+                        .manual_seed(33), device="cuda", dtype=torch.int32)
+
+    def timed(fn) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    eng.serve(ids, DECODE_GEN)
+    pre = statistics.median(timed(lambda: eng.prefill(ids))
+                            for _ in range(3))
+    k0 = comm.PARITY_KERNEL.launches
+    serves = [timed(lambda: eng.serve(ids, DECODE_GEN)) for _ in range(3)]
+    launches = (comm.PARITY_KERNEL.launches - k0) / 3 / steps / n
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eng.serve(ids, DECODE_GEN)
+        torch.cuda.synchronize()
+    ar_ms, calls = _device_ms(prof, "ar_parity_kernel")
+    eng.check_comm()
+    del eng
+    ctx.close()
+    walls = [(s - pre) / steps for s in serves]
+    return {"case": "decode_path", "prompt": [2, 64], "ranks": n,
+            "decode_steps": steps, "prefill_ms_median": pre,
+            "serve_ms": serves, "decode_ms_per_step": walls,
+            "decode_ms_per_step_median": statistics.median(walls),
+            "parity_launches_per_step_per_rank": launches,
+            "parity_kernels_profiled": calls,
+            "parity_device_ms_per_step_per_rank": ar_ms / steps / n,
+            "ok": launches == 2 * QWEN3_8B.num_layers
+            and calls == steps * n * 2 * QWEN3_8B.num_layers}
+
+
 def ep_path_case(torch, root) -> dict:
     """The EP layer on 4 virtual ranks through the tree's
     ``chip_smoke.ep_run``: EP_LAYERS random bf16 layers at Qwen3-30B-A3B's
@@ -701,20 +777,24 @@ def ep_path_case(torch, root) -> dict:
 
 
 _REAL_LAUNCH = {}
+_SWEPT = {"launches": 0}
 
 
 def block_sweep(mod, kernel, nbytes) -> None:
     """Make ``kernel``'s launches from the wrapper module ``mod`` take a
-    block per ``nbytes`` (``launch_push``'s ``block_bytes``); None
-    restores the tree's own. Other kernels' launches are untouched."""
+    block per ``nbytes`` (``launch_push``'s ``block_bytes``), counting them
+    in ``_SWEPT``; None restores the tree's own. Other kernels' launches
+    are untouched."""
     real = _REAL_LAUNCH.setdefault(mod.__name__, mod.launch_push)
     if nbytes is None:
         mod.launch_push = real
         return
+    _SWEPT["launches"] = 0
 
     def launch(k, *a, **kw):
         if k is kernel:
             kw["block_bytes"] = nbytes
+            _SWEPT["launches"] += 1
         return real(k, *a, **kw)
     mod.launch_push = launch
 
@@ -728,12 +808,11 @@ def main() -> int:
                          "run on")
     ap.add_argument("--only", default=None,
                     help="comma-separated case names to run (default all)")
-    ap.add_argument("--ring-block", default=None,
-                    help="comma-separated KiB a block: run the ring's cases "
-                         "again at each (the grid sweep)")
-    ap.add_argument("--one-shot-block", default=None,
-                    help="comma-separated KiB a block: run the one-shot's "
-                         "cases again at each (the grid sweep)")
+    ap.add_argument("--block", action="append", default=[],
+                    metavar="KIND=KIB,...",
+                    help="run KIND's cases (ring, one_shot, parity, "
+                         "ar_torus) again at each block size (the grid "
+                         "sweep); repeatable")
     args = ap.parse_args()
     only = set(args.only.split(",")) if args.only else None
     root = os.path.abspath(args.tree)
@@ -779,19 +858,25 @@ def main() -> int:
     failed = []
     cases = [c for c in CASES if only is None or c[0] in only]
     runs = [(i, c, None) for i, c in enumerate(CASES) if c in cases]
-    sweeps = {"ring": (ag, comm.AG_RING_KERNEL, args.ring_block),
-              "one_shot": (ar, comm.ONE_SHOT_KERNEL, args.one_shot_block)}
-    for kind, (mod, _, kibs) in sweeps.items():
-        if kibs and not hasattr(mod, "launch_push"):
+    sweeps = {"ring": (ag, comm.AG_RING_KERNEL),
+              "one_shot": (ar, comm.ONE_SHOT_KERNEL),
+              "parity": (ar, comm.PARITY_KERNEL),
+              "ar_torus": (ma, comm.AR_TORUS_KERNEL)}
+    for spec in args.block:
+        kind, _, kibs = spec.partition("=")
+        if kind not in sweeps or not kibs:
+            ap.error(f"--block {spec!r}: KIND=KIB,... with KIND one of "
+                     f"{', '.join(sweeps)}")
+        if not hasattr(sweeps[kind][0], "launch_push"):
             print(f"time_port_copy: {root}'s {kind} does not launch through"
                   " launch_push: no block sweep", file=sys.stderr)
             continue
-        for kib in (kibs.split(",") if kibs else ()):
+        for kib in kibs.split(","):
             runs += [(i, c, int(kib)) for i, c in enumerate(CASES)
                      if c in cases and c[1] == kind]
     for i, (name, kind, n, rows, cols), kib in runs:
         if kib is not None:
-            block_sweep(*sweeps[kind][:2], kib << 10)
+            block_sweep(*sweeps[kind], kib << 10)
             name = f"{name}_block{kib}k"
         if kind in ("a2a", "a2a_barrier"):
             rec = a2a_copy_case(torch, mods, name, n, rows, cols, 950 + i,
@@ -801,8 +886,9 @@ def main() -> int:
         else:
             rec = copy_case(torch, mods, name, kind, n, rows, cols, 950 + i)
         if kib is not None:
-            block_sweep(*sweeps[kind][:2], None)
+            block_sweep(*sweeps[kind], None)
             rec["block_bytes"] = kib << 10
+            rec["block_applied"] = _SWEPT["launches"] > 0
         rec["tree"] = label
         print(json.dumps(rec), flush=True)
         if not rec["ok"]:
@@ -815,7 +901,8 @@ def main() -> int:
         paths = (("paths", lambda: paths_case(torch, root)),
                  ("tree_path", lambda: tree_path_case(torch, mods)),
                  ("slice_path", lambda: slice_path_case(torch, mods)),
-                 ("ep_path", lambda: ep_path_case(torch, root)))
+                 ("ep_path", lambda: ep_path_case(torch, root)),
+                 ("decode_path", lambda: decode_path_case(torch, mods)))
         for what, fn in paths:
             if only is not None and what not in only:
                 continue

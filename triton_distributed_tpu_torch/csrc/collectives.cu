@@ -1,4 +1,5 @@
-// The collective kernels of the tensor-parallel path, on dist.cuh.
+// The collective kernels of the tensor-parallel path, all on the push
+// protocol of push.cuh (over dist.cuh's group, flags and timeouts).
 //
 // Each replaces one TPU kernel of the JAX package and computes what it
 // computes, in the same order and rounding (the replicas must end with
@@ -26,12 +27,13 @@
 //                reader released call t, i.e. after each one's last load
 //                of the source's call-t input returned.
 //  ar_parity     ops/allreduce.py:104 _ar_one_shot_parity_kernel — the
-//                same sum as the slot form the one-shot was: each rank
-//                pushes its block into slot `rank` of every peer's
-//                persistent workspace of two parity slabs, waits for the
-//                peers' per-parity flags and sums its n slots; no barrier
-//                (the decode path's repeated calls; safety argument in
-//                ops/allreduce.all_reduce_stream).
+//                decode path's repeated AllReduces: the one-shot's body
+//                (ar_one_shot_body) over the stream's own pad, its epoch
+//                the call index + 1 (the TPU kernel's two parity slabs
+//                and their per-parity flags gone: no slot a peer pushes
+//                into, so none is reused); the same sum, bit for bit.
+//                Safe across the stream's calls by the same argument, with
+//                the epoch counting calls (see ar_parity_kernel).
 //  rs_ring       ops/reduce_scatter.py:52 _rs_ring_kernel — ring reduce-
 //                scatter: chunk c summed in the ring's order, x_{c+1} +
 //                x_{c+2} + ... + x_c, each add in fp32 and rounded to the
@@ -72,7 +74,7 @@
 //                flags: one hop, no gather buffer, no copy out, no entry
 //                barrier; the ring's output bit for bit (a copy has no
 //                rounding). Its grid is the copy engine's (at most 1/r of
-//                the SMs), not kMaxBlocks.
+//                the SMs).
 //  ag_parity     ops/allgather.py:192 _ag_parity_kernel — the SP decode
 //                loop's repeated gathers of its attention partials: the
 //                same push protocol and body as ag_full_mesh, over the
@@ -113,16 +115,15 @@
 // over blocks, each of which synchronises only with the same block of its
 // peers — no grid-wide barrier, and a grid within 1/r of the SMs (r ranks
 // on the card), so virtual ranks on one card never starve each other of
-// SMs. The parity AllReduce still runs a small fixed grid (at most
-// kMaxBlocks) on dist.cuh's put, one load in flight a thread. The
-// push-protocol kernels (ar_one_shot, ag_ring, ag_full_mesh, ag_parity,
-// ar_tree, rs_ring) size their grids on the host: the AllGathers, rs_ring
-// and the one-shot by their payload (a 256-row slice's 2 MiB input: 32
-// blocks, under the cap of 33 at 4 ranks a card), each thread keeping
-// push::kUnroll 16-byte loads in flight. They are safe across calls by push.cuh's argument: the
-// output is fresh every call, a sender reads a receiver's address only
-// once the receiver's ready word reached the call's epoch, and a receiver
-// reaches its next call only after every sender's data word of this one.
+// SMs. Every kernel here is on the push protocol and sizes its grid on the
+// host: the AllGathers, rs_ring, the one-shot and the parity stream by
+// their payload (a 256-row slice's 2 MiB input: 32 blocks, under the cap
+// of 33 at 4 ranks a card; a decode step's 32 KiB: 4), each thread keeping
+// push::kUnroll 16-byte loads in flight. They are safe across calls by
+// push.cuh's argument: the output is fresh every call, a sender reads a
+// receiver's address only once the receiver's ready word reached the
+// call's epoch, and a receiver reaches its next call only after every
+// sender's data word of this one.
 // The tree is latency-bound at its main shape (a 203-row
 // prefill's 1.6 MB: four dependent data hops at n = 4, two up and two
 // down, each a flag round trip): its design cuts a hop's cost — no entry
@@ -145,114 +146,17 @@ using namespace tdt::dist;
 
 namespace {
 
-// Push this block's vectors of x into slot `slot` of every rank's
-// workspace (this rank's own first: the local copy), then tell each peer.
-__device__ __forceinline__ void push_all(const Group& g, const uint4* x,
-                                         long long ws_off_bytes,
-                                         long long v0, long long v1,
-                                         int flag_base,
-                                         unsigned long long val) {
-  for (int i = 0; i < g.n; ++i) {
-    const int j = (g.rank + i) % g.n;
-    uint4* dst = reinterpret_cast<uint4*>(peer_base(g, j) + ws_off_bytes);
-    put(dst, x, v0, v1);
-  }
-  signal_peers(g, flag_base, val);
-}
-
-// g.epoch carries call_index + 1; the parity slab is call_index % 2.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    ar_parity_kernel(Group g, const uint4* x, uint4* out, long long nvec) {
-  long long v0, v1;
-  block_range(nvec, &v0, &v1);
-  const int p = (int)((g.epoch - 1) & 1);
-  const long long slot_bytes = nvec * 16;
-  const long long slab_bytes = slot_bytes * g.n;
-  const int base = kStepBase + (p * kMaxBlocks + blockIdx.x) * kMaxRanks;
-  push_all(g, x, p * slab_bytes + g.rank * slot_bytes, v0, v1, base,
-           g.epoch);
-  if (!wait_peers(g, base, g.epoch)) return;
-  const uint4* ws = reinterpret_cast<const uint4*>(peer_base(g, g.rank) +
-                                                   p * slab_bytes);
-  reduce_slots<T>(ws, nvec, g.n, out, v0, v1);
-}
-
-// Vectors [v0, v1) of the n operands src[0..n-1] summed in that order into
-// out, kUnroll loads of one operand in flight a thread, through L2 (a
-// peer's input, behind the flag this block acquired). kOnce = false: each
-// add in fp32, rounded to T (one rounding an add, as the ring's hops:
-// ops/reduce_scatter.py:35 _tiled_add's chain). kOnce = true: fp32 from 0,
-// rounded to T once (the one-shot's: ops/allreduce.py:91 _reduce_slots;
-// 0 + (-0) is +0).
-template <typename T, bool kOnce>
-__device__ __forceinline__ void ordered_sum(const uint4* const* src, int n,
-                                            uint4* out, long long v0,
-                                            long long v1) {
-  constexpr int E = Vec<T>::N;
-  constexpr int U = tdt::push::kUnroll;
-  const long long TB = blockDim.x;
-  for (long long base = v0 + threadIdx.x; base < v1; base += TB * U) {
-    uint4 a[U], b[U];
-    float acc[kOnce ? U : 1][kOnce ? E : 1];
-#pragma unroll
-    for (int k = 0; k < U; ++k) {
-      const long long v = base + k * TB;
-      if (v < v1) a[k] = __ldcg(src[0] + v);
-    }
-    if constexpr (kOnce) {
-#pragma unroll
-      for (int k = 0; k < U; ++k)
-#pragma unroll
-        for (int e = 0; e < E; ++e)
-          acc[k][e] = 0.0f + to_f(elems<T>(a[k])[e]);
-    }
-    for (int s = 1; s < n; ++s) {
-      const uint4* p = src[s];
-#pragma unroll
-      for (int k = 0; k < U; ++k) {
-        const long long v = base + k * TB;
-        if (v < v1) b[k] = __ldcg(p + v);
-      }
-#pragma unroll
-      for (int k = 0; k < U; ++k) {
-        const T* be = elems<T>(b[k]);
-        if constexpr (kOnce) {
-#pragma unroll
-          for (int e = 0; e < E; ++e) acc[k][e] = acc[k][e] + to_f(be[e]);
-        } else {
-          T* ae = reinterpret_cast<T*>(&a[k]);
-#pragma unroll
-          for (int e = 0; e < E; ++e)
-            ae[e] = from_f<T>(to_f(ae[e]) + to_f(be[e]));
-        }
-      }
-    }
-    if constexpr (kOnce) {
-#pragma unroll
-      for (int k = 0; k < U; ++k) {
-        T* ae = reinterpret_cast<T*>(&a[k]);
-#pragma unroll
-        for (int e = 0; e < E; ++e) ae[e] = from_f<T>(acc[k][e]);
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < U; ++k) {
-      const long long v = base + k * TB;
-      if (v < v1) out[v] = a[k];
-    }
-  }
-}
-
 // x: this rank's payload (nbytes), published to every peer; out: this
 // rank's fresh sum. Block b reads share b of every rank's input (the same
 // share on every rank), operand k the input of rank k, so the sum is in
 // rank order; then it releases every source and holds this rank's input
-// until every reader released it. n = 1 reads its own input alone.
+// until every reader released it. n = 1 reads its own input alone. The
+// body of ar_one_shot and ar_parity.
 template <typename T, bool SYS>
-__global__ void __launch_bounds__(tdt::push::kThreads)
-    ar_one_shot_kernel(Group g, tdt::push::Layout L, const char* x,
-                       char* out, long long nbytes) {
+__device__ __forceinline__ void ar_one_shot_body(const Group& g,
+                                                 const tdt::push::Layout& L,
+                                                 const char* x, char* out,
+                                                 long long nbytes) {
   namespace pu = tdt::push;
   __shared__ const uint4* src[kMaxRanks];
   const int n = g.n, me = g.rank, j = threadIdx.x;
@@ -268,11 +172,38 @@ __global__ void __launch_bounds__(tdt::push::kThreads)
   if (!__syncthreads_and(ok)) return;
   long long lo, hi;
   pu::share(nbytes, &lo, &hi);
-  ordered_sum<T, true>(src, n, reinterpret_cast<uint4*>(out), lo / 16,
-                       hi / 16);
+  pu::ordered_sum<T, true>(src, n, reinterpret_cast<uint4*>(out), lo / 16,
+                           hi / 16);
   __syncthreads();
   if (j == 0) pu::signal_data<SYS>(g, L, all);
   pu::wait_data<SYS>(g, L, all);
+}
+
+template <typename T, bool SYS>
+__global__ void __launch_bounds__(tdt::push::kThreads)
+    ar_one_shot_kernel(Group g, tdt::push::Layout L, const char* x,
+                       char* out, long long nbytes) {
+  ar_one_shot_body<T, SYS>(g, L, x, out, nbytes);
+}
+
+// The parity stream: the one-shot's body over the stream's own pad, its own
+// kernel so that a profile tells the two apart. g.epoch is the call index
+// + 1, the same sequence on every rank, with no host sync between calls.
+// A rank's call t+1 never reads a peer's call-t address: it reads source
+// j's address only once j's ready word in this rank's pad reached t+2,
+// which j releases after storing its call-(t+1) input address; and j
+// stores that address only after its call-t kernel ended, i.e. after every
+// reader's block released j's call-t input, each one having read j's
+// address and its last byte of that input first. So the input a reader
+// sums is the one its source passed for the same call, and a source may
+// overwrite or free its input once its kernel ends. A call out of sequence
+// waits for words no peer raises and times out (the host refuses it
+// first: ops/allreduce.all_reduce_stream).
+template <typename T, bool SYS>
+__global__ void __launch_bounds__(tdt::push::kThreads)
+    ar_parity_kernel(Group g, tdt::push::Layout L, const char* x, char* out,
+                     long long nbytes) {
+  ar_one_shot_body<T, SYS>(g, L, x, out, nbytes);
 }
 
 // x: (n, chunk) of this rank's contributions, published to every peer; out:
@@ -299,8 +230,8 @@ __global__ void __launch_bounds__(tdt::push::kThreads)
   if (!__syncthreads_and(ok)) return;
   long long lo, hi;
   pu::share(chunk_bytes, &lo, &hi);
-  ordered_sum<T, false>(src, n, reinterpret_cast<uint4*>(out), lo / 16,
-                        hi / 16);
+  pu::ordered_sum<T, false>(src, n, reinterpret_cast<uint4*>(out), lo / 16,
+                            hi / 16);
   // Every thread's loads returned (their sums are stored); release the
   // sources, then hold this rank's input until every owner released it.
   __syncthreads();
@@ -541,16 +472,42 @@ __global__ void hold_kernel(const volatile int* go, long long ns) {
   while (*go == 0 && (long long)(globaltimer() - t0) < ns) __nanosleep(200);
 }
 
-int grid_for(long long nvec) {
-  // A block per 1024 vectors (16 KiB), 1..kMaxBlocks. The same payload
-  // gives the same grid on every rank, which the per-block flags need.
-  long long g = (nvec + 1023) / 1024;
-  return (int)(g < 1 ? 1 : (g > kMaxBlocks ? kMaxBlocks : g));
-}
-
 bool bad_group(int rank, int n, long long nvec) {
   return n < 1 || n > kMaxRanks || rank < 0 || rank >= n || nvec < 1;
 }
+
+// The AllReduces on ar_one_shot_body: one kernel a dtype (0 float32, 1
+// bfloat16) and scope.
+typedef void (*ArPushKernel)(Group, tdt::push::Layout, const char*, char*,
+                             long long);
+
+// One launch of an AllReduce on ar_one_shot_body, its arguments checked:
+// whole 16-byte vectors, a known dtype, the host's layout inside the pad.
+int launch_ar(const ArPushKernel (&k)[2][2], const void* table,
+              const void* sig_table, void* err, int rank, int n,
+              unsigned long long epoch, long long timeout_ns, const void* x,
+              void* out, long long nbytes, int dtype, int grid, int sys,
+              int addr, int ready, int data, int stride,
+              cudaStream_t stream) {
+  const tdt::push::Layout L{addr, ready, data, stride};
+  if (bad_group(rank, n, nbytes / 16) || nbytes % 16 || dtype < 0 ||
+      dtype > 1 || tdt::push::bad_layout(L, n, grid))
+    return cudaErrorInvalidValue;
+  const Group g = make_group(table, sig_table, err, rank, n, epoch,
+                             timeout_ns);
+  k[dtype][sys ? 1 : 0]<<<grid, tdt::push::kThreads, 0, stream>>>(
+      g, L, static_cast<const char*>(x), static_cast<char*>(out), nbytes);
+  return cudaGetLastError();
+}
+
+const ArPushKernel kOneShot[2][2] = {
+    {ar_one_shot_kernel<float, false>, ar_one_shot_kernel<float, true>},
+    {ar_one_shot_kernel<__nv_bfloat16, false>,
+     ar_one_shot_kernel<__nv_bfloat16, true>}};
+const ArPushKernel kParity[2][2] = {
+    {ar_parity_kernel<float, false>, ar_parity_kernel<float, true>},
+    {ar_parity_kernel<__nv_bfloat16, false>,
+     ar_parity_kernel<__nv_bfloat16, true>}};
 
 // The AllGathers on ag_push: one kernel a scope.
 typedef void (*AgPushKernel)(Group, tdt::push::Layout, const char*, char*,
@@ -592,51 +549,21 @@ int tdt_ar_one_shot(const void* table, const void* sig_table, void* err,
                     long long timeout_ns, const void* x, void* out,
                     long long nbytes, int dtype, int grid, int sys, int addr,
                     int ready, int data, int stride, cudaStream_t stream) {
-  const tdt::push::Layout L{addr, ready, data, stride};
-  if (bad_group(rank, n, nbytes / 16) || nbytes % 16 ||
-      tdt::push::bad_layout(L, n, grid))
-    return cudaErrorInvalidValue;
-  const Group g = make_group(table, sig_table, err, rank, n, epoch,
-                             timeout_ns);
-  const dim3 blocks(grid), block(tdt::push::kThreads);
-  const char* xi = static_cast<const char*>(x);
-  char* o = static_cast<char*>(out);
-  if (dtype == 0 && sys)
-    ar_one_shot_kernel<float, true><<<blocks, block, 0, stream>>>(
-        g, L, xi, o, nbytes);
-  else if (dtype == 0)
-    ar_one_shot_kernel<float, false><<<blocks, block, 0, stream>>>(
-        g, L, xi, o, nbytes);
-  else if (dtype == 1 && sys)
-    ar_one_shot_kernel<__nv_bfloat16, true><<<blocks, block, 0, stream>>>(
-        g, L, xi, o, nbytes);
-  else if (dtype == 1)
-    ar_one_shot_kernel<__nv_bfloat16, false><<<blocks, block, 0, stream>>>(
-        g, L, xi, o, nbytes);
-  else
-    return cudaErrorInvalidValue;
-  return cudaGetLastError();
+  return launch_ar(kOneShot, table, sig_table, err, rank, n, epoch,
+                   timeout_ns, x, out, nbytes, dtype, grid, sys, addr, ready,
+                   data, stride, stream);
 }
 
+// As tdt_ar_one_shot, over the parity stream's pad: epoch is the call
+// index + 1 (the pad's). n = 1 is the loopback (force_kernel).
 int tdt_ar_parity(const void* table, const void* sig_table, void* err,
-                  int rank, int n, unsigned long long call_index,
+                  int rank, int n, unsigned long long epoch,
                   long long timeout_ns, const void* x, void* out,
-                  long long nbytes, int dtype, cudaStream_t stream) {
-  const long long nvec = nbytes / 16;
-  if (bad_group(rank, n, nvec) || nbytes % 16) return cudaErrorInvalidValue;
-  const Group g = make_group(table, sig_table, err, rank, n, call_index + 1,
-                             timeout_ns);
-  const dim3 grid(grid_for(nvec)), block(kThreads);
-  const uint4* xi = static_cast<const uint4*>(x);
-  uint4* o = static_cast<uint4*>(out);
-  if (dtype == 0)
-    ar_parity_kernel<float><<<grid, block, 0, stream>>>(g, xi, o, nvec);
-  else if (dtype == 1)
-    ar_parity_kernel<__nv_bfloat16><<<grid, block, 0, stream>>>(g, xi, o,
-                                                                nvec);
-  else
-    return cudaErrorInvalidValue;
-  return cudaGetLastError();
+                  long long nbytes, int dtype, int grid, int sys, int addr,
+                  int ready, int data, int stride, cudaStream_t stream) {
+  return launch_ar(kParity, table, sig_table, err, rank, n, epoch,
+                   timeout_ns, x, out, nbytes, dtype, grid, sys, addr, ready,
+                   data, stride, stream);
 }
 
 // chunk_bytes: one output chunk (x, this rank's input, holds n of them;

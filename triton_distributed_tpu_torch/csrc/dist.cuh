@@ -1,7 +1,8 @@
 // Device-side communication primitives of the rank group — the port's
 // counterpart of the JAX package's language/distributed_ops.py and
-// language/shmem_device.py (rank, num_ranks, putmem, signal, wait,
-// barrier_all, fence, quiet).
+// language/shmem_device.py (rank, num_ranks, putmem, signal, wait, fence,
+// quiet; its barrier_all is gemm_comm.cu's grid_barrier, which the fused
+// kernels' tile paths meet at entry).
 //
 // A rank reaches a peer's symmetric buffer through a device table of base
 // pointers (runtime/symm.py): on n cards a peer's memory mapped by peer
@@ -22,15 +23,14 @@
 // writes the rank's error word — (flag index, expected, observed, 1) —
 // and the kernel returns early. The host reads the word where it
 // synchronises anyway (DistContext.raise_on_comm_error) and raises
-// CommTimeoutError. The parity AllReduce and B12's torus AllReduce run a
-// small fixed grid (at most kMaxBlocks blocks) on put (the torus on
-// barrier_all too); the push-protocol kernels (push.cuh: the one-shot
-// AllReduce among them) a grid the host sizes by the payload, and each
-// fused GEMM kernel (gemm_comm.cu) a persistent grid of one block an SM,
-// both on at most 1/r of the SMs, r the ranks on the card, so on one card
-// a spinning rank never takes the SMs its peers need. The megakernel's
-// AllReduce (megakernel.cu t_allreduce) keeps its own flags: a word a
-// parity, source and block.
+// CommTimeoutError. The collective kernels run the push protocol
+// (push.cuh) on a grid the host sizes by the payload, and each fused GEMM
+// kernel (gemm_comm.cu) a persistent grid of one block an SM, both on at
+// most 1/r of the SMs, r the ranks on the card, so on one card a spinning
+// rank never takes the SMs its peers need; B11's tile paths still push
+// through put and the slot reduction here. The megakernel's AllReduce
+// (megakernel.cu t_allreduce) keeps its own flags: a word a parity, source
+// and block.
 
 #pragma once
 
@@ -43,12 +43,8 @@
 namespace tdt {
 namespace dist {
 
-constexpr int kMaxBlocks = 8;
 constexpr int kMaxRanks = 8;
 constexpr int kThreads = 256;
-// Signal pad layout (64-bit words): [0, kMaxBlocks * kMaxRanks) barrier
-// flags (block b, from rank j); then the kernel's step flags.
-constexpr int kStepBase = kMaxBlocks * kMaxRanks;
 // The fused GEMM kernels' persistent grids (at most kMaxGemmBlocks blocks):
 // barrier flags [0, kMaxGemmBlocks * kMaxRanks), then their data flags
 // from kGemmFlagBase, one per (source rank, block) or finer. The pad
@@ -178,17 +174,6 @@ __device__ __forceinline__ void signal_peers(const Group& g, int base,
     fence();
     st_release_sys(flags(g, j) + base + g.rank, val);
   }
-}
-
-// Block-scope barrier_all over epochs: block b of every rank meets block
-// b of every other rank. It is what protects a reused symmetric buffer:
-// block b of a peer writes this rank's rows of block b for call t+1 only
-// after this rank's block b arrived at call t+1, i.e. after this rank's
-// whole call-t kernel finished (stream order).
-__device__ __forceinline__ bool barrier_all(const Group& g) {
-  const int base = blockIdx.x * kMaxRanks;
-  signal_peers(g, base, g.epoch);
-  return wait_peers(g, base, g.epoch);
 }
 
 // This block's share [v0, v1) of `nvec` 16-byte vectors.

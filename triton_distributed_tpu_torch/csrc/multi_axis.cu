@@ -19,15 +19,31 @@
 //            The route stays the rail-aligned two hops: in a two-tier
 //            deployment the outer hop is the one between same-b ranks.
 //  ar_torus  ops/multi_axis.py:169 _ar_one_shot_torus_kernel — the
-//            hierarchical one-shot AllReduce, on dist.cuh. Phase 1 pushes
-//            x into slot b of every inner peer's ws1 (n1 slots), waits for
-//            the n1-1 inner flags and sums the slots in order 0..n1-1 in
-//            fp32 from 0, cast once, into mid; phase 2 does the same along
-//            the outer axis on mid, into ws0 (slot a) and then the output
-//            — _reduce_slots' order and rounding, twice, so the result is
-//            bit-identical to its plain version on every rank. The two
-//            phases' flags stay apart.
-//
+//            hierarchical one-shot AllReduce: each row a of the grid summed
+//            over b in order (fp32 from 0, cast once) into a mid, then the
+//            n0 mids summed over a the same way into the output —
+//            _reduce_slots' order and rounding, twice, so the result is
+//            bit-identical to its plain version on every rank. On the push
+//            protocol with the roles mirrored (B5's one-shot, twice), over
+//            the rail-aligned route the TPU kernel takes: block 0 of rank
+//            (a, b) publishes its INPUT to its inner peers (a, j) and a
+//            fresh per-call mid to its outer peers (u, b) (disjoint sets:
+//            one address word a peer); block k reads share k of the n1
+//            inputs of row a (its own locally, a peer's through L2 behind
+//            the acquired ready word), sums it into mid share k, releases
+//            each inner source and tells each outer peer that mid share k
+//            is ready; then it waits for the outer peers' mid shares k,
+//            sums the n0 mids (its own, the peers' through L2) into the
+//            fresh output and releases each outer source. A block returns
+//            only once its inner readers released its input share and its
+//            outer readers its mid share: a caller may overwrite or free
+//            its input, and the allocator reuse mid, when the kernel ends.
+//            No entry barrier, slot workspace (the first kernel pushed x
+//            and mid through an (n1 + n0 + 1, m, cols) symmetric buffer)
+//            or system-scope flags on one card. The one-hop alternative
+//            (every rank reads all n0·n1 inputs) would cross the outer
+//            tier with n1 times the bytes, as ag_torus keeps its route.
+
 // The TPU kernel pushes with remote DMA over both torus axes' links at
 // once; here every push is a store through the group's pointers (NVLink
 // across cards, HBM with virtual ranks on one card), and the overlap it
@@ -44,14 +60,14 @@
 // reaches call t+1 only after every writer of its output signalled call
 // t's slots, i.e. after each read call t's address. The forward hop reads
 // the rank's own output, which holds slot (a, c)'s share once that slot's
-// data word is acquired; it reads it through L2. ar_torus reads n1 + n0
-// slots and writes two rows a peer. Each block synchronises only with the
-// same block of its peers (per-block words): ag_torus over push_grid's
-// blocks (a block per 64 KiB of the shard, at most 1/r of the SMs, the
-// same on every rank), ar_torus over a small fixed grid.
-//
-// ar_torus's flags (kStepBase on), per block, 16 words: [0, 8) by phase
-// 1's source b, [8, 16) by phase 2's source a.
+// data word is acquired; it reads it through L2. ar_torus reads n1 inputs
+// and n0 mids a rank and writes one mid and one output: at (2, 4) with 16
+// rows, 6 x 128 KiB a rank; its phases are two flag hops, and across cards
+// only the mid crosses the outer tier. Each block synchronises only with
+// the same block of its peers (per-block words), over push_grid's blocks
+// (ag_torus a block per 64 KiB of the shard, ar_torus per
+// ops/_comm.AR_TORUS_BLOCK_BYTES of the payload; at most 1/r of the SMs,
+// the same on every rank).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -63,41 +79,6 @@
 using namespace tdt::dist;
 
 namespace {
-
-constexpr int kFlagsPerBlock = 16;
-constexpr int kOuter = 8;
-
-__device__ __forceinline__ int torus_base() {
-  return kStepBase + blockIdx.x * kFlagsPerBlock;
-}
-
-// Store `val` into flag `idx` of rank `peer`: threads [0, count) each
-// signal one (peer, idx) pair after the block's earlier stores. Call from
-// every thread; `pick(t, &peer, &idx)` returns false to skip t.
-template <typename Pick>
-__device__ __forceinline__ void signal_some(const Group& g, int count,
-                                            Pick pick,
-                                            unsigned long long val) {
-  __syncthreads();
-  const int t = threadIdx.x;
-  int peer, idx;
-  if (t < count && pick(t, &peer, &idx)) {
-    fence();
-    st_release_sys(flags(g, peer) + idx, val);
-  }
-}
-
-// Wait for this rank's flags base + t for the t in [0, count) that
-// `want_t(t)` names (a thread each), then meet.
-template <typename Want>
-__device__ __forceinline__ bool wait_some(const Group& g, int base,
-                                          int count, Want want_t,
-                                          unsigned long long val) {
-  int ok = 1;
-  const int t = threadIdx.x;
-  if (t < count && want_t(t)) ok = spin(g, base + t, val);
-  return __syncthreads_and(ok) != 0;
-}
 
 // x: one shard; out: this rank's fresh output, n0·n1 shards. The pad's
 // data words are indexed by slot: data + s * stride + block.
@@ -171,62 +152,100 @@ __global__ void __launch_bounds__(tdt::push::kThreads)
   __syncthreads_and(ok);
 }
 
-// ws (symmetric): slots [0, n1) ws1, [n1, n1 + n0) ws0, slot n1 + n0 mid,
-// each nvec vectors.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    ar_torus_kernel(Group g, int n0, int n1, const uint4* x, uint4* out,
-                    long long nvec) {
-  long long v0, v1;
-  block_range(nvec, &v0, &v1);
-  if (!barrier_all(g)) return;
-  const int a = g.rank / n1, b = g.rank % n1;
-  const int base = torus_base();
-  uint4* ws = reinterpret_cast<uint4*>(peer_base(g, g.rank));
-  uint4* mid = ws + (long long)(n1 + n0) * nvec;
-  auto slot_of = [&](int j, int s) {
-    return reinterpret_cast<uint4*>(peer_base(g, j)) + (long long)s * nvec;
-  };
-  // Phase 1: one-shot along the inner axis into ws1, reduced into mid.
-  for (int i = 0; i < n1; ++i)
-    put(slot_of(a * n1 + (b + i) % n1, b), x, v0, v1);
-  signal_some(
-      g, n1,
-      [&](int t, int* peer, int* idx) {
-        if (t == b) return false;
-        *peer = a * n1 + t;
-        *idx = base + b;
-        return true;
-      },
-      g.epoch);
-  if (!wait_some(g, base, n1, [&](int t) { return t != b; }, g.epoch))
-    return;
-  reduce_slots<T>(ws, nvec, n1, mid, v0, v1);
-  __syncthreads();
-  // Phase 2: one-shot of mid along the outer axis into ws0, reduced out.
-  for (int i = 0; i < n0; ++i)
-    put(slot_of(((a + i) % n0) * n1 + b, n1 + a), mid, v0, v1);
-  signal_some(
-      g, n0,
-      [&](int t, int* peer, int* idx) {
-        if (t == a) return false;
-        *peer = t * n1 + b;
-        *idx = base + kOuter + a;
-        return true;
-      },
-      g.epoch);
-  if (!wait_some(g, base + kOuter, n0, [&](int t) { return t != a; },
-                 g.epoch))
-    return;
-  reduce_slots<T>(ws + (long long)n1 * nvec, nvec, n0, out, v0, v1);
+// ar_torus's words in a rank's signal pad (ops/_comm.TorusARLayout), for a
+// peer j (global rank) and block k:
+//   addr + j, ready + j        j's published input (j an inner peer) or mid
+//                              (j an outer peer) and its epoch;
+//   released + j * stride + k  inner reader j's block k released this
+//                              rank's input share k;
+//   mid_ready + j * stride + k outer peer j's mid share k is whole;
+//   mid_released + j * stride + k  outer reader j's block k released this
+//                              rank's mid share k.
+// Three words go to one outer peer a block and call (its mid ready, this
+// rank's release of its mid, and the publish's ready): their ranges apart.
+struct TorusLayout {
+  int addr;
+  int ready;
+  int released;
+  int mid_ready;
+  int mid_released;
+  int stride;
+};
+
+// Every word inside the pad, the five ranges apart.
+bool bad_torus_layout(const TorusLayout& L, int n, int grid) {
+  return grid < 1 || L.stride < grid || L.addr < 0 ||
+         L.ready < L.addr + n || L.released < L.ready + n ||
+         L.mid_ready < L.released + n * L.stride ||
+         L.mid_released < L.mid_ready + n * L.stride ||
+         L.mid_released + n * L.stride > kSignalWords;
 }
 
-int grid_for(long long nvec) {
-  // ar_torus: a block per 1024 vectors (16 KiB), 1..kMaxBlocks; the same
-  // payload gives the same grid on every rank, which the per-block flags
-  // need.
-  long long g = (nvec + 1023) / 1024;
-  return (int)(g < 1 ? 1 : (g > kMaxBlocks ? kMaxBlocks : g));
+// x: this rank's payload (nbytes), published to its inner peers; mid: its
+// fresh row sum, published to its outer peers; out: its fresh result.
+// Block k takes share k of the payload, the same on every rank. Safe
+// across calls as the one-shot: a reader of call t+1 reads a source's
+// address only once the source's ready word reached t+1, which the source
+// releases after storing its call-(t+1) address; and a source reaches call
+// t+1 only after every reader's block released its call-t input and mid
+// shares, each after its last load of them. A mid share is read only once
+// its own mid-ready word reached the call's epoch.
+template <typename T, bool SYS>
+__global__ void __launch_bounds__(tdt::push::kThreads)
+    ar_torus_kernel(Group g, TorusLayout L, int n0, int n1, const char* x,
+                    char* mid, char* out, long long nbytes) {
+  namespace pu = tdt::push;
+  __shared__ const uint4* src[kMaxRanks];
+  const int me = g.rank, a = me / n1, b = me % n1;
+  const int j = threadIdx.x, k = blockIdx.x;
+  const bool inner = j < g.n && j != me && j / n1 == a;
+  const bool outer = j < g.n && j != me && j % n1 == b;
+  if (k == 0 && (inner || outer))
+    pu::publish_at<SYS>(g, j, L.addr + me, L.ready + me, inner ? x : mid);
+  long long lo, hi;
+  pu::share(nbytes, &lo, &hi);
+  // Phase 1: thread c resolves input (a, c); the row summed in order.
+  int ok = 1;
+  if (j < n1) {
+    const int s = a * n1 + j;
+    const char* p = s == me ? x : pu::await_at<SYS>(g, L.addr + s,
+                                                    L.ready + s);
+    ok = p != nullptr;
+    src[j] = reinterpret_cast<const uint4*>(p);
+  }
+  if (!__syncthreads_and(ok)) return;
+  pu::ordered_sum<T, true>(src, n1, reinterpret_cast<uint4*>(mid), lo / 16,
+                           hi / 16);
+  // Every thread's loads returned and its mid stores are issued.
+  __syncthreads();
+  if (inner) pu::signal_word<SYS>(g, j, L.released + me * L.stride + k);
+  if (outer) pu::signal_word<SYS>(g, j, L.mid_ready + me * L.stride + k);
+  // Phase 2: thread u resolves mid (u, b) once its share k is whole; the
+  // column summed in order.
+  ok = 1;
+  if (j < n0) {
+    const int s = j * n1 + b;
+    const char* p = mid;
+    if (s != me) {
+      p = nullptr;
+      if (pu::spin<SYS>(g, L.mid_ready + s * L.stride + k, g.epoch))
+        p = pu::await_at<SYS>(g, L.addr + s, L.ready + s);
+      ok = p != nullptr;
+    }
+    src[j] = reinterpret_cast<const uint4*>(p);
+  }
+  if (!__syncthreads_and(ok)) return;
+  pu::ordered_sum<T, true>(src, n0, reinterpret_cast<uint4*>(out), lo / 16,
+                           hi / 16);
+  __syncthreads();
+  if (outer) pu::signal_word<SYS>(g, j, L.mid_released + me * L.stride + k);
+  // Hold this rank's input and mid shares until their readers released
+  // them.
+  ok = 1;
+  if (inner) ok = pu::spin<SYS>(g, L.released + j * L.stride + k, g.epoch);
+  if (outer) ok = pu::spin<SYS>(g, L.mid_released + j * L.stride + k,
+                                g.epoch);
+  __syncthreads_and(ok);
 }
 
 bool bad_grid(int rank, int n, int n0, int n1, long long nvec) {
@@ -266,28 +285,35 @@ int tdt_ag_torus(const void* table, const void* sig_table, void* err,
   return cudaGetLastError();
 }
 
-// nbytes: one rank's payload; dtype: 0 float32, 1 bfloat16.
+// nbytes: one rank's payload (x, out and mid, this rank's fresh row sum,
+// each hold it); dtype: 0 float32, 1 bfloat16. grid, sys and the pad
+// layout (addr, ready, released, mid_ready, mid_released, stride) come
+// from the host (ops/_comm.TorusARLayout, launch_push), the same on every
+// rank.
 int tdt_ar_torus(const void* table, const void* sig_table, void* err,
                  int rank, int n, unsigned long long epoch,
                  long long timeout_ns, const void* x, void* out,
-                 long long nbytes, int n0, int n1, int dtype,
+                 long long nbytes, void* mid, int n0, int n1, int dtype,
+                 int grid, int sys, int addr, int ready, int released,
+                 int mid_ready, int mid_released, int stride,
                  cudaStream_t stream) {
-  const long long nvec = nbytes / 16;
-  if (bad_grid(rank, n, n0, n1, nvec) || nbytes % 16)
+  const TorusLayout L{addr, ready, released, mid_ready, mid_released,
+                      stride};
+  if (bad_grid(rank, n, n0, n1, nbytes / 16) || nbytes % 16 ||
+      bad_torus_layout(L, n, grid))
     return cudaErrorInvalidValue;
   const Group g = make_group(table, sig_table, err, rank, n, epoch,
                              timeout_ns);
-  const dim3 grid(grid_for(nvec)), block(kThreads);
-  const uint4* xi = static_cast<const uint4*>(x);
-  uint4* o = static_cast<uint4*>(out);
-  if (dtype == 0)
-    ar_torus_kernel<float><<<grid, block, 0, stream>>>(g, n0, n1, xi, o,
-                                                       nvec);
-  else if (dtype == 1)
-    ar_torus_kernel<__nv_bfloat16><<<grid, block, 0, stream>>>(g, n0, n1,
-                                                               xi, o, nvec);
-  else
-    return cudaErrorInvalidValue;
+  typedef void (*K)(Group, TorusLayout, int, int, const char*, char*, char*,
+                    long long);
+  const K ks[2][2] = {
+      {ar_torus_kernel<float, false>, ar_torus_kernel<float, true>},
+      {ar_torus_kernel<__nv_bfloat16, false>,
+       ar_torus_kernel<__nv_bfloat16, true>}};
+  if (dtype < 0 || dtype > 1) return cudaErrorInvalidValue;
+  ks[dtype][sys ? 1 : 0]<<<grid, tdt::push::kThreads, 0, stream>>>(
+      g, L, n0, n1, static_cast<const char*>(x), static_cast<char*>(mid),
+      static_cast<char*>(out), nbytes);
   return cudaGetLastError();
 }
 

@@ -1,9 +1,10 @@
 // The push protocol and its copy engine: what B4's ring, full-mesh push
 // and parity stream (collectives.cu ag_ring, ag_full_mesh, ag_parity),
-// B5's one-shot and double tree (collectives.cu ar_one_shot, ar_tree),
-// B6's reduce-scatter (collectives.cu rs_ring), B7's shift and permutation (p2p.cu), B8's
-// AllToAll in both forms (all_to_all.cu a2a, a2a_push) and B12's torus
-// AllGather (multi_axis.cu ag_torus) share; B11's split-K route
+// B5's one-shot, parity stream and double tree (collectives.cu
+// ar_one_shot, ar_parity, ar_tree), B6's reduce-scatter (collectives.cu
+// rs_ring), B7's shift and permutation (p2p.cu), B8's AllToAll in both
+// forms (all_to_all.cu a2a, a2a_push) and B12's torus AllGather and
+// AllReduce (multi_axis.cu ag_torus, ar_torus) share; B11's split-K route
 // (gemm_comm.cu) takes its scoped flags (signal_word, spin).
 //
 // The protocol: the sender writes the receiver's output. A TPU kernel's
@@ -28,17 +29,20 @@
 // Flags only grow (the host hands every call a larger epoch), so a stale
 // flag never satisfies a wait. The layout (addr, ready, data, stride) is
 // computed on the host (ops/_comm.PushLayout) and passed by value.
-// Four kernels use the words otherwise. B12's torus AllGather indexes its
+// Some kernels use the words otherwise. B12's torus AllGather indexes its
 // data words by the output's slot, not by the sender (each slot of a
 // receiver has one writer, on either hop). B5's tree keeps its own words
 // (collectives.cu TreeLayout): a child's address in its parent's pad, and
-// flags along the tree's edges. B6's reduce-scatter and B5's one-shot
-// mirror the roles: a rank publishes its INPUT, its owners (the one-shot:
-// every rank, of the whole payload) read from it, and the data word
-// `data + owner * stride + b` (in the source's pad) releases the input,
-// which the source holds until every owner released it. B8's AllToAll
-// publishes two addresses a receiver (its output and its splits:
-// the second at word `splits + receiver`, ops/_comm.A2ALayout).
+// flags along the tree's edges. B6's reduce-scatter and B5's one-shot and
+// parity stream mirror the roles: a rank publishes its INPUT, its owners
+// (the one-shot: every rank, of the whole payload) read from it, and the
+// data word `data + owner * stride + b` (in the source's pad) releases the
+// input, which the source holds until every owner released it. B12's
+// torus AR mirrors them twice, over its own words (multi_axis.cu
+// TorusLayout): the input to the grid row, then a per-call mid to the
+// grid column. B8's AllToAll publishes two addresses a receiver (its
+// output and its splits: the second at word `splits + receiver`,
+// ops/_comm.A2ALayout).
 //
 // The copy engine reads each source byte once and writes it to every
 // destination (the push's n outputs, a multicast's destinations), over a
@@ -304,6 +308,72 @@ __device__ __forceinline__ bool push_share(const Group& g, const Layout& L,
           reinterpret_cast<uint4* const*>(dst), nd, lo / 16, hi / 16);
   __syncthreads();
   return true;
+}
+
+// Vectors [v0, v1) of the n operands src[0..n-1] summed in that order into
+// out, kUnroll loads of one operand in flight a thread, through L2 (a
+// peer's input, behind the flag this block acquired). kOnce = false: each
+// add in fp32, rounded to T (one rounding an add, as the ring's hops:
+// ops/reduce_scatter.py:35 _tiled_add's chain; B6). kOnce = true: fp32
+// from 0, rounded to T once (ops/allreduce.py:91 _reduce_slots; 0 + (-0)
+// is +0; B5's one-shot and parity stream, each phase of B12's torus AR).
+template <typename T, bool kOnce>
+__device__ __forceinline__ void ordered_sum(const uint4* const* src, int n,
+                                            uint4* out, long long v0,
+                                            long long v1) {
+  constexpr int E = dist::Vec<T>::N;
+  constexpr int U = kUnroll;
+  const long long TB = blockDim.x;
+  for (long long base = v0 + threadIdx.x; base < v1; base += TB * U) {
+    uint4 a[U], b[U];
+    float acc[kOnce ? U : 1][kOnce ? E : 1];
+#pragma unroll
+    for (int k = 0; k < U; ++k) {
+      const long long v = base + k * TB;
+      if (v < v1) a[k] = __ldcg(src[0] + v);
+    }
+    if constexpr (kOnce) {
+#pragma unroll
+      for (int k = 0; k < U; ++k)
+#pragma unroll
+        for (int e = 0; e < E; ++e)
+          acc[k][e] = 0.0f + to_f(dist::elems<T>(a[k])[e]);
+    }
+    for (int s = 1; s < n; ++s) {
+      const uint4* p = src[s];
+#pragma unroll
+      for (int k = 0; k < U; ++k) {
+        const long long v = base + k * TB;
+        if (v < v1) b[k] = __ldcg(p + v);
+      }
+#pragma unroll
+      for (int k = 0; k < U; ++k) {
+        const T* be = dist::elems<T>(b[k]);
+        if constexpr (kOnce) {
+#pragma unroll
+          for (int e = 0; e < E; ++e) acc[k][e] = acc[k][e] + to_f(be[e]);
+        } else {
+          T* ae = reinterpret_cast<T*>(&a[k]);
+#pragma unroll
+          for (int e = 0; e < E; ++e)
+            ae[e] = from_f<T>(to_f(ae[e]) + to_f(be[e]));
+        }
+      }
+    }
+    if constexpr (kOnce) {
+#pragma unroll
+      for (int k = 0; k < U; ++k) {
+        T* ae = reinterpret_cast<T*>(&a[k]);
+#pragma unroll
+        for (int e = 0; e < E; ++e) ae[e] = from_f<T>(acc[k][e]);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < U; ++k) {
+      const long long v = base + k * TB;
+      if (v < v1) out[v] = a[k];
+    }
+  }
 }
 
 // Zeros over bytes [lo, hi) of out (a rank that receives nothing).

@@ -34,16 +34,18 @@ _GROUP_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int,
                                         ctypes.c_void_p, ctypes.c_void_p,
                                         ctypes.c_longlong]
 
-PARITY_KERNEL = CudaKernel("collectives.cu", "tdt_ar_parity",
-                           _GROUP_ARGS + [ctypes.c_int, ctypes.c_void_p])
 # The push protocol's launch arguments (csrc/push.cuh): the grid, the
 # flags' scope, and the pad layout's addr, ready, data and stride.
 _PUSH_ARGS = [ctypes.c_int] * 6
-# B5's one-shot on the push protocol (every rank reads every input): the
-# dtype code, then the push arguments.
+# B5's one-shot on the push protocol (every rank reads every input) and its
+# parity stream (the same body over the stream's pad): the dtype code, then
+# the push arguments.
 ONE_SHOT_KERNEL = CudaKernel("collectives.cu", "tdt_ar_one_shot",
                              _GROUP_ARGS + [ctypes.c_int] + _PUSH_ARGS
                              + [ctypes.c_void_p])
+PARITY_KERNEL = CudaKernel("collectives.cu", "tdt_ar_parity",
+                           _GROUP_ARGS + [ctypes.c_int] + _PUSH_ARGS
+                           + [ctypes.c_void_p])
 # B4's ring: the full-mesh push's body in one hop, its own entry.
 AG_RING_KERNEL = CudaKernel("collectives.cu", "tdt_ag_ring",
                             _GROUP_ARGS + _PUSH_ARGS + [ctypes.c_void_p])
@@ -71,13 +73,16 @@ P2P_PERMUTE_KERNEL = CudaKernel("p2p.cu", "tdt_p2p_permute",
                                 _GROUP_ARGS + [ctypes.c_int, ctypes.c_int]
                                 + _PUSH_ARGS + [ctypes.c_void_p])
 # B12, the collectives over both axes of a 2-axis group
-# (csrc/multi_axis.cu): the grid's (n0, n1) ride after the byte count;
-# the AllGather is a push-protocol kernel.
+# (csrc/multi_axis.cu), both push-protocol kernels: the grid's (n0, n1)
+# ride after the byte count (the AllReduce's per-call mid before them, its
+# dtype code after), then the grid, the scope and the layout's words
+# (the AllReduce's TorusARLayout: six).
 AG_TORUS_KERNEL = CudaKernel("multi_axis.cu", "tdt_ag_torus",
                              _GROUP_ARGS + [ctypes.c_int, ctypes.c_int]
                              + _PUSH_ARGS + [ctypes.c_void_p])
 AR_TORUS_KERNEL = CudaKernel("multi_axis.cu", "tdt_ar_torus",
-                             _GROUP_ARGS + [ctypes.c_int] * 3
+                             _GROUP_ARGS + [ctypes.c_void_p]
+                             + [ctypes.c_int] * 3 + [ctypes.c_int] * 8
                              + [ctypes.c_void_p])
 # B8, the EP AllToAll (csrc/all_to_all.cu): the barrier form and the
 # parity stream, both on the push protocol (the send buffer and the output
@@ -125,13 +130,14 @@ COLLECTIVE_KERNELS = (ONE_SHOT_KERNEL, PARITY_KERNEL, RS_RING_KERNEL,
 _GEMM_OP = {AG_GEMM_KERNEL: 0, GEMM_RS_KERNEL: 1, GEMM_AR_KERNEL: 2}
 
 
-# The push protocol of B4's ring, full-mesh push and parity stream, B5's
-# one-shot and tree, B6, B7, B8 and B12's torus AllGather (csrc/push.cuh):
-# the receiver publishes its fresh output's address into its senders'
-# signal pads, each sender writes its block straight into that output and
-# raises a data flag a block (B6 and the one-shot mirror the roles: a rank
-# publishes its input, its owners read it and release it). The host lays the pad out, sizes the grid and picks
-# the flags' scope; the kernel checks them.
+# The push protocol of every collective kernel (csrc/push.cuh; B11's
+# split-K route takes its flags): the receiver publishes its fresh output's
+# address into its senders' signal pads, each sender writes its block
+# straight into that output and raises a data flag a block (B6, B5's
+# one-shot and parity stream and B12's torus AR mirror the roles: a rank
+# publishes its input, its owners read it and release it). The host lays
+# the pad out, sizes the grid and picks the flags' scope; the kernel checks
+# them.
 MAX_RANKS = 8                    # csrc/dist.cuh kMaxRanks
 PUSH_MAX_BLOCKS = 128            # the data flags a source: the largest grid
 PUSH_BLOCK_BYTES = 64 << 10      # the least payload a block is given
@@ -161,8 +167,13 @@ AG_RING_BLOCK_BYTES = 32 << 10
 # 0.0125-0.0136 and 0.0128-0.0129 ms a call as a span, 32 KiB 0.0132-0.0139,
 # 64 KiB (the copy engine's default, 2 blocks) 0.0150; at 2048 rows all hit
 # the cap of 33 and tied at 0.0825-0.0840 (H100 80GB HBM3, 700 W;
-# scripts/time_port_copy.py --one-shot-block, PERF.md §6 row 6).
+# scripts/time_port_copy.py --one-shot-block, PERF.md §6 row 6). B5's
+# parity stream runs the same body at the same block: a decode step's 4 x
+# 4096 bf16 (32 KiB) takes 4 blocks.
 AR_ONE_SHOT_BLOCK_BYTES = 8 << 10
+# B12's torus AR: a block per AR_TORUS_BLOCK_BYTES of the payload (16
+# blocks, the cap at 8 ranks a card, at 16 x 4096 bf16).
+AR_TORUS_BLOCK_BYTES = 8 << 10
 
 
 @dataclasses.dataclass(frozen=True)
@@ -255,6 +266,64 @@ class TreeLayout:
 TREE_LAYOUT = TreeLayout()
 
 
+@dataclasses.dataclass(frozen=True)
+class TorusARLayout:
+    """Word offsets of B12's torus AllReduce on the push protocol
+    (``csrc/multi_axis.cu`` TorusLayout), for peer j (a global rank) and
+    block k: ``addr + j`` / ``ready + j`` j's published input (an inner
+    peer) or mid (an outer peer) and its epoch; ``released + j * stride +
+    k`` inner reader j released this rank's input share k;
+    ``mid_ready + j * stride + k`` outer peer j's mid share k is whole;
+    ``mid_released + j * stride + k`` outer reader j released this rank's
+    mid share k — all in the receiving rank's pad."""
+
+    addr: int = 0
+    ready: int = MAX_RANKS
+    released: int = 2 * MAX_RANKS
+    mid_ready: int = 2 * MAX_RANKS + MAX_RANKS * PUSH_MAX_BLOCKS
+    mid_released: int = 2 * MAX_RANKS + 2 * MAX_RANKS * PUSH_MAX_BLOCKS
+    stride: int = PUSH_MAX_BLOCKS
+
+    def words(self, n: int, grid: int) -> dict:
+        """The words a call at n ranks and ``grid`` blocks uses, by
+        kind."""
+        per_block = {k: [getattr(self, k) + j * self.stride + b
+                         for j in range(n) for b in range(grid)]
+                     for k in ("released", "mid_ready", "mid_released")}
+        return {"addr": [self.addr + j for j in range(n)],
+                "ready": [self.ready + j for j in range(n)], **per_block}
+
+    def args(self) -> tuple:
+        return (self.addr, self.ready, self.released, self.mid_ready,
+                self.mid_released, self.stride)
+
+
+TORUS_AR_LAYOUT = TorusARLayout()
+
+
+@dataclasses.dataclass
+class StreamWorkspace:
+    """The persistent workspace of a parity stream (B4's AllGather,
+    B5's AllReduce): on a card ``buf`` is a signal pad (no payload: the
+    push protocol meets in the callers' own tensors); on the CPU, where the
+    plain version meets through slots, a symmetric buffer of two parity
+    slabs of ``shape``. ``epochs[r]``: rank r's next call index."""
+
+    buf: SymmBuffer
+    shape: tuple
+    dtype: torch.dtype
+
+    @property
+    def epochs(self) -> list:
+        return self.buf.epochs
+
+    @property
+    def tensors(self) -> list:
+        """Each rank's buffer: its two parity slabs on the CPU; a pad's
+        empty tensor on a card."""
+        return self.buf.tensors
+
+
 def push_grid(nbytes: int, caps, block_bytes: int = PUSH_BLOCK_BYTES
               ) -> int:
     """The copy engine's grid for a payload of ``nbytes`` a rank (the bytes
@@ -300,10 +369,10 @@ def launch_push(kernel: CudaKernel, pad: SymmBuffer, rank: int,
                 block_bytes: int = PUSH_BLOCK_BYTES,
                 layout=PUSH_LAYOUT) -> None:
     """One launch of a push-protocol kernel (B4's ring, full-mesh push and
-    parity stream, B6, B7, B8's two forms with their layout, B12's torus
-    AllGather; B5's tree
-    with its ``grid`` and ``layout``) at the rank group's meeting, as
-    :func:`launch`, on the pad ``pad`` (a
+    parity stream, B5's one-shot and parity stream, B6, B7, B8's two forms
+    and B12's torus AR with their layouts, B12's torus AllGather; B5's tree
+    with its ``grid`` and ``layout``) at the rank group's meeting
+    (:func:`_launch_at_meeting`), on the pad ``pad`` (a
     :func:`~triton_distributed_tpu_torch.runtime.symm.symm_pad`, or the
     tree's workspace): ``out`` is this rank's fresh output, which its
     senders write (B6: its owner's sum). ``grid``: else :func:`push_grid`
@@ -390,31 +459,18 @@ def check_payload(ctx: DistContext, rank: int, x: torch.Tensor, what: str,
     return x
 
 
-def launch(kernel: CudaKernel, buf: SymmBuffer, rank: int, epoch: int,
-           x: torch.Tensor, out: torch.Tensor, nbytes: int,
-           *extra) -> None:
+def _launch_at_meeting(kernel: CudaKernel, buf: SymmBuffer, rank: int,
+                       dev, what: str, args,
+                       variants: tuple = ()) -> None:
     """One collective launch on the rank's current stream, made at the
     rank group's meeting: the last rank to arrive launches every rank's
     kernel (``DistContext.meet``), so no kernel of the collective runs
     before every rank's part before it was enqueued, and every rank's
-    kernel is launched before any rank goes on — a rank thread that
-    later blocks on the device waits only for work that can finish.
-    ``extra``: the kernel's own arguments between the byte count and the
-    stream (a dtype code, a shift, a permutation's send set and source)."""
-    ctx = buf.ctx
-    _launch_at_meeting(kernel, buf, rank, x.device, "collective.launch", (
-        ptr(buf.table[rank]), ptr(buf.signal_table[rank]),
-        ptr(ctx.error_word(rank)), rank, ctx.num_ranks, epoch,
-        int(ctx.timeout_s * 1e9), ptr(x), ptr(out), nbytes, *extra,
-        current_stream(x.device)))
-
-
-def _launch_at_meeting(kernel: CudaKernel, buf: SymmBuffer, rank: int,
-                       dev, what: str, args,
-                       variants: tuple = ()) -> None:
-    """Launch at the meeting. ``args``: the launch's arguments, or a
-    function making them, called inside the meeting's action — state it
-    moves (an epoch counter) then moves only once every rank has met."""
+    kernel is launched before any rank goes on — a rank thread that later
+    blocks on the device waits only for work that can finish. ``args``:
+    the launch's arguments, or a function making them, called inside the
+    meeting's action — state it moves (an epoch counter) then moves only
+    once every rank has met."""
     kernel.library()              # a first-use build, before the meeting
     buf.await_ready(rank)
 
@@ -432,12 +488,12 @@ def launch_gemm_comm(kernel: CudaKernel, buf: SymmBuffer, rank: int,
                      ncols: int, ldb: int, parts: int, tile: int,
                      vec_b: bool) -> None:
     """One launch of a fused GEMM kernel (``csrc/gemm_comm.cu``) at the
-    rank group's meeting, as :func:`launch`. ``tile``: the route of
-    :data:`GEMM_ROUTES` (0 the tall mma.sync tile, 1 the short one, 2 the
-    wgmma mainloop, 3 B11's split-K), counted under its name. The kernel sizes its
-    persistent grid to its share of the card: the ranks on this rank's
-    device (n for virtual ranks, 1 with a card a rank); the split-K
-    route's flags take :func:`push_scope`."""
+    rank group's meeting (:func:`_launch_at_meeting`). ``tile``: the route
+    of :data:`GEMM_ROUTES` (0 the tall mma.sync tile, 1 the short one, 2
+    the wgmma mainloop, 3 B11's split-K), counted under its name. The
+    kernel sizes its persistent grid to its share of the card: the ranks
+    on this rank's device (n for virtual ranks, 1 with a card a rank); the
+    split-K route's flags take :func:`push_scope`."""
     ctx = buf.ctx
     dev = x.device
     # The whole group's ranks on this card, not the fiber's: the cap keeps

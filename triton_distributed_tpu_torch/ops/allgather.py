@@ -33,22 +33,19 @@ through the rank group.
 
 from __future__ import annotations
 
-import dataclasses
 import enum
 
 import torch
 
 from triton_distributed_tpu_torch.ops._comm import (
     AG_FULL_MESH_KERNEL, AG_PARITY_KERNEL, AG_RING_BLOCK_BYTES,
-    AG_RING_KERNEL, AGP_BLOCK_BYTES, check_out, check_payload, launch_push,
-    push_slots, rank_of, rank_shards, straggle,
+    AG_RING_KERNEL, AGP_BLOCK_BYTES, StreamWorkspace, check_out,
+    check_payload, launch_push, push_slots, rank_of, rank_shards, straggle,
 )
 from triton_distributed_tpu_torch.runtime.context import (
     DistContext, get_context, group_all_gather, group_context,
 )
-from triton_distributed_tpu_torch.runtime.symm import (
-    SymmBuffer, symm_pad, symm_zeros,
-)
+from triton_distributed_tpu_torch.runtime.symm import symm_pad, symm_zeros
 
 
 class AllGatherMethod(enum.Enum):
@@ -193,39 +190,10 @@ def all_gather_local(x_local: torch.Tensor, axis: str = "tp",
     return _ag_ring(x_local, n, ctx, rank)
 
 
-@dataclasses.dataclass
-class AGStreamWorkspace:
-    """The persistent workspace of :func:`all_gather_stream`: on a card
-    ``buf`` is a signal pad (no payload: the senders write the receivers'
-    outputs); on the CPU, where the plain version meets through slots, a
-    symmetric (2, n·m, cols) buffer of two parity slabs. ``epochs[r]``:
-    rank r's next call index."""
-
-    buf: SymmBuffer
-    n: int
-    m: int
-    cols: int
-    dtype: torch.dtype
-
-    @property
-    def shape(self) -> tuple:
-        return (2, self.n * self.m, self.cols)
-
-    @property
-    def epochs(self) -> list:
-        return self.buf.epochs
-
-    @property
-    def tensors(self) -> list:
-        """Each rank's buffer: its two parity slabs on the CPU; a pad's
-        empty tensor on a card."""
-        return self.buf.tensors
-
-
 def ag_stream_workspace(n: int, m: int, cols: int, dtype, *,
                         ctx: DistContext | None = None,
                         tag: str = "ag_stream"
-                        ) -> tuple[AGStreamWorkspace, int]:
+                        ) -> tuple[StreamWorkspace, int]:
     """The persistent (workspace, call_index) pair of
     :func:`all_gather_stream` for (m, cols) ``dtype`` chunks, allocated
     once per (shape, dtype, tag) on the context, and the index of the next
@@ -239,10 +207,10 @@ def ag_stream_workspace(n: int, m: int, cols: int, dtype, *,
         buf = symm_pad(ctx, tag=f"{tag}-{n}x{m}x{cols}-{dtype}")
     else:
         buf = symm_zeros(ctx, (2, n * m, cols), dtype, tag=tag)
-    return AGStreamWorkspace(buf, n, m, cols, dtype), buf.call_index()
+    return StreamWorkspace(buf, (2, n * m, cols), dtype), buf.call_index()
 
 
-def all_gather_stream(x_local: torch.Tensor, ws: AGStreamWorkspace,
+def all_gather_stream(x_local: torch.Tensor, ws: StreamWorkspace,
                       call_index: int, *, axis: str = "tp",
                       num_ranks: int | None = None,
                       straggler: tuple | None = None,

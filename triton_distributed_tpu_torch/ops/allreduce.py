@@ -29,6 +29,10 @@ Methods:
 - ``XLA``: the JAX package's ``psum`` — a plain sum through the rank
   group (``runtime/context.group_psum``).
 
+The decode path's repeated AllReduces take :func:`all_reduce_stream`
+(the reference's parity form): on a card the one-shot's body over the
+stream's own pad, its epoch the call index + 1.
+
 Every method's order and rounding is part of its contract — the replicas
 must end bit-identical —, and each kernel's plain version keeps it:
 one-shot and parity add in fp32 from 0 in rank order and cast once; the
@@ -48,8 +52,8 @@ import torch
 
 from triton_distributed_tpu_torch.ops._comm import (
     AR_ONE_SHOT_BLOCK_BYTES, DTYPE_CODE, ONE_SHOT_KERNEL, PARITY_KERNEL,
-    TREE_KERNEL, check_out, check_payload, launch, launch_push, launch_tree,
-    push_slots, rank_of, straggle,
+    TREE_KERNEL, StreamWorkspace, check_out, check_payload, launch_push,
+    launch_tree, push_slots, rank_of, straggle,
 )
 from triton_distributed_tpu_torch.ops.allgather import (
     AllGatherMethod, all_gather_local,
@@ -60,9 +64,7 @@ from triton_distributed_tpu_torch.ops.reduce_scatter import (
 from triton_distributed_tpu_torch.runtime.context import (
     DistContext, get_context, group_context, group_psum,
 )
-from triton_distributed_tpu_torch.runtime.symm import (
-    SymmBuffer, symm_pad, symm_zeros,
-)
+from triton_distributed_tpu_torch.runtime.symm import symm_pad, symm_zeros
 
 
 class AllReduceMethod(enum.Enum):
@@ -256,11 +258,9 @@ def all_reduce_local(x_local: torch.Tensor, axis: str = "tp",
     """Rank-local AllReduce inside ``DistContext.run``: ``x_local``
     (m, cols) on every rank → (m, cols) = the ranks' sum, bit-identical on
     every rank. ``out``: the output the double tree writes (every element;
-    a harness's sentinel), for ``method="tree"`` alone. Repeated
-    steady-state calls (decode) take :func:`all_reduce_stream`."""
-    if out is not None and AllReduceMethod(method) != AllReduceMethod.TREE:
-        raise ValueError("all_reduce: out= is the tree's — method "
-                         f"{AllReduceMethod(method).value!r}")
+    a harness's sentinel), for ``method="tree"`` alone — or, over a tuple
+    axis, the torus one-shot's. Repeated steady-state calls (decode) take
+    :func:`all_reduce_stream`."""
     if isinstance(axis, (tuple, list)):
         # The multi-axis form (ops/multi_axis.py): num_ranks is (n0, n1);
         # "xla" is the plain sum over both axes, "auto" passes through
@@ -274,10 +274,14 @@ def all_reduce_local(x_local: torch.Tensor, axis: str = "tp",
         )
 
         m = AllReduceMethod(method).value
-        if m == "xla":
+        if m == "xla" and out is None:
             return group_psum(x_local, axis=tuple(axis))
         return all_reduce_torus_local(x_local, axes=tuple(axis),
-                                      dims=tuple(num_ranks), method=m)
+                                      dims=tuple(num_ranks), method=m,
+                                      out=out)
+    if out is not None and AllReduceMethod(method) != AllReduceMethod.TREE:
+        raise ValueError("all_reduce: out= is the tree's — method "
+                         f"{AllReduceMethod(method).value!r}")
     method = AllReduceMethod(method)
     ctx, rank, n = rank_of(axis, num_ranks)
     if n == 1:
@@ -310,55 +314,63 @@ def all_reduce_local(x_local: torch.Tensor, axis: str = "tp",
 
 def ar_stream_workspace(n: int, m: int, cols: int, dtype, *,
                         ctx: DistContext | None = None,
-                        tag: str = "ar_stream") -> tuple[SymmBuffer, int]:
+                        tag: str = "ar_stream"
+                        ) -> tuple[StreamWorkspace, int]:
     """The persistent (workspace, call_index) pair of
-    :func:`all_reduce_stream`: a symmetric (2, n, m, cols) buffer of two
-    parity slabs, allocated once per (shape, dtype, tag) on the context,
-    and call index 0. Thread both through the decode loop; give each
+    :func:`all_reduce_stream` for (m, cols) ``dtype`` payloads, allocated
+    once per (shape, dtype, tag) on the context, and the index of the next
+    call (0 for a new tag). Thread both through the decode loop; give each
     stream of calls its own ``tag``; asking again for a tag in use returns
     its workspace with the index of its next call (the calling rank's,
-    inside a rank thread). The reference pads the
-    rows to the TPU's sublane tiling (``_ar_rows_padded``); Hopper has no
-    such tiling, so the rows stay as they are."""
+    inside a rank thread). The reference pads the rows to the TPU's
+    sublane tiling (``_ar_rows_padded``); Hopper has no such tiling, so the
+    rows stay as they are."""
     ctx = group_context(ctx)
     if ctx.num_ranks != n:
         raise ValueError(f"n = {n} but the rank group has {ctx.num_ranks}")
-    ws = symm_zeros(ctx, (2, n, m, cols), dtype, tag=tag)
-    return ws, ws.call_index()
+    if ctx.is_cuda:
+        buf = symm_pad(ctx, tag=f"{tag}-{n}x{m}x{cols}-{dtype}")
+    else:
+        buf = symm_zeros(ctx, (2, n, m, cols), dtype, tag=tag)
+    return StreamWorkspace(buf, (2, n, m, cols), dtype), buf.call_index()
 
 
-def all_reduce_stream(x_local: torch.Tensor, ws: SymmBuffer,
+def all_reduce_stream(x_local: torch.Tensor, ws: StreamWorkspace,
                       call_index: int, *, axis: str = "tp",
                       num_ranks: int | None = None,
                       straggler: tuple | None = None,
                       force_kernel: bool = False):
-    """Barrier-free one-shot AllReduce over a persistent parity workspace
+    """Barrier-free one-shot AllReduce over a persistent workspace
     (reference ``all_reduce_stream``; kernel ``ar_parity`` of
     ``csrc/collectives.cu``). x_local: (m, cols); ws from
     :func:`ar_stream_workspace`; ``call_index``: a host int, the same
-    sequence on every rank. Returns (sum, ws, call_index + 1).
+    sequence on every rank. Returns (sum, ws, call_index + 1), the sum in
+    rank order in fp32 from 0, cast once (:func:`reduce_slots_plain`).
 
-    Call t uses parity slab ``t % 2``: each rank pushes its block into
-    slot ``rank`` of every peer's slab and waits for the peers' flags of
-    that parity, whose value is ``t + 1``. Safety, per parity p: for a
-    rank to write parity-p slots of call t+2 it must have finished call
-    t+1, which needed every peer's call-(t+1) delivery, which each peer
-    sends only after it finished reducing its call-t (parity-p) slab — the
-    completion chain orders the reuse, so no barrier is needed. That holds
-    only with a persistent (ws, call_index) pair per batch shape and per
-    rank, threaded through the loop: a transient buffer could be written
-    by a peer before it exists. Per-parity flags keep a fast peer's t+1
-    delivery from counting toward call t."""
+    On a card, the one-shot's push protocol over the stream's pad with
+    the epoch call_index + 1: each rank's block 0 publishes its input to
+    every peer, block b reads share b of every rank's input in rank order
+    into a fresh output and releases each source, and a rank's kernel
+    holds its input until every reader released it — no slab, slot or
+    entry barrier; the pad's epochs order its reuse across calls (the
+    kernel's comment gives the argument). The caller's input is the
+    transport: it must not be written before the call's kernel ends on the
+    rank's stream, which stream order gives any later work there. On the
+    CPU, call t uses parity slab ``t % 2``: each rank pushes its block
+    into slot ``rank`` of every peer's slab, meets them and sums its slab.
+    A (ws, call_index) pair must stay persistent per batch shape and
+    rank, threaded through the loop; a call out of sequence is refused.
+    At n = 1 the input comes back unless ``force_kernel`` (the loopback:
+    the kernel sums the one input into a fresh output)."""
     ctx, rank, n = rank_of(axis, num_ranks)
     if n == 1 and not force_kernel:
         return x_local, ws, call_index + 1
     m, cols = x_local.shape
-    shape = tuple(ws.tensors[rank].shape)
-    if shape != (2, n, m, cols):
-        raise ValueError(f"workspace shape {shape} != (2, {n}, {m}, {cols}) "
-                         "— allocate via ar_stream_workspace")
-    if ws.tensors[rank].dtype != x_local.dtype:
-        raise ValueError(f"workspace dtype {ws.tensors[rank].dtype} != input"
+    if ws.shape != (2, n, m, cols):
+        raise ValueError(f"workspace shape {ws.shape} != (2, {n}, {m}, "
+                         f"{cols}) — allocate via ar_stream_workspace")
+    if ws.dtype != x_local.dtype:
+        raise ValueError(f"workspace dtype {ws.dtype} != input"
                          f" {x_local.dtype} — allocate ar_stream_workspace "
                          "with the activation dtype")
     if call_index != ws.epochs[rank]:
@@ -367,20 +379,22 @@ def all_reduce_stream(x_local: torch.Tensor, ws: SymmBuffer,
             f"this workspace's next call is {ws.epochs[rank]} — a (ws, "
             "call_index) pair must stay persistent and in sequence (a "
             "second stream of calls needs its own workspace tag)")
-    ws.epochs[rank] = call_index + 1
     straggle(straggler, n, rank, call_index)
-    p = call_index % 2
     if x_local.device.type == "cuda":
         x = check_payload(ctx, rank, x_local, "all_reduce_stream")
         out = torch.empty_like(x)
-        launch(PARITY_KERNEL, ws, rank, call_index, x, out,
-               x.numel() * x.element_size(), DTYPE_CODE[x.dtype])
+        # The pad's next epoch is call_index + 1: the kernel's flags.
+        launch_push(PARITY_KERNEL, ws.buf, rank, x, out,
+                    x.numel() * x.element_size(), DTYPE_CODE[x.dtype],
+                    block_bytes=AR_ONE_SHOT_BLOCK_BYTES)
         return out, ws, call_index + 1
     if x_local.device.type != "cpu":
         raise ValueError(f"all_reduce_stream: no kernel for device "
                          f"{x_local.device}")
     PARITY_KERNEL.count_plain()
-    push_slots(ctx, rank, ws, x_local, (p, rank), "ar_stream")
+    ws.epochs[rank] = call_index + 1
+    p = call_index % 2
+    push_slots(ctx, rank, ws.buf, x_local, (p, rank), "ar_stream")
     return reduce_slots_plain(ws.tensors[rank][p]), ws, call_index + 1
 
 

@@ -15,7 +15,11 @@ joint index g = a·n1 + b, as ``P((ax0, ax1))`` shards.
   kept, no gather buffer.
 - :func:`all_reduce_torus_local`: ``"one_shot"`` — the hierarchical
   one-shot (along ax1, then the reduced block along ax0, one kernel; each
-  phase sums its slots in order in fp32 and casts once); ``"two_shot"`` —
+  phase sums in order in fp32 and casts once). On the push protocol with
+  the roles mirrored: each rank publishes its input to its grid row and a
+  fresh per-call mid to its grid column, sums its row's inputs into the
+  mid, then its column's mids into its output (:func:`torus_ar_schedule`);
+  only a signal pad is kept, no slot workspace. ``"two_shot"`` —
   :func:`reduce_scatter_torus_local` then :func:`all_gather_torus_local`;
   ``"auto"`` — one-shot on a real grid.
 - :func:`reduce_scatter_torus_local`: the ring RS (B6) along ax0 on n0
@@ -25,9 +29,10 @@ joint index g = a·n1 + b, as ``P((ax0, ax1))`` shards.
 A degenerate grid (``n0 == 1`` or ``n1 == 1``) takes the 1-D op of the
 other axis; ``n0·n1 == 1`` is the identity. On a CUDA tensor the wrappers
 launch the kernels (counted in ``AG_TORUS_KERNEL`` / ``AR_TORUS_KERNEL``);
-on a CPU tensor they run the plain versions after a rendezvous through
-the symmetric buffer's slots. Call the ``*_local`` functions inside
-``DistContext.run``; the host-level forms run them on every rank.
+on a CPU tensor they run the plain versions, which replay the kernels'
+schedules through the rank threads' exchange. Call the ``*_local``
+functions inside ``DistContext.run``; the host-level forms run them on
+every rank.
 """
 
 from __future__ import annotations
@@ -35,14 +40,15 @@ from __future__ import annotations
 import torch
 
 from triton_distributed_tpu_torch.ops._comm import (
-    AG_TORUS_KERNEL, AR_TORUS_KERNEL, DTYPE_CODE, check_out, check_payload,
-    launch, launch_push, push_slots, rank_of,
+    AG_TORUS_KERNEL, AR_TORUS_BLOCK_BYTES, AR_TORUS_KERNEL, DTYPE_CODE,
+    TORUS_AR_LAYOUT, check_out, check_payload, launch_push, rank_of,
 )
 from triton_distributed_tpu_torch.ops.allreduce import reduce_slots_plain
+from triton_distributed_tpu_torch.runtime.build import ptr
 from triton_distributed_tpu_torch.runtime.context import (
     DistContext, get_context,
 )
-from triton_distributed_tpu_torch.runtime.symm import symm_pad, symm_zeros
+from triton_distributed_tpu_torch.runtime.symm import symm_pad
 
 
 def ar_torus_plain(slots, n0: int, n1: int) -> torch.Tensor:
@@ -74,6 +80,30 @@ def torus_schedule(n0: int, n1: int) -> list:
             "forward": [(a * n1 + (b - i) % n1, outer)
                         for i in range(1, n1)],
             "writers": sorted(inner + outer)})
+    return plan
+
+
+def torus_ar_schedule(n0: int, n1: int) -> list:
+    """What every rank of an (n0, n1) grid does in the torus AllReduce, as
+    ``csrc/multi_axis.cu`` ar_torus does it: rank g = (a, b) ``publish``es
+    its input to its ``inner`` peers (a, j) and its mid to its ``outer``
+    peers (u, b); phase 1 sums the inputs of ``row`` (a, 0), (a, 1), ...
+    in that order into its mid, phase 2 the mids of ``column`` (0, b),
+    (1, b), ... in that order into its output; it releases each source
+    after reading it, and ends once its ``inner`` readers released its
+    input and its ``outer`` readers its mid. One dict a rank, in rank
+    order."""
+    plan = []
+    for g in range(n0 * n1):
+        a, b = divmod(g, n1)
+        inner = [a * n1 + j for j in range(n1) if j != b]
+        outer = [u * n1 + b for u in range(n0) if u != a]
+        plan.append({
+            "publish": {**{j: "input" for j in inner},
+                        **{u: "mid" for u in outer}},
+            "inner": inner, "outer": outer,
+            "row": [a * n1 + j for j in range(n1)],
+            "column": [u * n1 + b for u in range(n0)]})
     return plan
 
 
@@ -140,14 +170,21 @@ def all_gather_torus_local(x_local: torch.Tensor, *, axes: tuple[str, str],
 
 def all_reduce_torus_local(x_local: torch.Tensor, *, axes: tuple[str, str],
                            dims: tuple[int, int],
-                           method: str = "one_shot") -> torch.Tensor:
+                           method: str = "one_shot",
+                           out: torch.Tensor | None = None) -> torch.Tensor:
     """Rank-local 2-axis AllReduce inside ``DistContext.run``:
     ``x_local`` (m, cols) → (m, cols) summed over the n0·n1 grid, the
     same bits on every rank. ``method``: ``"one_shot"`` (the hierarchical
     one-shot), ``"two_shot"`` (RS then AG over both axes), ``"auto"``
-    (one-shot on a real grid; the 1-D AUTO on a degenerate one)."""
+    (one-shot on a real grid; the 1-D AUTO on a degenerate one). ``out``:
+    the output the one-shot writes (every element; a harness's sentinel),
+    else a fresh one — on a real grid only."""
     ax0, ax1 = axes
     n0, n1 = dims
+    if out is not None and (n0 == 1 or n1 == 1
+                            or method not in ("one_shot", "auto")):
+        raise ValueError("all_reduce_torus: out= is the one-shot's on a "
+                         f"real grid, not {method!r} on {dims}")
     if n0 * n1 == 1:
         return x_local
     if n0 == 1 or n1 == 1:
@@ -171,23 +208,39 @@ def all_reduce_torus_local(x_local: torch.Tensor, *, axes: tuple[str, str],
     if method != "one_shot":
         raise ValueError(f"unknown torus AR method {method!r}")
     ctx, rank, n = _grid_call(x_local, axes, dims, "all_reduce_torus")
-    m, cols = x_local.shape
+    if out is not None:
+        out = check_out(ctx, rank, out, x_local.shape, x_local.dtype,
+                        "all_reduce_torus")
     if x_local.device.type == "cuda":
         x = check_payload(ctx, rank, x_local, "all_reduce_torus")
-        # ws1 (n1 slots), ws0 (n0 slots) and mid, one symmetric buffer.
-        ws = symm_zeros(ctx, (n1 + n0 + 1, m, cols), x.dtype, tag="ar_torus")
-        out = torch.empty_like(x)
-        launch(AR_TORUS_KERNEL, ws, rank, ws.next_epoch(rank), x, out,
-               x.numel() * x.element_size(), n0, n1, DTYPE_CODE[x.dtype])
+        # The row sum, fresh a call: the outer peers read it while this
+        # rank's kernel holds it (allocated on the rank's stream, so it
+        # is not handed out again before that kernel ends).
+        mid = torch.empty_like(x)
+        if out is None:
+            out = torch.empty_like(x)
+        launch_push(AR_TORUS_KERNEL, symm_pad(ctx, tag="ar_torus"), rank, x,
+                    out, x.numel() * x.element_size(), ptr(mid), n0, n1,
+                    DTYPE_CODE[x.dtype], block_bytes=AR_TORUS_BLOCK_BYTES,
+                    layout=TORUS_AR_LAYOUT)
         return out
     if x_local.device.type != "cpu":
         raise ValueError(f"all_reduce_torus: no kernel for device "
                          f"{x_local.device}")
     AR_TORUS_KERNEL.count_plain()
-    buf = symm_zeros(ctx, (n, m, cols), x_local.dtype, tag="ar_torus_plain")
-    ctx.barrier(rank, "ar_torus.entry")
-    push_slots(ctx, rank, buf, x_local, rank, "ar_torus.data")
-    return ar_torus_plain(buf.tensors[rank], n0, n1)
+    plan = torus_ar_schedule(n0, n1)[rank]
+    # What each rank published: its input to its row, its mid to its
+    # column (every rank's, read by index).
+    ins = ctx.exchange(rank, x_local, "ar_torus.input")
+    mid = reduce_slots_plain([ins[s] for s in plan["row"]])
+    mids = ctx.exchange(rank, mid, "ar_torus.mid")
+    got = reduce_slots_plain([mids[s] for s in plan["column"]])
+    # The sources are held until every reader is done.
+    ctx.barrier(rank, "ar_torus.released")
+    if out is None:
+        return got
+    out.copy_(got)
+    return out
 
 
 def reduce_scatter_torus_local(x_local: torch.Tensor, *,

@@ -38,10 +38,10 @@ from triton_distributed_tpu_torch.runtime.context import (
 )
 
 # 64-bit flags a rank's signal pad holds (csrc/dist.cuh kSignalWords): the
-# collectives' barrier and step flags (8 blocks, 8 steps, 8 ranks), the
 # fused GEMM kernels' barrier (128 blocks x 8 ranks) and data flags (up to
 # 8 ranks x 4 sub-blocks x 128 blocks), or the push protocol's address,
-# ready and data words (ops/_comm.PushLayout: 8 + 8 + 8 x 128).
+# ready and data words (ops/_comm.PushLayout: 8 + 8 + 8 x 128; the torus
+# AR's TorusARLayout 8 + 8 + 3 x 8 x 128).
 SIGNAL_WORDS = 8192
 
 
